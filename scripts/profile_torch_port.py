@@ -1,15 +1,23 @@
 #!/usr/bin/env python3
-"""Where the time goes in the port's flagship solve, on one NVIDIA GPU.
+"""Where the time goes in one of the port's solves, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_port.py [--side 1000] [--repeats 5] [--out DIR] [--drift]
+    python3 scripts/profile_torch_port.py [--path flagship|estimated|hyperspectral|hyperspectral3d]
+                                          [--side 1000] [--repeats 5] [--out DIR] [--drift]
 
-Runs the fixed-iteration flagship (1 x side x side HR, 4 frames, 4x, 3x3 blur
-sigma 1.5, TV 0.01, linear_cg, 3 IRLS rounds x 50 iterations, float32) through
-``IRLSMapSolver`` a few times for wall-clock numbers, then once more under
-``torch.profiler`` and prints device time by kernel, the device's busy and
-idle share of the solve, and the host time per iteration. Writes the same as
-JSON to ``DIR/profile_torch_port.json`` (default ``_profile``). Fails
-without a CUDA device.
+Runs one path's solve through ``IRLSMapSolver`` a few times for wall-clock
+numbers, then once more under ``torch.profiler`` and prints device time by
+kernel, the device's busy and idle share of the solve, and the host time per
+iteration. Writes the same as JSON to ``DIR/profile_torch_port[_PATH].json``
+(default ``_profile``). Fails without a CUDA device. The paths, all float32,
+linear_cg with a fixed iteration count, are those of ``chip_smoke.py``:
+
+- ``flagship``: 1 x side x side HR, 4 frames, 4x, 3x3 blur sigma 1.5, TV 0.01,
+  3 IRLS rounds x 50 iterations;
+- ``estimated``: RGB 3 x 1000 x 1000, 4 frames at 4x with fractional shifts
+  found by registration, BTV(3, 0.5) 0.01, 4 rounds x 50 iterations with the
+  shifts refined between rounds (registration is timed beside the solve);
+- ``hyperspectral`` / ``hyperspectral3d``: 64 bands x 256 x 256, 4 frames at
+  2x, 2D / 3D spectral TV 0.01, 2 rounds x 20 iterations.
 
 ``--drift`` runs another study instead: how far two implementations of the
 same TV solve drift apart as the iteration count grows (248x248, the kernels
@@ -33,9 +41,11 @@ sys.path.insert(0, ROOT)
 
 import torch  # noqa: E402
 
-import chip_smoke  # noqa: E402  (scene and observation helpers)
+import chip_smoke  # noqa: E402  (scene, observation and solver helpers)
 import super_resolution_tpu_torch as sr  # noqa: E402
+from super_resolution_tpu_torch.evaluation import psnr  # noqa: E402
 from super_resolution_tpu_torch.ops.cuda import degrade  # noqa: E402
+from super_resolution_tpu_torch.ops.resize import linear_resize  # noqa: E402
 from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer  # noqa: E402
 
 
@@ -56,6 +66,30 @@ def flagship_solver(side, device):
     return solver, x0, gt_t
 
 
+def path_solver(path, side, device):
+    """(make_solver, x0, ground truth, extra report fields) for a path.
+    ``make_solver()`` gives a fresh solver: a refined solve moves its shifts."""
+    if path == "flagship":
+        solver, x0, gt = flagship_solver(side, device)
+        return (lambda: solver), x0, gt, {}
+    if path == "estimated":
+        gt, lows = chip_smoke.estimated_motion_problem(device)
+        seconds = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            registered = sr.translational_registration(lows, device=device)
+            seconds.append(time.perf_counter() - t0)
+        shifts = registered.as_array() * 4
+        x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
+        return (lambda: chip_smoke.estimated_motion_solver(lows, shifts, 1, device)), x0, gt, {
+            "registration_seconds": seconds}
+    model, gt, lows = chip_smoke.hyperspectral_problem(device)
+    x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
+    use_3d = path == "hyperspectral3d"
+    return (lambda: chip_smoke.tv_solver(model, lows, use_3d, chip_smoke.fixed_iterations(20, 2), device)), x0, gt, {}
+
+
 def timed_solve(solver, x0):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -70,7 +104,7 @@ def plain_solve(gt_np, options, device, dtype):
     solver = chip_smoke.PlainObjectiveSolver(options, model, lows, device=device, dtype=dtype)
     solver.add_regularizer(TotalVariationRegularizer(), 0.01)
     x = solver.solve(lows[0].repeat_interleave(4, dim=-2).repeat_interleave(4, dim=-1))
-    return x, chip_smoke._l1_objective(solver, x, 0.01), float(sr.evaluation.psnr(x, gt))
+    return x, chip_smoke._l1_objective(solver, x, 0.01), float(psnr(x, gt))
 
 
 def drift_study(device, out, card, side=248):
@@ -99,7 +133,9 @@ def drift_study(device, out, card, side=248):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--side", type=int, default=1000)
+    parser.add_argument("--path", default="flagship",
+                        choices=("flagship", "estimated", "hyperspectral", "hyperspectral3d"))
+    parser.add_argument("--side", type=int, default=1000, help="HR side of the flagship path")
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument("--out", default=os.path.join(ROOT, "_profile"))
     parser.add_argument("--drift", action="store_true", help="run the drift study instead of the profile")
@@ -113,17 +149,19 @@ def main():
         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     if args.drift:
         return drift_study(device, args.out, card)
-    solver, x0, gt = flagship_solver(args.side, device)
-    timed_solve(solver, x0)  # build + warm-up
+    make_solver, x0, gt, extra = path_solver(args.path, args.side, device)
+    timed_solve(make_solver(), x0)  # build + warm-up
 
     seconds = []
     for _ in range(args.repeats):
+        solver = make_solver()
         s, x = timed_solve(solver, x0)
         seconds.append(s)
     iterations = solver.last_inner_iterations
     evaluations = sum(c[2] for c in solver.last_inner_calls)
-    pixels = args.side * args.side
+    pixels = gt.numel()  # values per iteration: bands x H x W
     best = min(seconds)
+    solver = make_solver()
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -142,7 +180,8 @@ def main():
     top = sorted(kernels.items(), key=lambda kv: -kv[1]["device_us"])
 
     report = {
-        "card": card, "side": args.side, "iterations": iterations, "evaluations": evaluations,
+        "card": card, "path": args.path, "shape": list(gt.shape), "iterations": iterations,
+        "evaluations": evaluations, **extra,
         "solve_seconds": seconds, "solve_seconds_best": best,
         "mpixel_iterations_per_s": iterations * pixels / best / 1e6,
         "host_us_per_iteration": best / iterations * 1e6,
@@ -150,17 +189,21 @@ def main():
         "device_busy_us": busy_us, "device_busy_share_of_traced_solve": busy_us / (traced_seconds * 1e6),
         "hand_kernels_us": ours_us, "hand_kernels_share_of_busy": ours_us / busy_us if busy_us else None,
         "launches": dict(degrade.launch_counts),
-        "psnr_db": float(sr.evaluation.psnr(x, gt)),
+        "shift_sources": dict(degrade.shift_source_counts),
+        "psnr_db": float(psnr(x, gt)),
         "kernels": [{"name": name, **info} for name, info in top[:25]],
     }
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_torch_port.json"), "w") as f:
+    suffix = "" if args.path == "flagship" else f"_{args.path}"
+    with open(os.path.join(args.out, f"profile_torch_port{suffix}.json"), "w") as f:
         json.dump(report, f, indent=1)
 
     print(f"card: {card}")
-    print(f"flagship {args.side}x{args.side}: {iterations} iterations, {evaluations} evaluations; "
+    print(f"{args.path} {tuple(gt.shape)}: {iterations} iterations, {evaluations} evaluations; "
           f"solve seconds {[round(s, 4) for s in seconds]} (best {best:.4f})")
-    print(f"  {report['mpixel_iterations_per_s']:.1f} Mpixel-iterations/s, "
+    for key, value in extra.items():
+        print(f"  {key}: {[round(v, 4) for v in value]}")
+    print(f"  {report['mpixel_iterations_per_s']:.1f} Mvalue-iterations/s, "
           f"{report['host_us_per_iteration']:.1f} us wall per iteration, PSNR {report['psnr_db']:.2f} dB")
     if busy_us == 0:
         print("  the profiler recorded no device time; time with CUDA events instead")

@@ -8,11 +8,15 @@ with columns (dx, dy).
 
 Ported so far: the single-device MAP solve — image model, fused MAP
 objective (hand-written CUDA kernels on a CUDA tensor, their plain PyTorch
-version on a CPU tensor), linear-CG / Wolfe-CG inner solvers, IRLS host
-loop, PSNR. Everything else raises ``NotImplementedError`` or is absent.
+version on a CPU tensor) with a fused 2D TV, 3D spectral TV or BTV term,
+linear-CG / Wolfe-CG inner solvers, IRLS host loop — with estimated motion
+(phase-correlation registration, Gauss-Newton refinement of the shifts
+between IRLS rounds) and hyperspectral cubes (many bands in one objective,
+spectral PCA), the resizers, PSNR and SSIM. Everything else raises
+``NotImplementedError`` or is absent.
 
 Entry points that place data (``IRLSMapSolver``, ``make_map_value_and_grad``,
-``convert``) default to ``device="cuda"`` and raise when no CUDA device is
+``translational_registration``, ``convert``) default to ``device="cuda"`` and raise when no CUDA device is
 present; pass ``device="cpu"`` explicitly to run the plain versions.
 """
 
@@ -22,8 +26,12 @@ from super_resolution_tpu_torch.models.image_model import (  # noqa: F401
     ImageModel,
     ImageModelParameters,
 )
+from super_resolution_tpu_torch.motion.registration import (  # noqa: F401
+    translational_registration,
+)
 from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver  # noqa: F401
 from super_resolution_tpu_torch.solvers.map_solver import (  # noqa: F401
     IRLSMapSolverOptions,
     MapSolverOptions,
 )
+from super_resolution_tpu_torch.spectral.pca import SpectralPCA  # noqa: F401

@@ -2,19 +2,21 @@
 
 The system has no learned weights; what a run owns is its problem (image
 model parameters, LR stack, initial estimate) and its solver state (options,
-regularizers, IRLS weights). The JAX package's objects are handed over as
-plain dicts and numpy arrays — ``dataclasses.asdict(options)``,
-``np.asarray(stack)``, ``seq.as_array()`` — so this module imports nothing
-of that package.
+regularizers, IRLS weights, a trained spectral PCA). The JAX package's
+objects are handed over as plain dicts and numpy arrays —
+``dataclasses.asdict(options)``, ``np.asarray(stack)``, ``seq.as_array()``,
+``pca.mean`` / ``pca.basis`` — so this module imports nothing of that
+package.
 
 Fields of the JAX ``IRLSMapSolverOptions`` that only route its TPU kernel
 are dropped, because the port has one objective path and they cannot change
 a result: ``use_pallas_data_term``, ``use_static_shifts``, ``pallas_tile``,
-``pallas_shift_bound``, ``pallas_channel_block``, ``fused_irls``,
-``refine_motion_iterations``, ``refine_motion_delta_threshold``, and
+``pallas_shift_bound``, ``pallas_channel_block``, ``fused_irls``, and
 ``num_lbfgs_hessian_corrections`` (read by L-BFGS only, which raises here).
-``refine_motion_every > 0`` would change the result and is not ported, so it
-raises. A key that neither package knows raises with its name.
+One difference follows from dropping ``pallas_shift_bound``: the JAX solver
+clips refined shifts to that bound when its TPU kernel is in use, and the
+port, whose kernels take any shift, never clips. A key that neither package
+knows raises with its name.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularize
 from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
 from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver
 from super_resolution_tpu_torch.solvers.map_solver import IRLSMapSolverOptions
+from super_resolution_tpu_torch.spectral.pca import SpectralPCA
 
 __all__ = [
     "DROPPED_OPTION_FIELDS",
@@ -42,6 +45,7 @@ __all__ = [
     "hr_image",
     "irls_weights",
     "irls_solver",
+    "spectral_pca",
 ]
 
 # Fields of the JAX options that cannot change a result here: dropped on conversion.
@@ -52,8 +56,6 @@ DROPPED_OPTION_FIELDS = (
     "pallas_shift_bound",
     "pallas_channel_block",
     "fused_irls",
-    "refine_motion_iterations",
-    "refine_motion_delta_threshold",
     "num_lbfgs_hessian_corrections",
 )
 
@@ -76,12 +78,7 @@ def image_model_parameters(params: Mapping) -> ImageModelParameters:
 def irls_options(options: Mapping) -> IRLSMapSolverOptions:
     """``dataclasses.asdict`` of the JAX options -> the port's options."""
     known = {f.name for f in dataclasses.fields(IRLSMapSolverOptions)}
-    if options.get("refine_motion_every", 0):
-        raise NotImplementedError(
-            "refine_motion_every > 0 (motion refinement) is not ported yet."
-        )
-    ignored = set(DROPPED_OPTION_FIELDS) | {"refine_motion_every"}
-    unknown = sorted(set(options) - known - ignored)
+    unknown = sorted(set(options) - known - set(DROPPED_OPTION_FIELDS))
     if unknown:
         raise ValueError(f"Unknown solver option(s): {', '.join(unknown)}")
     return IRLSMapSolverOptions(**{k: v for k, v in options.items() if k in known})
@@ -90,7 +87,7 @@ def irls_options(options: Mapping) -> IRLSMapSolverOptions:
 def regularizers(specs: Sequence[tuple[str, Mapping, float]]) -> list[tuple[object, float]]:
     """``[(kind, args, lambda)]`` -> ``[(regularizer, lambda)]``.
 
-    ``kind`` is ``"tv"`` (args ``{"use_3d": False}`` or empty) or ``"btv"``
+    ``kind`` is ``"tv"`` (args ``{"use_3d": bool}`` or empty) or ``"btv"``
     (args ``{"scale_range": P, "spatial_decay": a}``).
     """
     out = []
@@ -145,3 +142,9 @@ def irls_solver(
     for reg, lam in regularizers(regularizer_specs):
         solver.add_regularizer(reg, lam)
     return solver
+
+
+def spectral_pca(mean, basis) -> SpectralPCA:
+    """The port's ``SpectralPCA`` from a trained one's ``mean`` ``[C]`` and
+    ``basis`` ``[k, C]`` (numpy arrays): both then project identically."""
+    return SpectralPCA.from_basis(np.asarray(mean), np.asarray(basis))

@@ -1,1 +1,7 @@
-from super_resolution_tpu_torch.evaluation.metrics import psnr  # noqa: F401
+from super_resolution_tpu_torch.evaluation.metrics import (  # noqa: F401
+    GroundTruthEvaluator,
+    PeakSignalToNoiseRatioEvaluator,
+    StructuralSimilarityEvaluator,
+    psnr,
+    ssim,
+)

@@ -31,7 +31,11 @@ from super_resolution_tpu_torch.ops.blur import (
     gaussian_kernel_2d,
 )
 from super_resolution_tpu_torch.ops.resize import decimate, zero_upsample
-from super_resolution_tpu_torch.ops.warp import translate, translate_adjoint
+from super_resolution_tpu_torch.ops.warp import (
+    translate,
+    translate_adjoint,
+    translate_with_shift_derivatives,
+)
 
 __all__ = [
     "ImageModelParameters",
@@ -43,6 +47,7 @@ __all__ = [
     "NoiseOperator",
     "degrade",
     "degrade_adjoint",
+    "degrade_with_shift_derivatives",
 ]
 
 
@@ -210,11 +215,28 @@ class ImageModel:
 
 
 def degrade(x: torch.Tensor, dx, dy, blur_kernel, scale: int) -> torch.Tensor:
-    """Functional forward model ``D B M x`` for one frame's (dx, dy)."""
+    """Functional forward model ``D B M x`` for one frame's (dx, dy).
+
+    Shifts are Python numbers or tensors (0-d, or ``[B]`` with ``x``
+    ``[B, ..., H, W]``); tensor shifts stay on their device (see
+    :func:`~super_resolution_tpu_torch.ops.warp.translate`).
+    """
     z = translate(x, dx, dy)
     if blur_kernel is not None:
         z = blur_op(z, blur_kernel)
     return decimate(z, scale)
+
+
+def degrade_with_shift_derivatives(x: torch.Tensor, dx, dy, blur_kernel, scale: int):
+    """``(D B M x, d/d dx, d/d dy)``: the prediction and its Jacobian in the shift.
+
+    Blur and decimation are linear, so the derivatives are the same chain
+    applied to the warp's closed-form shift derivatives.
+    """
+    outs = translate_with_shift_derivatives(x, dx, dy)
+    if blur_kernel is not None:
+        outs = tuple(blur_op(z, blur_kernel) for z in outs)
+    return tuple(decimate(z, scale) for z in outs)
 
 
 def degrade_adjoint(r: torch.Tensor, dx, dy, blur_kernel, scale: int) -> torch.Tensor:

@@ -1,13 +1,24 @@
 // Hand-written Hopper (sm_90a) kernels for the fused MAP objective.
 //
-// Together the three kernels below replace the static single-device modes of
-// the Pallas TPU kernel `pallas_data_term_cost_and_grad`
+// Together the three kernels below replace the single-device modes of the
+// Pallas TPU kernel `pallas_data_term_cost_and_grad`
 // (super_resolution_tpu/ops/pallas/degrade.py):
 //
 //   data term                 cost  s^2 sum_k ||D B M_k x - y_k||^2
 //                             grad  2 s^2 sum_k M_k^T B^T D^T r_k
 //   + fused 2D TV             cost  sum c r^2, r = |dx| + |dy|
+//   + fused 3D spectral TV    cost  sum c r^2, r = |dx| + |dy| + |dz|,
+//                             dz = x[b+1] - x[b] (zero at the last band)
 //   + fused bilateral TV      cost  sum c r^2, r = sum a^(i+j) |x - shift_ij x|
+//
+// The TPU kernel's shift-generic mode (`dynamic_shifts` + `shift_bound`) and
+// its channel-block grid (`channel_block`) are not modes here but how every
+// launch works: the [K, 2] shifts are read from device memory at run time,
+// fractional or negative, of any size (there is no bound and no |shift|
+// bucket), so one build serves every motion and a refiner can hand its
+// output to the next launch without the host seeing it; and the grid's z
+// axis runs over the channels (K * C for the residual), so tens or hundreds
+// of bands need no blocking argument -- the TPU blocked them to fit VMEM.
 //
 // The TPU kernel splits x into s*s polyphase planes and pre-extracts
 // overlapping windows because its toolchain rejects strided and runtime
@@ -57,7 +68,7 @@ constexpr int NT = BX * BY;   // threads per block
 constexpr int MAX_BTV_RANGE = 8;
 constexpr int REDUCE_THREADS = 1024;
 
-enum Mode { MODE_DATA = 0, MODE_TV = 1, MODE_BTV = 2 };
+enum Mode { MODE_DATA = 0, MODE_TV = 1, MODE_BTV = 2, MODE_TV3D = 3 };
 
 template <typename T>
 __device__ __forceinline__ T sgn(T v) {
@@ -176,6 +187,20 @@ __device__ __forceinline__ void tv_diffs(const T* xc, int H, int W, int rr, int 
   dy = (rr + 1 < H) ? xc[(size_t)(rr + 1) * W + cc] - x0 : (T)0;
 }
 
+// 3D TV residual pieces at band c, pixel (rr, cc): the 2D pieces plus the
+// forward difference to band c + 1, zero at the last band. Every site has
+// its own dz: the left, upper and previous-band neighbours of a pixel each
+// take theirs from their own position.
+template <typename T>
+__device__ __forceinline__ void tv3d_diffs(const T* x, int C, int H, int W, int c, int rr, int cc,
+                                           T& dx, T& dy, T& dz) {
+  const size_t plane = (size_t)H * W;
+  const T* xc = x + (size_t)c * plane;
+  tv_diffs<T>(xc, H, W, rr, cc, dx, dy);
+  const size_t at = (size_t)rr * W + cc;
+  dz = (c + 1 < C) ? xc[plane + at] - xc[at] : (T)0;
+}
+
 // BTV residual at pixel (qr, qc): inclusive window [0, P]^2.
 template <typename T>
 __device__ __forceinline__ T btv_residual(const T* xc, int H, int W, int qr, int qc, int P,
@@ -194,7 +219,8 @@ __device__ __forceinline__ T btv_residual(const T* xc, int H, int W, int qr, int
 // ---------------------------------------------------------------------------
 // Kernel 2: gradient, one thread per HR pixel (c, u, v). Adjoint half of the
 // Pallas data-term mode (transposed blur of r, reverse warp, 2 s^2 scale)
-// plus, by MODE, the fused 2D TV or the fused BTV mode. Reads r (a 1/s^2
+// plus, by MODE, the fused 2D TV, the fused 3D spectral TV (the TV mode's
+// `tv_use_3d`) or the fused BTV mode. Reads r (a 1/s^2
 // image per frame, L2-resident), x and the constants, writes grad once:
 // the bytes of x, constants and grad are its floor. It is where an
 // evaluation's time goes (see the note on the bound at the top).
@@ -277,6 +303,43 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
         tv_diffs<T>(xc, H, W, u - 1, v, dxu, dyu);
         const T gu = ((T)2 * cc[(size_t)(u - 1) * W + v]) * (absval(dxu) + absval(dyu));
         tv += gu * sgn(dyu);
+      }
+      out += tv;
+      reg_cost = (double)((c0 * r0) * r0);
+    } else if constexpr (MODE == MODE_TV3D) {
+      // G = 2 c r at four sites: this pixel, its left and upper neighbours
+      // and the same pixel one band down, each with r = |dx| + |dy| + |dz|
+      // taken at that site. In the plain version's order: the 2D terms,
+      // then -G s_z here, then +G s_z of band c - 1 (nothing flows into band 0).
+      const size_t plane = (size_t)H * W;
+      const T* cc = constants + base;
+      T dx0, dy0, dz0;
+      tv3d_diffs<T>(x, C, H, W, c, u, v, dx0, dy0, dz0);
+      const T c0 = cc[(size_t)u * W + v];
+      const T r0 = absval(dx0) + absval(dy0) + absval(dz0);
+      const T g0 = ((T)2 * c0) * r0;
+      T tv = -g0 * (sgn(dx0) + sgn(dy0));
+      if (v > 0) {
+        T dxl, dyl, dzl;
+        tv3d_diffs<T>(x, C, H, W, c, u, v - 1, dxl, dyl, dzl);
+        const T gl =
+            ((T)2 * cc[(size_t)u * W + v - 1]) * (absval(dxl) + absval(dyl) + absval(dzl));
+        tv += gl * sgn(dxl);
+      }
+      if (u > 0) {
+        T dxu, dyu, dzu;
+        tv3d_diffs<T>(x, C, H, W, c, u - 1, v, dxu, dyu, dzu);
+        const T gu =
+            ((T)2 * cc[(size_t)(u - 1) * W + v]) * (absval(dxu) + absval(dyu) + absval(dzu));
+        tv += gu * sgn(dyu);
+      }
+      tv -= g0 * sgn(dz0);
+      if (c > 0) {
+        T dxp, dyp, dzp;
+        tv3d_diffs<T>(x, C, H, W, c - 1, u, v, dxp, dyp, dzp);
+        const T gp = ((T)2 * (cc - plane)[(size_t)u * W + v]) *
+                     (absval(dxp) + absval(dyp) + absval(dzp));
+        tv += gp * sgn(dzp);
       }
       out += tv;
       reg_cost = (double)((c0 * r0) * r0);
@@ -380,8 +443,10 @@ int launch_gradient(const void* x, const void* r, const double* shifts, const vo
     SR_LAUNCH(MODE_DATA);
   } else if (mode == MODE_TV) {
     SR_LAUNCH(MODE_TV);
-  } else {
+  } else if (mode == MODE_BTV) {
     SR_LAUNCH(MODE_BTV);
+  } else {
+    SR_LAUNCH(MODE_TV3D);
   }
 #undef SR_LAUNCH
   return (int)cudaGetLastError();
@@ -422,7 +487,7 @@ int sr_objective_gradient(const void* x, const void* r, const double* shifts, co
                           double* reg_partials, int is_double, void* stream) {
   if (s < 1 || H % s != 0 || W % s != 0 || kh < 1 || kw < 1 || K < 1 || C < 1) return -1;
   if (C > 65535) return -2;
-  if (mode < MODE_DATA || mode > MODE_BTV) return -3;
+  if (mode < MODE_DATA || mode > MODE_TV3D) return -3;
   if (mode != MODE_DATA && constants == nullptr) return -4;
   if (mode == MODE_BTV && (btv_range < 1 || btv_range > MAX_BTV_RANGE)) return -5;
   cudaStream_t st = (cudaStream_t)stream;

@@ -1,14 +1,25 @@
 """The fused MAP objective: CUDA kernels on a CUDA tensor, plain PyTorch on a CPU tensor.
 
 Replaces the JAX package's one Pallas TPU kernel,
-``pallas_data_term_cost_and_grad`` (``ops/pallas/degrade.py``), in its three
-static single-device modes. One call returns cost and gradient of
+``pallas_data_term_cost_and_grad`` (``ops/pallas/degrade.py``), in its
+single-device modes. One call returns cost and gradient of
 
     s^2 sum_k ||D B M_k x - y_k||^2  [+ sum c r_tv(x)^2 | + sum c r_btv(x)^2]
 
 - ``data_term``      — no regulariser fused;
 - ``data_term_tv``   — plus the anisotropic 2D TV term (``ops/tv.py``);
+- ``data_term_tv3d`` — plus the 3D spectral TV term (``tv_use_3d``: the TV
+  residual gains ``|x[b+1] - x[b]|``, which couples the bands);
 - ``data_term_btv``  — plus the bilateral TV term (``ops/btv.py``).
+
+Two further modes of the TPU kernel are properties of every launch here.
+Its shift-generic mode: ``shifts`` may be a ``[K, 2]`` tensor that already
+lives on the device (a refiner's output) and changes from call to call; a
+float64 one is handed to the kernels as it is, a float32 one through one
+small device op, and no call copies to the host or synchronises. The TPU
+mode's ``shift_bound`` and |shift| buckets have no counterpart: the kernels
+take any shift. Its channel-block grid: the CUDA grid has a channel axis, so
+a cube of hundreds of bands is one launch with no blocking argument.
 
 :func:`fused_objective` is the wrapper. For a CUDA tensor it launches the
 kernels of ``csrc/degrade.cu`` (residual pass, gradient pass, cost reduction)
@@ -40,29 +51,38 @@ from super_resolution_tpu_torch.ops.warp import translate_static
 __all__ = [
     "KERNEL_NAMES",
     "launch_counts",
+    "shift_source_counts",
     "reset_launch_counts",
     "fused_objective",
     "fused_objective_reference",
 ]
 
-KERNEL_NAMES = ("data_term", "data_term_tv", "data_term_btv")
-_MODE_OF = {"data_term": 0, "data_term_tv": 1, "data_term_btv": 2}
+KERNEL_NAMES = ("data_term", "data_term_tv", "data_term_btv", "data_term_tv3d")
+_MODE_OF = {"data_term": 0, "data_term_tv": 1, "data_term_btv": 2, "data_term_tv3d": 3}
 
 # Launches of each mode's kernels since the last reset. Only
 # :func:`fused_objective` on a CUDA tensor adds to these.
 launch_counts: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
+# Of those launches, how many took their shifts from a tensor already on the
+# device ("device": nothing crossed from the host) and how many from host
+# values ("host": a [K, 2] copy to the device per call).
+shift_source_counts: dict[str, int] = {"device": 0, "host": 0}
 
 
 def reset_launch_counts() -> None:
     for name in KERNEL_NAMES:
         launch_counts[name] = 0
+    for source in shift_source_counts:
+        shift_source_counts[source] = 0
 
 
-def _mode_name(tv_constants, btv_constants) -> str:
+def _mode_name(tv_constants, btv_constants, tv_use_3d=False) -> str:
     if tv_constants is not None and btv_constants is not None:
         raise ValueError("Fuse either a TV or a BTV term, not both.")
+    if tv_use_3d and tv_constants is None:
+        raise ValueError("tv_use_3d needs tv_constants.")
     if tv_constants is not None:
-        return "data_term_tv"
+        return "data_term_tv3d" if tv_use_3d else "data_term_tv"
     if btv_constants is not None:
         return "data_term_btv"
     return "data_term"
@@ -100,15 +120,17 @@ def fused_objective_reference(
     btv_constants: torch.Tensor | None = None,
     btv_range: int = 0,
     btv_decay: float = 1.0,
+    tv_use_3d: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the fused objective; any device, any float dtype.
 
     Built from shifted slices only (no ``conv2d``, no ``grid_sample``): warp,
     blur and their adjoints are zero-filled at the image border one operator
-    at a time, exactly as the kernels do. ``shifts`` are host values ``[K, 2]``
-    of (dx, dy); ``blur_kernel`` is a 2D numpy array / tensor or ``None``.
+    at a time, exactly as the kernels do. ``shifts`` ``[K, 2]`` of (dx, dy)
+    are read on the host (a tensor on a CUDA device is copied back);
+    ``blur_kernel`` is a 2D numpy array / tensor or ``None``.
     """
-    mode = _mode_name(tv_constants, btv_constants)
+    mode = _mode_name(tv_constants, btv_constants, tv_use_3d)
     _check_problem(x, y, scale, tv_constants if tv_constants is not None else btv_constants)
     s2 = float(scale * scale)
     cost = torch.zeros((), dtype=x.dtype, device=x.device)
@@ -124,8 +146,8 @@ def fused_objective_reference(
             g = blur_adjoint(g, blur_kernel)
         grad = grad + translate_static(g, -dx, -dy)
     cost, grad = s2 * cost, 2.0 * s2 * grad
-    if mode == "data_term_tv":
-        c_reg, g_reg = tv_cost_and_grad(x, tv_constants)
+    if mode in ("data_term_tv", "data_term_tv3d"):
+        c_reg, g_reg = tv_cost_and_grad(x, tv_constants, use_3d=tv_use_3d)
     elif mode == "data_term_btv":
         if btv_range < 1:
             raise ValueError("btv_range must be >= 1 when a BTV term is fused.")
@@ -171,6 +193,9 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
             raise ValueError(f"{name} must be contiguous.")
     c, h, w = x.shape
     k = y.shape[0]
+    from_device = isinstance(shifts, torch.Tensor) and shifts.device == device
+    # No copy for a contiguous float64 tensor on the device; one small device
+    # op for a float32 one; one host-to-device copy for host values.
     shifts_dev = torch.as_tensor(shifts, dtype=torch.float64, device=device).reshape(-1, 2).contiguous()
     if shifts_dev.shape[0] != k:
         raise ValueError(f"{shifts_dev.shape[0]} shifts for {k} frames.")
@@ -210,6 +235,7 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
             is_double, stream,
         ), "sr_reduce_cost")
     launch_counts[mode] += 1
+    shift_source_counts["device" if from_device else "host"] += 1
     return cost, grad
 
 
@@ -223,22 +249,27 @@ def fused_objective(
     btv_constants: torch.Tensor | None = None,
     btv_range: int = 0,
     btv_decay: float = 1.0,
+    tv_use_3d: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cost (0-d) and gradient ``[C, H, W]`` of the fused MAP objective.
 
     ``x`` on a CUDA device: the hand-written kernels (float32 or float64,
     contiguous, everything on ``x``'s device) — or an error. ``x`` on the CPU:
     the plain version. ``shifts`` ``[K, 2]`` (dx, dy) may be a tensor on the
-    device (no copy per call), a numpy array or a sequence. The kernels take
-    them as runtime data, so one build serves every motion.
+    device (no host copy, no synchronisation), a numpy array or a sequence.
+    The kernels take them as runtime data of any size and sign, so one build
+    serves every motion. ``tv_use_3d`` adds the spectral difference to the
+    fused TV term (all bands of ``x`` are coupled; with one band it is the
+    2D term).
     """
     if x.device.type == "cpu":
         return fused_objective_reference(
-            x, y, shifts, blur_kernel, scale, tv_constants, btv_constants, btv_range, btv_decay
+            x, y, shifts, blur_kernel, scale, tv_constants, btv_constants, btv_range, btv_decay,
+            tv_use_3d,
         )
     if x.device.type != "cuda":
         raise RuntimeError(f"No fused objective for device {x.device}.")
-    mode = _mode_name(tv_constants, btv_constants)
+    mode = _mode_name(tv_constants, btv_constants, tv_use_3d)
     constants = tv_constants if tv_constants is not None else btv_constants
     _check_problem(x, y, scale, constants)
     return _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay)

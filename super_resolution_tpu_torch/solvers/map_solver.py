@@ -5,8 +5,11 @@ The JAX package's kernel-routing fields (``use_pallas_data_term``,
 ``use_static_shifts``, ``pallas_tile``, ``pallas_shift_bound``,
 ``pallas_channel_block``, ``fused_irls``) have no counterpart: the port's
 objective is the CUDA kernel on a CUDA tensor and the plain version on a CPU
-tensor. Motion refinement (``refine_motion_*``) and L-BFGS
-(``num_lbfgs_hessian_corrections``) are not ported yet.
+tensor. In particular there is no shift bound: the TPU kernel's
+shift-generic mode compiled one program per |shift| bucket and clipped
+refined shifts to it; the CUDA kernels read any shift from device memory, so
+refined motion is never clipped. L-BFGS (``num_lbfgs_hessian_corrections``)
+is not ported yet.
 """
 
 from __future__ import annotations
@@ -54,6 +57,20 @@ class IRLSMapSolverOptions(MapSolverOptions):
 
     max_num_irls_iterations: int = 20
     irls_cost_difference_threshold: float = 1e-5
+    # Joint motion refinement (motion/refinement.py): every N IRLS
+    # iterations, Gauss-Newton-refine the per-frame shifts against the
+    # current HR estimate and resume the solve with the refined motion. The
+    # refined [K, 2] tensor stays on the device and goes straight into the
+    # objective kernels. 0 disables (reference behaviour: motion is estimated
+    # once and never revisited).
+    refine_motion_every: int = 0
+    # Gauss-Newton steps per refinement round.
+    refine_motion_iterations: int = 2
+    # Joint-convergence gate: a converged cost only certifies convergence
+    # when the last refinement round moved every shift by less than this
+    # (HR px). Raise it for low-texture stacks where Gauss-Newton dithers
+    # near the damping floor.
+    refine_motion_delta_threshold: float = 1e-4
 
     def adjust_thresholds_adaptively(
         self, num_parameters: int, regularization_parameter_sum: float

@@ -84,14 +84,20 @@ def make_map_value_and_grad(
 
     ``observations`` ``[K, C, H/s, W/s]``, ``shifts`` ``[K, 2]`` and
     ``blur_kernel`` (2D or ``None``) are numpy arrays or tensors; they are
-    placed on ``device`` as ``dtype`` once, here. ``weights`` is a tuple of
-    per-regularizer IRLS weight tensors (shape of x) on the same device.
+    placed on ``device`` once, here (the shifts as float64: the kernels split
+    each into its integer and fractional part themselves). ``weights`` is a
+    tuple of per-regularizer IRLS weight tensors (shape of x) on the same
+    device.
 
-    A single 2D TV or BTV term with a positive parameter is fused into the
-    objective kernel; any other set of regularizers is added term by term
-    with plain tensor ops after the fused data term.
-    ``value_and_grad.prepare(weights)`` binds the weights and computes the
-    ``lambda * w`` constants once for a whole inner solve.
+    A single TV (2D or 3D) or BTV term with a positive parameter is fused
+    into the objective kernel; any other set of regularizers is added term by
+    term with plain tensor ops after the fused data term.
+    ``value_and_grad.prepare(weights, shifts=None)`` binds the weights,
+    computes the ``lambda * w`` constants once for a whole inner solve and,
+    when ``shifts`` is given, uses that ``[K, 2]`` tensor instead of the
+    shifts given here: motion refined on the device reaches the kernels as
+    it is, and nothing is rebuilt. ``value_and_grad(x, weights, shifts)``
+    does the same per call.
 
     ``diff_mode`` other than ``"analytic"`` is not ported yet.
     """
@@ -101,10 +107,7 @@ def make_map_value_and_grad(
         raise NotImplementedError(f"diff_mode {diff_mode!r} is not ported yet; use 'analytic'.")
     device = resolve_device(device)
     obs = as_tensor(observations, device, dtype)
-    # float64 on the device: the kernels split each shift into its integer
-    # and fractional part themselves.
-    shifts_t = as_tensor(np.asarray(_to_numpy(shifts), dtype=np.float64).reshape(-1, 2), device, torch.float64)
-    shifts_host = shifts_t.cpu().numpy()
+    shifts_t = as_tensor(shifts, device, torch.float64).reshape(-1, 2)
     kernel_np = None if blur_kernel is None else np.asarray(_to_numpy(blur_kernel), dtype=np.float64)
     kernel_t = None if kernel_np is None else as_tensor(kernel_np, device, dtype)
     regs = tuple(regularizers)
@@ -116,18 +119,20 @@ def make_map_value_and_grad(
         and regs[0][1] > 0.0
     )
 
-    # The plain version slices by host shifts and host blur taps; the kernels
-    # read both from device memory.
-    motion, psf = (shifts_host, kernel_np) if device.type == "cpu" else (shifts_t, kernel_t)
+    # The plain version slices by host blur taps; the kernels read them from
+    # device memory.
+    psf = kernel_np if device.type == "cpu" else kernel_t
 
-    def objective(x, **fused):
-        return fused_objective(x, obs, motion, psf, scale, **fused)
-
-    def bind(weights):
+    def bind(weights, shifts=None):
         weights = tuple(weights)
+        motion = shifts_t if shifts is None else as_tensor(shifts, device, torch.float64).reshape(-1, 2)
+
+        def objective(x, **fused):
+            return fused_objective(x, obs, motion, psf, scale, **fused)
+
         if fuse_tv:
             constants = (regs[0][1] * weights[0]).contiguous()
-            return lambda x: objective(x, tv_constants=constants)
+            return lambda x: objective(x, tv_constants=constants, tv_use_3d=regs[0][0].use_3d)
         if fuse_btv:
             reg, lam = regs[0]
             constants = (lam * weights[0]).contiguous()
@@ -146,8 +151,8 @@ def make_map_value_and_grad(
 
         return unfused
 
-    def value_and_grad(x, weights=()):
-        return bind(weights)(x)
+    def value_and_grad(x, weights=(), shifts=None):
+        return bind(weights, shifts)(x)
 
     value_and_grad.prepare = bind
     return value_and_grad

@@ -64,6 +64,9 @@ def test_translate_shift_larger_than_image_is_zero():
     x = torch.from_numpy(_image((1, 4, 5), 2))
     assert torch.count_nonzero(warp.translate_static(x, 7.0, 0.0)) == 0
     assert torch.count_nonzero(warp.translate_static(x, 0.0, -4.0)) == 0
+    # The same for a shift that is a tensor (no static pad to outgrow).
+    assert torch.count_nonzero(warp.translate(x, torch.tensor(7.0), torch.tensor(0.0))) == 0
+    assert torch.count_nonzero(warp.translate(x, torch.tensor(0.5), torch.tensor(-40.0))) == 0
 
 
 @pytest.mark.parametrize(
@@ -124,14 +127,22 @@ def test_tv_matches_jax(shape):
     _close(reg.cost_and_grad(xt, ct)[1], jgrad)
 
 
-def test_tv_3d_is_not_ported():
-    x = torch.zeros(2, 4, 4)
-    with pytest.raises(NotImplementedError):
-        tv.tv_residuals(x, use_3d=True)
-    with pytest.raises(NotImplementedError):
-        tv.tv_cost_and_grad(x, x, use_3d=True)
-    with pytest.raises(NotImplementedError):
-        tv.TotalVariationRegularizer(use_3d_total_variation=True)
+@pytest.mark.parametrize("shape", [(3, 9, 11), (2, 8, 8), (6, 4, 5)])
+def test_tv_3d_matches_jax(shape):
+    x = _with_flat_patches(_image(shape, 16)) if shape[1] > 5 else _image(shape, 16)
+    x[-1] = x[0]
+    c = _image(shape, 17)
+    xt, ct = torch.from_numpy(x), torch.from_numpy(c)
+    _close(tv.tv_residuals(xt, use_3d=True), jtv.tv_residuals(jnp.asarray(x), use_3d=True))
+    cost, grad = tv.tv_cost_and_grad(xt, ct, use_3d=True)
+    jcost, jgrad = jtv.tv_cost_and_grad(jnp.asarray(x), jnp.asarray(c), use_3d=True)
+    _close(cost, jcost)
+    _close(grad, jgrad)
+    reg = tv.TotalVariationRegularizer(use_3d_total_variation=True)
+    _close(reg.residuals(xt), jtv.TotalVariationRegularizer(True).residuals(jnp.asarray(x)))
+    _close(reg.cost_and_grad(xt, ct)[1], jgrad)
+    # The last band has no forward neighbour: its residual is the 2D one.
+    assert torch.equal(tv.tv_residuals(xt, use_3d=True)[-1], tv.tv_residuals(xt)[-1])
 
 
 @pytest.mark.parametrize(

@@ -102,11 +102,13 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
     shifts = [(0, 0), (0.5, 1)]
     degrade.reset_launch_counts()
     for kw in ({}, {"tv_constants": torch.ones_like(x)},
+               {"tv_constants": torch.ones_like(x), "tv_use_3d": True},
                {"btv_constants": torch.ones_like(x), "btv_range": 2, "btv_decay": 0.5}):
         cost, grad = degrade.fused_objective(x, y, shifts, None, 2, **kw)
         ref_cost, ref_grad = degrade.fused_objective_reference(x, y, shifts, None, 2, **kw)
         assert float(cost) == float(ref_cost) and torch.equal(grad, ref_grad)
-    assert degrade.launch_counts == {"data_term": 0, "data_term_tv": 0, "data_term_btv": 0}
+    assert degrade.launch_counts == {"data_term": 0, "data_term_tv": 0, "data_term_btv": 0, "data_term_tv3d": 0}
+    assert degrade.shift_source_counts == {"device": 0, "host": 0}
 
 
 def test_kernel_sources_are_in_the_package_and_build_is_lazy():
@@ -183,11 +185,12 @@ def test_convert_names_what_it_cannot_carry():
     opts = dataclasses.asdict(JOptions())
     assert set(convert.DROPPED_OPTION_FIELDS) <= set(opts)
     assert dataclasses.asdict(convert.irls_options(opts)) == {
-        k: v for k, v in opts.items()
-        if k not in convert.DROPPED_OPTION_FIELDS and k != "refine_motion_every"
+        k: v for k, v in opts.items() if k not in convert.DROPPED_OPTION_FIELDS
     }
-    with pytest.raises(NotImplementedError, match="refine_motion_every"):
-        convert.irls_options({**opts, "refine_motion_every": 2})
+    # Motion refinement is carried, not dropped.
+    carried = convert.irls_options({**opts, "refine_motion_every": 2, "refine_motion_iterations": 4})
+    assert (carried.refine_motion_every, carried.refine_motion_iterations) == (2, 4)
+    assert carried.refine_motion_delta_threshold == opts["refine_motion_delta_threshold"]
     with pytest.raises(ValueError, match="warp_speed"):
         convert.irls_options({**opts, "warp_speed": 9})
     with pytest.raises(ValueError, match="focal_length"):
@@ -196,8 +199,12 @@ def test_convert_names_what_it_cannot_carry():
         convert.regularizers([("wavelet", {}, 0.1)])
     with pytest.raises(ValueError, match="gamma"):
         convert.regularizers([("tv", {"gamma": 1}, 0.1)])
-    with pytest.raises(NotImplementedError):
-        convert.regularizers([("tv", {"use_3d": True}, 0.1)])
+    (reg3d, lam3d), = convert.regularizers([("tv", {"use_3d": True}, 0.1)])
+    assert reg3d.use_3d is True and lam3d == 0.1
+    jreg3d = JTV(use_3d_total_variation=True)
+    cube = np.random.default_rng(91).random((3, 6, 7))
+    np.testing.assert_allclose(reg3d.residuals(torch.from_numpy(cube)).numpy(),
+                               np.asarray(jreg3d.residuals(jnp.asarray(cube))), rtol=0, atol=1e-12)
     assert convert.lr_stack(np.zeros((3, 4, 4)), device="cpu").shape == (3, 1, 4, 4)
     with pytest.raises(ValueError):
         convert.lr_stack(np.zeros((4, 4)), device="cpu")
