@@ -16,7 +16,13 @@ width:
   known-motion solves;
 - hyperspectral: a 64-band 256x256 cube solved in one objective with 2D and
   with 3D spectral TV, and a 64-band 512x512 cube solved in a 4-component
-  PCA space and projected back.
+  PCA space and projected back;
+- the solve on a device mesh, its shards dealt over the visible cards (all on
+  the one card where there is one): 4 band shards with 3D spectral TV on the
+  64-band cube (the kernels' spectral-halo mode), 2x2 tiles with halo
+  exchange on an RGB 3x2048x2048 scene with 16 frames and on the flagship
+  (shard mode), and 4 frame shards with the motion refined between IRLS
+  rounds, each held against the single-device solve.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 import shutil
@@ -57,6 +64,7 @@ try:
     from super_resolution_tpu_torch.ops.cuda import build, degrade
     from super_resolution_tpu_torch.ops.resize import linear_resize
     from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
+    from super_resolution_tpu_torch.parallel import Sharded, collectives, make_mesh, make_sharded_vg, required_halo
     from super_resolution_tpu_torch.solvers.least_squares import minimize
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
@@ -79,9 +87,9 @@ ESTIMATED_TRUE_SHIFTS = [(0, 0), (1.5, 0.5), (-0.75, 1.25), (0.5, -1.5)]
 # Width of the band left out where a PCA-space solve is scored (see phase_hyperspectral).
 PCA_BORDER = 16
 
-# The rows of the `kernels` line: the six single-device modes of the TPU kernel,
-# each with the mode of the CUDA kernels that serves it and the shape its path
-# gives it. "shift_generic" and "channel_grid" are not modes of the CUDA
+# The rows of the `kernels` line: the modes of the TPU kernel (six on one
+# device, two for a device mesh), each with the mode of the CUDA kernels that
+# serves it and the shape its path gives it. "shift_generic" and "channel_grid" are not modes of the CUDA
 # kernels but ways every launch works; their rows are timed and counted on the
 # paths that need them (shifts that live and change on the device; 64 bands).
 ROWS = [
@@ -91,7 +99,10 @@ ROWS = [
     dict(row="K4", name="shift_generic", mode="data_term_btv", replaces=f"{PALLAS}:806", path="estimated"),
     dict(row="K5", name="channel_grid", mode="data_term_tv", replaces=f"{PALLAS}:719", path="hyperspectral"),
     dict(row="K6", name="data_term_tv3d", mode="data_term_tv3d", replaces=f"{PALLAS}:1297", path="hyperspectral"),
+    dict(row="K7a", name="shard_mode", mode="data_term_btv", replaces=f"{PALLAS}:663", path="mesh"),
+    dict(row="K7b", name="spectral_halo", mode="data_term_tv3d", replaces=f"{PALLAS}:650", path="mesh"),
 ]
+TILED_FRAMES = 16   # frames of the tiled RGB scene
 
 
 class Failure(Exception):
@@ -110,8 +121,9 @@ def log(message):
 # --------------------------------------------------------------------------- data
 
 
+@functools.lru_cache(maxsize=8)
 def synthetic_scene(c, h, w, seed):
-    """Edges and smooth texture in [0, 1], made with numpy from a seed."""
+    """Edges and smooth texture in [0, 1], made with numpy from a seed (kept: callers only read it)."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:h, :w].astype(np.float64)
     img = np.empty((c, h, w))
@@ -150,7 +162,7 @@ def load_golden(name):
 
 
 def phase_environment():
-    log(f"[1/7] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
+    log(f"[1/8] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"torch CUDA {torch.version.cuda}")
     nvcc = build.find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60).stdout
@@ -171,7 +183,7 @@ def phase_build():
     t0 = time.perf_counter()
     results = build.build()
     for name, info in results.items():
-        log(f"[2/7] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
+        log(f"[2/8] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line.lower():
@@ -221,12 +233,14 @@ def _time_launches(fn, device, repeats):
     return start.elapsed_time(end) / repeats
 
 
-def _bound(name, x, y, shifts, kernel, scale, dtype):
+def _bound(name, x, y, shifts, kernel, scale, dtype, extra_bytes=0):
     """Least time for one evaluation: each input read once, each output written
     once, and the operations the function needs (each regulariser residual
-    counted once per pixel, whatever a kernel chooses to recompute)."""
+    counted once per pixel, whatever a kernel chooses to recompute). On a
+    tile or a band shard the arrays are the extended ones, rim and halo band
+    included; ``extra_bytes`` is the owned-pixel mask."""
     itemsize = x.element_size()
-    nbytes = (x.numel() + y.numel() + x.numel()) * itemsize          # x, y, grad
+    nbytes = (x.numel() + y.numel() + x.numel()) * itemsize + extra_bytes  # x, y, grad (+ mask)
     if name != "data_term":
         nbytes += x.numel() * itemsize                                 # constants
     nbytes += shifts.size * 8 + (0 if kernel is None else kernel.size * itemsize) + itemsize
@@ -327,19 +341,26 @@ def _check_shift_generic(device, dtype):
     check(degrade.shift_source_counts == {"device": launches // 2, "host": launches // 2},
           f"shift sources miscounted: {degrade.shift_source_counts} for {launches} launches")
     check(len(list(build.build_dir().glob("libdegrade_*.so"))) == 1, "the kernels were built more than once")
-    log(f"[3/7] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
+    log(f"[3/8] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
         f"bit-equal to host shifts, one build")
 
 
-def _time_row(row, c, hw, scale, shifts, kernel, device, flush, shifts_on_device=True):
+def _time_row(row, c, hw, scale, shifts, kernel, device, flush, shifts_on_device=True, shard=None):
     """Times of one row at the shape its path gives it, float32: the kernels
     (warm and cold L2), the plain version, the bound, and the error against
-    the plain version at that shape."""
+    the plain version at that shape. ``shard(x, y, constants) -> kwargs``
+    prepares the arrays as a mesh path does (zero rims, a zero halo band) and
+    gives the shard arguments of the launch."""
     dtype = torch.float32
     x, y, sh, kern, constants = _kernel_problem(c, hw, scale, shifts, kernel, 200, device, dtype)
     sh_dev = torch.as_tensor(sh, dtype=torch.float64, device=device) if shifts_on_device else sh
     kern_dev = torch.as_tensor(kern, dtype=dtype, device=device)
     kw = _mode_kwargs(row["mode"], constants)
+    extra_bytes = 0
+    if shard is not None:
+        kw.update(shard(x, y, constants))
+        mask = kw.get("data_mask_lr")
+        extra_bytes = 0 if mask is None else mask.numel() * mask.element_size()
     run = lambda: degrade.fused_objective(x, y, sh_dev, kern_dev, scale, **kw)
     plain = lambda: degrade.fused_objective_reference(x, y, sh, kern, scale, **kw)
     cost_err, grad_err, abs_err = _errors(run(), plain())
@@ -356,7 +377,7 @@ def _time_row(row, c, hw, scale, shifts, kernel, device, flush, shifts_on_device
         end.record()
         torch.cuda.synchronize(device)
         cold.append(start.elapsed_time(end))
-    bound_ms, bound_by, nbytes, flops = _bound(row["mode"], x, y, sh, kern, scale, dtype)
+    bound_ms, bound_by, nbytes, flops = _bound(row["mode"], x, y, sh, kern, scale, dtype, extra_bytes)
     row.update({
         "route": "cuda", "source": SOURCE, "launches": 0,
         "max_abs_err": max(row.get("max_abs_err", 0.0), abs_err), "ms": ms, "plain_ms": plain_ms,
@@ -367,6 +388,150 @@ def _time_row(row, c, hw, scale, shifts, kernel, device, flush, shifts_on_device
     log(f"      {row['row']} {row['name']} ({row['shape']}): {ms:.4f} ms/launch (cold L2 {row['ms_cold_l2']:.4f}), "
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}")
     return x, y, sh, kern, constants
+
+
+def _halo_width(shifts, kernel, scale, reg_reach):
+    """The tiled objective's halo for these shifts (see parallel/halo.py)."""
+    reach = required_halo(float(np.abs(np.asarray(shifts, dtype=np.float64)).max()), 0 if kernel is None else kernel.shape[0])
+    return -(-max(reach, reg_reach, scale) // scale) * scale
+
+
+def _check_shard_mode(device, dtype):
+    """K7a: the kernels in shard mode against the plain version, on extended
+    tiles made as the tiled path makes them (rims gathered from the
+    neighbours, zero beyond the image): the four corners and the centre of a
+    3x3 tiling, tiles that are not square, integer, negative and fractional
+    shifts, s = 2 and 4, no regulariser / TV / BTV(3, 0.5), with the
+    owned-pixel mask and with the default mask. Constants are non-zero on
+    the rim too, which the path never gives: the harder case."""
+    tol = TOLERANCE[dtype]
+    mesh = make_mesh({"row": 3, "col": 3}, devices=[device])
+    worst, launches = 0.0, 0
+    for scale, hw in ((2, (144, 180)), (4, (144, 192))):
+        th, tw = hw[0] // 3, hw[1] // 3
+        for n, shifts in enumerate(([(0, 0), (1, -2), (-3, 2)], [(0.5, -1.25), (-2.75, 0.3), (1.6, 2.2)])):
+            x, y, sh, kern, _ = _kernel_problem(2, hw, scale, shifts, gaussian_kernel_2d(3, 1.0), 400 + n, device, dtype)
+            q = _halo_width(sh, kern, scale, 3)
+            ql = q // scale
+            tiles = collectives.halo_gather(mesh, Sharded.from_global(mesh, x, {"row": 1, "col": 2}).parts, q)
+            lows = Sharded.from_global(mesh, y, {"row": 2, "col": 3}).parts
+            owned = torch.zeros((th + 2 * q) // scale, (tw + 2 * q) // scale, dtype=dtype, device=device)
+            owned[ql: ql + th // scale, ql: ql + tw // scale] = 1.0
+            rng = np.random.default_rng(410 + n)
+            for shard in (0, 2, 4, 6, 8):
+                coords = mesh.coords(shard)
+                xt = tiles[shard].contiguous()
+                yt = torch.nn.functional.pad(lows[shard], (ql, ql, ql, ql)).contiguous()
+                constants = torch.as_tensor(rng.random(tuple(xt.shape)) * 0.02, dtype=dtype, device=device)
+                where = dict(origin=(coords["row"] * th - q, coords["col"] * tw - q), global_hw=hw)
+                for mode in ("data_term", "data_term_tv", "data_term_btv"):
+                    for mask in (owned, None):
+                        kw = dict(_mode_kwargs(mode, constants), data_mask_lr=mask, **where)
+                        out = degrade.fused_objective(xt, yt, sh, kern, scale, **kw)
+                        cost_err, grad_err, abs_err = _errors(
+                            out, degrade.fused_objective_reference(xt, yt, sh, kern, scale, **kw))
+                        launches += 1
+                        worst = max(worst, abs_err)
+                        check(cost_err <= (1e-6 if dtype == torch.float32 else tol) and grad_err <= tol,
+                              f"shard mode {mode} {dtype} s={scale} shifts {shifts} tile {coords} "
+                              f"{'owned mask' if mask is not None else 'default mask'}: cost {cost_err:.3e}, "
+                              f"grad {grad_err:.3e} > {tol:g}")
+    log(f"[3/8] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
+        f"x 2 masks) agree with the plain version in {dtype} (tol {tol:g})")
+    return worst
+
+
+def _check_spectral_halo(device, dtype):
+    """K7b: the last channel as a read-only band, C = 2 and 17, against the plain version."""
+    tol = TOLERANCE[dtype]
+    worst = 0.0
+    for c in (2, 17):
+        x, y, sh, kern, constants = _kernel_problem(c, (66, 90), 2, [(0, 0), (1.25, -0.5), (-2.0, 3.0)],
+                                                    gaussian_kernel_2d(3, 1.0), 420 + c, device, dtype)
+        constants[-1] = 0.0
+        y[:, -1] = 0.0
+        kw = dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True)
+        out = degrade.fused_objective(x, y, sh, kern, 2, **kw)
+        cost_err, grad_err, abs_err = _errors(out, degrade.fused_objective_reference(x, y, sh, kern, 2, **kw))
+        worst = max(worst, abs_err)
+        check(cost_err <= tol and grad_err <= tol,
+              f"spectral halo {dtype} C={c}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
+        plain_tv3d = degrade.fused_objective(x, y, sh, kern, 2, tv_constants=constants, tv_use_3d=True)
+        check(not torch.equal(out[1][-1], plain_tv3d[1][-1]), "the halo band was not taken out of the data term")
+    log(f"[3/8] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
+    return worst
+
+
+def _check_trivial_shard_arguments(device, dtype):
+    """origin (0, 0), the image's own extent and no mask: today's launch, bit for bit."""
+    hw = (132, 76)
+    x, y, sh, kern, constants = _kernel_problem(3, hw, 4, [(0, 0), (1.25, -0.5), (-2.0, 3.0)],
+                                                gaussian_kernel_2d(3, 1.5), 430, device, dtype)
+    for mode in degrade.KERNEL_NAMES:
+        kw = _mode_kwargs(mode, constants)
+        plain_launch = degrade.fused_objective(x, y, sh, kern, 4, **kw)
+        in_shard_mode = degrade.fused_objective(x, y, sh, kern, 4, origin=(0, 0), global_hw=hw, **kw)
+        check(float(plain_launch[0]) == float(in_shard_mode[0]) and torch.equal(plain_launch[1], in_shard_mode[1]),
+              f"{mode} {dtype}: trivial shard arguments change the bits")
+    log(f"[3/8] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
+        f"{len(degrade.KERNEL_NAMES)} modes in {dtype}")
+
+
+def _check_assembled(device, dtype):
+    """Tiles and band shards put together by gather / scatter-sum / band ring
+    against the unsharded kernels on the whole image."""
+    tol = TOLERANCE[dtype]
+    cases = [
+        ({"row": 2, "col": 3}, 2, (96, 180), 2, ()),
+        ({"row": 2, "col": 3}, 2, (96, 180), 2, ((TotalVariationRegularizer(), 0.02),)),
+        ({"row": 2, "col": 3}, 2, (96, 192), 4, ((BilateralTotalVariationRegularizer(3, 0.5), 0.02),)),
+        ({"band": 4}, 8, (66, 90), 2, ((TotalVariationRegularizer(True), 0.02),)),
+        ({"band": 2}, 2, (66, 90), 2, ((TotalVariationRegularizer(True), 0.02),)),
+    ]
+    shifts = [(0.5, -1.25), (-2.75, 0.3), (1.6, 2.2), (0, 0)]
+    for n, (axes, c, hw, scale, regs) in enumerate(cases):
+        x, y, sh, kern, weights = _kernel_problem(c, hw, scale, shifts, gaussian_kernel_2d(3, 1.0), 440 + n, device, dtype)
+        vg = make_sharded_vg(make_mesh(axes, devices=[device]), y, sh, kern, scale, regs, dtype=dtype)
+        kw = {}
+        if regs:
+            reg, lam = regs[0]
+            if isinstance(reg, TotalVariationRegularizer):
+                kw = dict(tv_constants=(lam * weights).contiguous(), tv_use_3d=reg.use_3d)
+            else:
+                kw = dict(btv_constants=(lam * weights).contiguous(), btv_range=3, btv_decay=0.5)
+        cost_err, grad_err, _ = _errors(vg(x, (weights,)), degrade.fused_objective(x, y, sh, kern, scale, **kw))
+        check(cost_err <= tol and grad_err <= tol,
+              f"assembled {axes} {dtype} case {n}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
+    log(f"[3/8] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
+        f"by gather, scatter-sum and band ring == the unsharded kernels in {dtype} (tol {tol:g})")
+
+
+def tiled_shifts():
+    """16 fractional shifts (eighths of an HR pixel within +-2), the first zero, from a seed."""
+    shifts = np.round(np.random.default_rng(61).uniform(-2.0, 2.0, size=(TILED_FRAMES, 2)) * 8.0) / 8.0
+    shifts[0] = 0.0
+    return [(float(dx), float(dy)) for dx, dy in shifts]
+
+
+def _as_tile(q, scale, origin, global_hw):
+    """Arrays of a timed row prepared as the tiled path gives them: zero rims, the owned-pixel mask."""
+    def shard(x, y, constants):
+        ql = q // scale
+        owned = torch.zeros(x.shape[-2] // scale, x.shape[-1] // scale, dtype=x.dtype, device=x.device)
+        owned[ql:-ql, ql:-ql] = 1.0
+        y.mul_(owned)
+        rim = torch.zeros_like(x[0])
+        rim[q:-q, q:-q] = 1.0
+        constants.mul_(rim)
+        return dict(origin=origin, global_hw=global_hw, data_mask_lr=owned)
+    return shard
+
+
+def _as_band_shard(x, y, constants):
+    """Arrays of a timed row prepared as the band path gives them: zero constants and observations on the halo band."""
+    constants[-1] = 0.0
+    y[:, -1] = 0.0
+    return dict(spectral_halo=True)
 
 
 def phase_kernels(device):
@@ -409,11 +574,17 @@ def phase_kernels(device):
                 check(float(outs["data_term_tv3d"][0]) == float(outs["data_term_tv"][0])
                       and torch.equal(outs["data_term_tv3d"][1], outs["data_term_tv"][1]),
                       f"data_term_tv3d differs from data_term_tv at C=1 (case {i}, {dtype})")
-        log(f"[3/7] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
+        log(f"[3/8] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
             f"in {dtype} (tol {tol:g}); tv3d == tv at C=1")
         _check_shift_generic(device, dtype)
+        shard_worst = {"shard_mode": _check_shard_mode(device, dtype),
+                       "spectral_halo": _check_spectral_halo(device, dtype)}
+        if dtype == torch.float32:
+            worst.update(shard_worst)
+        _check_trivial_shard_arguments(device, dtype)
+        _check_assembled(device, dtype)
     tap_difference = _float32_tap_difference(device)
-    log(f"[3/7] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
+    log(f"[3/8] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
         f"makes them) vs the kernels' float64 weights rounded once: {tap_difference:.2e} of the largest entry")
     check(tap_difference <= TOLERANCE[torch.float32], f"float32 tap weights move the gradient by {tap_difference}")
 
@@ -421,8 +592,17 @@ def phase_kernels(device):
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=device)
     rows = [dict(row) for row in ROWS]
     for row in rows:
-        row["max_abs_err"] = worst[row["mode"]]
-        if row["path"] == "flagship":
+        row["max_abs_err"] = worst[row["name"] if row["path"] == "mesh" else row["mode"]]
+        if row["name"] == "shard_mode":
+            # A corner tile of the 2x2 tiling of the RGB 3x2048x2048 scene, rim included.
+            q = _halo_width(tiled_shifts(), gauss(3, 1.5), 4, 3)
+            side = 1024 + 2 * q
+            _time_row(row, 3, (side, side), 4, tiled_shifts(), gauss(3, 1.5), device, flush,
+                      shard=_as_tile(q, 4, (-q, -q), (2048, 2048)))
+        elif row["name"] == "spectral_halo":
+            # One of 4 band shards of the 64-band cube: 16 bands and the halo band.
+            _time_row(row, 17, (256, 256), 2, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush, shard=_as_band_shard)
+        elif row["path"] == "flagship":
             _time_row(row, 1, big, 4, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush)
         elif row["path"] == "estimated":
             _time_row(row, 3, big, 4, ESTIMATED_TRUE_SHIFTS, gauss(3, 1.5), device, flush)
@@ -475,7 +655,7 @@ def phase_goldens(device):
     psnr_ours = float(psnr(ours, gt))
     psnr_ref = float(psnr(load_golden("dallas4x_btv_result.bin"), gt))
     check(abs(psnr_ours - psnr_ref) <= 0.1, f"golden C: {psnr_ours} dB vs reference {psnr_ref} dB")
-    log(f"[4/7] goldens: A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
+    log(f"[4/8] goldens: A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
         f"C {psnr_ours:.3f} dB vs C++ {psnr_ref:.3f} dB ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -523,16 +703,20 @@ def fixed_iterations(iterations, rounds):
         gradient_norm_threshold=0.0, cost_decrease_threshold=0.0, parameter_variation_threshold=0.0)
 
 
-def run_solve(name, solver, x0, gt, lam):
+def run_solve(name, solver, x0, gt, lam, shard_counter=None):
     """One solve through ``solver``, with its launch count checked against its
     evaluation count, and the estimate, the shifts and the L1 objective read
-    after every IRLS round."""
+    after every IRLS round. ``shard_counter``: which of the kernels' mesh
+    modes ("shard_mode", "spectral_halo") every launch of the solve must
+    have run in; ``None``: neither."""
     # The solver reweights once after every round: listen there for the round's state.
     round_estimates, round_shifts = [], []
     reweight = solver._reweight
     solver._reweight = lambda x: (round_estimates.append(x), round_shifts.append(solver.shifts), reweight(x))[2]
     device = solver.device
     before = degrade.launch_counts[name]
+    before_shard = dict(degrade.shard_launch_counts)
+    before_plain = degrade.plain_version_calls["calls"]
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
     x = solver.solve(x0)
@@ -541,8 +725,16 @@ def run_solve(name, solver, x0, gt, lam):
     launches = degrade.launch_counts[name] - before
     evaluations = sum(call[2] for call in solver.last_inner_calls)
     check(x.shape == gt.shape and bool(torch.isfinite(x).all()), f"{name}: bad output")
-    expected = 0 if isinstance(solver, PlainObjectiveSolver) else evaluations
+    # One launch per shard and evaluation; on a mesh, in the mode its path needs.
+    shards = 1 if solver.mesh is None else solver.mesh.num_shards
+    expected = 0 if isinstance(solver, PlainObjectiveSolver) else shards * evaluations
     check(launches == expected, f"{name}: {launches} kernel launches, expected {expected}")
+    for counter, count in degrade.shard_launch_counts.items():
+        expected = shards * evaluations if counter == shard_counter else 0
+        check(count - before_shard[counter] == expected,
+              f"{name}: {count - before_shard[counter]} {counter} launches, expected {expected}")
+    if not isinstance(solver, PlainObjectiveSolver):
+        check(degrade.plain_version_calls["calls"] == before_plain, f"{name}: the solve called the plain version")
     return {
         "x": x, "seconds": seconds, "launches": launches, "evaluations": evaluations,
         "iterations": solver.last_inner_iterations,
@@ -613,7 +805,7 @@ def phase_main_path(device, rows):
     for name, options, reg, lam in runs:
         results[name] = r = solve_once(name, gt, 4, options, reg, lam, device, dtype)
         mpix_it = r["iterations"] * side * side / r["seconds"] / 1e6
-        log(f"[5/7] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
+        log(f"[5/8] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
             f"{r['evaluations']} evaluations, {r['launches']} launches, {r['seconds']:.3f} s, "
             f"{mpix_it:.1f} Mpixel-iterations/s, PSNR {r['psnr']:.2f} dB (nearest {r['psnr_start']:.2f} dB)")
         log(f"      inner calls (s, iterations, evaluations): "
@@ -659,7 +851,8 @@ def estimated_motion_problem(device, side=1000, dtype=torch.float32):
     return gt, lows
 
 
-def estimated_motion_solver(lows, shifts_hr, refine_every, device, rounds=4, iterations=50, dtype=torch.float32):
+def estimated_motion_solver(lows, shifts_hr, refine_every, device, rounds=4, iterations=50, dtype=torch.float32,
+                            mesh=None):
     """BTV(3, 0.5) lambda 0.01, linear_cg, ``rounds`` x ``iterations`` fixed, starting from ``shifts_hr``."""
     options = dataclasses.replace(
         fixed_iterations(iterations, rounds), irls_cost_difference_threshold=0.0,
@@ -667,7 +860,7 @@ def estimated_motion_solver(lows, shifts_hr, refine_every, device, rounds=4, ite
     model = sr.ImageModel.create(sr.ImageModelParameters(
         scale=4, blur_radius=3, blur_sigma=1.5,
         motion_sequence=MotionShiftSequence([(float(dx), float(dy)) for dx, dy in shifts_hr])))
-    solver = sr.IRLSMapSolver(options, model, lows, device=device, dtype=dtype)
+    solver = sr.IRLSMapSolver(options, model, lows, device=device, dtype=dtype, mesh=mesh)
     solver.add_regularizer(BilateralTotalVariationRegularizer(3, 0.5), 0.01)
     return solver
 
@@ -686,7 +879,7 @@ def phase_estimated_motion(device, rows):
         seconds.append(time.perf_counter() - t0)
     estimated = registered.as_array() * scale  # LR px -> HR px
     err_estimated = float(np.abs(estimated - true).max())
-    log(f"[6/7] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
+    log(f"[6/8] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
         f"{seconds[1]:.3f} s; max error {err_estimated:.4f} HR px (limit 0.25)")
     check(err_estimated < 0.25, f"registration is off by {err_estimated} HR px")
     x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
@@ -754,8 +947,8 @@ def pca_problem(device, bands=64, side=512, dtype=torch.float32):
     return make_observations(cube, FLAGSHIP_SHIFTS, 2, 3, 1.5, device, dtype)
 
 
-def tv_solver(model, lows, use_3d, options, device, dtype=torch.float32):
-    solver = sr.IRLSMapSolver(options, model, lows, device=device, dtype=dtype)
+def tv_solver(model, lows, use_3d, options, device, dtype=torch.float32, mesh=None):
+    solver = sr.IRLSMapSolver(options, model, lows, device=device, dtype=dtype, mesh=mesh)
     solver.add_regularizer(TotalVariationRegularizer(use_3d), 0.01)
     return solver
 
@@ -770,7 +963,7 @@ def phase_hyperspectral(device, rows):
         solver = tv_solver(model, lows, use_3d, fixed_iterations(20, 2), device)
         results[name] = r = run_solve(name, solver, x0, gt, 0.01)
         mvals = r["iterations"] * gt.numel() / r["seconds"] / 1e6
-        log(f"[7/7] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
+        log(f"[7/8] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
             f"= evaluations, {r['seconds']:.3f} s, {mvals:.1f} Mvalue-iterations/s, PSNR {r['psnr']:.2f} dB "
             f"(linear upsample {r['psnr_start']:.2f} dB); L1 objective {[float(f'{o:.7g}') for o in r['objectives']]}")
         check_objective_never_rises(name, r["objectives"])
@@ -799,7 +992,7 @@ def phase_hyperspectral(device, rows):
     b = PCA_BORDER
     inner = (slice(None), slice(b, -b), slice(b, -b))
     solved_db, linear_db = float(psnr(solved[inner], gt[inner])), float(psnr(linear[inner], gt[inner]))
-    log(f"[7/7] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
+    log(f"[7/8] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
         f"{round_trip:.2f} dB); {tuple(r['x'].shape)} solve {r['iterations']} iterations, {r['launches']} launches, "
         f"{r['seconds']:.3f} s; back-projected cube {solved_db:.2f} dB vs linear upsample {linear_db:.2f} dB inside "
         f"a {b}-px border (whole image {float(psnr(solved, gt)):.2f} vs {float(psnr(linear, gt)):.2f} dB)")
@@ -807,6 +1000,109 @@ def phase_hyperspectral(device, rows):
     check(solved_db >= linear_db + 1.0, "the PCA-space solve does not beat linear upsampling by 1 dB")
     read_launches(rows, "hyperspectral")
     results["pca"] = r
+    return results
+
+
+# ------------------------------------------------------------------------ the mesh
+
+
+def tiled_problem(device, dtype=torch.float32, side=2048):
+    """RGB scene and its 16 LR frames at 4x (fractional shifts, 3x3 blur sigma 1.5)."""
+    return make_observations(synthetic_scene(3, side, side, seed=61), tiled_shifts(), 4, 3, 1.5, device, dtype)
+
+
+def compare_with_single_device(label, make, mode, shard_counter, mesh, lam, rounds, iterations, rounds64=1):
+    """The meshed solve beside the single-device solve through the kernels on
+    the same card, iteration thresholds at 0. ``make(dtype, options, mesh) ->
+    (solver, x0, gt)``. float64, ``rounds64`` round(s): pixel by pixel; float32,
+    the full length: by where it ends (L1 objective, PSNR), as the kernels are
+    held against the plain version in phase_main_path."""
+    out = {}
+    for dtype, n_rounds in ((torch.float32, rounds), (torch.float64, rounds64)):
+        options = dataclasses.replace(fixed_iterations(iterations, n_rounds), irls_cost_difference_threshold=0.0)
+        single, meshed = [
+            run_solve(mode, *make(dtype, options, m), lam, shard_counter=shard_counter if m is not None else None)
+            for m in (None, mesh)
+        ]
+        check([c[1:] for c in single["inner_calls"]] == [c[1:] for c in meshed["inner_calls"]],
+              f"{label} {dtype}: iterations and evaluations per round differ: "
+              f"{single['inner_calls']} vs {meshed['inner_calls']}")
+        diff = float((single["x"] - meshed["x"]).abs().max())
+        if dtype == torch.float64:
+            log(f"      {label} in float64 ({n_rounds} x {iterations} iterations): meshed vs single-device "
+                f"max|diff| {diff:.2e} (tol 1e-6)")
+            check(diff <= 1e-6, f"{label}: meshed and single-device float64 solves differ by {diff}")
+            if single["shifts"] and meshed["shifts"]:
+                moved = float((single["shifts"][-1] - meshed["shifts"][-1]).abs().max())
+                check(moved <= 1e-9, f"{label}: refined shifts differ by {moved} HR px between mesh and one device")
+            continue
+        objective_diff = abs(meshed["objectives"][-1] - single["objectives"][-1]) / abs(single["objectives"][-1])
+        psnr_diff = abs(meshed["psnr"] - single["psnr"])
+        log(f"[8/8] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
+            f"{meshed['evaluations']} evaluations, {meshed['launches']} launches; {meshed['seconds']:.3f} s meshed vs "
+            f"{single['seconds']:.3f} s on one device; PSNR {meshed['psnr']:.2f} dB (start {meshed['psnr_start']:.2f}, "
+            f"one device {single['psnr']:.2f}); max|diff| {diff:.2e}, L1 objective differs {objective_diff:.2e} "
+            f"relative (tol 5e-2), PSNR {psnr_diff:.4f} dB (tol 0.05)")
+        check(objective_diff <= 5e-2 and psnr_diff <= 0.05,
+              f"{label}: meshed and single-device solves end apart: objective {objective_diff}, PSNR {psnr_diff} dB")
+        check_objective_never_rises(label, meshed["objectives"])
+        check(meshed["psnr"] >= meshed["psnr_start"] + 1.0, f"{label}: the meshed solve does not beat its start by 1 dB")
+        out = {"meshed": meshed, "single": single}
+    return out
+
+
+def phase_mesh(device, rows):
+    """The solve on a device mesh: band shards with the spectral halo, tiles
+    with halo exchange, frame shards with refined motion."""
+    devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    log(f"[8/8] mesh: shards are dealt over {len(devices)} visible card(s)")
+    degrade.reset_launch_counts()
+    results = {}
+
+    def band(dtype, options, mesh):
+        model, gt, lows = hyperspectral_problem(device, dtype=dtype)
+        return tv_solver(model, lows, True, options, device, dtype, mesh), linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous(), gt
+
+    results["band"] = compare_with_single_device(
+        "band x4, 64 bands, 3D TV", band, "data_term_tv3d", "spectral_halo", make_mesh({"band": 4}, devices), 0.01, 2, 20)
+
+    def tiled_rgb(dtype, options, mesh):
+        model, gt, lows = tiled_problem(device, dtype)
+        solver = sr.IRLSMapSolver(options, model, lows, device=device, dtype=dtype, mesh=mesh)
+        solver.add_regularizer(BilateralTotalVariationRegularizer(3, 0.5), 0.01)
+        return solver, linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous(), gt
+
+    tiles = make_mesh({"row": 2, "col": 2}, devices)
+    results["tiled_rgb"] = compare_with_single_device(
+        f"2x2 tiles, RGB 3x2048x2048, {TILED_FRAMES} frames, BTV", tiled_rgb, "data_term_btv", "shard_mode", tiles, 0.01, 2, 20)
+
+    def tiled_flagship(dtype, options, mesh):
+        model, gt, lows = make_observations(synthetic_scene(1, 1000, 1000, seed=2026), FLAGSHIP_SHIFTS, 4, 3, 1.5, device, dtype)
+        solver = sr.IRLSMapSolver(options, model, lows, device=device, dtype=dtype, mesh=mesh)
+        solver.add_regularizer(TotalVariationRegularizer(), 0.01)
+        return solver, linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous(), gt
+
+    results["tiled_flagship"] = compare_with_single_device(
+        "2x2 tiles, flagship 1x1000x1000, TV", tiled_flagship, "data_term_tv", "shard_mode", tiles, 0.01, 2, 20)
+
+    def frames(dtype, options, mesh):
+        gt, lows = estimated_motion_problem(device, dtype=dtype)
+        estimated = sr.translational_registration(lows, device=device).as_array() * 4
+        solver = estimated_motion_solver(lows, estimated, 1, device, options.max_num_irls_iterations,
+                                         options.max_num_solver_iterations, dtype, mesh)
+        return solver, linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous(), gt
+
+    results["frame"] = compare_with_single_device(
+        "frame x4, refined motion, RGB 3x1000x1000, BTV", frames, "data_term_btv", None,
+        make_mesh({"frame": 4}, devices), 0.01, 3, 20, rounds64=2)
+    refined = results["frame"]["meshed"]["shifts"]
+    check(len(refined) == 3 and float((refined[-1] - refined[0]).abs().max()) > 0.0,
+          "the frame mesh never refined its motion")
+
+    for row in rows:
+        if row["path"] == "mesh":
+            row["launches"] = degrade.shard_launch_counts[row["name"]]
+            check(row["launches"] > 0, f"the mesh paths never launched the kernels in {row['name']} ({row['row']})")
     return results
 
 
@@ -824,6 +1120,7 @@ def main():
         phase_main_path(device, rows)
         phase_estimated_motion(device, rows)
         phase_hyperspectral(device, rows)
+        phase_mesh(device, rows)
     except Failure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1

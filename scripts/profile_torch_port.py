@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes in one of the port's solves, on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_port.py [--path flagship|estimated|hyperspectral|hyperspectral3d]
+    python3 scripts/profile_torch_port.py [--path flagship|estimated|hyperspectral|hyperspectral3d|
+                                                  mesh_band|mesh_tiled|mesh_frame]
                                           [--side 1000] [--repeats 5] [--out DIR] [--drift]
 
 Runs one path's solve through ``IRLSMapSolver`` a few times for wall-clock
@@ -17,7 +18,14 @@ linear_cg with a fixed iteration count, are those of ``chip_smoke.py``:
   found by registration, BTV(3, 0.5) 0.01, 4 rounds x 50 iterations with the
   shifts refined between rounds (registration is timed beside the solve);
 - ``hyperspectral`` / ``hyperspectral3d``: 64 bands x 256 x 256, 4 frames at
-  2x, 2D / 3D spectral TV 0.01, 2 rounds x 20 iterations.
+  2x, 2D / 3D spectral TV 0.01, 2 rounds x 20 iterations;
+- ``mesh_band`` / ``mesh_tiled`` / ``mesh_frame``: the solve on a device mesh
+  of 4 shards dealt over the visible cards (all on the one card where there
+  is one): 4 band shards of the 64-band cube with 3D TV; 2x2 tiles of an RGB
+  3 x 2048 x 2048 scene, 16 frames at 4x, BTV, 2 rounds x 20 iterations; 4
+  frame shards of the ``estimated`` path, 3 rounds x 20 iterations. The same
+  solve without a mesh is timed beside it, and the bytes that cross between
+  shards per evaluation are reckoned from the shapes.
 
 ``--drift`` runs another study instead: how far two implementations of the
 same TV solve drift apart as the iteration count grows (248x248, the kernels
@@ -84,10 +92,51 @@ def path_solver(path, side, device):
         x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
         return (lambda: chip_smoke.estimated_motion_solver(lows, shifts, 1, device)), x0, gt, {
             "registration_seconds": seconds}
+    if path.startswith("mesh_"):
+        return mesh_path_solver(path, device)
     model, gt, lows = chip_smoke.hyperspectral_problem(device)
     x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
     use_3d = path == "hyperspectral3d"
     return (lambda: chip_smoke.tv_solver(model, lows, use_3d, chip_smoke.fixed_iterations(20, 2), device)), x0, gt, {}
+
+
+def mesh_path_solver(path, device):
+    """As :func:`path_solver` for a meshed path; ``make_solver(mesh=...)``
+    takes ``None`` for the same solve on one device. The extra fields hold
+    the mesh and the bytes that cross between shards per evaluation."""
+    devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    itemsize = 4
+    if path == "mesh_band":
+        mesh = sr.make_mesh({"band": 4}, devices)
+        model, gt, lows = chip_smoke.hyperspectral_problem(device)
+        make = lambda mesh=mesh: chip_smoke.tv_solver(model, lows, True, chip_smoke.fixed_iterations(20, 2), device, mesh=mesh)
+        plane = gt.shape[-2] * gt.shape[-1] * itemsize
+        crossing = {"spectral_halo_out": 3 * plane, "spectral_halo_back": 3 * plane, "cost_partials": 4 * itemsize}
+    elif path == "mesh_tiled":
+        mesh = sr.make_mesh({"row": 2, "col": 2}, devices)
+        model, gt, lows = chip_smoke.tiled_problem(device)
+
+        def make(mesh=mesh):
+            solver = sr.IRLSMapSolver(chip_smoke.fixed_iterations(20, 2), model, lows, device=device, mesh=mesh)
+            solver.add_regularizer(chip_smoke.BilateralTotalVariationRegularizer(3, 0.5), 0.01)
+            return solver
+
+        c, h, w = gt.shape
+        q = chip_smoke._halo_width(chip_smoke.tiled_shifts(), chip_smoke.gaussian_kernel_2d(3, 1.5), 4, 3)
+        th, tw = h // 2, w // 2
+        # Of a tile's rim, the part inside the image comes from neighbours: q rows, q columns and one corner.
+        rim = c * (q * tw + q * th + q * q) * itemsize
+        crossing = {"halo_width": q, "halo_gather": 4 * rim, "halo_scatter_sum": 4 * rim, "cost_partials": 4 * itemsize}
+    else:
+        mesh = sr.make_mesh({"frame": 4}, devices)
+        gt, lows = chip_smoke.estimated_motion_problem(device)
+        shifts = sr.translational_registration(lows, device=device).as_array() * 4
+        make = lambda mesh=mesh: chip_smoke.estimated_motion_solver(lows, shifts, 1, device, 3, 20, mesh=mesh)
+        crossing = {"frame_gradient_sum_in": 3 * gt.numel() * itemsize, "frame_gradient_sum_out": 3 * gt.numel() * itemsize,
+                    "cost_partials": 4 * itemsize}
+    x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
+    return make, x0, gt, {"mesh": dict(mesh.shape), "cards": len(devices),
+                          "bytes_crossing_between_shards_per_evaluation": crossing}
 
 
 def timed_solve(solver, x0):
@@ -134,7 +183,8 @@ def drift_study(device, out, card, side=248):
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--path", default="flagship",
-                        choices=("flagship", "estimated", "hyperspectral", "hyperspectral3d"))
+                        choices=("flagship", "estimated", "hyperspectral", "hyperspectral3d",
+                                 "mesh_band", "mesh_tiled", "mesh_frame"))
     parser.add_argument("--side", type=int, default=1000, help="HR side of the flagship path")
     parser.add_argument("--repeats", type=int, default=5)
     parser.add_argument("--out", default=os.path.join(ROOT, "_profile"))
@@ -161,6 +211,10 @@ def main():
     evaluations = sum(c[2] for c in solver.last_inner_calls)
     pixels = gt.numel()  # values per iteration: bands x H x W
     best = min(seconds)
+    if args.path.startswith("mesh_"):
+        # The same solve on one device, in turns with nothing else changed.
+        timed_solve(make_solver(mesh=None), x0)
+        extra["single_device_solve_seconds"] = [timed_solve(make_solver(mesh=None), x0)[0] for _ in range(args.repeats)]
     solver = make_solver()
 
     from torch.profiler import ProfilerActivity, profile
@@ -190,6 +244,7 @@ def main():
         "hand_kernels_us": ours_us, "hand_kernels_share_of_busy": ours_us / busy_us if busy_us else None,
         "launches": dict(degrade.launch_counts),
         "shift_sources": dict(degrade.shift_source_counts),
+        "shard_launches": dict(degrade.shard_launch_counts),
         "psnr_db": float(psnr(x, gt)),
         "kernels": [{"name": name, **info} for name, info in top[:25]],
     }
@@ -202,7 +257,8 @@ def main():
     print(f"{args.path} {tuple(gt.shape)}: {iterations} iterations, {evaluations} evaluations; "
           f"solve seconds {[round(s, 4) for s in seconds]} (best {best:.4f})")
     for key, value in extra.items():
-        print(f"  {key}: {[round(v, 4) for v in value]}")
+        print(f"  {key}: {[round(v, 4) for v in value] if isinstance(value, list) else value}")
+    print(f"  launches {report['launches']}, of which in the mesh modes {report['shard_launches']}")
     print(f"  {report['mpixel_iterations_per_s']:.1f} Mvalue-iterations/s, "
           f"{report['host_us_per_iteration']:.1f} us wall per iteration, PSNR {report['psnr_db']:.2f} dB")
     if busy_us == 0:

@@ -12,7 +12,9 @@ version on a CPU tensor) with a fused 2D TV, 3D spectral TV or BTV term,
 linear-CG / Wolfe-CG inner solvers, IRLS host loop — with estimated motion
 (phase-correlation registration, Gauss-Newton refinement of the shifts
 between IRLS rounds) and hyperspectral cubes (many bands in one objective,
-spectral PCA), the resizers, PSNR and SSIM. Everything else raises
+spectral PCA), the resizers, PSNR and SSIM — and the same solve on a device
+mesh (``parallel``: band, frame and row/col shards with halo exchange,
+``IRLSMapSolver(..., mesh=make_mesh(...))``). Everything else raises
 ``NotImplementedError`` or is absent.
 
 Entry points that place data (``IRLSMapSolver``, ``make_map_value_and_grad``,
@@ -29,6 +31,7 @@ from super_resolution_tpu_torch.models.image_model import (  # noqa: F401
 from super_resolution_tpu_torch.motion.registration import (  # noqa: F401
     translational_registration,
 )
+from super_resolution_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
 from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver  # noqa: F401
 from super_resolution_tpu_torch.solvers.map_solver import (  # noqa: F401
     IRLSMapSolverOptions,

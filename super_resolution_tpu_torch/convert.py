@@ -13,6 +13,9 @@ are dropped, because the port has one objective path and they cannot change
 a result: ``use_pallas_data_term``, ``use_static_shifts``, ``pallas_tile``,
 ``pallas_shift_bound``, ``pallas_channel_block``, ``fused_irls``, and
 ``num_lbfgs_hessian_corrections`` (read by L-BFGS only, which raises here).
+A JAX ``Mesh`` crosses as its axis sizes, ``{name: size}`` in plain ints
+(``dict(zip(mesh.axis_names, mesh.devices.shape))``): :func:`mesh` builds
+the port's mesh of that shape over the devices given.
 One difference follows from dropping ``pallas_shift_bound``: the JAX solver
 clips refined shifts to that bound when its TPU kernel is in use, and the
 port, whose kernels take any shift, never clips. A key that neither package
@@ -32,6 +35,7 @@ from super_resolution_tpu_torch.models.image_model import ImageModel, ImageModel
 from super_resolution_tpu_torch.motion.motion_shift import MotionShiftSequence
 from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
 from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
+from super_resolution_tpu_torch.parallel.mesh import Mesh, make_mesh
 from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver
 from super_resolution_tpu_torch.solvers.map_solver import IRLSMapSolverOptions
 from super_resolution_tpu_torch.spectral.pca import SpectralPCA
@@ -45,6 +49,7 @@ __all__ = [
     "hr_image",
     "irls_weights",
     "irls_solver",
+    "mesh",
     "spectral_pca",
 ]
 
@@ -127,6 +132,15 @@ def irls_weights(weights: Sequence, device="cuda", dtype: torch.dtype = torch.fl
     return tuple(hr_image(w, device, dtype) for w in weights)
 
 
+def mesh(axis_sizes: Mapping[str, int] | None, devices=None) -> Mesh | None:
+    """A JAX mesh's ``{axis name: size}`` -> the port's mesh of that shape
+    (``None`` stays ``None``). ``devices``: where the shards go, dealt in
+    turn (default: every visible CUDA card)."""
+    if axis_sizes is None:
+        return None
+    return make_mesh({str(name): int(size) for name, size in axis_sizes.items()}, devices)
+
+
 def irls_solver(
     model_parameters: Mapping,
     options: Mapping,
@@ -134,11 +148,18 @@ def irls_solver(
     low_res_stack,
     device="cuda",
     dtype: torch.dtype = torch.float32,
+    mesh_axis_sizes: Mapping[str, int] | None = None,
+    mesh_devices=None,
 ) -> IRLSMapSolver:
-    """The port's solver for a problem stated in the JAX package's terms."""
+    """The port's solver for a problem stated in the JAX package's terms.
+
+    ``mesh_axis_sizes``: the JAX solver's mesh as ``{axis name: size}``; its
+    shards are dealt over ``mesh_devices`` (default: ``[device]``)."""
     model = ImageModel.create(image_model_parameters(model_parameters))
     stack = lr_stack(low_res_stack, device, dtype)
-    solver = IRLSMapSolver(irls_options(options), model, list(stack), device=device, dtype=dtype)
+    solver = IRLSMapSolver(
+        irls_options(options), model, list(stack), device=device, dtype=dtype,
+        mesh=mesh(mesh_axis_sizes, [device] if mesh_devices is None else mesh_devices))
     for reg, lam in regularizers(regularizer_specs):
         solver.add_regularizer(reg, lam)
     return solver

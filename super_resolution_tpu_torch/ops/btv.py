@@ -18,12 +18,18 @@ Reference semantics (``src/optimization/btv_regularizer.cpp``):
   zeroes the contribution sourced at the image-origin pixel (0, 0) —
   replicating the reference's ``offset_row == 0 && offset_col == 0`` skip.
 
+On a halo-extended tile of a larger image (``origin``, ``global_hw``; see
+``parallel/halo.py``) the window is cut at the border of the IMAGE, in global
+coordinates, ``x`` reads as zero beyond the tile's own array, and the skipped
+source is the image's pixel (0, 0), wherever it lies in the tile.
+
 P is small (1-3) in practice; the (P+1)^2 offsets are a Python loop.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from super_resolution_tpu_torch.ops.warp import shift_zero_fill
 
@@ -42,6 +48,25 @@ def _shifted_diff(x: torch.Tensor, i: int, j: int) -> torch.Tensor:
     return d
 
 
+def _tile_coordinates(x: torch.Tensor, origin, global_hw):
+    """Global row ``[H, 1]`` and column ``[1, W]`` coordinates of a tile, and the image's extent."""
+    h, w = x.shape[-2], x.shape[-1]
+    u0, v0 = origin or (0, 0)
+    hg, wg = global_hw or (h, w)
+    rows = u0 + torch.arange(h, device=x.device)[:, None]
+    cols = v0 + torch.arange(w, device=x.device)[None, :]
+    return rows, cols, hg, wg
+
+
+def _tile_shifted_diff(x: torch.Tensor, i: int, j: int, rows, cols, hg: int, wg: int) -> torch.Tensor:
+    """D_ij on a tile: zero where the offset leaves the IMAGE; x is zero beyond the tile."""
+    if i == 0 and j == 0:
+        return torch.zeros_like(x)
+    h, w = x.shape[-2], x.shape[-1]
+    neighbour = F.pad(x, (0, j, 0, i))[..., i: i + h, j: j + w]
+    return (x - neighbour) * ((rows + i < hg) & (cols + j < wg)).to(x.dtype)
+
+
 def btv_residuals(x: torch.Tensor, scale_range: int, spatial_decay: float) -> torch.Tensor:
     """Per-pixel BTV residuals of ``[C, H, W]`` (inclusive window bound)."""
     r = torch.zeros_like(x)
@@ -51,13 +76,40 @@ def btv_residuals(x: torch.Tensor, scale_range: int, spatial_decay: float) -> to
     return r
 
 
+def _tile_btv_cost_and_grad(x, constants, scale_range, spatial_decay, origin, global_hw):
+    rows, cols, hg, wg = _tile_coordinates(x, origin, global_hw)
+    diff = lambda i, j: _tile_shifted_diff(x, i, j, rows, cols, hg, wg)
+    r = torch.zeros_like(x)
+    for i in range(scale_range + 1):
+        for j in range(scale_range + 1):
+            r = r + (spatial_decay ** (i + j)) * diff(i, j).abs()
+    cost = torch.sum(constants * r * r)
+    g = 2.0 * constants * r
+    not_origin = (~((rows == 0) & (cols == 0))).to(x.dtype)
+    grad = torch.zeros_like(x)
+    for i in range(scale_range):
+        for j in range(scale_range):
+            t = (spatial_decay ** (i + j)) * g * torch.sign(diff(i, j))
+            grad = grad + t
+            grad = grad - shift_zero_fill(t * not_origin, i, j)
+    return cost, grad
+
+
 def btv_cost_and_grad(
     x: torch.Tensor,
     constants: torch.Tensor,
     scale_range: int,
     spatial_decay: float,
+    origin=None,
+    global_hw=None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """IRLS BTV term: cost ``sum(c r^2)`` and reference-parity gradient."""
+    """IRLS BTV term: cost ``sum(c r^2)`` and reference-parity gradient.
+
+    ``origin`` ``(u0, v0)`` and ``global_hw`` ``(H, W)``: ``x`` is a tile of a
+    larger image (see the module docstring); both ``None`` for a whole image.
+    """
+    if origin is not None or global_hw is not None:
+        return _tile_btv_cost_and_grad(x, constants, scale_range, spatial_decay, origin, global_hw)
     r = btv_residuals(x, scale_range, spatial_decay)
     cost = torch.sum(constants * r * r)
     g = 2.0 * constants * r

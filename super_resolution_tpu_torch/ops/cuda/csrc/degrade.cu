@@ -1,7 +1,7 @@
 // Hand-written Hopper (sm_90a) kernels for the fused MAP objective.
 //
-// Together the three kernels below replace the single-device modes of the
-// Pallas TPU kernel `pallas_data_term_cost_and_grad`
+// Together the three kernels below replace every mode of the Pallas TPU
+// kernel `pallas_data_term_cost_and_grad`
 // (super_resolution_tpu/ops/pallas/degrade.py):
 //
 //   data term                 cost  s^2 sum_k ||D B M_k x - y_k||^2
@@ -10,6 +10,32 @@
 //   + fused 3D spectral TV    cost  sum c r^2, r = |dx| + |dy| + |dz|,
 //                             dz = x[b+1] - x[b] (zero at the last band)
 //   + fused bilateral TV      cost  sum c r^2, r = sum a^(i+j) |x - shift_ij x|
+//
+// Two further modes serve a solve that is spread over a device mesh:
+//
+//   shard mode      x is a halo-extended TILE of a larger image. The tile's
+//                   origin (u0, v0) in the global image and the global extent
+//                   (Hg, Wg) come with the launch; every border test of the
+//                   operators runs in GLOBAL coordinates, so halo content
+//                   inside the image is data and only the true image border
+//                   is a border. Beyond the tile's own array x reads as zero
+//                   (memory safety, in local indices). The LR residual is
+//                   multiplied by a 0/1 mask of the LR pixels the shard owns
+//                   (default: LR pixels inside the global image); what the
+//                   gradient puts into the rim is returned for the caller's
+//                   scatter-sum. With origin (0, 0), global extent (H, W) and
+//                   no mask every test is the one it was and the results are
+//                   the same bits. Each kernel is compiled twice from the one
+//                   source (template flag SHARD): for a whole image the tile
+//                   is a compile-time {0, 0, H, W} and the tests in the
+//                   image's coordinates fold into the array-bound tests.
+//   spectral halo   with the 3D TV term, the LAST channel of x is a read-only
+//                   band owned by the next band shard: its LR residual is
+//                   written as zero (no data cost, no data gradient). The
+//                   caller gives zero constants on that band, so its own TV
+//                   terms vanish, the last real band takes dz against it, and
+//                   the gradient's last channel is exactly the cross-shard
+//                   +G sign(dz).
 //
 // The TPU kernel's shift-generic mode (`dynamic_shifts` + `shift_bound`) and
 // its channel-block grid (`channel_block`) are not modes here but how every
@@ -86,6 +112,18 @@ __device__ __forceinline__ int pmod(int a, int s) {
   return m < 0 ? m + s : m;
 }
 
+// Where a launch's array lies in the image it is a part of: the global
+// coordinates of its element (0, 0) and the global extent. The whole image
+// is {0, 0, H, W}.
+struct Tile {
+  int u0, v0, Hg, Wg;
+};
+
+__device__ __forceinline__ bool in_image(const Tile& t, int r, int c) {
+  const int gr = t.u0 + r, gc = t.v0 + c;
+  return gr >= 0 && gr < t.Hg && gc >= 0 && gc < t.Wg;
+}
+
 // Bilinear taps of out(r, c) = in(r - dy, c - dx): tap (a, b) has weight
 // w[2a + b] and reads in(r - (iy + a), c - (ix + b)).
 template <typename T>
@@ -125,49 +163,68 @@ __device__ __forceinline__ int linear_block() {
 // residual, squared-residual cost). Reads x through L1/L2 (up to 4 warp taps
 // per blur tap), y once, writes r once: the bytes of x, y and r are its floor.
 // ---------------------------------------------------------------------------
-template <typename T>
+template <typename T, bool SHARD>
 __global__ void __launch_bounds__(NT) sr_residual_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const double* __restrict__ shifts, const T* __restrict__ blur, int kh, int kw,
     int C, int H, int W, int s, int h, int w,
+    Tile where, const T* __restrict__ mask, int halo_band,
     T* __restrict__ r, double* __restrict__ partials) {
+  // A whole image is its own tile: the compiler then folds every test in
+  // the image's coordinates into the test on the array's bounds beside it.
+  const Tile tile = SHARD ? where : Tile{0, 0, H, W};
   const int qc = blockIdx.x * BX + threadIdx.x;
   const int qr = blockIdx.y * BY + threadIdx.y;
   const int kc = blockIdx.z;
   const int k = kc / C, c = kc % C;
   double sq = 0.0;
   if (qr < h && qc < w) {
-    int iy, ix;
-    T wt[4];
-    warp_taps<T>(shifts[2 * k], shifts[2 * k + 1], iy, ix, wt);
-    const T* xc = x + (size_t)c * H * W;
-    const int ar = kh / 2, ac = kw / 2;
-    T z = (T)0;
-    for (int i = 0; i < kh; ++i) {
-      const int pr = s * qr + i - ar;
-      if (pr < 0 || pr >= H) continue;  // warp output is zero outside the image
-      for (int j = 0; j < kw; ++j) {
-        const int pc = s * qc + j - ac;
-        if (pc < 0 || pc >= W) continue;
-        T val = (T)0;
-#pragma unroll
-        for (int a = 0; a < 2; ++a) {
-          const int rr = pr - iy - a;
-          if (rr < 0 || rr >= H) continue;
-#pragma unroll
-          for (int b = 0; b < 2; ++b) {
-            const T wgt = wt[2 * a + b];
-            const int cc = pc - ix - b;
-            if (wgt == (T)0 || cc < 0 || cc >= W) continue;
-            val += wgt * xc[(size_t)rr * W + cc];
-          }
-        }
-        const T tap = blur ? blur[i * kw + j] : (T)1;
-        z += tap * val;
-      }
-    }
     const size_t idx = ((size_t)kc * h + qr) * w + qc;
-    const T res = z - y[idx];
+    // The LR pixels this launch answers for: the mask's, else those inside
+    // the global image (the origin is a multiple of s, so the division is
+    // exact); never the read-only halo band.
+    bool owned = !(halo_band && c == C - 1);
+    if (SHARD && owned && mask == nullptr) {
+      const int gr = tile.u0 / s + qr, gc = tile.v0 / s + qc;
+      owned = gr >= 0 && gr < tile.Hg / s && gc >= 0 && gc < tile.Wg / s;
+    }
+    T res = (T)0;
+    if (owned) {
+      int iy, ix;
+      T wt[4];
+      warp_taps<T>(shifts[2 * k], shifts[2 * k + 1], iy, ix, wt);
+      const T* xc = x + (size_t)c * H * W;
+      const int ar = kh / 2, ac = kw / 2;
+      T z = (T)0;
+      for (int i = 0; i < kh; ++i) {
+        const int pr = s * qr + i - ar;
+        const int gpr = tile.u0 + pr;
+        if (gpr < 0 || gpr >= tile.Hg) continue;  // warp output is zero outside the image
+        for (int j = 0; j < kw; ++j) {
+          const int pc = s * qc + j - ac;
+          const int gpc = tile.v0 + pc;
+          if (gpc < 0 || gpc >= tile.Wg) continue;
+          T val = (T)0;
+#pragma unroll
+          for (int a = 0; a < 2; ++a) {
+            const int rr = pr - iy - a;
+            if (rr < 0 || rr >= H) continue;  // beyond the array
+#pragma unroll
+            for (int b = 0; b < 2; ++b) {
+              const T wgt = wt[2 * a + b];
+              const int cc = pc - ix - b;
+              if (wgt == (T)0 || cc < 0 || cc >= W) continue;
+              if (SHARD && !in_image(tile, rr, cc)) continue;  // a source outside the image is zero
+              val += wgt * xc[(size_t)rr * W + cc];
+            }
+          }
+          const T tap = blur ? blur[i * kw + j] : (T)1;
+          z += tap * val;
+        }
+      }
+      res = z - y[idx];
+      if (SHARD && mask != nullptr) res *= mask[(size_t)qr * w + qc];
+    }
     r[idx] = res;
     sq = (double)res * (double)res;
   }
@@ -179,38 +236,49 @@ __global__ void __launch_bounds__(NT) sr_residual_kernel(
 // Regulariser pieces, gather form.
 // ---------------------------------------------------------------------------
 
-// TV residual pieces at pixel (rr, cc): forward differences, zero past the border.
-template <typename T>
-__device__ __forceinline__ void tv_diffs(const T* xc, int H, int W, int rr, int cc, T& dx, T& dy) {
+// x at (rr, cc) of one channel, rr, cc >= 0. On a tile (SHARD) zero beyond
+// the array; on a whole image the caller's border test has kept it inside.
+template <typename T, bool SHARD>
+__device__ __forceinline__ T at_or_zero(const T* xc, int H, int W, int rr, int cc) {
+  if (SHARD && (rr >= H || cc >= W)) return (T)0;
+  return xc[(size_t)rr * W + cc];
+}
+
+// TV residual pieces at pixel (rr, cc): forward differences, zero past the
+// border of the image (global coordinates); x reads as zero beyond the array.
+template <typename T, bool SHARD>
+__device__ __forceinline__ void tv_diffs(const T* xc, int H, int W, const Tile& t, int rr, int cc,
+                                         T& dx, T& dy) {
   const T x0 = xc[(size_t)rr * W + cc];
-  dx = (cc + 1 < W) ? xc[(size_t)rr * W + cc + 1] - x0 : (T)0;
-  dy = (rr + 1 < H) ? xc[(size_t)(rr + 1) * W + cc] - x0 : (T)0;
+  dx = (t.v0 + cc + 1 < t.Wg) ? at_or_zero<T, SHARD>(xc, H, W, rr, cc + 1) - x0 : (T)0;
+  dy = (t.u0 + rr + 1 < t.Hg) ? at_or_zero<T, SHARD>(xc, H, W, rr + 1, cc) - x0 : (T)0;
 }
 
 // 3D TV residual pieces at band c, pixel (rr, cc): the 2D pieces plus the
 // forward difference to band c + 1, zero at the last band. Every site has
 // its own dz: the left, upper and previous-band neighbours of a pixel each
 // take theirs from their own position.
-template <typename T>
-__device__ __forceinline__ void tv3d_diffs(const T* x, int C, int H, int W, int c, int rr, int cc,
-                                           T& dx, T& dy, T& dz) {
+template <typename T, bool SHARD>
+__device__ __forceinline__ void tv3d_diffs(const T* x, int C, int H, int W, const Tile& t, int c,
+                                           int rr, int cc, T& dx, T& dy, T& dz) {
   const size_t plane = (size_t)H * W;
   const T* xc = x + (size_t)c * plane;
-  tv_diffs<T>(xc, H, W, rr, cc, dx, dy);
+  tv_diffs<T, SHARD>(xc, H, W, t, rr, cc, dx, dy);
   const size_t at = (size_t)rr * W + cc;
   dz = (c + 1 < C) ? xc[plane + at] - xc[at] : (T)0;
 }
 
-// BTV residual at pixel (qr, qc): inclusive window [0, P]^2.
-template <typename T>
-__device__ __forceinline__ T btv_residual(const T* xc, int H, int W, int qr, int qc, int P,
-                                          const T* pw) {
+// BTV residual at pixel (qr, qc): inclusive window [0, P]^2, cut at the
+// border of the image (global coordinates).
+template <typename T, bool SHARD>
+__device__ __forceinline__ T btv_residual(const T* xc, int H, int W, const Tile& t, int qr, int qc,
+                                          int P, const T* pw) {
   const T x0 = xc[(size_t)qr * W + qc];
   T rs = (T)0;
-  for (int i = 0; i <= P && qr + i < H; ++i) {
-    for (int j = 0; j <= P && qc + j < W; ++j) {
+  for (int i = 0; i <= P && t.u0 + qr + i < t.Hg; ++i) {
+    for (int j = 0; j <= P && t.v0 + qc + j < t.Wg; ++j) {
       if (i == 0 && j == 0) continue;
-      rs += pw[i + j] * absval(x0 - xc[(size_t)(qr + i) * W + qc + j]);
+      rs += pw[i + j] * absval(x0 - at_or_zero<T, SHARD>(xc, H, W, qr + i, qc + j));
     }
   }
   return rs;
@@ -227,13 +295,14 @@ __device__ __forceinline__ T btv_residual(const T* xc, int H, int W, int qr, int
 //   grad = 2 s^2 sum_k M_k^T B^T D^T r_k  (+ TV or BTV gradient),
 // and the thread's own regulariser cost c r^2 into a per-block partial.
 // ---------------------------------------------------------------------------
-template <typename T, int MODE>
+template <typename T, int MODE, bool SHARD>
 __global__ void __launch_bounds__(NT) sr_gradient_kernel(
     const T* __restrict__ x, const T* __restrict__ r,
     const double* __restrict__ shifts, const T* __restrict__ blur, int kh, int kw,
-    int K, int C, int H, int W, int s, int h, int w,
+    int K, int C, int H, int W, int s, int h, int w, Tile where,
     const T* __restrict__ constants, int P, double decay,
     T* __restrict__ grad, double* __restrict__ partials) {
+  const Tile tile = SHARD ? where : Tile{0, 0, H, W};  // see sr_residual_kernel
   const int v = blockIdx.x * BX + threadIdx.x;
   const int u = blockIdx.y * BY + threadIdx.y;
   const int c = blockIdx.z;
@@ -250,13 +319,17 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
       T gk = (T)0;
 #pragma unroll
       for (int a = 0; a < 2; ++a) {
+        // B^T D^T r is zero outside the image (global coordinates); beyond
+        // the array it is made of the residuals there are, none being zero.
         const int pr = u - iy - a;
-        if (pr < 0 || pr >= H) continue;  // B^T D^T r is zero outside the image
+        const int gpr = tile.u0 + pr;
+        if (gpr < 0 || gpr >= tile.Hg) continue;
 #pragma unroll
         for (int b = 0; b < 2; ++b) {
           const T wgt = wt[2 * a + b];
           const int pc = v - ix - b;
-          if (wgt == (T)0 || pc < 0 || pc >= W) continue;
+          const int gpc = tile.v0 + pc;
+          if (wgt == (T)0 || gpc < 0 || gpc >= tile.Wg) continue;
           // g1(pr, pc) = sum_ij kT[i][j] up(r_k)(pr + i - ar, pc + j - ac):
           // only taps landing on a multiple of s hit an LR sample.
           T g1 = (T)0;
@@ -287,20 +360,20 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
     if constexpr (MODE == MODE_TV) {
       const T* cc = constants + base;
       T dx0, dy0;
-      tv_diffs<T>(xc, H, W, u, v, dx0, dy0);
+      tv_diffs<T, SHARD>(xc, H, W, tile, u, v, dx0, dy0);
       const T c0 = cc[(size_t)u * W + v];
       const T r0 = absval(dx0) + absval(dy0);
       const T g0 = ((T)2 * c0) * r0;
       T tv = -g0 * (sgn(dx0) + sgn(dy0));
       if (v > 0) {  // gx of the left neighbour
         T dxl, dyl;
-        tv_diffs<T>(xc, H, W, u, v - 1, dxl, dyl);
+        tv_diffs<T, SHARD>(xc, H, W, tile, u, v - 1, dxl, dyl);
         const T gl = ((T)2 * cc[(size_t)u * W + v - 1]) * (absval(dxl) + absval(dyl));
         tv += gl * sgn(dxl);
       }
       if (u > 0) {  // gy of the upper neighbour
         T dxu, dyu;
-        tv_diffs<T>(xc, H, W, u - 1, v, dxu, dyu);
+        tv_diffs<T, SHARD>(xc, H, W, tile, u - 1, v, dxu, dyu);
         const T gu = ((T)2 * cc[(size_t)(u - 1) * W + v]) * (absval(dxu) + absval(dyu));
         tv += gu * sgn(dyu);
       }
@@ -314,21 +387,21 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
       const size_t plane = (size_t)H * W;
       const T* cc = constants + base;
       T dx0, dy0, dz0;
-      tv3d_diffs<T>(x, C, H, W, c, u, v, dx0, dy0, dz0);
+      tv3d_diffs<T, SHARD>(x, C, H, W, tile, c, u, v, dx0, dy0, dz0);
       const T c0 = cc[(size_t)u * W + v];
       const T r0 = absval(dx0) + absval(dy0) + absval(dz0);
       const T g0 = ((T)2 * c0) * r0;
       T tv = -g0 * (sgn(dx0) + sgn(dy0));
       if (v > 0) {
         T dxl, dyl, dzl;
-        tv3d_diffs<T>(x, C, H, W, c, u, v - 1, dxl, dyl, dzl);
+        tv3d_diffs<T, SHARD>(x, C, H, W, tile, c, u, v - 1, dxl, dyl, dzl);
         const T gl =
             ((T)2 * cc[(size_t)u * W + v - 1]) * (absval(dxl) + absval(dyl) + absval(dzl));
         tv += gl * sgn(dxl);
       }
       if (u > 0) {
         T dxu, dyu, dzu;
-        tv3d_diffs<T>(x, C, H, W, c, u - 1, v, dxu, dyu, dzu);
+        tv3d_diffs<T, SHARD>(x, C, H, W, tile, c, u - 1, v, dxu, dyu, dzu);
         const T gu =
             ((T)2 * cc[(size_t)(u - 1) * W + v]) * (absval(dxu) + absval(dyu) + absval(dzu));
         tv += gu * sgn(dyu);
@@ -336,7 +409,7 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
       tv -= g0 * sgn(dz0);
       if (c > 0) {
         T dxp, dyp, dzp;
-        tv3d_diffs<T>(x, C, H, W, c - 1, u, v, dxp, dyp, dzp);
+        tv3d_diffs<T, SHARD>(x, C, H, W, tile, c - 1, u, v, dxp, dyp, dzp);
         const T gp = ((T)2 * (cc - plane)[(size_t)u * W + v]) *
                      (absval(dxp) + absval(dyp) + absval(dzp));
         tv += gp * sgn(dzp);
@@ -355,21 +428,25 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
       }
       const T x0 = xc[(size_t)u * W + v];
       const T c0 = cc[(size_t)u * W + v];
-      const T r0 = btv_residual<T>(xc, H, W, u, v, P, pw);
+      const T r0 = btv_residual<T, SHARD>(xc, H, W, tile, u, v, P, pw);
       const T g0 = ((T)2 * c0) * r0;
       T btv = (T)0;
       // Gradient window is exclusive: [0, P)^2. The (0, 0) offset is zero.
       for (int i = 0; i < P; ++i) {
         for (int j = 0; j < P; ++j) {
           if (i == 0 && j == 0) continue;
-          if (u + i < H && v + j < W) {
-            btv += (pw[i + j] * g0) * sgn(x0 - xc[(size_t)(u + i) * W + v + j]);
+          if (tile.u0 + u + i < tile.Hg && tile.v0 + v + j < tile.Wg) {
+            btv += (pw[i + j] * g0) * sgn(x0 - at_or_zero<T, SHARD>(xc, H, W, u + i, v + j));
           }
-          // Overlap term sourced at q = p - (i, j); the source (0, 0) is skipped.
+          // Overlap term sourced at q = p - (i, j): it exists where this
+          // pixel lies in the source's window (inside the image), the source
+          // lies in the array (its constant is zero beyond), and the source
+          // is not the image's pixel (0, 0), which is skipped.
           const int qr = u - i, qc = v - j;
-          if (qr >= 0 && qc >= 0 && !(qr == 0 && qc == 0)) {
+          const bool in_window = !SHARD || (tile.u0 + u < tile.Hg && tile.v0 + v < tile.Wg);
+          if (qr >= 0 && qc >= 0 && in_window && !(tile.u0 + qr == 0 && tile.v0 + qc == 0)) {
             const T xq = xc[(size_t)qr * W + qc];
-            const T rq = btv_residual<T>(xc, H, W, qr, qc, P, pw);
+            const T rq = btv_residual<T, SHARD>(xc, H, W, tile, qr, qc, P, pw);
             const T gq = ((T)2 * cc[(size_t)qr * W + qc]) * rq;
             btv -= (pw[i + j] * gq) * sgn(xq - x0);
           }
@@ -416,29 +493,47 @@ __global__ void __launch_bounds__(REDUCE_THREADS) sr_reduce_kernel(
 
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
+inline bool is_whole_image(const Tile& t, int H, int W) {
+  return t.u0 == 0 && t.v0 == 0 && t.Hg == H && t.Wg == W;
+}
+
 template <typename T>
 int launch_residual(const void* x, const void* y, const double* shifts, const void* blur,
-                    int kh, int kw, int K, int C, int H, int W, int s, void* r,
-                    double* partials, cudaStream_t stream) {
+                    int kh, int kw, int K, int C, int H, int W, int s, Tile tile,
+                    const void* mask, int halo_band, void* r, double* partials,
+                    cudaStream_t stream) {
   const int h = H / s, w = W / s;
   dim3 block(BX, BY), grid(ceil_div(w, BX), ceil_div(h, BY), K * C);
-  sr_residual_kernel<T><<<grid, block, 0, stream>>>(
-      (const T*)x, (const T*)y, shifts, (const T*)blur, kh, kw, C, H, W, s, h, w, (T*)r,
-      partials);
+  if (is_whole_image(tile, H, W) && mask == nullptr) {
+    sr_residual_kernel<T, false><<<grid, block, 0, stream>>>(
+        (const T*)x, (const T*)y, shifts, (const T*)blur, kh, kw, C, H, W, s, h, w, tile,
+        nullptr, halo_band, (T*)r, partials);
+  } else {
+    sr_residual_kernel<T, true><<<grid, block, 0, stream>>>(
+        (const T*)x, (const T*)y, shifts, (const T*)blur, kh, kw, C, H, W, s, h, w, tile,
+        (const T*)mask, halo_band, (T*)r, partials);
+  }
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_gradient(const void* x, const void* r, const double* shifts, const void* blur,
-                    int kh, int kw, int K, int C, int H, int W, int s, int mode,
+                    int kh, int kw, int K, int C, int H, int W, int s, Tile tile, int mode,
                     const void* constants, int P, double decay, void* grad,
                     double* partials, cudaStream_t stream) {
   const int h = H / s, w = W / s;
   dim3 block(BX, BY), grid(ceil_div(W, BX), ceil_div(H, BY), C);
-#define SR_LAUNCH(M)                                                                     \
-  sr_gradient_kernel<T, M><<<grid, block, 0, stream>>>(                                     \
-      (const T*)x, (const T*)r, shifts, (const T*)blur, kh, kw, K, C, H, W, s, h, w,     \
+  const bool whole = is_whole_image(tile, H, W);
+#define SR_LAUNCH_AS(M, SHARD)                                                             \
+  sr_gradient_kernel<T, M, SHARD><<<grid, block, 0, stream>>>(                             \
+      (const T*)x, (const T*)r, shifts, (const T*)blur, kh, kw, K, C, H, W, s, h, w, tile, \
       (const T*)constants, P, decay, (T*)grad, partials)
+#define SR_LAUNCH(M)         \
+  if (whole) {               \
+    SR_LAUNCH_AS(M, false);  \
+  } else {                   \
+    SR_LAUNCH_AS(M, true);   \
+  }
   if (mode == MODE_DATA) {
     SR_LAUNCH(MODE_DATA);
   } else if (mode == MODE_TV) {
@@ -449,13 +544,14 @@ int launch_gradient(const void* x, const void* r, const double* shifts, const vo
     SR_LAUNCH(MODE_TV3D);
   }
 #undef SR_LAUNCH
+#undef SR_LAUNCH_AS
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C interface. Every pointer is a device pointer; `stream` is a
-// cudaStream_t. Each launcher returns cudaGetLastError() (0 = success) or a
+// Plain C interface. Every pointer is a device pointer, except `tile` (four
+// ints on the host, read before the launch); `stream` is a cudaStream_t. Each launcher returns cudaGetLastError() (0 = success) or a
 // negative code for an argument it refuses.
 extern "C" {
 
@@ -470,31 +566,51 @@ int sr_gradient_blocks(int C, int H, int W) {
 
 int sr_max_btv_range() { return MAX_BTV_RANGE; }
 
+// `tile` = {u0, v0, Hg, Wg}: where the [C, H, W] array lies in the image it
+// is a tile of ({0, 0, H, W} for a whole image). Refused unless the origin
+// is a multiple of s and the global extent a positive multiple of s.
+static int check_tile(const int* tile, int s) {
+  if (tile == nullptr) return -6;
+  if (tile[0] % s != 0 || tile[1] % s != 0) return -7;
+  if (tile[2] < s || tile[3] < s || tile[2] % s != 0 || tile[3] % s != 0) return -8;
+  return 0;
+}
+
+// `mask`: nullable [H/s, W/s] of 0/1 in x's type, the LR pixels whose
+// residual counts. `halo_band` != 0: channel C - 1 is a read-only spectral
+// halo (needs C >= 2).
 int sr_data_residual(const void* x, const void* y, const double* shifts, const void* blur,
-                     int kh, int kw, int K, int C, int H, int W, int s, void* r,
-                     double* partials, int is_double, void* stream) {
+                     int kh, int kw, int K, int C, int H, int W, int s, const int* tile,
+                     const void* mask, int halo_band, void* r, double* partials, int is_double,
+                     void* stream) {
   if (s < 1 || H % s != 0 || W % s != 0 || kh < 1 || kw < 1 || K < 1 || C < 1) return -1;
   if ((long long)K * C > 65535 || C > 65535) return -2;
+  if (int bad = check_tile(tile, s)) return bad;
+  if (halo_band && C < 2) return -9;
+  const Tile t{tile[0], tile[1], tile[2], tile[3]};
   cudaStream_t st = (cudaStream_t)stream;
-  return is_double
-             ? launch_residual<double>(x, y, shifts, blur, kh, kw, K, C, H, W, s, r, partials, st)
-             : launch_residual<float>(x, y, shifts, blur, kh, kw, K, C, H, W, s, r, partials, st);
+  return is_double ? launch_residual<double>(x, y, shifts, blur, kh, kw, K, C, H, W, s, t, mask,
+                                             halo_band, r, partials, st)
+                   : launch_residual<float>(x, y, shifts, blur, kh, kw, K, C, H, W, s, t, mask,
+                                            halo_band, r, partials, st);
 }
 
 int sr_objective_gradient(const void* x, const void* r, const double* shifts, const void* blur,
-                          int kh, int kw, int K, int C, int H, int W, int s, int mode,
-                          const void* constants, int btv_range, double btv_decay, void* grad,
-                          double* reg_partials, int is_double, void* stream) {
+                          int kh, int kw, int K, int C, int H, int W, int s, const int* tile,
+                          int mode, const void* constants, int btv_range, double btv_decay,
+                          void* grad, double* reg_partials, int is_double, void* stream) {
   if (s < 1 || H % s != 0 || W % s != 0 || kh < 1 || kw < 1 || K < 1 || C < 1) return -1;
   if (C > 65535) return -2;
   if (mode < MODE_DATA || mode > MODE_TV3D) return -3;
   if (mode != MODE_DATA && constants == nullptr) return -4;
   if (mode == MODE_BTV && (btv_range < 1 || btv_range > MAX_BTV_RANGE)) return -5;
+  if (int bad = check_tile(tile, s)) return bad;
+  const Tile t{tile[0], tile[1], tile[2], tile[3]};
   cudaStream_t st = (cudaStream_t)stream;
-  return is_double ? launch_gradient<double>(x, r, shifts, blur, kh, kw, K, C, H, W, s, mode,
+  return is_double ? launch_gradient<double>(x, r, shifts, blur, kh, kw, K, C, H, W, s, t, mode,
                                              constants, btv_range, btv_decay, grad,
                                              reg_partials, st)
-                   : launch_gradient<float>(x, r, shifts, blur, kh, kw, K, C, H, W, s, mode,
+                   : launch_gradient<float>(x, r, shifts, blur, kh, kw, K, C, H, W, s, t, mode,
                                             constants, btv_range, btv_decay, grad,
                                             reg_partials, st);
 }

@@ -1,8 +1,8 @@
 """The fused MAP objective: CUDA kernels on a CUDA tensor, plain PyTorch on a CPU tensor.
 
 Replaces the JAX package's one Pallas TPU kernel,
-``pallas_data_term_cost_and_grad`` (``ops/pallas/degrade.py``), in its
-single-device modes. One call returns cost and gradient of
+``pallas_data_term_cost_and_grad`` (``ops/pallas/degrade.py``), in all its
+modes. One call returns cost and gradient of
 
     s^2 sum_k ||D B M_k x - y_k||^2  [+ sum c r_tv(x)^2 | + sum c r_btv(x)^2]
 
@@ -20,6 +20,15 @@ small device op, and no call copies to the host or synchronises. The TPU
 mode's ``shift_bound`` and |shift| buckets have no counterpart: the kernels
 take any shift. Its channel-block grid: the CUDA grid has a channel axis, so
 a cube of hundreds of bands is one launch with no blocking argument.
+
+Two more serve a solve spread over a device mesh (``parallel/``). *Shard
+mode* (``origin``, ``global_hw``, ``data_mask_lr``): ``x`` is a halo-extended
+tile of a larger image, every border test runs in the image's coordinates,
+the data residual counts only on the LR pixels the shard owns, and the
+gradient that falls into the rim is returned for the caller's scatter-sum.
+*Spectral-halo mode* (``spectral_halo``, with ``tv_use_3d``): the last channel
+of ``x`` is a read-only band owned by the next band shard. Launches in these
+modes are counted in ``shard_launch_counts`` as well.
 
 :func:`fused_objective` is the wrapper. For a CUDA tensor it launches the
 kernels of ``csrc/degrade.cu`` (residual pass, gradient pass, cost reduction)
@@ -40,6 +49,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from super_resolution_tpu_torch.ops.blur import blur, blur_adjoint
 from super_resolution_tpu_torch.ops.btv import btv_cost_and_grad
@@ -52,6 +62,8 @@ __all__ = [
     "KERNEL_NAMES",
     "launch_counts",
     "shift_source_counts",
+    "shard_launch_counts",
+    "plain_version_calls",
     "reset_launch_counts",
     "fused_objective",
     "fused_objective_reference",
@@ -67,13 +79,17 @@ launch_counts: dict[str, int] = {name: 0 for name in KERNEL_NAMES}
 # device ("device": nothing crossed from the host) and how many from host
 # values ("host": a [K, 2] copy to the device per call).
 shift_source_counts: dict[str, int] = {"device": 0, "host": 0}
+# Of those launches, how many ran in shard mode (a tile of a larger image) and
+# how many in spectral-halo mode (the last channel a read-only band).
+shard_launch_counts: dict[str, int] = {"shard_mode": 0, "spectral_halo": 0}
+# Calls of the plain version, by anyone, since the last reset.
+plain_version_calls: dict[str, int] = {"calls": 0}
 
 
 def reset_launch_counts() -> None:
-    for name in KERNEL_NAMES:
-        launch_counts[name] = 0
-    for source in shift_source_counts:
-        shift_source_counts[source] = 0
+    for counts in (launch_counts, shift_source_counts, shard_launch_counts, plain_version_calls):
+        for key in counts:
+            counts[key] = 0
 
 
 def _mode_name(tv_constants, btv_constants, tv_use_3d=False) -> str:
@@ -88,7 +104,10 @@ def _mode_name(tv_constants, btv_constants, tv_use_3d=False) -> str:
     return "data_term"
 
 
-def _check_problem(x, y, scale, constants):
+def _check_problem(x, y, scale, constants, origin=None, global_hw=None, data_mask_lr=None,
+                   spectral_halo=False, tv_use_3d=False):
+    """Validate the shapes; returns the tile ``(u0, v0, Hg, Wg)``, which is
+    ``(0, 0, H, W)`` for a whole image."""
     if x.ndim != 3 or y.ndim != 4:
         raise ValueError(f"Expected x [C,H,W] and y [K,C,h,w]; got {tuple(x.shape)}, {tuple(y.shape)}.")
     c, h, w = x.shape
@@ -99,6 +118,25 @@ def _check_problem(x, y, scale, constants):
         raise ValueError(f"LR stack shape {tuple(y.shape)} does not fit x {tuple(x.shape)} at scale {scale}.")
     if constants is not None and constants.shape != x.shape:
         raise ValueError(f"Constants shape {tuple(constants.shape)} != x shape {tuple(x.shape)}.")
+    u0, v0 = (0, 0) if origin is None else (int(origin[0]), int(origin[1]))
+    if u0 % scale or v0 % scale:
+        raise ValueError(f"origin {(u0, v0)} must be scale-aligned (s={scale}).")
+    hg, wg = (h, w) if global_hw is None else (int(global_hw[0]), int(global_hw[1]))
+    if hg < scale or wg < scale or hg % scale or wg % scale:
+        raise ValueError(f"global_hw {(hg, wg)} must be a positive multiple of scale {scale}.")
+    if data_mask_lr is not None and tuple(data_mask_lr.shape) != (h // scale, w // scale):
+        raise ValueError(
+            f"data_mask_lr shape {tuple(data_mask_lr.shape)} != LR extent {(h // scale, w // scale)}.")
+    if spectral_halo and not tv_use_3d:
+        raise ValueError("spectral_halo only makes sense with tv_use_3d (the halo band exists for the "
+                         "spectral coupling).")
+    if spectral_halo and c < 2:
+        raise ValueError("spectral_halo needs >= 1 real band + the halo.")
+    return u0, v0, hg, wg
+
+
+def _is_shard_mode(origin, global_hw, data_mask_lr) -> bool:
+    return origin is not None or global_hw is not None or data_mask_lr is not None
 
 
 def _shift_list(shifts, num_frames: int) -> list[tuple[float, float]]:
@@ -108,6 +146,57 @@ def _shift_list(shifts, num_frames: int) -> list[tuple[float, float]]:
     if arr.shape[0] != num_frames:
         raise ValueError(f"{arr.shape[0]} shifts for {num_frames} frames.")
     return [(float(dx), float(dy)) for dx, dy in arr]
+
+
+def _tile_data_term(x, y, shifts, blur_kernel, scale, tile, data_mask_lr, keep_bands):
+    """Data-term cost and gradient on a tile of a larger image (shard mode).
+
+    The tile is embedded in a zero canvas wide enough that the canvas's own
+    border is out of every operator's reach, so ``x`` is zero beyond the
+    tile; the operators' zero borders are then applied as masks in the
+    IMAGE's coordinates: a source pixel outside the image is zero, the warp's
+    output is zero outside the image before the blur reads it, and ``B^T D^T
+    r`` is zero outside the image before the reverse warp reads it.
+    """
+    u0, v0, hg, wg = tile
+    h, w = x.shape[-2], x.shape[-1]
+    shift_list = _shift_list(shifts, y.shape[0])
+    reach = max([abs(v) for pair in shift_list for v in pair] + [0.0])
+    taps = (0, 0) if blur_kernel is None else tuple(np.shape(_kernel_array(blur_kernel)))
+    margin = int(np.ceil(reach)) + 2 + max(taps)
+    margin = -(-margin // scale) * scale
+    rows = u0 - margin + torch.arange(h + 2 * margin, device=x.device)
+    cols = v0 - margin + torch.arange(w + 2 * margin, device=x.device)
+    inside = (((rows >= 0) & (rows < hg))[:, None] & ((cols >= 0) & (cols < wg))[None, :]).to(x.dtype)
+    if data_mask_lr is None:
+        lr_rows = u0 // scale + torch.arange(h // scale, device=x.device)
+        lr_cols = v0 // scale + torch.arange(w // scale, device=x.device)
+        mask = (((lr_rows >= 0) & (lr_rows < hg // scale))[:, None]
+                & ((lr_cols >= 0) & (lr_cols < wg // scale))[None, :]).to(x.dtype)
+    else:
+        mask = torch.as_tensor(data_mask_lr, dtype=x.dtype, device=x.device)
+    if keep_bands is not None:
+        mask = mask * keep_bands
+    pad = (margin, margin, margin, margin)
+    crop = (Ellipsis, slice(margin, margin + h), slice(margin, margin + w))
+    canvas = F.pad(x, pad) * inside
+    cost = torch.zeros((), dtype=x.dtype, device=x.device)
+    grad = torch.zeros_like(x)
+    for k, (dx, dy) in enumerate(shift_list):
+        z = translate_static(canvas, dx, dy) * inside
+        if blur_kernel is not None:
+            z = blur(z, blur_kernel)
+        r = (decimate(z[crop], scale) - y[k]) * mask
+        cost = cost + torch.sum(r * r)
+        g = F.pad(zero_upsample(r, scale), pad)
+        if blur_kernel is not None:
+            g = blur_adjoint(g, blur_kernel)
+        grad = grad + translate_static(g * inside, -dx, -dy)[crop]
+    return cost, grad
+
+
+def _kernel_array(blur_kernel):
+    return blur_kernel.detach().cpu().numpy() if isinstance(blur_kernel, torch.Tensor) else np.asarray(blur_kernel)
 
 
 def fused_objective_reference(
@@ -121,6 +210,10 @@ def fused_objective_reference(
     btv_range: int = 0,
     btv_decay: float = 1.0,
     tv_use_3d: bool = False,
+    origin=None,
+    global_hw=None,
+    data_mask_lr=None,
+    spectral_halo: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the fused objective; any device, any float dtype.
 
@@ -128,30 +221,45 @@ def fused_objective_reference(
     blur and their adjoints are zero-filled at the image border one operator
     at a time, exactly as the kernels do. ``shifts`` ``[K, 2]`` of (dx, dy)
     are read on the host (a tensor on a CUDA device is copied back);
-    ``blur_kernel`` is a 2D numpy array / tensor or ``None``.
+    ``blur_kernel`` is a 2D numpy array / tensor or ``None``. The four shard
+    arguments are those of :func:`fused_objective`; with all of them left out
+    nothing of the shard-mode code runs.
     """
+    plain_version_calls["calls"] += 1
     mode = _mode_name(tv_constants, btv_constants, tv_use_3d)
-    _check_problem(x, y, scale, tv_constants if tv_constants is not None else btv_constants)
+    tile = _check_problem(x, y, scale, tv_constants if tv_constants is not None else btv_constants,
+                          origin, global_hw, data_mask_lr, spectral_halo, tv_use_3d)
+    shard = _is_shard_mode(origin, global_hw, data_mask_lr)
+    keep_bands = None
+    if spectral_halo:  # the halo band is read-only: out of the data term
+        keep_bands = torch.ones((x.shape[0], 1, 1), dtype=x.dtype, device=x.device)
+        keep_bands[-1] = 0.0
     s2 = float(scale * scale)
-    cost = torch.zeros((), dtype=x.dtype, device=x.device)
-    grad = torch.zeros_like(x)
-    for k, (dx, dy) in enumerate(_shift_list(shifts, y.shape[0])):
-        z = translate_static(x, dx, dy)
-        if blur_kernel is not None:
-            z = blur(z, blur_kernel)
-        r = decimate(z, scale) - y[k]
-        cost = cost + torch.sum(r * r)
-        g = zero_upsample(r, scale)
-        if blur_kernel is not None:
-            g = blur_adjoint(g, blur_kernel)
-        grad = grad + translate_static(g, -dx, -dy)
+    if shard:
+        cost, grad = _tile_data_term(x, y, shifts, blur_kernel, scale, tile, data_mask_lr, keep_bands)
+    else:
+        cost = torch.zeros((), dtype=x.dtype, device=x.device)
+        grad = torch.zeros_like(x)
+        for k, (dx, dy) in enumerate(_shift_list(shifts, y.shape[0])):
+            z = translate_static(x, dx, dy)
+            if blur_kernel is not None:
+                z = blur(z, blur_kernel)
+            r = decimate(z, scale) - y[k]
+            if keep_bands is not None:
+                r = r * keep_bands
+            cost = cost + torch.sum(r * r)
+            g = zero_upsample(r, scale)
+            if blur_kernel is not None:
+                g = blur_adjoint(g, blur_kernel)
+            grad = grad + translate_static(g, -dx, -dy)
     cost, grad = s2 * cost, 2.0 * s2 * grad
+    where = {"origin": tile[:2], "global_hw": tile[2:]} if shard else {}
     if mode in ("data_term_tv", "data_term_tv3d"):
-        c_reg, g_reg = tv_cost_and_grad(x, tv_constants, use_3d=tv_use_3d)
+        c_reg, g_reg = tv_cost_and_grad(x, tv_constants, use_3d=tv_use_3d, **where)
     elif mode == "data_term_btv":
         if btv_range < 1:
             raise ValueError("btv_range must be >= 1 when a BTV term is fused.")
-        c_reg, g_reg = btv_cost_and_grad(x, btv_constants, btv_range, btv_decay)
+        c_reg, g_reg = btv_cost_and_grad(x, btv_constants, btv_range, btv_decay, **where)
     else:
         return cost, grad
     return cost + c_reg, grad + g_reg
@@ -165,8 +273,9 @@ def _library() -> ctypes.CDLL:
     lib.sr_residual_blocks.argtypes = [i] * 5
     lib.sr_gradient_blocks.argtypes = [i] * 3
     lib.sr_max_btv_range.argtypes = []
-    lib.sr_data_residual.argtypes = [p, p, p, p] + [i] * 7 + [p, p, i, p]
-    lib.sr_objective_gradient.argtypes = [p, p, p, p] + [i] * 8 + [p, i, d, p, p, i, p]
+    tile = ctypes.POINTER(ctypes.c_int)
+    lib.sr_data_residual.argtypes = [p, p, p, p] + [i] * 7 + [tile, p, i, p, p, i, p]
+    lib.sr_objective_gradient.argtypes = [p, p, p, p] + [i] * 7 + [tile, i, p, i, d, p, p, i, p]
     lib.sr_reduce_cost.argtypes = [p, i, i, d, p, i, p]
     for fn in (lib.sr_residual_blocks, lib.sr_gradient_blocks, lib.sr_max_btv_range,
                lib.sr_data_residual, lib.sr_objective_gradient, lib.sr_reduce_cost):
@@ -180,15 +289,18 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} {kind}: code {code}.")
 
 
-def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay):
+def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay,
+            tile, shard, data_mask_lr, spectral_halo):
     lib = _library()
     device, dtype = x.device, x.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"The CUDA kernels take float32 or float64, got {dtype}.")
-    for name, t in (("y", y), ("constants", constants)):
+    if data_mask_lr is not None and not isinstance(data_mask_lr, torch.Tensor):
+        data_mask_lr = torch.as_tensor(np.asarray(data_mask_lr), dtype=dtype, device=device)
+    for name, t in (("y", y), ("constants", constants), ("data_mask_lr", data_mask_lr)):
         if t is not None and (t.device != device or t.dtype != dtype):
             raise ValueError(f"{name} is {t.dtype} on {t.device}; x is {dtype} on {device}.")
-    for name, t in (("x", x), ("y", y), ("constants", constants)):
+    for name, t in (("x", x), ("y", y), ("constants", constants), ("data_mask_lr", data_mask_lr)):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous.")
     c, h, w = x.shape
@@ -218,16 +330,19 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
     is_double = int(dtype == torch.float64)
     blur_ptr = None if blur_dev is None else blur_dev.data_ptr()
     const_ptr = None if constants is None else constants.data_ptr()
+    mask_ptr = None if data_mask_lr is None else data_mask_lr.data_ptr()
+    tile_arg = (ctypes.c_int * 4)(*tile)
 
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
         _raise_on(lib.sr_data_residual(
             x.data_ptr(), y.data_ptr(), shifts_dev.data_ptr(), blur_ptr, kh, kw,
-            k, c, h, w, scale, residual.data_ptr(), partials.data_ptr(), is_double, stream,
+            k, c, h, w, scale, tile_arg, mask_ptr, int(spectral_halo), residual.data_ptr(),
+            partials.data_ptr(), is_double, stream,
         ), "sr_data_residual")
         _raise_on(lib.sr_objective_gradient(
             x.data_ptr(), residual.data_ptr(), shifts_dev.data_ptr(), blur_ptr, kh, kw,
-            k, c, h, w, scale, _MODE_OF[mode], const_ptr, int(btv_range), float(btv_decay),
+            k, c, h, w, scale, tile_arg, _MODE_OF[mode], const_ptr, int(btv_range), float(btv_decay),
             grad.data_ptr(), partials.data_ptr() + 8 * n_data, is_double, stream,
         ), "sr_objective_gradient")
         _raise_on(lib.sr_reduce_cost(
@@ -236,6 +351,8 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
         ), "sr_reduce_cost")
     launch_counts[mode] += 1
     shift_source_counts["device" if from_device else "host"] += 1
+    shard_launch_counts["shard_mode"] += int(shard)
+    shard_launch_counts["spectral_halo"] += int(spectral_halo)
     return cost, grad
 
 
@@ -250,6 +367,10 @@ def fused_objective(
     btv_range: int = 0,
     btv_decay: float = 1.0,
     tv_use_3d: bool = False,
+    origin=None,
+    global_hw=None,
+    data_mask_lr=None,
+    spectral_halo: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cost (0-d) and gradient ``[C, H, W]`` of the fused MAP objective.
 
@@ -261,15 +382,38 @@ def fused_objective(
     serves every motion. ``tv_use_3d`` adds the spectral difference to the
     fused TV term (all bands of ``x`` are coupled; with one band it is the
     2D term).
+
+    Shard mode — any of ``origin``, ``global_hw``, ``data_mask_lr`` given:
+    ``x`` is a halo-extended tile of a larger image. ``origin`` ``(u0, v0)``
+    is the image coordinate of ``x[..., 0, 0]`` (negative at the image's
+    edges, a multiple of ``scale``), ``global_hw`` the image's extent.
+    Warp, blur and their adjoints, the TV differences, the BTV windows and
+    BTV's skipped origin pixel are all cut at the IMAGE's border; beyond the
+    tile's own array ``x`` reads as zero. ``data_mask_lr`` ``[H/s, W/s]`` of
+    0/1 keeps the data residual to the LR pixels the shard owns (default: the
+    LR pixels inside the image); ``y`` is the tile's LR stack, zero where the
+    shard owns nothing. The gradient covers the whole tile: what falls into
+    the rim is the caller's to scatter-sum, and fused constants must be zero
+    on the rim so that every regulariser term is counted by one shard.
+
+    ``spectral_halo`` (needs ``tv_use_3d`` and two channels): the last channel
+    of ``x`` is a read-only band owned by the next band shard. It is left out
+    of the data term; with zero constants there (the caller's duty) its own
+    TV terms vanish, the last real band takes its spectral difference against
+    it, and the gradient's last channel is the cross-shard ``+G sign(dz)``
+    for the owner to add to its first band.
     """
+    shard_args = dict(origin=origin, global_hw=global_hw, data_mask_lr=data_mask_lr,
+                      spectral_halo=spectral_halo)
     if x.device.type == "cpu":
         return fused_objective_reference(
             x, y, shifts, blur_kernel, scale, tv_constants, btv_constants, btv_range, btv_decay,
-            tv_use_3d,
+            tv_use_3d, **shard_args,
         )
     if x.device.type != "cuda":
         raise RuntimeError(f"No fused objective for device {x.device}.")
     mode = _mode_name(tv_constants, btv_constants, tv_use_3d)
     constants = tv_constants if tv_constants is not None else btv_constants
-    _check_problem(x, y, scale, constants)
-    return _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay)
+    tile = _check_problem(x, y, scale, constants, tv_use_3d=tv_use_3d, **shard_args)
+    return _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay,
+                   tile, _is_shard_mode(origin, global_hw, data_mask_lr), data_mask_lr, spectral_halo)

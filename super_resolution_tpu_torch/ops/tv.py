@@ -19,6 +19,11 @@ Reference semantics (``src/optimization/tv_regularizer.cpp``):
 ``constants`` is the per-pixel ``lambda * irls_weight`` array, matching
 ``objective_irls_regularization_term.cpp:25-32``.
 
+On a halo-extended tile of a larger image (``origin``, ``global_hw``; see
+``parallel/halo.py``) the forward differences are cut at the border of the
+IMAGE, in global coordinates, and ``x`` reads as zero beyond the tile's own
+array: halo content inside the image is a neighbour like any other.
+
 These functions are the plain version of the TV terms that the CUDA kernels
 fuse into the objective (``ops/cuda/degrade.py``, modes ``data_term_tv`` and
 ``data_term_tv3d``); the IRLS reweighting calls :func:`tv_residuals` directly.
@@ -27,6 +32,7 @@ fuse into the objective (``ops/cuda/degrade.py``, modes ``data_term_tv`` and
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from super_resolution_tpu_torch.ops.warp import shift_zero_fill
 
@@ -68,12 +74,33 @@ def tv_residuals(x: torch.Tensor, use_3d: bool = False) -> torch.Tensor:
     return r
 
 
+def _tile_forward_diffs(x: torch.Tensor, origin, global_hw) -> tuple[torch.Tensor, torch.Tensor]:
+    """Forward differences of a tile whose element (0, 0) lies at ``origin`` of
+    an image of extent ``global_hw``: zero past the image's border, with
+    ``x`` zero beyond the tile."""
+    h, w = x.shape[-2], x.shape[-1]
+    u0, v0 = origin
+    hg, wg = global_hw
+    padded = F.pad(x, (0, 1, 0, 1))
+    keep_x = (v0 + torch.arange(w, device=x.device) + 1 < wg).to(x.dtype)
+    keep_y = (u0 + torch.arange(h, device=x.device) + 1 < hg).to(x.dtype)[:, None]
+    return (padded[..., :h, 1:] - x) * keep_x, (padded[..., 1:, :w] - x) * keep_y
+
+
 def tv_cost_and_grad(
-    x: torch.Tensor, constants: torch.Tensor, use_3d: bool = False
+    x: torch.Tensor, constants: torch.Tensor, use_3d: bool = False, origin=None, global_hw=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """IRLS TV term: cost ``sum(c r^2)`` and its reference-parity gradient."""
-    dx = _forward_diff_x(x)
-    dy = _forward_diff_y(x)
+    """IRLS TV term: cost ``sum(c r^2)`` and its reference-parity gradient.
+
+    ``origin`` ``(u0, v0)`` and ``global_hw`` ``(H, W)``: ``x`` is a tile of a
+    larger image (see the module docstring); both ``None`` for a whole image.
+    """
+    if origin is None and global_hw is None:
+        dx = _forward_diff_x(x)
+        dy = _forward_diff_y(x)
+    else:
+        dx, dy = _tile_forward_diffs(
+            x, origin or (0, 0), global_hw or (x.shape[-2], x.shape[-1]))
     r = dx.abs() + dy.abs()
     if use_3d:
         dz = _forward_diff_z(x)

@@ -23,6 +23,13 @@ Matching the ALGLIB surface used by the reference:
   a strong-Wolfe bracketing + zoom line search (Nocedal & Wright
   Alg. 3.5/3.6) with fixed evaluation bounds.
 
+The state may be a ``parallel.sharded.Sharded`` instead of a tensor: a value
+spread over the shards of a device mesh, whose elementwise algebra runs shard
+by shard. Three helpers are all that know: :func:`_vdot` (the one reduction,
+summed over the shards), :func:`_scalar_like` (a loop constant, one per
+device) and :func:`_host_values` (a read-back takes shard 0's copy). The
+loops below are the same code either way.
+
 L-BFGS is not ported yet.
 """
 
@@ -37,11 +44,24 @@ import torch
 __all__ = ["minimize", "MinimizeResult", "LineSearchConfig", "wolfe_line_search"]
 
 
-def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.dot(a.reshape(-1), b.reshape(-1))
+def _vdot(a, b):
+    """``<a, b>`` as a 0-d value where ``a`` lives; a sharded state sums its shards' dots itself."""
+    if isinstance(a, torch.Tensor):
+        return torch.dot(a.reshape(-1), b.reshape(-1))
+    return a.vdot(b)
 
 
-def _norm(a: torch.Tensor) -> torch.Tensor:
+def _scalar_like(x, value: float):
+    """A 0-d constant of ``x``'s dtype on ``x``'s device (on every device of a sharded ``x``)."""
+    return x.new_full((), value)
+
+
+def _host_values(*scalars) -> list[float]:
+    """The 0-d values as host floats, in one read-back (shard 0's copy of a sharded one)."""
+    return torch.stack([s if isinstance(s, torch.Tensor) else s.local(0) for s in scalars]).tolist()
+
+
+def _norm(a):
     return torch.sqrt(_vdot(a, a))
 
 
@@ -113,7 +133,7 @@ def wolfe_line_search(
 
     def phi(a):
         f, g = value_and_grad(x + float(a) * direction)
-        f_v, dphi_v = torch.stack([f.to(g.dtype), _vdot(g, direction)]).tolist()
+        f_v, dphi_v = _host_values(f.to(g.dtype), _vdot(g, direction))
         return f64(f_v), g, f64(dphi_v)
 
     max_iters = config.max_bracket + config.max_zoom
@@ -220,9 +240,9 @@ def _minimize_linear_cg(
 
     x = x0
     d = -g
-    alpha_prev = torch.zeros((), dtype=dtype, device=x0.device)
-    one = torch.ones((), dtype=dtype, device=x0.device)
-    zero = torch.zeros((), dtype=dtype, device=x0.device)
+    alpha_prev = _scalar_like(x0, 0.0)
+    one = _scalar_like(x0, 1.0)
+    zero = _scalar_like(x0, 0.0)
     converged = bool(_norm(g) <= eps_g)
     k = 0
     n_evals = 1
@@ -313,7 +333,7 @@ def _minimize_cg(
     """Polak-Ribiere+ nonlinear CG with a strong-Wolfe line search."""
     dtype = x0.dtype
     f_t, g = value_and_grad(x0)
-    f, gnorm0 = torch.stack([f_t.to(dtype), _norm(g)]).tolist()
+    f, gnorm0 = _host_values(f_t.to(dtype), _norm(g))
     x = x0
     d = -g
     alpha_prev = 0.0
@@ -323,7 +343,7 @@ def _minimize_cg(
     n_evals = 1
 
     while k < max_iterations and not converged:
-        dphi, gg = torch.stack([_vdot(g, d), _vdot(g, g)]).tolist()
+        dphi, gg = _host_values(_vdot(g, d), _vdot(g, g))
         # Guard: if d is not a descent direction, restart with steepest descent.
         if dphi >= 0:
             d = -g
@@ -347,9 +367,7 @@ def _minimize_cg(
 
         # Polak-Ribiere+ with restart.
         y = g_new - g
-        pr_num, gnorm_new, step_norm = torch.stack(
-            [_vdot(g_new, y), _norm(g_new), _norm(step)]
-        ).tolist()
+        pr_num, gnorm_new, step_norm = _host_values(_vdot(g_new, y), _norm(g_new), _norm(step))
         beta = max(pr_num / max(gg, 1e-300), 0.0)
         d_new = -g_new + beta * d
 
@@ -369,7 +387,7 @@ def _minimize_cg(
 
     return MinimizeResult(
         x=x,
-        cost=torch.as_tensor(f, dtype=dtype, device=x0.device),
+        cost=_scalar_like(x0, f),
         grad_norm=_norm(g),
         iterations=k,
         converged=bool(converged),
