@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
-against its plain PyTorch version on the card, runs the C++ reference's
-golden problems through the kernels, and drives the port's paths at full
-width:
+against its plain PyTorch version on the card (the BTV gradient kernel over
+every range, decay, scale and kind of array it is compiled for, and with no
+local memory in any of its instantiations), runs the C++ reference's golden
+problems through the kernels, and drives the port's paths at full width:
 
 - the IRLS MAP solve at the flagship size (1x1000x1000 HR, 4 frames, 4x, 3x3
   blur), once per fused objective mode;
@@ -40,6 +41,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -103,6 +105,12 @@ ROWS = [
     dict(row="K7b", name="spectral_halo", mode="data_term_tv3d", replaces=f"{PALLAS}:650", path="mesh"),
 ]
 TILED_FRAMES = 16   # frames of the tiled RGB scene
+# Whole images of the BTV sweep, by scale: no side a multiple of any block
+# tile, the first of each smaller than the halo of range 8.
+BTV_SWEEP_SHAPES = {2: [(6, 10), (50, 66)], 3: [(6, 9), (51, 69)], 4: [(8, 12), (52, 68)]}
+# Shard tiles of the BTV sweep: (range, decay, scale, image) cut 3x3.
+BTV_SWEEP_TILES = [(1, 0.5, 3, (54, 72)), (2, 1.0, 2, (48, 66)), (3, 0.5, 4, (48, 72)),
+                   (5, 1.0, 3, (54, 72)), (8, 0.5, 2, (48, 66)), (8, 1.0, 4, (48, 72))]
 
 
 class Failure(Exception):
@@ -185,10 +193,31 @@ def phase_build():
     for name, info in results.items():
         log(f"[2/8] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line.lower():
-                log("      " + line.strip())
+        for line in _ptxas_lines(info["log"]):
+            log("      " + line)
     log(f"      build total {time.perf_counter() - t0:.1f} s")
+
+
+def _ptxas_lines(text):
+    """The compiler's register and spill lines (``-Xptxas -v``), the BTV
+    kernel's instantiations summed up in one line."""
+    lines, registers, stack, spills, name = [], [], [0], [0], ""
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1)
+        elif "sr_btv_gradient_kernel" not in name:
+            if "registers" in line or "spill" in line.lower():
+                lines.append(line.strip())
+        elif used := re.search(r"Used (\d+) registers", line):
+            registers.append(int(used.group(1)))
+        elif frame := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line):
+            stack.append(int(frame.group(1)))
+            spills.append(int(frame.group(2)))
+    if registers:
+        lines.append(f"sr_btv_gradient_kernel: {len(registers)} instantiations, {min(registers)}-{max(registers)} "
+                     f"registers, stack frame <= {max(stack)} bytes, spill stores <= {max(spills)} bytes")
+    return lines
 
 
 def _kernel_problem(c, hw, scale, shifts, kernel, seed, device, dtype):
@@ -506,6 +535,85 @@ def _check_assembled(device, dtype):
         f"by gather, scatter-sum and band ring == the unsharded kernels in {dtype} (tol {tol:g})")
 
 
+def _check_btv_sweep(device, dtype):
+    """The BTV gradient kernel over what it is compiled for, against the
+    plain version: P in {1, 2, 3, 5, 8}, decay 0.5 and 1.0, s = 2, 4 and 3
+    (the instantiation that takes s at run time), whole images whose sides
+    are no multiple of any block tile, one smaller than the P = 8 halo, each
+    launched twice for the same bits; then shard tiles (the corners and the
+    centre of a 3x3 tiling, owned and default mask, constants non-zero on the
+    rim)."""
+    tol = TOLERANCE[dtype]
+    shifts = [(0, 0), (1.25, -0.5), (-2.0, 3.0)]
+    kern = gaussian_kernel_2d(3, 1.0)
+    worst, launches = 0.0, 0
+
+    def held(out, args, kw, what):
+        nonlocal worst, launches
+        cost_err, grad_err, abs_err = _errors(out, degrade.fused_objective_reference(*args, **kw))
+        launches += 1
+        worst = max(worst, abs_err)
+        check(cost_err <= tol and grad_err <= tol,
+              f"BTV sweep {dtype} {what}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
+
+    for P in (1, 2, 3, 5, 8):
+        for decay in (0.5, 1.0):
+            for scale, shapes in BTV_SWEEP_SHAPES.items():
+                for n, hw in enumerate(shapes):
+                    x, y, sh, _, constants = _kernel_problem(2, hw, scale, shifts, kern, 500 + 10 * P + n, device, dtype)
+                    kw = dict(btv_constants=constants, btv_range=P, btv_decay=decay)
+                    args = (x, y, sh, kern, scale)
+                    out = degrade.fused_objective(*args, **kw)
+                    again = degrade.fused_objective(*args, **kw)
+                    check(float(out[0]) == float(again[0]) and torch.equal(out[1], again[1]),
+                          f"BTV sweep {dtype} P={P} s={scale} {hw}: two launches gave different bits")
+                    held(out, args, kw, f"P={P} decay={decay} s={scale} whole {hw}")
+    for P, decay, scale, hw in BTV_SWEEP_TILES:
+        mesh = make_mesh({"row": 3, "col": 3}, devices=[device])
+        th, tw = hw[0] // 3, hw[1] // 3
+        x, y, sh, _, _ = _kernel_problem(2, hw, scale, shifts, kern, 600 + P, device, dtype)
+        q = _halo_width(sh, kern, scale, P)
+        ql = q // scale
+        tiles = collectives.halo_gather(mesh, Sharded.from_global(mesh, x, {"row": 1, "col": 2}).parts, q)
+        lows = Sharded.from_global(mesh, y, {"row": 2, "col": 3}).parts
+        owned = torch.zeros((th + 2 * q) // scale, (tw + 2 * q) // scale, dtype=dtype, device=device)
+        owned[ql: ql + th // scale, ql: ql + tw // scale] = 1.0
+        rng = np.random.default_rng(610 + P)
+        for shard in (0, 2, 4, 6, 8):
+            coords = mesh.coords(shard)
+            xt = tiles[shard].contiguous()
+            yt = torch.nn.functional.pad(lows[shard], (ql, ql, ql, ql)).contiguous()
+            constants = torch.as_tensor(rng.random(tuple(xt.shape)) * 0.02, dtype=dtype, device=device)
+            args = (xt, yt, sh, kern, scale)
+            for mask in (owned, None):
+                kw = dict(btv_constants=constants, btv_range=P, btv_decay=decay, data_mask_lr=mask,
+                          origin=(coords["row"] * th - q, coords["col"] * tw - q), global_hw=hw)
+                held(degrade.fused_objective(*args, **kw), args, kw,
+                     f"P={P} decay={decay} s={scale} tile {coords} {'owned' if mask is not None else 'default'} mask")
+    log(f"[3/8] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images each, "
+        f"bit-equal when launched twice; {len(BTV_SWEEP_TILES)} x 5 shard tiles x 2 masks) agree with the plain "
+        f"version in {dtype} (tol {tol:g})")
+    return worst
+
+
+def _check_btv_attributes():
+    """What the compiler gave every BTV kernel instantiation (cudaFuncGetAttributes): none may use local memory."""
+    table = {}
+    for dtype in (torch.float32, torch.float64):
+        for P in range(1, degrade.MAX_BTV_RANGE + 1):
+            for scale in (2, 4, 3):
+                for shard in (False, True):
+                    table[dtype, P, scale, shard] = attributes = degrade.btv_kernel_attributes(P, scale, shard, dtype)
+                    check(attributes["local_bytes"] == 0,
+                          f"the BTV kernel ({dtype}, P={P}, s={scale}, shard={shard}) uses local memory: {attributes}")
+    registers = [a["registers"] for a in table.values()]
+    shared = [a["shared_bytes"] for a in table.values()]
+    log(f"[3/8] kernels: BTV gradient kernel, {len(table)} instantiations (float32/float64 x P 1-8 x s 2/4/other x "
+        f"whole/tile): 0 bytes of local memory in each; {min(registers)}-{max(registers)} registers, "
+        f"{min(shared)}-{max(shared)} bytes of static shared memory")
+    return table
+
+
 def tiled_shifts():
     """16 fractional shifts (eighths of an HR pixel within +-2), the first zero, from a seed."""
     shifts = np.round(np.random.default_rng(61).uniform(-2.0, 2.0, size=(TILED_FRAMES, 2)) * 8.0) / 8.0
@@ -532,6 +640,25 @@ def _as_band_shard(x, y, constants):
     constants[-1] = 0.0
     y[:, -1] = 0.0
     return dict(spectral_halo=True)
+
+
+def time_row_at_path_shape(row, device, flush):
+    """:func:`_time_row` at the shape the row's path gives the kernels."""
+    gauss = gaussian_kernel_2d
+    if row["name"] == "shard_mode":
+        # A corner tile of the 2x2 tiling of the RGB 3x2048x2048 scene, rim included.
+        q = _halo_width(tiled_shifts(), gauss(3, 1.5), 4, 3)
+        side = 1024 + 2 * q
+        return _time_row(row, 3, (side, side), 4, tiled_shifts(), gauss(3, 1.5), device, flush,
+                         shard=_as_tile(q, 4, (-q, -q), (2048, 2048)))
+    if row["name"] == "spectral_halo":
+        # One of 4 band shards of the 64-band cube: 16 bands and the halo band.
+        return _time_row(row, 17, (256, 256), 2, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush, shard=_as_band_shard)
+    if row["path"] == "flagship":
+        return _time_row(row, 1, (1000, 1000), 4, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush)
+    if row["path"] == "estimated":
+        return _time_row(row, 3, (1000, 1000), 4, ESTIMATED_TRUE_SHIFTS, gauss(3, 1.5), device, flush)
+    return _time_row(row, 64, (256, 256), 2, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush)
 
 
 def phase_kernels(device):
@@ -583,6 +710,10 @@ def phase_kernels(device):
             worst.update(shard_worst)
         _check_trivial_shard_arguments(device, dtype)
         _check_assembled(device, dtype)
+        btv_worst = _check_btv_sweep(device, dtype)
+        if dtype == torch.float32:
+            worst["data_term_btv"] = max(worst["data_term_btv"], btv_worst)
+    attributes = _check_btv_attributes()
     tap_difference = _float32_tap_difference(device)
     log(f"[3/8] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
         f"makes them) vs the kernels' float64 weights rounded once: {tap_difference:.2e} of the largest entry")
@@ -593,32 +724,22 @@ def phase_kernels(device):
     rows = [dict(row) for row in ROWS]
     for row in rows:
         row["max_abs_err"] = worst[row["name"] if row["path"] == "mesh" else row["mode"]]
-        if row["name"] == "shard_mode":
-            # A corner tile of the 2x2 tiling of the RGB 3x2048x2048 scene, rim included.
-            q = _halo_width(tiled_shifts(), gauss(3, 1.5), 4, 3)
-            side = 1024 + 2 * q
-            _time_row(row, 3, (side, side), 4, tiled_shifts(), gauss(3, 1.5), device, flush,
-                      shard=_as_tile(q, 4, (-q, -q), (2048, 2048)))
-        elif row["name"] == "spectral_halo":
-            # One of 4 band shards of the 64-band cube: 16 bands and the halo band.
-            _time_row(row, 17, (256, 256), 2, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush, shard=_as_band_shard)
-        elif row["path"] == "flagship":
-            _time_row(row, 1, big, 4, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush)
-        elif row["path"] == "estimated":
-            _time_row(row, 3, big, 4, ESTIMATED_TRUE_SHIFTS, gauss(3, 1.5), device, flush)
-        else:
-            x, y, sh, kern, constants = _time_row(row, 64, (256, 256), 2, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush)
-            if row["name"] == "channel_grid":
-                # 4 M values and tens of thousands of per-block partials: the
-                # float32 kernels' cost against the float64 plain version.
-                kw = _mode_kwargs(row["mode"], constants)
-                cost32 = float(degrade.fused_objective(x, y, sh, kern, 2, **kw)[0])
-                cost64 = float(degrade.fused_objective_reference(
-                    x.double(), y.double(), sh, kern, 2, tv_constants=constants.double())[0])
-                row["cost_rel_err_vs_float64"] = abs(cost32 - cost64) / abs(cost64)
-                log(f"         float32 cost over {x.numel()} values vs the float64 plain version: "
-                    f"relative error {row['cost_rel_err_vs_float64']:.2e} (tol 1e-5)")
-                check(row["cost_rel_err_vs_float64"] <= 1e-5, "float32 cost of the 64-band cube is off")
+        if row["mode"] == "data_term_btv":  # the instantiation that serves the row: P = 3, s = 4, float32
+            kernel = attributes[torch.float32, 3, 4, row["name"] == "shard_mode"]
+            row.update(registers=kernel["registers"], shared_bytes=kernel["shared_bytes"],
+                       local_bytes=kernel["local_bytes"])
+        x, y, sh, kern, constants = time_row_at_path_shape(row, device, flush)
+        if row["name"] == "channel_grid":
+            # 4 M values and tens of thousands of per-block partials: the
+            # float32 kernels' cost against the float64 plain version.
+            kw = _mode_kwargs(row["mode"], constants)
+            cost32 = float(degrade.fused_objective(x, y, sh, kern, 2, **kw)[0])
+            cost64 = float(degrade.fused_objective_reference(
+                x.double(), y.double(), sh, kern, 2, tv_constants=constants.double())[0])
+            row["cost_rel_err_vs_float64"] = abs(cost32 - cost64) / abs(cost64)
+            log(f"         float32 cost over {x.numel()} values vs the float64 plain version: "
+                f"relative error {row['cost_rel_err_vs_float64']:.2e} (tol 1e-5)")
+            check(row["cost_rel_err_vs_float64"] <= 1e-5, "float32 cost of the 64-band cube is off")
     return rows
 
 

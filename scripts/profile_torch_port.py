@@ -58,7 +58,7 @@ from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer  # noqa:
 
 
 # Names of the kernels in csrc/degrade.cu, as the profiler reports them.
-HAND_KERNELS = ("sr_residual_kernel", "sr_gradient_kernel", "sr_reduce_kernel")
+HAND_KERNELS = ("sr_residual_kernel", "sr_gradient_kernel", "sr_btv_gradient_kernel", "sr_reduce_kernel")
 
 
 def flagship_solver(side, device):

@@ -71,17 +71,18 @@
 //    [0, P)^2, overlap contributions sourced at pixel (0, 0) skipped;
 //  * data cost x s^2, data gradient x 2 s^2, regulariser terms unscaled.
 //
-// Bound on this card: the least an evaluation can take is set by memory
-// traffic. It must read x, y and the constants and write the gradient once;
-// the LR residual r (K*C*H*W/s^2 values) is the one intermediate that
-// round-trips through device memory, and all neighbour re-reads (blur taps,
-// TV / BTV windows) hit L1/L2. That byte bound is the target, and the design
-// keeps the number of full-image passes at the minimum of two and recomputes
-// rather than stores (the BTV residual of each overlap source). As written
-// the kernels do not reach it: they are instruction-bound, because each
-// thread divides and takes remainders by the runtime scale s in its tap loops
-// and rebuilds every frame's bilinear taps in float64. Making s a template
-// parameter and computing the taps once per block is the next step.
+// Bound on this card: an evaluation must read x, y and the constants and
+// write the gradient once; the LR residual r (K*C*H*W/s^2 values) is the one
+// intermediate that round-trips through device memory, and all neighbour
+// re-reads (blur taps, TV / BTV windows) hit shared memory, L1 or L2. At the
+// paths' shapes that byte bound is 3-20 us; the 16-frame BTV tile is bound by
+// its operations instead. Nothing here is a matrix product, so the tensor
+// cores do not apply: the work runs on the FP32 / FP64 and integer pipes and
+// on shared memory. The residual kernel and the data, TV and 3D TV modes of
+// the gradient kernel are instruction-bound as written: each thread divides
+// and takes remainders by the run-time scale s in its tap loops and rebuilds
+// every frame's bilinear taps in float64. The BTV mode has a kernel of its
+// own, laid out for this card (sr_btv_gradient_kernel, with its note).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
@@ -92,6 +93,20 @@ constexpr int BX = 32;        // block width  (fastest-varying image axis)
 constexpr int BY = 8;         // block height
 constexpr int NT = BX * BY;   // threads per block
 constexpr int MAX_BTV_RANGE = 8;
+// HR tile of one block of the BTV gradient kernel (threads stay BX x BY;
+// each thread computes (BTV_TH / BY) x (BTV_TW / BX) pixels). Set at compile
+// time; scripts/btv_tile_sweep.py builds and times other shapes.
+#ifndef SR_BTV_TILE_H
+#define SR_BTV_TILE_H 16
+#endif
+#ifndef SR_BTV_TILE_W
+#define SR_BTV_TILE_W 32
+#endif
+constexpr int BTV_TH = SR_BTV_TILE_H;
+constexpr int BTV_TW = SR_BTV_TILE_W;
+static_assert(BTV_TH % BY == 0 && BTV_TW % BX == 0, "the BTV tile must be whole thread blocks");
+static_assert(BTV_TW >= MAX_BTV_RANGE && BTV_TH >= MAX_BTV_RANGE, "the BTV tile must cover the largest range");
+constexpr int FRAME_CHUNK = 32;  // frames whose bilinear taps a BTV block stages at a time
 constexpr int REDUCE_THREADS = 1024;
 
 enum Mode { MODE_DATA = 0, MODE_TV = 1, MODE_BTV = 2, MODE_TV3D = 3 };
@@ -268,31 +283,15 @@ __device__ __forceinline__ void tv3d_diffs(const T* x, int C, int H, int W, cons
   dz = (c + 1 < C) ? xc[plane + at] - xc[at] : (T)0;
 }
 
-// BTV residual at pixel (qr, qc): inclusive window [0, P]^2, cut at the
-// border of the image (global coordinates).
-template <typename T, bool SHARD>
-__device__ __forceinline__ T btv_residual(const T* xc, int H, int W, const Tile& t, int qr, int qc,
-                                          int P, const T* pw) {
-  const T x0 = xc[(size_t)qr * W + qc];
-  T rs = (T)0;
-  for (int i = 0; i <= P && t.u0 + qr + i < t.Hg; ++i) {
-    for (int j = 0; j <= P && t.v0 + qc + j < t.Wg; ++j) {
-      if (i == 0 && j == 0) continue;
-      rs += pw[i + j] * absval(x0 - at_or_zero<T, SHARD>(xc, H, W, qr + i, qc + j));
-    }
-  }
-  return rs;
-}
-
 // ---------------------------------------------------------------------------
 // Kernel 2: gradient, one thread per HR pixel (c, u, v). Adjoint half of the
 // Pallas data-term mode (transposed blur of r, reverse warp, 2 s^2 scale)
-// plus, by MODE, the fused 2D TV, the fused 3D spectral TV (the TV mode's
-// `tv_use_3d`) or the fused BTV mode. Reads r (a 1/s^2
+// plus, by MODE, the fused 2D TV or the fused 3D spectral TV (the TV mode's
+// `tv_use_3d`); the BTV mode is kernel 2b. Reads r (a 1/s^2
 // image per frame, L2-resident), x and the constants, writes grad once:
 // the bytes of x, constants and grad are its floor. It is where an
 // evaluation's time goes (see the note on the bound at the top).
-//   grad = 2 s^2 sum_k M_k^T B^T D^T r_k  (+ TV or BTV gradient),
+//   grad = 2 s^2 sum_k M_k^T B^T D^T r_k  (+ TV gradient),
 // and the thread's own regulariser cost c r^2 into a per-block partial.
 // ---------------------------------------------------------------------------
 template <typename T, int MODE, bool SHARD>
@@ -300,8 +299,7 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
     const T* __restrict__ x, const T* __restrict__ r,
     const double* __restrict__ shifts, const T* __restrict__ blur, int kh, int kw,
     int K, int C, int H, int W, int s, int h, int w, Tile where,
-    const T* __restrict__ constants, int P, double decay,
-    T* __restrict__ grad, double* __restrict__ partials) {
+    const T* __restrict__ constants, T* __restrict__ grad, double* __restrict__ partials) {
   const Tile tile = SHARD ? where : Tile{0, 0, H, W};  // see sr_residual_kernel
   const int v = blockIdx.x * BX + threadIdx.x;
   const int u = blockIdx.y * BY + threadIdx.y;
@@ -416,44 +414,6 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
       }
       out += tv;
       reg_cost = (double)((c0 * r0) * r0);
-    } else if constexpr (MODE == MODE_BTV) {
-      const T* cc = constants + base;
-      T pw[2 * MAX_BTV_RANGE + 1];
-      {
-        double p = 1.0;
-        for (int n = 0; n <= 2 * P; ++n) {
-          pw[n] = (T)p;
-          p *= decay;
-        }
-      }
-      const T x0 = xc[(size_t)u * W + v];
-      const T c0 = cc[(size_t)u * W + v];
-      const T r0 = btv_residual<T, SHARD>(xc, H, W, tile, u, v, P, pw);
-      const T g0 = ((T)2 * c0) * r0;
-      T btv = (T)0;
-      // Gradient window is exclusive: [0, P)^2. The (0, 0) offset is zero.
-      for (int i = 0; i < P; ++i) {
-        for (int j = 0; j < P; ++j) {
-          if (i == 0 && j == 0) continue;
-          if (tile.u0 + u + i < tile.Hg && tile.v0 + v + j < tile.Wg) {
-            btv += (pw[i + j] * g0) * sgn(x0 - at_or_zero<T, SHARD>(xc, H, W, u + i, v + j));
-          }
-          // Overlap term sourced at q = p - (i, j): it exists where this
-          // pixel lies in the source's window (inside the image), the source
-          // lies in the array (its constant is zero beyond), and the source
-          // is not the image's pixel (0, 0), which is skipped.
-          const int qr = u - i, qc = v - j;
-          const bool in_window = !SHARD || (tile.u0 + u < tile.Hg && tile.v0 + v < tile.Wg);
-          if (qr >= 0 && qc >= 0 && in_window && !(tile.u0 + qr == 0 && tile.v0 + qc == 0)) {
-            const T xq = xc[(size_t)qr * W + qc];
-            const T rq = btv_residual<T, SHARD>(xc, H, W, tile, qr, qc, P, pw);
-            const T gq = ((T)2 * cc[(size_t)qr * W + qc]) * rq;
-            btv -= (pw[i + j] * gq) * sgn(xq - x0);
-          }
-        }
-      }
-      out += btv;
-      reg_cost = (double)((c0 * r0) * r0);
     }
     grad[idx] = out;
   }
@@ -461,6 +421,283 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
     const double total = block_sum(reg_cost);
     if (threadIdx.x == 0 && threadIdx.y == 0) partials[linear_block()] = total;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Kernel 2b: gradient with the fused BTV term, one block per BTV_TH x BTV_TW
+// HR tile of one channel. Replaces the Pallas kernel's BTV region
+// (degrade.py:1405-1607) and, fused into the same launch, the adjoint half of
+// its data-term mode (degrade.py:1111-1254); it computes what kernel 2 computed
+// in its BTV mode, for every P in 1..MAX_BTV_RANGE, decay, s, shift and tile.
+//
+// What bounds it: its floor is bytes (x, the constants and grad once, each
+// frame's r about once), but a gather thread that works alone is bound by
+// instructions: (P+1)^2 - 1 window terms for its own residual and again for
+// each of its P^2 - 1 overlap sources, and, per frame, float64 taps and a
+// walk over the blur taps that land on an LR sample for each of its four
+// bilinear reads. The design does each of those once per block:
+//  1. x is staged in shared memory over the tile, P - 1 up-left and P
+//     down-right, zero beyond the array (as at_or_zero reads it); every
+//     window read is then a shared-memory read.
+//  2. G = 2 c r is computed once per position, over the tile and an up-left
+//     margin of P - 1 (the sources of the tile's overlap terms), and kept in
+//     shared memory, as the Pallas kernel keeps G over its tile and margin.
+//     r keeps its inclusive window, cut at the image's border; the tile's
+//     own c r^2 goes into the block's cost. Each thread then adds its own
+//     terms a^(i+j) G(p) sign(D_ij(p)) and subtracts the overlap terms
+//     a^(i+j) G(q) sign(x(q) - x(p)), q = p - (i, j), read from the G map. A
+//     source outside the array has G = 0; the image's pixel (0, 0) is no
+//     source, so its G is zeroed once the own terms have read it. A block
+//     whose reach lies inside the image runs the window loops without border
+//     tests (a branch that is the same for the whole block).
+//  3. P is a template parameter, so the loops unroll; the decay powers are
+//     made on the host in double, rounded once to T, and passed as a kernel
+//     parameter that is read at constant indices. No array is indexed at run
+//     time: no local memory (chip_smoke.py checks 0 bytes for every one).
+//  4. The data-term adjoint is staged per frame: the bilinear taps of a frame
+//     (float64, rounded once to T, as warp_taps makes them) are made once per
+//     block; g1 = B^T D^T r_k is made once per position over the tile plus one
+//     row and column, offset by the taps, into shared memory (two buffers,
+//     one barrier per frame), zero outside the image, from the residuals that
+//     exist beyond the array; each thread sums its four weighted reads in the
+//     (a, b) order. s is a template parameter for s = 2 and 4 (shifts and
+//     masks); S = 0 takes s at run time, for any other s.
+//  5. Gather form: each output is written by one thread, no atomics, the cost
+//     partial per block in double, summed by kernel 3 in block order.
+// ---------------------------------------------------------------------------
+
+// a[n] = decay^n for n <= 2 P: made in double on the host, rounded once to T.
+template <typename T>
+struct Powers {
+  T a[2 * MAX_BTV_RANGE + 1];
+};
+
+// BTV residual at q from staged x (xq points at x(q), rows XW apart):
+// inclusive window [0, P]^2; with CUT, offsets past the image's border
+// (i > imax or j > jmax) are left out.
+template <typename T, int P, int XW, bool CUT>
+__device__ __forceinline__ T staged_btv_residual(const T* xq, int imax, int jmax,
+                                                 const Powers<T>& pw) {
+  const T x0 = xq[0];
+  T rs = (T)0;
+#pragma unroll
+  for (int i = 0; i <= P; ++i) {
+#pragma unroll
+    for (int j = 0; j <= P; ++j) {
+      if ((i == 0 && j == 0) || (CUT && (i > imax || j > jmax))) continue;
+      rs += pw.a[i + j] * absval(x0 - xq[i * XW + j]);
+    }
+  }
+  return rs;
+}
+
+// BTV gradient at p from staged x (xp at x(p), rows XW apart) and the G map
+// (gp at G(p), rows GW apart; G(p) itself is g0): gradient window [0, P)^2,
+// own term where the offset stays inside the image (CUT: i <= imax and
+// j <= jmax), overlap term where p lies in the source's window (in_window).
+template <typename T, int P, int XW, int GW, bool CUT>
+__device__ __forceinline__ T staged_btv_gradient(const T* xp, const T* gp, T g0, int imax,
+                                                 int jmax, bool in_window, const Powers<T>& pw) {
+  const T x0 = xp[0];
+  T btv = (T)0;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      if (i == 0 && j == 0) continue;
+      if (!CUT || (i <= imax && j <= jmax)) btv += (pw.a[i + j] * g0) * sgn(x0 - xp[i * XW + j]);
+      if (in_window) btv -= (pw.a[i + j] * gp[-(i * GW + j)]) * sgn(xp[-(i * XW + j)] - x0);
+    }
+  }
+  return btv;
+}
+
+// g1(pr, pc) = (B^T D^T r_k)(pr, pc): zero outside the image (global
+// coordinates); only the kernel^T taps that land on a multiple of s hit an
+// LR sample, and beyond the array it is made of the residuals there are.
+// Inlined into a kernel whose s is a compile-time constant, the remainders
+// and divisions by s fold to shifts and masks.
+template <typename T>
+__device__ __forceinline__ T adjoint_sample(const T* rk, const T* blur, int kh, int kw, int s,
+                                            int h, int w, const Tile& t, int pr, int pc) {
+  const int gpr = t.u0 + pr, gpc = t.v0 + pc;
+  if (gpr < 0 || gpr >= t.Hg || gpc < 0 || gpc >= t.Wg) return (T)0;
+  const int ar = kw / 2, ac = kh / 2;  // kernel^T has kw rows and kh columns
+  T g1 = (T)0;
+  for (int i = pmod(ar - pr, s); i < kw; i += s) {
+    const int tr = pr + i - ar;
+    if (tr < 0) continue;
+    const int lr = tr / s;
+    if (lr >= h) break;
+    for (int j = pmod(ac - pc, s); j < kh; j += s) {
+      const int tc = pc + j - ac;
+      if (tc < 0) continue;
+      const int lc = tc / s;
+      if (lc >= w) break;
+      const T tap = blur ? blur[j * kw + i] : (T)1;
+      g1 += tap * rk[(size_t)lr * w + lc];
+    }
+  }
+  return g1;
+}
+
+// Blocks of the BTV kernel that one SM must hold at once. Given with the
+// block size, it sets the registers ptxas may use, 65536 / (NT x blocks),
+// and keeps it from spilling to reach a higher occupancy, which it does with
+// the block size alone (0 bytes of local memory is a requirement, see 3.).
+// Larger P and double need more registers.
+template <typename T, int P>
+constexpr int btv_min_blocks() {
+  return sizeof(T) == 8 ? (P <= 3 ? 3 : 2) : (P <= 3 ? 4 : 3);
+}
+
+template <typename T, int P, int S, bool SHARD>
+__global__ void __launch_bounds__(NT, (btv_min_blocks<T, P>())) sr_btv_gradient_kernel(
+    const T* __restrict__ x, const T* __restrict__ r,
+    const double* __restrict__ shifts, const T* __restrict__ blur, int kh, int kw,
+    int K, int C, int H, int W, int s_arg, int h, int w, Tile where,
+    const T* __restrict__ constants, Powers<T> pw,
+    T* __restrict__ grad, double* __restrict__ partials) {
+  constexpr int TH = BTV_TH, TW = BTV_TW, RY = TH / BY, RX = TW / BX;
+  constexpr int M = P - 1;                       // up-left margin of the G map
+  constexpr int XH = TH + M + P, XW = TW + M + P;  // staged x
+  constexpr int GH = TH + M, GW = TW + M;          // G map
+  static_assert(sizeof(T) * (XH * XW + GH * GW + 2 * (TH + 1) * (TW + 1) + 4 * FRAME_CHUNK) +
+                        2 * sizeof(int) * FRAME_CHUNK <= 48 * 1024,
+                "the BTV kernel's static shared memory exceeds 48 KB");
+  __shared__ T xs[XH][XW];
+  __shared__ T gs[GH][GW];
+  __shared__ T g1s[2][TH + 1][TW + 1];
+  __shared__ int tap_y[FRAME_CHUNK], tap_x[FRAME_CHUNK];
+  __shared__ T tap_w[FRAME_CHUNK][4];
+
+  const int s = S > 0 ? S : s_arg;
+  const Tile tile = SHARD ? where : Tile{0, 0, H, W};  // see sr_residual_kernel
+  const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BX + tx;
+  const int c = blockIdx.z;
+  const int R0 = blockIdx.y * TH, C0 = blockIdx.x * TW;
+  const size_t base = (size_t)c * H * W;
+  const T* xc = x + base;
+  const T* cc = constants + base;
+
+  // 1. x over the tile and its reach, zero beyond the array; the taps of the
+  //    first frames.
+  for (int i = tid; i < XH * XW; i += NT) {
+    const int rr = R0 - M + i / XW, cl = C0 - M + i % XW;
+    xs[i / XW][i % XW] = (rr >= 0 && rr < H && cl >= 0 && cl < W) ? xc[(size_t)rr * W + cl] : (T)0;
+  }
+  auto stage_taps = [&](int k0) {
+    const int k = k0 + tid;
+    if (tid < FRAME_CHUNK && k < K) {
+      int iy, ix;
+      T wt[4];
+      warp_taps<T>(-shifts[2 * k], -shifts[2 * k + 1], iy, ix, wt);
+      tap_y[tid] = iy;
+      tap_x[tid] = ix;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) tap_w[tid][q] = wt[q];
+    }
+  };
+  stage_taps(0);
+  __syncthreads();
+
+  // 2. 2 s^2 sum_k M_k^T B^T D^T r_k, one frame at a time.
+  T acc[RY][RX];
+#pragma unroll
+  for (int a = 0; a < RY; ++a)
+#pragma unroll
+    for (int b = 0; b < RX; ++b) acc[a][b] = (T)0;
+  for (int k0 = 0; k0 < K; k0 += FRAME_CHUNK) {
+    if (k0 > 0) {  // the previous frames' taps are read no more
+      __syncthreads();
+      stage_taps(k0);
+      __syncthreads();
+    }
+    const int nk = K - k0 < FRAME_CHUNK ? K - k0 : FRAME_CHUNK;
+    for (int kk = 0; kk < nk; ++kk) {
+      const int k = k0 + kk;
+      const int iy = tap_y[kk], ix = tap_x[kk];
+      const T* rk = r + ((size_t)k * C + c) * h * w;
+      T(*g1)[TW + 1] = g1s[k & 1];
+      // g1 over the rows and columns this tile's bilinear taps read:
+      // g1[yy][xx] = g1(R0 - iy - 1 + yy, C0 - ix - 1 + xx).
+      for (int i = tid; i < (TH + 1) * (TW + 1); i += NT) {
+        const int yy = i / (TW + 1), xx = i % (TW + 1);
+        g1[yy][xx] = adjoint_sample<T>(rk, blur, kh, kw, s, h, w, tile, R0 - iy - 1 + yy,
+                                       C0 - ix - 1 + xx);
+      }
+      __syncthreads();
+      const T w0 = tap_w[kk][0], w1 = tap_w[kk][1], w2 = tap_w[kk][2], w3 = tap_w[kk][3];
+#pragma unroll
+      for (int a = 0; a < RY; ++a) {
+#pragma unroll
+        for (int b = 0; b < RX; ++b) {
+          const int ly = ty + a * BY, lx = tx + b * BX;
+          // Tap (a', b') reads g1(u - iy - a', v - ix - b') = g1[ly + 1 - a'][lx + 1 - b'].
+          T gk = (T)0;
+          gk += w0 * g1[ly + 1][lx + 1];
+          gk += w1 * g1[ly + 1][lx];
+          gk += w2 * g1[ly][lx + 1];
+          gk += w3 * g1[ly][lx];
+          acc[a][b] += gk;
+        }
+      }
+    }
+  }
+
+  // 3. The G map over the tile and its up-left margin; the tile's c r^2.
+  const int gr0 = tile.u0 + R0 - M, gc0 = tile.v0 + C0 - M;  // image coordinates of gs[0][0]
+  const bool interior = gr0 + GH - 1 + P < tile.Hg && gc0 + GW - 1 + P < tile.Wg;
+  double reg_cost = 0.0;
+  for (int i = tid; i < GH * GW; i += NT) {
+    const int gy = i / GW, gx = i % GW;
+    const int qr = R0 - M + gy, qc = C0 - M + gx;
+    T g = (T)0;
+    if (qr >= 0 && qr < H && qc >= 0 && qc < W) {
+      const T* xq = &xs[gy][gx];
+      const T rq = interior ? staged_btv_residual<T, P, XW, false>(xq, P, P, pw)
+                            : staged_btv_residual<T, P, XW, true>(
+                                  xq, tile.Hg - 1 - (gr0 + gy), tile.Wg - 1 - (gc0 + gx), pw);
+      const T cq = cc[(size_t)qr * W + qc];
+      g = ((T)2 * cq) * rq;
+      if (gy >= M && gx >= M) reg_cost += (double)((cq * rq) * rq);
+    }
+    gs[gy][gx] = g;
+  }
+  __syncthreads();
+
+  // 4. The BTV gradient of this thread's pixels, added to the data term's.
+  T g_own[RY][RX];
+#pragma unroll
+  for (int a = 0; a < RY; ++a)
+#pragma unroll
+    for (int b = 0; b < RX; ++b) g_own[a][b] = gs[M + ty + a * BY][M + tx + b * BX];
+  const int oy = -gr0, ox = -gc0;  // the image's pixel (0, 0) in the G map
+  if (oy >= 0 && oy < GH && ox >= 0 && ox < GW) {  // the same for the whole block
+    __syncthreads();
+    if (tid == 0) gs[oy][ox] = (T)0;
+    __syncthreads();
+  }
+  const T scale2 = (T)(2.0 * (double)s * (double)s);
+#pragma unroll
+  for (int a = 0; a < RY; ++a) {
+#pragma unroll
+    for (int b = 0; b < RX; ++b) {
+      const int ly = ty + a * BY, lx = tx + b * BX;
+      const int imax = tile.Hg - 1 - (tile.u0 + R0 + ly), jmax = tile.Wg - 1 - (tile.v0 + C0 + lx);
+      const bool in_window = !SHARD || (imax >= 0 && jmax >= 0);
+      const T* xp = &xs[M + ly][M + lx];
+      const T* gp = &gs[M + ly][M + lx];
+      const T btv = interior
+                        ? staged_btv_gradient<T, P, XW, GW, false>(xp, gp, g_own[a][b], P, P, in_window, pw)
+                        : staged_btv_gradient<T, P, XW, GW, true>(xp, gp, g_own[a][b], imax, jmax,
+                                                                  in_window, pw);
+      const int u = R0 + ly, v = C0 + lx;
+      if (u < H && v < W) grad[base + (size_t)u * W + v] = scale2 * acc[a][b] + btv;
+    }
+  }
+  const double total = block_sum(reg_cost);
+  if (tid == 0) partials[linear_block()] = total;
 }
 
 // ---------------------------------------------------------------------------
@@ -516,18 +753,68 @@ int launch_residual(const void* x, const void* y, const double* shifts, const vo
   return (int)cudaGetLastError();
 }
 
+// The BTV gradient kernel for a range, scale and kind of array: one
+// instantiation per P in 1..MAX_BTV_RANGE, s in {2, 4, any other} and tile
+// or whole image. nullptr for a P out of range.
+template <typename T>
+using BtvKernel = void (*)(const T*, const T*, const double*, const T*, int, int, int, int, int,
+                           int, int, int, int, Tile, const T*, Powers<T>, T*, double*);
+
+template <typename T, int P, bool SHARD>
+BtvKernel<T> btv_kernel_for_scale(int s) {
+  if (s == 2) return sr_btv_gradient_kernel<T, P, 2, SHARD>;
+  if (s == 4) return sr_btv_gradient_kernel<T, P, 4, SHARD>;
+  return sr_btv_gradient_kernel<T, P, 0, SHARD>;
+}
+
+template <typename T, bool SHARD>
+BtvKernel<T> btv_kernel_for_range(int P, int s) {
+  switch (P) {
+    case 1: return btv_kernel_for_scale<T, 1, SHARD>(s);
+    case 2: return btv_kernel_for_scale<T, 2, SHARD>(s);
+    case 3: return btv_kernel_for_scale<T, 3, SHARD>(s);
+    case 4: return btv_kernel_for_scale<T, 4, SHARD>(s);
+    case 5: return btv_kernel_for_scale<T, 5, SHARD>(s);
+    case 6: return btv_kernel_for_scale<T, 6, SHARD>(s);
+    case 7: return btv_kernel_for_scale<T, 7, SHARD>(s);
+    case 8: return btv_kernel_for_scale<T, 8, SHARD>(s);
+    default: return nullptr;
+  }
+}
+static_assert(MAX_BTV_RANGE == 8, "btv_kernel_for_range instantiates P = 1..8");
+
+template <typename T>
+BtvKernel<T> btv_kernel(int P, int s, bool shard) {
+  return shard ? btv_kernel_for_range<T, true>(P, s) : btv_kernel_for_range<T, false>(P, s);
+}
+
 template <typename T>
 int launch_gradient(const void* x, const void* r, const double* shifts, const void* blur,
                     int kh, int kw, int K, int C, int H, int W, int s, Tile tile, int mode,
                     const void* constants, int P, double decay, void* grad,
                     double* partials, cudaStream_t stream) {
   const int h = H / s, w = W / s;
-  dim3 block(BX, BY), grid(ceil_div(W, BX), ceil_div(H, BY), C);
+  dim3 block(BX, BY);
   const bool whole = is_whole_image(tile, H, W);
+  if (mode == MODE_BTV) {
+    Powers<T> pw{};
+    double p = 1.0;
+    for (int n = 0; n <= 2 * P; ++n) {
+      pw.a[n] = (T)p;
+      p *= decay;
+    }
+    dim3 grid(ceil_div(W, BTV_TW), ceil_div(H, BTV_TH), C);
+    const BtvKernel<T> kernel = btv_kernel<T>(P, s, !whole);
+    kernel<<<grid, block, 0, stream>>>(
+        (const T*)x, (const T*)r, shifts, (const T*)blur, kh, kw, K, C, H, W, s, h, w, tile,
+        (const T*)constants, pw, (T*)grad, partials);
+    return (int)cudaGetLastError();
+  }
+  dim3 grid(ceil_div(W, BX), ceil_div(H, BY), C);
 #define SR_LAUNCH_AS(M, SHARD)                                                             \
   sr_gradient_kernel<T, M, SHARD><<<grid, block, 0, stream>>>(                             \
       (const T*)x, (const T*)r, shifts, (const T*)blur, kh, kw, K, C, H, W, s, h, w, tile, \
-      (const T*)constants, P, decay, (T*)grad, partials)
+      (const T*)constants, (T*)grad, partials)
 #define SR_LAUNCH(M)         \
   if (whole) {               \
     SR_LAUNCH_AS(M, false);  \
@@ -538,8 +825,6 @@ int launch_gradient(const void* x, const void* r, const double* shifts, const vo
     SR_LAUNCH(MODE_DATA);
   } else if (mode == MODE_TV) {
     SR_LAUNCH(MODE_TV);
-  } else if (mode == MODE_BTV) {
-    SR_LAUNCH(MODE_BTV);
   } else {
     SR_LAUNCH(MODE_TV3D);
   }
@@ -560,11 +845,34 @@ int sr_residual_blocks(int K, int C, int H, int W, int s) {
   return ceil_div(W / s, BX) * ceil_div(H / s, BY) * K * C;
 }
 
-int sr_gradient_blocks(int C, int H, int W) {
+// The data mode writes none; the BTV kernel's blocks are tiles of BTV_TH x BTV_TW.
+int sr_gradient_blocks(int mode, int C, int H, int W) {
+  if (mode == MODE_DATA) return 0;
+  if (mode == MODE_BTV) return ceil_div(W, BTV_TW) * ceil_div(H, BTV_TH) * C;
   return ceil_div(W, BX) * ceil_div(H, BY) * C;
 }
 
 int sr_max_btv_range() { return MAX_BTV_RANGE; }
+
+// What the compiler gave the BTV gradient kernel for range P, scale s (2 and
+// 4 have their own instantiations, any other s shares one) and a tile
+// (shard != 0) or whole image: out = {registers per thread, local memory
+// bytes per thread, static shared memory bytes per block, max threads per
+// block}. Returns the cudaError_t of cudaFuncGetAttributes, or -5 for a P
+// out of range.
+int sr_btv_kernel_attributes(int btv_range, int s, int shard, int is_double, int* out) {
+  const void* fn = is_double ? (const void*)btv_kernel<double>(btv_range, s, shard != 0)
+                             : (const void*)btv_kernel<float>(btv_range, s, shard != 0);
+  if (fn == nullptr) return -5;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)attr.sharedSizeBytes;
+  out[3] = attr.maxThreadsPerBlock;
+  return 0;
+}
 
 // `tile` = {u0, v0, Hg, Wg}: where the [C, H, W] array lies in the image it
 // is a tile of ({0, 0, H, W} for a whole image). Refused unless the origin
