@@ -41,7 +41,6 @@ import dataclasses
 import functools
 import json
 import os
-import re
 import shutil
 import struct
 import subprocess
@@ -105,12 +104,16 @@ ROWS = [
     dict(row="K7b", name="spectral_halo", mode="data_term_tv3d", replaces=f"{PALLAS}:650", path="mesh"),
 ]
 TILED_FRAMES = 16   # frames of the tiled RGB scene
+# Frames of the BTV sweep's longest stack: more than the 32 whose bilinear
+# taps a block of the BTV kernel stages at a time, so that it restages.
+BTV_MANY_FRAMES = 35
 # Whole images of the BTV sweep, by scale: no side a multiple of any block
 # tile, the first of each smaller than the halo of range 8.
 BTV_SWEEP_SHAPES = {2: [(6, 10), (50, 66)], 3: [(6, 9), (51, 69)], 4: [(8, 12), (52, 68)]}
-# Shard tiles of the BTV sweep: (range, decay, scale, image) cut 3x3.
-BTV_SWEEP_TILES = [(1, 0.5, 3, (54, 72)), (2, 1.0, 2, (48, 66)), (3, 0.5, 4, (48, 72)),
-                   (5, 1.0, 3, (54, 72)), (8, 0.5, 2, (48, 66)), (8, 1.0, 4, (48, 72))]
+# Shard tiles of the BTV sweep: (range, decay, scale, image, frames) cut 3x3.
+BTV_SWEEP_TILES = [(1, 0.5, 3, (54, 72), 3), (2, 1.0, 2, (48, 66), 3), (3, 0.5, 4, (48, 72), 3),
+                   (5, 1.0, 3, (54, 72), 3), (8, 0.5, 2, (48, 66), 3), (8, 1.0, 4, (48, 72), 3),
+                   (3, 0.5, 2, (48, 66), BTV_MANY_FRAMES)]
 
 
 class Failure(Exception):
@@ -193,31 +196,10 @@ def phase_build():
     for name, info in results.items():
         log(f"[2/8] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
-        for line in _ptxas_lines(info["log"]):
-            log("      " + line)
-    log(f"      build total {time.perf_counter() - t0:.1f} s")
-
-
-def _ptxas_lines(text):
-    """The compiler's register and spill lines (``-Xptxas -v``), the BTV
-    kernel's instantiations summed up in one line."""
-    lines, registers, stack, spills, name = [], [], [0], [0], ""
-    for line in text.splitlines():
-        entry = re.search(r"Compiling entry function '([^']+)'", line)
-        if entry:
-            name = entry.group(1)
-        elif "sr_btv_gradient_kernel" not in name:
+        for line in info["log"].splitlines():
             if "registers" in line or "spill" in line.lower():
-                lines.append(line.strip())
-        elif used := re.search(r"Used (\d+) registers", line):
-            registers.append(int(used.group(1)))
-        elif frame := re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores", line):
-            stack.append(int(frame.group(1)))
-            spills.append(int(frame.group(2)))
-    if registers:
-        lines.append(f"sr_btv_gradient_kernel: {len(registers)} instantiations, {min(registers)}-{max(registers)} "
-                     f"registers, stack frame <= {max(stack)} bytes, spill stores <= {max(spills)} bytes")
-    return lines
+                log("      " + line.strip())
+    log(f"      build total {time.perf_counter() - t0:.1f} s")
 
 
 def _kernel_problem(c, hw, scale, shifts, kernel, seed, device, dtype):
@@ -542,9 +524,13 @@ def _check_btv_sweep(device, dtype):
     are no multiple of any block tile, one smaller than the P = 8 halo, each
     launched twice for the same bits; then shard tiles (the corners and the
     centre of a 3x3 tiling, owned and default mask, constants non-zero on the
-    rim)."""
+    rim); and a stack of BTV_MANY_FRAMES frames, on a whole image and on
+    tiles."""
     tol = TOLERANCE[dtype]
-    shifts = [(0, 0), (1.25, -0.5), (-2.0, 3.0)]
+    few = [(0, 0), (1.25, -0.5), (-2.0, 3.0)]
+    many = np.round(np.random.default_rng(620).uniform(-3.0, 3.0, size=(BTV_MANY_FRAMES, 2)) * 4.0) / 4.0
+    many[0] = 0.0
+    shifts_of = {3: few, BTV_MANY_FRAMES: [(float(dx), float(dy)) for dx, dy in many]}
     kern = gaussian_kernel_2d(3, 1.0)
     worst, launches = 0.0, 0
 
@@ -560,7 +546,7 @@ def _check_btv_sweep(device, dtype):
         for decay in (0.5, 1.0):
             for scale, shapes in BTV_SWEEP_SHAPES.items():
                 for n, hw in enumerate(shapes):
-                    x, y, sh, _, constants = _kernel_problem(2, hw, scale, shifts, kern, 500 + 10 * P + n, device, dtype)
+                    x, y, sh, _, constants = _kernel_problem(2, hw, scale, few, kern, 500 + 10 * P + n, device, dtype)
                     kw = dict(btv_constants=constants, btv_range=P, btv_decay=decay)
                     args = (x, y, sh, kern, scale)
                     out = degrade.fused_objective(*args, **kw)
@@ -568,10 +554,16 @@ def _check_btv_sweep(device, dtype):
                     check(float(out[0]) == float(again[0]) and torch.equal(out[1], again[1]),
                           f"BTV sweep {dtype} P={P} s={scale} {hw}: two launches gave different bits")
                     held(out, args, kw, f"P={P} decay={decay} s={scale} whole {hw}")
-    for P, decay, scale, hw in BTV_SWEEP_TILES:
+    for scale, hw in ((2, (50, 66)), (3, (51, 69))):
+        x, y, sh, _, constants = _kernel_problem(2, hw, scale, shifts_of[BTV_MANY_FRAMES], kern, 640 + scale, device,
+                                                 dtype)
+        kw = dict(btv_constants=constants, btv_range=3, btv_decay=0.5)
+        held(degrade.fused_objective(x, y, sh, kern, scale, **kw), (x, y, sh, kern, scale), kw,
+             f"{BTV_MANY_FRAMES} frames, s={scale}, whole {hw}")
+    for P, decay, scale, hw, frames in BTV_SWEEP_TILES:
         mesh = make_mesh({"row": 3, "col": 3}, devices=[device])
         th, tw = hw[0] // 3, hw[1] // 3
-        x, y, sh, _, _ = _kernel_problem(2, hw, scale, shifts, kern, 600 + P, device, dtype)
+        x, y, sh, _, _ = _kernel_problem(2, hw, scale, shifts_of[frames], kern, 600 + P + 100 * (frames > 3), device, dtype)
         q = _halo_width(sh, kern, scale, P)
         ql = q // scale
         tiles = collectives.halo_gather(mesh, Sharded.from_global(mesh, x, {"row": 1, "col": 2}).parts, q)
@@ -589,10 +581,11 @@ def _check_btv_sweep(device, dtype):
                 kw = dict(btv_constants=constants, btv_range=P, btv_decay=decay, data_mask_lr=mask,
                           origin=(coords["row"] * th - q, coords["col"] * tw - q), global_hw=hw)
                 held(degrade.fused_objective(*args, **kw), args, kw,
-                     f"P={P} decay={decay} s={scale} tile {coords} {'owned' if mask is not None else 'default'} mask")
+                     f"P={P} decay={decay} s={scale} {frames} frames tile {coords} "
+                     f"{'owned' if mask is not None else 'default'} mask")
     log(f"[3/8] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images each, "
-        f"bit-equal when launched twice; {len(BTV_SWEEP_TILES)} x 5 shard tiles x 2 masks) agree with the plain "
-        f"version in {dtype} (tol {tol:g})")
+        f"bit-equal when launched twice; {BTV_MANY_FRAMES} frames on 2 whole images; {len(BTV_SWEEP_TILES)} x 5 shard "
+        f"tiles x 2 masks, one with {BTV_MANY_FRAMES} frames) agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
 
@@ -600,17 +593,15 @@ def _check_btv_attributes():
     """What the compiler gave every BTV kernel instantiation (cudaFuncGetAttributes): none may use local memory."""
     table = {}
     for dtype in (torch.float32, torch.float64):
-        for P in range(1, degrade.MAX_BTV_RANGE + 1):
-            for scale in (2, 4, 3):
-                for shard in (False, True):
-                    table[dtype, P, scale, shard] = attributes = degrade.btv_kernel_attributes(P, scale, shard, dtype)
-                    check(attributes["local_bytes"] == 0,
-                          f"the BTV kernel ({dtype}, P={P}, s={scale}, shard={shard}) uses local memory: {attributes}")
-    registers = [a["registers"] for a in table.values()]
-    shared = [a["shared_bytes"] for a in table.values()]
-    log(f"[3/8] kernels: BTV gradient kernel, {len(table)} instantiations (float32/float64 x P 1-8 x s 2/4/other x "
-        f"whole/tile): 0 bytes of local memory in each; {min(registers)}-{max(registers)} registers, "
-        f"{min(shared)}-{max(shared)} bytes of static shared memory")
+        for scale in (2, 4, 3):
+            for shard in (False, True):
+                table[dtype, scale, shard] = attributes = degrade.btv_kernel_attributes(scale, shard, dtype)
+                check(attributes["local_bytes"] == 0,
+                      f"the BTV kernel ({dtype}, s={scale}, shard={shard}) uses local memory: {attributes}")
+                log(f"[3/8] kernels: BTV gradient kernel, {str(dtype).split('.')[-1]}, s={scale}, "
+                    f"{'tile' if shard else 'whole image'}: {attributes['registers']} registers, "
+                    f"{attributes['local_bytes']} bytes of local memory, {attributes['shared_bytes']} bytes of "
+                    f"static shared memory")
     return table
 
 
@@ -724,8 +715,8 @@ def phase_kernels(device):
     rows = [dict(row) for row in ROWS]
     for row in rows:
         row["max_abs_err"] = worst[row["name"] if row["path"] == "mesh" else row["mode"]]
-        if row["mode"] == "data_term_btv":  # the instantiation that serves the row: P = 3, s = 4, float32
-            kernel = attributes[torch.float32, 3, 4, row["name"] == "shard_mode"]
+        if row["mode"] == "data_term_btv":  # the instantiation that serves the row: s = 4, float32
+            kernel = attributes[torch.float32, 4, row["name"] == "shard_mode"]
             row.update(registers=kernel["registers"], shared_bytes=kernel["shared_bytes"],
                        local_bytes=kernel["local_bytes"])
         x, y, sh, kern, constants = time_row_at_path_shape(row, device, flush)

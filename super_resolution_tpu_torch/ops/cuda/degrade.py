@@ -60,7 +60,6 @@ from super_resolution_tpu_torch.ops.warp import translate_static
 
 __all__ = [
     "KERNEL_NAMES",
-    "MAX_BTV_RANGE",
     "launch_counts",
     "shift_source_counts",
     "shard_launch_counts",
@@ -73,9 +72,6 @@ __all__ = [
 
 KERNEL_NAMES = ("data_term", "data_term_tv", "data_term_btv", "data_term_tv3d")
 _MODE_OF = {"data_term": 0, "data_term_tv": 1, "data_term_btv": 2, "data_term_tv3d": 3}
-# The largest BTV range the kernels take: ``csrc/degrade.cu`` compiles its BTV
-# kernel once for each range 1..MAX_BTV_RANGE.
-MAX_BTV_RANGE = 8
 
 # Launches of each mode's kernels since the last reset. Only
 # :func:`fused_objective` on a CUDA tensor adds to these.
@@ -273,17 +269,13 @@ def fused_objective_reference(
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     """``csrc/degrade.cu`` built (at first use) and loaded, signatures declared."""
-    return declare(build.load("degrade"))
-
-
-def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declares the C signatures of a library built from ``csrc/degrade.cu``."""
+    lib = build.load("degrade")
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.sr_residual_blocks.argtypes = [i] * 5
     lib.sr_gradient_blocks.argtypes = [i] * 4
     lib.sr_max_btv_range.argtypes = []
     ints = ctypes.POINTER(ctypes.c_int)
-    lib.sr_btv_kernel_attributes.argtypes = [i] * 4 + [ints]
+    lib.sr_btv_kernel_attributes.argtypes = [i] * 3 + [ints]
     lib.sr_data_residual.argtypes = [p, p, p, p] + [i] * 7 + [ints, p, i, p, p, i, p]
     lib.sr_objective_gradient.argtypes = [p, p, p, p] + [i] * 7 + [ints, i, p, i, d, p, p, i, p]
     lib.sr_reduce_cost.argtypes = [p, i, i, d, p, i, p]
@@ -291,19 +283,17 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                lib.sr_btv_kernel_attributes, lib.sr_data_residual, lib.sr_objective_gradient,
                lib.sr_reduce_cost):
         fn.restype = ctypes.c_int
-    if lib.sr_max_btv_range() != MAX_BTV_RANGE:
-        raise RuntimeError(f"csrc/degrade.cu takes BTV ranges up to {lib.sr_max_btv_range()}, "
-                           f"this module up to {MAX_BTV_RANGE}.")
     return lib
 
 
-def btv_kernel_attributes(btv_range: int, scale: int, shard: bool, dtype: torch.dtype) -> dict[str, int]:
+def btv_kernel_attributes(scale: int, shard: bool, dtype: torch.dtype) -> dict[str, int]:
     """What the compiler gave the BTV gradient kernel that serves these
     arguments (``cudaFuncGetAttributes``): registers per thread, local memory
     bytes per thread, static shared memory bytes per block, max threads per
-    block. Scales 2 and 4 have kernels of their own; any other scale shares one."""
+    block. Scales 2 and 4 have kernels of their own; any other scale shares
+    one; every range shares each."""
     out = (ctypes.c_int * 4)()
-    _raise_on(_library().sr_btv_kernel_attributes(btv_range, scale, int(shard), int(dtype == torch.float64), out),
+    _raise_on(_library().sr_btv_kernel_attributes(scale, int(shard), int(dtype == torch.float64), out),
               "sr_btv_kernel_attributes")
     return dict(zip(("registers", "local_bytes", "shared_bytes", "max_threads"), out))
 
@@ -314,19 +304,14 @@ def _raise_on(code: int, what: str) -> None:
         raise RuntimeError(f"{what} {kind}: code {code}.")
 
 
-def _check_kernel_arguments(mode, dtype, btv_range) -> None:
-    """What the kernels refuse, raised before the library is loaded."""
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"The CUDA kernels take float32 or float64, got {dtype}.")
-    if mode == "data_term_btv" and not 1 <= btv_range <= MAX_BTV_RANGE:
-        raise ValueError(f"btv_range must be in [1, {MAX_BTV_RANGE}], got {btv_range}.")
-
-
 def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay,
             tile, shard, data_mask_lr, spectral_halo):
     device, dtype = x.device, x.dtype
-    _check_kernel_arguments(mode, dtype, btv_range)
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"The CUDA kernels take float32 or float64, got {dtype}.")
     lib = _library()
+    if mode == "data_term_btv" and not 1 <= btv_range <= lib.sr_max_btv_range():
+        raise ValueError(f"btv_range must be in [1, {lib.sr_max_btv_range()}], got {btv_range}.")
     if data_mask_lr is not None and not isinstance(data_mask_lr, torch.Tensor):
         data_mask_lr = torch.as_tensor(np.asarray(data_mask_lr), dtype=dtype, device=device)
     for name, t in (("y", y), ("constants", constants), ("data_mask_lr", data_mask_lr)):

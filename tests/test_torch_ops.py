@@ -209,14 +209,6 @@ def _wrapper_problem(dtype=torch.float64):
     return x, y, [(0, 0), (0.5, -1.25), (2, 1)], x * 0.01
 
 
-@pytest.mark.parametrize("btv_range", [0, degrade.MAX_BTV_RANGE + 1])
-def test_btv_range_the_kernels_lack_is_refused_before_the_library(no_library, btv_range):
-    x, y, shifts, constants = _wrapper_problem()
-    with pytest.raises(ValueError, match="btv_range"):
-        degrade._launch(x, y, shifts, None, 2, "data_term_btv", constants, btv_range, 0.5,
-                        (0, 0, 12, 16), False, None, False)
-
-
 def test_dtype_the_kernels_lack_is_refused_before_the_library(no_library):
     x, y, shifts, constants = _wrapper_problem(torch.float16)
     with pytest.raises(TypeError, match="float32 or float64"):
@@ -229,9 +221,22 @@ def test_cpu_tensor_never_reaches_the_library(no_library, mode):
     x, y, shifts, constants = _wrapper_problem()
     kw = {"data_term": {}, "data_term_tv": {"tv_constants": constants},
           "data_term_tv3d": {"tv_constants": constants, "tv_use_3d": True},
-          "data_term_btv": {"btv_constants": constants, "btv_range": degrade.MAX_BTV_RANGE, "btv_decay": 0.5}}[mode]
+          "data_term_btv": {"btv_constants": constants, "btv_range": 8, "btv_decay": 0.5}}[mode]
     cost, grad = degrade.fused_objective(x, y, shifts, None, 2, **kw)
     ref_cost, ref_grad = degrade.fused_objective_reference(x, y, shifts, None, 2, **kw)
+    assert float(cost) == float(ref_cost) and torch.equal(grad, ref_grad)
+
+
+@pytest.mark.parametrize("mode", degrade.KERNEL_NAMES)
+def test_cpu_tile_never_reaches_the_library(no_library, mode):
+    x, y, shifts, constants = _wrapper_problem()
+    kw = {"data_term": {}, "data_term_tv": {"tv_constants": constants},
+          "data_term_tv3d": {"tv_constants": constants, "tv_use_3d": True, "spectral_halo": True},
+          "data_term_btv": {"btv_constants": constants, "btv_range": 3, "btv_decay": 0.5}}[mode]
+    kw.update(origin=(-2, 4), global_hw=(16, 24))
+    cost, grad = degrade.fused_objective(x, y, shifts, None, 2, **kw)
+    ref_cost, ref_grad = degrade.fused_objective_reference(x, y, shifts, None, 2, **kw)
+    assert degrade.plain_version_calls["calls"] >= 2
     assert float(cost) == float(ref_cost) and torch.equal(grad, ref_grad)
 
 
@@ -241,4 +246,3 @@ def test_wrapper_modes_and_range_are_the_kernel_source_s():
     enum = {name: int(n) for name, n in re.findall(r"MODE_(\w+) = (\d+)", re.search(r"enum Mode \{([^}]*)\}", text).group(1))}
     suffix = {"data_term": "DATA", "data_term_tv": "TV", "data_term_btv": "BTV", "data_term_tv3d": "TV3D"}
     assert {name: enum[suffix[name]] for name in degrade.KERNEL_NAMES} == degrade._MODE_OF
-    assert int(re.search(r"constexpr int MAX_BTV_RANGE = (\d+);", text).group(1)) == degrade.MAX_BTV_RANGE
