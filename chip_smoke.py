@@ -196,9 +196,6 @@ def phase_build():
     for name, info in results.items():
         log(f"[2/8] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
-        for line in info["log"].splitlines():
-            if "registers" in line or "spill" in line.lower():
-                log("      " + line.strip())
     log(f"      build total {time.perf_counter() - t0:.1f} s")
 
 
@@ -593,15 +590,17 @@ def _check_btv_attributes():
     """What the compiler gave every BTV kernel instantiation (cudaFuncGetAttributes): none may use local memory."""
     table = {}
     for dtype in (torch.float32, torch.float64):
-        for scale in (2, 4, 3):
-            for shard in (False, True):
-                table[dtype, scale, shard] = attributes = degrade.btv_kernel_attributes(scale, shard, dtype)
-                check(attributes["local_bytes"] == 0,
-                      f"the BTV kernel ({dtype}, s={scale}, shard={shard}) uses local memory: {attributes}")
-                log(f"[3/8] kernels: BTV gradient kernel, {str(dtype).split('.')[-1]}, s={scale}, "
-                    f"{'tile' if shard else 'whole image'}: {attributes['registers']} registers, "
-                    f"{attributes['local_bytes']} bytes of local memory, {attributes['shared_bytes']} bytes of "
-                    f"static shared memory")
+        for P in range(1, degrade.max_btv_range() + 1):
+            for scale in (2, 4, 3):
+                for shard in (False, True):
+                    table[dtype, P, scale, shard] = attributes = degrade.btv_kernel_attributes(P, scale, shard, dtype)
+                    check(attributes["local_bytes"] == 0,
+                          f"the BTV kernel ({dtype}, P={P}, s={scale}, shard={shard}) uses local memory: {attributes}")
+    registers = [a["registers"] for a in table.values()]
+    shared = [a["shared_bytes"] for a in table.values()]
+    log(f"[3/8] kernels: BTV gradient kernel, {len(table)} instantiations (float32/float64 x P 1-8 x s 2/4/other x "
+        f"whole/tile): 0 bytes of local memory in each; {min(registers)}-{max(registers)} registers, "
+        f"{min(shared)}-{max(shared)} bytes of static shared memory")
     return table
 
 
@@ -715,8 +714,8 @@ def phase_kernels(device):
     rows = [dict(row) for row in ROWS]
     for row in rows:
         row["max_abs_err"] = worst[row["name"] if row["path"] == "mesh" else row["mode"]]
-        if row["mode"] == "data_term_btv":  # the instantiation that serves the row: s = 4, float32
-            kernel = attributes[torch.float32, 4, row["name"] == "shard_mode"]
+        if row["mode"] == "data_term_btv":  # the instantiation that serves the row: P = 3, s = 4, float32
+            kernel = attributes[torch.float32, 3, 4, row["name"] == "shard_mode"]
             row.update(registers=kernel["registers"], shared_bytes=kernel["shared_bytes"],
                        local_bytes=kernel["local_bytes"])
         x, y, sh, kern, constants = time_row_at_path_shape(row, device, flush)

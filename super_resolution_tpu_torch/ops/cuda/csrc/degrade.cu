@@ -98,12 +98,7 @@ constexpr int MAX_BTV_RANGE = 8;
 constexpr int BTV_TH = 16;
 constexpr int BTV_TW = 32;
 static_assert(BTV_TH % BY == 0 && BTV_TW % BX == 0, "the BTV tile must be whole thread blocks");
-// Row pitches of its shared x and G map, wide enough for the largest range:
-// x over the tile, P - 1 up-left and P down-right; G over the tile and P - 1 up-left.
-constexpr int BTV_XW = BTV_TW + 2 * MAX_BTV_RANGE - 1;
-constexpr int BTV_XH = BTV_TH + 2 * MAX_BTV_RANGE - 1;
-constexpr int BTV_GW = BTV_TW + MAX_BTV_RANGE - 1;
-constexpr int BTV_GH = BTV_TH + MAX_BTV_RANGE - 1;
+static_assert(BTV_TW >= MAX_BTV_RANGE && BTV_TH >= MAX_BTV_RANGE, "the BTV tile must cover the largest range");
 constexpr int FRAME_CHUNK = 32;  // frames whose bilinear taps a BTV block stages at a time
 constexpr int REDUCE_THREADS = 1024;
 
@@ -448,13 +443,13 @@ __global__ void __launch_bounds__(NT) sr_gradient_kernel(
 //     source, so its G is zeroed once the own terms have read it. A block
 //     whose reach lies inside the image runs the window loops without border
 //     tests (a branch that is the same for the whole block).
-//  3. The window loops are unrolled to MAX_BTV_RANGE and leave at the run-time
-//     P (a branch that is the same for the whole launch); the shared arrays
-//     have row pitches for the largest range, so every window read is at a
-//     compile-time offset. The decay powers are made on the host in double,
-//     rounded once to T, and passed as a kernel parameter that the unrolled
-//     loops read at constant indices. No array is indexed at run time: no
-//     local memory (chip_smoke.py checks 0 bytes for every instantiation).
+//  3. P is a template parameter, so the loops unroll to exactly the window;
+//     the decay powers are made on the host in double, rounded once to T, and
+//     passed as a kernel parameter that is read at constant indices. No array
+//     is indexed at run time: no local memory (chip_smoke.py checks 0 bytes
+//     for every one). With P at run time instead (loops unrolled to
+//     MAX_BTV_RANGE, leaving at P; shared pitches for the largest range) the
+//     kernel was 11-22 % slower on the paths' rows and built hardly faster.
 //  4. The data-term adjoint is staged per frame: the bilinear taps of a frame
 //     (float64, rounded once to T, as warp_taps makes them) are made once per
 //     block; g1 = B^T D^T r_k is made once per position over the tile plus one
@@ -473,45 +468,41 @@ struct Powers {
   T a[2 * MAX_BTV_RANGE + 1];
 };
 
-// BTV residual at q from staged x (xq points at x(q), rows BTV_XW apart):
+// BTV residual at q from staged x (xq points at x(q), rows XW apart):
 // inclusive window [0, P]^2; with CUT, offsets past the image's border
 // (i > imax or j > jmax) are left out.
-template <typename T, bool CUT>
-__device__ __forceinline__ T staged_btv_residual(const T* xq, int P, int imax, int jmax,
+template <typename T, int P, int XW, bool CUT>
+__device__ __forceinline__ T staged_btv_residual(const T* xq, int imax, int jmax,
                                                  const Powers<T>& pw) {
   const T x0 = xq[0];
   T rs = (T)0;
 #pragma unroll
-  for (int i = 0; i <= MAX_BTV_RANGE; ++i) {
-    if (i > P) break;
+  for (int i = 0; i <= P; ++i) {
 #pragma unroll
-    for (int j = 0; j <= MAX_BTV_RANGE; ++j) {
-      if (j > P) break;
+    for (int j = 0; j <= P; ++j) {
       if ((i == 0 && j == 0) || (CUT && (i > imax || j > jmax))) continue;
-      rs += pw.a[i + j] * absval(x0 - xq[i * BTV_XW + j]);
+      rs += pw.a[i + j] * absval(x0 - xq[i * XW + j]);
     }
   }
   return rs;
 }
 
-// BTV gradient at p from staged x (xp at x(p), rows BTV_XW apart) and the G
-// map (gp at G(p), rows BTV_GW apart; G(p) itself is g0): gradient window
-// [0, P)^2, own term where the offset stays inside the image (CUT: i <= imax
-// and j <= jmax), overlap term where p lies in the source's window (in_window).
-template <typename T, bool CUT>
-__device__ __forceinline__ T staged_btv_gradient(const T* xp, const T* gp, T g0, int P, int imax,
+// BTV gradient at p from staged x (xp at x(p), rows XW apart) and the G map
+// (gp at G(p), rows GW apart; G(p) itself is g0): gradient window [0, P)^2,
+// own term where the offset stays inside the image (CUT: i <= imax and
+// j <= jmax), overlap term where p lies in the source's window (in_window).
+template <typename T, int P, int XW, int GW, bool CUT>
+__device__ __forceinline__ T staged_btv_gradient(const T* xp, const T* gp, T g0, int imax,
                                                  int jmax, bool in_window, const Powers<T>& pw) {
   const T x0 = xp[0];
   T btv = (T)0;
 #pragma unroll
-  for (int i = 0; i < MAX_BTV_RANGE; ++i) {
-    if (i >= P) break;
+  for (int i = 0; i < P; ++i) {
 #pragma unroll
-    for (int j = 0; j < MAX_BTV_RANGE; ++j) {
-      if (j >= P) break;
+    for (int j = 0; j < P; ++j) {
       if (i == 0 && j == 0) continue;
-      if (!CUT || (i <= imax && j <= jmax)) btv += (pw.a[i + j] * g0) * sgn(x0 - xp[i * BTV_XW + j]);
-      if (in_window) btv -= (pw.a[i + j] * gp[-(i * BTV_GW + j)]) * sgn(xp[-(i * BTV_XW + j)] - x0);
+      if (!CUT || (i <= imax && j <= jmax)) btv += (pw.a[i + j] * g0) * sgn(x0 - xp[i * XW + j]);
+      if (in_window) btv -= (pw.a[i + j] * gp[-(i * GW + j)]) * sgn(xp[-(i * XW + j)] - x0);
     }
   }
   return btv;
@@ -550,32 +541,32 @@ __device__ __forceinline__ T adjoint_sample(const T* rk, const T* blur, int kh, 
 // block size, it sets the registers ptxas may use, 65536 / (NT x blocks),
 // and keeps it from spilling to reach a higher occupancy, which it does with
 // the block size alone (0 bytes of local memory is a requirement, see 3.).
-// double needs more registers.
-template <typename T>
+// Larger P and double need more registers.
+template <typename T, int P>
 constexpr int btv_min_blocks() {
-  return sizeof(T) == 8 ? 2 : 3;
+  return sizeof(T) == 8 ? (P <= 3 ? 3 : 2) : (P <= 3 ? 4 : 3);
 }
 
-template <typename T, int S, bool SHARD>
-__global__ void __launch_bounds__(NT, (btv_min_blocks<T>())) sr_btv_gradient_kernel(
+template <typename T, int P, int S, bool SHARD>
+__global__ void __launch_bounds__(NT, (btv_min_blocks<T, P>())) sr_btv_gradient_kernel(
     const T* __restrict__ x, const T* __restrict__ r,
     const double* __restrict__ shifts, const T* __restrict__ blur, int kh, int kw,
     int K, int C, int H, int W, int s_arg, int h, int w, Tile where,
-    const T* __restrict__ constants, int P, Powers<T> pw,
+    const T* __restrict__ constants, Powers<T> pw,
     T* __restrict__ grad, double* __restrict__ partials) {
   constexpr int TH = BTV_TH, TW = BTV_TW, RY = TH / BY, RX = TW / BX;
-  static_assert(sizeof(T) * (BTV_XH * BTV_XW + BTV_GH * BTV_GW + 2 * (TH + 1) * (TW + 1) +
-                             4 * FRAME_CHUNK) + 2 * sizeof(int) * FRAME_CHUNK <= 48 * 1024,
+  constexpr int M = P - 1;                       // up-left margin of the G map
+  constexpr int XH = TH + M + P, XW = TW + M + P;  // staged x
+  constexpr int GH = TH + M, GW = TW + M;          // G map
+  static_assert(sizeof(T) * (XH * XW + GH * GW + 2 * (TH + 1) * (TW + 1) + 4 * FRAME_CHUNK) +
+                        2 * sizeof(int) * FRAME_CHUNK <= 48 * 1024,
                 "the BTV kernel's static shared memory exceeds 48 KB");
-  __shared__ T xs[BTV_XH][BTV_XW];
-  __shared__ T gs[BTV_GH][BTV_GW];
+  __shared__ T xs[XH][XW];
+  __shared__ T gs[GH][GW];
   __shared__ T g1s[2][TH + 1][TW + 1];
   __shared__ int tap_y[FRAME_CHUNK], tap_x[FRAME_CHUNK];
   __shared__ T tap_w[FRAME_CHUNK][4];
 
-  const int M = P - 1;                             // up-left margin of the G map
-  const int XH = TH + M + P, XW = TW + M + P;      // staged x
-  const int GH = TH + M, GW = TW + M;              // G map
   const int s = S > 0 ? S : s_arg;
   const Tile tile = SHARD ? where : Tile{0, 0, H, W};  // see sr_residual_kernel
   const int tx = threadIdx.x, ty = threadIdx.y, tid = ty * BX + tx;
@@ -588,9 +579,8 @@ __global__ void __launch_bounds__(NT, (btv_min_blocks<T>())) sr_btv_gradient_ker
   // 1. x over the tile and its reach, zero beyond the array; the taps of the
   //    first frames.
   for (int i = tid; i < XH * XW; i += NT) {
-    const int yy = i / XW, xx = i % XW;
-    const int rr = R0 - M + yy, cl = C0 - M + xx;
-    xs[yy][xx] = (rr >= 0 && rr < H && cl >= 0 && cl < W) ? xc[(size_t)rr * W + cl] : (T)0;
+    const int rr = R0 - M + i / XW, cl = C0 - M + i % XW;
+    xs[i / XW][i % XW] = (rr >= 0 && rr < H && cl >= 0 && cl < W) ? xc[(size_t)rr * W + cl] : (T)0;
   }
   auto stage_taps = [&](int k0) {
     const int k = k0 + tid;
@@ -661,9 +651,9 @@ __global__ void __launch_bounds__(NT, (btv_min_blocks<T>())) sr_btv_gradient_ker
     T g = (T)0;
     if (qr >= 0 && qr < H && qc >= 0 && qc < W) {
       const T* xq = &xs[gy][gx];
-      const T rq = interior ? staged_btv_residual<T, false>(xq, P, P, P, pw)
-                            : staged_btv_residual<T, true>(
-                                  xq, P, tile.Hg - 1 - (gr0 + gy), tile.Wg - 1 - (gc0 + gx), pw);
+      const T rq = interior ? staged_btv_residual<T, P, XW, false>(xq, P, P, pw)
+                            : staged_btv_residual<T, P, XW, true>(
+                                  xq, tile.Hg - 1 - (gr0 + gy), tile.Wg - 1 - (gc0 + gx), pw);
       const T cq = cc[(size_t)qr * W + qc];
       g = ((T)2 * cq) * rq;
       if (gy >= M && gx >= M) reg_cost += (double)((cq * rq) * rq);
@@ -695,9 +685,9 @@ __global__ void __launch_bounds__(NT, (btv_min_blocks<T>())) sr_btv_gradient_ker
       const T* xp = &xs[M + ly][M + lx];
       const T* gp = &gs[M + ly][M + lx];
       const T btv = interior
-                        ? staged_btv_gradient<T, false>(xp, gp, g_own[a][b], P, P, P, in_window, pw)
-                        : staged_btv_gradient<T, true>(xp, gp, g_own[a][b], P, imax, jmax,
-                                                       in_window, pw);
+                        ? staged_btv_gradient<T, P, XW, GW, false>(xp, gp, g_own[a][b], P, P, in_window, pw)
+                        : staged_btv_gradient<T, P, XW, GW, true>(xp, gp, g_own[a][b], imax, jmax,
+                                                                  in_window, pw);
       const int u = R0 + ly, v = C0 + lx;
       if (u < H && v < W) grad[base + (size_t)u * W + v] = scale2 * acc[a][b] + btv;
     }
@@ -759,22 +749,39 @@ int launch_residual(const void* x, const void* y, const double* shifts, const vo
   return (int)cudaGetLastError();
 }
 
-// The BTV gradient kernel for a scale and kind of array: one instantiation
-// per s in {2, 4, any other} and tile or whole image.
+// The BTV gradient kernel for a range, scale and kind of array: one
+// instantiation per P in 1..MAX_BTV_RANGE, s in {2, 4, any other} and tile
+// or whole image. nullptr for a P out of range.
 template <typename T>
 using BtvKernel = void (*)(const T*, const T*, const double*, const T*, int, int, int, int, int,
-                           int, int, int, int, Tile, const T*, int, Powers<T>, T*, double*);
+                           int, int, int, int, Tile, const T*, Powers<T>, T*, double*);
 
-template <typename T, bool SHARD>
+template <typename T, int P, bool SHARD>
 BtvKernel<T> btv_kernel_for_scale(int s) {
-  if (s == 2) return sr_btv_gradient_kernel<T, 2, SHARD>;
-  if (s == 4) return sr_btv_gradient_kernel<T, 4, SHARD>;
-  return sr_btv_gradient_kernel<T, 0, SHARD>;
+  if (s == 2) return sr_btv_gradient_kernel<T, P, 2, SHARD>;
+  if (s == 4) return sr_btv_gradient_kernel<T, P, 4, SHARD>;
+  return sr_btv_gradient_kernel<T, P, 0, SHARD>;
 }
 
+template <typename T, bool SHARD>
+BtvKernel<T> btv_kernel_for_range(int P, int s) {
+  switch (P) {
+    case 1: return btv_kernel_for_scale<T, 1, SHARD>(s);
+    case 2: return btv_kernel_for_scale<T, 2, SHARD>(s);
+    case 3: return btv_kernel_for_scale<T, 3, SHARD>(s);
+    case 4: return btv_kernel_for_scale<T, 4, SHARD>(s);
+    case 5: return btv_kernel_for_scale<T, 5, SHARD>(s);
+    case 6: return btv_kernel_for_scale<T, 6, SHARD>(s);
+    case 7: return btv_kernel_for_scale<T, 7, SHARD>(s);
+    case 8: return btv_kernel_for_scale<T, 8, SHARD>(s);
+    default: return nullptr;
+  }
+}
+static_assert(MAX_BTV_RANGE == 8, "btv_kernel_for_range instantiates P = 1..8");
+
 template <typename T>
-BtvKernel<T> btv_kernel(int s, bool shard) {
-  return shard ? btv_kernel_for_scale<T, true>(s) : btv_kernel_for_scale<T, false>(s);
+BtvKernel<T> btv_kernel(int P, int s, bool shard) {
+  return shard ? btv_kernel_for_range<T, true>(P, s) : btv_kernel_for_range<T, false>(P, s);
 }
 
 template <typename T>
@@ -793,10 +800,10 @@ int launch_gradient(const void* x, const void* r, const double* shifts, const vo
       p *= decay;
     }
     dim3 grid(ceil_div(W, BTV_TW), ceil_div(H, BTV_TH), C);
-    const BtvKernel<T> kernel = btv_kernel<T>(s, !whole);
+    const BtvKernel<T> kernel = btv_kernel<T>(P, s, !whole);
     kernel<<<grid, block, 0, stream>>>(
         (const T*)x, (const T*)r, shifts, (const T*)blur, kh, kw, K, C, H, W, s, h, w, tile,
-        (const T*)constants, P, pw, (T*)grad, partials);
+        (const T*)constants, pw, (T*)grad, partials);
     return (int)cudaGetLastError();
   }
   dim3 grid(ceil_div(W, BX), ceil_div(H, BY), C);
@@ -843,14 +850,16 @@ int sr_gradient_blocks(int mode, int C, int H, int W) {
 
 int sr_max_btv_range() { return MAX_BTV_RANGE; }
 
-// What the compiler gave the BTV gradient kernel for scale s (2 and 4 have
-// their own instantiations, any other s shares one) and a tile (shard != 0)
-// or whole image: out = {registers per thread, local memory bytes per thread,
-// static shared memory bytes per block, max threads per block}. Returns the
-// cudaError_t of cudaFuncGetAttributes.
-int sr_btv_kernel_attributes(int s, int shard, int is_double, int* out) {
-  const void* fn = is_double ? (const void*)btv_kernel<double>(s, shard != 0)
-                             : (const void*)btv_kernel<float>(s, shard != 0);
+// What the compiler gave the BTV gradient kernel for range P, scale s (2 and
+// 4 have their own instantiations, any other s shares one) and a tile
+// (shard != 0) or whole image: out = {registers per thread, local memory
+// bytes per thread, static shared memory bytes per block, max threads per
+// block}. Returns the cudaError_t of cudaFuncGetAttributes, or -5 for a P
+// out of range.
+int sr_btv_kernel_attributes(int btv_range, int s, int shard, int is_double, int* out) {
+  const void* fn = is_double ? (const void*)btv_kernel<double>(btv_range, s, shard != 0)
+                             : (const void*)btv_kernel<float>(btv_range, s, shard != 0);
+  if (fn == nullptr) return -5;
   cudaFuncAttributes attr;
   const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
   if (err != cudaSuccess) return (int)err;

@@ -67,6 +67,7 @@ __all__ = [
     "reset_launch_counts",
     "fused_objective",
     "fused_objective_reference",
+    "max_btv_range",
     "btv_kernel_attributes",
 ]
 
@@ -275,7 +276,7 @@ def _library() -> ctypes.CDLL:
     lib.sr_gradient_blocks.argtypes = [i] * 4
     lib.sr_max_btv_range.argtypes = []
     ints = ctypes.POINTER(ctypes.c_int)
-    lib.sr_btv_kernel_attributes.argtypes = [i] * 3 + [ints]
+    lib.sr_btv_kernel_attributes.argtypes = [i] * 4 + [ints]
     lib.sr_data_residual.argtypes = [p, p, p, p] + [i] * 7 + [ints, p, i, p, p, i, p]
     lib.sr_objective_gradient.argtypes = [p, p, p, p] + [i] * 7 + [ints, i, p, i, d, p, p, i, p]
     lib.sr_reduce_cost.argtypes = [p, i, i, d, p, i, p]
@@ -286,14 +287,18 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
-def btv_kernel_attributes(scale: int, shard: bool, dtype: torch.dtype) -> dict[str, int]:
+def max_btv_range() -> int:
+    """The largest BTV range the kernels are built for."""
+    return _library().sr_max_btv_range()
+
+
+def btv_kernel_attributes(btv_range: int, scale: int, shard: bool, dtype: torch.dtype) -> dict[str, int]:
     """What the compiler gave the BTV gradient kernel that serves these
     arguments (``cudaFuncGetAttributes``): registers per thread, local memory
     bytes per thread, static shared memory bytes per block, max threads per
-    block. Scales 2 and 4 have kernels of their own; any other scale shares
-    one; every range shares each."""
+    block. Scales 2 and 4 have kernels of their own; any other scale shares one."""
     out = (ctypes.c_int * 4)()
-    _raise_on(_library().sr_btv_kernel_attributes(scale, int(shard), int(dtype == torch.float64), out),
+    _raise_on(_library().sr_btv_kernel_attributes(btv_range, scale, int(shard), int(dtype == torch.float64), out),
               "sr_btv_kernel_attributes")
     return dict(zip(("registers", "local_bytes", "shared_bytes", "max_threads"), out))
 
@@ -310,8 +315,8 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"The CUDA kernels take float32 or float64, got {dtype}.")
     lib = _library()
-    if mode == "data_term_btv" and not 1 <= btv_range <= lib.sr_max_btv_range():
-        raise ValueError(f"btv_range must be in [1, {lib.sr_max_btv_range()}], got {btv_range}.")
+    if mode == "data_term_btv" and not 1 <= btv_range <= max_btv_range():
+        raise ValueError(f"btv_range must be in [1, {max_btv_range()}], got {btv_range}.")
     if data_mask_lr is not None and not isinstance(data_mask_lr, torch.Tensor):
         data_mask_lr = torch.as_tensor(np.asarray(data_mask_lr), dtype=dtype, device=device)
     for name, t in (("y", y), ("constants", constants), ("data_mask_lr", data_mask_lr)):
