@@ -5,9 +5,13 @@
 
 Builds the CUDA kernels from the sources in this checkout, holds each kernel
 against its plain PyTorch version on the card (the BTV gradient kernel over
-every range, decay, scale and kind of array it is compiled for, and with no
-local memory in any of its instantiations), runs the C++ reference's golden
-problems through the kernels, and drives the port's paths at full width:
+every range, decay, scale and kind of array it is compiled for; the residual
+and data / TV / 3D TV gradient kernels over scales, blurs, shifts, image
+sizes, shard tiles and the spectral halo, on both sides of their composite
+form's border band; no local memory in any instantiation of the three), times
+each row and each kernel alone at the shape its path gives it, runs the C++
+reference's golden problems through the kernels, and drives the port's paths
+at full width:
 
 - the IRLS MAP solve at the flagship size (1x1000x1000 HR, 4 frames, 4x, 3x3
   blur), once per fused objective mode;
@@ -28,8 +32,10 @@ problems through the kernels, and drives the port's paths at full width:
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
 
-Output: progress lines, then one JSON line ``{"kernels": [...]}`` with each
-kernel's error against its plain version, its time and its bound, then the
+Output: progress lines (ending in each kernel's time per launch beside its
+own bound, with launches x gap over the paths), then one JSON line
+``{"kernels": [...]}`` with each row's error against its plain version, its
+time and its bound, then the
 card's name and power limit as ``nvidia-smi`` gives them, and as the last
 line ``{"ok": true, "device": {...}}``.
 """
@@ -41,6 +47,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import shutil
 import struct
 import subprocess
@@ -70,6 +77,9 @@ try:
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
+
+# The hand-written kernels of csrc/degrade.cu, as the profiler names them.
+HAND_KERNELS = ("sr_residual_kernel", "sr_gradient_kernel", "sr_btv_gradient_kernel", "sr_reduce_kernel")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the yardstick for `bound_ms`.
 PEAK_BYTES_PER_S = 3.35e12
@@ -353,12 +363,52 @@ def _check_shift_generic(device, dtype):
         f"bit-equal to host shifts, one build")
 
 
+def _kernel_times(run, device, repeats=20):
+    """Device microseconds per launch of each hand-written kernel that ``run``
+    launches, and its launches per call, from one short ``torch.profiler``
+    window; ``{}`` if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize(device)
+    sums = {}
+    for _ in range(3):  # a window now and then comes back without device events: take another
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                run()
+            torch.cuda.synchronize(device)
+        for event in prof.key_averages():
+            device_us = getattr(event, "device_time_total", None)
+            if device_us is None:
+                device_us = getattr(event, "cuda_time_total", 0.0)
+            for name in HAND_KERNELS:
+                if device_us > 0 and re.search(rf"(?<!\w){name}<", event.key):
+                    us, count = sums.get(name, (0.0, 0))
+                    sums[name] = (us + device_us, count + event.count)
+        if sums:
+            break
+    return {name: {"us": us / count, "per_call": count / repeats} for name, (us, count) in sums.items()}
+
+
+def _kernel_bounds_us(x, y, constants, mode, partials, extra_bytes=0):
+    """Each kernel's own byte bound in microseconds: the residual kernel reads
+    x and y and writes r; the gradient kernels read x, r (and the constants)
+    and write the gradient; the reduction reads the partials."""
+    x_bytes, y_bytes = x.numel() * x.element_size(), y.numel() * y.element_size()
+    gradient = 2 * x_bytes + y_bytes + (0 if mode == "data_term" else x_bytes)
+    us = lambda nbytes: nbytes / PEAK_BYTES_PER_S * 1e6
+    return {"sr_residual_kernel": us(x_bytes + 2 * y_bytes + extra_bytes),
+            "sr_btv_gradient_kernel" if mode == "data_term_btv" else "sr_gradient_kernel": us(gradient),
+            "sr_reduce_kernel": us(8 * partials)}
+
+
 def _time_row(row, c, hw, scale, shifts, kernel, device, flush, shifts_on_device=True, shard=None):
     """Times of one row at the shape its path gives it, float32: the kernels
-    (warm and cold L2), the plain version, the bound, and the error against
-    the plain version at that shape. ``shard(x, y, constants) -> kwargs``
-    prepares the arrays as a mesh path does (zero rims, a zero halo band) and
-    gives the shard arguments of the launch."""
+    (warm and cold L2, and each kernel alone from the profiler beside its own
+    bound), the plain version, the bound, and the error against the plain
+    version at that shape. ``shard(x, y, constants) -> kwargs`` prepares the
+    arrays as a mesh path does (zero rims, a zero halo band) and gives the
+    shard arguments of the launch."""
     dtype = torch.float32
     x, y, sh, kern, constants = _kernel_problem(c, hw, scale, shifts, kernel, 200, device, dtype)
     sh_dev = torch.as_tensor(sh, dtype=torch.float64, device=device) if shifts_on_device else sh
@@ -386,15 +436,25 @@ def _time_row(row, c, hw, scale, shifts, kernel, device, flush, shifts_on_device
         torch.cuda.synchronize(device)
         cold.append(start.elapsed_time(end))
     bound_ms, bound_by, nbytes, flops = _bound(row["mode"], x, y, sh, kern, scale, dtype, extra_bytes)
+    per_kernel = _kernel_times(run, device)
+    c_, h_, w_ = x.shape
+    lib = degrade._library()
+    partials = lib.sr_residual_blocks(c_, h_, w_, scale) + lib.sr_gradient_blocks(
+        degrade._MODE_OF[row["mode"]], c_, h_, w_, 0)
+    bounds = _kernel_bounds_us(x, y, constants, row["mode"], partials, extra_bytes)
+    for name, info in per_kernel.items():
+        info["bound_us"] = bounds[name]
     row.update({
         "route": "cuda", "source": SOURCE, "launches": 0,
         "max_abs_err": max(row.get("max_abs_err", 0.0), abs_err), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "ms_cold_l2": sorted(cold)[len(cold) // 2], "bytes": nbytes, "operations": flops,
-        "shape": f"C={c} HR={hw[0]}x{hw[1]} K={len(shifts)} s={scale} float32",
+        "shape": f"C={c} HR={hw[0]}x{hw[1]} K={len(shifts)} s={scale} float32", "per_kernel": per_kernel,
     })
     log(f"      {row['row']} {row['name']} ({row['shape']}): {ms:.4f} ms/launch (cold L2 {row['ms_cold_l2']:.4f}), "
-        f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}")
+        f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}; per kernel (us per launch / own bound): "
+        + (", ".join(f"{name} {info['us']:.2f} / {info['bound_us']:.2f}" for name, info in per_kernel.items())
+           or "the profiler saw no device time"))
     return x, y, sh, kern, constants
 
 
@@ -586,22 +646,144 @@ def _check_btv_sweep(device, dtype):
     return worst
 
 
-def _check_btv_attributes():
-    """What the compiler gave every BTV kernel instantiation (cudaFuncGetAttributes): none may use local memory."""
+def _check_kernel_attributes():
+    """What the compiler gave every instantiation of the three compute kernels
+    (cudaFuncGetAttributes): none may use local memory. The residual and
+    gradient kernels: float32 / float64 x s 2 / 4 / other x a 3x3 / any other
+    blur x whole image / tile (x data / TV / 3D TV for the gradient); the BTV
+    kernel: float32 / float64 x P 1-8 x s 2 / 4 / other x whole / tile."""
     table = {}
     for dtype in (torch.float32, torch.float64):
-        for P in range(1, degrade.max_btv_range() + 1):
-            for scale in (2, 4, 3):
-                for shard in (False, True):
-                    table[dtype, P, scale, shard] = attributes = degrade.btv_kernel_attributes(P, scale, shard, dtype)
-                    check(attributes["local_bytes"] == 0,
-                          f"the BTV kernel ({dtype}, P={P}, s={scale}, shard={shard}) uses local memory: {attributes}")
-    registers = [a["registers"] for a in table.values()]
-    shared = [a["shared_bytes"] for a in table.values()]
-    log(f"[3/8] kernels: BTV gradient kernel, {len(table)} instantiations (float32/float64 x P 1-8 x s 2/4/other x "
-        f"whole/tile): 0 bytes of local memory in each; {min(registers)}-{max(registers)} registers, "
-        f"{min(shared)}-{max(shared)} bytes of static shared memory")
+        for scale in (2, 4, 3):
+            for shard in (False, True):
+                for blur in (3, 5):
+                    table["sr_residual_kernel", dtype, scale, blur, shard] = degrade.kernel_attributes(
+                        "sr_residual_kernel", scale, shard, dtype, blur_size=blur)
+                    for mode in ("data_term", "data_term_tv", "data_term_tv3d"):
+                        table["sr_gradient_kernel", mode, dtype, scale, blur, shard] = degrade.kernel_attributes(
+                            "sr_gradient_kernel", scale, shard, dtype, mode=mode, blur_size=blur)
+                for P in range(1, degrade.max_btv_range() + 1):
+                    table["sr_btv_gradient_kernel", dtype, P, scale, shard] = degrade.kernel_attributes(
+                        "sr_btv_gradient_kernel", scale, shard, dtype, btv_range=P)
+    for key, attributes in table.items():
+        check(attributes["local_bytes"] == 0, f"{key} uses local memory: {attributes}")
+    for kernel in degrade.COMPUTE_KERNELS:
+        mine = [a for key, a in table.items() if key[0] == kernel]
+        registers, shared = [a["registers"] for a in mine], [a["shared_bytes"] for a in mine]
+        blocks = [a["blocks_per_sm"] for a in mine]
+        log(f"[3/8] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
+            f"{min(registers)}-{max(registers)} registers, {min(shared)}-{max(shared)} bytes of static shared memory, "
+            f"{min(blocks)}-{max(blocks)} blocks of 256 threads per SM")
     return table
+
+
+def _row_attributes(row, table):
+    """The instantiations that serve a timed row (float32, a 3x3 blur, the row's s, P = 3 for BTV)."""
+    scale = 2 if row["path"] in ("hyperspectral",) or row["name"] == "spectral_halo" else 4
+    shard = row["name"] == "shard_mode"
+    out = {"sr_residual_kernel": table["sr_residual_kernel", torch.float32, scale, 3, shard]}
+    if row["mode"] == "data_term_btv":
+        out["sr_btv_gradient_kernel"] = table["sr_btv_gradient_kernel", torch.float32, 3, scale, shard]
+    else:
+        out["sr_gradient_kernel"] = table["sr_gradient_kernel", row["mode"], torch.float32, scale, 3, shard]
+    return {name: {key: a[key] for key in ("registers", "shared_bytes", "local_bytes", "blocks_per_sm")}
+            for name, a in out.items()}
+
+
+def _check_composite_sweep(device, dtype):
+    """The residual and the data / TV / 3D TV gradient kernels over what they
+    are compiled for, against the plain version: s = 2, 4 and 3 (the
+    instantiation that takes s at run time); no blur, 1x1, 3x3 (its own
+    instantiation), an even 4x4 (anchored at size/2) and 5x5; integer,
+    fractional and negative shifts and shifts of up to 9 HR px spread so far
+    that the residual kernel stages each frame's footprint in turn, all as a
+    CUDA tensor; whole images that are no multiple of any block tile, the
+    first smaller than the reach, the second with interior blocks, each
+    launched twice for the same bits; a frame count past the frames a block
+    holds tables for at once (66 at 3x3, 30 at 5x5); shard tiles with the
+    owned-pixel mask and the default one; the spectral halo. Where
+    ``composite_is_exact`` says the composite form is exact on a whole image
+    and where it says a border band needs the two-stage form are both counted."""
+    tol = TOLERANCE[dtype]
+    rng = np.random.default_rng(700)
+    even = rng.random((4, 4))
+    blurs = {"none": None, "1x1": np.ones((1, 1)), "3x3": gaussian_kernel_2d(3, 1.0), "4x4": even / even.sum(),
+             "5x5": gaussian_kernel_2d(5, 1.5)}
+    shift_sets = {
+        "integer": [(0, 0), (1, 1), (0, -1), (-2, 1)],
+        "fractional": [(0, 0), (1.25, -0.5), (-2.0, 3.0), (-0.75, -1.375)],
+        "wide": [(0, 0), (9.0, 9.0), (-9.0, -8.5), (4.5, -8.25)],
+    }
+    shapes = {2: [(6, 10), (70, 98)], 3: [(6, 9), (69, 99)], 4: [(8, 12), (72, 100)]}
+    modes = ("data_term", "data_term_tv", "data_term_tv3d")
+    worst, launches, exact = 0.0, 0, {True: 0, False: 0}
+
+    def held(args, kw, what, twice=False):
+        nonlocal worst, launches
+        out = degrade.fused_objective(*args, **kw)
+        if twice:
+            again = degrade.fused_objective(*args, **kw)
+            check(float(out[0]) == float(again[0]) and torch.equal(out[1], again[1]),
+                  f"composite sweep {dtype} {what}: two launches gave different bits")
+        host = tuple(a.cpu().numpy() if i == 2 else a for i, a in enumerate(args))
+        cost_err, grad_err, abs_err = _errors(out, degrade.fused_objective_reference(*host, **kw))
+        launches += 1
+        worst = max(worst, abs_err)
+        check(cost_err <= tol and grad_err <= tol,
+              f"composite sweep {dtype} {what}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
+
+    for scale, hws in shapes.items():
+        for blur_name, kern in blurs.items():
+            for set_name, shifts in shift_sets.items():
+                for n, hw in enumerate(hws):
+                    x, y, sh, _, constants = _kernel_problem(2, hw, scale, shifts, kern, 710 + n, device, dtype)
+                    exact[degrade.composite_is_exact(sh, kern, scale, hw)] += 1
+                    sh_dev = torch.as_tensor(sh, device=device)
+                    for mode in modes:
+                        held((x, y, sh_dev, kern, scale), _mode_kwargs(mode, constants),
+                             f"{mode} s={scale} blur {blur_name} {set_name} shifts whole {hw}", twice=True)
+    for blur_name, frames in (("3x3", 66), ("5x5", 30)):
+        shifts = np.round(np.random.default_rng(frames).uniform(-3.0, 3.0, size=(frames, 2)) * 4.0) / 4.0
+        x, y, sh, kern, constants = _kernel_problem(2, (36, 44), 2, shifts, blurs[blur_name], 720, device, dtype)
+        for mode in modes:
+            held((x, y, torch.as_tensor(sh, device=device), kern, 2), _mode_kwargs(mode, constants),
+                 f"{mode} {frames} frames blur {blur_name}")
+    for scale, hw in ((2, (48, 66)), (3, (54, 72)), (4, (48, 72))):
+        mesh = make_mesh({"row": 3, "col": 3}, devices=[device])
+        th, tw = hw[0] // 3, hw[1] // 3
+        x, y, sh, kern, _ = _kernel_problem(2, hw, scale, shift_sets["fractional"], blurs["3x3"], 730 + scale, device,
+                                            dtype)
+        q = _halo_width(sh, kern, scale, 2)
+        ql = q // scale
+        tiles = collectives.halo_gather(mesh, Sharded.from_global(mesh, x, {"row": 1, "col": 2}).parts, q)
+        lows = Sharded.from_global(mesh, y, {"row": 2, "col": 3}).parts
+        owned = torch.zeros((th + 2 * q) // scale, (tw + 2 * q) // scale, dtype=dtype, device=device)
+        owned[ql: ql + th // scale, ql: ql + tw // scale] = 1.0
+        for shard in (0, 2, 4, 6, 8):
+            coords = mesh.coords(shard)
+            xt = tiles[shard].contiguous()
+            yt = torch.nn.functional.pad(lows[shard], (ql, ql, ql, ql)).contiguous()
+            constants = torch.as_tensor(rng.random(tuple(xt.shape)) * 0.02, dtype=dtype, device=device)
+            for mask in (owned, None):
+                for mode in modes:
+                    kw = dict(_mode_kwargs(mode, constants), data_mask_lr=mask,
+                              origin=(coords["row"] * th - q, coords["col"] * tw - q), global_hw=hw)
+                    held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
+                         f"{mode} s={scale} tile {coords} {'owned' if mask is not None else 'default'} mask")
+    for scale, hw in ((2, (66, 90)), (3, (66, 90)), (4, (64, 88))):
+        x, y, sh, kern, constants = _kernel_problem(5, hw, scale, shift_sets["fractional"], blurs["3x3"], 740, device,
+                                                    dtype)
+        constants[-1] = 0.0
+        y[:, -1] = 0.0
+        held((x, y, torch.as_tensor(sh, device=device), kern, scale),
+             dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True), f"spectral halo s={scale}")
+    check(exact[True] > 0 and exact[False] > 0, f"the sweep missed one of the composite's cases: {exact}")
+    log(f"[3/8] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
+        f"fractional / wide shifts x 2 whole images x data/TV/3D TV, bit-equal when launched twice; 66 and 30 frames; "
+        f"3 x 5 shard tiles x 2 masks x 3 modes; spectral halo at s 2/3/4) agree with the plain version in {dtype} "
+        f"(tol {tol:g}); composite exact on {exact[True]} of the whole-image cases, a border band needing the "
+        f"two-stage form on {exact[False]}")
+    return worst
 
 
 def tiled_shifts():
@@ -632,23 +814,34 @@ def _as_band_shard(x, y, constants):
     return dict(spectral_halo=True)
 
 
-def time_row_at_path_shape(row, device, flush):
-    """:func:`_time_row` at the shape the row's path gives the kernels."""
+def row_shape(row):
+    """The arguments the row's path gives the kernels: (channels, HR shape,
+    scale, shifts, blur kernel, shard preparation or None). A row with
+    ``"flagship_tile"`` set is K7a's other half: a corner tile of the 2x2
+    tiling of the flagship with TV."""
     gauss = gaussian_kernel_2d
+    if row.get("flagship_tile"):
+        q = _halo_width(FLAGSHIP_SHIFTS, gauss(3, 1.5), 4, 2)
+        return 1, (500 + 2 * q, 500 + 2 * q), 4, FLAGSHIP_SHIFTS, gauss(3, 1.5), _as_tile(q, 4, (-q, -q), (1000, 1000))
     if row["name"] == "shard_mode":
         # A corner tile of the 2x2 tiling of the RGB 3x2048x2048 scene, rim included.
         q = _halo_width(tiled_shifts(), gauss(3, 1.5), 4, 3)
         side = 1024 + 2 * q
-        return _time_row(row, 3, (side, side), 4, tiled_shifts(), gauss(3, 1.5), device, flush,
-                         shard=_as_tile(q, 4, (-q, -q), (2048, 2048)))
+        return 3, (side, side), 4, tiled_shifts(), gauss(3, 1.5), _as_tile(q, 4, (-q, -q), (2048, 2048))
     if row["name"] == "spectral_halo":
         # One of 4 band shards of the 64-band cube: 16 bands and the halo band.
-        return _time_row(row, 17, (256, 256), 2, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush, shard=_as_band_shard)
+        return 17, (256, 256), 2, FLAGSHIP_SHIFTS, gauss(3, 1.5), _as_band_shard
     if row["path"] == "flagship":
-        return _time_row(row, 1, (1000, 1000), 4, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush)
+        return 1, (1000, 1000), 4, FLAGSHIP_SHIFTS, gauss(3, 1.5), None
     if row["path"] == "estimated":
-        return _time_row(row, 3, (1000, 1000), 4, ESTIMATED_TRUE_SHIFTS, gauss(3, 1.5), device, flush)
-    return _time_row(row, 64, (256, 256), 2, FLAGSHIP_SHIFTS, gauss(3, 1.5), device, flush)
+        return 3, (1000, 1000), 4, ESTIMATED_TRUE_SHIFTS, gauss(3, 1.5), None
+    return 64, (256, 256), 2, FLAGSHIP_SHIFTS, gauss(3, 1.5), None
+
+
+def time_row_at_path_shape(row, device, flush):
+    """:func:`_time_row` at the shape the row's path gives the kernels."""
+    c, hw, scale, shifts, kernel, shard = row_shape(row)
+    return _time_row(row, c, hw, scale, shifts, kernel, device, flush, shard=shard)
 
 
 def phase_kernels(device):
@@ -701,9 +894,12 @@ def phase_kernels(device):
         _check_trivial_shard_arguments(device, dtype)
         _check_assembled(device, dtype)
         btv_worst = _check_btv_sweep(device, dtype)
+        composite_worst = _check_composite_sweep(device, dtype)
         if dtype == torch.float32:
             worst["data_term_btv"] = max(worst["data_term_btv"], btv_worst)
-    attributes = _check_btv_attributes()
+            for mode in ("data_term", "data_term_tv", "data_term_tv3d"):
+                worst[mode] = max(worst[mode], composite_worst)
+    attributes = _check_kernel_attributes()
     tap_difference = _float32_tap_difference(device)
     log(f"[3/8] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
         f"makes them) vs the kernels' float64 weights rounded once: {tap_difference:.2e} of the largest entry")
@@ -714,11 +910,14 @@ def phase_kernels(device):
     rows = [dict(row) for row in ROWS]
     for row in rows:
         row["max_abs_err"] = worst[row["name"] if row["path"] == "mesh" else row["mode"]]
-        if row["mode"] == "data_term_btv":  # the instantiation that serves the row: P = 3, s = 4, float32
-            kernel = attributes[torch.float32, 3, 4, row["name"] == "shard_mode"]
-            row.update(registers=kernel["registers"], shared_bytes=kernel["shared_bytes"],
-                       local_bytes=kernel["local_bytes"])
+        row["instantiations"] = _row_attributes(row, attributes)
         x, y, sh, kern, constants = time_row_at_path_shape(row, device, flush)
+        if row["name"] == "shard_mode":
+            # Half of K7a's launches are tiles of the flagship with TV: a corner tile of its 2x2 tiling, rim included.
+            tv_tile = dict(row, mode="data_term_tv", flagship_tile=True)
+            time_row_at_path_shape(tv_tile, device, flush)
+            row["flagship_tile_tv"] = {key: tv_tile[key] for key in (
+                "shape", "ms", "ms_cold_l2", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "per_kernel")}
         if row["name"] == "channel_grid":
             # 4 M values and tens of thousands of per-block partials: the
             # float32 kernels' cost against the float64 plain version.
@@ -1193,8 +1392,10 @@ def phase_mesh(device, rows):
         solver.add_regularizer(TotalVariationRegularizer(), 0.01)
         return solver, linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous(), gt
 
+    before = degrade.shard_launch_counts["shard_mode"]
     results["tiled_flagship"] = compare_with_single_device(
         "2x2 tiles, flagship 1x1000x1000, TV", tiled_flagship, "data_term_tv", "shard_mode", tiles, 0.01, 2, 20)
+    flagship_tiles = degrade.shard_launch_counts["shard_mode"] - before
 
     def frames(dtype, options, mesh):
         gt, lows = estimated_motion_problem(device, dtype=dtype)
@@ -1214,7 +1415,33 @@ def phase_mesh(device, rows):
         if row["path"] == "mesh":
             row["launches"] = degrade.shard_launch_counts[row["name"]]
             check(row["launches"] > 0, f"the mesh paths never launched the kernels in {row['name']} ({row['row']})")
+        if row["name"] == "shard_mode":
+            row["launches_by_shape"] = {"rgb_tile_btv": row["launches"] - flagship_tiles,
+                                        "flagship_tile_tv": flagship_tiles}
     return results
+
+
+def per_kernel_table(rows):
+    """Each hand-written kernel on each row: us per launch, its own bound,
+    launches on the paths, and launches x (time - bound) in ms -- the ranking
+    of what to make faster next."""
+    table = []
+    for row in rows:
+        shapes = [(row, row["launches"])]
+        if "flagship_tile_tv" in row:
+            shapes = [(row, row["launches_by_shape"]["rgb_tile_btv"]),
+                      (dict(row["flagship_tile_tv"], row=row["row"] + " flagship TV tile"),
+                       row["launches_by_shape"]["flagship_tile_tv"])]
+        for timed, launches in shapes:
+            for name, info in timed["per_kernel"].items():
+                table.append({"kernel": name, "row": timed["row"], "us": info["us"], "bound_us": info["bound_us"],
+                              "launches": launches, "gap_ms": launches * (info["us"] - info["bound_us"]) / 1e3})
+    for kernel in HAND_KERNELS:
+        mine = [e for e in table if e["kernel"] == kernel]
+        log(f"      {kernel}: {sum(e['launches'] for e in mine)} launches on the paths, launches x gap "
+            f"{sum(e['gap_ms'] for e in mine):.2f} ms; " + "; ".join(
+                f"{e['row']} {e['us']:.2f} us (bound {e['bound_us']:.2f}) x {e['launches']}" for e in mine))
+    return table
 
 
 def main():
@@ -1235,6 +1462,8 @@ def main():
     except Failure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1
+    log("per kernel (profiler, float32, warm L2; the own bound by bytes):")
+    per_kernel_table(rows)
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

@@ -37,15 +37,19 @@ count of the mode; if the kernels cannot be built or launched it raises. For
 a CPU tensor it runs :func:`fused_objective_reference`, the plain version
 beside it, and counts nothing. No other condition selects the plain version.
 
-What bounds the kernels on an H100 is memory traffic (``x``, ``y``, the
-constants and the gradient each cross device memory once, the LR residual
-twice); see the note at the head of ``csrc/degrade.cu`` for the design.
+The least the kernels could take on an H100 is set by memory traffic (``x``,
+``y``, the constants and the gradient each cross device memory once, the LR
+residual twice); the notes in ``csrc/degrade.cu`` give each kernel's design
+and what bounds it as built. :func:`composite_taps` and
+:func:`composite_is_exact` describe the merged warp+blur tables the residual
+and gradient kernels use away from the image border.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import numpy as np
 import torch
@@ -67,8 +71,11 @@ __all__ = [
     "reset_launch_counts",
     "fused_objective",
     "fused_objective_reference",
+    "composite_taps",
+    "composite_is_exact",
     "max_btv_range",
-    "btv_kernel_attributes",
+    "COMPUTE_KERNELS",
+    "kernel_attributes",
 ]
 
 KERNEL_NAMES = ("data_term", "data_term_tv", "data_term_btv", "data_term_tv3d")
@@ -267,22 +274,105 @@ def fused_objective_reference(
     return cost + c_reg, grad + g_reg
 
 
+def _warp_taps(dx: float, dy: float) -> list[tuple[int, int, float]]:
+    """The bilinear warp out(p) = x(p - (dy, dx)) as taps (row offset, column offset, weight)."""
+    iy, ix = math.floor(dy), math.floor(dx)
+    fy, fx = dy - iy, dx - ix
+    taps = []
+    for a, wy in ((0, 1.0 - fy), (1, fy)):
+        for b, wx in ((0, 1.0 - fx), (1, fx)):
+            if wy * wx != 0.0:
+                taps.append((-(iy + a), -(ix + b), wy * wx))
+    return taps
+
+
+def composite_taps(dx: float, dy: float, kernel) -> tuple[list, list]:
+    """Warp and blur merged into one tap table, and the adjoint's table.
+
+    Forward: ``(B M x)(p) = sum w x(p + (r, c))`` over the ``(r, c, w)`` of the
+    first list; adjoint (``M^T B^T`` as the kernels compute it: the warp by
+    ``(-dx, -dy)`` after correlation with ``kernel^T``) likewise with the
+    second. Exact only where no border intervenes (:func:`composite_is_exact`);
+    the kernels build the same tables per frame on the device.
+    """
+    if kernel is None:
+        blur_taps = blur_t_taps = [(0, 0, 1.0)]
+    else:
+        k = np.asarray(kernel, dtype=np.float64)
+        kt = k.T
+        blur_taps = [(i - k.shape[0] // 2, j - k.shape[1] // 2, float(k[i, j]))
+                     for i in range(k.shape[0]) for j in range(k.shape[1]) if k[i, j] != 0.0]
+        blur_t_taps = [(i - kt.shape[0] // 2, j - kt.shape[1] // 2, float(kt[i, j]))
+                       for i in range(kt.shape[0]) for j in range(kt.shape[1]) if kt[i, j] != 0.0]
+
+    def merge(warp, blur_list):
+        acc: dict[tuple[int, int], float] = {}
+        for wr, wc, ww in warp:
+            for br, bc, bw in blur_list:
+                acc[wr + br, wc + bc] = acc.get((wr + br, wc + bc), 0.0) + ww * bw
+        return [(r, c, w) for (r, c), w in acc.items() if w != 0.0]
+
+    return merge(_warp_taps(dx, dy), blur_taps), merge(_warp_taps(-dx, -dy), blur_t_taps)
+
+
+def composite_is_exact(shifts, kernel, scale: int, image_hw: tuple[int, int]) -> bool:
+    """True when the composite tables equal the two-stage form for this
+    geometry everywhere: no decimated sample's blur tap lands outside the
+    image at a position whose warp taps read inside it (forward), and no
+    gradient pixel's reverse-warp tap lands outside the image at a position
+    whose transposed-blur taps hit an LR sample inside it (adjoint). Per axis
+    and exact, not conservative. Where it is False the image has a border
+    band in which only the two-stage form is right."""
+    s = int(scale)
+    if kernel is None:
+        b_r = b_c = bt_r = bt_c = [0]
+    else:
+        kh, kw = np.shape(kernel)
+        b_r, b_c = [i - kh // 2 for i in range(kh)], [j - kw // 2 for j in range(kw)]
+        bt_r, bt_c = [i - kw // 2 for i in range(kw)], [j - kh // 2 for j in range(kh)]  # kernel^T
+
+    def axis_ok(n, b_offs, bt_offs, wf, wa):
+        if n % s:
+            return False
+        m = max([abs(o) for o in b_offs + bt_offs + wf + wa] + [0]) // s + 3
+        for q in set(range(0, min(m, n // s))) | set(range(max(0, n // s - m), n // s)):
+            for b in b_offs:
+                p = s * q + b
+                if not 0 <= p < n and any(0 <= p + w0 < n for w0 in wf):
+                    return False
+        for u in set(range(0, min(m * s, n))) | set(range(max(0, n - m * s), n)):
+            for aw in wa:
+                p = u + aw
+                if not 0 <= p < n and any(0 <= p + bt < n and (p + bt) % s == 0 for bt in bt_offs):
+                    return False
+        return True
+
+    h, w = int(image_hw[0]), int(image_hw[1])
+    for dx, dy in np.asarray(shifts, dtype=np.float64).reshape(-1, 2):
+        wf, wa = _warp_taps(float(dx), float(dy)), _warp_taps(-float(dx), -float(dy))
+        if not axis_ok(h, b_r, bt_r, [t[0] for t in wf], [t[0] for t in wa]):
+            return False
+        if not axis_ok(w, b_c, bt_c, [t[1] for t in wf], [t[1] for t in wa]):
+            return False
+    return True
+
+
 @functools.lru_cache(maxsize=1)
 def _library() -> ctypes.CDLL:
     """``csrc/degrade.cu`` built (at first use) and loaded, signatures declared."""
     lib = build.load("degrade")
     p, i, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.sr_residual_blocks.argtypes = [i] * 5
-    lib.sr_gradient_blocks.argtypes = [i] * 4
+    lib.sr_residual_blocks.argtypes = [i] * 4
+    lib.sr_gradient_blocks.argtypes = [i] * 5
     lib.sr_max_btv_range.argtypes = []
+    lib.sr_max_composite_taps.argtypes = []
     ints = ctypes.POINTER(ctypes.c_int)
-    lib.sr_btv_kernel_attributes.argtypes = [i] * 4 + [ints]
+    lib.sr_kernel_attributes.argtypes = [i] * 6 + [ints]
     lib.sr_data_residual.argtypes = [p, p, p, p] + [i] * 7 + [ints, p, i, p, p, i, p]
     lib.sr_objective_gradient.argtypes = [p, p, p, p] + [i] * 7 + [ints, i, p, i, d, p, p, i, p]
     lib.sr_reduce_cost.argtypes = [p, i, i, d, p, i, p]
-    for fn in (lib.sr_residual_blocks, lib.sr_gradient_blocks, lib.sr_max_btv_range,
-               lib.sr_btv_kernel_attributes, lib.sr_data_residual, lib.sr_objective_gradient,
-               lib.sr_reduce_cost):
+    for fn in (lib.sr_residual_blocks, lib.sr_gradient_blocks, lib.sr_max_btv_range, lib.sr_max_composite_taps,
+               lib.sr_kernel_attributes, lib.sr_data_residual, lib.sr_objective_gradient, lib.sr_reduce_cost):
         fn.restype = ctypes.c_int
     return lib
 
@@ -292,15 +382,28 @@ def max_btv_range() -> int:
     return _library().sr_max_btv_range()
 
 
-def btv_kernel_attributes(btv_range: int, scale: int, shard: bool, dtype: torch.dtype) -> dict[str, int]:
-    """What the compiler gave the BTV gradient kernel that serves these
-    arguments (``cudaFuncGetAttributes``): registers per thread, local memory
-    bytes per thread, static shared memory bytes per block, max threads per
-    block. Scales 2 and 4 have kernels of their own; any other scale shares one."""
-    out = (ctypes.c_int * 4)()
-    _raise_on(_library().sr_btv_kernel_attributes(btv_range, scale, int(shard), int(dtype == torch.float64), out),
-              "sr_btv_kernel_attributes")
-    return dict(zip(("registers", "local_bytes", "shared_bytes", "max_threads"), out))
+# The compiled kernels, as the profiler names them, and their number in
+# ``sr_kernel_attributes``.
+COMPUTE_KERNELS = ("sr_residual_kernel", "sr_gradient_kernel", "sr_btv_gradient_kernel")
+
+
+def kernel_attributes(kernel: str, scale: int, shard: bool, dtype: torch.dtype, mode: str = "data_term",
+                      btv_range: int = 0, blur_size: int = 3) -> dict[str, int]:
+    """What the compiler gave the instantiation of ``kernel`` (one of
+    :data:`COMPUTE_KERNELS`) that serves these arguments
+    (``cudaFuncGetAttributes``): registers per thread, local memory bytes per
+    thread, static shared memory bytes per block, max threads per block, and
+    the blocks an SM holds at once as the kernels are launched.
+    Scales 2 and 4 have instantiations of their own and any other scale shares
+    one; so do a ``blur_size`` x ``blur_size`` blur of 3 and any other blur
+    (the BTV kernel has no blur instantiations). ``mode`` selects the
+    gradient kernel's mode, ``btv_range`` the BTV kernel's range."""
+    which = COMPUTE_KERNELS.index(kernel)
+    selector = btv_range if which == 2 else _MODE_OF[mode]
+    out = (ctypes.c_int * 5)()
+    _raise_on(_library().sr_kernel_attributes(which, selector, scale, blur_size, int(shard),
+                                               int(dtype == torch.float64), out), "sr_kernel_attributes")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "max_threads", "blocks_per_sm"), out))
 
 
 def _raise_on(code: int, what: str) -> None:
@@ -340,10 +443,13 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
         if blur_dev.ndim != 2:
             raise ValueError(f"Blur kernel must be 2D, got shape {tuple(blur_dev.shape)}.")
         kh, kw = blur_dev.shape
+    if (kh + 1) * (kw + 1) > lib.sr_max_composite_taps():
+        raise ValueError(f"The kernels take a blur of at most {lib.sr_max_composite_taps()} values with one "
+                         f"more row and column; got {kh}x{kw}.")
 
     # One cost partial per block of each kernel actually launched (none from the data mode's).
-    n_data = lib.sr_residual_blocks(k, c, h, w, scale)
-    n_reg = lib.sr_gradient_blocks(_MODE_OF[mode], c, h, w)
+    n_data = lib.sr_residual_blocks(c, h, w, scale)
+    n_reg = lib.sr_gradient_blocks(_MODE_OF[mode], c, h, w, int(dtype == torch.float64))
     residual = torch.empty_like(y)
     grad = torch.empty_like(x)
     partials = torch.empty(n_data + n_reg, dtype=torch.float64, device=device)

@@ -240,6 +240,19 @@ def test_cpu_tile_never_reaches_the_library(no_library, mode):
     assert float(cost) == float(ref_cost) and torch.equal(grad, ref_grad)
 
 
+def test_blur_larger_than_the_tap_table_is_refused_before_a_launch(monkeypatch):
+    """The residual and gradient kernels hold (kh+1)(kw+1) composite taps per
+    frame in a table of the library's size; a larger blur is refused with
+    the limit named, before anything is launched."""
+    import types
+    fake = types.SimpleNamespace(sr_max_composite_taps=lambda: 1024, sr_max_btv_range=lambda: 8)
+    monkeypatch.setattr(degrade, "_library", lambda: fake)
+    x, y, shifts, constants = _wrapper_problem()
+    with pytest.raises(ValueError, match="at most 1024"):
+        degrade._launch(x, y, shifts, np.ones((32, 32)) / 1024.0, 2, "data_term_tv", constants, 0, 1.0,
+                        (0, 0, 12, 16), False, None, False)
+
+
 def test_wrapper_modes_and_range_are_the_kernel_source_s():
     import re
     text = (cuda_build.CSRC_DIR / "degrade.cu").read_text()

@@ -162,7 +162,7 @@ def test_fused_tv3d_modes_and_arguments():
     # The source has the mode, beside the 2D one.
     from super_resolution_tpu_torch.ops.cuda import build
     text = (build.CSRC_DIR / "degrade.cu").read_text()
-    assert "MODE_TV3D = 3" in text and "SR_LAUNCH(MODE_TV3D)" in text
+    assert "MODE_TV3D = 3" in text and "gradient_kernel_for_scale<T, MODE_TV3D" in text
 
 
 @pytest.mark.parametrize("use_3d", [False, True])
