@@ -701,9 +701,12 @@ def _check_composite_sweep(device, dtype):
     first smaller than the reach, the second with interior blocks, each
     launched twice for the same bits; a frame count past the frames a block
     holds tables for at once (66 at 3x3, 30 at 5x5); shard tiles with the
-    owned-pixel mask and the default one; the spectral halo. Where
-    ``composite_is_exact`` says the composite form is exact on a whole image
-    and where it says a border band needs the two-stage form are both counted."""
+    owned-pixel mask and the default one, blur 3x3 / 5x5 / none, fractional
+    and +-9 px shifts; the spectral halo. Where ``composite_is_exact`` says
+    the composite form is exact on a whole image and where it says a border
+    band needs the two-stage form are both counted. A scale whose footprint
+    of x does not fit the residual kernel's shared memory (16 in float32, 11
+    in float64, at 3x3) must be refused before a launch."""
     tol = TOLERANCE[dtype]
     rng = np.random.default_rng(700)
     even = rng.random((4, 4))
@@ -748,28 +751,31 @@ def _check_composite_sweep(device, dtype):
         for mode in modes:
             held((x, y, torch.as_tensor(sh, device=device), kern, 2), _mode_kwargs(mode, constants),
                  f"{mode} {frames} frames blur {blur_name}")
+    tile_cases = [(blur_name, set_name) for blur_name in ("3x3", "5x5", "none") for set_name in ("fractional", "wide")]
     for scale, hw in ((2, (48, 66)), (3, (54, 72)), (4, (48, 72))):
         mesh = make_mesh({"row": 3, "col": 3}, devices=[device])
         th, tw = hw[0] // 3, hw[1] // 3
-        x, y, sh, kern, _ = _kernel_problem(2, hw, scale, shift_sets["fractional"], blurs["3x3"], 730 + scale, device,
-                                            dtype)
-        q = _halo_width(sh, kern, scale, 2)
-        ql = q // scale
-        tiles = collectives.halo_gather(mesh, Sharded.from_global(mesh, x, {"row": 1, "col": 2}).parts, q)
-        lows = Sharded.from_global(mesh, y, {"row": 2, "col": 3}).parts
-        owned = torch.zeros((th + 2 * q) // scale, (tw + 2 * q) // scale, dtype=dtype, device=device)
-        owned[ql: ql + th // scale, ql: ql + tw // scale] = 1.0
-        for shard in (0, 2, 4, 6, 8):
-            coords = mesh.coords(shard)
-            xt = tiles[shard].contiguous()
-            yt = torch.nn.functional.pad(lows[shard], (ql, ql, ql, ql)).contiguous()
-            constants = torch.as_tensor(rng.random(tuple(xt.shape)) * 0.02, dtype=dtype, device=device)
-            for mask in (owned, None):
-                for mode in modes:
-                    kw = dict(_mode_kwargs(mode, constants), data_mask_lr=mask,
-                              origin=(coords["row"] * th - q, coords["col"] * tw - q), global_hw=hw)
-                    held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
-                         f"{mode} s={scale} tile {coords} {'owned' if mask is not None else 'default'} mask")
+        for blur_name, set_name in tile_cases:
+            x, y, sh, kern, _ = _kernel_problem(2, hw, scale, shift_sets[set_name], blurs[blur_name], 730 + scale,
+                                                device, dtype)
+            q = _halo_width(sh, kern, scale, 2)
+            ql = q // scale
+            tiles = collectives.halo_gather(mesh, Sharded.from_global(mesh, x, {"row": 1, "col": 2}).parts, q)
+            lows = Sharded.from_global(mesh, y, {"row": 2, "col": 3}).parts
+            owned = torch.zeros((th + 2 * q) // scale, (tw + 2 * q) // scale, dtype=dtype, device=device)
+            owned[ql: ql + th // scale, ql: ql + tw // scale] = 1.0
+            for shard in (0, 2, 4, 6, 8):
+                coords = mesh.coords(shard)
+                xt = tiles[shard].contiguous()
+                yt = torch.nn.functional.pad(lows[shard], (ql, ql, ql, ql)).contiguous()
+                constants = torch.as_tensor(rng.random(tuple(xt.shape)) * 0.02, dtype=dtype, device=device)
+                for mask in (owned, None):
+                    for mode in modes:
+                        kw = dict(_mode_kwargs(mode, constants), data_mask_lr=mask,
+                                  origin=(coords["row"] * th - q, coords["col"] * tw - q), global_hw=hw)
+                        held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
+                             f"{mode} s={scale} blur {blur_name} {set_name} shifts tile {coords} "
+                             f"{'owned' if mask is not None else 'default'} mask")
     for scale, hw in ((2, (66, 90)), (3, (66, 90)), (4, (64, 88))):
         x, y, sh, kern, constants = _kernel_problem(5, hw, scale, shift_sets["fractional"], blurs["3x3"], 740, device,
                                                     dtype)
@@ -778,11 +784,24 @@ def _check_composite_sweep(device, dtype):
         held((x, y, torch.as_tensor(sh, device=device), kern, scale),
              dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True), f"spectral halo s={scale}")
     check(exact[True] > 0 and exact[False] > 0, f"the sweep missed one of the composite's cases: {exact}")
+    too_large = 16 if dtype == torch.float32 else 11
+    x, y, sh, kern, _ = _kernel_problem(1, (too_large, 2 * too_large), too_large, shift_sets["fractional"],
+                                        blurs["3x3"], 750, device, dtype)
+    before = sum(degrade.launch_counts.values())
+    try:
+        degrade.fused_objective(x, y, torch.as_tensor(sh, device=device), kern, too_large)
+        refused = ""
+    except ValueError as err:
+        refused = str(err)
+    check(f"holds scales up to {too_large - 1}; got {too_large}" in refused
+          and sum(degrade.launch_counts.values()) == before,
+          f"s = {too_large} in {dtype} was not refused before a launch: {refused!r}")
     log(f"[3/8] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
         f"fractional / wide shifts x 2 whole images x data/TV/3D TV, bit-equal when launched twice; 66 and 30 frames; "
-        f"3 x 5 shard tiles x 2 masks x 3 modes; spectral halo at s 2/3/4) agree with the plain version in {dtype} "
-        f"(tol {tol:g}); composite exact on {exact[True]} of the whole-image cases, a border band needing the "
-        f"two-stage form on {exact[False]}")
+        f"3 scales x 5 shard tiles x blur 3x3/5x5/none x fractional / wide shifts x 2 masks x 3 modes; spectral halo "
+        f"at s 2/3/4) agree with the plain version in {dtype} (tol {tol:g}); composite exact on {exact[True]} of the "
+        f"whole-image cases, a border band needing the two-stage form on {exact[False]}; s = {too_large} refused "
+        f"before a launch")
     return worst
 
 

@@ -304,7 +304,8 @@ constexpr int gradient_min_blocks() {
 //     from the same staged x. The branch is hoisted out of the frame loop,
 //     and y of the next frame is read while this one is computed.
 //  3. s = 2 and 4 and a 3 x 3 blur are compile-time instantiations, S = 0 /
-//     KB = 0 take them at run time; no array is indexed at run time.
+//     KB = 0 take them at run time (1.1-1.4x as long at the rows' 3 x 3,
+//     PERF.md); no array is indexed at run time.
 //  4. Each thread sums its LR value's squared residuals over the frames in
 //     double; one partial per block, summed by kernel 3 in block order.
 // What bounds it as built (PERF.md): the latency of the block's few
@@ -520,12 +521,15 @@ __device__ __forceinline__ T tv_weight(T cq, T dx, T dy, T dz) {
 //     s = 4 and 3 x 3, four at s = 2 -- each read with its table weight; with
 //     s and the blur compile-time the count is fixed, so all of a frame's
 //     loads for the thread's pixels are issued before the first is used.
-//     A thread whose pixels keep every bilinear sample inside the image and
-//     every LR sample inside the array for all frames takes a loop without
-//     tests; a pixel in the border band takes the exact two-stage form.
+//     At s = 4 with a 3 x 3 blur, a thread whose pixels keep every bilinear
+//     sample inside the image and every LR sample inside the array for all
+//     frames takes a loop without tests; a pixel in the border band takes
+//     the exact two-stage form.
 //  2. s = 2 and 4 and a 3 x 3 blur are compile-time instantiations (S = 0 /
-//     KB = 0 take them at run time). A thread owns grad_tile_rows / BY
-//     pixels of one column, so a block's tables and barriers serve more work.
+//     KB = 0 take them at run time): with the blur at run time the kernel
+//     took 1.2-2.1x as long on every row (PERF.md). A thread owns
+//     grad_tile_rows / BY pixels of one column, so a block's tables and
+//     barriers serve more work.
 //  3. TV: x over the tile and one row and column on each side, the
 //     constants (and, 3D, x of band c + 1) at the G sites, and with 3D x and
 //     the constants of band c - 1 are staged in one pass; G = 2 c r is made
@@ -644,26 +648,31 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
     // frame of the chunk keeps all their bilinear samples inside the image
     // and every LR sample inside the array: in rows u - iy - 1 .. u - iy and
     // LR rows (oy + m) / s, oy = u - iy - 1 - ar, m in [0, kw] (columns alike).
-    int iy_lo = INT_MAX, iy_hi = INT_MIN, ix_lo = INT_MAX, ix_hi = INT_MIN;
-    for (int kk = 0; kk < nk; ++kk) {
-      iy_lo = min(iy_lo, tab_iy[kk]);
-      iy_hi = max(iy_hi, tab_iy[kk]);
-      ix_lo = min(ix_lo, tab_ix[kk]);
-      ix_hi = max(ix_hi, tab_ix[kk]);
-    }
-    const int u_first = R0 + ty, u_last = R0 + ty + BY * (RY - 1);
-    bool inside = u_last < H && u_first - iy_hi - 1 - ar >= 0 && u_last - iy_lo - 1 - ar + kw < H &&
-                  v - ix_hi - 1 - ac >= 0 && v - ix_lo - 1 - ac + kh < W;
-    if (SHARD) {
-      inside = inside && tile.u0 + u_first - iy_hi - 1 >= 0 && tile.u0 + u_last - iy_lo < tile.Hg &&
-               tile.v0 + v - ix_hi - 1 >= 0 && tile.v0 + v - ix_lo < tile.Wg;
-    }
-    if (inside) {  // no test inside: the pixels' loads of a frame in flight together
+    // Only where a pixel meets one LR sample per frame (NM = 1: s = 4 at
+    // 3 x 3), where it was measured up to 9 % faster than the per-pixel test
+    // below; at s = 2 it was 2-4 % slower (PERF.md).
+    if constexpr (NM == 1) {
+      int iy_lo = INT_MAX, iy_hi = INT_MIN, ix_lo = INT_MAX, ix_hi = INT_MIN;
       for (int kk = 0; kk < nk; ++kk) {
-#pragma unroll
-        for (int a = 0; a < RY; ++a) acc[a] += composite(k0 + kk, kk, R0 + ty + BY * a);
+        iy_lo = min(iy_lo, tab_iy[kk]);
+        iy_hi = max(iy_hi, tab_iy[kk]);
+        ix_lo = min(ix_lo, tab_ix[kk]);
+        ix_hi = max(ix_hi, tab_ix[kk]);
       }
-      continue;
+      const int u_first = R0 + ty, u_last = R0 + ty + BY * (RY - 1);
+      bool inside = u_last < H && u_first - iy_hi - 1 - ar >= 0 && u_last - iy_lo - 1 - ar + kw < H &&
+                    v - ix_hi - 1 - ac >= 0 && v - ix_lo - 1 - ac + kh < W;
+      if (SHARD) {
+        inside = inside && tile.u0 + u_first - iy_hi - 1 >= 0 && tile.u0 + u_last - iy_lo < tile.Hg &&
+                 tile.v0 + v - ix_hi - 1 >= 0 && tile.v0 + v - ix_lo < tile.Wg;
+      }
+      if (inside) {  // no test inside: the pixels' loads of a frame in flight together
+        for (int kk = 0; kk < nk; ++kk) {
+#pragma unroll
+          for (int a = 0; a < RY; ++a) acc[a] += composite(k0 + kk, kk, R0 + ty + BY * a);
+        }
+        continue;
+      }
     }
     for (int kk = 0; kk < nk; ++kk) {
       const int iy = tab_iy[kk], ix = tab_ix[kk];
@@ -1253,6 +1262,13 @@ int sr_max_btv_range() { return MAX_BTV_RANGE; }
 
 // The largest (kh + 1) * (kw + 1) the residual and gradient kernels take.
 int sr_max_composite_taps() { return TAP_TABLE; }
+
+// Values of x the residual kernel stages per block for a scale and blur; 0
+// if not even one frame's footprint fits in a block's shared memory (the
+// launch is then refused with -10).
+int sr_residual_staging(int s, int kh, int kw, int is_double) {
+  return is_double ? residual_capacity<double>(s, kh, kw) : residual_capacity<float>(s, kh, kw);
+}
 
 // What the compiler gave one instantiation (cudaFuncGetAttributes): `kernel`
 // 0 = sr_residual_kernel, 1 = sr_gradient_kernel (`mode_or_range` its mode:

@@ -366,13 +366,15 @@ def _library() -> ctypes.CDLL:
     lib.sr_gradient_blocks.argtypes = [i] * 5
     lib.sr_max_btv_range.argtypes = []
     lib.sr_max_composite_taps.argtypes = []
+    lib.sr_residual_staging.argtypes = [i] * 4
     ints = ctypes.POINTER(ctypes.c_int)
     lib.sr_kernel_attributes.argtypes = [i] * 6 + [ints]
     lib.sr_data_residual.argtypes = [p, p, p, p] + [i] * 7 + [ints, p, i, p, p, i, p]
     lib.sr_objective_gradient.argtypes = [p, p, p, p] + [i] * 7 + [ints, i, p, i, d, p, p, i, p]
     lib.sr_reduce_cost.argtypes = [p, i, i, d, p, i, p]
     for fn in (lib.sr_residual_blocks, lib.sr_gradient_blocks, lib.sr_max_btv_range, lib.sr_max_composite_taps,
-               lib.sr_kernel_attributes, lib.sr_data_residual, lib.sr_objective_gradient, lib.sr_reduce_cost):
+               lib.sr_residual_staging, lib.sr_kernel_attributes, lib.sr_data_residual, lib.sr_objective_gradient,
+               lib.sr_reduce_cost):
         fn.restype = ctypes.c_int
     return lib
 
@@ -446,6 +448,11 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
     if (kh + 1) * (kw + 1) > lib.sr_max_composite_taps():
         raise ValueError(f"The kernels take a blur of at most {lib.sr_max_composite_taps()} values with one "
                          f"more row and column; got {kh}x{kw}.")
+    is_double = int(dtype == torch.float64)
+    if lib.sr_residual_staging(scale, kh, kw, is_double) == 0:
+        largest = max((s for s in range(1, scale) if lib.sr_residual_staging(s, kh, kw, is_double) > 0), default=0)
+        raise ValueError(f"The residual kernel stages one frame's footprint of x in a block's shared memory, which "
+                         f"with a {kh}x{kw} blur in {dtype} holds scales up to {largest}; got {scale}.")
 
     # One cost partial per block of each kernel actually launched (none from the data mode's).
     n_data = lib.sr_residual_blocks(c, h, w, scale)
@@ -454,7 +461,6 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
     grad = torch.empty_like(x)
     partials = torch.empty(n_data + n_reg, dtype=torch.float64, device=device)
     cost = torch.empty((), dtype=dtype, device=device)
-    is_double = int(dtype == torch.float64)
     blur_ptr = None if blur_dev is None else blur_dev.data_ptr()
     const_ptr = None if constants is None else constants.data_ptr()
     mask_ptr = None if data_mask_lr is None else data_mask_lr.data_ptr()

@@ -253,6 +253,25 @@ def test_blur_larger_than_the_tap_table_is_refused_before_a_launch(monkeypatch):
                         (0, 0, 12, 16), False, None, False)
 
 
+@pytest.mark.parametrize("dtype, largest", [(torch.float32, 15), (torch.float64, 10)])
+def test_scale_past_the_residual_kernel_s_staging_is_refused_before_a_launch(monkeypatch, dtype, largest):
+    """The residual kernel stages one frame's footprint of x in a block's
+    shared memory; a scale whose footprint the library says does not fit is
+    refused before anything is launched, with the largest scale that fits
+    for that blur and type named."""
+    import types
+    fits = {(s, is_double) for s in range(1, 16) for is_double in (0, 1) if s <= (10 if is_double else 15)}
+    fake = types.SimpleNamespace(sr_max_composite_taps=lambda: 1024, sr_max_btv_range=lambda: 8,
+                                 sr_residual_staging=lambda s, kh, kw, is_double: int((s, is_double) in fits))
+    monkeypatch.setattr(degrade, "_library", lambda: fake)
+    rng = np.random.default_rng(82)
+    x = torch.as_tensor(rng.random((1, 16, 32)), dtype=dtype)
+    y = torch.as_tensor(rng.random((2, 1, 1, 2)), dtype=dtype)
+    with pytest.raises(ValueError, match=f"3x3 blur in {dtype} holds scales up to {largest}; got 16"):
+        degrade._launch(x, y, [(0, 0), (1, 1)], np.ones((3, 3)) / 9.0, 16, "data_term", None, 0, 1.0,
+                        (0, 0, 16, 32), False, None, False)
+
+
 def test_wrapper_modes_and_range_are_the_kernel_source_s():
     import re
     text = (cuda_build.CSRC_DIR / "degrade.cu").read_text()
