@@ -8,13 +8,18 @@ against its plain PyTorch version on the card (the BTV gradient kernel over
 every range, decay, scale and kind of array it is compiled for; the residual
 and data / TV / 3D TV gradient kernels over scales, blurs, shifts, image
 sizes, shard tiles and the spectral halo, on both sides of their composite
-form's border band; no local memory in any instantiation of the three), times
-each row and each kernel alone at the shape its path gives it, runs the C++
-reference's golden problems through the kernels, and drives the port's paths
-at full width:
+form's border band, and their DIRECT instantiations at s = 16 / 11 and with
+a 33x33 blur; no local memory in any of the 208 instantiations), checks that
+an evaluation is two launches whose cost, folded by the gradient launch's
+last-starting block, is the same bits every time and equals the host's sum of the
+partials, times each row and each kernel alone at the shape its path gives
+it (and the DIRECT instantiations at full width), runs the C++ reference's
+golden problems through the kernels, and drives the port's paths at full
+width:
 
 - the IRLS MAP solve at the flagship size (1x1000x1000 HR, 4 frames, 4x, 3x3
-  blur), once per fused objective mode;
+  blur), once per fused objective mode, and with a 33x33 blur beside the
+  plain version;
 - estimated motion: an RGB 3x1000x1000 scene, 4 frames at 4x with fractional
   shifts, registered by phase correlation, solved with BTV while the shifts
   are refined on the device between IRLS rounds, beside the unrefined and the
@@ -79,7 +84,7 @@ except ImportError as exc:  # e.g. this file alone, without the package
     sys.exit(2)
 
 # The hand-written kernels of csrc/degrade.cu, as the profiler names them.
-HAND_KERNELS = ("sr_residual_kernel", "sr_gradient_kernel", "sr_btv_gradient_kernel", "sr_reduce_kernel")
+HAND_KERNELS = ("sr_residual_kernel", "sr_gradient_kernel", "sr_btv_gradient_kernel")
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): the yardstick for `bound_ms`.
 PEAK_BYTES_PER_S = 3.35e12
@@ -390,16 +395,107 @@ def _kernel_times(run, device, repeats=20):
     return {name: {"us": us / count, "per_call": count / repeats} for name, (us, count) in sums.items()}
 
 
+def _device_kernels_per_call(run, device, repeats=5):
+    """Every device kernel ``run`` launches, by the profiler's name, and its
+    launches per call, from one short ``torch.profiler`` window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize(device)
+    for _ in range(3):  # as in _kernel_times
+        counts = {}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(repeats):
+                run()
+            torch.cuda.synchronize(device)
+        for event in prof.key_averages():
+            device_us = getattr(event, "device_time_total", None)
+            if device_us is None:
+                device_us = getattr(event, "cuda_time_total", 0.0)
+            if device_us > 0:
+                counts[event.key] = counts.get(event.key, 0) + event.count
+        if counts:
+            return {name: count / repeats for name, count in counts.items()}
+    return {}
+
+
+def _launch_with_partials(x, y, shifts, kernel, scale, **kw):
+    """One evaluation on the kernels, as :func:`degrade.fused_objective` makes
+    it, with the buffer of cost partials its gradient launch summed:
+    (cost, gradient, partials, number of the residual launch's partials)."""
+    tv, btv, use_3d = kw.get("tv_constants"), kw.get("btv_constants"), kw.get("tv_use_3d", False)
+    shard_kw = {key: kw[key] for key in ("origin", "global_hw", "data_mask_lr", "spectral_halo") if key in kw}
+    constants = tv if tv is not None else btv
+    tile = degrade._check_problem(x, y, scale, constants, tv_use_3d=use_3d, **shard_kw)
+    shard = degrade._is_shard_mode(kw.get("origin"), kw.get("global_hw"), kw.get("data_mask_lr"))
+    cost, grad, partials = degrade._launch(
+        x, y, shifts, kernel, scale, degrade._mode_name(tv, btv, use_3d), constants, kw.get("btv_range", 0),
+        kw.get("btv_decay", 1.0), tile, shard, kw.get("data_mask_lr"), kw.get("spectral_halo", False))
+    c, h, w = x.shape
+    return cost, grad, partials, degrade._library().sr_residual_blocks(c, h, w, scale)
+
+
+def _fold_on_host(partials, n_data, scale, dtype):
+    """The cost from the partials in the order the gradient launch's folding block
+    sums them (``fold_cost`` in csrc/degrade.cu): 1024 slots, slot t the sum of
+    partials t, t + 1024, ... in index order (data and regulariser apart), a
+    tree over the slots, then fma(s^2, data, regulariser) rounded to the type."""
+    from fractions import Fraction
+
+    values = partials.double().cpu().numpy()
+
+    def folded(part):
+        slots = np.zeros(1024)
+        for t in range(1024):
+            total = 0.0
+            for value in part[t::1024]:
+                total += float(value)
+            slots[t] = total
+        stride = 512
+        while stride:
+            slots[:stride] = slots[:stride] + slots[stride:2 * stride]
+            stride //= 2
+        return float(slots[0])
+
+    data, reg = folded(values[:n_data]), folded(values[n_data:])
+    exact = Fraction(float(scale * scale)) * Fraction(data) + Fraction(reg)
+    return float(np.float32(float(exact))) if dtype == torch.float32 else float(exact)
+
+
+def _check_fold(row_name, run, args, kw, dtype, device):
+    """One evaluation is two launches and no reduction kernel; its cost is the
+    same bits when launched again and equals the host's sum of its partials
+    in the documented order. Returns the partials' count, their own bound and
+    the time of one ``torch.dot`` of partials and weights (s^2 on the data
+    partials, 1 on the rest), the one library call that computes the same sum."""
+    # The profiler now and then drops a record: each kernel at most once per call, both seen, nothing else.
+    launched = _device_kernels_per_call(run, device)
+    kinds = [next((k for k in HAND_KERNELS if re.search(rf"(?<!\w){k}<", name)), name) for name in launched]
+    check(len(kinds) == 2 and "sr_residual_kernel" in kinds and any(k in kinds for k in HAND_KERNELS[1:])
+          and all(per_call <= 1.0 for per_call in launched.values()),
+          f"{row_name}: an evaluation launched {launched}, not the residual and the gradient kernel alone")
+    cost, _, partials, n_data = _launch_with_partials(*args, **kw)
+    again, _, partials_again, _ = _launch_with_partials(*args, **kw)
+    host = _fold_on_host(partials, n_data, args[4], dtype)
+    check(float(cost) == float(again) and torch.equal(partials, partials_again),
+          f"{row_name}: two launches gave different costs or partials")
+    check(float(cost) == host, f"{row_name}: the folded cost {float(cost)!r} != the host's sum {host!r}")
+    weights = torch.ones_like(partials)
+    weights[:n_data] = float(args[4] ** 2)
+    dot_ms = _time_launches(lambda: torch.dot(partials, weights), device, 200)
+    return {"partials": partials.numel(), "kernels_per_evaluation": launched,
+            "bound_us": 8 * partials.numel() / PEAK_BYTES_PER_S * 1e6, "torch_dot_ms": dot_ms}
+
+
 def _kernel_bounds_us(x, y, constants, mode, partials, extra_bytes=0):
     """Each kernel's own byte bound in microseconds: the residual kernel reads
-    x and y and writes r; the gradient kernels read x, r (and the constants)
-    and write the gradient; the reduction reads the partials."""
+    x and y and writes r; the gradient kernels read x, r (and the constants),
+    write the gradient and, folding the cost, read the partials."""
     x_bytes, y_bytes = x.numel() * x.element_size(), y.numel() * y.element_size()
-    gradient = 2 * x_bytes + y_bytes + (0 if mode == "data_term" else x_bytes)
+    gradient = 2 * x_bytes + y_bytes + (0 if mode == "data_term" else x_bytes) + 8 * partials
     us = lambda nbytes: nbytes / PEAK_BYTES_PER_S * 1e6
     return {"sr_residual_kernel": us(x_bytes + 2 * y_bytes + extra_bytes),
-            "sr_btv_gradient_kernel" if mode == "data_term_btv" else "sr_gradient_kernel": us(gradient),
-            "sr_reduce_kernel": us(8 * partials)}
+            "sr_btv_gradient_kernel" if mode == "data_term_btv" else "sr_gradient_kernel": us(gradient)}
 
 
 def _time_row(row, c, hw, scale, shifts, kernel, device, flush, shifts_on_device=True, shard=None):
@@ -444,17 +540,21 @@ def _time_row(row, c, hw, scale, shifts, kernel, device, flush, shifts_on_device
     bounds = _kernel_bounds_us(x, y, constants, row["mode"], partials, extra_bytes)
     for name, info in per_kernel.items():
         info["bound_us"] = bounds[name]
+    fold = _check_fold(row["name"], run, (x, y, sh_dev, kern_dev, scale), kw, dtype, device)
     row.update({
         "route": "cuda", "source": SOURCE, "launches": 0,
         "max_abs_err": max(row.get("max_abs_err", 0.0), abs_err), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
         "ms_cold_l2": sorted(cold)[len(cold) // 2], "bytes": nbytes, "operations": flops,
         "shape": f"C={c} HR={hw[0]}x{hw[1]} K={len(shifts)} s={scale} float32", "per_kernel": per_kernel,
+        "fold": fold,
     })
     log(f"      {row['row']} {row['name']} ({row['shape']}): {ms:.4f} ms/launch (cold L2 {row['ms_cold_l2']:.4f}), "
         f"plain {plain_ms:.3f} ms, bound {bound_ms:.5f} ms by {bound_by}; per kernel (us per launch / own bound): "
         + (", ".join(f"{name} {info['us']:.2f} / {info['bound_us']:.2f}" for name, info in per_kernel.items())
-           or "the profiler saw no device time"))
+           or "the profiler saw no device time")
+        + f"; 2 launches per evaluation, cost folded from {fold['partials']} partials bit-equal to the host's sum "
+          f"(own bound {fold['bound_us']:.4f} us; torch.dot {fold['torch_dot_ms'] * 1e3:.2f} us)")
     return x, y, sh, kern, constants
 
 
@@ -650,10 +750,18 @@ def _check_kernel_attributes():
     """What the compiler gave every instantiation of the three compute kernels
     (cudaFuncGetAttributes): none may use local memory. The residual and
     gradient kernels: float32 / float64 x s 2 / 4 / other x a 3x3 / any other
-    blur x whole image / tile (x data / TV / 3D TV for the gradient); the BTV
-    kernel: float32 / float64 x P 1-8 x s 2 / 4 / other x whole / tile."""
+    blur x whole image / tile (x data / TV / 3D TV for the gradient), and
+    their DIRECT instantiations, float32 / float64 x whole image / tile; the
+    BTV kernel: float32 / float64 x P 1-8 x s 2 / 4 / other x whole / tile:
+    208 in all."""
     table = {}
     for dtype in (torch.float32, torch.float64):
+        for shard in (False, True):
+            table["sr_residual_kernel", dtype, "direct", shard] = degrade.kernel_attributes(
+                "sr_residual_kernel", 0, shard, dtype, direct=True)
+            for mode in ("data_term", "data_term_tv", "data_term_tv3d"):
+                table["sr_gradient_kernel", mode, dtype, "direct", shard] = degrade.kernel_attributes(
+                    "sr_gradient_kernel", 0, shard, dtype, mode=mode, direct=True)
         for scale in (2, 4, 3):
             for shard in (False, True):
                 for blur in (3, 5):
@@ -665,6 +773,7 @@ def _check_kernel_attributes():
                 for P in range(1, degrade.max_btv_range() + 1):
                     table["sr_btv_gradient_kernel", dtype, P, scale, shard] = degrade.kernel_attributes(
                         "sr_btv_gradient_kernel", scale, shard, dtype, btv_range=P)
+    check(len(table) == 208, f"{len(table)} instantiations, expected 208")
     for key, attributes in table.items():
         check(attributes["local_bytes"] == 0, f"{key} uses local memory: {attributes}")
     for kernel in degrade.COMPUTE_KERNELS:
@@ -674,6 +783,10 @@ def _check_kernel_attributes():
         log(f"[3/8] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
             f"{min(registers)}-{max(registers)} registers, {min(shared)}-{max(shared)} bytes of static shared memory, "
             f"{min(blocks)}-{max(blocks)} blocks of 256 threads per SM")
+    direct = [a for key, a in table.items() if "direct" in key]
+    log(f"[3/8] kernels: of those, the {len(direct)} DIRECT instantiations: "
+        f"{min(a['registers'] for a in direct)}-{max(a['registers'] for a in direct)} registers, "
+        f"{min(a['blocks_per_sm'] for a in direct)}-{max(a['blocks_per_sm'] for a in direct)} blocks per SM")
     return table
 
 
@@ -704,9 +817,9 @@ def _check_composite_sweep(device, dtype):
     owned-pixel mask and the default one, blur 3x3 / 5x5 / none, fractional
     and +-9 px shifts; the spectral halo. Where ``composite_is_exact`` says
     the composite form is exact on a whole image and where it says a border
-    band needs the two-stage form are both counted. A scale whose footprint
-    of x does not fit the residual kernel's shared memory (16 in float32, 11
-    in float64, at 3x3) must be refused before a launch."""
+    band needs the two-stage form are both counted. Scales and blurs past
+    the residual kernel's staging and the composite table: see
+    :func:`_check_direct_sweep`."""
     tol = TOLERANCE[dtype]
     rng = np.random.default_rng(700)
     even = rng.random((4, 4))
@@ -784,24 +897,101 @@ def _check_composite_sweep(device, dtype):
         held((x, y, torch.as_tensor(sh, device=device), kern, scale),
              dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True), f"spectral halo s={scale}")
     check(exact[True] > 0 and exact[False] > 0, f"the sweep missed one of the composite's cases: {exact}")
-    too_large = 16 if dtype == torch.float32 else 11
-    x, y, sh, kern, _ = _kernel_problem(1, (too_large, 2 * too_large), too_large, shift_sets["fractional"],
-                                        blurs["3x3"], 750, device, dtype)
-    before = sum(degrade.launch_counts.values())
-    try:
-        degrade.fused_objective(x, y, torch.as_tensor(sh, device=device), kern, too_large)
-        refused = ""
-    except ValueError as err:
-        refused = str(err)
-    check(f"holds scales up to {too_large - 1}; got {too_large}" in refused
-          and sum(degrade.launch_counts.values()) == before,
-          f"s = {too_large} in {dtype} was not refused before a launch: {refused!r}")
     log(f"[3/8] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
         f"fractional / wide shifts x 2 whole images x data/TV/3D TV, bit-equal when launched twice; 66 and 30 frames; "
         f"3 scales x 5 shard tiles x blur 3x3/5x5/none x fractional / wide shifts x 2 masks x 3 modes; spectral halo "
         f"at s 2/3/4) agree with the plain version in {dtype} (tol {tol:g}); composite exact on {exact[True]} of the "
-        f"whole-image cases, a border band needing the two-stage form on {exact[False]}; s = {too_large} refused "
-        f"before a launch")
+        f"whole-image cases, a border band needing the two-stage form on {exact[False]}")
+    return worst
+
+
+def direct_scale(dtype):
+    """The least scale whose footprint of x does not fit the residual kernel's
+    shared memory at a 3x3 blur: 16 in float32, 11 in float64."""
+    return 16 if dtype == torch.float32 else 11
+
+
+def _check_direct_sweep(device, dtype):
+    """The residual and gradient kernels past the staged and tabled
+    instantiations, against the plain version: s = 16 (float32) / 11
+    (float64) at 3x3, where the residual kernel takes its DIRECT
+    instantiation; a 33x33 blur at s = 2 and 4, past the composite table,
+    where both do; a 31x31 blur at s = 2, which still fits the table. All four
+    modes, integer, fractional and +-9 px shifts on whole images that are no
+    multiple of any block tile (each launched twice for the same bits), and
+    shard tiles (two corners and the centre of a 3x3 tiling, owned and
+    default mask) with fractional and +-9 px shifts. Which instantiation each
+    case takes is checked too."""
+    tol = TOLERANCE[dtype]
+    big = direct_scale(dtype)
+    shift_sets = {
+        "integer": [(0, 0), (1, 1), (0, -1), (-2, 1)],
+        "fractional": [(0, 0), (1.25, -0.5), (-2.0, 3.0), (-0.75, -1.375)],
+        "wide": [(0, 0), (9.0, 9.0), (-9.0, -8.5), (4.5, -8.25)],
+    }
+    # (scale, blur, whole image, tiled image, residual DIRECT, gradient DIRECT)
+    cases = [
+        (big, gaussian_kernel_2d(3, 1.0), (5 * big, 7 * big), (9 * big, 12 * big), True, False),
+        (2, gaussian_kernel_2d(33, 5.0), (70, 98), (96, 120), True, True),   # tiles at least the halo (26-28)
+        (4, gaussian_kernel_2d(33, 5.0), (72, 100), (96, 120), True, True),
+        (2, gaussian_kernel_2d(31, 5.0), (70, 98), (96, 120), False, False),
+    ]
+    modes = degrade.KERNEL_NAMES
+    worst, launches = 0.0, 0
+
+    def held(args, kw, what, twice=False):
+        nonlocal worst, launches
+        out = degrade.fused_objective(*args, **kw)
+        if twice:
+            again = degrade.fused_objective(*args, **kw)
+            check(float(out[0]) == float(again[0]) and torch.equal(out[1], again[1]),
+                  f"direct sweep {dtype} {what}: two launches gave different bits")
+        host = tuple(a.cpu().numpy() if i == 2 else a for i, a in enumerate(args))
+        cost_err, grad_err, abs_err = _errors(out, degrade.fused_objective_reference(*host, **kw))
+        launches += 1
+        worst = max(worst, abs_err)
+        check(cost_err <= tol and grad_err <= tol,
+              f"direct sweep {dtype} {what}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
+
+    for n, (scale, kern, whole, tiled, residual_direct, gradient_direct) in enumerate(cases):
+        size = f"{kern.shape[0]}x{kern.shape[1]}"
+        taken = (degrade.takes_direct("sr_residual_kernel", scale, kern.shape, dtype),
+                 degrade.takes_direct("sr_gradient_kernel", scale, kern.shape, dtype))
+        check(taken == (residual_direct, gradient_direct),
+              f"s={scale} blur {size} {dtype}: DIRECT instantiations (residual, gradient) {taken}, expected "
+              f"{(residual_direct, gradient_direct)}")
+        for set_name, shifts in shift_sets.items():
+            x, y, sh, _, constants = _kernel_problem(2, whole, scale, shifts, kern, 760 + n, device, dtype)
+            sh_dev = torch.as_tensor(sh, device=device)
+            for mode in modes:
+                held((x, y, sh_dev, kern, scale), _mode_kwargs(mode, constants),
+                     f"{mode} s={scale} blur {size} {set_name} shifts whole {whole}", twice=True)
+        mesh = make_mesh({"row": 3, "col": 3}, devices=[device])
+        th, tw = tiled[0] // 3, tiled[1] // 3
+        for set_name in ("fractional", "wide"):
+            x, y, sh, _, _ = _kernel_problem(2, tiled, scale, shift_sets[set_name], kern, 770 + n, device, dtype)
+            q = _halo_width(sh, kern, scale, 3)
+            ql = q // scale
+            tiles = collectives.halo_gather(mesh, Sharded.from_global(mesh, x, {"row": 1, "col": 2}).parts, q)
+            lows = Sharded.from_global(mesh, y, {"row": 2, "col": 3}).parts
+            owned = torch.zeros((th + 2 * q) // scale, (tw + 2 * q) // scale, dtype=dtype, device=device)
+            owned[ql: ql + th // scale, ql: ql + tw // scale] = 1.0
+            rng = np.random.default_rng(780 + n)
+            for shard, mask in ((0, owned), (4, None), (8, owned)):
+                coords = mesh.coords(shard)
+                xt = tiles[shard].contiguous()
+                yt = torch.nn.functional.pad(lows[shard], (ql, ql, ql, ql)).contiguous()
+                constants = torch.as_tensor(rng.random(tuple(xt.shape)) * 0.02, dtype=dtype, device=device)
+                for mode in modes:
+                    kw = dict(_mode_kwargs(mode, constants), data_mask_lr=mask,
+                              origin=(coords["row"] * th - q, coords["col"] * tw - q), global_hw=tiled)
+                    held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
+                         f"{mode} s={scale} blur {size} {set_name} shifts tile {coords} "
+                         f"{'owned' if mask is not None else 'default'} mask")
+    log(f"[3/8] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
+        f"at s 2 -- the table; integer / fractional / wide shifts x whole images x {len(modes)} modes, bit-equal when "
+        f"launched twice; 3 shard tiles x fractional / wide shifts x {len(modes)} modes) agree with the plain version "
+        f"in {dtype} (tol {tol:g})")
     return worst
 
 
@@ -914,10 +1104,11 @@ def phase_kernels(device):
         _check_assembled(device, dtype)
         btv_worst = _check_btv_sweep(device, dtype)
         composite_worst = _check_composite_sweep(device, dtype)
+        direct_worst = _check_direct_sweep(device, dtype)
         if dtype == torch.float32:
-            worst["data_term_btv"] = max(worst["data_term_btv"], btv_worst)
+            worst["data_term_btv"] = max(worst["data_term_btv"], btv_worst, direct_worst)
             for mode in ("data_term", "data_term_tv", "data_term_tv3d"):
-                worst[mode] = max(worst[mode], composite_worst)
+                worst[mode] = max(worst[mode], composite_worst, direct_worst)
     attributes = _check_kernel_attributes()
     tap_difference = _float32_tap_difference(device)
     log(f"[3/8] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
@@ -937,6 +1128,17 @@ def phase_kernels(device):
             time_row_at_path_shape(tv_tile, device, flush)
             row["flagship_tile_tv"] = {key: tv_tile[key] for key in (
                 "shape", "ms", "ms_cold_l2", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "per_kernel")}
+        if row["name"] == "data_term_tv":
+            # The DIRECT instantiations at full width, on the flagship's mode: a
+            # 33x33 blur (residual and gradient), and s = 16 (the residual).
+            row["fallbacks"] = []
+            for label, hw, scale, kern in (("33x33 blur", (1000, 1000), 4, gauss(33, 5.0)),
+                                           ("s=16", (1024, 1024), 16, gauss(3, 1.5))):
+                fallback = dict(row, row=f"K2 DIRECT {label}")
+                _time_row(fallback, 1, hw, scale, FLAGSHIP_SHIFTS, kern, device, flush)
+                row["fallbacks"].append({key: fallback[key] for key in (
+                    "row", "shape", "ms", "ms_cold_l2", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                    "per_kernel", "fold")})
         if row["name"] == "channel_grid":
             # 4 M values and tens of thousands of per-block partials: the
             # float32 kernels' cost against the float64 plain version.
@@ -1167,7 +1369,35 @@ def phase_main_path(device, rows):
         f"PSNR differs {psnr_diff:.4f} dB (tol 0.05)")
     check(objective_diff <= 5e-2 and psnr_diff <= 0.05,
           f"full-length kernel and plain solves end apart: objective {objective_diff}, PSNR {psnr_diff} dB")
+    results["blur33"] = large_blur_solve(gt, device)
     return results
+
+
+def large_blur_solve(gt_np, device, rounds=2, iterations=10):
+    """The flagship with a 33x33 Gaussian blur (sigma 5), past the composite
+    table: a TV solve through the kernels' DIRECT instantiations beside the
+    same solve through the plain version on the card. The L1 objective may
+    not rise across a round, and the two solves must end within 5e-2 of each
+    other in it (relative)."""
+    dtype = torch.float32
+    solves = {}
+    for cls in (sr.IRLSMapSolver, PlainObjectiveSolver):
+        model, gt, lows = make_observations(gt_np, FLAGSHIP_SHIFTS, 4, 33, 5.0, device, dtype)
+        solver = cls(fixed_iterations(iterations, rounds), model, lows, device=device, dtype=dtype)
+        solver.add_regularizer(TotalVariationRegularizer(), 0.01)
+        nearest = lows[0].repeat_interleave(4, dim=-2).repeat_interleave(4, dim=-1)
+        solves[cls] = run_solve("data_term_tv", solver, nearest, gt, 0.01)
+    ours, plain = solves[sr.IRLSMapSolver], solves[PlainObjectiveSolver]
+    check(degrade.takes_direct("sr_gradient_kernel", 4, (33, 33), dtype), "the 33x33 solve missed the DIRECT kernels")
+    objective_diff = abs(ours["objectives"][-1] - plain["objectives"][-1]) / abs(plain["objectives"][-1])
+    log(f"      {gt_np.shape[-2]}x{gt_np.shape[-1]} TV solve with a 33x33 blur (DIRECT instantiations): "
+        f"{ours['iterations']} iterations, {ours['launches']} launches = evaluations, {ours['seconds']:.3f} s "
+        f"(plain version {plain['seconds']:.3f} s); PSNR {ours['psnr']:.2f} dB (plain {plain['psnr']:.2f}, nearest "
+        f"{ours['psnr_start']:.2f}); L1 objective {[float(f'{o:.7g}') for o in ours['objectives']]}, "
+        f"the plain solve's final one {objective_diff:.2e} relative apart (tol 5e-2)")
+    check_objective_never_rises("33x33 blur", ours["objectives"])
+    check(objective_diff <= 5e-2, f"33x33 blur: kernel and plain solves end {objective_diff} apart in objective")
+    return ours
 
 
 # ----------------------------------------------------------------- estimated motion

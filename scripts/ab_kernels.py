@@ -6,10 +6,11 @@
 Imports ``super_resolution_tpu_torch`` from ``DIR`` (default: this checkout;
 its kernels are built first if they are not) and, float32, for every row of
 chip_smoke.py's ``kernels`` line at the shape its path gives it (and K7a's
-other half, the flagship TV tile), times one evaluation -- residual,
-gradient and reduce launches -- back to back behind a spin kernel, and each
-hand-written kernel alone from one ``torch.profiler`` window. Prints one JSON
-line and appends it to ``FILE`` if given. To compare two trees, run them in
+other half, the flagship TV tile), times one evaluation -- every launch it
+makes -- back to back behind a spin kernel, and each hand-written kernel
+alone from one ``torch.profiler`` window, and records the cost's bits (the
+same inputs on both trees: equal bits mean the same summation order).
+Prints one JSON line and appends it to ``FILE`` if given. To compare two trees, run them in
 turns on the same card (A, B, B, A), one process each; chip_smoke.py's own
 helpers (shapes, data, timing) are used for both.
 
@@ -53,6 +54,8 @@ def main():
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)  # finds the package imported above
+    # A tree from before the cost was folded into the gradient launch launches a reduction kernel as well.
+    cs.HAND_KERNELS = cs.HAND_KERNELS + ("sr_reduce_kernel",)
 
     device = torch.device("cuda", 0)
     built = build.build()
@@ -75,10 +78,12 @@ def main():
         run = lambda: degrade.fused_objective(x, y, sh_dev, kern_dev, scale, **kw)
         ms = cs._time_launches(run, device, 200)
         per_kernel = {name: info["us"] for name, info in cs._kernel_times(run, device).items()}
+        cost_bits = float(run()[0]).hex()
         out.append({"row": row["row"], "mode": row["mode"], "ms": ms, "per_kernel_us": per_kernel,
-                    "shape": f"C={c} HR={hw[0]}x{hw[1]} K={len(shifts)} s={scale}"})
+                    "cost": cost_bits, "shape": f"C={c} HR={hw[0]}x{hw[1]} K={len(shifts)} s={scale}"})
         print(f"{args.label or root}: {row['row']:22s} {ms:.4f} ms  "
-              + "  ".join(f"{name} {us:.2f} us" for name, us in per_kernel.items()), flush=True)
+              + "  ".join(f"{name} {us:.2f} us" for name, us in per_kernel.items()) + f"  cost {cost_bits}",
+              flush=True)
     report = {"label": args.label or root, "card": card, "build_seconds": built["degrade"]["seconds"], "rows": out}
     print(json.dumps(report), flush=True)
     if args.out:

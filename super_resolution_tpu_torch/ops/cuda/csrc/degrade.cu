@@ -54,8 +54,10 @@
 //
 // Everything is in gather form: each thread owns its output elements and
 // reads whatever it needs. No float atomics, so results are identical from
-// run to run. Cost partials are accumulated in double, one per block, and
-// summed in block order by a one-block kernel.
+// run to run. Cost partials are accumulated in double, one per block; the
+// block of the gradient launch that starts last (tickets from an integer
+// counter in the partials' buffer tell it) sums them in a fixed order
+// (fold_cost), so an evaluation is two launches.
 //
 // Semantics that must not be "simplified" (each mirrors the reference):
 //  * the warp output is zero outside the image BEFORE the blur reads it, and
@@ -100,10 +102,12 @@ constexpr int BTV_TW = 32;
 static_assert(BTV_TH % BY == 0 && BTV_TW % BX == 0, "the BTV tile must be whole thread blocks");
 static_assert(BTV_TW >= MAX_BTV_RANGE && BTV_TH >= MAX_BTV_RANGE, "the BTV tile must cover the largest range");
 constexpr int FRAME_CHUNK = 32;  // frames whose bilinear taps a BTV block stages at a time
-constexpr int REDUCE_THREADS = 1024;
+// The cost's summation order (fold_cost): COST_SLOTS strided slots, then a tree.
+constexpr int COST_SLOTS = 1024;
 // Composite tap tables of the residual and gradient kernels: a block holds
 // those of up to COMPOSITE_FRAMES frames at a time, (kh+1)(kw+1) values each,
-// in a table of TAP_TABLE values; a blur larger than 31 x 31 is refused.
+// in a table of TAP_TABLE values; a larger blur (past 31 x 31) takes the
+// DIRECT instantiations, which need no table.
 constexpr int COMPOSITE_FRAMES = 64;
 constexpr int TAP_TABLE = 1024;
 // Rows and columns by which the residual kernel's staged rectangle of x may
@@ -184,6 +188,127 @@ __device__ __forceinline__ int linear_block() {
   return (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
 }
 
+// The cost of one evaluation, cost = data_scale * sum(data partials) +
+// sum(reg partials), folded into the gradient launch. Each block of it takes
+// a ticket from `counter` (zeroed by the residual launch) as it starts
+// (take_ticket as it stages its first inputs, claim_fold before the barrier
+// after them, so that the atomic's latency hides behind those loads); the
+// block that starts last sums all partials at its end (fold_cost). No block waits for
+// another to count, and none fences: the residual launch fills the slots of
+// the regulariser partials with PARTIAL_PENDING, and the folding block reads
+// each slot past L1 until a partial has replaced it -- every block that
+// writes one has started, so it is resident and finishes. The order is
+// fixed and independent of which block folds: slot t of COST_SLOTS sums
+// partials t, t + COST_SLOTS, ... in index order (data and reg apart), then
+// a tree adds slot t + stride into slot t for stride = COST_SLOTS / 2 .. 1
+// (the first two levels in registers, the next three in `scratch`, the last
+// five across a warp), and cost = fma(data_scale, data, reg) rounded once to
+// T. `scratch` is 2 NT doubles of the block's shared memory that no thread
+// reads any more.
+constexpr unsigned long long PARTIAL_PENDING = 0x7ff4dead5e171e1dull;  // a signalling NaN no sum produces
+
+// Thread 0's ticket; 0 in the other threads.
+__device__ __forceinline__ unsigned take_ticket(unsigned* counter) {
+  return threadIdx.x == 0 && threadIdx.y == 0 ? atomicAdd(counter, 1u) : 0u;
+}
+
+// Thread 0 records whether its block started last; every thread reads
+// `fold_here` after the block's next barrier.
+__device__ __forceinline__ void claim_fold(unsigned ticket, unsigned& fold_here) {
+  if (threadIdx.x == 0 && threadIdx.y == 0) fold_here = ticket == gridDim.x * gridDim.y * gridDim.z - 1;
+}
+
+// Called by every thread of the block that claimed the fold, after the
+// block's own partial is written.
+template <typename T>
+__device__ __forceinline__ void fold_cost(const double* partials, int n_data, int n_reg, double data_scale,
+                                          T* cost, double* scratch) {
+  static_assert(COST_SLOTS == 4 * NT, "each thread folds four slots");
+  const int tid = threadIdx.y * BX + threadIdx.x;
+  // The regulariser partials are read as volatile (past L1, and again until they have arrived).
+  const volatile unsigned long long* reg = reinterpret_cast<const volatile unsigned long long*>(partials + n_data);
+  auto data_at = [&](int i) { return i < n_data ? __ldcg(partials + i) : 0.0; };
+  auto reg_bits = [&](int i) { return i < n_reg ? reg[i] : 0ull; };
+  auto arrived = [&](unsigned long long bits, int i) {  // NaN if a partial never came (a fault, not a wait)
+    for (int tries = 0; bits == PARTIAL_PENDING && tries < (1 << 24); ++tries) bits = reg[i];
+    return bits == PARTIAL_PENDING ? __longlong_as_double(0x7ff8000000000000ll) : __longlong_as_double((long long)bits);
+  };
+  // Slot tid + q NT adds partial base + q NT for base = tid, tid + COST_SLOTS,
+  // ...; two such rounds per pass, all eight loads in flight before the first
+  // is used. The data partials first, folded to one value (the strides 2 NT
+  // and NT), then the regulariser's.
+  double d0 = 0.0, d1 = 0.0, d2 = 0.0, d3 = 0.0;
+  for (int base = tid; base < n_data; base += 2 * COST_SLOTS) {
+    const int next = base + COST_SLOTS;
+    const double a0 = data_at(base), a1 = data_at(base + NT), a2 = data_at(base + 2 * NT), a3 = data_at(base + 3 * NT);
+    const double c0 = data_at(next), c1 = data_at(next + NT), c2 = data_at(next + 2 * NT), c3 = data_at(next + 3 * NT);
+    d0 += a0;
+    if (base + NT < n_data) d1 += a1;
+    if (base + 2 * NT < n_data) d2 += a2;
+    if (base + 3 * NT < n_data) d3 += a3;
+    if (next < n_data) d0 += c0;
+    if (next + NT < n_data) d1 += c1;
+    if (next + 2 * NT < n_data) d2 += c2;
+    if (next + 3 * NT < n_data) d3 += c3;
+  }
+  d0 += d2;  // stride 2 NT: slot t (and t + NT) += slot t + 2 NT (t + 3 NT)
+  d1 += d3;
+  d0 += d1;  // stride NT
+  double g0 = 0.0, g1 = 0.0, g2 = 0.0, g3 = 0.0;
+  for (int base = tid; base < n_reg; base += 2 * COST_SLOTS) {
+    const int next = base + COST_SLOTS;
+    const unsigned long long r0 = reg_bits(base), r1 = reg_bits(base + NT), r2 = reg_bits(base + 2 * NT),
+                             r3 = reg_bits(base + 3 * NT), s0 = reg_bits(next), s1 = reg_bits(next + NT),
+                             s2 = reg_bits(next + 2 * NT), s3 = reg_bits(next + 3 * NT);
+    g0 += arrived(r0, base);
+    if (base + NT < n_reg) g1 += arrived(r1, base + NT);
+    if (base + 2 * NT < n_reg) g2 += arrived(r2, base + 2 * NT);
+    if (base + 3 * NT < n_reg) g3 += arrived(r3, base + 3 * NT);
+    if (next < n_reg) g0 += arrived(s0, next);
+    if (next + NT < n_reg) g1 += arrived(s1, next + NT);
+    if (next + 2 * NT < n_reg) g2 += arrived(s2, next + 2 * NT);
+    if (next + 3 * NT < n_reg) g3 += arrived(s3, next + 3 * NT);
+  }
+  g0 += g2;
+  g1 += g3;
+  g0 += g1;
+  double* sd = scratch;
+  double* sg = scratch + NT;
+  __syncthreads();  // the scratch is read no more by the block's own work
+  sd[tid] = d0;
+  sg[tid] = g0;
+  __syncthreads();
+  for (int stride = NT / 2; stride >= 32; stride >>= 1) {
+    if (tid < stride) {
+      sd[tid] += sd[tid + stride];
+      sg[tid] += sg[tid + stride];
+    }
+    __syncthreads();
+  }
+  if (tid < 32) {
+    double a = sd[tid], b = sg[tid];
+    for (int o = 16; o > 0; o >>= 1) {
+      a += __shfl_down_sync(0xffffffffu, a, o);
+      b += __shfl_down_sync(0xffffffffu, b, o);
+    }
+    if (tid == 0) *cost = (T)__fma_rn(data_scale, a, b);
+  }
+}
+
+// The end of a block of the residual launch: its partial; block 0 zeroes
+// the gradient launch's ticket counter, and the slots of the gradient
+// launch's n_reg partials are marked pending (fold_cost).
+__device__ __forceinline__ void finish_residual_block(double total, double* partials, unsigned* counter, int n_reg) {
+  const int tid = threadIdx.y * BX + threadIdx.x, lb = linear_block();
+  const int blocks = gridDim.x * gridDim.y * gridDim.z;
+  if (tid == 0) {
+    partials[lb] = total;
+    if (lb == 0) *counter = 0u;
+  }
+  unsigned long long* pending = reinterpret_cast<unsigned long long*>(partials + blocks);
+  for (int i = lb * NT + tid; i < n_reg; i += blocks * NT) pending[i] = PARTIAL_PENDING;
+}
+
 // x at (rr, cc) of one channel, rr, cc >= 0. On a tile (SHARD) zero beyond
 // the array; on a whole image the caller's border test has kept it inside.
 template <typename T, bool SHARD>
@@ -207,6 +332,21 @@ __device__ __forceinline__ void stage_rect(T* xs, const T* xc, int H, int W, con
       const bool in = col_in && rr >= 0 && rr < H && t.u0 + rr >= 0 && t.u0 + rr < t.Hg;
       xs[i * nc + j] = in ? xc[(size_t)rr * W + cl] : (T)0;
     }
+  }
+}
+
+// The bilinear taps of the warp by sign * (dx, dy) of frames k0 .. k0 + nk -
+// 1 (as warp_taps makes them), sign -1 for the adjoint.
+template <typename T, bool ADJOINT>
+__device__ __forceinline__ void stage_warp_taps(const double* shifts, int k0, int nk, T (*tab_w)[4], int* tab_iy,
+                                                int* tab_ix) {
+  const int tid = threadIdx.y * BX + threadIdx.x;
+  const double sign = ADJOINT ? -1.0 : 1.0;
+  for (int f = tid; f < nk; f += NT) {
+    T wt[4];
+    warp_taps<T>(sign * shifts[2 * (k0 + f)], sign * shifts[2 * (k0 + f) + 1], tab_iy[f], tab_ix[f], wt);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) tab_w[f][q] = wt[q];
   }
 }
 
@@ -242,12 +382,7 @@ __device__ __forceinline__ void stage_frame_tables(const double* shifts, const T
     }
     tab[e] = (T)acc;
   }
-  for (int f = tid; f < nk; f += NT) {
-    T wt[4];
-    warp_taps<T>(sign * shifts[2 * (k0 + f)], sign * shifts[2 * (k0 + f) + 1], tab_iy[f], tab_ix[f], wt);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) tab_w[f][q] = wt[q];
-  }
+  stage_warp_taps<T, ADJOINT>(shifts, k0, nk, tab_w, tab_iy, tab_ix);
 }
 
 __device__ __forceinline__ int composite_chunk(int kh, int kw) {
@@ -307,28 +442,110 @@ constexpr int gradient_min_blocks() {
 //     KB = 0 take them at run time (1.1-1.4x as long at the rows' 3 x 3,
 //     PERF.md); no array is indexed at run time.
 //  4. Each thread sums its LR value's squared residuals over the frames in
-//     double; one partial per block, summed by kernel 3 in block order.
+//     double; one partial per block, summed with the gradient launch's (fold_cost).
 // What bounds it as built (PERF.md): the latency of the block's few
 // dependent steps (shifts and tables, staging, barriers), not its bytes or
 // instructions -- at 4 resident blocks per SM; 5 were 9 % faster at s = 2
 // but made ptxas spill. Bank conflicts in the staged reads (lanes s values
 // apart) cost nothing measurable: phase-plane staging that removed them was
 // 10-17 % slower, and so was a second LR row per thread.
+//  5. DIRECT (s and the blur at run time): for a scale whose footprint of x
+//     does not fit a block's shared memory, or a blur past the tap table,
+//     every LR value takes the two-stage form from x read through the
+//     read-only path (residual_direct); nothing is staged.
+// Each block ends in finish_residual_block (the gradient launch's fold).
 // ---------------------------------------------------------------------------
-template <typename T, int S, int KB, bool SHARD>
+
+// z = (B M_k x) at every LR value of the thread in the two-stage form, x read
+// from device memory, for any s and blur: per blur tap inside the image, the
+// warp's four bilinear reads, zero outside the image and the array; along a
+// blur row the two columns a tap shares with the next are kept in registers,
+// so a tap costs two reads. Loops over run-time extents, no array indexed at
+// run time.
+template <typename T, bool SHARD>
+__device__ __forceinline__ void residual_direct(const T* x, const T* y, const double* shifts, const T* blur,
+                                                int kh, int kw, int K, int C, int H, int W, int s, int h, int w,
+                                                const Tile& tile, const T* mask, int halo_band, T* r,
+                                                double* partials, int n_reg, unsigned* counter) {
+  const int c = blockIdx.z;
+  const int qr = blockIdx.y * BY + threadIdx.y, qc = blockIdx.x * BX + threadIdx.x;
+  const bool live = qr < h && qc < w;
+  const bool halo = halo_band && c == C - 1;
+  bool owned = live && !halo;  // as in sr_residual_kernel
+  if (SHARD && owned && mask == nullptr) {
+    const int gr = tile.u0 / s + qr, gc = tile.v0 / s + qc;
+    owned = gr >= 0 && gr < tile.Hg / s && gc >= 0 && gc < tile.Wg / s;
+  }
+  const int pr0 = s * qr - kh / 2, pc0 = s * qc - kw / 2;  // HR position of the first blur tap
+  const T* xc = x + (size_t)c * H * W;
+  auto x_at = [&](int rr, int cc) {  // zero beyond the array and outside the image
+    bool in = rr >= 0 && rr < H && cc >= 0 && cc < W;
+    if (SHARD) in = in && tile.u0 + rr >= 0 && tile.u0 + rr < tile.Hg && tile.v0 + cc >= 0 && tile.v0 + cc < tile.Wg;
+    return in ? __ldg(xc + (size_t)rr * W + cc) : (T)0;
+  };
+  double sq = 0.0;
+  const size_t frame_stride = (size_t)C * h * w, at = ((size_t)c * h + qr) * w + qc;
+  for (int k = 0; k < K; ++k) {
+    T z = (T)0;
+    if (owned) {
+      int iy, ix;
+      T wt[4];
+      warp_taps<T>(shifts[2 * k], shifts[2 * k + 1], iy, ix, wt);
+      for (int i = 0; i < kh; ++i) {
+        const int pr = pr0 + i;
+        if (tile.u0 + pr < 0 || tile.u0 + pr >= tile.Hg) continue;  // warp output is zero outside the image
+        // Tap (a, b) of the warp at (pr, pc) reads x(pr - iy - a, pc - ix - b).
+        const int rr = pr - iy, cc = pc0 - ix;
+        T left0 = x_at(rr, cc - 1), left1 = x_at(rr - 1, cc - 1);
+        for (int j = 0; j < kw; ++j) {
+          const T cur0 = x_at(rr, cc + j), cur1 = x_at(rr - 1, cc + j);
+          const int gpc = tile.v0 + pc0 + j;
+          if (gpc >= 0 && gpc < tile.Wg) {
+            T val = (T)0;
+            val += wt[0] * cur0;
+            val += wt[1] * left0;
+            val += wt[2] * cur1;
+            val += wt[3] * left1;
+            z += (blur ? __ldg(blur + i * kw + j) : (T)1) * val;
+          }
+          left0 = cur0;
+          left1 = cur1;
+        }
+      }
+    }
+    if (live) {  // r_k = mask (z - y_k), its square into the cost
+      T res = (T)0;
+      if (owned) {
+        res = z - y[k * frame_stride + at];
+        if (SHARD && mask != nullptr) res *= mask[(size_t)qr * w + qc];
+      }
+      r[k * frame_stride + at] = res;
+      sq += (double)res * (double)res;
+    }
+  }
+  finish_residual_block(block_sum(sq), partials, counter, n_reg);
+}
+
+template <typename T, int S, int KB, bool SHARD, bool DIRECT>
 __global__ void __launch_bounds__(NT, (composite_min_blocks<T, KB>())) sr_residual_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const double* __restrict__ shifts, const T* __restrict__ blur, int kh_arg, int kw_arg,
     int K, int C, int H, int W, int s_arg, int h, int w,
     Tile where, const T* __restrict__ mask, int halo_band, int capacity,
-    T* __restrict__ r, double* __restrict__ partials) {
+    T* __restrict__ r, double* __restrict__ partials, int n_reg, unsigned* __restrict__ counter) {
+  static_assert(!DIRECT || (S == 0 && KB == 0), "the DIRECT instantiation takes s and the blur at run time");
   extern __shared__ __align__(16) unsigned char staged_bytes[];
   T* xs = reinterpret_cast<T*>(staged_bytes);  // `capacity` values
-  __shared__ T tab_c[TAP_TABLE];
-  __shared__ T tab_w[COMPOSITE_FRAMES][4];
-  __shared__ int tab_iy[COMPOSITE_FRAMES], tab_ix[COMPOSITE_FRAMES];
+  __shared__ T tab_c[DIRECT ? 1 : TAP_TABLE];
+  __shared__ T tab_w[DIRECT ? 1 : COMPOSITE_FRAMES][4];
+  __shared__ int tab_iy[DIRECT ? 1 : COMPOSITE_FRAMES], tab_ix[DIRECT ? 1 : COMPOSITE_FRAMES];
   __shared__ int span[4];  // least and largest floor(dy), least and largest floor(dx)
 
+  if constexpr (DIRECT) {
+    residual_direct<T, SHARD>(x, y, shifts, blur, kh_arg, kw_arg, K, C, H, W, s_arg, h, w,
+                              SHARD ? where : Tile{0, 0, H, W}, mask, halo_band, r, partials, n_reg, counter);
+    return;
+  }
   const int s = S > 0 ? S : s_arg;
   const int kh = KB > 0 ? KB : kh_arg, kw = KB > 0 ? KB : kw_arg;
   const int ar = kh / 2, ac = kw / 2;
@@ -458,8 +675,7 @@ __global__ void __launch_bounds__(NT, (composite_min_blocks<T, KB>())) sr_residu
       for (int kk = 0; kk < nk; ++kk) put(k0 + kk, owned ? two_stage(kk) : (T)0, y_of(k0 + kk));
     }
   }
-  const double total = block_sum(sq);
-  if (tid == 0) partials[linear_block()] = total;
+  finish_residual_block(block_sum(sq), partials, counter, n_reg);
 }
 
 // g1(pr, pc) = (B^T D^T r_k)(pr, pc): zero outside the image (global
@@ -541,19 +757,30 @@ __device__ __forceinline__ T tv_weight(T cq, T dx, T dy, T dz) {
 // What bounds it as built (PERF.md): latency, about 37 us per frame at 64 x
 // 256 x 256, s = 2, the same whether r is read through L1 or from windows
 // staged in shared memory; not bytes (20 us for all of it) nor issue.
+//  5. DIRECT (s and the blur at run time): for a blur past the tap table,
+//     every pixel takes the two-stage form (the border band's path), which
+//     reads the blur from device memory and walks only the kernel^T taps
+//     that land on an LR sample, ceil(kw / s) x ceil(kh / s) per bilinear tap.
+//  6. Every block takes a ticket as it starts; the one that starts last
+//     sums the evaluation's cost at its end (fold_cost), its scratch the
+//     composite table.
 // ---------------------------------------------------------------------------
-template <typename T, int MODE, int S, int KB, bool SHARD>
+template <typename T, int MODE, int S, int KB, bool SHARD, bool DIRECT>
 __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_gradient_kernel(
     const T* __restrict__ x, const T* __restrict__ r,
     const double* __restrict__ shifts, const T* __restrict__ blur, int kh_arg, int kw_arg,
     int K, int C, int H, int W, int s_arg, int h, int w, Tile where,
-    const T* __restrict__ constants, T* __restrict__ grad, double* __restrict__ partials) {
+    const T* __restrict__ constants, T* __restrict__ grad, double* __restrict__ partials, int n_data,
+    unsigned* __restrict__ counter, T* __restrict__ cost) {
+  static_assert(!DIRECT || (S == 0 && KB == 0), "the DIRECT instantiation takes s and the blur at run time");
+  __shared__ unsigned fold_here;
   constexpr bool TV = MODE == MODE_TV || MODE == MODE_TV3D;
   constexpr bool TV3D = MODE == MODE_TV3D;
   // LR samples per axis a pixel meets in the composite when s and the blur
   // are compile-time (square blur KB x KB): ceil((KB + 1) / S); else 0.
   constexpr int NM = (S > 0 && KB > 0) ? (KB + S) / S : 0;
-  __shared__ T tab_a[TAP_TABLE];
+  __shared__ __align__(8) T tab_a[TAP_TABLE];  // also the cost's scratch (fold_cost)
+  static_assert(sizeof(T) * TAP_TABLE >= 2 * NT * sizeof(double), "the composite table holds the cost's scratch");
   __shared__ T tab_w[COMPOSITE_FRAMES][4];
   __shared__ int tab_iy[COMPOSITE_FRAMES], tab_ix[COMPOSITE_FRAMES];
   // The TV term's inputs, staged in one pass: x over the tile and one row
@@ -602,7 +829,7 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
     }
   }
 
-  const int chunk = composite_chunk(kh, kw), E = (kh + 1) * (kw + 1);
+  const int chunk = DIRECT ? COMPOSITE_FRAMES : composite_chunk(kh, kw), E = (kh + 1) * (kw + 1);
   // 1. 2 s^2 sum_k M_k^T B^T D^T r_k. The composite at pixel (u, v) for
   //    frame k (tables at kk): the LR rows it reaches are (oy + m) / s, m in
   //    [0, kw], where a multiple of s -- exactly NM of them when s and the
@@ -641,7 +868,15 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
   for (int k0 = 0; k0 < K; k0 += chunk) {
     const int nk = K - k0 < chunk ? K - k0 : chunk;
     __syncthreads();  // the previous chunk's tables are read no more
-    stage_frame_tables<T, true>(shifts, blur, kh, kw, k0, nk, tab_a, tab_w, tab_iy, tab_ix);
+    // The ticket is taken here, not at the start: held across the TV
+    // staging it made ptxas spill (float 3D TV at s = 2).
+    const unsigned ticket = k0 == 0 ? take_ticket(counter) : 0u;
+    if constexpr (DIRECT) {
+      stage_warp_taps<T, true>(shifts, k0, nk, tab_w, tab_iy, tab_ix);
+    } else {
+      stage_frame_tables<T, true>(shifts, blur, kh, kw, k0, nk, tab_a, tab_w, tab_iy, tab_ix);
+    }
+    if (k0 == 0) claim_fold(ticket, fold_here);
     __syncthreads();
     if (v >= W) continue;
     // The thread's pixels take the composite without a test when every
@@ -682,7 +917,7 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
         const int u = R0 + ty + BY * a;
         if (u >= H) continue;
         const int oy = u - iy - 1 - ar, ox = v - ix - 1 - ac;
-        bool interior = oy >= 0 && oy + kw < H && ox >= 0 && ox + kh < W;
+        bool interior = !DIRECT && oy >= 0 && oy + kw < H && ox >= 0 && ox + kh < W;
         if (SHARD) {
           interior = interior && tile.u0 + u - iy - 1 >= 0 && tile.u0 + u - iy < tile.Hg &&
                      tile.v0 + v - ix - 1 >= 0 && tile.v0 + v - ix < tile.Wg;
@@ -706,6 +941,7 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
     }
   }
   const T scale2 = (T)(2.0 * (double)s * (double)s);
+  const double data_scale = (double)s * (double)s;
 
   if constexpr (!TV) {
 #pragma unroll
@@ -713,6 +949,7 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
       const int u = R0 + ty + BY * a;
       if (u < H && v < W) grad[base + (size_t)u * W + v] = scale2 * acc[a];
     }
+    if (fold_here) fold_cost<T>(partials, n_data, 0, data_scale, cost, reinterpret_cast<double*>(tab_a));
   } else {
     // 2. The TV term from the staged inputs and the G map: G at this
     //    thread's pixels and at the margin (the row above the tile, BX + 1
@@ -774,7 +1011,11 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
       grad[base + (size_t)u * W + v] = scale2 * acc[a] + tv;
     }
     const double total = block_sum(reg_cost);
-    if (tid == 0) partials[linear_block()] = total;
+    if (tid == 0) partials[n_data + linear_block()] = total;
+    if (fold_here) {
+      fold_cost<T>(partials, n_data, gridDim.x * gridDim.y * gridDim.z, data_scale, cost,
+                   reinterpret_cast<double*>(tab_a));
+    }
   }
 }
 
@@ -820,8 +1061,10 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
 //     exist beyond the array; each thread sums its four weighted reads in the
 //     (a, b) order. s is a template parameter for s = 2 and 4 (shifts and
 //     masks); S = 0 takes s at run time, for any other s.
-//  5. Gather form: each output is written by one thread, no atomics, the cost
-//     partial per block in double, summed by kernel 3 in block order.
+//  5. Gather form: each output is written by one thread, no float atomics,
+//     the cost partial per block in double; the block that starts last sums
+//     the evaluation's cost at its end (fold_cost), its scratch the g1
+//     buffers.
 // ---------------------------------------------------------------------------
 
 // a[n] = decay^n for n <= 2 P: made in double on the host, rounded once to T.
@@ -874,10 +1117,12 @@ __device__ __forceinline__ T staged_btv_gradient(const T* xp, const T* gp, T g0,
 // block size, it sets the registers ptxas may use, 65536 / (NT x blocks),
 // and keeps it from spilling to reach a higher occupancy, which it does with
 // the block size alone (0 bytes of local memory is a requirement, see 3.).
-// Larger P and double need more registers.
+// Larger P and double need more registers. Float with P <= 3 asks for 5
+// (48 registers): under a cap of 64 the cost fold at the kernel's end made
+// ptxas take 52, one block per SM fewer, and K4 13-16 % slower (PERF.md).
 template <typename T, int P>
 constexpr int btv_min_blocks() {
-  return sizeof(T) == 8 ? (P <= 3 ? 3 : 2) : (P <= 3 ? 4 : 3);
+  return sizeof(T) == 8 ? (P <= 3 ? 3 : 2) : (P <= 3 ? 5 : 3);
 }
 
 template <typename T, int P, int S, bool SHARD>
@@ -886,7 +1131,10 @@ __global__ void __launch_bounds__(NT, (btv_min_blocks<T, P>())) sr_btv_gradient_
     const double* __restrict__ shifts, const T* __restrict__ blur, int kh, int kw,
     int K, int C, int H, int W, int s_arg, int h, int w, Tile where,
     const T* __restrict__ constants, Powers<T> pw,
-    T* __restrict__ grad, double* __restrict__ partials) {
+    T* __restrict__ grad, double* __restrict__ partials, int n_data, unsigned* __restrict__ counter,
+    T* __restrict__ cost) {
+  const unsigned ticket = take_ticket(counter);
+  __shared__ unsigned fold_here;
   constexpr int TH = BTV_TH, TW = BTV_TW, RY = TH / BY, RX = TW / BX;
   constexpr int M = P - 1;                       // up-left margin of the G map
   constexpr int XH = TH + M + P, XW = TW + M + P;  // staged x
@@ -896,7 +1144,8 @@ __global__ void __launch_bounds__(NT, (btv_min_blocks<T, P>())) sr_btv_gradient_
                 "the BTV kernel's static shared memory exceeds 48 KB");
   __shared__ T xs[XH][XW];
   __shared__ T gs[GH][GW];
-  __shared__ T g1s[2][TH + 1][TW + 1];
+  __shared__ __align__(8) T g1s[2][TH + 1][TW + 1];  // also the cost's scratch (fold_cost)
+  static_assert(sizeof(g1s) >= 2 * NT * sizeof(double), "the g1 buffers hold the cost's scratch");
   __shared__ int tap_y[FRAME_CHUNK], tap_x[FRAME_CHUNK];
   __shared__ T tap_w[FRAME_CHUNK][4];
 
@@ -928,6 +1177,7 @@ __global__ void __launch_bounds__(NT, (btv_min_blocks<T, P>())) sr_btv_gradient_
     }
   };
   stage_taps(0);
+  claim_fold(ticket, fold_here);
   __syncthreads();
 
   // 2. 2 s^2 sum_k M_k^T B^T D^T r_k, one frame at a time.
@@ -1026,35 +1276,11 @@ __global__ void __launch_bounds__(NT, (btv_min_blocks<T, P>())) sr_btv_gradient_
     }
   }
   const double total = block_sum(reg_cost);
-  if (tid == 0) partials[linear_block()] = total;
-}
-
-// ---------------------------------------------------------------------------
-// Kernel 3: cost = data_scale * sum(data partials) + sum(reg partials): the sum
-// over per-tile cost partials that the Pallas wrapper returns with its call.
-// One block; each thread sums a strided slice in index order, then a tree.
-// ---------------------------------------------------------------------------
-template <typename T>
-__global__ void __launch_bounds__(REDUCE_THREADS) sr_reduce_kernel(
-    const double* __restrict__ partials, int n_data, int n_reg, double data_scale,
-    T* __restrict__ cost) {
-  __shared__ double sh_data[REDUCE_THREADS];
-  __shared__ double sh_reg[REDUCE_THREADS];
-  const int tid = threadIdx.x;
-  double a = 0.0, b = 0.0;
-  for (int i = tid; i < n_data; i += REDUCE_THREADS) a += partials[i];
-  for (int i = tid; i < n_reg; i += REDUCE_THREADS) b += partials[n_data + i];
-  sh_data[tid] = a;
-  sh_reg[tid] = b;
-  __syncthreads();
-  for (int stride = REDUCE_THREADS / 2; stride > 0; stride >>= 1) {
-    if (tid < stride) {
-      sh_data[tid] += sh_data[tid + stride];
-      sh_reg[tid] += sh_reg[tid + stride];
-    }
-    __syncthreads();
+  if (tid == 0) partials[n_data + linear_block()] = total;
+  if (fold_here) {
+    fold_cost<T>(partials, n_data, gridDim.x * gridDim.y * gridDim.z, (double)s * (double)s, cost,
+                 reinterpret_cast<double*>(&g1s[0][0][0]));
   }
-  if (tid == 0) cost[0] = (T)(data_scale * sh_data[0] + sh_reg[0]);
 }
 
 
@@ -1066,23 +1292,25 @@ inline bool is_whole_image(const Tile& t, int H, int W) {
 
 // The residual and gradient kernels for a scale, blur and kind of array:
 // s = 2 and 4 and a 3 x 3 blur have instantiations of their own; any other
-// s, any other blur (and none) shares the run-time one.
+// s, any other blur (and none) shares the run-time one; `direct` selects
+// the DIRECT instantiation (run-time s and blur, two-stage form, no table).
 template <typename T>
 using ResidualKernel = void (*)(const T*, const T*, const double*, const T*, int, int, int, int, int,
-                                int, int, int, int, Tile, const T*, int, int, T*, double*);
+                                int, int, int, int, Tile, const T*, int, int, T*, double*, int, unsigned*);
 template <typename T>
 using GradientKernel = void (*)(const T*, const T*, const double*, const T*, int, int, int, int, int,
-                                int, int, int, int, Tile, const T*, T*, double*);
+                                int, int, int, int, Tile, const T*, T*, double*, int, unsigned*, T*);
 
 inline bool blur_3x3(int kh, int kw) { return kh == 3 && kw == 3; }
 
 template <typename T, int S, bool SHARD>
 ResidualKernel<T> residual_kernel_for_blur(int kh, int kw) {
-  return blur_3x3(kh, kw) ? sr_residual_kernel<T, S, 3, SHARD> : sr_residual_kernel<T, S, 0, SHARD>;
+  return blur_3x3(kh, kw) ? sr_residual_kernel<T, S, 3, SHARD, false> : sr_residual_kernel<T, S, 0, SHARD, false>;
 }
 
 template <typename T>
-ResidualKernel<T> residual_kernel(int s, int kh, int kw, bool shard) {
+ResidualKernel<T> residual_kernel(int s, int kh, int kw, bool shard, bool direct) {
+  if (direct) return shard ? sr_residual_kernel<T, 0, 0, true, true> : sr_residual_kernel<T, 0, 0, false, true>;
   if (shard) {
     if (s == 2) return residual_kernel_for_blur<T, 2, true>(kh, kw);
     if (s == 4) return residual_kernel_for_blur<T, 4, true>(kh, kw);
@@ -1095,12 +1323,13 @@ ResidualKernel<T> residual_kernel(int s, int kh, int kw, bool shard) {
 
 template <typename T, int MODE, int S, bool SHARD>
 GradientKernel<T> gradient_kernel_for_blur(int kh, int kw) {
-  return blur_3x3(kh, kw) ? sr_gradient_kernel<T, MODE, S, 3, SHARD>
-                          : sr_gradient_kernel<T, MODE, S, 0, SHARD>;
+  return blur_3x3(kh, kw) ? sr_gradient_kernel<T, MODE, S, 3, SHARD, false>
+                          : sr_gradient_kernel<T, MODE, S, 0, SHARD, false>;
 }
 
 template <typename T, int MODE, bool SHARD>
-GradientKernel<T> gradient_kernel_for_scale(int s, int kh, int kw) {
+GradientKernel<T> gradient_kernel_for_scale(int s, int kh, int kw, bool direct) {
+  if (direct) return sr_gradient_kernel<T, MODE, 0, 0, SHARD, true>;
   if (s == 2) return gradient_kernel_for_blur<T, MODE, 2, SHARD>(kh, kw);
   if (s == 4) return gradient_kernel_for_blur<T, MODE, 4, SHARD>(kh, kw);
   return gradient_kernel_for_blur<T, MODE, 0, SHARD>(kh, kw);
@@ -1108,17 +1337,17 @@ GradientKernel<T> gradient_kernel_for_scale(int s, int kh, int kw) {
 
 // nullptr for the BTV mode (kernel 2b) or a mode out of range.
 template <typename T>
-GradientKernel<T> gradient_kernel(int mode, int s, int kh, int kw, bool shard) {
+GradientKernel<T> gradient_kernel(int mode, int s, int kh, int kw, bool shard, bool direct) {
   switch (mode) {
     case MODE_DATA:
-      return shard ? gradient_kernel_for_scale<T, MODE_DATA, true>(s, kh, kw)
-                   : gradient_kernel_for_scale<T, MODE_DATA, false>(s, kh, kw);
+      return shard ? gradient_kernel_for_scale<T, MODE_DATA, true>(s, kh, kw, direct)
+                   : gradient_kernel_for_scale<T, MODE_DATA, false>(s, kh, kw, direct);
     case MODE_TV:
-      return shard ? gradient_kernel_for_scale<T, MODE_TV, true>(s, kh, kw)
-                   : gradient_kernel_for_scale<T, MODE_TV, false>(s, kh, kw);
+      return shard ? gradient_kernel_for_scale<T, MODE_TV, true>(s, kh, kw, direct)
+                   : gradient_kernel_for_scale<T, MODE_TV, false>(s, kh, kw, direct);
     case MODE_TV3D:
-      return shard ? gradient_kernel_for_scale<T, MODE_TV3D, true>(s, kh, kw)
-                   : gradient_kernel_for_scale<T, MODE_TV3D, false>(s, kh, kw);
+      return shard ? gradient_kernel_for_scale<T, MODE_TV3D, true>(s, kh, kw, direct)
+                   : gradient_kernel_for_scale<T, MODE_TV3D, false>(s, kh, kw, direct);
     default:
       return nullptr;
   }
@@ -1140,17 +1369,27 @@ int residual_capacity(int s, int kh, int kw) {
   return fr * fc <= room ? (int)(fr * fc) : 0;
 }
 
+inline bool blur_fits_table(int kh, int kw) { return (kh + 1) * (kw + 1) <= TAP_TABLE; }
+
+// The residual kernel takes the DIRECT instantiation where one frame's
+// footprint of x does not fit a block's shared memory or the blur does not
+// fit the composite table.
+template <typename T>
+bool residual_is_direct(int s, int kh, int kw) {
+  return !blur_fits_table(kh, kw) || residual_capacity<T>(s, kh, kw) == 0;
+}
+
 template <typename T>
 int launch_residual(const void* x, const void* y, const double* shifts, const void* blur,
                     int kh, int kw, int K, int C, int H, int W, int s, Tile tile,
-                    const void* mask, int halo_band, void* r, double* partials,
+                    const void* mask, int halo_band, void* r, double* partials, int n_reg, unsigned* counter,
                     cudaStream_t stream) {
   const int h = H / s, w = W / s;
-  const int capacity = residual_capacity<T>(s, kh, kw);
-  if (capacity == 0) return -10;
+  const bool direct = residual_is_direct<T>(s, kh, kw);
+  const int capacity = direct ? 0 : residual_capacity<T>(s, kh, kw);
   const size_t bytes = (size_t)capacity * sizeof(T);
   const bool shard = !is_whole_image(tile, H, W) || mask != nullptr;
-  const ResidualKernel<T> kernel = residual_kernel<T>(s, kh, kw, shard);
+  const ResidualKernel<T> kernel = residual_kernel<T>(s, kh, kw, shard, direct);
   if (bytes > 32 * 1024) {  // past the default limit with the static arrays
     const cudaError_t err =
         cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1159,7 +1398,7 @@ int launch_residual(const void* x, const void* y, const double* shifts, const vo
   dim3 block(BX, BY), grid(ceil_div(w, BX), ceil_div(h, BY), C);
   kernel<<<grid, block, bytes, stream>>>((const T*)x, (const T*)y, shifts, (const T*)blur, kh, kw, K, C,
                                          H, W, s, h, w, tile, (const T*)mask, halo_band, capacity,
-                                         (T*)r, partials);
+                                         (T*)r, partials, n_reg, counter);
   return (int)cudaGetLastError();
 }
 
@@ -1168,7 +1407,7 @@ int launch_residual(const void* x, const void* y, const double* shifts, const vo
 // or whole image. nullptr for a P out of range.
 template <typename T>
 using BtvKernel = void (*)(const T*, const T*, const double*, const T*, int, int, int, int, int,
-                           int, int, int, int, Tile, const T*, Powers<T>, T*, double*);
+                           int, int, int, int, Tile, const T*, Powers<T>, T*, double*, int, unsigned*, T*);
 
 template <typename T, int P, bool SHARD>
 BtvKernel<T> btv_kernel_for_scale(int s) {
@@ -1198,11 +1437,13 @@ BtvKernel<T> btv_kernel(int P, int s, bool shard) {
   return shard ? btv_kernel_for_range<T, true>(P, s) : btv_kernel_for_range<T, false>(P, s);
 }
 
+// `partials`: the residual launch's n_data partials, then room for this
+// launch's; `counter` and `cost` as in fold_cost.
 template <typename T>
 int launch_gradient(const void* x, const void* r, const double* shifts, const void* blur,
                     int kh, int kw, int K, int C, int H, int W, int s, Tile tile, int mode,
                     const void* constants, int P, double decay, void* grad,
-                    double* partials, cudaStream_t stream) {
+                    double* partials, int n_data, unsigned* counter, void* cost, cudaStream_t stream) {
   const int h = H / s, w = W / s;
   dim3 block(BX, BY);
   const bool whole = is_whole_image(tile, H, W);
@@ -1217,22 +1458,23 @@ int launch_gradient(const void* x, const void* r, const double* shifts, const vo
     const BtvKernel<T> kernel = btv_kernel<T>(P, s, !whole);
     kernel<<<grid, block, 0, stream>>>(
         (const T*)x, (const T*)r, shifts, (const T*)blur, kh, kw, K, C, H, W, s, h, w, tile,
-        (const T*)constants, pw, (T*)grad, partials);
+        (const T*)constants, pw, (T*)grad, partials, n_data, counter, (T*)cost);
     return (int)cudaGetLastError();
   }
   dim3 grid(ceil_div(W, BX), ceil_div(H, grad_tile_rows<T>()), C);
-  const GradientKernel<T> kernel = gradient_kernel<T>(mode, s, kh, kw, !whole);
+  const GradientKernel<T> kernel = gradient_kernel<T>(mode, s, kh, kw, !whole, !blur_fits_table(kh, kw));
   kernel<<<grid, block, 0, stream>>>((const T*)x, (const T*)r, shifts, (const T*)blur, kh, kw, K, C, H,
-                                     W, s, h, w, tile, (const T*)constants, (T*)grad, partials);
+                                     W, s, h, w, tile, (const T*)constants, (T*)grad, partials, n_data,
+                                     counter, (T*)cost);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-const void* kernel_function(int kernel, int mode_or_range, int s, int blur, bool shard) {
+const void* kernel_function(int kernel, int mode_or_range, int s, int blur, bool shard, bool direct) {
   switch (kernel) {
-    case 0: return (const void*)residual_kernel<T>(s, blur, blur, shard);
-    case 1: return (const void*)gradient_kernel<T>(mode_or_range, s, blur, blur, shard);
-    case 2: return (const void*)btv_kernel<T>(mode_or_range, s, shard);
+    case 0: return (const void*)residual_kernel<T>(s, blur, blur, shard, direct);
+    case 1: return (const void*)gradient_kernel<T>(mode_or_range, s, blur, blur, shard, direct);
+    case 2: return direct ? nullptr : (const void*)btv_kernel<T>(mode_or_range, s, shard);
     default: return nullptr;
   }
 }
@@ -1260,14 +1502,15 @@ int sr_gradient_blocks(int mode, int C, int H, int W, int is_double) {
 
 int sr_max_btv_range() { return MAX_BTV_RANGE; }
 
-// The largest (kh + 1) * (kw + 1) the residual and gradient kernels take.
-int sr_max_composite_taps() { return TAP_TABLE; }
-
-// Values of x the residual kernel stages per block for a scale and blur; 0
-// if not even one frame's footprint fits in a block's shared memory (the
-// launch is then refused with -10).
-int sr_residual_staging(int s, int kh, int kw, int is_double) {
-  return is_double ? residual_capacity<double>(s, kh, kw) : residual_capacity<float>(s, kh, kw);
+// 1 if a launch of `kernel` (0 = sr_residual_kernel, 1 = sr_gradient_kernel)
+// at this scale and blur takes its DIRECT instantiation: the residual where
+// one frame's footprint of x does not fit a block's shared memory or the
+// blur the composite table ((kh + 1)(kw + 1) > TAP_TABLE), the gradient where
+// the blur does not fit the table; 0 otherwise (the BTV kernel has none).
+int sr_takes_direct(int kernel, int s, int kh, int kw, int is_double) {
+  if (kernel == 0) return is_double ? residual_is_direct<double>(s, kh, kw) : residual_is_direct<float>(s, kh, kw);
+  if (kernel == 1) return !blur_fits_table(kh, kw);
+  return 0;
 }
 
 // What the compiler gave one instantiation (cudaFuncGetAttributes): `kernel`
@@ -1276,13 +1519,15 @@ int sr_residual_staging(int s, int kh, int kw, int is_double) {
 // range P); scale s (2 and 4 have instantiations of their own, any other s
 // shares one), `blur` 3 for the 3 x 3 instantiation (any other: the
 // run-time one; the BTV kernel has none), a tile (shard != 0) or whole
-// image. out = {registers per thread, local memory bytes per thread, static
-// shared memory bytes per block, max threads per block, blocks per SM}. Returns the
-// cudaError_t of cudaFuncGetAttributes, or -5 for no such instantiation.
-int sr_kernel_attributes(int kernel, int mode_or_range, int s, int blur, int shard, int is_double,
+// image; `direct` != 0: the DIRECT instantiation of kernel 0 or 1 (s and
+// blur then select nothing). out = {registers per thread, local memory bytes
+// per thread, static shared memory bytes per block, max threads per block,
+// blocks per SM}. Returns the cudaError_t of cudaFuncGetAttributes, or -5 for
+// no such instantiation.
+int sr_kernel_attributes(int kernel, int mode_or_range, int s, int blur, int shard, int direct, int is_double,
                          int* out) {
-  const void* fn = is_double ? kernel_function<double>(kernel, mode_or_range, s, blur, shard != 0)
-                             : kernel_function<float>(kernel, mode_or_range, s, blur, shard != 0);
+  const void* fn = is_double ? kernel_function<double>(kernel, mode_or_range, s, blur, shard != 0, direct != 0)
+                             : kernel_function<float>(kernel, mode_or_range, s, blur, shard != 0, direct != 0);
   if (fn == nullptr) return -5;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, fn);
@@ -1294,7 +1539,7 @@ int sr_kernel_attributes(int kernel, int mode_or_range, int s, int blur, int sha
   // Blocks an SM holds at once, as the kernels are launched (the residual
   // kernel with its staged x for this scale and blur).
   size_t dynamic = 0;
-  if (kernel == 0) {
+  if (kernel == 0 && !direct) {
     dynamic = is_double ? residual_capacity<double>(s, blur, blur) * sizeof(double)
                         : residual_capacity<float>(s, blur, blur) * sizeof(float);
     if (dynamic > 32 * 1024) cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dynamic);
@@ -1313,60 +1558,58 @@ static int check_tile(const int* tile, int s) {
   return 0;
 }
 
-// `mask`: nullable [H/s, W/s] of 0/1 in x's type, the LR pixels whose
-// residual counts. `halo_band` != 0: channel C - 1 is a read-only spectral
-// halo (needs C >= 2). Refused (-10): a blur larger than the tap table, or a
-// scale and blur whose staged rectangle of x exceeds a block's shared memory.
+// One evaluation is sr_data_residual, then sr_objective_gradient on the same
+// stream. `partials`: room for sr_residual_blocks + sr_gradient_blocks
+// doubles; `n_reg`: sr_gradient_blocks of the gradient launch to come, whose
+// slots the residual launch marks pending; `counter`: an unsigned int the
+// residual launch zeroes and the gradient launch's blocks take tickets from
+// (the wrapper puts it in a slot past the partials). `mask`: nullable
+// [H/s, W/s] of 0/1 in x's type, the LR pixels whose residual counts.
+// `halo_band` != 0: channel C - 1 is a read-only spectral halo (needs C >=
+// 2). Any s and blur.
 int sr_data_residual(const void* x, const void* y, const double* shifts, const void* blur,
                      int kh, int kw, int K, int C, int H, int W, int s, const int* tile,
-                     const void* mask, int halo_band, void* r, double* partials, int is_double,
-                     void* stream) {
+                     const void* mask, int halo_band, void* r, double* partials, int n_reg, void* counter,
+                     int is_double, void* stream) {
   if (s < 1 || H % s != 0 || W % s != 0 || kh < 1 || kw < 1 || K < 1 || C < 1) return -1;
   if (C > 65535) return -2;
-  if ((kh + 1) * (kw + 1) > TAP_TABLE) return -10;
   if (int bad = check_tile(tile, s)) return bad;
   if (halo_band && C < 2) return -9;
+  if (counter == nullptr || n_reg < 0) return -10;
   const Tile t{tile[0], tile[1], tile[2], tile[3]};
   cudaStream_t st = (cudaStream_t)stream;
+  unsigned* n = (unsigned*)counter;
   return is_double ? launch_residual<double>(x, y, shifts, blur, kh, kw, K, C, H, W, s, t, mask,
-                                             halo_band, r, partials, st)
+                                             halo_band, r, partials, n_reg, n, st)
                    : launch_residual<float>(x, y, shifts, blur, kh, kw, K, C, H, W, s, t, mask,
-                                            halo_band, r, partials, st);
+                                            halo_band, r, partials, n_reg, n, st);
 }
 
+// The gradient into `grad` and, from its last block, the cost (0-d, x's
+// type) into `cost`: data_scale = s^2 times the residual's partials plus
+// this launch's, in fold_cost's order.
 int sr_objective_gradient(const void* x, const void* r, const double* shifts, const void* blur,
                           int kh, int kw, int K, int C, int H, int W, int s, const int* tile,
                           int mode, const void* constants, int btv_range, double btv_decay,
-                          void* grad, double* reg_partials, int is_double, void* stream) {
+                          void* grad, double* partials, void* counter, void* cost, int is_double,
+                          void* stream) {
   if (s < 1 || H % s != 0 || W % s != 0 || kh < 1 || kw < 1 || K < 1 || C < 1) return -1;
   if (C > 65535) return -2;
   if (mode < MODE_DATA || mode > MODE_TV3D) return -3;
   if (mode != MODE_DATA && constants == nullptr) return -4;
   if (mode == MODE_BTV && (btv_range < 1 || btv_range > MAX_BTV_RANGE)) return -5;
-  if (mode != MODE_BTV && (kh + 1) * (kw + 1) > TAP_TABLE) return -10;
   if (int bad = check_tile(tile, s)) return bad;
+  if (counter == nullptr || cost == nullptr) return -10;
   const Tile t{tile[0], tile[1], tile[2], tile[3]};
   cudaStream_t st = (cudaStream_t)stream;
+  const int n_data = sr_residual_blocks(C, H, W, s);
+  unsigned* n = (unsigned*)counter;
   return is_double ? launch_gradient<double>(x, r, shifts, blur, kh, kw, K, C, H, W, s, t, mode,
-                                             constants, btv_range, btv_decay, grad,
-                                             reg_partials, st)
+                                             constants, btv_range, btv_decay, grad, partials, n_data, n,
+                                             cost, st)
                    : launch_gradient<float>(x, r, shifts, blur, kh, kw, K, C, H, W, s, t, mode,
-                                            constants, btv_range, btv_decay, grad,
-                                            reg_partials, st);
-}
-
-int sr_reduce_cost(const double* partials, int n_data, int n_reg, double data_scale, void* cost,
-                   int is_double, void* stream) {
-  if (n_data < 0 || n_reg < 0) return -1;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (is_double) {
-    sr_reduce_kernel<double><<<1, REDUCE_THREADS, 0, st>>>(partials, n_data, n_reg, data_scale,
-                                                        (double*)cost);
-  } else {
-    sr_reduce_kernel<float><<<1, REDUCE_THREADS, 0, st>>>(partials, n_data, n_reg, data_scale,
-                                                       (float*)cost);
-  }
-  return (int)cudaGetLastError();
+                                            constants, btv_range, btv_decay, grad, partials, n_data, n,
+                                            cost, st);
 }
 
 }  // extern "C"

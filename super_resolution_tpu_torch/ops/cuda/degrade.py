@@ -31,9 +31,13 @@ of ``x`` is a read-only band owned by the next band shard. Launches in these
 modes are counted in ``shard_launch_counts`` as well.
 
 :func:`fused_objective` is the wrapper. For a CUDA tensor it launches the
-kernels of ``csrc/degrade.cu`` (residual pass, gradient pass, cost reduction)
-on the current stream, without synchronising, and adds one to the launch
-count of the mode; if the kernels cannot be built or launched it raises. For
+kernels of ``csrc/degrade.cu`` (the residual pass, then the gradient pass,
+whose block that starts last sums the cost) on the current stream, without
+synchronising, and adds one to the launch count of the mode; if the kernels
+cannot be built or launched it raises. Every scale and blur the plain
+version takes is launched: where one frame's footprint of ``x`` does not fit
+a block's shared memory or the blur does not fit the composite table, the
+kernels' DIRECT instantiations take them (:func:`takes_direct`). For
 a CPU tensor it runs :func:`fused_objective_reference`, the plain version
 beside it, and counts nothing. No other condition selects the plain version.
 
@@ -74,6 +78,7 @@ __all__ = [
     "composite_taps",
     "composite_is_exact",
     "max_btv_range",
+    "takes_direct",
     "COMPUTE_KERNELS",
     "kernel_attributes",
 ]
@@ -365,16 +370,13 @@ def _library() -> ctypes.CDLL:
     lib.sr_residual_blocks.argtypes = [i] * 4
     lib.sr_gradient_blocks.argtypes = [i] * 5
     lib.sr_max_btv_range.argtypes = []
-    lib.sr_max_composite_taps.argtypes = []
-    lib.sr_residual_staging.argtypes = [i] * 4
+    lib.sr_takes_direct.argtypes = [i] * 5
     ints = ctypes.POINTER(ctypes.c_int)
-    lib.sr_kernel_attributes.argtypes = [i] * 6 + [ints]
-    lib.sr_data_residual.argtypes = [p, p, p, p] + [i] * 7 + [ints, p, i, p, p, i, p]
-    lib.sr_objective_gradient.argtypes = [p, p, p, p] + [i] * 7 + [ints, i, p, i, d, p, p, i, p]
-    lib.sr_reduce_cost.argtypes = [p, i, i, d, p, i, p]
-    for fn in (lib.sr_residual_blocks, lib.sr_gradient_blocks, lib.sr_max_btv_range, lib.sr_max_composite_taps,
-               lib.sr_residual_staging, lib.sr_kernel_attributes, lib.sr_data_residual, lib.sr_objective_gradient,
-               lib.sr_reduce_cost):
+    lib.sr_kernel_attributes.argtypes = [i] * 7 + [ints]
+    lib.sr_data_residual.argtypes = [p, p, p, p] + [i] * 7 + [ints, p, i, p, p, i, p, i, p]
+    lib.sr_objective_gradient.argtypes = [p, p, p, p] + [i] * 7 + [ints, i, p, i, d, p, p, p, p, i, p]
+    for fn in (lib.sr_residual_blocks, lib.sr_gradient_blocks, lib.sr_max_btv_range, lib.sr_takes_direct,
+               lib.sr_kernel_attributes, lib.sr_data_residual, lib.sr_objective_gradient):
         fn.restype = ctypes.c_int
     return lib
 
@@ -389,8 +391,19 @@ def max_btv_range() -> int:
 COMPUTE_KERNELS = ("sr_residual_kernel", "sr_gradient_kernel", "sr_btv_gradient_kernel")
 
 
+def takes_direct(kernel: str, scale: int, blur_shape: tuple[int, int], dtype: torch.dtype) -> bool:
+    """Whether a launch of ``kernel`` at this scale and blur (``(1, 1)`` for
+    none) takes its DIRECT instantiation, s and blur at run time and no
+    staging or composite table: the residual kernel where one frame's
+    footprint of ``x`` does not fit a block's shared memory or the blur does
+    not fit the composite table, the gradient kernel where the blur does not."""
+    kh, kw = blur_shape
+    return bool(_library().sr_takes_direct(COMPUTE_KERNELS.index(kernel), scale, kh, kw,
+                                           int(dtype == torch.float64)))
+
+
 def kernel_attributes(kernel: str, scale: int, shard: bool, dtype: torch.dtype, mode: str = "data_term",
-                      btv_range: int = 0, blur_size: int = 3) -> dict[str, int]:
+                      btv_range: int = 0, blur_size: int = 3, direct: bool = False) -> dict[str, int]:
     """What the compiler gave the instantiation of ``kernel`` (one of
     :data:`COMPUTE_KERNELS`) that serves these arguments
     (``cudaFuncGetAttributes``): registers per thread, local memory bytes per
@@ -399,11 +412,13 @@ def kernel_attributes(kernel: str, scale: int, shard: bool, dtype: torch.dtype, 
     Scales 2 and 4 have instantiations of their own and any other scale shares
     one; so do a ``blur_size`` x ``blur_size`` blur of 3 and any other blur
     (the BTV kernel has no blur instantiations). ``mode`` selects the
-    gradient kernel's mode, ``btv_range`` the BTV kernel's range."""
+    gradient kernel's mode, ``btv_range`` the BTV kernel's range; ``direct``
+    the residual or gradient kernel's DIRECT instantiation (scale and blur
+    then select nothing)."""
     which = COMPUTE_KERNELS.index(kernel)
     selector = btv_range if which == 2 else _MODE_OF[mode]
     out = (ctypes.c_int * 5)()
-    _raise_on(_library().sr_kernel_attributes(which, selector, scale, blur_size, int(shard),
+    _raise_on(_library().sr_kernel_attributes(which, selector, scale, blur_size, int(shard), int(direct),
                                                int(dtype == torch.float64), out), "sr_kernel_attributes")
     return dict(zip(("registers", "local_bytes", "shared_bytes", "max_threads", "blocks_per_sm"), out))
 
@@ -416,6 +431,8 @@ def _raise_on(code: int, what: str) -> None:
 
 def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay,
             tile, shard, data_mask_lr, spectral_halo):
+    """Cost, gradient and the cost partials (the residual launch's, then the
+    gradient launch's) of one evaluation on the kernels."""
     device, dtype = x.device, x.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"The CUDA kernels take float32 or float64, got {dtype}.")
@@ -445,21 +462,18 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
         if blur_dev.ndim != 2:
             raise ValueError(f"Blur kernel must be 2D, got shape {tuple(blur_dev.shape)}.")
         kh, kw = blur_dev.shape
-    if (kh + 1) * (kw + 1) > lib.sr_max_composite_taps():
-        raise ValueError(f"The kernels take a blur of at most {lib.sr_max_composite_taps()} values with one "
-                         f"more row and column; got {kh}x{kw}.")
     is_double = int(dtype == torch.float64)
-    if lib.sr_residual_staging(scale, kh, kw, is_double) == 0:
-        largest = max((s for s in range(1, scale) if lib.sr_residual_staging(s, kh, kw, is_double) > 0), default=0)
-        raise ValueError(f"The residual kernel stages one frame's footprint of x in a block's shared memory, which "
-                         f"with a {kh}x{kw} blur in {dtype} holds scales up to {largest}; got {scale}.")
 
-    # One cost partial per block of each kernel actually launched (none from the data mode's).
+    # One cost partial per block of each kernel actually launched (none from
+    # the data mode's), then one slot whose first 4 bytes are the gradient
+    # launch's ticket counter; the residual launch zeroes it and marks the
+    # gradient launch's slots pending.
     n_data = lib.sr_residual_blocks(c, h, w, scale)
-    n_reg = lib.sr_gradient_blocks(_MODE_OF[mode], c, h, w, int(dtype == torch.float64))
+    n_reg = lib.sr_gradient_blocks(_MODE_OF[mode], c, h, w, is_double)
     residual = torch.empty_like(y)
     grad = torch.empty_like(x)
-    partials = torch.empty(n_data + n_reg, dtype=torch.float64, device=device)
+    partials = torch.empty(n_data + n_reg + 1, dtype=torch.float64, device=device)
+    counter = partials.data_ptr() + 8 * (n_data + n_reg)
     cost = torch.empty((), dtype=dtype, device=device)
     blur_ptr = None if blur_dev is None else blur_dev.data_ptr()
     const_ptr = None if constants is None else constants.data_ptr()
@@ -471,22 +485,18 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
         _raise_on(lib.sr_data_residual(
             x.data_ptr(), y.data_ptr(), shifts_dev.data_ptr(), blur_ptr, kh, kw,
             k, c, h, w, scale, tile_arg, mask_ptr, int(spectral_halo), residual.data_ptr(),
-            partials.data_ptr(), is_double, stream,
+            partials.data_ptr(), n_reg, counter, is_double, stream,
         ), "sr_data_residual")
         _raise_on(lib.sr_objective_gradient(
             x.data_ptr(), residual.data_ptr(), shifts_dev.data_ptr(), blur_ptr, kh, kw,
             k, c, h, w, scale, tile_arg, _MODE_OF[mode], const_ptr, int(btv_range), float(btv_decay),
-            grad.data_ptr(), partials.data_ptr() + 8 * n_data, is_double, stream,
+            grad.data_ptr(), partials.data_ptr(), counter, cost.data_ptr(), is_double, stream,
         ), "sr_objective_gradient")
-        _raise_on(lib.sr_reduce_cost(
-            partials.data_ptr(), n_data, n_reg, float(scale * scale), cost.data_ptr(),
-            is_double, stream,
-        ), "sr_reduce_cost")
     launch_counts[mode] += 1
     shift_source_counts["device" if from_device else "host"] += 1
     shard_launch_counts["shard_mode"] += int(shard)
     shard_launch_counts["spectral_halo"] += int(spectral_halo)
-    return cost, grad
+    return cost, grad, partials[:-1]
 
 
 def fused_objective(
@@ -548,5 +558,6 @@ def fused_objective(
     mode = _mode_name(tv_constants, btv_constants, tv_use_3d)
     constants = tv_constants if tv_constants is not None else btv_constants
     tile = _check_problem(x, y, scale, constants, tv_use_3d=tv_use_3d, **shard_args)
-    return _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay,
-                   tile, _is_shard_mode(origin, global_hw, data_mask_lr), data_mask_lr, spectral_halo)
+    cost, grad, _ = _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay,
+                            tile, _is_shard_mode(origin, global_hw, data_mask_lr), data_mask_lr, spectral_halo)
+    return cost, grad

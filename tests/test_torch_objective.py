@@ -91,6 +91,24 @@ def test_plain_version_matches_unfused_jax(mode, c, hw, scale):
     _assert_close(_ours(*args[:4], scale, mode, args[4]), _unfused_jax(*args[:4], scale, mode, args[4]))
 
 
+# Past the CUDA kernels' staged and tabled instantiations: a scale whose
+# footprint of x does not fit a block's shared memory (s = 16), and a blur
+# past the composite table (33x33). The plain version is what the kernels are
+# held to on the card; here it is held to the JAX package.
+BEYOND = {
+    "s16": dict(c=1, hw=(64, 48), scale=16, shifts=[(0.5, -0.25), (1.75, 1.25)], kernel_shape=(3, 3)),
+    "blur33": dict(c=1, hw=(40, 36), scale=2, shifts=[(0.5, -0.25), (1.75, 1.25)], kernel_shape=(33, 33)),
+}
+
+
+@pytest.mark.parametrize("mode", [None, "tv", "btv"])
+@pytest.mark.parametrize("case", sorted(BEYOND))
+def test_plain_version_matches_unfused_jax_past_the_staging_and_the_tap_table(case, mode):
+    p = BEYOND[case]
+    args = _problem(p["c"], p["hw"], p["scale"], p["shifts"], p["kernel_shape"], seed=51, flat=True)
+    _assert_close(_ours(*args[:4], p["scale"], mode, args[4]), _unfused_jax(*args[:4], p["scale"], mode, args[4]))
+
+
 def test_trouble_1_borders_are_zeroed_between_warp_and_blur():
     # A shift that pushes content across the border, on an image so small
     # that every pixel lies in the border band of the 5x5 blur.

@@ -240,36 +240,94 @@ def test_cpu_tile_never_reaches_the_library(no_library, mode):
     assert float(cost) == float(ref_cost) and torch.equal(grad, ref_grad)
 
 
-def test_blur_larger_than_the_tap_table_is_refused_before_a_launch(monkeypatch):
-    """The residual and gradient kernels hold (kh+1)(kw+1) composite taps per
-    frame in a table of the library's size; a larger blur is refused with
-    the limit named, before anything is launched."""
+class _FakeLibrary:
+    """Stands in for the compiled library: records what each launch entry
+    point is handed, launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def sr_max_btv_range(self):
+        return 8
+
+    def sr_residual_blocks(self, c, h, w, s):
+        return c * -(-(w // s) // 32) * -(-(h // s) // 8)
+
+    def sr_gradient_blocks(self, mode, c, h, w, is_double):
+        return 0 if mode == 0 else c * -(-w // 32) * -(-h // 16)
+
+    def sr_data_residual(self, x, y, shifts, blur, kh, kw, k, c, h, w, s, tile, mask, halo, r, partials, n_reg,
+                         counter, is_double, stream):
+        self.calls.append(dict(entry="sr_data_residual", s=s, kh=kh, kw=kw, partials=partials, n_reg=n_reg,
+                               counter=counter))
+        return 0
+
+    def sr_objective_gradient(self, x, r, shifts, blur, kh, kw, k, c, h, w, s, tile, mode, constants, p, decay,
+                              grad, partials, counter, cost, is_double, stream):
+        self.calls.append(dict(entry="sr_objective_gradient", s=s, kh=kh, kw=kw, mode=mode, partials=partials,
+                               counter=counter, cost=cost))
+        return 0
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    """The wrapper's launch path on CPU tensors, the library replaced by a
+    :class:`_FakeLibrary` (no device, no stream)."""
+    import contextlib
     import types
-    fake = types.SimpleNamespace(sr_max_composite_taps=lambda: 1024, sr_max_btv_range=lambda: 8)
+    fake = _FakeLibrary()
     monkeypatch.setattr(degrade, "_library", lambda: fake)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
+    return fake
+
+
+def test_blur_larger_than_the_tap_table_is_refused_before_a_launch(fake_library):
+    """A blur past the composite table ((kh+1)(kw+1) > 1024) is no longer
+    refused: the wrapper hands it to the library, whose DIRECT
+    instantiations take it, with its size as it is."""
     x, y, shifts, constants = _wrapper_problem()
-    with pytest.raises(ValueError, match="at most 1024"):
-        degrade._launch(x, y, shifts, np.ones((32, 32)) / 1024.0, 2, "data_term_tv", constants, 0, 1.0,
-                        (0, 0, 12, 16), False, None, False)
+    degrade._launch(x, y, shifts, np.ones((32, 32)) / 1024.0, 2, "data_term_tv", constants, 0, 1.0,
+                    (0, 0, 12, 16), False, None, False)
+    assert [(c["entry"], c["s"], c["kh"], c["kw"]) for c in fake_library.calls] == [
+        ("sr_data_residual", 2, 32, 32), ("sr_objective_gradient", 2, 32, 32)]
 
 
-@pytest.mark.parametrize("dtype, largest", [(torch.float32, 15), (torch.float64, 10)])
-def test_scale_past_the_residual_kernel_s_staging_is_refused_before_a_launch(monkeypatch, dtype, largest):
-    """The residual kernel stages one frame's footprint of x in a block's
-    shared memory; a scale whose footprint the library says does not fit is
-    refused before anything is launched, with the largest scale that fits
-    for that blur and type named."""
-    import types
-    fits = {(s, is_double) for s in range(1, 16) for is_double in (0, 1) if s <= (10 if is_double else 15)}
-    fake = types.SimpleNamespace(sr_max_composite_taps=lambda: 1024, sr_max_btv_range=lambda: 8,
-                                 sr_residual_staging=lambda s, kh, kw, is_double: int((s, is_double) in fits))
-    monkeypatch.setattr(degrade, "_library", lambda: fake)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_scale_past_the_residual_kernel_s_staging_is_refused_before_a_launch(fake_library, dtype):
+    """A scale whose footprint of x does not fit the residual kernel's shared
+    memory (16 in float32, 11 in float64 and beyond, at 3x3) is no longer
+    refused: the wrapper hands it to the library as it is."""
     rng = np.random.default_rng(82)
     x = torch.as_tensor(rng.random((1, 16, 32)), dtype=dtype)
     y = torch.as_tensor(rng.random((2, 1, 1, 2)), dtype=dtype)
-    with pytest.raises(ValueError, match=f"3x3 blur in {dtype} holds scales up to {largest}; got 16"):
-        degrade._launch(x, y, [(0, 0), (1, 1)], np.ones((3, 3)) / 9.0, 16, "data_term", None, 0, 1.0,
-                        (0, 0, 16, 32), False, None, False)
+    degrade._launch(x, y, [(0, 0), (1, 1)], np.ones((3, 3)) / 9.0, 16, "data_term", None, 0, 1.0,
+                    (0, 0, 16, 32), False, None, False)
+    assert [(c["entry"], c["s"], c["kh"], c["kw"]) for c in fake_library.calls] == [
+        ("sr_data_residual", 16, 3, 3), ("sr_objective_gradient", 16, 3, 3)]
+
+
+@pytest.mark.parametrize("mode", degrade.KERNEL_NAMES)
+def test_one_evaluation_is_two_launches_sharing_the_counter_slot(fake_library, mode):
+    """The residual launch, then the gradient launch that folds the cost: both
+    get the same partials buffer and the slot past its partials as the ticket
+    counter, the residual launch the number of the gradient launch's
+    partials, and the gradient launch the cost."""
+    x, y, shifts, constants = _wrapper_problem()
+    kw = {"data_term": (None, 0), "data_term_tv": (constants, 0), "data_term_tv3d": (constants, 0),
+          "data_term_btv": (constants, 3)}[mode]
+    cost, grad, partials = degrade._launch(x, y, shifts, None, 2, mode, kw[0], kw[1], 0.5,
+                                           (0, 0, 12, 16), False, None, False)
+    residual, gradient = fake_library.calls
+    assert (residual["entry"], gradient["entry"]) == ("sr_data_residual", "sr_objective_gradient")
+    n_data = fake_library.sr_residual_blocks(2, 12, 16, 2)
+    n_reg = fake_library.sr_gradient_blocks(degrade._MODE_OF[mode], 2, 12, 16, 1)
+    assert partials.numel() == n_data + n_reg and partials.dtype == torch.float64
+    assert residual["partials"] == gradient["partials"] == partials.data_ptr()
+    assert residual["counter"] == gradient["counter"] == partials.data_ptr() + 8 * (n_data + n_reg)
+    assert residual["n_reg"] == n_reg  # the slots the residual launch marks pending
+    assert gradient["cost"] == cost.data_ptr() and cost.shape == () and grad.shape == x.shape
+    assert degrade._MODE_OF[mode] == gradient["mode"]
 
 
 def test_wrapper_modes_and_range_are_the_kernel_source_s():

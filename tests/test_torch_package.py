@@ -114,8 +114,9 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
 def test_kernel_sources_are_in_the_package_and_build_is_lazy():
     source = build.CSRC_DIR / "degrade.cu"
     text = source.read_text()
-    for entry in ("sr_data_residual", "sr_objective_gradient", "sr_reduce_cost"):
+    for entry in ("sr_data_residual", "sr_objective_gradient"):
         assert entry in text
+    assert "sr_reduce_cost" not in text  # the gradient launch folds the cost
     assert "torch/extension.h" not in text
     assert "arch=compute_90a,code=sm_90a" in " ".join(build.NVCC_FLAGS)
     assert build.build_dir() == REPO / "super_resolution_tpu_torch" / "_build"

@@ -144,3 +144,52 @@ def test_shard_arguments_are_checked():
         fused_objective(x, y, shifts, None, 2, spectral_halo=True)
     with pytest.raises(ValueError, match="real band"):
         fused_objective(x[:1], y[:, :1], shifts, None, 2, tv_constants=x[:1], tv_use_3d=True, spectral_halo=True)
+
+
+# Past the CUDA kernels' staged and tabled instantiations (s = 16; a 33x33
+# blur), in shard mode: the port's tiled objective, whose every shard is the
+# plain shard-mode version, against the JAX package's plain whole-image data
+# term plus its TV / BTV term (no Pallas). Both sides sum the same float64
+# terms in another order: cost within 1e-10 relative, gradient within 1e-10
+# of its largest entry (as tests/test_torch_objective.py).
+BEYOND = {
+    "s16": dict(hw=(64, 48), scale=16, blur=(3, 3), axes={"row": 2}),
+    "blur33": dict(hw=(80, 88), scale=2, blur=(33, 33), axes={"row": 2, "col": 2}),
+}
+
+
+@pytest.mark.parametrize("reg_kind", ["none", "tv", "btv"])
+@pytest.mark.parametrize("case", sorted(BEYOND))
+def test_plain_shard_mode_matches_plain_jax_past_the_staging_and_the_tap_table(case, reg_kind):
+    from super_resolution_tpu.ops.btv import btv_cost_and_grad as jbtv
+    from super_resolution_tpu.ops.tv import tv_cost_and_grad as jtv
+    from super_resolution_tpu.solvers.objective import data_term_cost_and_grad_static as jdata
+    from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
+    from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
+    from super_resolution_tpu_torch.parallel import make_mesh, make_tiled_vg
+
+    p = BEYOND[case]
+    rng = np.random.default_rng(41)
+    shifts = np.asarray([(0.5, -0.25), (1.75, 1.25)])
+    x = rng.random((1, *p["hw"]))
+    x[:, 10:20, 12:30] = 0.25   # flat patch: sign(0) = 0
+    y = rng.random((len(shifts), 1, p["hw"][0] // p["scale"], p["hw"][1] // p["scale"]))
+    kernel = rng.random(p["blur"])
+    kernel /= kernel.sum()
+    weights = rng.random(x.shape) + 0.5
+    lam = 0.05
+    regs = {"none": [], "tv": [(TotalVariationRegularizer(), lam)],
+            "btv": [(BilateralTotalVariationRegularizer(3, 0.5), lam)]}[reg_kind]
+    vg = make_tiled_vg(make_mesh(p["axes"], devices=["cpu"]), y, shifts, kernel, p["scale"], regs,
+                       dtype=torch.float64)
+    cost, grad = vg(torch.tensor(x), (torch.tensor(weights),) if regs else ())
+    cost_j, grad_j = jdata(jnp.asarray(x), jnp.asarray(y), shifts, jnp.asarray(kernel), p["scale"])
+    if reg_kind == "tv":
+        c, g = jtv(jnp.asarray(x), jnp.asarray(lam * weights))
+        cost_j, grad_j = cost_j + c, grad_j + g
+    elif reg_kind == "btv":
+        c, g = jbtv(jnp.asarray(x), jnp.asarray(lam * weights), 3, 0.5)
+        cost_j, grad_j = cost_j + c, grad_j + g
+    assert abs(float(cost) - float(cost_j)) <= 1e-10 * abs(float(cost_j))
+    grad_j = np.asarray(grad_j)
+    assert np.abs(grad.numpy() - grad_j).max() <= 1e-10 * np.abs(grad_j).max()
