@@ -261,20 +261,24 @@ def _bound(name, x, y, shifts, kernel, scale, dtype, extra_bytes=0):
     once, and the operations the function needs (each regulariser residual
     counted once per pixel, whatever a kernel chooses to recompute). On a
     tile or a band shard the arrays are the extended ones, rim and halo band
-    included; ``extra_bytes`` is the owned-pixel mask."""
+    included; ``extra_bytes`` is the owned-pixel mask.
+
+    Warp and blur are counted as their composite, exact away from the
+    border: per frame a (kh + fy) x (kw + fx) kernel (fy, fx = 1 where that
+    axis of the shift is fractional), one multiply-add per tap and LR value
+    forward, and the same taps once more in the adjoint, whatever form a
+    kernel computes them in (the border band, where the two-stage form is
+    needed, is left out)."""
     itemsize = x.element_size()
     nbytes = (x.numel() + y.numel() + x.numel()) * itemsize + extra_bytes  # x, y, grad (+ mask)
     if name != "data_term":
         nbytes += x.numel() * itemsize                                 # constants
     nbytes += shifts.size * 8 + (0 if kernel is None else kernel.size * itemsize) + itemsize
     kh, kw = (1, 1) if kernel is None else kernel.shape
-    taps = [sum(1 for wy in ((1 - (dy - np.floor(dy))), dy - np.floor(dy))
-                for wx in ((1 - (dx - np.floor(dx))), dx - np.floor(dx)) if wy * wx != 0.0)
-            for dx, dy in shifts]
+    composite = [(kh + int(dy != np.floor(dy))) * (kw + int(dx != np.floor(dx))) for dx, dy in shifts]
     lr = y.numel() // y.shape[0]
-    flops = sum(lr * (kh * kw * (2 * t + 2) + 3) for t in taps)                      # forward + r^2
-    hits = -(-kh // scale) * -(-kw // scale)
-    flops += sum(x.numel() * (t * (2 * hits + 2) + 1) for t in taps) + x.numel()     # adjoint
+    flops = sum(lr * (2 * taps + 3) for taps in composite)     # forward, residual, r^2
+    flops += sum(lr * 2 * taps for taps in composite) + x.numel()  # adjoint, 2 s^2 scaling
     if name == "data_term_tv":
         flops += x.numel() * 30
     elif name == "data_term_tv3d":
@@ -368,42 +372,16 @@ def _check_shift_generic(device, dtype):
         f"bit-equal to host shifts, one build")
 
 
-def _kernel_times(run, device, repeats=20):
-    """Device microseconds per launch of each hand-written kernel that ``run``
-    launches, and its launches per call, from one short ``torch.profiler``
-    window; ``{}`` if the profiler saw no device time."""
+def _device_kernel_times(run, device, repeats=20):
+    """Every device kernel ``run`` launches, by the profiler's name: its device
+    microseconds per launch and its launches per call, from one short
+    ``torch.profiler`` window; ``{}`` if the profiler saw no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize(device)
-    sums = {}
     for _ in range(3):  # a window now and then comes back without device events: take another
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(repeats):
-                run()
-            torch.cuda.synchronize(device)
-        for event in prof.key_averages():
-            device_us = getattr(event, "device_time_total", None)
-            if device_us is None:
-                device_us = getattr(event, "cuda_time_total", 0.0)
-            for name in HAND_KERNELS:
-                if device_us > 0 and re.search(rf"(?<!\w){name}<", event.key):
-                    us, count = sums.get(name, (0.0, 0))
-                    sums[name] = (us + device_us, count + event.count)
-        if sums:
-            break
-    return {name: {"us": us / count, "per_call": count / repeats} for name, (us, count) in sums.items()}
-
-
-def _device_kernels_per_call(run, device, repeats=5):
-    """Every device kernel ``run`` launches, by the profiler's name, and its
-    launches per call, from one short ``torch.profiler`` window."""
-    from torch.profiler import ProfilerActivity, profile
-
-    run()
-    torch.cuda.synchronize(device)
-    for _ in range(3):  # as in _kernel_times
-        counts = {}
+        sums = {}
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(repeats):
                 run()
@@ -413,33 +391,35 @@ def _device_kernels_per_call(run, device, repeats=5):
             if device_us is None:
                 device_us = getattr(event, "cuda_time_total", 0.0)
             if device_us > 0:
-                counts[event.key] = counts.get(event.key, 0) + event.count
-        if counts:
-            return {name: count / repeats for name, count in counts.items()}
-    return {}
+                us, count = sums.get(event.key, (0.0, 0))
+                sums[event.key] = (us + device_us, count + event.count)
+        if sums:
+            break
+    return {name: {"us": us / count, "per_call": count / repeats} for name, (us, count) in sums.items()}
 
 
-def _launch_with_partials(x, y, shifts, kernel, scale, **kw):
-    """One evaluation on the kernels, as :func:`degrade.fused_objective` makes
-    it, with the buffer of cost partials its gradient launch summed:
-    (cost, gradient, partials, number of the residual launch's partials)."""
-    tv, btv, use_3d = kw.get("tv_constants"), kw.get("btv_constants"), kw.get("tv_use_3d", False)
-    shard_kw = {key: kw[key] for key in ("origin", "global_hw", "data_mask_lr", "spectral_halo") if key in kw}
-    constants = tv if tv is not None else btv
-    tile = degrade._check_problem(x, y, scale, constants, tv_use_3d=use_3d, **shard_kw)
-    shard = degrade._is_shard_mode(kw.get("origin"), kw.get("global_hw"), kw.get("data_mask_lr"))
-    cost, grad, partials = degrade._launch(
-        x, y, shifts, kernel, scale, degrade._mode_name(tv, btv, use_3d), constants, kw.get("btv_range", 0),
-        kw.get("btv_decay", 1.0), tile, shard, kw.get("data_mask_lr"), kw.get("spectral_halo", False))
-    c, h, w = x.shape
-    return cost, grad, partials, degrade._library().sr_residual_blocks(c, h, w, scale)
+def _hand_kernel(name):
+    """The hand-written kernel a profiler name is an instantiation of, else None."""
+    return next((kernel for kernel in HAND_KERNELS if re.search(rf"(?<!\w){kernel}<", name)), None)
+
+
+def _kernel_times(run, device, repeats=20):
+    """:func:`_device_kernel_times` of the hand-written kernels, by kernel."""
+    sums = {}
+    for name, info in _device_kernel_times(run, device, repeats).items():
+        kernel = _hand_kernel(name)
+        if kernel is not None:
+            us, per_call = sums.get(kernel, (0.0, 0.0))
+            sums[kernel] = (us + info["us"] * info["per_call"], per_call + info["per_call"])
+    return {kernel: {"us": us / per_call, "per_call": per_call} for kernel, (us, per_call) in sums.items()}
 
 
 def _fold_on_host(partials, n_data, scale, dtype):
-    """The cost from the partials in the order the gradient launch's folding block
-    sums them (``fold_cost`` in csrc/degrade.cu): 1024 slots, slot t the sum of
-    partials t, t + 1024, ... in index order (data and regulariser apart), a
-    tree over the slots, then fma(s^2, data, regulariser) rounded to the type."""
+    """The cost from the partials in the order the gradient launch's folding
+    block sums them (``fold_cost`` in csrc/degrade.cu): 1024 slots, slot t
+    the sum of partials t, t + 1024, ... in index order (data and
+    regulariser apart), a tree over the slots, then fma(s^2, data,
+    regulariser) rounded to the type."""
     from fractions import Fraction
 
     values = partials.double().cpu().numpy()
@@ -465,23 +445,33 @@ def _fold_on_host(partials, n_data, scale, dtype):
 def _check_fold(row_name, run, args, kw, dtype, device):
     """One evaluation is two launches and no reduction kernel; its cost is the
     same bits when launched again and equals the host's sum of its partials
-    in the documented order. Returns the partials' count, their own bound and
-    the time of one ``torch.dot`` of partials and weights (s^2 on the data
-    partials, 1 on the rest), the one library call that computes the same sum."""
+    in the documented order; every block of the gradient launch took one
+    ticket (the data mode's blocks write no partial to count them by), and
+    the fold did not stop waiting. Returns the partials' count, their own
+    bound and the time of one ``torch.dot`` of partials and weights (s^2 on
+    the data partials, 1 on the rest), the one library call that computes
+    the same sum."""
     # The profiler now and then drops a record: each kernel at most once per call, both seen, nothing else.
-    launched = _device_kernels_per_call(run, device)
-    kinds = [next((k for k in HAND_KERNELS if re.search(rf"(?<!\w){k}<", name)), name) for name in launched]
+    launched = {name: info["per_call"] for name, info in _device_kernel_times(run, device, 5).items()}
+    kinds = [_hand_kernel(name) or name for name in launched]
     check(len(kinds) == 2 and "sr_residual_kernel" in kinds and any(k in kinds for k in HAND_KERNELS[1:])
           and all(per_call <= 1.0 for per_call in launched.values()),
           f"{row_name}: an evaluation launched {launched}, not the residual and the gradient kernel alone")
-    cost, _, partials, n_data = _launch_with_partials(*args, **kw)
-    again, _, partials_again, _ = _launch_with_partials(*args, **kw)
-    host = _fold_on_host(partials, n_data, args[4], dtype)
+    x, y, shifts, kernel, scale = args
+    cost, _, partials, fold = degrade._evaluate(x, y, shifts, kernel, scale, **kw)
+    again, _, partials_again, _ = degrade._evaluate(x, y, shifts, kernel, scale, **kw)
+    c, h, w = x.shape
+    n_data = degrade._library().sr_residual_blocks(c, h, w, scale)
+    host = _fold_on_host(partials, n_data, scale, dtype)
+    tickets, late = (int(v) for v in fold.view(torch.int32).cpu())
     check(float(cost) == float(again) and torch.equal(partials, partials_again),
           f"{row_name}: two launches gave different costs or partials")
     check(float(cost) == host, f"{row_name}: the folded cost {float(cost)!r} != the host's sum {host!r}")
+    n_reg = partials.numel() - n_data
+    check(late == 0 and (tickets == n_reg if n_reg else tickets > 0),
+          f"{row_name}: the fold's state says {tickets} tickets for {n_reg} regulariser partials, late {late}")
     weights = torch.ones_like(partials)
-    weights[:n_data] = float(args[4] ** 2)
+    weights[:n_data] = float(scale ** 2)
     dot_ms = _time_launches(lambda: torch.dot(partials, weights), device, 200)
     return {"partials": partials.numel(), "kernels_per_evaluation": launched,
             "bound_us": 8 * partials.numel() / PEAK_BYTES_PER_S * 1e6, "torch_dot_ms": dot_ms}

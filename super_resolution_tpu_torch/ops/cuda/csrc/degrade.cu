@@ -195,9 +195,13 @@ __device__ __forceinline__ int linear_block() {
 // after them, so that the atomic's latency hides behind those loads); the
 // block that starts last sums all partials at its end (fold_cost). No block waits for
 // another to count, and none fences: the residual launch fills the slots of
-// the regulariser partials with PARTIAL_PENDING, and the folding block reads
-// each slot past L1 until a partial has replaced it -- every block that
-// writes one has started, so it is resident and finishes. The order is
+// the regulariser partials with PARTIAL_PENDING, each block writes its
+// partial with a strong store (publish: volatile, relaxed at system scope),
+// and the folding block reads each slot with strong loads until a partial
+// has replaced it -- every block that writes one has started, so it is
+// resident and finishes. A wait that gives up (FOLD_TRIES reads: a fault,
+// not a wait) leaves the cost NaN and sets the `late` word that follows the
+// counter, which the host can read. The order is
 // fixed and independent of which block folds: slot t of COST_SLOTS sums
 // partials t, t + COST_SLOTS, ... in index order (data and reg apart), then
 // a tree adds slot t + stride into slot t for stride = COST_SLOTS / 2 .. 1
@@ -206,6 +210,10 @@ __device__ __forceinline__ int linear_block() {
 // T. `scratch` is 2 NT doubles of the block's shared memory that no thread
 // reads any more.
 constexpr unsigned long long PARTIAL_PENDING = 0x7ff4dead5e171e1dull;  // a signalling NaN no sum produces
+constexpr int FOLD_TRIES = 1 << 24;
+
+// A regulariser partial, which the folding block may read while the launch runs.
+__device__ __forceinline__ void publish(double* slot, double v) { *reinterpret_cast<volatile double*>(slot) = v; }
 
 // Thread 0's ticket; 0 in the other threads.
 __device__ __forceinline__ unsigned take_ticket(unsigned* counter) {
@@ -221,8 +229,8 @@ __device__ __forceinline__ void claim_fold(unsigned ticket, unsigned& fold_here)
 // Called by every thread of the block that claimed the fold, after the
 // block's own partial is written.
 template <typename T>
-__device__ __forceinline__ void fold_cost(const double* partials, int n_data, int n_reg, double data_scale,
-                                          T* cost, double* scratch) {
+__device__ __forceinline__ void fold_cost(const double* partials, int n_data, int n_reg, unsigned* counter,
+                                          double data_scale, T* cost, double* scratch) {
   static_assert(COST_SLOTS == 4 * NT, "each thread folds four slots");
   const int tid = threadIdx.y * BX + threadIdx.x;
   // The regulariser partials are read as volatile (past L1, and again until they have arrived).
@@ -230,8 +238,9 @@ __device__ __forceinline__ void fold_cost(const double* partials, int n_data, in
   auto data_at = [&](int i) { return i < n_data ? __ldcg(partials + i) : 0.0; };
   auto reg_bits = [&](int i) { return i < n_reg ? reg[i] : 0ull; };
   auto arrived = [&](unsigned long long bits, int i) {  // NaN if a partial never came (a fault, not a wait)
-    for (int tries = 0; bits == PARTIAL_PENDING && tries < (1 << 24); ++tries) bits = reg[i];
-    return bits == PARTIAL_PENDING ? __longlong_as_double(0x7ff8000000000000ll) : __longlong_as_double((long long)bits);
+    for (int tries = 0; bits == PARTIAL_PENDING && tries < FOLD_TRIES; ++tries) bits = reg[i];
+    if (bits == PARTIAL_PENDING) counter[1] = 1u;  // late
+    return __longlong_as_double((long long)bits);
   };
   // Slot tid + q NT adds partial base + q NT for base = tid, tid + COST_SLOTS,
   // ...; two such rounds per pass, all eight loads in flight before the first
@@ -296,14 +305,15 @@ __device__ __forceinline__ void fold_cost(const double* partials, int n_data, in
 }
 
 // The end of a block of the residual launch: its partial; block 0 zeroes
-// the gradient launch's ticket counter, and the slots of the gradient
-// launch's n_reg partials are marked pending (fold_cost).
+// the gradient launch's ticket counter and the `late` word after it, and
+// the slots of the gradient launch's n_reg partials are marked pending
+// (fold_cost).
 __device__ __forceinline__ void finish_residual_block(double total, double* partials, unsigned* counter, int n_reg) {
   const int tid = threadIdx.y * BX + threadIdx.x, lb = linear_block();
   const int blocks = gridDim.x * gridDim.y * gridDim.z;
   if (tid == 0) {
     partials[lb] = total;
-    if (lb == 0) *counter = 0u;
+    if (lb == 0) *reinterpret_cast<unsigned long long*>(counter) = 0ull;
   }
   unsigned long long* pending = reinterpret_cast<unsigned long long*>(partials + blocks);
   for (int i = lb * NT + tid; i < n_reg; i += blocks * NT) pending[i] = PARTIAL_PENDING;
@@ -949,7 +959,7 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
       const int u = R0 + ty + BY * a;
       if (u < H && v < W) grad[base + (size_t)u * W + v] = scale2 * acc[a];
     }
-    if (fold_here) fold_cost<T>(partials, n_data, 0, data_scale, cost, reinterpret_cast<double*>(tab_a));
+    if (fold_here) fold_cost<T>(partials, n_data, 0, counter, data_scale, cost, reinterpret_cast<double*>(tab_a));
   } else {
     // 2. The TV term from the staged inputs and the G map: G at this
     //    thread's pixels and at the margin (the row above the tile, BX + 1
@@ -1011,9 +1021,9 @@ __global__ void __launch_bounds__(NT, (gradient_min_blocks<T, KB, S>())) sr_grad
       grad[base + (size_t)u * W + v] = scale2 * acc[a] + tv;
     }
     const double total = block_sum(reg_cost);
-    if (tid == 0) partials[n_data + linear_block()] = total;
+    if (tid == 0) publish(partials + n_data + linear_block(), total);
     if (fold_here) {
-      fold_cost<T>(partials, n_data, gridDim.x * gridDim.y * gridDim.z, data_scale, cost,
+      fold_cost<T>(partials, n_data, gridDim.x * gridDim.y * gridDim.z, counter, data_scale, cost,
                    reinterpret_cast<double*>(tab_a));
     }
   }
@@ -1276,9 +1286,9 @@ __global__ void __launch_bounds__(NT, (btv_min_blocks<T, P>())) sr_btv_gradient_
     }
   }
   const double total = block_sum(reg_cost);
-  if (tid == 0) partials[n_data + linear_block()] = total;
+  if (tid == 0) publish(partials + n_data + linear_block(), total);
   if (fold_here) {
-    fold_cost<T>(partials, n_data, gridDim.x * gridDim.y * gridDim.z, (double)s * (double)s, cost,
+    fold_cost<T>(partials, n_data, gridDim.x * gridDim.y * gridDim.z, counter, (double)s * (double)s, cost,
                  reinterpret_cast<double*>(&g1s[0][0][0]));
   }
 }
@@ -1561,9 +1571,10 @@ static int check_tile(const int* tile, int s) {
 // One evaluation is sr_data_residual, then sr_objective_gradient on the same
 // stream. `partials`: room for sr_residual_blocks + sr_gradient_blocks
 // doubles; `n_reg`: sr_gradient_blocks of the gradient launch to come, whose
-// slots the residual launch marks pending; `counter`: an unsigned int the
-// residual launch zeroes and the gradient launch's blocks take tickets from
-// (the wrapper puts it in a slot past the partials). `mask`: nullable
+// slots the residual launch marks pending; `counter`: two unsigned ints the
+// residual launch zeroes, the tickets the gradient launch's blocks take and
+// a `late` flag its fold sets if it stopped waiting for a partial (the
+// wrapper puts them in an 8-byte slot past the partials). `mask`: nullable
 // [H/s, W/s] of 0/1 in x's type, the LR pixels whose residual counts.
 // `halo_band` != 0: channel C - 1 is a read-only spectral halo (needs C >=
 // 2). Any s and blur.

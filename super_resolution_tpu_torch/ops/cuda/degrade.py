@@ -389,6 +389,10 @@ def max_btv_range() -> int:
 # The compiled kernels, as the profiler names them, and their number in
 # ``sr_kernel_attributes``.
 COMPUTE_KERNELS = ("sr_residual_kernel", "sr_gradient_kernel", "sr_btv_gradient_kernel")
+# float64 slots past the cost partials for the fold's state: one, whose two
+# uint32 are the tickets the gradient launch's blocks took and a flag,
+# nonzero if its fold stopped waiting for a partial (the cost is then NaN).
+FOLD_SLOTS = 1
 
 
 def takes_direct(kernel: str, scale: int, blur_shape: tuple[int, int], dtype: torch.dtype) -> bool:
@@ -431,8 +435,9 @@ def _raise_on(code: int, what: str) -> None:
 
 def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay,
             tile, shard, data_mask_lr, spectral_halo):
-    """Cost, gradient and the cost partials (the residual launch's, then the
-    gradient launch's) of one evaluation on the kernels."""
+    """Cost, gradient, the cost partials (the residual launch's, then the
+    gradient launch's) and the fold's state (``FOLD_SLOTS``) of one
+    evaluation on the kernels."""
     device, dtype = x.device, x.dtype
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"The CUDA kernels take float32 or float64, got {dtype}.")
@@ -465,15 +470,14 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
     is_double = int(dtype == torch.float64)
 
     # One cost partial per block of each kernel actually launched (none from
-    # the data mode's), then one slot whose first 4 bytes are the gradient
-    # launch's ticket counter; the residual launch zeroes it and marks the
-    # gradient launch's slots pending.
+    # the data mode's), then the fold's state: the residual launch zeroes it
+    # and marks the gradient launch's slots pending.
     n_data = lib.sr_residual_blocks(c, h, w, scale)
     n_reg = lib.sr_gradient_blocks(_MODE_OF[mode], c, h, w, is_double)
     residual = torch.empty_like(y)
     grad = torch.empty_like(x)
-    partials = torch.empty(n_data + n_reg + 1, dtype=torch.float64, device=device)
-    counter = partials.data_ptr() + 8 * (n_data + n_reg)
+    partials = torch.empty(n_data + n_reg + FOLD_SLOTS, dtype=torch.float64, device=device)
+    fold = partials.data_ptr() + 8 * (n_data + n_reg)
     cost = torch.empty((), dtype=dtype, device=device)
     blur_ptr = None if blur_dev is None else blur_dev.data_ptr()
     const_ptr = None if constants is None else constants.data_ptr()
@@ -485,18 +489,18 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
         _raise_on(lib.sr_data_residual(
             x.data_ptr(), y.data_ptr(), shifts_dev.data_ptr(), blur_ptr, kh, kw,
             k, c, h, w, scale, tile_arg, mask_ptr, int(spectral_halo), residual.data_ptr(),
-            partials.data_ptr(), n_reg, counter, is_double, stream,
+            partials.data_ptr(), n_reg, fold, is_double, stream,
         ), "sr_data_residual")
         _raise_on(lib.sr_objective_gradient(
             x.data_ptr(), residual.data_ptr(), shifts_dev.data_ptr(), blur_ptr, kh, kw,
             k, c, h, w, scale, tile_arg, _MODE_OF[mode], const_ptr, int(btv_range), float(btv_decay),
-            grad.data_ptr(), partials.data_ptr(), counter, cost.data_ptr(), is_double, stream,
+            grad.data_ptr(), partials.data_ptr(), fold, cost.data_ptr(), is_double, stream,
         ), "sr_objective_gradient")
     launch_counts[mode] += 1
     shift_source_counts["device" if from_device else "host"] += 1
     shard_launch_counts["shard_mode"] += int(shard)
     shard_launch_counts["spectral_halo"] += int(spectral_halo)
-    return cost, grad, partials[:-1]
+    return cost, grad, partials[:-FOLD_SLOTS], partials[-FOLD_SLOTS:]
 
 
 def fused_objective(
@@ -555,9 +559,20 @@ def fused_objective(
         )
     if x.device.type != "cuda":
         raise RuntimeError(f"No fused objective for device {x.device}.")
-    mode = _mode_name(tv_constants, btv_constants, tv_use_3d)
-    constants = tv_constants if tv_constants is not None else btv_constants
-    tile = _check_problem(x, y, scale, constants, tv_use_3d=tv_use_3d, **shard_args)
-    cost, grad, _ = _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_decay,
-                            tile, _is_shard_mode(origin, global_hw, data_mask_lr), data_mask_lr, spectral_halo)
+    cost, grad, _, _ = _evaluate(x, y, shifts, blur_kernel, scale, tv_constants, btv_constants, btv_range,
+                                 btv_decay, tv_use_3d, **shard_args)
     return cost, grad
+
+
+def _evaluate(x, y, shifts, blur_kernel, scale, tv_constants=None, btv_constants=None, btv_range=0,
+              btv_decay=1.0, tv_use_3d=False, origin=None, global_hw=None, data_mask_lr=None,
+              spectral_halo=False):
+    """:func:`fused_objective` on the kernels, with what its launches leave
+    beside the cost and gradient: the cost partials and the fold's state
+    (see ``_launch``)."""
+    constants = tv_constants if tv_constants is not None else btv_constants
+    tile = _check_problem(x, y, scale, constants, tv_use_3d=tv_use_3d, origin=origin, global_hw=global_hw,
+                          data_mask_lr=data_mask_lr, spectral_halo=spectral_halo)
+    return _launch(x, y, shifts, blur_kernel, scale, _mode_name(tv_constants, btv_constants, tv_use_3d),
+                   constants, btv_range, btv_decay, tile, _is_shard_mode(origin, global_hw, data_mask_lr),
+                   data_mask_lr, spectral_halo)

@@ -257,15 +257,15 @@ class _FakeLibrary:
         return 0 if mode == 0 else c * -(-w // 32) * -(-h // 16)
 
     def sr_data_residual(self, x, y, shifts, blur, kh, kw, k, c, h, w, s, tile, mask, halo, r, partials, n_reg,
-                         counter, is_double, stream):
+                         fold, is_double, stream):
         self.calls.append(dict(entry="sr_data_residual", s=s, kh=kh, kw=kw, partials=partials, n_reg=n_reg,
-                               counter=counter))
+                               fold=fold))
         return 0
 
     def sr_objective_gradient(self, x, r, shifts, blur, kh, kw, k, c, h, w, s, tile, mode, constants, p, decay,
-                              grad, partials, counter, cost, is_double, stream):
+                              grad, partials, fold, cost, is_double, stream):
         self.calls.append(dict(entry="sr_objective_gradient", s=s, kh=kh, kw=kw, mode=mode, partials=partials,
-                               counter=counter, cost=cost))
+                               fold=fold, cost=cost))
         return 0
 
 
@@ -282,7 +282,7 @@ def fake_library(monkeypatch):
     return fake
 
 
-def test_blur_larger_than_the_tap_table_is_refused_before_a_launch(fake_library):
+def test_blur_larger_than_the_tap_table_is_handed_to_the_library(fake_library):
     """A blur past the composite table ((kh+1)(kw+1) > 1024) is no longer
     refused: the wrapper hands it to the library, whose DIRECT
     instantiations take it, with its size as it is."""
@@ -294,7 +294,7 @@ def test_blur_larger_than_the_tap_table_is_refused_before_a_launch(fake_library)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_scale_past_the_residual_kernel_s_staging_is_refused_before_a_launch(fake_library, dtype):
+def test_scale_past_the_residual_kernel_s_staging_is_handed_to_the_library(fake_library, dtype):
     """A scale whose footprint of x does not fit the residual kernel's shared
     memory (16 in float32, 11 in float64 and beyond, at 3x3) is no longer
     refused: the wrapper hands it to the library as it is."""
@@ -310,24 +310,47 @@ def test_scale_past_the_residual_kernel_s_staging_is_refused_before_a_launch(fak
 @pytest.mark.parametrize("mode", degrade.KERNEL_NAMES)
 def test_one_evaluation_is_two_launches_sharing_the_counter_slot(fake_library, mode):
     """The residual launch, then the gradient launch that folds the cost: both
-    get the same partials buffer and the slot past its partials as the ticket
-    counter, the residual launch the number of the gradient launch's
-    partials, and the gradient launch the cost."""
+    get the same partials buffer and the slots past its partials as the
+    fold's state (the ticket counter among them), the residual launch the
+    number of the gradient launch's partials, and the gradient launch the cost."""
     x, y, shifts, constants = _wrapper_problem()
     kw = {"data_term": (None, 0), "data_term_tv": (constants, 0), "data_term_tv3d": (constants, 0),
           "data_term_btv": (constants, 3)}[mode]
-    cost, grad, partials = degrade._launch(x, y, shifts, None, 2, mode, kw[0], kw[1], 0.5,
-                                           (0, 0, 12, 16), False, None, False)
+    cost, grad, partials, fold = degrade._launch(x, y, shifts, None, 2, mode, kw[0], kw[1], 0.5,
+                                                 (0, 0, 12, 16), False, None, False)
     residual, gradient = fake_library.calls
     assert (residual["entry"], gradient["entry"]) == ("sr_data_residual", "sr_objective_gradient")
     n_data = fake_library.sr_residual_blocks(2, 12, 16, 2)
     n_reg = fake_library.sr_gradient_blocks(degrade._MODE_OF[mode], 2, 12, 16, 1)
     assert partials.numel() == n_data + n_reg and partials.dtype == torch.float64
     assert residual["partials"] == gradient["partials"] == partials.data_ptr()
-    assert residual["counter"] == gradient["counter"] == partials.data_ptr() + 8 * (n_data + n_reg)
+    assert residual["fold"] == gradient["fold"] == fold.data_ptr() == partials.data_ptr() + 8 * (n_data + n_reg)
+    assert fold.numel() == degrade.FOLD_SLOTS == 1 and fold.dtype == torch.float64
     assert residual["n_reg"] == n_reg  # the slots the residual launch marks pending
     assert gradient["cost"] == cost.data_ptr() and cost.shape == () and grad.shape == x.shape
     assert degrade._MODE_OF[mode] == gradient["mode"]
+
+
+@pytest.mark.parametrize("shard", [False, True])
+@pytest.mark.parametrize("mode", degrade.KERNEL_NAMES)
+def test_evaluate_hands_fused_objective_s_arguments_to_one_evaluation(fake_library, mode, shard):
+    """``_evaluate`` (what ``fused_objective`` calls on a CUDA tensor) picks
+    the mode from the constants given, checks the problem and launches one
+    evaluation, in shard mode where a shard argument is given; it returns the
+    partials and the fold's state beside the cost and gradient."""
+    x, y, shifts, constants = _wrapper_problem()
+    kw = {"data_term": {}, "data_term_tv": {"tv_constants": constants},
+          "data_term_tv3d": {"tv_constants": constants, "tv_use_3d": True},
+          "data_term_btv": {"btv_constants": constants, "btv_range": 3, "btv_decay": 0.5}}[mode]
+    if shard:
+        kw.update(origin=(-2, 4), global_hw=(16, 24))
+    before = dict(degrade.shard_launch_counts)
+    cost, grad, partials, fold = degrade._evaluate(x, y, shifts, None, 2, **kw)
+    residual, gradient = fake_library.calls
+    assert gradient["mode"] == degrade._MODE_OF[mode] and residual["s"] == gradient["s"] == 2
+    assert degrade.shard_launch_counts["shard_mode"] - before["shard_mode"] == int(shard)
+    assert fold.data_ptr() == partials.data_ptr() + 8 * partials.numel() == gradient["fold"]
+    assert cost.shape == () and grad.shape == x.shape
 
 
 def test_wrapper_modes_and_range_are_the_kernel_source_s():
