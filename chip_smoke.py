@@ -32,7 +32,15 @@ width:
   64-band cube (the kernels' spectral-halo mode), 2x2 tiles with halo
   exchange on an RGB 3x2048x2048 scene with 16 frames and on the flagship
   (shard mode), and 4 frame shards with the motion refined between IRLS
-  rounds, each held against the single-device solve.
+  rounds, each held against the single-device solve;
+- the fused IRLS solve (``fused_irls``: CUDA graphs of the linear-CG chunk,
+  the IRLS seam and the restart) beside the host loop, in turns, on the
+  flagship TV and BTV solves, the refined estimated-motion solve and the
+  64-band 3D TV solve: the same estimate and shifts bit for bit, the same
+  iterations and evaluations, the kernels' launches counted through the
+  replays, no late cost fold, one capture across two solver instances, and
+  no more read-backs than chunks plus rounds; wall and device time of each,
+  and the chunk length.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -50,6 +58,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import re
@@ -188,7 +197,7 @@ def load_golden(name):
 
 
 def phase_environment():
-    log(f"[1/8] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
+    log(f"[1/9] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"torch CUDA {torch.version.cuda}")
     nvcc = build.find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60).stdout
@@ -209,7 +218,7 @@ def phase_build():
     t0 = time.perf_counter()
     results = build.build()
     for name, info in results.items():
-        log(f"[2/8] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
+        log(f"[2/9] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
     log(f"      build total {time.perf_counter() - t0:.1f} s")
 
@@ -368,7 +377,7 @@ def _check_shift_generic(device, dtype):
     check(degrade.shift_source_counts == {"device": launches // 2, "host": launches // 2},
           f"shift sources miscounted: {degrade.shift_source_counts} for {launches} launches")
     check(len(list(build.build_dir().glob("libdegrade_*.so"))) == 1, "the kernels were built more than once")
-    log(f"[3/8] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
+    log(f"[3/9] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
         f"bit-equal to host shifts, one build")
 
 
@@ -594,7 +603,7 @@ def _check_shard_mode(device, dtype):
                               f"shard mode {mode} {dtype} s={scale} shifts {shifts} tile {coords} "
                               f"{'owned mask' if mask is not None else 'default mask'}: cost {cost_err:.3e}, "
                               f"grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/8] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
+    log(f"[3/9] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
         f"x 2 masks) agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
@@ -616,7 +625,7 @@ def _check_spectral_halo(device, dtype):
               f"spectral halo {dtype} C={c}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
         plain_tv3d = degrade.fused_objective(x, y, sh, kern, 2, tv_constants=constants, tv_use_3d=True)
         check(not torch.equal(out[1][-1], plain_tv3d[1][-1]), "the halo band was not taken out of the data term")
-    log(f"[3/8] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
+    log(f"[3/9] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
 
@@ -631,7 +640,7 @@ def _check_trivial_shard_arguments(device, dtype):
         in_shard_mode = degrade.fused_objective(x, y, sh, kern, 4, origin=(0, 0), global_hw=hw, **kw)
         check(float(plain_launch[0]) == float(in_shard_mode[0]) and torch.equal(plain_launch[1], in_shard_mode[1]),
               f"{mode} {dtype}: trivial shard arguments change the bits")
-    log(f"[3/8] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
+    log(f"[3/9] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
         f"{len(degrade.KERNEL_NAMES)} modes in {dtype}")
 
 
@@ -660,7 +669,7 @@ def _check_assembled(device, dtype):
         cost_err, grad_err, _ = _errors(vg(x, (weights,)), degrade.fused_objective(x, y, sh, kern, scale, **kw))
         check(cost_err <= tol and grad_err <= tol,
               f"assembled {axes} {dtype} case {n}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/8] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
+    log(f"[3/9] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
         f"by gather, scatter-sum and band ring == the unsharded kernels in {dtype} (tol {tol:g})")
 
 
@@ -730,7 +739,7 @@ def _check_btv_sweep(device, dtype):
                 held(degrade.fused_objective(*args, **kw), args, kw,
                      f"P={P} decay={decay} s={scale} {frames} frames tile {coords} "
                      f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/8] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images each, "
+    log(f"[3/9] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images each, "
         f"bit-equal when launched twice; {BTV_MANY_FRAMES} frames on 2 whole images; {len(BTV_SWEEP_TILES)} x 5 shard "
         f"tiles x 2 masks, one with {BTV_MANY_FRAMES} frames) agree with the plain version in {dtype} (tol {tol:g})")
     return worst
@@ -770,11 +779,11 @@ def _check_kernel_attributes():
         mine = [a for key, a in table.items() if key[0] == kernel]
         registers, shared = [a["registers"] for a in mine], [a["shared_bytes"] for a in mine]
         blocks = [a["blocks_per_sm"] for a in mine]
-        log(f"[3/8] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
+        log(f"[3/9] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
             f"{min(registers)}-{max(registers)} registers, {min(shared)}-{max(shared)} bytes of static shared memory, "
             f"{min(blocks)}-{max(blocks)} blocks of 256 threads per SM")
     direct = [a for key, a in table.items() if "direct" in key]
-    log(f"[3/8] kernels: of those, the {len(direct)} DIRECT instantiations: "
+    log(f"[3/9] kernels: of those, the {len(direct)} DIRECT instantiations: "
         f"{min(a['registers'] for a in direct)}-{max(a['registers'] for a in direct)} registers, "
         f"{min(a['blocks_per_sm'] for a in direct)}-{max(a['blocks_per_sm'] for a in direct)} blocks per SM")
     return table
@@ -887,7 +896,7 @@ def _check_composite_sweep(device, dtype):
         held((x, y, torch.as_tensor(sh, device=device), kern, scale),
              dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True), f"spectral halo s={scale}")
     check(exact[True] > 0 and exact[False] > 0, f"the sweep missed one of the composite's cases: {exact}")
-    log(f"[3/8] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
+    log(f"[3/9] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
         f"fractional / wide shifts x 2 whole images x data/TV/3D TV, bit-equal when launched twice; 66 and 30 frames; "
         f"3 scales x 5 shard tiles x blur 3x3/5x5/none x fractional / wide shifts x 2 masks x 3 modes; spectral halo "
         f"at s 2/3/4) agree with the plain version in {dtype} (tol {tol:g}); composite exact on {exact[True]} of the "
@@ -978,7 +987,7 @@ def _check_direct_sweep(device, dtype):
                     held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
                          f"{mode} s={scale} blur {size} {set_name} shifts tile {coords} "
                          f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/8] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
+    log(f"[3/9] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
         f"at s 2 -- the table; integer / fractional / wide shifts x whole images x {len(modes)} modes, bit-equal when "
         f"launched twice; 3 shard tiles x fractional / wide shifts x {len(modes)} modes) agree with the plain version "
         f"in {dtype} (tol {tol:g})")
@@ -1083,7 +1092,7 @@ def phase_kernels(device):
                 check(float(outs["data_term_tv3d"][0]) == float(outs["data_term_tv"][0])
                       and torch.equal(outs["data_term_tv3d"][1], outs["data_term_tv"][1]),
                       f"data_term_tv3d differs from data_term_tv at C=1 (case {i}, {dtype})")
-        log(f"[3/8] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
+        log(f"[3/9] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
             f"in {dtype} (tol {tol:g}); tv3d == tv at C=1")
         _check_shift_generic(device, dtype)
         shard_worst = {"shard_mode": _check_shard_mode(device, dtype),
@@ -1101,7 +1110,7 @@ def phase_kernels(device):
                 worst[mode] = max(worst[mode], composite_worst, direct_worst)
     attributes = _check_kernel_attributes()
     tap_difference = _float32_tap_difference(device)
-    log(f"[3/8] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
+    log(f"[3/9] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
         f"makes them) vs the kernels' float64 weights rounded once: {tap_difference:.2e} of the largest entry")
     check(tap_difference <= TOLERANCE[torch.float32], f"float32 tap weights move the gradient by {tap_difference}")
 
@@ -1176,7 +1185,7 @@ def phase_goldens(device):
     psnr_ours = float(psnr(ours, gt))
     psnr_ref = float(psnr(load_golden("dallas4x_btv_result.bin"), gt))
     check(abs(psnr_ours - psnr_ref) <= 0.1, f"golden C: {psnr_ours} dB vs reference {psnr_ref} dB")
-    log(f"[4/8] goldens: A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
+    log(f"[4/9] goldens: A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
         f"C {psnr_ours:.3f} dB vs C++ {psnr_ref:.3f} dB ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1326,7 +1335,7 @@ def phase_main_path(device, rows):
     for name, options, reg, lam in runs:
         results[name] = r = solve_once(name, gt, 4, options, reg, lam, device, dtype)
         mpix_it = r["iterations"] * side * side / r["seconds"] / 1e6
-        log(f"[5/8] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
+        log(f"[5/9] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
             f"{r['evaluations']} evaluations, {r['launches']} launches, {r['seconds']:.3f} s, "
             f"{mpix_it:.1f} Mpixel-iterations/s, PSNR {r['psnr']:.2f} dB (nearest {r['psnr_start']:.2f} dB)")
         log(f"      inner calls (s, iterations, evaluations): "
@@ -1428,7 +1437,7 @@ def phase_estimated_motion(device, rows):
         seconds.append(time.perf_counter() - t0)
     estimated = registered.as_array() * scale  # LR px -> HR px
     err_estimated = float(np.abs(estimated - true).max())
-    log(f"[6/8] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
+    log(f"[6/9] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
         f"{seconds[1]:.3f} s; max error {err_estimated:.4f} HR px (limit 0.25)")
     check(err_estimated < 0.25, f"registration is off by {err_estimated} HR px")
     x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
@@ -1512,7 +1521,7 @@ def phase_hyperspectral(device, rows):
         solver = tv_solver(model, lows, use_3d, fixed_iterations(20, 2), device)
         results[name] = r = run_solve(name, solver, x0, gt, 0.01)
         mvals = r["iterations"] * gt.numel() / r["seconds"] / 1e6
-        log(f"[7/8] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
+        log(f"[7/9] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
             f"= evaluations, {r['seconds']:.3f} s, {mvals:.1f} Mvalue-iterations/s, PSNR {r['psnr']:.2f} dB "
             f"(linear upsample {r['psnr_start']:.2f} dB); L1 objective {[float(f'{o:.7g}') for o in r['objectives']]}")
         check_objective_never_rises(name, r["objectives"])
@@ -1541,7 +1550,7 @@ def phase_hyperspectral(device, rows):
     b = PCA_BORDER
     inner = (slice(None), slice(b, -b), slice(b, -b))
     solved_db, linear_db = float(psnr(solved[inner], gt[inner])), float(psnr(linear[inner], gt[inner]))
-    log(f"[7/8] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
+    log(f"[7/9] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
         f"{round_trip:.2f} dB); {tuple(r['x'].shape)} solve {r['iterations']} iterations, {r['launches']} launches, "
         f"{r['seconds']:.3f} s; back-projected cube {solved_db:.2f} dB vs linear upsample {linear_db:.2f} dB inside "
         f"a {b}-px border (whole image {float(psnr(solved, gt)):.2f} vs {float(psnr(linear, gt)):.2f} dB)")
@@ -1587,7 +1596,7 @@ def compare_with_single_device(label, make, mode, shard_counter, mesh, lam, roun
             continue
         objective_diff = abs(meshed["objectives"][-1] - single["objectives"][-1]) / abs(single["objectives"][-1])
         psnr_diff = abs(meshed["psnr"] - single["psnr"])
-        log(f"[8/8] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
+        log(f"[8/9] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
             f"{meshed['evaluations']} evaluations, {meshed['launches']} launches; {meshed['seconds']:.3f} s meshed vs "
             f"{single['seconds']:.3f} s on one device; PSNR {meshed['psnr']:.2f} dB (start {meshed['psnr_start']:.2f}, "
             f"one device {single['psnr']:.2f}); max|diff| {diff:.2e}, L1 objective differs {objective_diff:.2e} "
@@ -1604,7 +1613,7 @@ def phase_mesh(device, rows):
     """The solve on a device mesh: band shards with the spectral halo, tiles
     with halo exchange, frame shards with refined motion."""
     devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    log(f"[8/8] mesh: shards are dealt over {len(devices)} visible card(s)")
+    log(f"[8/9] mesh: shards are dealt over {len(devices)} visible card(s)")
     degrade.reset_launch_counts()
     results = {}
 
@@ -1660,6 +1669,231 @@ def phase_mesh(device, rows):
     return results
 
 
+# ------------------------------------------------------------------- fused IRLS
+
+
+def _device_busy_ms(run, device):
+    """Milliseconds the device spent in kernels during ``run()`` (the sum of
+    every kernel's device time in one torch.profiler window, graph replays
+    included), or None if the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize(device)
+    busy = 0.0
+    for event in prof.key_averages():
+        device_us = getattr(event, "device_time_total", None)
+        if device_us is None:
+            device_us = getattr(event, "cuda_time_total", 0.0)
+        if str(getattr(event, "device_type", "")).endswith("CUDA") and device_us > 0:
+            busy += device_us
+    return busy / 1e3 if busy > 0 else None
+
+
+def _reserved_bytes(device):
+    """Device memory the caching allocator holds once unused cached blocks
+    are given back: live tensors and the private pools of live graphs."""
+    gc.collect()
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(device)
+
+
+def _timed(solver, x0):
+    device = solver.device
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    x = solver.solve(x0)
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0, x
+
+
+def _fused_solve(solver, x0, mode):
+    """One fused solve, with its launches held replay-aware: two kernel
+    launches (one count) per evaluation the replays ran, frozen chunk steps
+    included, in ``mode`` only, no plain version, no ``late`` flag."""
+    before, before_plain = dict(degrade.launch_counts), degrade.plain_version_calls["calls"]
+    seconds, x = _timed(solver, x0)
+    runs = solver.last_fused_runs
+    executed = sum(run["executed_evaluations"] for run in runs)
+    grown = {name: degrade.launch_counts[name] - before[name] for name in degrade.launch_counts}
+    check(grown == {name: executed if name == mode else 0 for name in grown},
+          f"fused {mode}: launches {grown}, but the replays ran {executed} evaluations")
+    check(degrade.plain_version_calls["calls"] == before_plain, f"fused {mode}: the solve called the plain version")
+    check(not solver.last_fused.late(), f"fused {mode}: a cost fold stopped waiting (late flag) in a replay")
+    for run in runs:
+        check(run["readbacks"] <= run["chunks"] + len(run["rounds"]),
+              f"fused {mode}: {run['readbacks']} read-backs for {run['chunks']} chunks and {len(run['rounds'])} rounds")
+    return seconds, x, executed
+
+
+def _same_solve(label, host, fused, x_host, x_fused):
+    """The fused solve against its host-loop twin: the same estimate and
+    shifts bit for bit, and the same iterations and evaluations per round."""
+    check([c[1:] for c in fused.last_inner_calls] == [c[1:] for c in host.last_inner_calls],
+          f"{label}: iterations and evaluations per round differ: {fused.last_inner_calls} vs {host.last_inner_calls}")
+    diff = float((x_fused - x_host).abs().max())
+    moved = float((fused.shifts - host.shifts).abs().max())
+    check(diff == 0.0 and moved == 0.0,
+          f"{label}: the fused solve differs from the host loop by {diff:.3e} in x, {moved:.3e} in the shifts")
+
+
+def fused_problems(device):
+    """The solves of the fused phase, float32 at full width: ``{label: (make,
+    mode, row)}``, ``make(fused) -> (solver, x0, gt)``, ``row`` the row of the
+    ``kernels`` line whose launches the solve makes."""
+    dtype = torch.float32
+    flagship = synthetic_scene(1, 1000, 1000, seed=2026)
+
+    def flagship_solver(options, reg):
+        def make(fused):
+            model, gt, lows = make_observations(flagship, FLAGSHIP_SHIFTS, 4, 3, 1.5, device, dtype)
+            solver = sr.IRLSMapSolver(dataclasses.replace(options, fused_irls=fused), model, lows, device=device,
+                                      dtype=dtype)
+            solver.add_regularizer(reg, 0.01)
+            return solver, lows[0].repeat_interleave(4, dim=-2).repeat_interleave(4, dim=-1), gt
+        return make
+
+    gt_rgb, lows_rgb = estimated_motion_problem(device)
+    estimated = sr.translational_registration(lows_rgb, device=device).as_array() * 4
+
+    def refined(fused):
+        solver = estimated_motion_solver(lows_rgb, estimated, 1, device)
+        solver.options.fused_irls = fused
+        return solver, linear_resize(lows_rgb[0], tuple(gt_rgb.shape[-2:])).contiguous(), gt_rgb
+
+    model64, gt64, lows64 = hyperspectral_problem(device)
+
+    def bands64(fused):
+        options = dataclasses.replace(fixed_iterations(20, 2), fused_irls=fused)
+        return (tv_solver(model64, lows64, True, options, device),
+                linear_resize(lows64[0], tuple(gt64.shape[-2:])).contiguous(), gt64)
+
+    return {
+        "flagship TV 1x1000x1000, 3 x 50": (flagship_solver(fixed_iterations(50, 3), TotalVariationRegularizer()),
+                                             "data_term_tv", "K2"),
+        "flagship BTV 1x1000x1000, 2 x 20": (flagship_solver(sr.IRLSMapSolverOptions(
+            least_squares_solver="linear_cg", max_num_solver_iterations=20, max_num_irls_iterations=2),
+            BilateralTotalVariationRegularizer(3, 0.5)), "data_term_btv", "K3"),
+        "refined estimated motion RGB 3x1000x1000, 4 x 50": (refined, "data_term_btv", "K4"),
+        "64-band 256x256 3D TV, 2 x 20": (bands64, "data_term_tv3d", "K6"),
+    }
+
+
+def phase_fused(device, rows, turns=5, chunk_turns=5):
+    """The fused IRLS solve (CUDA graphs of the linear-CG chunk, the IRLS
+    seam and the restart) beside the host loop on the same problems, in
+    turns: bit-equal estimates and shifts, equal iterations and evaluations,
+    launches counted through the replays, no late fold, one capture across
+    two solver instances of one shape; wall time, read-backs, graph captures
+    and replays of each. Then the chunk length in turns, and last (the
+    profiler's tracing can slow later launches) each solve's device busy
+    time."""
+    from super_resolution_tpu_torch.solvers import graphs, irls as irls_mod
+
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+    degrade.reset_launch_counts()
+    problems = fused_problems(device)
+    results = {}
+    launches = {}
+    for label, (make, mode, row) in problems.items():
+        counted = degrade.launch_counts[mode]
+        first, x0, gt = make(True)
+        reserved = _reserved_bytes(device)
+        captures = graphs.capture_counts["graphs"]
+        _, x_first, _ = _fused_solve(first, x0, mode)  # captures
+        pinned_mb = (_reserved_bytes(device) - reserved) / 2**20
+        captured = graphs.capture_counts["graphs"] - captures
+        second, _, _ = make(True)
+        _, x_second, _ = _fused_solve(second, x0, mode)
+        check(graphs.capture_counts["graphs"] == captures + captured,
+              f"{label}: a second solver instance of the same shape captured again")
+        reference, _, _ = make(False)
+        _, x_ref = _timed(reference, x0)
+        _same_solve(label, reference, first, x_ref, x_first)
+        _same_solve(label, reference, second, x_ref, x_second)
+        host_s, fused_s = [], []
+        for _ in range(turns):
+            host, _, _ = make(False)
+            seconds, x = _timed(host, x0)
+            check(torch.equal(x, x_ref), f"{label}: two host-loop solves differ")
+            host_s.append(seconds)
+            fused, _, _ = make(True)
+            seconds, x, executed = _fused_solve(fused, x0, mode)
+            _same_solve(label, host, fused, x_ref, x)
+            fused_s.append(seconds)
+        runs = fused.last_fused_runs
+        iterations = fused.last_inner_iterations
+        rounds = len(fused.last_inner_calls)
+        host_readbacks = iterations + 2 * rounds  # one per iteration and per inner solve's end, one per round
+        readbacks = sum(run["readbacks"] for run in runs)
+        replays = sum(run["replays"] for run in runs)
+        chunks = sum(run["chunks"] for run in runs)
+        evaluations = sum(c[2] for c in fused.last_inner_calls)
+        values = gt.numel() * iterations
+        med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
+        log(f"[9/9] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
+            f"fused == host loop bit for bit (x and shifts, {turns + 2} pairs)")
+        log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
+            f"[{min(fused_s):.4f}, {max(fused_s):.4f}] ({med_h / med_f:.2f}x); "
+            f"{values / med_h / 1e6:.0f} -> {values / med_f / 1e6:.0f} Mvalue-iterations/s")
+        log(f"      read-backs host {host_readbacks}, fused {readbacks} ({chunks} chunks of up to "
+            f"{runs[0]['chunk_iterations']} steps + {rounds} rounds); {captured} graphs captured by the first "
+            f"instance, 0 by the second; {replays} replays; {executed} evaluations run ({executed - evaluations} "
+            f"frozen), {executed} launch counts = {2 * executed} kernel launches; graphs and buffers pin "
+            f"{pinned_mb:.0f} MB; PSNR {float(psnr(x, gt)):.2f} dB")
+        results[label] = {"host_s": host_s, "fused_s": fused_s, "readbacks": readbacks,
+                          "host_readbacks": host_readbacks, "captures": captured, "replays": replays,
+                          "pinned_mb": pinned_mb, "psnr": float(psnr(x, gt))}
+        # The fused solves' launches (replays counted), the host loop's taken out.
+        launches[row] = degrade.launch_counts[mode] - counted - (turns + 1) * evaluations
+        check(launches[row] > 0, f"the fused {label} solve never launched {mode} ({row})")
+    for row in rows:
+        if row["row"] in launches:
+            row["launches_fused"] = launches[row["row"]]
+
+    # The chunk length, in turns: frozen steps cost evaluations, chunks cost read-backs.
+    default = irls_mod.CHUNK_ITERATIONS
+    study = {}
+    try:
+        for label in ("flagship TV 1x1000x1000, 3 x 50", "flagship BTV 1x1000x1000, 2 x 20",
+                      "64-band 256x256 3D TV, 2 x 20"):
+            make, mode, _ = problems[label]
+            x0 = make(True)[1]
+            lengths = sorted({8, 16, make(True)[0].options.max_num_solver_iterations})
+            for n in lengths:  # the captures
+                irls_mod.CHUNK_ITERATIONS = n
+                _fused_solve(make(True)[0], x0, mode)
+            for _ in range(chunk_turns):
+                for n in lengths:
+                    irls_mod.CHUNK_ITERATIONS = n
+                    solver = make(True)[0]
+                    study.setdefault((label, n), []).append(_fused_solve(solver, x0, mode)[0])
+                    frozen = sum(r["executed_evaluations"] - r["evaluations"] for r in solver.last_fused_runs)
+                    study[(label, n, "frozen")] = frozen
+            log(f"      chunk length, {label} (median of {chunk_turns} in turns): " + ", ".join(
+                f"{n} -> {float(np.median(study[(label, n)])):.4f} s ({study[(label, n, 'frozen')]} frozen)"
+                for n in lengths))
+    finally:
+        irls_mod.CHUNK_ITERATIONS = default
+    results["chunk_study"] = {f"{key[0]} N={key[1]}": value for key, value in study.items() if len(key) == 2}
+
+    # Device busy time per solve, host loop and fused, from the profiler.
+    fmt = lambda ms: "not measured" if ms is None else f"{ms:.2f} ms"  # noqa: E731
+    for label, (make, _, _) in problems.items():
+        host, x0, _ = make(False)
+        host_busy = _device_busy_ms(lambda: host.solve(x0), device)
+        fused = make(True)[0]
+        fused_busy = _device_busy_ms(lambda: fused.solve(x0), device)
+        results[label].update(host_busy_ms=host_busy, fused_busy_ms=fused_busy)
+        median = float(np.median(results[label]["fused_s"]))
+        share = "" if fused_busy is None else f" ({100 * fused_busy / 1e3 / median:.0f} % of the fused wall median)"
+        log(f"      device busy, {label}: host loop {fmt(host_busy)}, fused {fmt(fused_busy)}{share}")
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+    return results
+
 def per_kernel_table(rows):
     """Each hand-written kernel on each row: us per launch, its own bound,
     launches on the paths, and launches x (time - bound) in ms -- the ranking
@@ -1698,6 +1932,7 @@ def main():
         phase_estimated_motion(device, rows)
         phase_hyperspectral(device, rows)
         phase_mesh(device, rows)
+        phase_fused(device, rows)
     except Failure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1

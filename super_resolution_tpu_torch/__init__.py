@@ -9,7 +9,10 @@ with columns (dx, dy).
 Ported so far: the single-device MAP solve — image model, fused MAP
 objective (hand-written CUDA kernels on a CUDA tensor, their plain PyTorch
 version on a CPU tensor) with a fused 2D TV, 3D spectral TV or BTV term,
-linear-CG / Wolfe-CG inner solvers, IRLS host loop — with estimated motion
+linear-CG / Wolfe-CG inner solvers, IRLS host loop and the fused IRLS solve
+(``fused_irls``: on a CUDA device the linear-CG iterations and the IRLS seam
+replay as CUDA graphs, ``solvers/graphs.py``, with the built graphs kept
+across solver instances) — with estimated motion
 (phase-correlation registration, Gauss-Newton refinement of the shifts
 between IRLS rounds) and hyperspectral cubes (many bands in one objective,
 spectral PCA), the resizers, PSNR and SSIM — and the same solve on a device
@@ -32,7 +35,7 @@ from super_resolution_tpu_torch.motion.registration import (  # noqa: F401
     translational_registration,
 )
 from super_resolution_tpu_torch.parallel.mesh import make_mesh  # noqa: F401
-from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver  # noqa: F401
+from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver, irls_solve_fused  # noqa: F401
 from super_resolution_tpu_torch.solvers.map_solver import (  # noqa: F401
     IRLSMapSolverOptions,
     MapSolverOptions,

@@ -41,6 +41,20 @@ kernels' DIRECT instantiations take them (:func:`takes_direct`). For
 a CPU tensor it runs :func:`fused_objective_reference`, the plain version
 beside it, and counts nothing. No other condition selects the plain version.
 
+An evaluation on a CUDA tensor may be captured into a CUDA graph
+(``solvers/graphs.py``): it launches on ``torch.cuda.current_stream()``,
+which under capture is the capture stream; it neither synchronises nor
+copies between host and device when ``shifts`` is a float64 tensor and the
+blur a tensor already on the device; and its scratch (LR residual, gradient,
+partials, cost) comes from the graph's private memory pool, so a caller that
+keeps the cost or the gradient past the graph copies them into buffers of
+its own inside the capture. The shared-memory attribute the residual
+kernel's larger instantiations need is set on every launch, the warm-up
+before a capture included. Python counters see a capture once and a replay
+never: the graph records what its capture launched and the fold states
+those launches leave (:func:`recording_launches`), adds the launches to the
+counters on every replay (:func:`add_counts`), and reads the ``late`` flags.
+
 The least the kernels could take on an H100 is set by memory traffic (``x``,
 ``y``, the constants and the gradient each cross device memory once, the LR
 residual twice); the notes in ``csrc/degrade.cu`` give each kernel's design
@@ -51,9 +65,11 @@ and gradient kernels use away from the image border.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import math
+import types
 
 import numpy as np
 import torch
@@ -73,6 +89,8 @@ __all__ = [
     "shard_launch_counts",
     "plain_version_calls",
     "reset_launch_counts",
+    "add_counts",
+    "recording_launches",
     "fused_objective",
     "fused_objective_reference",
     "composite_taps",
@@ -100,10 +118,45 @@ shard_launch_counts: dict[str, int] = {"shard_mode": 0, "spectral_halo": 0}
 plain_version_calls: dict[str, int] = {"calls": 0}
 
 
+_COUNTERS = (launch_counts, shift_source_counts, shard_launch_counts, plain_version_calls)
+# Lists that the fold state of every launch is appended to while they are
+# open (see :func:`recording_launches`).
+_fold_recorders: list[list] = []
+
+
 def reset_launch_counts() -> None:
-    for counts in (launch_counts, shift_source_counts, shard_launch_counts, plain_version_calls):
+    for counts in _COUNTERS:
         for key in counts:
             counts[key] = 0
+
+
+def add_counts(delta) -> None:
+    """Add a :func:`recording_launches` record's ``counts`` to the counters:
+    a replay of a CUDA graph whose capture made those launches makes them
+    again."""
+    for counts, grown in zip(_COUNTERS, delta):
+        for key, n in grown.items():
+            counts[key] += n
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Launches made inside the block, taken back out of the counters when
+    it ends: the yielded record's ``counts`` (what every counter grew by, for
+    :func:`add_counts`) and ``folds`` (each launch's fold state,
+    ``FOLD_SLOTS``: tickets and the ``late`` flag). A CUDA graph that
+    captures the launches keeps the fold tensors: every replay rewrites them
+    in place."""
+    before = tuple(dict(counts) for counts in _COUNTERS)
+    record = types.SimpleNamespace(counts=None, folds=[])
+    _fold_recorders.append(record.folds)
+    try:
+        yield record
+    finally:
+        _fold_recorders.remove(record.folds)
+        record.counts = tuple({key: counts[key] - was[key] for key in counts} for counts, was in zip(_COUNTERS, before))
+        for counts, was in zip(_COUNTERS, before):
+            counts.update(was)
 
 
 def _mode_name(tv_constants, btv_constants, tv_use_3d=False) -> str:
@@ -500,6 +553,8 @@ def _launch(x, y, shifts, blur_kernel, scale, mode, constants, btv_range, btv_de
     shift_source_counts["device" if from_device else "host"] += 1
     shard_launch_counts["shard_mode"] += int(shard)
     shard_launch_counts["spectral_halo"] += int(spectral_halo)
+    for folds in _fold_recorders:
+        folds.append(partials[-FOLD_SLOTS:])
     return cost, grad, partials[:-FOLD_SLOTS], partials[-FOLD_SLOTS:]
 
 

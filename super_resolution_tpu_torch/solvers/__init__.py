@@ -2,7 +2,7 @@ from super_resolution_tpu_torch.solvers.map_solver import (  # noqa: F401
     IRLSMapSolverOptions,
     MapSolverOptions,
 )
-from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver  # noqa: F401
+from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver, irls_solve_fused  # noqa: F401
 from super_resolution_tpu_torch.solvers.least_squares import (  # noqa: F401
     MinimizeResult,
     minimize,

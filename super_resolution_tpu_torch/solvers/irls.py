@@ -39,14 +39,35 @@ takes and returns global ``[C, H, W]`` tensors. A mesh configuration that
 fits none of the sharded objectives raises ``ValueError``: there is no
 second path to fall to, and a quiet single-device solve would hide the mesh.
 
-Not ported yet: the fused on-device IRLS loop, checkpoint/resume and the
-cross-instance solver cache.
+``fused_irls`` runs the whole solve on the device (:func:`irls_solve_fused`,
+:class:`FusedIRLS`), as the JAX package's one XLA program does. On a CUDA
+device its steps are CUDA graphs (``solvers/graphs.py``): a *chunk* of
+``CHUNK_ITERATIONS`` linear-CG steps (``least_squares.linear_cg_step``, frozen
+once the inner solve is done; a shorter *tail* chunk ends an inner solve at
+its iteration cap, so only a stop test firing inside a chunk leaves frozen
+steps), the *seam* between two inner solves
+(reweighting into the objective's constant buffers, the motion refinement
+into its shift buffer when due, and the IRLS stop test), and the *restart*
+of the next inner solve. The host replays the chunk until the one small
+tensor it reads back says the inner solve is done, then the seam, then reads
+the stop test: one read-back per chunk and one per round, where the host
+loop reads one per iteration. The replays compute what the host loop
+computes, op for op. On the CPU the same steps run eagerly with the same
+read-backs. The captured graphs and their buffers are kept across solver
+instances in ``_BUILT_SOLVER_CACHE``: a new solver of the same shapes and
+options copies its observations, shifts and estimate into the buffers and
+replays without capturing again. ``fused_irls`` takes ``linear_cg`` only and
+no mesh (``ValueError`` otherwise).
+
+Not ported yet: checkpoint/resume.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -56,15 +77,304 @@ from super_resolution_tpu_torch.models.image_model import ImageModel
 from super_resolution_tpu_torch.motion.refinement import make_shift_refiner
 from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
 from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
-from super_resolution_tpu_torch.solvers.least_squares import minimize
+from super_resolution_tpu_torch.solvers.graphs import CapturedStep
+from super_resolution_tpu_torch.solvers.least_squares import (
+    LinearCGState,
+    linear_cg_done,
+    linear_cg_settings,
+    linear_cg_start,
+    linear_cg_step,
+    minimize,
+)
 from super_resolution_tpu_torch.solvers.map_solver import IRLSMapSolverOptions
 from super_resolution_tpu_torch.solvers.objective import make_map_value_and_grad
 from super_resolution_tpu_torch.solvers.solver import MapSolverBase
 
-__all__ = ["IRLSMapSolver", "IRLSMapSolverOptions"]
+__all__ = ["IRLSMapSolver", "IRLSMapSolverOptions", "irls_solve_fused", "FusedIRLS"]
 
 # Minimum residual for IRLS reweighting (``irls_map_solver.cpp:34``).
 _MIN_RESIDUAL = 1e-5
+
+# Linear-CG steps per replay of the fused solve's chunk graph (fewer in the
+# chunk that reaches the iteration cap). A step taken after a stop test
+# fired costs a frozen evaluation, a chunk costs a read-back: chosen on the
+# card among 8, 16 and the whole inner solve (PERF.md, section 5).
+CHUNK_ITERATIONS = 8
+
+
+def _reweight(regs, x):
+    """IRLS weights ``1 / max(1e-5, r(x))``, one per regulariser."""
+    return tuple(1.0 / torch.clamp(reg.residuals(x), min=_MIN_RESIDUAL) for reg, _ in regs)
+
+
+def _refinement(refine, x, observations, shifts):
+    """One refinement round: the refined ``[K, 2]`` float64 shifts and their
+    largest change (0-d), both on the device."""
+    refined = refine(x, observations, shifts).to(torch.float64)
+    return refined, (refined - shifts).abs().max()
+
+
+def _check_fusable(options, mesh=None) -> None:
+    if mesh is not None:
+        raise ValueError(
+            "fused_irls on a mesh is not ported yet (one graph per device waits for a run on four cards); "
+            "use the host loop (fused_irls=False) with a mesh.")
+    if options.least_squares_solver != "linear_cg":
+        raise ValueError(
+            f"fused_irls needs least_squares_solver='linear_cg', got {options.least_squares_solver!r}: the "
+            "Wolfe line search of 'cg' decides on the host after every evaluation, and 'lbfgs' is not "
+            "ported yet.")
+
+
+class FusedIRLS:
+    """The fused IRLS solve of one problem: its steps, captured as CUDA graphs
+    on a CUDA device, and the buffers they read and write.
+
+    ``objective``: ``make_map_value_and_grad(...).bind_static()``, whose
+    constant, shift and observation buffers the steps read. ``refiner``:
+    ``(x, shifts) -> (refined float64 shifts, max |change|)`` on the device,
+    or ``None``. ``x_like``: an estimate of the solve's shape, dtype and
+    device. The buffers are the linear-CG state (:class:`LinearCGState`), the
+    IRLS loop's scalars and :attr:`status`, the five float64 values the host
+    reads back: inner solve done, IRLS done, inner iterations and objective
+    evaluations so far, and the last cost.
+
+    What an entry pins: the objective's observations, one constant buffer
+    per regulariser and the shifts; the state's ``x``, ``g`` and ``d``; and
+    the memory pool its graphs share, which holds the largest scratch of any
+    one step (each evaluation's LR residual, gradient and partials, a step's
+    image-sized temporaries) plus the fold state of every captured
+    evaluation. chip_smoke.py measures it on an H100: about 130 MB at the
+    flagship (1x1000x1000 float32, 4 frames at 4x), 750 MB for RGB
+    3x1000x1000 with motion refinement and 260 MB for the 64-band 256x256
+    cube (4 frames at 2x), most of the RGB figure the refinement's scratch;
+    with 32 entries a cache of RGB solves pins about 24 GB. An entry dropped
+    from the cache frees all of it.
+    """
+
+    def __init__(self, objective, regularizers, x_like: torch.Tensor, options, refiner=None):
+        self.objective = objective
+        self.regs = tuple(regularizers)
+        self.refiner = refiner
+        self.settings = linear_cg_settings(
+            options.max_num_solver_iterations, options.gradient_norm_threshold, options.cost_decrease_threshold,
+            options.parameter_variation_threshold, options.linear_cg_refresh_every)
+        self.chunk_iterations = min(CHUNK_ITERATIONS, self.settings.max_iterations)
+        self.max_irls = options.max_num_irls_iterations or 10_000
+        self.refine_every = options.refine_motion_every if refiner is not None else 0
+        self.cost_threshold = options.irls_cost_difference_threshold
+        self.delta_threshold = options.refine_motion_delta_threshold
+        device, dtype = x_like.device, x_like.dtype
+
+        def scalar(kind):
+            return torch.zeros((), dtype=kind, device=device)
+
+        self.state = LinearCGState(
+            x=torch.zeros_like(x_like), f=scalar(dtype), g=torch.zeros_like(x_like), d=torch.zeros_like(x_like),
+            trial_scale=scalar(dtype), k=scalar(torch.int64), evaluations=scalar(torch.int64),
+            converged=scalar(torch.bool))
+        # The IRLS loop: the last round's cost, rounds done, inner iterations
+        # and evaluations of the rounds done, the last refinement's largest
+        # shift change, and the stop test.
+        self.prev_cost, self.delta = scalar(torch.float64), scalar(torch.float64)
+        self.rounds, self.iterations, self.evaluations = (scalar(torch.int64) for _ in range(3))
+        self.done = scalar(torch.bool)
+        self.status = torch.zeros(5, dtype=torch.float64, device=device)
+        buffers = [*self.state, self.prev_cost, self.delta, self.rounds, self.iterations, self.evaluations,
+                   self.done, self.status, objective.shifts, *(c for c in objective.constants if c is not None)]
+        # One memory pool for all the steps' graphs (see solvers/graphs.py).
+        pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
+        self._step = lambda fn: CapturedStep(fn, device, buffers, pool)  # noqa: E731
+        self.begin = self._step(self._begin)
+        self.restart = self._step(self._restart)
+        self.seam = self._step(lambda: self._seam(refine=False))
+        self.seam_refine = None if refiner is None else self._step(lambda: self._seam(refine=True))
+        # Chunk graphs by their number of steps: ``chunk_iterations``, and the
+        # shorter tail that ends an inner solve at its iteration cap.
+        self.chunks: dict[int, CapturedStep] = {}
+        self.last_run: dict = {}
+
+    @property
+    def steps(self) -> list[CapturedStep]:
+        fixed = (self.begin, self.restart, self.seam, self.seam_refine)
+        return [s for s in fixed if s is not None] + list(self.chunks.values())
+
+    def _chunk_of(self, n: int) -> CapturedStep:
+        step = self.chunks.get(n)
+        if step is None:
+            step = self.chunks[n] = self._step(lambda: self._chunk(n))
+        return step
+
+    # ------------------------------------------------------------ the steps
+
+    def _store(self, state: LinearCGState) -> None:
+        for buffer, value in zip(self.state, state):
+            if value is not buffer:
+                buffer.copy_(value)
+
+    def _publish(self) -> None:
+        values = (linear_cg_done(self.state, self.settings), self.done, self.iterations + self.state.k,
+                  self.evaluations + self.state.evaluations, self.state.f)
+        self.status.copy_(torch.stack([v.to(torch.float64) for v in values]))
+
+    def _restart(self) -> None:
+        self._store(linear_cg_start(self.objective, self.state.x, self.settings))
+        self._publish()
+
+    def _begin(self) -> None:
+        self.objective.set_weights(tuple(torch.ones_like(self.state.x) for _ in self.regs))
+        self.prev_cost.fill_(math.inf)
+        # inf until a refinement round has run: the requested refinement
+        # must run before the joint stop test can pass; 0 without one.
+        self.delta.fill_(math.inf if self.refiner is not None else 0.0)
+        for counter in (self.rounds, self.iterations, self.evaluations):
+            counter.zero_()
+        self.done.fill_(False)
+        self._restart()
+
+    def _chunk(self, n: int) -> None:
+        state = self.state
+        for _ in range(n):
+            state = linear_cg_step(self.objective, state, self.settings)
+        self._store(state)
+        self._publish()
+
+    def _seam(self, refine: bool) -> None:
+        x = self.state.x
+        cost = self.state.f.to(torch.float64)
+        self.iterations.add_(self.state.k)
+        self.evaluations.add_(self.state.evaluations)
+        self.state.k.zero_()
+        self.state.evaluations.zero_()
+        if refine:
+            shifts, delta = self.refiner(x, self.objective.shifts)
+            self.delta.copy_(delta)
+            self.objective.shifts.copy_(shifts)
+        if self.regs:
+            self.objective.set_weights(_reweight(self.regs, x))
+        difference = self.prev_cost - cost
+        self.prev_cost.copy_(cost)
+        self.rounds.add_(1)
+        if self.regs or self.refiner is not None:
+            # Converged only if the last refinement no longer moves the
+            # motion either, as in the host loop.
+            converged = (torch.abs(difference) < self.cost_threshold) & (self.delta < self.delta_threshold)
+            self.done.copy_(converged | (self.rounds >= self.max_irls))
+        else:
+            self.done.fill_(True)  # least squares alone: one inner solve
+        self._publish()
+
+    # ------------------------------------------------------------ the host
+
+    def run(self, x0, observations=None, shifts=None):
+        """One solve from ``x0``: ``(x, cost, inner iterations, shifts)``, each
+        a copy of what the buffers hold at the end. ``observations`` and
+        ``shifts``, when given, are copied into the objective's buffers first
+        (a solve of another problem of the same shapes). :attr:`last_run`
+        then holds per round ``(seconds, iterations, evaluations)`` and the
+        chunks, read-backs, replays and evaluations run (frozen steps
+        included) of the solve."""
+        self.state.x.copy_(x0)
+        if observations is not None:
+            self.objective.observations.copy_(observations)
+        if shifts is not None:
+            self.objective.shifts.copy_(shifts)
+        replays = sum(s.replays for s in self.steps)
+        rounds, chunks, steps, readbacks = [], 0, 0, 0
+        iterations = evaluations = 0
+        t0 = time.perf_counter()
+        self.begin()
+        while True:
+            k = 0  # iterations of this inner solve, as the last read-back said
+            while True:
+                # A chunk never runs past the iteration cap: only a stop test
+                # that fires inside a chunk leaves frozen steps.
+                n = min(self.chunk_iterations, self.settings.max_iterations - k)
+                self._chunk_of(n)()
+                chunks, steps, readbacks = chunks + 1, steps + n, readbacks + 1
+                inner_done, _, its, _, _ = self.status.tolist()
+                k = int(its) - iterations
+                if inner_done:
+                    break
+            r = len(rounds)
+            due = self.refine_every > 0 and (r + 1) % self.refine_every == 0 and r + 1 < self.max_irls
+            (self.seam_refine if due else self.seam)()
+            _, irls_done, its, evals, cost = self.status.tolist()
+            readbacks += 1
+            t1 = time.perf_counter()
+            rounds.append((t1 - t0, int(its) - iterations, int(evals) - evaluations))
+            t0, iterations, evaluations = t1, int(its), int(evals)
+            if irls_done:
+                break
+            self.restart()
+        self.last_run = {
+            "rounds": rounds, "chunks": chunks, "chunk_iterations": self.chunk_iterations, "readbacks": readbacks,
+            "replays": sum(s.replays for s in self.steps) - replays, "iterations": iterations,
+            "evaluations": evaluations, "executed_evaluations": len(rounds) + steps,
+            "cost": cost,
+        }
+        return self.state.x.clone(), self.state.f.clone(), iterations, self.objective.shifts.clone()
+
+    def late(self) -> bool:
+        """Whether the cost fold of any evaluation in any replay stopped
+        waiting for a partial (always ``False`` on the CPU). One read-back."""
+        flags = [s.late for s in self.steps if s.late is not None]
+        return bool(torch.stack(flags).amax()) if flags else False
+
+
+def irls_solve_fused(
+    value_and_grad_builder,
+    regularizers,
+    x0: torch.Tensor,
+    options: IRLSMapSolverOptions,
+    return_iterations: bool = False,
+    shifts0=None,
+    refiner=None,
+):
+    """The whole IRLS solve on the device; the JAX package's function of the same name.
+
+    ``value_and_grad_builder``: the objective made by
+    :func:`~super_resolution_tpu_torch.solvers.objective.make_map_value_and_grad`
+    (its ``prepare`` is the JAX builder's counterpart; here the solve binds it
+    once to buffers, ``bind_static``). Semantics as in the JAX package: no
+    regulariser and no refiner is one inner solve; ``max_num_irls_iterations``
+    0 means 10 000; the weights are ``1 / max(1e-5, r)``; with ``refiner``
+    ``(x, shifts) -> (new_shifts, max|change|)`` (and ``shifts0``) the shifts
+    are refined every ``refine_motion_every`` rounds, never when the
+    iteration cap is next, and the stop test needs both ``|cost change| <
+    irls_cost_difference_threshold`` and the last refinement's change under
+    ``refine_motion_delta_threshold`` (infinite until one has run). Returns
+    ``(x, cost)``, then the total inner iterations with
+    ``return_iterations``, then the refined shifts with ``refiner``.
+    ``least_squares_solver`` must be ``"linear_cg"``. On a CUDA device the
+    steps are captured and replayed as CUDA graphs (:class:`FusedIRLS`);
+    :class:`IRLSMapSolver` keeps them for later solves.
+    """
+    if refiner is not None and (shifts0 is None or options.refine_motion_every <= 0):
+        raise ValueError("refiner requires shifts0 and options.refine_motion_every > 0.")
+    _check_fusable(options)
+    fused = FusedIRLS(value_and_grad_builder.bind_static(), regularizers, x0, options, refiner)
+    x, cost, iterations, shifts = fused.run(x0, shifts=None if refiner is None else shifts0)
+    out = (x, cost)
+    if return_iterations:
+        out = out + (iterations,)
+    if refiner is not None:
+        out = out + (shifts,)
+    return out
+
+
+# Fused solves built ACROSS solver instances: a video window or a repeated
+# solve makes a new IRLSMapSolver, and building again would capture again.
+# Keyed by everything the graphs bake in: the channels per round, the
+# adjusted options, the regularisers, the blur, the scale, the shapes, dtype
+# and device, the chunk length (the shifts are buffer data, never baked). LRU-capped: each
+# entry pins its buffers and graph pools (FusedIRLS's docstring).
+_BUILT_SOLVER_CACHE: OrderedDict = OrderedDict()
+_BUILT_SOLVER_CACHE_MAX = 32
+
+
+def _regs_signature(regs):
+    return tuple((type(r).__name__, tuple(sorted(vars(r).items())), lam) for r, lam in regs)
 
 
 class IRLSMapSolver(MapSolverBase):
@@ -134,6 +444,8 @@ class IRLSMapSolver(MapSolverBase):
                 "refine_motion_every must be >= 0 and, when refining, refine_motion_iterations >= 1; got "
                 f"{opts.refine_motion_every} and {opts.refine_motion_iterations}."
             )
+        if opts.fused_irls:
+            _check_fusable(opts, self.mesh)
         if opts.refine_motion_every > 0 and self.mesh is not None and not self._pure_frame_mesh():
             raise ValueError(
                 "refine_motion_every on a mesh requires a pure frame mesh: spatial placements size "
@@ -143,6 +455,8 @@ class IRLSMapSolver(MapSolverBase):
 
         self.last_inner_iterations = 0
         self.last_inner_calls = []
+        if opts.fused_irls:
+            return self._solve_fused(x_full, opts, channels_per_split)
 
         results = []
         for i in range(num_rounds):
@@ -153,6 +467,56 @@ class IRLSMapSolver(MapSolverBase):
         return torch.cat(results, dim=0)
 
     # ------------------------------------------------------------------ internals
+
+    def _solve_fused(self, x_full, opts, channels_per_split):
+        """Each channel round through one cached :class:`FusedIRLS`
+        (``last_fused``); ``last_fused_runs`` keeps each round's
+        ``FusedIRLS.last_run``."""
+        fused = self.last_fused = self._build_fused_solver(opts, channels_per_split)
+        self.last_fused_runs = []
+        results = []
+        for i in range(self.num_channels // channels_per_split):
+            ch0, ch1 = i * channels_per_split, (i + 1) * channels_per_split
+            x, cost, iterations, shifts = fused.run(x_full[ch0:ch1], self.observations[:, ch0:ch1], self.shifts)
+            if opts.refine_motion_every > 0:
+                # Later channel rounds and later solve() calls start from the refined motion.
+                self.shifts = shifts
+            self.last_inner_iterations += iterations
+            self.last_inner_calls.extend(fused.last_run["rounds"])
+            self.last_fused_runs.append(fused.last_run)
+            if self.verbose:
+                print(f"Fused IRLS round {i} done; final loss {fused.last_run['cost']}.")
+            results.append(x)
+        return torch.cat(results, dim=0)
+
+    def _build_fused_solver(self, opts, channels_per_split):
+        """The :class:`FusedIRLS` for this solve, from ``_BUILT_SOLVER_CACHE`` or built."""
+        k, _, h, w = self.observations.shape
+        kern = self.blur_kernel
+        key = (
+            channels_per_split, repr(opts), _regs_signature(self.regularizers),
+            None if kern is None else (kern.shape, np.asarray(kern, dtype=np.float64).tobytes()),
+            self.scale, (k, channels_per_split, h, w), self.dtype, str(self.device), CHUNK_ITERATIONS,
+        )
+        fused = _BUILT_SOLVER_CACHE.get(key)
+        if fused is not None:
+            _BUILT_SOLVER_CACHE.move_to_end(key)
+            return fused
+        observations = torch.zeros((k, channels_per_split, h, w), dtype=self.dtype, device=self.device)
+        objective = make_map_value_and_grad(
+            observations, self.shifts, kern, self.scale, self.regularizers,
+            diff_mode=opts.diff_mode, device=self.device, dtype=self.dtype,
+        ).bind_static()
+        refiner = None
+        if opts.refine_motion_every > 0:
+            refine = make_shift_refiner(kern, self.scale, num_iterations=opts.refine_motion_iterations)
+            refiner = lambda x, shifts: _refinement(refine, x, objective.observations, shifts)  # noqa: E731
+        x_like = torch.zeros((channels_per_split,) + self.hr_shape[1:], dtype=self.dtype, device=self.device)
+        fused = FusedIRLS(objective, self.regularizers, x_like, opts, refiner)
+        _BUILT_SOLVER_CACHE[key] = fused
+        while len(_BUILT_SOLVER_CACHE) > _BUILT_SOLVER_CACHE_MAX:
+            _BUILT_SOLVER_CACHE.popitem(last=False)
+        return fused
 
     def _pure_frame_mesh(self) -> bool:
         """True when every mesh axis but ``frame`` has size 1: the placement
@@ -242,10 +606,7 @@ class IRLSMapSolver(MapSolverBase):
         return inner
 
     def _reweight(self, x):
-        return tuple(
-            1.0 / torch.clamp(reg.residuals(x), min=_MIN_RESIDUAL)
-            for reg, _ in self.regularizers
-        )
+        return _reweight(self.regularizers, x)
 
     def _run_irls_loop(self, inner, x0, observations, opts):
         """IRLS outer loop on the host around the inner solve, with the
@@ -283,9 +644,8 @@ class IRLSMapSolver(MapSolverBase):
             if refined_now:
                 # Enqueued before the read-back below, so its scalar rides
                 # the round's one synchronisation.
-                refined = refiner(x_whole, observations, self.shifts).to(torch.float64)
-                scalars.append((refined - self.shifts).abs().max())
-                self.shifts = refined
+                self.shifts, delta = _refinement(refiner, x_whole, observations, self.shifts)
+                scalars.append(delta)
             values = torch.stack(scalars).tolist()  # waits for the device: the solve is done
             t_call = time.perf_counter() - t_inner
             cost = values[0]

@@ -7,8 +7,12 @@ user-supplied fused cost+gradient function and do their vector algebra
 device. The JAX package runs each solver as one ``lax.while_loop``; here the
 loop is a Python loop that makes the same decisions in the same order:
 
-- ``linear_cg`` keeps every scalar as a 0-d tensor on the device and reads
-  back one boolean (``converged``) per iteration;
+- ``linear_cg`` is one step function, :func:`linear_cg_step`, whose every
+  scalar and decision (the iteration count and the stop flags included) is
+  a 0-d tensor on the device; :func:`minimize` calls it in a Python loop and
+  reads back the stop flag once per iteration, and the fused IRLS solve
+  (``solvers/irls.py``) replays the same step in CUDA graphs of a chunk of
+  iterations and reads back once per chunk;
 - ``cg`` (Polak-Ribiere+ with a strong-Wolfe line search) reads the line
   search's two scalars back per evaluation and runs its state machine in
   float64 on the host.
@@ -41,7 +45,18 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["minimize", "MinimizeResult", "LineSearchConfig", "wolfe_line_search"]
+__all__ = [
+    "minimize",
+    "MinimizeResult",
+    "LineSearchConfig",
+    "wolfe_line_search",
+    "LinearCGSettings",
+    "LinearCGState",
+    "linear_cg_settings",
+    "linear_cg_start",
+    "linear_cg_step",
+    "linear_cg_done",
+]
 
 
 def _vdot(a, b):
@@ -195,17 +210,68 @@ def wolfe_line_search(
     return float(a_star), float(phi_star), g_star, found, it
 
 
-def _minimize_linear_cg(
-    value_and_grad: Callable,
-    x0: torch.Tensor,
+class LinearCGSettings(NamedTuple):
+    """The constants of a linear-CG solve (``max_iterations`` already capped)."""
+
+    max_iterations: int
+    eps_g: float
+    eps_f: float
+    eps_x: float
+    refresh_every: int
+
+
+class LinearCGState(NamedTuple):
+    """What one linear-CG iteration hands the next, every field on the state's
+    device: the estimate, its (extrapolated) cost and gradient, the search
+    direction, the next iteration's trial scale (``1 / |g|`` before the
+    first, then the last step length clamped to ``[1e-12, 1e12]``), the
+    iterations and objective evaluations so far (0-d int64) and whether a
+    stop test has fired (0-d bool)."""
+
+    x: torch.Tensor
+    f: torch.Tensor
+    g: torch.Tensor
+    d: torch.Tensor
+    trial_scale: torch.Tensor
+    k: torch.Tensor
+    evaluations: torch.Tensor
+    converged: torch.Tensor
+
+
+def linear_cg_settings(
     max_iterations: int,
-    eps_g: float,
-    eps_f: float,
-    eps_x: float,
+    gradient_norm_threshold: float,
+    cost_decrease_threshold: float,
+    parameter_variation_threshold: float,
     refresh_every: int,
-    log_iterations: bool,
-) -> MinimizeResult:
-    """Exact-step CG for the (piecewise-)quadratic IRLS inner subproblem.
+) -> LinearCGSettings:
+    """:func:`minimize`'s arguments as the linear-CG step reads them."""
+    return LinearCGSettings(
+        max_iterations if max_iterations > 0 else 10_000,  # "0 = unlimited" with a safety bound
+        float(gradient_norm_threshold), float(cost_decrease_threshold),
+        float(parameter_variation_threshold), max(1, int(refresh_every)),
+    )
+
+
+def linear_cg_start(value_and_grad: Callable, x0, settings: LinearCGSettings) -> LinearCGState:
+    """The state before the first iteration: one evaluation at ``x0``, the
+    steepest-descent direction, the gradient-norm test already applied, and
+    the first iteration's trial scale ``1 / |g|``."""
+    f, g = value_and_grad(x0)
+    norm = torch.sqrt(_vdot(g, g))
+    count = _scalar_like(x0, 0.0).to(torch.int64)
+    return LinearCGState(x=x0, f=f.to(x0.dtype), g=g, d=-g, trial_scale=1.0 / torch.clamp(norm, min=1e-12),
+                         k=count, evaluations=count + 1, converged=norm <= settings.eps_g)
+
+
+def linear_cg_done(state: LinearCGState, settings: LinearCGSettings):
+    """0-d bool: a stop test has fired or the iteration cap is reached."""
+    return state.converged | (state.k >= settings.max_iterations)
+
+
+def linear_cg_step(value_and_grad: Callable, state: LinearCGState, settings: LinearCGSettings,
+                   masked: bool = True) -> LinearCGState:
+    """One exact-step CG iteration for the (piecewise-)quadratic IRLS inner subproblem.
 
     With the IRLS weights fixed, the MAP inner objective is quadratic in
     ``x`` except on the measure-zero sign-crossing set of the TV/BTV forward
@@ -227,96 +293,115 @@ def _minimize_linear_cg(
     recovers. Directions update with Polak-Ribiere+ exactly as the ``"cg"``
     method.
 
-    Scalars stay 0-d tensors on ``x0``'s device; the loop reads back only
-    ``converged``, once per iteration. The gradient-norm and step-size checks
-    are left out of the loop when their thresholds are 0.
+    Every decision is a 0-d tensor on the state's device and nothing is read
+    back, so a run of steps can be captured into a CUDA graph. ``masked``:
+    the step may be taken once :func:`linear_cg_done` holds (a chunk of the
+    fused solve), and is then FROZEN: it still spends its evaluation, but
+    its step length, blend and the gradient's share of the new direction are
+    0 (the old direction's 1), so it returns the state it was given with
+    ``k`` and the evaluation count unchanged. The mask lives in those
+    scalars, not in full-array selects, and an active step computes the same
+    values, bit for bit, as an unmasked one (``masked=False``: the host loop,
+    which never steps a done state). The gradient-norm and step-size checks
+    are left out when their thresholds are 0.
     """
-    dtype = x0.dtype
-    f, g = value_and_grad(x0)
-    f = f.to(dtype)
+    x, f, g, d, t, k, n_evals, converged = state
+    dtype = x.dtype
     tiny = 1e-300 if dtype == torch.float64 else 1e-30
-    check_g = eps_g > 0.0
-    check_x = eps_x > 0.0
+    active = (~converged & (k < settings.max_iterations)) if masked else None
 
-    x = x0
-    d = -g
-    alpha_prev = _scalar_like(x0, 0.0)
-    one = _scalar_like(x0, 1.0)
-    zero = _scalar_like(x0, 0.0)
-    converged = bool(_norm(g) <= eps_g)
-    k = 0
-    n_evals = 1
+    def gate(flag):
+        return flag if active is None else flag & active
 
-    while k < max_iterations and not converged:
-        # Second-order scalars off the carried arrays: <g,d> and <g,g> (the
-        # latter serves the descent restart, the k=0 bootstrap scale, AND the
-        # PR+ denominator).
-        dphi = _vdot(g, d)
-        gg = _vdot(g, g)
-        # Restart with steepest descent if d is not a descent direction.
-        bad_dir = dphi >= 0
-        d = torch.where(bad_dir, -g, d)
-        dphi = torch.where(bad_dir, -gg, dphi)
+    # Second-order scalars off the carried arrays: <g,d> and <g,g> (the
+    # latter serves the descent restart AND the PR+ denominator).
+    dphi = _vdot(g, d)
+    gg = _vdot(g, g)
+    # Restart with steepest descent if d is not a descent direction.
+    bad_dir = gate(dphi >= 0)
+    d = torch.where(bad_dir, -g, d)
+    dphi = torch.where(bad_dir, -gg, dphi)
 
-        # Trial scale for the secant: the previous accepted step is the right
-        # order of magnitude (keeps the gradient difference well above
-        # rounding); 1/|g| bootstraps iteration 0.
-        if k == 0:
-            t = 1.0 / torch.clamp(torch.sqrt(gg), min=1e-12)
-        else:
-            t = torch.clamp(alpha_prev, 1e-12, 1e12)
-        f_t, g_t = value_and_grad(x + t * d)
-        f_t = f_t.to(dtype)
-        dg = g_t - g                       # = t * H d for quadratics
-        dhd = _vdot(d, dg) / t
+    # Trial scale t for the secant: the previous accepted step is the right
+    # order of magnitude (keeps the gradient difference well above
+    # rounding); 1/|g| (linear_cg_start) bootstraps iteration 0.
+    f_t, g_t = value_and_grad(x + t * d)
+    f_t = f_t.to(dtype)
+    dg = g_t - g                       # = t * H d for quadratics
+    dhd = _vdot(d, dg) / t
 
-        pos = dhd > tiny
-        alpha_exact = -dphi / torch.where(pos, dhd, one)
-        # Drift refresh: every refresh_every-th iteration accept the trial
-        # point outright. Nonpositive curvature along d (sign-boundary
-        # crossings / rounding on this convex objective) also takes the trial
-        # when it decreased f, else stalls.
-        refresh_due = (k + 1) % refresh_every == 0
-        took_trial = (~pos) & (f_t < f)
-        if refresh_due:
-            took_trial = torch.ones_like(took_trial)
-        alpha = torch.where(took_trial, t, torch.where(pos, alpha_exact, zero))
+    pos = dhd > tiny
+    alpha_exact = -dphi / torch.where(pos, dhd, 1.0)
+    # Drift refresh: every refresh_every-th iteration accept the trial
+    # point outright. Nonpositive curvature along d (sign-boundary
+    # crossings / rounding on this convex objective) also takes the trial
+    # when it decreased f, else stalls.
+    k_next = k + 1
+    refresh_due = torch.remainder(k_next, settings.refresh_every) == 0
+    took_trial = gate(((~pos) & (f_t < f)) | refresh_due)
+    alpha = torch.where(took_trial, t, torch.where(gate(pos), alpha_exact, 0.0))
 
-        # SCALAR blend covers every case with no full-array selects:
-        # g_new = g + c*dg is the affine extrapolation for c = alpha/t and
-        # EXACTLY g_t for c = 1 (the accepted trial).
-        c = torch.where(took_trial, one, alpha / t)
-        x_new = x + alpha * d
-        g_new = g + c * dg
-        f_lin = f + alpha * dphi + 0.5 * alpha * alpha * dhd
-        f_new = torch.where(took_trial, f_t, f_lin)
+    # SCALAR blend covers every case with no full-array selects:
+    # g_new = g + c*dg is the affine extrapolation for c = alpha/t and
+    # EXACTLY g_t for c = 1 (the accepted trial).
+    c = torch.where(took_trial, 1.0, alpha / t)
+    x_new = x + alpha * d
+    g_new = g + c * dg
+    f_lin = f + alpha * dphi + 0.5 * alpha * alpha * dhd
+    f_new = torch.where(took_trial, f_t, f_lin if active is None else torch.where(active, f_lin, f))
 
-        # Polak-Ribiere+: g_new - g = c*dg, so the numerator reuses dg.
-        beta = c * _vdot(g_new, dg) / torch.clamp(gg, min=tiny)
-        beta = torch.clamp(beta, min=0.0)
+    # Polak-Ribiere+: g_new - g = c*dg, so the numerator reuses dg.
+    beta = c * _vdot(g_new, dg) / torch.clamp(gg, min=tiny)
+    beta = torch.clamp(beta, min=0.0)
+    if active is None:
         d_new = -g_new + beta * d
+    else:
+        d_new = -active.to(dtype) * g_new + torch.where(active, beta, 1.0) * d
 
-        stalled = alpha == 0.0
-        f_small = torch.abs(f - f_new) <= eps_f * torch.clamp(
-            torch.maximum(torch.abs(f), torch.abs(f_new)), min=1.0
-        )
-        conv = f_small | stalled
-        if check_g:
-            conv = conv | (_norm(g_new) <= eps_g)
-        if check_x:
-            conv = conv | (torch.abs(alpha) * _norm(d) <= eps_x)
+    stalled = alpha == 0.0
+    f_small = torch.abs(f - f_new) <= settings.eps_f * torch.clamp(
+        torch.maximum(torch.abs(f), torch.abs(f_new)), min=1.0
+    )
+    conv = f_small | stalled
+    if settings.eps_g > 0.0:
+        conv = conv | (_norm(g_new) <= settings.eps_g)
+    if settings.eps_x > 0.0:
+        conv = conv | (torch.abs(alpha) * _norm(d) <= settings.eps_x)
 
+    next_scale = torch.clamp(torch.abs(alpha), 1e-12, 1e12)
+    if active is None:
+        return LinearCGState(x=x_new, f=f_new, g=g_new, d=d_new, trial_scale=next_scale, k=k_next,
+                             evaluations=n_evals + 1, converged=conv)
+    taken = active.to(torch.int64)
+    return LinearCGState(
+        x=x_new, f=f_new, g=g_new, d=d_new, trial_scale=torch.where(active, next_scale, t),
+        k=k + taken, evaluations=n_evals + taken, converged=converged | (conv & active),
+    )
+
+
+def _minimize_linear_cg(
+    value_and_grad: Callable,
+    x0: torch.Tensor,
+    settings: LinearCGSettings,
+    log_iterations: bool,
+) -> MinimizeResult:
+    """:func:`linear_cg_step` until :func:`linear_cg_done`, reading back the
+    stop flag once per iteration and counting the iterations on the host as
+    well (the fused IRLS solve replays the same steps in chunks and reads
+    back once per chunk, ``solvers/irls.py``)."""
+    state = linear_cg_start(value_and_grad, x0, settings)
+    k = 0
+    converged = bool(state.converged)
+    while k < settings.max_iterations and not converged:
+        state = linear_cg_step(value_and_grad, state, settings, masked=False)
         k += 1
-        n_evals += 1
-        x, f, g, d = x_new, f_new, g_new, d_new
-        alpha_prev = torch.abs(alpha)
         if log_iterations:
-            print(f"Iteration complete ({k}). Sum of squared residuals = {float(f)}")
-        converged = bool(conv)  # the one host readback of the iteration
+            print(f"Iteration complete ({k}). Sum of squared residuals = {float(state.f)}")
+        converged = bool(state.converged)  # the one host readback of the iteration
 
     return MinimizeResult(
-        x=x, cost=f, grad_norm=_norm(g), iterations=k,
-        converged=converged, num_evaluations=n_evals,
+        x=state.x, cost=state.f, grad_norm=_norm(state.g), iterations=k,
+        converged=converged, num_evaluations=k + 1,
     )
 
 
@@ -421,16 +506,15 @@ def minimize(
         )
     if method == "lbfgs":
         raise NotImplementedError("method 'lbfgs' is not ported yet; use 'cg' or 'linear_cg'.")
+    if method == "linear_cg":
+        settings = linear_cg_settings(max_iterations, gradient_norm_threshold, cost_decrease_threshold,
+                                      parameter_variation_threshold, linear_cg_refresh_every)
+        return _minimize_linear_cg(value_and_grad, x0, settings, log_iterations)
     if max_iterations <= 0:
         max_iterations = 10_000  # "0 = unlimited" with a safety bound
     eps_g = float(gradient_norm_threshold)
     eps_f = float(cost_decrease_threshold)
     eps_x = float(parameter_variation_threshold)
-    if method == "linear_cg":
-        return _minimize_linear_cg(
-            value_and_grad, x0, max_iterations, eps_g, eps_f, eps_x,
-            max(1, linear_cg_refresh_every), log_iterations,
-        )
     return _minimize_cg(
         value_and_grad, x0, max_iterations, eps_g, eps_f, eps_x, log_iterations,
         line_search or LineSearchConfig(c2=0.4),

@@ -3,9 +3,11 @@
 
 The JAX package's kernel-routing fields (``use_pallas_data_term``,
 ``use_static_shifts``, ``pallas_tile``, ``pallas_shift_bound``,
-``pallas_channel_block``, ``fused_irls``) have no counterpart: the port's
-objective is the CUDA kernel on a CUDA tensor and the plain version on a CPU
-tensor. In particular there is no shift bound: the TPU kernel's
+``pallas_channel_block``) have no counterpart: the port's objective is the
+CUDA kernel on a CUDA tensor and the plain version on a CPU tensor.
+``fused_irls`` routes the solve through ``irls_solve_fused`` as in the JAX
+package; on a CUDA device its steps replay as CUDA graphs
+(``solvers/irls.py``). In particular there is no shift bound: the TPU kernel's
 shift-generic mode compiled one program per |shift| bucket and clipped
 refined shifts to it; the CUDA kernels read any shift from device memory, so
 refined motion is never clipped. L-BFGS (``num_lbfgs_hessian_corrections``)
@@ -37,6 +39,12 @@ class MapSolverOptions:
     # 'numerical' are not ported yet.
     diff_mode: str = "analytic"
     split_channels: bool = False
+    # Run the whole IRLS solve on the device (irls_solve_fused): the inner
+    # linear-CG iterations, the reweighting, the motion refinement and the
+    # stop tests replay as CUDA graphs, and the host reads back one small
+    # tensor per chunk of iterations instead of one per iteration. Needs
+    # least_squares_solver='linear_cg' and no mesh.
+    fused_irls: bool = False
 
     def adjust_thresholds_adaptively(
         self, num_parameters: int, regularization_parameter_sum: float

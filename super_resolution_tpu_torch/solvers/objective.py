@@ -97,7 +97,9 @@ def make_map_value_and_grad(
     when ``shifts`` is given, uses that ``[K, 2]`` tensor instead of the
     shifts given here: motion refined on the device reaches the kernels as
     it is, and nothing is rebuilt. ``value_and_grad(x, weights, shifts)``
-    does the same per call.
+    does the same per call. ``value_and_grad.bind_static()`` binds it once to
+    buffers that later calls update in place (the fused IRLS solve's CUDA
+    graphs read them; see its docstring).
 
     ``diff_mode`` other than ``"analytic"`` is not ported yet.
     """
@@ -123,38 +125,66 @@ def make_map_value_and_grad(
     # device memory.
     psf = kernel_np if device.type == "cpu" else kernel_t
 
-    def bind(weights, shifts=None):
-        weights = tuple(weights)
-        motion = shifts_t if shifts is None else as_tensor(shifts, device, torch.float64).reshape(-1, 2)
+    def bound(motion, constants):
+        """The objective at these shifts and per-regulariser ``lambda * w``
+        constants (``None`` for a term whose parameter is not positive)."""
 
         def objective(x, **fused):
             return fused_objective(x, obs, motion, psf, scale, **fused)
 
         if fuse_tv:
-            constants = (regs[0][1] * weights[0]).contiguous()
-            return lambda x: objective(x, tv_constants=constants, tv_use_3d=regs[0][0].use_3d)
+            return lambda x: objective(x, tv_constants=constants[0], tv_use_3d=regs[0][0].use_3d)
         if fuse_btv:
-            reg, lam = regs[0]
-            constants = (lam * weights[0]).contiguous()
+            reg = regs[0][0]
             return lambda x: objective(
-                x, btv_constants=constants, btv_range=reg.scale_range, btv_decay=reg.spatial_decay
+                x, btv_constants=constants[0], btv_range=reg.scale_range, btv_decay=reg.spatial_decay
             )
-        terms = [(reg, lam * w) for (reg, lam), w in zip(regs, weights) if lam > 0.0]
+        terms = [(reg, c) for (reg, lam), c in zip(regs, constants) if lam > 0.0]
 
         def unfused(x):
             cost, grad = objective(x)
-            for reg, constants in terms:
-                c, g = reg.cost_and_grad(x, constants)
-                cost = cost + c
-                grad = grad + g
+            for reg, c in terms:
+                c_reg, g_reg = reg.cost_and_grad(x, c)
+                cost = cost + c_reg
+                grad = grad + g_reg
             return cost, grad
 
         return unfused
+
+    def bind(weights, shifts=None):
+        motion = shifts_t if shifts is None else as_tensor(shifts, device, torch.float64).reshape(-1, 2)
+        constants = tuple((lam * w).contiguous() if lam > 0.0 else None for (_, lam), w in zip(regs, weights))
+        return bound(motion, constants)
+
+    def bind_static():
+        """The objective bound to buffers whose addresses never change, for
+        a solve captured into CUDA graphs: ``.constants`` (one ``lambda * w``
+        buffer of ``x``'s shape per regulariser, ``None`` where the parameter
+        is not positive), ``.shifts`` (a ``[K, 2]`` float64 buffer, starting
+        as the shifts given here) and ``.observations`` (the stack it reads).
+        ``.set_weights(weights)`` writes ``lambda * w`` into the constants in
+        place; whoever writes ``.shifts`` or ``.observations`` in place
+        changes what every later evaluation, and every replay, reads."""
+        k, c, h, w = obs.shape
+        constants = tuple(
+            torch.empty((c, h * scale, w * scale), dtype=dtype, device=device) if lam > 0.0 else None
+            for _, lam in regs)
+        motion = shifts_t.clone()
+        fn = bound(motion, constants)
+
+        def set_weights(weights):
+            for (_, lam), buffer, weight in zip(regs, constants, weights):
+                if buffer is not None:
+                    torch.mul(weight, lam, out=buffer)
+
+        fn.constants, fn.shifts, fn.observations, fn.set_weights = constants, motion, obs, set_weights
+        return fn
 
     def value_and_grad(x, weights=(), shifts=None):
         return bind(weights, shifts)(x)
 
     value_and_grad.prepare = bind
+    value_and_grad.bind_static = bind_static
     return value_and_grad
 
 

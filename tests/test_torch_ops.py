@@ -353,6 +353,26 @@ def test_evaluate_hands_fused_objective_s_arguments_to_one_evaluation(fake_libra
     assert cost.shape == () and grad.shape == x.shape
 
 
+
+def test_launches_recorded_for_a_graph_are_taken_out_and_added_back(fake_library):
+    """What a CUDA graph's capture launches is recorded and taken back out of
+    the counters (a capture runs nothing); each replay adds it again, and the
+    record keeps every launch's fold state, which the replays rewrite."""
+    x, y, shifts, constants = _wrapper_problem()
+    before = dict(degrade.launch_counts), dict(degrade.shift_source_counts)
+    with degrade.recording_launches() as record:
+        _, _, _, fold = degrade._launch(x, y, shifts, None, 2, "data_term_tv", constants, 0, 1.0,
+                                        (0, 0, 12, 16), False, None, False)
+    assert (degrade.launch_counts, degrade.shift_source_counts) == before
+    assert record.counts[0] == {name: int(name == "data_term_tv") for name in degrade.KERNEL_NAMES}
+    assert [f.data_ptr() for f in record.folds] == [fold.data_ptr()]
+    for _ in range(2):
+        degrade.add_counts(record.counts)
+    assert degrade.launch_counts["data_term_tv"] == before[0]["data_term_tv"] + 2
+    assert sum(degrade.shift_source_counts.values()) == sum(before[1].values()) + 2
+    degrade._launch(x, y, shifts, None, 2, "data_term_tv", constants, 0, 1.0, (0, 0, 12, 16), False, None, False)
+    assert len(record.folds) == 1  # nothing is recorded once the block has ended
+
 def test_wrapper_modes_and_range_are_the_kernel_source_s():
     import re
     text = (cuda_build.CSRC_DIR / "degrade.cu").read_text()
