@@ -40,7 +40,18 @@ width:
   iterations and evaluations, the kernels' launches counted through the
   replays, no late cost fold, one capture across two solver instances, and
   no more read-backs than chunks plus rounds; wall and device time of each,
-  and the chunk length.
+  and the chunk length;
+- the inner solvers with a line search under the fused solve (``cg``, the
+  reference's default, and ``lbfgs``: chunks of line-search trials replayed
+  as CUDA graphs) beside the host loop, in turns, on the flagship TV and BTV
+  solves and (``cg``) the refined estimated-motion solve, held as above and to
+  PSNR >= nearest + 1 dB; their wall, device time, read-backs, evaluations
+  per iteration, frozen evaluations, graph nodes per step and pinned memory,
+  and how far fused ``cg``'s PSNR lies from fused ``linear_cg``'s. The
+  goldens also run through the fused solve, and the gradient modes
+  (``autodiff``, ``numerical``) on the card against the same solves on the CPU
+  (``autodiff`` also through ``fused_irls``, bit-equal to the host loop;
+  ``numerical`` held to a bound derived from the problem).
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -88,6 +99,7 @@ try:
     from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
     from super_resolution_tpu_torch.parallel import Sharded, collectives, make_mesh, make_sharded_vg, required_halo
     from super_resolution_tpu_torch.solvers.least_squares import minimize
+    from super_resolution_tpu_torch.solvers.objective import make_map_value_and_grad
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -197,7 +209,7 @@ def load_golden(name):
 
 
 def phase_environment():
-    log(f"[1/9] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
+    log(f"[1/10] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"torch CUDA {torch.version.cuda}")
     nvcc = build.find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60).stdout
@@ -218,7 +230,7 @@ def phase_build():
     t0 = time.perf_counter()
     results = build.build()
     for name, info in results.items():
-        log(f"[2/9] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
+        log(f"[2/10] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
     log(f"      build total {time.perf_counter() - t0:.1f} s")
 
@@ -377,7 +389,7 @@ def _check_shift_generic(device, dtype):
     check(degrade.shift_source_counts == {"device": launches // 2, "host": launches // 2},
           f"shift sources miscounted: {degrade.shift_source_counts} for {launches} launches")
     check(len(list(build.build_dir().glob("libdegrade_*.so"))) == 1, "the kernels were built more than once")
-    log(f"[3/9] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
+    log(f"[3/10] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
         f"bit-equal to host shifts, one build")
 
 
@@ -603,7 +615,7 @@ def _check_shard_mode(device, dtype):
                               f"shard mode {mode} {dtype} s={scale} shifts {shifts} tile {coords} "
                               f"{'owned mask' if mask is not None else 'default mask'}: cost {cost_err:.3e}, "
                               f"grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/9] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
+    log(f"[3/10] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
         f"x 2 masks) agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
@@ -625,7 +637,7 @@ def _check_spectral_halo(device, dtype):
               f"spectral halo {dtype} C={c}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
         plain_tv3d = degrade.fused_objective(x, y, sh, kern, 2, tv_constants=constants, tv_use_3d=True)
         check(not torch.equal(out[1][-1], plain_tv3d[1][-1]), "the halo band was not taken out of the data term")
-    log(f"[3/9] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
+    log(f"[3/10] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
 
@@ -640,7 +652,7 @@ def _check_trivial_shard_arguments(device, dtype):
         in_shard_mode = degrade.fused_objective(x, y, sh, kern, 4, origin=(0, 0), global_hw=hw, **kw)
         check(float(plain_launch[0]) == float(in_shard_mode[0]) and torch.equal(plain_launch[1], in_shard_mode[1]),
               f"{mode} {dtype}: trivial shard arguments change the bits")
-    log(f"[3/9] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
+    log(f"[3/10] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
         f"{len(degrade.KERNEL_NAMES)} modes in {dtype}")
 
 
@@ -669,7 +681,7 @@ def _check_assembled(device, dtype):
         cost_err, grad_err, _ = _errors(vg(x, (weights,)), degrade.fused_objective(x, y, sh, kern, scale, **kw))
         check(cost_err <= tol and grad_err <= tol,
               f"assembled {axes} {dtype} case {n}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/9] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
+    log(f"[3/10] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
         f"by gather, scatter-sum and band ring == the unsharded kernels in {dtype} (tol {tol:g})")
 
 
@@ -739,9 +751,10 @@ def _check_btv_sweep(device, dtype):
                 held(degrade.fused_objective(*args, **kw), args, kw,
                      f"P={P} decay={decay} s={scale} {frames} frames tile {coords} "
                      f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/9] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images each, "
-        f"bit-equal when launched twice; {BTV_MANY_FRAMES} frames on 2 whole images; {len(BTV_SWEEP_TILES)} x 5 shard "
-        f"tiles x 2 masks, one with {BTV_MANY_FRAMES} frames) agree with the plain version in {dtype} (tol {tol:g})")
+    log(f"[3/10] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images "
+        f"each, bit-equal when launched twice; {BTV_MANY_FRAMES} frames on 2 whole images; "
+        f"{len(BTV_SWEEP_TILES)} x 5 shard tiles x 2 masks, one with {BTV_MANY_FRAMES} frames) agree with the "
+        f"plain version in {dtype} (tol {tol:g})")
     return worst
 
 
@@ -779,11 +792,11 @@ def _check_kernel_attributes():
         mine = [a for key, a in table.items() if key[0] == kernel]
         registers, shared = [a["registers"] for a in mine], [a["shared_bytes"] for a in mine]
         blocks = [a["blocks_per_sm"] for a in mine]
-        log(f"[3/9] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
+        log(f"[3/10] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
             f"{min(registers)}-{max(registers)} registers, {min(shared)}-{max(shared)} bytes of static shared memory, "
             f"{min(blocks)}-{max(blocks)} blocks of 256 threads per SM")
     direct = [a for key, a in table.items() if "direct" in key]
-    log(f"[3/9] kernels: of those, the {len(direct)} DIRECT instantiations: "
+    log(f"[3/10] kernels: of those, the {len(direct)} DIRECT instantiations: "
         f"{min(a['registers'] for a in direct)}-{max(a['registers'] for a in direct)} registers, "
         f"{min(a['blocks_per_sm'] for a in direct)}-{max(a['blocks_per_sm'] for a in direct)} blocks per SM")
     return table
@@ -896,7 +909,7 @@ def _check_composite_sweep(device, dtype):
         held((x, y, torch.as_tensor(sh, device=device), kern, scale),
              dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True), f"spectral halo s={scale}")
     check(exact[True] > 0 and exact[False] > 0, f"the sweep missed one of the composite's cases: {exact}")
-    log(f"[3/9] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
+    log(f"[3/10] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
         f"fractional / wide shifts x 2 whole images x data/TV/3D TV, bit-equal when launched twice; 66 and 30 frames; "
         f"3 scales x 5 shard tiles x blur 3x3/5x5/none x fractional / wide shifts x 2 masks x 3 modes; spectral halo "
         f"at s 2/3/4) agree with the plain version in {dtype} (tol {tol:g}); composite exact on {exact[True]} of the "
@@ -987,7 +1000,7 @@ def _check_direct_sweep(device, dtype):
                     held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
                          f"{mode} s={scale} blur {size} {set_name} shifts tile {coords} "
                          f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/9] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
+    log(f"[3/10] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
         f"at s 2 -- the table; integer / fractional / wide shifts x whole images x {len(modes)} modes, bit-equal when "
         f"launched twice; 3 shard tiles x fractional / wide shifts x {len(modes)} modes) agree with the plain version "
         f"in {dtype} (tol {tol:g})")
@@ -1092,7 +1105,7 @@ def phase_kernels(device):
                 check(float(outs["data_term_tv3d"][0]) == float(outs["data_term_tv"][0])
                       and torch.equal(outs["data_term_tv3d"][1], outs["data_term_tv"][1]),
                       f"data_term_tv3d differs from data_term_tv at C=1 (case {i}, {dtype})")
-        log(f"[3/9] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
+        log(f"[3/10] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
             f"in {dtype} (tol {tol:g}); tv3d == tv at C=1")
         _check_shift_generic(device, dtype)
         shard_worst = {"shard_mode": _check_shard_mode(device, dtype),
@@ -1110,7 +1123,7 @@ def phase_kernels(device):
                 worst[mode] = max(worst[mode], composite_worst, direct_worst)
     attributes = _check_kernel_attributes()
     tap_difference = _float32_tap_difference(device)
-    log(f"[3/9] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
+    log(f"[3/10] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
         f"makes them) vs the kernels' float64 weights rounded once: {tap_difference:.2e} of the largest entry")
     check(tap_difference <= TOLERANCE[torch.float32], f"float32 tap weights move the gradient by {tap_difference}")
 
@@ -1152,9 +1165,9 @@ def phase_kernels(device):
     return rows
 
 
-def _golden_solve(lr_names, initial_name, params, regularizer, lam, device):
+def _golden_solve(lr_names, initial_name, params, regularizer, lam, device, fused=False):
     lows = [load_golden(n) for n in lr_names]
-    solver = sr.IRLSMapSolver(sr.IRLSMapSolverOptions(), sr.ImageModel.create(params), lows,
+    solver = sr.IRLSMapSolver(sr.IRLSMapSolverOptions(fused_irls=fused), sr.ImageModel.create(params), lows,
                               device=device, dtype=torch.float64)
     if regularizer is not None:
         solver.add_regularizer(regularizer, lam)
@@ -1162,31 +1175,45 @@ def _golden_solve(lr_names, initial_name, params, regularizer, lam, device):
 
 
 def phase_goldens(device):
-    """The C++ reference's golden problems through the kernels, float64."""
+    """The C++ reference's golden problems through the kernels, float64,
+    with the default options (``cg``): through the host loop, then through
+    the fused solve, which must pass the same checks with the same bits."""
     seq_a = MotionShiftSequence([(0, 0), (1, 0), (0, 1), (1, 1)])
     seq = MotionShiftSequence(FLAGSHIP_SHIFTS)
-    t0 = time.perf_counter()
-    ours = _golden_solve([f"icon_lr_{i}.bin" for i in range(4)], "icon_initial.bin",
-                         sr.ImageModelParameters(scale=2, motion_sequence=seq_a), None, 0.0, device)
-    err_a = float(np.abs(ours - load_golden("icon_unreg_result.bin")).max())
-    check(err_a < 1e-3, f"golden A: max abs diff {err_a}")
+    host = {}
+    for fused in (False, True):
+        t0 = time.perf_counter()
+        way = "fused" if fused else "host loop"
+        ours = _golden_solve([f"icon_lr_{i}.bin" for i in range(4)], "icon_initial.bin",
+                             sr.ImageModelParameters(scale=2, motion_sequence=seq_a), None, 0.0, device, fused)
+        err_a = float(np.abs(ours - load_golden("icon_unreg_result.bin")).max())
+        check(err_a < 1e-3, f"golden A ({way}): max abs diff {err_a}")
+        solves = {"A": ours}
 
-    ours = _golden_solve([f"dallas_lr_{i}.bin" for i in range(4)], "dallas_initial.bin",
-                         sr.ImageModelParameters(scale=2, blur_radius=3, blur_sigma=1.0, motion_sequence=seq),
-                         TotalVariationRegularizer(), 0.01, device)
-    ref = load_golden("dallas_tv_result.bin")
-    agreement = float(psnr(ours, ref))
-    check(agreement > 40.0 and np.abs(ours - ref).mean() < 5e-3, f"golden B: agreement {agreement} dB")
+        ours = _golden_solve([f"dallas_lr_{i}.bin" for i in range(4)], "dallas_initial.bin",
+                             sr.ImageModelParameters(scale=2, blur_radius=3, blur_sigma=1.0, motion_sequence=seq),
+                             TotalVariationRegularizer(), 0.01, device, fused)
+        ref = load_golden("dallas_tv_result.bin")
+        agreement = float(psnr(ours, ref))
+        check(agreement > 40.0 and np.abs(ours - ref).mean() < 5e-3, f"golden B ({way}): agreement {agreement} dB")
+        solves["B"] = ours
 
-    ours = _golden_solve([f"dallas4x_lr_{i}.bin" for i in range(4)], "dallas4x_initial.bin",
-                         sr.ImageModelParameters(scale=4, blur_radius=3, blur_sigma=1.5, motion_sequence=seq),
-                         BilateralTotalVariationRegularizer(3, 0.5), 0.01, device)
-    gt = load_golden("dallas4x_ground_truth.bin")
-    psnr_ours = float(psnr(ours, gt))
-    psnr_ref = float(psnr(load_golden("dallas4x_btv_result.bin"), gt))
-    check(abs(psnr_ours - psnr_ref) <= 0.1, f"golden C: {psnr_ours} dB vs reference {psnr_ref} dB")
-    log(f"[4/9] goldens: A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
-        f"C {psnr_ours:.3f} dB vs C++ {psnr_ref:.3f} dB ({time.perf_counter() - t0:.1f} s)")
+        ours = _golden_solve([f"dallas4x_lr_{i}.bin" for i in range(4)], "dallas4x_initial.bin",
+                             sr.ImageModelParameters(scale=4, blur_radius=3, blur_sigma=1.5, motion_sequence=seq),
+                             BilateralTotalVariationRegularizer(3, 0.5), 0.01, device, fused)
+        gt = load_golden("dallas4x_ground_truth.bin")
+        psnr_ours = float(psnr(ours, gt))
+        psnr_ref = float(psnr(load_golden("dallas4x_btv_result.bin"), gt))
+        check(abs(psnr_ours - psnr_ref) <= 0.1, f"golden C ({way}): {psnr_ours} dB vs reference {psnr_ref} dB")
+        solves["C"] = ours
+        same = ""
+        if fused:
+            check(all(np.array_equal(solves[g], host[g]) for g in solves),
+                  "goldens: the fused solve differs from the host loop's")
+            same = ", each bit-equal to the host loop's"
+        host = solves
+        log(f"[4/10] goldens ({way}, cg): A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
+            f"C {psnr_ours:.3f} dB vs C++ {psnr_ref:.3f} dB{same} ({time.perf_counter() - t0:.1f} s)")
 
 
 def _l1_objective(solver, x, lam):
@@ -1335,7 +1362,7 @@ def phase_main_path(device, rows):
     for name, options, reg, lam in runs:
         results[name] = r = solve_once(name, gt, 4, options, reg, lam, device, dtype)
         mpix_it = r["iterations"] * side * side / r["seconds"] / 1e6
-        log(f"[5/9] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
+        log(f"[5/10] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
             f"{r['evaluations']} evaluations, {r['launches']} launches, {r['seconds']:.3f} s, "
             f"{mpix_it:.1f} Mpixel-iterations/s, PSNR {r['psnr']:.2f} dB (nearest {r['psnr_start']:.2f} dB)")
         log(f"      inner calls (s, iterations, evaluations): "
@@ -1437,7 +1464,7 @@ def phase_estimated_motion(device, rows):
         seconds.append(time.perf_counter() - t0)
     estimated = registered.as_array() * scale  # LR px -> HR px
     err_estimated = float(np.abs(estimated - true).max())
-    log(f"[6/9] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
+    log(f"[6/10] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
         f"{seconds[1]:.3f} s; max error {err_estimated:.4f} HR px (limit 0.25)")
     check(err_estimated < 0.25, f"registration is off by {err_estimated} HR px")
     x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
@@ -1521,7 +1548,7 @@ def phase_hyperspectral(device, rows):
         solver = tv_solver(model, lows, use_3d, fixed_iterations(20, 2), device)
         results[name] = r = run_solve(name, solver, x0, gt, 0.01)
         mvals = r["iterations"] * gt.numel() / r["seconds"] / 1e6
-        log(f"[7/9] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
+        log(f"[7/10] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
             f"= evaluations, {r['seconds']:.3f} s, {mvals:.1f} Mvalue-iterations/s, PSNR {r['psnr']:.2f} dB "
             f"(linear upsample {r['psnr_start']:.2f} dB); L1 objective {[float(f'{o:.7g}') for o in r['objectives']]}")
         check_objective_never_rises(name, r["objectives"])
@@ -1550,7 +1577,7 @@ def phase_hyperspectral(device, rows):
     b = PCA_BORDER
     inner = (slice(None), slice(b, -b), slice(b, -b))
     solved_db, linear_db = float(psnr(solved[inner], gt[inner])), float(psnr(linear[inner], gt[inner]))
-    log(f"[7/9] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
+    log(f"[7/10] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
         f"{round_trip:.2f} dB); {tuple(r['x'].shape)} solve {r['iterations']} iterations, {r['launches']} launches, "
         f"{r['seconds']:.3f} s; back-projected cube {solved_db:.2f} dB vs linear upsample {linear_db:.2f} dB inside "
         f"a {b}-px border (whole image {float(psnr(solved, gt)):.2f} vs {float(psnr(linear, gt)):.2f} dB)")
@@ -1596,7 +1623,7 @@ def compare_with_single_device(label, make, mode, shard_counter, mesh, lam, roun
             continue
         objective_diff = abs(meshed["objectives"][-1] - single["objectives"][-1]) / abs(single["objectives"][-1])
         psnr_diff = abs(meshed["psnr"] - single["psnr"])
-        log(f"[8/9] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
+        log(f"[8/10] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
             f"{meshed['evaluations']} evaluations, {meshed['launches']} launches; {meshed['seconds']:.3f} s meshed vs "
             f"{single['seconds']:.3f} s on one device; PSNR {meshed['psnr']:.2f} dB (start {meshed['psnr_start']:.2f}, "
             f"one device {single['psnr']:.2f}); max|diff| {diff:.2e}, L1 objective differs {objective_diff:.2e} "
@@ -1613,7 +1640,7 @@ def phase_mesh(device, rows):
     """The solve on a device mesh: band shards with the spectral halo, tiles
     with halo exchange, frame shards with refined motion."""
     devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    log(f"[8/9] mesh: shards are dealt over {len(devices)} visible card(s)")
+    log(f"[8/10] mesh: shards are dealt over {len(devices)} visible card(s)")
     degrade.reset_launch_counts()
     results = {}
 
@@ -1679,7 +1706,7 @@ def _device_busy_ms(run, device):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize(device)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize(device)
     busy = 0.0
@@ -1834,13 +1861,13 @@ def phase_fused(device, rows, turns=5, chunk_turns=5):
         evaluations = sum(c[2] for c in fused.last_inner_calls)
         values = gt.numel() * iterations
         med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
-        log(f"[9/9] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
+        log(f"[9/10] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
             f"fused == host loop bit for bit (x and shifts, {turns + 2} pairs)")
         log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
             f"[{min(fused_s):.4f}, {max(fused_s):.4f}] ({med_h / med_f:.2f}x); "
             f"{values / med_h / 1e6:.0f} -> {values / med_f / 1e6:.0f} Mvalue-iterations/s")
         log(f"      read-backs host {host_readbacks}, fused {readbacks} ({chunks} chunks of up to "
-            f"{runs[0]['chunk_iterations']} steps + {rounds} rounds); {captured} graphs captured by the first "
+            f"{runs[0]['chunk_steps']} steps + {rounds} rounds); {captured} graphs captured by the first "
             f"instance, 0 by the second; {replays} replays; {executed} evaluations run ({executed - evaluations} "
             f"frozen), {executed} launch counts = {2 * executed} kernel launches; graphs and buffers pin "
             f"{pinned_mb:.0f} MB; PSNR {float(psnr(x, gt)):.2f} dB")
@@ -1894,6 +1921,302 @@ def phase_fused(device, rows, turns=5, chunk_turns=5):
     irls_mod._BUILT_SOLVER_CACHE.clear()
     return results
 
+# ------------------------------------------------ line-search solvers, fused
+
+
+def _graph_nodes_per_step(step, steps, device):
+    """Kernel and copy / set nodes, and device ms, of one replay of a chunk
+    graph of ``steps`` steps (from the profiler), per step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(device)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize(device)
+    kernels = copies = 0
+    busy_us = 0.0
+    for event in prof.key_averages():
+        if not str(getattr(event, "device_type", "")).endswith("CUDA"):
+            continue
+        device_us = getattr(event, "device_time_total", None)
+        if device_us is None:
+            device_us = getattr(event, "cuda_time_total", 0.0)
+        if device_us <= 0:
+            continue
+        busy_us += device_us
+        if event.key.startswith(("Memcpy", "Memset")):
+            copies += event.count
+        else:
+            kernels += event.count
+    return kernels / steps, copies / steps, busy_us / 1e3 / steps
+
+
+def wolfe_problems(device):
+    """The solves of the line-search phase, float32 at full width: ``{label:
+    (make, mode, row)}`` as :func:`fused_problems`' (``make(fused) -> (solver,
+    x0, gt)``), and the nearest-neighbour start of each for the PSNR floor."""
+    dtype = torch.float32
+    flagship = synthetic_scene(1, 1000, 1000, seed=2026)
+
+    def flagship_solver(options, reg):
+        def make(fused):
+            model, gt, lows = make_observations(flagship, FLAGSHIP_SHIFTS, 4, 3, 1.5, device, dtype)
+            solver = sr.IRLSMapSolver(dataclasses.replace(options, fused_irls=fused), model, lows, device=device,
+                                      dtype=dtype)
+            solver.add_regularizer(reg, 0.01)
+            return solver, lows[0].repeat_interleave(4, dim=-2).repeat_interleave(4, dim=-1), gt
+        return make
+
+    def tv(method):
+        # 3 x 50 with the stop thresholds at 0, as the linear-CG flagship.
+        return dataclasses.replace(fixed_iterations(50, 3), least_squares_solver=method)
+
+    def btv(method):
+        return sr.IRLSMapSolverOptions(least_squares_solver=method, max_num_solver_iterations=20,
+                                       max_num_irls_iterations=2)
+
+    gt_rgb, lows_rgb = estimated_motion_problem(device)
+    estimated = sr.translational_registration(lows_rgb, device=device).as_array() * 4
+
+    def refined(fused):
+        solver = estimated_motion_solver(lows_rgb, estimated, 1, device, rounds=2, iterations=20)
+        solver.options.fused_irls = fused
+        solver.options.least_squares_solver = "cg"
+        return solver, linear_resize(lows_rgb[0], tuple(gt_rgb.shape[-2:])).contiguous(), gt_rgb
+
+    problems = {}
+    for method in ("cg", "lbfgs"):
+        problems[f"flagship TV 1x1000x1000, 3 x 50, {method}"] = (
+            flagship_solver(tv(method), TotalVariationRegularizer()), "data_term_tv", "K2")
+        problems[f"flagship BTV 1x1000x1000, 2 x 20, {method}"] = (
+            flagship_solver(btv(method), BilateralTotalVariationRegularizer(3, 0.5)), "data_term_btv", "K3")
+    problems["refined estimated motion RGB 3x1000x1000, 2 x 20, cg"] = (refined, "data_term_btv", "K4")
+    nearest = {"K2": None, "K3": None, "K4": lows_rgb[0].repeat_interleave(4, dim=-2).repeat_interleave(4, dim=-1)}
+    return problems, nearest
+
+
+# The autodiff solve on the card may lie this far from the same solve on the
+# CPU, float64 (the bound of the acceptance criteria).
+AUTODIFF_TOLERANCE = 1e-9
+# finite_difference_grad's step, and the unit roundoff of float64.
+FD_STEP = 1e-6
+UNIT_ROUNDOFF = 2.0 ** -53
+
+
+def _gradient_mode_solver(mode, side, regularizer, where, fused=False):
+    """The gradient modes' float64 problem (``side`` x ``side``, 4 frames at
+    2x, blur 3 / 1.0), 2 rounds x 10 iterations, and its nearest start."""
+    model, _, lows = make_observations(synthetic_scene(1, side, side, seed=5), FLAGSHIP_SHIFTS, 2, 3, 1.0, where,
+                                       torch.float64)
+    options = sr.IRLSMapSolverOptions(diff_mode=mode, fused_irls=fused, max_num_irls_iterations=2,
+                                      max_num_solver_iterations=10)
+    solver = sr.IRLSMapSolver(options, model, lows, device=where, dtype=torch.float64)
+    if regularizer is not None:
+        solver.add_regularizer(regularizer, 0.01)
+    return solver, lows[0].repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+def _solve_off_the_kernels(solver, x0, label):
+    before = dict(degrade.launch_counts)
+    x = solver.solve(x0)
+    check(dict(degrade.launch_counts) == before, f"the {label} solve launched the analytic kernels")
+    return x.cpu(), [c[1:] for c in solver.last_inner_calls]
+
+
+def _gradient_at(solver, x0, mode):
+    """``(cost, gradient)`` of ``solver``'s data term at ``x0`` in ``mode``."""
+    vg = make_map_value_and_grad(solver.observations, solver.shifts, solver.blur_kernel, solver.scale, (),
+                                    diff_mode=mode, device=x0.device, dtype=torch.float64)
+    cost, grad = vg(x0)
+    return float(cost), grad.cpu()
+
+
+def _gradient_mode_solves(device):
+    """The gradient modes on the card, float64, each against the same solve
+    on the CPU: ``autodiff`` (1x64x64, TV) through the host loop and through
+    ``fused_irls`` (captured: bit-equal to the host loop), and ``numerical``
+    (1x8x8, data term) held to a bound derived from the problem.
+
+    The numerical bound. Every residual is the same elementwise float64 ops
+    on both devices (the forward model is sums of shifted copies: no
+    convolution, no reduction), so the cost differs only in the order of each
+    frame's ``torch.sum`` over its n LR values: two orders of n nonnegative
+    terms lie within 2 (n - 1) u f of each other (u = 2^-53). A central
+    difference divides the two costs' differences by 2 h, so a gradient entry
+    lies within ``dg = 2 (n - 1) u f / h`` (h = 1e-6): checked at the start.
+    The solve's gain from such noise is read on the CPU: the data term is
+    quadratic, so central differences have no truncation error there, and the
+    numerical solve minus the autodiff solve is the solve's response to
+    rounding noise of the measured size |g_fd - g_exact| at the start. The
+    solve is held to that gain times ``dg``."""
+    from super_resolution_tpu_torch.solvers import graphs
+
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    tv = TotalVariationRegularizer()
+    out, captured = {}, []
+    for label, where, fused in (("card", device, False), ("fused", device, True), ("fused", device, True),
+                                ("cpu", cpu, False)):
+        solver, x0 = _gradient_mode_solver("autodiff", 64, tv, where, fused)
+        captures = graphs.capture_counts["graphs"]
+        out.setdefault(label, []).append(_solve_off_the_kernels(solver, x0, "autodiff"))
+        captured.append(graphs.capture_counts["graphs"] - captures)
+    check(captured[1] > 0 and captured[2] == 0,
+          f"fused autodiff: {captured[1]} graphs captured by the first instance, {captured[2]} by the second")
+    (x_card, calls_card), = out["card"]
+    (x_cpu, calls_cpu), = out["cpu"]
+    diff = float((x_card - x_cpu).abs().max())
+    check(diff <= AUTODIFF_TOLERANCE and calls_card == calls_cpu,
+          f"autodiff solve on the card vs the CPU: {diff:.3e} (tol {AUTODIFF_TOLERANCE:g}), rounds {calls_card} vs "
+          f"{calls_cpu}")
+    for x_fused, calls_fused in out["fused"]:
+        check(torch.equal(x_fused, x_card) and calls_fused == calls_card,
+              f"fused autodiff solve vs the host loop on the card: {float((x_fused - x_card).abs().max()):.3e}, "
+              f"rounds {calls_fused} vs {calls_card}")
+    log(f"[10/10] autodiff solve 1x64x64 float64 on the card: within {diff:.2e} (tol {AUTODIFF_TOLERANCE:g}) of the "
+        f"CPU's, same iterations and evaluations {calls_card}; fused_irls ({captured[1]} graphs captured, none by a "
+        f"second instance) == host loop bit for bit ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    card, x0_card = _gradient_mode_solver("numerical", 8, None, device)
+    host, x0 = _gradient_mode_solver("numerical", 8, None, cpu)
+    exact, _ = _gradient_mode_solver("autodiff", 8, None, cpu)
+    cost, g_cpu = _gradient_at(host, x0, "numerical")
+    _, g_card = _gradient_at(card, x0_card, "numerical")
+    _, g_exact = _gradient_at(exact, x0, "autodiff")
+    n = host.observations[0].numel()
+    dg = 2 * (n - 1) * UNIT_ROUNDOFF * cost / FD_STEP
+    g_diff = float((g_card - g_cpu).abs().max())
+    check(g_diff <= dg, f"numerical gradient at the start, card vs CPU: {g_diff:.3e} > the derived {dg:.3e}")
+    x_card, calls_card = _solve_off_the_kernels(card, x0_card, "numerical")
+    x_cpu, calls_cpu = _solve_off_the_kernels(host, x0, "numerical")
+    x_exact, _ = _solve_off_the_kernels(exact, x0, "autodiff")
+    noise = float((g_cpu - g_exact).abs().max())
+    gain = float((x_cpu - x_exact).abs().max()) / noise if noise > 0 else 0.0
+    bound = gain * dg
+    diff = float((x_card - x_cpu).abs().max())
+    check(diff <= bound and calls_card == calls_cpu,
+          f"numerical solve on the card vs the CPU: {diff:.3e} (derived bound {bound:.3e}), rounds {calls_card} vs "
+          f"{calls_cpu}")
+    log(f"[10/10] numerical 1x8x8 float64 (n = {n}, f = {cost:.6g}): gradient at the start on the card within "
+        f"{g_diff:.3e} of the CPU's (bound 2 (n-1) u f / h = {dg:.3e}); solve within {diff:.3e} (bound: gain "
+        f"{gain:.4g} x {dg:.3e} = {bound:.3e}; gain = |x_fd - x_exact| / |g_fd - g_exact| on the CPU, "
+        f"{noise:.3e} at the start), same iterations and evaluations {calls_card} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+
+def phase_wolfe(device, rows, turns=3):
+    """The line-search solvers under the fused solve: ``cg`` and ``lbfgs``
+    chunks of line-search trials replayed as CUDA graphs, beside the host
+    loop that takes the same steps with one read-back per evaluation, in
+    turns. Held as the fused phase holds ``linear_cg`` (bit-equal x and
+    shifts, equal iterations and evaluations per round, launches counted
+    through the replays, no late fold, read-backs <= chunks + rounds, one
+    capture across two instances) and to PSNR >= nearest + 1 dB. Logs wall,
+    device busy, read-backs, evaluations per iteration, frozen evaluations,
+    graph nodes per step and pinned memory; then fused ``cg`` against fused
+    ``linear_cg`` in PSNR on the flagship; then the gradient modes."""
+    from super_resolution_tpu_torch.solvers import graphs, irls as irls_mod
+
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+    t_phase = time.perf_counter()
+    problems, nearest = wolfe_problems(device)
+    log(f"[10/10] line-search solvers: problems made in {time.perf_counter() - t_phase:.1f} s")
+    degrade.reset_launch_counts()
+    results, launches = {}, {}
+    for label, (make, mode, row) in problems.items():
+        t_label = time.perf_counter()
+        counted = degrade.launch_counts[mode]
+        first, x0, gt = make(True)
+        reserved = _reserved_bytes(device)
+        captures = graphs.capture_counts["graphs"]
+        _, x_first, _ = _fused_solve(first, x0, mode)  # captures
+        pinned_mb = (_reserved_bytes(device) - reserved) / 2**20
+        captured = graphs.capture_counts["graphs"] - captures
+        second, _, _ = make(True)
+        _, x_second, _ = _fused_solve(second, x0, mode)
+        check(graphs.capture_counts["graphs"] == captures + captured,
+              f"{label}: a second solver instance of the same shape captured again")
+        reference, _, _ = make(False)
+        _, x_ref = _timed(reference, x0)
+        _same_solve(label, reference, first, x_ref, x_first)
+        _same_solve(label, reference, second, x_ref, x_second)
+        host_s, fused_s = [], []
+        for _ in range(turns):
+            host, _, _ = make(False)
+            seconds, x = _timed(host, x0)
+            check(torch.equal(x, x_ref), f"{label}: two host-loop solves differ")
+            host_s.append(seconds)
+            fused, _, _ = make(True)
+            seconds, x, executed = _fused_solve(fused, x0, mode)
+            _same_solve(label, host, fused, x_ref, x)
+            fused_s.append(seconds)
+        # The fused solves' launches (replays counted), the host loop's taken out.
+        grown = degrade.launch_counts[mode] - counted - (turns + 1) * sum(c[2] for c in host.last_inner_calls)
+        check(grown > 0, f"the fused {label} solve never launched {mode} ({row})")
+        launches[row] = launches.get(row, 0) + grown
+        start = x0 if nearest[row] is None else nearest[row]
+        psnr_fused, psnr_start = float(psnr(x, gt)), float(psnr(start, gt))
+        check(psnr_fused >= psnr_start + 1.0, f"{label}: PSNR {psnr_fused:.2f} dB, nearest {psnr_start:.2f} dB")
+        runs = fused.last_fused_runs
+        iterations = fused.last_inner_iterations
+        rounds = len(fused.last_inner_calls)
+        evaluations = sum(c[2] for c in fused.last_inner_calls)
+        host_readbacks = evaluations + rounds  # one per evaluation (the start's included), one per round
+        readbacks = sum(run["readbacks"] for run in runs)
+        chunks = sum(run["chunks"] for run in runs)
+        step = fused.last_fused.chunks[runs[0]["chunk_steps"]]
+        kernels, copies, step_ms = _graph_nodes_per_step(step, runs[0]["chunk_steps"], device)
+        med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
+        log(f"[10/10] {label}: {iterations} iterations, {evaluations} evaluations ({evaluations / iterations:.2f} "
+            f"per iteration, the starts included) in {rounds} rounds; fused == host loop bit for bit "
+            f"(x and shifts, {turns + 2} pairs); PSNR {psnr_fused:.2f} dB (nearest {psnr_start:.2f})")
+        log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
+            f"[{min(fused_s):.4f}, {max(fused_s):.4f}] ({med_h / med_f:.2f}x); read-backs host {host_readbacks}, "
+            f"fused {readbacks} ({chunks} chunks of {runs[0]['chunk_steps']} steps + {rounds} rounds); "
+            f"{executed - evaluations} frozen evaluations; {captured} graphs captured, 0 by the second instance; "
+            f"pinned {pinned_mb:.0f} MB; a chunk step is {kernels:.1f} kernel + {copies:.1f} copy/set nodes, "
+            f"{step_ms:.4f} ms of device time ({time.perf_counter() - t_label:.1f} s)")
+        results[label] = {"host_s": host_s, "fused_s": fused_s, "readbacks": readbacks,
+                          "host_readbacks": host_readbacks, "pinned_mb": pinned_mb, "psnr": psnr_fused,
+                          "evaluations": evaluations, "iterations": iterations, "frozen": executed - evaluations,
+                          "kernel_nodes_per_step": kernels, "copy_nodes_per_step": copies, "step_ms": step_ms}
+    for row in rows:
+        if row["row"] in launches:
+            row["launches_fused_line_search"] = launches[row["row"]]
+
+    # Device busy per solve, host loop and fused, from the profiler (last: its tracing can slow later launches).
+    t_busy = time.perf_counter()
+    fmt = lambda ms: "not measured" if ms is None else f"{ms:.2f} ms"  # noqa: E731
+    for label, (make, _, _) in problems.items():
+        host, x0, _ = make(False)
+        host_busy = _device_busy_ms(lambda: host.solve(x0), device)
+        fused = make(True)[0]
+        fused_busy = _device_busy_ms(lambda: fused.solve(x0), device)
+        results[label].update(host_busy_ms=host_busy, fused_busy_ms=fused_busy)
+        median = float(np.median(results[label]["fused_s"]))
+        share = "" if fused_busy is None else f" ({100 * fused_busy / 1e3 / median:.0f} % of the fused wall median)"
+        log(f"      device busy, {label}: host loop {fmt(host_busy)}, fused {fmt(fused_busy)}{share}")
+    log(f"      (device busy measured in {time.perf_counter() - t_busy:.1f} s)")
+
+    # A line, not a check: fused cg against fused linear_cg on the flagship TV.
+    linear = dataclasses.replace(fixed_iterations(50, 3), fused_irls=True)
+    model, gt, lows = make_observations(synthetic_scene(1, 1000, 1000, seed=2026), FLAGSHIP_SHIFTS, 4, 3, 1.5,
+                                        device, torch.float32)
+    solver = sr.IRLSMapSolver(linear, model, lows, device=device, dtype=torch.float32)
+    solver.add_regularizer(TotalVariationRegularizer(), 0.01)
+    x_linear = solver.solve(lows[0].repeat_interleave(4, dim=-2).repeat_interleave(4, dim=-1))
+    psnr_linear = float(psnr(x_linear, gt))
+    psnr_cg = results["flagship TV 1x1000x1000, 3 x 50, cg"]["psnr"]
+    log(f"      flagship TV 3 x 50, fused: cg {psnr_cg:.2f} dB, linear_cg {psnr_linear:.2f} dB "
+        f"({psnr_cg - psnr_linear:+.2f} dB)")
+    results["psnr_cg_minus_linear_cg"] = psnr_cg - psnr_linear
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+    _gradient_mode_solves(device)
+    log(f"[10/10] line-search phase: {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
 def per_kernel_table(rows):
     """Each hand-written kernel on each row: us per launch, its own bound,
     launches on the paths, and launches x (time - bound) in ms -- the ranking
@@ -1933,6 +2256,7 @@ def main():
         phase_hyperspectral(device, rows)
         phase_mesh(device, rows)
         phase_fused(device, rows)
+        phase_wolfe(device, rows)
     except Failure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1

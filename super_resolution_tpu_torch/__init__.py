@@ -9,10 +9,11 @@ with columns (dx, dy).
 Ported so far: the single-device MAP solve — image model, fused MAP
 objective (hand-written CUDA kernels on a CUDA tensor, their plain PyTorch
 version on a CPU tensor) with a fused 2D TV, 3D spectral TV or BTV term,
-linear-CG / Wolfe-CG inner solvers, IRLS host loop and the fused IRLS solve
-(``fused_irls``: on a CUDA device the linear-CG iterations and the IRLS seam
+the autodiff / numerical gradient modes, linear-CG / Wolfe-CG / L-BFGS inner
+solvers, IRLS host loop with checkpoint/resume and the fused IRLS solve
+(``fused_irls``: on a CUDA device the inner solver's steps and the IRLS seam
 replay as CUDA graphs, ``solvers/graphs.py``, with the built graphs kept
-across solver instances) — with estimated motion
+across solver instances), the dense operator-matrix test oracle — with estimated motion
 (phase-correlation registration, Gauss-Newton refinement of the shifts
 between IRLS rounds) and hyperspectral cubes (many bands in one objective,
 spectral PCA), the resizers, PSNR and SSIM — and the same solve on a device

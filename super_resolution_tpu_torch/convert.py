@@ -11,9 +11,10 @@ package.
 Fields of the JAX ``IRLSMapSolverOptions`` that only route its TPU kernel
 are dropped, because the port has one objective path and they cannot change
 a result: ``use_pallas_data_term``, ``use_static_shifts``, ``pallas_tile``,
-``pallas_shift_bound``, ``pallas_channel_block``, and
-``num_lbfgs_hessian_corrections`` (read by L-BFGS only, which raises here).
-``fused_irls`` is carried: the port's solver then runs the fused solve.
+``pallas_shift_bound`` and ``pallas_channel_block``. ``fused_irls``,
+``num_lbfgs_hessian_corrections`` and ``diff_mode`` are carried: the port's
+solver then runs the fused solve, L-BFGS with that memory, and the
+gradient mode asked for.
 A JAX ``Mesh`` crosses as its axis sizes, ``{name: size}`` in plain ints
 (``dict(zip(mesh.axis_names, mesh.devices.shape))``): :func:`mesh` builds
 the port's mesh of that shape over the devices given.
@@ -61,7 +62,6 @@ DROPPED_OPTION_FIELDS = (
     "pallas_tile",
     "pallas_shift_bound",
     "pallas_channel_block",
-    "num_lbfgs_hessian_corrections",
 )
 
 

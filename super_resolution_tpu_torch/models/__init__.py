@@ -8,4 +8,5 @@ from super_resolution_tpu_torch.models.image_model import (  # noqa: F401
     NoiseOperator,
     degrade,
     degrade_adjoint,
+    kernel_to_operator_matrix,
 )

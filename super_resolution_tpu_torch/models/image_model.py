@@ -8,12 +8,17 @@ Models the observation process ``y_k = D B M_k x (+ n)``:
 - ``D``   top-left decimation by ``scale`` — :class:`DownsamplingOperator`
 - ``n``   additive Gaussian noise (data generation only) — :class:`NoiseOperator`
 
-Each operator exposes ``apply(x, k)`` / ``apply_transpose(x, k)``: plain
-functions on ``[..., H, W]`` tensors that run on the tensor's own device.
+Each operator exposes three views:
+
+- ``apply(x, k)`` / ``apply_transpose(x, k)``: plain functions on
+  ``[..., H, W]`` tensors that run on the tensor's own device;
+- ``operator_matrix(hw, k)``: the explicit dense numpy matrix, a *test-only
+  oracle* capped at 30x30 images / 10x10 kernels like the reference
+  (``degradation_operator.cpp:16-17``), on no solve path.
+
 The :class:`ImageModel` chains operators in order (forward) and reverse
 (adjoint), mirroring ``image_model.cpp:76-118``. :func:`degrade` /
-:func:`degrade_adjoint` are the functional form for one frame. The dense
-operator-matrix oracle of the JAX package is not ported yet.
+:func:`degrade_adjoint` are the functional form for one frame.
 """
 
 from __future__ import annotations
@@ -45,14 +50,46 @@ __all__ = [
     "BlurOperator",
     "DownsamplingOperator",
     "NoiseOperator",
+    "kernel_to_operator_matrix",
     "degrade",
     "degrade_adjoint",
     "degrade_with_shift_derivatives",
 ]
 
 
+# Dense-matrix oracle caps (``degradation_operator.cpp:16-17``).
+_MAX_MATRIX_IMAGE_SIZE = 30
+_MAX_MATRIX_KERNEL_SIZE = 10
+
+
+def kernel_to_operator_matrix(kernel, hw: tuple[int, int]) -> np.ndarray:
+    """Dense correlation matrix of a 2D kernel over an HxW image.
+
+    Row ``i`` holds the kernel taps that produce output pixel ``i`` under
+    zero-padded correlation — ``DegradationOperator::ConvertKernelToOperatorMatrix``
+    (``degradation_operator.cpp:22-76``).
+    """
+    kernel = np.asarray(kernel, dtype=np.float64)
+    kh, kw = kernel.shape
+    h, w = hw
+    if kh > _MAX_MATRIX_KERNEL_SIZE or kw > _MAX_MATRIX_KERNEL_SIZE:
+        raise ValueError("Kernel is too big to convert to matrix form.")
+    if h > _MAX_MATRIX_IMAGE_SIZE or w > _MAX_MATRIX_IMAGE_SIZE:
+        raise ValueError("Image is too big to compute a kernel matrix.")
+    mat = np.zeros((h * w, h * w))
+    mid_r, mid_c = kh // 2, kw // 2
+    for row in range(h):
+        for col in range(w):
+            for i in range(kh):
+                for j in range(kw):
+                    rr, cc = row + i - mid_r, col + j - mid_c
+                    if 0 <= rr < h and 0 <= cc < w:
+                        mat[row * w + col, rr * w + cc] = kernel[i, j]
+    return mat
+
+
 class DegradationOperator:
-    """Base operator: forward and transpose views."""
+    """Base operator: forward, transpose and dense-matrix views."""
 
     def apply(self, x: torch.Tensor, index: int) -> torch.Tensor:
         raise NotImplementedError
@@ -61,7 +98,8 @@ class DegradationOperator:
         raise NotImplementedError
 
     def operator_matrix(self, hw: tuple[int, int], index: int) -> np.ndarray:
-        raise NotImplementedError("The dense operator-matrix oracle is not ported yet.")
+        """Default: identity (``degradation_operator.cpp:78-83``)."""
+        return np.eye(hw[0] * hw[1])
 
 
 class MotionOperator(DegradationOperator):
@@ -77,6 +115,20 @@ class MotionOperator(DegradationOperator):
     def apply_transpose(self, x, index):
         s = self.motion_sequence[index]
         return translate_adjoint(x, s.dx, s.dy)
+
+    def operator_matrix(self, hw, index):
+        """0/1 shift matrix; fractional shifts truncate like the reference's
+        implicit double->int conversion (``motion_module.cpp:53-73``)."""
+        h, w = hw
+        s = self.motion_sequence[index]
+        dy, dx = int(s.dy), int(s.dx)
+        mat = np.zeros((h * w, h * w))
+        for row in range(h):
+            for col in range(w):
+                sr, sc = row - dy, col - dx
+                if 0 <= sr < h and 0 <= sc < w:
+                    mat[row * w + col, sr * w + sc] = 1.0
+        return mat
 
 
 class BlurOperator(DegradationOperator):
@@ -98,6 +150,9 @@ class BlurOperator(DegradationOperator):
     def apply_transpose(self, x, index):
         return blur_adjoint_op(x, self.kernel)
 
+    def operator_matrix(self, hw, index):
+        return kernel_to_operator_matrix(self.kernel, hw)
+
 
 class DownsamplingOperator(DegradationOperator):
     """Top-left decimation D (``downsampling_module.cpp``)."""
@@ -112,6 +167,19 @@ class DownsamplingOperator(DegradationOperator):
 
     def apply_transpose(self, x, index):
         return zero_upsample(x, self.scale)
+
+    def operator_matrix(self, hw, index):
+        """Row-selection matrix mapping HR pixels to the LR grid
+        (``downsampling_module.cpp:41-64``)."""
+        h, w = hw
+        s = self.scale
+        mat = np.zeros(((h * w) // (s * s), h * w))
+        next_row = 0
+        for row in range(0, h, s):
+            for col in range(0, w, s):
+                mat[next_row, row * w + col] = 1.0
+                next_row += 1
+        return mat
 
 
 class NoiseOperator(DegradationOperator):
@@ -196,6 +264,19 @@ class ImageModel:
         for op in reversed(self.operators):
             x = op.apply_transpose(x, index)
         return x
+
+    def operator_matrix(self, hw: tuple[int, int], index: int) -> np.ndarray:
+        """Dense ``A_k = D B M_k`` for the test oracle (``image_model.cpp:103-118``):
+        the operators' matrices composed in order. The JAX package's name is
+        :meth:`model_matrix`."""
+        if not self.operators:
+            raise ValueError("Cannot build a model matrix with no operators.")
+        mat = self.operators[0].operator_matrix(hw, index)
+        for op in self.operators[1:]:
+            mat = op.operator_matrix(hw, index) @ mat
+        return mat
+
+    model_matrix = operator_matrix
 
     # Convenience accessors for the fused functional path.
 

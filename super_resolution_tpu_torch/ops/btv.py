@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from super_resolution_tpu_torch.ops.tv import residual_abs
 from super_resolution_tpu_torch.ops.warp import shift_zero_fill
 
 __all__ = ["btv_residuals", "btv_cost_and_grad", "BilateralTotalVariationRegularizer"]
@@ -72,7 +73,7 @@ def btv_residuals(x: torch.Tensor, scale_range: int, spatial_decay: float) -> to
     r = torch.zeros_like(x)
     for i in range(scale_range + 1):
         for j in range(scale_range + 1):
-            r = r + (spatial_decay ** (i + j)) * _shifted_diff(x, i, j).abs()
+            r = r + (spatial_decay ** (i + j)) * residual_abs(_shifted_diff(x, i, j))
     return r
 
 

@@ -36,7 +36,31 @@ import torch.nn.functional as F
 
 from super_resolution_tpu_torch.ops.warp import shift_zero_fill
 
-__all__ = ["tv_residuals", "tv_cost_and_grad", "TotalVariationRegularizer"]
+__all__ = ["tv_residuals", "tv_cost_and_grad", "TotalVariationRegularizer", "residual_abs"]
+
+
+class _ResidualAbs(torch.autograd.Function):
+    """``|d|`` whose derivative at 0 is +1 (its right derivative)."""
+
+    @staticmethod
+    def forward(ctx, d):
+        ctx.save_for_backward(d)
+        return d.abs()
+
+    @staticmethod
+    def backward(ctx, grad):
+        (d,) = ctx.saved_tensors
+        return torch.where(d >= 0, grad, -grad)
+
+
+def residual_abs(d: torch.Tensor) -> torch.Tensor:
+    """``|d|`` of a residual's difference. The value is ``d.abs()``; only
+    autograd sees a difference: the derivative at a kink (``d == 0``) is +1,
+    as ``jnp.abs``'s is in the JAX package, where ``torch.abs``'s is 0. The
+    ``autodiff`` gradient mode then takes the JAX package's gradient from a
+    start with flat regions (a nearest-upsampled estimate has many)."""
+    return _ResidualAbs.apply(d)
+
 
 def _forward_diff_x(x: torch.Tensor) -> torch.Tensor:
     """x(r, c+1) - x(r, c); zero at the last column."""
@@ -68,9 +92,9 @@ def _shift_band(v: torch.Tensor) -> torch.Tensor:
 
 def tv_residuals(x: torch.Tensor, use_3d: bool = False) -> torch.Tensor:
     """Per-pixel TV residuals of a ``[C, H, W]`` image."""
-    r = _forward_diff_x(x).abs() + _forward_diff_y(x).abs()
+    r = residual_abs(_forward_diff_x(x)) + residual_abs(_forward_diff_y(x))
     if use_3d:
-        r = r + _forward_diff_z(x).abs()
+        r = r + residual_abs(_forward_diff_z(x))
     return r
 
 

@@ -18,9 +18,11 @@ Elementwise torch functions and operators work shard by shard through
 ``Sharded`` scalar broadcasts. Shards that hold the same part of the value
 on the same device share one tensor object (the work is done once per
 device, not once per shard), so the locals are read-only: nothing here or in
-``minimize`` writes in place. The one reduction is :meth:`Sharded.vdot`: dots
-per shard, summed over the partitioning axes only, never over an axis along
-which the value is replicated. ``bool()`` / ``float()`` read shard 0.
+``minimize`` writes in place but the L-BFGS memory, one slot per step
+(:meth:`Sharded.per_shard`, once per distinct piece). The one reduction is
+:meth:`Sharded.vdot`: dots per shard, summed over the partitioning axes
+only, never over an axis along which the value is replicated. ``bool()`` /
+``float()`` read shard 0.
 """
 
 from __future__ import annotations
@@ -158,6 +160,12 @@ class Sharded:
     def __torch_function__(cls, func, types, args=(), kwargs=None):
         return cls._apply(func, args, kwargs or {})
 
+    @staticmethod
+    def per_shard(fn, *operands) -> "Sharded":
+        """``fn`` of each shard's locals of the ``Sharded`` operands (other
+        operands pass as they are), once per distinct (device, piece)."""
+        return Sharded._apply(fn, operands, {})
+
     def map(self, fn) -> "Sharded":
         """``fn(local) -> local`` on every shard; ``fn`` must keep the partitioned dimensions in place."""
         return Sharded._apply(fn, (self,), {})
@@ -211,6 +219,7 @@ class Sharded:
     __ne__ = _binary(operator.ne)
     __and__ = _binary(operator.and_)
     __or__ = _binary(operator.or_)
+    __getitem__ = _binary(operator.getitem)
     __hash__ = None
     del _binary
 

@@ -8,7 +8,9 @@ from super_resolution_tpu_torch.solvers.least_squares import (  # noqa: F401
     minimize,
 )
 from super_resolution_tpu_torch.solvers.objective import (  # noqa: F401
+    data_term_cost,
     data_term_cost_and_grad,
     data_term_cost_and_grad_static,
+    finite_difference_grad,
     make_map_value_and_grad,
 )

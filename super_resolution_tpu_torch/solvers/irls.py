@@ -41,31 +41,37 @@ second path to fall to, and a quiet single-device solve would hide the mesh.
 
 ``fused_irls`` runs the whole solve on the device (:func:`irls_solve_fused`,
 :class:`FusedIRLS`), as the JAX package's one XLA program does. On a CUDA
-device its steps are CUDA graphs (``solvers/graphs.py``): a *chunk* of
-``CHUNK_ITERATIONS`` linear-CG steps (``least_squares.linear_cg_step``, frozen
-once the inner solve is done; a shorter *tail* chunk ends an inner solve at
-its iteration cap, so only a stop test firing inside a chunk leaves frozen
-steps), the *seam* between two inner solves
+device its steps are CUDA graphs (``solvers/graphs.py``): a *chunk* of steps
+of the inner solver (``least_squares.linear_cg_step``: ``CHUNK_ITERATIONS``
+iterations, a shorter *tail* chunk ending an inner solve at its iteration
+cap; ``least_squares.wolfe_step`` for ``cg`` and ``lbfgs``:
+``CHUNK_EVALUATIONS`` line-search trials, which no cap can size; each step
+frozen once the inner solve is done), the *seam* between two inner solves
 (reweighting into the objective's constant buffers, the motion refinement
 into its shift buffer when due, and the IRLS stop test), and the *restart*
 of the next inner solve. The host replays the chunk until the one small
 tensor it reads back says the inner solve is done, then the seam, then reads
 the stop test: one read-back per chunk and one per round, where the host
-loop reads one per iteration. The replays compute what the host loop
-computes, op for op. On the CPU the same steps run eagerly with the same
-read-backs. The captured graphs and their buffers are kept across solver
-instances in ``_BUILT_SOLVER_CACHE``: a new solver of the same shapes and
-options copies its observations, shifts and estimate into the buffers and
-replays without capturing again. ``fused_irls`` takes ``linear_cg`` only and
-no mesh (``ValueError`` otherwise).
+loop reads one per step. The replays compute what the host loop computes,
+op for op. On the CPU the same steps run eagerly with the same read-backs.
+The captured graphs and their buffers are kept across solver instances in
+``_BUILT_SOLVER_CACHE``: a new solver of the same shapes and options copies
+its observations, shifts and estimate into the buffers and replays without
+capturing again. ``fused_irls`` takes no mesh, no checkpoint and, on a CUDA
+device, no ``diff_mode="numerical"`` (``ValueError``): a step would be a
+graph of 2n evaluations of the forward model. ``autodiff`` is captured as
+the analytic mode is.
 
-Not ported yet: checkpoint/resume.
+``solve(x0, checkpoint_path, resume)`` saves the host loop's state at every
+IRLS seam (``x``, the weights, the round, the previous cost, the refined
+shifts) as the JAX package does, and resumes from it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import time
 from collections import OrderedDict
 
@@ -79,12 +85,11 @@ from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularize
 from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
 from super_resolution_tpu_torch.solvers.graphs import CapturedStep
 from super_resolution_tpu_torch.solvers.least_squares import (
-    LinearCGState,
-    linear_cg_done,
-    linear_cg_settings,
-    linear_cg_start,
-    linear_cg_step,
+    LinearCGSettings,
+    blank_state,
     minimize,
+    solver_settings,
+    solver_steps,
 )
 from super_resolution_tpu_torch.solvers.map_solver import IRLSMapSolverOptions
 from super_resolution_tpu_torch.solvers.objective import make_map_value_and_grad
@@ -100,6 +105,9 @@ _MIN_RESIDUAL = 1e-5
 # fired costs a frozen evaluation, a chunk costs a read-back: chosen on the
 # card among 8, 16 and the whole inner solve (PERF.md, section 5).
 CHUNK_ITERATIONS = 8
+# Line-search trials (evaluations) of ``cg`` / ``lbfgs`` per replay: an
+# iteration takes one to ``max_bracket + max_zoom`` of them.
+CHUNK_EVALUATIONS = 8
 
 
 def _reweight(regs, x):
@@ -114,16 +122,16 @@ def _refinement(refine, x, observations, shifts):
     return refined, (refined - shifts).abs().max()
 
 
-def _check_fusable(options, mesh=None) -> None:
+def _check_fusable(options, mesh=None, device=None) -> None:
     if mesh is not None:
         raise ValueError(
             "fused_irls on a mesh is not ported yet (one graph per device waits for a run on four cards); "
             "use the host loop (fused_irls=False) with a mesh.")
-    if options.least_squares_solver != "linear_cg":
+    if options.diff_mode == "numerical" and device is not None and torch.device(device).type == "cuda":
         raise ValueError(
-            f"fused_irls needs least_squares_solver='linear_cg', got {options.least_squares_solver!r}: the "
-            "Wolfe line search of 'cg' decides on the host after every evaluation, and 'lbfgs' is not "
-            "ported yet.")
+            "fused_irls on a CUDA device does not take diff_mode='numerical': each gradient is 2n cost "
+            "evaluations of the plain forward model, tens to hundreds of small operations each, so a captured "
+            "step would hold hundreds of graph nodes per pixel. Use the host loop (fused_irls=False).")
 
 
 class FusedIRLS:
@@ -134,18 +142,20 @@ class FusedIRLS:
     constant, shift and observation buffers the steps read. ``refiner``:
     ``(x, shifts) -> (refined float64 shifts, max |change|)`` on the device,
     or ``None``. ``x_like``: an estimate of the solve's shape, dtype and
-    device. The buffers are the linear-CG state (:class:`LinearCGState`), the
-    IRLS loop's scalars and :attr:`status`, the five float64 values the host
-    reads back: inner solve done, IRLS done, inner iterations and objective
-    evaluations so far, and the last cost.
+    device. The buffers are the inner solver's state (``least_squares.LinearCGState``
+    or ``WolfeState``), the IRLS loop's scalars and :attr:`status`, the five
+    float64 values the host reads back: inner solve done, IRLS done, inner
+    iterations and objective evaluations so far, and the last cost.
 
     What an entry pins: the objective's observations, one constant buffer
-    per regulariser and the shifts; the state's ``x``, ``g`` and ``d``; and
-    the memory pool its graphs share, which holds the largest scratch of any
-    one step (each evaluation's LR residual, gradient and partials, a step's
-    image-sized temporaries) plus the fold state of every captured
-    evaluation. chip_smoke.py measures it on an H100: about 130 MB at the
-    flagship (1x1000x1000 float32, 4 frames at 4x), 750 MB for RGB
+    per regulariser and the shifts; the state's ``x``, ``g`` and ``d`` (and
+    for ``cg`` / ``lbfgs`` the line search's best gradient; for ``lbfgs``
+    2 (m + 1) more arrays of ``x``'s size, the memory); and the memory pool
+    its graphs share, which holds the largest scratch of any one step (each
+    evaluation's LR residual, gradient and partials, a step's image-sized
+    temporaries) plus the fold state of every captured evaluation.
+    chip_smoke.py measures it on an H100: about 130 MB at the flagship
+    (1x1000x1000 float32, 4 frames at 4x, ``linear_cg``), 750 MB for RGB
     3x1000x1000 with motion refinement and 260 MB for the 64-band 256x256
     cube (4 frames at 2x), most of the RGB figure the refinement's scratch;
     with 32 entries a cache of RGB solves pins about 24 GB. An entry dropped
@@ -156,23 +166,23 @@ class FusedIRLS:
         self.objective = objective
         self.regs = tuple(regularizers)
         self.refiner = refiner
-        self.settings = linear_cg_settings(
-            options.max_num_solver_iterations, options.gradient_norm_threshold, options.cost_decrease_threshold,
-            options.parameter_variation_threshold, options.linear_cg_refresh_every)
-        self.chunk_iterations = min(CHUNK_ITERATIONS, self.settings.max_iterations)
+        self.settings = _fused_settings(options)
+        self.start_fn, self.step_fn, self.done_fn = solver_steps(self.settings)
+        # A linear-CG chunk never runs past the iteration cap (a shorter tail
+        # chunk ends the inner solve there); a line search's trials per
+        # iteration vary, so its chunks all have one length.
+        self.capped = isinstance(self.settings, LinearCGSettings)
+        self.chunk_steps = min(CHUNK_ITERATIONS, self.settings.max_iterations) if self.capped else CHUNK_EVALUATIONS
         self.max_irls = options.max_num_irls_iterations or 10_000
         self.refine_every = options.refine_motion_every if refiner is not None else 0
         self.cost_threshold = options.irls_cost_difference_threshold
         self.delta_threshold = options.refine_motion_delta_threshold
-        device, dtype = x_like.device, x_like.dtype
+        device = x_like.device
 
         def scalar(kind):
             return torch.zeros((), dtype=kind, device=device)
 
-        self.state = LinearCGState(
-            x=torch.zeros_like(x_like), f=scalar(dtype), g=torch.zeros_like(x_like), d=torch.zeros_like(x_like),
-            trial_scale=scalar(dtype), k=scalar(torch.int64), evaluations=scalar(torch.int64),
-            converged=scalar(torch.bool))
+        self.state = blank_state(self.settings, x_like)
         # The IRLS loop: the last round's cost, rounds done, inner iterations
         # and evaluations of the rounds done, the last refinement's largest
         # shift change, and the stop test.
@@ -180,8 +190,9 @@ class FusedIRLS:
         self.rounds, self.iterations, self.evaluations = (scalar(torch.int64) for _ in range(3))
         self.done = scalar(torch.bool)
         self.status = torch.zeros(5, dtype=torch.float64, device=device)
-        buffers = [*self.state, self.prev_cost, self.delta, self.rounds, self.iterations, self.evaluations,
-                   self.done, self.status, objective.shifts, *(c for c in objective.constants if c is not None)]
+        buffers = [*(b for b in self.state if b is not None), self.prev_cost, self.delta, self.rounds,
+                   self.iterations, self.evaluations, self.done, self.status, objective.shifts,
+                   *(c for c in objective.constants if c is not None)]
         # One memory pool for all the steps' graphs (see solvers/graphs.py).
         pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
         self._step = lambda fn: CapturedStep(fn, device, buffers, pool)  # noqa: E731
@@ -189,8 +200,8 @@ class FusedIRLS:
         self.restart = self._step(self._restart)
         self.seam = self._step(lambda: self._seam(refine=False))
         self.seam_refine = None if refiner is None else self._step(lambda: self._seam(refine=True))
-        # Chunk graphs by their number of steps: ``chunk_iterations``, and the
-        # shorter tail that ends an inner solve at its iteration cap.
+        # Chunk graphs by their number of steps: ``chunk_steps``, and for
+        # linear CG the shorter tail that ends an inner solve at its cap.
         self.chunks: dict[int, CapturedStep] = {}
         self.last_run: dict = {}
 
@@ -207,18 +218,19 @@ class FusedIRLS:
 
     # ------------------------------------------------------------ the steps
 
-    def _store(self, state: LinearCGState) -> None:
+    def _store(self, state) -> None:
         for buffer, value in zip(self.state, state):
             if value is not buffer:
                 buffer.copy_(value)
 
     def _publish(self) -> None:
-        values = (linear_cg_done(self.state, self.settings), self.done, self.iterations + self.state.k,
+        values = (self.done_fn(self.state, self.settings), self.done, self.iterations + self.state.k,
                   self.evaluations + self.state.evaluations, self.state.f)
         self.status.copy_(torch.stack([v.to(torch.float64) for v in values]))
 
     def _restart(self) -> None:
-        self._store(linear_cg_start(self.objective, self.state.x, self.settings))
+        # A fresh start: the L-BFGS memory is cleared.
+        self._store(self.start_fn(self.objective, self.state.x, self.settings))
         self._publish()
 
     def _begin(self) -> None:
@@ -235,7 +247,7 @@ class FusedIRLS:
     def _chunk(self, n: int) -> None:
         state = self.state
         for _ in range(n):
-            state = linear_cg_step(self.objective, state, self.settings)
+            state = self.step_fn(self.objective, state, self.settings)
         self._store(state)
         self._publish()
 
@@ -287,9 +299,8 @@ class FusedIRLS:
         while True:
             k = 0  # iterations of this inner solve, as the last read-back said
             while True:
-                # A chunk never runs past the iteration cap: only a stop test
-                # that fires inside a chunk leaves frozen steps.
-                n = min(self.chunk_iterations, self.settings.max_iterations - k)
+                # Frozen steps come only after the inner solve is done.
+                n = min(self.chunk_steps, self.settings.max_iterations - k) if self.capped else self.chunk_steps
                 self._chunk_of(n)()
                 chunks, steps, readbacks = chunks + 1, steps + n, readbacks + 1
                 inner_done, _, its, _, _ = self.status.tolist()
@@ -308,7 +319,7 @@ class FusedIRLS:
                 break
             self.restart()
         self.last_run = {
-            "rounds": rounds, "chunks": chunks, "chunk_iterations": self.chunk_iterations, "readbacks": readbacks,
+            "rounds": rounds, "chunks": chunks, "chunk_steps": self.chunk_steps, "readbacks": readbacks,
             "replays": sum(s.replays for s in self.steps) - replays, "iterations": iterations,
             "evaluations": evaluations, "executed_evaluations": len(rounds) + steps,
             "cost": cost,
@@ -346,13 +357,13 @@ def irls_solve_fused(
     ``refine_motion_delta_threshold`` (infinite until one has run). Returns
     ``(x, cost)``, then the total inner iterations with
     ``return_iterations``, then the refined shifts with ``refiner``.
-    ``least_squares_solver`` must be ``"linear_cg"``. On a CUDA device the
-    steps are captured and replayed as CUDA graphs (:class:`FusedIRLS`);
-    :class:`IRLSMapSolver` keeps them for later solves.
+    Any ``least_squares_solver``. On a CUDA device the steps are captured and
+    replayed as CUDA graphs (:class:`FusedIRLS`); :class:`IRLSMapSolver`
+    keeps them for later solves.
     """
     if refiner is not None and (shifts0 is None or options.refine_motion_every <= 0):
         raise ValueError("refiner requires shifts0 and options.refine_motion_every > 0.")
-    _check_fusable(options)
+    _check_fusable(options, device=x0.device)
     fused = FusedIRLS(value_and_grad_builder.bind_static(), regularizers, x0, options, refiner)
     x, cost, iterations, shifts = fused.run(x0, shifts=None if refiner is None else shifts0)
     out = (x, cost)
@@ -366,11 +377,21 @@ def irls_solve_fused(
 # Fused solves built ACROSS solver instances: a video window or a repeated
 # solve makes a new IRLSMapSolver, and building again would capture again.
 # Keyed by everything the graphs bake in: the channels per round, the
-# adjusted options, the regularisers, the blur, the scale, the shapes, dtype
-# and device, the chunk length (the shifts are buffer data, never baked). LRU-capped: each
-# entry pins its buffers and graph pools (FusedIRLS's docstring).
+# adjusted options (the gradient mode among them), the inner solver's
+# settings (method, L-BFGS memory, initial-step mode, line-search
+# constants), the regularisers, the blur, the scale, the shapes, dtype and
+# device, the chunk lengths (the shifts are buffer data, never baked).
+# LRU-capped: each entry pins its buffers and graph pools (FusedIRLS's docstring).
 _BUILT_SOLVER_CACHE: OrderedDict = OrderedDict()
 _BUILT_SOLVER_CACHE_MAX = 32
+
+
+def _fused_settings(options):
+    """The inner solver's settings of a fused solve with these options."""
+    return solver_settings(
+        options.least_squares_solver, options.max_num_solver_iterations, options.gradient_norm_threshold,
+        options.cost_decrease_threshold, options.parameter_variation_threshold, options.linear_cg_refresh_every,
+        options.num_lbfgs_hessian_corrections)
 
 
 def _regs_signature(regs):
@@ -419,8 +440,15 @@ class IRLSMapSolver(MapSolverBase):
         blur = image_model.blur_operator
         self.blur_kernel = None if blur is None else np.asarray(blur.kernel)
 
-    def solve(self, initial_estimate) -> torch.Tensor:
-        """Run the solver; returns the HR estimate ``[C, H, W]`` on the solver's device."""
+    def solve(self, initial_estimate, checkpoint_path: str | None = None, resume: bool = False) -> torch.Tensor:
+        """Run the solver; returns the HR estimate ``[C, H, W]`` on the solver's device.
+
+        ``checkpoint_path``: the host loop saves its state at every IRLS seam
+        to ``{checkpoint_path}.npz`` (``.round{i}.npz`` per channel round of
+        ``split_channels``): ``x``, ``prev_cost``, ``iteration``,
+        ``weight_{i}`` and, when refining, ``shifts``. ``resume``: start from
+        that file where it exists, placed back on the solver's device (and
+        on the mesh's shards)."""
         x_full = as_chw(initial_estimate, self.device, self.dtype)
         if tuple(x_full.shape) != self.hr_shape:
             raise ValueError(
@@ -444,8 +472,12 @@ class IRLSMapSolver(MapSolverBase):
                 "refine_motion_every must be >= 0 and, when refining, refine_motion_iterations >= 1; got "
                 f"{opts.refine_motion_every} and {opts.refine_motion_iterations}."
             )
+        if opts.fused_irls and checkpoint_path:
+            raise ValueError(
+                "fused_irls runs the whole IRLS loop on the device with no checkpoint seam; use the host loop "
+                "(fused_irls=False) for checkpoint/resume.")
         if opts.fused_irls:
-            _check_fusable(opts, self.mesh)
+            _check_fusable(opts, self.mesh, self.device)
         if opts.refine_motion_every > 0 and self.mesh is not None and not self._pure_frame_mesh():
             raise ValueError(
                 "refine_motion_every on a mesh requires a pure frame mesh: spatial placements size "
@@ -463,7 +495,11 @@ class IRLSMapSolver(MapSolverBase):
             ch0, ch1 = i * channels_per_split, (i + 1) * channels_per_split
             observations = self.observations[:, ch0:ch1].contiguous()
             inner = self._build_inner_solver(observations, opts)
-            results.append(self._run_irls_loop(inner, x_full[ch0:ch1].contiguous(), observations, opts))
+            ckpt = None
+            if checkpoint_path:
+                ckpt = f"{checkpoint_path}.round{i}.npz" if num_rounds > 1 else f"{checkpoint_path}.npz"
+            results.append(self._run_irls_loop(inner, x_full[ch0:ch1].contiguous(), observations, opts, ckpt,
+                                               resume))
         return torch.cat(results, dim=0)
 
     # ------------------------------------------------------------------ internals
@@ -494,9 +530,10 @@ class IRLSMapSolver(MapSolverBase):
         k, _, h, w = self.observations.shape
         kern = self.blur_kernel
         key = (
-            channels_per_split, repr(opts), _regs_signature(self.regularizers),
+            channels_per_split, repr(opts), _fused_settings(opts), _regs_signature(self.regularizers),
             None if kern is None else (kern.shape, np.asarray(kern, dtype=np.float64).tobytes()),
             self.scale, (k, channels_per_split, h, w), self.dtype, str(self.device), CHUNK_ITERATIONS,
+            CHUNK_EVALUATIONS,
         )
         fused = _BUILT_SOLVER_CACHE.get(key)
         if fused is not None:
@@ -535,8 +572,6 @@ class IRLSMapSolver(MapSolverBase):
         )
 
         mesh, regs, scale = self.mesh, tuple(self.regularizers), self.scale
-        if opts.diff_mode != "analytic":
-            raise NotImplementedError(f"diff_mode {opts.diff_mode!r} is not ported yet; use 'analytic'.")
         k, channels = observations.shape[0], observations.shape[1]
         n_frame, n_band = mesh.size(FRAME_AXIS), mesh.size(BAND_AXIS)
         spatial = ROW_AXIS in mesh.shape or COL_AXIS in mesh.shape
@@ -560,6 +595,9 @@ class IRLSMapSolver(MapSolverBase):
                 reasons.append("a mesh without spatial axes needs a 'frame' axis larger than 1 or a 'band' axis")
         if channels % n_band:
             reasons.append(f"{channels} channels not divisible by the band axis ({n_band})")
+        if opts.diff_mode != "analytic":
+            reasons.append(f"diff_mode {opts.diff_mode!r} has no sharded objective (the sharded objectives "
+                           "launch the analytic kernels per shard)")
         if k % n_frame:
             reasons.append(f"{k} frames not divisible by the frame axis ({n_frame})")
         if reasons:
@@ -599,6 +637,7 @@ class IRLSMapSolver(MapSolverBase):
                 gradient_norm_threshold=opts.gradient_norm_threshold,
                 cost_decrease_threshold=opts.cost_decrease_threshold,
                 parameter_variation_threshold=opts.parameter_variation_threshold,
+                memory=opts.num_lbfgs_hessian_corrections,
                 linear_cg_refresh_every=opts.linear_cg_refresh_every,
                 log_iterations=self.verbose,
             )
@@ -608,9 +647,12 @@ class IRLSMapSolver(MapSolverBase):
     def _reweight(self, x):
         return _reweight(self.regularizers, x)
 
-    def _run_irls_loop(self, inner, x0, observations, opts):
+    def _run_irls_loop(self, inner, x0, observations, opts, checkpoint_path=None, resume=False):
         """IRLS outer loop on the host around the inner solve, with the
-        motion-refinement seam after it."""
+        motion-refinement seam after it, and optional checkpoint/resume: the
+        state saved at the seam (x, the weights, the round, the previous
+        cost, the refined shifts) is what the reference's iteration-complete
+        hook exposes; the reference itself persists nothing."""
         regs = self.regularizers
         weights = tuple(self._place(torch.ones_like(x0)) for _ in regs)
         x = self._place(x0)  # the solve's state: sharded from here to the return on a mesh
@@ -622,6 +664,17 @@ class IRLSMapSolver(MapSolverBase):
             refiner = make_shift_refiner(
                 self.blur_kernel, self.scale, num_iterations=opts.refine_motion_iterations
             )
+        if resume and checkpoint_path and os.path.exists(checkpoint_path):
+            with np.load(checkpoint_path) as state:
+                x = self._place(as_tensor(state["x"], self.device, self.dtype))
+                weights = tuple(self._place(as_tensor(state[f"weight_{i}"], self.device, self.dtype))
+                                for i in range(len(regs)))
+                prev_cost = float(state["prev_cost"])
+                iteration = int(state["iteration"])
+                if "shifts" in state.files:  # a refined solve checkpoints its evolving shifts
+                    self.shifts = as_tensor(state["shifts"], self.device, torch.float64)
+            if self.verbose:
+                print(f"Resumed IRLS from {checkpoint_path} at iteration {iteration}.")
         # inf until a refinement round has actually run: with
         # refine_motion_every > 1 the cost can settle before the first
         # refinement is due, and the loop must not end with the requested
@@ -663,8 +716,8 @@ class IRLSMapSolver(MapSolverBase):
                 if self.verbose:
                     print("Least squares done (no regularization terms to reweight).")
                 break
-            if regs:
-                weights = tuple(self._place(w) for w in self._reweight(x_whole))
+            whole_weights = self._reweight(x_whole) if regs else ()
+            weights = tuple(self._place(w) for w in whole_weights)
             cost_difference = prev_cost - cost
             prev_cost = cost
             iteration += 1
@@ -673,6 +726,14 @@ class IRLSMapSolver(MapSolverBase):
                     f"IRLS Iteration complete (#{iteration}). New loss is {cost} "
                     f"with a difference of {cost_difference}."
                 )
+            if checkpoint_path:
+                payload = {"x": (x_whole if x_whole is not None else self._gather(x)).cpu().numpy(),
+                           "prev_cost": prev_cost, "iteration": iteration}
+                if refiner is not None:
+                    payload["shifts"] = self.shifts.cpu().numpy()
+                for i, w in enumerate(whole_weights):
+                    payload[f"weight_{i}"] = w.cpu().numpy()
+                np.savez(checkpoint_path, **payload)
             # Converged only if the last refinement no longer moves the
             # motion either: a refinement changes the objective, so the cost
             # alone cannot certify joint convergence.

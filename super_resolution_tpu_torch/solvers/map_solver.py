@@ -10,8 +10,7 @@ package; on a CUDA device its steps replay as CUDA graphs
 (``solvers/irls.py``). In particular there is no shift bound: the TPU kernel's
 shift-generic mode compiled one program per |shift| bucket and clipped
 refined shifts to it; the CUDA kernels read any shift from device memory, so
-refined motion is never clipped. L-BFGS (``num_lbfgs_hessian_corrections``)
-is not ported yet.
+refined motion is never clipped.
 """
 
 from __future__ import annotations
@@ -25,25 +24,30 @@ __all__ = ["MapSolverOptions", "IRLSMapSolverOptions"]
 class MapSolverOptions:
     """Options shared by MAP solvers (defaults = reference defaults)."""
 
-    # 'cg' (reference default, strong-Wolfe nonlinear CG) or 'linear_cg' —
-    # exact-step CG exploiting the quadratic IRLS inner subproblem: one
-    # objective evaluation per iteration with a true re-evaluation every
-    # linear_cg_refresh_every iterations. 'lbfgs' is not ported yet.
+    # 'cg' (reference default, strong-Wolfe nonlinear CG), 'lbfgs', or
+    # 'linear_cg' — exact-step CG exploiting the quadratic IRLS inner
+    # subproblem: one objective evaluation per iteration with a true
+    # re-evaluation every linear_cg_refresh_every iterations.
     least_squares_solver: str = "cg"
     linear_cg_refresh_every: int = 8
+    num_lbfgs_hessian_corrections: int = 5
     max_num_solver_iterations: int = 50
     gradient_norm_threshold: float = 1e-6
     cost_decrease_threshold: float = 1e-6
     parameter_variation_threshold: float = 1e-6
-    # 'analytic' = reference-parity hand-derived gradients. 'autodiff' and
-    # 'numerical' are not ported yet.
+    # 'analytic' = reference-parity hand-derived gradients (the CUDA kernels);
+    # 'autodiff' = torch.autograd of the cost (machine-precision derivatives);
+    # 'numerical' = central differences (the reference's
+    # use_numerical_differentiation, map_solver.h:64-69 — O(2n) cost
+    # evaluations per gradient, tiny validation problems only). Both of the
+    # latter evaluate the cost with plain PyTorch ops.
     diff_mode: str = "analytic"
     split_channels: bool = False
     # Run the whole IRLS solve on the device (irls_solve_fused): the inner
-    # linear-CG iterations, the reweighting, the motion refinement and the
-    # stop tests replay as CUDA graphs, and the host reads back one small
-    # tensor per chunk of iterations instead of one per iteration. Needs
-    # least_squares_solver='linear_cg' and no mesh.
+    # solver's steps, the reweighting, the motion refinement and the stop
+    # tests replay as CUDA graphs, and the host reads back one small tensor
+    # per chunk of steps instead of one per step. Needs no mesh and (on a
+    # CUDA device) diff_mode='analytic'; no checkpoint/resume.
     fused_irls: bool = False
 
     def adjust_thresholds_adaptively(

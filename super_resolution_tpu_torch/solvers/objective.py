@@ -22,7 +22,11 @@ Where the JAX package chose between a traced path, a static-shift path and
 a Pallas kernel through a dozen keywords, the port has one choice, made by
 where the tensors live: :func:`~super_resolution_tpu_torch.ops.cuda.degrade.fused_objective`
 launches the CUDA kernels for a CUDA tensor and runs the plain version for a
-CPU tensor. Only the analytic (reference-parity) gradient is ported.
+CPU tensor. That is the analytic (reference-parity) gradient. The two
+gradient-validation modes, ``autodiff`` (``torch.autograd.grad`` of the
+cost) and ``numerical`` (central differences, :func:`finite_difference_grad`),
+evaluate the cost with plain PyTorch ops on any device, on purpose: the JAX
+package routes them off its kernel too.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from super_resolution_tpu_torch._device import as_tensor, resolve_device
+from super_resolution_tpu_torch.models.image_model import degrade
 from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
 from super_resolution_tpu_torch.ops.cuda.degrade import (
     fused_objective,
@@ -43,7 +48,9 @@ from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
 __all__ = [
     "data_term_cost_and_grad",
     "data_term_cost_and_grad_static",
+    "data_term_cost",
     "make_map_value_and_grad",
+    "finite_difference_grad",
 ]
 
 
@@ -68,6 +75,49 @@ def data_term_cost_and_grad(
     data. CUDA kernels for a CUDA ``x``, the plain version for a CPU ``x``.
     """
     return fused_objective(x, observations, shifts, blur_kernel, scale)
+
+
+def data_term_cost(x: torch.Tensor, observations: torch.Tensor, shifts, blur_kernel, scale: int) -> torch.Tensor:
+    """Cost only, ``s^2 sum_k ||D B M_k x - y_k||^2``, from the plain forward
+    model (:func:`~super_resolution_tpu_torch.models.image_model.degrade`;
+    for the autodiff and numerical modes, differentiable in ``x``).
+
+    ``shifts``: ``[K, 2]`` (dx, dy), read where they lie: a tensor on ``x``'s
+    device is never read back, so an evaluation can be captured in a CUDA
+    graph. ``blur_kernel``: host taps (numpy) or ``None``.
+    """
+    shifts = torch.as_tensor(shifts, device=x.device).reshape(-1, 2)
+    cost = torch.zeros((), dtype=x.dtype, device=x.device)
+    for k in range(observations.shape[0]):
+        r = degrade(x, shifts[k, 0], shifts[k, 1], blur_kernel, scale) - observations[k]
+        cost = cost + torch.sum(r * r)
+    return float(scale * scale) * cost
+
+
+def finite_difference_grad(cost_fn: Callable, x: torch.Tensor, step: float = 1e-6) -> torch.Tensor:
+    """Central-difference gradient (the reference's numerical-diff testing
+    mode, ``map_solver.h:64-69``). O(2n) cost evaluations: tiny problems only."""
+    flat = x.reshape(-1)
+    grad = torch.empty_like(flat)
+    for i in range(flat.numel()):
+        plus, minus = flat.clone(), flat.clone()
+        plus[i] = flat[i] + step
+        minus[i] = flat[i] - step
+        grad[i] = (cost_fn(plus.reshape(x.shape)) - cost_fn(minus.reshape(x.shape))) / (2.0 * step)
+    return grad.reshape(x.shape)
+
+
+def _autodiff(cost_fn: Callable) -> Callable:
+    """``x -> (cost, torch.autograd.grad of the cost)``."""
+
+    def value_and_grad(x):
+        with torch.enable_grad():
+            z = x.detach().requires_grad_(True)
+            cost = cost_fn(z)
+            (grad,) = torch.autograd.grad(cost, z)
+        return cost.detach(), grad
+
+    return value_and_grad
 
 
 def make_map_value_and_grad(
@@ -101,12 +151,15 @@ def make_map_value_and_grad(
     buffers that later calls update in place (the fused IRLS solve's CUDA
     graphs read them; see its docstring).
 
-    ``diff_mode`` other than ``"analytic"`` is not ported yet.
+    ``diff_mode``: ``"analytic"`` (the reference's hand-derived gradient
+    chain, through the fused objective), ``"autodiff"`` (``torch.autograd``
+    of the cost: the data term from the plain degradation plus ``sum lambda
+    w r^2``) or ``"numerical"`` (central differences of that cost, step 1e-6,
+    O(2n) evaluations per gradient). The last two run plain PyTorch ops on
+    any device and read the shifts where they lie, as the analytic mode does.
     """
     if diff_mode not in ("analytic", "autodiff", "numerical"):
         raise ValueError(f"Unknown diff_mode {diff_mode!r}")
-    if diff_mode != "analytic":
-        raise NotImplementedError(f"diff_mode {diff_mode!r} is not ported yet; use 'analytic'.")
     device = resolve_device(device)
     obs = as_tensor(observations, device, dtype)
     shifts_t = as_tensor(shifts, device, torch.float64).reshape(-1, 2)
@@ -128,6 +181,19 @@ def make_map_value_and_grad(
     def bound(motion, constants):
         """The objective at these shifts and per-regulariser ``lambda * w``
         constants (``None`` for a term whose parameter is not positive)."""
+        if diff_mode != "analytic":
+            terms = [(reg, c) for (reg, lam), c in zip(regs, constants) if lam > 0.0]
+
+            def cost_fn(x):
+                cost = data_term_cost(x, obs, motion, kernel_np, scale)
+                for reg, c in terms:
+                    r = reg.residuals(x)
+                    cost = cost + torch.sum(c * r * r)
+                return cost
+
+            if diff_mode == "autodiff":
+                return _autodiff(cost_fn)
+            return lambda x: (cost_fn(x), finite_difference_grad(cost_fn, x))
 
         def objective(x, **fused):
             return fused_objective(x, obs, motion, psf, scale, **fused)

@@ -98,8 +98,8 @@ def _port_solve(model, lows, regs, x0, start_shifts=None, **fields):
     if start_shifts is not None:
         model = ImageModel.create(ImageModelParameters(
             motion_sequence=MotionShiftSequence([tuple(s) for s in start_shifts]), **PARAMS))
-    solver = IRLSMapSolver(IRLSMapSolverOptions(least_squares_solver="linear_cg", **fields), model, lows,
-                           device="cpu", dtype=torch.float64)
+    fields.setdefault("least_squares_solver", "linear_cg")
+    solver = IRLSMapSolver(IRLSMapSolverOptions(**fields), model, lows, device="cpu", dtype=torch.float64)
     for reg, lam in regs:
         solver.add_regularizer(reg, lam)
     return solver, solver.solve(x0)
@@ -266,7 +266,7 @@ def test_fused_convergence_mid_chunk():
     _assert_same_solve(host, fused)
     (run,) = fused[0].last_fused_runs
     per_round = [iterations for _, iterations, _ in run["rounds"]]
-    chunk = run["chunk_iterations"]
+    chunk = run["chunk_steps"]
     assert chunk == irls_mod.CHUNK_ITERATIONS and any(its % chunk for its in per_round)
     assert all(its < 200 for its in per_round)  # stopped by the cost test, not the cap
     assert run["chunks"] == sum(its // chunk + 1 for its in per_round)
@@ -289,22 +289,121 @@ def test_frozen_linear_cg_steps_leave_the_state_alone():
 
 
 def test_fused_irls_refuses_a_mesh_and_other_inner_solvers():
+    """``cg`` and ``lbfgs`` now run fused (and equal the host loop); a mesh is still refused."""
     model, gt, lows = _lows(1, (12, 16))
     for solver_name in ("cg", "lbfgs"):
-        solver = IRLSMapSolver(IRLSMapSolverOptions(least_squares_solver=solver_name, fused_irls=True), model,
-                               lows, device="cpu", dtype=torch.float64)
-        with pytest.raises(ValueError, match="linear_cg"):
-            solver.solve(np.zeros_like(gt))
+        host, fused = (_port_solve(model, lows, [], np.zeros_like(gt), least_squares_solver=solver_name,
+                                   fused_irls=f, max_num_solver_iterations=12) for f in (False, True))
+        _assert_same_solve(host, fused)
+        assert torch.equal(host[1], fused[1]) and len(fused[0].last_fused_runs) == 1
     solver = IRLSMapSolver(IRLSMapSolverOptions(least_squares_solver="linear_cg", fused_irls=True), model, lows,
                            device="cpu", dtype=torch.float64, mesh=make_mesh({"frame": 2}, devices=["cpu"]))
     with pytest.raises(ValueError, match="mesh"):
         solver.solve(np.zeros_like(gt))
+    # The default options (``cg``) fuse: one inner solve without a regulariser, the host minimize's.
     vg = make_map_value_and_grad(np.stack(lows), SHIFTS, None, 2, device="cpu", dtype=torch.float64)
-    with pytest.raises(ValueError, match="linear_cg"):
-        irls_solve_fused(vg, [], torch.zeros(gt.shape, dtype=torch.float64), IRLSMapSolverOptions())
+    x, cost, iterations = irls_solve_fused(vg, [], torch.zeros(gt.shape, dtype=torch.float64),
+                                           IRLSMapSolverOptions(), return_iterations=True)
+    host = least_squares.minimize(vg.prepare(()), torch.zeros(gt.shape, dtype=torch.float64))
+    assert torch.equal(x, host.x) and torch.equal(cost, host.cost) and iterations == host.iterations
     with pytest.raises(ValueError, match="shifts0"):
         irls_solve_fused(vg, [], torch.zeros(gt.shape, dtype=torch.float64),
                          IRLSMapSolverOptions(least_squares_solver="linear_cg"), refiner=lambda x, s: (s, s.max()))
+
+
+# ------------------------------------------------- cg and lbfgs, fused
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fused_wolfe(method):
+    """``tests/test_irls_fused.py``'s problem (12x12, TV 0.01, the default
+    options but the method) through the JAX package's ``irls_solve_fused``."""
+    model, gt, lows = _lows(1, (12, 12), SHIFTS_INT)
+    jmodel = JImageModel.create(JParameters(motion_sequence=JSequence(SHIFTS_INT), **PARAMS))
+    options = JOptions(least_squares_solver=method, max_num_irls_iterations=4, max_num_solver_iterations=15)
+    options.adjust_thresholds_adaptively(gt.size, 0.01)
+    jvg = jmake(jnp.asarray(np.stack(lows)), jnp.asarray(SHIFTS_INT, dtype=jnp.float64),
+                jnp.asarray(jmodel.blur_operator.kernel), 2, [(JTV(), 0.01)], max_shift=3)
+    x, cost, iterations = jax.jit(
+        lambda x: jfused(lambda w: (lambda z: jvg(z, w)), [(JTV(), 0.01)], x, options, return_iterations=True))(
+        jnp.zeros(gt.shape))
+    return np.asarray(x), float(cost), int(iterations)
+
+
+SHIFTS_INT = [(0, 0), (1, 1), (-1, 0), (0, -1)]
+
+
+@pytest.mark.parametrize("method", ["cg", "lbfgs"])
+def test_fused_wolfe_solve_matches_jax_and_the_host_loop(method):
+    """The reference's default solver (and L-BFGS) fused: the JAX package's
+    fused solve within 1e-10 with equal iterations; the port's host loop bit
+    for bit with equal iterations and evaluations in every round."""
+    jx, jcost, jiterations = _jax_fused_wolfe(method)
+    model, gt, lows = _lows(1, (12, 12), SHIFTS_INT)
+    regs = [(TotalVariationRegularizer(), 0.01)]
+    options = IRLSMapSolverOptions(least_squares_solver=method, max_num_irls_iterations=4,
+                                   max_num_solver_iterations=15)
+    options.adjust_thresholds_adaptively(gt.size, 0.01)
+    vg = make_map_value_and_grad(np.stack(lows), SHIFTS_INT, model.blur_operator.kernel, 2, regs, device="cpu",
+                                 dtype=torch.float64)
+    x, cost, iterations = irls_solve_fused(vg, regs, torch.zeros(gt.shape, dtype=torch.float64), options,
+                                           return_iterations=True)
+    assert np.abs(x.numpy() - jx).max() < 1e-10
+    assert abs(float(cost) - jcost) <= 1e-10 * max(1.0, abs(jcost))
+    assert iterations == jiterations
+    fields = dict(least_squares_solver=method, max_num_irls_iterations=4, max_num_solver_iterations=15)
+    host, fused = (_port_solve(model, lows, regs, np.zeros_like(gt), fused_irls=f, **fields) for f in (False, True))
+    _assert_same_solve(host, fused)
+    assert torch.equal(host[1], fused[1]) and torch.equal(fused[1], x)
+
+
+@pytest.mark.parametrize("method", ["cg", "lbfgs"])
+@pytest.mark.parametrize(
+    "reg,c,fields",
+    [
+        ("tv", 1, dict(max_num_irls_iterations=3, max_num_solver_iterations=20)),
+        ("btv", 1, dict(max_num_irls_iterations=2)),
+        ("tv3d", 3, dict(max_num_irls_iterations=2, max_num_solver_iterations=12)),
+        (None, 1, dict(max_num_solver_iterations=30)),
+        ("tv", 3, dict(split_channels=True, max_num_irls_iterations=2, max_num_solver_iterations=10)),
+    ],
+)
+def test_fused_wolfe_solvers_match_the_host_loop(method, reg, c, fields):
+    """Chunks of line-search trials: bit-equal to the host loop, one read-back
+    per chunk and per round, and frozen steps only after an inner solve is
+    done (fewer than a chunk per round)."""
+    model, gt, lows = _lows(c, (12, 16))
+    x0 = np.repeat(np.repeat(lows[0], 2, axis=-2), 2, axis=-1)
+    host, fused = _host_and_fused(model, lows, REGULARIZERS[reg](), x0, least_squares_solver=method, **fields)
+    _assert_same_solve(host, fused)
+    assert torch.equal(host[1], fused[1])
+    for run in fused[0].last_fused_runs:
+        assert run["chunk_steps"] == irls_mod.CHUNK_EVALUATIONS
+        assert run["readbacks"] == run["chunks"] + len(run["rounds"])
+        assert run["executed_evaluations"] == len(run["rounds"]) + run["chunks"] * run["chunk_steps"]
+        assert 0 <= run["executed_evaluations"] - run["evaluations"] < len(run["rounds"]) * run["chunk_steps"]
+
+
+def test_refinement_in_the_fused_cg_loop_matches_the_host_loop():
+    model, gt, lows, start = _refinement_problem()
+    fields = dict(REFINE_FIELDS, least_squares_solver="cg")
+    host, fused = (_port_solve(model, lows, [(TotalVariationRegularizer(), 1e-4)], np.zeros_like(gt),
+                               start_shifts=start, fused_irls=f, **fields) for f in (False, True))
+    _assert_same_solve(host, fused)
+    assert torch.equal(host[0].shifts, fused[0].shifts) and torch.equal(host[1], fused[1])
+
+
+def test_frozen_steps_of_a_restarted_lbfgs_solve_clear_the_memory():
+    """The restart between two IRLS rounds empties the L-BFGS memory, as the
+    host loop's fresh inner solve does: the second round's first search
+    tries 1 / |g|, and the replays stay bit-equal."""
+    model, gt, lows = _lows(1, (12, 16))
+    fields = dict(least_squares_solver="lbfgs", max_num_irls_iterations=2, max_num_solver_iterations=6)
+    solver, _ = _port_solve(model, lows, REGULARIZERS["tv"](), np.zeros_like(gt), fused_irls=True, **fields)
+    fused = solver.last_fused
+    fused.restart()
+    assert int(fused.state.pairs) == 0 and not bool(fused.state.s_memory.any())
+    assert float(fused.state.search[3]) == pytest.approx(1.0 / float(fused.state.g.norm()), rel=1e-12)
 
 
 # ---------------------------------------------------------------- the cache
@@ -342,4 +441,17 @@ def test_other_options_get_their_own_entry_and_the_cap_holds(monkeypatch):
     first = next(iter(irls_mod._BUILT_SOLVER_CACHE))
     _cached_solver(shifts, linear_cg_refresh_every=5)
     assert len(irls_mod._BUILT_SOLVER_CACHE) == 2 and first not in irls_mod._BUILT_SOLVER_CACHE
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+
+
+def test_the_inner_solver_is_part_of_the_key():
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+    shifts = [(0, 0), (1, 1), (0, 1), (1, 0)]
+    for fields in (dict(least_squares_solver="lbfgs"), dict(least_squares_solver="lbfgs",
+                   num_lbfgs_hessian_corrections=3), dict(least_squares_solver="cg"),
+                   dict(least_squares_solver="cg")):
+        _cached_solver(shifts, **fields)
+    built = list(irls_mod._BUILT_SOLVER_CACHE.values())
+    assert [(e.settings.method, e.settings.memory) for e in built] == [("lbfgs", 5), ("lbfgs", 3), ("cg", 0)]
+    assert built[1].state.s_memory.shape[0] == 4  # m + 1 slots
     irls_mod._BUILT_SOLVER_CACHE.clear()

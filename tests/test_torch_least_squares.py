@@ -119,15 +119,13 @@ def test_minimize_on_a_quadratic_and_unported_methods():
     def vg(x):
         return 0.5 * x @ a @ x - b @ x, a @ x - b
 
-    for method in ("cg", "linear_cg"):
+    for method in ("cg", "linear_cg", "lbfgs"):
         res = minimize(vg, torch.zeros(2, dtype=torch.float64), method=method, max_iterations=20,
                        gradient_norm_threshold=1e-12, cost_decrease_threshold=0.0,
                        parameter_variation_threshold=0.0)
         assert torch.allclose(res.x, torch.linalg.solve(a, b), atol=1e-9)
-    already = minimize(vg, torch.linalg.solve(a, b), method="cg", gradient_norm_threshold=1e-6)
-    assert already.iterations == 0 and already.converged and already.num_evaluations == 1
-    with pytest.raises(NotImplementedError):
-        minimize(vg, torch.zeros(2), method="lbfgs")
+        already = minimize(vg, torch.linalg.solve(a, b), method=method, gradient_norm_threshold=1e-6)
+        assert already.iterations == 0 and already.converged and already.num_evaluations == 1
     with pytest.raises(ValueError):
         minimize(vg, torch.zeros(2), method="newton")
 

@@ -207,9 +207,18 @@ def test_data_term_entry_points_and_unported_modes():
     a = data_term_cost_and_grad(xt, yt, shifts, kern, 2)
     b = data_term_cost_and_grad_static(xt, yt, shifts, kern, 2)
     assert float(a[0]) == float(b[0]) and torch.equal(a[1], b[1])
-    for mode in ("autodiff", "numerical"):
-        with pytest.raises(NotImplementedError):
-            make_map_value_and_grad(y, shifts, kern, 2, diff_mode=mode, device="cpu")
+    # The gradient modes: the analytic cost, and its gradient up to rounding
+    # (autodiff) or central differences, where the analytic gradient is the
+    # true one: integer shifts and a kernel symmetric under transposition
+    # and under a half turn (the analytic adjoint correlates with its transpose).
+    sym = kern + kern.T
+    sym = sym + sym[::-1, ::-1]
+    analytic = data_term_cost_and_grad(xt, yt, shifts, sym, 2)
+    for mode, tol in (("autodiff", 1e-10), ("numerical", 1e-5)):
+        cost, grad = make_map_value_and_grad(y, shifts, sym, 2, diff_mode=mode, device="cpu",
+                                             dtype=torch.float64)(xt)
+        assert abs(float(cost) - float(analytic[0])) <= 1e-12 * float(analytic[0])
+        assert float((grad - analytic[1]).abs().max()) <= tol
     with pytest.raises(ValueError):
         make_map_value_and_grad(y, shifts, kern, 2, diff_mode="other", device="cpu")
     with pytest.raises(ValueError):

@@ -183,7 +183,7 @@ def test_sharded_round_trip_and_algebra():
         torch.sum(a)
 
 
-@pytest.mark.parametrize("method", ["linear_cg", "cg"])
+@pytest.mark.parametrize("method", ["linear_cg", "cg", "lbfgs"])
 @pytest.mark.parametrize("axes", [{"row": 2, "col": 2}, {"frame": 2, "band": 2}])
 def test_minimize_on_sharded_state_matches_the_global_tensor(axes, method):
     x, y, w = _problem()
