@@ -51,7 +51,18 @@ width:
   goldens also run through the fused solve, and the gradient modes
   (``autodiff``, ``numerical``) on the card against the same solves on the CPU
   (``autodiff`` also through ``fused_irls``, bit-equal to the host loop;
-  ``numerical`` held to a bound derived from the problem).
+  ``numerical`` held to a bound derived from the problem);
+- the command-line entry points (phase 11), each step through ``main(argv)``
+  on inputs written by the port's own PNG and ENVI writers: the flagship
+  through ``super_resolve`` under ``--fused_irls`` and with the default
+  ``cg`` host loop (each bit-equal to the same solve through
+  ``IRLSMapSolver``, its TV evaluations counted), ADMM (360 data-term
+  evaluations; float64 card against CPU), the RGB scene from a PNG directory
+  (registered, refined, BTV on the luminance), the wavelet-domain solve
+  (in float64 held element-wise against the same CLI run on the CPU), a
+  64-band ENVI cube with 3D TV and in PCA space (native and numpy reads equal,
+  and each timed), and ``generate_data``
+  then ``shift_add_fusion`` (bit-equal to the CPU); each step's wall time.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -70,6 +81,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import io
 import json
 import os
 import re
@@ -77,8 +89,10 @@ import shutil
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from unittest import mock
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -100,6 +114,14 @@ try:
     from super_resolution_tpu_torch.parallel import Sharded, collectives, make_mesh, make_sharded_vg, required_halo
     from super_resolution_tpu_torch.solvers.least_squares import minimize
     from super_resolution_tpu_torch.solvers.objective import make_map_value_and_grad
+    from super_resolution_tpu_torch.cli import generate_data as generate_data_cli
+    from super_resolution_tpu_torch.cli import shift_add_fusion as shift_add_cli
+    from super_resolution_tpu_torch.cli import super_resolve as super_resolve_cli
+    from super_resolution_tpu_torch.image import ImageData
+    from super_resolution_tpu_torch.solvers.admm import admm_solve
+    from super_resolution_tpu_torch.spectral import envi
+    from super_resolution_tpu_torch.utils.data_loader import load_image, save_image
+    from super_resolution_tpu_torch.utils.image_io import read_image
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -209,7 +231,7 @@ def load_golden(name):
 
 
 def phase_environment():
-    log(f"[1/10] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
+    log(f"[1/11] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"torch CUDA {torch.version.cuda}")
     nvcc = build.find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60).stdout
@@ -230,7 +252,7 @@ def phase_build():
     t0 = time.perf_counter()
     results = build.build()
     for name, info in results.items():
-        log(f"[2/10] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
+        log(f"[2/11] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
     log(f"      build total {time.perf_counter() - t0:.1f} s")
 
@@ -389,7 +411,7 @@ def _check_shift_generic(device, dtype):
     check(degrade.shift_source_counts == {"device": launches // 2, "host": launches // 2},
           f"shift sources miscounted: {degrade.shift_source_counts} for {launches} launches")
     check(len(list(build.build_dir().glob("libdegrade_*.so"))) == 1, "the kernels were built more than once")
-    log(f"[3/10] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
+    log(f"[3/11] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
         f"bit-equal to host shifts, one build")
 
 
@@ -615,7 +637,7 @@ def _check_shard_mode(device, dtype):
                               f"shard mode {mode} {dtype} s={scale} shifts {shifts} tile {coords} "
                               f"{'owned mask' if mask is not None else 'default mask'}: cost {cost_err:.3e}, "
                               f"grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/10] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
+    log(f"[3/11] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
         f"x 2 masks) agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
@@ -637,7 +659,7 @@ def _check_spectral_halo(device, dtype):
               f"spectral halo {dtype} C={c}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
         plain_tv3d = degrade.fused_objective(x, y, sh, kern, 2, tv_constants=constants, tv_use_3d=True)
         check(not torch.equal(out[1][-1], plain_tv3d[1][-1]), "the halo band was not taken out of the data term")
-    log(f"[3/10] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
+    log(f"[3/11] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
 
@@ -652,7 +674,7 @@ def _check_trivial_shard_arguments(device, dtype):
         in_shard_mode = degrade.fused_objective(x, y, sh, kern, 4, origin=(0, 0), global_hw=hw, **kw)
         check(float(plain_launch[0]) == float(in_shard_mode[0]) and torch.equal(plain_launch[1], in_shard_mode[1]),
               f"{mode} {dtype}: trivial shard arguments change the bits")
-    log(f"[3/10] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
+    log(f"[3/11] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
         f"{len(degrade.KERNEL_NAMES)} modes in {dtype}")
 
 
@@ -681,7 +703,7 @@ def _check_assembled(device, dtype):
         cost_err, grad_err, _ = _errors(vg(x, (weights,)), degrade.fused_objective(x, y, sh, kern, scale, **kw))
         check(cost_err <= tol and grad_err <= tol,
               f"assembled {axes} {dtype} case {n}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/10] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
+    log(f"[3/11] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
         f"by gather, scatter-sum and band ring == the unsharded kernels in {dtype} (tol {tol:g})")
 
 
@@ -751,7 +773,7 @@ def _check_btv_sweep(device, dtype):
                 held(degrade.fused_objective(*args, **kw), args, kw,
                      f"P={P} decay={decay} s={scale} {frames} frames tile {coords} "
                      f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/10] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images "
+    log(f"[3/11] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images "
         f"each, bit-equal when launched twice; {BTV_MANY_FRAMES} frames on 2 whole images; "
         f"{len(BTV_SWEEP_TILES)} x 5 shard tiles x 2 masks, one with {BTV_MANY_FRAMES} frames) agree with the "
         f"plain version in {dtype} (tol {tol:g})")
@@ -792,11 +814,11 @@ def _check_kernel_attributes():
         mine = [a for key, a in table.items() if key[0] == kernel]
         registers, shared = [a["registers"] for a in mine], [a["shared_bytes"] for a in mine]
         blocks = [a["blocks_per_sm"] for a in mine]
-        log(f"[3/10] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
+        log(f"[3/11] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
             f"{min(registers)}-{max(registers)} registers, {min(shared)}-{max(shared)} bytes of static shared memory, "
             f"{min(blocks)}-{max(blocks)} blocks of 256 threads per SM")
     direct = [a for key, a in table.items() if "direct" in key]
-    log(f"[3/10] kernels: of those, the {len(direct)} DIRECT instantiations: "
+    log(f"[3/11] kernels: of those, the {len(direct)} DIRECT instantiations: "
         f"{min(a['registers'] for a in direct)}-{max(a['registers'] for a in direct)} registers, "
         f"{min(a['blocks_per_sm'] for a in direct)}-{max(a['blocks_per_sm'] for a in direct)} blocks per SM")
     return table
@@ -909,7 +931,7 @@ def _check_composite_sweep(device, dtype):
         held((x, y, torch.as_tensor(sh, device=device), kern, scale),
              dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True), f"spectral halo s={scale}")
     check(exact[True] > 0 and exact[False] > 0, f"the sweep missed one of the composite's cases: {exact}")
-    log(f"[3/10] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
+    log(f"[3/11] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
         f"fractional / wide shifts x 2 whole images x data/TV/3D TV, bit-equal when launched twice; 66 and 30 frames; "
         f"3 scales x 5 shard tiles x blur 3x3/5x5/none x fractional / wide shifts x 2 masks x 3 modes; spectral halo "
         f"at s 2/3/4) agree with the plain version in {dtype} (tol {tol:g}); composite exact on {exact[True]} of the "
@@ -1000,7 +1022,7 @@ def _check_direct_sweep(device, dtype):
                     held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
                          f"{mode} s={scale} blur {size} {set_name} shifts tile {coords} "
                          f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/10] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
+    log(f"[3/11] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
         f"at s 2 -- the table; integer / fractional / wide shifts x whole images x {len(modes)} modes, bit-equal when "
         f"launched twice; 3 shard tiles x fractional / wide shifts x {len(modes)} modes) agree with the plain version "
         f"in {dtype} (tol {tol:g})")
@@ -1105,7 +1127,7 @@ def phase_kernels(device):
                 check(float(outs["data_term_tv3d"][0]) == float(outs["data_term_tv"][0])
                       and torch.equal(outs["data_term_tv3d"][1], outs["data_term_tv"][1]),
                       f"data_term_tv3d differs from data_term_tv at C=1 (case {i}, {dtype})")
-        log(f"[3/10] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
+        log(f"[3/11] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
             f"in {dtype} (tol {tol:g}); tv3d == tv at C=1")
         _check_shift_generic(device, dtype)
         shard_worst = {"shard_mode": _check_shard_mode(device, dtype),
@@ -1123,7 +1145,7 @@ def phase_kernels(device):
                 worst[mode] = max(worst[mode], composite_worst, direct_worst)
     attributes = _check_kernel_attributes()
     tap_difference = _float32_tap_difference(device)
-    log(f"[3/10] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
+    log(f"[3/11] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
         f"makes them) vs the kernels' float64 weights rounded once: {tap_difference:.2e} of the largest entry")
     check(tap_difference <= TOLERANCE[torch.float32], f"float32 tap weights move the gradient by {tap_difference}")
 
@@ -1212,7 +1234,7 @@ def phase_goldens(device):
                   "goldens: the fused solve differs from the host loop's")
             same = ", each bit-equal to the host loop's"
         host = solves
-        log(f"[4/10] goldens ({way}, cg): A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
+        log(f"[4/11] goldens ({way}, cg): A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
             f"C {psnr_ours:.3f} dB vs C++ {psnr_ref:.3f} dB{same} ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1362,7 +1384,7 @@ def phase_main_path(device, rows):
     for name, options, reg, lam in runs:
         results[name] = r = solve_once(name, gt, 4, options, reg, lam, device, dtype)
         mpix_it = r["iterations"] * side * side / r["seconds"] / 1e6
-        log(f"[5/10] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
+        log(f"[5/11] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
             f"{r['evaluations']} evaluations, {r['launches']} launches, {r['seconds']:.3f} s, "
             f"{mpix_it:.1f} Mpixel-iterations/s, PSNR {r['psnr']:.2f} dB (nearest {r['psnr_start']:.2f} dB)")
         log(f"      inner calls (s, iterations, evaluations): "
@@ -1464,7 +1486,7 @@ def phase_estimated_motion(device, rows):
         seconds.append(time.perf_counter() - t0)
     estimated = registered.as_array() * scale  # LR px -> HR px
     err_estimated = float(np.abs(estimated - true).max())
-    log(f"[6/10] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
+    log(f"[6/11] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
         f"{seconds[1]:.3f} s; max error {err_estimated:.4f} HR px (limit 0.25)")
     check(err_estimated < 0.25, f"registration is off by {err_estimated} HR px")
     x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
@@ -1548,7 +1570,7 @@ def phase_hyperspectral(device, rows):
         solver = tv_solver(model, lows, use_3d, fixed_iterations(20, 2), device)
         results[name] = r = run_solve(name, solver, x0, gt, 0.01)
         mvals = r["iterations"] * gt.numel() / r["seconds"] / 1e6
-        log(f"[7/10] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
+        log(f"[7/11] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
             f"= evaluations, {r['seconds']:.3f} s, {mvals:.1f} Mvalue-iterations/s, PSNR {r['psnr']:.2f} dB "
             f"(linear upsample {r['psnr_start']:.2f} dB); L1 objective {[float(f'{o:.7g}') for o in r['objectives']]}")
         check_objective_never_rises(name, r["objectives"])
@@ -1577,7 +1599,7 @@ def phase_hyperspectral(device, rows):
     b = PCA_BORDER
     inner = (slice(None), slice(b, -b), slice(b, -b))
     solved_db, linear_db = float(psnr(solved[inner], gt[inner])), float(psnr(linear[inner], gt[inner]))
-    log(f"[7/10] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
+    log(f"[7/11] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
         f"{round_trip:.2f} dB); {tuple(r['x'].shape)} solve {r['iterations']} iterations, {r['launches']} launches, "
         f"{r['seconds']:.3f} s; back-projected cube {solved_db:.2f} dB vs linear upsample {linear_db:.2f} dB inside "
         f"a {b}-px border (whole image {float(psnr(solved, gt)):.2f} vs {float(psnr(linear, gt)):.2f} dB)")
@@ -1623,7 +1645,7 @@ def compare_with_single_device(label, make, mode, shard_counter, mesh, lam, roun
             continue
         objective_diff = abs(meshed["objectives"][-1] - single["objectives"][-1]) / abs(single["objectives"][-1])
         psnr_diff = abs(meshed["psnr"] - single["psnr"])
-        log(f"[8/10] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
+        log(f"[8/11] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
             f"{meshed['evaluations']} evaluations, {meshed['launches']} launches; {meshed['seconds']:.3f} s meshed vs "
             f"{single['seconds']:.3f} s on one device; PSNR {meshed['psnr']:.2f} dB (start {meshed['psnr_start']:.2f}, "
             f"one device {single['psnr']:.2f}); max|diff| {diff:.2e}, L1 objective differs {objective_diff:.2e} "
@@ -1640,7 +1662,7 @@ def phase_mesh(device, rows):
     """The solve on a device mesh: band shards with the spectral halo, tiles
     with halo exchange, frame shards with refined motion."""
     devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    log(f"[8/10] mesh: shards are dealt over {len(devices)} visible card(s)")
+    log(f"[8/11] mesh: shards are dealt over {len(devices)} visible card(s)")
     degrade.reset_launch_counts()
     results = {}
 
@@ -1861,7 +1883,7 @@ def phase_fused(device, rows, turns=5, chunk_turns=5):
         evaluations = sum(c[2] for c in fused.last_inner_calls)
         values = gt.numel() * iterations
         med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
-        log(f"[9/10] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
+        log(f"[9/11] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
             f"fused == host loop bit for bit (x and shifts, {turns + 2} pairs)")
         log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
             f"[{min(fused_s):.4f}, {max(fused_s):.4f}] ({med_h / med_f:.2f}x); "
@@ -2073,7 +2095,7 @@ def _gradient_mode_solves(device):
         check(torch.equal(x_fused, x_card) and calls_fused == calls_card,
               f"fused autodiff solve vs the host loop on the card: {float((x_fused - x_card).abs().max()):.3e}, "
               f"rounds {calls_fused} vs {calls_card}")
-    log(f"[10/10] autodiff solve 1x64x64 float64 on the card: within {diff:.2e} (tol {AUTODIFF_TOLERANCE:g}) of the "
+    log(f"[10/11] autodiff solve 1x64x64 float64 on the card: within {diff:.2e} (tol {AUTODIFF_TOLERANCE:g}) of the "
         f"CPU's, same iterations and evaluations {calls_card}; fused_irls ({captured[1]} graphs captured, none by a "
         f"second instance) == host loop bit for bit ({time.perf_counter() - t0:.1f} s)")
 
@@ -2098,7 +2120,7 @@ def _gradient_mode_solves(device):
     check(diff <= bound and calls_card == calls_cpu,
           f"numerical solve on the card vs the CPU: {diff:.3e} (derived bound {bound:.3e}), rounds {calls_card} vs "
           f"{calls_cpu}")
-    log(f"[10/10] numerical 1x8x8 float64 (n = {n}, f = {cost:.6g}): gradient at the start on the card within "
+    log(f"[10/11] numerical 1x8x8 float64 (n = {n}, f = {cost:.6g}): gradient at the start on the card within "
         f"{g_diff:.3e} of the CPU's (bound 2 (n-1) u f / h = {dg:.3e}); solve within {diff:.3e} (bound: gain "
         f"{gain:.4g} x {dg:.3e} = {bound:.3e}; gain = |x_fd - x_exact| / |g_fd - g_exact| on the CPU, "
         f"{noise:.3e} at the start), same iterations and evaluations {calls_card} "
@@ -2121,7 +2143,7 @@ def phase_wolfe(device, rows, turns=3):
     irls_mod._BUILT_SOLVER_CACHE.clear()
     t_phase = time.perf_counter()
     problems, nearest = wolfe_problems(device)
-    log(f"[10/10] line-search solvers: problems made in {time.perf_counter() - t_phase:.1f} s")
+    log(f"[10/11] line-search solvers: problems made in {time.perf_counter() - t_phase:.1f} s")
     degrade.reset_launch_counts()
     results, launches = {}, {}
     for label, (make, mode, row) in problems.items():
@@ -2168,7 +2190,7 @@ def phase_wolfe(device, rows, turns=3):
         step = fused.last_fused.chunks[runs[0]["chunk_steps"]]
         kernels, copies, step_ms = _graph_nodes_per_step(step, runs[0]["chunk_steps"], device)
         med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
-        log(f"[10/10] {label}: {iterations} iterations, {evaluations} evaluations ({evaluations / iterations:.2f} "
+        log(f"[10/11] {label}: {iterations} iterations, {evaluations} evaluations ({evaluations / iterations:.2f} "
             f"per iteration, the starts included) in {rounds} rounds; fused == host loop bit for bit "
             f"(x and shifts, {turns + 2} pairs); PSNR {psnr_fused:.2f} dB (nearest {psnr_start:.2f})")
         log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
@@ -2213,8 +2235,326 @@ def phase_wolfe(device, rows, turns=3):
     results["psnr_cg_minus_linear_cg"] = psnr_cg - psnr_linear
     irls_mod._BUILT_SOLVER_CACHE.clear()
     _gradient_mode_solves(device)
-    log(f"[10/10] line-search phase: {time.perf_counter() - t_phase:.1f} s")
+    log(f"[10/11] line-search phase: {time.perf_counter() - t_phase:.1f} s")
     return results
+
+
+# -------------------------------------------------------------- the entry points
+
+# Phase 11's steps, each driven through a command-line entry point, and the
+# rows (kernel modes) each one's launches are read into.
+ENTRY_ROWS = {"K1": ("admm",), "K2": ("flagship_fused", "default_cg"), "K4": ("rgb_estimated",),
+              "K5": ("wavelet", "envi_pca"), "K6": ("envi_3dtv",)}
+ADMM_ITERATIONS, ADMM_CG_ITERATIONS = 30, 10
+ADMM_TOLERANCE = 1e-9
+WAVELET_TOLERANCE = 1e-9
+ENVI_READ_REPEATS = 5
+
+
+def _cli_step(label, main, argv, card, device):
+    """One run of a CLI's ``main(argv)`` on the card inside
+    ``degrade.recording_launches()``: (its standard output, wall seconds,
+    evaluations by mode, and by where their shifts came from). The plain
+    version may not run."""
+    out = io.StringIO()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    with degrade.recording_launches() as record, contextlib.redirect_stdout(out):
+        rc = main(argv)
+    torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    check(rc == 0, f"{label}: the CLI returned {rc}")
+    counts, sources, _, plain = record.counts
+    check(plain["calls"] == 0, f"{label}: the plain version ran {plain['calls']} times on the card")
+    log(f"[11/11] entry point {label}: {seconds:.3f} s wall ({card}); evaluations by mode "
+        f"{ {k: v for k, v in counts.items() if v} } (2 kernel launches each)")
+    return out.getvalue(), seconds, counts, sources
+
+
+def _scores(text):
+    """The ``PSNR/SSIM score on ...`` lines of the CLI's output."""
+    return {line.split(":")[0].strip(): float(line.split(":")[1]) for line in text.splitlines() if "score on" in line}
+
+
+def _check_psnr(label, text):
+    scores = _scores(text)
+    up, res = scores["PSNR score on upsampled"], scores["PSNR score on result"]
+    check(res >= up + 1.0, f"{label}: PSNR {res:.2f} dB does not beat the upsampled image's {up:.2f} dB by 1 dB")
+    return scores
+
+
+def _envi(path, device="cpu"):
+    loader = envi.HyperspectralDataLoader(path + ".config", device=device)
+    loader.load_image_from_envi_file()
+    return loader.get_image().hidden_array
+
+
+def _direct_flagship(scene_png, motion_path, options, device):
+    """The flagship solve of steps (a) and (b) through ``IRLSMapSolver``
+    itself, on the same loaded image: (estimate, evaluations)."""
+    params = dict(scale=4, blur_radius=3, blur_sigma=1.5, motion_sequence_path=motion_path)
+    hr = load_image(scene_png, device=device)
+    model = sr.ImageModel.create(sr.ImageModelParameters(**params))
+    lows = [hr._with_array(model.apply(hr.array, i).contiguous()) for i in range(4)]
+    solver = sr.IRLSMapSolver(options, model, lows, device=device, dtype=torch.float32)
+    solver.add_regularizer(TotalVariationRegularizer(), 0.01)
+    x = solver.solve(lows[0].resized(4.0, method="linear"))
+    return x.array, sum(call[2] for call in solver.last_inner_calls)
+
+
+def _admm_card_against_cpu(device, side=256):
+    """``admm_solve`` in float64 on the card and on the CPU (the plain
+    version): max|difference| over the largest entry."""
+    xs = []
+    for where in (device, torch.device("cpu")):
+        model, gt, lows = make_observations(synthetic_scene(1, side, side, seed=2026), FLAGSHIP_SHIFTS, 4, 3, 1.5,
+                                            where, torch.float64)
+        x0 = lows[0].repeat_interleave(4, dim=-2).repeat_interleave(4, dim=-1).contiguous()
+        xs.append(admm_solve(x0, torch.stack(lows), np.asarray(FLAGSHIP_SHIFTS, dtype=np.float64),
+                             model.blur_operator.kernel, 4, tv_lambda=0.01, rho=1.0, num_iterations=ADMM_ITERATIONS,
+                             cg_iterations=ADMM_CG_ITERATIONS).x.cpu())
+    return float((xs[0] - xs[1]).abs().max()) / float(xs[1].abs().max())
+
+
+def _wavelet_float64(argv, device):
+    """The wavelet-domain CLI run of ``argv`` in float64, on the card and
+    on the CPU: {"card": x, "cpu": x}, each the float64 output of
+    ``_solve_in_wavelet_domain`` (on the CPU)."""
+    real = super_resolve_cli._solve_in_wavelet_domain
+    out = {}
+    for where in ("card", "cpu"):
+        def keep(*args, where=where):
+            result = real(*args)
+            out[where] = result.hidden_array.cpu()
+            return result
+
+        argv_ = argv + ["--dtype", "float64"] + (["--device", "cpu"] if where == "cpu" else [])
+        with mock.patch.object(super_resolve_cli, "_solve_in_wavelet_domain", keep), \
+                contextlib.redirect_stdout(io.StringIO()):
+            check(super_resolve_cli.main(argv_) == 0, f"wavelet: the float64 run on the {where} failed")
+        check(out[where].dtype == torch.float64, f"wavelet: the {where} run did not solve in float64")
+    return out
+
+
+def _envi_read_ms(bsq, device):
+    """Median milliseconds of a whole-cube read onto the card as the ENVI
+    loader makes it (the read, then ``ImageData`` on the device), native and
+    through the numpy memmap, each after one warm read (the file in the page
+    cache)."""
+    times = {}
+    for name, read in (("native", envi.read_cube_native), ("memmap", envi.read_cube_numpy)):
+        laps = []
+        for _ in range(ENVI_READ_REPEATS + 1):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            ImageData(read(*bsq), normalize="never", channel_major=True, device=device)
+            torch.cuda.synchronize(device)
+            laps.append((time.perf_counter() - t0) * 1e3)
+        times[name] = float(np.median(laps[1:]))
+    return times
+
+
+def phase_entry_points(device, rows, card, side=1000, hsi_side=256):
+    """The port's command-line entry points at full width, each step run
+    through ``main(argv)`` on inputs written by the port's own writers: the
+    flagship through ``super_resolve`` under ``--fused_irls`` and with the
+    default ``cg`` host loop (both bit-equal to the same solve through
+    ``IRLSMapSolver``), ADMM (its evaluation count, and card against CPU in
+    float64), the refined RGB scene from a PNG directory, the wavelet-domain
+    solve (card against CPU in float64), a 64-band ENVI cube with 3D TV and
+    in PCA space (its native and memmap reads timed), and
+    ``generate_data`` then ``shift_add_fusion`` (bit-equal to the CPU).
+    ``side`` / ``hsi_side``: the HR scenes' and the cube's side."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_entry_")
+    steps = {}
+    try:
+        scene_png = os.path.join(tmp, "scene.png")
+        save_image(ImageData(synthetic_scene(1, side, side, seed=2026), channel_major=True, device=device), scene_png)
+        motion = os.path.join(tmp, "flagship_shifts.txt")
+        MotionShiftSequence(FLAGSHIP_SHIFTS).save_sequence_to_file(motion)
+        flagship = ["--data_path", scene_png, "--generate_lr_images", "--number_of_frames", "4",
+                    "--upsampling_scale", "4", "--blur_radius", "3", "--blur_sigma", "1.5",
+                    "--motion_sequence_path", motion, "--regularizer", "tv", "--regularization_parameter", "0.01",
+                    "--evaluators", "psnr,ssim", "--device", str(device)]
+        fixed = ["--gradient_norm_threshold", "0", "--cost_decrease_threshold", "0",
+                 "--parameter_variation_threshold", "0"]
+
+        # (a) the flagship, fused, and (b) the default options' host loop of cg:
+        # each bit-equal to the same solve through IRLSMapSolver.
+        for label, extra, options in (
+            ("flagship_fused", ["--solver", "linear_cg", "--optimization_iterations", "3", "--solver_iterations", "50",
+                                *fixed, "--fused_irls"],
+             dataclasses.replace(fixed_iterations(50, 3), fused_irls=True)),
+            ("default_cg", ["--solver", "cg", "--optimization_iterations", "2", "--solver_iterations", "20"],
+             sr.IRLSMapSolverOptions(least_squares_solver="cg", max_num_solver_iterations=20,
+                                     max_num_irls_iterations=2)),
+        ):
+            result = os.path.join(tmp, f"{label}.bsq")
+            text, seconds, counts, _ = _cli_step(label, super_resolve_cli.main,
+                                                 flagship + extra + ["--result_path", result], card, device)
+            scores = _check_psnr(label, text)
+            direct, evaluations = _direct_flagship(scene_png, motion, options, device)
+            cli_x = _envi(result)
+            same = torch.equal(cli_x, direct.cpu())
+            log(f"      {label}: PSNR {scores['PSNR score on result']:.4f} dB (upsampled "
+                f"{scores['PSNR score on upsampled']:.4f}), SSIM {scores['SSIM score on result']:.4f}; "
+                f"{counts['data_term_tv']} TV evaluations = the direct solve's {evaluations}; bit-equal to the "
+                f"direct IRLSMapSolver solve: {same}")
+            check(same, f"{label}: the CLI's result differs from the direct solve's "
+                        f"(max|diff| {float((cli_x - direct.cpu()).abs().max()):.3e})")
+            check(counts["data_term_tv"] == evaluations > 0,
+                  f"{label}: {counts['data_term_tv']} TV evaluations counted, the solve made {evaluations}")
+            steps[label] = dict(seconds=seconds, counts=counts)
+        log(f"      the default options' host loop of cg (2 x 20) took {steps['default_cg']['seconds']:.3f} s against "
+            f"{steps['flagship_fused']['seconds']:.3f} s for the fused flagship (3 x 50) ({card})")
+
+        # (c) ADMM: 2 + cg evaluations an iteration, every one on the data-term kernels.
+        text, seconds, counts, _ = _cli_step("admm", super_resolve_cli.main, flagship + [
+            "--solver", "admm", "--solver_iterations", str(ADMM_ITERATIONS),
+            "--admm_cg_iterations", str(ADMM_CG_ITERATIONS)], card, device)
+        expected = ADMM_ITERATIONS * (2 + ADMM_CG_ITERATIONS)
+        check(counts["data_term"] == expected and sum(counts.values()) == expected,
+              f"admm: {counts} evaluations, expected {expected} of the data term")
+        scores = _check_psnr("admm", text)
+        rel = _admm_card_against_cpu(device)
+        log(f"      admm {ADMM_ITERATIONS} x {ADMM_CG_ITERATIONS}: {expected} data-term evaluations = "
+            f"{2 * expected} kernel launches; PSNR {scores['PSNR score on result']:.4f} dB (upsampled "
+            f"{scores['PSNR score on upsampled']:.4f}); float64 1x256x256 card vs CPU max|diff| / max|x| "
+            f"{rel:.3e} (tol {ADMM_TOLERANCE:g})")
+        check(rel <= ADMM_TOLERANCE, f"admm: card and CPU differ by {rel:.3e} of the largest entry")
+        steps["admm"] = dict(seconds=seconds, counts=counts)
+
+        # (d) the RGB scene of phase 6 from a PNG directory: registered, refined, BTV on the luminance.
+        gt, lows = estimated_motion_problem(device, side=side)
+        frames = os.path.join(tmp, "rgb_frames")
+        os.makedirs(frames)
+        for i, low in enumerate(lows):
+            save_image(ImageData(low, normalize="never", channel_major=True), os.path.join(frames, f"frame_{i}.png"))
+        truth = os.path.join(tmp, "rgb_truth.png")
+        save_image(ImageData(gt, normalize="never", channel_major=True), truth)
+        text, seconds, counts, sources = _cli_step("rgb_estimated", super_resolve_cli.main, [
+            "--data_path", frames, "--ground_truth_image", truth, "--upsampling_scale", "4", "--blur_radius", "3",
+            "--blur_sigma", "1.5", "--interpolate_color", "--estimate_motion", "--refine_motion", "1",
+            "--regularizer", "btv", "--solver", "linear_cg", "--optimization_iterations", "2",
+            "--solver_iterations", "20", "--evaluators", "psnr,ssim", "--verbose", "--device", str(device)],
+            card, device)
+        check("Refined motion against the HR estimate" in text, "rgb_estimated: the motion was not refined")
+        check(counts["data_term_btv"] > 0, "rgb_estimated: the BTV kernels (K4) were never launched")
+        check(sources == {"device": counts["data_term_btv"], "host": 0},
+              f"rgb_estimated: the shifts of {sources['host']} evaluations crossed from the host")
+        scores = _check_psnr("rgb_estimated", text)
+        log(f"      rgb_estimated: PSNR {scores['PSNR score on result']:.4f} dB (upsampled "
+            f"{scores['PSNR score on upsampled']:.4f})")
+        steps["rgb_estimated"] = dict(seconds=seconds, counts=counts)
+
+        # (e) the wavelet domain: the 4 subbands as channels of one solve (K5),
+        # in float32 as the CLI's default; then in float64 on the card and on
+        # the CPU, held element-wise (the solve's own output, before the
+        # float32 ENVI storage).
+        wavelet = flagship + ["--solve_in_wavelet_domain", "--solver", "linear_cg", "--optimization_iterations", "2",
+                              "--solver_iterations", "20"]
+        result = os.path.join(tmp, "wavelet_card.bsq")
+        text, seconds, counts, _ = _cli_step("wavelet", super_resolve_cli.main, wavelet + ["--result_path", result],
+                                             card, device)
+        check(counts["data_term_tv"] > 0, "wavelet: the TV kernels were never launched")
+        card_x = _envi(result)
+        check(card_x.shape == (1, side, side) and bool(torch.isfinite(card_x).all()), "wavelet: bad output")
+        wide = _wavelet_float64(wavelet, device)
+        scale = float(wide["cpu"].abs().max())
+        rel64 = float((wide["card"] - wide["cpu"]).abs().max()) / scale
+        rel32 = float((card_x.double() - wide["card"]).abs().max()) / scale
+        # The same float32 run on the CPU (the plain version), for the size of its own rounding.
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(super_resolve_cli.main(wavelet + ["--result_path", result + ".cpu", "--device", "cpu"]) == 0,
+                  "wavelet: the float32 CPU run failed")
+        cpu32 = _envi(result + ".cpu").double()
+        rel32_cpu = float((cpu32 - wide["cpu"]).abs().max()) / scale
+        rel32_apart = float((cpu32 - card_x.double()).abs().max()) / scale
+        scores = _scores(text)
+        log(f"      wavelet (4 x {side // 2} x {side // 2} subband stack): PSNR {scores['PSNR score on result']:.4f} dB "
+            f"(upsampled {scores['PSNR score on upsampled']:.4f}: the wavelet-domain solve does not beat it, in the "
+            f"JAX package neither); float64 card vs CPU max|diff| / max|x| {rel64:.3e} (tol {WAVELET_TOLERANCE:g}); "
+            f"float32 vs float64: {rel32:.3e} on the card, {rel32_cpu:.3e} on the CPU; float32 card vs CPU "
+            f"{rel32_apart:.3e} (float32 rounding carried through the solve)")
+        check(rel64 <= WAVELET_TOLERANCE, f"wavelet: card and CPU differ by {rel64:.3e} of the largest entry in float64")
+        steps["wavelet"] = dict(seconds=seconds, counts=counts)
+
+        # (f) a 64-band ENVI cube: 3D TV (K6), then the PCA space (K5 on 4 components).
+        _, cube, _ = pca_problem(device, side=hsi_side)
+        cube_path = os.path.join(tmp, "cube.bsq")
+        envi.HyperspectralDataLoader(cube_path).save_image(cube)
+        header = envi.read_envi_header(cube_path + ".hdr")
+        bands, rows_, cols = header.num_data_bands, header.num_data_rows, header.num_data_cols
+        bsq = (cube_path, bands, rows_, cols, (0, bands), (0, rows_), (0, cols), 0, False)
+        check(np.array_equal(envi.read_cube_native(*bsq), envi.read_cube_numpy(*bsq)),
+              "ENVI: the native and numpy reads differ")
+        read_ms = _envi_read_ms(bsq, device)
+        log(f"      envi: a {bands}x{rows_}x{cols} float32 cube read whole onto the card, median of "
+            f"{ENVI_READ_REPEATS}: native {read_ms['native']:.3f} ms, numpy memmap {read_ms['memmap']:.3f} ms ({card})")
+        hsi = ["--data_path", cube_path + ".config", "--generate_lr_images", "--upsampling_scale", "2",
+               "--blur_radius", "3", "--blur_sigma", "1.5", "--motion_sequence_path", motion,
+               "--regularization_parameter", "0.01", "--solver", "linear_cg", "--optimization_iterations", "2",
+               "--solver_iterations", "20", "--evaluators", "psnr", "--device", str(device)]
+        text, seconds, counts, _ = _cli_step("envi_3dtv", super_resolve_cli.main, hsi + ["--regularizer", "3dtv"],
+                                             card, device)
+        check(counts["data_term_tv3d"] > 0, "envi_3dtv: the 3D TV kernels (K6) were never launched")
+        scores = _check_psnr("envi_3dtv", text)
+        steps["envi_3dtv"] = dict(seconds=seconds, counts=counts)
+        result = os.path.join(tmp, "pca.bsq")
+        text, seconds, counts, _ = _cli_step("envi_pca", super_resolve_cli.main, hsi + [
+            "--solve_in_pca_space", "--num_pca_components", "4", "--result_path", result], card, device)
+        check(counts["data_term_tv"] > 0, "envi_pca: the TV kernels (K5) were never launched")
+        # Scored inside the border band, as phase 7 scores it (Queue 3 of ROADMAP.md: the
+        # projected frames do not fit the zero borders of warp and blur).
+        solved = _envi(result)
+        gt_cube = load_image(cube_path + ".config", device="cpu").array
+        model = sr.ImageModel.create(sr.ImageModelParameters(scale=2, blur_radius=3, blur_sigma=1.5,
+                                                             motion_sequence_path=motion))
+        linear = linear_resize(model.apply(gt_cube, 0), (hsi_side, hsi_side))
+        inner = (slice(None), slice(PCA_BORDER, -PCA_BORDER), slice(PCA_BORDER, -PCA_BORDER))
+        solved_db, linear_db = float(psnr(solved[inner], gt_cube[inner])), float(psnr(linear[inner], gt_cube[inner]))
+        log(f"      envi: native and numpy reads equal; 3D TV PSNR {scores['PSNR score on result']:.4f} dB (upsampled "
+            f"{scores['PSNR score on upsampled']:.4f}); PCA space {solved_db:.4f} dB vs linear {linear_db:.4f} dB "
+            f"inside a {PCA_BORDER}-px border (whole image: {_scores(text)})")
+        check(solved_db >= linear_db + 1.0, "envi_pca: the PCA-space solve does not beat linear upsampling by 1 dB")
+        steps["envi_pca"] = dict(seconds=seconds, counts=counts)
+
+        # (g) generate_data, then shift_add_fusion, on the card and on the CPU: the same bits.
+        fused = {}
+        for where in (str(device), "cpu"):
+            lr_dir = os.path.join(tmp, f"lr_{where}")
+            fused[where] = os.path.join(tmp, f"fused_{where}.png")
+            gen = ["--input_image", scene_png, "--output_image_dir", lr_dir, "--upsampling_scale", "4",
+                   "--blur_radius", "3", "--blur_sigma", "1.5", "--motion_sequence_path", motion, "--device", where]
+            fuse = ["--input_image_dir", lr_dir, "--input_motion_sequence", motion, "--upsampling_scale", "4",
+                    "--result_path", fused[where], "--device", where]
+            if where != "cpu":
+                _, seconds, _, _ = _cli_step("generate_data", generate_data_cli.main, gen, card, device)
+                _, fuse_seconds, _, _ = _cli_step("shift_add_fusion", shift_add_cli.main, fuse, card, device)
+                steps["generate_data"], steps["shift_add_fusion"] = dict(seconds=seconds), dict(seconds=fuse_seconds)
+            else:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    check(generate_data_cli.main(gen) == 0 and shift_add_cli.main(fuse) == 0, "the CPU CLIs failed")
+        for i in range(4):
+            check(np.array_equal(read_image(os.path.join(tmp, f"lr_{device}", f"low_res_{i}.png")),
+                                 read_image(os.path.join(tmp, "lr_cpu", f"low_res_{i}.png"))),
+                  f"generate_data: frame {i} differs between card and CPU")
+        card_png, cpu_png = read_image(fused[str(device)]), read_image(fused["cpu"])
+        check(card_png.shape == (side, side) and np.array_equal(card_png, cpu_png),
+              "shift_add_fusion: the card's fused PNG differs from the CPU's")
+        log(f"      generate_data -> shift_add_fusion: 4 LR frames and the fused {side}x{side} PNG bit-equal on card and CPU")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for row in rows:
+        row["launches_entry_points"] = sum(steps[step]["counts"][row["mode"]] for step in ENTRY_ROWS.get(row["row"], ()))
+        check(row["row"] not in ENTRY_ROWS or row["launches_entry_points"] > 0,
+              f"the entry points never launched {row['mode']} ({row['row']})")
+    log(f"[11/11] entry points: {time.perf_counter() - t_phase:.1f} s; wall by step "
+        f"{ {k: round(v['seconds'], 3) for k, v in steps.items()} } ({card}); evaluations by row "
+        f"{ {r['row']: r['launches_entry_points'] for r in rows} }")
+    return steps
 
 
 def per_kernel_table(rows):
@@ -2257,6 +2597,7 @@ def main():
         phase_mesh(device, rows)
         phase_fused(device, rows)
         phase_wolfe(device, rows)
+        phase_entry_points(device, rows, card)
     except Failure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1

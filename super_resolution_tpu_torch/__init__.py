@@ -18,16 +18,27 @@ across solver instances), the dense operator-matrix test oracle — with estimat
 between IRLS rounds) and hyperspectral cubes (many bands in one objective,
 spectral PCA), the resizers, PSNR and SSIM — and the same solve on a device
 mesh (``parallel``: band, frame and row/col shards with halo exchange,
-``IRLSMapSolver(..., mesh=make_mesh(...))``). Everything else raises
-``NotImplementedError`` or is absent.
+``IRLSMapSolver(..., mesh=make_mesh(...))``) — and the command-line entry
+points (``cli``: ``super_resolve``, ``generate_data``, ``shift_add_fusion``,
+``visualize_image``) with what they reach: ``ImageData`` and colour
+(``image``), PNG / BMP and ENVI I/O (``utils``, ``spectral.envi``, the
+``native`` reader), the Haar wavelet (``wavelet``), ADMM and shift-and-add
+(``solvers``). Video, profiling and the JAX package's test comparators are
+absent.
 
-Entry points that place data (``IRLSMapSolver``, ``make_map_value_and_grad``,
-``translational_registration``, ``convert``) default to ``device="cuda"`` and raise when no CUDA device is
-present; pass ``device="cpu"`` explicitly to run the plain versions.
+Entry points that place data (``IRLSMapSolver``, ``AdmmSolver``,
+``make_map_value_and_grad``, ``translational_registration``, ``ImageData``,
+``load_image``, the CLIs, ``convert``) default to ``device="cuda"`` and raise
+when no CUDA device is present; pass ``device="cpu"`` explicitly to run the
+plain versions.
 """
 
 __version__ = "0.1.0"
 
+from super_resolution_tpu_torch.image.image_data import (  # noqa: F401
+    ImageData,
+    SpectralMode,
+)
 from super_resolution_tpu_torch.models.image_model import (  # noqa: F401
     ImageModel,
     ImageModelParameters,

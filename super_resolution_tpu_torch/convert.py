@@ -15,6 +15,9 @@ a result: ``use_pallas_data_term``, ``use_static_shifts``, ``pallas_tile``,
 ``num_lbfgs_hessian_corrections`` and ``diff_mode`` are carried: the port's
 solver then runs the fused solve, L-BFGS with that memory, and the
 gradient mode asked for.
+A JAX ``ImageData`` crosses as its hidden array (``np.asarray(image.hidden_array)``),
+its spectral mode's name and its luminance-only flag (:func:`image_data`), and
+the JAX ``AdmmSolverOptions`` as ``dataclasses.asdict`` (:func:`admm_options`).
 A JAX ``Mesh`` crosses as its axis sizes, ``{name: size}`` in plain ints
 (``dict(zip(mesh.axis_names, mesh.devices.shape))``): :func:`mesh` builds
 the port's mesh of that shape over the devices given.
@@ -33,11 +36,13 @@ import numpy as np
 import torch
 
 from super_resolution_tpu_torch._device import as_chw, as_tensor, resolve_device
+from super_resolution_tpu_torch.image.image_data import ImageData, SpectralMode
 from super_resolution_tpu_torch.models.image_model import ImageModel, ImageModelParameters
 from super_resolution_tpu_torch.motion.motion_shift import MotionShiftSequence
 from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
 from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
 from super_resolution_tpu_torch.parallel.mesh import Mesh, make_mesh
+from super_resolution_tpu_torch.solvers.admm import AdmmSolverOptions
 from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver
 from super_resolution_tpu_torch.solvers.map_solver import IRLSMapSolverOptions
 from super_resolution_tpu_torch.spectral.pca import SpectralPCA
@@ -46,6 +51,8 @@ __all__ = [
     "DROPPED_OPTION_FIELDS",
     "image_model_parameters",
     "irls_options",
+    "admm_options",
+    "image_data",
     "regularizers",
     "lr_stack",
     "hr_image",
@@ -82,11 +89,32 @@ def image_model_parameters(params: Mapping) -> ImageModelParameters:
 
 def irls_options(options: Mapping) -> IRLSMapSolverOptions:
     """``dataclasses.asdict`` of the JAX options -> the port's options."""
-    known = {f.name for f in dataclasses.fields(IRLSMapSolverOptions)}
+    return _options(options, IRLSMapSolverOptions)
+
+
+def _options(options: Mapping, cls):
+    known = {f.name for f in dataclasses.fields(cls)}
     unknown = sorted(set(options) - known - set(DROPPED_OPTION_FIELDS))
     if unknown:
         raise ValueError(f"Unknown solver option(s): {', '.join(unknown)}")
-    return IRLSMapSolverOptions(**{k: v for k, v in options.items() if k in known})
+    return cls(**{k: v for k, v in options.items() if k in known})
+
+
+def admm_options(options: Mapping) -> AdmmSolverOptions:
+    """``dataclasses.asdict`` of the JAX ``AdmmSolverOptions`` -> the port's
+    (the kernel-routing fields dropped, as for :func:`irls_options`)."""
+    return _options(options, AdmmSolverOptions)
+
+
+def image_data(array, spectral_mode_name: str, luminance_only: bool = False, device="cuda",
+               dtype: torch.dtype = torch.float32) -> ImageData:
+    """A JAX ``ImageData`` -> the port's: its hidden array ``[C, H, W]`` as
+    numpy, its spectral mode's name (``image.spectral_mode.name``, e.g.
+    ``"COLOR_YCRCB"``) and its luminance-only flag (``image._luminance_only``),
+    taken as they are (no normalization)."""
+    return ImageData(np.asarray(array), normalize="never", channel_major=True,
+                     spectral_mode=SpectralMode[spectral_mode_name], _luminance_only=bool(luminance_only),
+                     device=resolve_device(device), dtype=dtype)
 
 
 def regularizers(specs: Sequence[tuple[str, Mapping, float]]) -> list[tuple[object, float]]:

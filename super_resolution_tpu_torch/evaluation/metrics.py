@@ -30,6 +30,7 @@ __all__ = [
 
 
 def _as_chw(arr) -> torch.Tensor:
+    arr = getattr(arr, "array", arr)  # an ImageData's visible channels
     if not isinstance(arr, torch.Tensor):
         arr = torch.tensor(np.asarray(arr))  # a copy: the input may be read-only
     if arr.ndim == 2:

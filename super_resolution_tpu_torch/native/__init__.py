@@ -1,0 +1,116 @@
+"""Native (C++) ENVI BSQ reader, bound with ctypes.
+
+``envi_loader.cpp`` (the port's own copy) streams band-sequential float32
+cubes: cropped, seek-based reads on a pool of threads, byte swapping for
+big-endian files. At first use it is compiled with the host's C++ compiler
+into ``super_resolution_tpu_torch/_build/libsr_envi_<hash>.so``, where the
+hash covers the source and the flags: an edited source is rebuilt, an
+unchanged one loaded as it is. Nothing runs when the module is imported.
+
+:func:`native_available` is false only when the host has no C++ compiler;
+then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. A
+compile that fails, and a native read that fails, raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+__all__ = ["native_available", "get_library", "read_bsq", "build_library"]
+
+_SOURCE = Path(__file__).resolve().parent / "envi_loader.cpp"
+_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+
+def _compiler() -> str | None:
+    return shutil.which("g++") or shutil.which("c++")
+
+
+def _library_path() -> Path:
+    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    return Path(__file__).resolve().parents[1] / "_build" / f"libsr_envi_{digest}.so"
+
+
+def build_library() -> Path:
+    """Compile the library if it is not built yet; return its path.
+
+    Raises ``RuntimeError`` without a compiler or when the compile fails."""
+    lib = _library_path()
+    if lib.is_file():
+        return lib
+    compiler = _compiler()
+    if compiler is None:
+        raise RuntimeError("No C++ compiler (g++ / c++) on PATH; the native ENVI library cannot be built.")
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+    out = subprocess.run([compiler, *_FLAGS, str(_SOURCE), "-o", str(tmp)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"Building {_SOURCE.name} failed (exit {out.returncode}):\n{out.stderr}")
+    os.replace(tmp, lib)  # atomic: a concurrent build sees a whole file or none
+    return lib
+
+
+def get_library() -> ctypes.CDLL:
+    """The loaded library, built first if need be."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_library()))
+            i64, c_int, f_ptr = ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
+            lib.sr_envi_read_bsq.restype = c_int
+            lib.sr_envi_read_bsq.argtypes = [ctypes.c_char_p] + [i64] * 10 + [c_int, c_int, f_ptr]
+            _lib = lib
+        return _lib
+
+
+def native_available() -> bool:
+    """True where a C++ compiler can build the library (it is then built and loaded)."""
+    if _lib is None and not _library_path().is_file() and _compiler() is None:
+        return False
+    get_library()
+    return True
+
+
+def read_bsq(
+    path: str,
+    bands: int,
+    rows: int,
+    cols: int,
+    crop=(None, None, None),
+    header_offset: int = 0,
+    big_endian: bool = False,
+) -> np.ndarray:
+    """Read a cropped float32 BSQ sub-cube. ``crop`` is ((b0, b1), (r0, r1),
+    (c0, c1)), end-exclusive, with None meaning the full range. Bands are
+    read on up to eight threads."""
+    (b0, b1), (r0, r1), (c0, c1) = [
+        rng if rng is not None else (0, full) for rng, full in zip(crop, (bands, rows, cols))
+    ]
+    if not (0 <= b0 < b1 <= bands and 0 <= r0 < r1 <= rows and 0 <= c0 < c1 <= cols):
+        raise ValueError(f"Invalid crop {crop} of a {bands}x{rows}x{cols} cube.")
+    needed = header_offset + 4 * bands * rows * cols
+    if os.path.getsize(path) < needed:
+        raise IOError(f"{path} holds {os.path.getsize(path)} bytes; a {bands}x{rows}x{cols} float32 cube "
+                      f"after {header_offset} header bytes needs {needed}.")
+    out = np.empty((b1 - b0, r1 - r0, c1 - c0), dtype=np.float32)
+    threads = min(os.cpu_count() or 1, 8)
+    status = get_library().sr_envi_read_bsq(
+        os.fsencode(path), header_offset, bands, rows, cols, b0, b1, r0, r1, c0, c1,
+        1 if big_endian else 0, threads, out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+    )
+    if status != 0:
+        raise IOError(f"sr_envi_read_bsq failed with status {status} for {path}")
+    return out
+

@@ -153,7 +153,8 @@ def recording_launches():
     try:
         yield record
     finally:
-        _fold_recorders.remove(record.folds)
+        # By identity: an enclosing record's list may compare equal to this one.
+        del _fold_recorders[next(i for i, folds in enumerate(_fold_recorders) if folds is record.folds)]
         record.counts = tuple({key: counts[key] - was[key] for key in counts} for counts, was in zip(_COUNTERS, before))
         for counts, was in zip(_COUNTERS, before):
             counts.update(was)

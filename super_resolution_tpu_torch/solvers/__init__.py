@@ -3,6 +3,10 @@ from super_resolution_tpu_torch.solvers.map_solver import (  # noqa: F401
     MapSolverOptions,
 )
 from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver, irls_solve_fused  # noqa: F401
+from super_resolution_tpu_torch.solvers.admm import (  # noqa: F401
+    AdmmSolver,
+    AdmmSolverOptions,
+)
 from super_resolution_tpu_torch.solvers.least_squares import (  # noqa: F401
     MinimizeResult,
     minimize,

@@ -79,6 +79,7 @@ import numpy as np
 import torch
 
 from super_resolution_tpu_torch._device import as_chw, as_tensor
+from super_resolution_tpu_torch.image.image_data import ImageData
 from super_resolution_tpu_torch.models.image_model import ImageModel
 from super_resolution_tpu_torch.motion.refinement import make_shift_refiner
 from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
@@ -440,8 +441,12 @@ class IRLSMapSolver(MapSolverBase):
         blur = image_model.blur_operator
         self.blur_kernel = None if blur is None else np.asarray(blur.kernel)
 
-    def solve(self, initial_estimate, checkpoint_path: str | None = None, resume: bool = False) -> torch.Tensor:
+    def solve(self, initial_estimate, checkpoint_path: str | None = None, resume: bool = False):
         """Run the solver; returns the HR estimate ``[C, H, W]`` on the solver's device.
+
+        An ``ImageData`` initial estimate is read through ``.array`` and the
+        estimate comes back as an ``ImageData`` in its spectral mode, as in
+        the JAX package (``irls.py:582-588``); any other gives a tensor.
 
         ``checkpoint_path``: the host loop saves its state at every IRLS seam
         to ``{checkpoint_path}.npz`` (``.round{i}.npz`` per channel round of
@@ -449,7 +454,13 @@ class IRLSMapSolver(MapSolverBase):
         ``weight_{i}`` and, when refining, ``shifts``. ``resume``: start from
         that file where it exists, placed back on the solver's device (and
         on the mesh's shards)."""
-        x_full = as_chw(initial_estimate, self.device, self.dtype)
+        x = self._solve(as_chw(getattr(initial_estimate, "array", initial_estimate), self.device, self.dtype),
+                        checkpoint_path, resume)
+        if isinstance(initial_estimate, ImageData):
+            return ImageData(x, normalize="never", channel_major=True, spectral_mode=initial_estimate.spectral_mode)
+        return x
+
+    def _solve(self, x_full, checkpoint_path, resume) -> torch.Tensor:
         if tuple(x_full.shape) != self.hr_shape:
             raise ValueError(
                 f"Initial estimate shape {tuple(x_full.shape)} != expected {self.hr_shape}"

@@ -34,7 +34,8 @@ class MapSolverBase(Solver):
     """Shared MAP solver state: observations, HR geometry, regularizers.
 
     ``low_res_images`` is a sequence of ``[C, h, w]`` (or ``[h, w]``) numpy
-    arrays or tensors; they are stacked on ``device`` as ``dtype``.
+    arrays, tensors or ``ImageData`` (read through ``.array``, as the JAX
+    package does); they are stacked on ``device`` as ``dtype``.
 
     Unlike the reference — which nearest-upsamples all observations to the HR
     grid in the constructor (``map_solver.cpp:80-85``) — observations stay on
@@ -53,7 +54,7 @@ class MapSolverBase(Solver):
         super().__init__(image_model, print_solver_output)
         self.device = resolve_device(device)
         self.dtype = dtype
-        stack = [as_chw(img, self.device, dtype) for img in low_res_images]
+        stack = [as_chw(getattr(img, "array", img), self.device, dtype) for img in low_res_images]
         if not stack:
             raise ValueError("Cannot super-resolve with 0 low-res images.")
         for s in stack[1:]:

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from super_resolution_tpu_torch._device import as_chw, resolve_device
+from super_resolution_tpu_torch.image.image_data import ImageData, SpectralMode
 
 __all__ = ["SpectralPCA"]
 
@@ -132,17 +132,22 @@ class SpectralPCA:
         flat = torch.matmul(coeffs, self._on(self.basis, y)) + self._on(self.mean, y)
         return flat.T.reshape(self.num_spectral_bands, h, w)
 
-    # ---------------------------------------- counterparts of the ImageData wrappers
+    # ----------------------------------------------------- ImageData wrappers
 
-    def get_pca_image(self, image, device="cuda", dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """Counterpart of ``SpectralPCA::GetPCAImage``: the projected image.
+    def get_pca_image(self, image, device=None, dtype: torch.dtype | None = None) -> ImageData:
+        """Mirror of ``SpectralPCA::GetPCAImage``: the projected image, in
+        mode ``HYPERSPECTRAL_PCA``. ``image``: an ``ImageData``, a tensor
+        (both stay where they are) or a numpy array (placed on ``device``,
+        default ``"cuda"``, as ``dtype``, default float32)."""
+        x = ImageData(getattr(image, "array", image), normalize="never", channel_major=True,
+                      device=device, dtype=dtype).array
+        return ImageData(self.project(x), normalize="never", channel_major=True,
+                         spectral_mode=SpectralMode.HYPERSPECTRAL_PCA)
 
-        Returns a plain ``[k, H, W]`` tensor on ``device``: the ``ImageData``
-        class (and its spectral-mode tag) is not ported yet.
-        """
-        return self.project(as_chw(getattr(image, "array", image), resolve_device(device), dtype))
-
-    def reconstruct_image(self, pca_image, device="cuda", dtype: torch.dtype = torch.float32) -> torch.Tensor:
-        """Counterpart of ``SpectralPCA::ReconstructImage``; a plain ``[C, H, W]``
-        tensor on ``device`` until ``ImageData`` is ported."""
-        return self.back_project(as_chw(getattr(pca_image, "array", pca_image), resolve_device(device), dtype))
+    def reconstruct_image(self, pca_image, device=None, dtype: torch.dtype | None = None) -> ImageData:
+        """Mirror of ``SpectralPCA::ReconstructImage``: the back-projected
+        image, in mode ``HYPERSPECTRAL`` (placement as :meth:`get_pca_image`)."""
+        y = ImageData(getattr(pca_image, "array", pca_image), normalize="never", channel_major=True,
+                      device=device, dtype=dtype).array
+        return ImageData(self.back_project(y), normalize="never", channel_major=True,
+                         spectral_mode=SpectralMode.HYPERSPECTRAL)

@@ -272,14 +272,18 @@ class _FakeLibrary:
 @pytest.fixture
 def fake_library(monkeypatch):
     """The wrapper's launch path on CPU tensors, the library replaced by a
-    :class:`_FakeLibrary` (no device, no stream)."""
+    :class:`_FakeLibrary` (no device, no stream). The launch counters are
+    put back afterwards: other tests in the process read them."""
     import contextlib
     import types
     fake = _FakeLibrary()
     monkeypatch.setattr(degrade, "_library", lambda: fake)
     monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=0))
-    return fake
+    saved = [dict(counts) for counts in degrade._COUNTERS]
+    yield fake
+    for counts, was in zip(degrade._COUNTERS, saved):
+        counts.update(was)
 
 
 def test_blur_larger_than_the_tap_table_is_handed_to_the_library(fake_library):
@@ -372,6 +376,27 @@ def test_launches_recorded_for_a_graph_are_taken_out_and_added_back(fake_library
     assert sum(degrade.shift_source_counts.values()) == sum(before[1].values()) + 2
     degrade._launch(x, y, shifts, None, 2, "data_term_tv", constants, 0, 1.0, (0, 0, 12, 16), False, None, False)
     assert len(record.folds) == 1  # nothing is recorded once the block has ended
+
+
+def test_recording_launches_nests(fake_library):
+    """A record opened inside another (a graph captured while a caller
+    counts a CLI run's launches) sees the same launches, and both close,
+    whichever lists compare equal."""
+    x, y, shifts, constants = _wrapper_problem()
+    before = dict(degrade.launch_counts)
+    with degrade.recording_launches() as outer:
+        with degrade.recording_launches() as inner:
+            degrade._launch(x, y, shifts, None, 2, "data_term_tv", constants, 0, 1.0, (0, 0, 12, 16), False, None,
+                            False)
+        assert outer.folds == inner.folds and len(inner.folds) == 1
+        degrade.add_counts(inner.counts)  # one replay
+        degrade._launch(x, y, shifts, None, 2, "data_term", None, 0, 1.0, (0, 0, 12, 16), False, None, False)
+    assert degrade._fold_recorders == []
+    assert degrade.launch_counts == before
+    assert len(outer.folds) == 2 and len(inner.folds) == 1
+    # The inner block's launch is taken back out (a capture runs nothing); its replay and the later launch count.
+    assert (outer.counts[0]["data_term_tv"], outer.counts[0]["data_term"]) == (1, 1)
+    assert inner.counts[0]["data_term_tv"] == 1
 
 def test_wrapper_modes_and_range_are_the_kernel_source_s():
     import re

@@ -28,7 +28,7 @@ from super_resolution_tpu_torch.solvers.objective import make_map_value_and_grad
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "super_resolution_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "super_resolution_tpu", "cv2")
+FORBIDDEN = ("jax", "super_resolution_tpu", "cv2", "PIL")
 
 
 @pytest.fixture(autouse=True)
@@ -42,7 +42,14 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import super_resolution_tpu_torch\n"
         "import super_resolution_tpu_torch.convert\n"
         "import super_resolution_tpu_torch.solvers, super_resolution_tpu_torch.ops.cuda.degrade\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'super_resolution_tpu', 'cv2')]\n"
+        "import super_resolution_tpu_torch.image, super_resolution_tpu_torch.utils.data_loader\n"
+        "import super_resolution_tpu_torch.utils.visualization, super_resolution_tpu_torch.utils.image_io\n"
+        "import super_resolution_tpu_torch.spectral.envi, super_resolution_tpu_torch.native\n"
+        "import super_resolution_tpu_torch.wavelet, super_resolution_tpu_torch.solvers.admm\n"
+        "import super_resolution_tpu_torch.solvers.shift_add\n"
+        "import super_resolution_tpu_torch.cli.super_resolve, super_resolution_tpu_torch.cli.generate_data\n"
+        "import super_resolution_tpu_torch.cli.shift_add_fusion, super_resolution_tpu_torch.cli.visualize_image\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'super_resolution_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'triton']\n"
         "print('clean')\n"
@@ -93,6 +100,28 @@ def test_entry_points_default_to_cuda_and_raise_without_a_card():
         convert.irls_solver({"scale": 2}, {}, [], np.zeros((2, 1, 4, 4)))
     # Asking for the CPU is the only way onto the CPU.
     port.IRLSMapSolver(port.IRLSMapSolverOptions(), model, lows, device="cpu")
+
+
+def test_image_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    from super_resolution_tpu_torch.cli import super_resolve
+    from super_resolution_tpu_torch.image import ImageData
+    from super_resolution_tpu_torch.utils.data_loader import load_image
+    from super_resolution_tpu_torch.utils.image_io import write_image
+
+    path = str(tmp_path / "image.png")
+    write_image(path, np.zeros((8, 8), np.uint8))
+    assert super_resolve.build_parser().parse_args(["--data_path", path]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ImageData(np.zeros((4, 4)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_image(path)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        super_resolve.main(["--data_path", path, "--generate_lr_images"])
+    # Asking for the CPU is the only way onto the CPU.
+    assert load_image(path, device="cpu").device.type == "cpu"
+    assert ImageData(np.zeros((4, 4)), device="cpu").device.type == "cpu"
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 from super_resolution_tpu.spectral import SpectralPCA as JPCA
 
 from super_resolution_tpu_torch import convert
+from super_resolution_tpu_torch.image import ImageData, SpectralMode
 from super_resolution_tpu_torch.spectral import SpectralPCA
 
 
@@ -78,13 +79,18 @@ def test_truncated_reconstruction_keeps_a_low_rank_cube():
 
 
 def test_image_wrappers_return_tensors():
+    """The wrappers return ``ImageData`` over tensors, in the JAX package's spectral modes."""
     cube = _cube(6, (8, 8), 42)
     pca = SpectralPCA([cube], num_pca_bands=2)
     image = pca.get_pca_image(cube, device="cpu", dtype=torch.float64)
-    assert isinstance(image, torch.Tensor) and image.shape == (2, 8, 8)
-    assert torch.equal(image, pca.project(torch.from_numpy(cube)))
-    back = pca.reconstruct_image(image.numpy(), device="cpu", dtype=torch.float64)
-    assert torch.equal(back, pca.back_project(image))
+    assert isinstance(image, ImageData) and image.spectral_mode == SpectralMode.HYPERSPECTRAL_PCA
+    assert isinstance(image.array, torch.Tensor) and image.array.shape == (2, 8, 8)
+    assert torch.equal(image.array, pca.project(torch.from_numpy(cube)))
+    back = pca.reconstruct_image(image.array.numpy(), device="cpu", dtype=torch.float64)
+    assert back.spectral_mode == SpectralMode.HYPERSPECTRAL
+    assert torch.equal(back.array, pca.back_project(image.array))
+    # An ImageData or a tensor stays on its device.
+    assert torch.equal(pca.reconstruct_image(image).array, back.array)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             pca.get_pca_image(cube)
