@@ -62,7 +62,19 @@ width:
   (in float64 held element-wise against the same CLI run on the CPU), a
   64-band ENVI cube with 3D TV and in PCA space (native and numpy reads equal,
   and each timed), and ``generate_data``
-  then ``shift_add_fusion`` (bit-equal to the CPU); each step's wall time.
+  then ``shift_add_fusion`` (bit-equal to the CPU); each step's wall time;
+- video (phase 12): 12 LR frames of 3x540x960, a seeded scene panned by a
+  known fractional drift, written as PNG and loaded by ``VideoLoader``, then
+  super-resolved to 3x1080x1920 per output frame by ``VideoSuperResolver``
+  with its defaults (window 4, BTV(2, 0.7), 3 x 25 linear CG), host loop and
+  ``fused_irls`` in turns: PSNR >= linear upsample + 1 dB on every frame,
+  fused bit-equal to the host loop with the graphs captured for the first
+  window only, a reduced window in float64 on the card against the CPU
+  (with blur, and without blur under motion refinement), the MJPEG fixture
+  decoded to the digest the CPU tests recorded; wall per frame, frames/s,
+  device busy share from the trace ``utils.profiling.trace`` writes,
+  registration per window (its read-backs counted), and one evaluation at
+  the video shape beside its bound, each kernel beside its own.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -81,6 +93,7 @@ import contextlib
 import dataclasses
 import functools
 import gc
+import hashlib
 import io
 import json
 import os
@@ -122,6 +135,11 @@ try:
     from super_resolution_tpu_torch.spectral import envi
     from super_resolution_tpu_torch.utils.data_loader import load_image, save_image
     from super_resolution_tpu_torch.utils.image_io import read_image
+    from super_resolution_tpu_torch import video as sr_video
+    from super_resolution_tpu_torch.ops.warp import translate
+    from super_resolution_tpu_torch.solvers import graphs
+    from super_resolution_tpu_torch.utils.profiling import device_time, trace
+    from super_resolution_tpu_torch.video.video_loader import read_avi_frames
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -231,7 +249,7 @@ def load_golden(name):
 
 
 def phase_environment():
-    log(f"[1/11] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
+    log(f"[1/12] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"torch CUDA {torch.version.cuda}")
     nvcc = build.find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60).stdout
@@ -252,7 +270,7 @@ def phase_build():
     t0 = time.perf_counter()
     results = build.build()
     for name, info in results.items():
-        log(f"[2/11] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
+        log(f"[2/12] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
     log(f"      build total {time.perf_counter() - t0:.1f} s")
 
@@ -411,7 +429,7 @@ def _check_shift_generic(device, dtype):
     check(degrade.shift_source_counts == {"device": launches // 2, "host": launches // 2},
           f"shift sources miscounted: {degrade.shift_source_counts} for {launches} launches")
     check(len(list(build.build_dir().glob("libdegrade_*.so"))) == 1, "the kernels were built more than once")
-    log(f"[3/11] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
+    log(f"[3/12] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
         f"bit-equal to host shifts, one build")
 
 
@@ -637,7 +655,7 @@ def _check_shard_mode(device, dtype):
                               f"shard mode {mode} {dtype} s={scale} shifts {shifts} tile {coords} "
                               f"{'owned mask' if mask is not None else 'default mask'}: cost {cost_err:.3e}, "
                               f"grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/11] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
+    log(f"[3/12] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
         f"x 2 masks) agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
@@ -659,7 +677,7 @@ def _check_spectral_halo(device, dtype):
               f"spectral halo {dtype} C={c}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
         plain_tv3d = degrade.fused_objective(x, y, sh, kern, 2, tv_constants=constants, tv_use_3d=True)
         check(not torch.equal(out[1][-1], plain_tv3d[1][-1]), "the halo band was not taken out of the data term")
-    log(f"[3/11] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
+    log(f"[3/12] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
 
@@ -674,7 +692,7 @@ def _check_trivial_shard_arguments(device, dtype):
         in_shard_mode = degrade.fused_objective(x, y, sh, kern, 4, origin=(0, 0), global_hw=hw, **kw)
         check(float(plain_launch[0]) == float(in_shard_mode[0]) and torch.equal(plain_launch[1], in_shard_mode[1]),
               f"{mode} {dtype}: trivial shard arguments change the bits")
-    log(f"[3/11] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
+    log(f"[3/12] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
         f"{len(degrade.KERNEL_NAMES)} modes in {dtype}")
 
 
@@ -703,7 +721,7 @@ def _check_assembled(device, dtype):
         cost_err, grad_err, _ = _errors(vg(x, (weights,)), degrade.fused_objective(x, y, sh, kern, scale, **kw))
         check(cost_err <= tol and grad_err <= tol,
               f"assembled {axes} {dtype} case {n}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/11] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
+    log(f"[3/12] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
         f"by gather, scatter-sum and band ring == the unsharded kernels in {dtype} (tol {tol:g})")
 
 
@@ -773,7 +791,7 @@ def _check_btv_sweep(device, dtype):
                 held(degrade.fused_objective(*args, **kw), args, kw,
                      f"P={P} decay={decay} s={scale} {frames} frames tile {coords} "
                      f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/11] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images "
+    log(f"[3/12] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images "
         f"each, bit-equal when launched twice; {BTV_MANY_FRAMES} frames on 2 whole images; "
         f"{len(BTV_SWEEP_TILES)} x 5 shard tiles x 2 masks, one with {BTV_MANY_FRAMES} frames) agree with the "
         f"plain version in {dtype} (tol {tol:g})")
@@ -814,11 +832,11 @@ def _check_kernel_attributes():
         mine = [a for key, a in table.items() if key[0] == kernel]
         registers, shared = [a["registers"] for a in mine], [a["shared_bytes"] for a in mine]
         blocks = [a["blocks_per_sm"] for a in mine]
-        log(f"[3/11] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
+        log(f"[3/12] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
             f"{min(registers)}-{max(registers)} registers, {min(shared)}-{max(shared)} bytes of static shared memory, "
             f"{min(blocks)}-{max(blocks)} blocks of 256 threads per SM")
     direct = [a for key, a in table.items() if "direct" in key]
-    log(f"[3/11] kernels: of those, the {len(direct)} DIRECT instantiations: "
+    log(f"[3/12] kernels: of those, the {len(direct)} DIRECT instantiations: "
         f"{min(a['registers'] for a in direct)}-{max(a['registers'] for a in direct)} registers, "
         f"{min(a['blocks_per_sm'] for a in direct)}-{max(a['blocks_per_sm'] for a in direct)} blocks per SM")
     return table
@@ -931,7 +949,7 @@ def _check_composite_sweep(device, dtype):
         held((x, y, torch.as_tensor(sh, device=device), kern, scale),
              dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True), f"spectral halo s={scale}")
     check(exact[True] > 0 and exact[False] > 0, f"the sweep missed one of the composite's cases: {exact}")
-    log(f"[3/11] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
+    log(f"[3/12] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
         f"fractional / wide shifts x 2 whole images x data/TV/3D TV, bit-equal when launched twice; 66 and 30 frames; "
         f"3 scales x 5 shard tiles x blur 3x3/5x5/none x fractional / wide shifts x 2 masks x 3 modes; spectral halo "
         f"at s 2/3/4) agree with the plain version in {dtype} (tol {tol:g}); composite exact on {exact[True]} of the "
@@ -1022,7 +1040,7 @@ def _check_direct_sweep(device, dtype):
                     held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
                          f"{mode} s={scale} blur {size} {set_name} shifts tile {coords} "
                          f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/11] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
+    log(f"[3/12] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
         f"at s 2 -- the table; integer / fractional / wide shifts x whole images x {len(modes)} modes, bit-equal when "
         f"launched twice; 3 shard tiles x fractional / wide shifts x {len(modes)} modes) agree with the plain version "
         f"in {dtype} (tol {tol:g})")
@@ -1127,7 +1145,7 @@ def phase_kernels(device):
                 check(float(outs["data_term_tv3d"][0]) == float(outs["data_term_tv"][0])
                       and torch.equal(outs["data_term_tv3d"][1], outs["data_term_tv"][1]),
                       f"data_term_tv3d differs from data_term_tv at C=1 (case {i}, {dtype})")
-        log(f"[3/11] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
+        log(f"[3/12] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
             f"in {dtype} (tol {tol:g}); tv3d == tv at C=1")
         _check_shift_generic(device, dtype)
         shard_worst = {"shard_mode": _check_shard_mode(device, dtype),
@@ -1145,7 +1163,7 @@ def phase_kernels(device):
                 worst[mode] = max(worst[mode], composite_worst, direct_worst)
     attributes = _check_kernel_attributes()
     tap_difference = _float32_tap_difference(device)
-    log(f"[3/11] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
+    log(f"[3/12] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
         f"makes them) vs the kernels' float64 weights rounded once: {tap_difference:.2e} of the largest entry")
     check(tap_difference <= TOLERANCE[torch.float32], f"float32 tap weights move the gradient by {tap_difference}")
 
@@ -1234,7 +1252,7 @@ def phase_goldens(device):
                   "goldens: the fused solve differs from the host loop's")
             same = ", each bit-equal to the host loop's"
         host = solves
-        log(f"[4/11] goldens ({way}, cg): A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
+        log(f"[4/12] goldens ({way}, cg): A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
             f"C {psnr_ours:.3f} dB vs C++ {psnr_ref:.3f} dB{same} ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1384,7 +1402,7 @@ def phase_main_path(device, rows):
     for name, options, reg, lam in runs:
         results[name] = r = solve_once(name, gt, 4, options, reg, lam, device, dtype)
         mpix_it = r["iterations"] * side * side / r["seconds"] / 1e6
-        log(f"[5/11] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
+        log(f"[5/12] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
             f"{r['evaluations']} evaluations, {r['launches']} launches, {r['seconds']:.3f} s, "
             f"{mpix_it:.1f} Mpixel-iterations/s, PSNR {r['psnr']:.2f} dB (nearest {r['psnr_start']:.2f} dB)")
         log(f"      inner calls (s, iterations, evaluations): "
@@ -1486,7 +1504,7 @@ def phase_estimated_motion(device, rows):
         seconds.append(time.perf_counter() - t0)
     estimated = registered.as_array() * scale  # LR px -> HR px
     err_estimated = float(np.abs(estimated - true).max())
-    log(f"[6/11] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
+    log(f"[6/12] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
         f"{seconds[1]:.3f} s; max error {err_estimated:.4f} HR px (limit 0.25)")
     check(err_estimated < 0.25, f"registration is off by {err_estimated} HR px")
     x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
@@ -1570,7 +1588,7 @@ def phase_hyperspectral(device, rows):
         solver = tv_solver(model, lows, use_3d, fixed_iterations(20, 2), device)
         results[name] = r = run_solve(name, solver, x0, gt, 0.01)
         mvals = r["iterations"] * gt.numel() / r["seconds"] / 1e6
-        log(f"[7/11] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
+        log(f"[7/12] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
             f"= evaluations, {r['seconds']:.3f} s, {mvals:.1f} Mvalue-iterations/s, PSNR {r['psnr']:.2f} dB "
             f"(linear upsample {r['psnr_start']:.2f} dB); L1 objective {[float(f'{o:.7g}') for o in r['objectives']]}")
         check_objective_never_rises(name, r["objectives"])
@@ -1599,7 +1617,7 @@ def phase_hyperspectral(device, rows):
     b = PCA_BORDER
     inner = (slice(None), slice(b, -b), slice(b, -b))
     solved_db, linear_db = float(psnr(solved[inner], gt[inner])), float(psnr(linear[inner], gt[inner]))
-    log(f"[7/11] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
+    log(f"[7/12] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
         f"{round_trip:.2f} dB); {tuple(r['x'].shape)} solve {r['iterations']} iterations, {r['launches']} launches, "
         f"{r['seconds']:.3f} s; back-projected cube {solved_db:.2f} dB vs linear upsample {linear_db:.2f} dB inside "
         f"a {b}-px border (whole image {float(psnr(solved, gt)):.2f} vs {float(psnr(linear, gt)):.2f} dB)")
@@ -1645,7 +1663,7 @@ def compare_with_single_device(label, make, mode, shard_counter, mesh, lam, roun
             continue
         objective_diff = abs(meshed["objectives"][-1] - single["objectives"][-1]) / abs(single["objectives"][-1])
         psnr_diff = abs(meshed["psnr"] - single["psnr"])
-        log(f"[8/11] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
+        log(f"[8/12] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
             f"{meshed['evaluations']} evaluations, {meshed['launches']} launches; {meshed['seconds']:.3f} s meshed vs "
             f"{single['seconds']:.3f} s on one device; PSNR {meshed['psnr']:.2f} dB (start {meshed['psnr_start']:.2f}, "
             f"one device {single['psnr']:.2f}); max|diff| {diff:.2e}, L1 objective differs {objective_diff:.2e} "
@@ -1662,7 +1680,7 @@ def phase_mesh(device, rows):
     """The solve on a device mesh: band shards with the spectral halo, tiles
     with halo exchange, frame shards with refined motion."""
     devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    log(f"[8/11] mesh: shards are dealt over {len(devices)} visible card(s)")
+    log(f"[8/12] mesh: shards are dealt over {len(devices)} visible card(s)")
     degrade.reset_launch_counts()
     results = {}
 
@@ -1731,6 +1749,12 @@ def _device_busy_ms(run, device):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize(device)
+    return _kernel_ms(prof)
+
+
+def _kernel_ms(prof):
+    """The sum of every kernel's device time in a finished torch.profiler
+    window, in ms, or None if the profiler saw no device time."""
     busy = 0.0
     for event in prof.key_averages():
         device_us = getattr(event, "device_time_total", None)
@@ -1883,7 +1907,7 @@ def phase_fused(device, rows, turns=5, chunk_turns=5):
         evaluations = sum(c[2] for c in fused.last_inner_calls)
         values = gt.numel() * iterations
         med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
-        log(f"[9/11] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
+        log(f"[9/12] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
             f"fused == host loop bit for bit (x and shifts, {turns + 2} pairs)")
         log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
             f"[{min(fused_s):.4f}, {max(fused_s):.4f}] ({med_h / med_f:.2f}x); "
@@ -2095,7 +2119,7 @@ def _gradient_mode_solves(device):
         check(torch.equal(x_fused, x_card) and calls_fused == calls_card,
               f"fused autodiff solve vs the host loop on the card: {float((x_fused - x_card).abs().max()):.3e}, "
               f"rounds {calls_fused} vs {calls_card}")
-    log(f"[10/11] autodiff solve 1x64x64 float64 on the card: within {diff:.2e} (tol {AUTODIFF_TOLERANCE:g}) of the "
+    log(f"[10/12] autodiff solve 1x64x64 float64 on the card: within {diff:.2e} (tol {AUTODIFF_TOLERANCE:g}) of the "
         f"CPU's, same iterations and evaluations {calls_card}; fused_irls ({captured[1]} graphs captured, none by a "
         f"second instance) == host loop bit for bit ({time.perf_counter() - t0:.1f} s)")
 
@@ -2120,7 +2144,7 @@ def _gradient_mode_solves(device):
     check(diff <= bound and calls_card == calls_cpu,
           f"numerical solve on the card vs the CPU: {diff:.3e} (derived bound {bound:.3e}), rounds {calls_card} vs "
           f"{calls_cpu}")
-    log(f"[10/11] numerical 1x8x8 float64 (n = {n}, f = {cost:.6g}): gradient at the start on the card within "
+    log(f"[10/12] numerical 1x8x8 float64 (n = {n}, f = {cost:.6g}): gradient at the start on the card within "
         f"{g_diff:.3e} of the CPU's (bound 2 (n-1) u f / h = {dg:.3e}); solve within {diff:.3e} (bound: gain "
         f"{gain:.4g} x {dg:.3e} = {bound:.3e}; gain = |x_fd - x_exact| / |g_fd - g_exact| on the CPU, "
         f"{noise:.3e} at the start), same iterations and evaluations {calls_card} "
@@ -2143,7 +2167,7 @@ def phase_wolfe(device, rows, turns=3):
     irls_mod._BUILT_SOLVER_CACHE.clear()
     t_phase = time.perf_counter()
     problems, nearest = wolfe_problems(device)
-    log(f"[10/11] line-search solvers: problems made in {time.perf_counter() - t_phase:.1f} s")
+    log(f"[10/12] line-search solvers: problems made in {time.perf_counter() - t_phase:.1f} s")
     degrade.reset_launch_counts()
     results, launches = {}, {}
     for label, (make, mode, row) in problems.items():
@@ -2190,7 +2214,7 @@ def phase_wolfe(device, rows, turns=3):
         step = fused.last_fused.chunks[runs[0]["chunk_steps"]]
         kernels, copies, step_ms = _graph_nodes_per_step(step, runs[0]["chunk_steps"], device)
         med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
-        log(f"[10/11] {label}: {iterations} iterations, {evaluations} evaluations ({evaluations / iterations:.2f} "
+        log(f"[10/12] {label}: {iterations} iterations, {evaluations} evaluations ({evaluations / iterations:.2f} "
             f"per iteration, the starts included) in {rounds} rounds; fused == host loop bit for bit "
             f"(x and shifts, {turns + 2} pairs); PSNR {psnr_fused:.2f} dB (nearest {psnr_start:.2f})")
         log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
@@ -2235,7 +2259,7 @@ def phase_wolfe(device, rows, turns=3):
     results["psnr_cg_minus_linear_cg"] = psnr_cg - psnr_linear
     irls_mod._BUILT_SOLVER_CACHE.clear()
     _gradient_mode_solves(device)
-    log(f"[10/11] line-search phase: {time.perf_counter() - t_phase:.1f} s")
+    log(f"[10/12] line-search phase: {time.perf_counter() - t_phase:.1f} s")
     return results
 
 
@@ -2266,7 +2290,7 @@ def _cli_step(label, main, argv, card, device):
     check(rc == 0, f"{label}: the CLI returned {rc}")
     counts, sources, _, plain = record.counts
     check(plain["calls"] == 0, f"{label}: the plain version ran {plain['calls']} times on the card")
-    log(f"[11/11] entry point {label}: {seconds:.3f} s wall ({card}); evaluations by mode "
+    log(f"[11/12] entry point {label}: {seconds:.3f} s wall ({card}); evaluations by mode "
         f"{ {k: v for k, v in counts.items() if v} } (2 kernel launches each)")
     return out.getvalue(), seconds, counts, sources
 
@@ -2551,10 +2575,335 @@ def phase_entry_points(device, rows, card, side=1000, hsi_side=256):
         row["launches_entry_points"] = sum(steps[step]["counts"][row["mode"]] for step in ENTRY_ROWS.get(row["row"], ()))
         check(row["row"] not in ENTRY_ROWS or row["launches_entry_points"] > 0,
               f"the entry points never launched {row['mode']} ({row['row']})")
-    log(f"[11/11] entry points: {time.perf_counter() - t_phase:.1f} s; wall by step "
+    log(f"[11/12] entry points: {time.perf_counter() - t_phase:.1f} s; wall by step "
         f"{ {k: round(v['seconds'], 3) for k, v in steps.items()} } ({card}); evaluations by row "
         f"{ {r['row']: r['launches_entry_points'] for r in rows} }")
     return steps
+
+
+# ------------------------------------------------------------------------- video
+
+VIDEO_FRAMES = 12
+VIDEO_LR_HW = (540, 960)        # LR 3x540x960 -> HR 3x1080x1920
+VIDEO_SCALE = 2
+VIDEO_DRIFT = (0.6, -0.35)      # HR px a frame (dx, dy), plus seeded jitter
+VIDEO_JITTER = 0.5
+VIDEO_BORDER = 16               # PSNR inside this border; also the scene's margin
+VIDEO_SMALL_LR_HW = (135, 240)  # (c): HR 3x270x480 in float64, card against CPU
+VIDEO_CENTER = 5
+VIDEO_TOLERANCE = 1e-9
+VIDEO_TURNS = 3
+VIDEO_TRACED_WINDOWS = 3
+VIDEO_FIXTURE = os.path.join("tests", "data_torch", "mjpeg_160x120x8.avi")
+# The SHA-256 of the port's decode of the fixture, as tests/test_torch_video.py records it.
+VIDEO_FIXTURE_SHA256 = "2e73a5dd9b4206cdc215e3c8b8f8fb5cb69678eb48184e53581eaa7d6882f16c"
+VIDEO_FIXTURE_SHAPE = (8, 120, 160, 3)
+
+
+def video_problem(device, dtype, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES, seed=41):
+    """A seeded RGB scene panned by a known fractional drift: the ground truth
+    of each frame ``[K, 3, H, W]`` and its LR frame ``[K, 3, h, w]`` (blur
+    3 / 1.0, decimation by 2 through the port's image model), on ``device``,
+    and the true shifts ``[K, 2]`` in HR px."""
+    h, w = lr_hw[0] * VIDEO_SCALE, lr_hw[1] * VIDEO_SCALE
+    m = VIDEO_BORDER
+    rng = np.random.default_rng(seed)
+    shifts = np.arange(frames)[:, None] * np.asarray(VIDEO_DRIFT) + rng.uniform(-VIDEO_JITTER, VIDEO_JITTER,
+                                                                                 (frames, 2))
+    shifts -= shifts.mean(axis=0)  # a pan about the middle of the clip
+    scene = torch.as_tensor(synthetic_scene(3, h + 2 * m, w + 2 * m, seed=seed), dtype=dtype, device=device)
+    truth = torch.stack([translate(scene, float(dx), float(dy))[:, m:m + h, m:m + w] for dx, dy in shifts])
+    model = sr.ImageModel.create(sr.ImageModelParameters(
+        scale=VIDEO_SCALE, blur_radius=3, blur_sigma=1.0, motion_sequence=MotionShiftSequence([(0, 0)])))
+    lows = torch.stack([model.apply(t, 0) for t in truth]).contiguous()
+    return truth, lows, shifts
+
+
+def _video_run(resolver, stack, device, windows=None):
+    """Output frames of ``stack`` through ``resolver.super_resolve_frame``,
+    each timed with the device synchronised: (outputs, seconds per frame,
+    per window its inner calls and fused runs)."""
+    outs, seconds, info = [], [], []
+    for i in range(stack.shape[0] if windows is None else windows):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        outs.append(resolver.super_resolve_frame(stack, i))
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+        solver = resolver.last_solver
+        info.append({"calls": [c[1:] for c in solver.last_inner_calls],
+                     "evaluations": sum(c[2] for c in solver.last_inner_calls),
+                     "runs": solver.last_fused_runs if resolver.solver_options.fused_irls else None,
+                     "captures": graphs.capture_counts["graphs"]})
+    return torch.stack(outs), seconds, info
+
+
+def _registration_probe(device):
+    """A stand-in for the resolver's ``translational_registration``, as a
+    patch to enter, that times each call (device synchronised) and counts the
+    synchronizing CUDA operations inside it (``torch.cuda.set_sync_debug_mode``
+    warns at each): its read-backs. Returns (patch, seconds, read-backs)."""
+    real = sr_video.super_resolver.translational_registration
+    seconds, syncs = [], []
+
+    def probe(*args, **kwargs):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                seq = real(*args, **kwargs)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize(device)
+        seconds.append(time.perf_counter() - t0)
+        syncs.append(sum("synchronizing CUDA operation" in str(w.message) for w in caught))
+        return seq
+
+    return mock.patch.object(sr_video.super_resolver, "translational_registration", probe), seconds, syncs
+
+
+def _trace_device_ms(path):
+    """Milliseconds of device work in a Chrome trace written by
+    ``utils.profiling.trace``: the sum of its kernel, memcpy and memset
+    events, graph replays included; None if it holds none."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    busy = sum(float(e.get("dur", 0.0)) for e in events
+               if e.get("ph") == "X" and str(e.get("cat", "")).lower() in ("kernel", "gpu_memcpy", "gpu_memset"))
+    return busy / 1e3 if busy > 0 else None
+
+
+def _median_range(values):
+    return f"{float(np.median(values)):.4f} [{min(values):.4f}, {max(values):.4f}]"
+
+
+def _video_card_against_cpu(device, options, label, blur_radius=3):
+    """One window (frame ``VIDEO_CENTER``) of the reduced clip in float64 on
+    the card and on the CPU: max|difference| over the largest entry."""
+    _, lows, _ = video_problem("cpu", torch.float64, lr_hw=VIDEO_SMALL_LR_HW)
+    card, cpu = [sr_video.VideoSuperResolver(solver_options=options, blur_radius=blur_radius, device=where,
+                                             dtype=torch.float64).super_resolve_frame(lows.numpy(), VIDEO_CENTER).cpu()
+                 for where in (device, torch.device("cpu"))]
+    rel = float((card - cpu).abs().max()) / float(cpu.abs().max())
+    log(f"      (c) {label}: float64 3x{2 * VIDEO_SMALL_LR_HW[0]}x{2 * VIDEO_SMALL_LR_HW[1]} window of frame "
+        f"{VIDEO_CENTER}, card vs CPU max|diff| / max|x| {rel:.3e} (tol {VIDEO_TOLERANCE:g})")
+    check(rel <= VIDEO_TOLERANCE, f"video {label}: card and CPU differ by {rel:.3e} of the largest entry")
+    return rel
+
+
+def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
+    """Video super-resolution at full width: 12 LR frames 3x540x960 written
+    as PNG by the port, loaded by ``VideoLoader``, super-resolved to
+    3x1080x1920 per output frame by ``VideoSuperResolver`` with the JAX
+    defaults (window 4, BTV(2, 0.7), 3 x 25 linear CG), host loop and
+    ``fused_irls``: (a) PSNR >= linear + 1 dB inside a 16-px border on every
+    frame; (b) fused bit-equal to the host loop, graphs captured for the
+    first window only, no late fold, read-backs <= chunks + rounds a window
+    and the registration's synchronizing operations counted, one a window; (c) float64 card against CPU on a reduced
+    window, with blur and without blur under motion refinement; (d) the
+    MJPEG fixture decoded to its recorded digest; (e) wall per frame, host
+    loop and fused in turns, and under ``utils.profiling.trace`` the device's
+    busy share, registration ms per window, one evaluation's time against
+    its bound."""
+    from super_resolution_tpu_torch.solvers import irls as irls_mod
+
+    t_phase = time.perf_counter()
+    dtype = torch.float32
+    results = {}
+    truth, lows, _ = video_problem(device, dtype, lr_hw, frames)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_video_")
+    try:
+        t0 = time.perf_counter()
+        for i, low in enumerate(lows):
+            save_image(ImageData(low, normalize="never", channel_major=True), os.path.join(tmp, f"frame_{i:03d}.png"))
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        loader = sr_video.VideoLoader(device=device)
+        loader.load_frames_from_directory(tmp)
+        stack = loader.frame_stack()
+        torch.cuda.synchronize(device)
+        t_load = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(tuple(stack.shape) == (frames, 3) + tuple(lr_hw) and stack.is_cuda, f"video: frame stack {stack.shape}")
+    log(f"[12/12] video: {frames} LR frames {tuple(stack.shape[1:])} written as PNG in {t_write:.2f} s, loaded onto "
+        f"the card by VideoLoader in {t_load:.2f} s")
+
+    defaults = sr_video.VideoSuperResolver(device=device).solver_options
+    host = sr_video.VideoSuperResolver(device=device)
+    fused = sr_video.VideoSuperResolver(solver_options=dataclasses.replace(defaults, fused_irls=True), device=device)
+
+    # (a) + (b): the host loop, then the fused solve, the counts set to 0 just before.
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+    degrade.reset_launch_counts()
+    x_host, _, info_host = _video_run(host, stack, device)
+    captures0 = graphs.capture_counts["graphs"]
+    probe, _, registration_readbacks = _registration_probe(device)
+    with probe:
+        x_fused, s_first, info_fused = _video_run(fused, stack, device)
+    counts, sources, plain = dict(degrade.launch_counts), dict(degrade.shift_source_counts), \
+        dict(degrade.plain_version_calls)
+    late = fused.last_solver.last_fused.late()
+    executed = sum(r["executed_evaluations"] for w in info_fused for r in w["runs"])
+    host_evaluations = sum(w["evaluations"] for w in info_host)
+    check(counts == {name: (host_evaluations + executed if name == "data_term_btv" else 0) for name in counts},
+          f"video: launches {counts}, expected {host_evaluations} + {executed} BTV evaluations")
+    check(sources == {"device": counts["data_term_btv"], "host": 0},
+          f"video: the shifts of {sources['host']} evaluations crossed from the host")
+    check(plain["calls"] == 0, f"video: the plain version ran {plain['calls']} times on the card")
+    check(not late, "video: a cost fold stopped waiting (late flag) in a replay")
+    launches_video = counts["data_term_btv"]
+
+    captured = graphs.capture_counts["graphs"] - captures0
+    per_window = [info_fused[0]["captures"] - captures0] + [
+        b["captures"] - a["captures"] for a, b in zip(info_fused, info_fused[1:])]
+    check(per_window[0] > 0 and not any(per_window[1:]),
+          f"video: graphs captured per window {per_window}; only the first window may capture")
+    for i, (h_info, f_info) in enumerate(zip(info_host, info_fused)):
+        check(torch.equal(x_host[i], x_fused[i]),
+              f"video frame {i}: fused differs from the host loop by {float((x_host[i] - x_fused[i]).abs().max()):.3e}")
+        check(h_info["calls"] == f_info["calls"],
+              f"video frame {i}: iterations / evaluations per round {f_info['calls']} vs {h_info['calls']}")
+        for run in f_info["runs"]:
+            check(run["readbacks"] <= run["chunks"] + len(run["rounds"]),
+                  f"video frame {i}: {run['readbacks']} read-backs for {run['chunks']} chunks, {len(run['rounds'])} rounds")
+    check(registration_readbacks == [1] * frames,
+          f"video: registration read-backs per window {registration_readbacks}, expected one each")
+    check(len(irls_mod._BUILT_SOLVER_CACHE) == 1, f"video: {len(irls_mod._BUILT_SOLVER_CACHE)} fused solves built")
+    # Captures: all in the first window; the later windows replay.
+    replays = [sum(r["replays"] for r in w["runs"]) for w in info_fused]
+    chunks = [sum(r["chunks"] for r in w["runs"]) for w in info_fused]
+    readbacks = [sum(r["readbacks"] for r in w["runs"]) for w in info_fused]
+    rounds = [sum(len(r["rounds"]) for r in w["runs"]) for w in info_fused]
+    captures_after_first = graphs.capture_counts["graphs"]
+    evaluations = [w["evaluations"] for w in info_host]
+    log(f"      (b) fused == host loop bit for bit on all {frames} frames, same iterations and evaluations per round; "
+        f"{captured} graphs captured, all in the first window; one fused solve built (the cache served the {frames - 1} "
+        f"later windows), "
+        f"replays per window {replays}; read-backs per window {readbacks} (chunks {chunks} + rounds {rounds}) + "
+        f"registration's {registration_readbacks} (synchronizing operations counted); no late fold; {launches_video} BTV evaluations (K4: shifts from device memory) "
+        f"= {2 * launches_video} kernel launches ({host_evaluations} host loop + {executed} fused, frozen included)")
+
+    # (a) PSNR inside the border against the ground truth, beside the linear upsample of the centre frame.
+    b = VIDEO_BORDER
+    inner = (slice(None), slice(b, -b), slice(b, -b))
+    hr = tuple(truth.shape[-2:])
+    gains = []
+    for i in range(frames):
+        res_db = float(psnr(x_host[i][inner], truth[i][inner]))
+        lin_db = float(psnr(linear_resize(stack[i], hr)[inner], truth[i][inner]))
+        check(bool(torch.isfinite(x_host[i]).all()) and x_host[i].shape == truth[i].shape, f"video frame {i}: bad output")
+        check(res_db >= lin_db + 1.0, f"video frame {i}: PSNR {res_db:.2f} dB does not beat linear {lin_db:.2f} + 1 dB")
+        gains.append((res_db, lin_db))
+    log(f"      (a) PSNR inside a {b}-px border, result / linear upsample of the centre frame, dB: " + ", ".join(
+        f"{r:.2f}/{l:.2f}" for r, l in gains))
+
+    # (e) wall per output frame, host loop and fused in turns (the fused graphs captured above).
+    walls = {"host": [], "fused": []}
+    video_s = {"host": [], "fused": []}
+    for _ in range(VIDEO_TURNS):
+        for label, resolver in (("host", host), ("fused", fused)):
+            out, seconds, _ = _video_run(resolver, stack, device)
+            check(torch.equal(out, x_host), f"video: a timed {label} run differs from the first")
+            walls[label] += seconds
+            video_s[label].append(sum(seconds))
+    check(graphs.capture_counts["graphs"] == captures_after_first, "video: a later fused run captured again")
+    fps = {label: frames / float(np.median(v)) for label, v in video_s.items()}
+    log(f"      (e) wall per output frame (3x{hr[0]}x{hr[1]}, median [min, max] of {VIDEO_TURNS} x {frames}, {card}): "
+        f"host loop {_median_range(walls['host'])} s, fused {_median_range(walls['fused'])} s; "
+        f"{fps['host']:.2f} / {fps['fused']:.2f} frames/s; evaluations per frame {int(np.median(evaluations))} "
+        f"[{min(evaluations)}, {max(evaluations)}] "
+        f"(first fused window with its captures: {s_first[0]:.4f} s)")
+
+    # Under utils.profiling.trace: device busy share (from the trace it writes), wall, registration per window.
+    probe, registration, _ = _registration_probe(device)
+    busy = {}
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        for label, resolver in (("host", host), ("fused", fused)):
+            with probe, trace(os.path.join(trace_dir, label)) as log_dir:
+                _, seconds, _ = _video_run(resolver, stack, device, windows=VIDEO_TRACED_WINDOWS)
+            busy[label] = (_trace_device_ms(os.path.join(log_dir, "trace.json")), sum(seconds) * 1e3)
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    fmt = lambda v: "not measured" if v[0] is None else f"{v[0]:.1f} of {v[1]:.1f} ms ({100 * v[0] / v[1]:.0f} %)"  # noqa: E731
+    log(f"      (e) under utils.profiling.trace, {VIDEO_TRACED_WINDOWS} windows each: device busy host loop "
+        f"{fmt(busy['host'])}, fused {fmt(busy['fused'])}; registration per window (4 frames "
+        f"{tuple(stack.shape[1:])}) {_median_range([1e3 * r for r in registration])} ms")
+
+    # One evaluation at the video shape (K4's kernels at s = 2, P = 2): device time, wall, bound, plain version.
+    solver = host.last_solver
+    x = x_host[VIDEO_CENTER].contiguous()
+    y = solver.observations
+    sh_dev, sh = solver.shifts, solver.shifts.cpu().numpy()
+    kern = solver.blur_kernel
+    kern_dev = torch.as_tensor(kern, dtype=dtype, device=device)
+    constants = torch.rand(x.shape, generator=torch.Generator(device).manual_seed(5), device=device, dtype=dtype) * 0.02
+    kw = {"btv_constants": constants, "btv_range": host.btv_scale_range, "btv_decay": host.btv_spatial_decay}
+    run = lambda: degrade.fused_objective(x, y, sh_dev, kern_dev, VIDEO_SCALE, **kw)  # noqa: E731
+    plain = lambda: degrade.fused_objective_reference(x, y, sh, kern, VIDEO_SCALE, **kw)  # noqa: E731
+    cost_err, grad_err, abs_err = _errors(run(), plain())
+    check(cost_err <= TOLERANCE[dtype] and grad_err <= TOLERANCE[dtype],
+          f"video shape: cost {cost_err:.3e}, grad {grad_err:.3e} against the plain version")
+    ms = _time_launches(run, device, 100)
+    plain_ms = _time_launches(plain, device, 3)
+    wall_ms = device_time(run, iterations=50, warmup=5) * 1e3
+    bound_ms, bound_by, nbytes, flops = _bound("data_term_btv", x, y, sh, kern, VIDEO_SCALE, dtype)
+    per_kernel = _kernel_times(run, device)
+    c_, h_, w_ = x.shape
+    lib = degrade._library()
+    partials = lib.sr_residual_blocks(c_, h_, w_, VIDEO_SCALE) + lib.sr_gradient_blocks(
+        degrade._MODE_OF["data_term_btv"], c_, h_, w_, 0)
+    bounds = _kernel_bounds_us(x, y, constants, "data_term_btv", partials)
+    for name, info in per_kernel.items():
+        info["bound_us"] = bounds[name]
+    video_row = {"shape": f"C=3 HR={hr[0]}x{hr[1]} K=4 s=2 BTV P=2 float32", "ms": ms, "wall_ms": wall_ms,
+                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": abs_err,
+                 "launches": launches_video, "per_kernel": per_kernel}
+    log(f"      (e) one evaluation at {video_row['shape']}: {ms:.4f} ms device time (utils.profiling.device_time "
+        f"{wall_ms:.4f} ms a call with a synchronise), plain {plain_ms:.2f} ms, bound {bound_ms:.5f} ms by "
+        f"{bound_by}; max abs err vs plain {abs_err:.2e}; per kernel (us per launch / own bound): "
+        + (", ".join(f"{name} {info['us']:.2f} / {info['bound_us']:.2f}" for name, info in per_kernel.items())
+           or "the profiler saw no device time"))
+    for row in rows:
+        if row["row"] == "K4":
+            row["launches_video"] = launches_video
+            row["video_shape"] = video_row
+            row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+
+    # (c) float64, card against CPU: the JAX defaults, then no blur with the motion refined every round.
+    rel_default = _video_card_against_cpu(device, None, "defaults")
+    rel_refine = _video_card_against_cpu(device, dataclasses.replace(defaults, refine_motion_every=1),
+                                         "blur_radius=0, refine_motion_every=1", blur_radius=0)
+
+    # (d) the MJPEG fixture, decoded on the card's host.
+    path = os.path.join(ROOT, VIDEO_FIXTURE)
+    decode_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        decoded = read_avi_frames(path)
+        decode_s.append(time.perf_counter() - t0)
+    digest = hashlib.sha256(np.stack(decoded).tobytes()).hexdigest()
+    check(np.stack(decoded).shape == VIDEO_FIXTURE_SHAPE and digest == VIDEO_FIXTURE_SHA256,
+          f"video fixture: {np.stack(decoded).shape}, SHA-256 {digest}")
+    fixture = sr_video.VideoLoader(device=device)
+    fixture.load_frames_from_video(path)
+    on_card = fixture.frame_stack()
+    check(on_card.is_cuda and torch.equal(on_card.cpu(), torch.from_numpy(
+        np.stack([np.moveaxis(f, -1, 0) for f in decoded]).astype(np.float64) / 255.0).to(dtype)),
+        "video fixture: the frames on the card differ from the host decode")
+    decode_ms = 1e3 * float(np.median(decode_s)) / len(decoded)
+    log(f"      (d) MJPEG fixture {VIDEO_FIXTURE}: {len(decoded)} frames {decoded[0].shape}, SHA-256 as recorded by the "
+        f"CPU tests; {decode_ms:.2f} ms per frame to decode on the host (median of 3)")
+
+    results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
+                   captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
+                   rel=(rel_default, rel_refine))
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+    log(f"[12/12] video: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return results
 
 
 def per_kernel_table(rows):
@@ -2568,6 +2917,8 @@ def per_kernel_table(rows):
             shapes = [(row, row["launches_by_shape"]["rgb_tile_btv"]),
                       (dict(row["flagship_tile_tv"], row=row["row"] + " flagship TV tile"),
                        row["launches_by_shape"]["flagship_tile_tv"])]
+        if "video_shape" in row:
+            shapes.append((dict(row["video_shape"], row=row["row"] + " video"), row["launches_video"]))
         for timed, launches in shapes:
             for name, info in timed["per_kernel"].items():
                 table.append({"kernel": name, "row": timed["row"], "us": info["us"], "bound_us": info["bound_us"],
@@ -2598,6 +2949,7 @@ def main():
         phase_fused(device, rows)
         phase_wolfe(device, rows)
         phase_entry_points(device, rows, card)
+        phase_video(device, rows, card)
     except Failure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1

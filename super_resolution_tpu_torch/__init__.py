@@ -23,12 +23,16 @@ points (``cli``: ``super_resolve``, ``generate_data``, ``shift_add_fusion``,
 ``visualize_image``) with what they reach: ``ImageData`` and colour
 (``image``), PNG / BMP and ENVI I/O (``utils``, ``spectral.envi``, the
 ``native`` reader), the Haar wavelet (``wavelet``), ADMM and shift-and-add
-(``solvers``). Video, profiling and the JAX package's test comparators are
-absent.
+(``solvers``) -- and video (``video``: ``VideoSuperResolver``, a sliding
+window of registered frames solved with BTV per output frame, and
+``VideoLoader``, frame directories and Motion-JPEG / uncompressed AVI
+through the port's baseline JPEG decoder, ``utils/jpeg.py``), the profiling
+utilities (``utils/profiling.py``) and the test comparators
+(``utils/testing.py``).
 
 Entry points that place data (``IRLSMapSolver``, ``AdmmSolver``,
 ``make_map_value_and_grad``, ``translational_registration``, ``ImageData``,
-``load_image``, the CLIs, ``convert``) default to ``device="cuda"`` and raise
+``load_image``, the CLIs, ``convert``, ``VideoLoader``, ``VideoSuperResolver``) default to ``device="cuda"`` and raise
 when no CUDA device is present; pass ``device="cpu"`` explicitly to run the
 plain versions.
 """

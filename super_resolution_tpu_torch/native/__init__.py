@@ -1,15 +1,21 @@
-"""Native (C++) ENVI BSQ reader, bound with ctypes.
+"""Native (C++) libraries of the port, bound with ctypes.
 
-``envi_loader.cpp`` (the port's own copy) streams band-sequential float32
-cubes: cropped, seek-based reads on a pool of threads, byte swapping for
-big-endian files. At first use it is compiled with the host's C++ compiler
-into ``super_resolution_tpu_torch/_build/libsr_envi_<hash>.so``, where the
-hash covers the source and the flags: an edited source is rebuilt, an
-unchanged one loaded as it is. Nothing runs when the module is imported.
+- ``envi_loader.cpp`` (the port's own copy) streams band-sequential float32
+  cubes: cropped, seek-based reads on a pool of threads, byte swapping for
+  big-endian files.
+- ``jpeg_decoder.cpp`` parses baseline JPEG and decodes its Huffman-coded
+  data into quantised DCT coefficients (the serial half of
+  :mod:`super_resolution_tpu_torch.utils.jpeg`).
+
+At first use each is compiled with the host's C++ compiler into
+``super_resolution_tpu_torch/_build/libsr_<name>_<hash>.so``, where the hash
+covers the source and the flags: an edited source is rebuilt, an unchanged
+one loaded as it is. Nothing runs when the module is imported.
 
 :func:`native_available` is false only when the host has no C++ compiler;
-then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. A
-compile that fails, and a native read that fails, raise.
+then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. JPEG
+has no second decoder: without a compiler :func:`get_jpeg_library` raises.
+A compile that fails, and a native read that fails, raise.
 """
 
 from __future__ import annotations
@@ -24,40 +30,44 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["native_available", "get_library", "read_bsq", "build_library"]
+__all__ = ["native_available", "get_library", "get_jpeg_library", "read_bsq", "build_library"]
 
 _SOURCE = Path(__file__).resolve().parent / "envi_loader.cpp"
+_JPEG_SOURCE = Path(__file__).resolve().parent / "jpeg_decoder.cpp"
+_LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_jpeg_lib: ctypes.CDLL | None = None
 
 
 def _compiler() -> str | None:
     return shutil.which("g++") or shutil.which("c++")
 
 
-def _library_path() -> Path:
-    digest = hashlib.sha256(_SOURCE.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
-    return Path(__file__).resolve().parents[1] / "_build" / f"libsr_envi_{digest}.so"
+def _library_path(source: Path = _SOURCE) -> Path:
+    digest = hashlib.sha256(source.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    return Path(__file__).resolve().parents[1] / "_build" / f"libsr_{_LIBRARY_NAMES[source]}_{digest}.so"
 
 
-def build_library() -> Path:
-    """Compile the library if it is not built yet; return its path.
+def build_library(source: Path = _SOURCE) -> Path:
+    """Compile ``source`` (default: the ENVI reader) if it is not built yet; return its path.
 
     Raises ``RuntimeError`` without a compiler or when the compile fails."""
-    lib = _library_path()
+    lib = _library_path(source)
     if lib.is_file():
         return lib
     compiler = _compiler()
     if compiler is None:
-        raise RuntimeError("No C++ compiler (g++ / c++) on PATH; the native ENVI library cannot be built.")
+        raise RuntimeError(f"No C++ compiler (g++ / c++) on PATH; the native library {source.name} cannot be "
+                           "built.")
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    out = subprocess.run([compiler, *_FLAGS, str(_SOURCE), "-o", str(tmp)], capture_output=True, text=True,
+    out = subprocess.run([compiler, *_FLAGS, str(source), "-o", str(tmp)], capture_output=True, text=True,
                          timeout=300)
     if out.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"Building {_SOURCE.name} failed (exit {out.returncode}):\n{out.stderr}")
+        raise RuntimeError(f"Building {source.name} failed (exit {out.returncode}):\n{out.stderr}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees a whole file or none
     return lib
 
@@ -73,6 +83,19 @@ def get_library() -> ctypes.CDLL:
             lib.sr_envi_read_bsq.argtypes = [ctypes.c_char_p] + [i64] * 10 + [c_int, c_int, f_ptr]
             _lib = lib
         return _lib
+
+
+def get_jpeg_library() -> ctypes.CDLL:
+    """The loaded JPEG decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    global _jpeg_lib
+    with _lock:
+        if _jpeg_lib is None:
+            lib = ctypes.CDLL(str(build_library(_JPEG_SOURCE)))
+            lib.sr_jpeg_decode.restype = ctypes.c_int
+            lib.sr_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
+                                           ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
+            _jpeg_lib = lib
+        return _jpeg_lib
 
 
 def native_available() -> bool:

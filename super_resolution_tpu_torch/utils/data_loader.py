@@ -1,9 +1,9 @@
 """Extension-dispatched image I/O (equivalent of ``src/util/data_loader.{h,cpp}``).
 
 Image extensions load through the port's own codec
-(:mod:`super_resolution_tpu_torch.utils.image_io`: PNG and BMP, with what
-``cv2.imread(path, IMREAD_UNCHANGED)`` returns; JPEG, TIFF, GIF, JPEG 2000
-and WebP raise ``NotImplementedError``); anything else is an HSI
+(:mod:`super_resolution_tpu_torch.utils.image_io`: PNG, BMP and baseline
+JPEG, with what ``cv2.imread(path, IMREAD_UNCHANGED)`` returns; TIFF, GIF,
+JPEG 2000 and WebP raise ``NotImplementedError``); anything else is an HSI
 configuration file for the ENVI BSQ path (``data_loader.cpp:96-114``).
 Directory loads are sorted by filename — the reference uses raw ``readdir``
 order (``data_loader.cpp:75-94``), which is filesystem-dependent; sorting is

@@ -20,8 +20,11 @@ palette entry is grey, else BGR), 24 bit and 32 bit (BGR: OpenCV drops the
 fourth byte). Written: 24 bit for ``HxWx3`` and 8 bit with a grey palette for
 ``HxW``, as ``cv2.imwrite`` does.
 
-The other formats that the JAX loader hands to OpenCV (JPEG, TIFF, GIF,
-JPEG 2000, WebP) raise ``NotImplementedError`` with the format's name.
+JPEG, read: baseline (sequential Huffman, 8 bit) grey and colour files
+through :mod:`super_resolution_tpu_torch.utils.jpeg`, bit-equal to OpenCV's
+libjpeg-turbo decode. Writing JPEG, and the other formats that the JAX loader
+hands to OpenCV (TIFF, GIF, JPEG 2000, WebP), raise ``NotImplementedError``
+with the format's name.
 """
 
 from __future__ import annotations
@@ -34,12 +37,10 @@ import numpy as np
 
 __all__ = ["IMAGE_EXTENSIONS", "read_image", "write_image", "read_png", "write_png", "read_bmp", "write_bmp"]
 
-_UNSUPPORTED = {
-    ".jpg": "JPEG", ".jpeg": "JPEG", ".tif": "TIFF", ".tiff": "TIFF", ".gif": "GIF",
-    ".jp2": "JPEG 2000", ".webp": "WebP",
-}
+_READ_ONLY = {".jpg": "JPEG", ".jpeg": "JPEG"}
+_UNSUPPORTED = {".tif": "TIFF", ".tiff": "TIFF", ".gif": "GIF", ".jp2": "JPEG 2000", ".webp": "WebP"}
 # Every extension the JAX loader reads as an image (``data_loader.py:22-24``).
-IMAGE_EXTENSIONS = frozenset({".png", ".bmp", *_UNSUPPORTED})
+IMAGE_EXTENSIONS = frozenset({".png", ".bmp", *_READ_ONLY, *_UNSUPPORTED})
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -48,30 +49,38 @@ _PNG_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: 
 _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
-def _extension(path: str) -> str:
+def _extension(path: str, writing: bool) -> str:
     ext = os.path.splitext(path)[1].lower()
     if ext in _UNSUPPORTED:
         raise NotImplementedError(
             f"{_UNSUPPORTED[ext]} files ({ext}) are not supported by the port's image codec; "
             "convert the file to PNG or BMP.")
-    if ext not in (".png", ".bmp"):
+    if writing and ext in _READ_ONLY:
+        raise NotImplementedError(
+            f"Writing {_READ_ONLY[ext]} files ({ext}) is not supported by the port's image codec (reading is); "
+            "write PNG or BMP.")
+    if ext not in (".png", ".bmp", *_READ_ONLY):
         raise ValueError(f"{path}: not an image extension this codec knows ({ext!r}).")
     return ext
 
 
 def read_image(path: str) -> np.ndarray:
-    """A PNG or BMP file as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` gives it."""
-    ext = _extension(path)
+    """A PNG, BMP or JPEG file as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` gives it."""
+    ext = _extension(path, writing=False)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"Could not read image {path}")
     with open(path, "rb") as f:
         data = f.read()
+    if ext in _READ_ONLY:
+        from super_resolution_tpu_torch.utils.jpeg import decode_jpeg
+
+        return decode_jpeg(data)
     return read_png(data) if ext == ".png" else read_bmp(data)
 
 
 def write_image(path: str, image: np.ndarray) -> None:
     """Write a uint8 ``HxW`` or ``HxWx3`` (BGR) image as PNG or BMP, by extension."""
-    ext = _extension(path)
+    ext = _extension(path, writing=True)
     data = write_png(image) if ext == ".png" else write_bmp(image)
     with open(path, "wb") as f:
         f.write(data)

@@ -1,0 +1,214 @@
+"""Video frame loading (equivalent of ``src/video/video_loader.{h,cpp}``).
+
+Counterpart of the JAX package's ``video/video_loader.py``. Frames come from
+an image directory (the only path the reference exercises,
+``shift_add_fusion.cpp:37-38``) or from a RIFF AVI file, and are kept as
+``[H, W, C]`` tensors in ``[0, 1]`` on the loader's device, in OpenCV's BGR
+order; :meth:`VideoLoader.frame_stack` gives the ``[K, C, H, W]`` stack the
+solvers take.
+
+The JAX loader decodes video through ``cv2.VideoCapture`` (FFmpeg). The port
+reads AVI itself: the video stream's ``##dc`` / ``##db`` chunks of the
+``movi`` list (and of the OpenDML ``AVIX`` extensions), decoded as
+Motion-JPEG through :mod:`super_resolution_tpu_torch.utils.jpeg` or as
+uncompressed 24-bit ``BI_RGB`` rows (bottom-up where the height is positive,
+each row padded to 4 bytes). An MJPEG frame is what ``cv2.imdecode`` gives
+for its JPEG payload; FFmpeg's MJPEG decoder and colour conversion differ
+from that by a few grey levels (ROADMAP.md, Queue 3). Other containers (MP4,
+Matroska, ...) and codecs raise ``NotImplementedError`` naming them.
+"""
+
+from __future__ import annotations
+
+import os
+import struct
+import tempfile
+
+import numpy as np
+import torch
+
+from super_resolution_tpu_torch._device import resolve_device
+
+__all__ = ["VideoLoader", "read_avi_frames"]
+
+_MJPEG = {b"MJPG", b"mjpg"}
+_DISPLAY_SIZE = (1000, 600)  # kDisplayFrameSize, video_loader.cpp:19
+
+
+def _container_name(head: bytes) -> str:
+    if head[4:8] == b"ftyp":
+        return "MP4 / QuickTime"
+    if head[:4] == b"\x1a\x45\xdf\xa3":
+        return "Matroska / WebM"
+    if head[:4] == b"RIFF":
+        return f"RIFF {head[8:12].decode('latin-1')!r}"
+    return "an unknown container"
+
+
+def _chunks(data: bytes, start: int, end: int):
+    """(fourcc, list type or None, body start, body end) of each chunk in ``data[start:end]``."""
+    pos = start
+    while pos + 8 <= end:
+        fourcc = data[pos:pos + 4]
+        (size,) = struct.unpack("<I", data[pos + 4:pos + 8])
+        body = pos + 8
+        stop = min(body + size, end)
+        if fourcc in (b"LIST", b"RIFF"):
+            yield fourcc, data[body:body + 4], body + 4, stop
+        else:
+            yield fourcc, None, body, stop
+        pos = body + size + (size & 1)
+
+
+def _video_stream(data: bytes, hdrl: tuple[int, int]):
+    """(stream number, codec fourcc, bits per pixel, width, height) of the first video stream."""
+    number = 0
+    for fourcc, kind, start, end in _chunks(data, *hdrl):
+        if fourcc != b"LIST" or kind != b"strl":
+            continue
+        strh = strf = None
+        for sub, _, s, e in _chunks(data, start, end):
+            if sub == b"strh":
+                strh = data[s:e]
+            elif sub == b"strf":
+                strf = data[s:e]
+        if strh is not None and strh[:4] == b"vids" and strf is not None and len(strf) >= 20:
+            _, width, height, _, bits, compression = struct.unpack("<IiiHH4s", strf[:20])
+            return number, compression, bits, width, height
+        number += 1
+    raise ValueError("AVI file without a video stream.")
+
+
+def _frame_payloads(data: bytes, stream: int, max_frames: int):
+    """The video stream's chunk bodies, in file order, over ``movi`` of the
+    ``AVI `` RIFF and of every OpenDML ``AVIX`` RIFF after it."""
+    ids = {f"{stream:02d}dc".encode(), f"{stream:02d}db".encode()}
+    payloads = []
+
+    def walk(start, end):
+        for fourcc, kind, s, e in _chunks(data, start, end):
+            if max_frames and len(payloads) >= max_frames:
+                return
+            if fourcc == b"LIST" and kind == b"rec ":
+                walk(s, e)
+            elif fourcc in ids and e > s:
+                payloads.append(data[s:e])
+
+    for fourcc, kind, start, end in _chunks(data, 0, len(data)):
+        if fourcc != b"RIFF" or kind not in (b"AVI ", b"AVIX"):
+            continue
+        for sub, sub_kind, s, e in _chunks(data, start, end):
+            if sub == b"LIST" and sub_kind == b"movi":
+                walk(s, e)
+    return payloads
+
+
+def read_avi_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:
+    """The frames of an AVI file as uint8 ``HxWx3`` BGR arrays (all, or the first ``max_frames``)."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"Could not open video {path}")
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
+        raise NotImplementedError(
+            f"{path}: {_container_name(data[:12])} is not supported by the port's video reader (AVI with "
+            "Motion-JPEG or uncompressed frames is); convert the video, or extract its frames as images.")
+    hdrl = next(((s, e) for fourcc, kind, s, e in _chunks(data, 12, len(data))
+                 if fourcc == b"LIST" and kind == b"hdrl"), None)
+    if hdrl is None:
+        raise ValueError(f"{path}: AVI file without a header list.")
+    stream, codec, bits, width, height = _video_stream(data, hdrl)
+    if codec in _MJPEG:
+        decode = _decode_mjpeg
+    elif codec == b"\0\0\0\0" and bits == 24:
+        decode = lambda payload: _decode_bgr24(payload, width, height)  # noqa: E731
+    else:
+        name = "uncompressed" if codec == b"\0\0\0\0" else repr(codec.decode("latin-1"))
+        raise NotImplementedError(
+            f"{path}: {name} video with {bits} bits per pixel is not supported by the port's video reader "
+            "(Motion-JPEG and uncompressed 24-bit BGR are).")
+    return [decode(p) for p in _frame_payloads(data, stream, max_frames)]
+
+
+def _decode_mjpeg(payload: bytes) -> np.ndarray:
+    from super_resolution_tpu_torch.utils.jpeg import decode_jpeg
+
+    frame = decode_jpeg(payload)
+    return np.repeat(frame[..., None], 3, axis=-1) if frame.ndim == 2 else frame
+
+
+def _decode_bgr24(payload: bytes, width: int, height: int) -> np.ndarray:
+    rows, stride = abs(height), (width * 3 + 3) & ~3
+    if len(payload) < rows * stride:
+        raise ValueError(f"Uncompressed AVI frame of {len(payload)} bytes; {width}x{rows} needs {rows * stride}.")
+    image = np.frombuffer(payload, dtype=np.uint8, count=rows * stride).reshape(rows, stride)[:, : width * 3]
+    if height > 0:  # bottom-up rows
+        image = image[::-1]
+    return np.ascontiguousarray(image.reshape(rows, width, 3))
+
+
+class VideoLoader:
+    """Frames of a video or an image directory, as ``[H, W, C]`` tensors in
+    ``[0, 1]`` on ``device`` (default ``"cuda"``, which raises without a
+    card) in ``dtype``."""
+
+    def __init__(self, device="cuda", dtype: torch.dtype = torch.float32):
+        self.device = resolve_device(device)
+        self.dtype = dtype
+        self._frames: list[torch.Tensor] = []
+
+    def _place(self, frame: np.ndarray) -> torch.Tensor:
+        # Normalised on the host in float64, as the JAX loader does, then placed.
+        return torch.from_numpy(frame.astype(np.float64) / 255.0).to(device=self.device, dtype=self.dtype)
+
+    def load_frames_from_video(self, video_path: str, max_frames: int = 0) -> None:
+        self._frames = [self._place(frame) for frame in read_avi_frames(video_path, max_frames)]
+
+    def load_frames_from_directory(self, directory: str) -> None:
+        from super_resolution_tpu_torch.utils.data_loader import load_images
+
+        self._frames = [torch.movedim(img.hidden_array, 0, -1)
+                        for img in load_images(directory, device=self.device, dtype=self.dtype)]
+
+    @property
+    def num_frames(self) -> int:
+        return len(self._frames)
+
+    @property
+    def image_size(self) -> tuple[int, int]:
+        """(width, height) of the frames."""
+        if not self._frames:
+            return (0, 0)
+        h, w = self._frames[0].shape[:2]
+        return (w, h)
+
+    def get_frames(self) -> list[torch.Tensor]:
+        return list(self._frames)
+
+    def frame_stack(self) -> torch.Tensor:
+        """``[K, C, H, W]`` stack on the loader's device."""
+        if not self._frames:
+            return torch.zeros((0, 0, 0, 0), dtype=self.dtype, device=self.device)
+        return torch.stack([torch.movedim(f, -1, 0) if f.ndim == 3 else f[None] for f in self._frames])
+
+    def play_original_video(self, frame_delay_ms: int = 30) -> list[str]:
+        """The JAX loader's headless branch of ``PlayOriginalVideo``
+        (``video_loader.cpp:62-77``): each frame resized to the reference's
+        1000x600 display size and written as PNG to a new temporary
+        directory; returns the paths. The port opens no window
+        (``frame_delay_ms`` is kept for the signature)."""
+        from super_resolution_tpu_torch.utils.image_io import write_image
+        from super_resolution_tpu_torch.utils.visualization import _resize_uint8
+
+        out_dir = tempfile.mkdtemp(prefix="srtpu_video_")
+        paths = []
+        for i, frame in enumerate(self._frames):
+            pixels = (np.clip(frame.detach().cpu().to(torch.float64).numpy(), 0.0, 1.0) * 255).astype(np.uint8)
+            if pixels.ndim == 3 and pixels.shape[-1] == 1:  # cv2.resize drops a single channel's axis
+                pixels = pixels[..., 0]
+            path = os.path.join(out_dir, f"frame_{i:05d}.png")
+            write_image(path, _resize_uint8(pixels, _DISPLAY_SIZE))
+            paths.append(path)
+        if paths:
+            print(f"[headless] saved {len(paths)} video frames to {out_dir}")
+        return paths

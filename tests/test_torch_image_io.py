@@ -228,9 +228,15 @@ def test_bmp_write_reads_back_in_opencv(tmp_path, shape):
 @pytest.mark.parametrize("ext,name", [(".jpg", "JPEG"), (".jpeg", "JPEG"), (".tif", "TIFF"), (".tiff", "TIFF"),
                                       (".gif", "GIF"), (".jp2", "JPEG 2000"), (".webp", "WebP")])
 def test_other_formats_raise(tmp_path, ext, name):
+    """Each format the codec does not read or write names itself. JPEG is read
+    in its baseline form (tests/test_torch_jpeg.py): here a progressive file,
+    which the reader refuses, and writing, which no JPEG supports."""
     path = str(tmp_path / f"image{ext}")
     with open(path, "wb") as f:
-        f.write(b"\0" * 64)
+        if name == "JPEG":
+            f.write(cv2.imencode(".jpg", np.zeros((16, 16), np.uint8), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes())
+        else:
+            f.write(b"\0" * 64)
     with pytest.raises(NotImplementedError, match=name):
         load_image(path, **CPU)
     with pytest.raises(NotImplementedError, match=name):

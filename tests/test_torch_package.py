@@ -49,6 +49,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import super_resolution_tpu_torch.solvers.shift_add\n"
         "import super_resolution_tpu_torch.cli.super_resolve, super_resolution_tpu_torch.cli.generate_data\n"
         "import super_resolution_tpu_torch.cli.shift_add_fusion, super_resolution_tpu_torch.cli.visualize_image\n"
+        "import super_resolution_tpu_torch.video, super_resolution_tpu_torch.utils.jpeg\n"
+        "import super_resolution_tpu_torch.utils.profiling, super_resolution_tpu_torch.utils.testing\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'super_resolution_tpu', 'cv2', 'PIL')]\n"
         "assert not bad, bad\n"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'triton']\n"
@@ -122,6 +124,20 @@ def test_image_entry_points_default_to_cuda_and_raise_without_a_card(tmp_path):
     # Asking for the CPU is the only way onto the CPU.
     assert load_image(path, device="cpu").device.type == "cpu"
     assert ImageData(np.zeros((4, 4)), device="cpu").device.type == "cpu"
+
+
+def test_video_entry_points_default_to_cuda_and_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("needs a machine without a CUDA device")
+    from super_resolution_tpu_torch.video import VideoLoader, VideoSuperResolver
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VideoLoader()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        VideoSuperResolver()
+    # Asking for the CPU is the only way onto the CPU.
+    assert VideoLoader(device="cpu").frame_stack().device.type == "cpu"
+    assert VideoSuperResolver(device="cpu").device.type == "cpu"
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_nothing():
