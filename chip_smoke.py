@@ -32,7 +32,9 @@ width:
   64-band cube (the kernels' spectral-halo mode), 2x2 tiles with halo
   exchange on an RGB 3x2048x2048 scene with 16 frames and on the flagship
   (shard mode), and 4 frame shards with the motion refined between IRLS
-  rounds, each held against the single-device solve;
+  rounds, each held against the single-device solve; then the same four
+  meshes under ``fused_irls`` (one graph a step captures every shard),
+  bit-equal to the same mesh's host loop, in turns;
 - the fused IRLS solve (``fused_irls``: CUDA graphs of the linear-CG chunk,
   the IRLS seam and the restart) beside the host loop, in turns, on the
   flagship TV and BTV solves, the refined estimated-motion solve and the
@@ -74,7 +76,16 @@ width:
   decoded to the digest the CPU tests recorded; wall per frame, frames/s,
   device busy share from the trace ``utils.profiling.trace`` writes,
   registration per window (its read-backs counted), and one evaluation at
-  the video shape beside its bound, each kernel beside its own.
+  the video shape beside its bound, each kernel beside its own;
+- data parallel (phase 13): ``make_sharded_map_solver`` on a frame x4 mesh of
+  the flagship and a frame x2 x band x2 mesh of the 64-band cube, each beside
+  ``minimize`` on one device (float32 by iterations, cost and PSNR, float64
+  element-wise); ``band_split_minimize`` on the 64-band cube, each band
+  against its own serial solve, batched wall beside the serial one; the
+  two-process loopback (``parallel/multihost.py``: two processes on the card,
+  ``gloo`` between them, one shard each, each held against its own
+  one-process solve; all-reduce bytes and ms an evaluation); and the scaling
+  harness's collective calls an evaluation over 1 / 2 / 4 shards, flat.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -124,7 +135,9 @@ try:
     from super_resolution_tpu_torch.ops.cuda import build, degrade
     from super_resolution_tpu_torch.ops.resize import linear_resize
     from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
-    from super_resolution_tpu_torch.parallel import Sharded, collectives, make_mesh, make_sharded_vg, required_halo
+    from super_resolution_tpu_torch.parallel import (
+        Sharded, band_split_minimize, collectives, make_mesh, make_sharded_map_solver, make_sharded_vg, required_halo,
+        shard_problem)
     from super_resolution_tpu_torch.solvers.least_squares import minimize
     from super_resolution_tpu_torch.solvers.objective import make_map_value_and_grad
     from super_resolution_tpu_torch.cli import generate_data as generate_data_cli
@@ -249,7 +262,7 @@ def load_golden(name):
 
 
 def phase_environment():
-    log(f"[1/12] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
+    log(f"[1/13] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"torch CUDA {torch.version.cuda}")
     nvcc = build.find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60).stdout
@@ -270,7 +283,7 @@ def phase_build():
     t0 = time.perf_counter()
     results = build.build()
     for name, info in results.items():
-        log(f"[2/12] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
+        log(f"[2/13] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
     log(f"      build total {time.perf_counter() - t0:.1f} s")
 
@@ -429,7 +442,7 @@ def _check_shift_generic(device, dtype):
     check(degrade.shift_source_counts == {"device": launches // 2, "host": launches // 2},
           f"shift sources miscounted: {degrade.shift_source_counts} for {launches} launches")
     check(len(list(build.build_dir().glob("libdegrade_*.so"))) == 1, "the kernels were built more than once")
-    log(f"[3/12] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
+    log(f"[3/13] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
         f"bit-equal to host shifts, one build")
 
 
@@ -655,7 +668,7 @@ def _check_shard_mode(device, dtype):
                               f"shard mode {mode} {dtype} s={scale} shifts {shifts} tile {coords} "
                               f"{'owned mask' if mask is not None else 'default mask'}: cost {cost_err:.3e}, "
                               f"grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/12] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
+    log(f"[3/13] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
         f"x 2 masks) agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
@@ -677,7 +690,7 @@ def _check_spectral_halo(device, dtype):
               f"spectral halo {dtype} C={c}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
         plain_tv3d = degrade.fused_objective(x, y, sh, kern, 2, tv_constants=constants, tv_use_3d=True)
         check(not torch.equal(out[1][-1], plain_tv3d[1][-1]), "the halo band was not taken out of the data term")
-    log(f"[3/12] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
+    log(f"[3/13] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
 
@@ -692,7 +705,7 @@ def _check_trivial_shard_arguments(device, dtype):
         in_shard_mode = degrade.fused_objective(x, y, sh, kern, 4, origin=(0, 0), global_hw=hw, **kw)
         check(float(plain_launch[0]) == float(in_shard_mode[0]) and torch.equal(plain_launch[1], in_shard_mode[1]),
               f"{mode} {dtype}: trivial shard arguments change the bits")
-    log(f"[3/12] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
+    log(f"[3/13] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
         f"{len(degrade.KERNEL_NAMES)} modes in {dtype}")
 
 
@@ -721,7 +734,7 @@ def _check_assembled(device, dtype):
         cost_err, grad_err, _ = _errors(vg(x, (weights,)), degrade.fused_objective(x, y, sh, kern, scale, **kw))
         check(cost_err <= tol and grad_err <= tol,
               f"assembled {axes} {dtype} case {n}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/12] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
+    log(f"[3/13] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
         f"by gather, scatter-sum and band ring == the unsharded kernels in {dtype} (tol {tol:g})")
 
 
@@ -791,7 +804,7 @@ def _check_btv_sweep(device, dtype):
                 held(degrade.fused_objective(*args, **kw), args, kw,
                      f"P={P} decay={decay} s={scale} {frames} frames tile {coords} "
                      f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/12] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images "
+    log(f"[3/13] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images "
         f"each, bit-equal when launched twice; {BTV_MANY_FRAMES} frames on 2 whole images; "
         f"{len(BTV_SWEEP_TILES)} x 5 shard tiles x 2 masks, one with {BTV_MANY_FRAMES} frames) agree with the "
         f"plain version in {dtype} (tol {tol:g})")
@@ -832,11 +845,11 @@ def _check_kernel_attributes():
         mine = [a for key, a in table.items() if key[0] == kernel]
         registers, shared = [a["registers"] for a in mine], [a["shared_bytes"] for a in mine]
         blocks = [a["blocks_per_sm"] for a in mine]
-        log(f"[3/12] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
+        log(f"[3/13] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
             f"{min(registers)}-{max(registers)} registers, {min(shared)}-{max(shared)} bytes of static shared memory, "
             f"{min(blocks)}-{max(blocks)} blocks of 256 threads per SM")
     direct = [a for key, a in table.items() if "direct" in key]
-    log(f"[3/12] kernels: of those, the {len(direct)} DIRECT instantiations: "
+    log(f"[3/13] kernels: of those, the {len(direct)} DIRECT instantiations: "
         f"{min(a['registers'] for a in direct)}-{max(a['registers'] for a in direct)} registers, "
         f"{min(a['blocks_per_sm'] for a in direct)}-{max(a['blocks_per_sm'] for a in direct)} blocks per SM")
     return table
@@ -949,7 +962,7 @@ def _check_composite_sweep(device, dtype):
         held((x, y, torch.as_tensor(sh, device=device), kern, scale),
              dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True), f"spectral halo s={scale}")
     check(exact[True] > 0 and exact[False] > 0, f"the sweep missed one of the composite's cases: {exact}")
-    log(f"[3/12] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
+    log(f"[3/13] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
         f"fractional / wide shifts x 2 whole images x data/TV/3D TV, bit-equal when launched twice; 66 and 30 frames; "
         f"3 scales x 5 shard tiles x blur 3x3/5x5/none x fractional / wide shifts x 2 masks x 3 modes; spectral halo "
         f"at s 2/3/4) agree with the plain version in {dtype} (tol {tol:g}); composite exact on {exact[True]} of the "
@@ -1040,7 +1053,7 @@ def _check_direct_sweep(device, dtype):
                     held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
                          f"{mode} s={scale} blur {size} {set_name} shifts tile {coords} "
                          f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/12] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
+    log(f"[3/13] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
         f"at s 2 -- the table; integer / fractional / wide shifts x whole images x {len(modes)} modes, bit-equal when "
         f"launched twice; 3 shard tiles x fractional / wide shifts x {len(modes)} modes) agree with the plain version "
         f"in {dtype} (tol {tol:g})")
@@ -1145,7 +1158,7 @@ def phase_kernels(device):
                 check(float(outs["data_term_tv3d"][0]) == float(outs["data_term_tv"][0])
                       and torch.equal(outs["data_term_tv3d"][1], outs["data_term_tv"][1]),
                       f"data_term_tv3d differs from data_term_tv at C=1 (case {i}, {dtype})")
-        log(f"[3/12] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
+        log(f"[3/13] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
             f"in {dtype} (tol {tol:g}); tv3d == tv at C=1")
         _check_shift_generic(device, dtype)
         shard_worst = {"shard_mode": _check_shard_mode(device, dtype),
@@ -1163,7 +1176,7 @@ def phase_kernels(device):
                 worst[mode] = max(worst[mode], composite_worst, direct_worst)
     attributes = _check_kernel_attributes()
     tap_difference = _float32_tap_difference(device)
-    log(f"[3/12] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
+    log(f"[3/13] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
         f"makes them) vs the kernels' float64 weights rounded once: {tap_difference:.2e} of the largest entry")
     check(tap_difference <= TOLERANCE[torch.float32], f"float32 tap weights move the gradient by {tap_difference}")
 
@@ -1252,7 +1265,7 @@ def phase_goldens(device):
                   "goldens: the fused solve differs from the host loop's")
             same = ", each bit-equal to the host loop's"
         host = solves
-        log(f"[4/12] goldens ({way}, cg): A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
+        log(f"[4/13] goldens ({way}, cg): A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
             f"C {psnr_ours:.3f} dB vs C++ {psnr_ref:.3f} dB{same} ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1402,7 +1415,7 @@ def phase_main_path(device, rows):
     for name, options, reg, lam in runs:
         results[name] = r = solve_once(name, gt, 4, options, reg, lam, device, dtype)
         mpix_it = r["iterations"] * side * side / r["seconds"] / 1e6
-        log(f"[5/12] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
+        log(f"[5/13] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
             f"{r['evaluations']} evaluations, {r['launches']} launches, {r['seconds']:.3f} s, "
             f"{mpix_it:.1f} Mpixel-iterations/s, PSNR {r['psnr']:.2f} dB (nearest {r['psnr_start']:.2f} dB)")
         log(f"      inner calls (s, iterations, evaluations): "
@@ -1504,7 +1517,7 @@ def phase_estimated_motion(device, rows):
         seconds.append(time.perf_counter() - t0)
     estimated = registered.as_array() * scale  # LR px -> HR px
     err_estimated = float(np.abs(estimated - true).max())
-    log(f"[6/12] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
+    log(f"[6/13] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
         f"{seconds[1]:.3f} s; max error {err_estimated:.4f} HR px (limit 0.25)")
     check(err_estimated < 0.25, f"registration is off by {err_estimated} HR px")
     x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
@@ -1588,7 +1601,7 @@ def phase_hyperspectral(device, rows):
         solver = tv_solver(model, lows, use_3d, fixed_iterations(20, 2), device)
         results[name] = r = run_solve(name, solver, x0, gt, 0.01)
         mvals = r["iterations"] * gt.numel() / r["seconds"] / 1e6
-        log(f"[7/12] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
+        log(f"[7/13] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
             f"= evaluations, {r['seconds']:.3f} s, {mvals:.1f} Mvalue-iterations/s, PSNR {r['psnr']:.2f} dB "
             f"(linear upsample {r['psnr_start']:.2f} dB); L1 objective {[float(f'{o:.7g}') for o in r['objectives']]}")
         check_objective_never_rises(name, r["objectives"])
@@ -1617,7 +1630,7 @@ def phase_hyperspectral(device, rows):
     b = PCA_BORDER
     inner = (slice(None), slice(b, -b), slice(b, -b))
     solved_db, linear_db = float(psnr(solved[inner], gt[inner])), float(psnr(linear[inner], gt[inner]))
-    log(f"[7/12] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
+    log(f"[7/13] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
         f"{round_trip:.2f} dB); {tuple(r['x'].shape)} solve {r['iterations']} iterations, {r['launches']} launches, "
         f"{r['seconds']:.3f} s; back-projected cube {solved_db:.2f} dB vs linear upsample {linear_db:.2f} dB inside "
         f"a {b}-px border (whole image {float(psnr(solved, gt)):.2f} vs {float(psnr(linear, gt)):.2f} dB)")
@@ -1663,7 +1676,7 @@ def compare_with_single_device(label, make, mode, shard_counter, mesh, lam, roun
             continue
         objective_diff = abs(meshed["objectives"][-1] - single["objectives"][-1]) / abs(single["objectives"][-1])
         psnr_diff = abs(meshed["psnr"] - single["psnr"])
-        log(f"[8/12] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
+        log(f"[8/13] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
             f"{meshed['evaluations']} evaluations, {meshed['launches']} launches; {meshed['seconds']:.3f} s meshed vs "
             f"{single['seconds']:.3f} s on one device; PSNR {meshed['psnr']:.2f} dB (start {meshed['psnr_start']:.2f}, "
             f"one device {single['psnr']:.2f}); max|diff| {diff:.2e}, L1 objective differs {objective_diff:.2e} "
@@ -1680,7 +1693,7 @@ def phase_mesh(device, rows):
     """The solve on a device mesh: band shards with the spectral halo, tiles
     with halo exchange, frame shards with refined motion."""
     devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    log(f"[8/12] mesh: shards are dealt over {len(devices)} visible card(s)")
+    log(f"[8/13] mesh: shards are dealt over {len(devices)} visible card(s)")
     degrade.reset_launch_counts()
     results = {}
 
@@ -1855,7 +1868,7 @@ def fused_problems(device):
     }
 
 
-def phase_fused(device, rows, turns=5, chunk_turns=5):
+def phase_fused(device, rows, turns=5, chunk_turns=3):
     """The fused IRLS solve (CUDA graphs of the linear-CG chunk, the IRLS
     seam and the restart) beside the host loop on the same problems, in
     turns: bit-equal estimates and shifts, equal iterations and evaluations,
@@ -1907,7 +1920,7 @@ def phase_fused(device, rows, turns=5, chunk_turns=5):
         evaluations = sum(c[2] for c in fused.last_inner_calls)
         values = gt.numel() * iterations
         med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
-        log(f"[9/12] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
+        log(f"[9/13] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
             f"fused == host loop bit for bit (x and shifts, {turns + 2} pairs)")
         log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
             f"[{min(fused_s):.4f}, {max(fused_s):.4f}] ({med_h / med_f:.2f}x); "
@@ -2119,7 +2132,7 @@ def _gradient_mode_solves(device):
         check(torch.equal(x_fused, x_card) and calls_fused == calls_card,
               f"fused autodiff solve vs the host loop on the card: {float((x_fused - x_card).abs().max()):.3e}, "
               f"rounds {calls_fused} vs {calls_card}")
-    log(f"[10/12] autodiff solve 1x64x64 float64 on the card: within {diff:.2e} (tol {AUTODIFF_TOLERANCE:g}) of the "
+    log(f"[10/13] autodiff solve 1x64x64 float64 on the card: within {diff:.2e} (tol {AUTODIFF_TOLERANCE:g}) of the "
         f"CPU's, same iterations and evaluations {calls_card}; fused_irls ({captured[1]} graphs captured, none by a "
         f"second instance) == host loop bit for bit ({time.perf_counter() - t0:.1f} s)")
 
@@ -2144,14 +2157,14 @@ def _gradient_mode_solves(device):
     check(diff <= bound and calls_card == calls_cpu,
           f"numerical solve on the card vs the CPU: {diff:.3e} (derived bound {bound:.3e}), rounds {calls_card} vs "
           f"{calls_cpu}")
-    log(f"[10/12] numerical 1x8x8 float64 (n = {n}, f = {cost:.6g}): gradient at the start on the card within "
+    log(f"[10/13] numerical 1x8x8 float64 (n = {n}, f = {cost:.6g}): gradient at the start on the card within "
         f"{g_diff:.3e} of the CPU's (bound 2 (n-1) u f / h = {dg:.3e}); solve within {diff:.3e} (bound: gain "
         f"{gain:.4g} x {dg:.3e} = {bound:.3e}; gain = |x_fd - x_exact| / |g_fd - g_exact| on the CPU, "
         f"{noise:.3e} at the start), same iterations and evaluations {calls_card} "
         f"({time.perf_counter() - t0:.1f} s)")
 
 
-def phase_wolfe(device, rows, turns=3):
+def phase_wolfe(device, rows, turns=2):
     """The line-search solvers under the fused solve: ``cg`` and ``lbfgs``
     chunks of line-search trials replayed as CUDA graphs, beside the host
     loop that takes the same steps with one read-back per evaluation, in
@@ -2167,7 +2180,7 @@ def phase_wolfe(device, rows, turns=3):
     irls_mod._BUILT_SOLVER_CACHE.clear()
     t_phase = time.perf_counter()
     problems, nearest = wolfe_problems(device)
-    log(f"[10/12] line-search solvers: problems made in {time.perf_counter() - t_phase:.1f} s")
+    log(f"[10/13] line-search solvers: problems made in {time.perf_counter() - t_phase:.1f} s")
     degrade.reset_launch_counts()
     results, launches = {}, {}
     for label, (make, mode, row) in problems.items():
@@ -2214,7 +2227,7 @@ def phase_wolfe(device, rows, turns=3):
         step = fused.last_fused.chunks[runs[0]["chunk_steps"]]
         kernels, copies, step_ms = _graph_nodes_per_step(step, runs[0]["chunk_steps"], device)
         med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
-        log(f"[10/12] {label}: {iterations} iterations, {evaluations} evaluations ({evaluations / iterations:.2f} "
+        log(f"[10/13] {label}: {iterations} iterations, {evaluations} evaluations ({evaluations / iterations:.2f} "
             f"per iteration, the starts included) in {rounds} rounds; fused == host loop bit for bit "
             f"(x and shifts, {turns + 2} pairs); PSNR {psnr_fused:.2f} dB (nearest {psnr_start:.2f})")
         log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
@@ -2259,7 +2272,7 @@ def phase_wolfe(device, rows, turns=3):
     results["psnr_cg_minus_linear_cg"] = psnr_cg - psnr_linear
     irls_mod._BUILT_SOLVER_CACHE.clear()
     _gradient_mode_solves(device)
-    log(f"[10/12] line-search phase: {time.perf_counter() - t_phase:.1f} s")
+    log(f"[10/13] line-search phase: {time.perf_counter() - t_phase:.1f} s")
     return results
 
 
@@ -2290,7 +2303,7 @@ def _cli_step(label, main, argv, card, device):
     check(rc == 0, f"{label}: the CLI returned {rc}")
     counts, sources, _, plain = record.counts
     check(plain["calls"] == 0, f"{label}: the plain version ran {plain['calls']} times on the card")
-    log(f"[11/12] entry point {label}: {seconds:.3f} s wall ({card}); evaluations by mode "
+    log(f"[11/13] entry point {label}: {seconds:.3f} s wall ({card}); evaluations by mode "
         f"{ {k: v for k, v in counts.items() if v} } (2 kernel launches each)")
     return out.getvalue(), seconds, counts, sources
 
@@ -2575,7 +2588,7 @@ def phase_entry_points(device, rows, card, side=1000, hsi_side=256):
         row["launches_entry_points"] = sum(steps[step]["counts"][row["mode"]] for step in ENTRY_ROWS.get(row["row"], ()))
         check(row["row"] not in ENTRY_ROWS or row["launches_entry_points"] > 0,
               f"the entry points never launched {row['mode']} ({row['row']})")
-    log(f"[11/12] entry points: {time.perf_counter() - t_phase:.1f} s; wall by step "
+    log(f"[11/13] entry points: {time.perf_counter() - t_phase:.1f} s; wall by step "
         f"{ {k: round(v['seconds'], 3) for k, v in steps.items()} } ({card}); evaluations by row "
         f"{ {r['row']: r['launches_entry_points'] for r in rows} }")
     return steps
@@ -2728,7 +2741,7 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     check(tuple(stack.shape) == (frames, 3) + tuple(lr_hw) and stack.is_cuda, f"video: frame stack {stack.shape}")
-    log(f"[12/12] video: {frames} LR frames {tuple(stack.shape[1:])} written as PNG in {t_write:.2f} s, loaded onto "
+    log(f"[12/13] video: {frames} LR frames {tuple(stack.shape[1:])} written as PNG in {t_write:.2f} s, loaded onto "
         f"the card by VideoLoader in {t_load:.2f} s")
 
     defaults = sr_video.VideoSuperResolver(device=device).solver_options
@@ -2902,7 +2915,376 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
                    rel=(rel_default, rel_refine))
     irls_mod._BUILT_SOLVER_CACHE.clear()
-    log(f"[12/12] video: {time.perf_counter() - t_phase:.1f} s ({card})")
+    log(f"[12/13] video: {time.perf_counter() - t_phase:.1f} s ({card})")
+    return results
+
+
+# ------------------------------------------------- the mesh under fused_irls (phase 8, extended)
+
+
+def _mesh_fused_solve(solver, x0, mode, shard_counter):
+    """One fused solve on a mesh, its launches held replay-aware: one count per
+    shard and evaluation the replays ran (frozen chunk steps included), in
+    ``mode`` and in the mesh mode ``shard_counter`` only, no plain version,
+    no ``late`` flag, no more read-backs than chunks plus rounds."""
+    before, before_shard = dict(degrade.launch_counts), dict(degrade.shard_launch_counts)
+    before_plain = degrade.plain_version_calls["calls"]
+    seconds, x = _timed(solver, x0)
+    runs = solver.last_fused_runs
+    executed = sum(run["executed_evaluations"] for run in runs)
+    shards = solver.mesh.num_shards
+    grown = {name: degrade.launch_counts[name] - before[name] for name in degrade.launch_counts}
+    check(grown == {name: shards * executed if name == mode else 0 for name in grown},
+          f"fused mesh {mode}: launches {grown}, but the replays ran {executed} evaluations on {shards} shards")
+    for counter, count in degrade.shard_launch_counts.items():
+        expected = shards * executed if counter == shard_counter else 0
+        check(count - before_shard[counter] == expected,
+              f"fused mesh {mode}: {count - before_shard[counter]} {counter} launches, expected {expected}")
+    check(degrade.plain_version_calls["calls"] == before_plain, f"fused mesh {mode}: the solve called the plain version")
+    check(not solver.last_fused.late(), f"fused mesh {mode}: a cost fold stopped waiting (late flag) in a replay")
+    for run in runs:
+        check(run["readbacks"] <= run["chunks"] + len(run["rounds"]),
+              f"fused mesh {mode}: {run['readbacks']} read-backs for {run['chunks']} chunks and "
+              f"{len(run['rounds'])} rounds")
+    return seconds, x, executed
+
+
+def mesh_fused_problems(device):
+    """Phase 8's meshed solves, every shard on the card: ``{label: (make, mode,
+    shard counter, row)}``, ``make(fused) -> (solver, x0, gt)``."""
+    dtype = torch.float32
+    model64, gt64, lows64 = hyperspectral_problem(device)
+    model_rgb, gt_rgb, lows_rgb = tiled_problem(device)
+    flagship = synthetic_scene(1, 1000, 1000, seed=2026)
+    model_flag, gt_flag, lows_flag = make_observations(flagship, FLAGSHIP_SHIFTS, 4, 3, 1.5, device, dtype)
+    gt_est, lows_est = estimated_motion_problem(device)
+    estimated = sr.translational_registration(lows_est, device=device).as_array() * 4
+    two_rounds = dataclasses.replace(fixed_iterations(20, 2), irls_cost_difference_threshold=0.0)
+
+    def start(lows, gt):
+        return linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
+
+    def band(fused):
+        solver = tv_solver(model64, lows64, True, dataclasses.replace(two_rounds, fused_irls=fused), device,
+                           mesh=make_mesh({"band": 4}, [device]))
+        return solver, start(lows64, gt64), gt64
+
+    def tiles(model, lows, gt, reg):
+        def make(fused):
+            solver = sr.IRLSMapSolver(dataclasses.replace(two_rounds, fused_irls=fused), model, lows, device=device,
+                                      dtype=dtype, mesh=make_mesh({"row": 2, "col": 2}, [device]))
+            solver.add_regularizer(reg, 0.01)
+            return solver, start(lows, gt), gt
+        return make
+
+    def frames(fused):
+        solver = estimated_motion_solver(lows_est, estimated, 1, device, 3, 20, dtype, make_mesh({"frame": 4}, [device]))
+        solver.options.fused_irls = fused
+        return solver, start(lows_est, gt_est), gt_est
+
+    return {
+        "band x4, 64 bands, 3D TV": (band, "data_term_tv3d", "spectral_halo", "K7b"),
+        f"2x2 tiles, RGB 3x2048x2048, {TILED_FRAMES} frames, BTV": (
+            tiles(model_rgb, lows_rgb, gt_rgb, BilateralTotalVariationRegularizer(3, 0.5)), "data_term_btv",
+            "shard_mode", "K7a"),
+        "2x2 tiles, flagship 1x1000x1000, TV": (
+            tiles(model_flag, lows_flag, gt_flag, TotalVariationRegularizer()), "data_term_tv", "shard_mode", "K7a"),
+        "frame x4, refined motion, RGB 3x1000x1000, BTV": (frames, "data_term_btv", None, "K4"),
+    }
+
+
+def phase_mesh_fused(device, rows, turns=3):
+    """``fused_irls`` on phase 8's meshes beside the same mesh's host loop, in
+    turns: bit-equal estimates and shifts, equal iterations and evaluations
+    per round, launches counted through the replays on every shard, no late
+    fold, one capture across two solver instances; walls, read-backs,
+    captures, replays and pinned memory of each."""
+    from super_resolution_tpu_torch.solvers import irls as irls_mod
+
+    t_phase = time.perf_counter()
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+    degrade.reset_launch_counts()
+    results, launches = {}, {}
+    for label, (make, mode, shard_counter, row) in mesh_fused_problems(device).items():
+        counted = degrade.launch_counts[mode]
+        first, x0, gt = make(True)
+        reserved = _reserved_bytes(device)
+        captures = graphs.capture_counts["graphs"]
+        _, x_first, _ = _mesh_fused_solve(first, x0, mode, shard_counter)   # captures
+        pinned_mb = (_reserved_bytes(device) - reserved) / 2**20
+        captured = graphs.capture_counts["graphs"] - captures
+        second, _, _ = make(True)
+        _, x_second, _ = _mesh_fused_solve(second, x0, mode, shard_counter)
+        check(graphs.capture_counts["graphs"] == captures + captured,
+              f"fused mesh {label}: a second solver instance of the same shape captured again")
+        reference, _, _ = make(False)
+        _, x_ref = _timed(reference, x0)
+        _same_solve(f"fused mesh {label}", reference, first, x_ref, x_first)
+        _same_solve(f"fused mesh {label}", reference, second, x_ref, x_second)
+        host_s, fused_s = [], []
+        for _ in range(turns):
+            host, _, _ = make(False)
+            seconds, x = _timed(host, x0)
+            check(torch.equal(x, x_ref), f"fused mesh {label}: two host-loop solves differ")
+            host_s.append(seconds)
+            fused, _, _ = make(True)
+            seconds, x, executed = _mesh_fused_solve(fused, x0, mode, shard_counter)
+            _same_solve(f"fused mesh {label}", host, fused, x_ref, x)
+            fused_s.append(seconds)
+        runs = fused.last_fused_runs
+        iterations, rounds = fused.last_inner_iterations, len(fused.last_inner_calls)
+        evaluations = sum(c[2] for c in fused.last_inner_calls)
+        readbacks = sum(run["readbacks"] for run in runs)
+        replays = sum(run["replays"] for run in runs)
+        chunks = sum(run["chunks"] for run in runs)
+        shards = fused.mesh.num_shards
+        log(f"[8/13] fused mesh {label}: {fused.mesh.shape}, {iterations} iterations, {evaluations} evaluations in "
+            f"{rounds} rounds; fused == host loop bit for bit (x and shifts, {turns + 2} pairs)")
+        log(f"      wall host {_median_range(host_s)} s, fused {_median_range(fused_s)} s; read-backs host "
+            f"{iterations + 2 * rounds}, fused {readbacks} ({chunks} chunks + {rounds} rounds); {captured} graphs "
+            f"captured by the first instance, 0 by the second; {replays} replays; {executed} evaluations run "
+            f"({executed - evaluations} frozen) x {shards} shards = {shards * executed} launch counts; no late fold; "
+            f"pinned {pinned_mb:.0f} MB; PSNR {float(psnr(x, gt)):.2f} dB")
+        results[label] = {"host_s": host_s, "fused_s": fused_s, "readbacks": readbacks, "captures": captured,
+                          "replays": replays, "pinned_mb": pinned_mb, "executed": executed, "evaluations": evaluations}
+        grown = degrade.launch_counts[mode] - counted - (turns + 1) * shards * evaluations
+        check(grown > 0, f"the fused mesh {label} solve never launched {mode} ({row})")
+        launches[row] = launches.get(row, 0) + grown
+    for row in rows:
+        if row["row"] in launches:
+            row["launches_fused_mesh"] = launches[row["row"]]
+    irls_mod._BUILT_SOLVER_CACHE.clear()
+    log(f"[8/13] fused mesh: {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+# ------------------------------------------------------------- data parallel (phase 13)
+
+FRAME_MESH_TOLERANCE = {torch.float64: 1e-6}     # x, meshed vs one device (PERF.md section 2)
+LOOPBACK_TOLERANCE = 1e-6                        # float64, each process against its own one-process solve
+MODE_OF = {True: "data_term_tv", False: "data_term"}   # the fused mode of a solve with / without its TV term
+
+
+def _sharded_against_single(label, make, mesh, method, iterations, device, turns=5):
+    """``make_sharded_map_solver`` on ``mesh`` beside ``minimize`` on one
+    device with the same objective and start, thresholds 0: float32 at full
+    length held by iterations, cost (5e-2 relative) and PSNR (0.05 dB); float64
+    held element-wise; walls in turns."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        gt, lows, shifts, kernel, scale, regs = make(dtype)
+        observations = torch.stack(lows)
+        x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
+        weights = tuple(torch.ones_like(gt) for _ in regs)
+        options = dict(method=method, max_iterations=iterations, gradient_norm_threshold=0.0,
+                       cost_decrease_threshold=0.0, parameter_variation_threshold=0.0)
+        solve = make_sharded_map_solver(mesh, kernel, scale, regs, **options)
+        placed = shard_problem(mesh, x0, observations, shifts)
+        single = make_map_value_and_grad(observations, shifts, kernel, scale, regs, device=device, dtype=dtype)
+        bound = single.prepare(weights)
+        before = degrade.launch_counts[MODE_OF[bool(regs)]]
+        meshed = solve(*placed, weights)
+        torch.cuda.synchronize(device)
+        per_evaluation = (degrade.launch_counts[MODE_OF[bool(regs)]] - before) / meshed.num_evaluations
+        check(per_evaluation == mesh.num_shards,
+              f"{label}: {per_evaluation} launch counts an evaluation, expected one a shard ({mesh.num_shards})")
+        reference = minimize(bound, x0, **options)
+        x_meshed = meshed.x.to_global(device)
+        check(meshed.iterations == reference.iterations,
+              f"{label} {dtype}: {meshed.iterations} iterations meshed, {reference.iterations} on one device")
+        diff = float((x_meshed - reference.x).abs().max())
+        if dtype == torch.float64:
+            tol = FRAME_MESH_TOLERANCE[dtype]
+            log(f"      {label} in float64: meshed vs one device max|diff| {diff:.2e} (tol {tol:g}), "
+                f"{meshed.iterations} iterations")
+            check(diff <= tol, f"{label}: meshed and single-device float64 solves differ by {diff}")
+            continue
+        cost_diff = abs(float(meshed.cost) - float(reference.cost)) / abs(float(reference.cost))
+        psnr_diff = abs(float(psnr(x_meshed, gt)) - float(psnr(reference.x, gt)))
+        check(cost_diff <= 5e-2 and psnr_diff <= 0.05,
+              f"{label}: meshed and single-device solves end apart: cost {cost_diff}, PSNR {psnr_diff} dB")
+        walls = {"meshed": [], "single": []}
+        for _ in range(turns):
+            for name, run in (("meshed", lambda: solve(*placed, weights).x.to_global(device)),
+                              ("single", lambda: minimize(bound, x0, **options).x)):
+                torch.cuda.synchronize(device)
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize(device)
+                walls[name].append(time.perf_counter() - t0)
+        log(f"[13/13] (a) make_sharded_map_solver, {label}: {mesh.shape} on one card, {method} {meshed.iterations} "
+            f"iterations, {meshed.num_evaluations} evaluations, {per_evaluation:.0f} launch counts an evaluation "
+            f"(one device: 1); wall meshed {_median_range(walls['meshed'])} s, one device "
+            f"{_median_range(walls['single'])} s (median [min, max] of {turns}, in turns); max|diff| {diff:.2e}, "
+            f"cost {cost_diff:.2e} relative (tol 5e-2), PSNR {float(psnr(x_meshed, gt)):.2f} dB, "
+            f"{psnr_diff:.4f} dB from one device (tol 0.05)")
+        out = {"walls": walls, "launches_per_evaluation": per_evaluation, "psnr_diff": psnr_diff,
+               "iterations": meshed.iterations, "evaluations": meshed.num_evaluations}
+    return out
+
+
+def _band_split(device, turns=2, iterations=20):
+    """``band_split_minimize`` on the 64-band cube beside 64 serial ``minimize``
+    calls, each band with its own objective (its frames, 2D TV 0.01): per band
+    the same iterations and evaluations and the same estimate."""
+    model, gt, lows = hyperspectral_problem(device)
+    observations = torch.stack(lows)
+    shifts, kernel = np.asarray(FLAGSHIP_SHIFTS, dtype=np.float64), np.asarray(model.blur_operator.kernel)
+    bands = gt.shape[0]
+    x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
+    functions = [make_map_value_and_grad(observations[:, c: c + 1], shifts, kernel, 2,
+                                         [(TotalVariationRegularizer(), 0.01)], device=device)
+                 .prepare((torch.ones_like(gt[c: c + 1]),)) for c in range(bands)]
+    calls = []
+    counted = [lambda x, c=c, f=f: (calls.append(c), f(x))[1] for c, f in enumerate(functions)]
+    options = dict(method="cg", max_iterations=iterations)
+
+    def serial():
+        return [minimize(f, x0[c: c + 1], **options) for c, f in enumerate(functions)]
+
+    before = degrade.launch_counts["data_term_tv"]
+    batched = band_split_minimize(counted, x0, **options)
+    torch.cuda.synchronize(device)
+    launched = degrade.launch_counts["data_term_tv"] - before
+    steps = 1 + sum(1 for a, b in zip(calls, calls[1:]) if b <= a)
+    check(launched == len(calls) == sum(batched.num_evaluations),
+          f"band split: {launched} launch counts for {len(calls)} band evaluations")
+    alone = serial()
+    check(batched.iterations == [r.iterations for r in alone]
+          and batched.num_evaluations == [r.num_evaluations for r in alone],
+          f"band split: iterations / evaluations per band differ from the serial solves: {batched.iterations} vs "
+          f"{[r.iterations for r in alone]}")
+    serial_x = torch.cat([r.x for r in alone])
+    diff = float((batched.x - serial_x).abs().max())
+    check(torch.equal(batched.x, serial_x), f"band split: {diff} from the serial solves, not bit-equal")
+    walls = {"batched": [], "serial": []}
+    for _ in range(turns):
+        for name, run in (("batched", lambda: band_split_minimize(functions, x0, **options).x),
+                          ("serial", lambda: [r.x for r in serial()])):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize(device)
+            walls[name].append(time.perf_counter() - t0)
+    log(f"[13/13] (b) band_split_minimize, 64 x 256x256, cg <= {iterations} iterations, TV 0.01: iterations per band "
+        f"{min(batched.iterations)}-{max(batched.iterations)}, evaluations {min(batched.num_evaluations)}-"
+        f"{max(batched.num_evaluations)}, equal to the serial solves; bit-equal to them; "
+        f"{steps} batched evaluations for {len(calls)} band evaluations ({len(calls) / steps:.1f} launch counts "
+        f"an evaluation, at most {bands}); wall batched {_median_range(walls['batched'])} s, 64 serial solves "
+        f"{_median_range(walls['serial'])} s")
+    return {"walls": walls, "steps": steps, "band_evaluations": len(calls), "diff": diff}
+
+
+def _loopback_on_the_card(device):
+    """The two-process loopback, one shard each, ``gloo`` between them, both on
+    the card, at the flagship's geometry: in float64, held element-wise against
+    each process's one-process solve, and in float32, the flagship's dtype, for
+    the all-reduce's bytes and ms (held as (a) holds float32: iterations, cost
+    and PSNR). In each process's timed solve every evaluation launches
+    ``data_term_tv`` once and never the plain version. Returns the launches."""
+    from super_resolution_tpu_torch.parallel import multihost
+
+    index = device.index or 0
+    launched = 0
+    for dtype, tolerance in (("float64", LOOPBACK_TOLERANCE), ("float32", float("inf"))):
+        argv = ["--device", f"cuda:{index}", "--dtype", dtype, "--side", "1000", "--frames", "4", "--scale", "4",
+                "--blur_sigma", "1.5", "--lam", "0.01", "--method", "linear_cg", "--iterations", "50",
+                "--shards_per_process", "1", "--tolerance", str(tolerance)]
+        t0 = time.perf_counter()
+        results = multihost.run_processes("loopback", 2, argv, timeout_s=300)
+        for r in results:
+            check(r["ok"], f"loopback {dtype} process {r['process']}: max|diff| {r['max_abs_diff']} (tol {tolerance}), "
+                           f"iterations {r['iterations']} vs {r['reference_iterations']}")
+            psnr_diff = abs(r["psnr_db"] - r["reference_psnr_db"])
+            check(r["cost_rel_diff"] <= 5e-2 and psnr_diff <= 0.05,
+                  f"loopback {dtype} process {r['process']}: cost {r['cost_rel_diff']} relative, PSNR {psnr_diff} dB")
+            check(r["all_reduce_per_evaluation"] == 1.0 and r["psum_per_evaluation"] == 1.0,
+                  f"loopback {dtype} process {r['process']}: {r['all_reduce_per_evaluation']} all-reduces an evaluation")
+            expected = r["local_shards"] * r["evaluations"]
+            check(r["launches"] == dict({name: 0 for name in r["launches"]}, data_term_tv=expected)
+                  and r["plain_version_calls"] == 0,
+                  f"loopback {dtype} process {r['process']}: launches {r['launches']} and "
+                  f"{r['plain_version_calls']} plain calls, expected {expected} data_term_tv launches and none")
+            launched += r["launches"]["data_term_tv"]
+        log(f"[13/13] (d) two-process loopback on the one card (gloo, CUDA tensors): frame x2, one shard a process, "
+            f"1x1000x1000 {dtype}, 4 frames at 4x, TV 0.01, linear_cg 50; " + "; ".join(
+                f"process {r['process']}: max|diff| {r['max_abs_diff']:.2e} (tol {tolerance:g}), PSNR "
+                f"{abs(r['psnr_db'] - r['reference_psnr_db']):.4f} dB and cost {r['cost_rel_diff']:.2e} from one "
+                f"process, {r['evaluations']} evaluations, {r['launches']['data_term_tv']} data_term_tv launches, "
+                f"{r['plain_version_calls']} plain, {r['ms_per_evaluation']:.2f} ms an evaluation distributed, "
+                f"{r['single_process_ms_per_evaluation']:.3f} ms one process, all-reduce "
+                f"{r['all_reduce_bytes_per_evaluation'] / 1e6:.6f} MB an evaluation in {r['all_reduce_ms']:.3f} ms"
+                for r in results) + f"; {time.perf_counter() - t0:.1f} s with the processes' start")
+    return launched
+
+
+def _scaling_counts(device):
+    """The scaling harness in this process over 1 / 2 / 4 frame shards on the card: the collective calls an
+    evaluation must stay flat."""
+    from super_resolution_tpu_torch.parallel import multihost
+
+    args = multihost.parser().parse_args([
+        "scaling", "--device", str(device), "--dtype", "float32", "--side", "1000", "--frames", "4", "--scale",
+        "4", "--blur_sigma", "1.5", "--lam", "0.01", "--method", "linear_cg", "--iterations", "10",
+        "--shards", "1,2,4"])
+    points = multihost.scaling(args)
+    check([p["shards"] for p in points] == [1, 2, 4], f"scaling points {points}")
+    flat = {(p["psum_per_evaluation"], p["all_reduce_per_evaluation"]) for p in points}
+    check(flat == {(1.0, 0.0)}, f"collective calls an evaluation are not flat over 1 / 2 / 4 shards: {points}")
+    log("[13/13] (e) scaling harness, flagship, linear_cg 10: " + "; ".join(
+        f"{p['shards']} shard(s): {p['frame_iterations_per_s']:.0f} frame-iterations/s, {p['psum_per_evaluation']:.0f} "
+        f"psum and {p['all_reduce_per_evaluation']:.0f} all-reduces an evaluation" for p in points)
+        + " (one card: no scaling is read from these)")
+    return points
+
+
+def phase_data_parallel(device, rows):
+    """``parallel/data_parallel.py`` on the card: frame-sharded solves against
+    one device, the batched band split against serial band solves, the
+    two-process loopback, and the scaling harness's collective counts."""
+    t_phase = time.perf_counter()
+    degrade.reset_launch_counts()
+    collectives.reset_counts()
+    results = {}
+    flagship = synthetic_scene(1, 1000, 1000, seed=2026)
+
+    def flagship_problem(dtype):
+        model, gt, lows = make_observations(flagship, FLAGSHIP_SHIFTS, 4, 3, 1.5, device, dtype)
+        return gt, lows, np.asarray(FLAGSHIP_SHIFTS, dtype=np.float64), np.asarray(model.blur_operator.kernel), 4, [
+            (TotalVariationRegularizer(), 0.01)]
+
+    def cube_problem(dtype):
+        model, gt, lows = hyperspectral_problem(device, dtype=dtype)
+        return gt, lows, np.asarray(FLAGSHIP_SHIFTS, dtype=np.float64), np.asarray(model.blur_operator.kernel), 2, [
+            (TotalVariationRegularizer(), 0.01)]
+
+    before = degrade.launch_counts["data_term_tv"]
+    results["frame_flagship"] = _sharded_against_single(
+        "frame x4, flagship 1x1000x1000, TV 0.01", flagship_problem, make_mesh({"frame": 4}, [device]),
+        "linear_cg", 50, device)
+    flagship_launches = degrade.launch_counts["data_term_tv"] - before
+    before = degrade.launch_counts["data_term_tv"]
+    results["frame_band_cube"] = _sharded_against_single(
+        "frame x2 x band x2, 64 x 256x256, TV 0.01", cube_problem, make_mesh({"frame": 2, "band": 2}, [device]),
+        "linear_cg", 20, device)
+    cube_launches = degrade.launch_counts["data_term_tv"] - before
+    before = degrade.launch_counts["data_term_tv"]
+    results["band_split"] = _band_split(device)
+    split_launches = degrade.launch_counts["data_term_tv"] - before
+    loopback_launches = results["loopback"] = _loopback_on_the_card(device)
+    before = degrade.launch_counts["data_term_tv"]
+    results["scaling"] = _scaling_counts(device)
+    flagship_launches += degrade.launch_counts["data_term_tv"] - before
+    for name, count in (("flagship frame mesh", flagship_launches), ("cube frame x band mesh", cube_launches),
+                        ("band split", split_launches)):
+        check(count > 0, f"the {name} never launched data_term_tv")
+    for row in rows:
+        if row["row"] == "K2":
+            row["launches_data_parallel"] = flagship_launches + split_launches
+            row["launches_loopback"] = loopback_launches
+        if row["row"] == "K5":
+            row["launches_data_parallel"] = cube_launches
+    log(f"[13/13] data parallel: {time.perf_counter() - t_phase:.1f} s")
     return results
 
 
@@ -2937,24 +3319,35 @@ def main():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 3
     device = torch.device("cuda", 0)
+    seconds = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[fn.__name__] = time.perf_counter() - t0
+        return out
+
     try:
-        card = phase_environment()
-        phase_build()
-        rows = phase_kernels(device)
-        phase_goldens(device)
-        phase_main_path(device, rows)
-        phase_estimated_motion(device, rows)
-        phase_hyperspectral(device, rows)
-        phase_mesh(device, rows)
-        phase_fused(device, rows)
-        phase_wolfe(device, rows)
-        phase_entry_points(device, rows, card)
-        phase_video(device, rows, card)
+        card = timed(phase_environment)
+        timed(phase_build)
+        rows = timed(phase_kernels, device)
+        timed(phase_goldens, device)
+        timed(phase_main_path, device, rows)
+        timed(phase_estimated_motion, device, rows)
+        timed(phase_hyperspectral, device, rows)
+        timed(phase_mesh, device, rows)
+        timed(phase_mesh_fused, device, rows)
+        timed(phase_fused, device, rows)
+        timed(phase_wolfe, device, rows)
+        timed(phase_entry_points, device, rows, card)
+        timed(phase_video, device, rows, card)
+        timed(phase_data_parallel, device, rows)
     except Failure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1
     log("per kernel (profiler, float32, warm L2; the own bound by bytes):")
     per_kernel_table(rows)
+    log("seconds per phase: " + ", ".join(f"{name} {t:.1f}" for name, t in seconds.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)

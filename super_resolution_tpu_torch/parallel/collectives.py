@@ -4,36 +4,57 @@ The port's stand-in for the JAX package's ``lax.psum`` / ``lax.ppermute`` /
 ``lax.axis_index`` inside ``shard_map``. Every function takes a
 :class:`~super_resolution_tpu_torch.parallel.mesh.Mesh` and ``parts``, a list
 with one tensor per shard in the mesh's shard order, each on its shard's
-device, and returns such a list. One process drives all shards, so a
-"collective" is a loop:
+device (``None`` for a shard of another process), and returns such a list.
+A process drives its own shards, so within it a "collective" is a loop:
 
 - between shards on one device it is slices, concatenations and adds;
 - between shards on different devices the piece that crosses is moved with
   ``Tensor.to(device, non_blocking=True)`` on the current streams (PyTorch
   orders a cross-device copy on both devices' streams). No extra streams.
 
+Between processes (a mesh whose ``frame`` axis spans several, see
+``parallel/mesh.py``) a sum is first taken over the process's own shards,
+then one ``torch.distributed`` all-reduce of one flat buffer carries every
+value that crosses together (:func:`psum_together`).
+
 Sums run in shard order, so a result does not depend on timing. What
 crosses per evaluation: the ``q``-wide rims of the tiles (:func:`halo_gather`
 out, :func:`halo_scatter_sum` back), one band per band shard
 (:func:`spectral_halo_extend` / :func:`spectral_halo_return`), the gradient
 partials of the frame shards (:func:`psum` over ``frame``) and the 0-d cost
-partials.
+partials. :data:`counts` counts the sums: ``psum`` every sum over shards
+(one per evaluation of a sharded objective, however many shards),
+``all_reduce`` and ``all_reduce_bytes`` what crossed between processes -- the
+port's counterpart of the all-reduces the JAX package's compiled program
+holds.
 """
 
 from __future__ import annotations
 
 import torch
 
+from super_resolution_tpu_torch.parallel import distributed
 from super_resolution_tpu_torch.parallel.mesh import BAND_AXIS, COL_AXIS, ROW_AXIS, Mesh
 
 __all__ = [
+    "counts",
+    "reset_counts",
     "sum_to_devices",
     "psum",
+    "psum_together",
     "halo_gather",
     "halo_scatter_sum",
     "spectral_halo_extend",
     "spectral_halo_return",
 ]
+
+# Calls since the module was imported (see the module's docstring).
+counts: dict[str, int] = {"psum": 0, "all_reduce": 0, "all_reduce_bytes": 0}
+
+
+def reset_counts() -> None:
+    for name in counts:
+        counts[name] = 0
 
 
 def _to(t: torch.Tensor, device: torch.device) -> torch.Tensor:
@@ -56,11 +77,43 @@ def psum(mesh: Mesh, parts, axes) -> list[torch.Tensor]:
     Members of a group that share a device get the same tensor object; treat
     the results as read-only.
     """
-    out = [None] * mesh.num_shards
-    for group in mesh.groups(axes):
-        totals = sum_to_devices([parts[i] for i in group], [mesh.devices[i] for i in group])
-        for i in group:
-            out[i] = totals[mesh.devices[i]]
+    return psum_together(mesh, [(parts, axes)])[0]
+
+
+def psum_together(mesh: Mesh, values) -> list[list[torch.Tensor]]:
+    """:func:`psum` of several values at once: ``values`` is a list of
+    ``(parts, axes)``, the result one list of per-shard sums for each.
+
+    Each group is summed over this process's members in shard order. Where
+    the mesh spans processes, the local sums of every group of every value
+    then cross in ONE all-reduce of one flat buffer (the first local shard's
+    device and dtype), and the totals are handed back: a sum is then the
+    processes' local sums added in rank order by the backend, not the
+    shards' in shard order. Counts one ``psum`` per call.
+    """
+    counts["psum"] += 1
+    local = [(parts, [[i for i in group if mesh.is_local(i)] for group in mesh.groups(axes)])
+             for parts, axes in values]
+    sums = [[sum_to_devices([parts[i] for i in members], [mesh.devices[members[0]]])[mesh.devices[members[0]]]
+             for members in groups] for parts, groups in local]
+    if mesh.spans_processes:
+        home = mesh.devices[mesh.local_shards[0]]
+        flat = [s for group_sums in sums for s in group_sums]
+        dtype = flat[0].dtype
+        buffer = torch.cat([_to(s, home).to(dtype).reshape(-1) for s in flat])
+        distributed.all_reduce_sum(buffer)
+        counts["all_reduce"] += 1
+        counts["all_reduce_bytes"] += buffer.numel() * buffer.element_size()
+        pieces = iter(torch.split(buffer, [s.numel() for s in flat]))
+        sums = [[next(pieces).reshape(s.shape).to(s.dtype) for s in group_sums] for group_sums in sums]
+    out = []
+    for (parts, groups), group_sums in zip(local, sums):
+        result = [None] * mesh.num_shards
+        for members, total in zip(groups, group_sums):
+            placed = sum_to_devices([total], [mesh.devices[i] for i in members])
+            for i in members:
+                result[i] = placed[mesh.devices[i]]
+        out.append(result)
     return out
 
 
@@ -74,8 +127,9 @@ def _edge(x: torch.Tensor, q: int, dim: int, leading: bool) -> torch.Tensor:
 
 def _exchange_axis(mesh: Mesh, parts, q: int, axis: str, dim: int, border: str):
     """Pad ``dim`` of every shard with ``q`` rows from each neighbour along ``axis``."""
-    out = []
-    for i, x in enumerate(parts):
+    out = [None] * len(parts)
+    for i in mesh.local_shards:
+        x = parts[i]
         pieces = []
         for step, leading in ((-1, True), (1, False)):
             j = mesh.neighbor(i, axis, step)
@@ -88,7 +142,7 @@ def _exchange_axis(mesh: Mesh, parts, q: int, axis: str, dim: int, border: str):
             else:
                 piece = x.new_zeros([q if d == dim % x.ndim else n for d, n in enumerate(x.shape)])
             pieces.append(piece)
-        out.append(torch.cat([pieces[0], x, pieces[1]], dim=dim))
+        out[i] = torch.cat([pieces[0], x, pieces[1]], dim=dim)
     return out
 
 
@@ -98,7 +152,7 @@ def _check_halo(parts, q: int, border: str) -> None:
     if q < 1:
         raise ValueError(f"The halo must be at least 1 pixel wide, got {q}.")
     for x in parts:
-        if q > min(x.shape[-2], x.shape[-1]):
+        if x is not None and q > min(x.shape[-2], x.shape[-1]):
             raise ValueError(
                 f"Stencil halo ({q}) exceeds the local tile size ({x.shape[-2]}x{x.shape[-1]}); "
                 "use fewer tiles or a larger image (single-hop halo exchange)."
@@ -123,8 +177,9 @@ def _scatter_axis(mesh: Mesh, parts, q: int, axis: str, dim: int, border: str):
     """Adjoint of :func:`_exchange_axis`: crop the centre and add the rims into
     the neighbours that own them (or, with ``"edge"``, into the edge row that
     was repeated)."""
-    out = []
-    for i, g in enumerate(parts):
+    out = [None] * len(parts)
+    for i in mesh.local_shards:
+        g = parts[i]
         size = g.shape[dim]
         center = g.narrow(dim, q, size - 2 * q).clone()
         csize = size - 2 * q
@@ -138,7 +193,7 @@ def _scatter_axis(mesh: Mesh, parts, q: int, axis: str, dim: int, border: str):
             elif border == "edge":
                 rim = g.narrow(dim, 0 if leading else size - q, q).sum(dim=dim, keepdim=True)
                 center.narrow(dim, 0 if leading else csize - 1, 1).add_(rim)
-        out.append(center)
+        out[i] = center
     return out
 
 
@@ -164,11 +219,12 @@ def spectral_halo_extend(mesh: Mesh, parts) -> list[torch.Tensor]:
     band instead, so that ``dz == 0`` there: the reference's zero forward
     difference at the final band.
     """
-    out = []
-    for i, x in enumerate(parts):
+    out = [None] * len(parts)
+    for i in mesh.local_shards:
+        x = parts[i]
         j = mesh.neighbor(i, BAND_AXIS, 1)
         halo = x[-1:] if j is None else _to(parts[j][:1], x.device)
-        out.append(torch.cat([x, halo], dim=0))
+        out[i] = torch.cat([x, halo], dim=0)
     return out
 
 
@@ -177,12 +233,13 @@ def spectral_halo_return(mesh: Mesh, parts) -> list[torch.Tensor]:
     PREVIOUS band shard's kernel put into its halo channel (the cross-shard
     3D-TV contribution) onto this shard's first band. The last shard's halo
     term is exactly zero by construction and goes nowhere."""
-    out = []
-    for i, g in enumerate(parts):
+    out = [None] * len(parts)
+    for i in mesh.local_shards:
+        g = parts[i]
         grad = g[:-1]
         j = mesh.neighbor(i, BAND_AXIS, -1)
         if j is not None:
             grad = grad.clone()
             grad[:1].add_(_to(parts[j][-1:], g.device))
-        out.append(grad)
+        out[i] = grad
     return out

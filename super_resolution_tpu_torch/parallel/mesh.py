@@ -13,9 +13,19 @@ A :class:`Mesh` is named axes over a list of *shards*, each living on a
 ``torch.device``. A device may hold several shards: on a host with one card
 every shard of a ``{"row": 2, "col": 2}`` mesh lives on that card (and the
 tests put them all on ``cpu``); on a host with four cards each shard has its
-own. One process drives every shard, in shard order, as the JAX package's
-single controller does; nothing here starts a process or a process group.
-Spanning several hosts is not ported.
+own. One process drives its shards, in shard order, as the JAX package's
+single controller does.
+
+Once :func:`~super_resolution_tpu_torch.parallel.distributed.initialize` has
+joined several processes (the counterpart of ``jax.distributed.initialize``),
+:func:`make_mesh` spans all of them, as a JAX mesh over ``jax.devices()``
+does: the shards are dealt to the processes in contiguous blocks of shard
+order, each process places and drives only its own, and what crosses between
+processes goes through ``torch.distributed`` (``parallel/collectives.py``).
+Only the ``frame`` axis may cross a process boundary: a ``band``, ``row`` or
+``col`` neighbour is always in the same process, so the halo exchanges and
+the dot products of the solve stay local and one all-reduce per evaluation
+is all that crosses.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import math
 import torch
 
 from super_resolution_tpu_torch._device import resolve_device
+from super_resolution_tpu_torch.parallel import distributed
 
 __all__ = ["Mesh", "make_mesh", "FRAME_AXIS", "BAND_AXIS", "ROW_AXIS", "COL_AXIS"]
 
@@ -37,18 +48,44 @@ COL_AXIS = "col"
 
 class Mesh:
     """Named axes over shards; shard ``i`` has the coordinates ``coords(i)``
-    (row-major over ``axis_names``) and lives on ``devices[i]``."""
+    (row-major over ``axis_names``), belongs to process ``processes[i]`` and
+    lives on ``devices[i]`` there. ``processes`` defaults to this process
+    for every shard; ``process_index`` is this process's rank."""
 
-    def __init__(self, axis_names, sizes, devices):
+    def __init__(self, axis_names, sizes, devices, processes=None, process_index: int = 0):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, (int(n) for n in sizes)))
         self.devices = [torch.device(d) for d in devices]
         if len(self.devices) != self.num_shards:
             raise ValueError(f"Mesh {self.shape} needs {self.num_shards} shard devices, got {len(self.devices)}.")
+        self.process_index = int(process_index)
+        self.processes = [self.process_index] * self.num_shards if processes is None else [int(p) for p in processes]
+        if len(self.processes) != self.num_shards:
+            raise ValueError(f"Mesh {self.shape} needs {self.num_shards} shard owners, got {len(self.processes)}.")
         self._coords = [
             dict(zip(self.axis_names, index))
             for index in itertools.product(*(range(n) for n in self.shape.values()))
         ]
+        self.local_shards = [i for i, p in enumerate(self.processes) if p == self.process_index]
+        if not self.local_shards:
+            raise ValueError(f"Process {self.process_index} owns no shard of the mesh {self.shape}.")
+        for group in self.groups([a for a in self.axis_names if a != FRAME_AXIS]):
+            if len({self.processes[i] for i in group}) > 1:
+                raise ValueError(
+                    f"Only the frame axis may span processes; the mesh {self.shape} over "
+                    f"{self.num_processes} processes would split a band, row or col axis between them "
+                    "(put 'frame' first and make its size a multiple of the process count).")
+
+    @property
+    def num_processes(self) -> int:
+        return len(set(self.processes))
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.num_processes > 1
+
+    def is_local(self, shard: int) -> bool:
+        return self.processes[shard] == self.process_index
 
     @property
     def num_shards(self) -> int:
@@ -90,28 +127,39 @@ class Mesh:
         return list(keyed.values())
 
     def unique_devices(self) -> list[torch.device]:
-        return list(dict.fromkeys(self.devices))
+        """The devices of this process's shards."""
+        return list(dict.fromkeys(self.devices[i] for i in self.local_shards))
 
     def __repr__(self) -> str:
-        return f"Mesh({self.shape}, devices={[str(d) for d in self.unique_devices()]})"
+        processes = f", processes={self.num_processes}" if self.spans_processes else ""
+        return f"Mesh({self.shape}, devices={[str(d) for d in self.unique_devices()]}{processes})"
 
 
 def make_mesh(axis_sizes: dict[str, int] | None = None, devices=None) -> Mesh:
     """Build a mesh from ``{axis_name: size}``.
 
-    ``devices``: the devices to deal the shards over, in turn (``None``: every
-    visible CUDA card; raises without one). The shards may outnumber the
-    devices, several then share one. One axis may be ``-1`` to absorb the
-    device count: its size is the number of devices over the product of the
-    other sizes. No sizes at all gives a ``frame`` axis with a shard per device.
+    ``devices``: this process's devices to deal its shards over, in turn
+    (``None``: every visible CUDA card; raises without one). The shards may
+    outnumber the devices, several then share one. One axis may be ``-1`` to
+    absorb the device count: its size is the number of devices over the
+    product of the other sizes. The shards must be a multiple of the devices. No sizes at all gives a ``frame`` axis with a
+    shard per device.
+
+    After :func:`~super_resolution_tpu_torch.parallel.distributed.initialize`
+    the mesh spans every process of the group, each bringing ``devices``: the
+    device count above is the processes' together, and process ``p`` owns
+    the ``p``-th block of ``num_shards / num_processes`` shards in shard
+    order (``ValueError`` if they do not divide, or if an axis other than
+    ``frame`` would cross a process boundary).
     """
     if devices is None:
         resolve_device("cuda")
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     devices = [resolve_device(d) for d in devices]
-    n = len(devices)
-    if n == 0:
+    if not devices:
         raise ValueError("A mesh needs at least one device.")
+    num_processes, rank = distributed.process_count(), distributed.process_index()
+    n = len(devices) * num_processes
     if not axis_sizes:
         axis_sizes = {FRAME_AXIS: n}
     names = list(axis_sizes.keys())
@@ -126,4 +174,10 @@ def make_mesh(axis_sizes: dict[str, int] | None = None, devices=None) -> Mesh:
     if any(s < 1 for s in sizes):
         raise ValueError(f"Mesh axis sizes must be positive, got {dict(zip(names, sizes))}.")
     shards = math.prod(sizes)
-    return Mesh(names, sizes, [devices[i % n] for i in range(shards)])
+    if shards % n:
+        raise ValueError(f"Mesh {dict(zip(names, sizes))} of {shards} shards cannot be dealt evenly over {n} devices.")
+    if shards % num_processes:
+        raise ValueError(f"{shards} shards cannot be dealt evenly to {num_processes} processes.")
+    per_process = shards // num_processes
+    return Mesh(names, sizes, [devices[(i % per_process) % len(devices)] for i in range(shards)],
+                processes=[i // per_process for i in range(shards)], process_index=rank)

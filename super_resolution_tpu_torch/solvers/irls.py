@@ -57,10 +57,21 @@ op for op. On the CPU the same steps run eagerly with the same read-backs.
 The captured graphs and their buffers are kept across solver instances in
 ``_BUILT_SOLVER_CACHE``: a new solver of the same shapes and options copies
 its observations, shifts and estimate into the buffers and replays without
-capturing again. ``fused_irls`` takes no mesh, no checkpoint and, on a CUDA
-device, no ``diff_mode="numerical"`` (``ValueError``): a step would be a
-graph of 2n evaluations of the forward model. ``autodiff`` is captured as
-the analytic mode is.
+capturing again. ``fused_irls`` takes no checkpoint and, on a CUDA device,
+no ``diff_mode="numerical"`` (``ValueError``): a step would be a graph of 2n
+evaluations of the forward model. ``autodiff`` is captured as the analytic
+mode is.
+
+``fused_irls`` on a mesh runs the same steps on the sharded state, around
+the sharded objective bound to fixed buffers (``bind_static``): a step
+launches every shard's kernels and does every exchange, and its seam does
+what the host loop's seam does (assemble the estimate on the solver's
+device, reweight, write the weights into the shards' constants, refine on a
+pure frame mesh). With every shard on the solver's device the halo exchange
+and the band ring are copies on that device, so one graph captures every
+shard of a step. A mesh the sharded objectives cannot run raises
+``ValueError`` ("fused_irls on this mesh"), as does a mesh over more than
+one device or more than one process: one graph per device is not written.
 
 ``solve(x0, checkpoint_path, resume)`` saves the host loop's state at every
 IRLS seam (``x``, the weights, the round, the previous cost, the refined
@@ -123,11 +134,24 @@ def _refinement(refine, x, observations, shifts):
     return refined, (refined - shifts).abs().max()
 
 
+def _indexed(device) -> torch.device:
+    """``device`` with its index: ``cuda`` is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _check_fusable(options, mesh=None, device=None) -> None:
-    if mesh is not None:
+    if mesh is not None and mesh.spans_processes:
         raise ValueError(
-            "fused_irls on a mesh is not ported yet (one graph per device waits for a run on four cards); "
-            "use the host loop (fused_irls=False) with a mesh.")
+            f"fused_irls on a mesh that spans processes ({mesh.num_processes}) is not ported: a captured step "
+            "cannot hold an all-reduce between processes. Use the host loop (fused_irls=False).")
+    if mesh is not None and len({_indexed(d) for d in mesh.unique_devices() + ([device] if device else [])}) > 1:
+        raise ValueError(
+            f"fused_irls on a mesh over more than one device ({[str(d) for d in mesh.unique_devices()]}, the "
+            f"solver on {device}) is not ported: one graph per device has never run on a second card. Use "
+            "the host loop (fused_irls=False), or a mesh whose shards all live on the solver's device.")
     if options.diff_mode == "numerical" and device is not None and torch.device(device).type == "cuda":
         raise ValueError(
             "fused_irls on a CUDA device does not take diff_mode='numerical': each gradient is 2n cost "
@@ -139,14 +163,16 @@ class FusedIRLS:
     """The fused IRLS solve of one problem: its steps, captured as CUDA graphs
     on a CUDA device, and the buffers they read and write.
 
-    ``objective``: ``make_map_value_and_grad(...).bind_static()``, whose
-    constant, shift and observation buffers the steps read. ``refiner``:
-    ``(x, shifts) -> (refined float64 shifts, max |change|)`` on the device,
-    or ``None``. ``x_like``: an estimate of the solve's shape, dtype and
-    device. The buffers are the inner solver's state (``least_squares.LinearCGState``
-    or ``WolfeState``), the IRLS loop's scalars and :attr:`status`, the five
-    float64 values the host reads back: inner solve done, IRLS done, inner
-    iterations and objective evaluations so far, and the last cost.
+    ``objective``: ``make_map_value_and_grad(...).bind_static()`` (or a
+    sharded objective's ``bind_static(device)``), whose constant, shift and
+    observation buffers the steps read. ``refiner``: ``(x, shifts) ->
+    (refined float64 shifts, max |change|)`` on the device, or ``None``.
+    ``x_like``: a global estimate of the solve's shape, dtype and device. The
+    buffers are the inner solver's state (``least_squares.LinearCGState`` or
+    ``WolfeState``; sharded values on a mesh, ``objective.place(x_like)``
+    shows their layout), the IRLS loop's scalars and :attr:`status`, the
+    five float64 values the host reads back: inner solve done, IRLS done,
+    inner iterations and objective evaluations so far, and the last cost.
 
     What an entry pins: the objective's observations, one constant buffer
     per regulariser and the shifts; the state's ``x``, ``g`` and ``d`` (and
@@ -183,7 +209,8 @@ class FusedIRLS:
         def scalar(kind):
             return torch.zeros((), dtype=kind, device=device)
 
-        self.state = blank_state(self.settings, x_like)
+        self.state = blank_state(self.settings, objective.place(x_like))
+        self.x_shape, self.dtype, self.device = tuple(x_like.shape), x_like.dtype, x_like.device
         # The IRLS loop: the last round's cost, rounds done, inner iterations
         # and evaluations of the rounds done, the last refinement's largest
         # shift change, and the stop test.
@@ -191,9 +218,9 @@ class FusedIRLS:
         self.rounds, self.iterations, self.evaluations = (scalar(torch.int64) for _ in range(3))
         self.done = scalar(torch.bool)
         self.status = torch.zeros(5, dtype=torch.float64, device=device)
-        buffers = [*(b for b in self.state if b is not None), self.prev_cost, self.delta, self.rounds,
-                   self.iterations, self.evaluations, self.done, self.status, objective.shifts,
-                   *(c for c in objective.constants if c is not None)]
+        buffers = [t for b in (*self.state, self.prev_cost, self.delta, self.rounds, self.iterations,
+                               self.evaluations, self.done, self.status) for t in _tensors(b)]
+        buffers += objective.buffers
         # One memory pool for all the steps' graphs (see solvers/graphs.py).
         pool = torch.cuda.graph_pool_handle() if device.type == "cuda" else None
         self._step = lambda fn: CapturedStep(fn, device, buffers, pool)  # noqa: E731
@@ -225,8 +252,9 @@ class FusedIRLS:
                 buffer.copy_(value)
 
     def _publish(self) -> None:
-        values = (self.done_fn(self.state, self.settings), self.done, self.iterations + self.state.k,
-                  self.evaluations + self.state.evaluations, self.state.f)
+        k, evaluations = _one(self.state.k), _one(self.state.evaluations)
+        values = (_one(self.done_fn(self.state, self.settings)), self.done, self.iterations + k,
+                  self.evaluations + evaluations, _one(self.state.f))
         self.status.copy_(torch.stack([v.to(torch.float64) for v in values]))
 
     def _restart(self) -> None:
@@ -235,7 +263,8 @@ class FusedIRLS:
         self._publish()
 
     def _begin(self) -> None:
-        self.objective.set_weights(tuple(torch.ones_like(self.state.x) for _ in self.regs))
+        ones = torch.ones(self.x_shape, dtype=self.dtype, device=self.device)
+        self.objective.set_weights(tuple(ones for _ in self.regs))
         self.prev_cost.fill_(math.inf)
         # inf until a refinement round has run: the requested refinement
         # must run before the joint stop test can pass; 0 without one.
@@ -253,16 +282,17 @@ class FusedIRLS:
         self._publish()
 
     def _seam(self, refine: bool) -> None:
-        x = self.state.x
-        cost = self.state.f.to(torch.float64)
-        self.iterations.add_(self.state.k)
-        self.evaluations.add_(self.state.evaluations)
-        self.state.k.zero_()
-        self.state.evaluations.zero_()
+        # On a mesh: the estimate in one piece on the solver's device, as the host loop's seam has it.
+        x = self.objective.gather(self.state.x)
+        cost = _one(self.state.f).to(torch.float64)
+        self.iterations.add_(_one(self.state.k))
+        self.evaluations.add_(_one(self.state.evaluations))
+        self.state.k.fill_(0)
+        self.state.evaluations.fill_(0)
         if refine:
             shifts, delta = self.refiner(x, self.objective.shifts)
             self.delta.copy_(delta)
-            self.objective.shifts.copy_(shifts)
+            self.objective.set_shifts(shifts)
         if self.regs:
             self.objective.set_weights(_reweight(self.regs, x))
         difference = self.prev_cost - cost
@@ -287,11 +317,11 @@ class FusedIRLS:
         then holds per round ``(seconds, iterations, evaluations)`` and the
         chunks, read-backs, replays and evaluations run (frozen steps
         included) of the solve."""
-        self.state.x.copy_(x0)
+        self.state.x.copy_(self.objective.place(x0))
         if observations is not None:
-            self.objective.observations.copy_(observations)
+            self.objective.set_observations(observations)
         if shifts is not None:
-            self.objective.shifts.copy_(shifts)
+            self.objective.set_shifts(shifts)
         replays = sum(s.replays for s in self.steps)
         rounds, chunks, steps, readbacks = [], 0, 0, 0
         iterations = evaluations = 0
@@ -325,13 +355,26 @@ class FusedIRLS:
             "evaluations": evaluations, "executed_evaluations": len(rounds) + steps,
             "cost": cost,
         }
-        return self.state.x.clone(), self.state.f.clone(), iterations, self.objective.shifts.clone()
+        return (self.objective.gather(self.state.x).clone(), _one(self.state.f).clone(), iterations,
+                self.objective.shifts.clone())
 
     def late(self) -> bool:
         """Whether the cost fold of any evaluation in any replay stopped
         waiting for a partial (always ``False`` on the CPU). One read-back."""
         flags = [s.late for s in self.steps if s.late is not None]
         return bool(torch.stack(flags).amax()) if flags else False
+
+
+def _one(value) -> torch.Tensor:
+    """A scalar of the state as one tensor: itself, or a sharded scalar's local copy."""
+    return value if isinstance(value, torch.Tensor) else value.local(0)
+
+
+def _tensors(value) -> list[torch.Tensor]:
+    """The tensors a state buffer consists of: itself, a sharded value's local tensors, or none."""
+    if value is None:
+        return []
+    return [value] if isinstance(value, torch.Tensor) else value.distinct_parts()
 
 
 def irls_solve_fused(
@@ -540,21 +583,33 @@ class IRLSMapSolver(MapSolverBase):
         """The :class:`FusedIRLS` for this solve, from ``_BUILT_SOLVER_CACHE`` or built."""
         k, _, h, w = self.observations.shape
         kern = self.blur_kernel
+        mesh = self.mesh
+        # A tiled objective sizes its halo from the shifts it is built with, and
+        # refuses later shifts that reach further: such a solve is built anew.
+        reach = math.ceil(float(self.shifts.abs().max())) if self._spatial_mesh() else None
         key = (
             channels_per_split, repr(opts), _fused_settings(opts), _regs_signature(self.regularizers),
             None if kern is None else (kern.shape, np.asarray(kern, dtype=np.float64).tobytes()),
             self.scale, (k, channels_per_split, h, w), self.dtype, str(self.device), CHUNK_ITERATIONS,
             CHUNK_EVALUATIONS,
+            None if mesh is None else (tuple(mesh.shape.items()), tuple(str(d) for d in mesh.devices), reach),
         )
         fused = _BUILT_SOLVER_CACHE.get(key)
         if fused is not None:
             _BUILT_SOLVER_CACHE.move_to_end(key)
             return fused
         observations = torch.zeros((k, channels_per_split, h, w), dtype=self.dtype, device=self.device)
-        objective = make_map_value_and_grad(
-            observations, self.shifts, kern, self.scale, self.regularizers,
-            diff_mode=opts.diff_mode, device=self.device, dtype=self.dtype,
-        ).bind_static()
+        if mesh is None:
+            objective = make_map_value_and_grad(
+                observations, self.shifts, kern, self.scale, self.regularizers,
+                diff_mode=opts.diff_mode, device=self.device, dtype=self.dtype,
+            ).bind_static()
+        else:
+            try:
+                vg = self._mesh_objective(observations, opts)
+            except ValueError as exc:
+                raise ValueError(f"fused_irls on this mesh: {exc}") from exc
+            objective = vg.bind_static(self.device)
         refiner = None
         if opts.refine_motion_every > 0:
             refine = make_shift_refiner(kern, self.scale, num_iterations=opts.refine_motion_iterations)
@@ -573,6 +628,12 @@ class IRLSMapSolver(MapSolverBase):
 
         return self.mesh is not None and all(n == 1 for name, n in self.mesh.shape.items() if name != FRAME_AXIS)
 
+    def _spatial_mesh(self) -> bool:
+        """True when the mesh tiles the image over ``row`` / ``col``."""
+        from super_resolution_tpu_torch.parallel.mesh import COL_AXIS, ROW_AXIS
+
+        return self.mesh is not None and (ROW_AXIS in self.mesh.shape or COL_AXIS in self.mesh.shape)
+
     def _mesh_objective(self, observations, opts):
         """The sharded objective this mesh routes to, or ``ValueError`` with the reasons."""
         from super_resolution_tpu_torch.parallel.halo import make_tiled_vg
@@ -585,7 +646,7 @@ class IRLSMapSolver(MapSolverBase):
         mesh, regs, scale = self.mesh, tuple(self.regularizers), self.scale
         k, channels = observations.shape[0], observations.shape[1]
         n_frame, n_band = mesh.size(FRAME_AXIS), mesh.size(BAND_AXIS)
-        spatial = ROW_AXIS in mesh.shape or COL_AXIS in mesh.shape
+        spatial = self._spatial_mesh()
         fusable = (TotalVariationRegularizer, BilateralTotalVariationRegularizer)
         reasons = []
         if spatial:

@@ -37,11 +37,16 @@ Matching the ALGLIB surface used by the reference:
 
 The state may be a ``parallel.sharded.Sharded`` instead of a tensor: a value
 spread over the shards of a device mesh, whose elementwise algebra runs shard
-by shard. Four helpers are all that know: :func:`_vdot` (the one reduction,
-summed over the shards), :func:`_scalar_like` (a loop constant, one per
-device), :func:`_per_shard` (stacking, slot reads and writes, shard by shard)
-and :func:`_host_values` (a read-back takes shard 0's copy). The loops below
-are the same code either way.
+by shard. Or it may be a stack of independent problems that share one solve
+(``parallel.data_parallel.band_split_minimize``): its dots and so every
+scalar of the loop are per problem, shaped to broadcast against the stack,
+and a step's stop tests and masks hold per problem. Four helpers are all
+that know: :func:`_vdot` (the one reduction, summed over the shards or per
+problem), :func:`_scalar_like` (a loop constant, one per device or per
+problem), :func:`_per_shard` (stacking, slot reads and writes, shard by
+shard) and :func:`_host_values` (a read-back takes shard 0's copy). The step
+functions below are the same code in every case; a single problem is the
+case of one.
 """
 
 from __future__ import annotations
@@ -543,14 +548,26 @@ def wolfe_done(state: WolfeState, settings: WolfeSettings):
     return state.converged | (state.k >= settings.max_iterations)
 
 
+def _take(t, i):
+    if i.ndim == 0:
+        return t.index_select(0, i.reshape(1))[0]
+    return t.gather(0, i.expand(1, *t.shape[1:]))[0]  # one slot per problem of a stack
+
+
+def _put(t, i, v):
+    if i.ndim == 0:
+        return t.index_copy_(0, i.reshape(1), v.unsqueeze(0))
+    return t.scatter_(0, i.expand(1, *t.shape[1:]), v.unsqueeze(0))
+
+
 def _slot(memory, index):
-    """``memory[index]`` for a 0-d device ``index`` (a copy)."""
-    return _per_shard(lambda t, i: t.index_select(0, i.reshape(1))[0], memory, index)
+    """``memory[index]`` for a device ``index``, 0-d or one per problem of a stack (a copy)."""
+    return _per_shard(_take, memory, index)
 
 
 def _write_slot(memory, index, value) -> None:
-    """``memory[index] = value`` in place, for a 0-d device ``index``: one slot written."""
-    _per_shard(lambda t, i, v: t.index_copy_(0, i.reshape(1), v.unsqueeze(0)), memory, index, value)
+    """``memory[index] = value`` in place, for a device ``index`` as :func:`_slot`'s: one slot written."""
+    _per_shard(_put, memory, index, value)
 
 
 def _lbfgs_direction(state: WolfeState, step, y, g_new, sy, keep, m):
@@ -770,10 +787,11 @@ def solver_steps(settings):
     return wolfe_start, wolfe_step, wolfe_done
 
 
-def blank_state(settings, x_like: torch.Tensor):
-    """A state of zeros for iterates like ``x_like``: the buffers a captured step reads and writes."""
+def blank_state(settings, x_like):
+    """A state of zeros for iterates like ``x_like`` (a tensor or a sharded
+    value): the buffers a captured step reads and writes."""
     def scalar(kind):
-        return torch.zeros((), dtype=kind, device=x_like.device)
+        return _scalar_like(x_like, 0.0).to(kind)
 
     dtype = x_like.dtype
     if isinstance(settings, LinearCGSettings):

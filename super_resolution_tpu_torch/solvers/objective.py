@@ -230,7 +230,11 @@ def make_map_value_and_grad(
         as the shifts given here) and ``.observations`` (the stack it reads).
         ``.set_weights(weights)`` writes ``lambda * w`` into the constants in
         place; whoever writes ``.shifts`` or ``.observations`` in place
-        changes what every later evaluation, and every replay, reads."""
+        (``.set_shifts(values)``, ``.set_observations(values)``) changes
+        what every later evaluation, and every replay, reads. ``.buffers``:
+        the tensors the IRLS seam writes (shifts, constants). ``.place`` /
+        ``.gather`` map an estimate to the solve's state and back: the
+        identity here, the mesh's placement for a sharded objective."""
         k, c, h, w = obs.shape
         constants = tuple(
             torch.empty((c, h * scale, w * scale), dtype=dtype, device=device) if lam > 0.0 else None
@@ -244,6 +248,9 @@ def make_map_value_and_grad(
                     torch.mul(weight, lam, out=buffer)
 
         fn.constants, fn.shifts, fn.observations, fn.set_weights = constants, motion, obs, set_weights
+        fn.set_shifts, fn.set_observations = motion.copy_, obs.copy_
+        fn.buffers = (motion,) + tuple(c for c in constants if c is not None)  # what a solve's steps write
+        fn.place = fn.gather = lambda x: x  # the state of a solve is the estimate itself
         return fn
 
     def value_and_grad(x, weights=(), shifts=None):

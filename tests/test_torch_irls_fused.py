@@ -40,6 +40,7 @@ from super_resolution_tpu.solvers.objective import make_map_value_and_grad as jm
 
 from super_resolution_tpu_torch import IRLSMapSolver, IRLSMapSolverOptions, ImageModel, ImageModelParameters
 from super_resolution_tpu_torch import convert, make_mesh
+from super_resolution_tpu_torch.parallel import Mesh
 from super_resolution_tpu_torch.motion import MotionShiftSequence
 from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
 from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
@@ -289,17 +290,34 @@ def test_frozen_linear_cg_steps_leave_the_state_alone():
 
 
 def test_fused_irls_refuses_a_mesh_and_other_inner_solvers():
-    """``cg`` and ``lbfgs`` now run fused (and equal the host loop); a mesh is still refused."""
+    """``cg`` and ``lbfgs`` run fused (and equal the host loop), and so does an
+    eligible mesh (``tests/test_torch_irls_fused_mesh.py`` holds every kind);
+    a mesh no sharded objective runs, one over more than one device and one
+    over more than one process are refused."""
     model, gt, lows = _lows(1, (12, 16))
     for solver_name in ("cg", "lbfgs"):
         host, fused = (_port_solve(model, lows, [], np.zeros_like(gt), least_squares_solver=solver_name,
                                    fused_irls=f, max_num_solver_iterations=12) for f in (False, True))
         _assert_same_solve(host, fused)
         assert torch.equal(host[1], fused[1]) and len(fused[0].last_fused_runs) == 1
-    solver = IRLSMapSolver(IRLSMapSolverOptions(least_squares_solver="linear_cg", fused_irls=True), model, lows,
-                           device="cpu", dtype=torch.float64, mesh=make_mesh({"frame": 2}, devices=["cpu"]))
-    with pytest.raises(ValueError, match="mesh"):
-        solver.solve(np.zeros_like(gt))
+
+    def meshed(mesh, regs=(), **fields):
+        solver = IRLSMapSolver(IRLSMapSolverOptions(least_squares_solver="linear_cg", **fields), model, lows,
+                               device="cpu", dtype=torch.float64, mesh=mesh)
+        for reg, lam in regs:
+            solver.add_regularizer(reg, lam)
+        return solver, solver.solve(np.zeros_like(gt))
+
+    frames = make_mesh({"frame": 2}, devices=["cpu"])
+    (host, x_host), (fused, x_fused) = meshed(frames), meshed(frames, fused_irls=True)
+    assert torch.equal(x_fused, x_host) and len(fused.last_fused_runs) == 1
+    assert [c[1:] for c in fused.last_inner_calls] == [c[1:] for c in host.last_inner_calls]
+    with pytest.raises(ValueError, match="fused_irls on this mesh"):
+        meshed(frames, REGULARIZERS["tv+btv"](), fused_irls=True)
+    with pytest.raises(ValueError, match="more than one device"):
+        meshed(Mesh(["frame"], [2], ["cuda:0", "cuda:1"]), fused_irls=True)
+    with pytest.raises(ValueError, match="spans processes"):
+        meshed(Mesh(["frame"], [2], ["cpu", "cpu"], processes=[0, 1], process_index=0), fused_irls=True)
     # The default options (``cg``) fuse: one inner solve without a regulariser, the host minimize's.
     vg = make_map_value_and_grad(np.stack(lows), SHIFTS, None, 2, device="cpu", dtype=torch.float64)
     x, cost, iterations = irls_solve_fused(vg, [], torch.zeros(gt.shape, dtype=torch.float64),
