@@ -85,7 +85,16 @@ width:
   two-process loopback (``parallel/multihost.py``: two processes on the card,
   ``gloo`` between them, one shard each, each held against its own
   one-process solve; all-reduce bytes and ms an evaluation); and the scaling
-  harness's collective calls an evaluation over 1 / 2 / 4 shards, flat.
+  harness's collective calls an evaluation over 1 / 2 / 4 shards, flat;
+- formats (phase 14): the native codecs (progressive JPEG decoding, JPEG
+  and TIFF writing, LZW for TIFF and GIF) built from the checkout; the
+  fixtures of ``tests/data_torch/formats`` decoded array-equal to OpenCV's
+  decodes stored with them and the port's JPEG / TIFF of seeded images
+  byte-equal to OpenCV's files (the card's host has no OpenCV); the flagship
+  through ``super_resolve`` from a TIFF ground truth, its result written as
+  TIFF and JPEG, the estimate bit-equal to the same run from a PNG; phase
+  11's refined RGB run from baseline JPEG frames and a TIFF truth, above the
+  same PSNR floor; host ms to write and read 1000x1000 TIFF and JPEG files.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -146,8 +155,12 @@ try:
     from super_resolution_tpu_torch.image import ImageData
     from super_resolution_tpu_torch.solvers.admm import admm_solve
     from super_resolution_tpu_torch.spectral import envi
+    from super_resolution_tpu_torch import native
+    from super_resolution_tpu_torch.utils import data_loader as data_loader_module
     from super_resolution_tpu_torch.utils.data_loader import load_image, save_image
-    from super_resolution_tpu_torch.utils.image_io import read_image
+    from super_resolution_tpu_torch.utils.image_io import read_image, write_image
+    from super_resolution_tpu_torch.utils.jpeg import encode_jpeg
+    from super_resolution_tpu_torch.utils.tiff import read_tiff, write_tiff
     from super_resolution_tpu_torch import video as sr_video
     from super_resolution_tpu_torch.ops.warp import translate
     from super_resolution_tpu_torch.solvers import graphs
@@ -262,7 +275,7 @@ def load_golden(name):
 
 
 def phase_environment():
-    log(f"[1/13] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
+    log(f"[1/14] environment: python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"torch CUDA {torch.version.cuda}")
     nvcc = build.find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True, timeout=60).stdout
@@ -283,7 +296,7 @@ def phase_build():
     t0 = time.perf_counter()
     results = build.build()
     for name, info in results.items():
-        log(f"[2/13] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
+        log(f"[2/14] build: csrc/{name}.cu -> {os.path.relpath(info['path'], ROOT)} "
             f"({'built' if info['built'] else 'already built'}, {info['seconds']:.1f} s)")
     log(f"      build total {time.perf_counter() - t0:.1f} s")
 
@@ -442,7 +455,7 @@ def _check_shift_generic(device, dtype):
     check(degrade.shift_source_counts == {"device": launches // 2, "host": launches // 2},
           f"shift sources miscounted: {degrade.shift_source_counts} for {launches} launches")
     check(len(list(build.build_dir().glob("libdegrade_*.so"))) == 1, "the kernels were built more than once")
-    log(f"[3/13] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
+    log(f"[3/14] kernels: shift-generic: 3 shift sets x 2 modes as a CUDA tensor in {dtype}, no synchronisation, "
         f"bit-equal to host shifts, one build")
 
 
@@ -668,7 +681,7 @@ def _check_shard_mode(device, dtype):
                               f"shard mode {mode} {dtype} s={scale} shifts {shifts} tile {coords} "
                               f"{'owned mask' if mask is not None else 'default mask'}: cost {cost_err:.3e}, "
                               f"grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/13] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
+    log(f"[3/14] kernels: shard mode: {launches} launches (5 tiles of a 3x3 tiling x 2 scales x 2 shift sets x 3 modes "
         f"x 2 masks) agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
@@ -690,7 +703,7 @@ def _check_spectral_halo(device, dtype):
               f"spectral halo {dtype} C={c}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
         plain_tv3d = degrade.fused_objective(x, y, sh, kern, 2, tv_constants=constants, tv_use_3d=True)
         check(not torch.equal(out[1][-1], plain_tv3d[1][-1]), "the halo band was not taken out of the data term")
-    log(f"[3/13] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
+    log(f"[3/14] kernels: spectral halo: C = 2 and 17 agree with the plain version in {dtype} (tol {tol:g})")
     return worst
 
 
@@ -705,7 +718,7 @@ def _check_trivial_shard_arguments(device, dtype):
         in_shard_mode = degrade.fused_objective(x, y, sh, kern, 4, origin=(0, 0), global_hw=hw, **kw)
         check(float(plain_launch[0]) == float(in_shard_mode[0]) and torch.equal(plain_launch[1], in_shard_mode[1]),
               f"{mode} {dtype}: trivial shard arguments change the bits")
-    log(f"[3/13] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
+    log(f"[3/14] kernels: origin (0, 0), global extent = the image, no mask: bit-equal to the plain launch, "
         f"{len(degrade.KERNEL_NAMES)} modes in {dtype}")
 
 
@@ -734,7 +747,7 @@ def _check_assembled(device, dtype):
         cost_err, grad_err, _ = _errors(vg(x, (weights,)), degrade.fused_objective(x, y, sh, kern, scale, **kw))
         check(cost_err <= tol and grad_err <= tol,
               f"assembled {axes} {dtype} case {n}: cost {cost_err:.3e}, grad {grad_err:.3e} > {tol:g}")
-    log(f"[3/13] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
+    log(f"[3/14] kernels: {len(cases)} meshes (2x3 tiles: none / TV / BTV; 4 and 2 band shards with 3D TV) assembled "
         f"by gather, scatter-sum and band ring == the unsharded kernels in {dtype} (tol {tol:g})")
 
 
@@ -804,7 +817,7 @@ def _check_btv_sweep(device, dtype):
                 held(degrade.fused_objective(*args, **kw), args, kw,
                      f"P={P} decay={decay} s={scale} {frames} frames tile {coords} "
                      f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/13] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images "
+    log(f"[3/14] kernels: BTV sweep: {launches} launches (P 1/2/3/5/8 x decay 0.5/1.0 x s 2/3/4 on 2 whole images "
         f"each, bit-equal when launched twice; {BTV_MANY_FRAMES} frames on 2 whole images; "
         f"{len(BTV_SWEEP_TILES)} x 5 shard tiles x 2 masks, one with {BTV_MANY_FRAMES} frames) agree with the "
         f"plain version in {dtype} (tol {tol:g})")
@@ -845,11 +858,11 @@ def _check_kernel_attributes():
         mine = [a for key, a in table.items() if key[0] == kernel]
         registers, shared = [a["registers"] for a in mine], [a["shared_bytes"] for a in mine]
         blocks = [a["blocks_per_sm"] for a in mine]
-        log(f"[3/13] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
+        log(f"[3/14] kernels: {kernel}, {len(mine)} instantiations: 0 bytes of local memory in each; "
             f"{min(registers)}-{max(registers)} registers, {min(shared)}-{max(shared)} bytes of static shared memory, "
             f"{min(blocks)}-{max(blocks)} blocks of 256 threads per SM")
     direct = [a for key, a in table.items() if "direct" in key]
-    log(f"[3/13] kernels: of those, the {len(direct)} DIRECT instantiations: "
+    log(f"[3/14] kernels: of those, the {len(direct)} DIRECT instantiations: "
         f"{min(a['registers'] for a in direct)}-{max(a['registers'] for a in direct)} registers, "
         f"{min(a['blocks_per_sm'] for a in direct)}-{max(a['blocks_per_sm'] for a in direct)} blocks per SM")
     return table
@@ -962,7 +975,7 @@ def _check_composite_sweep(device, dtype):
         held((x, y, torch.as_tensor(sh, device=device), kern, scale),
              dict(tv_constants=constants, tv_use_3d=True, spectral_halo=True), f"spectral halo s={scale}")
     check(exact[True] > 0 and exact[False] > 0, f"the sweep missed one of the composite's cases: {exact}")
-    log(f"[3/13] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
+    log(f"[3/14] kernels: composite sweep: {launches} launches (s 2/3/4 x blur none/1x1/3x3/4x4/5x5 x integer / "
         f"fractional / wide shifts x 2 whole images x data/TV/3D TV, bit-equal when launched twice; 66 and 30 frames; "
         f"3 scales x 5 shard tiles x blur 3x3/5x5/none x fractional / wide shifts x 2 masks x 3 modes; spectral halo "
         f"at s 2/3/4) agree with the plain version in {dtype} (tol {tol:g}); composite exact on {exact[True]} of the "
@@ -1053,7 +1066,7 @@ def _check_direct_sweep(device, dtype):
                     held((xt, yt, torch.as_tensor(sh, device=device), kern, scale), kw,
                          f"{mode} s={scale} blur {size} {set_name} shifts tile {coords} "
                          f"{'owned' if mask is not None else 'default'} mask")
-    log(f"[3/13] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
+    log(f"[3/14] kernels: direct sweep: {launches} launches (s {big} at 3x3, 33x33 at s 2 and 4 -- DIRECT -- and 31x31 "
         f"at s 2 -- the table; integer / fractional / wide shifts x whole images x {len(modes)} modes, bit-equal when "
         f"launched twice; 3 shard tiles x fractional / wide shifts x {len(modes)} modes) agree with the plain version "
         f"in {dtype} (tol {tol:g})")
@@ -1158,7 +1171,7 @@ def phase_kernels(device):
                 check(float(outs["data_term_tv3d"][0]) == float(outs["data_term_tv"][0])
                       and torch.equal(outs["data_term_tv3d"][1], outs["data_term_tv"][1]),
                       f"data_term_tv3d differs from data_term_tv at C=1 (case {i}, {dtype})")
-        log(f"[3/13] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
+        log(f"[3/14] kernels: {len(cases)} shapes x {len(degrade.KERNEL_NAMES)} modes agree with the plain version "
             f"in {dtype} (tol {tol:g}); tv3d == tv at C=1")
         _check_shift_generic(device, dtype)
         shard_worst = {"shard_mode": _check_shard_mode(device, dtype),
@@ -1176,7 +1189,7 @@ def phase_kernels(device):
                 worst[mode] = max(worst[mode], composite_worst, direct_worst)
     attributes = _check_kernel_attributes()
     tap_difference = _float32_tap_difference(device)
-    log(f"[3/13] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
+    log(f"[3/14] kernels: float32 gradient with tap weights made in float32 (as the TPU kernel's shift-generic mode "
         f"makes them) vs the kernels' float64 weights rounded once: {tap_difference:.2e} of the largest entry")
     check(tap_difference <= TOLERANCE[torch.float32], f"float32 tap weights move the gradient by {tap_difference}")
 
@@ -1265,7 +1278,7 @@ def phase_goldens(device):
                   "goldens: the fused solve differs from the host loop's")
             same = ", each bit-equal to the host loop's"
         host = solves
-        log(f"[4/13] goldens ({way}, cg): A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
+        log(f"[4/14] goldens ({way}, cg): A max|diff| {err_a:.2e}; B agreement {agreement:.2f} dB; "
             f"C {psnr_ours:.3f} dB vs C++ {psnr_ref:.3f} dB{same} ({time.perf_counter() - t0:.1f} s)")
 
 
@@ -1415,7 +1428,7 @@ def phase_main_path(device, rows):
     for name, options, reg, lam in runs:
         results[name] = r = solve_once(name, gt, 4, options, reg, lam, device, dtype)
         mpix_it = r["iterations"] * side * side / r["seconds"] / 1e6
-        log(f"[5/13] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
+        log(f"[5/14] main path {name}: {side}x{side}, {r['iterations']} inner iterations, "
             f"{r['evaluations']} evaluations, {r['launches']} launches, {r['seconds']:.3f} s, "
             f"{mpix_it:.1f} Mpixel-iterations/s, PSNR {r['psnr']:.2f} dB (nearest {r['psnr_start']:.2f} dB)")
         log(f"      inner calls (s, iterations, evaluations): "
@@ -1517,7 +1530,7 @@ def phase_estimated_motion(device, rows):
         seconds.append(time.perf_counter() - t0)
     estimated = registered.as_array() * scale  # LR px -> HR px
     err_estimated = float(np.abs(estimated - true).max())
-    log(f"[6/13] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
+    log(f"[6/14] estimated motion: registration of 4 frames {tuple(lows[0].shape)} took {seconds[0]:.3f} s, then "
         f"{seconds[1]:.3f} s; max error {err_estimated:.4f} HR px (limit 0.25)")
     check(err_estimated < 0.25, f"registration is off by {err_estimated} HR px")
     x0 = linear_resize(lows[0], tuple(gt.shape[-2:])).contiguous()
@@ -1601,7 +1614,7 @@ def phase_hyperspectral(device, rows):
         solver = tv_solver(model, lows, use_3d, fixed_iterations(20, 2), device)
         results[name] = r = run_solve(name, solver, x0, gt, 0.01)
         mvals = r["iterations"] * gt.numel() / r["seconds"] / 1e6
-        log(f"[7/13] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
+        log(f"[7/14] hyperspectral {name}: {tuple(gt.shape)}, {r['iterations']} iterations, {r['launches']} launches "
             f"= evaluations, {r['seconds']:.3f} s, {mvals:.1f} Mvalue-iterations/s, PSNR {r['psnr']:.2f} dB "
             f"(linear upsample {r['psnr_start']:.2f} dB); L1 objective {[float(f'{o:.7g}') for o in r['objectives']]}")
         check_objective_never_rises(name, r["objectives"])
@@ -1630,7 +1643,7 @@ def phase_hyperspectral(device, rows):
     b = PCA_BORDER
     inner = (slice(None), slice(b, -b), slice(b, -b))
     solved_db, linear_db = float(psnr(solved[inner], gt[inner])), float(psnr(linear[inner], gt[inner]))
-    log(f"[7/13] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
+    log(f"[7/14] hyperspectral PCA: {gt.shape[0]} bands -> {pca.num_pca_bands} components in {t_pca:.3f} s (round trip "
         f"{round_trip:.2f} dB); {tuple(r['x'].shape)} solve {r['iterations']} iterations, {r['launches']} launches, "
         f"{r['seconds']:.3f} s; back-projected cube {solved_db:.2f} dB vs linear upsample {linear_db:.2f} dB inside "
         f"a {b}-px border (whole image {float(psnr(solved, gt)):.2f} vs {float(psnr(linear, gt)):.2f} dB)")
@@ -1676,7 +1689,7 @@ def compare_with_single_device(label, make, mode, shard_counter, mesh, lam, roun
             continue
         objective_diff = abs(meshed["objectives"][-1] - single["objectives"][-1]) / abs(single["objectives"][-1])
         psnr_diff = abs(meshed["psnr"] - single["psnr"])
-        log(f"[8/13] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
+        log(f"[8/14] mesh {label}: {mesh.shape}, {mesh.num_shards} shards, {meshed['iterations']} iterations, "
             f"{meshed['evaluations']} evaluations, {meshed['launches']} launches; {meshed['seconds']:.3f} s meshed vs "
             f"{single['seconds']:.3f} s on one device; PSNR {meshed['psnr']:.2f} dB (start {meshed['psnr_start']:.2f}, "
             f"one device {single['psnr']:.2f}); max|diff| {diff:.2e}, L1 objective differs {objective_diff:.2e} "
@@ -1693,7 +1706,7 @@ def phase_mesh(device, rows):
     """The solve on a device mesh: band shards with the spectral halo, tiles
     with halo exchange, frame shards with refined motion."""
     devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    log(f"[8/13] mesh: shards are dealt over {len(devices)} visible card(s)")
+    log(f"[8/14] mesh: shards are dealt over {len(devices)} visible card(s)")
     degrade.reset_launch_counts()
     results = {}
 
@@ -1920,7 +1933,7 @@ def phase_fused(device, rows, turns=5, chunk_turns=3):
         evaluations = sum(c[2] for c in fused.last_inner_calls)
         values = gt.numel() * iterations
         med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
-        log(f"[9/13] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
+        log(f"[9/14] fused {label}: {iterations} iterations, {evaluations} evaluations in {rounds} rounds; "
             f"fused == host loop bit for bit (x and shifts, {turns + 2} pairs)")
         log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
             f"[{min(fused_s):.4f}, {max(fused_s):.4f}] ({med_h / med_f:.2f}x); "
@@ -2132,7 +2145,7 @@ def _gradient_mode_solves(device):
         check(torch.equal(x_fused, x_card) and calls_fused == calls_card,
               f"fused autodiff solve vs the host loop on the card: {float((x_fused - x_card).abs().max()):.3e}, "
               f"rounds {calls_fused} vs {calls_card}")
-    log(f"[10/13] autodiff solve 1x64x64 float64 on the card: within {diff:.2e} (tol {AUTODIFF_TOLERANCE:g}) of the "
+    log(f"[10/14] autodiff solve 1x64x64 float64 on the card: within {diff:.2e} (tol {AUTODIFF_TOLERANCE:g}) of the "
         f"CPU's, same iterations and evaluations {calls_card}; fused_irls ({captured[1]} graphs captured, none by a "
         f"second instance) == host loop bit for bit ({time.perf_counter() - t0:.1f} s)")
 
@@ -2157,7 +2170,7 @@ def _gradient_mode_solves(device):
     check(diff <= bound and calls_card == calls_cpu,
           f"numerical solve on the card vs the CPU: {diff:.3e} (derived bound {bound:.3e}), rounds {calls_card} vs "
           f"{calls_cpu}")
-    log(f"[10/13] numerical 1x8x8 float64 (n = {n}, f = {cost:.6g}): gradient at the start on the card within "
+    log(f"[10/14] numerical 1x8x8 float64 (n = {n}, f = {cost:.6g}): gradient at the start on the card within "
         f"{g_diff:.3e} of the CPU's (bound 2 (n-1) u f / h = {dg:.3e}); solve within {diff:.3e} (bound: gain "
         f"{gain:.4g} x {dg:.3e} = {bound:.3e}; gain = |x_fd - x_exact| / |g_fd - g_exact| on the CPU, "
         f"{noise:.3e} at the start), same iterations and evaluations {calls_card} "
@@ -2180,7 +2193,7 @@ def phase_wolfe(device, rows, turns=2):
     irls_mod._BUILT_SOLVER_CACHE.clear()
     t_phase = time.perf_counter()
     problems, nearest = wolfe_problems(device)
-    log(f"[10/13] line-search solvers: problems made in {time.perf_counter() - t_phase:.1f} s")
+    log(f"[10/14] line-search solvers: problems made in {time.perf_counter() - t_phase:.1f} s")
     degrade.reset_launch_counts()
     results, launches = {}, {}
     for label, (make, mode, row) in problems.items():
@@ -2227,7 +2240,7 @@ def phase_wolfe(device, rows, turns=2):
         step = fused.last_fused.chunks[runs[0]["chunk_steps"]]
         kernels, copies, step_ms = _graph_nodes_per_step(step, runs[0]["chunk_steps"], device)
         med_h, med_f = float(np.median(host_s)), float(np.median(fused_s))
-        log(f"[10/13] {label}: {iterations} iterations, {evaluations} evaluations ({evaluations / iterations:.2f} "
+        log(f"[10/14] {label}: {iterations} iterations, {evaluations} evaluations ({evaluations / iterations:.2f} "
             f"per iteration, the starts included) in {rounds} rounds; fused == host loop bit for bit "
             f"(x and shifts, {turns + 2} pairs); PSNR {psnr_fused:.2f} dB (nearest {psnr_start:.2f})")
         log(f"      wall median host {med_h:.4f} s [{min(host_s):.4f}, {max(host_s):.4f}], fused {med_f:.4f} s "
@@ -2272,7 +2285,7 @@ def phase_wolfe(device, rows, turns=2):
     results["psnr_cg_minus_linear_cg"] = psnr_cg - psnr_linear
     irls_mod._BUILT_SOLVER_CACHE.clear()
     _gradient_mode_solves(device)
-    log(f"[10/13] line-search phase: {time.perf_counter() - t_phase:.1f} s")
+    log(f"[10/14] line-search phase: {time.perf_counter() - t_phase:.1f} s")
     return results
 
 
@@ -2288,7 +2301,26 @@ WAVELET_TOLERANCE = 1e-9
 ENVI_READ_REPEATS = 5
 
 
-def _cli_step(label, main, argv, card, device):
+FIXED_ITERATIONS = ["--gradient_norm_threshold", "0", "--cost_decrease_threshold", "0",
+                    "--parameter_variation_threshold", "0"]
+
+
+def flagship_argv(data_path, motion, device):
+    """``super_resolve`` on the flagship: 4 frames generated at 4x, blur 3/1.5, TV 0.01."""
+    return ["--data_path", data_path, "--generate_lr_images", "--number_of_frames", "4", "--upsampling_scale", "4",
+            "--blur_radius", "3", "--blur_sigma", "1.5", "--motion_sequence_path", motion, "--regularizer", "tv",
+            "--regularization_parameter", "0.01", "--evaluators", "psnr,ssim", "--device", str(device)]
+
+
+def rgb_estimated_argv(frames, truth, device):
+    """``super_resolve`` on the RGB frames of phase 6: registered, refined, BTV on the luminance."""
+    return ["--data_path", frames, "--ground_truth_image", truth, "--upsampling_scale", "4", "--blur_radius", "3",
+            "--blur_sigma", "1.5", "--interpolate_color", "--estimate_motion", "--refine_motion", "1",
+            "--regularizer", "btv", "--solver", "linear_cg", "--optimization_iterations", "2",
+            "--solver_iterations", "20", "--evaluators", "psnr,ssim", "--verbose", "--device", str(device)]
+
+
+def _cli_step(label, main, argv, card, device, phase="11/14"):
     """One run of a CLI's ``main(argv)`` on the card inside
     ``degrade.recording_launches()``: (its standard output, wall seconds,
     evaluations by mode, and by where their shifts came from). The plain
@@ -2303,7 +2335,7 @@ def _cli_step(label, main, argv, card, device):
     check(rc == 0, f"{label}: the CLI returned {rc}")
     counts, sources, _, plain = record.counts
     check(plain["calls"] == 0, f"{label}: the plain version ran {plain['calls']} times on the card")
-    log(f"[11/13] entry point {label}: {seconds:.3f} s wall ({card}); evaluations by mode "
+    log(f"[{phase}] entry point {label}: {seconds:.3f} s wall ({card}); evaluations by mode "
         f"{ {k: v for k, v in counts.items() if v} } (2 kernel launches each)")
     return out.getvalue(), seconds, counts, sources
 
@@ -2410,12 +2442,8 @@ def phase_entry_points(device, rows, card, side=1000, hsi_side=256):
         save_image(ImageData(synthetic_scene(1, side, side, seed=2026), channel_major=True, device=device), scene_png)
         motion = os.path.join(tmp, "flagship_shifts.txt")
         MotionShiftSequence(FLAGSHIP_SHIFTS).save_sequence_to_file(motion)
-        flagship = ["--data_path", scene_png, "--generate_lr_images", "--number_of_frames", "4",
-                    "--upsampling_scale", "4", "--blur_radius", "3", "--blur_sigma", "1.5",
-                    "--motion_sequence_path", motion, "--regularizer", "tv", "--regularization_parameter", "0.01",
-                    "--evaluators", "psnr,ssim", "--device", str(device)]
-        fixed = ["--gradient_norm_threshold", "0", "--cost_decrease_threshold", "0",
-                 "--parameter_variation_threshold", "0"]
+        flagship = flagship_argv(scene_png, motion, device)
+        fixed = FIXED_ITERATIONS
 
         # (a) the flagship, fused, and (b) the default options' host loop of cg:
         # each bit-equal to the same solve through IRLSMapSolver.
@@ -2470,12 +2498,8 @@ def phase_entry_points(device, rows, card, side=1000, hsi_side=256):
             save_image(ImageData(low, normalize="never", channel_major=True), os.path.join(frames, f"frame_{i}.png"))
         truth = os.path.join(tmp, "rgb_truth.png")
         save_image(ImageData(gt, normalize="never", channel_major=True), truth)
-        text, seconds, counts, sources = _cli_step("rgb_estimated", super_resolve_cli.main, [
-            "--data_path", frames, "--ground_truth_image", truth, "--upsampling_scale", "4", "--blur_radius", "3",
-            "--blur_sigma", "1.5", "--interpolate_color", "--estimate_motion", "--refine_motion", "1",
-            "--regularizer", "btv", "--solver", "linear_cg", "--optimization_iterations", "2",
-            "--solver_iterations", "20", "--evaluators", "psnr,ssim", "--verbose", "--device", str(device)],
-            card, device)
+        text, seconds, counts, sources = _cli_step("rgb_estimated", super_resolve_cli.main,
+                                                   rgb_estimated_argv(frames, truth, device), card, device)
         check("Refined motion against the HR estimate" in text, "rgb_estimated: the motion was not refined")
         check(counts["data_term_btv"] > 0, "rgb_estimated: the BTV kernels (K4) were never launched")
         check(sources == {"device": counts["data_term_btv"], "host": 0},
@@ -2483,7 +2507,8 @@ def phase_entry_points(device, rows, card, side=1000, hsi_side=256):
         scores = _check_psnr("rgb_estimated", text)
         log(f"      rgb_estimated: PSNR {scores['PSNR score on result']:.4f} dB (upsampled "
             f"{scores['PSNR score on upsampled']:.4f})")
-        steps["rgb_estimated"] = dict(seconds=seconds, counts=counts)
+        steps["rgb_estimated"] = dict(seconds=seconds, counts=counts, psnr=scores["PSNR score on result"],
+                                      upsampled=scores["PSNR score on upsampled"])
 
         # (e) the wavelet domain: the 4 subbands as channels of one solve (K5),
         # in float32 as the CLI's default; then in float64 on the card and on
@@ -2588,7 +2613,7 @@ def phase_entry_points(device, rows, card, side=1000, hsi_side=256):
         row["launches_entry_points"] = sum(steps[step]["counts"][row["mode"]] for step in ENTRY_ROWS.get(row["row"], ()))
         check(row["row"] not in ENTRY_ROWS or row["launches_entry_points"] > 0,
               f"the entry points never launched {row['mode']} ({row['row']})")
-    log(f"[11/13] entry points: {time.perf_counter() - t_phase:.1f} s; wall by step "
+    log(f"[11/14] entry points: {time.perf_counter() - t_phase:.1f} s; wall by step "
         f"{ {k: round(v['seconds'], 3) for k, v in steps.items()} } ({card}); evaluations by row "
         f"{ {r['row']: r['launches_entry_points'] for r in rows} }")
     return steps
@@ -2741,7 +2766,7 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     check(tuple(stack.shape) == (frames, 3) + tuple(lr_hw) and stack.is_cuda, f"video: frame stack {stack.shape}")
-    log(f"[12/13] video: {frames} LR frames {tuple(stack.shape[1:])} written as PNG in {t_write:.2f} s, loaded onto "
+    log(f"[12/14] video: {frames} LR frames {tuple(stack.shape[1:])} written as PNG in {t_write:.2f} s, loaded onto "
         f"the card by VideoLoader in {t_load:.2f} s")
 
     defaults = sr_video.VideoSuperResolver(device=device).solver_options
@@ -2915,7 +2940,7 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
                    rel=(rel_default, rel_refine))
     irls_mod._BUILT_SOLVER_CACHE.clear()
-    log(f"[12/13] video: {time.perf_counter() - t_phase:.1f} s ({card})")
+    log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
 
 
@@ -3038,7 +3063,7 @@ def phase_mesh_fused(device, rows, turns=3):
         replays = sum(run["replays"] for run in runs)
         chunks = sum(run["chunks"] for run in runs)
         shards = fused.mesh.num_shards
-        log(f"[8/13] fused mesh {label}: {fused.mesh.shape}, {iterations} iterations, {evaluations} evaluations in "
+        log(f"[8/14] fused mesh {label}: {fused.mesh.shape}, {iterations} iterations, {evaluations} evaluations in "
             f"{rounds} rounds; fused == host loop bit for bit (x and shifts, {turns + 2} pairs)")
         log(f"      wall host {_median_range(host_s)} s, fused {_median_range(fused_s)} s; read-backs host "
             f"{iterations + 2 * rounds}, fused {readbacks} ({chunks} chunks + {rounds} rounds); {captured} graphs "
@@ -3054,7 +3079,7 @@ def phase_mesh_fused(device, rows, turns=3):
         if row["row"] in launches:
             row["launches_fused_mesh"] = launches[row["row"]]
     irls_mod._BUILT_SOLVER_CACHE.clear()
-    log(f"[8/13] fused mesh: {time.perf_counter() - t_phase:.1f} s")
+    log(f"[8/14] fused mesh: {time.perf_counter() - t_phase:.1f} s")
     return results
 
 
@@ -3112,7 +3137,7 @@ def _sharded_against_single(label, make, mesh, method, iterations, device, turns
                 run()
                 torch.cuda.synchronize(device)
                 walls[name].append(time.perf_counter() - t0)
-        log(f"[13/13] (a) make_sharded_map_solver, {label}: {mesh.shape} on one card, {method} {meshed.iterations} "
+        log(f"[13/14] (a) make_sharded_map_solver, {label}: {mesh.shape} on one card, {method} {meshed.iterations} "
             f"iterations, {meshed.num_evaluations} evaluations, {per_evaluation:.0f} launch counts an evaluation "
             f"(one device: 1); wall meshed {_median_range(walls['meshed'])} s, one device "
             f"{_median_range(walls['single'])} s (median [min, max] of {turns}, in turns); max|diff| {diff:.2e}, "
@@ -3166,7 +3191,7 @@ def _band_split(device, turns=2, iterations=20):
             run()
             torch.cuda.synchronize(device)
             walls[name].append(time.perf_counter() - t0)
-    log(f"[13/13] (b) band_split_minimize, 64 x 256x256, cg <= {iterations} iterations, TV 0.01: iterations per band "
+    log(f"[13/14] (b) band_split_minimize, 64 x 256x256, cg <= {iterations} iterations, TV 0.01: iterations per band "
         f"{min(batched.iterations)}-{max(batched.iterations)}, evaluations {min(batched.num_evaluations)}-"
         f"{max(batched.num_evaluations)}, equal to the serial solves; bit-equal to them; "
         f"{steps} batched evaluations for {len(calls)} band evaluations ({len(calls) / steps:.1f} launch counts "
@@ -3206,7 +3231,7 @@ def _loopback_on_the_card(device):
                   f"loopback {dtype} process {r['process']}: launches {r['launches']} and "
                   f"{r['plain_version_calls']} plain calls, expected {expected} data_term_tv launches and none")
             launched += r["launches"]["data_term_tv"]
-        log(f"[13/13] (d) two-process loopback on the one card (gloo, CUDA tensors): frame x2, one shard a process, "
+        log(f"[13/14] (d) two-process loopback on the one card (gloo, CUDA tensors): frame x2, one shard a process, "
             f"1x1000x1000 {dtype}, 4 frames at 4x, TV 0.01, linear_cg 50; " + "; ".join(
                 f"process {r['process']}: max|diff| {r['max_abs_diff']:.2e} (tol {tolerance:g}), PSNR "
                 f"{abs(r['psnr_db'] - r['reference_psnr_db']):.4f} dB and cost {r['cost_rel_diff']:.2e} from one "
@@ -3231,7 +3256,7 @@ def _scaling_counts(device):
     check([p["shards"] for p in points] == [1, 2, 4], f"scaling points {points}")
     flat = {(p["psum_per_evaluation"], p["all_reduce_per_evaluation"]) for p in points}
     check(flat == {(1.0, 0.0)}, f"collective calls an evaluation are not flat over 1 / 2 / 4 shards: {points}")
-    log("[13/13] (e) scaling harness, flagship, linear_cg 10: " + "; ".join(
+    log("[13/14] (e) scaling harness, flagship, linear_cg 10: " + "; ".join(
         f"{p['shards']} shard(s): {p['frame_iterations_per_s']:.0f} frame-iterations/s, {p['psum_per_evaluation']:.0f} "
         f"psum and {p['all_reduce_per_evaluation']:.0f} all-reduces an evaluation" for p in points)
         + " (one card: no scaling is read from these)")
@@ -3284,8 +3309,196 @@ def phase_data_parallel(device, rows):
             row["launches_loopback"] = loopback_launches
         if row["row"] == "K5":
             row["launches_data_parallel"] = cube_launches
-    log(f"[13/13] data parallel: {time.perf_counter() - t_phase:.1f} s")
+    log(f"[13/14] data parallel: {time.perf_counter() - t_phase:.1f} s")
     return results
+
+
+# ----------------------------------------------------------------------- formats
+
+FORMATS_DIR = os.path.join("tests", "data_torch", "formats")
+FORMAT_REPEATS = 5
+JPEG_RESULT_FLOOR_DB = 40.0
+
+
+def _host_ms(fn, repeats=FORMAT_REPEATS):
+    """Median host milliseconds of ``fn()`` over ``repeats`` calls after one warm call."""
+    fn()
+    laps = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        fn()
+        laps.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(laps))
+
+
+def seeded_format_image(seed, shape):
+    """uint8 samples from the raw PCG64 stream, as scripts/make_torch_format_fixtures.py draws them."""
+    raw = np.random.PCG64(seed).random_raw(int(np.prod(shape)))
+    return (raw >> np.uint64(56)).astype(np.uint8).reshape(shape)
+
+
+@contextlib.contextmanager
+def _saved_results():
+    """The estimates ``super_resolve`` hands to ``save_image``, kept as they are."""
+    saved = []
+    real = data_loader_module.save_image
+
+    def keep(image, path):
+        saved.append(image.hidden_array.detach().clone())
+        return real(image, path)
+
+    with mock.patch.object(data_loader_module, "save_image", keep):
+        yield saved
+
+
+def _format_fixtures():
+    """(a) each fixture decoded by the port against OpenCV's decode stored
+    beside it; (b) the port's JPEG and TIFF of each seeded image against
+    OpenCV's files. Returns {file: decode ms}."""
+    folder = os.path.join(ROOT, FORMATS_DIR)
+    with open(os.path.join(folder, "manifest.json")) as f:
+        manifest = json.load(f)
+    decode_ms = {}
+    for entry in manifest["decode"]:
+        path = os.path.join(folder, entry["file"])
+        ours = read_image(path)
+        stored = os.path.join(folder, entry["expected"])
+        expected = np.load(stored) if stored.endswith(".npy") else read_image(stored)
+        check(ours.dtype == expected.dtype and ours.shape == expected.shape and np.array_equal(ours, expected),
+              f"formats (a): {entry['file']} ({entry['what']}) decodes to {ours.dtype} {ours.shape}, not OpenCV's "
+              f"{expected.dtype} {expected.shape} array")
+        decode_ms[entry["file"]] = _host_ms(lambda: read_image(path))
+    for entry in manifest["encode"]:
+        image = seeded_format_image(entry["seed"], entry["shape"])
+        with open(os.path.join(folder, entry["jpeg"]), "rb") as f:
+            theirs = f.read()
+        ours = encode_jpeg(image)
+        first = next((i for i in range(min(len(ours), len(theirs))) if ours[i] != theirs[i]), None)
+        check(ours == theirs, f"formats (b): the JPEG of seed {entry['seed']} {entry['shape']} differs from OpenCV's "
+                              f"file (first at byte {first}; {len(ours)} bytes against {len(theirs)})")
+        tiff = write_tiff(image)
+        with open(os.path.join(folder, entry["tiff"]), "rb") as f:
+            check(tiff == f.read(), f"formats (b): the TIFF of seed {entry['seed']} differs from OpenCV's file")
+        check(np.array_equal(read_tiff(tiff), image), f"formats (b): the TIFF of seed {entry['seed']} reads back "
+                                                       "other pixels")
+    log(f"      (a) {len(manifest['decode'])} fixtures array-equal to OpenCV's decodes; (b) "
+        f"{len(manifest['encode'])} seeded images: JPEG and TIFF byte-equal to OpenCV's files")
+    return decode_ms
+
+
+def phase_formats(device, rows, card, entry_steps, side=1000):
+    """The image formats that the JAX package reads and writes through
+    OpenCV, on the card's host (which has no OpenCV): the native codecs built
+    from the checkout, (a) the fixtures decoded array-equal to OpenCV's
+    decodes made with the fixtures, (b) JPEG / TIFF encoding byte-equal to
+    OpenCV's files, and (c) ``super_resolve`` through the new formats on the
+    card: (c-1) the flagship from a TIFF, its result as TIFF and JPEG, the
+    estimate ``torch.equal`` to the same run from a PNG; (c-2) phase 11 (d)'s
+    refined RGB run from baseline JPEG frames the port wrote and a TIFF
+    ground truth, held to the same PSNR floor. ``entry_steps``: phase 11's
+    steps (its (d) PSNR is logged beside (c-2)'s)."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    for load in (native.get_jpeg_library, native.get_jpeg_encoder_library, native.get_lzw_library):
+        load()
+    log(f"[14/14] formats: the native codecs (native/jpeg_decoder.cpp, jpeg_encoder.cpp, lzw.cpp) built from the "
+        f"checkout's sources with g++ on the host and loaded in {time.perf_counter() - t0:.2f} s (the decoder may "
+        "have been built by phase 12)")
+    decode_ms = _format_fixtures()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    steps = {}
+    try:
+        # (c-1) the flagship from a TIFF ground truth, to TIFF and JPEG, against the PNG run.
+        scene = ImageData(synthetic_scene(1, side, side, seed=2026), channel_major=True, device=device)
+        paths = {ext: os.path.join(tmp, f"scene.{ext}") for ext in ("png", "tif")}
+        for path in paths.values():
+            save_image(scene, path)
+        check(np.array_equal(read_image(paths["tif"]), read_image(paths["png"])),
+              "formats (c-1): the TIFF ground truth reads other pixels than the PNG")
+        motion = os.path.join(tmp, "flagship_shifts.txt")
+        MotionShiftSequence(FLAGSHIP_SHIFTS).save_sequence_to_file(motion)
+        fused = ["--solver", "linear_cg", "--optimization_iterations", "3", "--solver_iterations", "50",
+                 *FIXED_ITERATIONS, "--fused_irls"]
+        estimates, results = {}, {}
+        for label, source, ext in (("png_to_png", "png", "png"), ("tiff_to_tiff", "tif", "tif"),
+                                   ("tiff_to_jpeg", "tif", "jpg")):
+            results[label] = os.path.join(tmp, f"{label}.{ext}")
+            with _saved_results() as saved:
+                text, seconds, counts, _ = _cli_step(
+                    label, super_resolve_cli.main,
+                    flagship_argv(paths[source], motion, device) + fused + ["--result_path", results[label]],
+                    card, device, phase="14/14")
+            check(len(saved) == 1, f"formats (c-1) {label}: {len(saved)} results saved")
+            estimates[label] = saved[0]
+            scores = _check_psnr(label, text)
+            check(counts["data_term_tv"] > 0, f"formats (c-1) {label}: the TV kernels (K2) were never launched")
+            steps[label] = dict(seconds=seconds, counts=counts, psnr=scores["PSNR score on result"])
+        for label in ("tiff_to_tiff", "tiff_to_jpeg"):
+            check(torch.equal(estimates[label], estimates["png_to_png"]),
+                  f"formats (c-1) {label}: the estimate differs from the PNG run's (max|diff| "
+                  f"{float((estimates[label] - estimates['png_to_png']).abs().max()):.3e})")
+        png_result, tiff_result = read_image(results["png_to_png"]), read_image(results["tiff_to_tiff"])
+        check(np.array_equal(tiff_result, png_result), "formats (c-1): the TIFF result reads other pixels than the PNG")
+        jpeg_result = read_image(results["tiff_to_jpeg"])
+        jpeg_db = float(psnr(torch.from_numpy(jpeg_result / 255.0), torch.from_numpy(png_result / 255.0)))
+        log(f"      (c-1) flagship from a TIFF: estimate torch.equal to the PNG run's; TIFF result = PNG result; JPEG "
+            f"result {jpeg_db:.2f} dB against the PNG result (floor {JPEG_RESULT_FLOOR_DB:g}); PSNR "
+            f"{steps['tiff_to_tiff']['psnr']:.4f} dB; walls png / tiff / jpeg "
+            f"{steps['png_to_png']['seconds']:.3f} / {steps['tiff_to_tiff']['seconds']:.3f} / "
+            f"{steps['tiff_to_jpeg']['seconds']:.3f} s ({card})")
+        check(jpeg_db >= JPEG_RESULT_FLOOR_DB, f"formats (c-1): the JPEG result is {jpeg_db:.2f} dB from the PNG result")
+
+        # (c-2) phase 11 (d) from baseline JPEG frames the port wrote, and a TIFF ground truth.
+        gt, lows = estimated_motion_problem(device, side=side)
+        frames = os.path.join(tmp, "rgb_jpeg_frames")
+        os.makedirs(frames)
+        for i, low in enumerate(lows):
+            save_image(ImageData(low, normalize="never", channel_major=True), os.path.join(frames, f"frame_{i}.jpg"))
+        truth = os.path.join(tmp, "rgb_truth.tif")
+        save_image(ImageData(gt, normalize="never", channel_major=True), truth)
+        text, seconds, counts, sources = _cli_step("rgb_estimated_jpeg", super_resolve_cli.main,
+                                                   rgb_estimated_argv(frames, truth, device), card, device,
+                                                   phase="14/14")
+        check("Refined motion against the HR estimate" in text, "formats (c-2): the motion was not refined")
+        check(counts["data_term_btv"] > 0, "formats (c-2): the BTV kernels (K4) were never launched")
+        check(sources == {"device": counts["data_term_btv"], "host": 0},
+              f"formats (c-2): the shifts of {sources['host']} evaluations crossed from the host")
+        scores = _check_psnr("rgb_estimated_jpeg", text)
+        steps["rgb_estimated_jpeg"] = dict(seconds=seconds, counts=counts, psnr=scores["PSNR score on result"])
+        png_run = entry_steps.get("rgb_estimated", {})
+        log(f"      (c-2) refined RGB from {len(lows)} JPEG frames (3x{side // 4}x{side // 4}) and a TIFF truth: PSNR "
+            f"{scores['PSNR score on result']:.4f} dB (upsampled {scores['PSNR score on upsampled']:.4f}); from PNG "
+            f"frames (phase 11 (d)) {png_run.get('psnr', float('nan')):.4f} dB (upsampled "
+            f"{png_run.get('upsampled', float('nan')):.4f}); {seconds:.3f} s wall ({card})")
+
+        # Host ms a 1000x1000 file, written and read (the card's host, not the card).
+        rgb = np.ascontiguousarray(ImageData(gt, normalize="never", channel_major=True).visualization_image())
+        grey = scene.visualization_image()
+        io_ms = {}
+        for name, image in (("grey", grey), ("bgr", rgb)):
+            for ext, encode in (("tif", write_tiff), ("jpg", encode_jpeg)):
+                path = os.path.join(tmp, f"timed_{name}.{ext}")
+                io_ms[f"encode {name} {ext}"] = _host_ms(lambda: encode(image))
+                io_ms[f"write {name} {ext}"] = _host_ms(lambda: write_image(path, image))
+                io_ms[f"read {name} {ext}"] = _host_ms(lambda: read_image(path))
+                check(ext == "jpg" or np.array_equal(read_image(path), image),
+                      f"formats: the {name} TIFF reads back other pixels")
+        log(f"      host ms a {side}x{side} image, median of {FORMAT_REPEATS} (encode: to bytes; write / read: the file; "
+            f"{card}, host time on the card's machine): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in io_ms.items()))
+        log("      host ms to decode each fixture: " + ", ".join(f"{k} {v:.3f}" for k, v in decode_ms.items()))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for row in rows:
+        if row["row"] == "K2":
+            row["launches_formats"] = sum(steps[k]["counts"]["data_term_tv"] for k in
+                                          ("png_to_png", "tiff_to_tiff", "tiff_to_jpeg"))
+        if row["row"] == "K4":
+            row["launches_formats"] = steps["rgb_estimated_jpeg"]["counts"]["data_term_btv"]
+    log(f"[14/14] formats: {time.perf_counter() - t_phase:.1f} s; launches K2 "
+        f"{next(r['launches_formats'] for r in rows if r['row'] == 'K2')}, K4 "
+        f"{next(r['launches_formats'] for r in rows if r['row'] == 'K4')} (0 plain-version calls)")
+    return dict(steps=steps, io_ms=io_ms, decode_ms=decode_ms)
 
 
 def per_kernel_table(rows):
@@ -3339,9 +3552,10 @@ def main():
         timed(phase_mesh_fused, device, rows)
         timed(phase_fused, device, rows)
         timed(phase_wolfe, device, rows)
-        timed(phase_entry_points, device, rows, card)
+        entry_steps = timed(phase_entry_points, device, rows, card)
         timed(phase_video, device, rows, card)
         timed(phase_data_parallel, device, rows)
+        timed(phase_formats, device, rows, card, entry_steps)
     except Failure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)
         return 1

@@ -3,9 +3,14 @@
 - ``envi_loader.cpp`` (the port's own copy) streams band-sequential float32
   cubes: cropped, seek-based reads on a pool of threads, byte swapping for
   big-endian files.
-- ``jpeg_decoder.cpp`` parses baseline JPEG and decodes its Huffman-coded
-  data into quantised DCT coefficients (the serial half of
-  :mod:`super_resolution_tpu_torch.utils.jpeg`).
+- ``jpeg_decoder.cpp`` parses sequential and progressive JPEG and decodes
+  its Huffman-coded scans into quantised DCT coefficients (the serial half of
+  :func:`super_resolution_tpu_torch.utils.jpeg.decode_jpeg`).
+- ``jpeg_encoder.cpp`` Huffman-codes quantised DCT blocks into a baseline
+  scan (the serial half of :func:`super_resolution_tpu_torch.utils.jpeg.encode_jpeg`).
+- ``lzw.cpp`` decodes and encodes TIFF's LZW and decodes GIF's (the serial
+  halves of :mod:`super_resolution_tpu_torch.utils.tiff` and
+  :mod:`super_resolution_tpu_torch.utils.gif`).
 
 At first use each is compiled with the host's C++ compiler into
 ``super_resolution_tpu_torch/_build/libsr_<name>_<hash>.so``, where the hash
@@ -13,9 +18,11 @@ covers the source and the flags: an edited source is rebuilt, an unchanged
 one loaded as it is. Nothing runs when the module is imported.
 
 :func:`native_available` is false only when the host has no C++ compiler;
-then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. JPEG
-has no second decoder: without a compiler :func:`get_jpeg_library` raises.
-A compile that fails, and a native read that fails, raise.
+then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. The
+codecs have no second implementation: without a compiler
+:func:`get_jpeg_library`, :func:`get_jpeg_encoder_library` and
+:func:`get_lzw_library` raise ``RuntimeError``. A compile that fails, and a
+native read that fails, raise.
 """
 
 from __future__ import annotations
@@ -30,15 +37,18 @@ from pathlib import Path
 
 import numpy as np
 
-__all__ = ["native_available", "get_library", "get_jpeg_library", "read_bsq", "build_library"]
+__all__ = ["native_available", "get_library", "get_jpeg_library", "get_jpeg_encoder_library", "get_lzw_library",
+           "read_bsq", "build_library"]
 
-_SOURCE = Path(__file__).resolve().parent / "envi_loader.cpp"
-_JPEG_SOURCE = Path(__file__).resolve().parent / "jpeg_decoder.cpp"
-_LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg"}
+_HERE = Path(__file__).resolve().parent
+_SOURCE = _HERE / "envi_loader.cpp"
+_JPEG_SOURCE = _HERE / "jpeg_decoder.cpp"
+_JPEG_ENCODER_SOURCE = _HERE / "jpeg_encoder.cpp"
+_LZW_SOURCE = _HERE / "lzw.cpp"
+_LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-_jpeg_lib: ctypes.CDLL | None = None
+_loaded: dict[Path, ctypes.CDLL] = {}
 
 
 def _compiler() -> str | None:
@@ -72,35 +82,49 @@ def build_library(source: Path = _SOURCE) -> Path:
     return lib
 
 
-def get_library() -> ctypes.CDLL:
-    """The loaded library, built first if need be."""
-    global _lib
+def _load(source: Path, signatures: dict) -> ctypes.CDLL:
+    """``source``'s library, built and loaded once; ``signatures`` maps each
+    function to (restype, argtypes)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            i64, c_int, f_ptr = ctypes.c_int64, ctypes.c_int, ctypes.POINTER(ctypes.c_float)
-            lib.sr_envi_read_bsq.restype = c_int
-            lib.sr_envi_read_bsq.argtypes = [ctypes.c_char_p] + [i64] * 10 + [c_int, c_int, f_ptr]
-            _lib = lib
-        return _lib
+        if source not in _loaded:
+            lib = ctypes.CDLL(str(build_library(source)))
+            for name, (restype, argtypes) in signatures.items():
+                getattr(lib, name).restype = restype
+                getattr(lib, name).argtypes = argtypes
+            _loaded[source] = lib
+        return _loaded[source]
+
+
+_i64, _int, _ptr = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+
+
+def get_library() -> ctypes.CDLL:
+    """The loaded ENVI reader, built first if need be."""
+    return _load(_SOURCE, {"sr_envi_read_bsq": (_int, [ctypes.c_char_p] + [_i64] * 10
+                                                 + [_int, _int, ctypes.POINTER(ctypes.c_float)])})
 
 
 def get_jpeg_library() -> ctypes.CDLL:
     """The loaded JPEG decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
-    global _jpeg_lib
-    with _lock:
-        if _jpeg_lib is None:
-            lib = ctypes.CDLL(str(build_library(_JPEG_SOURCE)))
-            lib.sr_jpeg_decode.restype = ctypes.c_int
-            lib.sr_jpeg_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p,
-                                           ctypes.c_int64, ctypes.c_char_p, ctypes.c_int]
-            _jpeg_lib = lib
-        return _jpeg_lib
+    return _load(_JPEG_SOURCE, {"sr_jpeg_decode": (_int, [ctypes.c_char_p, _i64, _ptr, _ptr, _i64, ctypes.c_char_p,
+                                                          _int])})
+
+
+def get_jpeg_encoder_library() -> ctypes.CDLL:
+    """The loaded JPEG entropy coder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_JPEG_ENCODER_SOURCE, {"sr_jpeg_encode_scan": (_i64, [_ptr, _ptr, _i64] + [_ptr] * 5 + [_i64])})
+
+
+def get_lzw_library() -> ctypes.CDLL:
+    """The loaded LZW codecs of TIFF and GIF, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_LZW_SOURCE, {"sr_tiff_lzw_decode": (_i64, [ctypes.c_char_p, _i64, _ptr, _i64]),
+                               "sr_tiff_lzw_encode": (_i64, [_ptr, _i64, _ptr, _i64]),
+                               "sr_gif_lzw_decode": (_i64, [ctypes.c_char_p, _i64, _int, _ptr, _i64])})
 
 
 def native_available() -> bool:
     """True where a C++ compiler can build the library (it is then built and loaded)."""
-    if _lib is None and not _library_path().is_file() and _compiler() is None:
+    if _SOURCE not in _loaded and not _library_path().is_file() and _compiler() is None:
         return False
     get_library()
     return True

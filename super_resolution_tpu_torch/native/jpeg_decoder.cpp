@@ -1,16 +1,22 @@
-// Baseline JPEG entropy decoding for super_resolution_tpu_torch.
+// JPEG entropy decoding for super_resolution_tpu_torch.
 //
 // The serial half of the port's JPEG reader (utils/jpeg.py): marker parsing
-// and Huffman decoding of 8-bit sequential JPEG (SOF0 / SOF1) into quantised
-// DCT coefficients, one int16 block of 64 (natural order) per 8x8 block of
-// each component. Dequantisation, the inverse DCT, chroma upsampling and the
-// colour conversion are vectorised numpy in utils/jpeg.py.
+// and Huffman decoding of 8-bit sequential (SOF0 / SOF1) and progressive
+// (SOF2) JPEG into quantised DCT coefficients, one int16 block of 64 (natural
+// order) per 8x8 block of each component. Dequantisation, the inverse DCT,
+// chroma upsampling and the colour conversion are vectorised numpy in
+// utils/jpeg.py.
 //
 // Handled: 1 and 3 components, sampling factors 1-4, interleaved and
 // single-component scans, restart markers, any Huffman tables (the standard
 // tables of ITU T.81 Annex K.3 stand in for a missing DHT, as in Motion-JPEG
-// frames), sizes that are not multiples of the MCU. Refused with status -2 and
-// a message naming the feature: progressive, lossless, hierarchical and
+// frames), sizes that are not multiples of the MCU. Progressive files: DC
+// first and refine scans (interleaved or not), AC first scans with spectral
+// selection and end-of-band runs, AC refinement scans with their correction
+// bits, restarts inside every kind of scan; every scan is gathered into the
+// one coefficient buffer. Refused with status -2 and a message naming the
+// feature: a progressive file whose scans leave a low coefficient unrefined
+// (libjpeg-turbo then smooths blocks, jdcoefct.c), lossless, hierarchical and
 // arithmetic-coded JPEG, precisions other than 8 bits, 2 or 4 components.
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 jpeg_decoder.cpp -o <lib>.so
@@ -187,8 +193,13 @@ bool DecodeSymbol(BitReader* br, const HuffmanTable& t, int* symbol, Status* st)
   return st->Fail(-1, "corrupt JPEG data: bad Huffman code");
 }
 
+// libjpeg-turbo (jdcoefct.c, SAVED_COEFS) smooths blocks while any of the
+// first 10 coefficients of a progressive file is not refined to bit 0.
+constexpr int kSmoothedCoefs = 10;
+
 struct Component {
   int id, h, v, tq;
+  int coef_bits[64];  // progressive: Al of the last scan that coded each coefficient, -1 before any
   int64_t blocks_w, blocks_h;  // the buffer, padded to whole MCUs
   int64_t width_in_blocks, height_in_blocks;  // the blocks that hold samples
   bool latched = false;
@@ -201,6 +212,8 @@ struct Decoder {
   size_t pos = 0;
   Status st;
   int width = 0, height = 0, precision = 0, sof = -1;
+  bool progressive = false;
+  int eobrun = 0;
   int hmax = 1, vmax = 1;
   int64_t mcus_x = 0, mcus_y = 0;
   int restart_interval = 0;
@@ -245,8 +258,9 @@ struct Decoder {
         "arithmetic-coded hierarchical progressive JPEG (SOF14)",
         "arithmetic-coded hierarchical lossless JPEG (SOF15)"};
     const int n = marker - 0xC0;
-    if (n > 1) return st.Fail(-2, kNames[n]);
+    if (n > 2) return st.Fail(-2, kNames[n]);
     sof = n;
+    progressive = n == 2;
     precision = Byte();
     height = Word();
     width = Word();
@@ -264,6 +278,7 @@ struct Decoder {
       c.h = hv >> 4;
       c.v = hv & 15;
       c.tq = Byte();
+      std::fill(c.coef_bits, c.coef_bits + 64, -1);
       if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4 || c.tq > 3) return st.Fail(-1, "bad component in frame header");
       hmax = std::max(hmax, c.h);
       vmax = std::max(vmax, c.v);
@@ -323,20 +338,27 @@ struct Decoder {
     }
   }
 
-  bool DecodeBlock(BitReader* br, int ci, const HuffmanTable& d, const HuffmanTable& a, int* pred,
-                   int64_t bx, int64_t by) {
-    const Component& c = comps[ci];
-    int16_t* blk = coefs + offsets[ci] + (by * c.blocks_w + bx) * 64;
+  int16_t* Block(int ci, int64_t bx, int64_t by) {
+    return coefs + offsets[ci] + (by * comps[ci].blocks_w + bx) * 64;
+  }
+
+  // The DC difference of a sequential block, or of a progressive DC first scan (scaled by 2^al).
+  bool DecodeDC(BitReader* br, int16_t* blk, const HuffmanTable& d, int* pred, int al) {
     int s;
     if (!DecodeSymbol(br, d, &s, &st)) return false;
     if (s > 11) return st.Fail(-1, "corrupt JPEG data: bad DC difference");
     if (s) *pred += Extend(br->Get(s), s);
-    blk[0] = static_cast<int16_t>(*pred);
+    blk[0] = static_cast<int16_t>(*pred * (1 << al));
+    return true;
+  }
+
+  // A sequential block: DC difference, then the AC run-lengths.
+  bool DecodeBlock(BitReader* br, int16_t* blk, const HuffmanTable& d, const HuffmanTable& a, int* pred) {
+    if (!DecodeDC(br, blk, d, pred, 0)) return false;
     for (int k = 1; k < 64; ++k) {
       int rs;
       if (!DecodeSymbol(br, a, &rs, &st)) return false;
-      const int r = rs >> 4;
-      s = rs & 15;
+      const int r = rs >> 4, s = rs & 15;
       if (s) {
         k += r;
         if (k > 63) return st.Fail(-1, "corrupt JPEG data: coefficient index past 63");
@@ -349,9 +371,89 @@ struct Decoder {
     return true;
   }
 
+  // Progressive scans (ITU T.81 G.1.2; libjpeg-turbo's jdphuff.c).
+  void DecodeDCRefine(BitReader* br, int16_t* blk, int al) {
+    if (br->Get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+
+  bool DecodeACFirst(BitReader* br, int16_t* blk, const HuffmanTable& a, int ss, int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return true;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int rs;
+      if (!DecodeSymbol(br, a, &rs, &st)) return false;
+      const int r = rs >> 4, s = rs & 15;
+      if (s) {
+        k += r;
+        if (k > se) return st.Fail(-1, "corrupt JPEG data: coefficient index past the spectral band");
+        blk[kNaturalOrder[k]] = static_cast<int16_t>(Extend(br->Get(s), s) * (1 << al));
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += static_cast<int>(br->Get(r));
+        --eobrun;
+        break;
+      }
+    }
+    return true;
+  }
+
+  // A correction bit for a coefficient that is already non-zero.
+  static void Refine(BitReader* br, int16_t* coef, int p1) {
+    if (br->Get(1) && (*coef & p1) == 0) *coef = static_cast<int16_t>(*coef >= 0 ? *coef + p1 : *coef - p1);
+  }
+
+  bool DecodeACRefine(BitReader* br, int16_t* blk, const HuffmanTable& a, int ss, int se, int al) {
+    const int p1 = 1 << al;
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        int rs;
+        if (!DecodeSymbol(br, a, &rs, &st)) return false;
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          if (s != 1) return st.Fail(-1, "corrupt JPEG data: bad refinement value");
+          s = br->Get(1) ? p1 : -p1;
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += static_cast<int>(br->Get(r));
+          break;
+        }
+        // Skip r zero coefficients (refining the non-zero ones passed), then place s.
+        do {
+          int16_t* coef = blk + kNaturalOrder[k];
+          if (*coef != 0) {
+            Refine(br, coef, p1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) {
+          if (k > se) return st.Fail(-1, "corrupt JPEG data: coefficient index past the spectral band");
+          blk[kNaturalOrder[k]] = static_cast<int16_t>(s);
+        }
+      }
+    }
+    if (eobrun > 0) {
+      // The rest of the band holds no new coefficient: refine the non-zero ones.
+      for (; k <= se; ++k) {
+        int16_t* coef = blk + kNaturalOrder[k];
+        if (*coef != 0) Refine(br, coef, p1);
+      }
+      --eobrun;
+    }
+    return true;
+  }
+
   // One scan; `pos` is just past the SOS header on entry, at the first
   // byte after the scan's entropy-coded data on exit.
-  bool DecodeScan(const std::vector<int>& sel, const std::vector<int>& td, const std::vector<int>& ta) {
+  bool DecodeScan(const std::vector<int>& sel, const std::vector<int>& td, const std::vector<int>& ta, int ss,
+                  int se, int ah, int al) {
+    const bool dc_scan = ss == 0, refine = ah != 0;
     for (size_t i = 0; i < sel.size(); ++i) {
       Component& c = comps[sel[i]];
       if (!c.latched) {
@@ -359,10 +461,18 @@ struct Decoder {
         std::memcpy(c.quant, quant[c.tq], sizeof(c.quant));
         c.latched = true;
       }
-      if (!dc[td[i]].defined || !ac[ta[i]].defined) return st.Fail(-1, "scan without its Huffman table");
+      const bool needs_dc = !progressive || (dc_scan && !refine);
+      const bool needs_ac = !progressive || !dc_scan;
+      if ((needs_dc && !dc[td[i]].defined) || (needs_ac && !ac[ta[i]].defined)) {
+        return st.Fail(-1, "scan without its Huffman table");
+      }
+      if (progressive) {
+        for (int k = ss; k <= se; ++k) c.coef_bits[k] = al;
+      }
     }
     BitReader br{data, size, pos};
     int pred[4] = {0, 0, 0, 0};
+    eobrun = 0;
     const bool interleaved = sel.size() > 1;
     const int64_t units_x = interleaved ? mcus_x : comps[sel[0]].width_in_blocks;
     const int64_t units_y = interleaved ? mcus_y : comps[sel[0]].height_in_blocks;
@@ -370,7 +480,7 @@ struct Decoder {
     int next_restart = 0;
     for (int64_t m = 0; m < total; ++m) {
       if (restart_interval && m > 0 && m % restart_interval == 0) {
-        // Byte-align, expect RSTn, reset the DC predictions.
+        // Byte-align, expect RSTn, reset the DC predictions and the end-of-band run.
         br.Reset();
         size_t p = br.pos;
         while (p < size && data[p] == 0xFF && p + 1 < size && data[p + 1] == 0xFF) ++p;
@@ -380,6 +490,7 @@ struct Decoder {
         br.pos = p + 2;
         next_restart = (next_restart + 1) & 7;
         std::memset(pred, 0, sizeof(pred));
+        eobrun = 0;
       }
       const int64_t mx = m % units_x, my = m / units_x;
       for (size_t i = 0; i < sel.size(); ++i) {
@@ -387,13 +498,42 @@ struct Decoder {
         const int bh = interleaved ? c.v : 1, bw = interleaved ? c.h : 1;
         for (int v = 0; v < bh; ++v) {
           for (int h = 0; h < bw; ++h) {
-            if (!DecodeBlock(&br, sel[i], dc[td[i]], ac[ta[i]], &pred[i], mx * bw + h, my * bh + v)) return false;
+            int16_t* blk = Block(sel[i], mx * bw + h, my * bh + v);
+            bool ok = true;
+            if (!progressive) {
+              ok = DecodeBlock(&br, blk, dc[td[i]], ac[ta[i]], &pred[i]);
+            } else if (dc_scan) {
+              if (refine) {
+                DecodeDCRefine(&br, blk, al);
+              } else {
+                ok = DecodeDC(&br, blk, dc[td[i]], &pred[i], al);
+              }
+            } else {
+              ok = refine ? DecodeACRefine(&br, blk, ac[ta[i]], ss, se, al)
+                          : DecodeACFirst(&br, blk, ac[ta[i]], ss, se, al);
+            }
+            if (!ok) return false;
           }
         }
       }
     }
     pos = br.pos;
     return true;
+  }
+
+  // libjpeg-turbo's smoothing_ok (jdcoefct.c) after the last scan: true
+  // where it would smooth the blocks, which this decoder does not do.
+  bool NeedsBlockSmoothing() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (const auto& c : comps) {
+      for (int k = 0; k < kSmoothedCoefs; ++k) {
+        if (c.quant[kNaturalOrder[k]] == 0) return false;
+      }
+      if (c.coef_bits[0] < 0) return false;
+      for (int k = 1; k < kSmoothedCoefs; ++k) useful |= c.coef_bits[k] != 0;
+    }
+    return useful;
   }
 
   bool ParseSOS(size_t end, bool headers_only) {
@@ -413,14 +553,22 @@ struct Decoder {
       ta.push_back(t & 15);
     }
     const int ss = Byte(), se = Byte(), a = Byte();
-    if (ss != 0 || se != 63 || a != 0) return st.Fail(-1, "sequential scan with a spectral selection");
+    const int ah = a >> 4, al = a & 15;
+    if (!progressive) {
+      if (ss != 0 || se != 63 || a != 0) return st.Fail(-1, "sequential scan with a spectral selection");
+    } else {
+      // jdphuff.c's start_pass_phuff_decoder: these are errors, not warnings.
+      bool bad = ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1);
+      bad |= (ah != 0 && al != ah - 1) || al > 13;
+      if (bad) return st.Fail(-1, "invalid progressive scan parameters");
+    }
     int blocks = 0;
     for (int i = 0; i < ns; ++i) blocks += comps[sel[i]].h * comps[sel[i]].v;
     if (ns > 1 && blocks > 10) return st.Fail(-1, "more than 10 blocks in an MCU");
     pos = end;
     if (headers_only) return true;
     StandardTables();
-    return DecodeScan(sel, td, ta);
+    return DecodeScan(sel, td, ta, ss, se, ah, al);
   }
 
   // Parses markers and, unless `headers_only`, decodes every scan. Returns
@@ -479,7 +627,7 @@ struct SrJpegInfo {
   uint16_t quant[3][64];     // per component, natural order
 };
 
-// Decodes a baseline JPEG held in `data`. With `coefs` null (or `capacity`
+// Decodes a sequential or progressive JPEG held in `data`. With `coefs` null (or `capacity`
 // below `info->num_coefficients`), parses the headers up to the first scan,
 // fills `info` and returns 1; else decodes every scan into `coefs` (zeroed
 // by the caller): component c's blocks start at the sum of the earlier
@@ -523,6 +671,10 @@ int sr_jpeg_decode(const uint8_t* data, int64_t size, SrJpegInfo* info, int16_t*
             break;
           }
           std::memcpy(info->quant[i], full.comps[i].quant, sizeof(info->quant[i]));
+        }
+        if (ok && full.NeedsBlockSmoothing()) {
+          ok = full.st.Fail(-2, "progressive JPEG with incomplete refinement (its first coefficients not refined to "
+                                "bit 0; libjpeg-turbo smooths such blocks)");
         }
         if (ok) return 0;
       }

@@ -1,10 +1,12 @@
-"""PNG and BMP files, read and written with the standard library and numpy.
+"""Image files, read and written with the standard library, numpy and the
+port's native codecs.
 
 The JAX package reads and writes images through OpenCV (``cv2.imread`` /
-``cv2.imwrite``). The port keeps its own codec instead, built on ``zlib``
-and ``struct`` only, and returns what ``cv2.imread(path,
-cv2.IMREAD_UNCHANGED)`` returns for the same file: the same dtype (uint8 or
-uint16), the same channel count and the same BGR / BGRA channel order.
+``cv2.imwrite``). The port keeps its own codecs instead and returns what
+``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` returns for the same file: the
+same dtype, the same channel count and the same BGR / BGRA channel order;
+and it writes the file ``cv2.imwrite`` writes for the uint8 ``HxW`` /
+``HxWx3`` (BGR) images the loaders save.
 
 PNG, read: colour types 0 (grey), 2 (RGB), 3 (palette), 4 (grey + alpha)
 and 6 (RGBA) at every bit depth PNG allows them, the five row filters and
@@ -20,11 +22,16 @@ palette entry is grey, else BGR), 24 bit and 32 bit (BGR: OpenCV drops the
 fourth byte). Written: 24 bit for ``HxWx3`` and 8 bit with a grey palette for
 ``HxW``, as ``cv2.imwrite`` does.
 
-JPEG, read: baseline (sequential Huffman, 8 bit) grey and colour files
-through :mod:`super_resolution_tpu_torch.utils.jpeg`, bit-equal to OpenCV's
-libjpeg-turbo decode. Writing JPEG, and the other formats that the JAX loader
-hands to OpenCV (TIFF, GIF, JPEG 2000, WebP), raise ``NotImplementedError``
-with the format's name.
+JPEG (:mod:`super_resolution_tpu_torch.utils.jpeg`): sequential and
+progressive Huffman JPEG read bit-equal to OpenCV's libjpeg-turbo decode;
+written byte-equal to ``cv2.imwrite`` (quality 95, 4:2:0).
+TIFF (:mod:`super_resolution_tpu_torch.utils.tiff`): read as OpenCV's
+libtiff reads it (strips and tiles, chunky and planar, uncompressed, LZW,
+Deflate and PackBits, the three predictors, 8 to 64-bit samples); written as
+``cv2.imwrite`` writes it (LZW, predictor 2).
+GIF (:mod:`super_resolution_tpu_torch.utils.gif`): the first frame read as
+OpenCV's GIF decoder composes it. Writing GIF, and JPEG 2000 and WebP either
+way, raise ``NotImplementedError`` with the format's name.
 """
 
 from __future__ import annotations
@@ -37,10 +44,12 @@ import numpy as np
 
 __all__ = ["IMAGE_EXTENSIONS", "read_image", "write_image", "read_png", "write_png", "read_bmp", "write_bmp"]
 
-_READ_ONLY = {".jpg": "JPEG", ".jpeg": "JPEG"}
-_UNSUPPORTED = {".tif": "TIFF", ".tiff": "TIFF", ".gif": "GIF", ".jp2": "JPEG 2000", ".webp": "WebP"}
+_CODECS = {".png": "PNG", ".bmp": "BMP", ".jpg": "JPEG", ".jpeg": "JPEG", ".tif": "TIFF", ".tiff": "TIFF",
+           ".gif": "GIF"}
+_READ_ONLY = {".gif": "GIF"}
+_UNSUPPORTED = {".jp2": "JPEG 2000", ".webp": "WebP"}
 # Every extension the JAX loader reads as an image (``data_loader.py:22-24``).
-IMAGE_EXTENSIONS = frozenset({".png", ".bmp", *_READ_ONLY, *_UNSUPPORTED})
+IMAGE_EXTENSIONS = frozenset({*_CODECS, *_UNSUPPORTED})
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -53,35 +62,52 @@ def _extension(path: str, writing: bool) -> str:
     ext = os.path.splitext(path)[1].lower()
     if ext in _UNSUPPORTED:
         raise NotImplementedError(
-            f"{_UNSUPPORTED[ext]} files ({ext}) are not supported by the port's image codec; "
-            "convert the file to PNG or BMP.")
+            f"{_UNSUPPORTED[ext]} files ({ext}) are not supported by the port's image codecs; "
+            "convert the file to PNG, BMP, JPEG or TIFF.")
     if writing and ext in _READ_ONLY:
         raise NotImplementedError(
-            f"Writing {_READ_ONLY[ext]} files ({ext}) is not supported by the port's image codec (reading is); "
-            "write PNG or BMP.")
-    if ext not in (".png", ".bmp", *_READ_ONLY):
-        raise ValueError(f"{path}: not an image extension this codec knows ({ext!r}).")
-    return ext
+            f"Writing {_READ_ONLY[ext]} files ({ext}) is not supported by the port's image codecs (reading is): "
+            "OpenCV quantises the colours with a quantiser of its own; write PNG, BMP, JPEG or TIFF.")
+    if ext not in _CODECS:
+        raise ValueError(f"{path}: not an image extension these codecs know ({ext!r}).")
+    return _CODECS[ext]
 
 
 def read_image(path: str) -> np.ndarray:
-    """A PNG, BMP or JPEG file as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` gives it."""
-    ext = _extension(path, writing=False)
+    """An image file as ``cv2.imread(path, cv2.IMREAD_UNCHANGED)`` gives it."""
+    kind = _extension(path, writing=False)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"Could not read image {path}")
     with open(path, "rb") as f:
         data = f.read()
-    if ext in _READ_ONLY:
+    if kind == "JPEG":
         from super_resolution_tpu_torch.utils.jpeg import decode_jpeg
 
         return decode_jpeg(data)
-    return read_png(data) if ext == ".png" else read_bmp(data)
+    if kind == "TIFF":
+        from super_resolution_tpu_torch.utils.tiff import read_tiff
+
+        return read_tiff(data)
+    if kind == "GIF":
+        from super_resolution_tpu_torch.utils.gif import read_gif
+
+        return read_gif(data)
+    return read_png(data) if kind == "PNG" else read_bmp(data)
 
 
 def write_image(path: str, image: np.ndarray) -> None:
-    """Write a uint8 ``HxW`` or ``HxWx3`` (BGR) image as PNG or BMP, by extension."""
-    ext = _extension(path, writing=True)
-    data = write_png(image) if ext == ".png" else write_bmp(image)
+    """Write a uint8 ``HxW`` or ``HxWx3`` (BGR) image as PNG, BMP, JPEG or TIFF, by extension."""
+    kind = _extension(path, writing=True)
+    if kind == "JPEG":
+        from super_resolution_tpu_torch.utils.jpeg import encode_jpeg
+
+        data = encode_jpeg(image)
+    elif kind == "TIFF":
+        from super_resolution_tpu_torch.utils.tiff import write_tiff
+
+        data = write_tiff(image)
+    else:
+        data = write_png(image) if kind == "PNG" else write_bmp(image)
     with open(path, "wb") as f:
         f.write(data)
 

@@ -228,19 +228,32 @@ def test_bmp_write_reads_back_in_opencv(tmp_path, shape):
 @pytest.mark.parametrize("ext,name", [(".jpg", "JPEG"), (".jpeg", "JPEG"), (".tif", "TIFF"), (".tiff", "TIFF"),
                                       (".gif", "GIF"), (".jp2", "JPEG 2000"), (".webp", "WebP")])
 def test_other_formats_raise(tmp_path, ext, name):
-    """Each format the codec does not read or write names itself. JPEG is read
-    in its baseline form (tests/test_torch_jpeg.py): here a progressive file,
-    which the reader refuses, and writing, which no JPEG supports."""
+    """Every extension the JAX loader hands to OpenCV: JPEG and TIFF are read
+    and written as the JAX loader does (the port's file is OpenCV's, and the
+    JAX loader reads it back); GIF is read as it does, and writing it raises
+    naming GIF; JPEG 2000 and WebP raise both ways, naming themselves."""
     path = str(tmp_path / f"image{ext}")
-    with open(path, "wb") as f:
-        if name == "JPEG":
-            f.write(cv2.imencode(".jpg", np.zeros((16, 16), np.uint8), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes())
-        else:
+    image = np.random.default_rng(len(ext)).integers(0, 256, (6, 9, 3)).astype(np.uint8)
+    if name in ("JPEG 2000", "WebP"):
+        with open(path, "wb") as f:
             f.write(b"\0" * 64)
-    with pytest.raises(NotImplementedError, match=name):
-        load_image(path, **CPU)
-    with pytest.raises(NotImplementedError, match=name):
-        image_io.write_image(path, np.zeros((4, 4), np.uint8))
+        with pytest.raises(NotImplementedError, match=name):
+            load_image(path, **CPU)
+        with pytest.raises(NotImplementedError, match=name):
+            image_io.write_image(path, image)
+        return
+    assert cv2.imwrite(path, image)
+    np.testing.assert_array_equal(load_image(path, **CPU).hidden_array.numpy(),
+                                  np.asarray(j_load_image(path).hidden_array))
+    if name == "GIF":
+        with pytest.raises(NotImplementedError, match="Writing GIF"):
+            image_io.write_image(path, image)
+        return
+    theirs = open(path, "rb").read()
+    image_io.write_image(path, image)
+    assert open(path, "rb").read() == theirs
+    np.testing.assert_array_equal(np.asarray(j_load_image(path).hidden_array),
+                                  load_image(path, **CPU).hidden_array.numpy())
 
 
 # --- the loaders --------------------------------------------------------------

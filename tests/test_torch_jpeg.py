@@ -101,9 +101,13 @@ def test_standard_tables_stand_in_for_a_missing_dht():
 
 
 def test_unsupported_jpeg_raises_naming_the_feature(tmp_path):
+    """Progressive JPEG decodes as OpenCV decodes it and writing is OpenCV's
+    bytes (tests/test_torch_jpeg_progressive.py and test_torch_jpeg_encode.py
+    hold them in full); arithmetic-coded, lossless and 12-bit JPEG raise
+    naming the feature."""
     progressive = cv2.imencode(".jpg", _scene(16, 16, 3), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])[1].tobytes()
-    with pytest.raises(NotImplementedError, match="progressive"):
-        decode_jpeg(progressive)
+    np.testing.assert_array_equal(decode_jpeg(progressive),
+                                  cv2.imdecode(np.frombuffer(progressive, np.uint8), cv2.IMREAD_UNCHANGED))
     baseline = bytearray(cv2.imencode(".jpg", _scene(16, 16, 3))[1].tobytes())
     sof = baseline.index(b"\xff\xc0")
     for marker, name in ((0xC9, "arithmetic"), (0xC3, "lossless")):
@@ -118,18 +122,30 @@ def test_unsupported_jpeg_raises_naming_the_feature(tmp_path):
         decode_jpeg(b"\x89PNG\r\n\x1a\n")
     with pytest.raises(ValueError):
         decode_jpeg(bytes(baseline[: sof + 6]))
-    with pytest.raises(NotImplementedError, match="Writing JPEG"):
-        image_io.write_image(str(tmp_path / "out.jpg"), np.zeros((4, 4), np.uint8))
+    image_io.write_image(str(tmp_path / "out.jpg"), _scene(4, 4, 1))
+    assert open(tmp_path / "out.jpg", "rb").read() == cv2.imencode(".jpg", _scene(4, 4, 1))[1].tobytes()
 
 
 def test_no_compiler_means_no_jpeg_decoder(monkeypatch, tmp_path):
-    """There is no second decoder: without a C++ compiler (and no library
-    built yet) reading a JPEG raises, naming the compiler."""
-    monkeypatch.setattr(native, "_jpeg_lib", None)
+    """There is no second codec: without a C++ compiler (and no library
+    built yet) reading or writing a JPEG, and reading or writing an LZW TIFF
+    or a GIF, raises, naming the compiler."""
+    from torch_format_builders import gif_bytes
+
+    from super_resolution_tpu_torch.utils.gif import read_gif
+    from super_resolution_tpu_torch.utils.jpeg import encode_jpeg
+    from super_resolution_tpu_torch.utils.tiff import read_tiff, write_tiff
+
+    monkeypatch.setattr(native, "_loaded", {})
     monkeypatch.setattr(native, "_compiler", lambda: None)
     monkeypatch.setattr(native, "_library_path", lambda source=None: tmp_path / "absent.so")
-    with pytest.raises(RuntimeError, match="C\\+\\+ compiler"):
-        decode_jpeg(cv2.imencode(".jpg", _scene(8, 8, 1))[1].tobytes())
+    image = _scene(8, 8, 1)
+    lzw_tiff = cv2.imencode(".tif", image)[1].tobytes()
+    for codec, data in ((decode_jpeg, cv2.imencode(".jpg", image)[1].tobytes()), (encode_jpeg, image),
+                        (read_tiff, lzw_tiff), (write_tiff, image),
+                        (read_gif, gif_bytes(np.zeros((4, 4), np.uint8), np.zeros((4, 3), np.uint8)))):
+        with pytest.raises(RuntimeError, match="C\\+\\+ compiler"):
+            codec(data)
 
 
 def test_loaders_read_jpeg_as_the_jax_loaders(tmp_path):
