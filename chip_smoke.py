@@ -87,14 +87,19 @@ width:
   one-process solve; all-reduce bytes and ms an evaluation); and the scaling
   harness's collective calls an evaluation over 1 / 2 / 4 shards, flat;
 - formats (phase 14): the native codecs (progressive JPEG decoding, JPEG
-  and TIFF writing, LZW for TIFF and GIF) built from the checkout; the
-  fixtures of ``tests/data_torch/formats`` decoded array-equal to OpenCV's
-  decodes stored with them and the port's JPEG / TIFF of seeded images
-  byte-equal to OpenCV's files (the card's host has no OpenCV); the flagship
-  through ``super_resolve`` from a TIFF ground truth, its result written as
-  TIFF and JPEG, the estimate bit-equal to the same run from a PNG; phase
-  11's refined RGB run from baseline JPEG frames and a TIFF truth, above the
-  same PSNR floor; host ms to write and read 1000x1000 TIFF and JPEG files.
+  and TIFF writing, LZW for TIFF and GIF, WebP decoding and VP8L writing)
+  built from the checkout; the fixtures of ``tests/data_torch/formats``
+  (JPEG, TIFF, GIF and WebP) decoded array-equal to OpenCV's decodes stored
+  with them and the port's JPEG / TIFF of seeded images byte-equal to
+  OpenCV's files (the card's host has no OpenCV); the flagship through
+  ``super_resolve`` from a TIFF ground truth, its result written as TIFF and
+  JPEG, the estimate bit-equal to the same run from a PNG; phase 11's refined
+  RGB run from baseline JPEG frames and a TIFF truth, above the same PSNR
+  floor; the flagship's 4 LR frames written as WebP by ``generate_data`` and
+  super-resolved from them and a WebP truth to a WebP result (the luminance,
+  1x1000x1000, 4x), the estimate bit-equal to the same run from PNGs of the
+  same pixels; host ms to write and read 1000x1000 TIFF, JPEG and WebP
+  files.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -161,6 +166,7 @@ try:
     from super_resolution_tpu_torch.utils.image_io import read_image, write_image
     from super_resolution_tpu_torch.utils.jpeg import encode_jpeg
     from super_resolution_tpu_torch.utils.tiff import read_tiff, write_tiff
+    from super_resolution_tpu_torch.utils.webp import decode_webp, encode_webp
     from super_resolution_tpu_torch import video as sr_video
     from super_resolution_tpu_torch.ops.warp import translate
     from super_resolution_tpu_torch.solvers import graphs
@@ -3395,15 +3401,20 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
     card: (c-1) the flagship from a TIFF, its result as TIFF and JPEG, the
     estimate ``torch.equal`` to the same run from a PNG; (c-2) phase 11 (d)'s
     refined RGB run from baseline JPEG frames the port wrote and a TIFF
-    ground truth, held to the same PSNR floor. ``entry_steps``: phase 11's
-    steps (its (d) PSNR is logged beside (c-2)'s)."""
+    ground truth, held to the same PSNR floor; (c-3) the flagship's LR frames
+    written as WebP by ``generate_data`` on the card, then ``super_resolve``
+    from them and a WebP truth to a WebP result (``--interpolate_color``: the
+    luminance, 1 x side x side, TV), its estimate ``torch.equal`` to the same
+    run from PNGs of the same pixels. ``entry_steps``: phase 11's steps (its
+    (d) PSNR is logged beside (c-2)'s)."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    for load in (native.get_jpeg_library, native.get_jpeg_encoder_library, native.get_lzw_library):
+    for load in (native.get_jpeg_library, native.get_jpeg_encoder_library, native.get_lzw_library,
+                 native.get_webp_library, native.get_webp_encoder_library):
         load()
-    log(f"[14/14] formats: the native codecs (native/jpeg_decoder.cpp, jpeg_encoder.cpp, lzw.cpp) built from the "
-        f"checkout's sources with g++ on the host and loaded in {time.perf_counter() - t0:.2f} s (the decoder may "
-        "have been built by phase 12)")
+    log(f"[14/14] formats: the native codecs (native/jpeg_decoder.cpp, jpeg_encoder.cpp, lzw.cpp, webp_decoder.cpp, "
+        f"webp_encoder.cpp) built from the checkout's sources with g++ on the host and loaded in "
+        f"{time.perf_counter() - t0:.2f} s (the JPEG decoder may have been built by phase 12)")
     decode_ms = _format_fixtures()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_formats_")
     steps = {}
@@ -3471,34 +3482,85 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
             f"frames (phase 11 (d)) {png_run.get('psnr', float('nan')):.4f} dB (upsampled "
             f"{png_run.get('upsampled', float('nan')):.4f}); {seconds:.3f} s wall ({card})")
 
+        # (c-3) WebP LR frames and a WebP truth to a WebP result, beside the same run from PNGs.
+        webp_frames, png_frames = os.path.join(tmp, "webp_frames"), os.path.join(tmp, "png_frames")
+        text, seconds, _, _ = _cli_step("generate_webp_frames", generate_data_cli.main, [
+            "--input_image", paths["png"], "--output_image_dir", webp_frames, "--number_of_frames", "4",
+            "--upsampling_scale", "4", "--blur_radius", "3", "--blur_sigma", "1.5", "--motion_sequence_path", motion,
+            "--output_extension", "webp", "--device", str(device)], card, device, phase="14/14")
+        truth_webp, truth_png = os.path.join(tmp, "truth.webp"), os.path.join(tmp, "truth_bgr.png")
+        save_image(scene, truth_webp)
+        os.makedirs(png_frames)
+        for name in sorted(os.listdir(webp_frames)):
+            frame = read_image(os.path.join(webp_frames, name))
+            check(frame.shape == (side // 4, side // 4, 3), f"formats (c-3): {name} reads as {frame.shape}")
+            write_image(os.path.join(png_frames, name[:-len(".webp")] + ".png"), frame)
+        truth_bgr, grey = read_image(truth_webp), scene.visualization_image()
+        check(truth_bgr.shape == (side, side, 3) and all(np.array_equal(truth_bgr[..., c], grey) for c in range(3)),
+              "formats (c-3): the WebP truth does not read back as the grey scene in BGR")
+        write_image(truth_png, truth_bgr)
+        webp_estimates = {}
+        for label, frames, truth, ext in (("webp_to_webp", webp_frames, truth_webp, "webp"),
+                                          ("png_bgr_to_png", png_frames, truth_png, "png")):
+            results[label] = os.path.join(tmp, f"{label}.{ext}")
+            argv = ["--data_path", frames, "--ground_truth_image", truth, "--upsampling_scale", "4", "--blur_radius",
+                    "3", "--blur_sigma", "1.5", "--motion_sequence_path", motion, "--regularizer", "tv",
+                    "--regularization_parameter", "0.01", "--interpolate_color", "--evaluators", "psnr,ssim",
+                    "--device", str(device)] + fused + ["--result_path", results[label]]
+            with _saved_results() as saved:
+                text, seconds, counts, _ = _cli_step(label, super_resolve_cli.main, argv, card, device, phase="14/14")
+            check(len(saved) == 1, f"formats (c-3) {label}: {len(saved)} results saved")
+            webp_estimates[label] = saved[0]
+            scores = _check_psnr(label, text)
+            check(counts["data_term_tv"] > 0, f"formats (c-3) {label}: the TV kernels (K2) were never launched")
+            steps[label] = dict(seconds=seconds, counts=counts, psnr=scores["PSNR score on result"])
+        check(torch.equal(webp_estimates["webp_to_webp"], webp_estimates["png_bgr_to_png"]),
+              "formats (c-3): the estimate from WebP differs from the one from PNG (max|diff| "
+              f"{float((webp_estimates['webp_to_webp'] - webp_estimates['png_bgr_to_png']).abs().max()):.3e})")
+        webp_result = read_image(results["webp_to_webp"])
+        check(np.array_equal(webp_result, read_image(results["png_bgr_to_png"])),
+              "formats (c-3): the WebP result reads other pixels than the PNG result")
+        check(np.array_equal(decode_webp(encode_webp(webp_result)), webp_result),
+              "formats (c-3): the WebP result does not survive another round trip")
+        log(f"      (c-3) {len(os.listdir(webp_frames))} WebP LR frames (generate_data, {side // 4}x{side // 4}) and a "
+            f"WebP truth to a WebP result, the luminance 1x{side}x{side} solved: estimate torch.equal to the run from "
+            f"PNGs of the same pixels, results equal; PSNR {steps['webp_to_webp']['psnr']:.4f} dB; walls webp / png "
+            f"{steps['webp_to_webp']['seconds']:.3f} / {steps['png_bgr_to_png']['seconds']:.3f} s; result file "
+            f"{os.path.getsize(results['webp_to_webp'])} bytes ({card})")
+
         # Host ms a 1000x1000 file, written and read (the card's host, not the card).
         rgb = np.ascontiguousarray(ImageData(gt, normalize="never", channel_major=True).visualization_image())
-        grey = scene.visualization_image()
-        io_ms = {}
+        io_ms, webp_bytes = {}, {}
         for name, image in (("grey", grey), ("bgr", rgb)):
-            for ext, encode in (("tif", write_tiff), ("jpg", encode_jpeg)):
+            for ext, encode in (("tif", write_tiff), ("jpg", encode_jpeg), ("webp", encode_webp)):
                 path = os.path.join(tmp, f"timed_{name}.{ext}")
                 io_ms[f"encode {name} {ext}"] = _host_ms(lambda: encode(image))
                 io_ms[f"write {name} {ext}"] = _host_ms(lambda: write_image(path, image))
                 io_ms[f"read {name} {ext}"] = _host_ms(lambda: read_image(path))
-                check(ext == "jpg" or np.array_equal(read_image(path), image),
-                      f"formats: the {name} TIFF reads back other pixels")
+                if ext == "webp":
+                    webp_bytes[name] = os.path.getsize(path)
+                back = read_image(path)
+                check(ext == "jpg" or np.array_equal(back if back.ndim == image.ndim else back[..., 0], image),
+                      f"formats: the {name} {ext} file reads back other pixels")
         log(f"      host ms a {side}x{side} image, median of {FORMAT_REPEATS} (encode: to bytes; write / read: the file; "
             f"{card}, host time on the card's machine): "
             + ", ".join(f"{k} {v:.2f}" for k, v in io_ms.items()))
+        log(f"      the port's lossless WebP of the {side}x{side} images: "
+            + ", ".join(f"{k} {v} bytes" for k, v in webp_bytes.items()))
         log("      host ms to decode each fixture: " + ", ".join(f"{k} {v:.3f}" for k, v in decode_ms.items()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
         if row["row"] == "K2":
             row["launches_formats"] = sum(steps[k]["counts"]["data_term_tv"] for k in
-                                          ("png_to_png", "tiff_to_tiff", "tiff_to_jpeg"))
+                                          ("png_to_png", "tiff_to_tiff", "tiff_to_jpeg", "webp_to_webp",
+                                           "png_bgr_to_png"))
         if row["row"] == "K4":
             row["launches_formats"] = steps["rgb_estimated_jpeg"]["counts"]["data_term_btv"]
     log(f"[14/14] formats: {time.perf_counter() - t_phase:.1f} s; launches K2 "
         f"{next(r['launches_formats'] for r in rows if r['row'] == 'K2')}, K4 "
         f"{next(r['launches_formats'] for r in rows if r['row'] == 'K4')} (0 plain-version calls)")
-    return dict(steps=steps, io_ms=io_ms, decode_ms=decode_ms)
+    return dict(steps=steps, io_ms=io_ms, decode_ms=decode_ms, webp_bytes=webp_bytes)
 
 
 def per_kernel_table(rows):

@@ -7,8 +7,9 @@ Needs OpenCV (``cv2``), which writes most files and decodes every one of
 them as the reference; the layouts OpenCV cannot write (tiles, planar
 samples, big-endian, the floating-point predictor, an interlaced and
 transparent GIF on a larger screen) are built by hand by
-``tests/torch_format_builders.py``. Each input file comes with OpenCV's
-decode of it: a PNG for uint8 images (the port's PNG reader is exact), a
+``tests/torch_format_builders.py``; one lossless WebP comes from PIL's
+libwebp at its highest effort, 6 (OpenCV writes at its default). Each
+input file comes with OpenCV's decode of it: a PNG for uint8 images (the port's PNG reader is exact), a
 ``.npy`` otherwise. The encoding fixtures are OpenCV's JPEG and TIFF files
 of images drawn from ``numpy.random.PCG64(seed).random_raw``, whose stream
 numpy keeps stable. ``manifest.json`` lists it all; the tests
@@ -22,8 +23,11 @@ import json
 import os
 import sys
 
+import io
+
 import cv2
 import numpy as np
+from PIL import Image
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -95,6 +99,20 @@ def main() -> int:
     add("interlaced_transparent_29x41.gif",
         gif_bytes(indices, palette, screen=(47, 33), origin=(3, 2), interlaced=True, transparent=5, background=7),
         "GIF by hand: interlaced frame at (3, 2) on a 47x33 screen, global table of 32, transparent index 5")
+    colours = seeded_image(13, (11, 3))
+    add("vp8l_palette_29x41.webp", cv2.imencode(".webp", colours[scene(29, 41, 1, 14) % 11])[1].tobytes(),
+        "WebP by OpenCV: lossless (VP8L), 11 colours (colour indexing, 2 pixels a byte)")
+    bgra = np.dstack([scene(37, 53, 3, 15), scene(37, 53, 1, 16)])
+    add("vp8l_alpha_37x53.webp", cv2.imencode(".webp", bgra)[1].tobytes(),
+        "WebP by OpenCV: lossless (VP8L) BGRA, odd size")
+    add("vp8_q50_37x53.webp", cv2.imencode(".webp", scene(37, 53, 3, 17), [cv2.IMWRITE_WEBP_QUALITY, 50])[1].tobytes(),
+        "WebP by OpenCV: lossy (VP8) quality 50, odd size")
+    add("vp8_alpha_q70_37x53.webp", cv2.imencode(".webp", bgra, [cv2.IMWRITE_WEBP_QUALITY, 70])[1].tobytes(),
+        "WebP by OpenCV: lossy (VP8) quality 70 with an ALPH chunk (VP8X), odd size")
+    effort6 = io.BytesIO()
+    Image.fromarray(scene(48, 64, 3, 18)[..., ::-1]).save(effort6, "WEBP", lossless=True, method=6)
+    add("vp8l_effort6_48x64.webp", effort6.getvalue(),
+        "WebP by PIL: lossless (VP8L) at its highest effort, 6")
 
     for seed, shape in ((11, (48, 64, 3)), (12, (37, 53))):
         image = seeded_image(seed, shape)

@@ -11,6 +11,9 @@
 - ``lzw.cpp`` decodes and encodes TIFF's LZW and decodes GIF's (the serial
   halves of :mod:`super_resolution_tpu_torch.utils.tiff` and
   :mod:`super_resolution_tpu_torch.utils.gif`).
+- ``webp_decoder.cpp`` decodes WebP's VP8L (lossless) and VP8 (lossy)
+  bitstreams and unfilters ALPH planes; ``webp_encoder.cpp`` writes VP8L
+  (the serial halves of :mod:`super_resolution_tpu_torch.utils.webp`).
 
 At first use each is compiled with the host's C++ compiler into
 ``super_resolution_tpu_torch/_build/libsr_<name>_<hash>.so``, where the hash
@@ -20,8 +23,9 @@ one loaded as it is. Nothing runs when the module is imported.
 :func:`native_available` is false only when the host has no C++ compiler;
 then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. The
 codecs have no second implementation: without a compiler
-:func:`get_jpeg_library`, :func:`get_jpeg_encoder_library` and
-:func:`get_lzw_library` raise ``RuntimeError``. A compile that fails, and a
+:func:`get_jpeg_library`, :func:`get_jpeg_encoder_library`,
+:func:`get_lzw_library`, :func:`get_webp_library` and
+:func:`get_webp_encoder_library` raise ``RuntimeError``. A compile that fails, and a
 native read that fails, raise.
 """
 
@@ -38,14 +42,17 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["native_available", "get_library", "get_jpeg_library", "get_jpeg_encoder_library", "get_lzw_library",
-           "read_bsq", "build_library"]
+           "get_webp_library", "get_webp_encoder_library", "read_bsq", "build_library"]
 
 _HERE = Path(__file__).resolve().parent
 _SOURCE = _HERE / "envi_loader.cpp"
 _JPEG_SOURCE = _HERE / "jpeg_decoder.cpp"
 _JPEG_ENCODER_SOURCE = _HERE / "jpeg_encoder.cpp"
 _LZW_SOURCE = _HERE / "lzw.cpp"
-_LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw"}
+_WEBP_SOURCE = _HERE / "webp_decoder.cpp"
+_WEBP_ENCODER_SOURCE = _HERE / "webp_encoder.cpp"
+_LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw",
+                  _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}
@@ -120,6 +127,18 @@ def get_lzw_library() -> ctypes.CDLL:
     return _load(_LZW_SOURCE, {"sr_tiff_lzw_decode": (_i64, [ctypes.c_char_p, _i64, _ptr, _i64]),
                                "sr_tiff_lzw_encode": (_i64, [_ptr, _i64, _ptr, _i64]),
                                "sr_gif_lzw_decode": (_i64, [ctypes.c_char_p, _i64, _int, _ptr, _i64])})
+
+
+def get_webp_library() -> ctypes.CDLL:
+    """The loaded WebP decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_WEBP_SOURCE, {"sr_vp8l_decode": (_int, [ctypes.c_char_p, _i64, _int, _int, _int, _ptr]),
+                                "sr_vp8_decode": (_int, [ctypes.c_char_p, _i64, _int, _int, _ptr, _int]),
+                                "sr_webp_unfilter_alpha": (None, [_ptr, _int, _int, _int])})
+
+
+def get_webp_encoder_library() -> ctypes.CDLL:
+    """The loaded VP8L encoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_WEBP_ENCODER_SOURCE, {"sr_vp8l_encode": (_i64, [_ptr, _int, _int, _ptr, _i64])})
 
 
 def native_available() -> bool:

@@ -9,7 +9,12 @@ kernel (``blur_module.cpp:30-36``) — identical for the symmetric Gaussian.
 
 The correlation is a sum of shifted copies, one per kernel tap, in the
 tensor's own dtype. It does not go through ``conv2d``, so on a CUDA device
-no TF32 rounding can enter a float32 blur.
+no TF32 rounding can enter a float32 blur. Each tap is added with one fused
+multiply-add (``torch.add(out, shifted, alpha=tap)``), in row-major tap
+order, which is how XLA's CPU convolution rounds the JAX blur: summing
+rounded products instead changes the last bit of a blurred pixel, and on a
+noise-free image that moves exact ties between neighbours, where the TV
+gradient's sign flips.
 """
 
 from __future__ import annotations
@@ -67,8 +72,8 @@ def correlate2d(x: torch.Tensor, kernel) -> torch.Tensor:
             tap = float(k[i, j])
             if tap == 0.0:
                 continue
-            term = shift_zero_fill(x, kh // 2 - i, kw // 2 - j) * tap
-            out = term if out is None else out + term
+            shifted = shift_zero_fill(x, kh // 2 - i, kw // 2 - j)
+            out = shifted * tap if out is None else torch.add(out, shifted, alpha=tap)
     return torch.zeros_like(x) if out is None else out
 
 

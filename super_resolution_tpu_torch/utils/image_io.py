@@ -30,8 +30,15 @@ libtiff reads it (strips and tiles, chunky and planar, uncompressed, LZW,
 Deflate and PackBits, the three predictors, 8 to 64-bit samples); written as
 ``cv2.imwrite`` writes it (LZW, predictor 2).
 GIF (:mod:`super_resolution_tpu_torch.utils.gif`): the first frame read as
-OpenCV's GIF decoder composes it. Writing GIF, and JPEG 2000 and WebP either
-way, raise ``NotImplementedError`` with the format's name.
+OpenCV's GIF decoder composes it.
+WebP (:mod:`super_resolution_tpu_torch.utils.webp`): lossless (VP8L) and
+lossy (VP8) files, with or without alpha, read as OpenCV's libwebp decodes
+them; written as lossless VP8L, as ``cv2.imwrite`` writes WebP at its
+default quality. The port's encoder is not libwebp's, so its bytes differ
+from OpenCV's file: what is held equal is the pixels both files decode to
+(through ``cv2.imdecode`` and through this decoder), not the bytes.
+Writing GIF, and JPEG 2000 either way, raise ``NotImplementedError`` with
+the format's name; so does an animated WebP.
 """
 
 from __future__ import annotations
@@ -45,9 +52,9 @@ import numpy as np
 __all__ = ["IMAGE_EXTENSIONS", "read_image", "write_image", "read_png", "write_png", "read_bmp", "write_bmp"]
 
 _CODECS = {".png": "PNG", ".bmp": "BMP", ".jpg": "JPEG", ".jpeg": "JPEG", ".tif": "TIFF", ".tiff": "TIFF",
-           ".gif": "GIF"}
+           ".gif": "GIF", ".webp": "WebP"}
 _READ_ONLY = {".gif": "GIF"}
-_UNSUPPORTED = {".jp2": "JPEG 2000", ".webp": "WebP"}
+_UNSUPPORTED = {".jp2": "JPEG 2000"}
 # Every extension the JAX loader reads as an image (``data_loader.py:22-24``).
 IMAGE_EXTENSIONS = frozenset({*_CODECS, *_UNSUPPORTED})
 
@@ -63,11 +70,11 @@ def _extension(path: str, writing: bool) -> str:
     if ext in _UNSUPPORTED:
         raise NotImplementedError(
             f"{_UNSUPPORTED[ext]} files ({ext}) are not supported by the port's image codecs; "
-            "convert the file to PNG, BMP, JPEG or TIFF.")
+            "convert the file to PNG, BMP, JPEG, TIFF or WebP.")
     if writing and ext in _READ_ONLY:
         raise NotImplementedError(
             f"Writing {_READ_ONLY[ext]} files ({ext}) is not supported by the port's image codecs (reading is): "
-            "OpenCV quantises the colours with a quantiser of its own; write PNG, BMP, JPEG or TIFF.")
+            "OpenCV quantises the colours with a quantiser of its own; write PNG, BMP, JPEG, TIFF or WebP.")
     if ext not in _CODECS:
         raise ValueError(f"{path}: not an image extension these codecs know ({ext!r}).")
     return _CODECS[ext]
@@ -92,11 +99,15 @@ def read_image(path: str) -> np.ndarray:
         from super_resolution_tpu_torch.utils.gif import read_gif
 
         return read_gif(data)
+    if kind == "WebP":
+        from super_resolution_tpu_torch.utils.webp import decode_webp
+
+        return decode_webp(data)
     return read_png(data) if kind == "PNG" else read_bmp(data)
 
 
 def write_image(path: str, image: np.ndarray) -> None:
-    """Write a uint8 ``HxW`` or ``HxWx3`` (BGR) image as PNG, BMP, JPEG or TIFF, by extension."""
+    """Write a uint8 ``HxW`` or ``HxWx3`` (BGR) image as PNG, BMP, JPEG, TIFF or WebP, by extension."""
     kind = _extension(path, writing=True)
     if kind == "JPEG":
         from super_resolution_tpu_torch.utils.jpeg import encode_jpeg
@@ -106,6 +117,10 @@ def write_image(path: str, image: np.ndarray) -> None:
         from super_resolution_tpu_torch.utils.tiff import write_tiff
 
         data = write_tiff(image)
+    elif kind == "WebP":
+        from super_resolution_tpu_torch.utils.webp import encode_webp
+
+        data = encode_webp(image)
     else:
         data = write_png(image) if kind == "PNG" else write_bmp(image)
     with open(path, "wb") as f:

@@ -230,11 +230,13 @@ def test_bmp_write_reads_back_in_opencv(tmp_path, shape):
 def test_other_formats_raise(tmp_path, ext, name):
     """Every extension the JAX loader hands to OpenCV: JPEG and TIFF are read
     and written as the JAX loader does (the port's file is OpenCV's, and the
-    JAX loader reads it back); GIF is read as it does, and writing it raises
-    naming GIF; JPEG 2000 and WebP raise both ways, naming themselves."""
+    JAX loader reads it back); WebP is read as it does and written losslessly
+    (the port's bytes are its own; both files decode to the same pixels); GIF
+    is read as it does, and writing it raises naming GIF; JPEG 2000 raises
+    both ways, naming itself."""
     path = str(tmp_path / f"image{ext}")
     image = np.random.default_rng(len(ext)).integers(0, 256, (6, 9, 3)).astype(np.uint8)
-    if name in ("JPEG 2000", "WebP"):
+    if name == "JPEG 2000":
         with open(path, "wb") as f:
             f.write(b"\0" * 64)
         with pytest.raises(NotImplementedError, match=name):
@@ -250,8 +252,15 @@ def test_other_formats_raise(tmp_path, ext, name):
             image_io.write_image(path, image)
         return
     theirs = open(path, "rb").read()
+    theirs_loaded = np.asarray(j_load_image(path).hidden_array)
     image_io.write_image(path, image)
-    assert open(path, "rb").read() == theirs
+    if name == "WebP":
+        np.testing.assert_array_equal(cv2.imdecode(np.frombuffer(theirs, np.uint8), cv2.IMREAD_UNCHANGED), image)
+        np.testing.assert_array_equal(_opencv(path), image)
+        np.testing.assert_array_equal(image_io.read_image(path), image)
+    else:
+        assert open(path, "rb").read() == theirs
+    np.testing.assert_array_equal(np.asarray(j_load_image(path).hidden_array), theirs_loaded)
     np.testing.assert_array_equal(np.asarray(j_load_image(path).hidden_array),
                                   load_image(path, **CPU).hidden_array.numpy())
 
