@@ -76,7 +76,14 @@ width:
   decoded to the digest the CPU tests recorded; wall per frame, frames/s,
   device busy share from the trace ``utils.profiling.trace`` writes,
   registration per window (its read-backs counted), and one evaluation at
-  the video shape beside its bound, each kernel beside its own;
+  the video shape beside its bound, each kernel beside its own; the MPEG-4
+  Part 2 fixtures of ``tests/data_torch/video`` decoded on the host to their
+  recorded digests and to ``cv2.VideoCapture``'s frames stored with them
+  (``native/mpeg4_decoder.cpp`` built by ``g++``); the same 12 LR frames from
+  a checked-in ``mp4v`` .mp4 through ``VideoLoader.load_frames_from_video``
+  and the host loop, every launch a K4 evaluation with shifts from the
+  device, the luminance PSNR >= linear upsampling on every frame (the colour
+  PSNR logged beside it);
 - data parallel (phase 13): ``make_sharded_map_solver`` on a frame x4 mesh of
   the flagship and a frame x2 x band x2 mesh of the 64-band cube, each beside
   ``minimize`` on one device (float32 by iterations, cost and PSNR, float64
@@ -171,7 +178,7 @@ try:
     from super_resolution_tpu_torch.ops.warp import translate
     from super_resolution_tpu_torch.solvers import graphs
     from super_resolution_tpu_torch.utils.profiling import device_time, trace
-    from super_resolution_tpu_torch.video.video_loader import read_avi_frames
+    from super_resolution_tpu_torch.video.video_loader import read_avi_frames, read_video_frames
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -2642,6 +2649,11 @@ VIDEO_FIXTURE = os.path.join("tests", "data_torch", "mjpeg_160x120x8.avi")
 # The SHA-256 of the port's decode of the fixture, as tests/test_torch_video.py records it.
 VIDEO_FIXTURE_SHA256 = "2e73a5dd9b4206cdc215e3c8b8f8fb5cb69678eb48184e53581eaa7d6882f16c"
 VIDEO_FIXTURE_SHAPE = (8, 120, 160, 3)
+# The MPEG-4 Part 2 fixtures, made by scripts/make_torch_video_fixture.py with cv2.VideoWriter; manifest.json holds
+# each file's SHA-256 and that of cv2.VideoCapture's frames, the small clips also those frames as PNG.
+VIDEO_MPEG4_DIR = os.path.join("tests", "data_torch", "video")
+VIDEO_MPEG4_CLIP = "mp4v_960x540x12.mp4"  # (g): video_problem(cpu, float32)'s LR frames, as uint8
+VIDEO_MPEG4_GAP = 0                        # grey levels between the port's frames and cv2.VideoCapture's
 
 
 def video_problem(device, dtype, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES, seed=41):
@@ -2750,7 +2762,15 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     MJPEG fixture decoded to its recorded digest; (e) wall per frame, host
     loop and fused in turns, and under ``utils.profiling.trace`` the device's
     busy share, registration ms per window, one evaluation's time against
-    its bound."""
+    its bound; (f) every MPEG-4 Part 2 fixture decoded on the host (the
+    ``libsr_mpeg4`` library built by g++ at first use) to its recorded
+    digest and to the ``cv2.VideoCapture`` frames stored beside it; (g) the
+    same 12 LR frames from the checked-in ``mp4v`` clip through
+    ``VideoLoader.load_frames_from_video`` onto the card and the host loop:
+    every launch a K4 BTV evaluation with shifts from the device, no plain
+    version, luminance PSNR >= linear upsampling of the same decoded frames
+    on every frame inside the border (the colour PSNR, logged, loses to it:
+    the clip's chroma is 4:2:0)."""
     from super_resolution_tpu_torch.solvers import irls as irls_mod
 
     t_phase = time.perf_counter()
@@ -2942,12 +2962,122 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     log(f"      (d) MJPEG fixture {VIDEO_FIXTURE}: {len(decoded)} frames {decoded[0].shape}, SHA-256 as recorded by the "
         f"CPU tests; {decode_ms:.2f} ms per frame to decode on the host (median of 3)")
 
+    mpeg4_ms = _mpeg4_fixtures()
+    mp4_gains, launches_mp4 = _video_from_mp4(device, card, truth, gains, mpeg4_ms[VIDEO_MPEG4_CLIP])
+    for row in rows:
+        if row["row"] == "K4":
+            row["launches_video_mp4"] = launches_mp4
+
     results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
-                   rel=(rel_default, rel_refine))
+                   rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains)
     irls_mod._BUILT_SOLVER_CACHE.clear()
     log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
+
+
+def _mpeg4_fixtures():
+    """(f): each MPEG-4 Part 2 fixture decoded on the host, its file and its
+    frames held to the digests recorded with it, and the small clips' frames to
+    the ``cv2.VideoCapture`` frames stored as PNG; ms per frame to decode
+    (median of 3), by file."""
+    t0 = time.perf_counter()
+    native.get_mpeg4_library()
+    build_s = time.perf_counter() - t0
+    directory = os.path.join(ROOT, VIDEO_MPEG4_DIR)
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    decode_ms, notes = {}, []
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(directory, name)
+        with open(path, "rb") as f:
+            check(hashlib.sha256(f.read()).hexdigest() == entry["sha256"], f"video (f) {name}: not the file recorded")
+        seconds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            frames = np.stack(read_video_frames(path))
+            seconds.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(frames.tobytes()).hexdigest()
+        check(list(frames.shape) == entry["shape"] and digest == entry["frames_sha256"],
+              f"video (f) {name}: {frames.shape}, SHA-256 {digest} (recorded {entry['shape']}, {entry['frames_sha256']})")
+        gap = "digest only"
+        if entry["decoded_png"]:
+            stored = read_image(os.path.join(directory, entry["decoded_png"])).reshape(frames.shape)
+            worst = int(np.abs(stored.astype(np.int64) - frames).max())
+            check(worst <= VIDEO_MPEG4_GAP, f"video (f) {name}: {worst} grey levels from cv2.VideoCapture's frames")
+            gap = f"max gap to cv2.VideoCapture's PNG {worst}"
+        decode_ms[name] = 1e3 * float(np.median(seconds)) / frames.shape[0]
+        notes.append(f"{name} {tuple(frames.shape)} {decode_ms[name]:.3f} ms/frame ({gap})")
+    log(f"      (f) MPEG-4 Part 2 fixtures, native/mpeg4_decoder.cpp built and loaded in {build_s:.2f} s, decoded on "
+        f"the host to their recorded SHA-256 (median of 3): " + "; ".join(notes))
+    return decode_ms
+
+
+def _luma(image):
+    """BT.601 luminance of a ``[3, H, W]`` BGR image: the plane 4:2:0 video keeps at full resolution."""
+    return (0.114 * image[0] + 0.587 * image[1] + 0.299 * image[2])[None]
+
+
+def _video_from_mp4(device, card, truth, png_gains, decode_ms):
+    """(g): the checked-in 12-frame ``mp4v`` clip of the LR frames through
+    ``VideoLoader.load_frames_from_video`` onto the card and
+    ``VideoSuperResolver``'s host loop, the counts set to 0 just before and
+    read just after; PSNR inside the border against the truth rebuilt from the
+    seed, beside linear upsampling of the same decoded frames and beside
+    (a)'s result from PNG frames. The luminance must beat linear on every
+    frame; the colour PSNR is logged: the clip's chroma is 4:2:0, at half the
+    LR resolution, and the solve of each BGR channel then loses to linear
+    upsampling (measured, PERF.md). Returns ([(result, linear) dB], K4 launches)."""
+    path = os.path.join(ROOT, VIDEO_MPEG4_DIR, VIDEO_MPEG4_CLIP)
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    loader = sr_video.VideoLoader(device=device)
+    loader.load_frames_from_video(path)
+    stack = loader.frame_stack()
+    torch.cuda.synchronize(device)
+    load_s = time.perf_counter() - t0
+    frames = truth.shape[0]
+    lr_hw = (truth.shape[-2] // VIDEO_SCALE, truth.shape[-1] // VIDEO_SCALE)
+    check(tuple(stack.shape) == (frames, 3) + lr_hw and stack.is_cuda,
+          f"video (g): frame stack {tuple(stack.shape)} on {stack.device}")
+    resolver = sr_video.VideoSuperResolver(device=device)
+    degrade.reset_launch_counts()
+    x, seconds, info = _video_run(resolver, stack, device)
+    counts, sources, plain = dict(degrade.launch_counts), dict(degrade.shift_source_counts), \
+        dict(degrade.plain_version_calls)
+    evaluations = sum(w["evaluations"] for w in info)
+    check(evaluations > 0 and counts == {name: (evaluations if name == "data_term_btv" else 0) for name in counts},
+          f"video (g): launches {counts}, expected {evaluations} BTV evaluations")
+    check(sources == {"device": evaluations, "host": 0},
+          f"video (g): the shifts of {sources['host']} evaluations crossed from the host")
+    check(plain["calls"] == 0, f"video (g): the plain version ran {plain['calls']} times")
+    b = VIDEO_BORDER
+    inner = (slice(None), slice(b, -b), slice(b, -b))
+    hr = tuple(truth.shape[-2:])
+    gains, luma_gains = [], []
+    for i in range(frames):
+        check(bool(torch.isfinite(x[i]).all()) and x[i].shape == truth[i].shape, f"video (g) frame {i}: bad output")
+        linear = linear_resize(stack[i], hr)
+        gains.append((float(psnr(x[i][inner], truth[i][inner])), float(psnr(linear[inner], truth[i][inner]))))
+        luma_gains.append((float(psnr(_luma(x[i])[inner], _luma(truth[i])[inner])),
+                           float(psnr(_luma(linear)[inner], _luma(truth[i])[inner]))))
+        check(luma_gains[-1][0] >= luma_gains[-1][1],
+              f"video (g) frame {i}: luminance PSNR {luma_gains[-1][0]:.4f} dB below linear {luma_gains[-1][1]:.4f}")
+    margin = [r - l for r, l in gains]
+    luma_margin = [r - l for r, l in luma_gains]
+    gap = [p[0] - r for p, (r, _) in zip(png_gains, gains)]
+    log(f"      (g) {VIDEO_MPEG4_CLIP}: {frames} frames {tuple(stack.shape[1:])} decoded and placed on the card by "
+        f"VideoLoader.load_frames_from_video in {load_s:.3f} s ({1e3 * load_s / frames:.2f} ms a frame; decode alone "
+        f"{decode_ms:.2f} ms a frame), host loop -> 3x{hr[0]}x{hr[1]}: {evaluations} K4 BTV evaluations (shifts from "
+        f"the device), plain version 0; PSNR inside {b} px, result / linear upsampling of the decoded frames, "
+        f"luminance (BT.601 weights: what 4:2:0 keeps at full resolution) dB: "
+        + ", ".join(f"{r:.2f}/{l:.2f}" for r, l in luma_gains)
+        + f", margin {min(luma_margin):.4f} to {max(luma_margin):.4f} dB; colour dB: "
+        + ", ".join(f"{r:.2f}/{l:.2f}" for r, l in gains)
+        + f", margin {min(margin):.4f} to {max(margin):.4f} dB (the clip's 4:2:0 chroma); colour below (a)'s result "
+        f"from PNG frames by {min(gap):.4f} to {max(gap):.4f} dB; solve wall a frame {_median_range(seconds)} s "
+        f"({card})")
+    return gains, evaluations
 
 
 # ------------------------------------------------- the mesh under fused_irls (phase 8, extended)

@@ -1,32 +1,53 @@
 #!/usr/bin/env python3
-"""Write the Motion-JPEG AVI fixture of the port's video tests.
+"""Write the video fixtures of the port's tests.
 
     python3 scripts/make_torch_video_fixture.py [--out tests/data_torch/mjpeg_160x120x8.avi]
+                                                [--mpeg4-dir tests/data_torch/video]
 
-Eight 160x120 RGB frames of a seeded scene (smooth texture and sharp-edged
-shapes) panned by one pixel a frame, written by ``cv2.VideoWriter`` with the
-``MJPG`` fourcc (OpenCV's FFmpeg backend: baseline JPEG frames, 4:2:0, each
-with its own tables). Needs OpenCV, which the machine that decodes the
-fixture (``chip_smoke.py``) does not have: the file is kept in the
-repository, and ``tests/test_torch_video.py`` records the SHA-256 of the
-port's decode of it.
+The Motion-JPEG AVI: eight 160x120 RGB frames of a seeded scene (smooth
+texture and sharp-edged shapes) panned by one pixel a frame, written by
+``cv2.VideoWriter`` with the ``MJPG`` fourcc (OpenCV's FFmpeg backend:
+baseline JPEG frames, 4:2:0, each with its own tables);
+``tests/test_torch_video.py`` records the SHA-256 of the port's decode of it.
+
+The MPEG-4 Part 2 clips, each written by ``cv2.VideoWriter`` (FFmpeg's
+``mpeg4`` encoder: I- and P-VOPs, a GOP of 12):
+
+- ``mp4v_960x540x12.mp4``: the 12 LR frames of ``chip_smoke.py``'s video
+  phase (``video_problem`` on the CPU in float32, seed 41: 3x540x960),
+  quantised to uint8 as that phase's PNG path quantises them
+  (``ImageData.visualization_image``); ``chip_smoke.py`` super-resolves the
+  port's decode of it on the card and rebuilds the truth from the seed;
+- ``mp4v_160x120x14.mp4``: the scene above panned by one pixel a frame, with
+  one frame of noise (intra macroblocks in P-VOPs), over two GOPs;
+- ``xvid_96x64x8.avi``: the scene at 96x64 with fourcc ``XVID``.
+
+``manifest.json`` records each clip's SHA-256, its frame shape and the
+SHA-256 of ``cv2.VideoCapture``'s frames (uint8 BGR, C order); the two small
+clips also keep those frames as ``<clip>.decoded.png``, stacked top to
+bottom. Needs OpenCV, which the machine that decodes the fixtures
+(``chip_smoke.py``) does not have: the files are kept in the repository.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
+import json
 import os
+import sys
 
 import cv2
 import numpy as np
 
 FRAMES, WIDTH, HEIGHT, SEED = 8, 160, 120, 2026
+ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+FULL_WIDTH_CLIP = "mp4v_960x540x12.mp4"
 
 
-def scene(seed: int = SEED) -> np.ndarray:
-    """A uint8 BGR scene of (HEIGHT, WIDTH + FRAMES) pixels."""
+def scene(seed: int = SEED, h: int = HEIGHT, w: int = WIDTH + FRAMES) -> np.ndarray:
+    """A uint8 BGR scene of (h, w) pixels."""
     rng = np.random.default_rng(seed)
-    h, w = HEIGHT, WIDTH + FRAMES
     yy, xx = np.mgrid[:h, :w].astype(np.float64)
     img = np.empty((h, w, 3))
     for c in range(3):
@@ -38,19 +59,83 @@ def scene(seed: int = SEED) -> np.ndarray:
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
+def write_clip(path: str, fourcc: str, frames: list[np.ndarray], fps: int = 10) -> None:
+    h, w = frames[0].shape[:2]
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), fps, (w, h))
+    if not writer.isOpened():
+        raise SystemExit(f"cv2.VideoWriter cannot write {fourcc} to {path} here")
+    for frame in frames:
+        writer.write(np.ascontiguousarray(frame))
+    writer.release()
+
+
+def capture_frames(path: str) -> list[np.ndarray]:
+    """The frames ``cv2.VideoCapture`` (the JAX package's video path) decodes from ``path``."""
+    capture, frames = cv2.VideoCapture(path), []
+    while True:
+        ok, frame = capture.read()
+        if not ok:
+            break
+        frames.append(frame)
+    capture.release()
+    return frames
+
+
+def sha256(data: bytes) -> str:
+    return hashlib.sha256(data).hexdigest()
+
+
+def video_phase_frames() -> list[np.ndarray]:
+    """chip_smoke.py's video LR frames (seed 41, 3x540x960) as the uint8 BGR images its PNG path writes."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    from super_resolution_tpu_torch.image import ImageData
+
+    _, lows, _ = chip_smoke.video_problem(torch.device("cpu"), torch.float32)
+    return [ImageData(low, normalize="never", channel_major=True).visualization_image() for low in lows]
+
+
+def mpeg4_clips() -> dict[str, tuple[str, list[np.ndarray], bool]]:
+    """{file name: (fourcc, frames, keep cv2's decode as PNG)} of the MPEG-4 fixtures."""
+    pan = scene(SEED + 1, 120, 174)
+    panned = [pan[:, i:i + 160].copy() for i in range(14)]
+    panned[9] = np.random.default_rng(SEED).integers(0, 256, panned[9].shape, dtype=np.uint8)
+    small = scene(SEED + 2, 64, 104)
+    return {FULL_WIDTH_CLIP: ("mp4v", video_phase_frames(), False),
+            "mp4v_160x120x14.mp4": ("mp4v", panned, True),
+            "xvid_96x64x8.avi": ("XVID", [small[:, i:i + 96] for i in range(8)], True)}
+
+
+def write_mpeg4_fixtures(directory: str) -> None:
+    os.makedirs(directory, exist_ok=True)
+    manifest = {}
+    for name, (fourcc, frames, keep_png) in mpeg4_clips().items():
+        path = os.path.join(directory, name)
+        write_clip(path, fourcc, frames)
+        decoded = np.stack(capture_frames(path))
+        entry = {"sha256": sha256(open(path, "rb").read()), "fourcc": fourcc, "shape": list(decoded.shape),
+                 "frames_sha256": sha256(decoded.tobytes()), "decoded_png": None}
+        if keep_png:
+            entry["decoded_png"] = f"{name}.decoded.png"
+            cv2.imwrite(os.path.join(directory, entry["decoded_png"]), decoded.reshape(-1, *decoded.shape[2:]))
+        manifest[name] = entry
+        print(f"wrote {path} ({os.path.getsize(path)} bytes, {decoded.shape[0]} frames)")
+    with open(os.path.join(directory, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--out", default=os.path.join(os.path.dirname(__file__), "..", "tests", "data_torch",
-                                                      "mjpeg_160x120x8.avi"))
+    parser.add_argument("--out", default=os.path.join(ROOT, "tests", "data_torch", "mjpeg_160x120x8.avi"))
+    parser.add_argument("--mpeg4-dir", default=os.path.join(ROOT, "tests", "data_torch", "video"))
     args = parser.parse_args(argv)
     base = scene()
-    writer = cv2.VideoWriter(args.out, cv2.VideoWriter_fourcc(*"MJPG"), 10, (WIDTH, HEIGHT))
-    if not writer.isOpened():
-        raise SystemExit("cv2.VideoWriter cannot write MJPG here")
-    for i in range(FRAMES):
-        writer.write(np.ascontiguousarray(base[:, i: i + WIDTH]))
-    writer.release()
+    write_clip(args.out, "MJPG", [base[:, i: i + WIDTH] for i in range(FRAMES)])
     print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes)")
+    write_mpeg4_fixtures(args.mpeg4_dir)
     return 0
 
 

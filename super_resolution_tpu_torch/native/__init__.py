@@ -14,6 +14,10 @@
 - ``webp_decoder.cpp`` decodes WebP's VP8L (lossless) and VP8 (lossy)
   bitstreams and unfilters ALPH planes; ``webp_encoder.cpp`` writes VP8L
   (the serial halves of :mod:`super_resolution_tpu_torch.utils.webp`).
+- ``mpeg4_decoder.cpp`` decodes the macroblocks of MPEG-4 Part 2 Simple
+  Profile I- and P-VOPs into YUV 4:2:0 planes and converts them to BGR (the
+  serial half of :mod:`super_resolution_tpu_torch.utils.mpeg4`, which reads
+  the headers and keeps the reference picture).
 
 At first use each is compiled with the host's C++ compiler into
 ``super_resolution_tpu_torch/_build/libsr_<name>_<hash>.so``, where the hash
@@ -24,8 +28,9 @@ one loaded as it is. Nothing runs when the module is imported.
 then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. The
 codecs have no second implementation: without a compiler
 :func:`get_jpeg_library`, :func:`get_jpeg_encoder_library`,
-:func:`get_lzw_library`, :func:`get_webp_library` and
-:func:`get_webp_encoder_library` raise ``RuntimeError``. A compile that fails, and a
+:func:`get_lzw_library`, :func:`get_webp_library`,
+:func:`get_webp_encoder_library` and :func:`get_mpeg4_library` raise
+``RuntimeError``. A compile that fails, and a
 native read that fails, raise.
 """
 
@@ -42,7 +47,7 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["native_available", "get_library", "get_jpeg_library", "get_jpeg_encoder_library", "get_lzw_library",
-           "get_webp_library", "get_webp_encoder_library", "read_bsq", "build_library"]
+           "get_webp_library", "get_webp_encoder_library", "get_mpeg4_library", "read_bsq", "build_library"]
 
 _HERE = Path(__file__).resolve().parent
 _SOURCE = _HERE / "envi_loader.cpp"
@@ -51,8 +56,9 @@ _JPEG_ENCODER_SOURCE = _HERE / "jpeg_encoder.cpp"
 _LZW_SOURCE = _HERE / "lzw.cpp"
 _WEBP_SOURCE = _HERE / "webp_decoder.cpp"
 _WEBP_ENCODER_SOURCE = _HERE / "webp_encoder.cpp"
+_MPEG4_SOURCE = _HERE / "mpeg4_decoder.cpp"
 _LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw",
-                  _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder"}
+                  _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder", _MPEG4_SOURCE: "mpeg4"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}
@@ -139,6 +145,13 @@ def get_webp_library() -> ctypes.CDLL:
 def get_webp_encoder_library() -> ctypes.CDLL:
     """The loaded VP8L encoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
     return _load(_WEBP_ENCODER_SOURCE, {"sr_vp8l_encode": (_i64, [_ptr, _int, _int, _ptr, _i64])})
+
+
+def get_mpeg4_library() -> ctypes.CDLL:
+    """The loaded MPEG-4 Part 2 decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_MPEG4_SOURCE, {"sr_mpeg4_decode_vop": (_int, [ctypes.c_char_p, _i64, _i64, _ptr, _ptr, _ptr, _ptr,
+                                                               ctypes.c_char_p, _int]),
+                                 "sr_mpeg4_yuv420_to_bgr": (None, [_ptr, _int, _int, _int, _int, _ptr])})
 
 
 def native_available() -> bool:

@@ -11,14 +11,25 @@ order; :meth:`VideoLoader.frame_stack` gives the ``[K, C, H, W]`` stack the
 solvers take.
 
 The JAX loader decodes video through ``cv2.VideoCapture`` (FFmpeg). The port
-reads AVI itself: the video stream's ``##dc`` / ``##db`` chunks of the
-``movi`` list (and of the OpenDML ``AVIX`` extensions), decoded as
-Motion-JPEG through :mod:`super_resolution_tpu_torch.utils.jpeg` or as
-uncompressed 24-bit ``BI_RGB`` rows (bottom-up where the height is positive,
-each row padded to 4 bytes). An MJPEG frame is what ``cv2.imdecode`` gives
-for its JPEG payload; FFmpeg's MJPEG decoder and colour conversion differ
-from that by a few grey levels (ROADMAP.md, Queue 3). Other containers (MP4,
-Matroska, ...) and codecs raise ``NotImplementedError`` naming them.
+reads the file itself, choosing the container by its first bytes, not by
+its extension:
+
+- MP4 / QuickTime (:mod:`super_resolution_tpu_torch.video.mp4`): the first
+  video track's MPEG-4 Part 2 (``mp4v``) samples, with its edit list;
+- RIFF AVI: the video stream's ``##dc`` / ``##db`` chunks of the ``movi``
+  list (and of the OpenDML ``AVIX`` extensions), decoded as MPEG-4 Part 2
+  (fourcc ``XVID``, ``DIVX``, ``DX50``, ``FMP4``, ``MP4V``, in either case),
+  as Motion-JPEG through :mod:`super_resolution_tpu_torch.utils.jpeg`, or as
+  uncompressed 24-bit ``BI_RGB`` rows (bottom-up where the height is
+  positive, each row padded to 4 bytes).
+
+MPEG-4 Part 2 frames (:mod:`super_resolution_tpu_torch.utils.mpeg4`) are
+``cv2.VideoCapture``'s, pixel for pixel, on what ``cv2.VideoWriter``
+writes. An MJPEG frame is what ``cv2.imdecode`` gives for its JPEG payload;
+FFmpeg's MJPEG decoder and colour conversion differ from that by a few grey
+levels (ROADMAP.md, Queue 3). Other containers (Matroska / WebM, ...) and
+codecs (H.264, MS-MPEG4 ``DIV3``, ...) raise ``NotImplementedError`` naming
+them.
 """
 
 from __future__ import annotations
@@ -32,15 +43,14 @@ import torch
 
 from super_resolution_tpu_torch._device import resolve_device
 
-__all__ = ["VideoLoader", "read_avi_frames"]
+__all__ = ["VideoLoader", "read_avi_frames", "read_video_frames"]
 
 _MJPEG = {b"MJPG", b"mjpg"}
+_MPEG4 = {b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"dx50", b"FMP4", b"fmp4", b"MP4V", b"mp4v"}
 _DISPLAY_SIZE = (1000, 600)  # kDisplayFrameSize, video_loader.cpp:19
 
 
 def _container_name(head: bytes) -> str:
-    if head[4:8] == b"ftyp":
-        return "MP4 / QuickTime"
     if head[:4] == b"\x1a\x45\xdf\xa3":
         return "Matroska / WebM"
     if head[:4] == b"RIFF":
@@ -106,30 +116,82 @@ def _frame_payloads(data: bytes, stream: int, max_frames: int):
     return payloads
 
 
-def read_avi_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:
-    """The frames of an AVI file as uint8 ``HxWx3`` BGR arrays (all, or the first ``max_frames``)."""
+def _read(path: str) -> bytes:
     if not os.path.isfile(path):
         raise FileNotFoundError(f"Could not open video {path}")
     with open(path, "rb") as f:
-        data = f.read()
+        return f.read()
+
+
+def _refuse_container(path: str, head: bytes) -> NotImplementedError:
+    return NotImplementedError(
+        f"{path}: {_container_name(head)} is not supported by the port's video reader (MP4 / QuickTime with "
+        "MPEG-4 Part 2, and AVI with MPEG-4 Part 2, Motion-JPEG or uncompressed frames, are); convert the video, "
+        "or extract its frames as images.")
+
+
+def read_video_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:
+    """The frames of an MP4 / QuickTime or AVI file, told apart by its first
+    bytes, as uint8 ``HxWx3`` BGR arrays (all, or the first ``max_frames``)."""
+    from super_resolution_tpu_torch.video.mp4 import is_iso_bmff
+
+    data = _read(path)
+    if data[:4] == b"RIFF" and data[8:12] == b"AVI ":
+        return _avi_frames(path, data, max_frames)
+    if is_iso_bmff(data[:12]):
+        return _mp4_frames(data, max_frames)
+    raise _refuse_container(path, data[:12])
+
+
+def _mp4_frames(data: bytes, max_frames: int) -> list[np.ndarray]:
+    from super_resolution_tpu_torch.video.mp4 import read_mp4_video
+
+    video = read_mp4_video(data)
+    return _mpeg4_frames(video.samples, max_frames, video.config, video.shown)
+
+
+def _mpeg4_frames(payloads: list[bytes], max_frames: int, config: bytes = b"",
+                  shown: list[bool] | None = None) -> list[np.ndarray]:
+    """The frames of an MPEG-4 Part 2 stream's payloads, keeping those of the ``shown`` ones (default: all)."""
+    from super_resolution_tpu_torch.utils.mpeg4 import Mpeg4Decoder
+
+    decoder, frames = Mpeg4Decoder(config), []
+    for i, payload in enumerate(payloads):
+        decoded = decoder.decode(payload)
+        if shown is None or shown[i]:
+            frames += decoded
+        if max_frames and len(frames) >= max_frames:
+            return frames[:max_frames]
+    return (frames + decoder.flush())[:max_frames or None]
+
+
+def read_avi_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:
+    """The frames of an AVI file as uint8 ``HxWx3`` BGR arrays (all, or the first ``max_frames``)."""
+    data = _read(path)
     if data[:4] != b"RIFF" or data[8:12] != b"AVI ":
-        raise NotImplementedError(
-            f"{path}: {_container_name(data[:12])} is not supported by the port's video reader (AVI with "
-            "Motion-JPEG or uncompressed frames is); convert the video, or extract its frames as images.")
+        raise _refuse_container(path, data[:12])
+    return _avi_frames(path, data, max_frames)
+
+
+def _avi_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray]:
     hdrl = next(((s, e) for fourcc, kind, s, e in _chunks(data, 12, len(data))
                  if fourcc == b"LIST" and kind == b"hdrl"), None)
     if hdrl is None:
         raise ValueError(f"{path}: AVI file without a header list.")
     stream, codec, bits, width, height = _video_stream(data, hdrl)
+    if codec in _MPEG4:
+        return _mpeg4_frames(_frame_payloads(data, stream, 0), max_frames)
     if codec in _MJPEG:
         decode = _decode_mjpeg
     elif codec == b"\0\0\0\0" and bits == 24:
         decode = lambda payload: _decode_bgr24(payload, width, height)  # noqa: E731
     else:
         name = "uncompressed" if codec == b"\0\0\0\0" else repr(codec.decode("latin-1"))
+        if codec.upper() in (b"DIV3", b"MP43", b"MP42", b"MPG4"):
+            name += " (Microsoft MPEG-4, another codec than MPEG-4 Part 2)"
         raise NotImplementedError(
             f"{path}: {name} video with {bits} bits per pixel is not supported by the port's video reader "
-            "(Motion-JPEG and uncompressed 24-bit BGR are).")
+            "(MPEG-4 Part 2, Motion-JPEG and uncompressed 24-bit BGR are).")
     return [decode(p) for p in _frame_payloads(data, stream, max_frames)]
 
 
@@ -165,7 +227,7 @@ class VideoLoader:
         return torch.from_numpy(frame.astype(np.float64) / 255.0).to(device=self.device, dtype=self.dtype)
 
     def load_frames_from_video(self, video_path: str, max_frames: int = 0) -> None:
-        self._frames = [self._place(frame) for frame in read_avi_frames(video_path, max_frames)]
+        self._frames = [self._place(frame) for frame in read_video_frames(video_path, max_frames)]
 
     def load_frames_from_directory(self, directory: str) -> None:
         from super_resolution_tpu_torch.utils.data_loader import load_images

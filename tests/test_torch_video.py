@@ -4,16 +4,19 @@ against the JAX package's, float64 on the CPU, on the same numpy frames.
 The resolvers agree to 1e-8 of the largest entry (measured: <= 1.2e-13): the
 same windows, registration, image model, IRLS BTV solve and linear start.
 The loaders agree to 1e-12 on a PNG directory. For video the JAX loader
-decodes with ``cv2.VideoCapture`` (FFmpeg); the port reads AVI itself:
-its Motion-JPEG frames are bit-equal to ``cv2.imdecode`` of each frame's
-JPEG payload (OpenCV's libjpeg-turbo), and differ from ``VideoCapture``'s
-frames by FFmpeg's own MJPEG decoder and colour conversion: on the clips
-here by at most 26 grey levels and at most 1.9 on average (measured 16-26
-and 0.94-1.81; ROADMAP.md, Queue 3). Uncompressed 24-bit AVI frames are
-the bytes written. ``cv2.VideoWriter`` cannot write that format here (its
-FFmpeg backend stores fourcc 0 as I420), and ``cv2.VideoCapture`` aborts on
-such a file in this OpenCV build, so the test writes it with its own RIFF
-writer and holds the frames against what it wrote.
+decodes with ``cv2.VideoCapture`` (FFmpeg); the port reads the file itself.
+Here: its Motion-JPEG AVI frames are bit-equal to ``cv2.imdecode`` of each
+frame's JPEG payload (OpenCV's libjpeg-turbo), and differ from
+``VideoCapture``'s frames by FFmpeg's own MJPEG decoder and colour
+conversion: on the clips here by at most 26 grey levels and at most 1.9 on
+average (measured 16-26 and 0.94-1.81; ROADMAP.md, Queue 3). Uncompressed
+24-bit AVI frames are the bytes written. ``cv2.VideoWriter`` cannot write
+that format here (its FFmpeg backend stores fourcc 0 as I420), and
+``cv2.VideoCapture`` aborts on such a file in this OpenCV build, so the test
+writes it with its own RIFF writer and holds the frames against what it
+wrote. MPEG-4 Part 2 video (MP4, and AVI with ``XVID`` and the like) has its
+own tests, ``tests/test_torch_mpeg4.py``; here only the containers and
+codecs still refused.
 """
 
 import hashlib
@@ -292,14 +295,14 @@ def test_uncompressed_avi_frames_are_the_bytes_written(tmp_path, top_down, avix_
 
 
 def test_other_containers_and_codecs_raise(tmp_path):
-    mp4 = str(tmp_path / "clip.mp4")
-    writer = cv2.VideoWriter(mp4, cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 24))
+    mkv = str(tmp_path / "clip.mkv")  # Matroska with Motion-JPEG: a container the port still refuses
+    writer = cv2.VideoWriter(mkv, cv2.VideoWriter_fourcc(*"MJPG"), 10, (32, 24))
     assert writer.isOpened()
     for i in range(3):
         writer.write(np.full((24, 32, 3), 40 * i, np.uint8))
     writer.release()
-    with pytest.raises(NotImplementedError, match="MP4"):
-        VideoLoader(**CPU).load_frames_from_video(mp4)
+    with pytest.raises(NotImplementedError, match="Matroska"):
+        VideoLoader(**CPU).load_frames_from_video(mkv)
     i420 = str(tmp_path / "i420.avi")  # what cv2.VideoWriter writes for fourcc 0
     writer = cv2.VideoWriter(i420, 0, 10, (32, 24))
     for i in range(3):
