@@ -91,8 +91,15 @@ width:
   against its own serial solve, batched wall beside the serial one; the
   two-process loopback (``parallel/multihost.py``: two processes on the card,
   ``gloo`` between them, one shard each, each held against its own
-  one-process solve; all-reduce bytes and ms an evaluation); and the scaling
-  harness's collective calls an evaluation over 1 / 2 / 4 shards, flat;
+  one-process solve; all-reduce bytes and ms an evaluation); the scaling
+  harness's collective calls an evaluation over 1 / 2 / 4 shards, flat; and
+  (f) ``IRLSMapSolver`` on ``row`` x ``col`` and ``band`` meshes across two
+  processes on the card (``loopback --mesh``): 2x2 tiles of RGB 3x2048x2048
+  with BTV in float32 and of the flagship with TV in float64, band x4 of the
+  64-band cube with 3D TV in both, each held against the one-process mesh
+  of the same layout in each process, the processes' estimates equal bit for
+  bit, their exchanges (through pinned host memory) equal to the one-process
+  ones, every evaluation launching the shard-mode kernels once a local shard;
 - formats (phase 14): the native codecs (progressive JPEG decoding, JPEG
   and TIFF writing, LZW for TIFF and GIF, WebP decoding and VP8L writing)
   built from the checkout; the fixtures of ``tests/data_torch/formats``
@@ -3399,7 +3406,72 @@ def _scaling_counts(device):
     return points
 
 
-def phase_data_parallel(device, rows):
+# (f): IRLSMapSolver on meshes across two processes; float32 is held as (d) holds it.
+MESH_ACROSS_RUNS = [
+    ("(f-1) 2x2 tiles, RGB 3x2048x2048, 16 frames at 4x, BTV(3, 0.5)", "shard_mode", "data_term_btv", dict(
+        mesh="row=2,col=2", channels=3, side=2048, frames=16, scale=4, regularizer="btv", btv_range=3, btv_decay=0.5,
+        dtype="float32")),
+    ("(f-2) 2x2 tiles, flagship 1x1000x1000, TV", "shard_mode", "data_term_tv", dict(
+        mesh="row=2,col=2", channels=1, side=1000, frames=4, scale=4, regularizer="tv", dtype="float64")),
+    ("(f-3) band x4, 64 x 256x256, 3D TV", "spectral_halo", "data_term_tv3d", dict(
+        mesh="band=4", channels=64, side=256, frames=4, scale=2, regularizer="tv3d", dtype="float64")),
+    ("(f-3) band x4, 64 x 256x256, 3D TV", "spectral_halo", "data_term_tv3d", dict(
+        mesh="band=4", channels=64, side=256, frames=4, scale=2, regularizer="tv3d", dtype="float32")),
+]
+
+
+def _meshes_across_processes(device, card):
+    """(f): two processes on the one card, ``gloo`` between them, run
+    ``IRLSMapSolver`` on a ``row`` x ``col`` or ``band`` mesh whose axes
+    cross between them (2 IRLS rounds x 10 ``linear_cg``, TV / BTV 0.01),
+    each beside the one-process mesh of the same layout in the same
+    process. Returns the shard-mode and spectral-halo launches of the
+    processes' timed solves."""
+    from super_resolution_tpu_torch.parallel import multihost
+
+    runs = [dict(options, blur_sigma=1.5, tolerance=LOOPBACK_TOLERANCE if options["dtype"] == "float64" else
+                 float("inf")) for _, _, _, options in MESH_ACROSS_RUNS]
+    argv = ["--device", str(device), "--lam", "0.01", "--method", "linear_cg", "--iterations", "10",
+            "--irls_rounds", "2", "--runs", json.dumps(runs)]
+    t0 = time.perf_counter()
+    results = multihost.run_processes("loopback", 2, argv, timeout_s=240)
+    launched = {"shard_mode": 0, "spectral_halo": 0}
+    for (label, counter, mode, options), pair in zip(MESH_ACROSS_RUNS, zip(*results)):
+        label = f"{label} {options['dtype']}"
+        for r in pair:
+            where = f"{label}, process {r['process']}"
+            check(r["ok"], f"{where}: max|diff| {r['max_abs_diff']} (tol {r['tolerance']}), inner calls "
+                           f"{r['inner_calls']} vs {r['reference_inner_calls']}, exchanges equal {r['exchange_equal']}, "
+                           f"adjoint {r['adjoint_rel_error']}")
+            psnr_diff = abs(r["psnr_db"] - r["reference_psnr_db"])
+            check(r["cost_rel_diff"] <= 5e-2 and psnr_diff <= 0.05,
+                  f"{where}: cost {r['cost_rel_diff']} relative, PSNR {psnr_diff} dB from one process")
+            expected = len(r["local_shards"]) * r["evaluations"]
+            check(r["launches"] == dict({name: 0 for name in r["launches"]}, **{mode: expected})
+                  and r["shard_launches"][counter] == expected and r["plain_version_calls"]["calls"] == 0,
+                  f"{where}: launches {r['launches']}, {r['shard_launches']} and {r['plain_version_calls']} plain, "
+                  f"expected {expected} {mode} launches in {counter} mode and none of the plain version")
+            check(len(r["rounds"]) == 2 and r["rounds"][0] == r["rounds"][1],
+                  f"{where}: the collectives of the two rounds differ: {r['rounds']}")
+            launched[counter] += r["shard_launches"][counter]
+        check(len({r["estimate_sha256"] for r in pair}) == 1, f"{label}: the processes' estimates differ")
+        log(f"[13/14] (f) {label}, mesh {pair[0]['mesh']} over 2 processes on {card}: " + "; ".join(
+            f"process {r['process']} (shards {r['local_shards']}): max|diff| {r['max_abs_diff']:.2e} "
+            f"(tol {r['tolerance']:g}), PSNR {abs(r['psnr_db'] - r['reference_psnr_db']):.4f} dB and cost "
+            f"{r['cost_rel_diff']:.2e} from one process, {r['evaluations']} evaluations, "
+            f"{r['shard_launches'][counter]} {counter} launches, {r['plain_version_calls']['calls']} plain; "
+            f"{r['ms_per_evaluation']:.3f} ms an "
+            f"evaluation across processes, {r['single_process_ms_per_evaluation']:.3f} ms in one; an evaluation "
+            f"{r['all_reduce_per_evaluation']:.3f} all-reduces ({r['all_reduce_bytes_per_evaluation']:.1f} B), "
+            f"{r['exchange_per_evaluation']:.3f} exchanges ({r['exchange_bytes_per_evaluation']:.1f} B sent), "
+            f"a 0-d all-reduce {r['scalar_all_reduce_ms']:.3f} ms; "
+            f"exchange check equal {r['exchange_equal']}, adjoint {r['adjoint_rel_error']:.1e}" for r in pair)
+            + "; estimates equal bit for bit")
+    log(f"[13/14] (f) {time.perf_counter() - t0:.1f} s with the processes' start")
+    return launched
+
+
+def phase_data_parallel(device, rows, card):
     """``parallel/data_parallel.py`` on the card: frame-sharded solves against
     one device, the batched band split against serial band solves, the
     two-process loopback, and the scaling harness's collective counts."""
@@ -3436,6 +3508,7 @@ def phase_data_parallel(device, rows):
     before = degrade.launch_counts["data_term_tv"]
     results["scaling"] = _scaling_counts(device)
     flagship_launches += degrade.launch_counts["data_term_tv"] - before
+    across = results["across_processes"] = _meshes_across_processes(device, card)
     for name, count in (("flagship frame mesh", flagship_launches), ("cube frame x band mesh", cube_launches),
                         ("band split", split_launches)):
         check(count > 0, f"the {name} never launched data_term_tv")
@@ -3445,6 +3518,8 @@ def phase_data_parallel(device, rows):
             row["launches_loopback"] = loopback_launches
         if row["row"] == "K5":
             row["launches_data_parallel"] = cube_launches
+        if row["name"] in across:
+            row["launches_across_processes"] = across[row["name"]]
     log(f"[13/14] data parallel: {time.perf_counter() - t_phase:.1f} s")
     return results
 
@@ -3746,7 +3821,7 @@ def main():
         timed(phase_wolfe, device, rows)
         entry_steps = timed(phase_entry_points, device, rows, card)
         timed(phase_video, device, rows, card)
-        timed(phase_data_parallel, device, rows)
+        timed(phase_data_parallel, device, rows, card)
         timed(phase_formats, device, rows, card, entry_steps)
     except Failure as failure:
         print(f"chip_smoke: FAILED: {failure}", file=sys.stderr)

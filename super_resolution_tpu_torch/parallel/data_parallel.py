@@ -179,7 +179,16 @@ def band_split_minimize(value_and_grad_per_band, x0: torch.Tensor, method: str =
     Returns a ``MinimizeResult`` whose ``x`` is ``[C, H, W]``, ``cost`` and
     ``grad_norm`` ``[C]`` tensors, and ``iterations``, ``converged`` and
     ``num_evaluations`` lists with one entry per band.
+
+    A :class:`Sharded` ``x0`` is assembled first; one on a mesh that spans
+    processes raises ``ValueError``: the batched state holds every band in
+    one process, and a band axis across processes is not ported here.
     """
+    if isinstance(x0, Sharded):
+        if x0.mesh.spans_processes:
+            raise ValueError(f"band_split_minimize across processes ({x0.mesh.num_processes}) is not supported: "
+                             "its batched solve holds every band in one process.")
+        x0 = x0.to_global()
     bands = x0.shape[0]
     functions = (list(value_and_grad_per_band) if isinstance(value_and_grad_per_band, (list, tuple))
                  else [value_and_grad_per_band] * bands)

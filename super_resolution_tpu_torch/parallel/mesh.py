@@ -22,10 +22,11 @@ joined several processes (the counterpart of ``jax.distributed.initialize``),
 does: the shards are dealt to the processes in contiguous blocks of shard
 order, each process places and drives only its own, and what crosses between
 processes goes through ``torch.distributed`` (``parallel/collectives.py``).
-Only the ``frame`` axis may cross a process boundary: a ``band``, ``row`` or
-``col`` neighbour is always in the same process, so the halo exchanges and
-the dot products of the solve stay local and one all-reduce per evaluation
-is all that crosses.
+Any axis may cross a process boundary: a ``frame`` group sums its partials
+in an all-reduce, a ``row`` / ``col`` / ``band`` neighbour in another
+process trades rims or a band with this one point to point, and a dot
+product over pieces that lie in several processes is one more all-reduce
+(``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -69,12 +70,6 @@ class Mesh:
         self.local_shards = [i for i, p in enumerate(self.processes) if p == self.process_index]
         if not self.local_shards:
             raise ValueError(f"Process {self.process_index} owns no shard of the mesh {self.shape}.")
-        for group in self.groups([a for a in self.axis_names if a != FRAME_AXIS]):
-            if len({self.processes[i] for i in group}) > 1:
-                raise ValueError(
-                    f"Only the frame axis may span processes; the mesh {self.shape} over "
-                    f"{self.num_processes} processes would split a band, row or col axis between them "
-                    "(put 'frame' first and make its size a multiple of the process count).")
 
     @property
     def num_processes(self) -> int:
@@ -86,6 +81,10 @@ class Mesh:
 
     def is_local(self, shard: int) -> bool:
         return self.processes[shard] == self.process_index
+
+    def crosses_processes(self, shards) -> bool:
+        """True when ``shards`` belong to more than one process."""
+        return len({self.processes[i] for i in shards}) > 1
 
     @property
     def num_shards(self) -> int:
@@ -149,8 +148,9 @@ def make_mesh(axis_sizes: dict[str, int] | None = None, devices=None) -> Mesh:
     the mesh spans every process of the group, each bringing ``devices``: the
     device count above is the processes' together, and process ``p`` owns
     the ``p``-th block of ``num_shards / num_processes`` shards in shard
-    order (``ValueError`` if they do not divide, or if an axis other than
-    ``frame`` would cross a process boundary).
+    order (``ValueError`` if they do not divide). Any axis may then cross a
+    process boundary: ``{"row": 2, "col": 2}`` over 2 processes gives each a
+    row of tiles, over 4 one tile each.
     """
     if devices is None:
         resolve_device("cuda")

@@ -1,4 +1,4 @@
-"""A frame-sharded solve across processes on one host: the loopback check and the scaling harness.
+"""A solve across processes on one host: the loopback checks and the scaling harness.
 
 The port's counterparts of the JAX package's ``experiments/multihost_loopback.py``
 and ``bench.py``'s ``bench_scaling``. Each process joins a ``torch.distributed``
@@ -16,6 +16,22 @@ data-term kernels' launches by mode and the plain version's calls in its
 timed solve; the orchestrator prints ``PASS`` when every process did and
 exits 0.
 
+``loopback --mesh`` runs ``IRLSMapSolver(mesh=...)`` on a mesh of any axes
+across the processes (``row=2,col=2``, ``band=4``, ``row=2,frame=2``; the
+shards are dealt to the processes in contiguous blocks of shard order), with
+``--regularizer tv|btv|tv3d``, ``--channels`` and ``--irls_rounds``, and
+holds it against the same solve on a one-process mesh of the same layout in
+each process (the ``--tolerance`` elementwise; equal iterations and
+evaluations in every round). Each process also prints, per IRLS round, the
+all-reduces and point-to-point exchanges it made and their bytes, the
+SHA-256 of its estimate's bytes, and with ``--save_estimate PREFIX`` writes
+the estimate to ``PREFIX<rank>.npy``::
+
+    python -m super_resolution_tpu_torch.parallel.multihost loopback --processes 2 --device cpu \
+        --mesh row=2,col=2 --regularizer btv --width 32 --method linear_cg --iterations 15 --tolerance 1e-6
+    python -m super_resolution_tpu_torch.parallel.multihost loopback --processes 2 --device cpu \
+        --mesh band=4 --regularizer tv3d --channels 4 --method linear_cg --iterations 15 --tolerance 1e-6
+
 ``scaling``: one JSON line per (processes, shards) point: frame-iterations
 per second and the collective calls per evaluation, counted where
 ``parallel/collectives.py`` makes them (``psum``: sums over shards,
@@ -30,6 +46,7 @@ any that outlive it.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import socket
@@ -43,7 +60,7 @@ import torch
 from super_resolution_tpu_torch.ops.cuda import degrade
 from super_resolution_tpu_torch.parallel import collectives, distributed
 from super_resolution_tpu_torch.parallel.data_parallel import make_sharded_map_solver, shard_problem
-from super_resolution_tpu_torch.parallel.mesh import FRAME_AXIS, make_mesh
+from super_resolution_tpu_torch.parallel.mesh import BAND_AXIS, COL_AXIS, FRAME_AXIS, ROW_AXIS, Mesh, make_mesh
 
 __all__ = ["problem", "run_processes", "loopback", "scaling", "parser", "main"]
 
@@ -52,21 +69,28 @@ LOOPBACK_SHIFTS = [(0, 0), (1, 1), (-1, 0), (0, -1)]
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
-def problem(side: int, frames: int, scale: int, blur_sigma: float, device, dtype, seed: int = 7):
-    """The loopback's problem, made from ``seed`` alike in every process:
-    a random ``1 x side x side`` scene, ``frames`` LR frames at ``scale``
-    (the JAX loopback's integer shifts in turn), a 3x3 Gaussian blur.
-    Returns ``(ground truth, observations [K, 1, h, w], shifts [K, 2], kernel)``."""
+def image_model(frames: int, scale: int, blur_sigma: float):
+    """The loopback's image model: the JAX loopback's integer shifts in turn, a 3x3 Gaussian blur."""
     from super_resolution_tpu_torch.models.image_model import ImageModel, ImageModelParameters
     from super_resolution_tpu_torch.motion import MotionShiftSequence
 
-    rng = np.random.default_rng(seed)
-    hr = torch.tensor(rng.random((1, side, side)), dtype=dtype, device=device)
     sequence = MotionShiftSequence([LOOPBACK_SHIFTS[k % len(LOOPBACK_SHIFTS)] for k in range(frames)])
-    model = ImageModel.create(ImageModelParameters(scale=scale, blur_radius=3, blur_sigma=blur_sigma,
-                                                   motion_sequence=sequence))
+    return ImageModel.create(ImageModelParameters(scale=scale, blur_radius=3, blur_sigma=blur_sigma,
+                                                  motion_sequence=sequence))
+
+
+def problem(side: int, frames: int, scale: int, blur_sigma: float, device, dtype, seed: int = 7, channels: int = 1,
+            width: int = 0):
+    """The loopback's problem, made from ``seed`` alike in every process:
+    a random ``channels x side x width`` scene (``width`` 0: ``side``),
+    ``frames`` LR frames at ``scale`` through :func:`image_model`.
+    Returns ``(ground truth, observations [K, C, h, w], shifts [K, 2], kernel)``."""
+    rng = np.random.default_rng(seed)
+    hr = torch.tensor(rng.random((channels, side, width or side)), dtype=dtype, device=device)
+    model = image_model(frames, scale, blur_sigma)
     observations = torch.stack([model.apply(hr, k) for k in range(frames)])
-    return hr, observations, np.asarray(sequence.as_array(), dtype=np.float64), np.asarray(model.blur_operator.kernel)
+    shifts = model.motion_operator.motion_sequence.as_array()
+    return hr, observations, np.asarray(shifts, dtype=np.float64), np.asarray(model.blur_operator.kernel)
 
 
 def _regularizers(lam: float):
@@ -140,8 +164,171 @@ def _single_process_solve(args, hr, observations, shifts, kernel):
     return result, (time.perf_counter() - t0) / 10 * 1e3
 
 
+def parse_mesh(text: str) -> dict[str, int]:
+    """``"row=2,col=2"`` -> ``{"row": 2, "col": 2}``."""
+    return {name.strip(): int(size) for name, size in (item.split("=") for item in text.split(","))}
+
+
+def irls_regularizer(name: str, btv_range: int, btv_decay: float):
+    """The regulariser ``--regularizer`` names: ``tv``, ``tv3d`` or ``btv``."""
+    from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
+    from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
+
+    if name == "btv":
+        return BilateralTotalVariationRegularizer(btv_range, btv_decay)
+    if name in ("tv", "tv3d"):
+        return TotalVariationRegularizer(name == "tv3d")
+    raise ValueError(f"Unknown regularizer {name!r}; options: tv, tv3d, btv")
+
+
+def _irls_solve(args, mesh, model, lows, x0):
+    """``IRLSMapSolver(mesh=mesh)`` on the loopback's problem once to warm up,
+    then timed: ``(solver, x, wall s, per-round counts, launches)``. A round's
+    counts are the collectives' calls and bytes between two IRLS seams and
+    its evaluations; the launches are the data-term kernels' by mode, their
+    shard-mode / spectral-halo launches and the plain version's calls."""
+    from super_resolution_tpu_torch.solvers.irls import IRLSMapSolver, IRLSMapSolverOptions
+
+    options = IRLSMapSolverOptions(
+        least_squares_solver=args.method, max_num_solver_iterations=args.iterations,
+        max_num_irls_iterations=args.irls_rounds, gradient_norm_threshold=0.0, cost_decrease_threshold=0.0,
+        parameter_variation_threshold=0.0, irls_cost_difference_threshold=0.0)
+    solver = IRLSMapSolver(options, model, lows, device=args.device, dtype=DTYPES[args.dtype], mesh=mesh)
+    solver.add_regularizer(irls_regularizer(args.regularizer, args.btv_range, args.btv_decay), args.lam)
+    solver.solve(x0)
+    rounds = []
+    # The seam reweights once a round: read the counts there.
+    reweight = solver._reweight
+    solver._reweight = lambda x: (rounds.append(dict(collectives.counts)), reweight(x))[1]
+    collectives.reset_counts()
+    counters = (degrade.launch_counts, degrade.shard_launch_counts, degrade.plain_version_calls)
+    before = [dict(c) for c in counters]
+    _synchronize(args.device)
+    t0 = time.perf_counter()
+    x = solver.solve(x0)
+    _synchronize(args.device)
+    seconds = time.perf_counter() - t0
+    launches = {name: {key: counter[key] - was[key] for key in counter} for name, counter, was in zip(
+        ("launches", "shard_launches", "plain_version_calls"), counters, before)}
+    per_round, previous = [], dict.fromkeys(collectives.counts, 0)
+    for snapshot, call in zip(rounds, solver.last_inner_calls):
+        per_round.append({name: snapshot[name] - previous[name] for name in snapshot} | {"evaluations": call[2]})
+        previous = snapshot
+    return solver, x, seconds, per_round, launches
+
+
+def _map_solve(args, mesh, model, observations, x0) -> torch.Tensor:
+    """One inner solve through ``make_sharded_map_solver`` on ``mesh`` from
+    ``x0`` with unit IRLS weights (what the first IRLS round solves), gathered."""
+    regularizer = irls_regularizer(args.regularizer, args.btv_range, args.btv_decay)
+    solve = make_sharded_map_solver(mesh, np.asarray(model.blur_operator.kernel), args.scale, [(regularizer, args.lam)],
+                                    **_solve_options(args))
+    placed = shard_problem(mesh, x0, observations, model.motion_operator.motion_sequence.as_array())
+    return solve(*placed, (torch.ones_like(x0),)).x.to_global()
+
+
+def _l1_objective(solver, x) -> float:
+    """What IRLS minimises (the data term + 2 lambda * the regulariser's
+    residuals), through the kernels' plain version on ``x``'s device."""
+    cost, _ = degrade.fused_objective_reference(x, solver.observations, solver.shifts, solver.blur_kernel,
+                                                solver.scale)
+    for reg, lam in solver.regularizers:
+        cost = cost + 2.0 * lam * reg.residuals(x).sum()
+    return float(cost)
+
+
+def exchange_check(across: Mesh, alone: Mesh, tile_shape, q: int, device) -> dict:
+    """The exchanges of ``parallel/collectives.py`` on ``across`` (a mesh over
+    the processes) against the same calls on ``alone`` (its one-process
+    twin), on float64 tiles of ``tile_shape`` made from a seed alike in every
+    process: ``halo_gather`` / ``halo_scatter_sum`` (``q`` wide) where the
+    mesh has ``row`` / ``col``, the spectral-halo pair where it has ``band``.
+    Returns ``{"exchange_equal": each of this process's results equal to the
+    one-process one bit for bit, "adjoint_rel_error": |<G x, y> - <x, G^T y>|
+    / |<G x, y>| over every shard (0 without spatial axes)}``."""
+    rng = np.random.default_rng(11)
+    n = across.num_shards
+    c, h, w = tile_shape
+
+    def tiles(shape):
+        return [torch.tensor(rng.random(shape), dtype=torch.float64, device=device) for _ in range(n)]
+
+    def local(parts):
+        return [p if across.is_local(i) else None for i, p in enumerate(parts)]
+
+    equal, adjoint = True, 0.0
+    if ROW_AXIS in across.shape or COL_AXIS in across.shape:
+        x, y = tiles((c, h, w)), tiles((c, h + 2 * q, w + 2 * q))
+        gx, gty = collectives.halo_gather(across, local(x), q), collectives.halo_scatter_sum(across, local(y), q)
+        gx1, gty1 = collectives.halo_gather(alone, x, q), collectives.halo_scatter_sum(alone, y, q)
+        equal = all(torch.equal(gx[i], gx1[i]) and torch.equal(gty[i], gty1[i]) for i in across.local_shards)
+        dots = torch.stack([sum(torch.vdot(a[i].reshape(-1), b[i].reshape(-1)) for i in across.local_shards)
+                            for a, b in ((gx, y), (x, gty))])
+        collectives.all_reduce(dots)
+        adjoint = float((dots[0] - dots[1]).abs() / dots[0].abs())
+    if BAND_AXIS in across.shape:
+        x, y = tiles((c, h, w)), tiles((c + 1, h, w))
+        pairs = [(collectives.spectral_halo_extend(across, local(x)), collectives.spectral_halo_extend(alone, x)),
+                 (collectives.spectral_halo_return(across, local(y)), collectives.spectral_halo_return(alone, y))]
+        equal = equal and all(torch.equal(a[i], b[i]) for a, b in pairs for i in across.local_shards)
+    return {"exchange_equal": equal, "adjoint_rel_error": adjoint}
+
+
+def mesh_loopback(args) -> dict:
+    """One process's part of ``loopback --mesh``: ``IRLSMapSolver`` on the
+    mesh across the processes beside the same solve on a one-process mesh
+    of the same layout (the group already formed)."""
+    dtype = DTYPES[args.dtype]
+    sizes = parse_mesh(args.mesh)
+    hr, observations, _, _ = problem(args.side, args.frames, args.scale, args.blur_sigma, args.device, dtype,
+                                     channels=args.channels, width=args.width)
+    model = image_model(args.frames, args.scale, args.blur_sigma)
+    lows = list(observations)
+    x0 = lows[0].repeat_interleave(args.scale, dim=-2).repeat_interleave(args.scale, dim=-1)
+    across = make_mesh(sizes, devices=[args.device])
+    alone = Mesh(list(sizes), list(sizes.values()), [args.device] * across.num_shards)
+    tile = (args.channels // across.size(BAND_AXIS), hr.shape[-2] // across.size(ROW_AXIS),
+            hr.shape[-1] // across.size(COL_AXIS))
+    checked = exchange_check(across, alone, tile, args.scale, args.device)
+    solver, x, seconds, rounds, launches = _irls_solve(args, across, model, lows, x0)
+    reference, x_ref, seconds_ref, rounds_ref, _ = _irls_solve(args, alone, model, lows, x0)
+    diff = float((x - x_ref).abs().max())
+    x_map = _map_solve(args, across, model, observations, x0)
+    map_diff = float((x_map - _map_solve(args, alone, model, observations, x0)).abs().max())
+    evaluations = sum(r["evaluations"] for r in rounds)
+    calls, reference_calls = ([c[1:] for c in s.last_inner_calls] for s in (solver, reference))
+    ok = (diff <= args.tolerance and map_diff <= args.tolerance and calls == reference_calls
+          and checked["exchange_equal"] and checked["adjoint_rel_error"] <= 1e-12)
+    psnr = [float(10 * torch.log10(1.0 / torch.mean((v.to(torch.float64) - hr) ** 2))) for v in (x, x_ref)]
+    cost, cost_ref = _l1_objective(solver, x), _l1_objective(reference, x_ref)
+    if args.save_estimate:
+        np.save(f"{args.save_estimate}{distributed.process_index()}.npy", x.cpu().numpy())
+    return {
+        "process": distributed.process_index(), "processes": distributed.process_count(),
+        "mesh": across.shape, "local_shards": across.local_shards, "channels": args.channels,
+        "hw": list(hr.shape[-2:]), "frames": args.frames, "scale": args.scale, "regularizer": args.regularizer,
+        "device": str(torch.device(args.device)), "dtype": args.dtype, "backend": args.backend,
+        "inner_calls": calls, "reference_inner_calls": reference_calls,
+        "evaluations": evaluations, "max_abs_diff": diff, "tolerance": args.tolerance,
+        # make_sharded_map_solver across processes against the one-process mesh, and (with
+        # one IRLS round, which solves the same problem) against the IRLS estimate.
+        "map_solver_max_abs_diff": map_diff, "map_solver_vs_irls": float((x_map - x).abs().max()),
+        "psnr_db": psnr[0], "reference_psnr_db": psnr[1], "cost_rel_diff": abs(cost - cost_ref) / abs(cost_ref),
+        "estimate_sha256": hashlib.sha256(x.cpu().numpy().tobytes()).hexdigest(),
+        **checked, "ok": ok,
+        "rounds": rounds, "reference_rounds": rounds_ref, **launches,
+        "wall_s": seconds, "ms_per_evaluation": seconds / evaluations * 1e3,
+        "single_process_ms_per_evaluation": seconds_ref / sum(r["evaluations"] for r in rounds_ref) * 1e3,
+        "scalar_all_reduce_ms": _all_reduce_ms(1, args.device, dtype),
+        **{f"{name}_per_evaluation": sum(r[name] for r in rounds) / evaluations
+           for name in ("all_reduce", "all_reduce_bytes", "exchange", "exchange_bytes")},
+    }
+
+
 def loopback(args) -> dict:
     """One process's part of the loopback check (the group already formed)."""
+    if args.mesh:
+        return mesh_loopback(args)
     dtype = DTYPES[args.dtype]
     frames = args.frames
     hr, observations, shifts, kernel = problem(args.side, frames, args.scale, args.blur_sigma, args.device, dtype)
@@ -234,9 +421,15 @@ def run_processes(command: str, processes: int, argv: list[str], timeout_s: floa
     return [json.loads(out.strip().splitlines()[-1]) for _, out, _ in outputs]
 
 
+def _runs(args) -> list[argparse.Namespace]:
+    """One set of options for each entry of ``--runs``: ``args`` with the entry's values in place."""
+    return [argparse.Namespace(**{**vars(args), **run}) for run in json.loads(args.runs)]
+
+
 # The options a worker takes from its orchestrator.
-_FORWARDED = ("backend", "device", "dtype", "side", "frames", "scale", "blur_sigma", "lam", "method", "iterations",
-              "shards_per_process", "shards", "tolerance")
+_FORWARDED = ("backend", "device", "dtype", "side", "width", "channels", "frames", "scale", "blur_sigma", "lam",
+              "method", "iterations", "shards_per_process", "shards", "tolerance", "mesh", "regularizer", "btv_range",
+              "btv_decay", "irls_rounds", "save_estimate", "runs")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -249,7 +442,9 @@ def parser() -> argparse.ArgumentParser:
     parser.add_argument("--backend", default="gloo")
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--dtype", choices=sorted(DTYPES), default="float64")
-    parser.add_argument("--side", type=int, default=16, help="HR side")
+    parser.add_argument("--side", type=int, default=16, help="HR side (rows)")
+    parser.add_argument("--width", type=int, default=0, help="HR columns (0: --side)")
+    parser.add_argument("--channels", type=int, default=1)
     parser.add_argument("--frames", type=int, default=4, help="LR frames")
     parser.add_argument("--scale", type=int, default=2)
     parser.add_argument("--blur_sigma", type=float, default=1.0)
@@ -259,6 +454,14 @@ def parser() -> argparse.ArgumentParser:
     parser.add_argument("--shards_per_process", type=int, default=2)
     parser.add_argument("--shards", default="1,2,4", help="scaling: frame-mesh sizes")
     parser.add_argument("--tolerance", type=float, default=1e-9)
+    parser.add_argument("--mesh", default="", help="loopback: IRLSMapSolver on this mesh, e.g. row=2,col=2")
+    parser.add_argument("--regularizer", choices=["tv", "tv3d", "btv"], default="tv", help="--mesh: the regulariser")
+    parser.add_argument("--btv_range", type=int, default=2)
+    parser.add_argument("--btv_decay", type=float, default=0.7)
+    parser.add_argument("--irls_rounds", type=int, default=1)
+    parser.add_argument("--save_estimate", default="", help="--mesh: write the estimate to <prefix><rank>.npy")
+    parser.add_argument("--runs", default="", help="several runs in one start of the processes: a JSON list of "
+                        "option values, e.g. '[{\"mesh\": \"band=4\", \"regularizer\": \"tv3d\"}]'")
     parser.add_argument("--timeout", type=float, default=600.0)
     return parser
 
@@ -268,7 +471,8 @@ def main(argv=None) -> int:
     if args.command == "worker":
         distributed.initialize(args.coordinator, int(args.processes), args.process_id, backend=args.backend)
         try:
-            result = loopback(args) if args.worker_command == "loopback" else scaling(args)
+            run = loopback if args.worker_command == "loopback" else scaling
+            result = [run(a) for a in _runs(args)] if args.runs else run(args)
         finally:
             distributed.shutdown()
         print(json.dumps(result), flush=True)
@@ -276,6 +480,7 @@ def main(argv=None) -> int:
     forwarded = [item for name in _FORWARDED for item in (f"--{name}", str(getattr(args, name)))]
     if args.command == "loopback":
         results = run_processes("loopback", int(args.processes), forwarded, args.timeout)
+        results = [r for result in results for r in (result if args.runs else [result])]
         for result in results:
             print(json.dumps(result), flush=True)
         ok = all(r["ok"] for r in results)

@@ -26,9 +26,11 @@ partitioning axes only, never over an axis along which the value is
 replicated. ``bool()`` / ``float()`` read this process's first shard.
 
 On a mesh that spans processes a ``Sharded`` holds this process's shards
-only (``parts[i]`` is ``None`` for another process's shard). Only ``frame``
-crosses processes and the estimate is replicated along it, so every process
-holds every piece of ``x`` and of the scalars, and computes them alike.
+only (``parts[i]`` is ``None`` for another process's shard). A scalar is
+replicated in every process, bit for bit: a dot product over pieces that lie
+in several processes ends in one all-reduce, whose result every process
+gets alike, so every process takes every branch of the solve alike.
+:meth:`Sharded.to_global` gathers the pieces of other processes.
 """
 
 from __future__ import annotations
@@ -37,8 +39,9 @@ import operator
 
 import torch
 
-from super_resolution_tpu_torch.parallel.collectives import sum_to_devices
-from super_resolution_tpu_torch.parallel.mesh import FRAME_AXIS, Mesh
+from super_resolution_tpu_torch.parallel import distributed
+from super_resolution_tpu_torch.parallel.collectives import all_reduce, sum_to_devices
+from super_resolution_tpu_torch.parallel.mesh import Mesh
 
 __all__ = ["Sharded"]
 
@@ -140,25 +143,53 @@ class Sharded(Elementwise):
 
     def to_global(self, device=None) -> torch.Tensor:
         """The whole value as one tensor on ``device`` (default: this process's
-        first shard's). Raises where a piece lies only in another process."""
+        first shard's), the same in every process. Where some process lacks
+        a piece, every process takes part in one all-gather of the pieces
+        (each counted at its :meth:`_owner`); without a process group that
+        raises ``ValueError``."""
         device = self.local(0).device if device is None else torch.device(device)
+        mesh = self.mesh
+        pieces = {}  # where -> the local tensor of that piece
+        for shard in mesh.local_shards:
+            pieces.setdefault(self._where(shard), self.parts[shard])
+        every_piece = {self._where(i) for i in range(mesh.num_shards)}
+        held = {p: {self._where(i) for i in range(mesh.num_shards) if mesh.processes[i] == p}
+                for p in set(mesh.processes)}
+        if any(pieces_of_p != every_piece for pieces_of_p in held.values()):
+            if not distributed.is_initialized():
+                raise ValueError("Part of this value lies in another process; it cannot be assembled here "
+                                 "without a process group (parallel.distributed.initialize).")
+            pieces = self._gathered()
         out = torch.empty(self.shape, dtype=self.dtype, device=device)
-        done = set()
-        for shard in self.mesh.local_shards:
-            part = self.parts[shard]
-            coords = self.mesh.coords(shard)
-            where = tuple(coords[axis] for axis in self.partition)
-            if where in done:
-                continue
-            done.add(where)
+        for where, part in pieces.items():
             view = out
-            for axis, dim in self.partition.items():
-                view = view.narrow(dim, coords[axis] * part.shape[dim], part.shape[dim])
+            for (_, dim), coord in zip(self.partition.items(), where):
+                view = view.narrow(dim, coord * part.shape[dim], part.shape[dim])
             view.copy_(part, non_blocking=True)
-        if len(done) != len({tuple(self.mesh.coords(i)[a] for a in self.partition)
-                             for i in range(self.mesh.num_shards)}):
-            raise ValueError("Part of this value lies in another process; it cannot be assembled here.")
         return out
+
+    def _where(self, shard: int) -> tuple:
+        """The piece shard ``shard`` holds: its coordinates on the partitioning axes."""
+        coords = self.mesh.coords(shard)
+        return tuple(coords[axis] for axis in self.partition)
+
+    def _owner(self, shard: int) -> bool:
+        """True for the one shard that stands for its piece over all processes:
+        coordinate 0 on every axis that does not partition the value."""
+        return all(v == 0 for axis, v in self.mesh.coords(shard).items() if axis not in self.partition)
+
+    def _gathered(self) -> dict:
+        """Every piece, from one all-gather in which each process sends the
+        pieces of its owner shards (zeros where it owns fewer than another)."""
+        mesh = self.mesh
+        owners = [i for i in range(mesh.num_shards) if self._owner(i)]
+        by_process = {p: [i for i in owners if mesh.processes[i] == p] for p in sorted(set(mesh.processes))}
+        slots = max(len(shards) for shards in by_process.values())
+        like = self.local(0)
+        mine = [self.parts[i].to(like.device) for i in by_process[mesh.process_index]]
+        mine += [like.new_zeros(like.shape)] * (slots - len(mine))
+        gathered = distributed.all_gather(torch.stack(mine))
+        return {self._where(i): gathered[p][slot] for p, shards in by_process.items() for slot, i in enumerate(shards)}
 
     def _key(self, shard: int) -> tuple:
         """Shards with equal keys hold the same piece on the same device."""
@@ -262,19 +293,26 @@ class Sharded(Elementwise):
         One dot per distinct piece, summed in shard order over the
         partitioning axes only: along an axis where the value is replicated
         (``frame``) every shard holds the same piece, and it counts once.
+        Where the pieces lie in several processes, each process sums the
+        dots of its owner shards (:meth:`_owner`; zero if it has none) and
+        one all-reduce adds the processes' sums; otherwise every process holds
+        every piece and sums them itself, with no call between processes.
         """
         if other.partition != self.partition or other.mesh is not self.mesh:
             raise ValueError("vdot needs two values sharded the same way.")
-        if self.mesh.spans_processes and self.partition.keys() & {FRAME_AXIS}:
-            raise NotImplementedError("vdot of a value split over frames that span processes.")
+        mesh = self.mesh
+        crossing = any(mesh.crosses_processes(group) for group in mesh.groups(self.partition))
         dots, seen = [], set()
-        for shard in self.mesh.local_shards:
-            coords = self.mesh.coords(shard)
-            where = tuple(coords[axis] for axis in self.partition)
-            if where in seen:
+        for shard in mesh.local_shards:
+            where = self._where(shard)
+            if where in seen or (crossing and not self._owner(shard)):
                 continue
             seen.add(where)
             dots.append(torch.dot(self.parts[shard].reshape(-1), other.parts[shard].reshape(-1)))
-        totals = sum_to_devices(dots, self.mesh.unique_devices())
-        return Sharded(self.mesh, [totals[d] if self.mesh.is_local(i) else None
-                                   for i, d in enumerate(self.mesh.devices)])
+        if crossing:
+            home = mesh.devices[mesh.local_shards[0]]
+            total = sum_to_devices(dots, [home])[home] if dots else self.local(0).new_zeros(())
+            all_reduce(total)
+            dots = [total]
+        totals = sum_to_devices(dots, mesh.unique_devices())
+        return Sharded(mesh, [totals[d] if mesh.is_local(i) else None for i, d in enumerate(mesh.devices)])

@@ -115,7 +115,9 @@ def make_sharded_vg(
     One evaluation launches the fused objective once per shard and makes one
     ``psum`` (``collectives.psum_together``): the cost over every shard and,
     with a ``frame`` axis, the gradient over ``frame``, in one all-reduce
-    where the mesh spans processes.
+    where the mesh spans processes. There the rims and the halo band of a
+    neighbour in another process cross point to point, one exchange per
+    axis and direction of the halo.
 
     At most one regulariser, 2D / 3D TV or BTV, is fused; 3D TV on a spatial
     mesh is refused (band coupling and spatial tiling would need both halo

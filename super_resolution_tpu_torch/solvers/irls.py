@@ -38,6 +38,11 @@ motion refinement runs there too, on the assembled estimate. ``solve()``
 takes and returns global ``[C, H, W]`` tensors. A mesh configuration that
 fits none of the sharded objectives raises ``ValueError``: there is no
 second path to fall to, and a quiet single-device solve would hide the mesh.
+On a mesh that spans processes (``parallel/distributed.py``) every process
+runs this loop on its own shards; the seam's assembly gathers the pieces of
+the other processes (``Sharded.to_global``), so every process reweights the
+whole estimate alike and places its own shards' weights, and ``solve()``
+returns the whole estimate in every process.
 
 ``fused_irls`` runs the whole solve on the device (:func:`irls_solve_fused`,
 :class:`FusedIRLS`), as the JAX package's one XLA program does. On a CUDA

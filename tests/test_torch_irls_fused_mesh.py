@@ -36,7 +36,7 @@ from super_resolution_tpu_torch import IRLSMapSolver, IRLSMapSolverOptions, Imag
 from super_resolution_tpu_torch.motion import MotionShift, MotionShiftSequence
 from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
 from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
-from super_resolution_tpu_torch.parallel import Mesh, make_mesh
+from super_resolution_tpu_torch.parallel import Mesh, Sharded, band_split_minimize, make_mesh
 from super_resolution_tpu_torch.solvers import irls as irls_mod
 
 JAX_TOL = 1e-8
@@ -180,5 +180,10 @@ def test_fused_irls_refuses_a_mesh_over_several_processes():
                            mesh=mesh)
     with pytest.raises(ValueError, match="spans processes"):
         solver.solve(np.zeros_like(hr))
-    with pytest.raises(ValueError, match="Only the frame axis may span processes"):
-        Mesh(["band", "frame"], [2, 2], ["cpu"] * 4, processes=[0, 0, 1, 1])
+    # A band axis across the two processes builds (each holds one band shard's two frame shards) ...
+    bands = Mesh(["band", "frame"], [2, 2], ["cpu"] * 4, processes=[0, 0, 1, 1])
+    assert bands.local_shards == [0, 1] and bands.spans_processes
+    # ... but the batched band split holds every band in one process.
+    x0 = Sharded.from_global(bands, torch.zeros(2, 4, 4, dtype=torch.float64), {"band": 0})
+    with pytest.raises(ValueError, match="band_split_minimize across processes"):
+        band_split_minimize(lambda x: (x.sum(), torch.ones_like(x)), x0)
