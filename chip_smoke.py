@@ -83,7 +83,10 @@ width:
   a checked-in ``mp4v`` .mp4 through ``VideoLoader.load_frames_from_video``
   and the host loop, every launch a K4 evaluation with shifts from the
   device, the luminance PSNR >= linear upsampling on every frame (the colour
-  PSNR logged beside it);
+  PSNR logged beside it); and (g') the same frames from a checked-in
+  Matroska clip of the same ``mp4v`` stream: decoded array-equal to the
+  .mp4's, the resolver's estimate bit-equal to (g)'s, demux and decode ms a
+  frame;
 - data parallel (phase 13): ``make_sharded_map_solver`` on a frame x4 mesh of
   the flagship and a frame x2 x band x2 mesh of the 64-band cube, each beside
   ``minimize`` on one device (float32 by iterations, cost and PSNR, float64
@@ -100,6 +103,13 @@ width:
   of the same layout in each process, the processes' estimates equal bit for
   bit, their exchanges (through pinned host memory) equal to the one-process
   ones, every evaluation launching the shard-mode kernels once a local shard;
+  in the same start of the workers ``band_split_minimize`` on band x4 of a
+  64 x 256x256 cube (two bands a process; every band bit-equal to the
+  one-process mesh's band split, no all-reduce, each process launching K2
+  only for its own bands) and ``IRLSMapSolver`` on ``frame`` x2 with the
+  motion refined (RGB 3x1000x1000, 4 frames at 4x, BTV, float64; estimate
+  and shifts within 1e-6 of the one-process frame mesh, K4 launched once a
+  local shard an evaluation);
 - formats (phase 14): the native codecs (progressive JPEG decoding, JPEG
   and TIFF writing, LZW for TIFF and GIF, WebP decoding and VP8L writing)
   built from the checkout; the fixtures of ``tests/data_torch/formats``
@@ -186,6 +196,7 @@ try:
     from super_resolution_tpu_torch.solvers import graphs
     from super_resolution_tpu_torch.utils.profiling import device_time, trace
     from super_resolution_tpu_torch.video.video_loader import read_avi_frames, read_video_frames
+    from super_resolution_tpu_torch.video.mkv import read_matroska_video
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -2660,6 +2671,7 @@ VIDEO_FIXTURE_SHAPE = (8, 120, 160, 3)
 # each file's SHA-256 and that of cv2.VideoCapture's frames, the small clips also those frames as PNG.
 VIDEO_MPEG4_DIR = os.path.join("tests", "data_torch", "video")
 VIDEO_MPEG4_CLIP = "mp4v_960x540x12.mp4"  # (g): video_problem(cpu, float32)'s LR frames, as uint8
+VIDEO_MKV_CLIP = "mp4v_960x540x12.mkv"    # (g'): the same frames, the same encoder, in Matroska
 VIDEO_MPEG4_GAP = 0                        # grey levels between the port's frames and cv2.VideoCapture's
 
 
@@ -2970,24 +2982,29 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
         f"CPU tests; {decode_ms:.2f} ms per frame to decode on the host (median of 3)")
 
     mpeg4_ms = _mpeg4_fixtures()
-    mp4_gains, launches_mp4 = _video_from_mp4(device, card, truth, gains, mpeg4_ms[VIDEO_MPEG4_CLIP])
+    mp4_gains, launches_mp4, mp4_stack, mp4_x = _video_from_mp4(device, card, truth, gains, mpeg4_ms[VIDEO_MPEG4_CLIP])
+    launches_mkv, mkv_ms = _video_from_mkv(device, card, mp4_stack, mp4_x)
     for row in rows:
         if row["row"] == "K4":
             row["launches_video_mp4"] = launches_mp4
+            row["launches_video_mkv"] = launches_mkv
 
     results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
-                   rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains)
+                   rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains, mkv_ms=mkv_ms)
     irls_mod._BUILT_SOLVER_CACHE.clear()
     log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
 
 
 def _mpeg4_fixtures():
-    """(f): each MPEG-4 Part 2 fixture decoded on the host, its file and its
-    frames held to the digests recorded with it, and the small clips' frames to
-    the ``cv2.VideoCapture`` frames stored as PNG; ms per frame to decode
-    (median of 3), by file."""
+    """(f): each video fixture (MPEG-4 Part 2 in MP4, AVI and Matroska, and a
+    Motion-JPEG Matroska clip) decoded on the host, its file and its frames
+    held to the digests recorded with it, and the small clips' frames to the
+    ``cv2.VideoCapture`` frames stored as PNG; the Motion-JPEG clip's frames
+    to the digest of the decode that equals ``cv2.imdecode`` (its gap to
+    ``cv2.VideoCapture`` is recorded with it); ms per frame to decode (median
+    of 3), by file."""
     t0 = time.perf_counter()
     native.get_mpeg4_library()
     build_s = time.perf_counter() - t0
@@ -3005,9 +3022,12 @@ def _mpeg4_fixtures():
             frames = np.stack(read_video_frames(path))
             seconds.append(time.perf_counter() - t0)
         digest = hashlib.sha256(frames.tobytes()).hexdigest()
-        check(list(frames.shape) == entry["shape"] and digest == entry["frames_sha256"],
-              f"video (f) {name}: {frames.shape}, SHA-256 {digest} (recorded {entry['shape']}, {entry['frames_sha256']})")
+        recorded = entry.get("decode_sha256", entry["frames_sha256"])
+        check(list(frames.shape) == entry["shape"] and digest == recorded,
+              f"video (f) {name}: {frames.shape}, SHA-256 {digest} (recorded {entry['shape']}, {recorded})")
         gap = "digest only"
+        if "capture_gap" in entry:
+            gap = f"cv2.imdecode's decode; recorded gap to cv2.VideoCapture {entry['capture_gap']}"
         if entry["decoded_png"]:
             stored = read_image(os.path.join(directory, entry["decoded_png"])).reshape(frames.shape)
             worst = int(np.abs(stored.astype(np.int64) - frames).max())
@@ -3034,7 +3054,7 @@ def _video_from_mp4(device, card, truth, png_gains, decode_ms):
     (a)'s result from PNG frames. The luminance must beat linear on every
     frame; the colour PSNR is logged: the clip's chroma is 4:2:0, at half the
     LR resolution, and the solve of each BGR channel then loses to linear
-    upsampling (measured, PERF.md). Returns ([(result, linear) dB], K4 launches)."""
+    upsampling (measured, PERF.md). Returns ([(result, linear) dB], K4 launches, the frame stack, the estimate)."""
     path = os.path.join(ROOT, VIDEO_MPEG4_DIR, VIDEO_MPEG4_CLIP)
     torch.cuda.synchronize(device)
     t0 = time.perf_counter()
@@ -3084,7 +3104,47 @@ def _video_from_mp4(device, card, truth, png_gains, decode_ms):
         + f", margin {min(margin):.4f} to {max(margin):.4f} dB (the clip's 4:2:0 chroma); colour below (a)'s result "
         f"from PNG frames by {min(gap):.4f} to {max(gap):.4f} dB; solve wall a frame {_median_range(seconds)} s "
         f"({card})")
-    return gains, evaluations
+    return gains, evaluations, stack, x
+
+
+def _video_from_mkv(device, card, mp4_stack, mp4_x):
+    """(g'): the checked-in Matroska clip of (g)'s ``mp4v`` stream: its frames
+    demuxed and decoded on the host (ms a frame of each, median of 3), loaded
+    onto the card array-equal to (g)'s, and ``VideoSuperResolver``'s host loop
+    on them, the counts set to 0 just before and read just after, the estimate
+    bit-equal to (g)'s. Returns (K4 launches, {"demux": ms, "decode": ms})."""
+    path = os.path.join(ROOT, VIDEO_MPEG4_DIR, VIDEO_MKV_CLIP)
+    with open(path, "rb") as f:
+        data = f.read()
+    demux_s, decode_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        video = read_matroska_video(data)
+        demux_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        frames = read_video_frames(path)
+        decode_s.append(time.perf_counter() - t0 - demux_s[-1])
+    check(video.codec_id == "V_MPEG4/ISO/ASP" and len(video.frames) == len(frames) == mp4_stack.shape[0],
+          f"video (g'): {video.codec_id}, {len(video.frames)} blocks, {len(frames)} frames")
+    loader = sr_video.VideoLoader(device=device)
+    loader.load_frames_from_video(path)
+    stack = loader.frame_stack()
+    check(stack.is_cuda and torch.equal(stack, mp4_stack), "video (g'): the .mkv's frames differ from the .mp4's")
+    resolver = sr_video.VideoSuperResolver(device=device)
+    degrade.reset_launch_counts()
+    x, seconds, info = _video_run(resolver, stack, device)
+    counts, plain = dict(degrade.launch_counts), dict(degrade.plain_version_calls)
+    evaluations = sum(w["evaluations"] for w in info)
+    check(evaluations > 0 and counts == {name: (evaluations if name == "data_term_btv" else 0) for name in counts},
+          f"video (g'): launches {counts}, expected {evaluations} BTV evaluations")
+    check(plain["calls"] == 0, f"video (g'): the plain version ran {plain['calls']} times")
+    check(torch.equal(x, mp4_x), f"video (g'): the estimate differs from (g)'s by {float((x - mp4_x).abs().max())}")
+    ms = {"demux": 1e3 * float(np.median(demux_s)) / len(frames), "decode": 1e3 * float(np.median(decode_s)) / len(frames)}
+    log(f"      (g') {VIDEO_MKV_CLIP}: {len(frames)} frames demuxed in {ms['demux']:.4f} ms a frame and decoded in "
+        f"{ms['decode']:.3f} ms a frame on the host (median of 3), on the card array-equal to (g)'s; host loop "
+        f"{evaluations} K4 BTV evaluations, plain version 0, estimate bit-equal to (g)'s; solve wall a frame "
+        f"{_median_range(seconds)} s ({card})")
+    return evaluations, ms
 
 
 # ------------------------------------------------- the mesh under fused_irls (phase 8, extended)
@@ -3417,7 +3477,41 @@ MESH_ACROSS_RUNS = [
         mesh="band=4", channels=64, side=256, frames=4, scale=2, regularizer="tv3d", dtype="float64")),
     ("(f-3) band x4, 64 x 256x256, 3D TV", "spectral_halo", "data_term_tv3d", dict(
         mesh="band=4", channels=64, side=256, frames=4, scale=2, regularizer="tv3d", dtype="float32")),
+    # The counter of these two is the row their launches go to: a frame mesh and a band split launch in no mesh mode.
+    ("(f-4) frame x2, motion refined after round 1, RGB 3x1000x1000, 4 frames at 4x, BTV(2, 0.7)", "shift_generic",
+     "data_term_btv", dict(mesh="frame=2", channels=3, side=1000, frames=4, scale=4, regularizer="btv",
+                           refine_motion_every=1, dtype="float64")),
+    ("(f-5) band_split_minimize, band x4, 64 x 256x256, TV, cg <= 20", "data_term_tv", "data_term_tv", dict(
+        mesh="band=4", mode="band_split", channels=64, side=256, frames=4, scale=2, method="cg", iterations=20,
+        dtype="float32")),
 ]
+
+
+def _band_split_across(label, mode, pair, card):
+    """(f-5)'s checks and log line: every band bit-equal to the one-process mesh's band split (and a process's own
+    bands to their ``minimize`` alone), the processes' results equal, no all-reduce, each process launching ``mode``
+    once an evaluation of its own bands and the plain version never. Returns the launches."""
+    for r in pair:
+        where = f"{label}, process {r['process']}"
+        check(r["ok"] and r["bit_equal"] == {"serial": True, "one_process": True},
+              f"{where}: bit-equal {r['bit_equal']}, {r['all_reduce']} all-reduces, {r['all_gather']} all-gathers, "
+              f"{r['band_calls']} band calls for {r['own_band_evaluations']} evaluations of its bands")
+        check(r["launches"] == dict({name: 0 for name in r["launches"]}, **{mode: r["own_band_evaluations"]})
+              and r["plain_version_calls"]["calls"] == 0,
+              f"{where}: launches {r['launches']}, plain {r['plain_version_calls']}, expected "
+              f"{r['own_band_evaluations']} {mode}")
+    check(len({r["estimate_sha256"] for r in pair}) == 1, f"{label}: the processes' results differ")
+    log(f"[13/14] (f) {label}, {pair[0]['dtype']}, over 2 processes on {card}: iterations "
+        f"{min(pair[0]['iterations'])}-{max(pair[0]['iterations'])}, evaluations {min(pair[0]['evaluations'])}-"
+        f"{max(pair[0]['evaluations'])} a band; " + "; ".join(
+            f"process {r['process']} bands {r['own_bands'][0]}-{r['own_bands'][-1]}: {r['launches'][mode]} "
+            f"{mode} launches, plain {r['plain_version_calls']['calls']}, {r['all_reduce']} all-reduces and {r['all_gather']} all-gathers "
+            f"({r['all_gather_bytes']} B), {r['ms_per_evaluation']:.4f} ms a band evaluation across processes "
+            f"({r['wall_s']:.3f} s), {r['single_process_ms_per_evaluation']:.4f} ms with every band in one process "
+            f"({r['single_process_wall_s']:.3f} s)" for r in pair)
+        + "; every band bit-equal to the one-process band split and to its own minimize, both processes' results "
+        "equal bit for bit")
+    return sum(r["launches"][mode] for r in pair)
 
 
 def _meshes_across_processes(device, card):
@@ -3425,8 +3519,10 @@ def _meshes_across_processes(device, card):
     ``IRLSMapSolver`` on a ``row`` x ``col`` or ``band`` mesh whose axes
     cross between them (2 IRLS rounds x 10 ``linear_cg``, TV / BTV 0.01),
     each beside the one-process mesh of the same layout in the same
-    process. Returns the shard-mode and spectral-halo launches of the
-    processes' timed solves."""
+    process; in the same start of the workers a ``frame`` x2 mesh with the
+    motion refined, and ``band_split_minimize`` on band x4. Returns the
+    launches of the processes' timed solves by row name: shard mode (K7a),
+    spectral halo (K7b), the refined frame mesh (K4), the band split (K2)."""
     from super_resolution_tpu_torch.parallel import multihost
 
     runs = [dict(options, blur_sigma=1.5, tolerance=LOOPBACK_TOLERANCE if options["dtype"] == "float64" else
@@ -3434,10 +3530,14 @@ def _meshes_across_processes(device, card):
     argv = ["--device", str(device), "--lam", "0.01", "--method", "linear_cg", "--iterations", "10",
             "--irls_rounds", "2", "--runs", json.dumps(runs)]
     t0 = time.perf_counter()
-    results = multihost.run_processes("loopback", 2, argv, timeout_s=240)
-    launched = {"shard_mode": 0, "spectral_halo": 0}
+    results = multihost.run_processes("loopback", 2, argv, timeout_s=300)
+    launched = {"shard_mode": 0, "spectral_halo": 0, "shift_generic": 0, "data_term_tv": 0}
     for (label, counter, mode, options), pair in zip(MESH_ACROSS_RUNS, zip(*results)):
+        if options.get("mode") == "band_split":
+            launched[counter] += _band_split_across(label, mode, pair, card)
+            continue
         label = f"{label} {options['dtype']}"
+        mesh_mode = counter in ("shard_mode", "spectral_halo")
         for r in pair:
             where = f"{label}, process {r['process']}"
             check(r["ok"], f"{where}: max|diff| {r['max_abs_diff']} (tol {r['tolerance']}), inner calls "
@@ -3447,20 +3547,28 @@ def _meshes_across_processes(device, card):
             check(r["cost_rel_diff"] <= 5e-2 and psnr_diff <= 0.05,
                   f"{where}: cost {r['cost_rel_diff']} relative, PSNR {psnr_diff} dB from one process")
             expected = len(r["local_shards"]) * r["evaluations"]
+            shard_launches = dict({name: 0 for name in r["shard_launches"]}, **({counter: expected} if mesh_mode else {}))
             check(r["launches"] == dict({name: 0 for name in r["launches"]}, **{mode: expected})
-                  and r["shard_launches"][counter] == expected and r["plain_version_calls"]["calls"] == 0,
+                  and r["shard_launches"] == shard_launches and r["plain_version_calls"]["calls"] == 0,
                   f"{where}: launches {r['launches']}, {r['shard_launches']} and {r['plain_version_calls']} plain, "
-                  f"expected {expected} {mode} launches in {counter} mode and none of the plain version")
+                  f"expected {expected} {mode} launches ({counter}) and none of the plain version")
             check(len(r["rounds"]) == 2 and r["rounds"][0] == r["rounds"][1],
                   f"{where}: the collectives of the two rounds differ: {r['rounds']}")
-            launched[counter] += r["shard_launches"][counter]
+            if options.get("refine_motion_every"):
+                check(r["shift_max_abs_diff"] <= r["tolerance"] and r["shift_moved"] > 0.01
+                      and r["shifts"] == pair[0]["shifts"],
+                      f"{where}: refined shifts {r['shift_max_abs_diff']} from one process (moved "
+                      f"{r['shift_moved']}), equal across processes {r['shifts'] == pair[0]['shifts']}")
+            launched[counter] += r["launches"][mode]
         check(len({r["estimate_sha256"] for r in pair}) == 1, f"{label}: the processes' estimates differ")
         log(f"[13/14] (f) {label}, mesh {pair[0]['mesh']} over 2 processes on {card}: " + "; ".join(
             f"process {r['process']} (shards {r['local_shards']}): max|diff| {r['max_abs_diff']:.2e} "
             f"(tol {r['tolerance']:g}), PSNR {abs(r['psnr_db'] - r['reference_psnr_db']):.4f} dB and cost "
             f"{r['cost_rel_diff']:.2e} from one process, {r['evaluations']} evaluations, "
-            f"{r['shard_launches'][counter]} {counter} launches, {r['plain_version_calls']['calls']} plain; "
-            f"{r['ms_per_evaluation']:.3f} ms an "
+            f"{r['launches'][mode]} {mode} launches ({counter}), {r['plain_version_calls']['calls']} plain; "
+            + (f"refined shifts {r['shift_max_abs_diff']:.2e} from one process (moved {r['shift_moved']:.4f} HR px); "
+               if options.get("refine_motion_every") else "")
+            + f"{r['ms_per_evaluation']:.3f} ms an "
             f"evaluation across processes, {r['single_process_ms_per_evaluation']:.3f} ms in one; an evaluation "
             f"{r['all_reduce_per_evaluation']:.3f} all-reduces ({r['all_reduce_bytes_per_evaluation']:.1f} B), "
             f"{r['exchange_per_evaluation']:.3f} exchanges ({r['exchange_bytes_per_evaluation']:.1f} B sent), "

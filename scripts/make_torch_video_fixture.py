@@ -20,18 +20,34 @@ The MPEG-4 Part 2 clips, each written by ``cv2.VideoWriter`` (FFmpeg's
   port's decode of it on the card and rebuilds the truth from the seed;
 - ``mp4v_160x120x14.mp4``: the scene above panned by one pixel a frame, with
   one frame of noise (intra macroblocks in P-VOPs), over two GOPs;
-- ``xvid_96x64x8.avi``: the scene at 96x64 with fourcc ``XVID``.
+- ``xvid_96x64x8.avi``: the scene at 96x64 with fourcc ``XVID``;
+- ``xvid_build67_88x56x6.avi`` and ``xvid_noname_88x56x6.avi``: the scene
+  at 88x56 with fourcc ``XVID``, its 13-byte user data ``Lavc62.28.101``
+  rewritten in place as ``XviD000000067`` (FFmpeg then decodes with its Xvid
+  IDCT) and as 13 spaces (no encoder name in an ``XVID`` AVI: FFmpeg takes it
+  for Xvid build 0, Xvid IDCT and the old builds' edge workaround); the
+  rewrite needs the ``Lavc62.28.101`` that this machine's OpenCV writes;
+- ``mp4v_960x540x12.mkv`` and ``mp4v_96x64x8.mkv``: the frames of
+  ``mp4v_960x540x12.mp4`` and the 96x64 scene in Matroska
+  (``V_MPEG4/ISO/ASP``);
+- ``mjpeg_160x120x4.mkv``: the Motion-JPEG AVI's scene in Matroska as ``V_MJPEG``. The
+  port decodes each JPEG as ``cv2.imdecode`` does, which is not what
+  ``cv2.VideoCapture`` gives for Motion-JPEG; its entry records the digest of
+  the port's decode (``decode_sha256``) and the largest and mean gaps to
+  ``cv2.VideoCapture``'s frames (``capture_gap``).
 
 ``manifest.json`` records each clip's SHA-256, its frame shape and the
-SHA-256 of ``cv2.VideoCapture``'s frames (uint8 BGR, C order); the two small
-clips also keep those frames as ``<clip>.decoded.png``, stacked top to
-bottom. Needs OpenCV, which the machine that decodes the fixtures
-(``chip_smoke.py``) does not have: the files are kept in the repository.
+SHA-256 of ``cv2.VideoCapture``'s frames (uint8 BGR, C order); the small
+MPEG-4 Part 2 clips but the Matroska one also keep those frames as
+``<clip>.decoded.png``, stacked top to bottom. Needs OpenCV, which the
+machine that decodes the fixtures (``chip_smoke.py``) does not have: the
+files are kept in the repository.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import hashlib
 import json
 import os
@@ -43,6 +59,9 @@ import numpy as np
 FRAMES, WIDTH, HEIGHT, SEED = 8, 160, 120, 2026
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 FULL_WIDTH_CLIP = "mp4v_960x540x12.mp4"
+FULL_WIDTH_MKV = "mp4v_960x540x12.mkv"
+ENCODER_NAME = b"Lavc62.28.101"  # the user data this OpenCV's FFmpeg writes into MPEG-4 Part 2
+XVID_NAMES = {"xvid_build67_88x56x6.avi": b"XviD000000067", "xvid_noname_88x56x6.avi": b" " * 13}
 
 
 def scene(seed: int = SEED, h: int = HEIGHT, w: int = WIDTH + FRAMES) -> np.ndarray:
@@ -85,7 +104,8 @@ def sha256(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()
 
 
-def video_phase_frames() -> list[np.ndarray]:
+@functools.lru_cache(maxsize=1)
+def video_phase_frames() -> tuple[np.ndarray, ...]:
     """chip_smoke.py's video LR frames (seed 41, 3x540x960) as the uint8 BGR images its PNG path writes."""
     import torch
 
@@ -94,7 +114,7 @@ def video_phase_frames() -> list[np.ndarray]:
     from super_resolution_tpu_torch.image import ImageData
 
     _, lows, _ = chip_smoke.video_problem(torch.device("cpu"), torch.float32)
-    return [ImageData(low, normalize="never", channel_major=True).visualization_image() for low in lows]
+    return tuple(ImageData(low, normalize="never", channel_major=True).visualization_image() for low in lows)
 
 
 def mpeg4_clips() -> dict[str, tuple[str, list[np.ndarray], bool]]:
@@ -103,9 +123,32 @@ def mpeg4_clips() -> dict[str, tuple[str, list[np.ndarray], bool]]:
     panned = [pan[:, i:i + 160].copy() for i in range(14)]
     panned[9] = np.random.default_rng(SEED).integers(0, 256, panned[9].shape, dtype=np.uint8)
     small = scene(SEED + 2, 64, 104)
-    return {FULL_WIDTH_CLIP: ("mp4v", video_phase_frames(), False),
+    small_frames = [small[:, i:i + 96] for i in range(8)]
+    named = scene(SEED + 3, 56, 94)
+    return {FULL_WIDTH_CLIP: ("mp4v", list(video_phase_frames()), False),
             "mp4v_160x120x14.mp4": ("mp4v", panned, True),
-            "xvid_96x64x8.avi": ("XVID", [small[:, i:i + 96] for i in range(8)], True)}
+            "xvid_96x64x8.avi": ("XVID", small_frames, True),
+            **{name: ("XVID", [named[:, i:i + 88] for i in range(6)], True) for name in XVID_NAMES},
+            FULL_WIDTH_MKV: ("mp4v", list(video_phase_frames()), False),
+            "mp4v_96x64x8.mkv": ("mp4v", small_frames, False),
+            "mjpeg_160x120x4.mkv": ("MJPG", [scene()[:, i:i + WIDTH] for i in range(4)], False)}
+
+
+def rename_encoder(path: str, name: bytes) -> None:
+    """Rewrite the clip's encoder name (its MPEG-4 user data) in place, keeping its length."""
+    data = open(path, "rb").read()
+    if data.count(ENCODER_NAME) != 1 or len(name) != len(ENCODER_NAME):
+        raise SystemExit(f"{path}: expected one {ENCODER_NAME!r} to rewrite as {name!r}")
+    with open(path, "wb") as f:
+        f.write(data.replace(ENCODER_NAME, name))
+
+
+def matroska_payloads(path: str) -> list[bytes]:
+    """The frames of a Matroska clip, read with the port's demuxer."""
+    sys.path.insert(0, ROOT)
+    from super_resolution_tpu_torch.video.mkv import read_matroska_video
+
+    return read_matroska_video(open(path, "rb").read()).frames
 
 
 def write_mpeg4_fixtures(directory: str) -> None:
@@ -114,9 +157,16 @@ def write_mpeg4_fixtures(directory: str) -> None:
     for name, (fourcc, frames, keep_png) in mpeg4_clips().items():
         path = os.path.join(directory, name)
         write_clip(path, fourcc, frames)
+        if name in XVID_NAMES:
+            rename_encoder(path, XVID_NAMES[name])
         decoded = np.stack(capture_frames(path))
         entry = {"sha256": sha256(open(path, "rb").read()), "fourcc": fourcc, "shape": list(decoded.shape),
                  "frames_sha256": sha256(decoded.tobytes()), "decoded_png": None}
+        if fourcc == "MJPG":
+            ours = np.stack([cv2.imdecode(np.frombuffer(p, np.uint8), cv2.IMREAD_COLOR)
+                             for p in matroska_payloads(path)])
+            gap = np.abs(ours.astype(np.int64) - decoded)
+            entry.update(decode_sha256=sha256(ours.tobytes()), capture_gap=[int(gap.max()), float(gap.mean())])
         if keep_png:
             entry["decoded_png"] = f"{name}.decoded.png"
             cv2.imwrite(os.path.join(directory, entry["decoded_png"]), decoded.reshape(-1, *decoded.shape[2:]))

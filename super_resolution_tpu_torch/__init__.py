@@ -25,13 +25,14 @@ points (``cli``: ``super_resolve``, ``generate_data``, ``shift_add_fusion``,
 ``native`` reader), the Haar wavelet (``wavelet``), ADMM and shift-and-add
 (``solvers``) -- and video (``video``: ``VideoSuperResolver``, a sliding
 window of registered frames solved with BTV per output frame, and
-``VideoLoader``: frame directories; MP4 / QuickTime (``video/mp4.py``) and
-AVI with MPEG-4 Part 2 Simple Profile video, decoded as ``cv2.VideoCapture``
-decodes it by ``utils/mpeg4.py`` and ``native/mpeg4_decoder.cpp`` -- B-VOPs,
-GMC, quarter-pel, interlaced and data-partitioned streams raise
-``NotImplementedError`` --; Motion-JPEG AVI through the port's baseline JPEG
-decoder, ``utils/jpeg.py``; uncompressed AVI; Matroska, H.264 and other
-codecs raise), the profiling
+``VideoLoader``: frame directories; MP4 / QuickTime (``video/mp4.py``),
+Matroska / WebM (``video/mkv.py``) and AVI with MPEG-4 Part 2 Simple Profile
+video, decoded as ``cv2.VideoCapture`` decodes it by ``utils/mpeg4.py`` and
+``native/mpeg4_decoder.cpp`` (FFmpeg's Xvid IDCT for streams it takes for
+Xvid's) -- B-VOPs, GMC, quarter-pel, interlaced and data-partitioned streams
+raise ``NotImplementedError`` --; Motion-JPEG AVI and Matroska through the
+port's baseline JPEG decoder, ``utils/jpeg.py``; uncompressed AVI; VP8, VP9,
+FFV1, H.264 and other codecs raise), the profiling
 utilities (``utils/profiling.py``) and the test comparators
 (``utils/testing.py``).
 

@@ -151,7 +151,8 @@ def get_mpeg4_library() -> ctypes.CDLL:
     """The loaded MPEG-4 Part 2 decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
     return _load(_MPEG4_SOURCE, {"sr_mpeg4_decode_vop": (_int, [ctypes.c_char_p, _i64, _i64, _ptr, _ptr, _ptr, _ptr,
                                                                ctypes.c_char_p, _int]),
-                                 "sr_mpeg4_yuv420_to_bgr": (None, [_ptr, _int, _int, _int, _int, _ptr])})
+                                 "sr_mpeg4_yuv420_to_bgr": (None, [_ptr, _int, _int, _int, _int, _ptr]),
+                                 "sr_mpeg4_idct": (None, [_ptr, _int])})
 
 
 def native_available() -> bool:

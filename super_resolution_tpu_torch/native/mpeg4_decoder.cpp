@@ -10,11 +10,16 @@
 // video packets (resync markers). Every integer step is the one FFmpeg's
 // decoder takes in its x86-64 build, which is the decoder cv2.VideoCapture
 // runs: its "simple" integer IDCT (the IDCT FFmpeg's own encoder
-// reconstructs with, so a decode shows no drift over a GOP), its half-pel
-// averages, chroma-vector rounding and edge clamps, and its prediction state
-// layout. Where its SIMD code departs from its C code -- 16-bit saturation in
-// the IDCT, 16-bit products in MPEG inverse quantisation, the 8-pixel
-// no-rounding averages at 0 -- this follows the SIMD code. A second call converts the planes to BGR24 with swscale's unscaled
+// reconstructs with, so a decode shows no drift over a GOP) or, for streams
+// FFmpeg takes for Xvid's, its Xvid IDCT; its half-pel averages,
+// chroma-vector rounding and edge clamps, and its prediction state layout.
+// Where its SIMD code departs from its C code -- 16-bit saturation in the
+// IDCTs, 16-bit products in MPEG inverse quantisation, the 8-pixel
+// no-rounding averages at 0 -- this follows the SIMD code. Two of FFmpeg's
+// workarounds for old encoders are followed where the caller asks: edges
+// taken at the picture's size instead of the macroblock grid's
+// (FF_BUG_EDGE), and intra DC predictors not clipped at 2047 (FF_BUG_DC_CLIP).
+// A second call converts the planes to BGR24 with swscale's unscaled
 // YUV 4:2:0 -> BGR arithmetic (BT.601, limited range).
 //
 // C interface (ctypes):
@@ -22,10 +27,14 @@
 //                           const int32_t* params, const int32_t* matrices,
 //                           const uint8_t* ref, uint8_t* out, char* err, int err_len)
 //     params: width, height, coding type (0 = I, 1 = P), quantiser, fcode,
-//             rounding type, intra_dc_vlc_thr, quant type, time increment bits
+//             rounding type, intra_dc_vlc_thr, quant type, time increment bits,
+//             flags (kXvidIdct | kEdgeBug | kDcClipBug)
 //     matrices: intra then inter quantiser matrix, 64 each, raster order
 //     ref / out: Y then U then V, each the full macroblock grid
 //   Returns 0, or -1 with a message in err.
+//   void sr_mpeg4_idct(int16_t* block, int xvid)
+//     the IDCT in place on 64 coefficients in raster order (the 16-bit values
+//     before pixels are clipped): the simple one, or the Xvid one where xvid != 0
 //   void sr_mpeg4_yuv420_to_bgr(const uint8_t* planes, int mb_w, int mb_h,
 //                               int width, int height, uint8_t* bgr)
 
@@ -266,7 +275,7 @@ void idct_1d(const int16_t* v, int stride, unsigned bias, int shift, int* out) {
   for (int i = 0; i < 8; ++i) out[i] = static_cast<int>(sums[i]) >> shift;
 }
 
-void idct(int16_t* block, uint8_t* dst, int stride, bool add) {
+void simple_idct(int16_t* block) {
   int out[8];
   for (int r = 0; r < 8; ++r) {
     int16_t* row = block + 8 * r;
@@ -283,12 +292,96 @@ void idct(int16_t* block, uint8_t* dst, int stride, bool add) {
     for (int y = 0; y < 8; ++y) col[8 * y] = block[8 * y + x];
     col[0] = static_cast<int16_t>(col[0] + (1 << (kColShift - 1)) / W4);
     idct_1d(col, 8, 0, kColShift, out);
-    for (int y = 0; y < 8; ++y) {
-      uint8_t& p = dst[y * stride + x];
-      int v = saturate16(out[y]);
-      p = clip_pixel(add ? p + v : v);
-    }
+    for (int y = 0; y < 8; ++y) block[8 * y + x] = saturate16(out[y]);
   }
+}
+
+// FFmpeg's Xvid IDCT as its x86 SSE2 build computes it (Walken's row pass,
+// Skal's LLM column pass). Rows: exact 32-bit sums of the coefficients times
+// one of four cosine tables, plus a per-row rounder that also carries the
+// column pass's rounding (row 0) and a bias correction (rows 1-3, 5-7),
+// shifted by 11 and saturated to 16 bits. Columns: 16-bit lanes throughout,
+// products keeping their high 16 bits (pmulhw), sums saturated (paddsw /
+// psubsw), outputs shifted by 6. A zero row stays zero in every row but the
+// first three, so skipping zero rows as the SIMD code does changes nothing.
+const int kXvidTab04[7] = {22725, 21407, 19266, 16384, 12873, 8867, 4520};
+const int kXvidTab17[7] = {31521, 29692, 26722, 22725, 17855, 12299, 6270};
+const int kXvidTab26[7] = {29692, 27969, 25172, 21407, 16819, 11585, 5906};
+const int kXvidTab35[7] = {26722, 25172, 22654, 19266, 15137, 10426, 5315};
+const int* const kXvidRowTab[8] = {kXvidTab04, kXvidTab17, kXvidTab26, kXvidTab35,
+                                   kXvidTab04, kXvidTab35, kXvidTab26, kXvidTab17};
+const int kXvidRounder[8] = {65536, 3597, 2260, 1203, 0, 120, 512, 512};
+constexpr int kTan1 = 0x32EC, kTan2 = 0x6A0A, kTan3 = 0xAB0E - 0x10000, kSqrt2 = 0x5A82;
+
+inline int mulhi(int c, int x) { return (c * x) >> 16; }                 // pmulhw
+inline int adds(int a, int b) { return saturate16(a + b); }             // paddsw
+inline int subs(int a, int b) { return saturate16(a - b); }             // psubsw
+
+void xvid_idct(int16_t* block) {
+  for (int r = 0; r < 8; ++r) {
+    int16_t* x = block + 8 * r;
+    const int* t = kXvidRowTab[r];
+    const int c1 = t[0], c2 = t[1], c3 = t[2], c4 = t[3], c5 = t[4], c6 = t[5], c7 = t[6];
+    // unsigned: the 32-bit lanes wrap
+    const unsigned k = static_cast<unsigned>(c4 * x[0] + kXvidRounder[r]);
+    const unsigned a0 = k + c2 * x[2] + c4 * x[4] + c6 * x[6];
+    const unsigned a1 = k + c6 * x[2] - c4 * x[4] - c2 * x[6];
+    const unsigned a2 = k - c6 * x[2] - c4 * x[4] + c2 * x[6];
+    const unsigned a3 = k - c2 * x[2] + c4 * x[4] - c6 * x[6];
+    const unsigned b0 = c1 * x[1] + c3 * x[3] + c5 * x[5] + c7 * x[7];
+    const unsigned b1 = c3 * x[1] - c7 * x[3] - c1 * x[5] - c5 * x[7];
+    const unsigned b2 = c5 * x[1] - c1 * x[3] + c7 * x[5] + c3 * x[7];
+    const unsigned b3 = c7 * x[1] - c5 * x[3] + c3 * x[5] - c1 * x[7];
+    const unsigned sums[8] = {a0 + b0, a1 + b1, a2 + b2, a3 + b3, a3 - b3, a2 - b2, a1 - b1, a0 - b0};
+    for (int i = 0; i < 8; ++i) x[i] = saturate16(static_cast<int>(sums[i]) >> 11);
+  }
+  for (int c = 0; c < 8; ++c) {
+    int16_t* in = block + c;
+    const int x0 = in[0], x1 = in[8], x2 = in[16], x3 = in[24], x4 = in[32], x5 = in[40], x6 = in[48], x7 = in[56];
+    // odd part
+    int m0 = adds(mulhi(kTan1, x7), x1);
+    int m1 = subs(mulhi(kTan1, x1), x7);
+    int m2 = adds(adds(mulhi(kTan3, x5), x5), x3);  // tan3 > 1/2: x * (tan3 - 1) + x
+    int m3 = subs(adds(mulhi(kTan3, x3), x3), x5);
+    int m7 = adds(m0, m2);
+    int m4 = subs(m1, m3);
+    m0 = subs(m0, m2);
+    m1 = adds(m1, m3);
+    int m6 = adds(m0, m1);
+    int m5 = subs(m0, m1);
+    m5 = saturate16(2 * mulhi(kSqrt2, m5));
+    m6 = saturate16(2 * mulhi(kSqrt2, m6));
+    // even part
+    int e3 = adds(mulhi(kTan2, x6), x2);
+    int e2 = subs(mulhi(kTan2, x2), x6);
+    int e0 = adds(x0, x4), e1 = subs(x0, x4);
+    int t = adds(e0, e3);
+    e3 = subs(e0, e3);
+    in[0] = static_cast<int16_t>(adds(t, m7) >> 6);
+    in[56] = static_cast<int16_t>(subs(t, m7) >> 6);
+    in[24] = static_cast<int16_t>(adds(e3, m4) >> 6);
+    in[32] = static_cast<int16_t>(subs(e3, m4) >> 6);
+    t = adds(e1, e2);
+    e2 = subs(e1, e2);
+    in[8] = static_cast<int16_t>(adds(t, m6) >> 6);
+    in[48] = static_cast<int16_t>(subs(t, m6) >> 6);
+    in[16] = static_cast<int16_t>(adds(e2, m5) >> 6);
+    in[40] = static_cast<int16_t>(subs(e2, m5) >> 6);
+  }
+}
+
+// The IDCT of block written to (add = false) or added to (add = true) the 8x8 pixels at dst.
+void idct(int16_t* block, uint8_t* dst, int stride, bool add, bool xvid) {
+  if (xvid) {
+    xvid_idct(block);
+  } else {
+    simple_idct(block);
+  }
+  for (int y = 0; y < 8; ++y)
+    for (int x = 0; x < 8; ++x) {
+      uint8_t& p = dst[y * stride + x];
+      p = clip_pixel(add ? p + block[8 * y + x] : block[8 * y + x]);
+    }
 }
 
 struct Plane {
@@ -297,18 +390,22 @@ struct Plane {
 };
 
 // A w x h half-pel prediction from ref at (x, y) with dxy (bit 0 = half right,
-// bit 1 = half down), reading outside the grid from its nearest edge pixel.
+// bit 1 = half down), reading outside the edge_w x edge_h corner of the plane
+// from its nearest edge pixel (FFmpeg's edge emulation).
 // Rounding averages are (a + b + 1) >> 1 and (a + b + c + d + 2) >> 2; without
 // rounding (a + b) >> 1 and (a + b + c + d + 1) >> 2, except FFmpeg's x86
 // two-tap averages 8 pixels wide: the rounding average with one tap lowered by
 // 1 first, saturating at 0 (the left one; of two rows, the odd-numbered one),
 // which differs from (a + b) >> 1 where that tap is 0.
-void predict(const Plane& ref, int x, int y, int dxy, bool no_rounding, int w, int h, uint8_t* dst, int stride) {
+void predict(const Plane& ref, int x, int y, int dxy, bool no_rounding, int w, int h, uint8_t* dst, int stride,
+             int edge_w, int edge_h) {
   uint8_t src[17 * 17];
+  edge_w = std::min(edge_w, ref.width);
+  edge_h = std::min(edge_h, ref.height);
   for (int j = 0; j <= h; ++j) {
-    int yy = std::min(std::max(y + j, 0), ref.height - 1);
+    int yy = std::min(std::max(y + j, 0), edge_h - 1);
     for (int i = 0; i <= w; ++i) {
-      int xx = std::min(std::max(x + i, 0), ref.width - 1);
+      int xx = std::min(std::max(x + i, 0), edge_w - 1);
       src[j * 17 + i] = ref.data[yy * ref.width + xx];
     }
   }
@@ -340,15 +437,20 @@ inline int round_chroma(int x) {  // the sum of four luma vectors -> one chroma 
 }
 
 enum { kSliceOk = 0, kSliceEnd = 1 };
+enum { kXvidIdct = 1, kEdgeBug = 2, kDcClipBug = 4 };  // params[9]
 
 class VopDecoder {
  public:
   VopDecoder(const int32_t* params, const int32_t* matrices, const uint8_t* ref, uint8_t* out)
       : width_(params[0]), height_(params[1]), pict_type_(params[2] ? 2 : 1), f_code_(params[4]),
         no_rounding_(params[5] != 0), intra_dc_threshold_(kDcThreshold[params[6] & 7]), mpeg_quant_(params[7] != 0),
-        time_increment_bits_(params[8]) {
+        time_increment_bits_(params[8]), xvid_idct_((params[9] & kXvidIdct) != 0),
+        dc_clip_bug_((params[9] & kDcClipBug) != 0) {
     mb_w_ = (width_ + 15) / 16;
     mb_h_ = (height_ + 15) / 16;
+    const bool edge_bug = (params[9] & kEdgeBug) != 0;
+    h_edge_ = edge_bug ? width_ : 16 * mb_w_;
+    v_edge_ = edge_bug ? height_ : 16 * mb_h_;
     mb_num_ = mb_w_ * mb_h_;
     mb_stride_ = mb_w_ + 1;
     b8_stride_ = 2 * mb_w_ + 1;
@@ -395,6 +497,8 @@ class VopDecoder {
   int intra_dc_threshold_;
   bool mpeg_quant_;
   int time_increment_bits_;
+  bool xvid_idct_, dc_clip_bug_;
+  int h_edge_, v_edge_;  // where reference pictures end for motion compensation
   int intra_matrix_[64], inter_matrix_[64];
   int mb_w_, mb_h_, mb_num_, mb_stride_, b8_stride_, y_size_, c_size_;
   Plane cur_[3], ref_[3] = {{nullptr, 0, 0}, {nullptr, 0, 0}, {nullptr, 0, 0}};
@@ -714,7 +818,7 @@ class VopDecoder {
     level += pred;
     int ret = level;
     level *= scale;
-    if (level & ~2047) level = level < 0 ? 0 : 2047;
+    if (level & ~2047) level = level < 0 ? 0 : dc_clip_bug_ ? level : 2047;
     dc[0] = static_cast<int16_t>(level);
     return ret;
   }
@@ -912,7 +1016,7 @@ class VopDecoder {
     if (mb_intra_) {
       for (int n = 0; n < 6; ++n) {
         dequantise_intra(block_[n], n);
-        idct(block_[n], dest(n), n < 4 ? cur_[0].width : cur_[1].width, false);
+        idct(block_[n], dest(n), n < 4 ? cur_[0].width : cur_[1].width, false, xvid_idct_);
       }
       return;
     }
@@ -920,7 +1024,7 @@ class VopDecoder {
     for (int n = 0; n < 6; ++n) {
       if (block_last_index_[n] < 0) continue;
       if (mpeg_quant_) dequantise_inter_mpeg(block_[n], n);
-      idct(block_[n], dest(n), n < 4 ? cur_[0].width : cur_[1].width, true);
+      idct(block_[n], dest(n), n < 4 ? cur_[0].width : cur_[1].width, true, xvid_idct_);
     }
   }
 
@@ -931,9 +1035,14 @@ class VopDecoder {
       int dxy = ((my & 1) << 1) | (mx & 1);
       int src_x = mb_x_ * 16 + (mx >> 1), src_y = mb_y_ * 16 + (my >> 1);
       int uvdxy = dxy | (my & 2) | ((mx & 2) >> 1);
-      predict(ref_[0], src_x, src_y, dxy, no_rounding_, 16, 16, dest(0), ls);
-      predict(ref_[1], src_x >> 1, src_y >> 1, uvdxy, no_rounding_, 8, 8, dest(4), cs);
-      predict(ref_[2], src_x >> 1, src_y >> 1, uvdxy, no_rounding_, 8, 8, dest(5), cs);
+      // FFmpeg decides by the luma footprint alone whether to emulate edges;
+      // where it does not, chroma reads the decoded grid as it lies.
+      const bool emulate = static_cast<unsigned>(src_x) >= static_cast<unsigned>(std::max(h_edge_ - (mx & 1) - 15, 0)) ||
+                           static_cast<unsigned>(src_y) >= static_cast<unsigned>(std::max(v_edge_ - (my & 1) - 15, 0));
+      const int cw = emulate ? h_edge_ >> 1 : cur_[1].width, ch = emulate ? v_edge_ >> 1 : cur_[1].height;
+      predict(ref_[0], src_x, src_y, dxy, no_rounding_, 16, 16, dest(0), ls, h_edge_, v_edge_);
+      predict(ref_[1], src_x >> 1, src_y >> 1, uvdxy, no_rounding_, 8, 8, dest(4), cs, cw, ch);
+      predict(ref_[2], src_x >> 1, src_y >> 1, uvdxy, no_rounding_, 8, 8, dest(5), cs, cw, ch);
       return;
     }
     int sum_x = 0, sum_y = 0;
@@ -945,7 +1054,7 @@ class VopDecoder {
       if (src_x != width_) dxy |= mx & 1;
       src_y = std::min(std::max(src_y, -16), height_);
       if (src_y != height_) dxy |= (my & 1) << 1;
-      predict(ref_[0], src_x, src_y, dxy, no_rounding_, 8, 8, dest(i), ls);
+      predict(ref_[0], src_x, src_y, dxy, no_rounding_, 8, 8, dest(i), ls, h_edge_, v_edge_);
       sum_x += mx;
       sum_y += my;
     }
@@ -957,8 +1066,8 @@ class VopDecoder {
     if (src_x == (width_ >> 1)) dxy &= ~1;
     int src_y = std::min(std::max(mb_y_ * 8 + my, -8), height_ >> 1);
     if (src_y == (height_ >> 1)) dxy &= ~2;
-    predict(ref_[1], src_x, src_y, dxy, no_rounding_, 8, 8, dest(4), cs);
-    predict(ref_[2], src_x, src_y, dxy, no_rounding_, 8, 8, dest(5), cs);
+    predict(ref_[1], src_x, src_y, dxy, no_rounding_, 8, 8, dest(4), cs, h_edge_ >> 1, v_edge_ >> 1);
+    predict(ref_[2], src_x, src_y, dxy, no_rounding_, 8, 8, dest(5), cs, h_edge_ >> 1, v_edge_ >> 1);
   }
 };
 
@@ -985,6 +1094,14 @@ int sr_mpeg4_decode_vop(const uint8_t* data, int64_t size, int64_t bit_pos, cons
   } catch (const std::exception& e) {
     copy_message(e.what(), err, err_len);
     return -1;
+  }
+}
+
+void sr_mpeg4_idct(int16_t* block, int xvid) {
+  if (xvid) {
+    xvid_idct(block);
+  } else {
+    simple_idct(block);
   }
 }
 

@@ -13,7 +13,10 @@ The counterpart of the JAX package's ``parallel/data_parallel.py``:
   :func:`band_split_minimize` solves each band on its own
   (``split_channels`` semantics): one batched solve whose every scalar is per
   band, so each band has its own line search and stop test, and the result
-  equals one ``minimize`` per band bit for bit.
+  equals one ``minimize`` per band bit for bit. On a mesh that spans
+  processes each process solves the bands that lie wholly in it, with no
+  call between processes inside the solve, and two all-gathers at the end
+  give every process the whole result.
 
 Where the JAX package annotates shardings and lets the compiler insert the
 collectives, the port places the pieces itself (:class:`~.sharded.Sharded`)
@@ -27,7 +30,8 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
-from super_resolution_tpu_torch.parallel.mesh import COL_AXIS, FRAME_AXIS, ROW_AXIS, Mesh
+from super_resolution_tpu_torch.parallel import distributed
+from super_resolution_tpu_torch.parallel.mesh import BAND_AXIS, COL_AXIS, FRAME_AXIS, ROW_AXIS, Mesh
 from super_resolution_tpu_torch.parallel.sharded import Elementwise, Sharded
 from super_resolution_tpu_torch.parallel.sharded_objective import (
     OBSERVATIONS_PARTITION,
@@ -180,14 +184,18 @@ def band_split_minimize(value_and_grad_per_band, x0: torch.Tensor, method: str =
     ``grad_norm`` ``[C]`` tensors, and ``iterations``, ``converged`` and
     ``num_evaluations`` lists with one entry per band.
 
-    A :class:`Sharded` ``x0`` is assembled first; one on a mesh that spans
-    processes raises ``ValueError``: the batched state holds every band in
-    one process, and a band axis across processes is not ported here.
+    A :class:`Sharded` ``x0`` is assembled first. On a mesh that spans
+    processes each process solves, in one batched solve, the bands whose
+    shards all lie in it (a band lies in the shards of its ``band``
+    coordinate) and calls only those bands' functions: each band keeps its
+    own line search, stop test and dot products, with no call between
+    processes during the solve. Two all-gathers then give every process the
+    whole result, bit for bit alike (:func:`_gather_bands`). A band whose
+    shards lie in more than one process raises ``ValueError``.
     """
+    if isinstance(x0, Sharded) and x0.mesh.spans_processes:
+        return _band_split_across_processes(value_and_grad_per_band, x0, method, **options)
     if isinstance(x0, Sharded):
-        if x0.mesh.spans_processes:
-            raise ValueError(f"band_split_minimize across processes ({x0.mesh.num_processes}) is not supported: "
-                             "its batched solve holds every band in one process.")
         x0 = x0.to_global()
     bands = x0.shape[0]
     functions = (list(value_and_grad_per_band) if isinstance(value_and_grad_per_band, (list, tuple))
@@ -222,3 +230,74 @@ def band_split_minimize(value_and_grad_per_band, x0: torch.Tensor, method: str =
     k, evaluations, converged = (v.reshape(-1).tolist() for v in (state.k, state.evaluations, state.converged))
     return MinimizeResult(x=state.x.t, cost=state.f.reshape(-1), grad_norm=norms, iterations=k,
                           converged=[bool(c) for c in converged], num_evaluations=evaluations)
+
+
+def _band_owners(mesh: Mesh, channels: int) -> list[int]:
+    """The process that holds each channel: that of every shard of its
+    ``band`` coordinate, or ``ValueError`` where they lie in several."""
+    per_band = channels // mesh.size(BAND_AXIS)
+    owners = []
+    for channel in range(channels):
+        band = channel // per_band
+        holders = {mesh.processes[i] for i in range(mesh.num_shards) if mesh.coords(i).get(BAND_AXIS, 0) == band}
+        if len(holders) > 1:
+            raise ValueError(
+                f"band_split_minimize across processes: band {channel} lies in the shards of processes "
+                f"{sorted(holders)} (mesh {mesh.shape}); each band must lie wholly in one process.")
+        owners.append(holders.pop())
+    return owners
+
+
+def _local_bands(x0: Sharded, channels: list[int]) -> torch.Tensor:
+    """``channels`` of the value, assembled from this process's shards on its first shard's device."""
+    mesh = x0.mesh
+    row = {c: i for i, c in enumerate(channels)}
+    out = torch.empty((len(channels),) + tuple(x0.shape[1:]), dtype=x0.dtype, device=x0.local(0).device)
+    for shard in mesh.local_shards:
+        part, view = x0.parts[shard], out
+        for axis, dim in x0.partition.items():
+            if dim:
+                view = view.narrow(dim, mesh.coords(shard)[axis] * part.shape[dim], part.shape[dim])
+        first = mesh.coords(shard).get(BAND_AXIS, 0) * part.shape[0]
+        for j in range(part.shape[0]):
+            view[row[first + j]].copy_(part[j])
+    return out
+
+
+def _band_split_across_processes(functions, x0: Sharded, method: str, **options) -> MinimizeResult:
+    mesh = x0.mesh
+    channels = x0.shape[0]
+    if x0.partition.get(BAND_AXIS) != 0 or any(dim == 0 for axis, dim in x0.partition.items() if axis != BAND_AXIS):
+        raise ValueError(f"band_split_minimize takes x0 split along dimension 0 by 'band' only, not {x0.partition}.")
+    owners = _band_owners(mesh, channels)
+    functions = list(functions) if isinstance(functions, (list, tuple)) else [functions] * channels
+    if len(functions) != channels:
+        raise ValueError(f"{len(functions)} per-band objectives for {channels} bands.")
+    mine = [c for c in range(channels) if owners[c] == mesh.process_index]
+    local = band_split_minimize([functions[c] for c in mine], _local_bands(x0, mine), method, **options)
+    return _gather_bands(local, owners, mesh)
+
+
+def _gather_bands(local: MinimizeResult, owners: list[int], mesh: Mesh) -> MinimizeResult:
+    """Every process's bands in channel order, in every process: one all-gather
+    of each process's estimates with their cost and gradient norm (in the
+    estimate's dtype, padded to the most bands a process holds), one of the
+    iterations, stop flags and evaluations (int64)."""
+    x = local.x
+    slots = max(owners.count(p) for p in set(mesh.processes))
+    n, pixels = x.shape[0], int(np.prod(x.shape[1:]))
+    values = x.new_zeros((slots, pixels + 2))
+    values[:n, :pixels] = x.reshape(n, -1)
+    values[:n, pixels] = local.cost.to(x.dtype)
+    values[:n, pixels + 1] = local.grad_norm.to(x.dtype)
+    counters = torch.zeros((slots, 3), dtype=torch.int64)
+    for i, row in enumerate(zip(local.iterations, local.converged, local.num_evaluations)):
+        counters[i] = torch.tensor([int(v) for v in row])
+    values, counters = distributed.all_gather(values), distributed.all_gather(counters.to(x.device))
+    order = [(owners[c], owners[:c].count(owners[c])) for c in range(len(owners))]
+    rows = torch.stack([values[p, slot] for p, slot in order])
+    counts = torch.stack([counters[p, slot] for p, slot in order]).tolist()
+    return MinimizeResult(x=rows[:, :pixels].reshape((len(owners),) + tuple(x.shape[1:])),
+                          cost=rows[:, pixels].contiguous(), grad_norm=rows[:, pixels + 1].contiguous(),
+                          iterations=[c[0] for c in counts], converged=[bool(c[1]) for c in counts],
+                          num_evaluations=[c[2] for c in counts])

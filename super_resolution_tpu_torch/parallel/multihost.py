@@ -22,15 +22,34 @@ shards are dealt to the processes in contiguous blocks of shard order), with
 ``--regularizer tv|btv|tv3d``, ``--channels`` and ``--irls_rounds``, and
 holds it against the same solve on a one-process mesh of the same layout in
 each process (the ``--tolerance`` elementwise; equal iterations and
-evaluations in every round). Each process also prints, per IRLS round, the
-all-reduces and point-to-point exchanges it made and their bytes, the
+evaluations in every round). With ``--refine_motion_every N`` the solver
+refines the motion every N rounds, starting from shifts moved off the true
+ones by a seeded offset of up to ``REFINE_SHIFT_OFFSET`` HR pixels (frame 0
+kept), and the refined shifts are held too. Each process also prints, per
+IRLS round, the all-reduces and point-to-point exchanges it made and their bytes, the
 SHA-256 of its estimate's bytes, and with ``--save_estimate PREFIX`` writes
-the estimate to ``PREFIX<rank>.npy``::
+the estimate to ``PREFIX<rank>.npy`` (and refined shifts to
+``PREFIX<rank>.shifts.npy``)::
 
     python -m super_resolution_tpu_torch.parallel.multihost loopback --processes 2 --device cpu \
         --mesh row=2,col=2 --regularizer btv --width 32 --method linear_cg --iterations 15 --tolerance 1e-6
     python -m super_resolution_tpu_torch.parallel.multihost loopback --processes 2 --device cpu \
         --mesh band=4 --regularizer tv3d --channels 4 --method linear_cg --iterations 15 --tolerance 1e-6
+    python -m super_resolution_tpu_torch.parallel.multihost loopback --processes 2 --device cpu --mesh frame=2 \
+        --lam 0.01 --irls_rounds 2 --refine_motion_every 1 --method linear_cg --tolerance 1e-6
+
+``loopback --mesh band=4 --mode band_split`` runs ``band_split_minimize``
+on ``x0`` placed over the mesh (the upsampled first frame): each band its own
+objective (its channel of the frames, TV at ``--lam``), the minimize
+defaults' stop thresholds and ``--iterations``; each process holds every
+band bit for bit against the same call on a one-process mesh (both timed
+warm: every band's objective is first run through a one-iteration
+``minimize``, untimed) and its own bands against ``minimize`` on each alone,
+and counts the all-reduces (none) and all-gathers (two) the call made across
+processes and the evaluations of its own bands::
+
+    python -m super_resolution_tpu_torch.parallel.multihost loopback --processes 2 --device cpu \
+        --mesh band=4 --mode band_split --channels 4 --lam 0.01 --method cg --iterations 25
 
 ``scaling``: one JSON line per (processes, shards) point: frame-iterations
 per second and the collective calls per evaluation, counted where
@@ -66,15 +85,28 @@ __all__ = ["problem", "run_processes", "loopback", "scaling", "parser", "main"]
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 LOOPBACK_SHIFTS = [(0, 0), (1, 1), (-1, 0), (0, -1)]
+REFINE_SHIFT_OFFSET = 0.3  # HR pixels: how far --refine_motion_every's starting shifts lie off the true ones
 DTYPES = {"float32": torch.float32, "float64": torch.float64}
 
 
-def image_model(frames: int, scale: int, blur_sigma: float):
-    """The loopback's image model: the JAX loopback's integer shifts in turn, a 3x3 Gaussian blur."""
+def loopback_shifts(frames: int, moved: bool = False) -> np.ndarray:
+    """``[K, 2]`` shifts: the JAX loopback's integer shifts in turn; ``moved``:
+    each but frame 0's moved by a seeded offset of up to
+    ``REFINE_SHIFT_OFFSET`` HR pixels, for the refiner to move back."""
+    shifts = np.asarray([LOOPBACK_SHIFTS[k % len(LOOPBACK_SHIFTS)] for k in range(frames)], dtype=np.float64)
+    if not moved:
+        return shifts
+    offset = np.random.default_rng(13).uniform(-REFINE_SHIFT_OFFSET, REFINE_SHIFT_OFFSET, shifts.shape)
+    offset[0] = 0.0
+    return shifts + offset
+
+
+def image_model(frames: int, scale: int, blur_sigma: float, moved: bool = False):
+    """The loopback's image model: :func:`loopback_shifts`, a 3x3 Gaussian blur."""
     from super_resolution_tpu_torch.models.image_model import ImageModel, ImageModelParameters
     from super_resolution_tpu_torch.motion import MotionShiftSequence
 
-    sequence = MotionShiftSequence([LOOPBACK_SHIFTS[k % len(LOOPBACK_SHIFTS)] for k in range(frames)])
+    sequence = MotionShiftSequence([tuple(row) for row in loopback_shifts(frames, moved)])
     return ImageModel.create(ImageModelParameters(scale=scale, blur_radius=3, blur_sigma=blur_sigma,
                                                   motion_sequence=sequence))
 
@@ -192,10 +224,13 @@ def _irls_solve(args, mesh, model, lows, x0):
     options = IRLSMapSolverOptions(
         least_squares_solver=args.method, max_num_solver_iterations=args.iterations,
         max_num_irls_iterations=args.irls_rounds, gradient_norm_threshold=0.0, cost_decrease_threshold=0.0,
-        parameter_variation_threshold=0.0, irls_cost_difference_threshold=0.0)
+        parameter_variation_threshold=0.0, irls_cost_difference_threshold=0.0,
+        refine_motion_every=args.refine_motion_every)
     solver = IRLSMapSolver(options, model, lows, device=args.device, dtype=DTYPES[args.dtype], mesh=mesh)
     solver.add_regularizer(irls_regularizer(args.regularizer, args.btv_range, args.btv_decay), args.lam)
+    shifts0 = solver.shifts.clone()
     solver.solve(x0)
+    solver.shifts = shifts0.clone()  # a refining solve leaves its refined motion behind
     rounds = []
     # The seam reweights once a round: read the counts there.
     reweight = solver._reweight
@@ -274,15 +309,97 @@ def exchange_check(across: Mesh, alone: Mesh, tile_shape, q: int, device) -> dic
     return {"exchange_equal": equal, "adjoint_rel_error": adjoint}
 
 
+def band_split_loopback(args) -> dict:
+    """One process's part of ``loopback --mesh ... --mode band_split``:
+    ``band_split_minimize`` with ``x0`` on the mesh across the processes,
+    beside each band's ``minimize`` alone and the same call on a one-process
+    mesh of the same layout (the group already formed)."""
+    from super_resolution_tpu_torch.parallel.data_parallel import band_split_minimize
+    from super_resolution_tpu_torch.parallel.sharded import Sharded
+    from super_resolution_tpu_torch.parallel.sharded_objective import X_PARTITION
+    from super_resolution_tpu_torch.solvers.least_squares import minimize
+    from super_resolution_tpu_torch.solvers.objective import make_map_value_and_grad
+
+    dtype = DTYPES[args.dtype]
+    sizes = parse_mesh(args.mesh)
+    _, observations, shifts, kernel = problem(args.side, args.frames, args.scale, args.blur_sigma, args.device,
+                                              dtype, channels=args.channels, width=args.width)
+    x0 = observations[0].repeat_interleave(args.scale, dim=-2).repeat_interleave(args.scale, dim=-1).contiguous()
+    functions = [make_map_value_and_grad(observations[:, c:c + 1], shifts, kernel, args.scale, _regularizers(args.lam),
+                                         device=args.device, dtype=dtype)
+                 .prepare(tuple(torch.ones_like(x0[c:c + 1]) for _ in _regularizers(args.lam)))
+                 for c in range(args.channels)]
+    options = dict(method=args.method, max_iterations=args.iterations)
+    across = make_mesh(sizes, devices=[args.device])
+    alone = Mesh(list(sizes), list(sizes.values()), [args.device] * across.num_shards)
+
+    def timed(mesh):
+        """``band_split_minimize`` with ``x0`` on ``mesh``: (result, wall s, the bands of each call in order)."""
+        calls = []
+        counted = [lambda x, c=c, f=f: (calls.append(c), f(x))[1] for c, f in enumerate(functions)]
+        placed = Sharded.from_global(mesh, x0, X_PARTITION)
+        _synchronize(args.device)
+        t0 = time.perf_counter()
+        result = band_split_minimize(counted, placed, **options)
+        _synchronize(args.device)
+        return result, time.perf_counter() - t0, calls
+
+    for c, f in enumerate(functions):  # first-call costs, before either side is timed
+        minimize(f, x0[c:c + 1], method=args.method, max_iterations=1)
+    one, one_seconds, one_calls = timed(alone)
+    gathers = []
+    gather = distributed.all_gather
+    distributed.all_gather = lambda t: (gathers.append(t.numel() * t.element_size()), gather(t))[1]
+    collectives.reset_counts()
+    counters = (degrade.launch_counts, degrade.plain_version_calls)
+    before = [dict(c) for c in counters]
+    try:
+        result, seconds, calls = timed(across)
+    finally:
+        distributed.all_gather = gather
+    launches = {name: {key: counter[key] - was[key] for key in counter} for name, counter, was in zip(
+        ("launches", "plain_version_calls"), counters, before)}
+    crossing = dict(collectives.counts)
+    mine = sorted(set(calls))
+    serial = {c: minimize(functions[c], x0[c:c + 1], **options) for c in mine}  # this process's bands alone
+    bit_equal = {
+        "serial": all(torch.equal(result.x[c:c + 1], r.x) and torch.equal(result.cost[c], r.cost)
+                      and (result.iterations[c], result.num_evaluations[c]) == (r.iterations, r.num_evaluations)
+                      for c, r in serial.items()),
+        "one_process": (torch.equal(result.x, one.x) and torch.equal(result.cost, one.cost)
+                        and result.iterations == one.iterations and result.num_evaluations == one.num_evaluations),
+    }
+    if args.save_estimate:
+        np.save(f"{args.save_estimate}{distributed.process_index()}.npy", result.x.cpu().numpy())
+    evaluations = sum(result.num_evaluations[c] for c in mine)
+    return {
+        "process": distributed.process_index(), "processes": distributed.process_count(), "mode": "band_split",
+        "mesh": across.shape, "local_shards": across.local_shards, "channels": args.channels,
+        "hw": list(x0.shape[-2:]), "device": str(torch.device(args.device)), "dtype": args.dtype,
+        "own_bands": mine, "iterations": result.iterations, "evaluations": result.num_evaluations,
+        "own_band_evaluations": evaluations, "band_calls": len(calls),
+        "bit_equal": bit_equal, "all_reduce": crossing["all_reduce"], "exchange": crossing["exchange"],
+        "all_gather": len(gathers), "all_gather_bytes": sum(gathers), **launches,
+        "estimate_sha256": hashlib.sha256(result.x.cpu().numpy().tobytes()).hexdigest(),
+        "ok": all(bit_equal.values()) and crossing["all_reduce"] == 0 and len(gathers) == 2
+        and len(calls) == evaluations,
+        # ms a band evaluation: this process's bands across processes, every band in one process
+        "wall_s": seconds, "ms_per_evaluation": seconds / max(1, len(calls)) * 1e3,
+        "single_process_wall_s": one_seconds, "single_process_ms_per_evaluation": one_seconds / len(one_calls) * 1e3,
+    }
+
+
 def mesh_loopback(args) -> dict:
     """One process's part of ``loopback --mesh``: ``IRLSMapSolver`` on the
     mesh across the processes beside the same solve on a one-process mesh
     of the same layout (the group already formed)."""
+    if args.mode == "band_split":
+        return band_split_loopback(args)
     dtype = DTYPES[args.dtype]
     sizes = parse_mesh(args.mesh)
     hr, observations, _, _ = problem(args.side, args.frames, args.scale, args.blur_sigma, args.device, dtype,
                                      channels=args.channels, width=args.width)
-    model = image_model(args.frames, args.scale, args.blur_sigma)
+    model = image_model(args.frames, args.scale, args.blur_sigma, bool(args.refine_motion_every))
     lows = list(observations)
     x0 = lows[0].repeat_interleave(args.scale, dim=-2).repeat_interleave(args.scale, dim=-1)
     across = make_mesh(sizes, devices=[args.device])
@@ -293,16 +410,20 @@ def mesh_loopback(args) -> dict:
     solver, x, seconds, rounds, launches = _irls_solve(args, across, model, lows, x0)
     reference, x_ref, seconds_ref, rounds_ref, _ = _irls_solve(args, alone, model, lows, x0)
     diff = float((x - x_ref).abs().max())
+    shift_diff = float((solver.shifts - reference.shifts).abs().max())
     x_map = _map_solve(args, across, model, observations, x0)
     map_diff = float((x_map - _map_solve(args, alone, model, observations, x0)).abs().max())
     evaluations = sum(r["evaluations"] for r in rounds)
     calls, reference_calls = ([c[1:] for c in s.last_inner_calls] for s in (solver, reference))
-    ok = (diff <= args.tolerance and map_diff <= args.tolerance and calls == reference_calls
+    ok = (diff <= args.tolerance and map_diff <= args.tolerance and shift_diff <= args.tolerance
+          and calls == reference_calls
           and checked["exchange_equal"] and checked["adjoint_rel_error"] <= 1e-12)
     psnr = [float(10 * torch.log10(1.0 / torch.mean((v.to(torch.float64) - hr) ** 2))) for v in (x, x_ref)]
     cost, cost_ref = _l1_objective(solver, x), _l1_objective(reference, x_ref)
     if args.save_estimate:
         np.save(f"{args.save_estimate}{distributed.process_index()}.npy", x.cpu().numpy())
+        if args.refine_motion_every:
+            np.save(f"{args.save_estimate}{distributed.process_index()}.shifts.npy", solver.shifts.cpu().numpy())
     return {
         "process": distributed.process_index(), "processes": distributed.process_count(),
         "mesh": across.shape, "local_shards": across.local_shards, "channels": args.channels,
@@ -310,6 +431,10 @@ def mesh_loopback(args) -> dict:
         "device": str(torch.device(args.device)), "dtype": args.dtype, "backend": args.backend,
         "inner_calls": calls, "reference_inner_calls": reference_calls,
         "evaluations": evaluations, "max_abs_diff": diff, "tolerance": args.tolerance,
+        "refine_motion_every": args.refine_motion_every, "shift_max_abs_diff": shift_diff,
+        "shifts": solver.shifts.tolist(),
+        "shift_moved": float((solver.shifts.cpu() - torch.tensor(loopback_shifts(args.frames, bool(args.refine_motion_every))))
+                             .abs().max()),
         # make_sharded_map_solver across processes against the one-process mesh, and (with
         # one IRLS round, which solves the same problem) against the IRLS estimate.
         "map_solver_max_abs_diff": map_diff, "map_solver_vs_irls": float((x_map - x).abs().max()),
@@ -429,7 +554,7 @@ def _runs(args) -> list[argparse.Namespace]:
 # The options a worker takes from its orchestrator.
 _FORWARDED = ("backend", "device", "dtype", "side", "width", "channels", "frames", "scale", "blur_sigma", "lam",
               "method", "iterations", "shards_per_process", "shards", "tolerance", "mesh", "regularizer", "btv_range",
-              "btv_decay", "irls_rounds", "save_estimate", "runs")
+              "btv_decay", "irls_rounds", "save_estimate", "runs", "mode", "refine_motion_every")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -459,6 +584,9 @@ def parser() -> argparse.ArgumentParser:
     parser.add_argument("--btv_range", type=int, default=2)
     parser.add_argument("--btv_decay", type=float, default=0.7)
     parser.add_argument("--irls_rounds", type=int, default=1)
+    parser.add_argument("--mode", choices=["irls", "band_split"], default="irls",
+                        help="--mesh: IRLSMapSolver, or band_split_minimize with x0 on the mesh")
+    parser.add_argument("--refine_motion_every", type=int, default=0, help="--mesh: refine the motion every N rounds")
     parser.add_argument("--save_estimate", default="", help="--mesh: write the estimate to <prefix><rank>.npy")
     parser.add_argument("--runs", default="", help="several runs in one start of the processes: a JSON list of "
                         "option values, e.g. '[{\"mesh\": \"band=4\", \"regularizer\": \"tv3d\"}]'")

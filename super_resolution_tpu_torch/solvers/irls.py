@@ -42,7 +42,11 @@ On a mesh that spans processes (``parallel/distributed.py``) every process
 runs this loop on its own shards; the seam's assembly gathers the pieces of
 the other processes (``Sharded.to_global``), so every process reweights the
 whole estimate alike and places its own shards' weights, and ``solve()``
-returns the whole estimate in every process.
+returns the whole estimate in every process. On a pure ``frame`` mesh across
+processes the motion refinement runs in every process too, on that gathered
+estimate and the whole LR stack each process holds: the same bits in, the
+same refined shifts out, so every process's frame shards read the same
+motion with no further call between processes.
 
 ``fused_irls`` runs the whole solve on the device (:func:`irls_solve_fused`,
 :class:`FusedIRLS`), as the JAX package's one XLA program does. On a CUDA

@@ -29,23 +29,39 @@ estimation, NEWPRED, reduced-resolution VOPs, scalability, other bit
 depths). Corrupt data (an invalid code, a negative intra DC, a video packet
 out of place) raises ``ValueError``.
 
-FFmpeg switches to the Xvid IDCT for streams whose user data names Xvid
-(or that carry no encoder name in an ``XVID`` AVI); this decoder keeps the
-one IDCT that FFmpeg's own encoder (``Lavc`` user data, what OpenCV writes)
-reconstructs with, so frames of other encoders can differ from FFmpeg's by
-the IDCT's rounding.
+FFmpeg tells encoders apart by the user data (``Lavc``, ``FFmpeg``,
+``DivX``, ``XviD`` and their build numbers) and, where no encoder is named,
+by the container's four-character code, and so does this decoder
+(:class:`Encoder`). A stream taken for Xvid's -- user data ``XviD<build>``,
+or no encoder name in a stream tagged ``XVID`` (``XVIX``, ``RMP4``,
+``ZMP4``, ``SIPP``), which FFmpeg takes for Xvid build 0 -- is decoded with
+FFmpeg's Xvid IDCT as its SSE2 code computes it, as ``cv2.VideoCapture``
+does; every other stream with FFmpeg's simple IDCT. FFmpeg's workarounds for
+old encoders that change pixels of the streams decoded here are followed:
+edges at the picture's size, not the macroblock grid's, for Xvid builds up
+to 12, DivX before 5 (and a ``DIVX``-tagged stream with no name and no VOL
+control parameters) and FFmpeg builds before 4670 (``FF_BUG_EDGE``); intra
+DC predictors left unclipped for Xvid builds up to 32 and FFmpeg builds up
+to 4712 (``FF_BUG_DC_CLIP``). Its other workarounds touch only what this
+decoder refuses (quarter-pel, B-VOPs, interlaced fields) or, as its padding
+detection, only damaged streams.
 """
 
 from __future__ import annotations
 
 import ctypes
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
 
-__all__ = ["Mpeg4Decoder", "Vol", "parse_vol", "start_codes"]
+__all__ = ["Encoder", "Mpeg4Decoder", "Vol", "idct", "parse_vol", "start_codes"]
 
-_VOP, _VOL_FIRST, _VOL_LAST = 0xB6, 0x20, 0x2F
+_VOP, _VOL_FIRST, _VOL_LAST, _USER_DATA = 0xB6, 0x20, 0x2F, 0xB2
+# Flags of sr_mpeg4_decode_vop's params[9].
+XVID_IDCT, EDGE_BUG, DC_CLIP_BUG = 1, 2, 4
+# Four-character codes whose stream FFmpeg takes for Xvid's where no encoder is named.
+_XVID_TAGS = {b"XVID", b"XVIX", b"RMP4", b"ZMP4", b"SIPP"}
 
 # Default quantiser matrices (ISO/IEC 14496-2, 6.3.3), raster order.
 DEFAULT_INTRA_MATRIX = np.array([
@@ -102,6 +118,8 @@ class Vol:
     intra_matrix: np.ndarray = field(default_factory=lambda: DEFAULT_INTRA_MATRIX.copy())
     inter_matrix: np.ndarray = field(default_factory=lambda: DEFAULT_INTER_MATRIX.copy())
     resync_marker_disable: int = 1
+    vo_type: int = 0  # video_object_type_indication
+    vol_control_parameters: int = 0
 
 
 def _read_matrix(bits: _Bits, default: np.ndarray) -> np.ndarray:
@@ -128,14 +146,15 @@ def parse_vol(data: bytes, start: int = 0, end: int | None = None) -> Vol:
     """The video object layer header whose body (after its start code) is ``data[start:end]``."""
     b = _Bits(data, start, end)
     b.get(1)  # random_accessible_vol
-    b.get(8)  # video_object_type_indication
+    vo_type = b.get(8)
     verid = 1
     if b.get(1):  # is_object_layer_identifier
         verid = b.get(4)
         b.get(3)
     if b.get(4) == 15:  # aspect_ratio_info: extended PAR
         b.get(16)
-    if b.get(1):  # vol_control_parameters
+    vol_control_parameters = b.get(1)
+    if vol_control_parameters:
         if b.get(2) != 1:
             raise _unsupported("a chroma format other than 4:2:0")
         b.get(1)  # low_delay
@@ -167,7 +186,7 @@ def parse_vol(data: bytes, start: int = 0, end: int | None = None) -> Vol:
         raise _unsupported("sprites or global motion compensation (S-VOPs)")
     if b.get(1):
         raise _unsupported("a bit depth other than 8 (not_8_bit)")
-    vol = Vol(width, height, time_increment_bits)
+    vol = Vol(width, height, time_increment_bits, vo_type=vo_type, vol_control_parameters=vol_control_parameters)
     vol.quant_type = b.get(1)
     if vol.quant_type:
         if b.get(1):
@@ -191,14 +210,122 @@ def parse_vol(data: bytes, start: int = 0, end: int | None = None) -> Vol:
     return vol
 
 
-class Mpeg4Decoder:
-    """Decoder state across one stream: the VOL in force and the reference picture."""
+def _scan_int(text: str, pos: int) -> tuple[int, int] | None:
+    """``sscanf``'s ``%d`` at ``text[pos:]``: (value, end), or None."""
+    m = re.match(r"\s*([+-]?\d+)", text[pos:])
+    return (int(m.group(1)), pos + m.end()) if m else None
 
-    def __init__(self, config: bytes = b""):
-        """``config``: headers given outside the payloads (an MP4 ``esds`` DecoderSpecificInfo)."""
+
+def _scan(text: str, pattern: list) -> list[int]:
+    """The integers ``sscanf(text, ...)`` assigns, for a pattern of literals (str) and ``%d`` (int)."""
+    values, pos = [], 0
+    for piece in pattern:
+        if isinstance(piece, str):
+            if not text.startswith(piece, pos):
+                break
+            pos += len(piece)
+        else:
+            found = _scan_int(text, pos)
+            if found is None:
+                break
+            values.append(found[0])
+            pos = found[1]
+    return values
+
+
+@dataclass
+class Encoder:
+    """The encoder FFmpeg's MPEG-4 decoder reads from user data
+    (``decode_user_data``): -1 where a field was never named."""
+
+    xvid_build: int = -1
+    divx_version: int = -1
+    divx_build: int = -1
+    lavc_build: int = -1
+
+    def read_user_data(self, data: bytes) -> None:
+        """Update from one user data unit's body: up to 255 bytes, ending where
+        23 zero bits begin, read as a C string."""
+        text = bytearray()
+        padded = data + b"\x00\x00\x00"
+        for i in range(min(len(data), 255)):
+            if padded[i] == 0 and padded[i + 1] == 0 and padded[i + 2] < 2:
+                break
+            text.append(data[i])
+        buf = bytes(text).split(b"\x00", 1)[0].decode("latin-1")
+        divx = _scan(buf, ["DivX", 0, "Build", 0])
+        if len(divx) < 2:
+            divx = _scan(buf, ["DivX", 0, "b", 0])
+        if len(divx) == 2:
+            self.divx_version, self.divx_build = divx
+        build = None
+        m = re.match(r"FFmpe[^b]+b", buf)
+        if m and _scan_int(buf, m.end()) is not None:
+            build = _scan_int(buf, m.end())[0]
+        if build is None:
+            ffmpeg = _scan(buf, ["FFmpeg v", 0, ".", 0, ".", 0, " / libavcodec build: ", 0])
+            build = ffmpeg[3] if len(ffmpeg) == 4 else None
+        if build is None:
+            lavc = _scan(buf, ["Lavc", 0, ".", 0, ".", 0])
+            if len(lavc) == 3:
+                build = ((lavc[0] & 0xFF) << 16) + ((lavc[1] & 0xFF) << 8) + (lavc[2] & 0xFF)
+        if build is not None:
+            self.lavc_build = build
+        elif buf == "ffmpeg":
+            self.lavc_build = 4600
+        xvid = _scan(buf, ["XviD", 0])
+        if xvid:
+            self.xvid_build = xvid[0]
+
+    def identify(self, vol: Vol, codec_tag: bytes, stream_codec_tag: bytes) -> None:
+        """FFmpeg's guesses where no encoder is named (``ff_mpeg4_workaround_bugs``)."""
+        unnamed = self.xvid_build == -1 and self.divx_version == -1 and self.lavc_build == -1
+        if unnamed and (stream_codec_tag == b"XVID" or codec_tag in _XVID_TAGS):
+            self.xvid_build = 0
+        elif unnamed and codec_tag == b"DIVX" and vol.vo_type == 0 and vol.vol_control_parameters == 0:
+            self.divx_version = 400
+        if self.xvid_build >= 0 and self.divx_version >= 0:
+            self.divx_version = self.divx_build = -1
+
+    def workarounds(self) -> int:
+        """The flags of FFmpeg's workarounds that change this decoder's pixels."""
+        flags = 0
+        if 0 <= self.xvid_build <= 12 or 0 <= self.divx_version < 500 or 0 <= self.lavc_build < 4670:
+            flags |= EDGE_BUG
+        if 0 <= self.xvid_build <= 32 or 0 <= self.lavc_build <= 4712:
+            flags |= DC_CLIP_BUG
+        return flags
+
+
+def idct(block: np.ndarray, xvid: bool = False) -> np.ndarray:
+    """The decoder's IDCT of int16 coefficients ``[..., 8, 8]`` (raster order):
+    FFmpeg's simple IDCT, or its Xvid IDCT, as its x86 SIMD code computes
+    them; the 16-bit values before pixels are clipped."""
+    from super_resolution_tpu_torch.native import get_mpeg4_library
+
+    lib = get_mpeg4_library()
+    out = np.ascontiguousarray(block, dtype=np.int16).copy()
+    for one in out.reshape(-1, 64):
+        lib.sr_mpeg4_idct(one.ctypes.data, int(xvid))
+    return out
+
+
+class Mpeg4Decoder:
+    """Decoder state across one stream: the VOL in force, the encoder named, and the reference picture."""
+
+    def __init__(self, config: bytes = b"", codec_tag: bytes = b"", stream_codec_tag: bytes = b""):
+        """``config``: headers given outside the payloads (an MP4 ``esds``
+        DecoderSpecificInfo, a Matroska ``CodecPrivate``); ``codec_tag`` /
+        ``stream_codec_tag``: the container's four-character codes (an AVI
+        stream's ``strf`` compression and ``strh`` handler), which FFmpeg
+        reads where the stream names no encoder."""
         from super_resolution_tpu_torch.native import get_mpeg4_library
 
         self._lib = get_mpeg4_library()
+        self.codec_tag, self.stream_codec_tag = codec_tag, stream_codec_tag
+        self.encoder = Encoder()
+        self.workarounds = 0  # sticky, as FFmpeg's workaround_bugs
+        self.xvid_idct = False  # once switched, FFmpeg keeps the Xvid IDCT
         self.vol: Vol | None = None
         self._reference: np.ndarray | None = None
         self._last: np.ndarray | None = None
@@ -218,6 +345,8 @@ class Mpeg4Decoder:
                 if self.vol is not None and (vol.width, vol.height) != (self.vol.width, self.vol.height):
                     self._reference = None
                 self.vol = vol
+            elif code == _USER_DATA:
+                self.encoder.read_user_data(payload[start:end])
             elif code == _VOP:
                 frame = self._decode_vop(payload[:end], start)
                 self._skipped_last = frame is None
@@ -236,6 +365,9 @@ class Mpeg4Decoder:
         vol = self.vol
         if vol is None:
             raise ValueError("MPEG-4 VOP before any video object layer header.")
+        self.encoder.identify(vol, self.codec_tag, self.stream_codec_tag)
+        self.workarounds |= self.encoder.workarounds()
+        self.xvid_idct |= self.encoder.xvid_build >= 0
         b = _Bits(payload, start)
         coding_type = b.get(2)
         if coding_type == 2:
@@ -264,7 +396,8 @@ class Mpeg4Decoder:
         mb_w, mb_h = (vol.width + 15) // 16, (vol.height + 15) // 16
         out = np.empty(256 * mb_w * mb_h * 3 // 2, np.uint8)
         params = np.array([vol.width, vol.height, coding_type, quant, f_code, rounding, intra_dc_vlc_thr,
-                           vol.quant_type, vol.time_increment_bits], np.int32)
+                           vol.quant_type, vol.time_increment_bits,
+                           self.workarounds | (XVID_IDCT if self.xvid_idct else 0)], np.int32)
         matrices = np.concatenate([vol.intra_matrix, vol.inter_matrix]).astype(np.int32)
         reference = self._reference if coding_type == 1 else None
         err = ctypes.create_string_buffer(256)

@@ -16,6 +16,11 @@ its extension:
 
 - MP4 / QuickTime (:mod:`super_resolution_tpu_torch.video.mp4`): the first
   video track's MPEG-4 Part 2 (``mp4v``) samples, with its edit list;
+- Matroska / WebM (:mod:`super_resolution_tpu_torch.video.mkv`): the
+  first video track's MPEG-4 Part 2 (``V_MPEG4/ISO/SP|ASP|AP``) or
+  Motion-JPEG (``V_MJPEG``) frames, or those of a ``V_MS/VFW/FOURCC`` track
+  whose code the AVI reader takes (uncompressed 24-bit rows top-down, at the
+  track's size, as FFmpeg's Matroska demuxer hands them over);
 - RIFF AVI: the video stream's ``##dc`` / ``##db`` chunks of the ``movi``
   list (and of the OpenDML ``AVIX`` extensions), decoded as MPEG-4 Part 2
   (fourcc ``XVID``, ``DIVX``, ``DX50``, ``FMP4``, ``MP4V``, in either case),
@@ -27,8 +32,8 @@ MPEG-4 Part 2 frames (:mod:`super_resolution_tpu_torch.utils.mpeg4`) are
 ``cv2.VideoCapture``'s, pixel for pixel, on what ``cv2.VideoWriter``
 writes. An MJPEG frame is what ``cv2.imdecode`` gives for its JPEG payload;
 FFmpeg's MJPEG decoder and colour conversion differ from that by a few grey
-levels (ROADMAP.md, Queue 3). Other containers (Matroska / WebM, ...) and
-codecs (H.264, MS-MPEG4 ``DIV3``, ...) raise ``NotImplementedError`` naming
+levels (ROADMAP.md, Queue 3). Other containers and codecs (H.264, VP8,
+VP9, FFV1, MS-MPEG4 ``DIV3``, ...) raise ``NotImplementedError`` naming
 them.
 """
 
@@ -51,8 +56,6 @@ _DISPLAY_SIZE = (1000, 600)  # kDisplayFrameSize, video_loader.cpp:19
 
 
 def _container_name(head: bytes) -> str:
-    if head[:4] == b"\x1a\x45\xdf\xa3":
-        return "Matroska / WebM"
     if head[:4] == b"RIFF":
         return f"RIFF {head[8:12].decode('latin-1')!r}"
     return "an unknown container"
@@ -74,7 +77,7 @@ def _chunks(data: bytes, start: int, end: int):
 
 
 def _video_stream(data: bytes, hdrl: tuple[int, int]):
-    """(stream number, codec fourcc, bits per pixel, width, height) of the first video stream."""
+    """(stream number, codec fourcc, bits per pixel, width, height, handler fourcc) of the first video stream."""
     number = 0
     for fourcc, kind, start, end in _chunks(data, *hdrl):
         if fourcc != b"LIST" or kind != b"strl":
@@ -87,7 +90,7 @@ def _video_stream(data: bytes, hdrl: tuple[int, int]):
                 strf = data[s:e]
         if strh is not None and strh[:4] == b"vids" and strf is not None and len(strf) >= 20:
             _, width, height, _, bits, compression = struct.unpack("<IiiHH4s", strf[:20])
-            return number, compression, bits, width, height
+            return number, compression, bits, width, height, strh[4:8]
         number += 1
     raise ValueError("AVI file without a video stream.")
 
@@ -126,13 +129,15 @@ def _read(path: str) -> bytes:
 def _refuse_container(path: str, head: bytes) -> NotImplementedError:
     return NotImplementedError(
         f"{path}: {_container_name(head)} is not supported by the port's video reader (MP4 / QuickTime with "
-        "MPEG-4 Part 2, and AVI with MPEG-4 Part 2, Motion-JPEG or uncompressed frames, are); convert the video, "
-        "or extract its frames as images.")
+        "MPEG-4 Part 2, Matroska / WebM with MPEG-4 Part 2 or Motion-JPEG, and AVI with MPEG-4 Part 2, Motion-JPEG "
+        "or uncompressed frames, are); convert the video, or extract its frames as images.")
 
 
 def read_video_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:
-    """The frames of an MP4 / QuickTime or AVI file, told apart by its first
-    bytes, as uint8 ``HxWx3`` BGR arrays (all, or the first ``max_frames``)."""
+    """The frames of an MP4 / QuickTime, Matroska / WebM or AVI file, told
+    apart by its first bytes, as uint8 ``HxWx3`` BGR arrays (all, or the
+    first ``max_frames``)."""
+    from super_resolution_tpu_torch.video.mkv import is_matroska
     from super_resolution_tpu_torch.video.mp4 import is_iso_bmff
 
     data = _read(path)
@@ -140,7 +145,39 @@ def read_video_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:
         return _avi_frames(path, data, max_frames)
     if is_iso_bmff(data[:12]):
         return _mp4_frames(data, max_frames)
+    if is_matroska(data[:4]):
+        return _matroska_frames(path, data, max_frames)
     raise _refuse_container(path, data[:12])
+
+
+def _matroska_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray]:
+    from super_resolution_tpu_torch.video import mkv
+
+    video = mkv.read_matroska_video(data)
+    codec, config, tag = video.codec_id, video.codec_private, b""
+    if codec == "V_MS/VFW/FOURCC":
+        tag, bits, config = mkv.bitmap_info_header(config)
+        if tag == b"\0\0\0\0" and bits == 24:
+            return [_decode_bgr24(p, video.width, -video.height, packed=True)
+                    for p in video.frames[:max_frames or None]]
+        if tag not in _MPEG4 | _MJPEG:
+            raise NotImplementedError(f"{path}: Matroska V_MS/VFW/FOURCC video {_fourcc_name(tag)} with {bits} bits "
+                                      "per pixel is not supported by the port's video reader (MPEG-4 Part 2, "
+                                      "Motion-JPEG and uncompressed 24-bit BGR are).")
+    if codec in mkv.MPEG4_CODECS or tag in _MPEG4:
+        return _mpeg4_frames(video.frames, max_frames, config, codec_tag=tag)
+    if codec == "V_MJPEG" or tag in _MJPEG:
+        return [_decode_mjpeg(p) for p in video.frames[:max_frames or None]]
+    raise NotImplementedError(f"{path}: Matroska / WebM video of {mkv.codec_name(codec)} ({codec}) is not supported "
+                              "by the port's video reader (V_MPEG4/ISO/SP|ASP|AP, V_MJPEG and V_MS/VFW/FOURCC with "
+                              "an MPEG-4 Part 2, Motion-JPEG or uncompressed 24-bit code are).")
+
+
+def _fourcc_name(codec: bytes) -> str:
+    name = "uncompressed" if codec == b"\0\0\0\0" else repr(codec.decode("latin-1"))
+    if codec.upper() in (b"DIV3", b"MP43", b"MP42", b"MPG4"):
+        name += " (Microsoft MPEG-4, another codec than MPEG-4 Part 2)"
+    return name
 
 
 def _mp4_frames(data: bytes, max_frames: int) -> list[np.ndarray]:
@@ -151,11 +188,14 @@ def _mp4_frames(data: bytes, max_frames: int) -> list[np.ndarray]:
 
 
 def _mpeg4_frames(payloads: list[bytes], max_frames: int, config: bytes = b"",
-                  shown: list[bool] | None = None) -> list[np.ndarray]:
-    """The frames of an MPEG-4 Part 2 stream's payloads, keeping those of the ``shown`` ones (default: all)."""
+                  shown: list[bool] | None = None, codec_tag: bytes = b"",
+                  stream_codec_tag: bytes = b"") -> list[np.ndarray]:
+    """The frames of an MPEG-4 Part 2 stream's payloads, keeping those of the
+    ``shown`` ones (default: all); the container's four-character codes name
+    the encoder where the stream does not."""
     from super_resolution_tpu_torch.utils.mpeg4 import Mpeg4Decoder
 
-    decoder, frames = Mpeg4Decoder(config), []
+    decoder, frames = Mpeg4Decoder(config, codec_tag, stream_codec_tag), []
     for i, payload in enumerate(payloads):
         decoded = decoder.decode(payload)
         if shown is None or shown[i]:
@@ -178,19 +218,16 @@ def _avi_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray]:
                  if fourcc == b"LIST" and kind == b"hdrl"), None)
     if hdrl is None:
         raise ValueError(f"{path}: AVI file without a header list.")
-    stream, codec, bits, width, height = _video_stream(data, hdrl)
+    stream, codec, bits, width, height, handler = _video_stream(data, hdrl)
     if codec in _MPEG4:
-        return _mpeg4_frames(_frame_payloads(data, stream, 0), max_frames)
+        return _mpeg4_frames(_frame_payloads(data, stream, 0), max_frames, codec_tag=codec, stream_codec_tag=handler)
     if codec in _MJPEG:
         decode = _decode_mjpeg
     elif codec == b"\0\0\0\0" and bits == 24:
         decode = lambda payload: _decode_bgr24(payload, width, height)  # noqa: E731
     else:
-        name = "uncompressed" if codec == b"\0\0\0\0" else repr(codec.decode("latin-1"))
-        if codec.upper() in (b"DIV3", b"MP43", b"MP42", b"MPG4"):
-            name += " (Microsoft MPEG-4, another codec than MPEG-4 Part 2)"
         raise NotImplementedError(
-            f"{path}: {name} video with {bits} bits per pixel is not supported by the port's video reader "
+            f"{path}: {_fourcc_name(codec)} video with {bits} bits per pixel is not supported by the port's video reader "
             "(MPEG-4 Part 2, Motion-JPEG and uncompressed 24-bit BGR are).")
     return [decode(p) for p in _frame_payloads(data, stream, max_frames)]
 
@@ -202,10 +239,16 @@ def _decode_mjpeg(payload: bytes) -> np.ndarray:
     return np.repeat(frame[..., None], 3, axis=-1) if frame.ndim == 2 else frame
 
 
-def _decode_bgr24(payload: bytes, width: int, height: int) -> np.ndarray:
+def _decode_bgr24(payload: bytes, width: int, height: int, packed: bool = False) -> np.ndarray:
+    """An uncompressed BGR24 frame, bottom-up where ``height`` is positive,
+    its rows padded to 4 bytes; with ``packed`` (a Matroska track's frames,
+    as FFmpeg's raw video decoder takes them) padded where the payload holds
+    that many bytes, else packed."""
     rows, stride = abs(height), (width * 3 + 3) & ~3
+    if packed and len(payload) < rows * stride:
+        stride = width * 3
     if len(payload) < rows * stride:
-        raise ValueError(f"Uncompressed AVI frame of {len(payload)} bytes; {width}x{rows} needs {rows * stride}.")
+        raise ValueError(f"Uncompressed frame of {len(payload)} bytes; {width}x{rows} needs {rows * stride}.")
     image = np.frombuffer(payload, dtype=np.uint8, count=rows * stride).reshape(rows, stride)[:, : width * 3]
     if height > 0:  # bottom-up rows
         image = image[::-1]

@@ -37,7 +37,9 @@ from super_resolution_tpu_torch.motion import MotionShift, MotionShiftSequence
 from super_resolution_tpu_torch.ops.btv import BilateralTotalVariationRegularizer
 from super_resolution_tpu_torch.ops.tv import TotalVariationRegularizer
 from super_resolution_tpu_torch.parallel import Mesh, Sharded, band_split_minimize, make_mesh
+from super_resolution_tpu_torch.parallel import data_parallel
 from super_resolution_tpu_torch.solvers import irls as irls_mod
+from super_resolution_tpu_torch.solvers.least_squares import minimize
 
 JAX_TOL = 1e-8
 INTEGER = [(0, 0), (1, 1), (-1, 0), (0, -1)]
@@ -169,7 +171,7 @@ def test_fused_irls_refuses_a_mesh_over_several_devices(devices, solver_device, 
         solver.solve(np.zeros_like(hr))
 
 
-def test_fused_irls_refuses_a_mesh_over_several_processes():
+def test_fused_irls_refuses_a_mesh_over_several_processes(monkeypatch):
     """A mesh whose frame axis spans two processes, seen from process 0 (no group is formed)."""
     hr, model, lows, _ = _problem(channels=1)
     mesh = Mesh(["frame"], [4], ["cpu"] * 4, processes=[0, 0, 1, 1], process_index=0)
@@ -183,7 +185,37 @@ def test_fused_irls_refuses_a_mesh_over_several_processes():
     # A band axis across the two processes builds (each holds one band shard's two frame shards) ...
     bands = Mesh(["band", "frame"], [2, 2], ["cpu"] * 4, processes=[0, 0, 1, 1])
     assert bands.local_shards == [0, 1] and bands.spans_processes
-    # ... but the batched band split holds every band in one process.
-    x0 = Sharded.from_global(bands, torch.zeros(2, 4, 4, dtype=torch.float64), {"band": 0})
-    with pytest.raises(ValueError, match="band_split_minimize across processes"):
-        band_split_minimize(lambda x: (x.sum(), torch.ones_like(x)), x0)
+    # ... and the band split runs on it: each process solves the band that lies in it. Its two
+    # all-gathers are played here: each process's view runs up to them, then process 0 assembles.
+    targets = torch.tensor(np.random.default_rng(3).random((2, 4, 4)))
+    functions = [lambda x, t=t: (((x - t) ** 2).sum() + (x ** 4).sum(), 2 * (x - t) + 4 * x ** 3) for t in targets]
+    x0 = torch.zeros(2, 4, 4, dtype=torch.float64)
+    sent, calls = {0: [], 1: []}, []
+
+    class Sent(Exception):
+        pass
+
+    def view(rank, all_gather):
+        monkeypatch.setattr(data_parallel.distributed, "all_gather", all_gather)
+        mesh = Mesh(["band", "frame"], [2, 2], ["cpu"] * 4, processes=[0, 0, 1, 1], process_index=rank)
+        return band_split_minimize([lambda x, c=c: (calls.append((rank, c)), functions[c](x))[1] for c in range(2)],
+                                   Sharded.from_global(mesh, x0, {"band": 0}), method="cg", max_iterations=30)
+
+    def capture(rank):
+        def all_gather(t):  # keeps what this process sends; stops it after its second all-gather
+            sent[rank].append(t)
+            if len(sent[rank]) == 2:
+                raise Sent()
+            return torch.stack([t, t])
+        return all_gather
+
+    for rank in (0, 1):
+        with pytest.raises(Sent):
+            view(rank, capture(rank))
+    assert {c for r, c in calls if r == 0} == {0} and {c for r, c in calls if r == 1} == {1}
+    gathered = iter([torch.stack([sent[0][i], sent[1][i]]) for i in range(2)])
+    result = view(0, lambda t: next(gathered))
+    for c in range(2):
+        alone = minimize(functions[c], x0[c:c + 1], method="cg", max_iterations=30)
+        assert torch.equal(result.x[c:c + 1], alone.x) and torch.equal(result.cost[c], alone.cost)
+        assert (result.iterations[c], result.num_evaluations[c]) == (alone.iterations, alone.num_evaluations)

@@ -15,7 +15,12 @@ MPEG quantisation), VOLs rewritten by hand to MPEG quantisation with default
 and loaded matrices, streams of random syntax written here (every macroblock
 type, DC by either VLC, large coefficients, saturated pixels: where FFmpeg's
 x86 SIMD code departs from its C code, which ``cv2.VideoCapture`` runs and the
-port follows), edit lists, uncoded VOPs and the other MP4 layouts. The
+port follows), edit lists, uncoded VOPs and the other MP4 layouts. Streams
+FFmpeg takes for Xvid's (user data ``XviD<build>``, or no encoder name in an
+``XVID`` AVI) and for old DivX builds are decoded as FFmpeg decodes them:
+its Xvid IDCT (held against FFmpeg's own through its public ``AVDCT`` API on
+random blocks, saturating ones included, as is the simple IDCT), edges at
+the picture's size for old builds and DC predictors left unclipped. The
 loader matches the JAX loader in float64; the resolver matches the JAX
 resolver on the decoded frames to 1e-8 of the largest entry. What the decoder
 does not cover raises ``NotImplementedError`` naming it.
@@ -36,7 +41,7 @@ import torch
 from super_resolution_tpu.video import VideoLoader as JVideoLoader
 from super_resolution_tpu.video import VideoSuperResolver as JVideoSuperResolver
 
-from super_resolution_tpu_torch.utils.mpeg4 import Mpeg4Decoder, parse_vol, start_codes
+from super_resolution_tpu_torch.utils.mpeg4 import Mpeg4Decoder, idct, parse_vol, start_codes
 from super_resolution_tpu_torch.video import VideoLoader, VideoSuperResolver
 from super_resolution_tpu_torch.video.mp4 import read_mp4_video
 from super_resolution_tpu_torch.video.video_loader import read_avi_frames, read_video_frames
@@ -630,9 +635,9 @@ def test_mp4_refusals(tmp_path, mp4_clip):
 
 
 def test_other_containers_and_codecs_raise(tmp_path):
-    mkv = str(tmp_path / "clip.mkv")
-    _write(mkv, "MJPG", _motion_frames(32, 24, n=3))
-    with pytest.raises(NotImplementedError, match="Matroska"):
+    mkv = str(tmp_path / "clip.mkv")  # Matroska with FFV1: a codec the port does not decode
+    _write(mkv, "FFV1", _motion_frames(32, 24, n=3))
+    with pytest.raises(NotImplementedError, match=r"FFV1 \(V_FFV1\)"):
         read_video_frames(mkv)
     div3 = str(tmp_path / "div3.avi")  # MS-MPEG4 v3: another codec
     _write(div3, "DIV3", _motion_frames(32, 24, n=3))
@@ -641,6 +646,9 @@ def test_other_containers_and_codecs_raise(tmp_path):
 
 
 # --- the checked-in fixtures -----------------------------------------------------------
+
+# The Motion-JPEG bounds tests/test_torch_video.py holds against cv2.VideoCapture (grey levels).
+MJPEG_GAP_MAX, MJPEG_GAP_MEAN = 26, 1.9
 
 
 @pytest.mark.parametrize("name", sorted(json.load(open(os.path.join(FIXTURES, "manifest.json")))))
@@ -654,6 +662,12 @@ def test_checked_in_fixtures(name):
     ours, theirs = np.stack(read_video_frames(path)), np.stack(_capture(path))
     assert list(ours.shape) == entry["shape"]
     assert hashlib.sha256(theirs.tobytes()).hexdigest() == entry["frames_sha256"]
+    if "decode_sha256" in entry:  # Motion-JPEG: each frame as cv2.imdecode decodes it, near cv2.VideoCapture's
+        assert hashlib.sha256(ours.tobytes()).hexdigest() == entry["decode_sha256"]
+        gap = np.abs(ours.astype(int) - theirs)
+        assert [int(gap.max()), float(gap.mean())] == entry["capture_gap"]
+        assert gap.max() <= MJPEG_GAP_MAX and gap.mean() <= MJPEG_GAP_MEAN
+        return
     assert hashlib.sha256(ours.tobytes()).hexdigest() == entry["frames_sha256"]
     if entry["decoded_png"]:
         png = cv2.imread(os.path.join(FIXTURES, entry["decoded_png"]), cv2.IMREAD_UNCHANGED)
@@ -887,3 +901,109 @@ def test_negative_intra_dc_raises():
         b.code(_DC_SIZE[n < 4][0])
     with pytest.raises(ValueError, match="negative intra DC"):
         Mpeg4Decoder().decode(_vol(16, 16) + b.stuffed())
+
+
+# --- the encoder FFmpeg reads from the stream: the Xvid IDCT and old builds' workarounds ---
+
+
+def _avdct(algo):
+    """FFmpeg's IDCT of ``idct_algo`` ``algo`` as cv2.VideoCapture runs it, through the public
+    ``AVDCT`` API of the cv2 wheel's libavcodec (``avcodec_dct_alloc`` / ``avcodec_dct_init``;
+    ``idct`` at byte 8, its input permutation at 16, ``idct_algo`` at 92): ``[8, 8]`` int16 in
+    raster order -> the IDCT's int16 output."""
+    _, avcodec = _libavcodec()
+    avcodec.avcodec_dct_alloc.restype = ctypes.c_void_p
+    avcodec.avcodec_dct_init.argtypes = [ctypes.c_void_p]
+    dct = avcodec.avcodec_dct_alloc()
+    ctypes.memmove(dct + 92, struct.pack("<i", algo), 4)
+    assert avcodec.avcodec_dct_init(dct) == 0
+    function = ctypes.CFUNCTYPE(None, ctypes.c_void_p)(ctypes.c_void_p.from_address(dct + 8).value)
+    permutation = np.frombuffer(ctypes.string_at(dct + 16, 64), np.uint8)
+    buffer = np.zeros(64 + 8, np.int16)
+    start = (-buffer.ctypes.data % 16) // 2  # the SIMD code loads 16-byte aligned rows
+    block = buffer[start:start + 64]
+
+    def run(coefficients):
+        block[permutation] = coefficients.reshape(64)
+        function(block.ctypes.data)
+        return block.reshape(8, 8).copy()
+
+    return run
+
+
+def _random_blocks(rng, count):
+    """Coefficient blocks of four kinds: sparse small levels, dense 12-bit levels, full 16-bit
+    levels (every lane of the SIMD code saturates), and levels in the first rows only (the rows
+    the SIMD code skips when zero)."""
+    blocks = np.zeros((4, count, 64), np.int64)
+    blocks[0] = rng.integers(-256, 257, (count, 64)) * (rng.random((count, 64)) < 0.2)
+    blocks[1] = rng.integers(-2048, 2048, (count, 64)) * (rng.random((count, 64)) < 0.6)
+    blocks[2] = rng.integers(-32768, 32768, (count, 64))
+    rows = rng.integers(1, 5, count)
+    blocks[3] = rng.integers(-4096, 4096, (count, 64)) * (np.arange(64)[None] < 8 * rows[:, None])
+    return blocks.reshape(-1, 8, 8).astype(np.int16)
+
+
+@pytest.mark.parametrize("algo,xvid", [(0, False), (14, True)], ids=["simple", "xvid"])
+def test_idct_equals_ffmpeg(algo, xvid):
+    """The decoder's IDCTs against FFmpeg's on 3000 random blocks: the simple IDCT (FFmpeg's
+    automatic choice) and the Xvid IDCT (``FF_IDCT_XVID``), each as its x86 SIMD code runs."""
+    blocks = _random_blocks(np.random.default_rng(algo), 750)
+    ffmpeg = _avdct(algo)
+    ours = idct(blocks, xvid)
+    wrong = [i for i, b in enumerate(blocks) if not np.array_equal(ours[i], ffmpeg(b))]
+    assert not wrong, f"{len(wrong)} of {len(blocks)} blocks differ, first {blocks[wrong[0]].tolist()}"
+
+
+ENCODER_NAMES = {
+    "XviD build 67": b"XviD000000067",  # the Xvid IDCT alone
+    "no name": b" " * 13,               # an XVID AVI without a name: Xvid build 0, the IDCT and the edge workaround
+    "XviD build 12": b"XviD000000012",  # the last Xvid build with the edge workaround
+    "XviD build 13": b"XviD000000013",  # the first without it
+    "DivX 4": b"DivX400Build1",         # the edge workaround with the simple IDCT
+}
+
+
+@pytest.mark.parametrize("name", list(ENCODER_NAMES))
+def test_encoder_names_equal_videocapture(tmp_path, name):
+    """cv2.VideoWriter's XVID clip at 120x88 (neither side a multiple of 16, so edges at the
+    picture's size differ from the macroblock grid's), its 13-byte user data ``Lavc62.28.101``
+    rewritten in place: the port's frames equal cv2.VideoCapture's, and the decode the port made
+    before it read encoder names -- the same stream with its Lavc name -- would not."""
+    lavc = str(tmp_path / "lavc.avi")
+    _write(lavc, "XVID", _motion_frames(120, 88, n=8, seed=4))
+    data = open(lavc, "rb").read()
+    assert data.count(b"Lavc62.28.101") == 1, "this OpenCV's FFmpeg names itself otherwise"
+    renamed = str(tmp_path / "renamed.avi")
+    open(renamed, "wb").write(data.replace(b"Lavc62.28.101", ENCODER_NAMES[name]))
+    _assert_equal_to_capture(renamed)
+    old = read_video_frames(lavc)
+    assert any(not np.array_equal(a, b) for a, b in zip(old, _capture(renamed)))
+
+
+def _dc_clip_stream(build):
+    """One 16x16 I-VOP after user data ``XviD<build>``: luma block 0's DC level is 328 (x 8 =
+    2624, past 2047) and block 1 predicts its DC from it, 150 lower. FFmpeg clips the stored
+    predictor to 2047 (block 1 then 106) except for Xvid builds up to 32 (178)."""
+    b = _SyntaxWriter(np.random.default_rng(0), 1, 1)
+    b.put(32, 0x1B6)
+    for n, value in ((2, 0), (1, 0), (1, 1), (4, 0), (1, 1), (1, 1), (3, 0), (5, 4)):  # I-VOP, DC VLC, quant 4
+        b.put(n, value)
+    b.code(_INTRA_MCBPC[0])
+    b.put(1, 0)  # ac_pred_flag
+    b.code(_CBPY[0])
+    for difference in (200, -150):
+        b.code(_DC_SIZE[True][8])
+        b.put(8, difference if difference > 0 else difference + 255)
+    for n in range(2, 6):
+        b.code(_DC_SIZE[n < 4][0])
+    return _vol(16, 16) + b"\x00\x00\x01\xb2" + f"XviD{build:09d}".encode() + b.stuffed()
+
+
+def test_unclipped_dc_predictors_of_old_xvid_builds(tmp_path):
+    frames = {}
+    for build in (32, 33):
+        path = str(tmp_path / f"xvid{build}.avi")
+        _write_avi(path, [_dc_clip_stream(build)], 16, 16, fourcc=b"FMP4")
+        frames[build] = _assert_equal_to_capture(path)[0]
+    assert not np.array_equal(frames[32], frames[33])  # the workaround shows in the picture
