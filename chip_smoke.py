@@ -77,16 +77,20 @@ width:
   device busy share from the trace ``utils.profiling.trace`` writes,
   registration per window (its read-backs counted), and one evaluation at
   the video shape beside its bound, each kernel beside its own; the MPEG-4
-  Part 2 fixtures of ``tests/data_torch/video`` decoded on the host to their
+  Part 2 and VP8 fixtures of ``tests/data_torch/video`` decoded on the host to their
   recorded digests and to ``cv2.VideoCapture``'s frames stored with them
   (``native/mpeg4_decoder.cpp`` built by ``g++``); the same 12 LR frames from
   a checked-in ``mp4v`` .mp4 through ``VideoLoader.load_frames_from_video``
   and the host loop, every launch a K4 evaluation with shifts from the
   device, the luminance PSNR >= linear upsampling on every frame (the colour
-  PSNR logged beside it); and (g') the same frames from a checked-in
+  PSNR logged beside it); (g') the same frames from a checked-in
   Matroska clip of the same ``mp4v`` stream: decoded array-equal to the
   .mp4's, the resolver's estimate bit-equal to (g)'s, demux and decode ms a
-  frame;
+  frame; and (g'') the same frames from a checked-in VP8 .webm
+  (``native/vp8_decoder.cpp`` built by ``g++``): decoded on the host to the
+  digest of ``cv2.VideoCapture``'s frames, then the host loop as (g), K4's
+  launches counted, the luminance PSNR >= linear upsampling on every frame,
+  demux and decode ms a frame;
 - data parallel (phase 13): ``make_sharded_map_solver`` on a frame x4 mesh of
   the flagship and a frame x2 x band x2 mesh of the 64-band cube, each beside
   ``minimize`` on one device (float32 by iterations, cost and PSNR, float64
@@ -197,6 +201,7 @@ try:
     from super_resolution_tpu_torch.utils.profiling import device_time, trace
     from super_resolution_tpu_torch.video.video_loader import read_avi_frames, read_video_frames
     from super_resolution_tpu_torch.video.mkv import read_matroska_video
+    from super_resolution_tpu_torch.utils.vp8 import Vp8Decoder
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -2672,6 +2677,7 @@ VIDEO_FIXTURE_SHAPE = (8, 120, 160, 3)
 VIDEO_MPEG4_DIR = os.path.join("tests", "data_torch", "video")
 VIDEO_MPEG4_CLIP = "mp4v_960x540x12.mp4"  # (g): video_problem(cpu, float32)'s LR frames, as uint8
 VIDEO_MKV_CLIP = "mp4v_960x540x12.mkv"    # (g'): the same frames, the same encoder, in Matroska
+VIDEO_WEBM_CLIP = "vp8_960x540x12.webm"   # (g''): the same frames, VP8 (libvpx), in WebM
 VIDEO_MPEG4_GAP = 0                        # grey levels between the port's frames and cv2.VideoCapture's
 
 
@@ -2781,15 +2787,16 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     MJPEG fixture decoded to its recorded digest; (e) wall per frame, host
     loop and fused in turns, and under ``utils.profiling.trace`` the device's
     busy share, registration ms per window, one evaluation's time against
-    its bound; (f) every MPEG-4 Part 2 fixture decoded on the host (the
-    ``libsr_mpeg4`` library built by g++ at first use) to its recorded
-    digest and to the ``cv2.VideoCapture`` frames stored beside it; (g) the
-    same 12 LR frames from the checked-in ``mp4v`` clip through
-    ``VideoLoader.load_frames_from_video`` onto the card and the host loop:
-    every launch a K4 BTV evaluation with shifts from the device, no plain
-    version, luminance PSNR >= linear upsampling of the same decoded frames
-    on every frame inside the border (the colour PSNR, logged, loses to it:
-    the clip's chroma is 4:2:0)."""
+    its bound; (f) every MPEG-4 Part 2 and VP8 fixture decoded on the host
+    (the ``libsr_mpeg4`` and ``libsr_vp8`` libraries built by g++ at first
+    use) to its recorded digest and to the ``cv2.VideoCapture`` frames stored
+    beside it; (g) the same 12 LR frames from the checked-in ``mp4v`` clip
+    through ``VideoLoader.load_frames_from_video`` onto the card and the
+    host loop: every launch a K4 BTV evaluation with shifts from the device,
+    no plain version, luminance PSNR >= linear upsampling of the same decoded
+    frames on every frame inside the border (the colour PSNR, logged, loses
+    to it: the clip's chroma is 4:2:0); (g') the same from the Matroska clip
+    of that stream; (g'') the same from the VP8 .webm of those frames."""
     from super_resolution_tpu_torch.solvers import irls as irls_mod
 
     t_phase = time.perf_counter()
@@ -2981,25 +2988,29 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     log(f"      (d) MJPEG fixture {VIDEO_FIXTURE}: {len(decoded)} frames {decoded[0].shape}, SHA-256 as recorded by the "
         f"CPU tests; {decode_ms:.2f} ms per frame to decode on the host (median of 3)")
 
-    mpeg4_ms = _mpeg4_fixtures()
+    mpeg4_ms = _video_fixtures()
     mp4_gains, launches_mp4, mp4_stack, mp4_x = _video_from_mp4(device, card, truth, gains, mpeg4_ms[VIDEO_MPEG4_CLIP])
     launches_mkv, mkv_ms = _video_from_mkv(device, card, mp4_stack, mp4_x)
+    launches_webm, webm_ms, webm_gains = _video_from_webm(device, card, truth)
     for row in rows:
         if row["row"] == "K4":
             row["launches_video_mp4"] = launches_mp4
             row["launches_video_mkv"] = launches_mkv
+            row["launches_video_webm"] = launches_webm
 
     results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
-                   rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains, mkv_ms=mkv_ms)
+                   rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains, mkv_ms=mkv_ms,
+                   webm_ms=webm_ms, webm_gains=webm_gains)
     irls_mod._BUILT_SOLVER_CACHE.clear()
     log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
 
 
-def _mpeg4_fixtures():
-    """(f): each video fixture (MPEG-4 Part 2 in MP4, AVI and Matroska, and a
-    Motion-JPEG Matroska clip) decoded on the host, its file and its frames
+def _video_fixtures():
+    """(f): each video fixture (MPEG-4 Part 2 in MP4, AVI and Matroska, VP8 in
+    WebM, Matroska, AVI and IVF, and a Motion-JPEG Matroska clip) decoded on
+    the host, its file and its frames
     held to the digests recorded with it, and the small clips' frames to the
     ``cv2.VideoCapture`` frames stored as PNG; the Motion-JPEG clip's frames
     to the digest of the decode that equals ``cv2.imdecode`` (its gap to
@@ -3007,6 +3018,7 @@ def _mpeg4_fixtures():
     of 3), by file."""
     t0 = time.perf_counter()
     native.get_mpeg4_library()
+    native.get_vp8_library()
     build_s = time.perf_counter() - t0
     directory = os.path.join(ROOT, VIDEO_MPEG4_DIR)
     with open(os.path.join(directory, "manifest.json")) as f:
@@ -3035,8 +3047,8 @@ def _mpeg4_fixtures():
             gap = f"max gap to cv2.VideoCapture's PNG {worst}"
         decode_ms[name] = 1e3 * float(np.median(seconds)) / frames.shape[0]
         notes.append(f"{name} {tuple(frames.shape)} {decode_ms[name]:.3f} ms/frame ({gap})")
-    log(f"      (f) MPEG-4 Part 2 fixtures, native/mpeg4_decoder.cpp built and loaded in {build_s:.2f} s, decoded on "
-        f"the host to their recorded SHA-256 (median of 3): " + "; ".join(notes))
+    log(f"      (f) video fixtures, native/mpeg4_decoder.cpp and vp8_decoder.cpp built and loaded in {build_s:.2f} s, "
+        f"decoded on the host to their recorded SHA-256 (median of 3): " + "; ".join(notes))
     return decode_ms
 
 
@@ -3145,6 +3157,82 @@ def _video_from_mkv(device, card, mp4_stack, mp4_x):
         f"{evaluations} K4 BTV evaluations, plain version 0, estimate bit-equal to (g)'s; solve wall a frame "
         f"{_median_range(seconds)} s ({card})")
     return evaluations, ms
+
+
+def _video_from_webm(device, card, truth):
+    """(g''): the checked-in VP8 clip of the LR frames (``cv2.VideoWriter``
+    with ``VP80``: libvpx, in WebM): demuxed and decoded on the host (ms a
+    frame of each, median of 3; ``native/vp8_decoder.cpp`` built by g++), its
+    frames' SHA-256 equal to the digest of ``cv2.VideoCapture``'s frames that
+    the manifest records; ``VideoLoader.load_frames_from_video`` onto the card
+    and ``VideoSuperResolver``'s host loop, the counts set to 0 just before
+    and read just after: every launch a K4 BTV evaluation with shifts from the
+    device, no plain version, the luminance PSNR >= linear upsampling of the
+    same decoded frames on every frame inside the border, as (g). Returns (K4
+    launches, {"demux": ms, "decode": ms}, [(result, linear) luminance dB])."""
+    path = os.path.join(ROOT, VIDEO_MPEG4_DIR, VIDEO_WEBM_CLIP)
+    with open(os.path.join(ROOT, VIDEO_MPEG4_DIR, "manifest.json")) as f:
+        entry = json.load(f)[VIDEO_WEBM_CLIP]
+    with open(path, "rb") as f:
+        data = f.read()
+    demux_s, decode_s = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        video = read_matroska_video(data)
+        demux_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        decoder = Vp8Decoder()
+        frames = [frame for payload in video.frames for frame in decoder.decode(payload)]
+        decode_s.append(time.perf_counter() - t0)
+    decoded = np.stack(frames)
+    digest = hashlib.sha256(decoded.tobytes()).hexdigest()
+    check(video.codec_id == "V_VP8" and list(decoded.shape) == entry["shape"] and digest == entry["frames_sha256"],
+          f"video (g''): {video.codec_id}, frames {decoded.shape}, SHA-256 {digest} (cv2.VideoCapture's: "
+          f"{entry['shape']}, {entry['frames_sha256']})")
+    stats = decoder.stats
+    ms = {"demux": 1e3 * float(np.median(demux_s)) / len(frames), "decode": 1e3 * float(np.median(decode_s)) / len(frames)}
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    loader = sr_video.VideoLoader(device=device)
+    loader.load_frames_from_video(path)
+    stack = loader.frame_stack()
+    torch.cuda.synchronize(device)
+    load_s = time.perf_counter() - t0
+    expected = torch.from_numpy(np.stack([np.moveaxis(f, -1, 0) for f in frames]).astype(np.float64) / 255.0)
+    check(stack.is_cuda and torch.equal(stack.cpu(), expected.to(stack.dtype)),
+          "video (g''): the frames on the card differ from the host decode")
+    resolver = sr_video.VideoSuperResolver(device=device)
+    degrade.reset_launch_counts()
+    x, seconds, info = _video_run(resolver, stack, device)
+    counts, sources, plain = dict(degrade.launch_counts), dict(degrade.shift_source_counts), \
+        dict(degrade.plain_version_calls)
+    evaluations = sum(w["evaluations"] for w in info)
+    check(evaluations > 0 and counts == {name: (evaluations if name == "data_term_btv" else 0) for name in counts},
+          f"video (g''): launches {counts}, expected {evaluations} BTV evaluations")
+    check(sources == {"device": evaluations, "host": 0},
+          f"video (g''): the shifts of {sources['host']} evaluations crossed from the host")
+    check(plain["calls"] == 0, f"video (g''): the plain version ran {plain['calls']} times")
+    b = VIDEO_BORDER
+    inner = (slice(None), slice(b, -b), slice(b, -b))
+    hr = tuple(truth.shape[-2:])
+    luma_gains = []
+    for i in range(truth.shape[0]):
+        check(bool(torch.isfinite(x[i]).all()) and x[i].shape == truth[i].shape, f"video (g'') frame {i}: bad output")
+        linear = linear_resize(stack[i], hr)
+        luma_gains.append((float(psnr(_luma(x[i])[inner], _luma(truth[i])[inner])),
+                           float(psnr(_luma(linear)[inner], _luma(truth[i])[inner]))))
+        check(luma_gains[-1][0] >= luma_gains[-1][1],
+              f"video (g'') frame {i}: luminance PSNR {luma_gains[-1][0]:.4f} dB below linear {luma_gains[-1][1]:.4f}")
+    margin = [r - l for r, l in luma_gains]
+    log(f"      (g'') {VIDEO_WEBM_CLIP}: {len(frames)} frames {decoded.shape[1:]} demuxed in {ms['demux']:.4f} ms a "
+        f"frame and decoded in {ms['decode']:.3f} ms a frame on the host (median of 3; {stats['key_frames']} key "
+        f"frame(s), macroblocks: {stats['NEWMV']} NEWMV, {stats['SPLITMV']} SPLITMV, {stats['golden_mbs']} golden, "
+        f"{stats['altref_mbs']} altref), SHA-256 = cv2.VideoCapture's (0 grey levels); onto the card by "
+        f"VideoLoader.load_frames_from_video in {load_s:.3f} s; host loop -> 3x{hr[0]}x{hr[1]}: {evaluations} K4 BTV "
+        f"evaluations (shifts from the device), plain version 0; luminance PSNR inside {b} px, result / linear "
+        f"upsampling of the decoded frames, dB: " + ", ".join(f"{r:.2f}/{l:.2f}" for r, l in luma_gains)
+        + f", margin {min(margin):.4f} to {max(margin):.4f} dB; solve wall a frame {_median_range(seconds)} s ({card})")
+    return evaluations, ms, luma_gains
 
 
 # ------------------------------------------------- the mesh under fused_irls (phase 8, extended)

@@ -10,8 +10,9 @@ texture and sharp-edged shapes) panned by one pixel a frame, written by
 baseline JPEG frames, 4:2:0, each with its own tables);
 ``tests/test_torch_video.py`` records the SHA-256 of the port's decode of it.
 
-The MPEG-4 Part 2 clips, each written by ``cv2.VideoWriter`` (FFmpeg's
-``mpeg4`` encoder: I- and P-VOPs, a GOP of 12):
+The clips of ``tests/data_torch/video``, each written by ``cv2.VideoWriter``
+(MPEG-4 Part 2 by FFmpeg's ``mpeg4`` encoder: I- and P-VOPs, a GOP of 12;
+VP8 by libvpx through FFmpeg):
 
 - ``mp4v_960x540x12.mp4``: the 12 LR frames of ``chip_smoke.py``'s video
   phase (``video_problem`` on the CPU in float32, seed 41: 3x540x960),
@@ -30,6 +31,16 @@ The MPEG-4 Part 2 clips, each written by ``cv2.VideoWriter`` (FFmpeg's
 - ``mp4v_960x540x12.mkv`` and ``mp4v_96x64x8.mkv``: the frames of
   ``mp4v_960x540x12.mp4`` and the 96x64 scene in Matroska
   (``V_MPEG4/ISO/ASP``);
+- ``vp8_960x540x12.webm``: the frames of ``mp4v_960x540x12.mp4`` written
+  with fourcc ``VP80`` (libvpx's VP8: key and inter frames, golden and
+  altref references); ``chip_smoke.py`` super-resolves the port's decode of
+  it on the card;
+- ``vp8_160x120x40.webm``, ``.mkv``, ``.avi`` and ``.ivf``: a pan over 40
+  frames of the scene without grain, one frame of them under noise of +-30
+  grey levels (intra macroblocks in inter frames, a key frame after it,
+  golden refreshes), in each container ``cv2.VideoWriter`` puts VP8 into;
+- ``vp8_96x64x16.webm``: a pan with a square that moves on its own (inter
+  macroblocks split between two motions: SPLITMV);
 - ``mjpeg_160x120x4.mkv``: the Motion-JPEG AVI's scene in Matroska as ``V_MJPEG``. The
   port decodes each JPEG as ``cv2.imdecode`` does, which is not what
   ``cv2.VideoCapture`` gives for Motion-JPEG; its entry records the digest of
@@ -64,8 +75,8 @@ ENCODER_NAME = b"Lavc62.28.101"  # the user data this OpenCV's FFmpeg writes int
 XVID_NAMES = {"xvid_build67_88x56x6.avi": b"XviD000000067", "xvid_noname_88x56x6.avi": b" " * 13}
 
 
-def scene(seed: int = SEED, h: int = HEIGHT, w: int = WIDTH + FRAMES) -> np.ndarray:
-    """A uint8 BGR scene of (h, w) pixels."""
+def scene(seed: int = SEED, h: int = HEIGHT, w: int = WIDTH + FRAMES, grain: float = 3.0) -> np.ndarray:
+    """A uint8 BGR scene of (h, w) pixels, with Gaussian grain of standard deviation ``grain``."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:h, :w].astype(np.float64)
     img = np.empty((h, w, 3))
@@ -74,7 +85,8 @@ def scene(seed: int = SEED, h: int = HEIGHT, w: int = WIDTH + FRAMES) -> np.ndar
     for _ in range(10):
         cy, cx, ry, rx = rng.integers(0, h), rng.integers(0, w), rng.integers(4, 25), rng.integers(4, 30)
         img[((yy - cy) / ry) ** 2 + ((xx - cx) / rx) ** 2 < 1.0] += rng.uniform(-70, 70, 3)
-    img += rng.normal(0, 3, img.shape)
+    if grain:
+        img += rng.normal(0, grain, img.shape)
     return np.clip(np.rint(img), 0, 255).astype(np.uint8)
 
 
@@ -117,6 +129,25 @@ def video_phase_frames() -> tuple[np.ndarray, ...]:
     return tuple(ImageData(low, normalize="never", channel_major=True).visualization_image() for low in lows)
 
 
+def vp8_clips() -> dict[str, tuple[str, list[np.ndarray], bool]]:
+    """{file name: (fourcc, frames, keep cv2's decode as PNG)} of the VP8 fixtures."""
+    pan = scene(SEED + 4, 120, 200, grain=0)
+    panned = [pan[:, i:i + 160].copy() for i in range(40)]
+    noise = np.random.default_rng(SEED + 4).integers(-30, 31, panned[17].shape)
+    panned[17] = np.clip(panned[17] + noise, 0, 255).astype(np.uint8)
+    ground, square = scene(SEED + 5, 64, 112, grain=0), scene(SEED + 6, 24, 24, grain=0)
+    split = []
+    for i in range(16):
+        frame = ground[:, i:i + 96].copy()
+        y, x = 8 + (5 * i) % 32, 60 - 3 * i
+        frame[y:y + 24, x:x + 24] = square
+        split.append(frame)
+    clips = {"vp8_960x540x12.webm": ("VP80", list(video_phase_frames()), False)}
+    clips.update({f"vp8_160x120x40.{ext}": ("VP80", panned, False) for ext in ("webm", "mkv", "avi", "ivf")})
+    clips["vp8_96x64x16.webm"] = ("VP80", split, False)
+    return clips
+
+
 def mpeg4_clips() -> dict[str, tuple[str, list[np.ndarray], bool]]:
     """{file name: (fourcc, frames, keep cv2's decode as PNG)} of the MPEG-4 fixtures."""
     pan = scene(SEED + 1, 120, 174)
@@ -154,7 +185,7 @@ def matroska_payloads(path: str) -> list[bytes]:
 def write_mpeg4_fixtures(directory: str) -> None:
     os.makedirs(directory, exist_ok=True)
     manifest = {}
-    for name, (fourcc, frames, keep_png) in mpeg4_clips().items():
+    for name, (fourcc, frames, keep_png) in {**mpeg4_clips(), **vp8_clips()}.items():
         path = os.path.join(directory, name)
         write_clip(path, fourcc, frames)
         if name in XVID_NAMES:
@@ -169,7 +200,8 @@ def write_mpeg4_fixtures(directory: str) -> None:
             entry.update(decode_sha256=sha256(ours.tobytes()), capture_gap=[int(gap.max()), float(gap.mean())])
         if keep_png:
             entry["decoded_png"] = f"{name}.decoded.png"
-            cv2.imwrite(os.path.join(directory, entry["decoded_png"]), decoded.reshape(-1, *decoded.shape[2:]))
+            cv2.imwrite(os.path.join(directory, entry["decoded_png"]), decoded.reshape(-1, *decoded.shape[2:]),
+                        [cv2.IMWRITE_PNG_COMPRESSION, 9])
         manifest[name] = entry
         print(f"wrote {path} ({os.path.getsize(path)} bytes, {decoded.shape[0]} frames)")
     with open(os.path.join(directory, "manifest.json"), "w") as f:

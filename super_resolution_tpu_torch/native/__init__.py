@@ -18,10 +18,16 @@
   Profile I- and P-VOPs into YUV 4:2:0 planes and converts them to BGR (the
   serial half of :mod:`super_resolution_tpu_torch.utils.mpeg4`, which reads
   the headers and keeps the reference picture).
+- ``vp8_decoder.cpp`` decodes VP8 video, one frame a call, keeping its three
+  reference frames and its probabilities between calls, and converts the
+  frames shown to BGR (behind :class:`super_resolution_tpu_torch.utils.vp8.Vp8Decoder`).
+  VP8 frames themselves are decoded by ``vp8_core.h``, which
+  ``webp_decoder.cpp`` shares; both video decoders convert with
+  ``yuv420_to_bgr.h``.
 
 At first use each is compiled with the host's C++ compiler into
 ``super_resolution_tpu_torch/_build/libsr_<name>_<hash>.so``, where the hash
-covers the source and the flags: an edited source is rebuilt, an unchanged
+covers the source, the headers it includes and the flags: an edited source is rebuilt, an unchanged
 one loaded as it is. Nothing runs when the module is imported.
 
 :func:`native_available` is false only when the host has no C++ compiler;
@@ -29,7 +35,7 @@ then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. The
 codecs have no second implementation: without a compiler
 :func:`get_jpeg_library`, :func:`get_jpeg_encoder_library`,
 :func:`get_lzw_library`, :func:`get_webp_library`,
-:func:`get_webp_encoder_library` and :func:`get_mpeg4_library` raise
+:func:`get_webp_encoder_library`, :func:`get_mpeg4_library` and :func:`get_vp8_library` raise
 ``RuntimeError``. A compile that fails, and a
 native read that fails, raise.
 """
@@ -39,6 +45,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -47,7 +54,8 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["native_available", "get_library", "get_jpeg_library", "get_jpeg_encoder_library", "get_lzw_library",
-           "get_webp_library", "get_webp_encoder_library", "get_mpeg4_library", "read_bsq", "build_library"]
+           "get_webp_library", "get_webp_encoder_library", "get_mpeg4_library", "get_vp8_library", "read_bsq",
+           "build_library"]
 
 _HERE = Path(__file__).resolve().parent
 _SOURCE = _HERE / "envi_loader.cpp"
@@ -57,8 +65,10 @@ _LZW_SOURCE = _HERE / "lzw.cpp"
 _WEBP_SOURCE = _HERE / "webp_decoder.cpp"
 _WEBP_ENCODER_SOURCE = _HERE / "webp_encoder.cpp"
 _MPEG4_SOURCE = _HERE / "mpeg4_decoder.cpp"
+_VP8_SOURCE = _HERE / "vp8_decoder.cpp"
 _LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw",
-                  _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder", _MPEG4_SOURCE: "mpeg4"}
+                  _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder", _MPEG4_SOURCE: "mpeg4",
+                  _VP8_SOURCE: "vp8"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}
@@ -69,7 +79,9 @@ def _compiler() -> str | None:
 
 
 def _library_path(source: Path = _SOURCE) -> Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(_FLAGS).encode()).hexdigest()[:16]
+    text = source.read_bytes()
+    headers = b"".join((_HERE / name.decode()).read_bytes() for name in re.findall(rb'#include "([^"]+)"', text))
+    digest = hashlib.sha256(text + headers + " ".join(_FLAGS).encode()).hexdigest()[:16]
     return Path(__file__).resolve().parents[1] / "_build" / f"libsr_{_LIBRARY_NAMES[source]}_{digest}.so"
 
 
@@ -153,6 +165,16 @@ def get_mpeg4_library() -> ctypes.CDLL:
                                                                ctypes.c_char_p, _int]),
                                  "sr_mpeg4_yuv420_to_bgr": (None, [_ptr, _int, _int, _int, _int, _ptr]),
                                  "sr_mpeg4_idct": (None, [_ptr, _int])})
+
+
+def get_vp8_library() -> ctypes.CDLL:
+    """The loaded VP8 video decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_VP8_SOURCE, {"sr_vp8_stream_new": (_ptr, []),
+                               "sr_vp8_stream_free": (None, [_ptr]),
+                               "sr_vp8_stream_decode": (_int, [_ptr, ctypes.c_char_p, _i64, ctypes.c_char_p, _int]),
+                               "sr_vp8_stream_size": (None, [_ptr, _ptr]),
+                               "sr_vp8_stream_bgr": (None, [_ptr, _ptr]),
+                               "sr_vp8_stream_stats": (_int, [_ptr, _ptr, _int])})
 
 
 def native_available() -> bool:

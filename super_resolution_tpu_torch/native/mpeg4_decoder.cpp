@@ -47,6 +47,8 @@
 #include <string>
 #include <vector>
 
+#include "yuv420_to_bgr.h"
+
 namespace {
 
 struct Code {
@@ -1105,29 +1107,12 @@ void sr_mpeg4_idct(int16_t* block, int xvid) {
   }
 }
 
-// swscale's unscaled YUV 4:2:0 -> BGR24 (BT.601, limited range), in the
-// 16-bit fixed point of its x86 converter: (v << 3) - offset, times a
-// coefficient scaled by 2^13, keeping the high 16 bits; each chroma sample
-// serves its 2x2 luma samples.
+// swscale's unscaled YUV 4:2:0 -> BGR24 (yuv420_to_bgr.h) of the planes on
+// the macroblock grid.
 void sr_mpeg4_yuv420_to_bgr(const uint8_t* planes, int mb_w, int mb_h, int width, int height, uint8_t* bgr) {
   const int ls = 16 * mb_w, cs = 8 * mb_w;
-  const uint8_t* yp = planes;
   const uint8_t* up = planes + ls * 16 * mb_h;
-  const uint8_t* vp = up + cs * 8 * mb_h;
-  constexpr int kY = 9539, kVR = 13075, kUB = 16525, kUG = -3209, kVG = -6660;
-  for (int y = 0; y < height; ++y) {
-    const uint8_t* yr = yp + y * ls;
-    const uint8_t* ur = up + (y >> 1) * cs;
-    const uint8_t* vr = vp + (y >> 1) * cs;
-    uint8_t* o = bgr + size_t(y) * width * 3;
-    for (int x = 0; x < width; ++x) {
-      int yy = (((yr[x] << 3) - 128) * kY) >> 16;
-      int u = (ur[x >> 1] << 3) - 1024, v = (vr[x >> 1] << 3) - 1024;
-      o[3 * x] = clip_pixel(yy + ((u * kUB) >> 16));
-      o[3 * x + 1] = clip_pixel(yy + ((u * kUG) >> 16) + ((v * kVG) >> 16));
-      o[3 * x + 2] = clip_pixel(yy + ((v * kVR) >> 16));
-    }
-  }
+  sr_yuv::Yuv420ToBgr(planes, up, up + cs * 8 * mb_h, ls, cs, width, height, bgr);
 }
 
 }  // extern "C"

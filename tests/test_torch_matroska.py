@@ -3,13 +3,15 @@
 package's video path -- on the same files.
 
 Files ``cv2.VideoWriter`` writes to .mkv (``V_MPEG4/ISO/ASP`` for the
-``mp4v`` / ``XVID`` fourccs, ``V_MJPEG``, ``V_FFV1``) and .webm (``V_VP8``,
-``V_VP9``), and rewrites of them made here with a small EBML writer (SeekHead,
-Cues and Void dropped, so that FFmpeg reads the clusters in order): Xiph,
-EBML and fixed-size lacing, clusters and a segment of unknown size, blocks
-in ``BlockGroup`` s, ``V_MS/VFW/FOURCC`` tracks (MPEG-4 Part 2 and uncompressed), ``ContentEncodings``, a
-second video track and other codec IDs. MPEG-4 Part 2 frames are
-array-equal to cv2.VideoCapture's; Motion-JPEG frames are each what
+``mp4v`` / ``XVID`` fourccs, ``V_MJPEG``, ``V_FFV1``, ``V_VP9``) and .webm
+(``V_VP8``, ``V_VP9``), and rewrites of them made here with a small EBML
+writer (SeekHead, Cues and Void dropped, so that FFmpeg reads the clusters in
+order): Xiph, EBML and fixed-size lacing, clusters and a segment of unknown
+size, blocks in ``BlockGroup`` s, ``V_MS/VFW/FOURCC`` tracks (MPEG-4 Part 2,
+VP8 and uncompressed), ``ContentEncodings``, a second video track, other
+codec IDs and a VP8 key frame that asks for scaling. MPEG-4 Part 2 and VP8
+frames are array-equal to cv2.VideoCapture's (``tests/test_torch_vp8.py``
+holds VP8 in .webm); Motion-JPEG frames are each what
 ``cv2.imdecode`` gives for the block, within the bounds the AVI reader is held
 to (26 grey levels, 1.9 on average) of cv2.VideoCapture's. What the port does
 not read raises ``NotImplementedError`` naming it. The loader matches the JAX
@@ -278,6 +280,24 @@ def test_vfw_fourcc_track(tmp_path, name):
     assert differ == (name is not None)
 
 
+def test_vp8_vfw_fourcc_track(tmp_path):
+    """A ``V_VP8`` track rewritten as ``V_MS/VFW/FOURCC`` with ``VP80``: routed to the VP8 decoder as the AVI
+    reader routes it, array-equal to cv2.VideoCapture and to the ``V_VP8`` track's frames."""
+    src = str(tmp_path / "src.webm")
+    _write(src, "VP80", _pan(64, 48, 8, seed=4))
+    assert read_matroska_video(open(src, "rb").read()).codec_id == "V_VP8"
+
+    def change(tree):
+        entry = _track(tree)
+        _set(entry, CODEC_ID, b"V_MS/VFW/FOURCC")
+        _set(entry, CODEC_PRIVATE, struct.pack("<IiiHH4sIiiII", 40, 64, 48, 1, 24, b"VP80", 64 * 48 * 3, 0, 0, 0, 0))
+
+    path = _rewritten(tmp_path, src, "vfw.mkv", change)
+    ours, theirs, original = read_video_frames(path), _capture(path), read_video_frames(src)
+    assert len(ours) == len(theirs) == len(original) == 8
+    assert all(np.array_equal(a, b) and np.array_equal(a, c) for a, b, c in zip(ours, theirs, original))
+
+
 @pytest.mark.parametrize("padded", [True, False], ids=["padded rows", "packed rows"])
 def test_vfw_uncompressed_track(tmp_path, padded):
     """A ``V_MS/VFW/FOURCC`` track with code 0 at 24 bits, as the AVI reader routes it: BGR24 rows, which
@@ -308,11 +328,28 @@ def test_vfw_uncompressed_track(tmp_path, padded):
 # --- what the port refuses ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("fourcc,ext,name", [("FFV1", "mkv", "FFV1"), ("VP80", "webm", "VP8"), ("VP90", "webm", "VP9")])
+@pytest.mark.parametrize("fourcc,ext,name", [("FFV1", "mkv", "FFV1"), ("VP90", "mkv", "VP9"), ("VP90", "webm", "VP9")])
 def test_other_codecs_raise(tmp_path, fourcc, ext, name):
     path = str(tmp_path / f"clip.{ext}")
     _write(path, fourcc, _pan(32, 24, 3))
     with pytest.raises(NotImplementedError, match=rf"{name} \(V_{name}\)"):
+        read_video_frames(path)
+
+
+def _vp8_scaled(tree):
+    """The first key frame's horizontal_scale set (the top bits of its width)."""
+    cluster, i, body = _blocks(tree)[0]
+    frame = bytearray(body[4:])
+    frame[7] |= 0x40
+    cluster[1][i] = [SIMPLE_BLOCK, body[:4] + bytes(frame)]
+
+
+def test_vp8_refusal_names_it(tmp_path):
+    """A VP8 feature the port refuses: a key frame that asks for scaling."""
+    src = str(tmp_path / "src.webm")
+    _write(src, "VP80", _pan(32, 24, 3))
+    path = _rewritten(tmp_path, src, "scaled.webm", _vp8_scaled)
+    with pytest.raises(NotImplementedError, match=r"VP8 frame scaling \(horizontal_scale / vertical_scale"):
         read_video_frames(path)
 
 
