@@ -86,11 +86,13 @@ width:
   PSNR logged beside it); (g') the same frames from a checked-in
   Matroska clip of the same ``mp4v`` stream: decoded array-equal to the
   .mp4's, the resolver's estimate bit-equal to (g)'s, demux and decode ms a
-  frame; and (g'') the same frames from a checked-in VP8 .webm
+  frame; (g'') the same frames from a checked-in VP8 .webm
   (``native/vp8_decoder.cpp`` built by ``g++``): decoded on the host to the
   digest of ``cv2.VideoCapture``'s frames, then the host loop as (g), K4's
   launches counted, the luminance PSNR >= linear upsampling on every frame,
-  demux and decode ms a frame;
+  demux and decode ms a frame; and (g''') the same for the VP9 .webm of
+  those frames (``native/vp9_decoder.cpp``; two tile columns at this width),
+  its decoder's counts logged;
 - data parallel (phase 13): ``make_sharded_map_solver`` on a frame x4 mesh of
   the flagship and a frame x2 x band x2 mesh of the 64-band cube, each beside
   ``minimize`` on one device (float32 by iterations, cost and PSNR, float64
@@ -202,6 +204,7 @@ try:
     from super_resolution_tpu_torch.video.video_loader import read_avi_frames, read_video_frames
     from super_resolution_tpu_torch.video.mkv import read_matroska_video
     from super_resolution_tpu_torch.utils.vp8 import Vp8Decoder
+    from super_resolution_tpu_torch.utils.vp9 import Vp9Decoder
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -2678,6 +2681,8 @@ VIDEO_MPEG4_DIR = os.path.join("tests", "data_torch", "video")
 VIDEO_MPEG4_CLIP = "mp4v_960x540x12.mp4"  # (g): video_problem(cpu, float32)'s LR frames, as uint8
 VIDEO_MKV_CLIP = "mp4v_960x540x12.mkv"    # (g'): the same frames, the same encoder, in Matroska
 VIDEO_WEBM_CLIP = "vp8_960x540x12.webm"   # (g''): the same frames, VP8 (libvpx), in WebM
+VIDEO_VP9_DIR = os.path.join("tests", "data_torch", "vp9")  # its own manifest.json, as VIDEO_MPEG4_DIR's
+VIDEO_VP9_CLIP = "vp9_960x540x12.webm"    # (g'''): the same frames, VP9 (libvpx), in WebM
 VIDEO_MPEG4_GAP = 0                        # grey levels between the port's frames and cv2.VideoCapture's
 
 
@@ -2796,7 +2801,8 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     no plain version, luminance PSNR >= linear upsampling of the same decoded
     frames on every frame inside the border (the colour PSNR, logged, loses
     to it: the clip's chroma is 4:2:0); (g') the same from the Matroska clip
-    of that stream; (g'') the same from the VP8 .webm of those frames."""
+    of that stream; (g'') the same from the VP8 .webm of those frames;
+    (g''') the same from their VP9 .webm."""
     from super_resolution_tpu_torch.solvers import irls as irls_mod
 
     t_phase = time.perf_counter()
@@ -2992,16 +2998,19 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     mp4_gains, launches_mp4, mp4_stack, mp4_x = _video_from_mp4(device, card, truth, gains, mpeg4_ms[VIDEO_MPEG4_CLIP])
     launches_mkv, mkv_ms = _video_from_mkv(device, card, mp4_stack, mp4_x)
     launches_webm, webm_ms, webm_gains = _video_from_webm(device, card, truth)
+    launches_vp9, vp9_ms, vp9_gains = _video_from_webm(device, card, truth, VIDEO_VP9_DIR, VIDEO_VP9_CLIP, "g'''",
+                                                       "V_VP9", Vp9Decoder, _vp9_counts)
     for row in rows:
         if row["row"] == "K4":
             row["launches_video_mp4"] = launches_mp4
             row["launches_video_mkv"] = launches_mkv
             row["launches_video_webm"] = launches_webm
+            row["launches_video_webm_vp9"] = launches_vp9
 
     results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
                    rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains, mkv_ms=mkv_ms,
-                   webm_ms=webm_ms, webm_gains=webm_gains)
+                   webm_ms=webm_ms, webm_gains=webm_gains, vp9_ms=vp9_ms, vp9_gains=vp9_gains)
     irls_mod._BUILT_SOLVER_CACHE.clear()
     log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
@@ -3159,10 +3168,25 @@ def _video_from_mkv(device, card, mp4_stack, mp4_x):
     return evaluations, ms
 
 
-def _video_from_webm(device, card, truth):
+def _vp8_counts(stats):
+    return (f"{stats['key_frames']} key frame(s), macroblocks: {stats['NEWMV']} NEWMV, {stats['SPLITMV']} SPLITMV, "
+            f"{stats['golden_mbs']} golden, {stats['altref_mbs']} altref")
+
+
+def _vp9_counts(stats):
+    return (f"{stats['key_frames']} key frame(s), {stats['tile_col_frames']} frame(s) in two tile columns, blocks: "
+            f"{stats['NEWMV']} NEWMV, {stats['NEARESTMV']} NEARESTMV, {stats['ZEROMV']} ZEROMV, "
+            f"{stats['sub8x8_blocks']} sub-8x8, {stats['intra_blocks']} intra, {stats['golden_blocks']} golden, "
+            f"{stats['skip_blocks']} skipped; transforms 4/8/16/32: {stats['tx_4x4']}/{stats['tx_8x8']}/"
+            f"{stats['tx_16x16']}/{stats['tx_32x32']}; slot 1 refreshed {stats['refresh_slot_1']} time(s)")
+
+
+def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_WEBM_CLIP, label="g''",
+                     codec_id="V_VP8", decoder_class=Vp8Decoder, describe=_vp8_counts):
     """(g''): the checked-in VP8 clip of the LR frames (``cv2.VideoWriter``
-    with ``VP80``: libvpx, in WebM): demuxed and decoded on the host (ms a
-    frame of each, median of 3; ``native/vp8_decoder.cpp`` built by g++), its
+    with ``VP80``: libvpx, in WebM), or (g''') the VP9 one (``VP90``): demuxed
+    and decoded on the host (ms a frame of each, median of 3;
+    ``native/vp8_decoder.cpp`` / ``vp9_decoder.cpp`` built by g++), its
     frames' SHA-256 equal to the digest of ``cv2.VideoCapture``'s frames that
     the manifest records; ``VideoLoader.load_frames_from_video`` onto the card
     and ``VideoSuperResolver``'s host loop, the counts set to 0 just before
@@ -3170,24 +3194,27 @@ def _video_from_webm(device, card, truth):
     device, no plain version, the luminance PSNR >= linear upsampling of the
     same decoded frames on every frame inside the border, as (g). Returns (K4
     launches, {"demux": ms, "decode": ms}, [(result, linear) luminance dB])."""
-    path = os.path.join(ROOT, VIDEO_MPEG4_DIR, VIDEO_WEBM_CLIP)
-    with open(os.path.join(ROOT, VIDEO_MPEG4_DIR, "manifest.json")) as f:
-        entry = json.load(f)[VIDEO_WEBM_CLIP]
+    path = os.path.join(ROOT, directory, clip)
+    with open(os.path.join(ROOT, directory, "manifest.json")) as f:
+        entry = json.load(f)[clip]
     with open(path, "rb") as f:
         data = f.read()
+    t0 = time.perf_counter()
+    decoder_class()  # the native decoder built by g++ at first use, and loaded
+    build_s = time.perf_counter() - t0
     demux_s, decode_s = [], []
     for _ in range(3):
         t0 = time.perf_counter()
         video = read_matroska_video(data)
         demux_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        decoder = Vp8Decoder()
+        decoder = decoder_class()
         frames = [frame for payload in video.frames for frame in decoder.decode(payload)]
         decode_s.append(time.perf_counter() - t0)
     decoded = np.stack(frames)
     digest = hashlib.sha256(decoded.tobytes()).hexdigest()
-    check(video.codec_id == "V_VP8" and list(decoded.shape) == entry["shape"] and digest == entry["frames_sha256"],
-          f"video (g''): {video.codec_id}, frames {decoded.shape}, SHA-256 {digest} (cv2.VideoCapture's: "
+    check(video.codec_id == codec_id and list(decoded.shape) == entry["shape"] and digest == entry["frames_sha256"],
+          f"video ({label}): {video.codec_id}, frames {decoded.shape}, SHA-256 {digest} (cv2.VideoCapture's: "
           f"{entry['shape']}, {entry['frames_sha256']})")
     stats = decoder.stats
     ms = {"demux": 1e3 * float(np.median(demux_s)) / len(frames), "decode": 1e3 * float(np.median(decode_s)) / len(frames)}
@@ -3200,7 +3227,7 @@ def _video_from_webm(device, card, truth):
     load_s = time.perf_counter() - t0
     expected = torch.from_numpy(np.stack([np.moveaxis(f, -1, 0) for f in frames]).astype(np.float64) / 255.0)
     check(stack.is_cuda and torch.equal(stack.cpu(), expected.to(stack.dtype)),
-          "video (g''): the frames on the card differ from the host decode")
+          f"video ({label}): the frames on the card differ from the host decode")
     resolver = sr_video.VideoSuperResolver(device=device)
     degrade.reset_launch_counts()
     x, seconds, info = _video_run(resolver, stack, device)
@@ -3208,26 +3235,27 @@ def _video_from_webm(device, card, truth):
         dict(degrade.plain_version_calls)
     evaluations = sum(w["evaluations"] for w in info)
     check(evaluations > 0 and counts == {name: (evaluations if name == "data_term_btv" else 0) for name in counts},
-          f"video (g''): launches {counts}, expected {evaluations} BTV evaluations")
+          f"video ({label}): launches {counts}, expected {evaluations} BTV evaluations")
     check(sources == {"device": evaluations, "host": 0},
-          f"video (g''): the shifts of {sources['host']} evaluations crossed from the host")
-    check(plain["calls"] == 0, f"video (g''): the plain version ran {plain['calls']} times")
+          f"video ({label}): the shifts of {sources['host']} evaluations crossed from the host")
+    check(plain["calls"] == 0, f"video ({label}): the plain version ran {plain['calls']} times")
     b = VIDEO_BORDER
     inner = (slice(None), slice(b, -b), slice(b, -b))
     hr = tuple(truth.shape[-2:])
     luma_gains = []
     for i in range(truth.shape[0]):
-        check(bool(torch.isfinite(x[i]).all()) and x[i].shape == truth[i].shape, f"video (g'') frame {i}: bad output")
+        check(bool(torch.isfinite(x[i]).all()) and x[i].shape == truth[i].shape,
+              f"video ({label}) frame {i}: bad output")
         linear = linear_resize(stack[i], hr)
         luma_gains.append((float(psnr(_luma(x[i])[inner], _luma(truth[i])[inner])),
                            float(psnr(_luma(linear)[inner], _luma(truth[i])[inner]))))
         check(luma_gains[-1][0] >= luma_gains[-1][1],
-              f"video (g'') frame {i}: luminance PSNR {luma_gains[-1][0]:.4f} dB below linear {luma_gains[-1][1]:.4f}")
+              f"video ({label}) frame {i}: luminance PSNR {luma_gains[-1][0]:.4f} dB below linear "
+              f"{luma_gains[-1][1]:.4f}")
     margin = [r - l for r, l in luma_gains]
-    log(f"      (g'') {VIDEO_WEBM_CLIP}: {len(frames)} frames {decoded.shape[1:]} demuxed in {ms['demux']:.4f} ms a "
-        f"frame and decoded in {ms['decode']:.3f} ms a frame on the host (median of 3; {stats['key_frames']} key "
-        f"frame(s), macroblocks: {stats['NEWMV']} NEWMV, {stats['SPLITMV']} SPLITMV, {stats['golden_mbs']} golden, "
-        f"{stats['altref_mbs']} altref), SHA-256 = cv2.VideoCapture's (0 grey levels); onto the card by "
+    log(f"      ({label}) {clip}: decoder built and loaded in {build_s:.2f} s; {len(frames)} frames "
+        f"{decoded.shape[1:]} demuxed in {ms['demux']:.4f} ms a frame and decoded in {ms['decode']:.3f} ms a frame on "
+        f"the host (median of 3; {describe(stats)}), SHA-256 = cv2.VideoCapture's (0 grey levels); onto the card by "
         f"VideoLoader.load_frames_from_video in {load_s:.3f} s; host loop -> 3x{hr[0]}x{hr[1]}: {evaluations} K4 BTV "
         f"evaluations (shifts from the device), plain version 0; luminance PSNR inside {b} px, result / linear "
         f"upsampling of the decoded frames, dB: " + ", ".join(f"{r:.2f}/{l:.2f}" for r, l in luma_gains)

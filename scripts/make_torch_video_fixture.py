@@ -3,6 +3,7 @@
 
     python3 scripts/make_torch_video_fixture.py [--out tests/data_torch/mjpeg_160x120x8.avi]
                                                 [--mpeg4-dir tests/data_torch/video]
+                                                [--vp9-dir tests/data_torch/vp9]
 
 The Motion-JPEG AVI: eight 160x120 RGB frames of a seeded scene (smooth
 texture and sharp-edged shapes) panned by one pixel a frame, written by
@@ -46,6 +47,20 @@ VP8 by libvpx through FFmpeg):
   ``cv2.VideoCapture`` gives for Motion-JPEG; its entry records the digest of
   the port's decode (``decode_sha256``) and the largest and mean gaps to
   ``cv2.VideoCapture``'s frames (``capture_gap``).
+
+The VP9 clips of ``tests/data_torch/vp9`` (its own ``manifest.json``), each
+written by ``cv2.VideoWriter`` with the ``VP90`` fourcc (libvpx's VP9 at
+OpenCV's settings: profile 0, frame-parallel, switchable filters, high
+precision vectors; ``vp09`` in MP4):
+
+- ``vp9_960x540x12.webm``: the frames of ``mp4v_960x540x12.mp4`` (two tile
+  columns at this width); ``chip_smoke.py`` super-resolves the port's decode
+  of it on the card;
+- ``vp9_160x120x24.webm``, ``.ivf`` and ``.mp4``: a pan over 24 frames of
+  the scene without grain, one frame of them under noise of +-30 grey
+  levels, with a square that moves on its own (NEWMV, sub-8x8 blocks, intra
+  blocks in inter frames);
+- ``vp9_96x64x10.mkv`` and ``.avi``: a smaller pan.
 
 ``manifest.json`` records each clip's SHA-256, its frame shape and the
 SHA-256 of ``cv2.VideoCapture``'s frames (uint8 BGR, C order); the small
@@ -148,6 +163,25 @@ def vp8_clips() -> dict[str, tuple[str, list[np.ndarray], bool]]:
     return clips
 
 
+def vp9_clips() -> dict[str, tuple[str, list[np.ndarray], bool]]:
+    """{file name: (fourcc, frames, keep cv2's decode as PNG)} of the VP9 fixtures."""
+    ground, square = scene(SEED + 7, 120, 184, grain=0), scene(SEED + 8, 24, 24, grain=0)
+    pan = []
+    for i in range(24):
+        frame = ground[:, i:i + 160].copy()
+        y, x = 16 + (7 * i) % 72, 120 - 4 * i
+        frame[y:y + 24, max(x, 0):x + 24] = square[:, max(-x, 0):]
+        pan.append(frame)
+    noise = np.random.default_rng(SEED + 7).integers(-30, 31, pan[13].shape)
+    pan[13] = np.clip(pan[13] + noise, 0, 255).astype(np.uint8)
+    small = scene(SEED + 9, 64, 106, grain=0)
+    clips = {"vp9_960x540x12.webm": ("VP90", list(video_phase_frames()), False)}
+    clips.update({f"vp9_160x120x24.{ext}": ("VP90", pan, False) for ext in ("webm", "ivf", "mp4")})
+    clips.update({f"vp9_96x64x10.{ext}": ("VP90", [small[:, i:i + 96] for i in range(10)], False)
+                  for ext in ("mkv", "avi")})
+    return clips
+
+
 def mpeg4_clips() -> dict[str, tuple[str, list[np.ndarray], bool]]:
     """{file name: (fourcc, frames, keep cv2's decode as PNG)} of the MPEG-4 fixtures."""
     pan = scene(SEED + 1, 120, 174)
@@ -182,10 +216,10 @@ def matroska_payloads(path: str) -> list[bytes]:
     return read_matroska_video(open(path, "rb").read()).frames
 
 
-def write_mpeg4_fixtures(directory: str) -> None:
+def write_mpeg4_fixtures(directory: str, clips=None) -> None:
     os.makedirs(directory, exist_ok=True)
     manifest = {}
-    for name, (fourcc, frames, keep_png) in {**mpeg4_clips(), **vp8_clips()}.items():
+    for name, (fourcc, frames, keep_png) in (clips or {**mpeg4_clips(), **vp8_clips()}).items():
         path = os.path.join(directory, name)
         write_clip(path, fourcc, frames)
         if name in XVID_NAMES:
@@ -213,11 +247,17 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "tests", "data_torch", "mjpeg_160x120x8.avi"))
     parser.add_argument("--mpeg4-dir", default=os.path.join(ROOT, "tests", "data_torch", "video"))
+    parser.add_argument("--vp9-dir", default=os.path.join(ROOT, "tests", "data_torch", "vp9"))
+    parser.add_argument("--vp9-only", action="store_true", help="write the VP9 clips alone")
     args = parser.parse_args(argv)
+    if args.vp9_only:
+        write_mpeg4_fixtures(args.vp9_dir, vp9_clips())
+        return 0
     base = scene()
     write_clip(args.out, "MJPG", [base[:, i: i + WIDTH] for i in range(FRAMES)])
     print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes)")
     write_mpeg4_fixtures(args.mpeg4_dir)
+    write_mpeg4_fixtures(args.vp9_dir, vp9_clips())
     return 0
 
 

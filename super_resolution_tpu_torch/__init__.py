@@ -31,8 +31,10 @@ video, decoded as ``cv2.VideoCapture`` decodes it by ``utils/mpeg4.py`` and
 ``native/mpeg4_decoder.cpp`` (FFmpeg's Xvid IDCT for streams it takes for
 Xvid's) -- B-VOPs, GMC, quarter-pel, interlaced and data-partitioned streams
 raise ``NotImplementedError`` --; Motion-JPEG AVI and Matroska through the
-port's baseline JPEG decoder, ``utils/jpeg.py``; uncompressed AVI; VP8, VP9,
-FFV1, H.264 and other codecs raise), the profiling
+port's baseline JPEG decoder, ``utils/jpeg.py``; uncompressed AVI; VP8 by
+``utils/vp8.py`` and VP9 by ``utils/vp9.py`` (``native/vp8_decoder.cpp``,
+``native/vp9_decoder.cpp``) from WebM / Matroska, IVF and AVI, VP9 also from
+MP4; FFV1, H.264 and other codecs raise), the profiling
 utilities (``utils/profiling.py``) and the test comparators
 (``utils/testing.py``).
 

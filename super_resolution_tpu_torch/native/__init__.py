@@ -21,8 +21,13 @@
 - ``vp8_decoder.cpp`` decodes VP8 video, one frame a call, keeping its three
   reference frames and its probabilities between calls, and converts the
   frames shown to BGR (behind :class:`super_resolution_tpu_torch.utils.vp8.Vp8Decoder`).
+- ``vp9_decoder.cpp`` decodes VP9 profile 0 video likewise: its eight
+  reference slots, four probability contexts and segmentation map between
+  calls, superframes split within a call, the shown frames to BGR (behind
+  :class:`super_resolution_tpu_torch.utils.vp9.Vp9Decoder`); its constant
+  tables are ``vp9_tables.h``.
   VP8 frames themselves are decoded by ``vp8_core.h``, which
-  ``webp_decoder.cpp`` shares; both video decoders convert with
+  ``webp_decoder.cpp`` shares; the video decoders convert with
   ``yuv420_to_bgr.h``.
 
 At first use each is compiled with the host's C++ compiler into
@@ -35,7 +40,8 @@ then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. The
 codecs have no second implementation: without a compiler
 :func:`get_jpeg_library`, :func:`get_jpeg_encoder_library`,
 :func:`get_lzw_library`, :func:`get_webp_library`,
-:func:`get_webp_encoder_library`, :func:`get_mpeg4_library` and :func:`get_vp8_library` raise
+:func:`get_webp_encoder_library`, :func:`get_mpeg4_library`, :func:`get_vp8_library` and
+:func:`get_vp9_library` raise
 ``RuntimeError``. A compile that fails, and a
 native read that fails, raise.
 """
@@ -54,7 +60,8 @@ from pathlib import Path
 import numpy as np
 
 __all__ = ["native_available", "get_library", "get_jpeg_library", "get_jpeg_encoder_library", "get_lzw_library",
-           "get_webp_library", "get_webp_encoder_library", "get_mpeg4_library", "get_vp8_library", "read_bsq",
+           "get_webp_library", "get_webp_encoder_library", "get_mpeg4_library", "get_vp8_library", "get_vp9_library",
+           "read_bsq",
            "build_library"]
 
 _HERE = Path(__file__).resolve().parent
@@ -66,9 +73,10 @@ _WEBP_SOURCE = _HERE / "webp_decoder.cpp"
 _WEBP_ENCODER_SOURCE = _HERE / "webp_encoder.cpp"
 _MPEG4_SOURCE = _HERE / "mpeg4_decoder.cpp"
 _VP8_SOURCE = _HERE / "vp8_decoder.cpp"
+_VP9_SOURCE = _HERE / "vp9_decoder.cpp"
 _LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw",
                   _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder", _MPEG4_SOURCE: "mpeg4",
-                  _VP8_SOURCE: "vp8"}
+                  _VP8_SOURCE: "vp8", _VP9_SOURCE: "vp9"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}
@@ -175,6 +183,18 @@ def get_vp8_library() -> ctypes.CDLL:
                                "sr_vp8_stream_size": (None, [_ptr, _ptr]),
                                "sr_vp8_stream_bgr": (None, [_ptr, _ptr]),
                                "sr_vp8_stream_stats": (_int, [_ptr, _ptr, _int])})
+
+
+def get_vp9_library() -> ctypes.CDLL:
+    """The loaded VP9 video decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_VP9_SOURCE, {"sr_vp9_stream_new": (_ptr, []),
+                               "sr_vp9_stream_free": (None, [_ptr]),
+                               "sr_vp9_stream_decode": (_int, [_ptr, ctypes.c_char_p, _i64, ctypes.c_char_p, _int]),
+                               "sr_vp9_stream_size": (None, [_ptr, _ptr]),
+                               "sr_vp9_stream_bgr": (None, [_ptr, _int, _ptr]),
+                               "sr_vp9_stream_plane": (None, [_ptr, _int, _int, _ptr]),
+                               "sr_vp9_stream_stats": (_int, [_ptr, _ptr, _int]),
+                               "sr_vp9_stream_profile": (_int, [_ptr, _ptr, _int])})
 
 
 def native_available() -> bool:

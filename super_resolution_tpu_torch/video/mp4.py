@@ -6,18 +6,21 @@ uses the same boxes): the first video track's samples, as
 last box that runs to the end of the file; ``mdat`` before or after
 ``moov``), takes the first ``trak`` whose handler is ``vide``, reads its
 ``mp4v`` sample entry and the ``esds`` descriptor (object type 0x20, MPEG-4
-Visual, whose DecoderSpecificInfo carries the VOS / VO / VOL headers), and
+Visual, whose DecoderSpecificInfo carries the VOS / VO / VOL headers) or its
+``vp09`` sample entry (VP9, whose ``vpcC`` box is read only for the profile
+and bit depth: the frames carry their own headers), and
 locates every sample from ``stsz``, ``stsc`` and ``stco`` / ``co64``,
-timed by ``stts`` (I- and P-VOPs only: decode order is presentation
-order). An edit list (``elst``) is
+timed by ``stts`` (I- and P-VOPs, or VP9 frames: decode order is
+presentation order). An edit list (``elst``) is
 honoured as FFmpeg honours it: each edit with a media time plays the
 samples whose presentation time lies in ``[media_time, media_time +
 duration)``, decoding from the sync sample before the first of them; an
 empty edit only delays. Without an edit list every sample plays.
 
-A fragmented file (``mvex`` / ``moof``) and any sample entry other than
-``mp4v`` raise ``NotImplementedError`` naming it (the codec and its
-four-character code, such as "H.264 (avc1)").
+A fragmented file (``mvex`` / ``moof``), a ``vp09`` entry of another
+profile than 0 or of more than 8 bits, and any other sample entry than
+``mp4v`` and ``vp09`` raise ``NotImplementedError`` naming it (the codec and
+its four-character code, such as "H.264 (avc1)").
 """
 
 from __future__ import annotations
@@ -143,12 +146,14 @@ def _timescale(data: bytes, start: int) -> int:
 @dataclass
 class Mp4Video:
     """The first video track: its decoder configuration, its samples in
-    decode order, and for each whether its frame is shown (``False``:
-    decoded only, ahead of an edit)."""
+    decode order, for each whether its frame is shown (``False``: decoded
+    only, ahead of an edit), and its sample entry's code (``mp4v`` or
+    ``vp09``)."""
 
     config: bytes
     samples: list[bytes]
     shown: list[bool]
+    codec: str = "mp4v"
 
 
 def read_mp4_video(data: bytes) -> Mp4Video:
@@ -184,14 +189,23 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
     if not entries:
         raise ValueError("MP4 video track without a sample description.")
     fourcc, es, ee = entries[0]
-    if fourcc != b"mp4v":
+    if fourcc not in (b"mp4v", b"vp09"):
         name = _CODECS.get(fourcc, "a codec")
         raise NotImplementedError(f"MP4 video of {name} ({fourcc.decode('latin-1')}) is not supported by the port's "
-                                  "video reader (MPEG-4 Part 2, mp4v, is).")
-    esds = _child(data, es + 78, ee, b"esds")  # after the 78 bytes of the visual sample entry
-    if esds is None:
-        raise ValueError("MP4 mp4v sample entry without an esds box.")
-    config = _decoder_specific_info(data, *esds)
+                                  "video reader (MPEG-4 Part 2, mp4v, and VP9, vp09, are).")
+    if fourcc == b"vp09":
+        vpcc = _child(data, es + 78, ee, b"vpcC")  # after the 78 bytes of the visual sample entry
+        if vpcc is not None and vpcc[1] - vpcc[0] >= 7:
+            profile, depth = data[vpcc[0] + 4], data[vpcc[0] + 6] >> 4
+            if profile != 0 or depth != 8:
+                raise NotImplementedError(f"MP4 VP9 video of profile {profile} at {depth} bits is not supported by "
+                                          "the port's video reader (profile 0, 8-bit 4:2:0, is).")
+        config = b""
+    else:
+        esds = _child(data, es + 78, ee, b"esds")  # after the 78 bytes of the visual sample entry
+        if esds is None:
+            raise ValueError("MP4 mp4v sample entry without an esds box.")
+        config = _decoder_specific_info(data, *esds)
 
     sizes = _sample_sizes(data, stbl)
     chunks = [o for (o,) in _table(data, _child(data, *stbl, b"stco"), "I", 1)]
@@ -232,8 +246,9 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
                 continue  # an empty edit
             span = (duration * media_scale + movie_scale // 2) // movie_scale if duration and movie_scale else None
             edits.append((media_time, None if span is None else media_time + span))
+    codec = fourcc.decode("latin-1")
     if not edits:
-        return Mp4Video(config, samples, [True] * len(samples))
+        return Mp4Video(config, samples, [True] * len(samples), codec)
     order, shown = [], []
     for first, stop in edits:
         chosen = [i for i in range(len(samples)) if pts[i] >= first and (stop is None or pts[i] < stop)]
@@ -244,4 +259,4 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
         for i in range(start, chosen[-1] + 1):
             order.append(i)
             shown.append(i in kept)
-    return Mp4Video(config, [samples[i] for i in order], shown)
+    return Mp4Video(config, [samples[i] for i in order], shown, codec)

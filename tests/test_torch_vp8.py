@@ -239,9 +239,9 @@ def test_refusals_name_what_they_are(tmp_path, what):
 
 
 def test_other_ivf_codecs_and_corrupt_streams(tmp_path):
-    path = str(tmp_path / "vp9.ivf")
-    pathlib.Path(path).write_bytes(ivf([_key_frame()], 32, 32, fourcc=b"VP90"))
-    with pytest.raises(NotImplementedError, match="IVF video of VP9"):
+    path = str(tmp_path / "av1.ivf")
+    pathlib.Path(path).write_bytes(ivf([_key_frame()], 32, 32, fourcc=b"AV01"))
+    with pytest.raises(NotImplementedError, match="IVF video of AV1"):
         read_video_frames(path)
     inter = Vp8Writer(32, 32, np.random.default_rng(3), ())
     inter.frame()
