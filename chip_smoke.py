@@ -205,6 +205,7 @@ try:
     from super_resolution_tpu_torch.video.mkv import read_matroska_video
     from super_resolution_tpu_torch.utils.vp8 import Vp8Decoder
     from super_resolution_tpu_torch.utils.vp9 import Vp9Decoder
+    from super_resolution_tpu_torch.utils.ffv1 import Ffv1Decoder
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -2683,6 +2684,10 @@ VIDEO_MKV_CLIP = "mp4v_960x540x12.mkv"    # (g'): the same frames, the same enco
 VIDEO_WEBM_CLIP = "vp8_960x540x12.webm"   # (g''): the same frames, VP8 (libvpx), in WebM
 VIDEO_VP9_DIR = os.path.join("tests", "data_torch", "vp9")  # its own manifest.json, as VIDEO_MPEG4_DIR's
 VIDEO_VP9_CLIP = "vp9_960x540x12.webm"    # (g'''): the same frames, VP9 (libvpx), in WebM
+VIDEO_FFV1_DIR = os.path.join("tests", "data_torch", "ffv1")  # its own manifest.json, as VIDEO_MPEG4_DIR's
+VIDEO_FFV1_CLIP = "ffv1_960x540x4.mkv"    # (g''''): the first 4 of those frames, FFV1 (lossless), in Matroska
+VIDEO_FFV1_CENTRES = 3                    # centres 0-2: their window is frames 0-3 in the 4- and the 12-frame stack
+VIDEO_ODD_DIR = os.path.join("tests", "data_torch", "odd_height")  # (h'): VP9, VP8, MPEG-4 clips of odd height
 VIDEO_MPEG4_GAP = 0                        # grey levels between the port's frames and cv2.VideoCapture's
 
 
@@ -2802,7 +2807,11 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     frames on every frame inside the border (the colour PSNR, logged, loses
     to it: the clip's chroma is 4:2:0); (g') the same from the Matroska clip
     of that stream; (g'') the same from the VP8 .webm of those frames;
-    (g''') the same from their VP9 .webm."""
+    (g''') the same from their VP9 .webm; (g'''') the same from the FFV1 .mkv
+    of the first 4 of them (lossless: the frames' digest is that of the
+    frames written), its estimates of centres 0-2 held against (a)'s; (h')
+    the odd-height clips (VP9, VP8, MPEG-4 Part 2), which cv2.VideoCapture
+    converts through swscale's scaler, decoded to their recorded digests."""
     from super_resolution_tpu_torch.solvers import irls as irls_mod
 
     t_phase = time.perf_counter()
@@ -3000,17 +3009,24 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     launches_webm, webm_ms, webm_gains = _video_from_webm(device, card, truth)
     launches_vp9, vp9_ms, vp9_gains = _video_from_webm(device, card, truth, VIDEO_VP9_DIR, VIDEO_VP9_CLIP, "g'''",
                                                        "V_VP9", Vp9Decoder, _vp9_counts)
+    launches_ffv1, ffv1_ms, ffv1_gains = _video_from_webm(
+        device, card, truth, VIDEO_FFV1_DIR, VIDEO_FFV1_CLIP, "g''''", "V_FFV1", None, _ffv1_counts,
+        make=lambda video: Ffv1Decoder(video.codec_private, video.width, video.height),
+        reference=(x_host[:VIDEO_FFV1_CENTRES], "(a)'s PNG-path estimates"))
+    odd_ms = _odd_height_fixtures()
     for row in rows:
         if row["row"] == "K4":
             row["launches_video_mp4"] = launches_mp4
             row["launches_video_mkv"] = launches_mkv
             row["launches_video_webm"] = launches_webm
             row["launches_video_webm_vp9"] = launches_vp9
+            row["launches_video_mkv_ffv1"] = launches_ffv1
 
     results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
                    rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains, mkv_ms=mkv_ms,
-                   webm_ms=webm_ms, webm_gains=webm_gains, vp9_ms=vp9_ms, vp9_gains=vp9_gains)
+                   webm_ms=webm_ms, webm_gains=webm_gains, vp9_ms=vp9_ms, vp9_gains=vp9_gains, ffv1_ms=ffv1_ms,
+                   ffv1_gains=ffv1_gains, odd_ms=odd_ms)
     irls_mod._BUILT_SOLVER_CACHE.clear()
     log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
@@ -3181,8 +3197,47 @@ def _vp9_counts(stats):
             f"{stats['tx_16x16']}/{stats['tx_32x32']}; slot 1 refreshed {stats['refresh_slot_1']} time(s)")
 
 
+def _ffv1_counts(stats):
+    layouts = [k for k in ("grey", "grey_alpha", "yuv444", "yuv440", "yuv422", "yuv420", "yuv411", "yuv410",
+                           "yuv_alpha", "rgb", "rgb_alpha") if stats[k]]
+    versions = [k for k in ("version_0", "version_1", "version_2", "version_3") if stats[k]]
+    coders = [k for k in ("coder_golomb", "coder_range_default", "coder_range_custom") if stats[k]]
+    return (f"{'/'.join(versions)}, {'/'.join(coders)}, layout {'/'.join(layouts)}, {stats['key_frames']} key "
+            f"frame(s), {stats['slices']} slices in {stats['frames']} frames, {stats['crc_slices']} slice CRCs "
+            f"checked, {stats['runs']} Golomb-Rice runs")
+
+
+def _odd_height_fixtures():
+    """(h'): the odd-height clips of ``VIDEO_ODD_DIR`` (VP9 and VP8 streams of the test writers in IVF, an MPEG-4
+    Part 2 stream of FFmpeg's encoder in AVI), whose frames ``cv2.VideoCapture`` converts through swscale's
+    bicubic scaler, decoded on the host to the digest of cv2's frames that the manifest records; ms a frame to
+    decode (median of 3), by file."""
+    directory = os.path.join(ROOT, VIDEO_ODD_DIR)
+    with open(os.path.join(directory, "manifest.json")) as f:
+        manifest = json.load(f)
+    decode_ms, notes = {}, []
+    for name, entry in sorted(manifest.items()):
+        path = os.path.join(directory, name)
+        with open(path, "rb") as f:
+            check(hashlib.sha256(f.read()).hexdigest() == entry["sha256"], f"video (h') {name}: not the file recorded")
+        seconds = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            frames = np.stack(read_video_frames(path))
+            seconds.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(frames.tobytes()).hexdigest()
+        check(list(frames.shape) == entry["shape"] and frames.shape[1] % 2 == 1 and digest == entry["frames_sha256"],
+              f"video (h') {name}: {frames.shape}, SHA-256 {digest} (cv2.VideoCapture's: {entry['shape']}, "
+              f"{entry['frames_sha256']})")
+        decode_ms[name] = 1e3 * float(np.median(seconds)) / frames.shape[0]
+        notes.append(f"{name} {tuple(frames.shape)} {decode_ms[name]:.3f} ms/frame")
+    log("      (h') odd-height clips decoded on the host to the SHA-256 of cv2.VideoCapture's frames (median of 3): "
+        + "; ".join(notes))
+    return decode_ms
+
+
 def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_WEBM_CLIP, label="g''",
-                     codec_id="V_VP8", decoder_class=Vp8Decoder, describe=_vp8_counts):
+                     codec_id="V_VP8", decoder_class=Vp8Decoder, describe=_vp8_counts, make=None, reference=None):
     """(g''): the checked-in VP8 clip of the LR frames (``cv2.VideoWriter``
     with ``VP80``: libvpx, in WebM), or (g''') the VP9 one (``VP90``): demuxed
     and decoded on the host (ms a frame of each, median of 3;
@@ -3192,15 +3247,19 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
     and ``VideoSuperResolver``'s host loop, the counts set to 0 just before
     and read just after: every launch a K4 BTV evaluation with shifts from the
     device, no plain version, the luminance PSNR >= linear upsampling of the
-    same decoded frames on every frame inside the border, as (g). Returns (K4
+    same decoded frames on every frame inside the border, as (g); (g'''') the
+    FFV1 one, whose decoder ``make(video)`` builds from the track, the frames'
+    digest also that of the frames written (``source_sha256``), and its first
+    estimates against ``reference`` = (estimates, what they are). Returns (K4
     launches, {"demux": ms, "decode": ms}, [(result, linear) luminance dB])."""
+    make = make or (lambda video: decoder_class())
     path = os.path.join(ROOT, directory, clip)
     with open(os.path.join(ROOT, directory, "manifest.json")) as f:
         entry = json.load(f)[clip]
     with open(path, "rb") as f:
         data = f.read()
     t0 = time.perf_counter()
-    decoder_class()  # the native decoder built by g++ at first use, and loaded
+    make(read_matroska_video(data))  # the native decoder built by g++ at first use, and loaded
     build_s = time.perf_counter() - t0
     demux_s, decode_s = [], []
     for _ in range(3):
@@ -3208,7 +3267,7 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
         video = read_matroska_video(data)
         demux_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
-        decoder = decoder_class()
+        decoder = make(video)
         frames = [frame for payload in video.frames for frame in decoder.decode(payload)]
         decode_s.append(time.perf_counter() - t0)
     decoded = np.stack(frames)
@@ -3216,6 +3275,12 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
     check(video.codec_id == codec_id and list(decoded.shape) == entry["shape"] and digest == entry["frames_sha256"],
           f"video ({label}): {video.codec_id}, frames {decoded.shape}, SHA-256 {digest} (cv2.VideoCapture's: "
           f"{entry['shape']}, {entry['frames_sha256']})")
+    lossless = ""
+    if "source_sha256" in entry:
+        check(entry["source_sha256"] == entry["frames_sha256"],
+              f"video ({label}): the manifest's digest of cv2's frames is not that of the frames written")
+        lossless = ", = the frames written (lossless)"
+    truth = truth[:decoded.shape[0]]
     stats = decoder.stats
     ms = {"demux": 1e3 * float(np.median(demux_s)) / len(frames), "decode": 1e3 * float(np.median(decode_s)) / len(frames)}
     torch.cuda.synchronize(device)
@@ -3253,13 +3318,22 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
               f"video ({label}) frame {i}: luminance PSNR {luma_gains[-1][0]:.4f} dB below linear "
               f"{luma_gains[-1][1]:.4f}")
     margin = [r - l for r, l in luma_gains]
+    against = ""
+    if reference is not None:
+        estimates, name = reference
+        gap = float((x[:estimates.shape[0]] - estimates).abs().max())
+        ms["reference_gap"] = gap
+        against = (f"; estimates of centres 0-{estimates.shape[0] - 1} against {name} (the same input bytes, the same "
+                   f"window of frames 0-3): largest difference {gap!r}")
     log(f"      ({label}) {clip}: decoder built and loaded in {build_s:.2f} s; {len(frames)} frames "
         f"{decoded.shape[1:]} demuxed in {ms['demux']:.4f} ms a frame and decoded in {ms['decode']:.3f} ms a frame on "
-        f"the host (median of 3; {describe(stats)}), SHA-256 = cv2.VideoCapture's (0 grey levels); onto the card by "
+        f"the host (median of 3; {describe(stats)}), SHA-256 = cv2.VideoCapture's (0 grey levels){lossless}; onto the "
+        f"card by "
         f"VideoLoader.load_frames_from_video in {load_s:.3f} s; host loop -> 3x{hr[0]}x{hr[1]}: {evaluations} K4 BTV "
         f"evaluations (shifts from the device), plain version 0; luminance PSNR inside {b} px, result / linear "
         f"upsampling of the decoded frames, dB: " + ", ".join(f"{r:.2f}/{l:.2f}" for r, l in luma_gains)
-        + f", margin {min(margin):.4f} to {max(margin):.4f} dB; solve wall a frame {_median_range(seconds)} s ({card})")
+        + f", margin {min(margin):.4f} to {max(margin):.4f} dB; solve wall a frame {_median_range(seconds)} s "
+        f"({card}){against}")
     return evaluations, ms, luma_gains
 
 

@@ -4,6 +4,9 @@
     python3 scripts/make_torch_video_fixture.py [--out tests/data_torch/mjpeg_160x120x8.avi]
                                                 [--mpeg4-dir tests/data_torch/video]
                                                 [--vp9-dir tests/data_torch/vp9]
+                                                [--ffv1-dir tests/data_torch/ffv1]
+                                                [--odd-dir tests/data_torch/odd_height]
+                                                [--vp9-only | --ffv1-only]
 
 The Motion-JPEG AVI: eight 160x120 RGB frames of a seeded scene (smooth
 texture and sharp-edged shapes) panned by one pixel a frame, written by
@@ -61,6 +64,27 @@ precision vectors; ``vp09`` in MP4):
   levels, with a square that moves on its own (NEWMV, sub-8x8 blocks, intra
   blocks in inter frames);
 - ``vp9_96x64x10.mkv`` and ``.avi``: a smaller pan.
+
+The FFV1 clips of ``tests/data_torch/ffv1`` (its own ``manifest.json``),
+each written by ``cv2.VideoWriter`` with the ``FFV1`` fourcc (FFmpeg's
+lossless ``ffv1`` encoder at OpenCV's settings: version 3, RGB with alpha,
+Golomb-Rice, slices with CRCs):
+
+- ``ffv1_960x540x4.mkv``: the first 4 frames of ``mp4v_960x540x12.mp4``;
+  ``chip_smoke.py`` super-resolves the port's decode of it on the card;
+- ``ffv1_96x64x6.avi``, ``.mp4`` and ``.mov``: a small pan of the scene.
+
+Their entries also record ``source_sha256``, the SHA-256 of the frames
+written: the codec is lossless, so it equals ``frames_sha256``.
+
+The odd-height clips of ``tests/data_torch/odd_height`` (its own
+``manifest.json``), whose frames ``cv2.VideoCapture`` converts through
+swscale's bicubic scaler: ``vp9_61x41x12.ivf`` from the VP9 test writer
+(``tests/torch_vp9_writer.py``, every feature, seed 51),
+``vp8_61x41x12.ivf`` from the VP8 test writer (``tests/torch_vp8_writer.py``,
+every feature, seed 52) and ``mpeg4_64x37x6.avi`` from FFmpeg's ``mpeg4``
+encoder driven through ctypes (``tests/torch_libav.py``), whose chroma FFmpeg
+sites left.
 
 ``manifest.json`` records each clip's SHA-256, its frame shape and the
 SHA-256 of ``cv2.VideoCapture``'s frames (uint8 BGR, C order); the small
@@ -243,21 +267,97 @@ def write_mpeg4_fixtures(directory: str, clips=None) -> None:
         f.write("\n")
 
 
+def ffv1_clips() -> dict[str, tuple[str, list[np.ndarray], bool]]:
+    """{file name: (fourcc, frames, keep cv2's decode as PNG)} of the FFV1 fixtures."""
+    small = scene(SEED + 10, 64, 102, grain=0)
+    clips = {"ffv1_960x540x4.mkv": ("FFV1", list(video_phase_frames()[:4]), False)}
+    clips.update({f"ffv1_96x64x6.{ext}": ("FFV1", [small[:, i:i + 96] for i in range(6)], False)
+                  for ext in ("avi", "mp4", "mov")})
+    return clips
+
+
+def write_ffv1_fixtures(directory: str) -> None:
+    """The FFV1 clips, with the digest of the frames written beside that of cv2's decode."""
+    clips = ffv1_clips()
+    write_mpeg4_fixtures(directory, clips)
+    path = os.path.join(directory, "manifest.json")
+    manifest = json.load(open(path))
+    for name, (_, frames, _) in clips.items():
+        manifest[name]["source_sha256"] = sha256(np.stack(frames).tobytes())
+        if manifest[name]["source_sha256"] != manifest[name]["frames_sha256"]:
+            raise SystemExit(f"{name}: cv2.VideoCapture does not give back the frames written")
+    with open(path, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
+def odd_height_streams() -> dict[str, tuple[str, bytes]]:
+    """{file name: (fourcc, file bytes)} of the odd-height clips."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_libav
+    from torch_vp8_writer import FEATURES as VP8_FEATURES, Vp8Writer, ivf as vp8_ivf
+    from torch_vp9_writer import FEATURES as VP9_FEATURES, Vp9Writer, ivf as vp9_ivf
+
+    w, h, n = 61, 41, 12
+    vp9 = Vp9Writer(w, h, np.random.default_rng(51), VP9_FEATURES).stream(n)
+    vp8_writer = Vp8Writer(w, h, np.random.default_rng(52), VP8_FEATURES, 0)
+    vp8 = [vp8_writer.frame(key=i == n // 2, show=i % 5 != 3) for i in range(n)]
+    mw, mh = 64, 37
+    texture = scene(SEED + 11, mh, mw + 6)
+    planes = []
+    for i in range(6):
+        yuv = cv2.cvtColor(np.ascontiguousarray(texture[:, i:i + mw]), cv2.COLOR_BGR2YUV)
+        planes.append([yuv[..., 0], yuv[::2, ::2, 1], yuv[::2, ::2, 2]])  # 4:2:0, the last chroma row alone
+    mpeg4, _ = torch_libav.encode("mpeg4", planes, "yuv420p", mw, mh, {"g": 3, "bf": 0})
+    out = os.path.join(ROOT, "tests", "data_torch", "odd_height", ".mpeg4.avi")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    torch_libav.write_avi(out, mpeg4, mw, mh, b"FMP4")
+    avi = open(out, "rb").read()
+    os.remove(out)
+    return {f"vp9_{w}x{h}x{n}.ivf": ("VP90", vp9_ivf(vp9, w, h)), f"vp8_{w}x{h}x{n}.ivf": ("VP80", vp8_ivf(vp8, w, h)),
+            f"mpeg4_{mw}x{mh}x6.avi": ("FMP4", avi)}
+
+
+def write_odd_height_fixtures(directory: str) -> None:
+    os.makedirs(directory, exist_ok=True)
+    manifest = {}
+    for name, (fourcc, data) in odd_height_streams().items():
+        path = os.path.join(directory, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        decoded = np.stack(capture_frames(path))
+        manifest[name] = {"sha256": sha256(data), "fourcc": fourcc, "shape": list(decoded.shape),
+                          "frames_sha256": sha256(decoded.tobytes())}
+        print(f"wrote {path} ({len(data)} bytes, {decoded.shape[0]} frames)")
+    with open(os.path.join(directory, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "tests", "data_torch", "mjpeg_160x120x8.avi"))
     parser.add_argument("--mpeg4-dir", default=os.path.join(ROOT, "tests", "data_torch", "video"))
     parser.add_argument("--vp9-dir", default=os.path.join(ROOT, "tests", "data_torch", "vp9"))
+    parser.add_argument("--ffv1-dir", default=os.path.join(ROOT, "tests", "data_torch", "ffv1"))
+    parser.add_argument("--odd-dir", default=os.path.join(ROOT, "tests", "data_torch", "odd_height"))
     parser.add_argument("--vp9-only", action="store_true", help="write the VP9 clips alone")
+    parser.add_argument("--ffv1-only", action="store_true", help="write the FFV1 and odd-height clips alone")
     args = parser.parse_args(argv)
     if args.vp9_only:
         write_mpeg4_fixtures(args.vp9_dir, vp9_clips())
+        return 0
+    if args.ffv1_only:
+        write_ffv1_fixtures(args.ffv1_dir)
+        write_odd_height_fixtures(args.odd_dir)
         return 0
     base = scene()
     write_clip(args.out, "MJPG", [base[:, i: i + WIDTH] for i in range(FRAMES)])
     print(f"wrote {args.out} ({os.path.getsize(args.out)} bytes)")
     write_mpeg4_fixtures(args.mpeg4_dir)
     write_mpeg4_fixtures(args.vp9_dir, vp9_clips())
+    write_ffv1_fixtures(args.ffv1_dir)
+    write_odd_height_fixtures(args.odd_dir)
     return 0
 
 

@@ -26,9 +26,12 @@
   calls, superframes split within a call, the shown frames to BGR (behind
   :class:`super_resolution_tpu_torch.utils.vp9.Vp9Decoder`); its constant
   tables are ``vp9_tables.h``.
+- ``ffv1_decoder.cpp`` decodes FFV1 video (versions 0-3, 8 bits), keeping
+  its slices' contexts between calls, and converts each frame to BGR (behind
+  :class:`super_resolution_tpu_torch.utils.ffv1.Ffv1Decoder`).
   VP8 frames themselves are decoded by ``vp8_core.h``, which
-  ``webp_decoder.cpp`` shares; the video decoders convert with
-  ``yuv420_to_bgr.h``.
+  ``webp_decoder.cpp`` shares; the video decoders convert YUV to BGR with
+  ``swscale_bgr.h``, as ``cv2.VideoCapture`` does at any size.
 
 At first use each is compiled with the host's C++ compiler into
 ``super_resolution_tpu_torch/_build/libsr_<name>_<hash>.so``, where the hash
@@ -40,8 +43,8 @@ then :mod:`super_resolution_tpu_torch.spectral.envi` reads with numpy. The
 codecs have no second implementation: without a compiler
 :func:`get_jpeg_library`, :func:`get_jpeg_encoder_library`,
 :func:`get_lzw_library`, :func:`get_webp_library`,
-:func:`get_webp_encoder_library`, :func:`get_mpeg4_library`, :func:`get_vp8_library` and
-:func:`get_vp9_library` raise
+:func:`get_webp_encoder_library`, :func:`get_mpeg4_library`, :func:`get_vp8_library`,
+:func:`get_vp9_library` and :func:`get_ffv1_library` raise
 ``RuntimeError``. A compile that fails, and a
 native read that fails, raise.
 """
@@ -61,7 +64,7 @@ import numpy as np
 
 __all__ = ["native_available", "get_library", "get_jpeg_library", "get_jpeg_encoder_library", "get_lzw_library",
            "get_webp_library", "get_webp_encoder_library", "get_mpeg4_library", "get_vp8_library", "get_vp9_library",
-           "read_bsq",
+           "get_ffv1_library", "read_bsq",
            "build_library"]
 
 _HERE = Path(__file__).resolve().parent
@@ -74,9 +77,10 @@ _WEBP_ENCODER_SOURCE = _HERE / "webp_encoder.cpp"
 _MPEG4_SOURCE = _HERE / "mpeg4_decoder.cpp"
 _VP8_SOURCE = _HERE / "vp8_decoder.cpp"
 _VP9_SOURCE = _HERE / "vp9_decoder.cpp"
+_FFV1_SOURCE = _HERE / "ffv1_decoder.cpp"
 _LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw",
                   _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder", _MPEG4_SOURCE: "mpeg4",
-                  _VP8_SOURCE: "vp8", _VP9_SOURCE: "vp9"}
+                  _VP8_SOURCE: "vp8", _VP9_SOURCE: "vp9", _FFV1_SOURCE: "ffv1"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}
@@ -195,6 +199,18 @@ def get_vp9_library() -> ctypes.CDLL:
                                "sr_vp9_stream_plane": (None, [_ptr, _int, _int, _ptr]),
                                "sr_vp9_stream_stats": (_int, [_ptr, _ptr, _int]),
                                "sr_vp9_stream_profile": (_int, [_ptr, _ptr, _int])})
+
+
+def get_ffv1_library() -> ctypes.CDLL:
+    """The loaded FFV1 video decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_FFV1_SOURCE, {"sr_ffv1_stream_new": (_ptr, [ctypes.c_char_p, _i64, _int, _int, ctypes.c_char_p,
+                                                              _int]),
+                                "sr_ffv1_stream_free": (None, [_ptr]),
+                                "sr_ffv1_stream_decode": (_int, [_ptr, ctypes.c_char_p, _i64, ctypes.c_char_p, _int]),
+                                "sr_ffv1_stream_bgr": (None, [_ptr, _ptr]),
+                                "sr_ffv1_stream_plane": (_i64, [_ptr, _int, _ptr, _ptr]),
+                                "sr_ffv1_stream_stats": (_int, [_ptr, _ptr, _int]),
+                                "sr_yuv_to_bgr": (None, [_ptr] * 3 + [_int] * 9 + [_ptr])})
 
 
 def native_available() -> bool:

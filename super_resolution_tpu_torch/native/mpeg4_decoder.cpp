@@ -19,8 +19,9 @@
 // workarounds for old encoders are followed where the caller asks: edges
 // taken at the picture's size instead of the macroblock grid's
 // (FF_BUG_EDGE), and intra DC predictors not clipped at 2047 (FF_BUG_DC_CLIP).
-// A second call converts the planes to BGR24 with swscale's unscaled
-// YUV 4:2:0 -> BGR arithmetic (BT.601, limited range).
+// A second call converts the planes to BGR24 as cv2.VideoCapture does
+// (swscale_bgr.h: BT.601, limited range, at any size, with the chroma sited
+// left as FFmpeg's MPEG-4 decoder marks it).
 //
 // C interface (ctypes):
 //   int sr_mpeg4_decode_vop(const uint8_t* data, int64_t size, int64_t bit_pos,
@@ -47,7 +48,7 @@
 #include <string>
 #include <vector>
 
-#include "yuv420_to_bgr.h"
+#include "swscale_bgr.h"
 
 namespace {
 
@@ -1107,12 +1108,12 @@ void sr_mpeg4_idct(int16_t* block, int xvid) {
   }
 }
 
-// swscale's unscaled YUV 4:2:0 -> BGR24 (yuv420_to_bgr.h) of the planes on
+// YUV 4:2:0 -> BGR24 as cv2.VideoCapture converts it (swscale_bgr.h) of the planes on
 // the macroblock grid.
 void sr_mpeg4_yuv420_to_bgr(const uint8_t* planes, int mb_w, int mb_h, int width, int height, uint8_t* bgr) {
   const int ls = 16 * mb_w, cs = 8 * mb_w;
   const uint8_t* up = planes + ls * 16 * mb_h;
-  sr_yuv::Yuv420ToBgr(planes, up, up + cs * 8 * mb_h, ls, cs, width, height, bgr);
+  sr_yuv::Yuv420ToBgr(planes, up, up + cs * 8 * mb_h, ls, cs, width, height, bgr, /*left=*/true);
 }
 
 }  // extern "C"

@@ -9,7 +9,7 @@
 // buffers as they stood before the frame, then the refreshes take the new
 // one --, hidden frames (show_frame = 0) decoded and kept as references but
 // not output, and the conversion of a shown frame to BGR24 with swscale's
-// arithmetic (yuv420_to_bgr.h).
+// arithmetic (swscale_bgr.h), as cv2.VideoCapture converts them at any size.
 //
 // C interface:
 //   void* sr_vp8_stream_new()              a decoder; sr_vp8_stream_free(h) ends it
@@ -30,7 +30,7 @@
 #include <exception>
 
 #include "vp8_core.h"
-#include "yuv420_to_bgr.h"
+#include "swscale_bgr.h"
 
 namespace {
 

@@ -25,7 +25,7 @@
 //   - the loop filter on libvpx's 64x64 masks, after the frame, superblock by
 //     superblock.
 // Shown frames are converted to BGR24 with swscale's arithmetic
-// (yuv420_to_bgr.h).
+// (swscale_bgr.h), as cv2.VideoCapture converts them at any size.
 //
 // C interface:
 //   void* sr_vp9_stream_new()              a decoder; sr_vp9_stream_free(h) ends it
@@ -61,7 +61,7 @@
 #include <vector>
 
 #include "vp9_tables.h"
-#include "yuv420_to_bgr.h"
+#include "swscale_bgr.h"
 
 namespace sr_vp9 {
 

@@ -8,9 +8,11 @@ last box that runs to the end of the file; ``mdat`` before or after
 ``mp4v`` sample entry and the ``esds`` descriptor (object type 0x20, MPEG-4
 Visual, whose DecoderSpecificInfo carries the VOS / VO / VOL headers) or its
 ``vp09`` sample entry (VP9, whose ``vpcC`` box is read only for the profile
-and bit depth: the frames carry their own headers), and
+and bit depth: the frames carry their own headers) or its ``FFV1`` sample
+entry (FFV1, whose ``glbl`` box holds the configuration record and whose
+width and height are the frames'), and
 locates every sample from ``stsz``, ``stsc`` and ``stco`` / ``co64``,
-timed by ``stts`` (I- and P-VOPs, or VP9 frames: decode order is
+timed by ``stts`` (I- and P-VOPs, VP9 or FFV1 frames: decode order is
 presentation order). An edit list (``elst``) is
 honoured as FFmpeg honours it: each edit with a media time plays the
 samples whose presentation time lies in ``[media_time, media_time +
@@ -19,7 +21,7 @@ empty edit only delays. Without an edit list every sample plays.
 
 A fragmented file (``mvex`` / ``moof``), a ``vp09`` entry of another
 profile than 0 or of more than 8 bits, and any other sample entry than
-``mp4v`` and ``vp09`` raise ``NotImplementedError`` naming it (the codec and
+``mp4v``, ``vp09`` and ``FFV1`` raise ``NotImplementedError`` naming it (the codec and
 its four-character code, such as "H.264 (avc1)").
 """
 
@@ -147,13 +149,15 @@ def _timescale(data: bytes, start: int) -> int:
 class Mp4Video:
     """The first video track: its decoder configuration, its samples in
     decode order, for each whether its frame is shown (``False``: decoded
-    only, ahead of an edit), and its sample entry's code (``mp4v`` or
-    ``vp09``)."""
+    only, ahead of an edit), its sample entry's code (``mp4v``, ``vp09`` or
+    ``FFV1``) and the entry's width and height."""
 
     config: bytes
     samples: list[bytes]
     shown: list[bool]
     codec: str = "mp4v"
+    width: int = 0
+    height: int = 0
 
 
 def read_mp4_video(data: bytes) -> Mp4Video:
@@ -189,11 +193,15 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
     if not entries:
         raise ValueError("MP4 video track without a sample description.")
     fourcc, es, ee = entries[0]
-    if fourcc not in (b"mp4v", b"vp09"):
+    if fourcc not in (b"mp4v", b"vp09", b"FFV1"):
         name = _CODECS.get(fourcc, "a codec")
         raise NotImplementedError(f"MP4 video of {name} ({fourcc.decode('latin-1')}) is not supported by the port's "
-                                  "video reader (MPEG-4 Part 2, mp4v, and VP9, vp09, are).")
-    if fourcc == b"vp09":
+                                  "video reader (MPEG-4 Part 2, mp4v, VP9, vp09, and FFV1 are).")
+    width, height = struct.unpack(">HH", data[es + 24:es + 28])
+    if fourcc == b"FFV1":
+        glbl = _child(data, es + 78, ee, b"glbl")  # after the 78 bytes of the visual sample entry
+        config = data[glbl[0]:glbl[1]] if glbl else b""
+    elif fourcc == b"vp09":
         vpcc = _child(data, es + 78, ee, b"vpcC")  # after the 78 bytes of the visual sample entry
         if vpcc is not None and vpcc[1] - vpcc[0] >= 7:
             profile, depth = data[vpcc[0] + 4], data[vpcc[0] + 6] >> 4
@@ -248,7 +256,7 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
             edits.append((media_time, None if span is None else media_time + span))
     codec = fourcc.decode("latin-1")
     if not edits:
-        return Mp4Video(config, samples, [True] * len(samples), codec)
+        return Mp4Video(config, samples, [True] * len(samples), codec, width, height)
     order, shown = [], []
     for first, stop in edits:
         chosen = [i for i in range(len(samples)) if pts[i] >= first and (stop is None or pts[i] < stop)]
@@ -259,4 +267,4 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
         for i in range(start, chosen[-1] + 1):
             order.append(i)
             shown.append(i in kept)
-    return Mp4Video(config, [samples[i] for i in order], shown, codec)
+    return Mp4Video(config, [samples[i] for i in order], shown, codec, width, height)

@@ -15,18 +15,20 @@ reads the file itself, choosing the container by its first bytes, not by
 its extension:
 
 - MP4 / QuickTime (:mod:`super_resolution_tpu_torch.video.mp4`): the first
-  video track's MPEG-4 Part 2 (``mp4v``) or VP9 (``vp09``) samples, with its
-  edit list;
+  video track's MPEG-4 Part 2 (``mp4v``), VP9 (``vp09``) or FFV1 (``FFV1``,
+  configured by its ``glbl`` box) samples, with its edit list;
 - Matroska / WebM (:mod:`super_resolution_tpu_torch.video.mkv`): the
   first video track's MPEG-4 Part 2 (``V_MPEG4/ISO/SP|ASP|AP``), VP8
-  (``V_VP8``), VP9 (``V_VP9``) or Motion-JPEG (``V_MJPEG``) frames, or those
+  (``V_VP8``), VP9 (``V_VP9``), FFV1 (``V_FFV1``) or Motion-JPEG
+  (``V_MJPEG``) frames, or those
   of a ``V_MS/VFW/FOURCC`` track whose code the AVI reader takes
   (uncompressed 24-bit rows top-down, at the track's size, as FFmpeg's
   Matroska demuxer hands them over);
 - RIFF AVI: the video stream's ``##dc`` / ``##db`` chunks of the ``movi``
   list (and of the OpenDML ``AVIX`` extensions), decoded as MPEG-4 Part 2
   (fourcc ``XVID``, ``DIVX``, ``DX50``, ``FMP4``, ``MP4V``, in either case),
-  as VP8 (``VP80``) or VP9 (``VP90``, each in either case), as Motion-JPEG
+  as VP8 (``VP80``), VP9 (``VP90``) or FFV1 (``FFV1``, configured by what
+  follows the ``BITMAPINFOHEADER`` in ``strf``; each in either case), as Motion-JPEG
   through :mod:`super_resolution_tpu_torch.utils.jpeg`, or as uncompressed
   24-bit ``BI_RGB`` rows (bottom-up where the height is positive, each row
   padded to 4 bytes);
@@ -34,14 +36,17 @@ its extension:
   VP9 (``VP90``) frames.
 
 MPEG-4 Part 2 frames (:mod:`super_resolution_tpu_torch.utils.mpeg4`), VP8
-frames (:mod:`super_resolution_tpu_torch.utils.vp8`) and VP9 frames
-(:mod:`super_resolution_tpu_torch.utils.vp9`) are ``cv2.VideoCapture``'s,
-pixel for pixel, on what ``cv2.VideoWriter`` writes; a hidden VP8 or VP9
+frames (:mod:`super_resolution_tpu_torch.utils.vp8`), VP9 frames
+(:mod:`super_resolution_tpu_torch.utils.vp9`) and FFV1 frames
+(:mod:`super_resolution_tpu_torch.utils.ffv1`, versions 0-3 at 8 bits) are
+``cv2.VideoCapture``'s, pixel for pixel, at any frame size, on what
+``cv2.VideoWriter`` writes; a hidden VP8 or VP9
 frame gives none, a VP9 superframe or ``show_existing_frame`` the frames it
 shows. An MJPEG frame is what ``cv2.imdecode`` gives for its JPEG payload;
 FFmpeg's MJPEG decoder and colour conversion differ from that by a few grey
-levels (ROADMAP.md, Queue 3). Other containers and codecs (H.264, FFV1,
-MS-MPEG4 ``DIV3``, ...) raise ``NotImplementedError`` naming them.
+levels (ROADMAP.md, Queue 3). Other containers and codecs (H.264, HuffYUV,
+FFV1 above 8 bits, MS-MPEG4 ``DIV3``, ...) raise ``NotImplementedError``
+naming them.
 """
 
 from __future__ import annotations
@@ -61,6 +66,7 @@ _MJPEG = {b"MJPG", b"mjpg"}
 _MPEG4 = {b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"dx50", b"FMP4", b"fmp4", b"MP4V", b"mp4v"}
 _VP8 = {b"VP80", b"vp80"}
 _VP9 = {b"VP90", b"vp90"}
+_FFV1 = {b"FFV1", b"ffv1"}
 _DISPLAY_SIZE = (1000, 600)  # kDisplayFrameSize, video_loader.cpp:19
 
 
@@ -86,7 +92,8 @@ def _chunks(data: bytes, start: int, end: int):
 
 
 def _video_stream(data: bytes, hdrl: tuple[int, int]):
-    """(stream number, codec fourcc, bits per pixel, width, height, handler fourcc) of the first video stream."""
+    """(stream number, codec fourcc, bits per pixel, width, height, handler fourcc, the decoder's configuration
+    after the 40-byte BITMAPINFOHEADER in ``strf``) of the first video stream."""
     number = 0
     for fourcc, kind, start, end in _chunks(data, *hdrl):
         if fourcc != b"LIST" or kind != b"strl":
@@ -99,7 +106,7 @@ def _video_stream(data: bytes, hdrl: tuple[int, int]):
                 strf = data[s:e]
         if strh is not None and strh[:4] == b"vids" and strf is not None and len(strf) >= 20:
             _, width, height, _, bits, compression = struct.unpack("<IiiHH4s", strf[:20])
-            return number, compression, bits, width, height, strh[4:8]
+            return number, compression, bits, width, height, strh[4:8], strf[40:]
         number += 1
     raise ValueError("AVI file without a video stream.")
 
@@ -138,9 +145,9 @@ def _read(path: str) -> bytes:
 def _refuse_container(path: str, head: bytes) -> NotImplementedError:
     return NotImplementedError(
         f"{path}: {_container_name(head)} is not supported by the port's video reader (MP4 / QuickTime with "
-        "MPEG-4 Part 2 or VP9, Matroska / WebM with MPEG-4 Part 2, VP8, VP9 or Motion-JPEG, AVI with MPEG-4 Part 2, "
-        "VP8, VP9, Motion-JPEG or uncompressed frames, and IVF with VP8 or VP9, are); convert the video, or extract "
-        "its frames as images.")
+        "MPEG-4 Part 2, VP9 or FFV1, Matroska / WebM with MPEG-4 Part 2, VP8, VP9, FFV1 or Motion-JPEG, AVI with "
+        "MPEG-4 Part 2, VP8, VP9, FFV1, Motion-JPEG or uncompressed frames, and IVF with VP8 or VP9, are); convert "
+        "the video, or extract its frames as images.")
 
 
 def read_video_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:
@@ -189,6 +196,14 @@ def _vp9_frames(payloads: list[bytes], max_frames: int, shown: list[bool] | None
     return _shown_frames(Vp9Decoder(), payloads, max_frames, shown)
 
 
+def _ffv1_frames(payloads: list[bytes], max_frames: int, config: bytes, width: int, height: int,
+                 shown: list[bool] | None = None) -> list[np.ndarray]:
+    """The frames of an FFV1 stream, whose size the container gives, keeping those of the ``shown`` payloads."""
+    from super_resolution_tpu_torch.utils.ffv1 import Ffv1Decoder
+
+    return _shown_frames(Ffv1Decoder(config, width, height), payloads, max_frames, shown)
+
+
 def _shown_frames(decoder, payloads: list[bytes], max_frames: int, shown: list[bool] | None = None) -> list[np.ndarray]:
     """The frames ``decoder`` gives for each payload in turn (none, one or more), those of the ``shown`` payloads
     kept (default: all), the first ``max_frames`` (0: all)."""
@@ -212,22 +227,24 @@ def _matroska_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray
         if tag == b"\0\0\0\0" and bits == 24:
             return [_decode_bgr24(p, video.width, -video.height, packed=True)
                     for p in video.frames[:max_frames or None]]
-        if tag not in _MPEG4 | _MJPEG | _VP8 | _VP9:
+        if tag not in _MPEG4 | _MJPEG | _VP8 | _VP9 | _FFV1:
             raise NotImplementedError(f"{path}: Matroska V_MS/VFW/FOURCC video {_fourcc_name(tag)} with {bits} bits "
                                       "per pixel is not supported by the port's video reader (MPEG-4 Part 2, VP8, "
-                                      "VP9, Motion-JPEG and uncompressed 24-bit BGR are).")
+                                      "VP9, FFV1, Motion-JPEG and uncompressed 24-bit BGR are).")
     if codec in mkv.MPEG4_CODECS or tag in _MPEG4:
         return _mpeg4_frames(video.frames, max_frames, config, codec_tag=tag)
     if codec == "V_VP8" or tag in _VP8:
         return _vp8_frames(video.frames, max_frames)
     if codec == "V_VP9" or tag in _VP9:
         return _vp9_frames(video.frames, max_frames)
+    if codec == "V_FFV1" or tag in _FFV1:
+        return _ffv1_frames(video.frames, max_frames, config, video.width, video.height)
     if codec == "V_MJPEG" or tag in _MJPEG:
         return [_decode_mjpeg(p) for p in video.frames[:max_frames or None]]
     raise NotImplementedError(f"{path}: Matroska / WebM video of {mkv.codec_name(codec)} ({codec}) is not supported "
-                              "by the port's video reader (V_MPEG4/ISO/SP|ASP|AP, V_VP8, V_VP9, V_MJPEG and "
-                              "V_MS/VFW/FOURCC with an MPEG-4 Part 2, VP8, VP9, Motion-JPEG or uncompressed 24-bit "
-                              "code are).")
+                              "by the port's video reader (V_MPEG4/ISO/SP|ASP|AP, V_VP8, V_VP9, V_FFV1, V_MJPEG and "
+                              "V_MS/VFW/FOURCC with an MPEG-4 Part 2, VP8, VP9, FFV1, Motion-JPEG or uncompressed "
+                              "24-bit code are).")
 
 
 def _fourcc_name(codec: bytes) -> str:
@@ -241,6 +258,8 @@ def _mp4_frames(data: bytes, max_frames: int) -> list[np.ndarray]:
     from super_resolution_tpu_torch.video.mp4 import read_mp4_video
 
     video = read_mp4_video(data)
+    if video.codec == "FFV1":
+        return _ffv1_frames(video.samples, max_frames, video.config, video.width, video.height, video.shown)
     if video.codec == "vp09":
         return _vp9_frames(video.samples, max_frames, video.shown)
     return _mpeg4_frames(video.samples, max_frames, video.config, video.shown)
@@ -277,7 +296,9 @@ def _avi_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray]:
                  if fourcc == b"LIST" and kind == b"hdrl"), None)
     if hdrl is None:
         raise ValueError(f"{path}: AVI file without a header list.")
-    stream, codec, bits, width, height, handler = _video_stream(data, hdrl)
+    stream, codec, bits, width, height, handler, config = _video_stream(data, hdrl)
+    if codec in _FFV1:
+        return _ffv1_frames(_frame_payloads(data, stream, 0), max_frames, config, width, abs(height))
     if codec in _MPEG4:
         return _mpeg4_frames(_frame_payloads(data, stream, 0), max_frames, codec_tag=codec, stream_codec_tag=handler)
     if codec in _VP8:
@@ -291,7 +312,7 @@ def _avi_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray]:
     else:
         raise NotImplementedError(
             f"{path}: {_fourcc_name(codec)} video with {bits} bits per pixel is not supported by the port's video reader "
-            "(MPEG-4 Part 2, VP8, VP9, Motion-JPEG and uncompressed 24-bit BGR are).")
+            "(MPEG-4 Part 2, VP8, VP9, FFV1, Motion-JPEG and uncompressed 24-bit BGR are).")
     return [decode(p) for p in _frame_payloads(data, stream, max_frames)]
 
 

@@ -9,9 +9,10 @@ writer (SeekHead, Cues and Void dropped, so that FFmpeg reads the clusters in
 order): Xiph, EBML and fixed-size lacing, clusters and a segment of unknown
 size, blocks in ``BlockGroup`` s, ``V_MS/VFW/FOURCC`` tracks (MPEG-4 Part 2,
 VP8 and uncompressed), ``ContentEncodings``, a second video track, other
-codec IDs and a VP8 key frame that asks for scaling. MPEG-4 Part 2, VP8 and
-VP9 frames are array-equal to cv2.VideoCapture's (``tests/test_torch_vp8.py``
-holds VP8 in .webm, ``tests/test_torch_vp9.py`` VP9); Motion-JPEG frames are each what
+codec IDs and a VP8 key frame that asks for scaling. MPEG-4 Part 2, VP8,
+VP9 and FFV1 frames are array-equal to cv2.VideoCapture's (``tests/test_torch_vp8.py``
+holds VP8 in .webm, ``tests/test_torch_vp9.py`` VP9, ``tests/test_torch_ffv1.py``
+FFV1); Motion-JPEG frames are each what
 ``cv2.imdecode`` gives for the block, within the bounds the AVI reader is held
 to (26 grey levels, 1.9 on average) of cv2.VideoCapture's. What the port does
 not read raises ``NotImplementedError`` naming it. The loader matches the JAX
@@ -328,17 +329,18 @@ def test_vfw_uncompressed_track(tmp_path, padded):
 # --- what the port refuses ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("fourcc,ext,name", [("FFV1", "mkv", "FFV1"), ("VP90", "mkv", "VP9"), ("VP90", "webm", "VP9")])
+@pytest.mark.parametrize("fourcc,ext,name", [("FFV1", "mkv", "FFV1"), ("VP90", "mkv", "VP9"), ("VP90", "webm", "VP9"),
+                                             ("HFYU", "mkv", "HuffYUV")])
 def test_other_codecs_raise(tmp_path, fourcc, ext, name):
-    """FFV1 raises naming it; VP9 (V_VP9), refused until the port read it, now reads as cv2.VideoCapture does
-    (tests/test_torch_vp9.py holds VP9 itself)."""
+    """HuffYUV raises naming it; VP9 (V_VP9) and FFV1 (V_FFV1), refused until the port read them, now read as
+    cv2.VideoCapture does (tests/test_torch_vp9.py and tests/test_torch_ffv1.py hold the codecs themselves)."""
     path = str(tmp_path / f"clip.{ext}")
     _write(path, fourcc, _pan(32, 24, 3))
-    if name == "VP9":
+    if name in ("VP9", "FFV1"):
         ours, theirs = read_video_frames(path), _capture(path)
         assert len(ours) == len(theirs) == 3 and all(np.array_equal(a, b) for a, b in zip(ours, theirs))
         return
-    with pytest.raises(NotImplementedError, match=rf"{name} \(V_{name}\)"):
+    with pytest.raises(NotImplementedError, match=r"HFYU"):
         read_video_frames(path)
 
 

@@ -32,6 +32,7 @@ import hashlib
 import json
 import os
 import struct
+import sys
 
 import cv2
 import numpy as np
@@ -45,6 +46,10 @@ from super_resolution_tpu_torch.utils.mpeg4 import Mpeg4Decoder, idct, parse_vol
 from super_resolution_tpu_torch.video import VideoLoader, VideoSuperResolver
 from super_resolution_tpu_torch.video.mp4 import read_mp4_video
 from super_resolution_tpu_torch.video.video_loader import read_avi_frames, read_video_frames
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_libav  # noqa: E402
+from torch_libav import libavcodec as _libavcodec  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data_torch", "video")
@@ -144,17 +149,6 @@ def test_avi_fourcc_variants_route_to_the_decoder(tmp_path):
 # --- the coding tools OpenCV does not switch on, through FFmpeg's encoder ----------------
 
 
-def _libavcodec():
-    """OpenCV's own FFmpeg (the libraries bundled with the cv2 wheel)."""
-    libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs")
-    loaded = {}
-    for name in ("libavutil", "libswresample", "libavcodec"):
-        paths = glob.glob(os.path.join(libs, f"{name}-*.so*"))
-        assert paths, f"no {name} beside cv2 in {libs}"
-        loaded[name] = ctypes.CDLL(paths[0], mode=ctypes.RTLD_GLOBAL)
-    return loaded["libavutil"], loaded["libavcodec"]
-
-
 def _lavc_encode(frames, options):
     """The MPEG-4 Part 2 payloads FFmpeg's ``mpeg4`` encoder (the one
     cv2.VideoWriter drives) writes for BGR ``frames`` with AVOptions
@@ -210,27 +204,33 @@ def _lavc_encode(frames, options):
     return payloads
 
 
-def _chunk(fourcc, body):
-    return fourcc + struct.pack("<I", len(body)) + body + (b"\0" if len(body) & 1 else b"")
+@pytest.mark.parametrize("size", [(64, 37), (33, 19), (9, 17), (2, 3)], ids=lambda s: f"{s[0]}x{s[1]}")
+def test_odd_heights_equal_videocapture(tmp_path, size):
+    """Streams of odd height from FFmpeg's mpeg4 encoder (through ctypes): array-equal to cv2.VideoCapture,
+    which converts them through swscale's bicubic scaler with the chroma sited left, as FFmpeg's MPEG-4
+    decoder marks it (native/swscale_bgr.h)."""
+    w, h = size
+    rng = np.random.default_rng(w * h)
+    frames = []
+    for i in range(6):
+        yuv = cv2.cvtColor(np.ascontiguousarray(_texture(h, w + 6, seed=w)[:, i:i + w]), cv2.COLOR_BGR2YUV)
+        chroma = [np.clip(yuv[::2, ::2, c].astype(int) + rng.integers(-40, 41, yuv[::2, ::2, c].shape), 0, 255)
+                  .astype(np.uint8) for c in (1, 2)]
+        frames.append([yuv[..., 0], *chroma])
+    payloads, _ = torch_libav.encode("mpeg4", frames, "yuv420p", w, h, {"g": 3, "bf": 0})
+    path = str(tmp_path / "odd.avi")
+    torch_libav.write_avi(path, payloads, w, h, b"FMP4")
+    ours = _assert_equal_to_capture(path)
+    assert ours[0].shape == (h, w, 3)
 
 
 def _write_avi(path, payloads, w, h, fourcc=b"XVID"):
     """A RIFF AVI of compressed frames with an ``idx1`` index (I-VOPs marked as key frames)."""
-    n = len(payloads)
-    avih = struct.pack("<14I", 100000, 0, 0, 0x10, n, 0, 1, 0, w, h, 0, 0, 0, 0)
-    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", fourcc, 0, 0, 0, 0, 1, 10, 0, n, 0, 0xFFFFFFFF, 0, 0, 0, w, h)
-    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, fourcc, w * h * 3, 0, 0, 0, 0)
-    hdrl = _chunk(b"LIST", b"hdrl" + _chunk(b"avih", avih)
-                  + _chunk(b"LIST", b"strl" + _chunk(b"strh", strh) + _chunk(b"strf", strf)))
-    movi, index, offset = b"", b"", 4
+    keys = []
     for payload in payloads:
         vop = payload.find(b"\x00\x00\x01\xb6")
-        key = 0x10 if vop >= 0 and payload[vop + 4] >> 6 == 0 else 0
-        index += struct.pack("<4sIII", b"00dc", key, offset, len(payload))
-        movi += _chunk(b"00dc", payload)
-        offset += 8 + len(payload) + (len(payload) & 1)
-    with open(path, "wb") as f:
-        f.write(_chunk(b"RIFF", b"AVI " + hdrl + _chunk(b"LIST", b"movi" + movi) + _chunk(b"idx1", index)))
+        keys.append(vop >= 0 and payload[vop + 4] >> 6 == 0)
+    torch_libav.write_avi(path, payloads, w, h, fourcc, keys=keys)
 
 
 def _avi_payloads(path):
@@ -635,10 +635,14 @@ def test_mp4_refusals(tmp_path, mp4_clip):
 
 
 def test_other_containers_and_codecs_raise(tmp_path):
-    mkv = str(tmp_path / "clip.mkv")  # Matroska with FFV1: a codec the port does not decode
+    mkv = str(tmp_path / "clip.mkv")  # Matroska with FFV1, refused until the port read it: now cv2's frames
     _write(mkv, "FFV1", _motion_frames(32, 24, n=3))
-    with pytest.raises(NotImplementedError, match=r"FFV1 \(V_FFV1\)"):
-        read_video_frames(mkv)
+    _assert_equal_to_capture(mkv)
+    for ext in ("mkv", "avi"):  # HuffYUV: a codec the port does not decode
+        path = str(tmp_path / f"hfyu.{ext}")
+        _write(path, "HFYU", _motion_frames(32, 24, n=3))
+        with pytest.raises(NotImplementedError, match="HFYU"):
+            read_video_frames(path)
     div3 = str(tmp_path / "div3.avi")  # MS-MPEG4 v3: another codec
     _write(div3, "DIV3", _motion_frames(32, 24, n=3))
     with pytest.raises(NotImplementedError, match="DIV3"):

@@ -295,14 +295,25 @@ def test_uncompressed_avi_frames_are_the_bytes_written(tmp_path, top_down, avix_
 
 
 def test_other_containers_and_codecs_raise(tmp_path):
-    mkv = str(tmp_path / "clip.mkv")  # Matroska with FFV1: a codec the port does not decode
+    mkv = str(tmp_path / "clip.mkv")  # Matroska with FFV1, refused until the port read it: now the frames written
     writer = cv2.VideoWriter(mkv, cv2.VideoWriter_fourcc(*"FFV1"), 10, (32, 24))
     assert writer.isOpened()
     for i in range(3):
         writer.write(np.full((24, 32, 3), 40 * i, np.uint8))
     writer.release()
-    with pytest.raises(NotImplementedError, match=r"Matroska / WebM video of FFV1"):
-        VideoLoader(**CPU).load_frames_from_video(mkv)
+    loader = VideoLoader(**CPU)
+    loader.load_frames_from_video(mkv)
+    assert loader.num_frames == 3
+    for i, frame in enumerate(loader.get_frames()):
+        assert torch.equal(frame, torch.full((24, 32, 3), 40 * i / 255.0, dtype=torch.float64))
+    hfyu = str(tmp_path / "hfyu.mkv")  # Matroska with HuffYUV: a codec the port does not decode
+    writer = cv2.VideoWriter(hfyu, cv2.VideoWriter_fourcc(*"HFYU"), 10, (32, 24))
+    assert writer.isOpened()
+    for i in range(3):
+        writer.write(np.full((24, 32, 3), 40 * i, np.uint8))
+    writer.release()
+    with pytest.raises(NotImplementedError, match="HFYU"):
+        VideoLoader(**CPU).load_frames_from_video(hfyu)
     i420 = str(tmp_path / "i420.avi")  # what cv2.VideoWriter writes for fourcc 0
     writer = cv2.VideoWriter(i420, 0, 10, (32, 24))
     for i in range(3):

@@ -212,6 +212,17 @@ def test_writer_everything_equals_videocapture(tmp_path, seed, version, size):
         assert all(stats[k] for k in ("ZEROMV", "NEARESTMV", "NEARMV", "NEWMV", "SPLITMV", "B_PRED"))
 
 
+@pytest.mark.parametrize("seed,size", [(41, (61, 37)), (42, (9, 17)), (43, (72, 41))])
+def test_writer_odd_heights_equal_videocapture(tmp_path, seed, size):
+    """Frames of odd height, every feature: array-equal to cv2.VideoCapture, which converts them through
+    swscale's bicubic scaler (native/swscale_bgr.h), not its unscaled converter."""
+    path, payloads, writer = _writer_stream(tmp_path, seed, FEATURES, 0, *size)
+    ours, stats = _decode(payloads)
+    _assert_equal_to_capture(path, ours)
+    assert ours[0].shape == (size[1], size[0], 3)
+    assert {k: stats[k] for k in MODE_COUNTS} == {k: writer.counts.get(k, 0) for k in MODE_COUNTS}
+
+
 # --- what the decoder refuses ------------------------------------------------------------------
 
 

@@ -18,9 +18,8 @@ filter, lossless, tiles, the four contexts and their resets, error
 resilience, loop-filter deltas and sharpness, vectors far outside the
 picture, odd sizes), each held to cv2 and to the symbols the writer meant.
 cv2.VideoCapture converts a frame of odd height through swscale's bicubic
-scaler, not the unscaled converter the port shares with its other video
-decoders (ROADMAP.md, Queue 3): those frames are held to FFmpeg's decoded
-planes instead. What the decoder refuses raises ``NotImplementedError``
+scaler (``native/swscale_bgr.h``): those frames are held to FFmpeg's decoded
+planes and to cv2's BGR. What the decoder refuses raises ``NotImplementedError``
 naming it. The loader matches the JAX loader in float64; the resolver matches
 the JAX resolver on the decoded frames to 1e-8 of the largest entry.
 """
@@ -50,6 +49,7 @@ from super_resolution_tpu_torch.video.mp4 import read_mp4_video
 from super_resolution_tpu_torch.video.video_loader import _frame_payloads, read_video_frames
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_libav import libavcodec as _libavcodec  # noqa: E402
 from torch_vp9_writer import FEATURES, BitWriter, Vp9Writer, ivf  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -144,33 +144,6 @@ def test_fixture_directory_size():
 
 
 # --- libvpx with the tools OpenCV leaves off, through FFmpeg's libvpx-vp9 encoder ---------------
-
-
-def _libavcodec():
-    """OpenCV's own FFmpeg (the libraries bundled with the cv2 wheel)."""
-    libs = os.path.join(os.path.dirname(os.path.dirname(cv2.__file__)), "opencv_python.libs")
-    loaded = {}
-    for name in ("libavutil", "libswresample", "libavcodec"):
-        paths = glob.glob(os.path.join(libs, f"{name}-*.so*"))
-        assert paths, f"no {name} beside cv2 in {libs}"
-        loaded[name] = ctypes.CDLL(paths[0], mode=ctypes.RTLD_GLOBAL)
-    avutil, avcodec = loaded["libavutil"], loaded["libavcodec"]
-    p = ctypes.c_void_p
-    for name, restype, argtypes in (("avcodec_find_encoder_by_name", p, [ctypes.c_char_p]),
-                                    ("avcodec_find_decoder_by_name", p, [ctypes.c_char_p]),
-                                    ("avcodec_alloc_context3", p, [p]), ("avcodec_open2", ctypes.c_int, [p, p, p]),
-                                    ("av_packet_alloc", p, []), ("av_new_packet", ctypes.c_int, [p, ctypes.c_int]),
-                                    ("avcodec_send_frame", ctypes.c_int, [p, p]),
-                                    ("avcodec_receive_packet", ctypes.c_int, [p, p]),
-                                    ("avcodec_send_packet", ctypes.c_int, [p, p]),
-                                    ("avcodec_receive_frame", ctypes.c_int, [p, p]),
-                                    ("av_packet_unref", None, [p])):
-        getattr(avcodec, name).restype, getattr(avcodec, name).argtypes = restype, argtypes
-    for name, restype, argtypes in (("av_frame_alloc", p, []), ("av_frame_get_buffer", ctypes.c_int, [p, ctypes.c_int]),
-                                    ("av_frame_make_writable", ctypes.c_int, [p]), ("av_frame_unref", None, [p]),
-                                    ("av_opt_set", ctypes.c_int, [p, ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int])):
-        getattr(avutil, name).restype, getattr(avutil, name).argtypes = restype, argtypes
-    return avutil, avcodec
 
 
 def _libvpx_encode(frames, options):
@@ -354,18 +327,23 @@ def test_writer_everything_equals_videocapture(tmp_path, seed, size):
     assert stats["adapted_frames"] and stats["hidden_frames"]
 
 
-@pytest.mark.parametrize("seed,size", [(31, (61, 37)), (32, (9, 17))])
-def test_writer_odd_heights_equal_ffmpeg_planes(seed, size):
-    """Frames of odd height, every feature: the decoded planes are FFmpeg's (cv2.VideoCapture converts such
-    frames through swscale's bicubic scaler, which the port does not reproduce)."""
+@pytest.mark.parametrize("seed,size", [(31, (61, 37)), (32, (9, 17)), (33, (72, 41))])
+def test_writer_odd_heights_equal_ffmpeg_planes(tmp_path, seed, size):
+    """Frames of odd height, every feature: the decoded planes are FFmpeg's, and the BGR frames
+    cv2.VideoCapture's (which converts such frames through swscale's bicubic scaler, native/swscale_bgr.h)."""
     writer = Vp9Writer(*size, np.random.default_rng(seed), FEATURES)
     payloads = writer.stream(12)
-    decoder, ours = Vp9Decoder(), []
+    decoder, ours, bgr = Vp9Decoder(), [], []
     for payload in payloads:
-        ours += [decoder.planes(i) for i in range(len(decoder.decode(payload)))]
+        shown = decoder.decode(payload)
+        bgr += shown
+        ours += [decoder.planes(i) for i in range(len(shown))]
     theirs = _ffmpeg_planes(payloads)
     assert len(ours) == len(theirs) > 0
     assert all(np.array_equal(a, b) for x, y in zip(ours, theirs) for a, b in zip(x, y))
+    path = str(tmp_path / f"odd_{seed}.ivf")
+    pathlib.Path(path).write_bytes(ivf(payloads, *size))
+    _assert_equal_to_capture(path, bgr)
     _assert_written(decoder.stats, writer)
 
 
