@@ -206,6 +206,8 @@ try:
     from super_resolution_tpu_torch.utils.vp8 import Vp8Decoder
     from super_resolution_tpu_torch.utils.vp9 import Vp9Decoder
     from super_resolution_tpu_torch.utils.ffv1 import Ffv1Decoder
+    from super_resolution_tpu_torch.utils.h264 import H264Decoder
+    from super_resolution_tpu_torch.video.mp4 import read_mp4_video
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -2687,6 +2689,8 @@ VIDEO_VP9_CLIP = "vp9_960x540x12.webm"    # (g'''): the same frames, VP9 (libvpx
 VIDEO_FFV1_DIR = os.path.join("tests", "data_torch", "ffv1")  # its own manifest.json, as VIDEO_MPEG4_DIR's
 VIDEO_FFV1_CLIP = "ffv1_960x540x4.mkv"    # (g''''): the first 4 of those frames, FFV1 (lossless), in Matroska
 VIDEO_FFV1_CENTRES = 3                    # centres 0-2: their window is frames 0-3 in the 4- and the 12-frame stack
+VIDEO_H264_DIR = os.path.join("tests", "data_torch", "h264")  # its own manifest.json, as VIDEO_MPEG4_DIR's
+VIDEO_H264_CLIP = "h264_960x540x12.mp4"   # (g'''''): the same 12 frames, H.264 (avc1), and as .mkv, .avi, .h264
 VIDEO_ODD_DIR = os.path.join("tests", "data_torch", "odd_height")  # (h'): VP9, VP8, MPEG-4 clips of odd height
 VIDEO_MPEG4_GAP = 0                        # grey levels between the port's frames and cv2.VideoCapture's
 
@@ -2809,7 +2813,10 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     of that stream; (g'') the same from the VP8 .webm of those frames;
     (g''') the same from their VP9 .webm; (g'''') the same from the FFV1 .mkv
     of the first 4 of them (lossless: the frames' digest is that of the
-    frames written), its estimates of centres 0-2 held against (a)'s; (h')
+    frames written), its estimates of centres 0-2 held against (a)'s;
+    (g''''') the same from the H.264 .mp4 of the 12 frames (``avc1``, coded
+    960x544 with a bottom crop), its .mkv, .avi and raw .h264 copies decoded
+    to the same digest; (h')
     the odd-height clips (VP9, VP8, MPEG-4 Part 2), which cv2.VideoCapture
     converts through swscale's scaler, decoded to their recorded digests."""
     from super_resolution_tpu_torch.solvers import irls as irls_mod
@@ -3013,6 +3020,10 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
         device, card, truth, VIDEO_FFV1_DIR, VIDEO_FFV1_CLIP, "g''''", "V_FFV1", None, _ffv1_counts,
         make=lambda video: Ffv1Decoder(video.codec_private, video.width, video.height),
         reference=(x_host[:VIDEO_FFV1_CENTRES], "(a)'s PNG-path estimates"))
+    launches_h264, h264_ms, h264_gains = _video_from_webm(
+        device, card, truth, VIDEO_H264_DIR, VIDEO_H264_CLIP, "g'''''", "avc1", None, _h264_counts,
+        make=lambda video: H264Decoder(video.config), demux=_mp4_track)
+    h264_ms["containers"] = _h264_containers()
     odd_ms = _odd_height_fixtures()
     for row in rows:
         if row["row"] == "K4":
@@ -3021,12 +3032,13 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
             row["launches_video_webm"] = launches_webm
             row["launches_video_webm_vp9"] = launches_vp9
             row["launches_video_mkv_ffv1"] = launches_ffv1
+            row["launches_video_mp4_h264"] = launches_h264
 
     results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
                    rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains, mkv_ms=mkv_ms,
                    webm_ms=webm_ms, webm_gains=webm_gains, vp9_ms=vp9_ms, vp9_gains=vp9_gains, ffv1_ms=ffv1_ms,
-                   ffv1_gains=ffv1_gains, odd_ms=odd_ms)
+                   ffv1_gains=ffv1_gains, h264_ms=h264_ms, h264_gains=h264_gains, odd_ms=odd_ms)
     irls_mod._BUILT_SOLVER_CACHE.clear()
     log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
@@ -3207,6 +3219,33 @@ def _ffv1_counts(stats):
             f"checked, {stats['runs']} Golomb-Rice runs")
 
 
+def _h264_counts(stats):
+    return (f"{stats['idr_pictures']} IDR, {stats['p_slices']} P slice(s), macroblocks: {stats['I_16x16']} I_16x16, "
+            f"{stats['P_L0_16x16']} P_L0_16x16, {stats['P_Skip']} P_Skip in {stats['skip_runs']} run(s); "
+            f"{stats['cropped_pictures']} cropped picture(s), deblocking off in {stats['deblock_idc_1']} slice(s)")
+
+
+def _h264_containers():
+    """(g'''''): the .mkv (V_MPEG4/ISO/AVC), .avi (H264, Annex B) and raw .h264 copies of the H.264 clip's stream
+    read by ``read_video_frames`` on the host, each to the digest of cv2.VideoCapture's frames that the manifest
+    records, which is the .mp4's. Returns {file: ms a frame}."""
+    with open(os.path.join(ROOT, VIDEO_H264_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    stem = os.path.splitext(VIDEO_H264_CLIP)[0]
+    ms = {}
+    for ext in ("mkv", "avi", "h264"):
+        name = f"{stem}.{ext}"
+        t0 = time.perf_counter()
+        decoded = np.stack(read_video_frames(os.path.join(ROOT, VIDEO_H264_DIR, name)))
+        ms[name] = 1e3 * (time.perf_counter() - t0) / decoded.shape[0]
+        digest = hashlib.sha256(decoded.tobytes()).hexdigest()
+        check(digest == manifest[name]["frames_sha256"] == manifest[VIDEO_H264_CLIP]["frames_sha256"],
+              f"video (g'''''): {name} decodes to {digest}, not the .mp4's cv2.VideoCapture digest")
+    log(f"      (g''''') {', '.join(ms)}: the same digest as the .mp4 (cv2.VideoCapture's); read and decoded in "
+        + ", ".join(f"{v:.3f}" for v in ms.values()) + " ms a frame on the host")
+    return ms
+
+
 def _odd_height_fixtures():
     """(h'): the odd-height clips of ``VIDEO_ODD_DIR`` (VP9 and VP8 streams of the test writers in IVF, an MPEG-4
     Part 2 stream of FFmpeg's encoder in AVI), whose frames ``cv2.VideoCapture`` converts through swscale's
@@ -3236,8 +3275,21 @@ def _odd_height_fixtures():
     return decode_ms
 
 
+def _matroska_track(data):
+    """(codec ID, frames, track) of a Matroska / WebM file's video track."""
+    video = read_matroska_video(data)
+    return video.codec_id, video.frames, video
+
+
+def _mp4_track(data):
+    """(sample entry code, samples, track) of an MP4 file's video track."""
+    video = read_mp4_video(data)
+    return video.codec, video.samples, video
+
+
 def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_WEBM_CLIP, label="g''",
-                     codec_id="V_VP8", decoder_class=Vp8Decoder, describe=_vp8_counts, make=None, reference=None):
+                     codec_id="V_VP8", decoder_class=Vp8Decoder, describe=_vp8_counts, make=None, reference=None,
+                     demux=_matroska_track):
     """(g''): the checked-in VP8 clip of the LR frames (``cv2.VideoWriter``
     with ``VP80``: libvpx, in WebM), or (g''') the VP9 one (``VP90``): demuxed
     and decoded on the host (ms a frame of each, median of 3;
@@ -3250,7 +3302,8 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
     same decoded frames on every frame inside the border, as (g); (g'''') the
     FFV1 one, whose decoder ``make(video)`` builds from the track, the frames'
     digest also that of the frames written (``source_sha256``), and its first
-    estimates against ``reference`` = (estimates, what they are). Returns (K4
+    estimates against ``reference`` = (estimates, what they are); (g''''') the
+    H.264 one, which ``demux`` reads from MP4 (default: Matroska). Returns (K4
     launches, {"demux": ms, "decode": ms}, [(result, linear) luminance dB])."""
     make = make or (lambda video: decoder_class())
     path = os.path.join(ROOT, directory, clip)
@@ -3259,21 +3312,21 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
     with open(path, "rb") as f:
         data = f.read()
     t0 = time.perf_counter()
-    make(read_matroska_video(data))  # the native decoder built by g++ at first use, and loaded
+    make(demux(data)[2])  # the native decoder built by g++ at first use, and loaded
     build_s = time.perf_counter() - t0
     demux_s, decode_s = [], []
     for _ in range(3):
         t0 = time.perf_counter()
-        video = read_matroska_video(data)
+        codec, payloads, video = demux(data)
         demux_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         decoder = make(video)
-        frames = [frame for payload in video.frames for frame in decoder.decode(payload)]
+        frames = [frame for payload in payloads for frame in decoder.decode(payload)]
         decode_s.append(time.perf_counter() - t0)
     decoded = np.stack(frames)
     digest = hashlib.sha256(decoded.tobytes()).hexdigest()
-    check(video.codec_id == codec_id and list(decoded.shape) == entry["shape"] and digest == entry["frames_sha256"],
-          f"video ({label}): {video.codec_id}, frames {decoded.shape}, SHA-256 {digest} (cv2.VideoCapture's: "
+    check(codec == codec_id and list(decoded.shape) == entry["shape"] and digest == entry["frames_sha256"],
+          f"video ({label}): {codec}, frames {decoded.shape}, SHA-256 {digest} (cv2.VideoCapture's: "
           f"{entry['shape']}, {entry['frames_sha256']})")
     lossless = ""
     if "source_sha256" in entry:

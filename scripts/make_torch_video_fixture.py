@@ -86,6 +86,17 @@ every feature, seed 52) and ``mpeg4_64x37x6.avi`` from FFmpeg's ``mpeg4``
 encoder driven through ctypes (``tests/torch_libav.py``), whose chroma FFmpeg
 sites left.
 
+The H.264 clips of ``tests/data_torch/h264`` (its own ``manifest.json``):
+``h264_960x540x12.mp4`` (``avc1``), ``.mkv`` (``V_MPEG4/ISO/AVC``), ``.avi``
+(``H264``, Annex B) and ``.h264`` (a raw Annex B stream), one stream in four
+containers: the frames of ``mp4v_960x540x12.mp4`` coded 960x544 with a bottom
+crop of 4 rows by the test writer's encoder (``tests/torch_h264_writer.py``:
+an IDR of intra 16x16 macroblocks, then P pictures of P_L0_16x16 and P_Skip
+macroblocks from a motion search, QP 22, the deblocking filter off, in the
+closed loop). ``chip_smoke.py`` super-resolves the port's decode of the
+``.mp4`` on the card. The OpenCV wheel's ``cv2.VideoWriter`` has no H.264 encoder (its FFmpeg's only
+one, ``h264_v4l2m2m``, needs a V4L2 device).
+
 ``manifest.json`` records each clip's SHA-256, its frame shape and the
 SHA-256 of ``cv2.VideoCapture``'s frames (uint8 BGR, C order); the small
 MPEG-4 Part 2 clips but the Matroska one also keep those frames as
@@ -334,6 +345,52 @@ def write_odd_height_fixtures(directory: str) -> None:
         f.write("\n")
 
 
+H264_QP, H264_SEARCH = 22, 6
+
+
+def write_h264_fixtures(directory: str) -> None:
+    """The 960x540 H.264 clip: the frames of ``mp4v_960x540x12.mp4`` coded 960x544 with a bottom crop of 4 rows
+    by ``tests/torch_h264_writer.py``'s encoder (an IDR of intra 16x16 macroblocks, then P pictures with a
+    motion search, a residual at QP 22, the deblocking filter off, in the closed loop), in four containers that
+    hold the same stream. The manifest records cv2's digest of each and the encoding settings; the script stops
+    if the encoder's reconstruction is not FFmpeg's decode or if the containers decode apart."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_libav
+    from torch_h264_writer import annexb, avi, encode_frames, mkv, mp4
+
+    os.makedirs(directory, exist_ok=True)
+    frames = list(video_phase_frames())
+    h, w = frames[0].shape[:2]
+    aus, recon, encoder = encode_frames(frames, H264_QP, H264_SEARCH)
+    planes = torch_libav.decode_planes("h264", [annexb([au]) for au in aus], "yuv420p", w, h)
+    if len(planes) != len(recon) or any(not np.array_equal(a, b) for r, p in zip(recon, planes) for a, b in zip(r, p)):
+        raise SystemExit("the encoder's reconstruction is not FFmpeg's decode")
+    stem = f"h264_{w}x{h}x{len(frames)}"
+    files = {f"{stem}.mp4": mp4(aus, w, h), f"{stem}.mkv": mkv(aus, w, h), f"{stem}.h264": annexb(aus)}
+    manifest = {}
+    for name, data in files.items():
+        with open(os.path.join(directory, name), "wb") as f:
+            f.write(data)
+    avi(os.path.join(directory, f"{stem}.avi"), aus, w, h)
+    files[f"{stem}.avi"] = open(os.path.join(directory, f"{stem}.avi"), "rb").read()
+    digests = set()
+    for name, data in files.items():
+        decoded = np.stack(capture_frames(os.path.join(directory, name)))
+        digests.add(sha256(decoded.tobytes()))
+        manifest[name] = {"sha256": sha256(data), "frames_sha256": sha256(decoded.tobytes()),
+                          "shape": list(decoded.shape), "bytes": len(data)}
+        print(f"wrote {name} ({len(data)} bytes, {decoded.shape[0]} frames)")
+    if len(digests) != 1:
+        raise SystemExit("cv2.VideoCapture decodes the four containers apart")
+    manifest["encoding"] = {"source": "video_phase_frames() (mp4v_960x540x12.mp4's frames)", "qp": H264_QP,
+                            "search": H264_SEARCH, "coded": [encoder.cw, encoder.ch], "crop_bottom": encoder.ch - h,
+                            "profile_idc": encoder.sps.profile_idc, "deblocking": "off",
+                            "macroblocks": dict(sorted(encoder.stats.items()))}
+    with open(os.path.join(directory, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "tests", "data_torch", "mjpeg_160x120x8.avi"))
@@ -341,9 +398,14 @@ def main(argv=None) -> int:
     parser.add_argument("--vp9-dir", default=os.path.join(ROOT, "tests", "data_torch", "vp9"))
     parser.add_argument("--ffv1-dir", default=os.path.join(ROOT, "tests", "data_torch", "ffv1"))
     parser.add_argument("--odd-dir", default=os.path.join(ROOT, "tests", "data_torch", "odd_height"))
+    parser.add_argument("--h264-dir", default=os.path.join(ROOT, "tests", "data_torch", "h264"))
     parser.add_argument("--vp9-only", action="store_true", help="write the VP9 clips alone")
     parser.add_argument("--ffv1-only", action="store_true", help="write the FFV1 and odd-height clips alone")
+    parser.add_argument("--h264-only", action="store_true", help="write the H.264 clips alone")
     args = parser.parse_args(argv)
+    if args.h264_only:
+        write_h264_fixtures(args.h264_dir)
+        return 0
     if args.vp9_only:
         write_mpeg4_fixtures(args.vp9_dir, vp9_clips())
         return 0
@@ -358,6 +420,7 @@ def main(argv=None) -> int:
     write_mpeg4_fixtures(args.vp9_dir, vp9_clips())
     write_ffv1_fixtures(args.ffv1_dir)
     write_odd_height_fixtures(args.odd_dir)
+    write_h264_fixtures(args.h264_dir)
     return 0
 
 

@@ -29,6 +29,11 @@
 - ``ffv1_decoder.cpp`` decodes FFV1 video (versions 0-3, 8 bits), keeping
   its slices' contexts between calls, and converts each frame to BGR (behind
   :class:`super_resolution_tpu_torch.utils.ffv1.Ffv1Decoder`).
+- ``h264_decoder.cpp`` decodes H.264 video (progressive 8-bit 4:2:0, CAVLC,
+  I and P slices), keeping its parameter sets and decoded reference pictures
+  between calls, and converts each frame to BGR (behind
+  :class:`super_resolution_tpu_torch.utils.h264.H264Decoder`); its constant
+  tables are ``h264_tables.h``.
   VP8 frames themselves are decoded by ``vp8_core.h``, which
   ``webp_decoder.cpp`` shares; the video decoders convert YUV to BGR with
   ``swscale_bgr.h``, as ``cv2.VideoCapture`` does at any size.
@@ -44,7 +49,7 @@ codecs have no second implementation: without a compiler
 :func:`get_jpeg_library`, :func:`get_jpeg_encoder_library`,
 :func:`get_lzw_library`, :func:`get_webp_library`,
 :func:`get_webp_encoder_library`, :func:`get_mpeg4_library`, :func:`get_vp8_library`,
-:func:`get_vp9_library` and :func:`get_ffv1_library` raise
+:func:`get_vp9_library`, :func:`get_ffv1_library` and :func:`get_h264_library` raise
 ``RuntimeError``. A compile that fails, and a
 native read that fails, raise.
 """
@@ -64,7 +69,7 @@ import numpy as np
 
 __all__ = ["native_available", "get_library", "get_jpeg_library", "get_jpeg_encoder_library", "get_lzw_library",
            "get_webp_library", "get_webp_encoder_library", "get_mpeg4_library", "get_vp8_library", "get_vp9_library",
-           "get_ffv1_library", "read_bsq",
+           "get_ffv1_library", "get_h264_library", "read_bsq",
            "build_library"]
 
 _HERE = Path(__file__).resolve().parent
@@ -78,9 +83,10 @@ _MPEG4_SOURCE = _HERE / "mpeg4_decoder.cpp"
 _VP8_SOURCE = _HERE / "vp8_decoder.cpp"
 _VP9_SOURCE = _HERE / "vp9_decoder.cpp"
 _FFV1_SOURCE = _HERE / "ffv1_decoder.cpp"
+_H264_SOURCE = _HERE / "h264_decoder.cpp"
 _LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw",
                   _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder", _MPEG4_SOURCE: "mpeg4",
-                  _VP8_SOURCE: "vp8", _VP9_SOURCE: "vp9", _FFV1_SOURCE: "ffv1"}
+                  _VP8_SOURCE: "vp8", _VP9_SOURCE: "vp9", _FFV1_SOURCE: "ffv1", _H264_SOURCE: "h264"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}
@@ -211,6 +217,17 @@ def get_ffv1_library() -> ctypes.CDLL:
                                 "sr_ffv1_stream_plane": (_i64, [_ptr, _int, _ptr, _ptr]),
                                 "sr_ffv1_stream_stats": (_int, [_ptr, _ptr, _int]),
                                 "sr_yuv_to_bgr": (None, [_ptr] * 3 + [_int] * 9 + [_ptr])})
+
+
+def get_h264_library() -> ctypes.CDLL:
+    """The loaded H.264 video decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_H264_SOURCE, {"sr_h264_stream_new": (_ptr, [ctypes.c_char_p, _i64, ctypes.c_char_p, _int]),
+                                "sr_h264_stream_free": (None, [_ptr]),
+                                "sr_h264_stream_decode": (_int, [_ptr, ctypes.c_char_p, _i64, ctypes.c_char_p, _int]),
+                                "sr_h264_stream_size": (None, [_ptr, _ptr]),
+                                "sr_h264_stream_bgr": (None, [_ptr, _int, _ptr]),
+                                "sr_h264_stream_plane": (None, [_ptr, _int, _int, _ptr]),
+                                "sr_h264_stream_stats": (_int, [_ptr, _ptr, _int])})
 
 
 def native_available() -> bool:

@@ -1,0 +1,2012 @@
+// H.264 video (progressive 8-bit 4:2:0, CAVLC, I and P slices) for
+// super_resolution_tpu_torch.utils.h264, bound with ctypes: a stateful
+// decoder behind a handle, fed whole access units a call, as
+// cv2.VideoCapture's FFmpeg decodes them.
+//
+// Written from ITU-T Rec. H.264 (08/2021): NAL units from Annex B byte
+// streams or length-prefixed (an avcC record's lengthSizeMinusOne 0, 1 or 3),
+// emulation prevention removed; sequence and picture parameter sets with the
+// VUI; slice headers with reference list modification, explicit weighted
+// prediction and the decoded reference picture marking (sliding window, MMCO
+// 1-6, long-term references); CAVLC macroblocks of every I and P type; the
+// 4x4 inverse transform with the luma and chroma DC transforms at flat
+// scaling; intra 4x4, 16x16 and chroma prediction under slice and
+// constrained-intra availability; motion-vector prediction; luma 6-tap and
+// chroma bilinear interpolation with reference samples clamped to the
+// picture; the deblocking filter. Reconstruction is exactly specified, so the
+// frames are FFmpeg's wherever the stream conforms. Pictures are output in
+// decoding order, which is FFmpeg's wherever its picture order count (which
+// goes on across an MMCO 5) increases; a stream where it does not is refused.
+// The cropped frame is converted to BGR24 with swscale's arithmetic
+// (swscale_bgr.h) for the VUI's colour matrix and range, as cv2.VideoCapture
+// converts it.
+//
+// Refused by name (sr_h264_stream_decode returns -2): CABAC, B / SP / SI
+// slices, interlaced coding, the 8x8 transform, scaling matrices, another
+// chroma format than 4:2:0, more than 8 bits, lossless bypass, slice groups,
+// arbitrary slice order, redundant pictures, data partitioning, gaps in
+// frame_num, a size that changes mid-stream, a left crop, a colour
+// matrix other than BT.601, BT.709, FCC and SMPTE 240M,
+// no_output_of_prior_pics_flag, a stream that starts without an IDR picture
+// and a picture order count that does not increase. Damaged data raises
+// (returns -1) with what was wrong.
+//
+// C interface:
+//   void* sr_h264_stream_new(const uint8_t* config, int64_t size, char* err, int err_len)
+//     a decoder (null with err set when the avcC record is refused or damaged;
+//     size 0: Annex B); sr_h264_stream_free(h) ends it
+//   int sr_h264_stream_decode(void* h, const uint8_t* data, int64_t size, char* err, int err_len)
+//     decodes whole access units, one or more; returns the number of frames
+//     output, -1: corrupt data, -2: a refused feature (err names it)
+//   void sr_h264_stream_size(void* h, int32_t* width_height)   the cropped frame size
+//   void sr_h264_stream_bgr(void* h, int index, uint8_t* out)  output frame `index`, height x width x 3
+//   void sr_h264_stream_plane(void* h, int index, int plane, uint8_t* out)
+//     plane 0 / 1 / 2 (Y, U, V) of output frame `index`, cropped, its rows packed
+//   int sr_h264_stream_stats(void* h, int64_t* out, int n)
+//     the first n of the Stat counts; returns how many there are
+//
+// Build: g++ -O3 -shared -fPIC -std=c++17 h264_decoder.cpp -o <lib>.so
+// (native/__init__.py does this at first use, into
+// super_resolution_tpu_torch/_build/).
+
+#include <algorithm>
+#include <cstdint>
+#include <cstdlib>
+#include <cstring>
+#include <exception>
+#include <memory>
+#include <stdexcept>
+#include <string>
+#include <vector>
+
+#include "h264_tables.h"
+#include "swscale_bgr.h"
+
+namespace sr_h264 {
+
+struct Unsupported : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+struct Corrupt : std::runtime_error {
+  using std::runtime_error::runtime_error;
+};
+
+// The counts a stream's decode keeps (utils/h264.py names them in this order).
+enum Stat {
+  kPictures, kIdrPictures, kNonRefPictures, kSlices, kISlices, kPSlices, kMultiSlicePictures,
+  kINxN, kI16x16, kIPcm, kP16x16, kP16x8, kP8x16, kP8x8, kP8x8Ref0, kPSkip, kIntraInP,
+  kSub8x8, kSub8x4, kSub4x8, kSub4x4,
+  kI4Mode0, kI4Mode1, kI4Mode2, kI4Mode3, kI4Mode4, kI4Mode5, kI4Mode6, kI4Mode7, kI4Mode8,
+  kI16Mode0, kI16Mode1, kI16Mode2, kI16Mode3,
+  kChromaMode0, kChromaMode1, kChromaMode2, kChromaMode3,
+  kSkipRuns, kSkipMvNonzero, kRefIdxNonzero, kFarMv,
+  kWeightedSlices, kListModifications, kMmco1, kMmco2, kMmco3, kMmco4, kMmco5, kMmco6, kLongTermRefs,
+  kSlidingWindowRemovals, kDeblockIdc0, kDeblockIdc1, kDeblockIdc2, kDeblockOffsets, kConstrainedIntraSlices,
+  kPocType0, kPocType1, kPocType2, kLevelPrefix14, kLevelPrefix15, kQpWraps, kCroppedPictures,
+  kNumStats
+};
+
+inline int Clip3(int lo, int hi, int v) { return v < lo ? lo : v > hi ? hi : v; }
+inline uint8_t Clip1(int v) { return static_cast<uint8_t>(v < 0 ? 0 : v > 255 ? 255 : v); }
+inline int Median(int a, int b, int c) { return std::max(std::min(a, b), std::min(std::max(a, b), c)); }
+
+// ---------------------------------------------------------------------------------------------
+// NAL units and the RBSP bit reader
+
+std::vector<uint8_t> Unescape(const uint8_t* data, size_t size) {
+  std::vector<uint8_t> out;
+  out.reserve(size);
+  int zeros = 0;
+  for (size_t i = 0; i < size; ++i) {
+    const uint8_t b = data[i];
+    if (zeros >= 2 && b == 3) {
+      zeros = 0;
+      continue;  // emulation_prevention_three_byte
+    }
+    out.push_back(b);
+    zeros = b == 0 ? zeros + 1 : 0;
+  }
+  return out;
+}
+
+class BitReader {
+ public:
+  BitReader(const uint8_t* data, size_t size) : data_(data), size_(size) {
+    // The rbsp_stop_one_bit: the last set bit of the payload.
+    end_ = size * 8;
+    while (end_ > 0 && !((data_[(end_ - 1) >> 3] >> (7 - ((end_ - 1) & 7))) & 1)) --end_;
+    if (end_ > 0) --end_;
+  }
+  int Bit() {
+    if (pos_ >= size_ * 8) throw Corrupt("truncated NAL unit");
+    const int bit = (data_[pos_ >> 3] >> (7 - (pos_ & 7))) & 1;
+    ++pos_;
+    return bit;
+  }
+  uint32_t Bits(int n) {
+    uint32_t v = 0;
+    while (n--) v = (v << 1) | Bit();
+    return v;
+  }
+  uint32_t Ue() {
+    int zeros = 0;
+    while (!Bit()) {
+      if (++zeros > 31) throw Corrupt("Exp-Golomb code longer than 32 bits");
+    }
+    return zeros ? ((1u << zeros) - 1 + Bits(zeros)) : 0;
+  }
+  int Se() {
+    const uint32_t k = Ue();
+    return (k & 1) ? static_cast<int>((k + 1) / 2) : -static_cast<int>(k / 2);
+  }
+  int Peek(int n) const {  // the next n bits, zeros past the end
+    int v = 0;
+    for (int i = 0; i < n; ++i) {
+      const size_t p = pos_ + i;
+      v = (v << 1) | (p < size_ * 8 ? (data_[p >> 3] >> (7 - (p & 7))) & 1 : 0);
+    }
+    return v;
+  }
+  void Skip(int n) {
+    if (pos_ + n > size_ * 8) throw Corrupt("truncated slice data");
+    pos_ += n;
+  }
+  bool MoreRbspData() const { return pos_ < end_; }
+  bool Aligned() const { return (pos_ & 7) == 0; }
+  size_t Pos() const { return pos_; }
+  const uint8_t* Data() const { return data_; }
+  size_t Size() const { return size_; }
+
+ private:
+  const uint8_t* data_;
+  size_t size_;
+  size_t pos_ = 0, end_ = 0;
+};
+
+// ---------------------------------------------------------------------------------------------
+// Parameter sets
+
+struct Sps {
+  bool valid = false;
+  std::string unsupported;  // a feature this decoder refuses, named
+  int log2_max_frame_num = 4, poc_type = 0, log2_max_poc_lsb = 4;
+  bool delta_pic_order_always_zero = false;
+  int offset_for_non_ref_pic = 0, offset_for_top_to_bottom = 0;
+  std::vector<int> offset_for_ref_frame;
+  int max_num_ref_frames = 0;
+  int mb_width = 0, mb_height = 0;
+  int crop_left = 0, crop_right = 0, crop_top = 0, crop_bottom = 0;  // in luma samples
+  bool full_range = false;
+  int matrix = 2;  // matrix_coefficients: unspecified unless the VUI says
+};
+
+struct Pps {
+  bool valid = false;
+  std::string unsupported;
+  int sps_id = 0;
+  bool cabac = false, bottom_field_pic_order = false, weighted_pred = false, deblocking_control = false;
+  bool constrained_intra = false, redundant_pic_cnt = false;
+  int num_ref_idx_default = 1, pic_init_qp = 26, chroma_qp_offset = 0;
+};
+
+void SkipScalingList(BitReader& br, int size) {
+  int last = 8, next = 8;
+  for (int j = 0; j < size; ++j) {
+    if (next != 0) next = (last + br.Se() + 256) % 256;
+    last = next == 0 ? last : next;
+  }
+}
+
+Sps ParseSps(BitReader& br, int* id_out) {
+  Sps s;
+  const int p = br.Bits(8);  // profile_idc
+  br.Bits(16);               // constraint flags, level_idc
+  const uint32_t id = br.Ue();
+  if (id > 31) throw Corrupt("seq_parameter_set_id above 31");
+  *id_out = static_cast<int>(id);
+  if (p == 100 || p == 110 || p == 122 || p == 244 || p == 44 || p == 83 || p == 86 || p == 118 || p == 128 ||
+      p == 138 || p == 139 || p == 134 || p == 135) {
+    const int chroma_format = br.Ue();
+    if (chroma_format == 3 && br.Bit()) {
+      s.unsupported = "separate_colour_plane_flag 1";
+      return s;
+    }
+    if (chroma_format != 1) {
+      s.unsupported = "chroma_format_idc " + std::to_string(chroma_format) + " (only 4:2:0 is read)";
+      return s;
+    }
+    const int depth_luma = br.Ue() + 8, depth_chroma = br.Ue() + 8;
+    if (depth_luma != 8 || depth_chroma != 8) {
+      s.unsupported = "a bit depth of " + std::to_string(std::max(depth_luma, depth_chroma)) + " (above 8 bits)";
+      return s;
+    }
+    if (br.Bit()) {
+      s.unsupported = "qpprime_y_zero_transform_bypass_flag 1 (lossless bypass)";
+      return s;
+    }
+    if (br.Bit()) {
+      s.unsupported = "scaling matrices in the SPS (seq_scaling_matrix_present_flag)";
+      return s;
+    }
+  }
+  s.log2_max_frame_num = br.Ue() + 4;
+  if (s.log2_max_frame_num > 16) throw Corrupt("log2_max_frame_num_minus4 above 12");
+  s.poc_type = br.Ue();
+  if (s.poc_type == 0) {
+    s.log2_max_poc_lsb = br.Ue() + 4;
+    if (s.log2_max_poc_lsb > 16) throw Corrupt("log2_max_pic_order_cnt_lsb_minus4 above 12");
+  } else if (s.poc_type == 1) {
+    s.delta_pic_order_always_zero = br.Bit();
+    s.offset_for_non_ref_pic = br.Se();
+    s.offset_for_top_to_bottom = br.Se();
+    const uint32_t n = br.Ue();
+    if (n > 255) throw Corrupt("num_ref_frames_in_pic_order_cnt_cycle above 255");
+    for (uint32_t i = 0; i < n; ++i) s.offset_for_ref_frame.push_back(br.Se());
+  } else if (s.poc_type != 2) {
+    throw Corrupt("pic_order_cnt_type above 2");
+  }
+  s.max_num_ref_frames = br.Ue();
+  if (s.max_num_ref_frames > 16) throw Corrupt("max_num_ref_frames above 16");
+  br.Bit();  // gaps_in_frame_num_value_allowed_flag: a gap is refused either way
+  s.mb_width = br.Ue() + 1;
+  s.mb_height = br.Ue() + 1;
+  if (s.mb_width > 1024 || s.mb_height > 1024) throw Corrupt("picture size above 16384 samples");
+  if (!br.Bit()) {
+    s.unsupported = "frame_mbs_only_flag 0 (interlaced coding: field pictures or MBAFF)";
+    return s;
+  }
+  br.Bit();  // direct_8x8_inference_flag
+  if (br.Bit()) {
+    s.crop_left = 2 * br.Ue();
+    s.crop_right = 2 * br.Ue();
+    s.crop_top = 2 * br.Ue();
+    s.crop_bottom = 2 * br.Ue();
+    if (s.crop_left + s.crop_right >= 16 * s.mb_width || s.crop_top + s.crop_bottom >= 16 * s.mb_height)
+      throw Corrupt("frame cropping removes the whole picture");
+  }
+  if (br.Bit()) {  // vui_parameters
+    if (br.Bit() && br.Bits(8) == 255) br.Bits(32);  // aspect_ratio_info, Extended_SAR
+    if (br.Bit()) br.Bit();                            // overscan
+    if (br.Bit()) {                                    // video_signal_type_present_flag
+      br.Bits(3);
+      s.full_range = br.Bit();
+      if (br.Bit()) {  // colour_description: primaries, transfer, matrix
+        br.Bits(16);
+        s.matrix = br.Bits(8);
+      }
+    }
+    // chroma_loc_info, timing, HRD and bitstream_restriction follow: nothing this decoder reads.
+  }
+  s.valid = true;
+  return s;
+}
+
+Pps ParsePps(BitReader& br, int* id_out) {
+  Pps p;
+  const uint32_t id = br.Ue();
+  if (id > 255) throw Corrupt("pic_parameter_set_id above 255");
+  *id_out = static_cast<int>(id);
+  p.sps_id = br.Ue();
+  if (p.sps_id > 31) throw Corrupt("seq_parameter_set_id above 31");
+  p.cabac = br.Bit();
+  p.bottom_field_pic_order = br.Bit();
+  const uint32_t groups = br.Ue() + 1;
+  if (groups > 1) {
+    p.unsupported = "slice groups (FMO, num_slice_groups_minus1 " + std::to_string(groups - 1) + ")";
+    return p;
+  }
+  p.num_ref_idx_default = br.Ue() + 1;
+  br.Ue();  // num_ref_idx_l1_default_active_minus1
+  if (p.num_ref_idx_default > 32) throw Corrupt("num_ref_idx_l0_default_active_minus1 above 31");
+  p.weighted_pred = br.Bit();
+  br.Bits(2);  // weighted_bipred_idc
+  p.pic_init_qp = 26 + br.Se();
+  br.Se();  // pic_init_qs_minus26
+  p.chroma_qp_offset = br.Se();
+  if (p.pic_init_qp < 0 || p.pic_init_qp > 51 || p.chroma_qp_offset < -12 || p.chroma_qp_offset > 12)
+    throw Corrupt("pic_init_qp or chroma_qp_index_offset out of range");
+  p.deblocking_control = br.Bit();
+  p.constrained_intra = br.Bit();
+  p.redundant_pic_cnt = br.Bit();
+  if (br.MoreRbspData()) {
+    if (br.Bit()) {
+      p.unsupported = "transform_8x8_mode_flag 1 (the 8x8 transform)";
+      return p;
+    }
+    if (br.Bit()) {
+      p.unsupported = "scaling matrices in the PPS (pic_scaling_matrix_present_flag)";
+      return p;
+    }
+    const int second = br.Se();
+    if (second != p.chroma_qp_offset) {
+      p.unsupported = "second_chroma_qp_index_offset unlike chroma_qp_index_offset";
+      return p;
+    }
+  }
+  p.valid = true;
+  return p;
+}
+
+// ---------------------------------------------------------------------------------------------
+// Pictures
+
+struct Picture {
+  int id = 0;
+  sr_yuv::Coefficients colour{};  // the unscaled converter's, from the VUI's matrix and range
+  int width = 0, height = 0;  // coded, in luma samples
+  std::vector<uint8_t> y, u, v;
+  int frame_num = 0, frame_num_wrap = 0;
+  int64_t poc = 0;  // as FFmpeg counts it
+  bool short_ref = false, long_ref = false;
+  int long_idx = -1;
+  const uint8_t* Plane(int c) const { return c == 0 ? y.data() : c == 1 ? u.data() : v.data(); }
+  uint8_t* Plane(int c) { return c == 0 ? y.data() : c == 1 ? u.data() : v.data(); }
+  int Stride(int c) const { return c == 0 ? width : width / 2; }
+};
+using PicturePtr = std::shared_ptr<Picture>;
+
+enum MbKind : uint8_t { kMbI4x4, kMbI16x16, kMbPcm, kMbInter, kMbSkip };
+
+struct MbInfo {
+  int slice = -1;  // index of the slice of the current picture that decoded it; -1: not decoded
+  MbKind kind = kMbSkip;
+  int qp = 0;            // QPY
+  uint8_t nz[24] = {};   // total_coeff: luma 4x4 in raster order, then Cb and Cr 2x2
+  int8_t i4[16] = {};    // Intra4x4PredMode in raster order (2 where the MB is not I_NxN)
+  bool Intra() const { return kind == kMbI4x4 || kind == kMbI16x16 || kind == kMbPcm; }
+};
+
+struct SliceInfo {
+  int deblock_idc = 0, alpha_offset = 0, beta_offset = 0, chroma_qp_offset = 0;
+  bool constrained_intra = false;
+};
+
+struct Weight {
+  int luma_w = 1, luma_o = 0, chroma_w[2] = {1, 1}, chroma_o[2] = {0, 0};
+  bool luma = false, chroma = false;
+};
+
+struct Mmco {
+  int op = 0, diff = 0, long_num = 0, long_idx = 0, max_idx = 0;
+};
+
+// ---------------------------------------------------------------------------------------------
+// The decoder
+
+class Decoder {
+ public:
+  explicit Decoder(const uint8_t* config, size_t size) {
+    if (size == 0) return;
+    if (size < 7 || config[0] != 1) throw Corrupt("avcC record without configurationVersion 1");
+    const int length_size = (config[4] & 3) + 1;
+    if (length_size == 3) throw Corrupt("avcC lengthSizeMinusOne 2");
+    length_size_ = length_size;
+    size_t pos = 5;
+    for (int set = 0; set < 2; ++set) {
+      if (pos >= size) throw Corrupt("truncated avcC record");
+      const int count = set == 0 ? (config[pos] & 31) : config[pos];
+      ++pos;
+      for (int i = 0; i < count; ++i) {
+        if (pos + 2 > size) throw Corrupt("truncated avcC record");
+        const size_t len = (config[pos] << 8) | config[pos + 1];
+        pos += 2;
+        if (pos + len > size) throw Corrupt("truncated avcC parameter set");
+        Nal(config + pos, len);
+        pos += len;
+      }
+    }
+    // A configuration that announces a refused stream is refused before its first frame.
+    for (const Sps& s : sps_)
+      if (!s.unsupported.empty()) throw Unsupported(s.unsupported);
+    for (const Pps& p : pps_) {
+      if (!p.unsupported.empty()) throw Unsupported(p.unsupported);
+      if (p.valid && p.cabac) throw Unsupported("CABAC (entropy_coding_mode_flag 1)");
+    }
+  }
+
+  int Decode(const uint8_t* data, size_t size) {
+    output_.clear();
+    if (length_size_ == 0) {
+      // Annex B: NAL units between start codes (two or more zero bytes, then a one).
+      size_t i = 0, start = SIZE_MAX;
+      while (i + 2 < size) {
+        if (data[i] == 0 && data[i + 1] == 0 && data[i + 2] == 1) {
+          if (start != SIZE_MAX) NalTrimmed(data + start, i - start);
+          i += 3;
+          start = i;
+        } else {
+          ++i;
+        }
+      }
+      if (start != SIZE_MAX && start < size) NalTrimmed(data + start, size - start);
+    } else {
+      size_t pos = 0;
+      while (pos < size) {
+        if (pos + length_size_ > size) throw Corrupt("truncated NAL unit length");
+        size_t len = 0;
+        for (int k = 0; k < length_size_; ++k) len = (len << 8) | data[pos + k];
+        pos += length_size_;
+        if (pos + len > size) throw Corrupt("NAL unit runs past its payload");
+        Nal(data + pos, len);
+        pos += len;
+      }
+    }
+    if (cur_) FinishPicture();  // a call holds whole access units; each picture is output as it finishes
+    return static_cast<int>(output_.size());
+  }
+
+  int width() const { return out_width_; }
+  int height() const { return out_height_; }
+  const Picture& output(int i) const { return *output_.at(i); }
+  const int64_t* stats() const { return stats_; }
+  int crop_left() const { return crop_left_; }
+  int crop_top() const { return crop_top_; }
+
+ private:
+  // ---- NAL units
+  void NalTrimmed(const uint8_t* data, size_t size) {
+    while (size > 0 && data[size - 1] == 0) --size;  // trailing_zero_8bits and the next start code's zeros
+    if (size) Nal(data, size);
+  }
+
+  void Nal(const uint8_t* data, size_t size) {
+    if (size == 0) return;
+    if (data[0] & 0x80) throw Corrupt("NAL unit with forbidden_zero_bit set");
+    const int ref_idc = (data[0] >> 5) & 3, type = data[0] & 31;
+    switch (type) {
+      case 1:
+      case 5: {
+        std::vector<uint8_t> rbsp = Unescape(data + 1, size - 1);
+        Slice(rbsp, ref_idc, type == 5);
+        break;
+      }
+      case 2:
+      case 3:
+      case 4:
+        throw Unsupported("data partitioning (NAL unit type " + std::to_string(type) + ")");
+      case 7: {
+        std::vector<uint8_t> rbsp = Unescape(data + 1, size - 1);
+        BitReader br(rbsp.data(), rbsp.size());
+        int id = 0;
+        Sps s = ParseSps(br, &id);
+        sps_[id] = s;
+        break;
+      }
+      case 8: {
+        std::vector<uint8_t> rbsp = Unescape(data + 1, size - 1);
+        BitReader br(rbsp.data(), rbsp.size());
+        int id = 0;
+        Pps p = ParsePps(br, &id);
+        pps_[id] = p;
+        break;
+      }
+      default:
+        break;  // SEI, AUD, end of sequence / stream, filler, SPS extension, prefix / subset SPS / extension
+                // NAL units of other layers, and the reserved types: what FFmpeg skips for the base layer
+    }
+  }
+
+  // ---- slice header
+  struct Header {
+    int first_mb = 0, type = 0, pps_id = 0, frame_num = 0, poc_lsb = 0;
+    int delta_poc_bottom = 0, delta_poc[2] = {0, 0}, num_ref = 1, qp = 26;
+    int deblock_idc = 0, alpha_offset = 0, beta_offset = 0;
+    int luma_log2 = 0, chroma_log2 = 0;
+    bool idr = false, long_term_reference = false, adaptive = false, weighted = false;
+    int ref_idc = 0;
+    std::vector<std::pair<int, int>> modifications;
+    std::vector<Weight> weights;
+    std::vector<Mmco> mmco;
+  };
+
+  void Slice(const std::vector<uint8_t>& rbsp, int ref_idc, bool idr) {
+    BitReader br(rbsp.data(), rbsp.size());
+    Header h;
+    h.idr = idr;
+    h.ref_idc = ref_idc;
+    h.first_mb = br.Ue();
+    const uint32_t slice_type = br.Ue();
+    if (slice_type > 9) throw Corrupt("slice_type above 9");
+    h.type = slice_type % 5;
+    if (h.type == 1) throw Unsupported("B slices");
+    if (h.type == 3) throw Unsupported("SP slices");
+    if (h.type == 4) throw Unsupported("SI slices");
+    if (idr && h.type != 2) throw Corrupt("an IDR picture with a P slice");
+    h.pps_id = br.Ue();
+    if (h.pps_id > 255 || !pps_[h.pps_id].valid) {
+      if (h.pps_id <= 255 && !pps_[h.pps_id].unsupported.empty())
+        throw Unsupported(pps_[h.pps_id].unsupported);
+      throw Corrupt("slice refers to a missing picture parameter set");
+    }
+    const Pps& pps = pps_[h.pps_id];
+    const Sps& sps = sps_[pps.sps_id];
+    if (!sps.valid) {
+      if (!sps.unsupported.empty()) throw Unsupported(sps.unsupported);
+      throw Corrupt("slice refers to a missing sequence parameter set");
+    }
+    if (pps.cabac) throw Unsupported("CABAC (entropy_coding_mode_flag 1)");
+    h.frame_num = br.Bits(sps.log2_max_frame_num);
+    if (idr) br.Ue();  // idr_pic_id
+    if (sps.poc_type == 0) {
+      h.poc_lsb = br.Bits(sps.log2_max_poc_lsb);
+      if (pps.bottom_field_pic_order) h.delta_poc_bottom = br.Se();
+    } else if (sps.poc_type == 1 && !sps.delta_pic_order_always_zero) {
+      h.delta_poc[0] = br.Se();
+      if (pps.bottom_field_pic_order) h.delta_poc[1] = br.Se();
+    }
+    if (pps.redundant_pic_cnt && br.Ue() > 0) throw Unsupported("redundant pictures (redundant_pic_cnt above 0)");
+    h.num_ref = pps.num_ref_idx_default;
+    if (h.type == 0) {
+      if (br.Bit()) h.num_ref = br.Ue() + 1;
+      if (h.num_ref > 16) throw Corrupt("num_ref_idx_l0_active_minus1 above 15");
+      if (br.Bit()) {  // ref_pic_list_modification_flag_l0
+        for (;;) {
+          const uint32_t idc = br.Ue();
+          if (idc == 3) break;
+          if (idc > 3) throw Corrupt("modification_of_pic_nums_idc above 3");
+          h.modifications.emplace_back(static_cast<int>(idc), static_cast<int>(br.Ue()));
+          if (h.modifications.size() > 32) throw Corrupt("more than 32 reference list modifications");
+        }
+      }
+      if (pps.weighted_pred) {
+        h.weighted = true;
+        h.luma_log2 = br.Ue();
+        h.chroma_log2 = br.Ue();
+        if (h.luma_log2 > 7 || h.chroma_log2 > 7) throw Corrupt("log2 weight denominator above 7");
+        h.weights.resize(h.num_ref);
+        for (int i = 0; i < h.num_ref; ++i) {
+          Weight& w = h.weights[i];
+          w.luma_w = 1 << h.luma_log2;
+          w.chroma_w[0] = w.chroma_w[1] = 1 << h.chroma_log2;
+          if (br.Bit()) {
+            w.luma = true;
+            w.luma_w = br.Se();
+            w.luma_o = br.Se();
+          }
+          if (br.Bit()) {
+            w.chroma = true;
+            for (int j = 0; j < 2; ++j) {
+              w.chroma_w[j] = br.Se();
+              w.chroma_o[j] = br.Se();
+            }
+          }
+          auto out = [](int v) { return v < -128 || v > 127; };
+          if ((w.luma && (out(w.luma_w) || out(w.luma_o))) ||
+              (w.chroma && (out(w.chroma_w[0]) || out(w.chroma_o[0]) || out(w.chroma_w[1]) || out(w.chroma_o[1]))))
+            throw Corrupt("prediction weight or offset out of range");
+        }
+      }
+    }
+    if (ref_idc) {
+      if (idr) {
+        if (br.Bit()) throw Unsupported("no_output_of_prior_pics_flag 1");
+        h.long_term_reference = br.Bit();
+      } else {
+        h.adaptive = br.Bit();
+        if (h.adaptive) {
+          for (;;) {
+            Mmco m;
+            m.op = br.Ue();
+            if (m.op == 0) break;
+            if (m.op > 6) throw Corrupt("memory_management_control_operation above 6");
+            if (m.op == 1 || m.op == 3) m.diff = br.Ue() + 1;
+            if (m.op == 2) m.long_num = br.Ue();
+            if (m.op == 3 || m.op == 6) m.long_idx = br.Ue();
+            if (m.op == 4) m.max_idx = br.Ue();
+            h.mmco.push_back(m);
+            if (h.mmco.size() > 66) throw Corrupt("more than 66 memory management operations");
+          }
+        }
+      }
+    }
+    h.qp = pps.pic_init_qp + br.Se();
+    if (h.qp < 0 || h.qp > 51) throw Corrupt("slice QP out of range");
+    if (pps.deblocking_control) {
+      h.deblock_idc = br.Ue();
+      if (h.deblock_idc > 2) throw Corrupt("disable_deblocking_filter_idc above 2");
+      if (h.deblock_idc != 1) {
+        h.alpha_offset = 2 * br.Se();
+        h.beta_offset = 2 * br.Se();
+        if (h.alpha_offset < -12 || h.alpha_offset > 12 || h.beta_offset < -12 || h.beta_offset > 12)
+          throw Corrupt("deblocking filter offset out of range");
+      }
+    }
+
+    if (h.first_mb == 0 && cur_) FinishPicture();
+    if (!cur_) {
+      if (h.first_mb != 0) {
+        if (!seen_idr_) throw Corrupt("a slice before the first IDR picture");
+        throw Unsupported("arbitrary slice order (a picture's first slice does not start at macroblock 0)");
+      }
+      StartPicture(h, sps, pps);
+    } else {
+      if (h.first_mb < next_mb_) throw Unsupported("arbitrary slice order (first_mb_in_slice goes back)");
+      if (h.first_mb > next_mb_) throw Corrupt("macroblocks missing between slices");
+      if (h.frame_num != cur_header_.frame_num || h.idr != cur_header_.idr || h.pps_id != cur_header_.pps_id)
+        throw Corrupt("slices of one picture disagree on frame_num, IDR or PPS");
+      if (sps_index_ != pps.sps_id) throw Corrupt("slices of one picture use two sequence parameter sets");
+    }
+    ++stats_[kSlices];
+    ++stats_[h.type == 2 ? kISlices : kPSlices];
+    ++stats_[kDeblockIdc0 + h.deblock_idc];
+    if (h.deblock_idc != 1 && (h.alpha_offset || h.beta_offset)) ++stats_[kDeblockOffsets];
+    if (pps.constrained_intra) ++stats_[kConstrainedIntraSlices];
+    if (h.weighted) ++stats_[kWeightedSlices];
+    stats_[kListModifications] += static_cast<int64_t>(h.modifications.size());
+
+    SliceInfo info;
+    info.deblock_idc = h.deblock_idc;
+    info.alpha_offset = h.alpha_offset;
+    info.beta_offset = h.beta_offset;
+    info.chroma_qp_offset = pps.chroma_qp_offset;
+    info.constrained_intra = pps.constrained_intra;
+    slices_.push_back(info);
+    slice_ = static_cast<int>(slices_.size()) - 1;
+    if (slice_ == 1) ++stats_[kMultiSlicePictures];
+    if (h.type == 0) BuildRefList(h);
+    header_ = h;
+    SliceData(br, h, pps);
+  }
+
+  // ---- pictures
+  void StartPicture(const Header& h, const Sps& sps, const Pps& pps) {
+    if (!h.idr && !seen_idr_) {
+      if (h.type == 2) throw Unsupported("a stream that starts without an IDR picture");
+      throw Corrupt("a P slice before the first IDR picture");
+    }
+    const int width = 16 * sps.mb_width, height = 16 * sps.mb_height;
+    if (sps.crop_left)
+      throw Unsupported("a left crop (frame_crop_left_offset " + std::to_string(sps.crop_left / 2) + ")");
+    if (!sr_yuv::MatrixTable(sps.matrix))
+      throw Unsupported("matrix_coefficients " + std::to_string(sps.matrix) +
+                        " (BT.601, BT.709, FCC and SMPTE 240M are converted)");
+    if (width_ && (width != width_ || height != height_ || sps.crop_right != crop_right_ ||
+                   sps.crop_top != crop_top_ || sps.crop_bottom != crop_bottom_))
+      throw Unsupported("a picture size that changes mid-stream");
+    width_ = width, height_ = height, mb_width_ = sps.mb_width, mb_height_ = sps.mb_height;
+    crop_left_ = sps.crop_left, crop_right_ = sps.crop_right, crop_top_ = sps.crop_top, crop_bottom_ = sps.crop_bottom;
+    out_width_ = width - sps.crop_left - sps.crop_right;
+    out_height_ = height - sps.crop_top - sps.crop_bottom;
+    sps_index_ = pps.sps_id;
+    const int max_frame_num = 1 << sps.log2_max_frame_num;
+    if (h.idr) {
+      for (auto& r : dpb_) r->short_ref = r->long_ref = false;
+      dpb_.clear();
+      prev_ref_frame_num_ = 0;
+      max_long_idx_ = -1;
+      prev_poc_msb_ = 1 << 16, prev_poc_lsb_ = -1;  // FFmpeg's idr()
+      prev_frame_num_offset_ = 0;
+      prev_frame_num_ = 0;
+      seen_idr_ = true;
+    } else if (h.frame_num != prev_ref_frame_num_ && h.frame_num != (prev_ref_frame_num_ + 1) % max_frame_num) {
+      throw Unsupported("gaps in frame_num (" + std::to_string(prev_ref_frame_num_) + " then " +
+                        std::to_string(h.frame_num) + ")");
+    }
+    cur_ = std::make_shared<Picture>();
+    cur_->id = ++picture_ids_;
+    cur_->width = width, cur_->height = height;
+    cur_->y.assign(static_cast<size_t>(width) * height, 0);
+    cur_->u.assign(static_cast<size_t>(width / 2) * (height / 2), 0);
+    cur_->v.assign(cur_->u.size(), 0);
+    cur_->frame_num = h.frame_num;
+    cur_->colour = sr_yuv::SimdCoefficients(sr_yuv::MatrixTable(sps.matrix), sps.full_range);
+    cur_header_ = h;
+    mbs_.assign(static_cast<size_t>(mb_width_) * mb_height_, MbInfo());
+    const size_t blocks = static_cast<size_t>(mb_width_) * mb_height_ * 16;
+    mv_.assign(blocks * 2, 0);
+    ref_.assign(blocks, -1);
+    refpic_.assign(blocks, 0);
+    slices_.clear();
+    next_mb_ = 0;
+    // Picture order count as FFmpeg derives it (ff_h264_init_poc): 8.2.1, except that after an MMCO 5 it goes on
+    // from the previous reference picture's counts as they were. Where it increases, FFmpeg outputs the pictures
+    // in decoding order, as this decoder does, however many frames it holds back (its reorder delay grows with the
+    // steps it sees, and with its frame threads); elsewhere FFmpeg reorders or drops pictures depending on that
+    // delay, so such a stream is refused.
+    int frame_num_offset = prev_frame_num_offset_ + (h.frame_num < prev_frame_num_ ? max_frame_num : 0);
+    int64_t top = 0, bottom = 0;
+    if (sps.poc_type == 0) {
+      const int max_lsb = 1 << sps.log2_max_poc_lsb;
+      if (prev_poc_lsb_ < 0) prev_poc_lsb_ = h.poc_lsb;
+      int msb = prev_poc_msb_;
+      if (h.poc_lsb < prev_poc_lsb_ && prev_poc_lsb_ - h.poc_lsb >= max_lsb / 2)
+        msb += max_lsb;
+      else if (h.poc_lsb > prev_poc_lsb_ && prev_poc_lsb_ - h.poc_lsb < -max_lsb / 2)
+        msb -= max_lsb;
+      cur_poc_msb_ = msb;
+      top = msb + h.poc_lsb;
+      bottom = top + h.delta_poc_bottom;
+    } else if (sps.poc_type == 1) {
+      const int cycle = static_cast<int>(sps.offset_for_ref_frame.size());
+      int abs_frame_num = cycle ? frame_num_offset + h.frame_num : 0;
+      if (h.ref_idc == 0 && abs_frame_num > 0) --abs_frame_num;
+      int64_t expected = 0, delta_cycle = 0;
+      for (int o : sps.offset_for_ref_frame) delta_cycle += o;
+      if (abs_frame_num > 0) {
+        expected = static_cast<int64_t>((abs_frame_num - 1) / cycle) * delta_cycle;
+        for (int i = 0; i <= (abs_frame_num - 1) % cycle; ++i) expected += sps.offset_for_ref_frame[i];
+      }
+      if (h.ref_idc == 0) expected += sps.offset_for_non_ref_pic;
+      top = expected + h.delta_poc[0];
+      bottom = top + sps.offset_for_top_to_bottom + h.delta_poc[1];
+    } else {
+      top = bottom = 2 * (static_cast<int64_t>(frame_num_offset) + h.frame_num) - (h.ref_idc == 0);
+    }
+    cur_frame_num_offset_ = frame_num_offset;
+    cur_->poc = std::min(top, bottom);
+    if (!h.idr && cur_->poc <= last_poc_)
+      throw Unsupported("a picture order count that does not increase in decoding order (" +
+                        std::to_string(last_poc_) + " then " + std::to_string(cur_->poc) +
+                        " as FFmpeg counts: its output order then depends on its thread count)");
+    ++stats_[kPocType0 + sps.poc_type];
+    cur_max_frame_num_ = max_frame_num;
+    cur_max_refs_ = std::max(sps.max_num_ref_frames, 1);
+  }
+
+  void FinishPicture() {
+    if (next_mb_ != mb_width_ * mb_height_) throw Corrupt("a picture whose slices leave macroblocks undecoded");
+    Deblock();
+    const Header& h = cur_header_;
+    ++stats_[kPictures];
+    if (h.idr) ++stats_[kIdrPictures];
+    if (!h.ref_idc) ++stats_[kNonRefPictures];
+    if (crop_right_ || crop_top_ || crop_bottom_) ++stats_[kCroppedPictures];
+    if (h.ref_idc && MarkReferences(h)) {
+      prev_ref_frame_num_ = 0;  // MMCO 5: frame_num starts over
+    } else if (h.ref_idc) {
+      prev_ref_frame_num_ = h.frame_num;
+    }
+    // FFmpeg's ff_h264_field_end: the counts the next picture's POC starts from (frame_num 0 after an MMCO 5).
+    if (h.ref_idc) prev_poc_msb_ = cur_poc_msb_, prev_poc_lsb_ = h.poc_lsb;
+    prev_frame_num_offset_ = cur_frame_num_offset_;
+    prev_frame_num_ = cur_->frame_num;
+    last_poc_ = cur_->poc;
+    output_.push_back(cur_);
+    cur_.reset();
+  }
+
+  // ---- reference marking (8.2.5)
+  void UpdateWraps(int frame_num) {
+    for (auto& r : dpb_) {
+      if (r->short_ref) r->frame_num_wrap = r->frame_num > frame_num ? r->frame_num - cur_max_frame_num_ : r->frame_num;
+    }
+  }
+
+  void Prune() {
+    auto unused = [](const PicturePtr& p) { return !p->short_ref && !p->long_ref; };
+    dpb_.erase(std::remove_if(dpb_.begin(), dpb_.end(), unused), dpb_.end());
+  }
+
+  PicturePtr ShortByPicNum(int pic_num) {
+    for (auto& r : dpb_)
+      if (r->short_ref && r->frame_num_wrap == pic_num) return r;
+    return nullptr;
+  }
+  PicturePtr LongByIdx(int idx) {
+    for (auto& r : dpb_)
+      if (r->long_ref && r->long_idx == idx) return r;
+    return nullptr;
+  }
+
+  bool MarkReferences(const Header& h) {
+    bool mmco5 = false, current_long = false;
+    UpdateWraps(h.frame_num);
+    if (h.idr) {
+      if (h.long_term_reference) {
+        cur_->long_ref = true;
+        cur_->long_idx = 0;
+        max_long_idx_ = 0;
+        current_long = true;
+        ++stats_[kLongTermRefs];
+      } else {
+        max_long_idx_ = -1;
+      }
+    } else if (!h.adaptive) {
+      int count = 0;
+      for (auto& r : dpb_) count += r->short_ref || r->long_ref;
+      if (count >= cur_max_refs_) {
+        PicturePtr oldest;
+        for (auto& r : dpb_)
+          if (r->short_ref && (!oldest || r->frame_num_wrap < oldest->frame_num_wrap)) oldest = r;
+        if (!oldest) throw Corrupt("sliding window with no short-term reference to remove");
+        oldest->short_ref = false;
+        ++stats_[kSlidingWindowRemovals];
+      }
+    } else {
+      const int curr_pic_num = h.frame_num;
+      for (const Mmco& m : h.mmco) {
+        ++stats_[kMmco1 + m.op - 1];
+        switch (m.op) {
+          case 1: {
+            PicturePtr p = ShortByPicNum(curr_pic_num - m.diff);
+            if (!p) throw Corrupt("MMCO 1 names no short-term reference");
+            p->short_ref = false;
+            break;
+          }
+          case 2: {
+            PicturePtr p = LongByIdx(m.long_num);
+            if (!p) throw Corrupt("MMCO 2 names no long-term reference");
+            p->long_ref = false;
+            break;
+          }
+          case 3: {
+            PicturePtr p = ShortByPicNum(curr_pic_num - m.diff);
+            if (!p) throw Corrupt("MMCO 3 names no short-term reference");
+            if (m.long_idx > max_long_idx_) throw Corrupt("MMCO 3 past MaxLongTermFrameIdx");
+            PicturePtr old = LongByIdx(m.long_idx);
+            if (old && old != p) old->long_ref = false;
+            p->short_ref = false;
+            p->long_ref = true;
+            p->long_idx = m.long_idx;
+            ++stats_[kLongTermRefs];
+            break;
+          }
+          case 4:
+            max_long_idx_ = m.max_idx - 1;
+            for (auto& r : dpb_)
+              if (r->long_ref && r->long_idx > max_long_idx_) r->long_ref = false;
+            break;
+          case 5:
+            for (auto& r : dpb_) r->short_ref = r->long_ref = false;
+            max_long_idx_ = -1;
+            mmco5 = true;
+            break;
+          case 6: {
+            if (m.long_idx > max_long_idx_) throw Corrupt("MMCO 6 past MaxLongTermFrameIdx");
+            PicturePtr old = LongByIdx(m.long_idx);
+            if (old) old->long_ref = false;
+            cur_->long_ref = true;
+            cur_->long_idx = m.long_idx;
+            current_long = true;
+            ++stats_[kLongTermRefs];
+            break;
+          }
+        }
+      }
+    }
+    Prune();
+    if (!current_long) cur_->short_ref = true;
+    if (mmco5) cur_->frame_num = 0;
+    dpb_.push_back(cur_);
+    int count = 0;
+    for (auto& r : dpb_) count += r->short_ref || r->long_ref;
+    if (count > cur_max_refs_) throw Corrupt("more reference frames than max_num_ref_frames");
+    return mmco5;
+  }
+
+  // ---- reference list (8.2.4)
+  void BuildRefList(const Header& h) {
+    UpdateWraps(h.frame_num);
+    std::vector<PicturePtr> shorts, longs;
+    for (auto& r : dpb_) {
+      if (r->short_ref) shorts.push_back(r);
+      if (r->long_ref) longs.push_back(r);
+    }
+    std::sort(shorts.begin(), shorts.end(),
+              [](const PicturePtr& a, const PicturePtr& b) { return a->frame_num_wrap > b->frame_num_wrap; });
+    std::sort(longs.begin(), longs.end(),
+              [](const PicturePtr& a, const PicturePtr& b) { return a->long_idx < b->long_idx; });
+    std::vector<PicturePtr> list(shorts);
+    list.insert(list.end(), longs.begin(), longs.end());
+    if (static_cast<int>(list.size()) > h.num_ref) list.resize(h.num_ref);  // extra entries are discarded
+    list.resize(h.num_ref + 1);  // empty entries, and one spare for the modification process
+    int pred = h.frame_num, ref_idx = 0;
+    const int max_pic_num = cur_max_frame_num_;
+    for (const auto& [idc, value] : h.modifications) {
+      PicturePtr pic;
+      bool is_long = false;
+      int num = 0;
+      if (idc < 2) {
+        const int abs_diff = value + 1;
+        if (abs_diff > max_pic_num) throw Corrupt("abs_diff_pic_num_minus1 out of range");
+        int no_wrap = idc == 0 ? pred - abs_diff : pred + abs_diff;
+        if (no_wrap < 0) no_wrap += max_pic_num;
+        if (no_wrap >= max_pic_num) no_wrap -= max_pic_num;
+        pred = no_wrap;
+        num = no_wrap > h.frame_num ? no_wrap - max_pic_num : no_wrap;
+        pic = ShortByPicNum(num);
+      } else {
+        is_long = true;
+        num = value;
+        pic = LongByIdx(value);
+      }
+      if (!pic) throw Corrupt("reference list modification names a missing picture");
+      if (ref_idx >= h.num_ref) throw Corrupt("more reference list modifications than entries");
+      for (int c = h.num_ref; c > ref_idx; --c) list[c] = list[c - 1];
+      list[ref_idx++] = pic;
+      int n = ref_idx;
+      for (int c = ref_idx; c <= h.num_ref; ++c) {
+        const PicturePtr& e = list[c];
+        const bool same =
+            e && (is_long ? (e->long_ref && e->long_idx == num) : (e->short_ref && e->frame_num_wrap == num));
+        if (!same) list[n++] = list[c];
+      }
+    }
+    list.resize(h.num_ref);
+    ref_list_ = list;
+  }
+
+  // ---- slice data (7.3.4)
+  void SliceData(BitReader& br, const Header& h, const Pps& pps) {
+    int qp = h.qp;
+    int mb = h.first_mb;
+    const int total = mb_width_ * mb_height_;
+    bool more = true;
+    if (mb >= total) throw Corrupt("first_mb_in_slice past the picture");
+    while (more) {
+      if (h.type == 0) {
+        const uint32_t run = br.Ue();
+        if (run > static_cast<uint32_t>(total - mb)) throw Corrupt("mb_skip_run past the picture");
+        if (run) ++stats_[kSkipRuns];
+        for (uint32_t i = 0; i < run; ++i) SkipMb(mb++, qp);
+        if (run) {
+          more = br.MoreRbspData();
+          if (!more) break;
+        }
+        if (mb >= total) throw Corrupt("slice data past the picture");
+      }
+      Macroblock(br, h, pps, mb++, &qp);
+      more = br.MoreRbspData();
+      if (more && mb >= total) throw Corrupt("slice data past the picture");
+    }
+    next_mb_ = mb;
+  }
+
+  // ---- neighbours
+  const MbInfo* MbAt(int mbx, int mby) const {  // available: in the picture and in the current slice
+    if (mbx < 0 || mby < 0 || mbx >= mb_width_ || mby >= mb_height_) return nullptr;
+    const MbInfo& m = mbs_[static_cast<size_t>(mby) * mb_width_ + mbx];
+    return m.slice == slice_ ? &m : nullptr;
+  }
+
+  // Availability of a neighbouring MB for intra prediction (constrained_intra_pred: intra MBs only).
+  bool IntraAvailable(int mbx, int mby) const {
+    const MbInfo* m = MbAt(mbx, mby);
+    return m && (!slices_[slice_].constrained_intra || m->Intra());
+  }
+
+  struct Neighbour {
+    bool available = false;
+    int ref = -1, mvx = 0, mvy = 0;
+  };
+
+  // The motion of the 4x4 block at picture block coordinates (bx, by), seen from the current MB.
+  Neighbour Motion(int bx, int by, int cur_mbx, int cur_mby, int decoded_mask) const {
+    Neighbour n;
+    const int mbx = bx >> 2, mby = by >> 2;
+    if (bx < 0 || by < 0 || mbx >= mb_width_ || mby >= mb_height_) return n;
+    if (mbx == cur_mbx && mby == cur_mby) {
+      if (!((decoded_mask >> ((by & 3) * 4 + (bx & 3))) & 1)) return n;
+    } else {
+      if (mby > cur_mby || (mby == cur_mby && mbx > cur_mbx)) return n;
+      if (!MbAt(mbx, mby)) return n;
+    }
+    n.available = true;
+    const size_t b = static_cast<size_t>(by) * mb_width_ * 4 + bx;
+    n.ref = ref_[b];
+    if (n.ref >= 0) n.mvx = mv_[2 * b], n.mvy = mv_[2 * b + 1];
+    return n;
+  }
+
+  // Motion vector prediction (8.4.1.3) for the partition at block (x4, y4) of the MB, w4 blocks wide;
+  // shape 1: 16x8, 2: 8x16 (their directional rules), 0: any other.
+  void PredictMv(int mbx, int mby, int x4, int y4, int w4, int ref, int mask, int shape, int* px, int* py) const {
+    const int bx = mbx * 4 + x4, by = mby * 4 + y4;
+    Neighbour a = Motion(bx - 1, by, mbx, mby, mask);
+    Neighbour b = Motion(bx, by - 1, mbx, mby, mask);
+    Neighbour c = Motion(bx + w4, by - 1, mbx, mby, mask);
+    if (!c.available) c = Motion(bx - 1, by - 1, mbx, mby, mask);
+    if (shape == 1) {  // 16x8
+      if (y4 == 0 && b.ref == ref) return void((*px = b.mvx, *py = b.mvy));
+      if (y4 != 0 && a.ref == ref) return void((*px = a.mvx, *py = a.mvy));
+    } else if (shape == 2) {  // 8x16
+      if (x4 == 0 && a.ref == ref) return void((*px = a.mvx, *py = a.mvy));
+      if (x4 != 0 && c.ref == ref) return void((*px = c.mvx, *py = c.mvy));
+    }
+    if (!b.available && !c.available && a.available) b = a, c = a;
+    const int matches = (a.ref == ref) + (b.ref == ref) + (c.ref == ref);
+    if (matches == 1) {
+      const Neighbour& m = a.ref == ref ? a : b.ref == ref ? b : c;
+      *px = m.mvx, *py = m.mvy;
+      return;
+    }
+    *px = Median(a.mvx, b.mvx, c.mvx);
+    *py = Median(a.mvy, b.mvy, c.mvy);
+  }
+
+  void SetMotion(int mbx, int mby, int x4, int y4, int w4, int h4, int ref, int mvx, int mvy, int* mask) {
+    for (int y = y4; y < y4 + h4; ++y)
+      for (int x = x4; x < x4 + w4; ++x) {
+        const size_t b = static_cast<size_t>(mby * 4 + y) * mb_width_ * 4 + mbx * 4 + x;
+        ref_[b] = static_cast<int8_t>(ref);
+        refpic_[b] = ref >= 0 ? ref_list_[ref]->id : 0;
+        mv_[2 * b] = static_cast<int16_t>(mvx);
+        mv_[2 * b + 1] = static_cast<int16_t>(mvy);
+        *mask |= 1 << (y * 4 + x);
+      }
+  }
+
+  // ---- macroblocks
+  void SkipMb(int addr, int qp) {
+    const int mbx = addr % mb_width_, mby = addr / mb_width_;
+    MbInfo& m = mbs_[addr];
+    m = MbInfo();
+    m.slice = slice_;
+    m.kind = kMbSkip;
+    m.qp = qp;
+    std::fill(std::begin(m.i4), std::end(m.i4), 2);
+    if (ref_list_.empty() || !ref_list_[0]) throw Corrupt("P_Skip with an empty reference list");
+    int mvx = 0, mvy = 0, mask = 0;
+    const Neighbour a = Motion(mbx * 4 - 1, mby * 4, mbx, mby, 0), b = Motion(mbx * 4, mby * 4 - 1, mbx, mby, 0);
+    if (a.available && b.available && !(a.ref == 0 && a.mvx == 0 && a.mvy == 0) &&
+        !(b.ref == 0 && b.mvx == 0 && b.mvy == 0))
+      PredictMv(mbx, mby, 0, 0, 4, 0, 0, 0, &mvx, &mvy);
+    ++stats_[kPSkip];
+    if (mvx || mvy) ++stats_[kSkipMvNonzero];
+    SetMotion(mbx, mby, 0, 0, 4, 4, 0, mvx, mvy, &mask);
+    InterPredict(mbx, mby, 0, 0, 16, 16, 0, mvx, mvy);
+  }
+
+  int ReadRefIdx(BitReader& br, int num_ref) {
+    const int v = num_ref == 1 ? 0 : num_ref == 2 ? !br.Bit() : static_cast<int>(br.Ue());
+    if (v >= num_ref) throw Corrupt("ref_idx_l0 past num_ref_idx_l0_active");
+    if (!ref_list_[v]) throw Corrupt("ref_idx_l0 names an empty reference list entry");
+    if (v > 0) ++stats_[kRefIdxNonzero];
+    return v;
+  }
+
+  void Macroblock(BitReader& br, const Header& h, const Pps& pps, int addr, int* qp) {
+    MbInfo& m = mbs_[addr];
+    m = MbInfo();
+    m.slice = slice_;
+    std::fill(std::begin(m.i4), std::end(m.i4), 2);
+    uint32_t mb_type = br.Ue();
+    const bool p_slice = h.type == 0;
+    if (p_slice) {
+      if (mb_type > 30) throw Corrupt("mb_type above 30 in a P slice");
+      if (mb_type >= 5) {
+        mb_type -= 5;
+        ++stats_[kIntraInP];
+      } else {
+        InterMb(br, h, pps, addr, mb_type, qp);
+        return;
+      }
+    } else if (mb_type > 25) {
+      throw Corrupt("mb_type above 25 in an I slice");
+    }
+    if (mb_type == 25) {
+      PcmMb(br, addr, *qp);
+      return;
+    }
+    IntraMb(br, pps, addr, mb_type, qp);
+  }
+
+  void PcmMb(BitReader& br, int addr, int qp) {
+    const int mbx = addr % mb_width_, mby = addr / mb_width_;
+    MbInfo& m = mbs_[addr];
+    m.kind = kMbPcm;
+    m.qp = qp;
+    std::fill(std::begin(m.nz), std::end(m.nz), 16);
+    ++stats_[kIPcm];
+    while (!br.Aligned()) {
+      if (br.Bit()) throw Corrupt("pcm_alignment_zero_bit set");
+    }
+    for (int y = 0; y < 16; ++y)
+      for (int x = 0; x < 16; ++x) cur_->y[static_cast<size_t>(mby * 16 + y) * width_ + mbx * 16 + x] = br.Bits(8);
+    for (int c = 1; c <= 2; ++c)
+      for (int y = 0; y < 8; ++y)
+        for (int x = 0; x < 8; ++x)
+          cur_->Plane(c)[static_cast<size_t>(mby * 8 + y) * (width_ / 2) + mbx * 8 + x] = br.Bits(8);
+    int mask = 0;
+    SetMotion(mbx, mby, 0, 0, 4, 4, -1, 0, 0, &mask);
+  }
+
+  void ReadQpDelta(BitReader& br, int* qp) {
+    const int delta = br.Se();
+    if (delta < -26 || delta > 25) throw Corrupt("mb_qp_delta out of range");
+    int q = *qp + delta;
+    if (q < 0 || q > 51) {
+      q = (q + 52) % 52;
+      ++stats_[kQpWraps];
+    }
+    *qp = q;
+  }
+
+  void IntraMb(BitReader& br, const Pps& pps, int addr, int mb_type, int* qp) {
+    const int mbx = addr % mb_width_, mby = addr / mb_width_;
+    MbInfo& m = mbs_[addr];
+    int cbp_luma = 0, cbp_chroma = 0, i16_mode = 0;
+    int modes[16];
+    if (mb_type == 0) {
+      m.kind = kMbI4x4;
+      ++stats_[kINxN];
+      for (int blk = 0; blk < 16; ++blk) {
+        const int x4 = ((blk >> 2) & 1) * 2 + (blk & 1), y4 = (blk >> 3) * 2 + ((blk >> 1) & 1);
+        // Predicted mode: min of the left and upper blocks' modes, DC (2) where one is unavailable.
+        const int a = NeighbourI4Mode(mbx, mby, x4 - 1, y4, m), b = NeighbourI4Mode(mbx, mby, x4, y4 - 1, m);
+        const int pred = (a < 0 || b < 0) ? 2 : std::min(a, b);
+        int mode = pred;
+        if (!br.Bit()) {
+          const int rem = br.Bits(3);
+          mode = rem < pred ? rem : rem + 1;
+        }
+        m.i4[y4 * 4 + x4] = static_cast<int8_t>(mode);
+        modes[blk] = mode;
+        ++stats_[kI4Mode0 + mode];
+      }
+    } else {
+      m.kind = kMbI16x16;
+      ++stats_[kI16x16];
+      i16_mode = (mb_type - 1) % 4;
+      cbp_chroma = ((mb_type - 1) / 4) % 3;
+      cbp_luma = mb_type >= 13 ? 15 : 0;
+      ++stats_[kI16Mode0 + i16_mode];
+    }
+    const uint32_t chroma_mode = br.Ue();
+    if (chroma_mode > 3) throw Corrupt("intra_chroma_pred_mode above 3");
+    ++stats_[kChromaMode0 + chroma_mode];
+    if (m.kind == kMbI4x4) {
+      const uint32_t code = br.Ue();
+      if (code > 47) throw Corrupt("coded_block_pattern above 47");
+      cbp_luma = kCbpIntra[code] & 15;
+      cbp_chroma = kCbpIntra[code] >> 4;
+    }
+    int mask = 0;
+    SetMotion(mbx, mby, 0, 0, 4, 4, -1, 0, 0, &mask);
+    int16_t coeffs[16][16] = {}, chroma[2][4][16] = {};
+    if (cbp_luma || cbp_chroma || m.kind == kMbI16x16) {
+      ReadQpDelta(br, qp);
+      Residual(br, addr, m.kind == kMbI16x16, cbp_luma, cbp_chroma, *qp, pps.chroma_qp_offset, coeffs, chroma);
+    }
+    m.qp = *qp;
+    // Reconstruction.
+    if (m.kind == kMbI4x4) {
+      for (int blk = 0; blk < 16; ++blk) {
+        const int x4 = ((blk >> 2) & 1) * 2 + (blk & 1), y4 = (blk >> 3) * 2 + ((blk >> 1) & 1);
+        Intra4x4(mbx, mby, x4, y4, blk, modes[blk]);
+        AddResidual(cur_->y.data(), width_, mbx * 16 + x4 * 4, mby * 16 + y4 * 4, coeffs[y4 * 4 + x4],
+                    m.nz[y4 * 4 + x4] > 0);
+      }
+    } else {
+      Intra16x16(mbx, mby, i16_mode);
+      for (int b = 0; b < 16; ++b)
+        AddResidual(cur_->y.data(), width_, mbx * 16 + (b & 3) * 4, mby * 16 + (b >> 2) * 4, coeffs[b],
+                    m.nz[b] > 0 || coeffs[b][0] != 0);
+    }
+    IntraChroma(mbx, mby, chroma_mode);
+    AddChroma(mbx, mby, chroma, addr);
+  }
+
+  int NeighbourI4Mode(int mbx, int mby, int x4, int y4, const MbInfo& cur) const {
+    if (x4 >= 0 && y4 >= 0) return cur.i4[y4 * 4 + x4];
+    const int nx = x4 < 0 ? mbx - 1 : mbx, ny = y4 < 0 ? mby - 1 : mby;
+    const MbInfo* n = MbAt(nx, ny);
+    if (!n) return -1;
+    if (!n->Intra() && slices_[slice_].constrained_intra) return -1;
+    if (n->kind != kMbI4x4) return 2;
+    return n->i4[((y4 + 4) & 3) * 4 + ((x4 + 4) & 3)];
+  }
+
+  void InterMb(BitReader& br, const Header& h, const Pps& pps, int addr, int mb_type, int* qp) {
+    const int mbx = addr % mb_width_, mby = addr / mb_width_;
+    MbInfo& m = mbs_[addr];
+    m.kind = kMbInter;
+    if (ref_list_.empty()) throw Corrupt("inter macroblock with an empty reference list");
+    int mask = 0;
+    static const int kStat[5] = {kP16x16, kP16x8, kP8x16, kP8x8, kP8x8Ref0};
+    ++stats_[kStat[mb_type]];
+    if (mb_type < 3) {
+      const int parts = mb_type == 0 ? 1 : 2;
+      int refs[2] = {0, 0}, mvd[2][2];
+      for (int p = 0; p < parts; ++p) refs[p] = ReadRefIdx(br, h.num_ref);
+      for (int p = 0; p < parts; ++p) mvd[p][0] = br.Se(), mvd[p][1] = br.Se();
+      for (int p = 0; p < parts; ++p) {
+        const int x4 = mb_type == 2 ? 2 * p : 0, y4 = mb_type == 1 ? 2 * p : 0;
+        const int w4 = mb_type == 2 ? 2 : 4, h4 = mb_type == 1 ? 2 : 4;
+        int px, py;
+        PredictMv(mbx, mby, x4, y4, w4, refs[p], mask, mb_type, &px, &py);
+        const int mvx = px + mvd[p][0], mvy = py + mvd[p][1];
+        SetMotion(mbx, mby, x4, y4, w4, h4, refs[p], mvx, mvy, &mask);
+        InterPredict(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, refs[p], mvx, mvy);
+      }
+    } else {
+      int sub[4], refs[4] = {0, 0, 0, 0};
+      for (int s = 0; s < 4; ++s) {
+        const uint32_t t = br.Ue();
+        if (t > 3) throw Corrupt("sub_mb_type above 3 in a P slice");
+        sub[s] = static_cast<int>(t);
+        ++stats_[kSub8x8 + sub[s]];
+      }
+      for (int s = 0; s < 4; ++s) refs[s] = mb_type == 4 ? 0 : ReadRefIdx(br, h.num_ref);
+      if (!ref_list_[0]) throw Corrupt("P_8x8ref0 with an empty reference list");
+      int mvd[4][4][2];
+      for (int s = 0; s < 4; ++s) {
+        const int n = sub[s] == 0 ? 1 : sub[s] == 3 ? 4 : 2;
+        for (int k = 0; k < n; ++k) mvd[s][k][0] = br.Se(), mvd[s][k][1] = br.Se();
+      }
+      for (int s = 0; s < 4; ++s) {
+        const int sx = (s & 1) * 2, sy = (s >> 1) * 2;
+        const int n = sub[s] == 0 ? 1 : sub[s] == 3 ? 4 : 2;
+        const int w4 = (sub[s] == 0 || sub[s] == 1) ? 2 : 1, h4 = (sub[s] == 0 || sub[s] == 2) ? 2 : 1;
+        for (int k = 0; k < n; ++k) {
+          const int x4 = sx + (w4 == 1 ? (k & 1) : 0), y4 = sy + (h4 == 1 ? (sub[s] == 3 ? k >> 1 : k) : 0);
+          int px, py;
+          PredictMv(mbx, mby, x4, y4, w4, refs[s], mask, 0, &px, &py);
+          const int mvx = px + mvd[s][k][0], mvy = py + mvd[s][k][1];
+          SetMotion(mbx, mby, x4, y4, w4, h4, refs[s], mvx, mvy, &mask);
+          InterPredict(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, refs[s], mvx, mvy);
+        }
+      }
+    }
+    const uint32_t code = br.Ue();
+    if (code > 47) throw Corrupt("coded_block_pattern above 47");
+    const int cbp_luma = kCbpInter[code] & 15, cbp_chroma = kCbpInter[code] >> 4;
+    int16_t coeffs[16][16] = {}, chroma[2][4][16] = {};
+    if (cbp_luma || cbp_chroma) {
+      ReadQpDelta(br, qp);
+      Residual(br, addr, false, cbp_luma, cbp_chroma, *qp, pps.chroma_qp_offset, coeffs, chroma);
+    }
+    m.qp = *qp;
+    for (int b = 0; b < 16; ++b)
+      AddResidual(cur_->y.data(), width_, mbx * 16 + (b & 3) * 4, mby * 16 + (b >> 2) * 4, coeffs[b], m.nz[b] > 0);
+    AddChroma(mbx, mby, chroma, addr);
+  }
+
+  // ---- residual (7.3.5.3, 9.2)
+  int TotalCoeffAt(int mbx, int mby, int comp, int x4, int y4) const {  // -1: unavailable
+    const int w = comp == 0 ? 4 : 2;
+    int nx = mbx, ny = mby;
+    if (x4 < 0) nx -= 1, x4 += w;
+    if (y4 < 0) ny -= 1, y4 += w;
+    const MbInfo* n = MbAt(nx, ny);
+    if (!n) return -1;
+    return comp == 0 ? n->nz[y4 * 4 + x4] : n->nz[16 + (comp - 1) * 4 + y4 * 2 + x4];
+  }
+
+  int PredictNc(int mbx, int mby, int comp, int x4, int y4) const {
+    const MbInfo& cur = mbs_[static_cast<size_t>(mby) * mb_width_ + mbx];
+    const int w = comp == 0 ? 4 : 2;
+    auto inner = [&](int x, int y) { return comp == 0 ? cur.nz[y * 4 + x] : cur.nz[16 + (comp - 1) * 4 + y * w + x]; };
+    const int a = x4 > 0 ? inner(x4 - 1, y4) : TotalCoeffAt(mbx, mby, comp, x4 - 1, y4);
+    const int b = y4 > 0 ? inner(x4, y4 - 1) : TotalCoeffAt(mbx, mby, comp, x4, y4 - 1);
+    if (a >= 0 && b >= 0) return (a + b + 1) >> 1;
+    if (a >= 0) return a;
+    if (b >= 0) return b;
+    return 0;
+  }
+
+  // One CAVLC block: the levels into coeff (in scan order, from start), its TotalCoeff returned.
+  int ResidualBlock(BitReader& br, int nc, int start, int max_coeff, int* coeff) {
+    int total = -1, trailing = 0;
+    if (nc == -1) {
+      for (int t = 0; t <= 4 && total < 0; ++t)
+        for (int o = 0; o <= std::min(t, 3); ++o) {
+          const int len = kChromaDcTokenLen[t * 4 + o];
+          if (len && br.Peek(len) == kChromaDcTokenCode[t * 4 + o]) {
+            total = t, trailing = o;
+            br.Skip(len);
+            break;
+          }
+        }
+    } else {
+      const int table = nc < 2 ? 0 : nc < 4 ? 1 : nc < 8 ? 2 : 3;
+      for (int t = 0; t <= 16 && total < 0; ++t)
+        for (int o = 0; o <= std::min(t, 3); ++o) {
+          const int len = kCoeffTokenLen[table][t * 4 + o];
+          if (len && br.Peek(len) == kCoeffTokenCode[table][t * 4 + o]) {
+            total = t, trailing = o;
+            br.Skip(len);
+            break;
+          }
+        }
+    }
+    if (total < 0) throw Corrupt("invalid coeff_token");
+    if (total > max_coeff) throw Corrupt("coeff_token with more coefficients than the block holds");
+    if (total == 0) return 0;
+    int levels[16];
+    int suffix_length = (total > 10 && trailing < 3) ? 1 : 0;
+    for (int i = 0; i < total; ++i) {
+      if (i < trailing) {
+        levels[i] = br.Bit() ? -1 : 1;
+        continue;
+      }
+      int prefix = 0;
+      while (!br.Bit()) {
+        if (++prefix > 25) throw Corrupt("level_prefix above 25");
+      }
+      if (prefix == 14) ++stats_[kLevelPrefix14];
+      if (prefix >= 15) ++stats_[kLevelPrefix15];
+      int code = std::min(15, prefix) << suffix_length;
+      const int suffix_size = (prefix == 14 && suffix_length == 0) ? 4 : prefix >= 15 ? prefix - 3 : suffix_length;
+      if (suffix_size) code += br.Bits(suffix_size);
+      if (prefix >= 15 && suffix_length == 0) code += 15;
+      if (prefix >= 16) code += (1 << (prefix - 3)) - 4096;
+      if (i == trailing && trailing < 3) code += 2;
+      levels[i] = (code & 1) ? (-code - 1) >> 1 : (code + 2) >> 1;
+      if (suffix_length == 0) suffix_length = 1;
+      if (std::abs(levels[i]) > (3 << (suffix_length - 1)) && suffix_length < 6) ++suffix_length;
+    }
+    int zeros_left = 0;
+    if (total < max_coeff) {
+      int tz = -1;
+      if (nc == -1) {
+        for (int z = 0; z <= 4 - total && tz < 0; ++z) {
+          const int len = kChromaDcZerosLen[total - 1][z];
+          if (len && br.Peek(len) == kChromaDcZerosCode[total - 1][z]) tz = z, br.Skip(len);
+        }
+      } else {
+        for (int z = 0; z <= 16 - total && tz < 0; ++z) {
+          const int len = kTotalZerosLen[total - 1][z];
+          if (len && br.Peek(len) == kTotalZerosCode[total - 1][z]) tz = z, br.Skip(len);
+        }
+      }
+      if (tz < 0) throw Corrupt("invalid total_zeros");
+      zeros_left = tz;
+    }
+    if (total + zeros_left > max_coeff) throw Corrupt("total_zeros past the block");
+    int runs[16];
+    for (int i = 0; i < total - 1; ++i) {
+      int run = 0;
+      if (zeros_left > 0) {
+        const int t = std::min(zeros_left, 7) - 1;
+        run = -1;
+        for (int r = 0; r <= std::min(zeros_left, 14) && run < 0; ++r) {
+          const int len = kRunLen[t][r];
+          if (len && br.Peek(len) == kRunCode[t][r]) run = r, br.Skip(len);
+        }
+        if (run < 0 || run > zeros_left) throw Corrupt("invalid run_before");
+      }
+      runs[i] = run;
+      zeros_left -= run;
+    }
+    runs[total - 1] = zeros_left;
+    int pos = -1;
+    for (int i = total - 1; i >= 0; --i) {
+      pos += runs[i] + 1;
+      coeff[start + pos] = levels[i];
+    }
+    return total;
+  }
+
+  static int ChromaQp(int qp, int offset) {
+    const int qpi = Clip3(0, 51, qp + offset);
+    return qpi < 30 ? qpi : kChromaQp[qpi - 30];
+  }
+
+  void Residual(BitReader& br, int addr, bool i16, int cbp_luma, int cbp_chroma, int qp, int chroma_offset,
+                int16_t coeffs[16][16], int16_t chroma[2][4][16]) {
+    const int mbx = addr % mb_width_, mby = addr / mb_width_;
+    MbInfo& m = mbs_[addr];
+    const int q6 = qp / 6, qm = qp % 6;
+    auto scale = [&](int raster, int q_mod) {
+      const int r = raster >> 2, c = raster & 3;
+      return kDequant[q_mod][(r & 1) == 0 && (c & 1) == 0 ? 0 : (r & 1) && (c & 1) ? 1 : 2];
+    };
+    if (i16) {
+      int dc[16] = {};
+      ResidualBlock(br, PredictNc(mbx, mby, 0, 0, 0), 0, 16, dc);
+      // Inverse Hadamard of the DC levels (8.5.10), in raster order of the 4x4 blocks.
+      int c[16];
+      for (int k = 0; k < 16; ++k) c[kZigzag4x4[k]] = dc[k];
+      int f[16];
+      for (int i = 0; i < 4; ++i) {
+        const int* row = c + 4 * i;
+        const int e0 = row[0] + row[1], e1 = row[0] - row[1], e2 = row[2] - row[3], e3 = row[2] + row[3];
+        f[4 * i + 0] = e0 + e3;
+        f[4 * i + 1] = e0 - e3;
+        f[4 * i + 2] = e1 - e2;
+        f[4 * i + 3] = e1 + e2;
+      }
+      int g[16];
+      for (int j = 0; j < 4; ++j) {
+        const int e0 = f[j] + f[4 + j], e1 = f[j] - f[4 + j], e2 = f[8 + j] - f[12 + j], e3 = f[8 + j] + f[12 + j];
+        g[j] = e0 + e3;
+        g[4 + j] = e0 - e3;
+        g[8 + j] = e1 - e2;
+        g[12 + j] = e1 + e2;
+      }
+      const int ls = 16 * kDequant[qm][0];
+      for (int k = 0; k < 16; ++k) {
+        int v;
+        if (qp >= 36)
+          v = (g[k] * ls) << (q6 - 6);
+        else
+          v = (g[k] * ls + (1 << (5 - q6))) >> (6 - q6);
+        coeffs[k][0] = static_cast<int16_t>(v);  // block k in raster order of the 4x4 blocks
+      }
+    }
+    for (int b8 = 0; b8 < 4; ++b8) {
+      for (int b4 = 0; b4 < 4; ++b4) {
+        const int x4 = (b8 & 1) * 2 + (b4 & 1), y4 = (b8 >> 1) * 2 + (b4 >> 1);
+        const int raster = y4 * 4 + x4;
+        if (!((cbp_luma >> b8) & 1)) {
+          m.nz[raster] = 0;
+          continue;
+        }
+        int lv[16] = {};
+        const int nc = PredictNc(mbx, mby, 0, x4, y4);
+        const int n = ResidualBlock(br, nc, i16 ? 1 : 0, i16 ? 15 : 16, lv);
+        m.nz[raster] = static_cast<uint8_t>(n);
+        for (int k = i16 ? 1 : 0; k < 16; ++k) {
+          if (!lv[k]) continue;
+          const int r = kZigzag4x4[k];
+          coeffs[raster][r] = static_cast<int16_t>((lv[k] * scale(r, qm)) << q6);
+        }
+      }
+    }
+    const int qpc = ChromaQp(qp, chroma_offset), c6 = qpc / 6, cm = qpc % 6;
+    if (cbp_chroma) {
+      for (int comp = 0; comp < 2; ++comp) {
+        int dc[4] = {};
+        ResidualBlock(br, -1, 0, 4, dc);
+        // 2x2 transform (8.5.11.1): c = [[dc0, dc1], [dc2, dc3]].
+        const int f0 = dc[0] + dc[1] + dc[2] + dc[3], f1 = dc[0] - dc[1] + dc[2] - dc[3];
+        const int f2 = dc[0] + dc[1] - dc[2] - dc[3], f3 = dc[0] - dc[1] - dc[2] + dc[3];
+        const int fs[4] = {f0, f1, f2, f3};
+        const int ls = 16 * kDequant[cm][0];
+        for (int k = 0; k < 4; ++k) chroma[comp][k][0] = static_cast<int16_t>(((fs[k] * ls) << c6) >> 5);
+      }
+    }
+    for (int comp = 0; comp < 2; ++comp)
+      for (int b = 0; b < 4; ++b) {
+        const int x4 = b & 1, y4 = b >> 1;
+        if (!(cbp_chroma & 2)) {
+          m.nz[16 + comp * 4 + b] = 0;
+          continue;
+        }
+        int lv[16] = {};
+        const int n = ResidualBlock(br, PredictNc(mbx, mby, comp + 1, x4, y4), 1, 15, lv);
+        m.nz[16 + comp * 4 + b] = static_cast<uint8_t>(n);
+        for (int k = 1; k < 16; ++k) {
+          if (!lv[k]) continue;
+          const int r = kZigzag4x4[k];
+          chroma[comp][b][r] = static_cast<int16_t>((lv[k] * scale(r, cm)) << c6);
+        }
+      }
+  }
+
+  // The 4x4 inverse transform (8.5.12.2) of d (raster order), added to the prediction at (x, y).
+  static void AddResidual(uint8_t* plane, int stride, int x, int y, const int16_t* d, bool coded) {
+    bool any = coded;
+    for (int k = 0; k < 16 && !any; ++k) any = d[k] != 0;
+    if (!any) return;
+    int f[16];
+    for (int i = 0; i < 4; ++i) {
+      const int d0 = d[4 * i], d1 = d[4 * i + 1], d2 = d[4 * i + 2], d3 = d[4 * i + 3];
+      const int e0 = d0 + d2, e1 = d0 - d2, e2 = (d1 >> 1) - d3, e3 = d1 + (d3 >> 1);
+      f[4 * i] = e0 + e3;
+      f[4 * i + 1] = e1 + e2;
+      f[4 * i + 2] = e1 - e2;
+      f[4 * i + 3] = e0 - e3;
+    }
+    for (int j = 0; j < 4; ++j) {
+      const int f0 = f[j], f1 = f[4 + j], f2 = f[8 + j], f3 = f[12 + j];
+      const int g0 = f0 + f2, g1 = f0 - f2, g2 = (f1 >> 1) - f3, g3 = f1 + (f3 >> 1);
+      const int h[4] = {g0 + g3, g1 + g2, g1 - g2, g0 - g3};
+      for (int i = 0; i < 4; ++i) {
+        uint8_t& p = plane[static_cast<size_t>(y + i) * stride + x + j];
+        p = Clip1(p + ((h[i] + 32) >> 6));
+      }
+    }
+  }
+
+  void AddChroma(int mbx, int mby, int16_t chroma[2][4][16], int addr) {
+    const MbInfo& m = mbs_[addr];
+    for (int comp = 0; comp < 2; ++comp)
+      for (int b = 0; b < 4; ++b)
+        AddResidual(cur_->Plane(comp + 1), width_ / 2, mbx * 8 + (b & 1) * 4, mby * 8 + (b >> 1) * 4, chroma[comp][b],
+                    m.nz[16 + comp * 4 + b] > 0 || chroma[comp][b][0] != 0);
+  }
+
+  // ---- intra prediction (8.3)
+  void Intra4x4(int mbx, int mby, int x4, int y4, int blk, int mode) {
+    const int x0 = mbx * 16 + x4 * 4, y0 = mby * 16 + y4 * 4;
+    const uint8_t* pic = cur_->y.data();
+    const int stride = width_;
+    const bool left = x4 > 0 || IntraAvailable(mbx - 1, mby);
+    const bool top = y4 > 0 || IntraAvailable(mbx, mby - 1);
+    bool top_left;
+    if (x4 > 0 && y4 > 0) top_left = true;
+    else if (x4 > 0) top_left = IntraAvailable(mbx, mby - 1);
+    else if (y4 > 0) top_left = IntraAvailable(mbx - 1, mby);
+    else top_left = IntraAvailable(mbx - 1, mby - 1);
+    bool top_right;
+    if (y4 == 0) {
+      top_right = x4 < 3 ? IntraAvailable(mbx, mby - 1) : IntraAvailable(mbx + 1, mby - 1);
+    } else if (x4 == 3) {
+      top_right = false;
+    } else {
+      // Inside the MB: the block up and to the right must precede this one in decoding order.
+      const int nx = x4 + 1, ny = y4 - 1;
+      const int nblk = (ny >> 1) * 8 + (nx >> 1) * 4 + (ny & 1) * 2 + (nx & 1);
+      top_right = nblk < blk;
+    }
+    int p[13];  // p[0] = top-left, p[1..8] = top 0..7, p[9..12] = left 0..3
+    if (top_left) p[0] = pic[static_cast<size_t>(y0 - 1) * stride + x0 - 1];
+    if (top) {
+      for (int i = 0; i < 4; ++i) p[1 + i] = pic[static_cast<size_t>(y0 - 1) * stride + x0 + i];
+      for (int i = 4; i < 8; ++i) p[1 + i] = top_right ? pic[static_cast<size_t>(y0 - 1) * stride + x0 + i] : p[4];
+    }
+    if (left)
+      for (int i = 0; i < 4; ++i) p[9 + i] = pic[static_cast<size_t>(y0 + i) * stride + x0 - 1];
+    auto T = [&](int x) { return x < 0 ? p[0] : p[1 + x]; };   // p[x, -1]
+    auto L = [&](int y) { return y < 0 ? p[0] : p[9 + y]; };   // p[-1, y]
+    const bool needs_top = mode == 0 || mode == 3 || mode == 4 || mode == 5 || mode == 6 || mode == 7;
+    const bool needs_left = mode == 1 || mode == 4 || mode == 5 || mode == 6 || mode == 8;
+    const bool needs_corner = mode == 4 || mode == 5 || mode == 6;
+    if ((needs_top && !top) || (needs_left && !left) || (needs_corner && !top_left))
+      throw Corrupt("intra 4x4 prediction mode " + std::to_string(mode) + " needs unavailable samples");
+    uint8_t out[4][4];
+    for (int y = 0; y < 4; ++y)
+      for (int x = 0; x < 4; ++x) {
+        int v = 0;
+        switch (mode) {
+          case 0: v = T(x); break;
+          case 1: v = L(y); break;
+          case 2:
+            if (top && left) v = (T(0) + T(1) + T(2) + T(3) + L(0) + L(1) + L(2) + L(3) + 4) >> 3;
+            else if (left) v = (L(0) + L(1) + L(2) + L(3) + 2) >> 2;
+            else if (top) v = (T(0) + T(1) + T(2) + T(3) + 2) >> 2;
+            else v = 128;
+            break;
+          case 3:
+            v = (x == 3 && y == 3) ? (T(6) + 3 * T(7) + 2) >> 2 : (T(x + y) + 2 * T(x + y + 1) + T(x + y + 2) + 2) >> 2;
+            break;
+          case 4:
+            if (x > y) v = (T(x - y - 2) + 2 * T(x - y - 1) + T(x - y) + 2) >> 2;
+            else if (x < y) v = (L(y - x - 2) + 2 * L(y - x - 1) + L(y - x) + 2) >> 2;
+            else v = (T(0) + 2 * p[0] + L(0) + 2) >> 2;
+            break;
+          case 5: {
+            const int z = 2 * x - y;
+            if (z >= 0 && !(z & 1)) v = (T(x - (y >> 1) - 1) + T(x - (y >> 1)) + 1) >> 1;
+            else if (z >= 0) v = (T(x - (y >> 1) - 2) + 2 * T(x - (y >> 1) - 1) + T(x - (y >> 1)) + 2) >> 2;
+            else if (z == -1) v = (L(0) + 2 * p[0] + T(0) + 2) >> 2;
+            else v = (L(y - 1) + 2 * L(y - 2) + L(y - 3) + 2) >> 2;
+            break;
+          }
+          case 6: {
+            const int z = 2 * y - x;
+            if (z >= 0 && !(z & 1)) v = (L(y - (x >> 1) - 1) + L(y - (x >> 1)) + 1) >> 1;
+            else if (z >= 0) v = (L(y - (x >> 1) - 2) + 2 * L(y - (x >> 1) - 1) + L(y - (x >> 1)) + 2) >> 2;
+            else if (z == -1) v = (L(0) + 2 * p[0] + T(0) + 2) >> 2;
+            else v = (T(x - 1) + 2 * T(x - 2) + T(x - 3) + 2) >> 2;
+            break;
+          }
+          case 7:
+            if (!(y & 1)) v = (T(x + (y >> 1)) + T(x + (y >> 1) + 1) + 1) >> 1;
+            else v = (T(x + (y >> 1)) + 2 * T(x + (y >> 1) + 1) + T(x + (y >> 1) + 2) + 2) >> 2;
+            break;
+          case 8: {
+            const int z = x + 2 * y;
+            if (z > 5) v = L(3);
+            else if (z == 5) v = (L(2) + 3 * L(3) + 2) >> 2;
+            else if (!(z & 1)) v = (L(y + (x >> 1)) + L(y + (x >> 1) + 1) + 1) >> 1;
+            else v = (L(y + (x >> 1)) + 2 * L(y + (x >> 1) + 1) + L(y + (x >> 1) + 2) + 2) >> 2;
+            break;
+          }
+        }
+        out[y][x] = static_cast<uint8_t>(v);
+      }
+    for (int y = 0; y < 4; ++y)
+      for (int x = 0; x < 4; ++x) cur_->y[static_cast<size_t>(y0 + y) * stride + x0 + x] = out[y][x];
+  }
+
+  void Intra16x16(int mbx, int mby, int mode) {
+    const int x0 = mbx * 16, y0 = mby * 16, stride = width_;
+    uint8_t* pic = cur_->y.data();
+    const bool left = IntraAvailable(mbx - 1, mby), top = IntraAvailable(mbx, mby - 1);
+    const bool corner = IntraAvailable(mbx - 1, mby - 1);
+    if ((mode == 0 && !top) || (mode == 1 && !left) || (mode == 3 && !(top && left && corner)))
+      throw Corrupt("intra 16x16 prediction mode " + std::to_string(mode) + " needs unavailable samples");
+    auto T = [&](int x) { return static_cast<int>(pic[static_cast<size_t>(y0 - 1) * stride + x0 + x]); };
+    auto L = [&](int y) { return static_cast<int>(pic[static_cast<size_t>(y0 + y) * stride + x0 - 1]); };
+    int dc = 128;
+    if (mode == 2) {
+      int st = 0, sl = 0;
+      for (int i = 0; i < 16; ++i) {
+        if (top) st += T(i);
+        if (left) sl += L(i);
+      }
+      dc = top && left ? (st + sl + 16) >> 5 : left ? (sl + 8) >> 4 : top ? (st + 8) >> 4 : 128;
+    }
+    int a = 0, b = 0, c = 0;
+    if (mode == 3) {
+      int hh = 0, vv = 0;
+      for (int i = 0; i < 8; ++i) {
+        hh += (i + 1) * (T(8 + i) - T(6 - i));
+        vv += (i + 1) * (L(8 + i) - L(6 - i));
+      }
+      a = 16 * (L(15) + T(15));
+      b = (5 * hh + 32) >> 6;
+      c = (5 * vv + 32) >> 6;
+    }
+    uint8_t out[16][16];
+    for (int y = 0; y < 16; ++y)
+      for (int x = 0; x < 16; ++x)
+        out[y][x] = mode == 0   ? T(x)
+                    : mode == 1 ? L(y)
+                    : mode == 2 ? dc
+                                : Clip1((a + b * (x - 7) + c * (y - 7) + 16) >> 5);
+    for (int y = 0; y < 16; ++y)
+      for (int x = 0; x < 16; ++x) pic[static_cast<size_t>(y0 + y) * stride + x0 + x] = out[y][x];
+  }
+
+  void IntraChroma(int mbx, int mby, int mode) {
+    const bool left = IntraAvailable(mbx - 1, mby), top = IntraAvailable(mbx, mby - 1);
+    const bool corner = IntraAvailable(mbx - 1, mby - 1);
+    if ((mode == 1 && !left) || (mode == 2 && !top) || (mode == 3 && !(top && left && corner)))
+      throw Corrupt("intra chroma prediction mode " + std::to_string(mode) + " needs unavailable samples");
+    const int stride = width_ / 2, x0 = mbx * 8, y0 = mby * 8;
+    for (int comp = 1; comp <= 2; ++comp) {
+      uint8_t* pic = cur_->Plane(comp);
+      auto T = [&](int x) { return static_cast<int>(pic[static_cast<size_t>(y0 - 1) * stride + x0 + x]); };
+      auto L = [&](int y) { return static_cast<int>(pic[static_cast<size_t>(y0 + y) * stride + x0 - 1]); };
+      uint8_t out[8][8];
+      if (mode == 0) {
+        for (int by = 0; by < 2; ++by)
+          for (int bx = 0; bx < 2; ++bx) {
+            int st = 0, sl = 0;
+            for (int i = 0; i < 4; ++i) {
+              if (top) st += T(bx * 4 + i);
+              if (left) sl += L(by * 4 + i);
+            }
+            int v = 128;
+            if (bx == by) {
+              v = top && left ? (st + sl + 4) >> 3 : left ? (sl + 2) >> 2 : top ? (st + 2) >> 2 : 128;
+            } else if (bx == 1) {  // (4, 0): the row above first
+              v = top ? (st + 2) >> 2 : left ? (sl + 2) >> 2 : 128;
+            } else {  // (0, 4): the column to the left first
+              v = left ? (sl + 2) >> 2 : top ? (st + 2) >> 2 : 128;
+            }
+            for (int y = 0; y < 4; ++y)
+              for (int x = 0; x < 4; ++x) out[by * 4 + y][bx * 4 + x] = static_cast<uint8_t>(v);
+          }
+      } else if (mode == 1) {
+        for (int y = 0; y < 8; ++y)
+          for (int x = 0; x < 8; ++x) out[y][x] = L(y);
+      } else if (mode == 2) {
+        for (int y = 0; y < 8; ++y)
+          for (int x = 0; x < 8; ++x) out[y][x] = T(x);
+      } else {
+        const int corner_px = pic[static_cast<size_t>(y0 - 1) * stride + x0 - 1];
+        auto TT = [&](int x) { return x < 0 ? corner_px : T(x); };
+        auto LL = [&](int y) { return y < 0 ? corner_px : L(y); };
+        int hh = 0, vv = 0;
+        for (int i = 0; i < 4; ++i) {
+          hh += (i + 1) * (TT(4 + i) - TT(2 - i));
+          vv += (i + 1) * (LL(4 + i) - LL(2 - i));
+        }
+        const int a = 16 * (L(7) + T(7)), b = (34 * hh + 32) >> 6, c = (34 * vv + 32) >> 6;
+        for (int y = 0; y < 8; ++y)
+          for (int x = 0; x < 8; ++x) out[y][x] = Clip1((a + b * (x - 3) + c * (y - 3) + 16) >> 5);
+      }
+      for (int y = 0; y < 8; ++y)
+        for (int x = 0; x < 8; ++x) pic[static_cast<size_t>(y0 + y) * stride + x0 + x] = out[y][x];
+    }
+  }
+
+  // ---- inter prediction (8.4.2)
+  void InterPredict(int mbx, int mby, int px, int py, int w, int h, int ref, int mvx, int mvy) {
+    const Picture& r = *ref_list_[ref];
+    const int x0 = mbx * 16 + px, y0 = mby * 16 + py;
+    {
+      const int ax = x0 + (mvx >> 2), ay = y0 + (mvy >> 2);
+      if (ax + w <= -16 || ay + h <= -16 || ax >= width_ + 16 || ay >= height_ + 16) ++stats_[kFarMv];
+    }
+    uint8_t luma[16][16], cb[8][8], cr[8][8];
+    // Luma: a window of the reference with its coordinates clamped to the picture, then the 6-tap filter.
+    const int ix = x0 + (mvx >> 2), iy = y0 + (mvy >> 2), fx = mvx & 3, fy = mvy & 3;
+    int win[21][21];
+    for (int y = 0; y < h + 5; ++y)
+      for (int x = 0; x < w + 5; ++x) {
+        const int sx = Clip3(0, width_ - 1, ix + x - 2), sy = Clip3(0, height_ - 1, iy + y - 2);
+        win[y][x] = r.y[static_cast<size_t>(sy) * width_ + sx];
+      }
+    auto G = [&](int x, int y) { return win[y + 2][x + 2]; };
+    auto tap = [](int a, int b, int c, int d, int e, int f) { return a - 5 * b + 20 * c + 20 * d - 5 * e + f; };
+    auto b1 = [&](int x, int y) {  // the horizontal half-sample's sum at (x + 1/2, y)
+      return tap(G(x - 2, y), G(x - 1, y), G(x, y), G(x + 1, y), G(x + 2, y), G(x + 3, y));
+    };
+    auto h1 = [&](int x, int y) {  // the vertical one at (x, y + 1/2)
+      return tap(G(x, y - 2), G(x, y - 1), G(x, y), G(x, y + 1), G(x, y + 2), G(x, y + 3));
+    };
+    auto bb = [&](int x, int y) { return Clip1((b1(x, y) + 16) >> 5); };
+    auto hh = [&](int x, int y) { return Clip1((h1(x, y) + 16) >> 5); };
+    auto jj = [&](int x, int y) {
+      const int j1 = tap(b1(x, y - 2), b1(x, y - 1), b1(x, y), b1(x, y + 1), b1(x, y + 2), b1(x, y + 3));
+      return Clip1((j1 + 512) >> 10);
+    };
+    for (int y = 0; y < h; ++y)
+      for (int x = 0; x < w; ++x) {
+        int v;
+        const int G0 = G(x, y);
+        switch (fy * 4 + fx) {
+          case 0: v = G0; break;
+          case 1: v = (G0 + bb(x, y) + 1) >> 1; break;
+          case 2: v = bb(x, y); break;
+          case 3: v = (bb(x, y) + G(x + 1, y) + 1) >> 1; break;
+          case 4: v = (G0 + hh(x, y) + 1) >> 1; break;
+          case 5: v = (bb(x, y) + hh(x, y) + 1) >> 1; break;
+          case 6: v = (bb(x, y) + jj(x, y) + 1) >> 1; break;
+          case 7: v = (bb(x, y) + hh(x + 1, y) + 1) >> 1; break;
+          case 8: v = hh(x, y); break;
+          case 9: v = (hh(x, y) + jj(x, y) + 1) >> 1; break;
+          case 10: v = jj(x, y); break;
+          case 11: v = (jj(x, y) + hh(x + 1, y) + 1) >> 1; break;
+          case 12: v = (hh(x, y) + G(x, y + 1) + 1) >> 1; break;
+          case 13: v = (hh(x, y) + bb(x, y + 1) + 1) >> 1; break;
+          case 14: v = (jj(x, y) + bb(x, y + 1) + 1) >> 1; break;
+          default: v = (hh(x + 1, y) + bb(x, y + 1) + 1) >> 1; break;
+        }
+        luma[y][x] = static_cast<uint8_t>(v);
+      }
+    // Chroma: eighth-sample bilinear.
+    const int cw = w / 2, ch = h / 2, cx0 = x0 / 2, cy0 = y0 / 2, cwid = width_ / 2, chei = height_ / 2;
+    const int icx = cx0 + (mvx >> 3), icy = cy0 + (mvy >> 3), cfx = mvx & 7, cfy = mvy & 7;
+    for (int comp = 0; comp < 2; ++comp) {
+      const uint8_t* src = comp == 0 ? r.u.data() : r.v.data();
+      auto S = [&](int x, int y) {
+        return static_cast<int>(src[static_cast<size_t>(Clip3(0, chei - 1, y)) * cwid + Clip3(0, cwid - 1, x)]);
+      };
+      uint8_t(*dst)[8] = comp == 0 ? cb : cr;
+      for (int y = 0; y < ch; ++y)
+        for (int x = 0; x < cw; ++x) {
+          const int sx = icx + x, sy = icy + y;
+          dst[y][x] = static_cast<uint8_t>(((8 - cfx) * (8 - cfy) * S(sx, sy) + cfx * (8 - cfy) * S(sx + 1, sy) +
+                                            (8 - cfx) * cfy * S(sx, sy + 1) + cfx * cfy * S(sx + 1, sy + 1) + 32) >> 6);
+        }
+    }
+    // Explicit weighted prediction (8.4.2.3.2).
+    if (header_.weighted) {
+      const Weight& wt = header_.weights[ref];
+      if (wt.luma) {
+        const int lw = header_.luma_log2;
+        for (int y = 0; y < h; ++y)
+          for (int x = 0; x < w; ++x)
+            luma[y][x] = lw >= 1 ? Clip1(((luma[y][x] * wt.luma_w + (1 << (lw - 1))) >> lw) + wt.luma_o)
+                                 : Clip1(luma[y][x] * wt.luma_w + wt.luma_o);
+      }
+      if (wt.chroma) {
+        const int cwd = header_.chroma_log2;
+        for (int comp = 0; comp < 2; ++comp) {
+          uint8_t(*dst)[8] = comp == 0 ? cb : cr;
+          for (int y = 0; y < ch; ++y)
+            for (int x = 0; x < cw; ++x)
+              dst[y][x] = cwd >= 1
+                              ? Clip1(((dst[y][x] * wt.chroma_w[comp] + (1 << (cwd - 1))) >> cwd) + wt.chroma_o[comp])
+                              : Clip1(dst[y][x] * wt.chroma_w[comp] + wt.chroma_o[comp]);
+        }
+      }
+    }
+    for (int y = 0; y < h; ++y)
+      std::memcpy(&cur_->y[static_cast<size_t>(y0 + y) * width_ + x0], luma[y], w);
+    for (int y = 0; y < ch; ++y) {
+      std::memcpy(&cur_->u[static_cast<size_t>(cy0 + y) * cwid + cx0], cb[y], cw);
+      std::memcpy(&cur_->v[static_cast<size_t>(cy0 + y) * cwid + cx0], cr[y], cw);
+    }
+  }
+
+  // ---- deblocking (8.7)
+  int Strength(int mb_p, int mb_q, int bp, int bq, bool mb_edge) const {
+    const MbInfo& p = mbs_[mb_p];
+    const MbInfo& q = mbs_[mb_q];
+    if (p.Intra() || q.Intra()) return mb_edge ? 4 : 3;
+    const int rp = (bp >> 2) & 3, cp = bp & 3, rq = (bq >> 2) & 3, cq = bq & 3;
+    if (p.nz[rp * 4 + cp] || q.nz[rq * 4 + cq]) return 2;
+    const int mbw = mb_width_;
+    const size_t ip = static_cast<size_t>((mb_p / mbw) * 4 + rp) * mbw * 4 + (mb_p % mbw) * 4 + cp;
+    const size_t iq = static_cast<size_t>((mb_q / mbw) * 4 + rq) * mbw * 4 + (mb_q % mbw) * 4 + cq;
+    if (refpic_[ip] != refpic_[iq]) return 1;
+    if (std::abs(mv_[2 * ip] - mv_[2 * iq]) >= 4 || std::abs(mv_[2 * ip + 1] - mv_[2 * iq + 1]) >= 4) return 1;
+    return 0;
+  }
+
+  // Filters one line of samples across an edge: p[-k * step] are p0..p3, p[k * step] q0..q3 (p0 = s[-step]).
+  static void FilterLine(uint8_t* s, int step, int bs, int alpha, int beta, int tc0, bool luma) {
+    const int p0 = s[-step], p1 = s[-2 * step], q0 = s[0], q1 = s[step];
+    if (!(std::abs(p0 - q0) < alpha && std::abs(p1 - p0) < beta && std::abs(q1 - q0) < beta)) return;
+    const int p2 = luma ? s[-3 * step] : 0, q2 = luma ? s[2 * step] : 0;
+    if (bs < 4) {
+      const int ap = std::abs(p2 - p0), aq = std::abs(q2 - q0);
+      const int tc = luma ? tc0 + (ap < beta) + (aq < beta) : tc0 + 1;
+      const int delta = Clip3(-tc, tc, (((q0 - p0) << 2) + (p1 - q1) + 4) >> 3);
+      s[-step] = Clip1(p0 + delta);
+      s[0] = Clip1(q0 - delta);
+      if (luma) {
+        const int avg = (p0 + q0 + 1) >> 1;
+        if (ap < beta) s[-2 * step] = static_cast<uint8_t>(p1 + Clip3(-tc0, tc0, (p2 + avg - (p1 << 1)) >> 1));
+        if (aq < beta) s[step] = static_cast<uint8_t>(q1 + Clip3(-tc0, tc0, (q2 + avg - (q1 << 1)) >> 1));
+      }
+      return;
+    }
+    if (luma) {
+      const int p3 = s[-4 * step], q3 = s[3 * step];
+      const int ap = std::abs(p2 - p0), aq = std::abs(q2 - q0);
+      const bool strong = std::abs(p0 - q0) < ((alpha >> 2) + 2);
+      if (ap < beta && strong) {
+        s[-step] = static_cast<uint8_t>((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
+        s[-2 * step] = static_cast<uint8_t>((p2 + p1 + p0 + q0 + 2) >> 2);
+        s[-3 * step] = static_cast<uint8_t>((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
+      } else {
+        s[-step] = static_cast<uint8_t>((2 * p1 + p0 + q1 + 2) >> 2);
+      }
+      if (aq < beta && strong) {
+        s[0] = static_cast<uint8_t>((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
+        s[step] = static_cast<uint8_t>((p0 + q0 + q1 + q2 + 2) >> 2);
+        s[2 * step] = static_cast<uint8_t>((2 * q3 + 3 * q2 + q1 + q0 + p0 + 4) >> 3);
+      } else {
+        s[0] = static_cast<uint8_t>((2 * q1 + q0 + p1 + 2) >> 2);
+      }
+    } else {
+      s[-step] = static_cast<uint8_t>((2 * p1 + p0 + q1 + 2) >> 2);
+      s[0] = static_cast<uint8_t>((2 * q1 + q0 + p1 + 2) >> 2);
+    }
+  }
+
+  void Deblock() {
+    const int mbw = mb_width_;
+    for (int addr = 0; addr < mbw * mb_height_; ++addr) {
+      const int mbx = addr % mbw, mby = addr / mbw;
+      const MbInfo& q = mbs_[addr];
+      const SliceInfo& si = slices_[q.slice];
+      if (si.deblock_idc == 1) continue;
+      const bool left = mbx > 0 && (si.deblock_idc == 0 || mbs_[addr - 1].slice == q.slice);
+      const bool top = mby > 0 && (si.deblock_idc == 0 || mbs_[addr - mbw].slice == q.slice);
+      for (int dir = 0; dir < 2; ++dir) {  // vertical edges, then horizontal
+        for (int e = 0; e < 4; ++e) {
+          const bool mb_edge = e == 0;
+          if (mb_edge && !(dir == 0 ? left : top)) continue;
+          const int mb_p = mb_edge ? (dir == 0 ? addr - 1 : addr - mbw) : addr;
+          int bs[4];
+          for (int k = 0; k < 4; ++k) {
+            const int bq = dir == 0 ? k * 4 + e : e * 4 + k;
+            const int bp = mb_edge ? (dir == 0 ? k * 4 + 3 : 12 + k) : (dir == 0 ? bq - 1 : bq - 4);
+            bs[k] = Strength(mb_p, addr, bp, bq, mb_edge);
+          }
+          if (!bs[0] && !bs[1] && !bs[2] && !bs[3]) continue;
+          const MbInfo& p = mbs_[mb_p];
+          const int qp_p = p.kind == kMbPcm ? 0 : p.qp, qp_q = q.kind == kMbPcm ? 0 : q.qp;
+          // Luma.
+          {
+            const int qpav = (qp_p + qp_q + 1) >> 1;
+            const int ia = Clip3(0, 51, qpav + si.alpha_offset), ib = Clip3(0, 51, qpav + si.beta_offset);
+            const int alpha = kAlpha[ia], beta = kBeta[ib];
+            for (int i = 0; i < 16; ++i) {
+              const int b = bs[i >> 2];
+              if (!b) continue;
+              uint8_t* s;
+              int step;
+              if (dir == 0) {
+                s = &cur_->y[static_cast<size_t>(mby * 16 + i) * width_ + mbx * 16 + e * 4];
+                step = 1;
+              } else {
+                s = &cur_->y[static_cast<size_t>(mby * 16 + e * 4) * width_ + mbx * 16 + i];
+                step = width_;
+              }
+              FilterLine(s, step, b, alpha, beta, b < 4 ? kTc0[ia][b - 1] : 0, true);
+            }
+          }
+          // Chroma: edges 0 and 2 of the luma grid fall on chroma edges 0 and 4.
+          if (e & 1) continue;
+          const int qpc_p = ChromaQp(qp_p, slices_[p.slice].chroma_qp_offset);
+          const int qpc_q = ChromaQp(qp_q, si.chroma_qp_offset);
+          const int qpav = (qpc_p + qpc_q + 1) >> 1;
+          const int ia = Clip3(0, 51, qpav + si.alpha_offset), ib = Clip3(0, 51, qpav + si.beta_offset);
+          const int alpha = kAlpha[ia], beta = kBeta[ib];
+          const int cs = width_ / 2;
+          for (int comp = 1; comp <= 2; ++comp)
+            for (int i = 0; i < 8; ++i) {
+              const int b = bs[i >> 1];
+              if (!b) continue;
+              uint8_t* s;
+              int step;
+              if (dir == 0) {
+                s = &cur_->Plane(comp)[static_cast<size_t>(mby * 8 + i) * cs + mbx * 8 + e * 2];
+                step = 1;
+              } else {
+                s = &cur_->Plane(comp)[static_cast<size_t>(mby * 8 + e * 2) * cs + mbx * 8 + i];
+                step = cs;
+              }
+              FilterLine(s, step, b, alpha, beta, b < 4 ? kTc0[ia][b - 1] : 0, false);
+            }
+        }
+      }
+    }
+  }
+
+  // ---- state
+  int length_size_ = 0;
+  Sps sps_[32];
+  Pps pps_[256];
+  int sps_index_ = 0;
+  int width_ = 0, height_ = 0, mb_width_ = 0, mb_height_ = 0;
+  int crop_left_ = 0, crop_right_ = 0, crop_top_ = 0, crop_bottom_ = 0, out_width_ = 0, out_height_ = 0;
+  bool seen_idr_ = false;
+  PicturePtr cur_;
+  Header cur_header_, header_;
+  std::vector<MbInfo> mbs_;
+  std::vector<int16_t> mv_;
+  std::vector<int8_t> ref_;
+  std::vector<int> refpic_;
+  std::vector<SliceInfo> slices_;
+  int slice_ = 0, next_mb_ = 0, picture_ids_ = 0;
+  std::vector<PicturePtr> dpb_, ref_list_, output_;
+  int prev_ref_frame_num_ = 0, prev_frame_num_ = 0, prev_frame_num_offset_ = 0;
+  int prev_poc_msb_ = 0, prev_poc_lsb_ = 0, cur_poc_msb_ = 0, cur_frame_num_offset_ = 0;
+  int64_t last_poc_ = 0;
+  int max_long_idx_ = -1, cur_max_frame_num_ = 16, cur_max_refs_ = 1;
+  int64_t stats_[kNumStats] = {};
+};
+
+void CopyMessage(const char* msg, char* err, int err_len) {
+  if (err && err_len > 0) {
+    std::strncpy(err, msg, err_len - 1);
+    err[err_len - 1] = '\0';
+  }
+}
+
+}  // namespace sr_h264
+
+extern "C" {
+
+void* sr_h264_stream_new(const uint8_t* config, int64_t size, char* err, int err_len) {
+  try {
+    return new sr_h264::Decoder(config, size > 0 ? static_cast<size_t>(size) : 0);
+  } catch (const sr_h264::Unsupported& e) {
+    sr_h264::CopyMessage((std::string("!") + e.what()).c_str(), err, err_len);
+  } catch (const std::exception& e) {
+    sr_h264::CopyMessage(e.what(), err, err_len);
+  }
+  return nullptr;
+}
+
+void sr_h264_stream_free(void* handle) { delete static_cast<sr_h264::Decoder*>(handle); }
+
+int sr_h264_stream_decode(void* handle, const uint8_t* data, int64_t size, char* err, int err_len) {
+  try {
+    return static_cast<sr_h264::Decoder*>(handle)->Decode(data, size > 0 ? static_cast<size_t>(size) : 0);
+  } catch (const sr_h264::Unsupported& e) {
+    sr_h264::CopyMessage(e.what(), err, err_len);
+    return -2;
+  } catch (const std::exception& e) {
+    sr_h264::CopyMessage(e.what(), err, err_len);
+    return -1;
+  }
+}
+
+void sr_h264_stream_size(void* handle, int32_t* width_height) {
+  const auto* dec = static_cast<const sr_h264::Decoder*>(handle);
+  width_height[0] = dec->width();
+  width_height[1] = dec->height();
+}
+
+void sr_h264_stream_bgr(void* handle, int index, uint8_t* out) {
+  const auto* dec = static_cast<const sr_h264::Decoder*>(handle);
+  const sr_h264::Picture& pic = dec->output(index);
+  const int top = dec->crop_top(), left = dec->crop_left();
+  // 4:2:0 cropped in steps of 2 keeps an even height: swscale's unscaled converter.
+  sr_yuv::Yuv420ToBgrUnscaled(pic.y.data() + static_cast<size_t>(top) * pic.width + left,
+                              pic.u.data() + static_cast<size_t>(top / 2) * (pic.width / 2) + left / 2,
+                              pic.v.data() + static_cast<size_t>(top / 2) * (pic.width / 2) + left / 2, pic.width,
+                              pic.width / 2, dec->width(), dec->height(), pic.colour, out);
+}
+
+void sr_h264_stream_plane(void* handle, int index, int plane, uint8_t* out) {
+  const auto* dec = static_cast<const sr_h264::Decoder*>(handle);
+  const sr_h264::Picture& pic = dec->output(index);
+  const int sub = plane ? 1 : 0;
+  const int w = dec->width() >> sub, h = dec->height() >> sub;
+  const int top = dec->crop_top() >> sub, left = dec->crop_left() >> sub, stride = pic.Stride(plane);
+  const uint8_t* src = pic.Plane(plane);
+  for (int y = 0; y < h; ++y)
+    std::memcpy(out + static_cast<size_t>(y) * w, src + static_cast<size_t>(y + top) * stride + left, w);
+}
+
+int sr_h264_stream_stats(void* handle, int64_t* out, int n) {
+  const int64_t* stats = static_cast<const sr_h264::Decoder*>(handle)->stats();
+  for (int i = 0; i < n && i < sr_h264::kNumStats; ++i) out[i] = stats[i];
+  return sr_h264::kNumStats;
+}
+
+}  // extern "C"

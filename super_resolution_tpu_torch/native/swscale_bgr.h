@@ -1,8 +1,9 @@
-// Planar 8-bit YUV (BT.601, limited range) -> BGR24 as cv2.VideoCapture
+// Planar 8-bit YUV (BT.601, limited range; the unscaled path also with the
+// other matrices and the full range H.264 signals) -> BGR24 as cv2.VideoCapture
 // converts every frame FFmpeg decodes: swscale at SWS_BICUBIC, same size,
 // with the frame's chroma siting, and the routines swscale picks on x86-64
 // (SSSE3 and up). Shared by the MPEG-4
-// Part 2, VP8, VP9 and FFV1 video decoders.
+// Part 2, VP8, VP9, FFV1 and H.264 video decoders.
 //
 // swscale takes one of two paths:
 //
@@ -58,12 +59,24 @@ inline int16_t W16(int v) { return static_cast<int16_t>(v); }                   
 inline int Pmulhw(int a, int b) { return (int{W16(a)} * int{W16(b)}) >> 16; }      // signed high half
 inline uint8_t Packus(int v) { return ClipPixel(W16(v)); }                         // packuswb of a word
 
+}  // namespace detail
+
+// The SIMD converter's coefficients: ff_yuv2rgb_c_init_tables' yCoeff, vrCoeff, ubCoeff, ugCoeff, vgCoeff and
+// yOffset.
+struct Coefficients {
+  int y, vr, ub, ug, vg, y_offset;
+};
+
+namespace detail {
+
+constexpr Coefficients kBt601Limited{kY, kVR, kUB, kUG, kVG, kYOffset8};
+
 // The MMXEXT / SSSE3 conversion of one pixel from its luma and chroma in << 3 scale.
-inline void Simd(int y8, int u8, int v8, uint8_t* o) {
-  const int yy = Pmulhw(y8 - kYOffset8, kY), u = W16(u8 - kUVOffset8), v = W16(v8 - kUVOffset8);
-  o[0] = Packus(yy + Pmulhw(u, kUB));
-  o[1] = Packus(yy + W16(Pmulhw(u, kUG) + Pmulhw(v, kVG)));
-  o[2] = Packus(yy + Pmulhw(v, kVR));
+inline void Simd(int y8, int u8, int v8, uint8_t* o, const Coefficients& k = kBt601Limited) {
+  const int yy = Pmulhw(y8 - k.y_offset, k.y), u = W16(u8 - kUVOffset8), v = W16(v8 - kUVOffset8);
+  o[0] = Packus(yy + Pmulhw(u, k.ub));
+  o[1] = Packus(yy + W16(Pmulhw(u, k.ug) + Pmulhw(v, k.vg)));
+  o[2] = Packus(yy + Pmulhw(v, k.vr));
 }
 
 // ff_yuv2rgb_c_init_tables for a 24-bit output: one luma table, indexed through per-chroma offsets.
@@ -241,13 +254,13 @@ inline int LocalPos(int shift, int pos) {
 
 // The unscaled SSSE3 converter (4:2:0 with vshift 1, 4:2:2 with vshift 0).
 inline void Unscaled(const uint8_t* yp, const uint8_t* up, const uint8_t* vp, int y_stride, int uv_stride, int width,
-                     int height, int vshift, uint8_t* bgr) {
+                     int height, int vshift, uint8_t* bgr, const Coefficients& k = kBt601Limited) {
   for (int y = 0; y < height; ++y) {
     const uint8_t* yr = yp + static_cast<size_t>(y) * y_stride;
     const uint8_t* ur = up + static_cast<size_t>(y >> vshift) * uv_stride;
     const uint8_t* vr = vp + static_cast<size_t>(y >> vshift) * uv_stride;
     uint8_t* o = bgr + static_cast<size_t>(y) * width * 3;
-    for (int x = 0; x < width; ++x) Simd(yr[x] << 3, ur[x >> 1] << 3, vr[x >> 1] << 3, o + 3 * x);
+    for (int x = 0; x < width; ++x) Simd(yr[x] << 3, ur[x >> 1] << 3, vr[x >> 1] << 3, o + 3 * x, k);
   }
 }
 
@@ -362,6 +375,46 @@ inline void YuvToBgr(const uint8_t* yp, const uint8_t* up, const uint8_t* vp, in
       }
     }
   }
+}
+
+// swscale's table of a colour matrix (sws_getCoefficients: crv, cbu, -cgu, -cgv) for the matrix_coefficients
+// values cv2.VideoCapture's conversion follows: BT.709 (1), the BT.601 ones and unspecified (2, 5, 6: swscale's
+// default), FCC (4), SMPTE 240M (7); null for the others (BT.2020's frames are not swscale's BT.2020 conversion).
+inline const int* MatrixTable(int matrix) {
+  static const int kBt601[4] = {104597, 132201, 25675, 53279}, kBt709[4] = {117489, 138438, 13975, 34925};
+  static const int kFcc[4] = {104448, 132798, 24759, 53109}, kSmpte240[4] = {117579, 136230, 16907, 35559};
+  switch (matrix) {
+    case 1: return kBt709;
+    case 2: case 5: case 6: return kBt601;
+    case 4: return kFcc;
+    case 7: return kSmpte240;
+    default: return nullptr;
+  }
+}
+
+// The SIMD converter's coefficients for a matrix's table at limited or full range, at swscale's default
+// brightness, contrast and saturation (ff_yuv2rgb_c_init_tables); BT.601 at limited range gives detail's
+// constants.
+inline Coefficients SimdCoefficients(const int table[4], bool full_range) {
+  auto round16 = [](int64_t f) {  // roundToInt16
+    const int64_t r = (f + (1 << 15)) >> 16;
+    return static_cast<int>(r < -0x7FFF ? -0x8000 : r > 0x7FFF ? 0x7FFF : r);
+  };
+  int64_t crv = table[0], cbu = table[1], cgu = -table[2], cgv = -table[3], cy = 1 << 16, oy = 0;
+  if (!full_range) {
+    cy = (cy * 255) / 219;
+    oy = int64_t{16} << 16;
+  } else {
+    crv = (crv * 224) / 255, cbu = (cbu * 224) / 255, cgu = (cgu * 224) / 255, cgv = (cgv * 224) / 255;
+  }
+  return {round16(cy * (1 << 13)), round16(crv * (1 << 13)), round16(cbu * (1 << 13)), round16(cgu * (1 << 13)),
+          round16(cgv * (1 << 13)), round16(oy * (1 << 3))};
+}
+
+// 4:2:0 of an even height through the unscaled converter with coefficients `k` (H.264's colour description).
+inline void Yuv420ToBgrUnscaled(const uint8_t* yp, const uint8_t* up, const uint8_t* vp, int y_stride, int uv_stride,
+                                int width, int height, const Coefficients& k, uint8_t* bgr) {
+  detail::Unscaled(yp, up, vp, y_stride, uv_stride, width, height, 1, bgr, k);
 }
 
 // 4:2:0 of the VP8 and VP9 decoders (chroma centred) and of the MPEG-4 one (`left`: sited left).

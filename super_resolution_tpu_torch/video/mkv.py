@@ -19,16 +19,17 @@ Codecs: ``V_MJPEG`` (each frame a JPEG); ``V_MPEG4/ISO/SP``, ``/ASP`` and
 configuration); ``V_VP8`` (each frame a VP8 frame, hidden ones included);
 ``V_VP9`` (each frame a VP9 frame or superframe); ``V_FFV1`` (each frame
 an FFV1 frame, with ``CodecPrivate`` as its configuration record);
+``V_MPEG4/ISO/AVC`` (each frame an H.264 access unit of length-prefixed NAL
+units, with ``CodecPrivate`` as its AVCDecoderConfigurationRecord);
 ``V_MS/VFW/FOURCC``, whose ``CodecPrivate`` is a
 ``BITMAPINFOHEADER`` followed by the decoder's configuration, routed by its
 compression code as the AVI reader routes a stream's four-character code
 (code 0 at 24 bits: rows of BGR24, which FFmpeg's Matroska demuxer hands
 over top-down at the track's ``PixelWidth`` x ``PixelHeight``, not at the
 header's size, and unflipped).
-Every other codec (``V_MPEG4/ISO/AVC``,
-``V_MPEGH/ISO/HEVC``, ``V_AV1``, ...), a track with ``ContentEncodings``
-(compressed or encrypted frames) and a file with a second video track raise
-``NotImplementedError`` naming what they are.
+Every other codec (``V_MPEGH/ISO/HEVC``, ``V_AV1``, ...), a track with
+``ContentEncodings`` (compressed or encrypted frames) and a file with a second
+video track raise ``NotImplementedError`` naming what they are.
 """
 
 from __future__ import annotations

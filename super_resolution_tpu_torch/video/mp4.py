@@ -10,10 +10,12 @@ Visual, whose DecoderSpecificInfo carries the VOS / VO / VOL headers) or its
 ``vp09`` sample entry (VP9, whose ``vpcC`` box is read only for the profile
 and bit depth: the frames carry their own headers) or its ``FFV1`` sample
 entry (FFV1, whose ``glbl`` box holds the configuration record and whose
-width and height are the frames'), and
+width and height are the frames') or its ``avc1`` / ``avc3`` sample entry
+(H.264, whose ``avcC`` box -- the AVCDecoderConfigurationRecord -- holds the
+parameter sets and the length of the samples' NAL unit size fields), and
 locates every sample from ``stsz``, ``stsc`` and ``stco`` / ``co64``,
-timed by ``stts`` (I- and P-VOPs, VP9 or FFV1 frames: decode order is
-presentation order). An edit list (``elst``) is
+timed by ``stts`` (I- and P-VOPs, VP9, FFV1 or H.264 frames in decoding
+order). An edit list (``elst``) is
 honoured as FFmpeg honours it: each edit with a media time plays the
 samples whose presentation time lies in ``[media_time, media_time +
 duration)``, decoding from the sync sample before the first of them; an
@@ -21,8 +23,8 @@ empty edit only delays. Without an edit list every sample plays.
 
 A fragmented file (``mvex`` / ``moof``), a ``vp09`` entry of another
 profile than 0 or of more than 8 bits, and any other sample entry than
-``mp4v``, ``vp09`` and ``FFV1`` raise ``NotImplementedError`` naming it (the codec and
-its four-character code, such as "H.264 (avc1)").
+``mp4v``, ``vp09``, ``FFV1``, ``avc1`` and ``avc3`` raise ``NotImplementedError`` naming
+it (the codec and its four-character code, such as "HEVC (hvc1)").
 """
 
 from __future__ import annotations
@@ -149,8 +151,8 @@ def _timescale(data: bytes, start: int) -> int:
 class Mp4Video:
     """The first video track: its decoder configuration, its samples in
     decode order, for each whether its frame is shown (``False``: decoded
-    only, ahead of an edit), its sample entry's code (``mp4v``, ``vp09`` or
-    ``FFV1``) and the entry's width and height."""
+    only, ahead of an edit), its sample entry's code (``mp4v``, ``vp09``,
+    ``FFV1``, ``avc1`` or ``avc3``) and the entry's width and height."""
 
     config: bytes
     samples: list[bytes]
@@ -193,12 +195,17 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
     if not entries:
         raise ValueError("MP4 video track without a sample description.")
     fourcc, es, ee = entries[0]
-    if fourcc not in (b"mp4v", b"vp09", b"FFV1"):
+    if fourcc not in (b"mp4v", b"vp09", b"FFV1", b"avc1", b"avc3"):
         name = _CODECS.get(fourcc, "a codec")
         raise NotImplementedError(f"MP4 video of {name} ({fourcc.decode('latin-1')}) is not supported by the port's "
-                                  "video reader (MPEG-4 Part 2, mp4v, VP9, vp09, and FFV1 are).")
+                                  "video reader (MPEG-4 Part 2, mp4v, VP9, vp09, FFV1, and H.264, avc1 / avc3, are).")
     width, height = struct.unpack(">HH", data[es + 24:es + 28])
-    if fourcc == b"FFV1":
+    if fourcc in (b"avc1", b"avc3"):
+        avcc = _child(data, es + 78, ee, b"avcC")  # after the 78 bytes of the visual sample entry
+        if avcc is None:
+            raise ValueError(f"MP4 {fourcc.decode()} sample entry without an avcC box.")
+        config = data[avcc[0]:avcc[1]]
+    elif fourcc == b"FFV1":
         glbl = _child(data, es + 78, ee, b"glbl")  # after the 78 bytes of the visual sample entry
         config = data[glbl[0]:glbl[1]] if glbl else b""
     elif fourcc == b"vp09":

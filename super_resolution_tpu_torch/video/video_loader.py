@@ -15,12 +15,13 @@ reads the file itself, choosing the container by its first bytes, not by
 its extension:
 
 - MP4 / QuickTime (:mod:`super_resolution_tpu_torch.video.mp4`): the first
-  video track's MPEG-4 Part 2 (``mp4v``), VP9 (``vp09``) or FFV1 (``FFV1``,
-  configured by its ``glbl`` box) samples, with its edit list;
+  video track's MPEG-4 Part 2 (``mp4v``), VP9 (``vp09``), FFV1 (``FFV1``,
+  configured by its ``glbl`` box) or H.264 (``avc1`` / ``avc3``, configured
+  by its ``avcC`` box) samples, with its edit list;
 - Matroska / WebM (:mod:`super_resolution_tpu_torch.video.mkv`): the
   first video track's MPEG-4 Part 2 (``V_MPEG4/ISO/SP|ASP|AP``), VP8
-  (``V_VP8``), VP9 (``V_VP9``), FFV1 (``V_FFV1``) or Motion-JPEG
-  (``V_MJPEG``) frames, or those
+  (``V_VP8``), VP9 (``V_VP9``), FFV1 (``V_FFV1``), H.264
+  (``V_MPEG4/ISO/AVC``) or Motion-JPEG (``V_MJPEG``) frames, or those
   of a ``V_MS/VFW/FOURCC`` track whose code the AVI reader takes
   (uncompressed 24-bit rows top-down, at the track's size, as FFmpeg's
   Matroska demuxer hands them over);
@@ -28,25 +29,30 @@ its extension:
   list (and of the OpenDML ``AVIX`` extensions), decoded as MPEG-4 Part 2
   (fourcc ``XVID``, ``DIVX``, ``DX50``, ``FMP4``, ``MP4V``, in either case),
   as VP8 (``VP80``), VP9 (``VP90``) or FFV1 (``FFV1``, configured by what
-  follows the ``BITMAPINFOHEADER`` in ``strf``; each in either case), as Motion-JPEG
+  follows the ``BITMAPINFOHEADER`` in ``strf``; each in either case), as
+  H.264 in Annex B (``H264``, ``X264``, ``AVC1``, in either case), as Motion-JPEG
   through :mod:`super_resolution_tpu_torch.utils.jpeg`, or as uncompressed
   24-bit ``BI_RGB`` rows (bottom-up where the height is positive, each row
   padded to 4 bytes);
 - IVF (:mod:`super_resolution_tpu_torch.video.ivf`): its VP8 (``VP80``) or
-  VP9 (``VP90``) frames.
+  VP9 (``VP90``) frames;
+- a raw H.264 Annex B stream (``.h264`` / ``.264``), told apart by a start
+  code and a NAL unit header of H.264, as ``cv2.VideoCapture`` opens one.
 
 MPEG-4 Part 2 frames (:mod:`super_resolution_tpu_torch.utils.mpeg4`), VP8
 frames (:mod:`super_resolution_tpu_torch.utils.vp8`), VP9 frames
-(:mod:`super_resolution_tpu_torch.utils.vp9`) and FFV1 frames
-(:mod:`super_resolution_tpu_torch.utils.ffv1`, versions 0-3 at 8 bits) are
+(:mod:`super_resolution_tpu_torch.utils.vp9`), FFV1 frames
+(:mod:`super_resolution_tpu_torch.utils.ffv1`, versions 0-3 at 8 bits) and
+H.264 frames (:mod:`super_resolution_tpu_torch.utils.h264`: progressive 8-bit
+4:2:0, CAVLC, I and P slices) are
 ``cv2.VideoCapture``'s, pixel for pixel, at any frame size, on what
 ``cv2.VideoWriter`` writes; a hidden VP8 or VP9
 frame gives none, a VP9 superframe or ``show_existing_frame`` the frames it
 shows. An MJPEG frame is what ``cv2.imdecode`` gives for its JPEG payload;
 FFmpeg's MJPEG decoder and colour conversion differ from that by a few grey
-levels (ROADMAP.md, Queue 3). Other containers and codecs (H.264, HuffYUV,
-FFV1 above 8 bits, MS-MPEG4 ``DIV3``, ...) raise ``NotImplementedError``
-naming them.
+levels (ROADMAP.md, Queue 3). Other containers and codecs (HEVC, HuffYUV,
+FFV1 above 8 bits, MS-MPEG4 ``DIV3``, H.264 with CABAC or B slices, ...)
+raise ``NotImplementedError`` naming them.
 """
 
 from __future__ import annotations
@@ -67,6 +73,7 @@ _MPEG4 = {b"XVID", b"xvid", b"DIVX", b"divx", b"DX50", b"dx50", b"FMP4", b"fmp4"
 _VP8 = {b"VP80", b"vp80"}
 _VP9 = {b"VP90", b"vp90"}
 _FFV1 = {b"FFV1", b"ffv1"}
+_H264 = {b"H264", b"h264", b"X264", b"x264", b"avc1", b"AVC1"}
 _DISPLAY_SIZE = (1000, 600)  # kDisplayFrameSize, video_loader.cpp:19
 
 
@@ -145,15 +152,15 @@ def _read(path: str) -> bytes:
 def _refuse_container(path: str, head: bytes) -> NotImplementedError:
     return NotImplementedError(
         f"{path}: {_container_name(head)} is not supported by the port's video reader (MP4 / QuickTime with "
-        "MPEG-4 Part 2, VP9 or FFV1, Matroska / WebM with MPEG-4 Part 2, VP8, VP9, FFV1 or Motion-JPEG, AVI with "
-        "MPEG-4 Part 2, VP8, VP9, FFV1, Motion-JPEG or uncompressed frames, and IVF with VP8 or VP9, are); convert "
-        "the video, or extract its frames as images.")
+        "MPEG-4 Part 2, VP9, FFV1 or H.264, Matroska / WebM with MPEG-4 Part 2, VP8, VP9, FFV1, H.264 or "
+        "Motion-JPEG, AVI with MPEG-4 Part 2, VP8, VP9, FFV1, H.264, Motion-JPEG or uncompressed frames, IVF with "
+        "VP8 or VP9, and raw H.264 Annex B streams, are); convert the video, or extract its frames as images.")
 
 
 def read_video_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:
-    """The frames of an MP4 / QuickTime, Matroska / WebM, AVI or IVF file,
-    told apart by its first bytes, as uint8 ``HxWx3`` BGR arrays (all, or
-    the first ``max_frames``)."""
+    """The frames of an MP4 / QuickTime, Matroska / WebM, AVI or IVF file or
+    of a raw H.264 stream, told apart by its first bytes, as uint8 ``HxWx3``
+    BGR arrays (all, or the first ``max_frames``)."""
     from super_resolution_tpu_torch.video.ivf import is_ivf
     from super_resolution_tpu_torch.video.mkv import is_matroska
     from super_resolution_tpu_torch.video.mp4 import is_iso_bmff
@@ -167,7 +174,16 @@ def read_video_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:
         return _matroska_frames(path, data, max_frames)
     if is_ivf(data[:4]):
         return _ivf_frames(path, data, max_frames)
+    if _is_annexb(data[:5]):
+        return _h264_frames([data], max_frames)
     raise _refuse_container(path, data[:12])
+
+
+def _is_annexb(head: bytes) -> bool:
+    """Whether a file starting with ``head`` is an H.264 Annex B stream: a start code, then a NAL unit header
+    with the forbidden bit clear and a slice, SEI, parameter set or delimiter type."""
+    start = 3 if head[:3] == b"\0\0\1" else 4 if head[:4] == b"\0\0\0\1" else 0
+    return bool(start) and len(head) > start and not head[start] & 0x80 and (head[start] & 31) in (1, 5, 6, 7, 8, 9)
 
 
 def _ivf_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray]:
@@ -204,6 +220,15 @@ def _ffv1_frames(payloads: list[bytes], max_frames: int, config: bytes, width: i
     return _shown_frames(Ffv1Decoder(config, width, height), payloads, max_frames, shown)
 
 
+def _h264_frames(payloads: list[bytes], max_frames: int, config: bytes = b"",
+                 shown: list[bool] | None = None) -> list[np.ndarray]:
+    """The frames of an H.264 stream's access units (length-prefixed after an ``avcC`` ``config``, Annex B
+    without one), keeping those of the ``shown`` payloads."""
+    from super_resolution_tpu_torch.utils.h264 import H264Decoder
+
+    return _shown_frames(H264Decoder(config), payloads, max_frames, shown)
+
+
 def _shown_frames(decoder, payloads: list[bytes], max_frames: int, shown: list[bool] | None = None) -> list[np.ndarray]:
     """The frames ``decoder`` gives for each payload in turn (none, one or more), those of the ``shown`` payloads
     kept (default: all), the first ``max_frames`` (0: all)."""
@@ -227,10 +252,10 @@ def _matroska_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray
         if tag == b"\0\0\0\0" and bits == 24:
             return [_decode_bgr24(p, video.width, -video.height, packed=True)
                     for p in video.frames[:max_frames or None]]
-        if tag not in _MPEG4 | _MJPEG | _VP8 | _VP9 | _FFV1:
+        if tag not in _MPEG4 | _MJPEG | _VP8 | _VP9 | _FFV1 | _H264:
             raise NotImplementedError(f"{path}: Matroska V_MS/VFW/FOURCC video {_fourcc_name(tag)} with {bits} bits "
                                       "per pixel is not supported by the port's video reader (MPEG-4 Part 2, VP8, "
-                                      "VP9, FFV1, Motion-JPEG and uncompressed 24-bit BGR are).")
+                                      "VP9, FFV1, H.264, Motion-JPEG and uncompressed 24-bit BGR are).")
     if codec in mkv.MPEG4_CODECS or tag in _MPEG4:
         return _mpeg4_frames(video.frames, max_frames, config, codec_tag=tag)
     if codec == "V_VP8" or tag in _VP8:
@@ -239,12 +264,16 @@ def _matroska_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray
         return _vp9_frames(video.frames, max_frames)
     if codec == "V_FFV1" or tag in _FFV1:
         return _ffv1_frames(video.frames, max_frames, config, video.width, video.height)
+    if codec == "V_MPEG4/ISO/AVC":
+        return _h264_frames(video.frames, max_frames, config)
+    if tag in _H264:
+        return _h264_frames(video.frames, max_frames)
     if codec == "V_MJPEG" or tag in _MJPEG:
         return [_decode_mjpeg(p) for p in video.frames[:max_frames or None]]
     raise NotImplementedError(f"{path}: Matroska / WebM video of {mkv.codec_name(codec)} ({codec}) is not supported "
-                              "by the port's video reader (V_MPEG4/ISO/SP|ASP|AP, V_VP8, V_VP9, V_FFV1, V_MJPEG and "
-                              "V_MS/VFW/FOURCC with an MPEG-4 Part 2, VP8, VP9, FFV1, Motion-JPEG or uncompressed "
-                              "24-bit code are).")
+                              "by the port's video reader (V_MPEG4/ISO/SP|ASP|AP, V_VP8, V_VP9, V_FFV1, "
+                              "V_MPEG4/ISO/AVC, V_MJPEG and V_MS/VFW/FOURCC with an MPEG-4 Part 2, VP8, VP9, FFV1, "
+                              "H.264, Motion-JPEG or uncompressed 24-bit code are).")
 
 
 def _fourcc_name(codec: bytes) -> str:
@@ -262,6 +291,8 @@ def _mp4_frames(data: bytes, max_frames: int) -> list[np.ndarray]:
         return _ffv1_frames(video.samples, max_frames, video.config, video.width, video.height, video.shown)
     if video.codec == "vp09":
         return _vp9_frames(video.samples, max_frames, video.shown)
+    if video.codec in ("avc1", "avc3"):
+        return _h264_frames(video.samples, max_frames, video.config, video.shown)
     return _mpeg4_frames(video.samples, max_frames, video.config, video.shown)
 
 
@@ -305,6 +336,8 @@ def _avi_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray]:
         return _vp8_frames(_frame_payloads(data, stream, 0), max_frames)
     if codec in _VP9:
         return _vp9_frames(_frame_payloads(data, stream, 0), max_frames)
+    if codec in _H264:
+        return _h264_frames(_frame_payloads(data, stream, 0), max_frames)
     if codec in _MJPEG:
         decode = _decode_mjpeg
     elif codec == b"\0\0\0\0" and bits == 24:
@@ -312,7 +345,7 @@ def _avi_frames(path: str, data: bytes, max_frames: int) -> list[np.ndarray]:
     else:
         raise NotImplementedError(
             f"{path}: {_fourcc_name(codec)} video with {bits} bits per pixel is not supported by the port's video reader "
-            "(MPEG-4 Part 2, VP8, VP9, FFV1, Motion-JPEG and uncompressed 24-bit BGR are).")
+            "(MPEG-4 Part 2, VP8, VP9, FFV1, H.264, Motion-JPEG and uncompressed 24-bit BGR are).")
     return [decode(p) for p in _frame_payloads(data, stream, max_frames)]
 
 

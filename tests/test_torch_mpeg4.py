@@ -615,7 +615,7 @@ def test_mp4_refusals(tmp_path, mp4_clip):
         open(path, "wb").write(body)
         with pytest.raises(NotImplementedError, match="Fragmented MP4"):
             read_video_frames(path)
-    for fourcc, name in ((b"avc1", r"H\.264 \(avc1\)"), (b"hvc1", r"HEVC \(hvc1\)"), (b"av01", r"AV1 \(av01\)")):
+    for fourcc, name in ((b"avc2", r"H\.264 \(avc2\)"), (b"hvc1", r"HEVC \(hvc1\)"), (b"av01", r"AV1 \(av01\)")):
         tree = _parse_boxes(data)
         stsd = _box(_stbl(tree), b"stsd")
         assert stsd[1][12:16] == b"mp4v"  # version / flags, entry count, then the entry's size and type

@@ -1,0 +1,1770 @@
+"""A writer of H.264 streams (progressive 4:2:0, CAVLC, I and P slices) for
+the port's tests: random syntax that covers what ``native/h264_decoder.cpp``
+reads, and containers around it (Annex B, MP4 ``avc1``, Matroska
+``V_MPEG4/ISO/AVC``, AVI ``H264``).
+
+:func:`random_stream` draws every macroblock type and sub-partition, every
+intra mode the neighbours allow, skip runs, reference lists of up to 16
+frames with modification, MMCO 1-6 and long-term references, explicit
+weights, several slices a picture with each deblocking mode and its offsets,
+``constrained_intra_pred``, POC types 0, 1 and 2, the QP range with
+``chroma_qp_index_offset`` -12..12 and the ``mb_qp_delta`` wrap, vectors far
+outside the picture, level escapes, I_PCM, crops and small frame sizes. The
+writer keeps its own model of what the decoder must track to read the stream
+as meant -- availability under slices and constrained intra, the intra 4x4
+mode prediction, ``coeff_token``'s nC, motion-vector prediction, the decoded
+picture buffer and its marking -- and counts what it writes under
+:data:`super_resolution_tpu_torch.utils.h264.STATS`' names. It keeps every
+inverse transform's intermediates inside 16 bits, as conforming streams do
+(FFmpeg's x86 transforms work in 16 bits).
+
+:func:`encode_frames` is an encoder of real pictures (an IDR of intra 16x16
+macroblocks, then P frames with a motion search, a residual at a fixed QP and
+the deblocking filter off), whose reconstruction is its own, in the closed
+loop, so that nothing drifts: it makes the checked-in fixture.
+
+The CAVLC tables come from ``torch_h264_tables.py``, copied from the standard,
+not from the port.
+"""
+
+from __future__ import annotations
+
+import struct
+from collections import Counter
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from torch_h264_tables import (CBP_CODE_INTER, CBP_CODE_INTRA, CHROMA_DC_TOKEN, CHROMA_DC_TOTAL_ZEROS, COEFF_TOKEN,
+                               NORM_ADJUST, RUN_BEFORE, TOTAL_ZEROS, ZIGZAG, chroma_qp, level_scale)
+
+# The 16-bit bound the writer keeps each 4x4 block's dequantised coefficients under (their absolute sum bounds
+# every intermediate of the inverse transform).
+COEFF_BOUND = 30000
+
+
+class BitWriter:
+    def __init__(self):
+        self.bits = []
+
+    def u(self, n, v):
+        v = int(v)
+        assert 0 <= v < (1 << n) or n == 0, (n, v)
+        self.bits += [(v >> (n - 1 - i)) & 1 for i in range(n)]
+
+    def ue(self, v):
+        v = int(v)
+        assert v >= 0
+        v += 1
+        n = v.bit_length()
+        self.u(n - 1, 0)
+        self.u(n, v)
+
+    def se(self, v):
+        self.ue(2 * v - 1 if v > 0 else -2 * v)
+
+    def code(self, lv):
+        self.u(*lv)
+
+    def align_zero(self):
+        while len(self.bits) % 8:
+            self.bits.append(0)
+
+    def trailing(self):
+        self.bits.append(1)
+        self.align_zero()
+
+    def data(self):
+        assert len(self.bits) % 8 == 0
+        out = bytearray()
+        for i in range(0, len(self.bits), 8):
+            byte = 0
+            for b in self.bits[i:i + 8]:
+                byte = (byte << 1) | b
+            out.append(byte)
+        return bytes(out)
+
+
+def nal_unit(ref_idc, kind, rbsp):
+    """A NAL unit: its header, then the RBSP with emulation prevention."""
+    out, zeros = bytearray([(ref_idc << 5) | kind]), 0
+    for b in rbsp:
+        if zeros >= 2 and b <= 3:
+            out.append(3)
+            zeros = 0
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+# ---------------------------------------------------------------------------------------------
+# Parameter sets
+
+
+@dataclass
+class Sps:
+    mb_width: int
+    mb_height: int
+    sps_id: int = 0
+    profile_idc: int = 66
+    level_idc: int = 30
+    log2_max_frame_num: int = 4
+    poc_type: int = 2
+    log2_max_poc_lsb: int = 6
+    delta_always_zero: bool = False
+    offset_non_ref: int = 1
+    offset_top_bottom: int = 0
+    offsets_ref: list = field(default_factory=lambda: [2])
+    max_num_ref_frames: int = 1
+    crop: tuple = (0, 0, 0, 0)  # left, right, top, bottom in crop units (2 samples)
+    vui: bool = False
+    full_range: bool = False
+    matrix: int | None = None
+    bitstream_restriction: bool = False
+    num_reorder_frames: int = 0
+    # Refused features, for the tests of the refusals.
+    frame_mbs_only: bool = True
+    chroma_format_idc: int = 1
+    bit_depth: int = 8
+    scaling_matrix: bool = False
+    separate_colour_plane: bool = False
+    bypass: bool = False
+
+    def rbsp(self):
+        w = BitWriter()
+        w.u(8, self.profile_idc)
+        w.u(8, 0)
+        w.u(8, self.level_idc)
+        w.ue(self.sps_id)
+        if self.profile_idc in (100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135):
+            w.ue(self.chroma_format_idc)
+            if self.chroma_format_idc == 3:
+                w.u(1, int(self.separate_colour_plane))
+            w.ue(self.bit_depth - 8)
+            w.ue(self.bit_depth - 8)
+            w.u(1, int(self.bypass))
+            w.u(1, int(self.scaling_matrix))
+            if self.scaling_matrix:
+                for _ in range(8 if self.chroma_format_idc != 3 else 12):
+                    w.u(1, 0)
+        w.ue(self.log2_max_frame_num - 4)
+        w.ue(self.poc_type)
+        if self.poc_type == 0:
+            w.ue(self.log2_max_poc_lsb - 4)
+        elif self.poc_type == 1:
+            w.u(1, int(self.delta_always_zero))
+            w.se(self.offset_non_ref)
+            w.se(self.offset_top_bottom)
+            w.ue(len(self.offsets_ref))
+            for o in self.offsets_ref:
+                w.se(o)
+        w.ue(self.max_num_ref_frames)
+        w.u(1, 0)  # gaps_in_frame_num_value_allowed_flag
+        w.ue(self.mb_width - 1)
+        w.ue(self.mb_height - 1 if self.frame_mbs_only else self.mb_height // 2 - 1)
+        w.u(1, int(self.frame_mbs_only))
+        if not self.frame_mbs_only:
+            w.u(1, 0)  # mb_adaptive_frame_field_flag
+        w.u(1, 1)  # direct_8x8_inference_flag
+        cropped = any(self.crop)
+        w.u(1, int(cropped))
+        if cropped:
+            for c in self.crop:
+                w.ue(c)
+        w.u(1, int(self.vui))
+        if self.vui:
+            w.u(1, 1)  # aspect_ratio_info_present_flag
+            w.u(8, 1)  # 1:1
+            w.u(1, 0)  # overscan_info_present_flag
+            w.u(1, 1)  # video_signal_type_present_flag
+            w.u(3, 5)
+            w.u(1, int(self.full_range))
+            w.u(1, int(self.matrix is not None))
+            if self.matrix is not None:
+                w.u(8, self.matrix)
+                w.u(8, self.matrix)
+                w.u(8, self.matrix)
+            w.u(1, 1)  # chroma_loc_info_present_flag
+            w.ue(0)
+            w.ue(0)
+            w.u(1, 1)  # timing_info_present_flag
+            w.u(32, 1)
+            w.u(32, 20)
+            w.u(1, 1)
+            w.u(1, 0)  # nal_hrd_parameters_present_flag
+            w.u(1, 0)  # vcl_hrd_parameters_present_flag
+            w.u(1, 0)  # pic_struct_present_flag
+            w.u(1, int(self.bitstream_restriction))
+            if self.bitstream_restriction:
+                w.u(1, 1)
+                w.ue(0)
+                w.ue(0)
+                w.ue(16)
+                w.ue(16)
+                w.ue(self.num_reorder_frames)
+                w.ue(self.max_num_ref_frames)
+        w.trailing()
+        return w.data()
+
+
+@dataclass
+class Pps:
+    pps_id: int = 0
+    sps_id: int = 0
+    num_ref_default: int = 1
+    weighted: bool = False
+    pic_init_qp: int = 26
+    chroma_qp_offset: int = 0
+    deblocking_control: bool = True
+    constrained_intra: bool = False
+    bottom_field_pic_order: bool = False
+    # Refused features.
+    cabac: bool = False
+    slice_groups: int = 1
+    redundant_pic_cnt: bool = False
+    transform_8x8: bool = False
+    scaling_matrix: bool = False
+    second_chroma_qp_offset: int | None = None
+
+    def rbsp(self):
+        w = BitWriter()
+        w.ue(self.pps_id)
+        w.ue(self.sps_id)
+        w.u(1, int(self.cabac))
+        w.u(1, int(self.bottom_field_pic_order))
+        w.ue(self.slice_groups - 1)
+        if self.slice_groups > 1:
+            w.ue(0)  # slice_group_map_type 0: interleaved runs
+            for _ in range(self.slice_groups):
+                w.ue(0)
+        w.ue(self.num_ref_default - 1)
+        w.ue(0)
+        w.u(1, int(self.weighted))
+        w.u(2, 0)
+        w.se(self.pic_init_qp - 26)
+        w.se(0)
+        w.se(self.chroma_qp_offset)
+        w.u(1, int(self.deblocking_control))
+        w.u(1, int(self.constrained_intra))
+        w.u(1, int(self.redundant_pic_cnt))
+        if self.transform_8x8 or self.scaling_matrix or self.second_chroma_qp_offset is not None:
+            w.u(1, int(self.transform_8x8))
+            w.u(1, int(self.scaling_matrix))
+            if self.scaling_matrix:
+                for _ in range(6 + 2 * int(self.transform_8x8)):
+                    w.u(1, 0)
+            second = self.second_chroma_qp_offset
+            w.se(self.chroma_qp_offset if second is None else second)
+        w.trailing()
+        return w.data()
+
+
+# ---------------------------------------------------------------------------------------------
+# CAVLC residual blocks
+
+
+def _level_codes(levels, trailing, total):
+    """(length, value) codes of the levels (highest frequency first), with the suffixLength adaptation."""
+    codes, counts = [], Counter()
+    suffix_length = 1 if total > 10 and trailing < 3 else 0
+    for i, level in enumerate(levels):
+        if i < trailing:
+            codes.append((1, int(level < 0)))
+            continue
+        code = 2 * level - 2 if level > 0 else -2 * level - 1
+        if i == trailing and trailing < 3:
+            code -= 2
+        assert code >= 0
+        if suffix_length == 0:
+            if code < 14:
+                prefix, suffix, size = code, 0, 0
+            elif code < 30:
+                prefix, suffix, size = 14, code - 14, 4
+            else:
+                prefix, suffix, size = 15, code - 30, 12
+        elif code < (15 << suffix_length):
+            prefix, suffix, size = code >> suffix_length, code & ((1 << suffix_length) - 1), suffix_length
+        else:
+            prefix, suffix, size = 15, code - (15 << suffix_length), 12
+        assert suffix < (1 << 12), level
+        codes.append((prefix + 1, 1))
+        if size:
+            codes.append((size, suffix))
+        if prefix == 14:
+            counts["level_prefix_14"] += 1
+        if prefix >= 15:
+            counts["level_prefix_15"] += 1
+        if suffix_length == 0:
+            suffix_length = 1
+        if abs(level) > (3 << (suffix_length - 1)) and suffix_length < 6:
+            suffix_length += 1
+    return codes, counts
+
+
+def max_level(suffix_length=0):
+    """The largest magnitude level_prefix 15 reaches (the writer keeps levels below it)."""
+    return (30 + 4095) // 2 if suffix_length == 0 else ((15 << suffix_length) + 4095 + 2) // 2
+
+
+def write_block(w, coeffs, nc, max_coeff):
+    """CAVLC of one block: ``coeffs`` in scan order (of the block's ``max_coeff`` positions). Returns
+    (TotalCoeff, the level-prefix counts)."""
+    nonzero = [i for i, c in enumerate(coeffs) if c]
+    total = len(nonzero)
+    levels = [coeffs[i] for i in reversed(nonzero)]
+    trailing = 0
+    for lv in levels:
+        if abs(lv) != 1 or trailing == 3:
+            break
+        trailing += 1
+    if nc == -1:
+        w.code(CHROMA_DC_TOKEN[total][trailing])
+    else:
+        table = 0 if nc < 2 else 1 if nc < 4 else 2 if nc < 8 else 3
+        w.code(COEFF_TOKEN[table][total][trailing])
+    if total == 0:
+        return 0, Counter()
+    codes, counts = _level_codes(levels, trailing, total)
+    for c in codes:
+        w.code(c)
+    if total < max_coeff:
+        zeros = nonzero[-1] + 1 - total
+        w.code((CHROMA_DC_TOTAL_ZEROS if nc == -1 else TOTAL_ZEROS)[total - 1][zeros])
+        zeros_left = zeros
+        positions = list(reversed(nonzero))
+        for i in range(total - 1):
+            if zeros_left == 0:
+                break
+            run = positions[i] - positions[i + 1] - 1
+            w.code(RUN_BEFORE[min(zeros_left, 7) - 1][run])
+            zeros_left -= run
+    return total, counts
+
+
+# ---------------------------------------------------------------------------------------------
+# Bounds on the inverse transforms' inputs
+
+
+def _hadamard4(c):
+    h = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]])
+    return h @ c @ h
+
+
+def luma_dc_values(levels_scan, qp):
+    """dcY (4x4, by block position) of the Intra 16x16 DC levels in scan order."""
+    c = np.zeros((4, 4), np.int64)
+    for k, v in enumerate(levels_scan):
+        c[ZIGZAG[k]] = v
+    f = _hadamard4(c)
+    ls = 16 * NORM_ADJUST[qp % 6][0]
+    if qp >= 36:
+        return (f * ls) << (qp // 6 - 6)
+    return (f * ls + (1 << (5 - qp // 6))) >> (6 - qp // 6)
+
+
+def chroma_dc_values(levels, qpc):
+    c = np.array(levels, np.int64).reshape(2, 2)
+    h = np.array([[1, 1], [1, -1]])
+    f = h @ c @ h
+    return ((f * 16 * NORM_ADJUST[qpc % 6][0]) << (qpc // 6)) >> 5
+
+
+def dequantised(levels_scan, qp, start):
+    """The block's dequantised AC (or all) coefficients, by raster position."""
+    d = np.zeros((4, 4), np.int64)
+    for k in range(start, 16):
+        v = levels_scan[k - start] if k - start < len(levels_scan) else 0
+        if v:
+            r, c = ZIGZAG[k]
+            d[r, c] = (v * level_scale(qp, r, c)) << (qp // 6)
+    return d
+
+
+def fit_levels(levels, qp, start, dc=0, bound=COEFF_BOUND):
+    """``levels`` (scan order) reduced until the block's dequantised coefficients, its DC ``dc`` included,
+    sum to at most ``bound`` in absolute value."""
+    levels = list(levels)
+    while True:
+        d = dequantised(levels, qp, start)
+        if np.abs(d).sum() + abs(int(dc)) <= bound:
+            return levels
+        k = max(range(len(levels)), key=lambda i: abs(levels[i]) * level_scale(qp, *ZIGZAG[i + start]))
+        levels[k] = int(np.sign(levels[k])) * (abs(levels[k]) // 2)
+
+
+# ---------------------------------------------------------------------------------------------
+# Containers
+
+
+def annexb(access_units):
+    """An Annex B byte stream of the access units (each a list of NAL units)."""
+    return b"".join(b"\0\0\0\1" + n for au in access_units for n in au)
+
+
+def split_parameter_sets(access_units):
+    """(SPS NAL units, PPS NAL units, the access units without them)."""
+    sps, pps, rest = [], [], []
+    for au in access_units:
+        kept = []
+        for n in au:
+            kind = n[0] & 31
+            if kind == 7 and n not in sps:
+                sps.append(n)
+            elif kind == 8 and n not in pps:
+                pps.append(n)
+            elif kind not in (7, 8):
+                kept.append(n)
+        rest.append(kept)
+    return sps, pps, rest
+
+
+def avcc(sps, pps, length_size=4):
+    """An AVCDecoderConfigurationRecord."""
+    first = sps[0]
+    out = bytes([1, first[1], first[2], first[3], 0xFC | (length_size - 1), 0xE0 | len(sps)])
+    for s in sps:
+        out += struct.pack(">H", len(s)) + s
+    out += bytes([len(pps)])
+    for p in pps:
+        out += struct.pack(">H", len(p)) + p
+    return out
+
+
+def length_prefixed(au, length_size=4):
+    return b"".join(len(n).to_bytes(length_size, "big") + n for n in au)
+
+
+def _box(kind, body):
+    return struct.pack(">I4s", 8 + len(body), kind) + body
+
+
+def _full_box(kind, version, flags, body):
+    return _box(kind, struct.pack(">I", (version << 24) | flags) + body)
+
+
+def mp4(access_units, width, height, length_size=4, fourcc=b"avc1"):
+    """An MP4 file of one avc1 track: the parameter sets in its avcC, the samples length-prefixed; an avc3 track
+    keeps them in band too."""
+    sps, pps, rest = split_parameter_sets(access_units)
+    if fourcc == b"avc3":
+        rest = access_units
+    samples = [length_prefixed(au, length_size) for au in rest]
+    n = len(samples)
+    entry = (b"\0" * 6 + struct.pack(">H", 1) + b"\0" * 16 + struct.pack(">HH", width, height)
+             + struct.pack(">II", 0x480000, 0x480000) + b"\0" * 4 + struct.pack(">H", 1) + b"\0" * 32
+             + struct.pack(">Hh", 0x18, -1) + _box(b"avcC", avcc(sps, pps, length_size)))
+    stsd = _full_box(b"stsd", 0, 0, struct.pack(">I", 1) + _box(fourcc, entry))
+    stts = _full_box(b"stts", 0, 0, struct.pack(">III", 1, n, 1))
+    stss = _full_box(b"stss", 0, 0, struct.pack(">II", 1, 1))
+    stsc = _full_box(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, 1, 1))
+    stsz = _full_box(b"stsz", 0, 0, struct.pack(">II", 0, n) + b"".join(struct.pack(">I", len(s)) for s in samples))
+    ftyp = _box(b"ftyp", b"isom" + struct.pack(">I", 512) + b"isomiso2avc1mp41")
+
+    def moov(offset):
+        chunk_offsets, pos = [], offset
+        for s in samples:
+            chunk_offsets.append(pos)
+            pos += len(s)
+        stco = _full_box(b"stco", 0, 0, struct.pack(">I", n) + b"".join(struct.pack(">I", o) for o in chunk_offsets))
+        stbl = _box(b"stbl", stsd + stts + stss + stsc + stsz + stco)
+        vmhd = _full_box(b"vmhd", 0, 1, b"\0" * 8)
+        dref = _full_box(b"dref", 0, 0, struct.pack(">I", 1) + _full_box(b"url ", 0, 1, b""))
+        minf = _box(b"minf", vmhd + _box(b"dinf", dref) + stbl)
+        mdhd = _full_box(b"mdhd", 0, 0, struct.pack(">IIIIHH", 0, 0, 10, n, 0x55C4, 0))
+        hdlr = _full_box(b"hdlr", 0, 0, b"\0" * 4 + b"vide" + b"\0" * 12 + b"video\0")
+        mdia = _box(b"mdia", mdhd + hdlr + minf)
+        tkhd = _full_box(b"tkhd", 0, 3, struct.pack(">IIIII", 0, 0, 1, 0, n) + b"\0" * 8 + b"\0" * 8
+                         + struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+                         + struct.pack(">II", width << 16, height << 16))
+        mvhd = _full_box(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 10, n) + struct.pack(">IH", 0x10000, 0x100)
+                         + b"\0" * 10 + struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
+                         + b"\0" * 24 + struct.pack(">I", 2))
+        return _box(b"moov", mvhd + _box(b"trak", tkhd + mdia))
+
+    head = len(ftyp) + len(moov(0)) + 8
+    return ftyp + moov(head) + _box(b"mdat", b"".join(samples))
+
+
+def _ebml_id(ident):
+    return ident.to_bytes((ident.bit_length() + 7) // 8, "big")
+
+
+def _ebml_size(n):
+    for length in range(1, 9):
+        if n < (1 << (7 * length)) - 1:
+            return ((1 << (7 * length)) | n).to_bytes(length, "big")
+    raise ValueError(n)
+
+
+def _el(ident, body):
+    if isinstance(body, int):
+        body = body.to_bytes(max(1, (body.bit_length() + 7) // 8), "big")
+    elif isinstance(body, str):
+        body = body.encode()
+    return _ebml_id(ident) + _ebml_size(len(body)) + body
+
+
+def mkv(access_units, width, height, length_size=4):
+    """A Matroska file of one V_MPEG4/ISO/AVC track (CodecPrivate: the avcC), a SimpleBlock a frame."""
+    sps, pps, rest = split_parameter_sets(access_units)
+    header = _el(0x1A45DFA3, _el(0x4286, 1) + _el(0x42F7, 1) + _el(0x42F2, 4) + _el(0x42F3, 8)
+                 + _el(0x4282, "matroska") + _el(0x4287, 4) + _el(0x4285, 2))
+    info = _el(0x1549A966, _el(0x2AD7B1, 1000000) + _el(0x4D80, "torch_h264_writer") + _el(0x5741, "torch_h264_writer"))
+    track = _el(0xAE, _el(0xD7, 1) + _el(0x73C5, 1) + _el(0x83, 1) + _el(0x86, "V_MPEG4/ISO/AVC")
+                + _el(0x63A2, avcc(sps, pps, length_size)) + _el(0xE0, _el(0xB0, width) + _el(0xBA, height)))
+    blocks = b""
+    for i, au in enumerate(rest):
+        flags = 0x80 if i == 0 else 0
+        blocks += _el(0xA3, b"\x81" + struct.pack(">hB", i * 100, flags) + length_prefixed(au, length_size))
+    cluster = _el(0x1F43B675, _el(0xE7, 0) + blocks)
+    return header + _el(0x18538067, info + _el(0x1654AE6B, track) + cluster)
+
+
+def avi(path, access_units, width, height, fourcc=b"H264"):
+    """An AVI of Annex B access units (each chunk one access unit, its parameter sets in band)."""
+    from torch_libav import write_avi
+
+    payloads = [annexb([au]) for au in access_units]
+    keys = [any((n[0] & 31) == 5 for n in au) for au in access_units]
+    write_avi(path, payloads, width, height, fourcc, keys=keys)
+
+
+# ---------------------------------------------------------------------------------------------
+# The random syntax writer
+
+
+I4_NEEDS = {0: "T", 1: "L", 2: "", 3: "T", 4: "TLD", 5: "TLD", 6: "TLD", 7: "T", 8: "L"}
+
+
+@dataclass
+class _Ref:
+    frame_num: int
+    uid: int
+    long: bool = False
+    long_idx: int = -1
+
+
+class _Mb:
+    def __init__(self, slice_index):
+        self.slice = slice_index
+        self.kind = "P"
+        self.nz = [0] * 24
+        self.i4 = [2] * 16
+
+    @property
+    def intra(self):
+        return self.kind in ("I4", "I16", "PCM")
+
+
+@dataclass
+class Options:
+    """What :func:`random_stream` may draw (each tool on by default)."""
+
+    mb_width: int = 4
+    mb_height: int = 3
+    frames: int = 6
+    crop: tuple = (0, 0, 0, 0)
+    poc_type: int | None = None
+    slices: bool = True
+    weights: bool = True
+    mmco: bool = True
+    long_term: bool = True
+    modifications: bool = True
+    constrained_intra: bool | None = None
+    pcm: bool = True
+    far_mv: bool = True
+    escapes: bool = True
+    qp_range: tuple = (0, 51)
+    non_ref: bool = True
+    max_refs: int | None = None
+    intra_share: float = 0.2
+    skip_share: float = 0.25
+    poc_step: int = 2
+    # Streams the decoder refuses or finds damaged, for those tests.
+    first_non_idr: bool = False
+    no_output_of_prior_pics: bool = False
+    redundant_pic_cnt: int = 0
+    bad_ref_idx: bool = False
+
+
+class StreamWriter:
+    """Random syntax, one access unit a call to :meth:`picture`."""
+
+    def __init__(self, rng, opts: Options):
+        self.rng, self.o = rng, opts
+        self.stats = Counter()
+        mbw, mbh = opts.mb_width, opts.mb_height
+        self.mbw, self.mbh = mbw, mbh
+        poc_type = opts.poc_type if opts.poc_type is not None else int(rng.integers(3))
+        max_refs = opts.max_refs if opts.max_refs is not None else int(rng.integers(1, 17))
+        self.sps = Sps(mbw, mbh, profile_idc=int(rng.choice([66, 77, 100])), poc_type=poc_type,
+                       log2_max_frame_num=int(rng.integers(4, 8)), log2_max_poc_lsb=int(rng.integers(5, 9)),
+                       delta_always_zero=bool(rng.integers(2)), offset_non_ref=1,
+                       offsets_ref=[int(v) for v in rng.integers(2, 5, size=int(rng.integers(1, 4)))],
+                       max_num_ref_frames=max_refs, crop=opts.crop, vui=bool(rng.integers(2)),
+                       matrix=int(rng.choice([1, 2, 4, 5, 6, 7])) if rng.integers(2) else None,
+                       full_range=bool(rng.integers(2)),
+                       bitstream_restriction=bool(rng.integers(2)))
+        constrained = opts.constrained_intra
+        self.ppss = []
+        for pps_id in range(int(rng.integers(1, 3))):
+            self.ppss.append(Pps(pps_id=pps_id, num_ref_default=int(rng.integers(1, max_refs + 1)),
+                                 weighted=opts.weights and bool(rng.integers(2)),
+                                 pic_init_qp=int(rng.integers(opts.qp_range[0], opts.qp_range[1] + 1)),
+                                 chroma_qp_offset=int(rng.integers(-12, 13)),
+                                 deblocking_control=bool(rng.integers(4)),
+                                 constrained_intra=bool(rng.integers(2)) if constrained is None else constrained,
+                                 bottom_field_pic_order=poc_type in (0, 1) and bool(rng.integers(2))))
+        self.refs: list[_Ref] = []
+        self.max_long_idx = -1
+        self.prev_ref_frame_num = 0
+        self.poc_counter = 0
+        self.uid = 0
+        self.first = True
+        self.last_non_ref = False
+        self.frame_num_offset = 0
+        self.prev_frame_num = 0
+
+    # ---- helpers
+    def chance(self, p):
+        return self.rng.random() < p
+
+    def ri(self, lo, hi):
+        """A random integer in [lo, hi]."""
+        return int(self.rng.integers(lo, hi + 1))
+
+    def count(self, name, n=1):
+        self.stats[name] += n
+
+    def parameter_sets(self):
+        return [nal_unit(3, 7, self.sps.rbsp())] + [nal_unit(3, 8, p.rbsp()) for p in self.ppss]
+
+    # ---- pictures
+    def picture(self):
+        o, rng = self.o, self.rng
+        idr = (self.first and not o.first_non_idr) or (not self.first and self.chance(0.1))
+        intra = idr or self.first or self.chance(0.15)
+        # Two non-reference pictures in a row would share a picture order count.
+        ref_idc = self.ri(1, 3) if idr or self.first or not o.non_ref or self.last_non_ref or self.chance(0.75) else 0
+        self.last_non_ref = not ref_idc
+        au = self.parameter_sets() if idr or self.first or self.chance(0.2) else []
+        max_frame_num = 1 << self.sps.log2_max_frame_num
+        frame_num = 0 if idr else (self.prev_ref_frame_num + 1) % max_frame_num
+        if idr:
+            self.refs = []
+            self.max_long_idx = -1
+            self.poc_counter = 0
+            self.frame_num_offset = 0
+            self.prev_frame_num = 0
+        pps = self.ppss[self.ri(0, len(self.ppss) - 1)]
+        # The marking, the same in every slice.
+        marking = self.plan_marking(idr, ref_idc, frame_num)
+        # Picture order count fields.
+        self.poc_counter += self.ri(1, o.poc_step) if o.poc_step > 1 else o.poc_step
+        poc_lsb = (2 * self.poc_counter) % (1 << self.sps.log2_max_poc_lsb) if not idr else 0
+        if idr:
+            self.poc_counter = 0
+        delta_bottom = self.ri(-1, 1) if pps.bottom_field_pic_order else 0
+        delta_poc = [0, self.ri(0, 1) if pps.bottom_field_pic_order else 0]
+        if not idr and self.prev_frame_num > frame_num:
+            self.frame_num_offset += max_frame_num
+        self.cur_frame_num = frame_num
+        self.mbs = [None] * (self.mbw * self.mbh)
+        nblocks = self.mbw * self.mbh * 16
+        self.ref = [-1] * nblocks
+        self.mv = [(0, 0)] * nblocks
+        # Slices.
+        total = self.mbw * self.mbh
+        cuts = [0]
+        if o.slices and total > 1 and self.chance(0.5):
+            cuts += sorted(set(int(c) for c in rng.integers(1, total, size=self.ri(1, 2))))
+        cuts.append(total)
+        self.count("pictures")
+        self.count("poc_type_%d" % self.sps.poc_type)
+        if idr:
+            self.count("idr_pictures")
+        if not ref_idc:
+            self.count("non_ref_pictures")
+        if len(cuts) > 2:
+            self.count("multi_slice_pictures")
+        if any(self.sps.crop):
+            self.count("cropped_pictures")
+        for s in range(len(cuts) - 1):
+            au.append(self.slice(s, cuts[s], cuts[s + 1], idr, intra, ref_idc, pps, frame_num, poc_lsb,
+                                 delta_bottom, delta_poc, marking))
+        self.apply_marking(idr, ref_idc, frame_num, marking)
+        self.prev_frame_num = frame_num if not marking.get("mmco5") else 0
+        if marking.get("mmco5"):
+            # frame_num starts over; the POC lsb goes on counting, so that FFmpeg's count, which goes on from the
+            # reset picture's, increases (elsewhere FFmpeg's output order depends on its thread count).
+            self.frame_num_offset = 0
+        self.first = False
+        return au
+
+    def wraps(self, frame_num):
+        max_frame_num = 1 << self.sps.log2_max_frame_num
+        return {id(r): (r.frame_num - max_frame_num if r.frame_num > frame_num else r.frame_num)
+                for r in self.refs if not r.long}
+
+    def plan_marking(self, idr, ref_idc, frame_num):
+        o = self.o
+        if not ref_idc:
+            return {}
+        if idr:
+            return {"long_term_reference": o.long_term and self.chance(0.3)}
+        limit = max(self.sps.max_num_ref_frames, 1)
+        full_of_long = len(self.refs) >= limit and all(r.long for r in self.refs)
+        if not (o.mmco and self.chance(0.4)) and not full_of_long:
+            return {"adaptive": False}
+        # Simulate the operations on copies of the references.
+        wrapv = self.wraps(frame_num)
+        refs, wrap = [], {}
+        for r in self.refs:
+            c = _Ref(r.frame_num, r.uid, r.long, r.long_idx)
+            refs.append(c)
+            if not r.long:
+                wrap[id(c)] = wrapv[id(r)]
+        max_idx = self.max_long_idx
+        ops, current_long = [], None
+        for _ in range(self.ri(1, 4) if o.mmco else 0):
+            choice = self.ri(1, 6)
+            shorts = [r for r in refs if not r.long]
+            longs = [r for r in refs if r.long]
+            if choice == 1 and shorts:
+                r = shorts[self.ri(0, len(shorts) - 1)]
+                ops.append((1, frame_num - wrap[id(r)] - 1))
+                refs.remove(r)
+            elif choice == 2 and longs:
+                r = longs[self.ri(0, len(longs) - 1)]
+                ops.append((2, r.long_idx))
+                refs.remove(r)
+            elif choice == 3 and shorts and max_idx >= 0:
+                r = shorts[self.ri(0, len(shorts) - 1)]
+                idx = self.ri(0, max_idx)
+                ops.append((3, frame_num - wrap[id(r)] - 1, idx))
+                for x in [x for x in refs if x.long and x.long_idx == idx]:
+                    refs.remove(x)
+                r.long, r.long_idx = True, idx
+            elif choice == 4 and o.long_term:
+                new_max = self.ri(0, 4)
+                ops.append((4, new_max))
+                max_idx = new_max - 1
+                for x in [x for x in refs if x.long and x.long_idx > max_idx]:
+                    refs.remove(x)
+            elif choice == 5 and self.sps.poc_type == 0 and self.chance(0.3):
+                ops.append((5,))
+                refs.clear()
+                break
+            elif choice == 6 and max_idx >= 0 and o.long_term:
+                current_long = self.ri(0, max_idx)
+                ops.append((6, current_long))
+                for x in [x for x in refs if x.long and x.long_idx == current_long]:
+                    refs.remove(x)
+                break
+        # Keep within max_num_ref_frames, the current picture included: the oldest short-term references go first.
+        while len(refs) + 1 > limit:
+            shorts = [r for r in refs if not r.long]
+            if shorts:
+                r = min(shorts, key=lambda x: wrap[id(x)])
+                ops.append((1, frame_num - wrap[id(r)] - 1))
+            else:
+                r = refs[0]
+                ops.append((2, r.long_idx))
+            refs.remove(r)
+        if not ops:
+            return {"adaptive": False}
+        return {"adaptive": True, "ops": ops, "mmco5": any(op[0] == 5 for op in ops)}
+
+    def apply_marking(self, idr, ref_idc, frame_num, marking):
+        """The decoded reference picture marking of the picture just written (8.2.5)."""
+        if not ref_idc:
+            return
+        self.uid += 1
+        cur = _Ref(frame_num, self.uid)
+        if idr:
+            self.refs = []
+            if marking["long_term_reference"]:
+                cur.long, cur.long_idx = True, 0
+                self.max_long_idx = 0
+                self.count("long_term_refs")
+            else:
+                self.max_long_idx = -1
+        elif not marking["adaptive"]:
+            if len(self.refs) >= max(self.sps.max_num_ref_frames, 1):
+                wrap = self.wraps(frame_num)
+                shorts = [r for r in self.refs if not r.long]
+                self.refs.remove(min(shorts, key=lambda x: wrap[id(x)]))
+                self.count("sliding_window_removals")
+        else:
+            for op in marking["ops"]:
+                self.count("mmco_%d" % op[0])
+                wrap = self.wraps(frame_num)
+                by_num = {frame_num - wrap[id(r)] - 1: r for r in self.refs if not r.long}
+                if op[0] == 1:
+                    self.refs.remove(by_num[op[1]])
+                elif op[0] == 2:
+                    self.refs.remove(next(r for r in self.refs if r.long and r.long_idx == op[1]))
+                elif op[0] == 3:
+                    r = by_num[op[1]]
+                    for x in [x for x in self.refs if x.long and x.long_idx == op[2]]:
+                        self.refs.remove(x)
+                    r.long, r.long_idx = True, op[2]
+                    self.count("long_term_refs")
+                elif op[0] == 4:
+                    self.max_long_idx = op[1] - 1
+                    self.refs = [x for x in self.refs if not (x.long and x.long_idx > self.max_long_idx)]
+                elif op[0] == 5:
+                    self.refs = []
+                    self.max_long_idx = -1
+                    cur.frame_num = 0
+                elif op[0] == 6:
+                    for x in [x for x in self.refs if x.long and x.long_idx == op[1]]:
+                        self.refs.remove(x)
+                    cur.long, cur.long_idx = True, op[1]
+                    self.count("long_term_refs")
+        self.refs.append(cur)
+        self.prev_ref_frame_num = cur.frame_num
+        assert len(self.refs) <= max(self.sps.max_num_ref_frames, 1)
+
+    # ---- slices
+    def ref_list(self, frame_num, num_ref, mods):
+        """RefPicList0 after its initialisation and the modifications ``mods`` (8.2.4.2.1, 8.2.4.3)."""
+        wrap = self.wraps(frame_num)
+        shorts = sorted([r for r in self.refs if not r.long], key=lambda r: -wrap[id(r)])
+        longs = sorted([r for r in self.refs if r.long], key=lambda r: r.long_idx)
+        lst = (shorts + longs)[:num_ref]
+        lst += [None] * (num_ref + 1 - len(lst))
+        for idx, pic in enumerate(mods):
+            for c in range(num_ref, idx, -1):
+                lst[c] = lst[c - 1]
+            lst[idx] = pic
+            n = idx + 1
+            for c in range(idx + 1, num_ref + 1):
+                if lst[c] is not pic:
+                    lst[n] = lst[c]
+                    n += 1
+        return lst[:num_ref]
+
+    def slice(self, index, first, end, idr, intra, ref_idc, pps, frame_num, poc_lsb, delta_bottom, delta_poc,
+              marking):
+        o, sps = self.o, self.sps
+        w = BitWriter()
+        w.ue(first)
+        slice_type = 2 if intra else (0 if not self.chance(0.1) else 2)
+        w.ue(slice_type + (5 if self.chance(0.3) else 0))
+        w.ue(pps.pps_id)
+        w.u(sps.log2_max_frame_num, frame_num)
+        if idr:
+            w.ue(self.ri(0, 3))
+        if sps.poc_type == 0:
+            w.u(sps.log2_max_poc_lsb, poc_lsb)
+            if pps.bottom_field_pic_order:
+                w.se(delta_bottom)
+        elif sps.poc_type == 1 and not sps.delta_always_zero:
+            w.se(delta_poc[0])
+            if pps.bottom_field_pic_order:
+                w.se(delta_poc[1])
+        if pps.redundant_pic_cnt:
+            w.ue(o.redundant_pic_cnt)
+        self.count("slices")
+        self.count("i_slices" if slice_type == 2 else "p_slices")
+        self.refs_list = []
+        self.weights = None
+        if slice_type == 0:
+            usable = len(self.refs)
+            num_ref = pps.num_ref_default
+            if o.bad_ref_idx:
+                num_ref = usable + 1
+                w.u(1, 1)
+                w.ue(num_ref - 1)
+            elif num_ref > usable or self.chance(0.3):
+                num_ref = self.ri(1, usable)
+                w.u(1, 1)
+                w.ue(num_ref - 1)
+            else:
+                w.u(1, 0)
+            mods = []
+            if o.modifications and self.chance(0.4):
+                w.u(1, 1)
+                pred = frame_num
+                max_pic_num = 1 << sps.log2_max_frame_num
+                wrap = self.wraps(frame_num)
+                for _ in range(self.ri(1, num_ref)):
+                    r = self.refs[self.ri(0, len(self.refs) - 1)]
+                    if r.long:
+                        w.ue(2)
+                        w.ue(r.long_idx)
+                    else:
+                        no_wrap = wrap[id(r)] % max_pic_num  # picNumLXNoWrap of the target
+                        if self.chance(0.5):
+                            w.ue(0)
+                            w.ue(((pred - no_wrap) % max_pic_num or max_pic_num) - 1)
+                        else:
+                            w.ue(1)
+                            w.ue(((no_wrap - pred) % max_pic_num or max_pic_num) - 1)
+                        pred = no_wrap
+                    mods.append(r)
+                    self.count("list_modifications")
+                w.ue(3)
+            else:
+                w.u(1, 0)
+            self.refs_list = self.ref_list(frame_num, num_ref, mods)
+            self.num_ref = num_ref
+            if pps.weighted:
+                self.weights = self.pred_weight_table(w, num_ref)
+                self.count("weighted_slices")
+        if ref_idc:
+            if idr:
+                w.u(1, int(o.no_output_of_prior_pics))
+                w.u(1, int(marking["long_term_reference"]))
+            else:
+                w.u(1, int(marking["adaptive"]))
+                if marking["adaptive"]:
+                    for op in marking["ops"]:
+                        w.ue(op[0])
+                        for v in op[1:]:
+                            w.ue(v)
+                    w.ue(0)
+        qp = self.ri(*o.qp_range)
+        w.se(qp - pps.pic_init_qp)
+        idc, alpha, beta = 0, 0, 0
+        if pps.deblocking_control:
+            idc = self.ri(0, 2)
+            w.ue(idc)
+            if idc != 1:
+                alpha, beta = self.ri(-6, 6), self.ri(-6, 6)
+                w.se(alpha)
+                w.se(beta)
+        self.count("deblock_idc_%d" % idc)
+        if idc != 1 and (alpha or beta):
+            self.count("deblock_offsets")
+        if pps.constrained_intra:
+            self.count("constrained_intra_slices")
+        self.pps, self.slice_index = pps, index
+        self.slice_data(w, first, end, slice_type, qp)
+        w.trailing()
+        return nal_unit(ref_idc, 5 if idr else 1, w.data())
+
+    def pred_weight_table(self, w, num_ref):
+        luma_log2, chroma_log2 = self.ri(0, 7), self.ri(0, 7)
+        w.ue(luma_log2)
+        w.ue(chroma_log2)
+        weights = []
+        for _ in range(num_ref):
+            entry = {}
+            if self.chance(0.6):
+                entry["luma"] = (self.ri(-128, 127), self.ri(-128, 127))
+                w.u(1, 1)
+                w.se(entry["luma"][0])
+                w.se(entry["luma"][1])
+            else:
+                w.u(1, 0)
+            if self.chance(0.6):
+                entry["chroma"] = [(self.ri(-128, 127), self.ri(-128, 127)) for _ in range(2)]
+                w.u(1, 1)
+                for cw, co in entry["chroma"]:
+                    w.se(cw)
+                    w.se(co)
+            else:
+                w.u(1, 0)
+            weights.append(entry)
+        return weights
+
+    # ---- neighbours (the decoder's rules, kept independently)
+    def mb_at(self, mbx, mby):
+        if not (0 <= mbx < self.mbw and 0 <= mby < self.mbh):
+            return None
+        m = self.mbs[mby * self.mbw + mbx]
+        return m if m is not None and m.slice == self.slice_index else None
+
+    def intra_avail(self, mbx, mby):
+        m = self.mb_at(mbx, mby)
+        return m is not None and (not self.pps.constrained_intra or m.intra)
+
+    def motion(self, bx, by, mbx, mby, mask):
+        """(available, ref, mvx, mvy) of the 4x4 block at picture block coordinates (bx, by)."""
+        if bx < 0 or by < 0 or (bx >> 2) >= self.mbw or (by >> 2) >= self.mbh:
+            return (False, -1, 0, 0)
+        nx, ny = bx >> 2, by >> 2
+        if (nx, ny) == (mbx, mby):
+            if not (mask >> ((by & 3) * 4 + (bx & 3))) & 1:
+                return (False, -1, 0, 0)
+        elif ny > mby or (ny == mby and nx > mbx) or self.mb_at(nx, ny) is None:
+            return (False, -1, 0, 0)
+        b = by * self.mbw * 4 + bx
+        ref = self.ref[b]
+        mv = self.mv[b] if ref >= 0 else (0, 0)
+        return (True, ref, mv[0], mv[1])
+
+    def predict_mv(self, mbx, mby, x4, y4, w4, ref, mask, shape):
+        bx, by = mbx * 4 + x4, mby * 4 + y4
+        a = self.motion(bx - 1, by, mbx, mby, mask)
+        b = self.motion(bx, by - 1, mbx, mby, mask)
+        c = self.motion(bx + w4, by - 1, mbx, mby, mask)
+        if not c[0]:
+            c = self.motion(bx - 1, by - 1, mbx, mby, mask)
+        if shape == 1:
+            if y4 == 0 and b[1] == ref:
+                return b[2:]
+            if y4 != 0 and a[1] == ref:
+                return a[2:]
+        elif shape == 2:
+            if x4 == 0 and a[1] == ref:
+                return a[2:]
+            if x4 != 0 and c[1] == ref:
+                return c[2:]
+        if not b[0] and not c[0] and a[0]:
+            b = c = a
+        same = [n for n in (a, b, c) if n[1] == ref]
+        if len(same) == 1:
+            return same[0][2:]
+        return (sorted([a[2], b[2], c[2]])[1], sorted([a[3], b[3], c[3]])[1])
+
+    def set_motion(self, mbx, mby, x4, y4, w4, h4, ref, mv):
+        mask = 0
+        for y in range(y4, y4 + h4):
+            for x in range(x4, x4 + w4):
+                b = (mby * 4 + y) * self.mbw * 4 + mbx * 4 + x
+                self.ref[b] = ref
+                self.mv[b] = mv
+                mask |= 1 << (y * 4 + x)
+        return mask
+
+    def far(self, mbx, mby, px, py, w, h, mv):
+        ax, ay = mbx * 16 + px + (mv[0] >> 2), mby * 16 + py + (mv[1] >> 2)
+        W, H = self.mbw * 16, self.mbh * 16
+        if ax + w <= -16 or ay + h <= -16 or ax >= W + 16 or ay >= H + 16:
+            self.count("far_mv_partitions")
+
+    def nc(self, mbx, mby, comp, x4, y4):
+        m = self.mbs[mby * self.mbw + mbx]
+        size = 4 if comp == 0 else 2
+
+        def value(mx, my, x, y):
+            n = m if (mx, my) == (mbx, mby) else self.mb_at(mx, my)
+            if n is None:
+                return None
+            return n.nz[y * 4 + x] if comp == 0 else n.nz[16 + (comp - 1) * 4 + y * 2 + x]
+
+        a = value(mbx, mby, x4 - 1, y4) if x4 > 0 else value(mbx - 1, mby, size - 1, y4)
+        b = value(mbx, mby, x4, y4 - 1) if y4 > 0 else value(mbx, mby - 1, x4, size - 1)
+        if a is not None and b is not None:
+            return (a + b + 1) >> 1
+        return a if a is not None else b if b is not None else 0
+
+    # ---- macroblocks
+    def slice_data(self, w, first, end, slice_type, qp):
+        o = self.o
+        self.qp = qp
+        run = 0
+        for addr in range(first, end):
+            mbx, mby = addr % self.mbw, addr // self.mbw
+            m = _Mb(self.slice_index)
+            self.mbs[addr] = m
+            if slice_type == 0 and self.chance(o.skip_share):
+                m.kind = "SKIP"
+                run += 1
+                self.skip(mbx, mby)
+                continue
+            if slice_type == 0:
+                w.ue(run)
+                if run:
+                    self.count("skip_runs")
+                run = 0
+            self.macroblock(w, m, mbx, mby, slice_type)
+        if run:
+            w.ue(run)
+            self.count("skip_runs")
+
+    def skip(self, mbx, mby):
+        self.count("P_Skip")
+        a = self.motion(mbx * 4 - 1, mby * 4, mbx, mby, 0)
+        b = self.motion(mbx * 4, mby * 4 - 1, mbx, mby, 0)
+        mv = (0, 0)
+        if a[0] and b[0] and a[1:] != (0, 0, 0) and b[1:] != (0, 0, 0):
+            mv = self.predict_mv(mbx, mby, 0, 0, 4, 0, 0, 0)
+        if mv != (0, 0):
+            self.count("skip_mv_nonzero")
+        self.set_motion(mbx, mby, 0, 0, 4, 4, 0, mv)
+        self.far(mbx, mby, 0, 0, 16, 16, mv)
+
+    def macroblock(self, w, m, mbx, mby, slice_type):
+        o = self.o
+        if slice_type == 0 and not self.chance(o.intra_share):
+            self.inter_mb(w, m, mbx, mby)
+            return
+        if slice_type == 0:
+            self.count("intra_mbs_in_p_slices")
+        offset = 5 if slice_type == 0 else 0
+        self.set_motion(mbx, mby, 0, 0, 4, 4, -1, (0, 0))
+        r = self.rng.random()
+        if o.pcm and r < 0.08:
+            m.kind = "PCM"
+            m.nz = [16] * 24
+            self.count("I_PCM")
+            w.ue(25 + offset)
+            w.align_zero()
+            for v in self.rng.integers(1, 256, size=384):
+                w.u(8, int(v))
+            return
+        if r < 0.55:
+            m.kind = "I4"
+            self.count("I_NxN")
+            w.ue(0 + offset)
+            for blk in range(16):
+                x4 = ((blk >> 2) & 1) * 2 + (blk & 1)
+                y4 = (blk >> 3) * 2 + ((blk >> 1) & 1)
+                avail = self.i4_avail(mbx, mby, x4, y4, blk)
+                allowed = [mode for mode, needs in I4_NEEDS.items() if all(avail[c] for c in needs)]
+                mode = allowed[self.ri(0, len(allowed) - 1)]
+                pa, pb = self.i4_neighbour(mbx, mby, x4 - 1, y4, m), self.i4_neighbour(mbx, mby, x4, y4 - 1, m)
+                pred = 2 if pa < 0 or pb < 0 else min(pa, pb)
+                if mode == pred:
+                    w.u(1, 1)
+                else:
+                    w.u(1, 0)
+                    w.u(3, mode if mode < pred else mode - 1)
+                m.i4[y4 * 4 + x4] = mode
+                self.count("i4x4_" + ("vertical", "horizontal", "dc", "diagonal_down_left", "diagonal_down_right",
+                                      "vertical_right", "horizontal_down", "vertical_left", "horizontal_up")[mode])
+            self.chroma_mode(w, mbx, mby)
+            cbp = self.ri(0, 47)
+            w.ue(CBP_CODE_INTRA[cbp])
+            self.residual(w, m, mbx, mby, cbp & 15, cbp >> 4, False)
+            return
+        m.kind = "I16"
+        self.count("I_16x16")
+        left, top, corner = (self.intra_avail(mbx - 1, mby), self.intra_avail(mbx, mby - 1),
+                             self.intra_avail(mbx - 1, mby - 1))
+        allowed = [2] + [0] * top + [1] * left + [3] * (top and left and corner)
+        mode = allowed[self.ri(0, len(allowed) - 1)]
+        self.count("i16x16_" + ("vertical", "horizontal", "dc", "plane")[mode])
+        cbp_chroma, cbp_luma = self.ri(0, 2), 15 * self.ri(0, 1)
+        w.ue(offset + 1 + mode + 4 * cbp_chroma + (12 if cbp_luma else 0))
+        self.chroma_mode(w, mbx, mby)
+        self.residual(w, m, mbx, mby, cbp_luma, cbp_chroma, True)
+
+    def chroma_mode(self, w, mbx, mby):
+        left, top, corner = (self.intra_avail(mbx - 1, mby), self.intra_avail(mbx, mby - 1),
+                             self.intra_avail(mbx - 1, mby - 1))
+        allowed = [0] + [1] * left + [2] * top + [3] * (top and left and corner)
+        mode = allowed[self.ri(0, len(allowed) - 1)]
+        w.ue(mode)
+        self.count("chroma_" + ("dc", "horizontal", "vertical", "plane")[mode])
+        return mode
+
+    def i4_avail(self, mbx, mby, x4, y4, blk):
+        left = x4 > 0 or self.intra_avail(mbx - 1, mby)
+        top = y4 > 0 or self.intra_avail(mbx, mby - 1)
+        if x4 > 0 and y4 > 0:
+            corner = True
+        elif x4 > 0:
+            corner = self.intra_avail(mbx, mby - 1)
+        elif y4 > 0:
+            corner = self.intra_avail(mbx - 1, mby)
+        else:
+            corner = self.intra_avail(mbx - 1, mby - 1)
+        return {"T": top, "L": left, "D": corner}
+
+    def i4_neighbour(self, mbx, mby, x4, y4, m):
+        if x4 >= 0 and y4 >= 0:
+            return m.i4[y4 * 4 + x4]
+        n = self.mb_at(mbx - (x4 < 0), mby - (y4 < 0))
+        if n is None or (not n.intra and self.pps.constrained_intra):
+            return -1
+        if n.kind != "I4":
+            return 2
+        return n.i4[((y4 + 4) & 3) * 4 + ((x4 + 4) & 3)]
+
+    def ref_idx(self, w, forced0=False):
+        usable = [i for i, r in enumerate(self.refs_list) if r is not None]
+        ref = 0 if forced0 else usable[self.ri(0, len(usable) - 1)]
+        if self.o.bad_ref_idx and not forced0:
+            ref = self.num_ref - 1  # an empty entry
+        if not forced0 and self.num_ref > 1:
+            if self.num_ref == 2:
+                w.u(1, 1 - ref)
+            else:
+                w.ue(ref)
+            if ref > 0:
+                self.count("ref_idx_nonzero")
+        return ref
+
+    def choose_mv(self, mbx, mby, px, py, w, h, pred):
+        o = self.o
+        if o.far_mv and self.chance(0.08):
+            W, H = self.mbw * 16, self.mbh * 16
+            side = self.ri(0, 3)
+            x0, y0 = mbx * 16 + px, mby * 16 + py
+            tx = 0
+            if side == 0:
+                tx = -w - self.ri(17, 60)
+            elif side == 1:
+                tx = W + self.ri(17, 60)
+            ty = self.ri(-8, H)
+            if side == 2:
+                ty, tx = -h - self.ri(17, 60), self.ri(-8, W)
+            elif side == 3:
+                ty, tx = H + self.ri(17, 60), self.ri(-8, W)
+            return ((tx - x0) * 4 + self.ri(0, 3), (ty - y0) * 4 + self.ri(0, 3))
+        mv = (pred[0] + self.ri(-20, 20), pred[1] + self.ri(-20, 20))
+        return (max(-1200, min(1200, mv[0])), max(-1200, min(1200, mv[1])))
+
+    def inter_mb(self, w, m, mbx, mby):
+        kind = self.ri(0, 4)
+        m.kind = "P"
+        self.count(("P_L0_16x16", "P_L0_L0_16x8", "P_L0_L0_8x16", "P_8x8", "P_8x8ref0")[kind])
+        w.ue(kind)
+        mask = 0
+        if kind < 3:
+            parts = 1 if kind == 0 else 2
+            refs = [self.ref_idx(w) for _ in range(parts)]
+            geo = []
+            for p in range(parts):
+                x4, y4 = (2 * p if kind == 2 else 0), (2 * p if kind == 1 else 0)
+                w4, h4 = (2 if kind == 2 else 4), (2 if kind == 1 else 4)
+                geo.append((x4, y4, w4, h4))
+            mvds = []
+            for p, (x4, y4, w4, h4) in enumerate(geo):
+                pred = self.predict_mv(mbx, mby, x4, y4, w4, refs[p], mask, kind)
+                mv = self.choose_mv(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, pred)
+                mvds.append((mv[0] - pred[0], mv[1] - pred[1]))
+                mask |= self.set_motion(mbx, mby, x4, y4, w4, h4, refs[p], mv)
+                self.far(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, mv)
+            for d in mvds:
+                w.se(d[0])
+                w.se(d[1])
+        else:
+            subs = [self.ri(0, 3) for _ in range(4)]
+            for s in subs:
+                w.ue(s)
+                self.count(("sub_8x8", "sub_8x4", "sub_4x8", "sub_4x4")[s])
+            refs = [self.ref_idx(w, forced0=kind == 4) for _ in range(4)]
+            mvds = []
+            for s in range(4):
+                sx, sy = (s & 1) * 2, (s >> 1) * 2
+                n = 1 if subs[s] == 0 else 4 if subs[s] == 3 else 2
+                w4 = 2 if subs[s] in (0, 1) else 1
+                h4 = 2 if subs[s] in (0, 2) else 1
+                for k in range(n):
+                    x4 = sx + ((k & 1) if w4 == 1 else 0)
+                    y4 = sy + (((k >> 1) if subs[s] == 3 else k) if h4 == 1 else 0)
+                    pred = self.predict_mv(mbx, mby, x4, y4, w4, refs[s], mask, 0)
+                    mv = self.choose_mv(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, pred)
+                    mvds.append((mv[0] - pred[0], mv[1] - pred[1]))
+                    mask |= self.set_motion(mbx, mby, x4, y4, w4, h4, refs[s], mv)
+                    self.far(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, mv)
+            for d in mvds:
+                w.se(d[0])
+                w.se(d[1])
+        cbp = self.ri(0, 47)
+        w.ue(CBP_CODE_INTER[cbp])
+        self.residual(w, m, mbx, mby, cbp & 15, cbp >> 4, False)
+
+    def qp_delta(self, w):
+        delta = 0
+        if self.chance(0.3):
+            delta = self.ri(-26, 25)
+        q = self.qp + delta
+        lo, hi = self.o.qp_range
+        if not lo <= q <= hi and (lo, hi) != (0, 51):
+            delta, q = 0, self.qp
+        if q < 0 or q > 51:
+            q = (q + 52) % 52
+            self.count("qp_wraps")
+        w.se(delta)
+        self.qp = q
+
+    def random_levels(self, n, dc_heavy=False):
+        """Up to ``n`` levels in scan order: mostly small, a few level escapes."""
+        levels = [0] * n
+        count = min(n, int(self.rng.choice([0, 1, 1, 2, 3, 4, 6, 9, 16])))
+        for pos in sorted(self.rng.choice(n, size=count, replace=False)):
+            mag = 1 if self.chance(0.5) else self.ri(2, 6)
+            if self.o.escapes and self.chance(0.08):
+                mag = self.ri(8, 2000)
+            levels[int(pos)] = mag * (1 if self.chance(0.5) else -1)
+        return levels
+
+    def residual(self, w, m, mbx, mby, cbp_luma, cbp_chroma, i16):
+        if cbp_luma or cbp_chroma or i16:
+            self.qp_delta(w)
+        qp = self.qp
+        dcy = np.zeros((4, 4), np.int64)
+        if i16:
+            dc = self.random_levels(16)
+            while True:
+                dcy = luma_dc_values(dc, qp)
+                if np.abs(dcy).max() <= COEFF_BOUND // 4 and sum(abs(v) for v in dc) < 4000:
+                    break
+                k = max(range(16), key=lambda i: abs(dc[i]))
+                dc[k] = int(np.sign(dc[k])) * (abs(dc[k]) // 2)
+            self.block(w, dc, self.nc(mbx, mby, 0, 0, 0), 16)
+        for b8 in range(4):
+            for b4 in range(4):
+                x4, y4 = (b8 & 1) * 2 + (b4 & 1), (b8 >> 1) * 2 + (b4 >> 1)
+                if not (cbp_luma >> b8) & 1:
+                    m.nz[y4 * 4 + x4] = 0
+                    continue
+                n = 15 if i16 else 16
+                levels = fit_levels(self.random_levels(n), qp, 1 if i16 else 0, dcy[y4, x4])
+                m.nz[y4 * 4 + x4] = self.block(w, levels, self.nc(mbx, mby, 0, x4, y4), n)
+        qpc = chroma_qp(qp, self.pps.chroma_qp_offset)
+        dcc = [np.zeros((2, 2), np.int64)] * 2
+        if cbp_chroma:
+            for comp in range(2):
+                lv = self.random_levels(4)
+                while True:
+                    dcc[comp] = chroma_dc_values(lv, qpc)
+                    if np.abs(dcc[comp]).max() <= COEFF_BOUND // 4:
+                        break
+                    k = max(range(4), key=lambda i: abs(lv[i]))
+                    lv[k] = int(np.sign(lv[k])) * (abs(lv[k]) // 2)
+                self.block(w, lv, -1, 4)
+        for comp in range(2):
+            for b in range(4):
+                x4, y4 = b & 1, b >> 1
+                if not cbp_chroma & 2:
+                    m.nz[16 + comp * 4 + b] = 0
+                    continue
+                levels = fit_levels(self.random_levels(15), qpc, 1, dcc[comp][y4, x4])
+                m.nz[16 + comp * 4 + b] = self.block(w, levels, self.nc(mbx, mby, comp + 1, x4, y4), 15)
+
+    def block(self, w, levels, nc, max_coeff):
+        total, counts = write_block(w, levels, nc, max_coeff)
+        self.stats.update(counts)
+        return total
+
+
+def random_stream(seed, **options):
+    """(access units, the writer's counts, (coded width, coded height), (width, height) after the crop) of a
+    random stream."""
+    rng = np.random.default_rng(seed)
+    opts = Options(**options)
+    writer = StreamWriter(rng, opts)
+    aus = [writer.picture() for _ in range(opts.frames)]
+    cw, ch = 16 * opts.mb_width, 16 * opts.mb_height
+    l, r, t, b = opts.crop
+    return aus, writer.stats, (cw, ch), (cw - 2 * (l + r), ch - 2 * (t + b)), writer
+
+
+# ---------------------------------------------------------------------------------------------
+# An encoder of real pictures (the checked-in fixture)
+
+# Forward quantisation: the multiplication factors of the 4x4 core transform by qP % 6 and position class.
+_MF = [(13107, 5243, 8066), (11916, 4660, 7490), (10082, 4194, 6554), (9362, 3647, 5825), (8192, 3355, 5243),
+       (7282, 2893, 4559)]
+_CF = np.array([[1, 1, 1, 1], [2, 1, -1, -2], [1, -1, -1, 1], [1, -2, 2, -1]], np.int64)
+_CLASS = np.array([[0 if r % 2 == 0 and c % 2 == 0 else 1 if r % 2 and c % 2 else 2 for c in range(4)]
+                   for r in range(4)])
+_SCAN = np.array([r * 4 + c for r, c in ZIGZAG])
+
+
+def _forward(x):
+    """The forward core transform of 4x4 blocks x[..., 4, 4]."""
+    return _CF @ x @ _CF.T
+
+
+def _quantise(w, qp, intra, dc_shift=0):
+    mf = _MF[qp % 6][0] if dc_shift else np.array(_MF[qp % 6])[_CLASS]
+    qbits = 15 + qp // 6 + dc_shift
+    f = (1 << qbits) // (3 if intra else 6)
+    return np.sign(w) * ((np.abs(w) * mf + f) >> qbits)
+
+
+def _dequantise(z, qp):
+    """d = (c * LevelScale4x4) << (qP / 6) >> 4 at flat scaling (8.5.12.1), raster order."""
+    v = np.array(NORM_ADJUST[qp % 6])[_CLASS]
+    return (z * v) << (qp // 6)
+
+
+def _inverse(d):
+    """The 4x4 inverse transform (8.5.12.2) of d[..., 4, 4], rows then columns, with its rounding."""
+    def one(x, axis):
+        x0, x1, x2, x3 = (np.take(x, i, axis=axis) for i in range(4))
+        e0, e1, e2, e3 = x0 + x2, x0 - x2, (x1 >> 1) - x3, x1 + (x3 >> 1)
+        return np.stack([e0 + e3, e1 + e2, e1 - e2, e0 - e3], axis=axis)
+
+    return (one(one(d, -1), -2) + 32) >> 6
+
+
+def _blocks(a):
+    """A (4n, 4m) array as (n, m, 4, 4) blocks."""
+    n, m = a.shape[0] // 4, a.shape[1] // 4
+    return a.reshape(n, 4, m, 4).transpose(0, 2, 1, 3)
+
+
+def _unblocks(b):
+    n, m = b.shape[:2]
+    return b.transpose(0, 2, 1, 3).reshape(4 * n, 4 * m)
+
+
+def _tap(a, b, c, d, e, f):
+    return a - 5 * b + 20 * c + 20 * d - 5 * e + f
+
+
+def quarter_planes(plane, pad):
+    """The 16 quarter-sample planes of a luma plane (8.4.2.2.1), padded by ``pad`` samples on each side with the
+    picture's edge (the clamped reference): planes[fy][fx][y, x] is the sample at (x - pad + fx / 4,
+    y - pad + fy / 4)."""
+    g = np.pad(plane.astype(np.int64), pad + 3, mode="edge")
+    h, w = g.shape
+
+    def sh(a, dy, dx):  # a shifted so that [y, x] reads a[y + dy, x + dx]
+        return a[3 + dy:h - 3 + dy, 3 + dx:w - 3 + dx]
+
+    b1 = _tap(*(sh(g, 0, k) for k in range(-2, 4)))
+    h1 = _tap(*(sh(g, k, 0) for k in range(-2, 4)))
+    b1p = np.pad(b1, 3, mode="edge")
+    j1 = _tap(*(b1p[3 + k:b1p.shape[0] - 3 + k, 3:b1p.shape[1] - 3] for k in range(-2, 4)))
+    G = sh(g, 0, 0)
+    b = np.clip((b1 + 16) >> 5, 0, 255)
+    hh = np.clip((h1 + 16) >> 5, 0, 255)
+    j = np.clip((j1 + 512) >> 10, 0, 255)
+
+    def nx(a):  # a at x + 1
+        return np.pad(a[:, 1:], ((0, 0), (0, 1)), mode="edge")
+
+    def ny(a):  # a at y + 1
+        return np.pad(a[1:], ((0, 1), (0, 0)), mode="edge")
+
+    avg = lambda a, c: (a + c + 1) >> 1  # noqa: E731
+    planes = [[G, avg(G, b), b, avg(b, nx(G))],
+              [avg(G, hh), avg(b, hh), avg(b, j), avg(b, nx(hh))],
+              [hh, avg(hh, j), j, avg(j, nx(hh))],
+              [avg(hh, ny(G)), avg(hh, ny(b)), avg(j, ny(b)), avg(nx(hh), ny(b))]]
+    return [[p.astype(np.uint8) for p in row] for row in planes]
+
+
+class FrameEncoder:
+    """IDR then P pictures of real frames: intra 16x16 macroblocks (with DC chroma) in the IDR, P_L0_16x16 and
+    P_Skip in the P pictures with a full-sample search then a quarter-sample refinement, one reference, one
+    slice a picture, a fixed QP, the deblocking filter off. Its reconstruction is the decoder's."""
+
+    PAD = 48
+
+    def __init__(self, width, height, qp=22, search=6):
+        self.w, self.h = width, height
+        self.cw, self.ch = (width + 15) // 16 * 16, (height + 15) // 16 * 16
+        self.mbw, self.mbh = self.cw // 16, self.ch // 16
+        self.qp, self.search = qp, search
+        self.sps = Sps(self.mbw, self.mbh, profile_idc=66, level_idc=31, poc_type=2, max_num_ref_frames=1,
+                       crop=(0, (self.cw - width) // 2, 0, (self.ch - height) // 2))
+        self.pps = Pps(pic_init_qp=qp, deblocking_control=True)
+        self.ref = None
+        self.frame_num = 0
+        self.stats = Counter()
+
+    def encode(self, yuv):
+        """The access unit of one frame (Y, U, V planes at the frame's size), its reconstruction kept."""
+        y, u, v = (np.pad(p, ((0, ch - p.shape[0]), (0, cw - p.shape[1])), mode="edge").astype(np.int64)
+                   for p, cw, ch in ((yuv[0], self.cw, self.ch), (yuv[1], self.cw // 2, self.ch // 2),
+                                     (yuv[2], self.cw // 2, self.ch // 2)))
+        idr = self.ref is None
+        w = BitWriter()
+        w.ue(0)  # first_mb_in_slice
+        w.ue(7 if idr else 5)  # I or P, all slices of the picture alike
+        w.ue(0)
+        w.u(self.sps.log2_max_frame_num, self.frame_num)
+        if idr:
+            w.ue(0)  # idr_pic_id
+        else:
+            w.u(1, 0)  # num_ref_idx_active_override_flag
+            w.u(1, 0)  # ref_pic_list_modification_flag_l0
+        w.u(1, 0)  # no_output_of_prior_pics / adaptive_ref_pic_marking_mode
+        if idr:
+            w.u(1, 0)  # long_term_reference_flag
+        w.se(0)  # slice_qp_delta
+        w.ue(1)  # disable_deblocking_filter_idc
+        self.recon = [np.zeros((self.ch, self.cw), np.int64), np.zeros((self.ch // 2, self.cw // 2), np.int64),
+                      np.zeros((self.ch // 2, self.cw // 2), np.int64)]
+        self.nz = np.zeros((self.mbh, self.mbw, 24), np.int64)
+        self.mvs = np.zeros((self.mbh, self.mbw, 2), np.int64)
+        if idr:
+            for mby in range(self.mbh):
+                for mbx in range(self.mbw):
+                    self.intra_mb(w, mbx, mby, y, u, v)
+        else:
+            self.inter_picture(w, y, u, v)
+        w.trailing()
+        au = ([nal_unit(3, 7, self.sps.rbsp()), nal_unit(3, 8, self.pps.rbsp())] if idr else [])
+        au.append(nal_unit(3, 5 if idr else 1, w.data()))
+        self.ref = [r.astype(np.uint8) for r in self.recon]
+        self.frame_num = (self.frame_num + 1) % (1 << self.sps.log2_max_frame_num)
+        return au
+
+    # ---- residual coding shared by both picture kinds
+    def nc(self, mbx, mby, comp, x4, y4):
+        size = 4 if comp == 0 else 2
+        base = 0 if comp == 0 else 16 + (comp - 1) * 4
+
+        def at(mx, my, x, y):
+            if mx < 0 or my < 0:
+                return None
+            return int(self.nz[my, mx, base + y * size + x])
+
+        a = at(mbx, mby, x4 - 1, y4) if x4 > 0 else at(mbx - 1, mby, size - 1, y4)
+        b = at(mbx, mby, x4, y4 - 1) if y4 > 0 else at(mbx, mby - 1, x4, size - 1)
+        if a is not None and b is not None:
+            return (a + b + 1) >> 1
+        return a if a is not None else b if b is not None else 0
+
+    def chroma_residual(self, mbx, mby, pred_u, pred_v, u, v, intra):
+        """(quantised DC levels, quantised AC blocks, reconstruction) of both chroma planes of a macroblock."""
+        qpc = chroma_qp(self.qp, self.pps.chroma_qp_offset)
+        out = []
+        for pred, src in ((pred_u, u), (pred_v, v)):
+            x0, y0 = mbx * 8, mby * 8
+            wt = _forward(_blocks(src[y0:y0 + 8, x0:x0 + 8] - pred))
+            dc = wt[:, :, 0, 0]
+            h2 = np.array([[1, 1], [1, -1]])
+            zdc = _quantise(h2 @ dc @ h2, qpc, intra, 1)
+            zac = _quantise(wt, qpc, intra)
+            zac[:, :, 0, 0] = 0
+            d = _dequantise(zac, qpc)
+            d[:, :, 0, 0] = chroma_dc_values(zdc.reshape(-1).tolist(), qpc)
+            rec = np.clip(pred + _unblocks(_inverse(d)), 0, 255)
+            out.append((zdc, zac, rec))
+        return out
+
+    def write_chroma(self, w, mbx, mby, chroma, cbp_chroma):
+        if cbp_chroma:
+            for zdc, _, _ in chroma:
+                write_block(w, zdc.reshape(-1).tolist(), -1, 4)
+        for comp, (_, zac, _) in enumerate(chroma):
+            for b in range(4):
+                if cbp_chroma == 2:
+                    levels = zac[b >> 1, b & 1].reshape(-1)[_SCAN][1:].tolist()
+                    total, _ = write_block(w, levels, self.nc(mbx, mby, comp + 1, b & 1, b >> 1), 15)
+                    self.nz[mby, mbx, 16 + comp * 4 + b] = total
+
+    @staticmethod
+    def chroma_cbp(chroma):
+        if any(np.any(zac) for _, zac, _ in chroma):
+            return 2
+        return 1 if any(np.any(zdc) for zdc, _, _ in chroma) else 0
+
+    # ---- intra 16x16 (the IDR)
+    def intra_mb(self, w, mbx, mby, y, u, v):
+        x0, y0 = mbx * 16, mby * 16
+        rl, rc = self.recon[0], self.recon[1:]
+        top = rl[y0 - 1, x0:x0 + 16] if mby else None
+        left = rl[y0:y0 + 16, x0 - 1] if mbx else None
+        preds = {2: np.full((16, 16), 128 if top is None and left is None else
+                            ((top.sum() + left.sum() + 16) >> 5) if top is not None and left is not None else
+                            ((left.sum() + 8) >> 4) if left is not None else ((top.sum() + 8) >> 4), np.int64)}
+        if top is not None:
+            preds[0] = np.tile(top, (16, 1))
+        if left is not None:
+            preds[1] = np.tile(left[:, None], (1, 16))
+        if top is not None and left is not None:
+            corner = rl[y0 - 1, x0 - 1]
+            t = np.concatenate([[corner], top])
+            lft = np.concatenate([[corner], left])
+            hh = sum((i + 1) * (t[9 + i] - t[7 - i]) for i in range(8))
+            vv = sum((i + 1) * (lft[9 + i] - lft[7 - i]) for i in range(8))
+            a, b, c = 16 * (left[15] + top[15]), (5 * hh + 32) >> 6, (5 * vv + 32) >> 6
+            yy, xx = np.mgrid[:16, :16]
+            preds[3] = np.clip((a + b * (xx - 7) + c * (yy - 7) + 16) >> 5, 0, 255)
+        src = y[y0:y0 + 16, x0:x0 + 16]
+        mode = min(preds, key=lambda k: (np.abs(src - preds[k]).sum(), k))
+        pred = preds[mode]
+        wt = _forward(_blocks(src - pred))
+        dc = wt[:, :, 0, 0]
+        h4 = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]])
+        zdc = _quantise((h4 @ dc @ h4) // 2, self.qp, True, 1)
+        zac = _quantise(wt, self.qp, True)
+        zac[:, :, 0, 0] = 0
+        cbp_luma = 15 if np.any(zac) else 0
+        d = _dequantise(zac, self.qp)
+        d[:, :, 0, 0] = luma_dc_values(zdc.reshape(-1)[_SCAN].tolist(), self.qp)
+        rl[y0:y0 + 16, x0:x0 + 16] = np.clip(pred + _unblocks(_inverse(d)), 0, 255)
+        # Chroma: DC prediction of each 4x4 block.
+        cpreds = []
+        for plane in rc:
+            cx, cy = mbx * 8, mby * 8
+            ct = plane[cy - 1, cx:cx + 8] if mby else None
+            cl = plane[cy:cy + 8, cx - 1] if mbx else None
+            p = np.zeros((8, 8), np.int64)
+            for by in range(2):
+                for bx in range(2):
+                    st = ct[bx * 4:bx * 4 + 4].sum() if ct is not None else None
+                    sl = cl[by * 4:by * 4 + 4].sum() if cl is not None else None
+                    if bx == by:
+                        val = ((st + sl + 4) >> 3 if st is not None and sl is not None else
+                               (sl + 2) >> 2 if sl is not None else (st + 2) >> 2 if st is not None else 128)
+                    elif bx == 1:
+                        val = (st + 2) >> 2 if st is not None else (sl + 2) >> 2 if sl is not None else 128
+                    else:
+                        val = (sl + 2) >> 2 if sl is not None else (st + 2) >> 2 if st is not None else 128
+                    p[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = val
+            cpreds.append(p)
+        chroma = self.chroma_residual(mbx, mby, cpreds[0], cpreds[1], u, v, True)
+        cbp_chroma = self.chroma_cbp(chroma)
+        for plane, (_, _, rec) in zip(rc, chroma):
+            plane[mby * 8:mby * 8 + 8, mbx * 8:mbx * 8 + 8] = rec
+        w.ue(1 + mode + 4 * cbp_chroma + (12 if cbp_luma else 0))
+        w.ue(0)  # intra_chroma_pred_mode: DC
+        w.se(0)  # mb_qp_delta
+        write_block(w, zdc.reshape(-1)[_SCAN].tolist(), self.nc(mbx, mby, 0, 0, 0), 16)
+        for b8 in range(4):
+            for b4 in range(4):
+                x4, y4 = (b8 & 1) * 2 + (b4 & 1), (b8 >> 1) * 2 + (b4 >> 1)
+                if cbp_luma:
+                    levels = zac[y4, x4].reshape(-1)[_SCAN][1:].tolist()
+                    total, _ = write_block(w, levels, self.nc(mbx, mby, 0, x4, y4), 15)
+                    self.nz[mby, mbx, y4 * 4 + x4] = total
+        self.write_chroma(w, mbx, mby, chroma, cbp_chroma)
+        self.stats["I_16x16"] += 1
+
+    # ---- P pictures
+    def mv_pred(self, mbx, mby):
+        """The 16x16 vector prediction (8.4.1.3) with every neighbour inter and on reference 0."""
+        def n(x, yy):
+            if 0 <= x < self.mbw and 0 <= yy and (yy < mby or (yy == mby and x < mbx)):
+                return True, tuple(int(c) for c in self.mvs[yy, x])
+            return False, (0, 0)
+
+        a, b, c = n(mbx - 1, mby), n(mbx, mby - 1), n(mbx + 1, mby - 1)
+        if not c[0]:
+            c = n(mbx - 1, mby - 1)
+        if not b[0] and not c[0] and a[0]:
+            b = c = a
+        avail = [x for x in (a, b, c) if x[0]]
+        if len(avail) == 1:
+            return avail[0][1]
+        return (sorted([a[1][0], b[1][0], c[1][0]])[1], sorted([a[1][1], b[1][1], c[1][1]])[1])
+
+    def skip_mv(self, mbx, mby):
+        if mbx == 0 or mby == 0:
+            return (0, 0)
+        if tuple(self.mvs[mby, mbx - 1]) == (0, 0) or tuple(self.mvs[mby - 1, mbx]) == (0, 0):
+            return (0, 0)
+        return self.mv_pred(mbx, mby)
+
+    def inter_picture(self, w, y, u, v):
+        pad, r = self.PAD, self.search
+        planes = quarter_planes(self.ref[0], pad)
+        ref_c = [np.pad(c.astype(np.int64), pad // 2 + 1, mode="edge") for c in self.ref[1:]]
+        full = planes[0][0].astype(np.int64)
+        # Full-sample search: the SAD of every macroblock at each displacement.
+        mbs = y.reshape(self.mbh, 16, self.mbw, 16)
+        best = np.full((self.mbh, self.mbw), np.iinfo(np.int64).max)
+        best_mv = np.zeros((self.mbh, self.mbw, 2), np.int64)
+        for dy in range(-r, r + 1):
+            for dx in range(-r, r + 1):
+                shifted = full[pad + dy:pad + dy + self.ch, pad + dx:pad + dx + self.cw]
+                sad = np.abs(shifted.reshape(self.mbh, 16, self.mbw, 16) - mbs).sum(axis=(1, 3))
+                better = sad < best
+                best = np.where(better, sad, best)
+                best_mv[better] = (4 * dx, 4 * dy)
+        run = 0
+        for mby in range(self.mbh):
+            for mbx in range(self.mbw):
+                x0, y0 = mbx * 16, mby * 16
+                src = y[y0:y0 + 16, x0:x0 + 16]
+
+                def luma(mv):
+                    return planes[mv[1] & 3][mv[0] & 3][pad + y0 + (mv[1] >> 2):pad + y0 + (mv[1] >> 2) + 16,
+                                                        pad + x0 + (mv[0] >> 2):pad + x0 + (mv[0] >> 2) + 16
+                                                        ].astype(np.int64)
+
+                center = tuple(int(c) for c in best_mv[mby, mbx])
+                cands = [(center[0] + dx, center[1] + dy) for dy in range(-3, 4) for dx in range(-3, 4)]
+                skip = self.skip_mv(mbx, mby)
+                cands.append(skip)
+                mv = min(cands, key=lambda m: (np.abs(src - luma(m)).sum(), m != skip, m))
+                pred = luma(mv)
+                cpred = [self.chroma_pred(rc, mbx, mby, mv) for rc in ref_c]
+                wt = _forward(_blocks(src - pred))
+                z = _quantise(wt, self.qp, False)
+                chroma = self.chroma_residual(mbx, mby, cpred[0], cpred[1], u, v, False)
+                cbp_chroma = self.chroma_cbp(chroma)
+                cbp_luma = sum(1 << b8 for b8 in range(4)
+                               if np.any(z[(b8 >> 1) * 2:(b8 >> 1) * 2 + 2, (b8 & 1) * 2:(b8 & 1) * 2 + 2]))
+                if mv == skip and not cbp_luma and not cbp_chroma:
+                    self.recon[0][y0:y0 + 16, x0:x0 + 16] = pred
+                    for plane, p in zip(self.recon[1:], cpred):
+                        plane[mby * 8:mby * 8 + 8, mbx * 8:mbx * 8 + 8] = p
+                    self.mvs[mby, mbx] = mv
+                    run += 1
+                    self.stats["P_Skip"] += 1
+                    continue
+                w.ue(run)
+                run = 0
+                pmv = self.mv_pred(mbx, mby)
+                self.mvs[mby, mbx] = mv
+                w.ue(0)  # P_L0_16x16
+                w.se(mv[0] - pmv[0])
+                w.se(mv[1] - pmv[1])
+                cbp = cbp_luma | (cbp_chroma << 4)
+                w.ue(CBP_CODE_INTER[cbp])
+                d = _dequantise(z, self.qp)
+                for b8 in range(4):
+                    if not (cbp_luma >> b8) & 1:
+                        ys, xs = (b8 >> 1) * 2, (b8 & 1) * 2
+                        d[ys:ys + 2, xs:xs + 2] = 0
+                self.recon[0][y0:y0 + 16, x0:x0 + 16] = np.clip(pred + _unblocks(_inverse(d)), 0, 255)
+                if not cbp_chroma:
+                    chroma = [(np.zeros_like(zdc), np.zeros_like(zac), p) for (zdc, zac, _), p in zip(chroma, cpred)]
+                elif cbp_chroma == 1:
+                    chroma = self.chroma_residual_dc_only(mbx, mby, cpred, chroma)
+                for plane, (_, _, rec) in zip(self.recon[1:], chroma):
+                    plane[mby * 8:mby * 8 + 8, mbx * 8:mbx * 8 + 8] = rec
+                if cbp:
+                    w.se(0)  # mb_qp_delta
+                    for b8 in range(4):
+                        for b4 in range(4):
+                            x4, y4 = (b8 & 1) * 2 + (b4 & 1), (b8 >> 1) * 2 + (b4 >> 1)
+                            if (cbp_luma >> b8) & 1:
+                                total, _ = write_block(w, z[y4, x4].reshape(-1)[_SCAN].tolist(),
+                                                       self.nc(mbx, mby, 0, x4, y4), 16)
+                                self.nz[mby, mbx, y4 * 4 + x4] = total
+                    self.write_chroma(w, mbx, mby, chroma, cbp_chroma)
+                self.stats["P_L0_16x16"] += 1
+        if run:
+            w.ue(run)
+
+    def chroma_residual_dc_only(self, mbx, mby, cpred, chroma):
+        """The chroma of a macroblock whose AC levels are all zero: its reconstruction from the DC alone."""
+        qpc = chroma_qp(self.qp, self.pps.chroma_qp_offset)
+        out = []
+        for (zdc, zac, _), pred in zip(chroma, cpred):
+            d = np.zeros((2, 2, 4, 4), np.int64)
+            d[:, :, 0, 0] = chroma_dc_values(zdc.reshape(-1).tolist(), qpc)
+            out.append((zdc, zac, np.clip(pred + _unblocks(_inverse(d)), 0, 255)))
+        return out
+
+    def chroma_pred(self, plane, mbx, mby, mv):
+        """Eighth-sample bilinear chroma prediction (8.4.2.2.2) from an edge-padded chroma plane."""
+        off = self.PAD // 2 + 1
+        x, y = mbx * 8 + (mv[0] >> 3) + off, mby * 8 + (mv[1] >> 3) + off
+        fx, fy = mv[0] & 7, mv[1] & 7
+        a = plane[y:y + 8, x:x + 8]
+        b = plane[y:y + 8, x + 1:x + 9]
+        c = plane[y + 1:y + 9, x:x + 8]
+        d = plane[y + 1:y + 9, x + 1:x + 9]
+        return ((8 - fx) * (8 - fy) * a + fx * (8 - fy) * b + (8 - fx) * fy * c + fx * fy * d + 32) >> 6
+
+    def planes(self):
+        """The reconstruction of the last picture, cropped (Y, U, V)."""
+        return (self.ref[0][:self.h, :self.w], self.ref[1][:self.h // 2, :self.w // 2],
+                self.ref[2][:self.h // 2, :self.w // 2])
+
+
+def encode_frames(frames_bgr, qp=22, search=6):
+    """(access units, the encoder's reconstruction of each frame as (Y, U, V)) of uint8 BGR frames of even size:
+    BT.601 limited-range YUV 4:2:0 from ``cv2.cvtColor``, an IDR, then P pictures."""
+    import cv2
+
+    h, w = frames_bgr[0].shape[:2]
+    enc = FrameEncoder(w, h, qp, search)
+    aus, recon = [], []
+    for frame in frames_bgr:
+        i420 = cv2.cvtColor(np.ascontiguousarray(frame), cv2.COLOR_BGR2YUV_I420)
+        y = i420[:h]
+        u = i420[h:h + h // 4].reshape(h // 2, w // 2)
+        v = i420[h + h // 4:].reshape(h // 2, w // 2)
+        aus.append(enc.encode((y, u, v)))
+        recon.append(enc.planes())
+    return aus, recon, enc
