@@ -90,9 +90,11 @@ width:
   (``native/vp8_decoder.cpp`` built by ``g++``): decoded on the host to the
   digest of ``cv2.VideoCapture``'s frames, then the host loop as (g), K4's
   launches counted, the luminance PSNR >= linear upsampling on every frame,
-  demux and decode ms a frame; and (g''') the same for the VP9 .webm of
+  demux and decode ms a frame; (g''') the same for the VP9 .webm of
   those frames (``native/vp9_decoder.cpp``; two tile columns at this width),
-  its decoder's counts logged;
+  its decoder's counts logged; and (g'''') to (g6) the same for the FFV1
+  .mkv of the first 4, the H.264 .mp4 (and its .mkv / .avi / .h264 copies)
+  and the High-profile H.264 .mp4 (CABAC, the 8x8 transform, deblocking on);
 - data parallel (phase 13): ``make_sharded_map_solver`` on a frame x4 mesh of
   the flagship and a frame x2 x band x2 mesh of the 64-band cube, each beside
   ``minimize`` on one device (float32 by iterations, cost and PSNR, float64
@@ -2691,6 +2693,7 @@ VIDEO_FFV1_CLIP = "ffv1_960x540x4.mkv"    # (g''''): the first 4 of those frames
 VIDEO_FFV1_CENTRES = 3                    # centres 0-2: their window is frames 0-3 in the 4- and the 12-frame stack
 VIDEO_H264_DIR = os.path.join("tests", "data_torch", "h264")  # its own manifest.json, as VIDEO_MPEG4_DIR's
 VIDEO_H264_CLIP = "h264_960x540x12.mp4"   # (g'''''): the same 12 frames, H.264 (avc1), and as .mkv, .avi, .h264
+VIDEO_H264_HIGH_CLIP = "h264_high_960x540x12.mp4"  # (g6): the same 12 frames, H.264 High profile (CABAC, 8x8 transform)
 VIDEO_ODD_DIR = os.path.join("tests", "data_torch", "odd_height")  # (h'): VP9, VP8, MPEG-4 clips of odd height
 VIDEO_MPEG4_GAP = 0                        # grey levels between the port's frames and cv2.VideoCapture's
 
@@ -2816,7 +2819,9 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     frames written), its estimates of centres 0-2 held against (a)'s;
     (g''''') the same from the H.264 .mp4 of the 12 frames (``avc1``, coded
     960x544 with a bottom crop), its .mkv, .avi and raw .h264 copies decoded
-    to the same digest; (h')
+    to the same digest; (g6) the same from the High-profile H.264 .mp4 of the
+    12 frames (CABAC, the 8x8 transform with intra 8x8, the deblocking filter
+    on); (h')
     the odd-height clips (VP9, VP8, MPEG-4 Part 2), which cv2.VideoCapture
     converts through swscale's scaler, decoded to their recorded digests."""
     from super_resolution_tpu_torch.solvers import irls as irls_mod
@@ -3024,6 +3029,9 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
         device, card, truth, VIDEO_H264_DIR, VIDEO_H264_CLIP, "g'''''", "avc1", None, _h264_counts,
         make=lambda video: H264Decoder(video.config), demux=_mp4_track)
     h264_ms["containers"] = _h264_containers()
+    launches_h264_high, h264_high_ms, h264_high_gains = _video_from_webm(
+        device, card, truth, VIDEO_H264_DIR, VIDEO_H264_HIGH_CLIP, "g6", "avc1", None, _h264_high_counts,
+        make=lambda video: H264Decoder(video.config), demux=_mp4_track)
     odd_ms = _odd_height_fixtures()
     for row in rows:
         if row["row"] == "K4":
@@ -3033,12 +3041,14 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
             row["launches_video_webm_vp9"] = launches_vp9
             row["launches_video_mkv_ffv1"] = launches_ffv1
             row["launches_video_mp4_h264"] = launches_h264
+            row["launches_video_mp4_h264_high"] = launches_h264_high
 
     results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
                    rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains, mkv_ms=mkv_ms,
                    webm_ms=webm_ms, webm_gains=webm_gains, vp9_ms=vp9_ms, vp9_gains=vp9_gains, ffv1_ms=ffv1_ms,
-                   ffv1_gains=ffv1_gains, h264_ms=h264_ms, h264_gains=h264_gains, odd_ms=odd_ms)
+                   ffv1_gains=ffv1_gains, h264_ms=h264_ms, h264_gains=h264_gains, h264_high_ms=h264_high_ms,
+                   h264_high_gains=h264_high_gains, odd_ms=odd_ms)
     irls_mod._BUILT_SOLVER_CACHE.clear()
     log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
@@ -3225,6 +3235,14 @@ def _h264_counts(stats):
             f"{stats['cropped_pictures']} cropped picture(s), deblocking off in {stats['deblock_idc_1']} slice(s)")
 
 
+def _h264_high_counts(stats):
+    return (f"High profile: {stats['cabac_slices']} CABAC slice(s), {stats['idr_pictures']} IDR, {stats['p_slices']} "
+            f"P slice(s); macroblocks: {stats['I_8x8']} intra 8x8, {stats['I_16x16']} I_16x16, {stats['P_L0_16x16']} "
+            f"P_L0_16x16, {stats['P_8x8']} P_8x8, {stats['P_Skip']} P_Skip, {stats['transform_8x8_inter']} inter with "
+            f"the 8x8 transform; deblocking on in {stats['deblock_idc_0']} slice(s), {stats['cropped_pictures']} "
+            f"cropped picture(s)")
+
+
 def _h264_containers():
     """(g'''''): the .mkv (V_MPEG4/ISO/AVC), .avi (H264, Annex B) and raw .h264 copies of the H.264 clip's stream
     read by ``read_video_frames`` on the host, each to the digest of cv2.VideoCapture's frames that the manifest
@@ -3303,7 +3321,8 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
     FFV1 one, whose decoder ``make(video)`` builds from the track, the frames'
     digest also that of the frames written (``source_sha256``), and its first
     estimates against ``reference`` = (estimates, what they are); (g''''') the
-    H.264 one, which ``demux`` reads from MP4 (default: Matroska). Returns (K4
+    H.264 one, which ``demux`` reads from MP4 (default: Matroska), and (g6) the
+    High-profile one. Returns (K4
     launches, {"demux": ms, "decode": ms}, [(result, linear) luminance dB])."""
     make = make or (lambda video: decoder_class())
     path = os.path.join(ROOT, directory, clip)

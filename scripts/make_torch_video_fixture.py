@@ -93,8 +93,13 @@ containers: the frames of ``mp4v_960x540x12.mp4`` coded 960x544 with a bottom
 crop of 4 rows by the test writer's encoder (``tests/torch_h264_writer.py``:
 an IDR of intra 16x16 macroblocks, then P pictures of P_L0_16x16 and P_Skip
 macroblocks from a motion search, QP 22, the deblocking filter off, in the
-closed loop). ``chip_smoke.py`` super-resolves the port's decode of the
-``.mp4`` on the card. The OpenCV wheel's ``cv2.VideoWriter`` has no H.264 encoder (its FFmpeg's only
+closed loop); and ``h264_high_960x540x12.mp4`` (``avc1``, High profile), the
+same frames by its High-profile encoder (CABAC, the 8x8 transform chosen for
+each macroblock, an IDR of intra 8x8 and intra 16x16 macroblocks, then
+P_L0_16x16, P_8x8 and P_Skip, QP 22, the deblocking filter on, each P picture
+predicted from FFmpeg's decode of the stream before it). ``chip_smoke.py``
+super-resolves the port's decode of both ``.mp4`` files on the card. The
+OpenCV wheel's ``cv2.VideoWriter`` has no H.264 encoder (its FFmpeg's only
 one, ``h264_v4l2m2m``, needs a V4L2 device).
 
 ``manifest.json`` records each clip's SHA-256, its frame shape and the
@@ -391,6 +396,43 @@ def write_h264_fixtures(directory: str) -> None:
         f.write("\n")
 
 
+def write_h264_high_fixture(directory: str) -> None:
+    """The 960x540 High-profile H.264 clip ``h264_high_960x540x12.mp4`` (``avc1``, ``profile_idc`` 100): the same
+    frames coded 960x544 with a bottom crop of 4 rows by ``tests/torch_h264_writer.py``'s High-profile encoder
+    (CABAC, the 8x8 transform chosen for each macroblock; an IDR of I_NxN (intra 8x8) and I_16x16 macroblocks, then
+    P pictures of P_L0_16x16, P_8x8 and P_Skip; QP 22; the deblocking filter on), each P picture predicted from
+    FFmpeg's decode of the stream before it. Added to the manifest that ``write_h264_fixtures`` writes; the script
+    stops if the whole stream's decode is not the pictures the encoder predicted from."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_libav
+    from torch_h264_writer import annexb, encode_frames, mp4
+
+    frames = list(video_phase_frames())
+    h, w = frames[0].shape[:2]
+    aus, recon, encoder = encode_frames(frames, H264_QP, H264_SEARCH, high=True)
+    planes = torch_libav.decode_planes("h264", [annexb([au]) for au in aus], "yuv420p", w, h)
+    if len(planes) != len(recon) or any(not np.array_equal(a, b) for r, p in zip(recon, planes) for a, b in zip(r, p)):
+        raise SystemExit("the High-profile stream's decode is not the pictures its encoder predicted from")
+    name = f"h264_high_{w}x{h}x{len(frames)}.mp4"
+    data = mp4(aus, w, h)
+    with open(os.path.join(directory, name), "wb") as f:
+        f.write(data)
+    decoded = np.stack(capture_frames(os.path.join(directory, name)))
+    path = os.path.join(directory, "manifest.json")
+    manifest = json.load(open(path))
+    manifest[name] = {"sha256": sha256(data), "frames_sha256": sha256(decoded.tobytes()), "shape": list(decoded.shape),
+                      "bytes": len(data)}
+    manifest["encoding_high"] = {"source": "video_phase_frames() (mp4v_960x540x12.mp4's frames)", "qp": H264_QP,
+                                 "search": H264_SEARCH, "coded": [encoder.cw, encoder.ch],
+                                 "crop_bottom": encoder.ch - h,
+                                 "profile_idc": encoder.sps.profile_idc, "entropy_coding": "CABAC",
+                                 "deblocking": "on", "macroblocks": dict(sorted(encoder.stats.items()))}
+    with open(path, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"wrote {name} ({len(data)} bytes, {decoded.shape[0]} frames)")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "tests", "data_torch", "mjpeg_160x120x8.avi"))
@@ -405,6 +447,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.h264_only:
         write_h264_fixtures(args.h264_dir)
+        write_h264_high_fixture(args.h264_dir)
         return 0
     if args.vp9_only:
         write_mpeg4_fixtures(args.vp9_dir, vp9_clips())
@@ -421,6 +464,7 @@ def main(argv=None) -> int:
     write_ffv1_fixtures(args.ffv1_dir)
     write_odd_height_fixtures(args.odd_dir)
     write_h264_fixtures(args.h264_dir)
+    write_h264_high_fixture(args.h264_dir)
     return 0
 
 

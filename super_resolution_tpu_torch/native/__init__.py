@@ -29,11 +29,12 @@
 - ``ffv1_decoder.cpp`` decodes FFV1 video (versions 0-3, 8 bits), keeping
   its slices' contexts between calls, and converts each frame to BGR (behind
   :class:`super_resolution_tpu_torch.utils.ffv1.Ffv1Decoder`).
-- ``h264_decoder.cpp`` decodes H.264 video (progressive 8-bit 4:2:0, CAVLC,
-  I and P slices), keeping its parameter sets and decoded reference pictures
-  between calls, and converts each frame to BGR (behind
+- ``h264_decoder.cpp`` decodes H.264 video (progressive 8-bit 4:2:0, I and
+  P slices, CAVLC and CABAC, the 8x8 transform, scaling matrices), keeping
+  its parameter sets and decoded reference pictures between calls, and
+  converts each frame to BGR (behind
   :class:`super_resolution_tpu_torch.utils.h264.H264Decoder`); its constant
-  tables are ``h264_tables.h``.
+  tables are ``h264_tables.h`` and ``h264_cabac_tables.h``.
   VP8 frames themselves are decoded by ``vp8_core.h``, which
   ``webp_decoder.cpp`` shares; the video decoders convert YUV to BGR with
   ``swscale_bgr.h``, as ``cv2.VideoCapture`` does at any size.

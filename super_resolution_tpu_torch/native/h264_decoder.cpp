@@ -1,4 +1,4 @@
-// H.264 video (progressive 8-bit 4:2:0, CAVLC, I and P slices) for
+// H.264 video (progressive 8-bit 4:2:0, I and P slices, CAVLC and CABAC) for
 // super_resolution_tpu_torch.utils.h264, bound with ctypes: a stateful
 // decoder behind a handle, fed whole access units a call, as
 // cv2.VideoCapture's FFmpeg decodes them.
@@ -6,27 +6,32 @@
 // Written from ITU-T Rec. H.264 (08/2021): NAL units from Annex B byte
 // streams or length-prefixed (an avcC record's lengthSizeMinusOne 0, 1 or 3),
 // emulation prevention removed; sequence and picture parameter sets with the
-// VUI; slice headers with reference list modification, explicit weighted
-// prediction and the decoded reference picture marking (sliding window, MMCO
-// 1-6, long-term references); CAVLC macroblocks of every I and P type; the
-// 4x4 inverse transform with the luma and chroma DC transforms at flat
-// scaling; intra 4x4, 16x16 and chroma prediction under slice and
+// VUI, scaling matrices (fall-back rules A and B, the default lists) and the
+// second chroma QP offset; slice headers with reference list modification,
+// explicit weighted prediction and the decoded reference picture marking
+// (sliding window, MMCO 1-6, long-term references); macroblocks of every I
+// and P type under CAVLC and under CABAC (every cabac_init_idc, I_PCM); the
+// 4x4 and 8x8 inverse transforms with the luma and chroma DC transforms and
+// the dequantisation by the scaling matrices; intra 4x4, 8x8 (with its
+// reference sample filtering), 16x16 and chroma prediction under slice and
 // constrained-intra availability; motion-vector prediction; luma 6-tap and
 // chroma bilinear interpolation with reference samples clamped to the
-// picture; the deblocking filter. Reconstruction is exactly specified, so the
-// frames are FFmpeg's wherever the stream conforms. Pictures are output in
-// decoding order, which is FFmpeg's wherever its picture order count (which
-// goes on across an MMCO 5) increases; a stream where it does not is refused.
+// picture; the deblocking filter (with FFmpeg's bS shortcut, see Deblock).
+// Reconstruction is exactly specified, so the frames are FFmpeg's wherever
+// the stream conforms, but for a 4x4 scaling list whose first weight is above
+// 28, which FFmpeg's x86 DC dequantisation can round apart from the standard.
+// Pictures are output in decoding order, which is FFmpeg's wherever its
+// picture order count (which goes on across an MMCO 5) increases; a stream
+// where it does not is refused.
 // The cropped frame is converted to BGR24 with swscale's arithmetic
 // (swscale_bgr.h) for the VUI's colour matrix and range, as cv2.VideoCapture
 // converts it.
 //
-// Refused by name (sr_h264_stream_decode returns -2): CABAC, B / SP / SI
-// slices, interlaced coding, the 8x8 transform, scaling matrices, another
-// chroma format than 4:2:0, more than 8 bits, lossless bypass, slice groups,
-// arbitrary slice order, redundant pictures, data partitioning, gaps in
-// frame_num, a size that changes mid-stream, a left crop, a colour
-// matrix other than BT.601, BT.709, FCC and SMPTE 240M,
+// Refused by name (sr_h264_stream_decode returns -2): B / SP / SI slices,
+// interlaced coding, another chroma format than 4:2:0, more than 8 bits,
+// lossless bypass, slice groups, arbitrary slice order, redundant pictures,
+// data partitioning, gaps in frame_num, a size that changes mid-stream, a
+// left crop, a colour matrix other than BT.601, BT.709, FCC and SMPTE 240M,
 // no_output_of_prior_pics_flag, a stream that starts without an IDR picture
 // and a picture order count that does not increase. Damaged data raises
 // (returns -1) with what was wrong.
@@ -59,6 +64,7 @@
 #include <string>
 #include <vector>
 
+#include "h264_cabac_tables.h"
 #include "h264_tables.h"
 #include "swscale_bgr.h"
 
@@ -83,6 +89,11 @@ enum Stat {
   kWeightedSlices, kListModifications, kMmco1, kMmco2, kMmco3, kMmco4, kMmco5, kMmco6, kLongTermRefs,
   kSlidingWindowRemovals, kDeblockIdc0, kDeblockIdc1, kDeblockIdc2, kDeblockOffsets, kConstrainedIntraSlices,
   kPocType0, kPocType1, kPocType2, kLevelPrefix14, kLevelPrefix15, kQpWraps, kCroppedPictures,
+  kCabacSlices, kCabacInitIdc0, kCabacInitIdc1, kCabacInitIdc2, kCabacPcm, kCabacLevelEscapes, kCabacMvdEscapes,
+  kI8x8, kTransform8x8Inter,
+  kI8Mode0, kI8Mode1, kI8Mode2, kI8Mode3, kI8Mode4, kI8Mode5, kI8Mode6, kI8Mode7, kI8Mode8,
+  kSpsScalingMatrices, kPpsScalingMatrices, kScalingListsExplicit, kScalingListsDefault, kScalingListsFallbackA,
+  kScalingListsFallbackB, kSecondChromaQpOffsets, kTransform8x8Pps,
   kNumStats
 };
 
@@ -151,6 +162,11 @@ class BitReader {
     if (pos_ + n > size_ * 8) throw Corrupt("truncated slice data");
     pos_ += n;
   }
+  int BitOrZero() {  // CABAC's reads: past the end, zeros (the engine never needs them in a conforming slice)
+    const int bit = pos_ < size_ * 8 ? (data_[pos_ >> 3] >> (7 - (pos_ & 7))) & 1 : 0;
+    ++pos_;
+    return bit;
+  }
   bool MoreRbspData() const { return pos_ < end_; }
   bool Aligned() const { return (pos_ & 7) == 0; }
   size_t Pos() const { return pos_; }
@@ -166,9 +182,23 @@ class BitReader {
 // ---------------------------------------------------------------------------------------------
 // Parameter sets
 
+// The scaling matrices: weightScale4x4 of the six 4x4 lists (Intra Y, Cb, Cr, Inter Y, Cb, Cr) and
+// weightScale8x8 of the two 8x8 lists (Intra Y, Inter Y), in raster order; all 16 where none is sent.
+struct ScalingLists {
+  uint8_t l4[6][16];
+  uint8_t l8[2][64];
+  ScalingLists() {
+    std::memset(l4, 16, sizeof(l4));
+    std::memset(l8, 16, sizeof(l8));
+  }
+};
+
 struct Sps {
   bool valid = false;
   std::string unsupported;  // a feature this decoder refuses, named
+  int chroma_format = 1;
+  bool scaling_present = false;
+  ScalingLists lists;
   int log2_max_frame_num = 4, poc_type = 0, log2_max_poc_lsb = 4;
   bool delta_pic_order_always_zero = false;
   int offset_for_non_ref_pic = 0, offset_for_top_to_bottom = 0;
@@ -185,19 +215,61 @@ struct Pps {
   std::string unsupported;
   int sps_id = 0;
   bool cabac = false, bottom_field_pic_order = false, weighted_pred = false, deblocking_control = false;
-  bool constrained_intra = false, redundant_pic_cnt = false;
-  int num_ref_idx_default = 1, pic_init_qp = 26, chroma_qp_offset = 0;
+  bool constrained_intra = false, redundant_pic_cnt = false, transform_8x8 = false;
+  int num_ref_idx_default = 1, pic_init_qp = 26, chroma_qp_offset = 0, chroma_qp_offset2 = 0;
+  ScalingLists lists;  // those the picture uses: the PPS's, else the SPS's
 };
 
-void SkipScalingList(BitReader& br, int size) {
+// One scaling_list() (7.3.2.1.1.1) into out (raster order): read, the default list (useDefaultScalingMatrixFlag),
+// or, where the list is not sent, the fall-back list (of rule B where rule_b). Counts which it was.
+void ReadScalingList(BitReader& br, uint8_t* out, int size, const uint8_t* default_scan, const uint8_t* fallback,
+                     bool rule_b, int64_t* stats) {
+  const uint8_t* scan = size == 16 ? kZigzag4x4 : kZigzag8x8;
+  if (!br.Bit()) {
+    std::memcpy(out, fallback, size);
+    ++stats[rule_b ? kScalingListsFallbackB : kScalingListsFallbackA];
+    return;
+  }
   int last = 8, next = 8;
   for (int j = 0; j < size; ++j) {
-    if (next != 0) next = (last + br.Se() + 256) % 256;
-    last = next == 0 ? last : next;
+    if (next != 0) {
+      const int delta = br.Se();
+      if (delta < -128 || delta > 127) throw Corrupt("delta_scale out of range");
+      next = (last + delta + 256) % 256;
+      if (j == 0 && next == 0) {
+        for (int k = 0; k < size; ++k) out[scan[k]] = default_scan[k];
+        ++stats[kScalingListsDefault];
+        return;
+      }
+    }
+    out[scan[j]] = static_cast<uint8_t>(next == 0 ? last : next);
+    last = out[scan[j]];
+  }
+  ++stats[kScalingListsExplicit];
+}
+
+// The scaling matrices of an SPS (sps == nullptr: fall-back rule A) or of a PPS (rule A where its SPS sends
+// none, else rule B), with eight lists, or six where eight_by_eight is false, into lists.
+void ReadScalingMatrices(BitReader& br, const Sps* sps, bool eight_by_eight, ScalingLists* lists, int64_t* stats) {
+  const bool rule_b = sps && sps->scaling_present;
+  uint8_t defaults4[2][16], defaults8[2][64];
+  for (int t = 0; t < 2; ++t) {
+    for (int k = 0; k < 16; ++k) defaults4[t][kZigzag4x4[k]] = kDefault4x4[t][k];
+    for (int k = 0; k < 64; ++k) defaults8[t][kZigzag8x8[k]] = kDefault8x8[t][k];
+  }
+  for (int i = 0; i < 6; ++i) {
+    const int t = i / 3;
+    // Rule A: Default for lists 0 and 3, else the list before; rule B: the SPS's for lists 0 and 3.
+    const uint8_t* fallback = i % 3 ? lists->l4[i - 1] : rule_b ? sps->lists.l4[i] : defaults4[t];
+    ReadScalingList(br, lists->l4[i], 16, kDefault4x4[t], fallback, rule_b, stats);
+  }
+  if (eight_by_eight) {
+    for (int t = 0; t < 2; ++t)
+      ReadScalingList(br, lists->l8[t], 64, kDefault8x8[t], rule_b ? sps->lists.l8[t] : defaults8[t], rule_b, stats);
   }
 }
 
-Sps ParseSps(BitReader& br, int* id_out) {
+Sps ParseSps(BitReader& br, int* id_out, int64_t* stats) {
   Sps s;
   const int p = br.Bits(8);  // profile_idc
   br.Bits(16);               // constraint flags, level_idc
@@ -207,6 +279,7 @@ Sps ParseSps(BitReader& br, int* id_out) {
   if (p == 100 || p == 110 || p == 122 || p == 244 || p == 44 || p == 83 || p == 86 || p == 118 || p == 128 ||
       p == 138 || p == 139 || p == 134 || p == 135) {
     const int chroma_format = br.Ue();
+    s.chroma_format = chroma_format;
     if (chroma_format == 3 && br.Bit()) {
       s.unsupported = "separate_colour_plane_flag 1";
       return s;
@@ -224,9 +297,10 @@ Sps ParseSps(BitReader& br, int* id_out) {
       s.unsupported = "qpprime_y_zero_transform_bypass_flag 1 (lossless bypass)";
       return s;
     }
-    if (br.Bit()) {
-      s.unsupported = "scaling matrices in the SPS (seq_scaling_matrix_present_flag)";
-      return s;
+    if (br.Bit()) {  // seq_scaling_matrix_present_flag
+      s.scaling_present = true;
+      ++stats[kSpsScalingMatrices];
+      ReadScalingMatrices(br, nullptr, true, &s.lists, stats);
     }
   }
   s.log2_max_frame_num = br.Ue() + 4;
@@ -281,13 +355,15 @@ Sps ParseSps(BitReader& br, int* id_out) {
   return s;
 }
 
-Pps ParsePps(BitReader& br, int* id_out) {
+// A PPS, its scaling matrices resolved against sps_table[sps_id] as it stands (as FFmpeg does).
+Pps ParsePps(BitReader& br, int* id_out, const Sps* sps_table, int64_t* stats) {
   Pps p;
   const uint32_t id = br.Ue();
   if (id > 255) throw Corrupt("pic_parameter_set_id above 255");
   *id_out = static_cast<int>(id);
   p.sps_id = br.Ue();
   if (p.sps_id > 31) throw Corrupt("seq_parameter_set_id above 31");
+  const Sps& sps = sps_table[p.sps_id];
   p.cabac = br.Bit();
   p.bottom_field_pic_order = br.Bit();
   const uint32_t groups = br.Ue() + 1;
@@ -305,27 +381,86 @@ Pps ParsePps(BitReader& br, int* id_out) {
   p.chroma_qp_offset = br.Se();
   if (p.pic_init_qp < 0 || p.pic_init_qp > 51 || p.chroma_qp_offset < -12 || p.chroma_qp_offset > 12)
     throw Corrupt("pic_init_qp or chroma_qp_index_offset out of range");
+  p.chroma_qp_offset2 = p.chroma_qp_offset;
   p.deblocking_control = br.Bit();
   p.constrained_intra = br.Bit();
   p.redundant_pic_cnt = br.Bit();
+  p.lists = sps.lists;
   if (br.MoreRbspData()) {
-    if (br.Bit()) {
-      p.unsupported = "transform_8x8_mode_flag 1 (the 8x8 transform)";
-      return p;
+    p.transform_8x8 = br.Bit();
+    if (p.transform_8x8) ++stats[kTransform8x8Pps];
+    if (br.Bit()) {  // pic_scaling_matrix_present_flag
+      if (!sps.valid && sps.unsupported.empty()) throw Corrupt("a PPS with scaling matrices before its SPS");
+      if (sps.chroma_format == 3) {
+        p.unsupported = "chroma_format_idc 3 (only 4:2:0 is read)";
+        return p;
+      }
+      ++stats[kPpsScalingMatrices];
+      ReadScalingMatrices(br, &sps, p.transform_8x8, &p.lists, stats);
     }
-    if (br.Bit()) {
-      p.unsupported = "scaling matrices in the PPS (pic_scaling_matrix_present_flag)";
-      return p;
-    }
-    const int second = br.Se();
-    if (second != p.chroma_qp_offset) {
-      p.unsupported = "second_chroma_qp_index_offset unlike chroma_qp_index_offset";
-      return p;
-    }
+    p.chroma_qp_offset2 = br.Se();
+    if (p.chroma_qp_offset2 < -12 || p.chroma_qp_offset2 > 12)
+      throw Corrupt("second_chroma_qp_index_offset out of range");
+    if (p.chroma_qp_offset2 != p.chroma_qp_offset) ++stats[kSecondChromaQpOffsets];
   }
   p.valid = true;
   return p;
 }
+
+// ---------------------------------------------------------------------------------------------
+// CABAC's arithmetic decoding engine (9.3.1.2, 9.3.3.2), reading bit by bit from the slice's reader
+
+class CabacEngine {
+ public:
+  void Start(BitReader* br) {
+    br_ = br;
+    range_ = 510;
+    offset_ = 0;
+    for (int i = 0; i < 9; ++i) offset_ = (offset_ << 1) | br_->BitOrZero();
+    if (offset_ >= 510) throw Corrupt("CABAC codIOffset of 510 or 511");
+  }
+  // A bin of the context whose state is (pStateIdx << 1) | valMPS.
+  int Decision(uint8_t* state) {
+    int s = *state >> 1, mps = *state & 1, bin = mps;
+    const int lps = kRangeLps[s][(range_ >> 6) & 3];
+    range_ -= lps;
+    if (offset_ >= range_) {
+      bin = !mps;
+      offset_ -= range_;
+      range_ = lps;
+      if (s == 0) mps = !mps;
+      s = kTransIdxLps[s];
+    } else {
+      s = std::min(s + 1, 62);
+    }
+    *state = static_cast<uint8_t>((s << 1) | mps);
+    Renormalise();
+    return bin;
+  }
+  int Bypass() {
+    offset_ = (offset_ << 1) | br_->BitOrZero();
+    if (offset_ < range_) return 0;
+    offset_ -= range_;
+    return 1;
+  }
+  // end_of_slice_flag and I_PCM's mb_type bin: after a 1, the reader stands past the encoder's flush.
+  int Terminate() {
+    range_ -= 2;
+    if (offset_ >= range_) return 1;
+    Renormalise();
+    return 0;
+  }
+
+ private:
+  void Renormalise() {
+    while (range_ < 256) {
+      range_ <<= 1;
+      offset_ = (offset_ << 1) | br_->BitOrZero();
+    }
+  }
+  BitReader* br_ = nullptr;
+  int range_ = 510, offset_ = 0;
+};
 
 // ---------------------------------------------------------------------------------------------
 // Pictures
@@ -351,13 +486,18 @@ struct MbInfo {
   int slice = -1;  // index of the slice of the current picture that decoded it; -1: not decoded
   MbKind kind = kMbSkip;
   int qp = 0;            // QPY
-  uint8_t nz[24] = {};   // total_coeff: luma 4x4 in raster order, then Cb and Cr 2x2
-  int8_t i4[16] = {};    // Intra4x4PredMode in raster order (2 where the MB is not I_NxN)
+  uint8_t nz[24] = {};   // nonzero levels (CAVLC: total_coeff; CABAC: of the 8x8 block in each of its 4x4 blocks):
+                         // luma 4x4 in raster order, then Cb and Cr 2x2; 16 in I_PCM
+  int8_t i4[16] = {};    // Intra4x4PredMode (Intra8x8PredMode in each 4x4 block) in raster order (2 but in I_NxN)
+  bool t8 = false;       // transform_size_8x8_flag
+  uint8_t cbp = 0;       // CodedBlockPatternLuma | CodedBlockPatternChroma << 4
+  uint8_t dc = 0;        // coded DC blocks (CABAC's coded_block_flag): 1 luma (Intra16x16), 2 Cb, 4 Cr
+  uint8_t chroma_mode = 0;  // intra_chroma_pred_mode
   bool Intra() const { return kind == kMbI4x4 || kind == kMbI16x16 || kind == kMbPcm; }
 };
 
 struct SliceInfo {
-  int deblock_idc = 0, alpha_offset = 0, beta_offset = 0, chroma_qp_offset = 0;
+  int deblock_idc = 0, alpha_offset = 0, beta_offset = 0, chroma_qp_offset[2] = {0, 0};  // Cb, Cr
   bool constrained_intra = false;
 };
 
@@ -398,10 +538,8 @@ class Decoder {
     // A configuration that announces a refused stream is refused before its first frame.
     for (const Sps& s : sps_)
       if (!s.unsupported.empty()) throw Unsupported(s.unsupported);
-    for (const Pps& p : pps_) {
+    for (const Pps& p : pps_)
       if (!p.unsupported.empty()) throw Unsupported(p.unsupported);
-      if (p.valid && p.cabac) throw Unsupported("CABAC (entropy_coding_mode_flag 1)");
-    }
   }
 
   int Decode(const uint8_t* data, size_t size) {
@@ -468,7 +606,7 @@ class Decoder {
         std::vector<uint8_t> rbsp = Unescape(data + 1, size - 1);
         BitReader br(rbsp.data(), rbsp.size());
         int id = 0;
-        Sps s = ParseSps(br, &id);
+        Sps s = ParseSps(br, &id, stats_);
         sps_[id] = s;
         break;
       }
@@ -476,7 +614,7 @@ class Decoder {
         std::vector<uint8_t> rbsp = Unescape(data + 1, size - 1);
         BitReader br(rbsp.data(), rbsp.size());
         int id = 0;
-        Pps p = ParsePps(br, &id);
+        Pps p = ParsePps(br, &id, sps_, stats_);
         pps_[id] = p;
         break;
       }
@@ -491,7 +629,7 @@ class Decoder {
     int first_mb = 0, type = 0, pps_id = 0, frame_num = 0, poc_lsb = 0;
     int delta_poc_bottom = 0, delta_poc[2] = {0, 0}, num_ref = 1, qp = 26;
     int deblock_idc = 0, alpha_offset = 0, beta_offset = 0;
-    int luma_log2 = 0, chroma_log2 = 0;
+    int luma_log2 = 0, chroma_log2 = 0, cabac_init_idc = 0;
     bool idr = false, long_term_reference = false, adaptive = false, weighted = false;
     int ref_idc = 0;
     std::vector<std::pair<int, int>> modifications;
@@ -524,7 +662,6 @@ class Decoder {
       if (!sps.unsupported.empty()) throw Unsupported(sps.unsupported);
       throw Corrupt("slice refers to a missing sequence parameter set");
     }
-    if (pps.cabac) throw Unsupported("CABAC (entropy_coding_mode_flag 1)");
     h.frame_num = br.Bits(sps.log2_max_frame_num);
     if (idr) br.Ue();  // idr_pic_id
     if (sps.poc_type == 0) {
@@ -599,6 +736,10 @@ class Decoder {
         }
       }
     }
+    if (pps.cabac && h.type == 0) {
+      h.cabac_init_idc = br.Ue();
+      if (h.cabac_init_idc > 2) throw Corrupt("cabac_init_idc above 2");
+    }
     h.qp = pps.pic_init_qp + br.Se();
     if (h.qp < 0 || h.qp > 51) throw Corrupt("slice QP out of range");
     if (pps.deblocking_control) {
@@ -632,13 +773,18 @@ class Decoder {
     if (h.deblock_idc != 1 && (h.alpha_offset || h.beta_offset)) ++stats_[kDeblockOffsets];
     if (pps.constrained_intra) ++stats_[kConstrainedIntraSlices];
     if (h.weighted) ++stats_[kWeightedSlices];
+    if (pps.cabac) {
+      ++stats_[kCabacSlices];
+      if (h.type == 0) ++stats_[kCabacInitIdc0 + h.cabac_init_idc];
+    }
     stats_[kListModifications] += static_cast<int64_t>(h.modifications.size());
 
     SliceInfo info;
     info.deblock_idc = h.deblock_idc;
     info.alpha_offset = h.alpha_offset;
     info.beta_offset = h.beta_offset;
-    info.chroma_qp_offset = pps.chroma_qp_offset;
+    info.chroma_qp_offset[0] = pps.chroma_qp_offset;
+    info.chroma_qp_offset[1] = pps.chroma_qp_offset2;
     info.constrained_intra = pps.constrained_intra;
     slices_.push_back(info);
     slice_ = static_cast<int>(slices_.size()) - 1;
@@ -694,6 +840,7 @@ class Decoder {
     mbs_.assign(static_cast<size_t>(mb_width_) * mb_height_, MbInfo());
     const size_t blocks = static_cast<size_t>(mb_width_) * mb_height_ * 16;
     mv_.assign(blocks * 2, 0);
+    mvd_.assign(blocks * 2, 0);
     ref_.assign(blocks, -1);
     refpic_.assign(blocks, 0);
     slices_.clear();
@@ -933,6 +1080,28 @@ class Decoder {
     const int total = mb_width_ * mb_height_;
     bool more = true;
     if (mb >= total) throw Corrupt("first_mb_in_slice past the picture");
+    cabac_ = pps.cabac;
+    if (cabac_) {
+      while (!br.Aligned()) {
+        if (!br.Bit()) throw Corrupt("cabac_alignment_one_bit equal to 0");
+      }
+      InitContexts(h.qp, h.type == 2 ? 0 : 1 + h.cabac_init_idc);
+      engine_.Start(&br);
+      prev_qp_delta_ = 0;
+      for (;;) {
+        if (mb >= total) throw Corrupt("slice data past the picture");
+        if (h.type == 0 && Dec(11 + SkipCtxInc(mb % mb_width_, mb / mb_width_))) {
+          SkipMb(mb, qp);
+          prev_qp_delta_ = 0;
+        } else {
+          Macroblock(br, h, pps, mb, &qp);
+        }
+        ++mb;
+        if (engine_.Terminate()) break;  // end_of_slice_flag
+      }
+      next_mb_ = mb;
+      return;
+    }
     while (more) {
       if (h.type == 0) {
         const uint32_t run = br.Ue();
@@ -950,6 +1119,42 @@ class Decoder {
       if (more && mb >= total) throw Corrupt("slice data past the picture");
     }
     next_mb_ = mb;
+  }
+
+  // ---- CABAC (9.3): context states and the ctxIdxInc of the macroblock-level syntax elements
+  void InitContexts(int slice_qp, int table) {
+    const int q = Clip3(0, 51, slice_qp);
+    for (int i = 0; i < 436; ++i) {
+      const int pre = Clip3(1, 126, ((kCabacInit[table][i][0] * q) >> 4) + kCabacInit[table][i][1]);
+      ctx_[i] = static_cast<uint8_t>(pre <= 63 ? (63 - pre) << 1 : ((pre - 64) << 1) | 1);
+    }
+  }
+
+  int Dec(int ctx_idx) { return engine_.Decision(&ctx_[ctx_idx]); }
+
+  int SkipCtxInc(int mbx, int mby) const {
+    auto cond = [](const MbInfo* n) { return n && n->kind != kMbSkip; };
+    return cond(MbAt(mbx - 1, mby)) + cond(MbAt(mbx, mby - 1));
+  }
+
+  // mb_type of an I macroblock (Table 9-36): prefix bins from ctxIdx 3 in I slices (its first by the neighbours), as
+  // the suffix from 17 in P slices.
+  int CabacIntraType(bool i_slice, int mbx, int mby) {
+    auto cond = [](const MbInfo* n) { return n && (n->kind == kMbI16x16 || n->kind == kMbPcm); };
+    if (!Dec(i_slice ? 3 + cond(MbAt(mbx - 1, mby)) + cond(MbAt(mbx, mby - 1)) : 17)) return 0;  // I_NxN
+    if (engine_.Terminate()) return 25;                                                            // I_PCM
+    int type = 1 + 12 * Dec(i_slice ? 6 : 18);
+    if (Dec(i_slice ? 7 : 19)) type += 4 + 4 * Dec(i_slice ? 8 : 19);
+    type += 2 * Dec(i_slice ? 9 : 20);
+    return type + Dec(i_slice ? 10 : 20);
+  }
+
+  // The macroblock holding the picture's 4x4 block (bx, by), seen from the current macroblock (mbx, mby): itself,
+  // or a neighbour available to it; nullptr where none is.
+  const MbInfo* BlockMb(int bx, int by, int mbx, int mby) const {
+    if (bx < 0 || by < 0 || (bx >> 2) >= mb_width_) return nullptr;
+    if ((bx >> 2) == mbx && (by >> 2) == mby) return &mbs_[static_cast<size_t>(mby) * mb_width_ + mbx];
+    return MbAt(bx >> 2, by >> 2);
   }
 
   // ---- neighbours
@@ -1044,15 +1249,72 @@ class Decoder {
     ++stats_[kPSkip];
     if (mvx || mvy) ++stats_[kSkipMvNonzero];
     SetMotion(mbx, mby, 0, 0, 4, 4, 0, mvx, mvy, &mask);
+    SetMvd(mbx, mby, 0, 0, 4, 4, 0, 0);
     InterPredict(mbx, mby, 0, 0, 16, 16, 0, mvx, mvy);
   }
 
-  int ReadRefIdx(BitReader& br, int num_ref) {
-    const int v = num_ref == 1 ? 0 : num_ref == 2 ? !br.Bit() : static_cast<int>(br.Ue());
+  // ref_idx_l0 of the partition whose top-left 4x4 block is (x4, y4); cur_ref: the reference indices read so far
+  // in the macroblock (CABAC's context).
+  int ReadRefIdx(BitReader& br, int num_ref, int mbx, int mby, int x4, int y4, const int* cur_ref) {
+    int v = 0;
+    if (num_ref > 1 && cabac_) {
+      auto cond = [&](int x, int y) {  // refIdxZeroFlag's complement: the neighbouring partition's index above 0
+        if (x >= 0 && y >= 0) return cur_ref[y * 4 + x] > 0;
+        const int bx = mbx * 4 + x, by = mby * 4 + y;
+        return BlockMb(bx, by, mbx, mby) != nullptr && ref_[static_cast<size_t>(by) * mb_width_ * 4 + bx] > 0;
+      };
+      int ctx = 54 + cond(x4 - 1, y4) + 2 * cond(x4, y4 - 1);
+      while (Dec(ctx)) {
+        if (++v >= 32) throw Corrupt("ref_idx_l0 above 31");
+        ctx = v == 1 ? 58 : 59;
+      }
+    } else if (num_ref == 2) {
+      v = !br.Bit();
+    } else if (num_ref > 2) {
+      v = static_cast<int>(std::min<uint32_t>(br.Ue(), 32));
+    }
     if (v >= num_ref) throw Corrupt("ref_idx_l0 past num_ref_idx_l0_active");
     if (!ref_list_[v]) throw Corrupt("ref_idx_l0 names an empty reference list entry");
     if (v > 0) ++stats_[kRefIdxNonzero];
     return v;
+  }
+
+  // One component of mvd_l0 (comp 0: horizontal) of the partition whose top-left 4x4 block is (x4, y4).
+  int ReadMvd(BitReader& br, int comp, int mbx, int mby, int x4, int y4) {
+    if (!cabac_) return br.Se();
+    auto abs_at = [&](int x, int y) -> int {
+      const int bx = mbx * 4 + x, by = mby * 4 + y;
+      if (!BlockMb(bx, by, mbx, mby)) return 0;
+      return mvd_[2 * (static_cast<size_t>(by) * mb_width_ * 4 + bx) + comp];
+    };
+    const int base = comp ? 47 : 40, sum = abs_at(x4 - 1, y4) + abs_at(x4, y4 - 1);
+    if (!Dec(base + (sum < 3 ? 0 : sum > 32 ? 2 : 1))) return 0;
+    int v = 1, ctx = base + 3;
+    while (v < 9 && Dec(ctx)) {
+      ++v;
+      if (ctx < base + 6) ++ctx;
+    }
+    if (v >= 9) {  // UEG3's Exp-Golomb suffix
+      int k = 3;
+      while (engine_.Bypass()) {
+        v += 1 << k;
+        if (++k > 24) throw Corrupt("mvd_l0 suffix longer than 24 bits");
+      }
+      while (k--) v += engine_.Bypass() << k;
+      ++stats_[kCabacMvdEscapes];
+    }
+    return engine_.Bypass() ? -v : v;
+  }
+
+  // The absolute mvd components of a partition, for CABAC's mvd contexts (at most 70, as their sums are compared
+  // with 3 and 32).
+  void SetMvd(int mbx, int mby, int x4, int y4, int w4, int h4, int dx, int dy) {
+    for (int y = y4; y < y4 + h4; ++y)
+      for (int x = x4; x < x4 + w4; ++x) {
+        const size_t b = static_cast<size_t>(mby * 4 + y) * mb_width_ * 4 + mbx * 4 + x;
+        mvd_[2 * b] = static_cast<uint8_t>(std::min(std::abs(dx), 70));
+        mvd_[2 * b + 1] = static_cast<uint8_t>(std::min(std::abs(dy), 70));
+      }
   }
 
   void Macroblock(BitReader& br, const Header& h, const Pps& pps, int addr, int* qp) {
@@ -1060,20 +1322,29 @@ class Decoder {
     m = MbInfo();
     m.slice = slice_;
     std::fill(std::begin(m.i4), std::end(m.i4), 2);
-    uint32_t mb_type = br.Ue();
+    const int mbx = addr % mb_width_, mby = addr / mb_width_;
     const bool p_slice = h.type == 0;
-    if (p_slice) {
-      if (mb_type > 30) throw Corrupt("mb_type above 30 in a P slice");
-      if (mb_type >= 5) {
-        mb_type -= 5;
-        ++stats_[kIntraInP];
+    int mb_type = 0;
+    bool intra = !p_slice;
+    if (cabac_) {
+      if (p_slice && !Dec(14)) {
+        mb_type = !Dec(15) ? 3 * Dec(16) : 2 - Dec(17);  // P_L0_16x16, P_8x8; P_L0_L0_8x16, P_L0_L0_16x8 (Table 9-37)
       } else {
-        InterMb(br, h, pps, addr, mb_type, qp);
-        return;
+        intra = true;
+        mb_type = CabacIntraType(!p_slice, mbx, mby);
       }
-    } else if (mb_type > 25) {
-      throw Corrupt("mb_type above 25 in an I slice");
+    } else {
+      const uint32_t v = br.Ue();
+      if (p_slice ? v > 30 : v > 25)
+        throw Corrupt(p_slice ? "mb_type above 30 in a P slice" : "mb_type above 25 in an I slice");
+      intra = !p_slice || v >= 5;
+      mb_type = static_cast<int>(p_slice && intra ? v - 5 : v);
     }
+    if (!intra) {
+      InterMb(br, h, pps, addr, mb_type, qp);
+      return;
+    }
+    if (p_slice) ++stats_[kIntraInP];
     if (mb_type == 25) {
       PcmMb(br, addr, *qp);
       return;
@@ -1086,8 +1357,11 @@ class Decoder {
     MbInfo& m = mbs_[addr];
     m.kind = kMbPcm;
     m.qp = qp;
+    m.cbp = 0x2F;  // as CABAC's contexts see I_PCM: every luma 8x8 block and the chroma AC coded
+    m.dc = 7;
     std::fill(std::begin(m.nz), std::end(m.nz), 16);
     ++stats_[kIPcm];
+    if (cabac_) ++stats_[kCabacPcm];
     while (!br.Aligned()) {
       if (br.Bit()) throw Corrupt("pcm_alignment_zero_bit set");
     }
@@ -1099,17 +1373,87 @@ class Decoder {
           cur_->Plane(c)[static_cast<size_t>(mby * 8 + y) * (width_ / 2) + mbx * 8 + x] = br.Bits(8);
     int mask = 0;
     SetMotion(mbx, mby, 0, 0, 4, 4, -1, 0, 0, &mask);
+    SetMvd(mbx, mby, 0, 0, 4, 4, 0, 0);
+    if (cabac_) {
+      engine_.Start(&br);  // 9.3.1.2: the engine starts again after the samples
+      prev_qp_delta_ = 0;
+    }
   }
 
   void ReadQpDelta(BitReader& br, int* qp) {
-    const int delta = br.Se();
+    int delta = 0;
+    if (cabac_) {
+      int k = 0;
+      if (Dec(60 + (prev_qp_delta_ != 0))) {  // the previous macroblock's mb_qp_delta in decoding order
+        k = 1;
+        for (int ctx = 62; Dec(ctx); ctx = 63) {
+          if (++k > 52) throw Corrupt("mb_qp_delta out of range");
+        }
+      }
+      delta = (k & 1) ? (k + 1) / 2 : -(k / 2);
+    } else {
+      delta = br.Se();
+    }
     if (delta < -26 || delta > 25) throw Corrupt("mb_qp_delta out of range");
+    prev_qp_delta_ = delta;
     int q = *qp + delta;
     if (q < 0 || q > 51) {
       q = (q + 52) % 52;
       ++stats_[kQpWraps];
     }
     *qp = q;
+  }
+
+  int ReadIntraMode(BitReader& br, int pred) {  // prev_intra4x4/8x8_pred_mode_flag, rem_intra4x4/8x8_pred_mode
+    if (cabac_ ? Dec(68) : br.Bit()) return pred;
+    int rem = 0;
+    if (cabac_) {
+      for (int k = 0; k < 3; ++k) rem |= Dec(69) << k;  // FL: the least significant bin first
+    } else {
+      rem = br.Bits(3);
+    }
+    return rem < pred ? rem : rem + 1;
+  }
+
+  int ReadChromaMode(BitReader& br, int mbx, int mby) {
+    int mode = 0;
+    if (cabac_) {
+      auto cond = [](const MbInfo* n) { return n && n->chroma_mode != 0; };  // 0 in inter and I_PCM macroblocks
+      if (Dec(64 + cond(MbAt(mbx - 1, mby)) + cond(MbAt(mbx, mby - 1))))
+        mode = !Dec(67) ? 1 : Dec(67) ? 3 : 2;
+    } else {
+      const uint32_t v = br.Ue();
+      if (v > 3) throw Corrupt("intra_chroma_pred_mode above 3");
+      mode = static_cast<int>(v);
+    }
+    ++stats_[kChromaMode0 + mode];
+    return mode;
+  }
+
+  // coded_block_pattern: luma in bits 0-3, chroma in bits 4-5.
+  int ReadCbp(BitReader& br, int mbx, int mby, bool intra) {
+    if (!cabac_) {
+      const uint32_t code = br.Ue();
+      if (code > 47) throw Corrupt("coded_block_pattern above 47");
+      return intra ? kCbpIntra[code] : kCbpInter[code];
+    }
+    const MbInfo* a = MbAt(mbx - 1, mby);
+    const MbInfo* b = MbAt(mbx, mby - 1);
+    int cbp = 0;
+    for (int b8 = 0; b8 < 4; ++b8) {  // condTermFlagN: the neighbouring 8x8 block coded without coefficients
+      const int ca = (b8 & 1) ? !((cbp >> (b8 - 1)) & 1) : a && a->kind != kMbPcm && !((a->cbp >> (b8 + 1)) & 1);
+      const int cb = (b8 & 2) ? !((cbp >> (b8 - 2)) & 1) : b && b->kind != kMbPcm && !((b->cbp >> (b8 + 2)) & 1);
+      cbp |= Dec(73 + ca + 2 * cb) << b8;
+    }
+    auto cond = [](const MbInfo* n, int bin) { return n && (n->cbp >> 4) > bin; };  // 0x2F in I_PCM
+    if (Dec(77 + cond(a, 0) + 2 * cond(b, 0))) cbp |= (1 + Dec(81 + cond(a, 1) + 2 * cond(b, 1))) << 4;
+    return cbp;
+  }
+
+  bool ReadTransform8x8(BitReader& br, int mbx, int mby) {
+    if (!cabac_) return br.Bit();
+    auto cond = [](const MbInfo* n) { return n && n->t8; };
+    return Dec(399 + cond(MbAt(mbx - 1, mby)) + cond(MbAt(mbx, mby - 1)));
   }
 
   void IntraMb(BitReader& br, const Pps& pps, int addr, int mb_type, int* qp) {
@@ -1120,19 +1464,19 @@ class Decoder {
     if (mb_type == 0) {
       m.kind = kMbI4x4;
       ++stats_[kINxN];
-      for (int blk = 0; blk < 16; ++blk) {
-        const int x4 = ((blk >> 2) & 1) * 2 + (blk & 1), y4 = (blk >> 3) * 2 + ((blk >> 1) & 1);
-        // Predicted mode: min of the left and upper blocks' modes, DC (2) where one is unavailable.
+      if (pps.transform_8x8) m.t8 = ReadTransform8x8(br, mbx, mby);
+      const int n = m.t8 ? 4 : 16;
+      if (m.t8) ++stats_[kI8x8];
+      for (int blk = 0; blk < n; ++blk) {
+        const int x4 = m.t8 ? (blk & 1) * 2 : ((blk >> 2) & 1) * 2 + (blk & 1);
+        const int y4 = m.t8 ? (blk >> 1) * 2 : (blk >> 3) * 2 + ((blk >> 1) & 1);
+        // Predicted mode: min of the modes of the 4x4 blocks left of and above the block's top-left one, DC (2)
+        // where one is unavailable (8.3.1.1, 8.3.2.1).
         const int a = NeighbourI4Mode(mbx, mby, x4 - 1, y4, m), b = NeighbourI4Mode(mbx, mby, x4, y4 - 1, m);
-        const int pred = (a < 0 || b < 0) ? 2 : std::min(a, b);
-        int mode = pred;
-        if (!br.Bit()) {
-          const int rem = br.Bits(3);
-          mode = rem < pred ? rem : rem + 1;
-        }
-        m.i4[y4 * 4 + x4] = static_cast<int8_t>(mode);
+        const int mode = ReadIntraMode(br, (a < 0 || b < 0) ? 2 : std::min(a, b));
+        for (int k = 0; k < (m.t8 ? 4 : 1); ++k) m.i4[(y4 + (k >> 1)) * 4 + x4 + (k & 1)] = static_cast<int8_t>(mode);
         modes[blk] = mode;
-        ++stats_[kI4Mode0 + mode];
+        ++stats_[(m.t8 ? kI8Mode0 : kI4Mode0) + mode];
       }
     } else {
       m.kind = kMbI16x16;
@@ -1142,39 +1486,46 @@ class Decoder {
       cbp_luma = mb_type >= 13 ? 15 : 0;
       ++stats_[kI16Mode0 + i16_mode];
     }
-    const uint32_t chroma_mode = br.Ue();
-    if (chroma_mode > 3) throw Corrupt("intra_chroma_pred_mode above 3");
-    ++stats_[kChromaMode0 + chroma_mode];
+    const int chroma_mode = ReadChromaMode(br, mbx, mby);
+    m.chroma_mode = static_cast<uint8_t>(chroma_mode);
     if (m.kind == kMbI4x4) {
-      const uint32_t code = br.Ue();
-      if (code > 47) throw Corrupt("coded_block_pattern above 47");
-      cbp_luma = kCbpIntra[code] & 15;
-      cbp_chroma = kCbpIntra[code] >> 4;
+      const int cbp = ReadCbp(br, mbx, mby, true);
+      cbp_luma = cbp & 15;
+      cbp_chroma = cbp >> 4;
     }
+    m.cbp = static_cast<uint8_t>(cbp_luma | cbp_chroma << 4);
     int mask = 0;
     SetMotion(mbx, mby, 0, 0, 4, 4, -1, 0, 0, &mask);
-    int16_t coeffs[16][16] = {}, chroma[2][4][16] = {};
+    SetMvd(mbx, mby, 0, 0, 4, 4, 0, 0);
+    Coefficients c;
     if (cbp_luma || cbp_chroma || m.kind == kMbI16x16) {
       ReadQpDelta(br, qp);
-      Residual(br, addr, m.kind == kMbI16x16, cbp_luma, cbp_chroma, *qp, pps.chroma_qp_offset, coeffs, chroma);
+      Residual(br, pps, addr, *qp, &c);
+    } else {
+      prev_qp_delta_ = 0;
     }
     m.qp = *qp;
     // Reconstruction.
-    if (m.kind == kMbI4x4) {
+    if (m.kind == kMbI4x4 && m.t8) {
+      for (int b8 = 0; b8 < 4; ++b8) {
+        Intra8x8(mbx, mby, b8, modes[b8]);
+        AddResidual8x8(cur_->y.data(), width_, mbx * 16 + (b8 & 1) * 8, mby * 16 + (b8 >> 1) * 8, c.luma8[b8]);
+      }
+    } else if (m.kind == kMbI4x4) {
       for (int blk = 0; blk < 16; ++blk) {
         const int x4 = ((blk >> 2) & 1) * 2 + (blk & 1), y4 = (blk >> 3) * 2 + ((blk >> 1) & 1);
         Intra4x4(mbx, mby, x4, y4, blk, modes[blk]);
-        AddResidual(cur_->y.data(), width_, mbx * 16 + x4 * 4, mby * 16 + y4 * 4, coeffs[y4 * 4 + x4],
+        AddResidual(cur_->y.data(), width_, mbx * 16 + x4 * 4, mby * 16 + y4 * 4, c.luma[y4 * 4 + x4],
                     m.nz[y4 * 4 + x4] > 0);
       }
     } else {
       Intra16x16(mbx, mby, i16_mode);
       for (int b = 0; b < 16; ++b)
-        AddResidual(cur_->y.data(), width_, mbx * 16 + (b & 3) * 4, mby * 16 + (b >> 2) * 4, coeffs[b],
-                    m.nz[b] > 0 || coeffs[b][0] != 0);
+        AddResidual(cur_->y.data(), width_, mbx * 16 + (b & 3) * 4, mby * 16 + (b >> 2) * 4, c.luma[b],
+                    m.nz[b] > 0 || c.luma[b][0] != 0);
     }
     IntraChroma(mbx, mby, chroma_mode);
-    AddChroma(mbx, mby, chroma, addr);
+    AddChroma(mbx, mby, c.chroma, addr);
   }
 
   int NeighbourI4Mode(int mbx, int mby, int x4, int y4, const MbInfo& cur) const {
@@ -1184,7 +1535,7 @@ class Decoder {
     if (!n) return -1;
     if (!n->Intra() && slices_[slice_].constrained_intra) return -1;
     if (n->kind != kMbI4x4) return 2;
-    return n->i4[((y4 + 4) & 3) * 4 + ((x4 + 4) & 3)];
+    return n->i4[((y4 + 4) & 3) * 4 + ((x4 + 4) & 3)];  // I_NxN with the 8x8 transform: its 8x8 block's mode
   }
 
   void InterMb(BitReader& br, const Header& h, const Pps& pps, int addr, int mb_type, int* qp) {
@@ -1192,17 +1543,29 @@ class Decoder {
     MbInfo& m = mbs_[addr];
     m.kind = kMbInter;
     if (ref_list_.empty()) throw Corrupt("inter macroblock with an empty reference list");
-    int mask = 0;
+    int mask = 0, cur_ref[16];
+    std::fill(std::begin(cur_ref), std::end(cur_ref), 0);
     static const int kStat[5] = {kP16x16, kP16x8, kP8x16, kP8x8, kP8x8Ref0};
     ++stats_[kStat[mb_type]];
+    bool all_8x8 = true;  // no partition smaller than 8x8: the 8x8 transform may be chosen
     if (mb_type < 3) {
       const int parts = mb_type == 0 ? 1 : 2;
-      int refs[2] = {0, 0}, mvd[2][2];
-      for (int p = 0; p < parts; ++p) refs[p] = ReadRefIdx(br, h.num_ref);
-      for (int p = 0; p < parts; ++p) mvd[p][0] = br.Se(), mvd[p][1] = br.Se();
+      int refs[2] = {0, 0}, mvd[2][2], geo[2][4];
       for (int p = 0; p < parts; ++p) {
         const int x4 = mb_type == 2 ? 2 * p : 0, y4 = mb_type == 1 ? 2 * p : 0;
         const int w4 = mb_type == 2 ? 2 : 4, h4 = mb_type == 1 ? 2 : 4;
+        geo[p][0] = x4, geo[p][1] = y4, geo[p][2] = w4, geo[p][3] = h4;
+        refs[p] = ReadRefIdx(br, h.num_ref, mbx, mby, x4, y4, cur_ref);
+        for (int y = y4; y < y4 + h4; ++y)
+          for (int x = x4; x < x4 + w4; ++x) cur_ref[y * 4 + x] = refs[p];
+      }
+      for (int p = 0; p < parts; ++p) {
+        mvd[p][0] = ReadMvd(br, 0, mbx, mby, geo[p][0], geo[p][1]);
+        mvd[p][1] = ReadMvd(br, 1, mbx, mby, geo[p][0], geo[p][1]);
+        SetMvd(mbx, mby, geo[p][0], geo[p][1], geo[p][2], geo[p][3], mvd[p][0], mvd[p][1]);
+      }
+      for (int p = 0; p < parts; ++p) {
+        const int x4 = geo[p][0], y4 = geo[p][1], w4 = geo[p][2], h4 = geo[p][3];
         int px, py;
         PredictMv(mbx, mby, x4, y4, w4, refs[p], mask, mb_type, &px, &py);
         const int mvx = px + mvd[p][0], mvy = py + mvd[p][1];
@@ -1212,17 +1575,35 @@ class Decoder {
     } else {
       int sub[4], refs[4] = {0, 0, 0, 0};
       for (int s = 0; s < 4; ++s) {
-        const uint32_t t = br.Ue();
-        if (t > 3) throw Corrupt("sub_mb_type above 3 in a P slice");
-        sub[s] = static_cast<int>(t);
+        int t = 0;
+        if (cabac_) {
+          t = Dec(21) ? 0 : !Dec(22) ? 1 : Dec(23) ? 2 : 3;  // Table 9-38
+        } else {
+          const uint32_t v = br.Ue();
+          if (v > 3) throw Corrupt("sub_mb_type above 3 in a P slice");
+          t = static_cast<int>(v);
+        }
+        sub[s] = t;
+        all_8x8 = all_8x8 && t == 0;
         ++stats_[kSub8x8 + sub[s]];
       }
-      for (int s = 0; s < 4; ++s) refs[s] = mb_type == 4 ? 0 : ReadRefIdx(br, h.num_ref);
+      for (int s = 0; s < 4; ++s) {
+        const int sx = (s & 1) * 2, sy = (s >> 1) * 2;
+        refs[s] = mb_type == 4 ? 0 : ReadRefIdx(br, h.num_ref, mbx, mby, sx, sy, cur_ref);
+        for (int k = 0; k < 4; ++k) cur_ref[(sy + (k >> 1)) * 4 + sx + (k & 1)] = refs[s];
+      }
       if (!ref_list_[0]) throw Corrupt("P_8x8ref0 with an empty reference list");
       int mvd[4][4][2];
       for (int s = 0; s < 4; ++s) {
+        const int sx = (s & 1) * 2, sy = (s >> 1) * 2;
         const int n = sub[s] == 0 ? 1 : sub[s] == 3 ? 4 : 2;
-        for (int k = 0; k < n; ++k) mvd[s][k][0] = br.Se(), mvd[s][k][1] = br.Se();
+        const int w4 = (sub[s] == 0 || sub[s] == 1) ? 2 : 1, h4 = (sub[s] == 0 || sub[s] == 2) ? 2 : 1;
+        for (int k = 0; k < n; ++k) {
+          const int x4 = sx + (w4 == 1 ? (k & 1) : 0), y4 = sy + (h4 == 1 ? (sub[s] == 3 ? k >> 1 : k) : 0);
+          mvd[s][k][0] = ReadMvd(br, 0, mbx, mby, x4, y4);
+          mvd[s][k][1] = ReadMvd(br, 1, mbx, mby, x4, y4);
+          SetMvd(mbx, mby, x4, y4, w4, h4, mvd[s][k][0], mvd[s][k][1]);
+        }
       }
       for (int s = 0; s < 4; ++s) {
         const int sx = (s & 1) * 2, sy = (s >> 1) * 2;
@@ -1238,18 +1619,29 @@ class Decoder {
         }
       }
     }
-    const uint32_t code = br.Ue();
-    if (code > 47) throw Corrupt("coded_block_pattern above 47");
-    const int cbp_luma = kCbpInter[code] & 15, cbp_chroma = kCbpInter[code] >> 4;
-    int16_t coeffs[16][16] = {}, chroma[2][4][16] = {};
+    const int cbp = ReadCbp(br, mbx, mby, false);
+    const int cbp_luma = cbp & 15, cbp_chroma = cbp >> 4;
+    m.cbp = static_cast<uint8_t>(cbp);
+    if (cbp_luma && pps.transform_8x8 && all_8x8) {
+      m.t8 = ReadTransform8x8(br, mbx, mby);
+      if (m.t8) ++stats_[kTransform8x8Inter];
+    }
+    Coefficients c;
     if (cbp_luma || cbp_chroma) {
       ReadQpDelta(br, qp);
-      Residual(br, addr, false, cbp_luma, cbp_chroma, *qp, pps.chroma_qp_offset, coeffs, chroma);
+      Residual(br, pps, addr, *qp, &c);
+    } else {
+      prev_qp_delta_ = 0;
     }
     m.qp = *qp;
-    for (int b = 0; b < 16; ++b)
-      AddResidual(cur_->y.data(), width_, mbx * 16 + (b & 3) * 4, mby * 16 + (b >> 2) * 4, coeffs[b], m.nz[b] > 0);
-    AddChroma(mbx, mby, chroma, addr);
+    if (m.t8) {
+      for (int b8 = 0; b8 < 4; ++b8)
+        AddResidual8x8(cur_->y.data(), width_, mbx * 16 + (b8 & 1) * 8, mby * 16 + (b8 >> 1) * 8, c.luma8[b8]);
+    } else {
+      for (int b = 0; b < 16; ++b)
+        AddResidual(cur_->y.data(), width_, mbx * 16 + (b & 3) * 4, mby * 16 + (b >> 2) * 4, c.luma[b], m.nz[b] > 0);
+    }
+    AddChroma(mbx, mby, c.chroma, addr);
   }
 
   // ---- residual (7.3.5.3, 9.2)
@@ -1368,29 +1760,128 @@ class Decoder {
     return total;
   }
 
+  // One residual block's levels into coeff (scan order, from start; max_coeff of them), as CAVLC or CABAC codes
+  // them; returns how many are nonzero (CAVLC: TotalCoeff). cat is ctxBlockCat (0 Intra16x16 DC, 1 its AC, 2 luma
+  // 4x4, 3 chroma DC, 4 chroma AC, 5 luma 8x8); (x4, y4) the block in its component's 4x4 grid (comp 0: luma,
+  // 1: Cb, 2: Cr).
+  int ReadBlock(BitReader& br, int cat, int mbx, int mby, int comp, int x4, int y4, int max_coeff, int* coeff) {
+    const int start = (cat == 1 || cat == 4) ? 1 : 0;
+    if (!cabac_) return ResidualBlock(br, cat == 3 ? -1 : PredictNc(mbx, mby, comp, x4, y4), start, max_coeff, coeff);
+    static const int kCbfOffset[5] = {0, 4, 8, 12, 16}, kSigOffset[5] = {0, 15, 29, 44, 47};
+    static const int kAbsOffset[5] = {0, 10, 20, 30, 39};
+    if (cat != 5) {  // coded_block_flag (an 8x8 block has none in 4:2:0: it is coded)
+      const bool intra = mbs_[static_cast<size_t>(mby) * mb_width_ + mbx].Intra();
+      const int inc =
+          CbfCond(cat, mbx, mby, comp, x4, y4, intra, true) + 2 * CbfCond(cat, mbx, mby, comp, x4, y4, intra, false);
+      if (!Dec(85 + kCbfOffset[cat] + inc)) return 0;
+    }
+    const int sig = cat == 5 ? 402 : 105 + kSigOffset[cat], last = cat == 5 ? 417 : 166 + kSigOffset[cat];
+    const int abs = cat == 5 ? 426 : 227 + kAbsOffset[cat];
+    int pos[64], n = 0;
+    bool ended = false;
+    for (int i = 0; i < max_coeff - 1 && !ended; ++i) {  // the significance map
+      const int inc = cat == 5 ? kSig8x8[i] : cat == 3 ? std::min(i, 2) : i;
+      if (Dec(sig + inc)) {
+        pos[n++] = i;
+        ended = Dec(last + (cat == 5 ? kLast8x8[i] : inc));
+      }
+    }
+    if (!ended) pos[n++] = max_coeff - 1;
+    int eq1 = 0, gt1 = 0;
+    for (int k = n - 1; k >= 0; --k) {  // the levels, in reverse scan order
+      int level = 1;
+      if (Dec(abs + (gt1 ? 0 : std::min(4, 1 + eq1)))) {
+        level = 2;
+        const int ctx = abs + 5 + std::min(4 - (cat == 3), gt1);
+        while (level < 15 && Dec(ctx)) ++level;
+        if (level == 15) {  // coeff_abs_level_minus1 of 14 or more: UEG0's Exp-Golomb suffix
+          int j = 0;
+          while (engine_.Bypass()) {
+            level += 1 << j;
+            if (++j > 20) throw Corrupt("coeff_abs_level_minus1 suffix longer than 20 bits");
+          }
+          while (j--) level += engine_.Bypass() << j;
+          ++stats_[kCabacLevelEscapes];
+        }
+        ++gt1;
+      } else {
+        ++eq1;
+      }
+      coeff[start + pos[k]] = engine_.Bypass() ? -level : level;
+    }
+    return n;
+  }
+
+  // condTermFlagN of coded_block_flag (9.3.3.1.1.9) for the block left of (left) or above the block: the
+  // neighbouring block's flag as its nonzero count shows it, 1 in I_PCM, and where the neighbouring macroblock is
+  // unavailable, 1 for an intra macroblock and 0 for an inter one.
+  int CbfCond(int cat, int mbx, int mby, int comp, int x4, int y4, bool intra, bool left) const {
+    const MbInfo* n;
+    if (cat == 0 || cat == 3) {
+      n = left ? MbAt(mbx - 1, mby) : MbAt(mbx, mby - 1);
+    } else {
+      const int w = comp ? 2 : 4;
+      (left ? x4 : y4) -= 1;
+      if (x4 < 0 || y4 < 0) {
+        n = MbAt(mbx - (x4 < 0), mby - (y4 < 0));
+        x4 = (x4 + w) % w, y4 = (y4 + w) % w;
+      } else {
+        n = &mbs_[static_cast<size_t>(mby) * mb_width_ + mbx];
+      }
+    }
+    if (!n) return intra;
+    if (n->kind == kMbPcm) return 1;
+    if (cat == 0 || cat == 3) return (n->dc >> comp) & 1;
+    return (comp == 0 ? n->nz[y4 * 4 + x4] : n->nz[16 + (comp - 1) * 4 + y4 * 2 + x4]) > 0;
+  }
+
   static int ChromaQp(int qp, int offset) {
     const int qpi = Clip3(0, 51, qp + offset);
     return qpi < 30 ? qpi : kChromaQp[qpi - 30];
   }
 
-  void Residual(BitReader& br, int addr, bool i16, int cbp_luma, int cbp_chroma, int qp, int chroma_offset,
-                int16_t coeffs[16][16], int16_t chroma[2][4][16]) {
+  // LevelScale4x4 (8.5.9) of raster position r: weightScale4x4 times normAdjust4x4.
+  static int LevelScale4(const uint8_t* weights, int q_mod, int r) {
+    const int row = r >> 2, col = r & 3;
+    return weights[r] * kDequant[q_mod][(row & 1) == 0 && (col & 1) == 0 ? 0 : (row & 1) && (col & 1) ? 1 : 2];
+  }
+
+  static int LevelScale8(const uint8_t* weights, int q_mod, int r) {
+    const int i = r >> 3, j = r & 7;
+    const int cls = (i % 4 == 0 && j % 4 == 0)                               ? 0
+                    : (i % 2 == 1 && j % 2 == 1)                             ? 1
+                    : (i % 4 == 2 && j % 4 == 2)                             ? 2
+                    : ((i % 4 == 0 && j % 2 == 1) || (i % 2 == 1 && j % 4 == 0)) ? 3
+                    : ((i % 4 == 0 && j % 4 == 2) || (i % 4 == 2 && j % 4 == 0)) ? 4
+                                                                               : 5;
+    return weights[r] * kDequant8[q_mod][cls];
+  }
+
+  // The scaled coefficients of a macroblock (8.5.12.1, 8.5.13.1), in raster order: the 4x4 luma blocks (raster
+  // order of the blocks), the 8x8 luma blocks, the chroma 4x4 blocks.
+  struct Coefficients {
+    int16_t luma[16][16] = {};
+    int16_t luma8[4][64] = {};
+    int16_t chroma[2][4][16] = {};
+  };
+
+  void Residual(BitReader& br, const Pps& pps, int addr, int qp, Coefficients* c) {
     const int mbx = addr % mb_width_, mby = addr / mb_width_;
     MbInfo& m = mbs_[addr];
+    const bool i16 = m.kind == kMbI16x16, intra = m.Intra();
+    const int cbp_luma = m.cbp & 15, cbp_chroma = m.cbp >> 4;
+    const ScalingLists& lists = pps.lists;
+    const uint8_t* w4 = lists.l4[intra ? 0 : 3];
     const int q6 = qp / 6, qm = qp % 6;
-    auto scale = [&](int raster, int q_mod) {
-      const int r = raster >> 2, c = raster & 3;
-      return kDequant[q_mod][(r & 1) == 0 && (c & 1) == 0 ? 0 : (r & 1) && (c & 1) ? 1 : 2];
-    };
     if (i16) {
       int dc[16] = {};
-      ResidualBlock(br, PredictNc(mbx, mby, 0, 0, 0), 0, 16, dc);
+      if (ReadBlock(br, 0, mbx, mby, 0, 0, 0, 16, dc)) m.dc |= 1;
       // Inverse Hadamard of the DC levels (8.5.10), in raster order of the 4x4 blocks.
-      int c[16];
-      for (int k = 0; k < 16; ++k) c[kZigzag4x4[k]] = dc[k];
+      int cc[16];
+      for (int k = 0; k < 16; ++k) cc[kZigzag4x4[k]] = dc[k];
       int f[16];
       for (int i = 0; i < 4; ++i) {
-        const int* row = c + 4 * i;
+        const int* row = cc + 4 * i;
         const int e0 = row[0] + row[1], e1 = row[0] - row[1], e2 = row[2] - row[3], e3 = row[2] + row[3];
         f[4 * i + 0] = e0 + e3;
         f[4 * i + 1] = e0 - e3;
@@ -1405,64 +1896,88 @@ class Decoder {
         g[8 + j] = e1 - e2;
         g[12 + j] = e1 + e2;
       }
-      const int ls = 16 * kDequant[qm][0];
+      const int ls = LevelScale4(w4, qm, 0);
       for (int k = 0; k < 16; ++k) {
-        int v;
-        if (qp >= 36)
-          v = (g[k] * ls) << (q6 - 6);
-        else
-          v = (g[k] * ls + (1 << (5 - q6))) >> (6 - q6);
-        coeffs[k][0] = static_cast<int16_t>(v);  // block k in raster order of the 4x4 blocks
+        const int v = qp >= 36 ? (g[k] * ls) << (q6 - 6) : (g[k] * ls + (1 << (5 - q6))) >> (6 - q6);
+        c->luma[k][0] = static_cast<int16_t>(v);  // block k in raster order of the 4x4 blocks
       }
     }
     for (int b8 = 0; b8 < 4; ++b8) {
-      for (int b4 = 0; b4 < 4; ++b4) {
-        const int x4 = (b8 & 1) * 2 + (b4 & 1), y4 = (b8 >> 1) * 2 + (b4 >> 1);
-        const int raster = y4 * 4 + x4;
-        if (!((cbp_luma >> b8) & 1)) {
-          m.nz[raster] = 0;
-          continue;
+      const int x8 = (b8 & 1) * 2, y8 = (b8 >> 1) * 2;
+      if (!((cbp_luma >> b8) & 1)) {
+        for (int b4 = 0; b4 < 4; ++b4) m.nz[(y8 + (b4 >> 1)) * 4 + x8 + (b4 & 1)] = 0;
+        continue;
+      }
+      if (m.t8) {
+        int lv[64] = {};
+        if (cabac_) {
+          const int n = ReadBlock(br, 5, mbx, mby, 0, x8, y8, 64, lv);
+          for (int b4 = 0; b4 < 4; ++b4) m.nz[(y8 + (b4 >> 1)) * 4 + x8 + (b4 & 1)] = static_cast<uint8_t>(n);
+        } else {
+          // Four interleaved 4x4 blocks (7.3.5.3.2): coefficient k of block b4 is the 8x8 block's 4 * k + b4.
+          for (int b4 = 0; b4 < 4; ++b4) {
+            const int x4 = x8 + (b4 & 1), y4 = y8 + (b4 >> 1);
+            int part[16] = {};
+            m.nz[y4 * 4 + x4] = static_cast<uint8_t>(ReadBlock(br, 2, mbx, mby, 0, x4, y4, 16, part));
+            for (int k = 0; k < 16; ++k) lv[4 * k + b4] = part[k];
+          }
         }
-        int lv[16] = {};
-        const int nc = PredictNc(mbx, mby, 0, x4, y4);
-        const int n = ResidualBlock(br, nc, i16 ? 1 : 0, i16 ? 15 : 16, lv);
-        m.nz[raster] = static_cast<uint8_t>(n);
-        for (int k = i16 ? 1 : 0; k < 16; ++k) {
+        const uint8_t* w8 = lists.l8[intra ? 0 : 1];
+        for (int k = 0; k < 64; ++k) {
           if (!lv[k]) continue;
-          const int r = kZigzag4x4[k];
-          coeffs[raster][r] = static_cast<int16_t>((lv[k] * scale(r, qm)) << q6);
+          const int r = kZigzag8x8[k], ls = LevelScale8(w8, qm, r);
+          const int v = qp >= 36 ? (lv[k] * ls) << (q6 - 6) : (lv[k] * ls + (1 << (5 - q6))) >> (6 - q6);
+          c->luma8[b8][r] = static_cast<int16_t>(v);
+        }
+        continue;
+      }
+      for (int b4 = 0; b4 < 4; ++b4) {
+        const int x4 = x8 + (b4 & 1), y4 = y8 + (b4 >> 1), raster = y4 * 4 + x4;
+        int lv[16] = {};
+        m.nz[raster] = static_cast<uint8_t>(ReadBlock(br, i16 ? 1 : 2, mbx, mby, 0, x4, y4, i16 ? 15 : 16, lv));
+        for (int k = i16 ? 1 : 0; k < 16; ++k) {
+          if (lv[k]) c->luma[raster][kZigzag4x4[k]] = static_cast<int16_t>(Dequant4(lv[k], w4, qp, kZigzag4x4[k]));
         }
       }
     }
-    const int qpc = ChromaQp(qp, chroma_offset), c6 = qpc / 6, cm = qpc % 6;
+    const SliceInfo& si = slices_[slice_];
+    int qpc[2];
+    for (int comp = 0; comp < 2; ++comp) qpc[comp] = ChromaQp(qp, si.chroma_qp_offset[comp]);
     if (cbp_chroma) {
       for (int comp = 0; comp < 2; ++comp) {
         int dc[4] = {};
-        ResidualBlock(br, -1, 0, 4, dc);
+        if (ReadBlock(br, 3, mbx, mby, comp + 1, 0, 0, 4, dc)) m.dc |= 2 << comp;
         // 2x2 transform (8.5.11.1): c = [[dc0, dc1], [dc2, dc3]].
         const int f0 = dc[0] + dc[1] + dc[2] + dc[3], f1 = dc[0] - dc[1] + dc[2] - dc[3];
         const int f2 = dc[0] + dc[1] - dc[2] - dc[3], f3 = dc[0] - dc[1] - dc[2] + dc[3];
         const int fs[4] = {f0, f1, f2, f3};
-        const int ls = 16 * kDequant[cm][0];
-        for (int k = 0; k < 4; ++k) chroma[comp][k][0] = static_cast<int16_t>(((fs[k] * ls) << c6) >> 5);
+        const int ls = LevelScale4(lists.l4[(intra ? 1 : 4) + comp], qpc[comp] % 6, 0);
+        for (int k = 0; k < 4; ++k)
+          c->chroma[comp][k][0] = static_cast<int16_t>(((fs[k] * ls) << (qpc[comp] / 6)) >> 5);
       }
     }
-    for (int comp = 0; comp < 2; ++comp)
+    for (int comp = 0; comp < 2; ++comp) {
+      const uint8_t* w = lists.l4[(intra ? 1 : 4) + comp];
       for (int b = 0; b < 4; ++b) {
-        const int x4 = b & 1, y4 = b >> 1;
         if (!(cbp_chroma & 2)) {
           m.nz[16 + comp * 4 + b] = 0;
           continue;
         }
         int lv[16] = {};
-        const int n = ResidualBlock(br, PredictNc(mbx, mby, comp + 1, x4, y4), 1, 15, lv);
-        m.nz[16 + comp * 4 + b] = static_cast<uint8_t>(n);
+        m.nz[16 + comp * 4 + b] = static_cast<uint8_t>(ReadBlock(br, 4, mbx, mby, comp + 1, b & 1, b >> 1, 15, lv));
         for (int k = 1; k < 16; ++k) {
-          if (!lv[k]) continue;
-          const int r = kZigzag4x4[k];
-          chroma[comp][b][r] = static_cast<int16_t>((lv[k] * scale(r, cm)) << c6);
+          if (lv[k])
+            c->chroma[comp][b][kZigzag4x4[k]] = static_cast<int16_t>(Dequant4(lv[k], w, qpc[comp], kZigzag4x4[k]));
         }
       }
+    }
+  }
+
+  // A 4x4 block's level at raster position r scaled (8.5.12.1): LevelScale4x4 * level, with the rounding below
+  // qP 24.
+  static int Dequant4(int level, const uint8_t* weights, int qp, int r) {
+    const int ls = LevelScale4(weights, qp % 6, r);
+    return qp >= 24 ? (level * ls) << (qp / 6 - 4) : (level * ls + (1 << (3 - qp / 6))) >> (4 - qp / 6);
   }
 
   // The 4x4 inverse transform (8.5.12.2) of d (raster order), added to the prediction at (x, y).
@@ -1496,6 +2011,136 @@ class Decoder {
       for (int b = 0; b < 4; ++b)
         AddResidual(cur_->Plane(comp + 1), width_ / 2, mbx * 8 + (b & 1) * 4, mby * 8 + (b >> 1) * 4, chroma[comp][b],
                     m.nz[16 + comp * 4 + b] > 0 || chroma[comp][b][0] != 0);
+  }
+
+  // The 8x8 inverse transform (8.5.13) of d (raster order), added to the prediction at (x, y).
+  static void AddResidual8x8(uint8_t* plane, int stride, int x, int y, const int16_t* d) {
+    bool any = false;
+    for (int k = 0; k < 64 && !any; ++k) any = d[k] != 0;
+    if (!any) return;
+    auto transform = [](const int* in, int step, int* out) {
+      const int d0 = in[0], d1 = in[step], d2 = in[2 * step], d3 = in[3 * step], d4 = in[4 * step],
+                d5 = in[5 * step], d6 = in[6 * step], d7 = in[7 * step];
+      const int e0 = d0 + d4, e1 = -d3 + d5 - d7 - (d7 >> 1), e2 = d0 - d4, e3 = d1 + d7 - d3 - (d3 >> 1);
+      const int e4 = (d2 >> 1) - d6, e5 = -d1 + d7 + d5 + (d5 >> 1), e6 = d2 + (d6 >> 1), e7 = d3 + d5 + d1 + (d1 >> 1);
+      const int f0 = e0 + e6, f1 = e1 + (e7 >> 2), f2 = e2 + e4, f3 = e3 + (e5 >> 2);
+      const int f4 = e2 - e4, f5 = (e3 >> 2) - e5, f6 = e0 - e6, f7 = e7 - (e1 >> 2);
+      out[0] = f0 + f7, out[1] = f2 + f5, out[2] = f4 + f3, out[3] = f6 + f1;
+      out[4] = f6 - f1, out[5] = f4 - f3, out[6] = f2 - f5, out[7] = f0 - f7;
+    };
+    int in[64], g[64];
+    for (int k = 0; k < 64; ++k) in[k] = d[k];
+    for (int i = 0; i < 8; ++i) transform(in + 8 * i, 1, g + 8 * i);  // the rows, then the columns
+    for (int j = 0; j < 8; ++j) {
+      int h[8];
+      transform(g + j, 8, h);
+      for (int i = 0; i < 8; ++i) {
+        uint8_t& p = plane[static_cast<size_t>(y + i) * stride + x + j];
+        p = Clip1(p + ((h[i] + 32) >> 6));
+      }
+    }
+  }
+
+  // Intra 8x8 prediction (8.3.2) of 8x8 block b8 of the macroblock, from the filtered reference samples.
+  void Intra8x8(int mbx, int mby, int b8, int mode) {
+    const int bx = b8 & 1, by = b8 >> 1;
+    const int x0 = mbx * 16 + bx * 8, y0 = mby * 16 + by * 8, stride = width_;
+    uint8_t* pic = cur_->y.data();
+    const bool left = bx > 0 || IntraAvailable(mbx - 1, mby);
+    const bool top = by > 0 || IntraAvailable(mbx, mby - 1);
+    const bool corner = bx && by   ? true
+                        : bx       ? IntraAvailable(mbx, mby - 1)
+                        : by       ? IntraAvailable(mbx - 1, mby)
+                                   : IntraAvailable(mbx - 1, mby - 1);
+    // Up and to the right: the macroblock above (block 0), the one above and right (block 1), block 1 (block 2).
+    const bool top_right =
+        b8 == 0 ? IntraAvailable(mbx, mby - 1) : b8 == 1 ? IntraAvailable(mbx + 1, mby - 1) : b8 == 2;
+    const bool needs_top = mode == 0 || mode == 3 || mode == 4 || mode == 5 || mode == 6 || mode == 7;
+    const bool needs_left = mode == 1 || mode == 4 || mode == 5 || mode == 6 || mode == 8;
+    const bool needs_corner = mode == 4 || mode == 5 || mode == 6;
+    if ((needs_top && !top) || (needs_left && !left) || (needs_corner && !corner))
+      throw Corrupt("intra 8x8 prediction mode " + std::to_string(mode) + " needs unavailable samples");
+    int pt[16] = {}, pl[8] = {}, pc = 0;
+    if (top) {
+      for (int i = 0; i < 16; ++i)
+        pt[i] = pic[static_cast<size_t>(y0 - 1) * stride + x0 + (i < 8 || top_right ? i : 7)];
+    }
+    if (left)
+      for (int i = 0; i < 8; ++i) pl[i] = pic[static_cast<size_t>(y0 + i) * stride + x0 - 1];
+    if (corner) pc = pic[static_cast<size_t>(y0 - 1) * stride + x0 - 1];
+    // Reference sample filtering (8.3.2.2.1).
+    int t[16] = {}, l[8] = {}, c = pc;
+    if (top) {
+      t[0] = corner ? (pc + 2 * pt[0] + pt[1] + 2) >> 2 : (3 * pt[0] + pt[1] + 2) >> 2;
+      for (int i = 1; i < 15; ++i) t[i] = (pt[i - 1] + 2 * pt[i] + pt[i + 1] + 2) >> 2;
+      t[15] = (pt[14] + 3 * pt[15] + 2) >> 2;
+    }
+    if (corner) {
+      c = top && left ? (pt[0] + 2 * pc + pl[0] + 2) >> 2
+          : top       ? (3 * pc + pt[0] + 2) >> 2
+          : left      ? (3 * pc + pl[0] + 2) >> 2
+                      : pc;
+    }
+    if (left) {
+      l[0] = corner ? (pc + 2 * pl[0] + pl[1] + 2) >> 2 : (3 * pl[0] + pl[1] + 2) >> 2;
+      for (int i = 1; i < 7; ++i) l[i] = (pl[i - 1] + 2 * pl[i] + pl[i + 1] + 2) >> 2;
+      l[7] = (pl[6] + 3 * pl[7] + 2) >> 2;
+    }
+    auto T = [&](int x) { return x < 0 ? c : t[x]; };  // p'[x, -1]
+    auto L = [&](int y) { return y < 0 ? c : l[y]; };  // p'[-1, y]
+    int dc = 128;
+    if (mode == 2) {
+      int st = 0, sl = 0;
+      for (int i = 0; i < 8; ++i) st += t[i], sl += l[i];
+      dc = top && left ? (st + sl + 8) >> 4 : left ? (sl + 4) >> 3 : top ? (st + 4) >> 3 : 128;
+    }
+    for (int y = 0; y < 8; ++y)
+      for (int x = 0; x < 8; ++x) {
+        int v = 0;
+        switch (mode) {
+          case 0: v = T(x); break;
+          case 1: v = L(y); break;
+          case 2: v = dc; break;
+          case 3:
+            v = (x == 7 && y == 7) ? (T(14) + 3 * T(15) + 2) >> 2
+                                   : (T(x + y) + 2 * T(x + y + 1) + T(x + y + 2) + 2) >> 2;
+            break;
+          case 4:
+            if (x > y) v = (T(x - y - 2) + 2 * T(x - y - 1) + T(x - y) + 2) >> 2;
+            else if (x < y) v = (L(y - x - 2) + 2 * L(y - x - 1) + L(y - x) + 2) >> 2;
+            else v = (T(0) + 2 * c + L(0) + 2) >> 2;
+            break;
+          case 5: {
+            const int z = 2 * x - y;
+            if (z >= 0 && !(z & 1)) v = (T(x - (y >> 1) - 1) + T(x - (y >> 1)) + 1) >> 1;
+            else if (z >= 0) v = (T(x - (y >> 1) - 2) + 2 * T(x - (y >> 1) - 1) + T(x - (y >> 1)) + 2) >> 2;
+            else if (z == -1) v = (L(0) + 2 * c + T(0) + 2) >> 2;
+            else v = (L(y - 2 * x - 1) + 2 * L(y - 2 * x - 2) + L(y - 2 * x - 3) + 2) >> 2;
+            break;
+          }
+          case 6: {
+            const int z = 2 * y - x;
+            if (z >= 0 && !(z & 1)) v = (L(y - (x >> 1) - 1) + L(y - (x >> 1)) + 1) >> 1;
+            else if (z >= 0) v = (L(y - (x >> 1) - 2) + 2 * L(y - (x >> 1) - 1) + L(y - (x >> 1)) + 2) >> 2;
+            else if (z == -1) v = (L(0) + 2 * c + T(0) + 2) >> 2;
+            else v = (T(x - 2 * y - 1) + 2 * T(x - 2 * y - 2) + T(x - 2 * y - 3) + 2) >> 2;
+            break;
+          }
+          case 7:
+            if (!(y & 1)) v = (T(x + (y >> 1)) + T(x + (y >> 1) + 1) + 1) >> 1;
+            else v = (T(x + (y >> 1)) + 2 * T(x + (y >> 1) + 1) + T(x + (y >> 1) + 2) + 2) >> 2;
+            break;
+          case 8: {
+            const int z = x + 2 * y;
+            if (z > 13) v = L(7);
+            else if (z == 13) v = (L(6) + 3 * L(7) + 2) >> 2;
+            else if (!(z & 1)) v = (L(y + (x >> 1)) + L(y + (x >> 1) + 1) + 1) >> 1;
+            else v = (L(y + (x >> 1)) + 2 * L(y + (x >> 1) + 1) + L(y + (x >> 1) + 2) + 2) >> 2;
+            break;
+          }
+        }
+        pic[static_cast<size_t>(y0 + y) * stride + x0 + x] = static_cast<uint8_t>(v);
+      }
   }
 
   // ---- intra prediction (8.3)
@@ -1793,7 +2438,13 @@ class Decoder {
     const MbInfo& q = mbs_[mb_q];
     if (p.Intra() || q.Intra()) return mb_edge ? 4 : 3;
     const int rp = (bp >> 2) & 3, cp = bp & 3, rq = (bq >> 2) & 3, cq = bq & 3;
-    if (p.nz[rp * 4 + cp] || q.nz[rq * 4 + cq]) return 2;
+    // Coefficients in the 4x4 block, or with the 8x8 transform in the 8x8 block, holding the sample.
+    auto coded = [](const MbInfo& m, int r, int c) {
+      if (!m.t8) return m.nz[r * 4 + c] != 0;
+      const int k = (r & 2) * 4 + (c & 2);
+      return (m.nz[k] | m.nz[k + 1] | m.nz[k + 4] | m.nz[k + 5]) != 0;
+    };
+    if (coded(p, rp, cp) || coded(q, rq, cq)) return 2;
     const int mbw = mb_width_;
     const size_t ip = static_cast<size_t>((mb_p / mbw) * 4 + rp) * mbw * 4 + (mb_p % mbw) * 4 + cp;
     const size_t iq = static_cast<size_t>((mb_q / mbw) * 4 + rq) * mbw * 4 + (mb_q % mbw) * 4 + cq;
@@ -1857,12 +2508,19 @@ class Decoder {
         for (int e = 0; e < 4; ++e) {
           const bool mb_edge = e == 0;
           if (mb_edge && !(dir == 0 ? left : top)) continue;
+          if (q.t8 && (e & 1)) continue;  // no transform edge inside an 8x8 block
           const int mb_p = mb_edge ? (dir == 0 ? addr - 1 : addr - mbw) : addr;
+          // FFmpeg's filter (ff_h264_filter_mb_fast, taken on x86 where the two chroma QP offsets are equal) gives
+          // every edge of an inter macroblock with the 8x8 transform and 8x8 blocks 0-2 coded bS 2 at least: what
+          // the standard gives under CABAC, but also under CAVLC where such a block's four 4x4 parts hold no level.
+          const bool coded_8x8 = q.kind == kMbInter && q.t8 && (q.cbp & 7) == 7 &&
+                                 si.chroma_qp_offset[0] == si.chroma_qp_offset[1];
           int bs[4];
           for (int k = 0; k < 4; ++k) {
             const int bq = dir == 0 ? k * 4 + e : e * 4 + k;
             const int bp = mb_edge ? (dir == 0 ? k * 4 + 3 : 12 + k) : (dir == 0 ? bq - 1 : bq - 4);
             bs[k] = Strength(mb_p, addr, bp, bq, mb_edge);
+            if (coded_8x8) bs[k] = std::max(bs[k], 2);
           }
           if (!bs[0] && !bs[1] && !bs[2] && !bs[3]) continue;
           const MbInfo& p = mbs_[mb_p];
@@ -1889,13 +2547,13 @@ class Decoder {
           }
           // Chroma: edges 0 and 2 of the luma grid fall on chroma edges 0 and 4.
           if (e & 1) continue;
-          const int qpc_p = ChromaQp(qp_p, slices_[p.slice].chroma_qp_offset);
-          const int qpc_q = ChromaQp(qp_q, si.chroma_qp_offset);
-          const int qpav = (qpc_p + qpc_q + 1) >> 1;
-          const int ia = Clip3(0, 51, qpav + si.alpha_offset), ib = Clip3(0, 51, qpav + si.beta_offset);
-          const int alpha = kAlpha[ia], beta = kBeta[ib];
           const int cs = width_ / 2;
-          for (int comp = 1; comp <= 2; ++comp)
+          for (int comp = 1; comp <= 2; ++comp) {
+            const int qpc_p = ChromaQp(qp_p, slices_[p.slice].chroma_qp_offset[comp - 1]);
+            const int qpc_q = ChromaQp(qp_q, si.chroma_qp_offset[comp - 1]);
+            const int qpav = (qpc_p + qpc_q + 1) >> 1;
+            const int ia = Clip3(0, 51, qpav + si.alpha_offset), ib = Clip3(0, 51, qpav + si.beta_offset);
+            const int alpha = kAlpha[ia], beta = kBeta[ib];
             for (int i = 0; i < 8; ++i) {
               const int b = bs[i >> 1];
               if (!b) continue;
@@ -1910,6 +2568,7 @@ class Decoder {
               }
               FilterLine(s, step, b, alpha, beta, b < 4 ? kTc0[ia][b - 1] : 0, false);
             }
+          }
         }
       }
     }
@@ -1927,6 +2586,7 @@ class Decoder {
   Header cur_header_, header_;
   std::vector<MbInfo> mbs_;
   std::vector<int16_t> mv_;
+  std::vector<uint8_t> mvd_;  // |mvd_l0| of each 4x4 block, at most 70 (CABAC's contexts)
   std::vector<int8_t> ref_;
   std::vector<int> refpic_;
   std::vector<SliceInfo> slices_;
@@ -1936,6 +2596,10 @@ class Decoder {
   int prev_poc_msb_ = 0, prev_poc_lsb_ = 0, cur_poc_msb_ = 0, cur_frame_num_offset_ = 0;
   int64_t last_poc_ = 0;
   int max_long_idx_ = -1, cur_max_frame_num_ = 16, cur_max_refs_ = 1;
+  bool cabac_ = false;  // the current slice's entropy_coding_mode_flag
+  CabacEngine engine_;
+  uint8_t ctx_[436] = {};
+  int prev_qp_delta_ = 0;  // mb_qp_delta of the previous macroblock of the slice (0 where it had none)
   int64_t stats_[kNumStats] = {};
 };
 

@@ -1,8 +1,10 @@
-"""H.264 video (progressive 8-bit 4:2:0, CAVLC, I and P slices) decoded as
-``cv2.VideoCapture`` decodes it: what Constrained Baseline and x264's
-``--profile baseline`` write, and the Main-profile P-slice tools that go with
-CAVLC, from MP4 (``avc1`` / ``avc3``), Matroska (``V_MPEG4/ISO/AVC``), AVI
-(``H264`` and its other fourccs) and raw Annex B streams (``.h264``).
+"""H.264 video (progressive 8-bit 4:2:0, I and P slices, CAVLC or CABAC)
+decoded as ``cv2.VideoCapture`` decodes it: what Constrained Baseline and
+x264's ``--profile baseline`` write, the Main-profile P-slice tools, and High
+profile without B slices (CABAC, the 8x8 transform, scaling matrices), as
+x264 writes it with ``--bframes 0`` or ``--tune zerolatency``, from MP4
+(``avc1`` / ``avc3``), Matroska (``V_MPEG4/ISO/AVC``), AVI (``H264`` and its
+other fourccs) and raw Annex B streams (``.h264``).
 
 :class:`H264Decoder` takes the stream one whole access unit (or several) a
 call and returns the frames it outputs as uint8 ``HxWx3`` BGR arrays. The
@@ -17,26 +19,35 @@ Covered: Annex B and length-prefixed NAL units (an ``avcC`` record's
 ``lengthSizeMinusOne`` 0, 1 or 3); any ``profile_idc`` whose stream stays
 within these tools; the VUI; frame cropping at the right, top and bottom;
 picture order count types 0, 1 and 2; several slices a picture in raster
-order; every I and P macroblock type with every sub-partition, I_PCM and
-skip runs; intra 4x4 / 16x16 / chroma prediction under slices and
-``constrained_intra_pred``; reference lists of up to 16 frames with
-modification; explicit weighted prediction; the sliding window and MMCO 1-6
-with long-term references; the deblocking filter with ``disable_deblocking_filter_idc``
-0, 1 and 2 and its offsets. Frames are output in decoding order, which is
-FFmpeg's order wherever its picture order count (which, unlike the
-standard's, goes on across an MMCO 5) increases.
+order; CAVLC and CABAC (each ``cabac_init_idc``, I_PCM within it); every I
+and P macroblock type with every sub-partition, I_PCM and skips; the 8x8
+transform (``transform_8x8_mode_flag``) with intra 8x8 prediction; scaling
+matrices in the SPS and the PPS (fall-back rules A and B, the default
+lists); ``second_chroma_qp_index_offset``; intra 4x4 / 8x8 / 16x16 / chroma
+prediction under slices and ``constrained_intra_pred``; reference lists of
+up to 16 frames with modification; explicit weighted prediction; the sliding
+window and MMCO 1-6 with long-term references; the deblocking filter with
+``disable_deblocking_filter_idc`` 0, 1 and 2 and its offsets, as FFmpeg
+applies it (its bS of 2 on every edge of an inter macroblock with the 8x8
+transform and 8x8 blocks 0-2 coded, where the two chroma offsets are equal).
+Frames are output in decoding order, which is FFmpeg's order wherever its
+picture order count (which, unlike the standard's, goes on across an MMCO 5)
+increases. Where a 4x4 scaling list's first weight is above 28 (the lists
+x264 and the standard's defaults send keep it at 6-16), FFmpeg's x86 DC
+dequantisation of Intra 16x16 macroblocks can round apart from the standard,
+which this decoder follows: such frames can differ from cv2's by a grey level.
 
-Raise ``NotImplementedError`` naming the feature: CABAC, B / SP / SI slices,
-interlaced coding (``frame_mbs_only_flag`` 0), the 8x8 transform, scaling
-matrices, another chroma format than 4:2:0, more than 8 bits, lossless
-bypass, slice groups, arbitrary slice order, redundant pictures, data
-partitioning, gaps in ``frame_num``, a size that changes mid-stream, a left
-crop (cv2.VideoCapture rescales such frames), a colour matrix other than
-BT.601, BT.709, FCC and SMPTE 240M, ``no_output_of_prior_pics_flag``, a
-stream that starts without an IDR picture and a picture order count that
-does not increase (FFmpeg's output order then depends on its thread count).
-Corrupt data (a truncated slice, a P slice before the first IDR, a reference
-index past the list) raises ``ValueError``.
+Raise ``NotImplementedError`` naming the feature, under CAVLC and under
+CABAC: B / SP / SI slices, interlaced coding (``frame_mbs_only_flag`` 0),
+another chroma format than 4:2:0, more than 8 bits, lossless bypass, slice
+groups, arbitrary slice order, redundant pictures, data partitioning, gaps in
+``frame_num``, a size that changes mid-stream, a left crop (cv2.VideoCapture
+rescales such frames), a colour matrix other than BT.601, BT.709, FCC and
+SMPTE 240M, ``no_output_of_prior_pics_flag``, a stream that starts without an
+IDR picture and a picture order count that does not increase (FFmpeg's
+output order then depends on its thread count). Corrupt data (a truncated
+slice, a P slice before the first IDR, a reference index past the list)
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -52,7 +63,11 @@ _I4X4_MODES = ("vertical", "horizontal", "dc", "diagonal_down_left", "diagonal_d
 # The counts native/h264_decoder.cpp keeps over a stream (its Stat order): pictures and slices by kind,
 # macroblocks by type, sub-macroblock partitions, intra modes, skip runs and motion, the slice-header tools
 # (weights, list modifications, memory management operations, long-term references, the sliding window,
-# deblocking), POC types, level escapes, QP wraps and cropped pictures.
+# deblocking), POC types, level escapes, QP wraps and cropped pictures; then CABAC's slices by cabac_init_idc,
+# its I_PCM macroblocks and the levels and vector differences that reach their Exp-Golomb suffixes, intra 8x8
+# macroblocks, inter ones with the 8x8 transform, intra 8x8 modes, and the parameter sets' tools (scaling
+# matrices in SPSs and PPSs, their lists read, default or by fall-back rule A or B, second chroma QP offsets
+# unlike the first, transform_8x8_mode_flag), counted as the parameter sets are read.
 STATS = ("pictures", "idr_pictures", "non_ref_pictures", "slices", "i_slices", "p_slices", "multi_slice_pictures",
          "I_NxN", "I_16x16", "I_PCM", "P_L0_16x16", "P_L0_L0_16x8", "P_L0_L0_8x16", "P_8x8", "P_8x8ref0", "P_Skip",
          "intra_mbs_in_p_slices", "sub_8x8", "sub_8x4", "sub_4x8", "sub_4x4",
@@ -62,7 +77,12 @@ STATS = ("pictures", "idr_pictures", "non_ref_pictures", "slices", "i_slices", "
          "weighted_slices", "list_modifications", *(f"mmco_{i}" for i in range(1, 7)), "long_term_refs",
          "sliding_window_removals", "deblock_idc_0", "deblock_idc_1", "deblock_idc_2", "deblock_offsets",
          "constrained_intra_slices", "poc_type_0", "poc_type_1", "poc_type_2", "level_prefix_14",
-         "level_prefix_15", "qp_wraps", "cropped_pictures")
+         "level_prefix_15", "qp_wraps", "cropped_pictures",
+         "cabac_slices", "cabac_init_idc_0", "cabac_init_idc_1", "cabac_init_idc_2", "cabac_pcm",
+         "cabac_level_escapes", "cabac_mvd_escapes", "I_8x8", "transform_8x8_inter",
+         *(f"i8x8_{m}" for m in _I4X4_MODES),
+         "sps_scaling_matrices", "pps_scaling_matrices", "scaling_lists_explicit", "scaling_lists_default",
+         "scaling_lists_fallback_a", "scaling_lists_fallback_b", "second_chroma_qp_offsets", "transform_8x8_pps")
 
 
 class H264Decoder:

@@ -44,14 +44,14 @@ frames (:mod:`super_resolution_tpu_torch.utils.vp8`), VP9 frames
 (:mod:`super_resolution_tpu_torch.utils.vp9`), FFV1 frames
 (:mod:`super_resolution_tpu_torch.utils.ffv1`, versions 0-3 at 8 bits) and
 H.264 frames (:mod:`super_resolution_tpu_torch.utils.h264`: progressive 8-bit
-4:2:0, CAVLC, I and P slices) are
+4:2:0, I and P slices, CAVLC or CABAC, up to High profile without B slices) are
 ``cv2.VideoCapture``'s, pixel for pixel, at any frame size, on what
 ``cv2.VideoWriter`` writes; a hidden VP8 or VP9
 frame gives none, a VP9 superframe or ``show_existing_frame`` the frames it
 shows. An MJPEG frame is what ``cv2.imdecode`` gives for its JPEG payload;
 FFmpeg's MJPEG decoder and colour conversion differ from that by a few grey
 levels (ROADMAP.md, Queue 3). Other containers and codecs (HEVC, HuffYUV,
-FFV1 above 8 bits, MS-MPEG4 ``DIV3``, H.264 with CABAC or B slices, ...)
+FFV1 above 8 bits, MS-MPEG4 ``DIV3``, H.264 with B slices, ...)
 raise ``NotImplementedError`` naming them.
 """
 

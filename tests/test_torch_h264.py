@@ -17,7 +17,10 @@ what it wrote; each container; the checked-in 960x540 clip of
 cv2's frames that its manifest records. What the decoder refuses raises
 ``NotImplementedError`` naming it; damaged streams raise ``ValueError``. The
 loader matches the JAX loader in float64; the resolver matches the JAX
-resolver on cv2's frames of the same file to 1e-8 of the largest entry.
+resolver on cv2's frames of the same file to 1e-8 of the largest entry. The High-profile
+tools (CABAC, the 8x8 transform, scaling matrices, the second chroma QP
+offset) have test_torch_h264_cabac.py; here, the streams those tools were
+once refused on decode to cv2's frames.
 """
 
 import hashlib
@@ -40,8 +43,8 @@ from super_resolution_tpu_torch.video.video_loader import read_video_frames
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from torch_h264_tables import (CHROMA_DC_TOKEN, CHROMA_DC_TOTAL_ZEROS, COEFF_TOKEN, RUN_BEFORE,  # noqa: E402
                                TOTAL_ZEROS)
-from torch_h264_writer import (BitWriter, Options, Pps, Sps, StreamWriter, annexb, avi, encode_frames, mkv,  # noqa: E402
-                               mp4, nal_unit, random_stream)
+from torch_h264_writer import (BitWriter, Options, Pps, Sps, StreamWriter, annexb, avcc, avi,  # noqa: E402
+                               encode_frames, mkv, mp4, nal_unit, random_stream)
 from torch_libav import capture, decode_planes  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -155,7 +158,8 @@ def test_writer_covers_every_tool():
         assert decoder.stats == {k: stats.get(k, 0) for k in STATS}
         for k, v in decoder.stats.items():
             total[k] += v
-    assert [k for k, v in total.items() if not v] == ["cropped_pictures"]
+    # The High-profile tools' counts, from "cabac_slices" on, are reached by test_torch_h264_cabac.py's streams.
+    assert [k for k in STATS[:STATS.index("cabac_slices")] if not total[k]] == ["cropped_pictures"]
 
 
 # --- containers -----------------------------------------------------------------------------------
@@ -250,13 +254,14 @@ def _stream(options=None, sps=None, pps=None, frames=3, seed=9):
     return [writer.picture() for _ in range(frames)]
 
 
-def _slice_of_type(slice_type):
+def _slice_of_type(slice_type, cabac=False):
     w = BitWriter()
     w.ue(0)
     w.ue(slice_type)
     w.ue(0)
     w.trailing()
-    return [nal_unit(3, 7, Sps(3, 2).rbsp()), nal_unit(3, 8, Pps().rbsp()), nal_unit(3, 1, w.data())]
+    return [nal_unit(3, 7, Sps(3, 2, profile_idc=100 if cabac else 66).rbsp()), nal_unit(3, 8, Pps(cabac=cabac).rbsp()),
+            nal_unit(3, 1, w.data())]
 
 
 def _swap_slices(aus):
@@ -269,16 +274,12 @@ def _swap_slices(aus):
 
 
 REFUSALS = {
-    "CABAC": lambda: _stream(pps=dict(cabac=True)),
     "B slices": lambda: [_slice_of_type(1)],
+    "with B slices": lambda: [_stream(pps=dict(cabac=True), sps=dict(profile_idc=100))[0],
+                              _slice_of_type(1, cabac=True)],
     "SP slices": lambda: [_slice_of_type(3)],
     "SI slices": lambda: [_slice_of_type(9)],
     "frame_mbs_only_flag 0": lambda: _stream(sps=dict(frame_mbs_only=False, mb_height=2)),
-    "transform_8x8_mode_flag": lambda: _stream(pps=dict(transform_8x8=True), sps=dict(profile_idc=100)),
-    "scaling matrices in the SPS": lambda: _stream(sps=dict(profile_idc=100, scaling_matrix=True)),
-    "scaling matrices in the PPS": lambda: _stream(sps=dict(profile_idc=100), pps=dict(scaling_matrix=True)),
-    "second_chroma_qp_index_offset": lambda: _stream(sps=dict(profile_idc=100),
-                                                     pps=dict(chroma_qp_offset=2, second_chroma_qp_offset=-3)),
     "chroma_format_idc 2": lambda: _stream(sps=dict(profile_idc=122, chroma_format_idc=2)),
     "chroma_format_idc 0": lambda: _stream(sps=dict(profile_idc=100, chroma_format_idc=0)),
     "above 8 bits": lambda: _stream(sps=dict(profile_idc=110, bit_depth=10)),
@@ -307,6 +308,23 @@ def test_refusals_name_what_they_are(tmp_path, what):
     path = _write(tmp_path, "refused.h264", annexb(REFUSALS[what]()))
     with pytest.raises(NotImplementedError, match=what):
         read_video_frames(path)
+
+
+# The streams of the refusals that the High-profile tools replaced: each now decodes to cv2's frames.
+FORMERLY_REFUSED = {
+    "CABAC": lambda: _stream(pps=dict(cabac=True)),
+    "transform_8x8_mode_flag": lambda: _stream(pps=dict(transform_8x8=True), sps=dict(profile_idc=100)),
+    "scaling matrices in the SPS": lambda: _stream(sps=dict(profile_idc=100, scaling_lists=[None] * 8)),
+    "scaling matrices in the PPS": lambda: _stream(sps=dict(profile_idc=100), pps=dict(scaling_lists=[None] * 6)),
+    "second_chroma_qp_index_offset": lambda: _stream(sps=dict(profile_idc=100),
+                                                     pps=dict(chroma_qp_offset=2, second_chroma_qp_offset=-3)),
+}
+
+
+@pytest.mark.parametrize("what", list(FORMERLY_REFUSED))
+def test_formerly_refused_streams_equal_videocapture(tmp_path, what):
+    path = _write(tmp_path, "high.h264", annexb(FORMERLY_REFUSED[what]()))
+    _assert_frames_equal(read_video_frames(path), capture(path))
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -353,12 +371,16 @@ def test_left_crop_is_refused_as_cv2_rescales_it(tmp_path):
         read_video_frames(path)
 
 
-def test_avcc_announcing_cabac_is_refused_at_once():
-    config = b"\x01\x4d\x00\x1e\xff\xe1" + b""
-    sps, pps = nal_unit(3, 7, Sps(2, 2, profile_idc=77).rbsp()), nal_unit(3, 8, Pps(cabac=True).rbsp())
-    config += len(sps).to_bytes(2, "big") + sps + b"\x01" + len(pps).to_bytes(2, "big") + pps
-    with pytest.raises(NotImplementedError, match="CABAC"):
-        H264Decoder(config)
+def test_avcc_announcing_cabac_decodes(tmp_path):
+    """An avcC record whose PPS announces CABAC: the decoder takes it, and the .mp4 around it decodes to cv2's
+    frames."""
+    aus, _, _, size, _ = random_stream(31, mb_width=2, mb_height=2, frames=3, cabac=True)
+    sps = [n for n in aus[0] if n[0] & 31 == 7]
+    pps = [n for n in aus[0] if n[0] & 31 == 8]
+    config = avcc(sps, pps)
+    assert config[0] == 1 and H264Decoder(config).size == (0, 0)
+    path = _write(tmp_path, "cabac.mp4", mp4(aus, *size))
+    _assert_frames_equal(read_video_frames(path), capture(path))
     with pytest.raises(ValueError, match="configurationVersion"):
         H264Decoder(b"\x00" + config[1:])
 

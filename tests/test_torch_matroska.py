@@ -369,18 +369,19 @@ def _second_video_track(tree):
     tracks.append([TRACK_ENTRY, copy])
 
 
-def _cabac_avc(tree):
-    """An H.264 track whose configuration record announces CABAC, which the port refuses."""
+def _interlaced_avc(tree):
+    """An H.264 track whose configuration record announces interlaced coding (frame_mbs_only_flag 0), which the port
+    refuses."""
     sys.path.insert(0, os.path.join(REPO, "tests"))
     from torch_h264_writer import Pps, Sps, avcc, nal_unit
 
     _set(_track(tree), CODEC_ID, b"V_MPEG4/ISO/AVC")
-    _set(_track(tree), CODEC_PRIVATE, avcc([nal_unit(3, 7, Sps(4, 3, profile_idc=77).rbsp())],
+    _set(_track(tree), CODEC_PRIVATE, avcc([nal_unit(3, 7, Sps(4, 4, profile_idc=77, frame_mbs_only=False).rbsp())],
                                            [nal_unit(3, 8, Pps(cabac=True).rbsp())]))
 
 
 REFUSALS = {
-    "H.264": _cabac_avc,
+    "H.264": _interlaced_avc,
     "HEVC": lambda tree: _set(_track(tree), CODEC_ID, b"V_MPEGH/ISO/HEVC"),
     "AV1": lambda tree: _set(_track(tree), CODEC_ID, b"V_AV1"),
     "ContentEncodings": lambda tree: _track(tree).append([0x6D80, b"\x62\x40\x80"]),

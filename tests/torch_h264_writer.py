@@ -1,7 +1,7 @@
-"""A writer of H.264 streams (progressive 4:2:0, CAVLC, I and P slices) for
-the port's tests: random syntax that covers what ``native/h264_decoder.cpp``
-reads, and containers around it (Annex B, MP4 ``avc1``, Matroska
-``V_MPEG4/ISO/AVC``, AVI ``H264``).
+"""A writer of H.264 streams (progressive 4:2:0, I and P slices, CAVLC or
+CABAC) for the port's tests: random syntax that covers what
+``native/h264_decoder.cpp`` reads, and containers around it (Annex B, MP4
+``avc1``, Matroska ``V_MPEG4/ISO/AVC``, AVI ``H264``).
 
 :func:`random_stream` draws every macroblock type and sub-partition, every
 intra mode the neighbours allow, skip runs, reference lists of up to 16
@@ -9,22 +9,30 @@ frames with modification, MMCO 1-6 and long-term references, explicit
 weights, several slices a picture with each deblocking mode and its offsets,
 ``constrained_intra_pred``, POC types 0, 1 and 2, the QP range with
 ``chroma_qp_index_offset`` -12..12 and the ``mb_qp_delta`` wrap, vectors far
-outside the picture, level escapes, I_PCM, crops and small frame sizes. The
-writer keeps its own model of what the decoder must track to read the stream
-as meant -- availability under slices and constrained intra, the intra 4x4
-mode prediction, ``coeff_token``'s nC, motion-vector prediction, the decoded
-picture buffer and its marking -- and counts what it writes under
-:data:`super_resolution_tpu_torch.utils.h264.STATS`' names. It keeps every
-inverse transform's intermediates inside 16 bits, as conforming streams do
-(FFmpeg's x86 transforms work in 16 bits).
+outside the picture, level escapes, I_PCM, crops and small frame sizes; and,
+as its ``Options`` ask, High-profile tools: CABAC (:class:`CabacWriter`, the
+arithmetic encoder, under each ``cabac_init_idc``), the 8x8 transform with
+intra 8x8, scaling matrices in the SPS and the PPS, a second chroma QP
+offset. The writer keeps its own model of what the decoder must track to
+read the stream as meant (:class:`_Syntax`) -- availability under slices
+and constrained intra, the intra mode prediction, ``coeff_token``'s nC,
+CABAC's context selection, motion-vector prediction, the decoded picture
+buffer and its marking -- and counts what it writes under
+:data:`super_resolution_tpu_torch.utils.h264.STATS`' names, and the
+(table, ctxIdx) pairs it codes bins with. It keeps every inverse transform's
+intermediates inside 16 bits, as conforming streams do (FFmpeg's x86
+transforms work in 16 bits).
 
-:func:`encode_frames` is an encoder of real pictures (an IDR of intra 16x16
-macroblocks, then P frames with a motion search, a residual at a fixed QP and
-the deblocking filter off), whose reconstruction is its own, in the closed
-loop, so that nothing drifts: it makes the checked-in fixture.
+:func:`encode_frames` is an encoder of real pictures: Baseline
+(:class:`FrameEncoder`: an IDR of intra 16x16 macroblocks, then P frames
+with a motion search, a residual at a fixed QP and the deblocking filter
+off, its reconstruction its own, in the closed loop) or High profile
+(:class:`HighEncoder`: CABAC, the 8x8 transform, intra 8x8, P_8x8,
+deblocking on, each P picture predicted from FFmpeg's decode of the stream
+before it): they make the checked-in fixtures.
 
-The CAVLC tables come from ``torch_h264_tables.py``, copied from the standard,
-not from the port.
+The tables come from ``torch_h264_tables.py``, copied from the standard, not
+from the port.
 """
 
 from __future__ import annotations
@@ -35,12 +43,18 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from torch_h264_tables import (CBP_CODE_INTER, CBP_CODE_INTRA, CHROMA_DC_TOKEN, CHROMA_DC_TOTAL_ZEROS, COEFF_TOKEN,
-                               NORM_ADJUST, RUN_BEFORE, TOTAL_ZEROS, ZIGZAG, chroma_qp, level_scale)
+from torch_h264_tables import (ABS_OFFSET, CABAC_INIT, CBF_OFFSET, CBP_CODE_INTER, CBP_CODE_INTRA, CHROMA_DC_TOKEN,
+                               CHROMA_DC_TOTAL_ZEROS, COEFF_TOKEN, DEFAULT_4X4, DEFAULT_8X8, LAST_8X8, NORM_ADJUST,
+                               RANGE_LPS, RUN_BEFORE, SIG_8X8, SIG_OFFSET, TOTAL_ZEROS, TRANS_LPS, ZIGZAG, ZIGZAG8,
+                               chroma_qp, level_scale, level_scale8)
 
 # The 16-bit bound the writer keeps each 4x4 block's dequantised coefficients under (their absolute sum bounds
-# every intermediate of the inverse transform).
+# every intermediate of the inverse transform), and each 8x8 block's (whose two passes each grow a value by up to
+# 1.5 times the absolute sum of their inputs).
 COEFF_BOUND = 30000
+COEFF_BOUND8 = 12000
+FLAT4 = [[16] * 4 for _ in range(4)]
+FLAT8 = [[16] * 8 for _ in range(8)]
 
 
 class BitWriter:
@@ -69,6 +83,10 @@ class BitWriter:
     def align_zero(self):
         while len(self.bits) % 8:
             self.bits.append(0)
+
+    def align_one(self):
+        while len(self.bits) % 8:
+            self.bits.append(1)
 
     def trailing(self):
         self.bits.append(1)
@@ -126,9 +144,11 @@ class Sps:
     frame_mbs_only: bool = True
     chroma_format_idc: int = 1
     bit_depth: int = 8
-    scaling_matrix: bool = False
     separate_colour_plane: bool = False
     bypass: bool = False
+    # seq_scaling_matrix_present_flag's lists: None (no flag), or eight entries of None (not sent: fall-back rule
+    # A), "default" (useDefaultScalingMatrixFlag) or the list in scan order, with (values, n): its first n sent.
+    scaling_lists: list | None = None
 
     def rbsp(self):
         w = BitWriter()
@@ -143,10 +163,9 @@ class Sps:
             w.ue(self.bit_depth - 8)
             w.ue(self.bit_depth - 8)
             w.u(1, int(self.bypass))
-            w.u(1, int(self.scaling_matrix))
-            if self.scaling_matrix:
-                for _ in range(8 if self.chroma_format_idc != 3 else 12):
-                    w.u(1, 0)
+            w.u(1, int(self.scaling_lists is not None))
+            if self.scaling_lists is not None:
+                write_scaling_lists(w, self.scaling_lists, 8 if self.chroma_format_idc != 3 else 12)
         w.ue(self.log2_max_frame_num - 4)
         w.ue(self.poc_type)
         if self.poc_type == 0:
@@ -218,13 +237,14 @@ class Pps:
     deblocking_control: bool = True
     constrained_intra: bool = False
     bottom_field_pic_order: bool = False
-    # Refused features.
     cabac: bool = False
+    transform_8x8: bool = False
+    # pic_scaling_matrix_present_flag's lists, as Sps.scaling_lists: six, or eight with the 8x8 transform.
+    scaling_lists: list | None = None
+    second_chroma_qp_offset: int | None = None
+    # Refused features.
     slice_groups: int = 1
     redundant_pic_cnt: bool = False
-    transform_8x8: bool = False
-    scaling_matrix: bool = False
-    second_chroma_qp_offset: int | None = None
 
     def rbsp(self):
         w = BitWriter()
@@ -247,16 +267,92 @@ class Pps:
         w.u(1, int(self.deblocking_control))
         w.u(1, int(self.constrained_intra))
         w.u(1, int(self.redundant_pic_cnt))
-        if self.transform_8x8 or self.scaling_matrix or self.second_chroma_qp_offset is not None:
+        if self.transform_8x8 or self.scaling_lists is not None or self.second_chroma_qp_offset is not None:
             w.u(1, int(self.transform_8x8))
-            w.u(1, int(self.scaling_matrix))
-            if self.scaling_matrix:
-                for _ in range(6 + 2 * int(self.transform_8x8)):
-                    w.u(1, 0)
-            second = self.second_chroma_qp_offset
-            w.se(self.chroma_qp_offset if second is None else second)
+            w.u(1, int(self.scaling_lists is not None))
+            if self.scaling_lists is not None:
+                write_scaling_lists(w, self.scaling_lists, 6 + 2 * int(self.transform_8x8))
+            w.se(self.cr_qp_offset)
         w.trailing()
         return w.data()
+
+    @property
+    def cr_qp_offset(self):
+        return self.chroma_qp_offset if self.second_chroma_qp_offset is None else self.second_chroma_qp_offset
+
+
+def write_scaling_lists(w, lists, count):
+    """scaling_list() syntax (7.3.2.1.1.1) of ``count`` lists (entries as ``Sps.scaling_lists``)."""
+    assert len(lists) == count, (len(lists), count)
+    for entry in lists:
+        w.u(1, int(entry is not None))
+        if entry is None:
+            continue
+        if entry == "default":
+            w.se(-8)  # nextScale 0 at the first position: useDefaultScalingMatrixFlag
+            continue
+        values, sent = entry
+        last = 8
+        for j in range(sent):
+            w.se((values[j] - last + 128) % 256 - 128)
+            last = values[j]
+        if sent < len(values):
+            assert all(v == last for v in values[sent:]), "the unsent tail repeats the last value sent"
+            w.se((0 - last + 128) % 256 - 128)  # nextScale 0: the rest repeat the last
+
+
+def resolve_lists(sps, pps):
+    """The weightScale4x4 (six, raster order as 4x4 lists) and weightScale8x8 (Intra Y, Inter Y) lists the pictures
+    of ``pps`` use: the PPS's lists under fall-back rule A or B, else the SPS's under rule A, else flat."""
+    def read(entry, default, fallback, size):
+        if entry is None:
+            return fallback
+        scan = ZIGZAG if size == 4 else ZIGZAG8
+        values = default if entry == "default" else entry[0]
+        out = [[0] * size for _ in range(size)]
+        for k, (r, c) in enumerate(scan):
+            out[r][c] = values[k]
+        return out
+
+    def matrices(lists, base4, base8, eight):
+        l4 = []
+        for i in range(6):
+            t = i // 3
+            fallback = l4[i - 1] if i % 3 else base4[t]
+            l4.append(read(lists[i], DEFAULT_4X4[t], fallback, 4))
+        l8 = [read(lists[6 + t], DEFAULT_8X8[t], base8[t], 8) for t in range(2)] if eight else list(base8)
+        return l4, l8
+
+    defaults4 = [read("default", DEFAULT_4X4[t], None, 4) for t in range(2)]
+    defaults8 = [read("default", DEFAULT_8X8[t], None, 8) for t in range(2)]
+    if sps.scaling_lists is not None:
+        s4, s8 = matrices(sps.scaling_lists, defaults4, defaults8, True)
+    else:
+        s4, s8 = [FLAT4] * 6, [FLAT8] * 2
+    if pps.scaling_lists is None:
+        return s4, s8
+    if sps.scaling_lists is None:  # rule A
+        return matrices(pps.scaling_lists, defaults4, defaults8, pps.transform_8x8)
+    return matrices(pps.scaling_lists, [s4[0], s4[3]], s8, pps.transform_8x8)  # rule B
+
+
+def parameter_set_counts(sps, pps):
+    """What a decoder counts as it reads these parameter sets (``utils/h264.STATS``' names)."""
+    counts = Counter()
+    for owner, lists, rule_b in ((sps, sps.scaling_lists, False),
+                                 *((p, p.scaling_lists, sps.scaling_lists is not None) for p in pps)):
+        if lists is None:
+            continue
+        counts["sps_scaling_matrices" if owner is sps else "pps_scaling_matrices"] += 1
+        for entry in lists:
+            if entry is None:
+                counts["scaling_lists_fallback_b" if rule_b else "scaling_lists_fallback_a"] += 1
+            else:
+                counts["scaling_lists_default" if entry == "default" else "scaling_lists_explicit"] += 1
+    for p in pps:
+        counts["transform_8x8_pps"] += int(p.transform_8x8)
+        counts["second_chroma_qp_offsets"] += int(p.cr_qp_offset != p.chroma_qp_offset)
+    return counts
 
 
 # ---------------------------------------------------------------------------------------------
@@ -342,6 +438,102 @@ def write_block(w, coeffs, nc, max_coeff):
 
 
 # ---------------------------------------------------------------------------------------------
+# CABAC
+
+
+class CabacWriter:
+    """The arithmetic encoder (9.3.4.2-9.3.4.5) writing into a :class:`BitWriter`, with the context states of one
+    slice, initialised (9.3.1.1) from its QP and table (0: I slices, 1-3: P slices with cabac_init_idc 0-2). Each
+    context it codes a bin with is added to ``used`` as (table, ctxIdx)."""
+
+    def __init__(self, w, slice_qp, table, used):
+        self.w, self.table, self.used = w, table, used
+        q = min(max(slice_qp, 0), 51)
+        self.state = []
+        for m, n in CABAC_INIT[table]:
+            pre = min(max(((m * q) >> 4) + n, 1), 126)
+            self.state.append([63 - pre, 0] if pre <= 63 else [pre - 64, 1])
+        self.start()
+
+    def start(self):
+        """InitEncoder: at the slice data's start and again after I_PCM's samples."""
+        self.low, self.range, self.first, self.outstanding = 0, 510, True, 0
+
+    def _put(self, b):
+        if self.first:
+            self.first = False
+        else:
+            self.w.bits.append(b)
+        self.w.bits += [1 - b] * self.outstanding
+        self.outstanding = 0
+
+    def _renorm(self):
+        while self.range < 256:
+            if self.low < 256:
+                self._put(0)
+            elif self.low >= 512:
+                self.low -= 512
+                self._put(1)
+            else:
+                self.low -= 256
+                self.outstanding += 1
+            self.range <<= 1
+            self.low <<= 1
+
+    def decision(self, ctx, b):
+        self.used.add((self.table, ctx))
+        st = self.state[ctx]
+        lps = RANGE_LPS[st[0]][(self.range >> 6) & 3]
+        self.range -= lps
+        if b != st[1]:
+            self.low += self.range
+            self.range = lps
+            if st[0] == 0:
+                st[1] = 1 - st[1]
+            st[0] = TRANS_LPS[st[0]]
+        else:
+            st[0] = min(st[0] + 1, 62)
+        self._renorm()
+
+    def bypass(self, b):
+        self.low <<= 1
+        if b:
+            self.low += self.range
+        if self.low >= 1024:
+            self._put(1)
+            self.low -= 1024
+        elif self.low < 512:
+            self._put(0)
+        else:
+            self.low -= 512
+            self.outstanding += 1
+
+    def exp_golomb(self, v, k):
+        """The Exp-Golomb suffix of UEGk (9.3.2.3), in bypass bins."""
+        while v >= (1 << k):
+            self.bypass(1)
+            v -= 1 << k
+            k += 1
+        self.bypass(0)
+        while k:
+            k -= 1
+            self.bypass((v >> k) & 1)
+
+    def terminate(self, b):
+        """A bin of ctxIdx 276; a 1 flushes (its last bit is the rbsp_stop_one_bit, or the one before I_PCM's
+        alignment)."""
+        self.range -= 2
+        if not b:
+            self._renorm()
+            return
+        self.low += self.range
+        self.range = 2
+        self._renorm()
+        self._put((self.low >> 9) & 1)
+        self.w.u(2, ((self.low >> 7) & 3) | 1)
+
+
+# ---------------------------------------------------------------------------------------------
 # Bounds on the inverse transforms' inputs
 
 
@@ -350,45 +542,68 @@ def _hadamard4(c):
     return h @ c @ h
 
 
-def luma_dc_values(levels_scan, qp):
-    """dcY (4x4, by block position) of the Intra 16x16 DC levels in scan order."""
+def _scale(v, ls, qp, shift):
+    """(v * LevelScale) scaled by 2^(qP / 6 - shift), rounded as 8.5.12.1 / 8.5.13.1 round below it."""
+    q6 = qp // 6
+    return (v * ls) << (q6 - shift) if q6 >= shift else (v * ls + (1 << (shift - q6 - 1))) >> (shift - q6)
+
+
+def luma_dc_values(levels_scan, qp, w00=16):
+    """dcY (4x4, by block position) of the Intra 16x16 DC levels in scan order; w00: weightScale4x4(0, 0)."""
     c = np.zeros((4, 4), np.int64)
     for k, v in enumerate(levels_scan):
         c[ZIGZAG[k]] = v
-    f = _hadamard4(c)
-    ls = 16 * NORM_ADJUST[qp % 6][0]
-    if qp >= 36:
-        return (f * ls) << (qp // 6 - 6)
-    return (f * ls + (1 << (5 - qp // 6))) >> (6 - qp // 6)
+    return _scale(_hadamard4(c), w00 * NORM_ADJUST[qp % 6][0], qp, 6)
 
 
-def chroma_dc_values(levels, qpc):
+def chroma_dc_values(levels, qpc, w00=16):
     c = np.array(levels, np.int64).reshape(2, 2)
     h = np.array([[1, 1], [1, -1]])
     f = h @ c @ h
-    return ((f * 16 * NORM_ADJUST[qpc % 6][0]) << (qpc // 6)) >> 5
+    return ((f * w00 * NORM_ADJUST[qpc % 6][0]) << (qpc // 6)) >> 5
 
 
-def dequantised(levels_scan, qp, start):
-    """The block's dequantised AC (or all) coefficients, by raster position."""
+def dequantised(levels_scan, qp, start, weights=FLAT4):
+    """The block's dequantised AC (or all) coefficients, by raster position; weights: weightScale4x4."""
     d = np.zeros((4, 4), np.int64)
     for k in range(start, 16):
         v = levels_scan[k - start] if k - start < len(levels_scan) else 0
         if v:
             r, c = ZIGZAG[k]
-            d[r, c] = (v * level_scale(qp, r, c)) << (qp // 6)
+            d[r, c] = _scale(v, weights[r][c] * level_scale(qp, r, c), qp, 4)
     return d
 
 
-def fit_levels(levels, qp, start, dc=0, bound=COEFF_BOUND):
+def dequantised8(levels_scan, qp, weights=FLAT8):
+    """An 8x8 block's dequantised coefficients (8.5.13.1), by raster position."""
+    d = np.zeros((8, 8), np.int64)
+    for k, v in enumerate(levels_scan):
+        if v:
+            r, c = ZIGZAG8[k]
+            d[r, c] = _scale(v, weights[r][c] * level_scale8(qp, r, c), qp, 6)
+    return d
+
+
+def fit_levels(levels, qp, start, dc=0, bound=COEFF_BOUND, weights=FLAT4):
     """``levels`` (scan order) reduced until the block's dequantised coefficients, its DC ``dc`` included,
     sum to at most ``bound`` in absolute value."""
     levels = list(levels)
     while True:
-        d = dequantised(levels, qp, start)
+        d = dequantised(levels, qp, start, weights)
         if np.abs(d).sum() + abs(int(dc)) <= bound:
             return levels
-        k = max(range(len(levels)), key=lambda i: abs(levels[i]) * level_scale(qp, *ZIGZAG[i + start]))
+        k = max(range(len(levels)), key=lambda i: abs(d[ZIGZAG[i + start]]))
+        levels[k] = int(np.sign(levels[k])) * (abs(levels[k]) // 2)
+
+
+def fit_levels8(levels, qp, weights=FLAT8, bound=COEFF_BOUND8):
+    """An 8x8 block's levels (scan order) reduced as :func:`fit_levels` reduces a 4x4 block's."""
+    levels = list(levels)
+    while True:
+        d = dequantised8(levels, qp, weights)
+        if np.abs(d).sum() <= bound:
+            return levels
+        k = max(range(64), key=lambda i: abs(d[ZIGZAG8[i]]))
         levels[k] = int(np.sign(levels[k])) * (abs(levels[k]) // 2)
 
 
@@ -534,6 +749,8 @@ def avi(path, access_units, width, height, fourcc=b"H264"):
 
 
 I4_NEEDS = {0: "T", 1: "L", 2: "", 3: "T", 4: "TLD", 5: "TLD", 6: "TLD", 7: "T", 8: "L"}
+I_MODES = ("vertical", "horizontal", "dc", "diagonal_down_left", "diagonal_down_right", "vertical_right",
+           "horizontal_down", "vertical_left", "horizontal_up")
 
 
 @dataclass
@@ -548,8 +765,12 @@ class _Mb:
     def __init__(self, slice_index):
         self.slice = slice_index
         self.kind = "P"
-        self.nz = [0] * 24
+        self.nz = [0] * 24  # nonzero levels of each 4x4 block (CAVLC: TotalCoeff), as the decoder keeps them
         self.i4 = [2] * 16
+        self.t8 = False
+        self.cbp = 0
+        self.dc = 0  # coded DC blocks: 1 luma, 2 Cb, 4 Cr
+        self.chroma_mode = 0
 
     @property
     def intra(self):
@@ -580,6 +801,20 @@ class Options:
     intra_share: float = 0.2
     skip_share: float = 0.25
     poc_step: int = 2
+    # High profile: CABAC (cabac_init_idc drawn for each P slice where None), the 8x8 transform (chosen for each
+    # macroblock that may take it), scaling matrices in the SPS and in the PPSs (each list drawn from list_modes:
+    # not sent, the default or explicit), a second chroma QP offset unlike the first.
+    cabac: bool = False
+    cabac_init_idc: int | None = None
+    transform_8x8: bool = False
+    sps_lists: bool = False
+    pps_lists: bool = False
+    list_modes: tuple = ("absent", "default", "explicit")
+    second_chroma_qp_offset: bool = False
+    intra_only: bool = False
+    # The share of CAVLC 8x8 blocks coded in the cbp with no level in their four 4x4 parts (whose edges FFmpeg's
+    # deblocking treats as coded where 8x8 blocks 0-2 are).
+    empty_8x8_share: float = 0.0
     # Streams the decoder refuses or finds damaged, for those tests.
     first_non_idr: bool = False
     no_output_of_prior_pics: bool = False
@@ -587,7 +822,359 @@ class Options:
     bad_ref_idx: bool = False
 
 
-class StreamWriter:
+class _Syntax:
+    """What a writer of macroblocks keeps to write them as a decoder reads them: availability under slices and
+    constrained intra, motion-vector prediction, the intra mode prediction, CAVLC's nC, and each syntax element in
+    CAVLC or, where ``self.cabac`` is a :class:`CabacWriter`, in CABAC (its binarisation and context selection).
+    The writer sets ``mbs`` (a ``_Mb`` or None per macroblock), ``mbw``, ``mbh``, ``slice_index``, ``pps``,
+    ``ref`` / ``mv`` / ``mvd`` (per 4x4 block of the picture), ``num_ref``, ``prev_dqp`` and ``stats``."""
+
+    def count(self, name, n=1):
+        self.stats[name] += n
+
+    def mb_at(self, mbx, mby):
+        if not (0 <= mbx < self.mbw and 0 <= mby < self.mbh):
+            return None
+        m = self.mbs[mby * self.mbw + mbx]
+        return m if m is not None and m.slice == self.slice_index else None
+
+    def intra_avail(self, mbx, mby):
+        m = self.mb_at(mbx, mby)
+        return m is not None and (not self.pps.constrained_intra or m.intra)
+
+    def i4_avail(self, mbx, mby, x4, y4, blk):
+        left = x4 > 0 or self.intra_avail(mbx - 1, mby)
+        top = y4 > 0 or self.intra_avail(mbx, mby - 1)
+        if x4 > 0 and y4 > 0:
+            corner = True
+        elif x4 > 0:
+            corner = self.intra_avail(mbx, mby - 1)
+        elif y4 > 0:
+            corner = self.intra_avail(mbx - 1, mby)
+        else:
+            corner = self.intra_avail(mbx - 1, mby - 1)
+        return {"T": top, "L": left, "D": corner}
+
+    def i4_neighbour(self, mbx, mby, x4, y4, m):
+        if x4 >= 0 and y4 >= 0:
+            return m.i4[y4 * 4 + x4]
+        n = self.mb_at(mbx - (x4 < 0), mby - (y4 < 0))
+        if n is None or (not n.intra and self.pps.constrained_intra):
+            return -1
+        if n.kind != "I4":
+            return 2
+        return n.i4[((y4 + 4) & 3) * 4 + ((x4 + 4) & 3)]
+
+    def motion(self, bx, by, mbx, mby, mask):
+        """(available, ref, mvx, mvy) of the 4x4 block at picture block coordinates (bx, by)."""
+        if bx < 0 or by < 0 or (bx >> 2) >= self.mbw or (by >> 2) >= self.mbh:
+            return (False, -1, 0, 0)
+        nx, ny = bx >> 2, by >> 2
+        if (nx, ny) == (mbx, mby):
+            if not (mask >> ((by & 3) * 4 + (bx & 3))) & 1:
+                return (False, -1, 0, 0)
+        elif ny > mby or (ny == mby and nx > mbx) or self.mb_at(nx, ny) is None:
+            return (False, -1, 0, 0)
+        b = by * self.mbw * 4 + bx
+        ref = self.ref[b]
+        mv = self.mv[b] if ref >= 0 else (0, 0)
+        return (True, ref, mv[0], mv[1])
+
+    def predict_mv(self, mbx, mby, x4, y4, w4, ref, mask, shape):
+        bx, by = mbx * 4 + x4, mby * 4 + y4
+        a = self.motion(bx - 1, by, mbx, mby, mask)
+        b = self.motion(bx, by - 1, mbx, mby, mask)
+        c = self.motion(bx + w4, by - 1, mbx, mby, mask)
+        if not c[0]:
+            c = self.motion(bx - 1, by - 1, mbx, mby, mask)
+        if shape == 1:
+            if y4 == 0 and b[1] == ref:
+                return b[2:]
+            if y4 != 0 and a[1] == ref:
+                return a[2:]
+        elif shape == 2:
+            if x4 == 0 and a[1] == ref:
+                return a[2:]
+            if x4 != 0 and c[1] == ref:
+                return c[2:]
+        if not b[0] and not c[0] and a[0]:
+            b = c = a
+        same = [n for n in (a, b, c) if n[1] == ref]
+        if len(same) == 1:
+            return same[0][2:]
+        return (sorted([a[2], b[2], c[2]])[1], sorted([a[3], b[3], c[3]])[1])
+
+    def set_motion(self, mbx, mby, x4, y4, w4, h4, ref, mv):
+        mask = 0
+        for y in range(y4, y4 + h4):
+            for x in range(x4, x4 + w4):
+                b = (mby * 4 + y) * self.mbw * 4 + mbx * 4 + x
+                self.ref[b] = ref
+                self.mv[b] = mv
+                mask |= 1 << (y * 4 + x)
+        return mask
+
+    def set_mvd(self, mbx, mby, x4, y4, w4, h4, d):
+        for y in range(y4, y4 + h4):
+            for x in range(x4, x4 + w4):
+                self.mvd[(mby * 4 + y) * self.mbw * 4 + mbx * 4 + x] = (abs(d[0]), abs(d[1]))
+
+    def nc(self, mbx, mby, comp, x4, y4):
+        m = self.mbs[mby * self.mbw + mbx]
+        size = 4 if comp == 0 else 2
+
+        def value(mx, my, x, y):
+            n = m if (mx, my) == (mbx, mby) else self.mb_at(mx, my)
+            if n is None:
+                return None
+            return n.nz[y * 4 + x] if comp == 0 else n.nz[16 + (comp - 1) * 4 + y * 2 + x]
+
+        a = value(mbx, mby, x4 - 1, y4) if x4 > 0 else value(mbx - 1, mby, size - 1, y4)
+        b = value(mbx, mby, x4, y4 - 1) if y4 > 0 else value(mbx, mby - 1, x4, size - 1)
+        if a is not None and b is not None:
+            return (a + b + 1) >> 1
+        return a if a is not None else b if b is not None else 0
+
+    def skip_mv(self, mbx, mby):
+        """P_Skip's motion vector (8.4.1.1)."""
+        a = self.motion(mbx * 4 - 1, mby * 4, mbx, mby, 0)
+        b = self.motion(mbx * 4, mby * 4 - 1, mbx, mby, 0)
+        if a[0] and b[0] and a[1:] != (0, 0, 0) and b[1:] != (0, 0, 0):
+            return self.predict_mv(mbx, mby, 0, 0, 4, 0, 0, 0)
+        return (0, 0)
+
+    # ---- syntax elements, in CAVLC or in CABAC (9.3.2 binarisations, 9.3.3.1 context selection)
+    def put_skip_flag(self, mbx, mby, skip):
+        cond = [n is not None and n.kind != "SKIP" for n in (self.mb_at(mbx - 1, mby), self.mb_at(mbx, mby - 1))]
+        self.cabac.decision(11 + sum(cond), int(skip))
+
+    def put_chroma_mode(self, w, m, mbx, mby, mode):
+        m.chroma_mode = mode
+        if not self.cabac:
+            w.ue(mode)
+            return
+        cond = [n is not None and n.chroma_mode != 0 for n in (self.mb_at(mbx - 1, mby), self.mb_at(mbx, mby - 1))]
+        self.cabac.decision(64 + sum(cond), int(mode > 0))
+        for k in range(1, min(mode + 1, 3)):  # TU, cMax 3
+            self.cabac.decision(67, int(k < mode))
+
+    def put_mb_type_i(self, w, mbx, mby, slice_type, t):
+        """mb_type of an intra macroblock (0 I_NxN, 1-24 I_16x16, 25 I_PCM) in an I or P slice."""
+        c = self.cabac
+        if not c:
+            w.ue(t + (5 if slice_type == 0 else 0))
+            return
+        i_slice = slice_type == 2
+        if not i_slice:
+            c.decision(14, 1)  # the prefix: intra
+        cond = [n is not None and n.kind in ("I16", "PCM")
+                for n in (self.mb_at(mbx - 1, mby), self.mb_at(mbx, mby - 1))]
+        c.decision(3 + sum(cond) if i_slice else 17, int(t != 0))
+        if t == 0:
+            return
+        c.terminate(int(t == 25))
+        if t == 25:
+            return
+        mode, chroma, luma = (t - 1) % 4, ((t - 1) // 4) % 3, (t - 1) // 12
+        c.decision(6 if i_slice else 18, luma)
+        c.decision(7 if i_slice else 19, int(chroma > 0))
+        if chroma:
+            c.decision(8 if i_slice else 19, int(chroma == 2))
+        c.decision(9 if i_slice else 20, mode >> 1)
+        c.decision(10 if i_slice else 20, mode & 1)
+
+    def put_mb_type_p(self, w, kind):
+        c = self.cabac
+        if not c:
+            w.ue(kind)
+            return
+        assert kind < 4, "P_8x8ref0 has no CABAC binarisation"
+        c.decision(14, 0)
+        c.decision(15, int(kind in (1, 2)))
+        if kind in (1, 2):
+            c.decision(17, int(kind == 1))
+        else:
+            c.decision(16, int(kind == 3))
+
+    def put_sub_mb_type(self, w, t):
+        c = self.cabac
+        if not c:
+            w.ue(t)
+            return
+        c.decision(21, int(t == 0))
+        if t:
+            c.decision(22, int(t != 1))
+            if t != 1:
+                c.decision(23, int(t == 2))
+
+    def put_transform_flag(self, w, m, mbx, mby, t8):
+        m.t8 = t8
+        if not self.cabac:
+            w.u(1, int(t8))
+            return
+        cond = [n is not None and n.t8 for n in (self.mb_at(mbx - 1, mby), self.mb_at(mbx, mby - 1))]
+        self.cabac.decision(399 + sum(cond), int(t8))
+
+    def put_intra_mode(self, w, pred, mode):
+        c = self.cabac
+        rem = mode if mode < pred else mode - 1
+        if not c:
+            if mode == pred:
+                w.u(1, 1)
+            else:
+                w.u(1, 0)
+                w.u(3, rem)
+            return
+        c.decision(68, int(mode == pred))
+        if mode != pred:
+            for k in range(3):
+                c.decision(69, (rem >> k) & 1)
+
+    def put_cbp(self, w, m, mbx, mby, cbp, intra):
+        m.cbp = cbp
+        c = self.cabac
+        if not c:
+            w.ue((CBP_CODE_INTRA if intra else CBP_CODE_INTER)[cbp])
+            return
+        a, b = self.mb_at(mbx - 1, mby), self.mb_at(mbx, mby - 1)
+        for b8 in range(4):
+            if b8 & 1:
+                ca = not ((cbp >> (b8 - 1)) & 1)
+            else:
+                ca = a is not None and a.kind != "PCM" and not ((a.cbp >> (b8 + 1)) & 1)
+            if b8 & 2:
+                cb = not ((cbp >> (b8 - 2)) & 1)
+            else:
+                cb = b is not None and b.kind != "PCM" and not ((b.cbp >> (b8 + 2)) & 1)
+            c.decision(73 + int(ca) + 2 * int(cb), (cbp >> b8) & 1)
+        chroma = cbp >> 4
+        cond = lambda n, k: int(n is not None and (n.cbp >> 4) > k)  # noqa: E731
+        c.decision(77 + cond(a, 0) + 2 * cond(b, 0), int(chroma > 0))
+        if chroma:
+            c.decision(81 + cond(a, 1) + 2 * cond(b, 1), int(chroma == 2))
+
+    def put_qp_delta(self, w, delta):
+        c = self.cabac
+        if not c:
+            w.se(delta)
+        else:
+            k = 2 * delta - 1 if delta > 0 else -2 * delta
+            c.decision(60 + int(self.prev_dqp != 0), int(k > 0))
+            for i in range(1, k + 1):
+                c.decision(62 if i == 1 else 63, int(i < k))
+        self.prev_dqp = delta
+
+    def put_ref_idx(self, w, ref, mbx, mby, x4, y4, cur_ref):
+        c = self.cabac
+        if not c:
+            if self.num_ref == 2:
+                w.u(1, 1 - ref)
+            else:
+                w.ue(ref)
+            return
+
+        def cond(x, y):
+            if x >= 0 and y >= 0:
+                return cur_ref[y * 4 + x] > 0
+            bx, by = mbx * 4 + x, mby * 4 + y
+            if bx < 0 or by < 0 or self.mb_at(bx >> 2, by >> 2) is None:
+                return False
+            return self.ref[by * self.mbw * 4 + bx] > 0
+
+        ctx = 54 + int(cond(x4 - 1, y4)) + 2 * int(cond(x4, y4 - 1))
+        for i in range(ref + 1):
+            c.decision(ctx, int(i < ref))
+            ctx = 58 if i == 0 else 59
+
+    def put_mvd(self, w, d, mbx, mby, x4, y4):
+        """mvd_l0 (both components) of the partition whose top-left 4x4 block is (x4, y4)."""
+        c = self.cabac
+        for comp in range(2):
+            v = d[comp]
+            if not c:
+                w.se(v)
+                continue
+            total = 0
+            for x, y in ((x4 - 1, y4), (x4, y4 - 1)):
+                bx, by = mbx * 4 + x, mby * 4 + y
+                inside = x >= 0 and y >= 0
+                if inside or (bx >= 0 and by >= 0 and self.mb_at(bx >> 2, by >> 2) is not None):
+                    total += self.mvd[by * self.mbw * 4 + bx][comp]
+            base = 47 if comp else 40
+            a = abs(v)
+            c.decision(base + (0 if total < 3 else 2 if total > 32 else 1), int(a > 0))
+            if not a:
+                continue
+            for k in range(1, min(a, 9) + (a < 9)):  # UEG3's prefix, cMax 9
+                c.decision(base + min(k + 2, 6), int(k < a))
+            if a >= 9:
+                c.exp_golomb(a - 9, 3)
+                self.count("cabac_mvd_escapes")
+            c.bypass(int(v < 0))
+
+    def block(self, w, m, cat, levels, mbx, mby, comp, x4, y4, max_coeff):
+        """One residual block (ctxBlockCat ``cat``; its levels in scan order) at (x4, y4) of component ``comp``'s
+        4x4 grid; returns its count of nonzero levels."""
+        if not self.cabac:
+            nc = -1 if cat == 3 else self.nc(mbx, mby, comp, x4, y4)
+            total, counts = write_block(w, levels, nc, max_coeff)
+            self.stats.update(counts)
+            return total
+        c = self.cabac
+        nonzero = [i for i, v in enumerate(levels) if v]
+        if cat != 5:
+            inc = (self.cbf_cond(m, cat, mbx, mby, comp, x4, y4, True)
+                   + 2 * self.cbf_cond(m, cat, mbx, mby, comp, x4, y4, False))
+            c.decision(85 + CBF_OFFSET[cat] + inc, int(bool(nonzero)))
+            if not nonzero:
+                return 0
+        sig = 402 if cat == 5 else 105 + SIG_OFFSET[cat]
+        last = 417 if cat == 5 else 166 + SIG_OFFSET[cat]
+        absc = 426 if cat == 5 else 227 + ABS_OFFSET[cat]
+        end = nonzero[-1]
+        for i in range(min(end + 1, max_coeff - 1)):
+            inc = SIG_8X8[i] if cat == 5 else min(i, 2) if cat == 3 else i
+            c.decision(sig + inc, int(levels[i] != 0))
+            if levels[i]:
+                c.decision(last + (LAST_8X8[i] if cat == 5 else inc), int(i == end))
+        eq1 = gt1 = 0
+        for i in reversed(nonzero):
+            a = abs(levels[i]) - 1
+            c.decision(absc + (0 if gt1 else min(4, 1 + eq1)), int(a > 0))
+            if a:
+                ctx = absc + 5 + min(4 - (cat == 3), gt1)
+                for k in range(1, min(a, 14) + (a < 14)):  # TU prefix, cMax 14
+                    c.decision(ctx, int(k < a))
+                if a >= 14:
+                    c.exp_golomb(a - 14, 0)
+                    self.count("cabac_level_escapes")
+                gt1 += 1
+            else:
+                eq1 += 1
+            c.bypass(int(levels[i] < 0))
+        return len(nonzero)
+
+    def cbf_cond(self, m, cat, mbx, mby, comp, x4, y4, left):
+        """condTermFlagN of coded_block_flag (9.3.3.1.1.9) for the block left of or above (x4, y4)."""
+        if cat in (0, 3):
+            n = self.mb_at(mbx - 1, mby) if left else self.mb_at(mbx, mby - 1)
+        else:
+            size = 2 if comp else 4
+            x, y = (x4 - 1, y4) if left else (x4, y4 - 1)
+            n = m
+            if x < 0 or y < 0:
+                n = self.mb_at(mbx - (x < 0), mby - (y < 0))
+                x, y = x % size, y % size
+        if n is None:
+            return int(m.intra)
+        if n.kind == "PCM":
+            return 1
+        if cat in (0, 3):
+            return (n.dc >> comp) & 1
+        return int((n.nz[y * 4 + x] if comp == 0 else n.nz[16 + (comp - 1) * 4 + y * 2 + x]) > 0)
+
+
+class StreamWriter(_Syntax):
     """Random syntax, one access unit a call to :meth:`picture`."""
 
     def __init__(self, rng, opts: Options):
@@ -615,6 +1202,17 @@ class StreamWriter:
                                  deblocking_control=bool(rng.integers(4)),
                                  constrained_intra=bool(rng.integers(2)) if constrained is None else constrained,
                                  bottom_field_pic_order=poc_type in (0, 1) and bool(rng.integers(2))))
+        if opts.cabac or opts.transform_8x8 or opts.sps_lists or opts.pps_lists or opts.second_chroma_qp_offset:
+            self.sps.profile_idc = 100
+            if opts.sps_lists:
+                self.sps.scaling_lists = self.random_lists(8)
+            for pps in self.ppss:
+                pps.cabac, pps.transform_8x8 = opts.cabac, opts.transform_8x8
+                if opts.pps_lists:
+                    pps.scaling_lists = self.random_lists(8 if pps.transform_8x8 else 6)
+                if opts.second_chroma_qp_offset:
+                    pps.second_chroma_qp_offset = (pps.chroma_qp_offset + self.ri(1, 24) + 12) % 25 - 12
+        self.ctx_used = set()
         self.refs: list[_Ref] = []
         self.max_long_idx = -1
         self.prev_ref_frame_num = 0
@@ -633,17 +1231,41 @@ class StreamWriter:
         """A random integer in [lo, hi]."""
         return int(self.rng.integers(lo, hi + 1))
 
-    def count(self, name, n=1):
-        self.stats[name] += n
-
     def parameter_sets(self):
+        self.stats.update(parameter_set_counts(self.sps, self.ppss))
         return [nal_unit(3, 7, self.sps.rbsp())] + [nal_unit(3, 8, p.rbsp()) for p in self.ppss]
+
+    def random_lists(self, count):
+        """Scaling lists for Sps / Pps.scaling_lists: each not sent, the default or explicit (4x4 weights 2-200, the
+        first at most 28; 8x8 weights 2-50; the tail sometimes left to repeat the last one sent)."""
+        lists = []
+        for i in range(count):
+            mode = self.o.list_modes[self.ri(0, len(self.o.list_modes) - 1)]
+            if mode == "absent":
+                lists.append(None)
+            elif mode == "default":
+                lists.append("default")
+            else:
+                size = 16 if i < 6 else 64
+                # An 8x8 block coded under CABAC holds a level, whose scaled value stays within 16 bits at QP 51
+                # while the 8x8 weights stay at most 50.
+                values = [self.ri(2, 200 if size == 16 else 50) for _ in range(size)]
+                if size == 16:
+                    # FFmpeg's x86 DC dequantisation is exact while LevelScale4x4(qP % 6, 0, 0) << (qP / 6 + 2) fits
+                    # 15 bits or is a multiple of 128: at most 28 keeps both DC weights within that at any QP.
+                    values[0] = self.ri(2, 28)
+                sent = size
+                if self.chance(0.4):
+                    sent = self.ri(1, size - 1)
+                    values[sent:] = [values[sent - 1]] * (size - sent)
+                lists.append((values, sent))
+        return lists
 
     # ---- pictures
     def picture(self):
         o, rng = self.o, self.rng
         idr = (self.first and not o.first_non_idr) or (not self.first and self.chance(0.1))
-        intra = idr or self.first or self.chance(0.15)
+        intra = idr or self.first or self.chance(0.15) or o.intra_only
         # Two non-reference pictures in a row would share a picture order count.
         ref_idc = self.ri(1, 3) if idr or self.first or not o.non_ref or self.last_non_ref or self.chance(0.75) else 0
         self.last_non_ref = not ref_idc
@@ -673,6 +1295,7 @@ class StreamWriter:
         nblocks = self.mbw * self.mbh * 16
         self.ref = [-1] * nblocks
         self.mv = [(0, 0)] * nblocks
+        self.mvd = [(0, 0)] * nblocks  # |mvd| of each 4x4 block, for CABAC's mvd contexts
         # Slices.
         total = self.mbw * self.mbh
         cuts = [0]
@@ -925,6 +1548,14 @@ class StreamWriter:
                         for v in op[1:]:
                             w.ue(v)
                     w.ue(0)
+        table = 0
+        if pps.cabac:
+            self.count("cabac_slices")
+            if slice_type == 0:
+                idc = self.ri(0, 2) if o.cabac_init_idc is None else o.cabac_init_idc
+                w.ue(idc)
+                self.count("cabac_init_idc_%d" % idc)
+                table = 1 + idc
         qp = self.ri(*o.qp_range)
         w.se(qp - pps.pic_init_qp)
         idc, alpha, beta = 0, 0, 0
@@ -941,8 +1572,16 @@ class StreamWriter:
         if pps.constrained_intra:
             self.count("constrained_intra_slices")
         self.pps, self.slice_index = pps, index
+        self.lists = resolve_lists(sps, pps)
+        self.cabac = None
+        if pps.cabac:
+            w.align_one()  # cabac_alignment_one_bit
+            self.cabac = CabacWriter(w, qp, table, self.ctx_used)
         self.slice_data(w, first, end, slice_type, qp)
-        w.trailing()
+        if self.cabac:
+            w.align_zero()  # the flush of end_of_slice_flag wrote the rbsp_stop_one_bit
+        else:
+            w.trailing()
         return nal_unit(ref_idc, 5 if idr else 1, w.data())
 
     def pred_weight_table(self, w, num_ref):
@@ -970,122 +1609,50 @@ class StreamWriter:
             weights.append(entry)
         return weights
 
-    # ---- neighbours (the decoder's rules, kept independently)
-    def mb_at(self, mbx, mby):
-        if not (0 <= mbx < self.mbw and 0 <= mby < self.mbh):
-            return None
-        m = self.mbs[mby * self.mbw + mbx]
-        return m if m is not None and m.slice == self.slice_index else None
-
-    def intra_avail(self, mbx, mby):
-        m = self.mb_at(mbx, mby)
-        return m is not None and (not self.pps.constrained_intra or m.intra)
-
-    def motion(self, bx, by, mbx, mby, mask):
-        """(available, ref, mvx, mvy) of the 4x4 block at picture block coordinates (bx, by)."""
-        if bx < 0 or by < 0 or (bx >> 2) >= self.mbw or (by >> 2) >= self.mbh:
-            return (False, -1, 0, 0)
-        nx, ny = bx >> 2, by >> 2
-        if (nx, ny) == (mbx, mby):
-            if not (mask >> ((by & 3) * 4 + (bx & 3))) & 1:
-                return (False, -1, 0, 0)
-        elif ny > mby or (ny == mby and nx > mbx) or self.mb_at(nx, ny) is None:
-            return (False, -1, 0, 0)
-        b = by * self.mbw * 4 + bx
-        ref = self.ref[b]
-        mv = self.mv[b] if ref >= 0 else (0, 0)
-        return (True, ref, mv[0], mv[1])
-
-    def predict_mv(self, mbx, mby, x4, y4, w4, ref, mask, shape):
-        bx, by = mbx * 4 + x4, mby * 4 + y4
-        a = self.motion(bx - 1, by, mbx, mby, mask)
-        b = self.motion(bx, by - 1, mbx, mby, mask)
-        c = self.motion(bx + w4, by - 1, mbx, mby, mask)
-        if not c[0]:
-            c = self.motion(bx - 1, by - 1, mbx, mby, mask)
-        if shape == 1:
-            if y4 == 0 and b[1] == ref:
-                return b[2:]
-            if y4 != 0 and a[1] == ref:
-                return a[2:]
-        elif shape == 2:
-            if x4 == 0 and a[1] == ref:
-                return a[2:]
-            if x4 != 0 and c[1] == ref:
-                return c[2:]
-        if not b[0] and not c[0] and a[0]:
-            b = c = a
-        same = [n for n in (a, b, c) if n[1] == ref]
-        if len(same) == 1:
-            return same[0][2:]
-        return (sorted([a[2], b[2], c[2]])[1], sorted([a[3], b[3], c[3]])[1])
-
-    def set_motion(self, mbx, mby, x4, y4, w4, h4, ref, mv):
-        mask = 0
-        for y in range(y4, y4 + h4):
-            for x in range(x4, x4 + w4):
-                b = (mby * 4 + y) * self.mbw * 4 + mbx * 4 + x
-                self.ref[b] = ref
-                self.mv[b] = mv
-                mask |= 1 << (y * 4 + x)
-        return mask
-
     def far(self, mbx, mby, px, py, w, h, mv):
         ax, ay = mbx * 16 + px + (mv[0] >> 2), mby * 16 + py + (mv[1] >> 2)
         W, H = self.mbw * 16, self.mbh * 16
         if ax + w <= -16 or ay + h <= -16 or ax >= W + 16 or ay >= H + 16:
             self.count("far_mv_partitions")
 
-    def nc(self, mbx, mby, comp, x4, y4):
-        m = self.mbs[mby * self.mbw + mbx]
-        size = 4 if comp == 0 else 2
-
-        def value(mx, my, x, y):
-            n = m if (mx, my) == (mbx, mby) else self.mb_at(mx, my)
-            if n is None:
-                return None
-            return n.nz[y * 4 + x] if comp == 0 else n.nz[16 + (comp - 1) * 4 + y * 2 + x]
-
-        a = value(mbx, mby, x4 - 1, y4) if x4 > 0 else value(mbx - 1, mby, size - 1, y4)
-        b = value(mbx, mby, x4, y4 - 1) if y4 > 0 else value(mbx, mby - 1, x4, size - 1)
-        if a is not None and b is not None:
-            return (a + b + 1) >> 1
-        return a if a is not None else b if b is not None else 0
-
     # ---- macroblocks
     def slice_data(self, w, first, end, slice_type, qp):
         o = self.o
         self.qp = qp
+        self.prev_dqp = 0
         run = 0
         for addr in range(first, end):
             mbx, mby = addr % self.mbw, addr // self.mbw
             m = _Mb(self.slice_index)
             self.mbs[addr] = m
-            if slice_type == 0 and self.chance(o.skip_share):
+            skip = slice_type == 0 and self.chance(o.skip_share)
+            if self.cabac and slice_type == 0:
+                self.put_skip_flag(mbx, mby, skip)
+            if skip:
                 m.kind = "SKIP"
                 run += 1
                 self.skip(mbx, mby)
-                continue
-            if slice_type == 0:
-                w.ue(run)
-                if run:
-                    self.count("skip_runs")
-                run = 0
-            self.macroblock(w, m, mbx, mby, slice_type)
-        if run:
+                self.prev_dqp = 0
+            else:
+                if slice_type == 0 and not self.cabac:
+                    w.ue(run)
+                    if run:
+                        self.count("skip_runs")
+                    run = 0
+                self.macroblock(w, m, mbx, mby, slice_type)
+            if self.cabac:
+                self.cabac.terminate(int(addr == end - 1))  # end_of_slice_flag
+        if run and not self.cabac:
             w.ue(run)
             self.count("skip_runs")
 
     def skip(self, mbx, mby):
         self.count("P_Skip")
-        a = self.motion(mbx * 4 - 1, mby * 4, mbx, mby, 0)
-        b = self.motion(mbx * 4, mby * 4 - 1, mbx, mby, 0)
-        mv = (0, 0)
-        if a[0] and b[0] and a[1:] != (0, 0, 0) and b[1:] != (0, 0, 0):
-            mv = self.predict_mv(mbx, mby, 0, 0, 4, 0, 0, 0)
+        mv = self.skip_mv(mbx, mby)
         if mv != (0, 0):
             self.count("skip_mv_nonzero")
         self.set_motion(mbx, mby, 0, 0, 4, 4, 0, mv)
+        self.set_mvd(mbx, mby, 0, 0, 4, 4, (0, 0))
         self.far(mbx, mby, 0, 0, 16, 16, mv)
 
     def macroblock(self, w, m, mbx, mby, slice_type):
@@ -1095,41 +1662,44 @@ class StreamWriter:
             return
         if slice_type == 0:
             self.count("intra_mbs_in_p_slices")
-        offset = 5 if slice_type == 0 else 0
         self.set_motion(mbx, mby, 0, 0, 4, 4, -1, (0, 0))
+        self.set_mvd(mbx, mby, 0, 0, 4, 4, (0, 0))
         r = self.rng.random()
         if o.pcm and r < 0.08:
             m.kind = "PCM"
-            m.nz = [16] * 24
+            m.nz, m.cbp, m.dc = [16] * 24, 0x2F, 7
             self.count("I_PCM")
-            w.ue(25 + offset)
+            self.put_mb_type_i(w, mbx, mby, slice_type, 25)
             w.align_zero()
             for v in self.rng.integers(1, 256, size=384):
                 w.u(8, int(v))
+            if self.cabac:
+                self.count("cabac_pcm")
+                self.cabac.start()
+                self.prev_dqp = 0
             return
         if r < 0.55:
             m.kind = "I4"
             self.count("I_NxN")
-            w.ue(0 + offset)
-            for blk in range(16):
-                x4 = ((blk >> 2) & 1) * 2 + (blk & 1)
-                y4 = (blk >> 3) * 2 + ((blk >> 1) & 1)
+            self.put_mb_type_i(w, mbx, mby, slice_type, 0)
+            if self.pps.transform_8x8:
+                self.put_transform_flag(w, m, mbx, mby, self.chance(0.5))
+            if m.t8:
+                self.count("I_8x8")
+            for blk in range(4 if m.t8 else 16):
+                x4 = (blk & 1) * 2 if m.t8 else ((blk >> 2) & 1) * 2 + (blk & 1)
+                y4 = (blk >> 1) * 2 if m.t8 else (blk >> 3) * 2 + ((blk >> 1) & 1)
                 avail = self.i4_avail(mbx, mby, x4, y4, blk)
                 allowed = [mode for mode, needs in I4_NEEDS.items() if all(avail[c] for c in needs)]
                 mode = allowed[self.ri(0, len(allowed) - 1)]
                 pa, pb = self.i4_neighbour(mbx, mby, x4 - 1, y4, m), self.i4_neighbour(mbx, mby, x4, y4 - 1, m)
-                pred = 2 if pa < 0 or pb < 0 else min(pa, pb)
-                if mode == pred:
-                    w.u(1, 1)
-                else:
-                    w.u(1, 0)
-                    w.u(3, mode if mode < pred else mode - 1)
-                m.i4[y4 * 4 + x4] = mode
-                self.count("i4x4_" + ("vertical", "horizontal", "dc", "diagonal_down_left", "diagonal_down_right",
-                                      "vertical_right", "horizontal_down", "vertical_left", "horizontal_up")[mode])
-            self.chroma_mode(w, mbx, mby)
+                self.put_intra_mode(w, 2 if pa < 0 or pb < 0 else min(pa, pb), mode)
+                for k in range(4 if m.t8 else 1):
+                    m.i4[(y4 + (k >> 1)) * 4 + x4 + (k & 1)] = mode
+                self.count(("i8x8_" if m.t8 else "i4x4_") + I_MODES[mode])
+            self.chroma_mode(w, m, mbx, mby)
             cbp = self.ri(0, 47)
-            w.ue(CBP_CODE_INTRA[cbp])
+            self.put_cbp(w, m, mbx, mby, cbp, True)
             self.residual(w, m, mbx, mby, cbp & 15, cbp >> 4, False)
             return
         m.kind = "I16"
@@ -1140,52 +1710,27 @@ class StreamWriter:
         mode = allowed[self.ri(0, len(allowed) - 1)]
         self.count("i16x16_" + ("vertical", "horizontal", "dc", "plane")[mode])
         cbp_chroma, cbp_luma = self.ri(0, 2), 15 * self.ri(0, 1)
-        w.ue(offset + 1 + mode + 4 * cbp_chroma + (12 if cbp_luma else 0))
-        self.chroma_mode(w, mbx, mby)
+        self.put_mb_type_i(w, mbx, mby, slice_type, 1 + mode + 4 * cbp_chroma + (12 if cbp_luma else 0))
+        m.cbp = cbp_luma | cbp_chroma << 4
+        self.chroma_mode(w, m, mbx, mby)
         self.residual(w, m, mbx, mby, cbp_luma, cbp_chroma, True)
 
-    def chroma_mode(self, w, mbx, mby):
+    def chroma_mode(self, w, m, mbx, mby):
         left, top, corner = (self.intra_avail(mbx - 1, mby), self.intra_avail(mbx, mby - 1),
                              self.intra_avail(mbx - 1, mby - 1))
         allowed = [0] + [1] * left + [2] * top + [3] * (top and left and corner)
         mode = allowed[self.ri(0, len(allowed) - 1)]
-        w.ue(mode)
+        self.put_chroma_mode(w, m, mbx, mby, mode)
         self.count("chroma_" + ("dc", "horizontal", "vertical", "plane")[mode])
         return mode
 
-    def i4_avail(self, mbx, mby, x4, y4, blk):
-        left = x4 > 0 or self.intra_avail(mbx - 1, mby)
-        top = y4 > 0 or self.intra_avail(mbx, mby - 1)
-        if x4 > 0 and y4 > 0:
-            corner = True
-        elif x4 > 0:
-            corner = self.intra_avail(mbx, mby - 1)
-        elif y4 > 0:
-            corner = self.intra_avail(mbx - 1, mby)
-        else:
-            corner = self.intra_avail(mbx - 1, mby - 1)
-        return {"T": top, "L": left, "D": corner}
-
-    def i4_neighbour(self, mbx, mby, x4, y4, m):
-        if x4 >= 0 and y4 >= 0:
-            return m.i4[y4 * 4 + x4]
-        n = self.mb_at(mbx - (x4 < 0), mby - (y4 < 0))
-        if n is None or (not n.intra and self.pps.constrained_intra):
-            return -1
-        if n.kind != "I4":
-            return 2
-        return n.i4[((y4 + 4) & 3) * 4 + ((x4 + 4) & 3)]
-
-    def ref_idx(self, w, forced0=False):
+    def ref_idx(self, w, mbx, mby, x4, y4, cur_ref, forced0=False):
         usable = [i for i, r in enumerate(self.refs_list) if r is not None]
         ref = 0 if forced0 else usable[self.ri(0, len(usable) - 1)]
         if self.o.bad_ref_idx and not forced0:
             ref = self.num_ref - 1  # an empty entry
         if not forced0 and self.num_ref > 1:
-            if self.num_ref == 2:
-                w.u(1, 1 - ref)
-            else:
-                w.ue(ref)
+            self.put_ref_idx(w, ref, mbx, mby, x4, y4, cur_ref)
             if ref > 0:
                 self.count("ref_idx_nonzero")
         return ref
@@ -1211,36 +1756,32 @@ class StreamWriter:
         return (max(-1200, min(1200, mv[0])), max(-1200, min(1200, mv[1])))
 
     def inter_mb(self, w, m, mbx, mby):
-        kind = self.ri(0, 4)
+        kind = self.ri(0, 3 if self.cabac else 4)
         m.kind = "P"
         self.count(("P_L0_16x16", "P_L0_L0_16x8", "P_L0_L0_8x16", "P_8x8", "P_8x8ref0")[kind])
-        w.ue(kind)
-        mask = 0
+        self.put_mb_type_p(w, kind)
+        mask, cur_ref, parts = 0, [0] * 16, []
         if kind < 3:
-            parts = 1 if kind == 0 else 2
-            refs = [self.ref_idx(w) for _ in range(parts)]
-            geo = []
-            for p in range(parts):
+            refs = []
+            for p in range(1 if kind == 0 else 2):
                 x4, y4 = (2 * p if kind == 2 else 0), (2 * p if kind == 1 else 0)
                 w4, h4 = (2 if kind == 2 else 4), (2 if kind == 1 else 4)
-                geo.append((x4, y4, w4, h4))
-            mvds = []
-            for p, (x4, y4, w4, h4) in enumerate(geo):
-                pred = self.predict_mv(mbx, mby, x4, y4, w4, refs[p], mask, kind)
-                mv = self.choose_mv(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, pred)
-                mvds.append((mv[0] - pred[0], mv[1] - pred[1]))
-                mask |= self.set_motion(mbx, mby, x4, y4, w4, h4, refs[p], mv)
-                self.far(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, mv)
-            for d in mvds:
-                w.se(d[0])
-                w.se(d[1])
+                refs.append(self.ref_idx(w, mbx, mby, x4, y4, cur_ref))
+                for y in range(y4, y4 + h4):
+                    cur_ref[y * 4 + x4:y * 4 + x4 + w4] = [refs[-1]] * w4
+                parts.append((x4, y4, w4, h4, refs[-1]))
+            all_8x8 = True
         else:
             subs = [self.ri(0, 3) for _ in range(4)]
-            for s in subs:
-                w.ue(s)
-                self.count(("sub_8x8", "sub_8x4", "sub_4x8", "sub_4x4")[s])
-            refs = [self.ref_idx(w, forced0=kind == 4) for _ in range(4)]
-            mvds = []
+            for t in subs:
+                self.put_sub_mb_type(w, t)
+                self.count(("sub_8x8", "sub_8x4", "sub_4x8", "sub_4x4")[t])
+            refs = []
+            for s in range(4):
+                sx, sy = (s & 1) * 2, (s >> 1) * 2
+                refs.append(self.ref_idx(w, mbx, mby, sx, sy, cur_ref, forced0=kind == 4))
+                for y in (sy, sy + 1):
+                    cur_ref[y * 4 + sx:y * 4 + sx + 2] = [refs[-1]] * 2
             for s in range(4):
                 sx, sy = (s & 1) * 2, (s >> 1) * 2
                 n = 1 if subs[s] == 0 else 4 if subs[s] == 3 else 2
@@ -1249,16 +1790,24 @@ class StreamWriter:
                 for k in range(n):
                     x4 = sx + ((k & 1) if w4 == 1 else 0)
                     y4 = sy + (((k >> 1) if subs[s] == 3 else k) if h4 == 1 else 0)
-                    pred = self.predict_mv(mbx, mby, x4, y4, w4, refs[s], mask, 0)
-                    mv = self.choose_mv(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, pred)
-                    mvds.append((mv[0] - pred[0], mv[1] - pred[1]))
-                    mask |= self.set_motion(mbx, mby, x4, y4, w4, h4, refs[s], mv)
-                    self.far(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, mv)
-            for d in mvds:
-                w.se(d[0])
-                w.se(d[1])
+                    parts.append((x4, y4, w4, h4, refs[s]))
+            all_8x8 = not any(subs)
+        mvds = []
+        for x4, y4, w4, h4, ref in parts:
+            pred = self.predict_mv(mbx, mby, x4, y4, w4, ref, mask, kind if kind < 3 else 0)
+            mv = self.choose_mv(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, pred)
+            mvds.append((mv[0] - pred[0], mv[1] - pred[1]))
+            mask |= self.set_motion(mbx, mby, x4, y4, w4, h4, ref, mv)
+            self.far(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, mv)
+        for (x4, y4, w4, h4, _), d in zip(parts, mvds):
+            self.put_mvd(w, d, mbx, mby, x4, y4)
+            self.set_mvd(mbx, mby, x4, y4, w4, h4, d)
         cbp = self.ri(0, 47)
-        w.ue(CBP_CODE_INTER[cbp])
+        self.put_cbp(w, m, mbx, mby, cbp, False)
+        if cbp & 15 and self.pps.transform_8x8 and all_8x8:
+            self.put_transform_flag(w, m, mbx, mby, self.chance(0.5))
+            if m.t8:
+                self.count("transform_8x8_inter")
         self.residual(w, m, mbx, mby, cbp & 15, cbp >> 4, False)
 
     def qp_delta(self, w):
@@ -1272,13 +1821,14 @@ class StreamWriter:
         if q < 0 or q > 51:
             q = (q + 52) % 52
             self.count("qp_wraps")
-        w.se(delta)
+        self.put_qp_delta(w, delta)
         self.qp = q
 
     def random_levels(self, n, dc_heavy=False):
         """Up to ``n`` levels in scan order: mostly small, a few level escapes."""
         levels = [0] * n
-        count = min(n, int(self.rng.choice([0, 1, 1, 2, 3, 4, 6, 9, 16])))
+        counts = [0, 1, 1, 2, 3, 4, 6, 9, 16] + ([24, 40, 64] if n == 64 else [])
+        count = min(n, int(self.rng.choice(counts)))
         for pos in sorted(self.rng.choice(n, size=count, replace=False)):
             mag = 1 if self.chance(0.5) else self.ri(2, 6)
             if self.o.escapes and self.chance(0.08):
@@ -1289,53 +1839,74 @@ class StreamWriter:
     def residual(self, w, m, mbx, mby, cbp_luma, cbp_chroma, i16):
         if cbp_luma or cbp_chroma or i16:
             self.qp_delta(w)
+        else:
+            self.prev_dqp = 0
         qp = self.qp
+        l4, l8 = self.lists
+        wy = l4[0 if m.intra else 3]
         dcy = np.zeros((4, 4), np.int64)
         if i16:
             dc = self.random_levels(16)
             while True:
-                dcy = luma_dc_values(dc, qp)
+                dcy = luma_dc_values(dc, qp, wy[0][0])
                 if np.abs(dcy).max() <= COEFF_BOUND // 4 and sum(abs(v) for v in dc) < 4000:
                     break
                 k = max(range(16), key=lambda i: abs(dc[i]))
                 dc[k] = int(np.sign(dc[k])) * (abs(dc[k]) // 2)
-            self.block(w, dc, self.nc(mbx, mby, 0, 0, 0), 16)
+            if self.block(w, m, 0, dc, mbx, mby, 0, 0, 0, 16):
+                m.dc |= 1
         for b8 in range(4):
+            x8, y8 = (b8 & 1) * 2, (b8 >> 1) * 2
+            if not (cbp_luma >> b8) & 1:
+                for b4 in range(4):
+                    m.nz[(y8 + (b4 >> 1)) * 4 + x8 + (b4 & 1)] = 0
+                continue
+            if m.t8:
+                weights = l8[0 if m.intra else 1]
+                levels = fit_levels8(self.random_levels(64), qp, weights)
+                if not self.cabac and self.o.empty_8x8_share and self.chance(self.o.empty_8x8_share):
+                    levels = [0] * 64
+                if self.cabac and not any(levels):  # an 8x8 block has no coded_block_flag: it holds a level
+                    k = int(self.rng.integers(64))
+                    levels[k] = 1
+                    assert np.abs(dequantised8(levels, qp, weights)).sum() <= COEFF_BOUND8
+                if self.cabac:
+                    n = self.block(w, m, 5, levels, mbx, mby, 0, x8, y8, 64)
+                    for b4 in range(4):
+                        m.nz[(y8 + (b4 >> 1)) * 4 + x8 + (b4 & 1)] = n
+                else:  # four interleaved 4x4 blocks (7.3.5.3.2)
+                    for b4 in range(4):
+                        x4, y4 = x8 + (b4 & 1), y8 + (b4 >> 1)
+                        m.nz[y4 * 4 + x4] = self.block(w, m, 2, levels[b4::4], mbx, mby, 0, x4, y4, 16)
+                continue
             for b4 in range(4):
-                x4, y4 = (b8 & 1) * 2 + (b4 & 1), (b8 >> 1) * 2 + (b4 >> 1)
-                if not (cbp_luma >> b8) & 1:
-                    m.nz[y4 * 4 + x4] = 0
-                    continue
+                x4, y4 = x8 + (b4 & 1), y8 + (b4 >> 1)
                 n = 15 if i16 else 16
-                levels = fit_levels(self.random_levels(n), qp, 1 if i16 else 0, dcy[y4, x4])
-                m.nz[y4 * 4 + x4] = self.block(w, levels, self.nc(mbx, mby, 0, x4, y4), n)
-        qpc = chroma_qp(qp, self.pps.chroma_qp_offset)
+                levels = fit_levels(self.random_levels(n), qp, 1 if i16 else 0, dcy[y4, x4], weights=wy)
+                m.nz[y4 * 4 + x4] = self.block(w, m, 1 if i16 else 2, levels, mbx, mby, 0, x4, y4, n)
+        offsets = (self.pps.chroma_qp_offset, self.pps.cr_qp_offset)
+        qpc = [chroma_qp(qp, off) for off in offsets]
+        wc = [l4[(1 if m.intra else 4) + comp] for comp in range(2)]
         dcc = [np.zeros((2, 2), np.int64)] * 2
         if cbp_chroma:
             for comp in range(2):
                 lv = self.random_levels(4)
                 while True:
-                    dcc[comp] = chroma_dc_values(lv, qpc)
+                    dcc[comp] = chroma_dc_values(lv, qpc[comp], wc[comp][0][0])
                     if np.abs(dcc[comp]).max() <= COEFF_BOUND // 4:
                         break
                     k = max(range(4), key=lambda i: abs(lv[i]))
                     lv[k] = int(np.sign(lv[k])) * (abs(lv[k]) // 2)
-                self.block(w, lv, -1, 4)
+                if self.block(w, m, 3, lv, mbx, mby, comp + 1, 0, 0, 4):
+                    m.dc |= 2 << comp
         for comp in range(2):
             for b in range(4):
                 x4, y4 = b & 1, b >> 1
                 if not cbp_chroma & 2:
                     m.nz[16 + comp * 4 + b] = 0
                     continue
-                levels = fit_levels(self.random_levels(15), qpc, 1, dcc[comp][y4, x4])
-                m.nz[16 + comp * 4 + b] = self.block(w, levels, self.nc(mbx, mby, comp + 1, x4, y4), 15)
-
-    def block(self, w, levels, nc, max_coeff):
-        total, counts = write_block(w, levels, nc, max_coeff)
-        self.stats.update(counts)
-        return total
-
-
+                levels = fit_levels(self.random_levels(15), qpc[comp], 1, dcc[comp][y4, x4], weights=wc[comp])
+                m.nz[16 + comp * 4 + b] = self.block(w, m, 4, levels, mbx, mby, comp + 1, x4, y4, 15)
 def random_stream(seed, **options):
     """(access units, the writer's counts, (coded width, coded height), (width, height) after the crop) of a
     random stream."""
@@ -1545,9 +2116,9 @@ class FrameEncoder:
         return 1 if any(np.any(zdc) for zdc, _, _ in chroma) else 0
 
     # ---- intra 16x16 (the IDR)
-    def intra_mb(self, w, mbx, mby, y, u, v):
+    def intra16_pred(self, rl, mbx, mby):
+        """{mode: prediction} of the intra 16x16 modes (8.3.3) the neighbours in ``rl`` allow."""
         x0, y0 = mbx * 16, mby * 16
-        rl, rc = self.recon[0], self.recon[1:]
         top = rl[y0 - 1, x0:x0 + 16] if mby else None
         left = rl[y0:y0 + 16, x0 - 1] if mbx else None
         preds = {2: np.full((16, 16), 128 if top is None and left is None else
@@ -1566,40 +2137,52 @@ class FrameEncoder:
             a, b, c = 16 * (left[15] + top[15]), (5 * hh + 32) >> 6, (5 * vv + 32) >> 6
             yy, xx = np.mgrid[:16, :16]
             preds[3] = np.clip((a + b * (xx - 7) + c * (yy - 7) + 16) >> 5, 0, 255)
+        return preds
+
+    def intra16(self, y, mbx, mby):
+        """(mode, DC levels, AC levels, reconstruction) of the intra 16x16 macroblock at (mbx, mby), its mode the
+        allowed one of least SAD."""
+        x0, y0 = mbx * 16, mby * 16
+        preds = self.intra16_pred(self.recon[0], mbx, mby)
         src = y[y0:y0 + 16, x0:x0 + 16]
         mode = min(preds, key=lambda k: (np.abs(src - preds[k]).sum(), k))
-        pred = preds[mode]
-        wt = _forward(_blocks(src - pred))
-        dc = wt[:, :, 0, 0]
+        wt = _forward(_blocks(src - preds[mode]))
         h4 = np.array([[1, 1, 1, 1], [1, 1, -1, -1], [1, -1, -1, 1], [1, -1, 1, -1]])
-        zdc = _quantise((h4 @ dc @ h4) // 2, self.qp, True, 1)
+        zdc = _quantise((h4 @ wt[:, :, 0, 0] @ h4) // 2, self.qp, True, 1)
         zac = _quantise(wt, self.qp, True)
         zac[:, :, 0, 0] = 0
-        cbp_luma = 15 if np.any(zac) else 0
         d = _dequantise(zac, self.qp)
         d[:, :, 0, 0] = luma_dc_values(zdc.reshape(-1)[_SCAN].tolist(), self.qp)
-        rl[y0:y0 + 16, x0:x0 + 16] = np.clip(pred + _unblocks(_inverse(d)), 0, 255)
-        # Chroma: DC prediction of each 4x4 block.
-        cpreds = []
-        for plane in rc:
-            cx, cy = mbx * 8, mby * 8
-            ct = plane[cy - 1, cx:cx + 8] if mby else None
-            cl = plane[cy:cy + 8, cx - 1] if mbx else None
-            p = np.zeros((8, 8), np.int64)
-            for by in range(2):
-                for bx in range(2):
-                    st = ct[bx * 4:bx * 4 + 4].sum() if ct is not None else None
-                    sl = cl[by * 4:by * 4 + 4].sum() if cl is not None else None
-                    if bx == by:
-                        val = ((st + sl + 4) >> 3 if st is not None and sl is not None else
-                               (sl + 2) >> 2 if sl is not None else (st + 2) >> 2 if st is not None else 128)
-                    elif bx == 1:
-                        val = (st + 2) >> 2 if st is not None else (sl + 2) >> 2 if sl is not None else 128
-                    else:
-                        val = (sl + 2) >> 2 if sl is not None else (st + 2) >> 2 if st is not None else 128
-                    p[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = val
-            cpreds.append(p)
-        chroma = self.chroma_residual(mbx, mby, cpreds[0], cpreds[1], u, v, True)
+        return mode, zdc, zac, np.clip(preds[mode] + _unblocks(_inverse(d)), 0, 255)
+
+    @staticmethod
+    def chroma_dc_pred(plane, mbx, mby):
+        """Intra chroma DC prediction (8.3.4.1-3) of each 4x4 block of a macroblock's 8x8 chroma block."""
+        cx, cy = mbx * 8, mby * 8
+        ct = plane[cy - 1, cx:cx + 8] if mby else None
+        cl = plane[cy:cy + 8, cx - 1] if mbx else None
+        p = np.zeros((8, 8), np.int64)
+        for by in range(2):
+            for bx in range(2):
+                st = ct[bx * 4:bx * 4 + 4].sum() if ct is not None else None
+                sl = cl[by * 4:by * 4 + 4].sum() if cl is not None else None
+                if bx == by:
+                    val = ((st + sl + 4) >> 3 if st is not None and sl is not None else
+                           (sl + 2) >> 2 if sl is not None else (st + 2) >> 2 if st is not None else 128)
+                elif bx == 1:
+                    val = (st + 2) >> 2 if st is not None else (sl + 2) >> 2 if sl is not None else 128
+                else:
+                    val = (sl + 2) >> 2 if sl is not None else (st + 2) >> 2 if st is not None else 128
+                p[by * 4:by * 4 + 4, bx * 4:bx * 4 + 4] = val
+        return p
+
+    def intra_mb(self, w, mbx, mby, y, u, v):
+        x0, y0 = mbx * 16, mby * 16
+        rc = self.recon[1:]
+        mode, zdc, zac, rec = self.intra16(y, mbx, mby)
+        cbp_luma = 15 if np.any(zac) else 0
+        self.recon[0][y0:y0 + 16, x0:x0 + 16] = rec
+        chroma = self.chroma_residual(mbx, mby, *[self.chroma_dc_pred(p, mbx, mby) for p in rc], u, v, True)
         cbp_chroma = self.chroma_cbp(chroma)
         for plane, (_, _, rec) in zip(rc, chroma):
             plane[mby * 8:mby * 8 + 8, mbx * 8:mbx * 8 + 8] = rec
@@ -1663,19 +2246,10 @@ class FrameEncoder:
             for mbx in range(self.mbw):
                 x0, y0 = mbx * 16, mby * 16
                 src = y[y0:y0 + 16, x0:x0 + 16]
-
-                def luma(mv):
-                    return planes[mv[1] & 3][mv[0] & 3][pad + y0 + (mv[1] >> 2):pad + y0 + (mv[1] >> 2) + 16,
-                                                        pad + x0 + (mv[0] >> 2):pad + x0 + (mv[0] >> 2) + 16
-                                                        ].astype(np.int64)
-
-                center = tuple(int(c) for c in best_mv[mby, mbx])
-                cands = [(center[0] + dx, center[1] + dy) for dy in range(-3, 4) for dx in range(-3, 4)]
                 skip = self.skip_mv(mbx, mby)
-                cands.append(skip)
-                mv = min(cands, key=lambda m: (np.abs(src - luma(m)).sum(), m != skip, m))
-                pred = luma(mv)
-                cpred = [self.chroma_pred(rc, mbx, mby, mv) for rc in ref_c]
+                mv = self.refine(planes, src, x0, y0, 16, 16, best_mv[mby, mbx], (skip,))[1]
+                pred = self.luma_pred(planes, x0, y0, 16, 16, mv)
+                cpred = [self.chroma_pred(rc, mbx * 8, mby * 8, 8, 8, mv) for rc in ref_c]
                 wt = _forward(_blocks(src - pred))
                 z = _quantise(wt, self.qp, False)
                 chroma = self.chroma_residual(mbx, mby, cpred[0], cpred[1], u, v, False)
@@ -1735,16 +2309,29 @@ class FrameEncoder:
             out.append((zdc, zac, np.clip(pred + _unblocks(_inverse(d)), 0, 255)))
         return out
 
-    def chroma_pred(self, plane, mbx, mby, mv):
-        """Eighth-sample bilinear chroma prediction (8.4.2.2.2) from an edge-padded chroma plane."""
+    def luma_pred(self, planes, x, y, wd, ht, mv):
+        """Quarter-sample luma prediction of a wd x ht block at (x, y) from ``quarter_planes`` padded by ``PAD``."""
+        pad = self.PAD
+        return planes[mv[1] & 3][mv[0] & 3][pad + y + (mv[1] >> 2):pad + y + (mv[1] >> 2) + ht,
+                                            pad + x + (mv[0] >> 2):pad + x + (mv[0] >> 2) + wd].astype(np.int64)
+
+    def chroma_pred(self, plane, x, y, wd, ht, mv):
+        """Eighth-sample bilinear chroma prediction (8.4.2.2.2) of a wd x ht block at chroma sample (x, y), from an
+        edge-padded chroma plane."""
         off = self.PAD // 2 + 1
-        x, y = mbx * 8 + (mv[0] >> 3) + off, mby * 8 + (mv[1] >> 3) + off
+        xi, yi = x + (mv[0] >> 3) + off, y + (mv[1] >> 3) + off
         fx, fy = mv[0] & 7, mv[1] & 7
-        a = plane[y:y + 8, x:x + 8]
-        b = plane[y:y + 8, x + 1:x + 9]
-        c = plane[y + 1:y + 9, x:x + 8]
-        d = plane[y + 1:y + 9, x + 1:x + 9]
+        a, b = plane[yi:yi + ht, xi:xi + wd], plane[yi:yi + ht, xi + 1:xi + wd + 1]
+        c, d = plane[yi + 1:yi + ht + 1, xi:xi + wd], plane[yi + 1:yi + ht + 1, xi + 1:xi + wd + 1]
         return ((8 - fx) * (8 - fy) * a + fx * (8 - fy) * b + (8 - fx) * fy * c + fx * fy * d + 32) >> 6
+
+    def refine(self, planes, src, x, y, wd, ht, center, extra=()):
+        """(SAD, vector) of the best quarter-sample vector within 3 of ``center`` or among ``extra`` (which wins a
+        tie)."""
+        cands = [(int(center[0]) + dx, int(center[1]) + dy) for dy in range(-3, 4) for dx in range(-3, 4)]
+        cands += list(extra)
+        return min(((np.abs(src - self.luma_pred(planes, x, y, wd, ht, m)).sum(), m) for m in cands),
+                   key=lambda t: (t[0], t[1] not in extra, t[1]))
 
     def planes(self):
         """The reconstruction of the last picture, cropped (Y, U, V)."""
@@ -1752,13 +2339,361 @@ class FrameEncoder:
                 self.ref[2][:self.h // 2, :self.w // 2])
 
 
-def encode_frames(frames_bgr, qp=22, search=6):
-    """(access units, the encoder's reconstruction of each frame as (Y, U, V)) of uint8 BGR frames of even size:
-    BT.601 limited-range YUV 4:2:0 from ``cv2.cvtColor``, an IDR, then P pictures."""
+# The 8x8 core transform (8.5.13's inverse is its transpose, scaled): rows of the forward matrix, times 8.
+_T8 = np.array([[8, 8, 8, 8, 8, 8, 8, 8], [12, 10, 6, 3, -3, -6, -10, -12], [8, 4, -4, -8, -8, -4, 4, 8],
+                [10, -3, -12, -6, 6, 12, 3, -10], [8, -8, -8, 8, 8, -8, -8, 8], [6, -12, 3, 10, -10, -3, 12, -6],
+                [4, -8, 8, -4, -4, 8, -8, 4], [3, -6, 10, -12, 12, -10, 6, -3]], np.int64)
+_T8_NORM = np.linalg.inv((_T8 @ _T8.T).astype(np.float64))
+_SCAN8 = np.array([r * 8 + c for r, c in ZIGZAG8])
+
+
+def _inverse8(d):
+    """The 8x8 inverse transform (8.5.13.2) of d[8, 8]: rows, then columns, with its rounding."""
+    def one(x, axis):
+        d0, d1, d2, d3, d4, d5, d6, d7 = (np.take(x, i, axis=axis) for i in range(8))
+        e0, e1, e2, e3 = d0 + d4, -d3 + d5 - d7 - (d7 >> 1), d0 - d4, d1 + d7 - d3 - (d3 >> 1)
+        e4, e5, e6, e7 = (d2 >> 1) - d6, -d1 + d7 + d5 + (d5 >> 1), d2 + (d6 >> 1), d3 + d5 + d1 + (d1 >> 1)
+        f0, f1, f2, f3 = e0 + e6, e1 + (e7 >> 2), e2 + e4, e3 + (e5 >> 2)
+        f4, f5, f6, f7 = e2 - e4, (e3 >> 2) - e5, e0 - e6, e7 - (e1 >> 2)
+        return np.stack([f0 + f7, f2 + f5, f4 + f3, f6 + f1, f6 - f1, f4 - f3, f2 - f5, f0 - f7], axis=axis)
+
+    return (one(one(d, -1), -2) + 32) >> 6
+
+
+def _quantise8(x, qp, intra):
+    """Levels (raster order) of a residual x[8, 8] under the 8x8 transform at flat scaling, by least squares."""
+    coeff = 4096.0 * (_T8_NORM @ _T8 @ x @ _T8.T @ _T8_NORM)  # the scaled coefficients d the residual asks for
+    step = np.array([[16 * level_scale8(qp, r, c) for c in range(8)] for r in range(8)]) * 2.0 ** (qp // 6) / 64
+    return (np.sign(coeff) * np.floor(np.abs(coeff) / step + (1 / 3 if intra else 1 / 6))).astype(np.int64)
+
+
+class HighEncoder(_Syntax, FrameEncoder):
+    """High profile (``profile_idc`` 100) as x264 writes it without B frames: CABAC, the 8x8 transform chosen for
+    each macroblock, an IDR of I_16x16 (all four modes) and I_NxN macroblocks (intra 8x8: vertical, horizontal and
+    DC), then P
+    pictures of P_L0_16x16, P_8x8 (four 8x8 partitions, each its own vector) and P_Skip, one reference and one
+    slice a picture, a fixed QP, the deblocking filter on. The reference of each P picture is FFmpeg's decode of
+    the stream so far, ``reference(access units)`` (the last picture's uncropped planes), so that the encoder needs
+    no deblocking filter of its own; within the IDR its intra prediction reads its own reconstruction, which is
+    the decoder's before the filter."""
+
+    def __init__(self, width, height, reference, qp=22, search=6):
+        super().__init__(width, height, qp, search)
+        self.sps = Sps(self.mbw, self.mbh, profile_idc=100, level_idc=31, poc_type=2, max_num_ref_frames=1,
+                       crop=(0, (self.cw - width) // 2, 0, (self.ch - height) // 2))
+        self.pps = Pps(pic_init_qp=qp, deblocking_control=True, cabac=True, transform_8x8=True)
+        self.reference, self.aus, self.ref_planes = reference, [], None
+        self.ctx_used, self.slice_index, self.num_ref = set(), 0, 1
+        self.lam = 0.85 * 2.0 ** ((qp - 12) / 3)  # SSD per bit
+
+    def encode(self, yuv):
+        y, u, v = (np.pad(p, ((0, ch - p.shape[0]), (0, cw - p.shape[1])), mode="edge").astype(np.int64)
+                   for p, cw, ch in ((yuv[0], self.cw, self.ch), (yuv[1], self.cw // 2, self.ch // 2),
+                                     (yuv[2], self.cw // 2, self.ch // 2)))
+        idr = self.ref_planes is None
+        w = BitWriter()
+        w.ue(0)  # first_mb_in_slice
+        w.ue(7 if idr else 5)
+        w.ue(0)
+        w.u(self.sps.log2_max_frame_num, self.frame_num)
+        if idr:
+            w.ue(0)  # idr_pic_id
+        else:
+            w.u(1, 0)  # num_ref_idx_active_override_flag
+            w.u(1, 0)  # ref_pic_list_modification_flag_l0
+        w.u(1, 0)  # no_output_of_prior_pics / adaptive_ref_pic_marking_mode
+        if idr:
+            w.u(1, 0)  # long_term_reference_flag
+        else:
+            w.ue(0)  # cabac_init_idc
+        w.se(0)  # slice_qp_delta
+        w.ue(0)  # disable_deblocking_filter_idc: on, offsets 0
+        w.se(0)
+        w.se(0)
+        w.align_one()
+        self.cabac = CabacWriter(w, self.qp, 0 if idr else 1, self.ctx_used)
+        self.prev_dqp = 0
+        nblocks = self.mbw * self.mbh * 16
+        self.mbs, self.ref, self.mv, self.mvd = [None] * (self.mbw * self.mbh), [-1] * nblocks, [(0, 0)] * nblocks, \
+            [(0, 0)] * nblocks
+        self.recon = [np.zeros((self.ch, self.cw), np.int64), np.zeros((self.ch // 2, self.cw // 2), np.int64),
+                      np.zeros((self.ch // 2, self.cw // 2), np.int64)]
+        if idr:
+            for addr in range(self.mbw * self.mbh):
+                self.intra_mb8(w, addr % self.mbw, addr // self.mbw, y, u, v)
+                self.cabac.terminate(int(addr == self.mbw * self.mbh - 1))
+        else:
+            self.inter_picture8(w, y, u, v)
+        w.align_zero()
+        au = ([nal_unit(3, 7, self.sps.rbsp()), nal_unit(3, 8, self.pps.rbsp())] if idr else [])
+        au.append(nal_unit(3, 5 if idr else 1, w.data()))
+        self.aus.append(au)
+        self.ref_planes = [p.astype(np.int64) for p in self.reference(self.aus)]
+        self.frame_num = (self.frame_num + 1) % (1 << self.sps.log2_max_frame_num)
+        return au
+
+    def planes(self):
+        """FFmpeg's decode of the last picture, cropped (Y, U, V)."""
+        return tuple(p[:h, :w].astype(np.uint8) for p, w, h in zip(self.ref_planes, (self.w, self.w // 2, self.w // 2),
+                                                                    (self.h, self.h // 2, self.h // 2)))
+
+    def bits(self, levels):
+        """A rough count of the bits CABAC spends on levels."""
+        a = np.abs(levels)
+        return 3 * np.count_nonzero(a) + np.log2(1 + a).sum()
+
+    # ---- the IDR
+    def intra8_pred(self, rl, mbx, mby, b8):
+        """{mode: prediction} of intra 8x8 block b8 (8.3.2): vertical, horizontal and DC from the filtered
+        reference samples."""
+        bx, by = b8 & 1, b8 >> 1
+        x0, y0 = mbx * 16 + bx * 8, mby * 16 + by * 8
+        top, left = y0 > 0, x0 > 0
+        corner = top and left
+        top_right = top and (b8 == 2 or (b8 == 0) or (b8 == 1 and mbx + 1 < self.mbw))
+        p = None
+        if top:
+            p = np.concatenate([rl[y0 - 1, x0:x0 + 8], rl[y0 - 1, x0 + 8:x0 + 16] if top_right else
+                                np.full(8, rl[y0 - 1, x0 + 7])])
+        q = rl[y0:y0 + 8, x0 - 1] if left else None
+        c = rl[y0 - 1, x0 - 1] if corner else None
+        preds = {}
+        if top:
+            t = np.empty(16, np.int64)
+            t[0] = (c + 2 * p[0] + p[1] + 2) >> 2 if corner else (3 * p[0] + p[1] + 2) >> 2
+            t[1:15] = (p[:-2] + 2 * p[1:-1] + p[2:] + 2) >> 2
+            t[15] = (p[14] + 3 * p[15] + 2) >> 2
+            preds[0] = np.tile(t[:8], (8, 1))
+        if left:
+            lf = np.empty(8, np.int64)
+            lf[0] = (c + 2 * q[0] + q[1] + 2) >> 2 if corner else (3 * q[0] + q[1] + 2) >> 2
+            lf[1:7] = (q[:-2] + 2 * q[1:-1] + q[2:] + 2) >> 2
+            lf[7] = (q[6] + 3 * q[7] + 2) >> 2
+            preds[1] = np.tile(lf[:, None], (1, 8))
+        dc = ((t[:8].sum() + lf.sum() + 8) >> 4 if top and left else (lf.sum() + 4) >> 3 if left else
+              (t[:8].sum() + 4) >> 3 if top else 128)
+        preds[2] = np.full((8, 8), dc, np.int64)
+        return preds
+
+    def intra_mb8(self, w, mbx, mby, y, u, v):
+        addr, x0, y0 = mby * self.mbw + mbx, mbx * 16, mby * 16
+        m = _Mb(0)
+        self.mbs[addr] = m
+        rl = self.recon[0]
+        src = y[y0:y0 + 16, x0:x0 + 16]
+        mode16, zdc, zac, rec16 = self.intra16(y, mbx, mby)
+        cost16 = ((rec16 - src) ** 2).sum() + self.lam * (self.bits(zdc) + self.bits(zac) + 4)
+        # Intra 8x8, block by block into the reconstruction.
+        modes, levels8, cost8 = [], [], 0.0
+        for b8 in range(4):
+            bx, by = (b8 & 1) * 8, (b8 >> 1) * 8
+            s8 = src[by:by + 8, bx:bx + 8]
+            best = None
+            for mode, pred in self.intra8_pred(rl, mbx, mby, b8).items():
+                z = _quantise8(s8 - pred, self.qp, True)
+                rec = np.clip(pred + _inverse8(dequantised8(z.reshape(-1)[_SCAN8].tolist(), self.qp)), 0, 255)
+                cost = ((rec - s8) ** 2).sum() + self.lam * (self.bits(z) + (1 if mode == 2 else 4))
+                if best is None or cost < best[0]:
+                    best = (cost, mode, z, rec)
+            cost8 += best[0]
+            modes.append(best[1])
+            levels8.append(best[2])
+            rl[y0 + by:y0 + by + 8, x0 + bx:x0 + bx + 8] = best[3]
+        chroma = self.chroma_residual(mbx, mby, *[self.chroma_dc_pred(p, mbx, mby) for p in self.recon[1:]], u, v, True)
+        cbp_chroma = self.chroma_cbp(chroma)
+        for plane, (_, _, rec) in zip(self.recon[1:], chroma):
+            plane[mby * 8:mby * 8 + 8, mbx * 8:mbx * 8 + 8] = rec
+        self.set_motion(mbx, mby, 0, 0, 4, 4, -1, (0, 0))
+        self.set_mvd(mbx, mby, 0, 0, 4, 4, (0, 0))
+        # On these frames intra 8x8 costs less almost everywhere; intra 16x16 is taken where it costs at most 1.35
+        # times as much, which keeps both kinds in the clip.
+        if cost16 <= 1.35 * cost8:
+            rl[y0:y0 + 16, x0:x0 + 16] = rec16
+            m.kind = "I16"
+            cbp_luma = 15 if np.any(zac) else 0
+            m.cbp = cbp_luma | cbp_chroma << 4
+            self.put_mb_type_i(w, mbx, mby, 2, 1 + mode16 + 4 * cbp_chroma + (12 if cbp_luma else 0))
+            self.put_chroma_mode(w, m, mbx, mby, 0)
+            self.put_qp_delta(w, 0)
+            if self.block(w, m, 0, zdc.reshape(-1)[_SCAN].tolist(), mbx, mby, 0, 0, 0, 16):
+                m.dc |= 1
+            for b8 in range(4):
+                for b4 in range(4):
+                    x4, y4 = (b8 & 1) * 2 + (b4 & 1), (b8 >> 1) * 2 + (b4 >> 1)
+                    if cbp_luma:
+                        m.nz[y4 * 4 + x4] = self.block(w, m, 1, zac[y4, x4].reshape(-1)[_SCAN][1:].tolist(), mbx, mby,
+                                                       0, x4, y4, 15)
+            self.stats["I_16x16"] += 1
+        else:
+            m.kind = "I4"
+            self.put_mb_type_i(w, mbx, mby, 2, 0)
+            self.put_transform_flag(w, m, mbx, mby, True)
+            for b8, mode in enumerate(modes):
+                x4, y4 = (b8 & 1) * 2, (b8 >> 1) * 2
+                pa, pb = self.i4_neighbour(mbx, mby, x4 - 1, y4, m), self.i4_neighbour(mbx, mby, x4, y4 - 1, m)
+                self.put_intra_mode(w, 2 if pa < 0 or pb < 0 else min(pa, pb), mode)
+                for k in range(4):
+                    m.i4[(y4 + (k >> 1)) * 4 + x4 + (k & 1)] = mode
+            self.put_chroma_mode(w, m, mbx, mby, 0)
+            cbp = sum(1 << b8 for b8 in range(4) if np.any(levels8[b8])) | cbp_chroma << 4
+            self.put_cbp(w, m, mbx, mby, cbp, True)
+            if cbp:
+                self.put_qp_delta(w, 0)
+            else:
+                self.prev_dqp = 0
+            self.luma8(w, m, mbx, mby, levels8, cbp)
+            self.stats["I_NxN"] += 1
+            self.stats["I_8x8"] += 1
+        self.write_chroma8(w, m, mbx, mby, chroma, cbp_chroma)
+
+    def luma8(self, w, m, mbx, mby, levels8, cbp):
+        for b8 in range(4):
+            x8, y8 = (b8 & 1) * 2, (b8 >> 1) * 2
+            n = self.block(w, m, 5, levels8[b8].reshape(-1)[_SCAN8].tolist(), mbx, mby, 0, x8, y8, 64) \
+                if (cbp >> b8) & 1 else 0
+            for b4 in range(4):
+                m.nz[(y8 + (b4 >> 1)) * 4 + x8 + (b4 & 1)] = n
+
+    def write_chroma8(self, w, m, mbx, mby, chroma, cbp_chroma):
+        if cbp_chroma:
+            for comp, (zdc, _, _) in enumerate(chroma):
+                if self.block(w, m, 3, zdc.reshape(-1).tolist(), mbx, mby, comp + 1, 0, 0, 4):
+                    m.dc |= 2 << comp
+        for comp, (_, zac, _) in enumerate(chroma):
+            for b in range(4):
+                if cbp_chroma == 2:
+                    levels = zac[b >> 1, b & 1].reshape(-1)[_SCAN][1:].tolist()
+                    m.nz[16 + comp * 4 + b] = self.block(w, m, 4, levels, mbx, mby, comp + 1, b & 1, b >> 1, 15)
+
+    # ---- P pictures
+    def inter_picture8(self, w, y, u, v):
+        pad, r = self.PAD, self.search
+        planes = quarter_planes(self.ref_planes[0], pad)
+        ref_c = [np.pad(c, pad // 2 + 1, mode="edge") for c in self.ref_planes[1:]]
+        full = planes[0][0].astype(np.int64)
+        best16, best8 = np.full((self.mbh, self.mbw), np.iinfo(np.int64).max), \
+            np.full((2 * self.mbh, 2 * self.mbw), np.iinfo(np.int64).max)
+        mv16, mv8 = np.zeros((self.mbh, self.mbw, 2), np.int64), np.zeros((2 * self.mbh, 2 * self.mbw, 2), np.int64)
+        for dy in range(-r, r + 1):
+            for dx in range(-r, r + 1):
+                diff = np.abs(full[pad + dy:pad + dy + self.ch, pad + dx:pad + dx + self.cw] - y)
+                sad8 = diff.reshape(2 * self.mbh, 8, 2 * self.mbw, 8).sum(axis=(1, 3))
+                sad16 = sad8.reshape(self.mbh, 2, self.mbw, 2).sum(axis=(1, 3))
+                for best, mv, sad in ((best16, mv16, sad16), (best8, mv8, sad8)):
+                    better = sad < best
+                    best[better] = sad[better]
+                    mv[better] = (4 * dx, 4 * dy)
+        total = self.mbw * self.mbh
+        for addr in range(total):
+            mbx, mby = addr % self.mbw, addr // self.mbw
+            self.inter_mb8(w, mbx, mby, y, u, v, planes, ref_c, mv16[mby, mbx], mv8[2 * mby:2 * mby + 2,
+                                                                                      2 * mbx:2 * mbx + 2])
+            self.cabac.terminate(int(addr == total - 1))
+
+    def inter_mb8(self, w, mbx, mby, y, u, v, planes, ref_c, c16, c8):
+        addr, x0, y0 = mby * self.mbw + mbx, mbx * 16, mby * 16
+        m = _Mb(0)
+        self.mbs[addr] = m
+        src = y[y0:y0 + 16, x0:x0 + 16]
+        skip = self.skip_mv(mbx, mby)
+        sad16, mv = self.refine(planes, src, x0, y0, 16, 16, c16, (skip,))
+        pmv = self.predict_mv(mbx, mby, 0, 0, 4, 0, 0, 0)
+        cost16 = sad16 + 4 * (np.log2(1 + abs(mv[0] - pmv[0])) + np.log2(1 + abs(mv[1] - pmv[1])))
+        parts8 = [self.refine(planes, src[by:by + 8, bx:bx + 8], x0 + bx, y0 + by, 8, 8, c8[by // 8, bx // 8])
+                  for by in (0, 8) for bx in (0, 8)]
+        cost8 = sum(p[0] for p in parts8) + 4 * (8 + sum(np.log2(1 + abs(p[1][0] - pmv[0])) +
+                                                         np.log2(1 + abs(p[1][1] - pmv[1])) for p in parts8))
+        p8x8 = cost8 < cost16
+        mvs = [p[1] for p in parts8] if p8x8 else [mv] * 4
+        pred = np.zeros((16, 16), np.int64)
+        cpred = [np.zeros((8, 8), np.int64), np.zeros((8, 8), np.int64)]
+        for b8, pm in enumerate(mvs):
+            bx, by = (b8 & 1) * 8, (b8 >> 1) * 8
+            pred[by:by + 8, bx:bx + 8] = self.luma_pred(planes, x0 + bx, y0 + by, 8, 8, pm)
+            for cp, rc in zip(cpred, ref_c):
+                cp[by // 2:by // 2 + 4, bx // 2:bx // 2 + 4] = self.chroma_pred(rc, mbx * 8 + bx // 2,
+                                                                                 mby * 8 + by // 2, 4, 4, pm)
+        res = src - pred
+        # The 4x4 and the 8x8 transform: the cheaper reconstruction.
+        z4 = _quantise(_forward(_blocks(res)), self.qp, False)
+        rec4 = _unblocks(_inverse(_dequantise(z4, self.qp)))
+        z8 = [_quantise8(res[by:by + 8, bx:bx + 8], self.qp, False) for by in (0, 8) for bx in (0, 8)]
+        rec8 = np.zeros((16, 16), np.int64)
+        for b8, z in enumerate(z8):
+            bx, by = (b8 & 1) * 8, (b8 >> 1) * 8
+            rec8[by:by + 8, bx:bx + 8] = _inverse8(dequantised8(z.reshape(-1)[_SCAN8].tolist(), self.qp))
+        cost4 = ((pred + rec4 - src) ** 2).sum() + self.lam * self.bits(z4)
+        cost8t = ((pred + rec8 - src) ** 2).sum() + self.lam * self.bits(np.stack(z8))
+        t8 = cost8t < cost4
+        if t8:
+            cbp_luma = sum(1 << b8 for b8 in range(4) if np.any(z8[b8]))
+        else:
+            cbp_luma = sum(1 << b8 for b8 in range(4)
+                           if np.any(z4[(b8 >> 1) * 2:(b8 >> 1) * 2 + 2, (b8 & 1) * 2:(b8 & 1) * 2 + 2]))
+        chroma = self.chroma_residual(mbx, mby, cpred[0], cpred[1], u, v, False)
+        cbp_chroma = self.chroma_cbp(chroma)
+        if not p8x8 and mv == skip and not cbp_luma and not cbp_chroma:
+            self.put_skip_flag(mbx, mby, True)
+            m.kind = "SKIP"
+            self.set_motion(mbx, mby, 0, 0, 4, 4, 0, mv)
+            self.set_mvd(mbx, mby, 0, 0, 4, 4, (0, 0))
+            self.prev_dqp = 0
+            self.stats["P_Skip"] += 1
+            return
+        self.put_skip_flag(mbx, mby, False)
+        self.put_mb_type_p(w, 3 if p8x8 else 0)
+        if p8x8:
+            for _ in range(4):
+                self.put_sub_mb_type(w, 0)
+            self.stats["sub_8x8"] += 4
+        mask = 0
+        for b8, pm in enumerate(mvs[:4 if p8x8 else 1]):
+            x4, y4, s = ((b8 & 1) * 2, (b8 >> 1) * 2, 2) if p8x8 else (0, 0, 4)
+            p = self.predict_mv(mbx, mby, x4, y4, s, 0, mask, 0)
+            d = (pm[0] - p[0], pm[1] - p[1])
+            self.put_mvd(w, d, mbx, mby, x4, y4)
+            self.set_mvd(mbx, mby, x4, y4, s, s, d)
+            mask |= self.set_motion(mbx, mby, x4, y4, s, s, 0, pm)
+        cbp = cbp_luma | cbp_chroma << 4
+        self.put_cbp(w, m, mbx, mby, cbp, False)
+        if cbp_luma:
+            self.put_transform_flag(w, m, mbx, mby, t8)
+            self.stats["transform_8x8_inter"] += int(t8)
+        if cbp:
+            self.put_qp_delta(w, 0)
+        else:
+            self.prev_dqp = 0
+        if m.t8:
+            self.luma8(w, m, mbx, mby, z8, cbp_luma)
+        else:
+            for b8 in range(4):
+                for b4 in range(4):
+                    x4, y4 = (b8 & 1) * 2 + (b4 & 1), (b8 >> 1) * 2 + (b4 >> 1)
+                    if (cbp_luma >> b8) & 1:
+                        m.nz[y4 * 4 + x4] = self.block(w, m, 2, z4[y4, x4].reshape(-1)[_SCAN].tolist(), mbx, mby, 0,
+                                                       x4, y4, 16)
+        self.write_chroma8(w, m, mbx, mby, chroma, cbp_chroma)
+        self.stats["P_8x8" if p8x8 else "P_L0_16x16"] += 1
+
+
+def encode_frames(frames_bgr, qp=22, search=6, high=False):
+    """(access units, the encoder's reconstruction of each frame as (Y, U, V), the encoder) of uint8 BGR frames of
+    even size: BT.601 limited-range YUV 4:2:0 from ``cv2.cvtColor``, an IDR, then P pictures; Baseline
+    (:class:`FrameEncoder`), or High with CABAC and the 8x8 transform (:class:`HighEncoder`, whose reconstruction is
+    FFmpeg's decode)."""
     import cv2
 
     h, w = frames_bgr[0].shape[:2]
-    enc = FrameEncoder(w, h, qp, search)
+    if high:
+        from torch_libav import decode_planes
+
+        def reference(aus):
+            return decode_planes("h264", [annexb([au]) for au in aus], "yuv420p", enc.cw, enc.ch,
+                                 options={"apply_cropping": "0"})[-1]
+
+        enc = HighEncoder(w, h, reference, qp, search)
+    else:
+        enc = FrameEncoder(w, h, qp, search)
     aus, recon = [], []
     for frame in frames_bgr:
         i420 = cv2.cvtColor(np.ascontiguousarray(frame), cv2.COLOR_BGR2YUV_I420)

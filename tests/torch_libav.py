@@ -117,13 +117,14 @@ def encode(codec_name, frames, pix_fmt, w, h, options=None):
     return payloads, ctypes.string_at(extradata, size) if size else b""
 
 
-def decode_planes(codec_name, payloads, pix_fmt, w, h, extradata=b""):
+def decode_planes(codec_name, payloads, pix_fmt, w, h, extradata=b"", options=None):
     """The planes (each ``rows x bytes``, as :func:`plane_shapes`) FFmpeg's decoder ``codec_name`` gives for each
-    frame of ``payloads``, its frames being of ``pix_fmt`` at ``w`` x ``h``."""
+    frame of ``payloads``, its frames being of ``pix_fmt`` at ``w`` x ``h``; ``options``: more AVOptions of the
+    decoder (``{"apply_cropping": "0"}``: the coded frames)."""
     avutil, avcodec = libavcodec()
     codec = avcodec.avcodec_find_decoder_by_name(codec_name.encode())
     ctx = avcodec.avcodec_alloc_context3(codec)
-    for key, value in {"video_size": f"{w}x{h}", "threads": "1"}.items():
+    for key, value in {"video_size": f"{w}x{h}", "threads": "1", **(options or {})}.items():
         assert avutil.av_opt_set(ctx, key.encode(), value.encode(), 0) >= 0, key
     if extradata:
         par = avcodec.avcodec_parameters_alloc()
