@@ -92,9 +92,13 @@ width:
   launches counted, the luminance PSNR >= linear upsampling on every frame,
   demux and decode ms a frame; (g''') the same for the VP9 .webm of
   those frames (``native/vp9_decoder.cpp``; two tile columns at this width),
-  its decoder's counts logged; and (g'''') to (g6) the same for the FFV1
-  .mkv of the first 4, the H.264 .mp4 (and its .mkv / .avi / .h264 copies)
-  and the High-profile H.264 .mp4 (CABAC, the 8x8 transform, deblocking on);
+  its decoder's counts logged; and (g'''') to (g7) the same for the FFV1
+  .mkv of the first 4, the H.264 .mp4 (and its .mkv / .avi / .h264 copies),
+  the High-profile H.264 .mp4 (CABAC, the 8x8 transform, deblocking on) and
+  the H.264 .mp4 with B pictures (x264's GOP shape: B-pyramid, spatial
+  direct, implicit weights; composition offsets), the frames it holds back
+  drained at the end of the stream and the margin over linear upsampling at
+  least 1 dB on every frame;
 - data parallel (phase 13): ``make_sharded_map_solver`` on a frame x4 mesh of
   the flagship and a frame x2 x band x2 mesh of the 64-band cube, each beside
   ``minimize`` on one device (float32 by iterations, cost and PSNR, float64
@@ -203,7 +207,7 @@ try:
     from super_resolution_tpu_torch.ops.warp import translate
     from super_resolution_tpu_torch.solvers import graphs
     from super_resolution_tpu_torch.utils.profiling import device_time, trace
-    from super_resolution_tpu_torch.video.video_loader import read_avi_frames, read_video_frames
+    from super_resolution_tpu_torch.video.video_loader import _shown_frames, read_avi_frames, read_video_frames
     from super_resolution_tpu_torch.video.mkv import read_matroska_video
     from super_resolution_tpu_torch.utils.vp8 import Vp8Decoder
     from super_resolution_tpu_torch.utils.vp9 import Vp9Decoder
@@ -2694,6 +2698,7 @@ VIDEO_FFV1_CENTRES = 3                    # centres 0-2: their window is frames 
 VIDEO_H264_DIR = os.path.join("tests", "data_torch", "h264")  # its own manifest.json, as VIDEO_MPEG4_DIR's
 VIDEO_H264_CLIP = "h264_960x540x12.mp4"   # (g'''''): the same 12 frames, H.264 (avc1), and as .mkv, .avi, .h264
 VIDEO_H264_HIGH_CLIP = "h264_high_960x540x12.mp4"  # (g6): the same 12 frames, H.264 High profile (CABAC, 8x8 transform)
+VIDEO_H264_B_CLIP = "h264_b_960x540x12.mp4"  # (g7): the same 12 frames, H.264 with B pictures (B-pyramid, ctts)
 VIDEO_ODD_DIR = os.path.join("tests", "data_torch", "odd_height")  # (h'): VP9, VP8, MPEG-4 clips of odd height
 VIDEO_MPEG4_GAP = 0                        # grey levels between the port's frames and cv2.VideoCapture's
 
@@ -2821,7 +2826,10 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     960x544 with a bottom crop), its .mkv, .avi and raw .h264 copies decoded
     to the same digest; (g6) the same from the High-profile H.264 .mp4 of the
     12 frames (CABAC, the 8x8 transform with intra 8x8, the deblocking filter
-    on); (h')
+    on); (g7) the same from the H.264 .mp4 of the 12 frames with B pictures
+    (x264's GOP shape, reordered: the decoder's held-back pictures drained at
+    the end of the stream), each frame's luminance at least 1 dB above linear
+    upsampling; (h')
     the odd-height clips (VP9, VP8, MPEG-4 Part 2), which cv2.VideoCapture
     converts through swscale's scaler, decoded to their recorded digests."""
     from super_resolution_tpu_torch.solvers import irls as irls_mod
@@ -3032,6 +3040,9 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     launches_h264_high, h264_high_ms, h264_high_gains = _video_from_webm(
         device, card, truth, VIDEO_H264_DIR, VIDEO_H264_HIGH_CLIP, "g6", "avc1", None, _h264_high_counts,
         make=lambda video: H264Decoder(video.config), demux=_mp4_track)
+    launches_h264_b, h264_b_ms, h264_b_gains = _video_from_webm(
+        device, card, truth, VIDEO_H264_DIR, VIDEO_H264_B_CLIP, "g7", "avc1", None, _h264_b_counts,
+        make=lambda video: H264Decoder(video.config), demux=_mp4_track, min_margin=1.0)
     odd_ms = _odd_height_fixtures()
     for row in rows:
         if row["row"] == "K4":
@@ -3042,13 +3053,14 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
             row["launches_video_mkv_ffv1"] = launches_ffv1
             row["launches_video_mp4_h264"] = launches_h264
             row["launches_video_mp4_h264_high"] = launches_h264_high
+            row["launches_video_mp4_h264_b"] = launches_h264_b
 
     results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
                    rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains, mkv_ms=mkv_ms,
                    webm_ms=webm_ms, webm_gains=webm_gains, vp9_ms=vp9_ms, vp9_gains=vp9_gains, ffv1_ms=ffv1_ms,
                    ffv1_gains=ffv1_gains, h264_ms=h264_ms, h264_gains=h264_gains, h264_high_ms=h264_high_ms,
-                   h264_high_gains=h264_high_gains, odd_ms=odd_ms)
+                   h264_high_gains=h264_high_gains, h264_b_ms=h264_b_ms, h264_b_gains=h264_b_gains, odd_ms=odd_ms)
     irls_mod._BUILT_SOLVER_CACHE.clear()
     log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
@@ -3243,6 +3255,16 @@ def _h264_high_counts(stats):
             f"cropped picture(s)")
 
 
+def _h264_b_counts(stats):
+    return (f"B pictures: {stats['b_slices']} B slice(s) ({stats['reference_b_pictures']} reference), "
+            f"{stats['p_slices']} P, {stats['idr_pictures']} IDR, {stats['implicit_bipred_slices']} with implicit "
+            f"weights, {stats['reordered_pictures']} picture(s) output after one decoded later; macroblocks: "
+            f"{stats['B_Skip']} B_Skip, {stats['B_Direct_16x16']} B_Direct_16x16 ({stats['spatial_direct_mbs']} "
+            f"spatial direct in all), {stats['B_16x16']} B_16x16 ({stats['bi_partitions']} bi-predicted), "
+            f"{stats['P_L0_16x16']} P_L0_16x16, {stats['P_8x8']} P_8x8, {stats['P_Skip']} P_Skip, "
+            f"{stats['I_8x8']} intra 8x8, {stats['transform_8x8_inter']} inter with the 8x8 transform")
+
+
 def _h264_containers():
     """(g'''''): the .mkv (V_MPEG4/ISO/AVC), .avi (H264, Annex B) and raw .h264 copies of the H.264 clip's stream
     read by ``read_video_frames`` on the host, each to the digest of cv2.VideoCapture's frames that the manifest
@@ -3294,20 +3316,20 @@ def _odd_height_fixtures():
 
 
 def _matroska_track(data):
-    """(codec ID, frames, track) of a Matroska / WebM file's video track."""
+    """(codec ID, frames, None: every frame shown, track) of a Matroska / WebM file's video track."""
     video = read_matroska_video(data)
-    return video.codec_id, video.frames, video
+    return video.codec_id, video.frames, None, video
 
 
 def _mp4_track(data):
-    """(sample entry code, samples, track) of an MP4 file's video track."""
+    """(sample entry code, samples, which samples the edit list shows, track) of an MP4 file's video track."""
     video = read_mp4_video(data)
-    return video.codec, video.samples, video
+    return video.codec, video.samples, video.shown, video
 
 
 def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_WEBM_CLIP, label="g''",
                      codec_id="V_VP8", decoder_class=Vp8Decoder, describe=_vp8_counts, make=None, reference=None,
-                     demux=_matroska_track):
+                     demux=_matroska_track, min_margin=0.0):
     """(g''): the checked-in VP8 clip of the LR frames (``cv2.VideoWriter``
     with ``VP80``: libvpx, in WebM), or (g''') the VP9 one (``VP90``): demuxed
     and decoded on the host (ms a frame of each, median of 3;
@@ -3321,8 +3343,12 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
     FFV1 one, whose decoder ``make(video)`` builds from the track, the frames'
     digest also that of the frames written (``source_sha256``), and its first
     estimates against ``reference`` = (estimates, what they are); (g''''') the
-    H.264 one, which ``demux`` reads from MP4 (default: Matroska), and (g6) the
-    High-profile one. Returns (K4
+    H.264 one, which ``demux`` reads from MP4 (default: Matroska), (g6) the
+    High-profile one and (g7) the one with B pictures. Every clip is decoded
+    through the video reader's own loop: each frame kept where the edit list
+    shows its own sample, and for H.264 the frames the decoder held back for
+    reordering drained at the end. Each frame is at least ``min_margin`` dB
+    above linear upsampling. Returns (K4
     launches, {"demux": ms, "decode": ms}, [(result, linear) luminance dB])."""
     make = make or (lambda video: decoder_class())
     path = os.path.join(ROOT, directory, clip)
@@ -3331,16 +3357,16 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
     with open(path, "rb") as f:
         data = f.read()
     t0 = time.perf_counter()
-    make(demux(data)[2])  # the native decoder built by g++ at first use, and loaded
+    make(demux(data)[3])  # the native decoder built by g++ at first use, and loaded
     build_s = time.perf_counter() - t0
     demux_s, decode_s = [], []
     for _ in range(3):
         t0 = time.perf_counter()
-        codec, payloads, video = demux(data)
+        codec, payloads, shown, video = demux(data)
         demux_s.append(time.perf_counter() - t0)
         t0 = time.perf_counter()
         decoder = make(video)
-        frames = [frame for payload in payloads for frame in decoder.decode(payload)]
+        frames = _shown_frames(decoder, payloads, 0, shown)  # the video reader's own loop
         decode_s.append(time.perf_counter() - t0)
     decoded = np.stack(frames)
     digest = hashlib.sha256(decoded.tobytes()).hexdigest()
@@ -3386,8 +3412,8 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
         linear = linear_resize(stack[i], hr)
         luma_gains.append((float(psnr(_luma(x[i])[inner], _luma(truth[i])[inner])),
                            float(psnr(_luma(linear)[inner], _luma(truth[i])[inner]))))
-        check(luma_gains[-1][0] >= luma_gains[-1][1],
-              f"video ({label}) frame {i}: luminance PSNR {luma_gains[-1][0]:.4f} dB below linear "
+        check(luma_gains[-1][0] >= luma_gains[-1][1] + min_margin,
+              f"video ({label}) frame {i}: luminance PSNR {luma_gains[-1][0]:.4f} dB not {min_margin} dB above linear "
               f"{luma_gains[-1][1]:.4f}")
     margin = [r - l for r, l in luma_gains]
     against = ""

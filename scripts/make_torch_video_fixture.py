@@ -97,8 +97,13 @@ closed loop); and ``h264_high_960x540x12.mp4`` (``avc1``, High profile), the
 same frames by its High-profile encoder (CABAC, the 8x8 transform chosen for
 each macroblock, an IDR of intra 8x8 and intra 16x16 macroblocks, then
 P_L0_16x16, P_8x8 and P_Skip, QP 22, the deblocking filter on, each P picture
-predicted from FFmpeg's decode of the stream before it). ``chip_smoke.py``
-super-resolves the port's decode of both ``.mp4`` files on the card. The
+predicted from FFmpeg's decode of the stream before it); and
+``h264_b_960x540x12.mp4`` (``avc1``, High profile with B pictures), the same
+frames in x264's default GOP shape (up to 3 B pictures before each anchor, the
+middle one a reference: B-pyramid; spatial direct, implicit weighted
+bi-prediction, CABAC, QP 22 and 24 in B slices, deblocking on), with the composition offsets
+(``ctts`` version 0) and the edit list FFmpeg's muxer writes. ``chip_smoke.py``
+super-resolves the port's decode of the three ``.mp4`` files on the card. The
 OpenCV wheel's ``cv2.VideoWriter`` has no H.264 encoder (its FFmpeg's only
 one, ``h264_v4l2m2m``, needs a V4L2 device).
 
@@ -433,6 +438,46 @@ def write_h264_high_fixture(directory: str) -> None:
     print(f"wrote {name} ({len(data)} bytes, {decoded.shape[0]} frames)")
 
 
+def write_h264_b_fixture(directory: str) -> None:
+    """The 960x540 H.264 clip with B pictures ``h264_b_960x540x12.mp4`` (``avc1``, ``profile_idc`` 100): the same
+    frames coded 960x544 with a bottom crop of 4 rows by ``tests/torch_h264_writer.py``'s ``HighBEncoder``
+    (x264's default GOP shape: an IDR, then an anchor P picture every 4 frames with up to 3 B pictures before it,
+    the middle one of 3 a reference; spatial direct, implicit weighted bi-prediction, CABAC, the 8x8 transform,
+    QP 22 and 24 in B slices (x264's pbratio), the deblocking filter on; each picture predicted from FFmpeg's decode of its references), in an MP4 with
+    ``ctts`` version 0 and an edit list whose media_time is the composition delay, as FFmpeg's mov muxer writes it.
+    Added to the manifest; the script stops if FFmpeg's decode is not the pictures the encoder predicted from."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_libav
+    from torch_h264_writer import HighBEncoder, annexb, encode_frames, mp4
+
+    frames = list(video_phase_frames())
+    h, w = frames[0].shape[:2]
+    aus, recon, encoder = encode_frames(frames, H264_QP, H264_SEARCH, high=True, b_frames=True)
+    planes = torch_libav.decode_planes("h264", [annexb([au]) for au in aus], "yuv420p", w, h)
+    if len(planes) != len(recon) or any(not np.array_equal(a, b) for r, p in zip(recon, planes) for a, b in zip(r, p)):
+        raise SystemExit("the B-picture stream's decode is not the pictures its encoder predicted from")
+    gop = HighBEncoder.gop(len(frames))
+    name = f"h264_b_{w}x{h}x{len(frames)}.mp4"
+    data = mp4(aus, w, h, pts=[g[0] for g in gop])
+    with open(os.path.join(directory, name), "wb") as f:
+        f.write(data)
+    decoded = np.stack(capture_frames(os.path.join(directory, name)))
+    path = os.path.join(directory, "manifest.json")
+    manifest = json.load(open(path))
+    manifest[name] = {"sha256": sha256(data), "frames_sha256": sha256(decoded.tobytes()), "shape": list(decoded.shape),
+                      "bytes": len(data)}
+    manifest["encoding_b"] = {"source": "video_phase_frames() (mp4v_960x540x12.mp4's frames)", "qp": H264_QP,
+                              "qp_b_slices": H264_QP + 2,
+                              "search": H264_SEARCH, "coded": [encoder.cw, encoder.ch], "crop_bottom": encoder.ch - h,
+                              "profile_idc": encoder.sps.profile_idc, "entropy_coding": "CABAC", "deblocking": "on",
+                              "gop": " ".join(f"{kind}{disp}" for disp, kind, _ in gop),
+                              "macroblocks": dict(sorted(encoder.stats.items()))}
+    with open(path, "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+    print(f"wrote {name} ({len(data)} bytes, {decoded.shape[0]} frames)")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "tests", "data_torch", "mjpeg_160x120x8.avi"))
@@ -448,6 +493,7 @@ def main(argv=None) -> int:
     if args.h264_only:
         write_h264_fixtures(args.h264_dir)
         write_h264_high_fixture(args.h264_dir)
+        write_h264_b_fixture(args.h264_dir)
         return 0
     if args.vp9_only:
         write_mpeg4_fixtures(args.vp9_dir, vp9_clips())
@@ -465,6 +511,7 @@ def main(argv=None) -> int:
     write_odd_height_fixtures(args.odd_dir)
     write_h264_fixtures(args.h264_dir)
     write_h264_high_fixture(args.h264_dir)
+    write_h264_b_fixture(args.h264_dir)
     return 0
 
 

@@ -36,11 +36,12 @@ port's baseline JPEG decoder, ``utils/jpeg.py``; uncompressed AVI; VP8 by
 ``native/vp9_decoder.cpp``) from WebM / Matroska, IVF and AVI, VP9 also from
 MP4; FFV1 (versions 0-3, 8 bits) by ``utils/ffv1.py`` (``native/ffv1_decoder.cpp``)
 from Matroska, AVI, MP4 and QuickTime; H.264 (progressive 8-bit 4:2:0,
-I and P slices, CAVLC or CABAC, the 8x8 transform, scaling matrices) by
-``utils/h264.py`` (``native/h264_decoder.cpp``) from MP4, Matroska, AVI and
-raw Annex B streams; every YUV frame converted to BGR as
-cv2 converts it, at any size (``native/swscale_bgr.h``); FFV1 above 8 bits,
-HuffYUV, HEVC, H.264 with B slices and other codecs raise), the profiling
+I, P and B slices, CAVLC or CABAC, the 8x8 transform, scaling matrices, in
+FFmpeg's output order) by ``utils/h264.py`` (``native/h264_decoder.cpp``)
+from MP4 (with ``ctts`` composition offsets), Matroska, AVI and raw Annex B
+streams; every YUV frame converted to BGR as cv2 converts it, at any size
+(``native/swscale_bgr.h``); FFV1 above 8 bits, HuffYUV, HEVC, interlaced
+H.264 and other codecs raise), the profiling
 utilities (``utils/profiling.py``) and the test comparators
 (``utils/testing.py``).
 

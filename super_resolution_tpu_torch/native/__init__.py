@@ -29,10 +29,10 @@
 - ``ffv1_decoder.cpp`` decodes FFV1 video (versions 0-3, 8 bits), keeping
   its slices' contexts between calls, and converts each frame to BGR (behind
   :class:`super_resolution_tpu_torch.utils.ffv1.Ffv1Decoder`).
-- ``h264_decoder.cpp`` decodes H.264 video (progressive 8-bit 4:2:0, I and
-  P slices, CAVLC and CABAC, the 8x8 transform, scaling matrices), keeping
-  its parameter sets and decoded reference pictures between calls, and
-  converts each frame to BGR (behind
+- ``h264_decoder.cpp`` decodes H.264 video (progressive 8-bit 4:2:0, I, P
+  and B slices, CAVLC and CABAC, the 8x8 transform, scaling matrices),
+  keeping its parameter sets, decoded reference pictures and the pictures it
+  holds back for reordering between calls, and converts each frame to BGR (behind
   :class:`super_resolution_tpu_torch.utils.h264.H264Decoder`); its constant
   tables are ``h264_tables.h`` and ``h264_cabac_tables.h``.
   VP8 frames themselves are decoded by ``vp8_core.h``, which
@@ -225,6 +225,8 @@ def get_h264_library() -> ctypes.CDLL:
     return _load(_H264_SOURCE, {"sr_h264_stream_new": (_ptr, [ctypes.c_char_p, _i64, ctypes.c_char_p, _int]),
                                 "sr_h264_stream_free": (None, [_ptr]),
                                 "sr_h264_stream_decode": (_int, [_ptr, ctypes.c_char_p, _i64, ctypes.c_char_p, _int]),
+                                "sr_h264_stream_flush": (_int, [_ptr, ctypes.c_char_p, _int]),
+                                "sr_h264_stream_unit": (_int, [_ptr, _int]),
                                 "sr_h264_stream_size": (None, [_ptr, _ptr]),
                                 "sr_h264_stream_bgr": (None, [_ptr, _int, _ptr]),
                                 "sr_h264_stream_plane": (None, [_ptr, _int, _int, _ptr]),

@@ -1,40 +1,51 @@
-// H.264 video (progressive 8-bit 4:2:0, I and P slices, CAVLC and CABAC) for
-// super_resolution_tpu_torch.utils.h264, bound with ctypes: a stateful
+// H.264 video (progressive 8-bit 4:2:0, I, P and B slices, CAVLC and CABAC)
+// for super_resolution_tpu_torch.utils.h264, bound with ctypes: a stateful
 // decoder behind a handle, fed whole access units a call, as
 // cv2.VideoCapture's FFmpeg decodes them.
 //
 // Written from ITU-T Rec. H.264 (08/2021): NAL units from Annex B byte
 // streams or length-prefixed (an avcC record's lengthSizeMinusOne 0, 1 or 3),
 // emulation prevention removed; sequence and picture parameter sets with the
-// VUI, scaling matrices (fall-back rules A and B, the default lists) and the
-// second chroma QP offset; slice headers with reference list modification,
-// explicit weighted prediction and the decoded reference picture marking
-// (sliding window, MMCO 1-6, long-term references); macroblocks of every I
-// and P type under CAVLC and under CABAC (every cabac_init_idc, I_PCM); the
+// VUI (its bitstream restriction read), scaling matrices (fall-back rules A
+// and B, the default lists) and the second chroma QP offset; slice headers
+// with reference list modification of both lists, explicit weighted
+// prediction of both lists and the decoded reference picture marking
+// (sliding window, MMCO 1-6, long-term references); macroblocks of every I, P
+// and B type under CAVLC and under CABAC (every cabac_init_idc, I_PCM); the
 // 4x4 and 8x8 inverse transforms with the luma and chroma DC transforms and
 // the dequantisation by the scaling matrices; intra 4x4, 8x8 (with its
 // reference sample filtering), 16x16 and chroma prediction under slice and
-// constrained-intra availability; motion-vector prediction; luma 6-tap and
-// chroma bilinear interpolation with reference samples clamped to the
-// picture; the deblocking filter (with FFmpeg's bS shortcut, see Deblock).
+// constrained-intra availability; motion-vector prediction; spatial and
+// temporal direct prediction under either direct_8x8_inference_flag (the
+// co-located picture's references found by frame_num, as FFmpeg finds them);
+// luma 6-tap and chroma bilinear interpolation with reference samples clamped
+// to the picture; bi-prediction, default, implicit and explicit, weighted as
+// FFmpeg's x86 code weighs where a row holds 4 samples or more (a weight of
+// 128 halved, sums saturated to 16 bits: see BiWeight); the deblocking filter
+// (with FFmpeg's bS shortcut, see Deblock).
 // Reconstruction is exactly specified, so the frames are FFmpeg's wherever
 // the stream conforms, but for a 4x4 scaling list whose first weight is above
 // 28, which FFmpeg's x86 DC dequantisation can round apart from the standard.
-// Pictures are output in decoding order, which is FFmpeg's wherever its
-// picture order count (which goes on across an MMCO 5) increases; a stream
-// where it does not is refused.
+// Pictures are output in the order and number FFmpeg's h264_select_output_frame
+// gives: with the VUI's bitstream_restriction_flag, delayed by
+// max_num_reorder_frames and each the lowest picture order count held back up
+// to a key frame or an MMCO 5 picture (sr_h264_stream_flush drains the rest at
+// the end of the stream); without it, in decoding order, which is FFmpeg's
+// order wherever its picture order count (which goes on across an MMCO 5)
+// increases; a stream without the restriction where it does not is refused.
 // The cropped frame is converted to BGR24 with swscale's arithmetic
 // (swscale_bgr.h) for the VUI's colour matrix and range, as cv2.VideoCapture
 // converts it.
 //
-// Refused by name (sr_h264_stream_decode returns -2): B / SP / SI slices,
+// Refused by name (sr_h264_stream_decode returns -2): SP / SI slices,
 // interlaced coding, another chroma format than 4:2:0, more than 8 bits,
 // lossless bypass, slice groups, arbitrary slice order, redundant pictures,
 // data partitioning, gaps in frame_num, a size that changes mid-stream, a
 // left crop, a colour matrix other than BT.601, BT.709, FCC and SMPTE 240M,
 // no_output_of_prior_pics_flag, a stream that starts without an IDR picture
-// and a picture order count that does not increase. Damaged data raises
-// (returns -1) with what was wrong.
+// and a picture order count that does not increase in a stream without the
+// VUI's bitstream_restriction_flag. Damaged data raises (returns -1) with what
+// was wrong.
 //
 // C interface:
 //   void* sr_h264_stream_new(const uint8_t* config, int64_t size, char* err, int err_len)
@@ -43,10 +54,14 @@
 //   int sr_h264_stream_decode(void* h, const uint8_t* data, int64_t size, char* err, int err_len)
 //     decodes whole access units, one or more; returns the number of frames
 //     output, -1: corrupt data, -2: a refused feature (err names it)
+//   int sr_h264_stream_flush(void* h, char* err, int err_len)
+//     the end of the stream: outputs the pictures still held back; returns their number
 //   void sr_h264_stream_size(void* h, int32_t* width_height)   the cropped frame size
 //   void sr_h264_stream_bgr(void* h, int index, uint8_t* out)  output frame `index`, height x width x 3
 //   void sr_h264_stream_plane(void* h, int index, int plane, uint8_t* out)
 //     plane 0 / 1 / 2 (Y, U, V) of output frame `index`, cropped, its rows packed
+//   int sr_h264_stream_unit(void* h, int index)
+//     which call to sr_h264_stream_decode (0, 1, ...) carried output frame `index`'s picture
 //   int sr_h264_stream_stats(void* h, int64_t* out, int n)
 //     the first n of the Stat counts; returns how many there are
 //
@@ -94,6 +109,9 @@ enum Stat {
   kI8Mode0, kI8Mode1, kI8Mode2, kI8Mode3, kI8Mode4, kI8Mode5, kI8Mode6, kI8Mode7, kI8Mode8,
   kSpsScalingMatrices, kPpsScalingMatrices, kScalingListsExplicit, kScalingListsDefault, kScalingListsFallbackA,
   kScalingListsFallbackB, kSecondChromaQpOffsets, kTransform8x8Pps,
+  kBSlices, kBSkip, kBDirect16x16, kB16x16, kB16x8, kB8x16, kB8x8, kBSubDirect, kBSub8x8, kBSub8x4, kBSub4x8,
+  kBSub4x4, kIntraInB, kSpatialDirectMbs, kTemporalDirectMbs, kBiPartitions, kImplicitBipredSlices,
+  kExplicitBipredSlices, kList1Modifications, kReferenceBPictures, kReorderedPictures,
   kNumStats
 };
 
@@ -205,6 +223,9 @@ struct Sps {
   std::vector<int> offset_for_ref_frame;
   int max_num_ref_frames = 0;
   int mb_width = 0, mb_height = 0;
+  bool direct_8x8_inference = true;
+  bool restriction = false;  // the VUI's bitstream_restriction_flag
+  int num_reorder = 0;       // its max_num_reorder_frames
   int crop_left = 0, crop_right = 0, crop_top = 0, crop_bottom = 0;  // in luma samples
   bool full_range = false;
   int matrix = 2;  // matrix_coefficients: unspecified unless the VUI says
@@ -216,7 +237,8 @@ struct Pps {
   int sps_id = 0;
   bool cabac = false, bottom_field_pic_order = false, weighted_pred = false, deblocking_control = false;
   bool constrained_intra = false, redundant_pic_cnt = false, transform_8x8 = false;
-  int num_ref_idx_default = 1, pic_init_qp = 26, chroma_qp_offset = 0, chroma_qp_offset2 = 0;
+  int num_ref_idx_default = 1, num_ref_idx_l1_default = 1, bipred_idc = 0;
+  int pic_init_qp = 26, chroma_qp_offset = 0, chroma_qp_offset2 = 0;
   ScalingLists lists;  // those the picture uses: the PPS's, else the SPS's
 };
 
@@ -267,6 +289,14 @@ void ReadScalingMatrices(BitReader& br, const Sps* sps, bool eight_by_eight, Sca
     for (int t = 0; t < 2; ++t)
       ReadScalingList(br, lists->l8[t], 64, kDefault8x8[t], rule_b ? sps->lists.l8[t] : defaults8[t], rule_b, stats);
   }
+}
+
+void SkipHrd(BitReader& br) {  // hrd_parameters() (E.1.2)
+  const uint32_t count = br.Ue() + 1;
+  if (count > 32) throw Corrupt("cpb_cnt_minus1 above 31");
+  br.Bits(8);  // bit_rate_scale, cpb_size_scale
+  for (uint32_t i = 0; i < count; ++i) br.Ue(), br.Ue(), br.Bit();
+  br.Bits(20);  // the four delay and offset lengths
 }
 
 Sps ParseSps(BitReader& br, int* id_out, int64_t* stats) {
@@ -329,7 +359,7 @@ Sps ParseSps(BitReader& br, int* id_out, int64_t* stats) {
     s.unsupported = "frame_mbs_only_flag 0 (interlaced coding: field pictures or MBAFF)";
     return s;
   }
-  br.Bit();  // direct_8x8_inference_flag
+  s.direct_8x8_inference = br.Bit();
   if (br.Bit()) {
     s.crop_left = 2 * br.Ue();
     s.crop_right = 2 * br.Ue();
@@ -349,7 +379,22 @@ Sps ParseSps(BitReader& br, int* id_out, int64_t* stats) {
         s.matrix = br.Bits(8);
       }
     }
-    // chroma_loc_info, timing, HRD and bitstream_restriction follow: nothing this decoder reads.
+    if (br.Bit()) br.Ue(), br.Ue();                      // chroma_loc_info
+    if (br.Bit()) br.Bits(32), br.Bits(32), br.Bit();    // timing_info
+    const bool nal_hrd = br.Bit();
+    if (nal_hrd) SkipHrd(br);
+    const bool vcl_hrd = br.Bit();
+    if (vcl_hrd) SkipHrd(br);
+    if (nal_hrd || vcl_hrd) br.Bit();  // low_delay_hrd_flag
+    br.Bit();                          // pic_struct_present_flag
+    s.restriction = br.Bit();
+    if (s.restriction) {
+      br.Bit();  // motion_vectors_over_pic_boundaries_flag
+      br.Ue(), br.Ue(), br.Ue(), br.Ue();  // max_bytes_per_pic_denom ... log2_max_mv_length_vertical
+      s.num_reorder = static_cast<int>(br.Ue());
+      if (s.num_reorder > 16) throw Corrupt("max_num_reorder_frames above 16");
+      br.Ue();  // max_dec_frame_buffering
+    }
   }
   s.valid = true;
   return s;
@@ -372,10 +417,12 @@ Pps ParsePps(BitReader& br, int* id_out, const Sps* sps_table, int64_t* stats) {
     return p;
   }
   p.num_ref_idx_default = br.Ue() + 1;
-  br.Ue();  // num_ref_idx_l1_default_active_minus1
-  if (p.num_ref_idx_default > 32) throw Corrupt("num_ref_idx_l0_default_active_minus1 above 31");
+  p.num_ref_idx_l1_default = br.Ue() + 1;
+  if (p.num_ref_idx_default > 32 || p.num_ref_idx_l1_default > 32)
+    throw Corrupt("num_ref_idx_default_active_minus1 above 31");
   p.weighted_pred = br.Bit();
-  br.Bits(2);  // weighted_bipred_idc
+  p.bipred_idc = br.Bits(2);
+  if (p.bipred_idc == 3) throw Corrupt("weighted_bipred_idc 3");
   p.pic_init_qp = 26 + br.Se();
   br.Se();  // pic_init_qs_minus26
   p.chroma_qp_offset = br.Se();
@@ -474,13 +521,23 @@ struct Picture {
   int64_t poc = 0;  // as FFmpeg counts it
   bool short_ref = false, long_ref = false;
   int long_idx = -1;
+  int unit = 0;                              // the decode call that carried it
+  bool key = false, mmco_reset = false;      // an IDR picture; FFmpeg's mmco_reset (an MMCO 5 before or in it)
+  // Its motion, for the co-located lookup of direct prediction: per 4x4 block the vector and reference index of each
+  // list, per macroblock whether it is intra, and the frame_num of each entry of the lists of its last slice (FFmpeg
+  // finds the co-located block's reference in the current list 0 by frame_num).
+  std::vector<int16_t> mv[2];
+  std::vector<int8_t> ref[2];
+  std::vector<uint8_t> intra, shape;  // per macroblock: intra; MbInfo::shape
+  int list_count[2] = {0, 0};
+  int list_frame_num[2][32] = {};
   const uint8_t* Plane(int c) const { return c == 0 ? y.data() : c == 1 ? u.data() : v.data(); }
   uint8_t* Plane(int c) { return c == 0 ? y.data() : c == 1 ? u.data() : v.data(); }
   int Stride(int c) const { return c == 0 ? width : width / 2; }
 };
 using PicturePtr = std::shared_ptr<Picture>;
 
-enum MbKind : uint8_t { kMbI4x4, kMbI16x16, kMbPcm, kMbInter, kMbSkip };
+enum MbKind : uint8_t { kMbI4x4, kMbI16x16, kMbPcm, kMbInter, kMbSkip };  // kMbSkip: P_Skip or B_Skip
 
 struct MbInfo {
   int slice = -1;  // index of the slice of the current picture that decoded it; -1: not decoded
@@ -493,6 +550,9 @@ struct MbInfo {
   uint8_t cbp = 0;       // CodedBlockPatternLuma | CodedBlockPatternChroma << 4
   uint8_t dc = 0;        // coded DC blocks (CABAC's coded_block_flag): 1 luma (Intra16x16), 2 Cb, 4 Cr
   uint8_t chroma_mode = 0;  // intra_chroma_pred_mode
+  bool direct16 = false;    // B_Direct_16x16
+  uint8_t shape = 0;        // its partitions as FFmpeg types it: 0 16x16 (or intra), 1 16x8, 2 8x16, 3 8x8
+  bool b_slice = false;     // decoded in a B slice (deblocking compares both lists there)
   bool Intra() const { return kind == kMbI4x4 || kind == kMbI16x16 || kind == kMbPcm; }
 };
 
@@ -569,7 +629,20 @@ class Decoder {
         pos += len;
       }
     }
-    if (cur_) FinishPicture();  // a call holds whole access units; each picture is output as it finishes
+    if (cur_) FinishPicture();  // a call holds whole access units
+    ++unit_;
+    return static_cast<int>(output_.size());
+  }
+
+  // The end of the stream: the pictures still held back, as FFmpeg's send_next_delayed_frame outputs them (the lowest
+  // picture order count first, up to a key frame or an MMCO 5 picture).
+  int Flush() {
+    output_.clear();
+    while (!delayed_.empty()) {
+      const size_t out = NextDelayed();
+      Emit(delayed_[out]);
+      delayed_.erase(delayed_.begin() + static_cast<std::ptrdiff_t>(out));
+    }
     return static_cast<int>(output_.size());
   }
 
@@ -626,16 +699,62 @@ class Decoder {
 
   // ---- slice header
   struct Header {
-    int first_mb = 0, type = 0, pps_id = 0, frame_num = 0, poc_lsb = 0;
-    int delta_poc_bottom = 0, delta_poc[2] = {0, 0}, num_ref = 1, qp = 26;
+    int first_mb = 0, type = 0, pps_id = 0, frame_num = 0, poc_lsb = 0;  // type 0: P, 1: B, 2: I
+    int delta_poc_bottom = 0, delta_poc[2] = {0, 0}, num_ref[2] = {1, 0}, qp = 26;
     int deblock_idc = 0, alpha_offset = 0, beta_offset = 0;
     int luma_log2 = 0, chroma_log2 = 0, cabac_init_idc = 0;
-    bool idr = false, long_term_reference = false, adaptive = false, weighted = false;
-    int ref_idc = 0;
-    std::vector<std::pair<int, int>> modifications;
-    std::vector<Weight> weights;
+    bool idr = false, long_term_reference = false, adaptive = false, weighted = false, direct_spatial = false;
+    bool use_weight = false;  // FFmpeg's use_weight: a weight or offset of the table unlike the default
+    int ref_idc = 0, bipred_idc = 0;
+    std::vector<std::pair<int, int>> modifications[2];
+    std::vector<Weight> weights[2];
     std::vector<Mmco> mmco;
   };
+
+  void ReadModifications(BitReader& br, std::vector<std::pair<int, int>>* mods) {
+    if (!br.Bit()) return;  // ref_pic_list_modification_flag_lX
+    for (;;) {
+      const uint32_t idc = br.Ue();
+      if (idc == 3) break;
+      if (idc > 3) throw Corrupt("modification_of_pic_nums_idc above 3");
+      mods->emplace_back(static_cast<int>(idc), static_cast<int>(br.Ue()));
+      if (mods->size() > 32) throw Corrupt("more than 32 reference list modifications");
+    }
+  }
+
+  // pred_weight_table() (7.3.3.2) of the slice's lists.
+  void ReadWeights(BitReader& br, Header* h, int lists) {
+    h->weighted = true;
+    h->luma_log2 = br.Ue();
+    h->chroma_log2 = br.Ue();
+    if (h->luma_log2 > 7 || h->chroma_log2 > 7) throw Corrupt("log2 weight denominator above 7");
+    for (int l = 0; l < lists; ++l) {
+      h->weights[l].resize(h->num_ref[l]);
+      for (int i = 0; i < h->num_ref[l]; ++i) {
+        Weight& w = h->weights[l][i];
+        w.luma_w = 1 << h->luma_log2;
+        w.chroma_w[0] = w.chroma_w[1] = 1 << h->chroma_log2;
+        if (br.Bit()) {
+          w.luma = true;
+          w.luma_w = br.Se();
+          w.luma_o = br.Se();
+          h->use_weight |= w.luma_w != 1 << h->luma_log2 || w.luma_o != 0;
+        }
+        if (br.Bit()) {
+          w.chroma = true;
+          for (int j = 0; j < 2; ++j) {
+            w.chroma_w[j] = br.Se();
+            w.chroma_o[j] = br.Se();
+            h->use_weight |= w.chroma_w[j] != 1 << h->chroma_log2 || w.chroma_o[j] != 0;
+          }
+        }
+        auto out = [](int v) { return v < -128 || v > 127; };
+        if ((w.luma && (out(w.luma_w) || out(w.luma_o))) ||
+            (w.chroma && (out(w.chroma_w[0]) || out(w.chroma_o[0]) || out(w.chroma_w[1]) || out(w.chroma_o[1]))))
+          throw Corrupt("prediction weight or offset out of range");
+      }
+    }
+  }
 
   void Slice(const std::vector<uint8_t>& rbsp, int ref_idc, bool idr) {
     BitReader br(rbsp.data(), rbsp.size());
@@ -646,10 +765,9 @@ class Decoder {
     const uint32_t slice_type = br.Ue();
     if (slice_type > 9) throw Corrupt("slice_type above 9");
     h.type = slice_type % 5;
-    if (h.type == 1) throw Unsupported("B slices");
     if (h.type == 3) throw Unsupported("SP slices");
     if (h.type == 4) throw Unsupported("SI slices");
-    if (idr && h.type != 2) throw Corrupt("an IDR picture with a P slice");
+    if (idr && h.type != 2) throw Corrupt("an IDR picture with a P or B slice");
     h.pps_id = br.Ue();
     if (h.pps_id > 255 || !pps_[h.pps_id].valid) {
       if (h.pps_id <= 255 && !pps_[h.pps_id].unsupported.empty())
@@ -672,47 +790,22 @@ class Decoder {
       if (pps.bottom_field_pic_order) h.delta_poc[1] = br.Se();
     }
     if (pps.redundant_pic_cnt && br.Ue() > 0) throw Unsupported("redundant pictures (redundant_pic_cnt above 0)");
-    h.num_ref = pps.num_ref_idx_default;
-    if (h.type == 0) {
-      if (br.Bit()) h.num_ref = br.Ue() + 1;
-      if (h.num_ref > 16) throw Corrupt("num_ref_idx_l0_active_minus1 above 15");
-      if (br.Bit()) {  // ref_pic_list_modification_flag_l0
-        for (;;) {
-          const uint32_t idc = br.Ue();
-          if (idc == 3) break;
-          if (idc > 3) throw Corrupt("modification_of_pic_nums_idc above 3");
-          h.modifications.emplace_back(static_cast<int>(idc), static_cast<int>(br.Ue()));
-          if (h.modifications.size() > 32) throw Corrupt("more than 32 reference list modifications");
-        }
+    const bool b = h.type == 1;
+    if (b) h.direct_spatial = br.Bit();
+    h.num_ref[0] = pps.num_ref_idx_default;
+    h.num_ref[1] = b ? pps.num_ref_idx_l1_default : 0;
+    if (h.type != 2) {
+      if (br.Bit()) {  // num_ref_idx_active_override_flag
+        h.num_ref[0] = br.Ue() + 1;
+        if (b) h.num_ref[1] = br.Ue() + 1;
       }
-      if (pps.weighted_pred) {
-        h.weighted = true;
-        h.luma_log2 = br.Ue();
-        h.chroma_log2 = br.Ue();
-        if (h.luma_log2 > 7 || h.chroma_log2 > 7) throw Corrupt("log2 weight denominator above 7");
-        h.weights.resize(h.num_ref);
-        for (int i = 0; i < h.num_ref; ++i) {
-          Weight& w = h.weights[i];
-          w.luma_w = 1 << h.luma_log2;
-          w.chroma_w[0] = w.chroma_w[1] = 1 << h.chroma_log2;
-          if (br.Bit()) {
-            w.luma = true;
-            w.luma_w = br.Se();
-            w.luma_o = br.Se();
-          }
-          if (br.Bit()) {
-            w.chroma = true;
-            for (int j = 0; j < 2; ++j) {
-              w.chroma_w[j] = br.Se();
-              w.chroma_o[j] = br.Se();
-            }
-          }
-          auto out = [](int v) { return v < -128 || v > 127; };
-          if ((w.luma && (out(w.luma_w) || out(w.luma_o))) ||
-              (w.chroma && (out(w.chroma_w[0]) || out(w.chroma_o[0]) || out(w.chroma_w[1]) || out(w.chroma_o[1]))))
-            throw Corrupt("prediction weight or offset out of range");
-        }
-      }
+      if (h.num_ref[0] > 16) throw Corrupt("num_ref_idx_l0_active_minus1 above 15");
+      if (h.num_ref[1] > 16) throw Corrupt("num_ref_idx_l1_active_minus1 above 15");
+      for (int l = 0; l < (b ? 2 : 1); ++l) ReadModifications(br, &h.modifications[l]);
+      if (h.type == 0 ? pps.weighted_pred : pps.bipred_idc == 1) ReadWeights(br, &h, b ? 2 : 1);
+      if (b) h.bipred_idc = pps.bipred_idc;
+    } else {
+      h.num_ref[0] = 0;
     }
     if (ref_idc) {
       if (idr) {
@@ -736,7 +829,7 @@ class Decoder {
         }
       }
     }
-    if (pps.cabac && h.type == 0) {
+    if (pps.cabac && h.type != 2) {
       h.cabac_init_idc = br.Ue();
       if (h.cabac_init_idc > 2) throw Corrupt("cabac_init_idc above 2");
     }
@@ -768,16 +861,18 @@ class Decoder {
       if (sps_index_ != pps.sps_id) throw Corrupt("slices of one picture use two sequence parameter sets");
     }
     ++stats_[kSlices];
-    ++stats_[h.type == 2 ? kISlices : kPSlices];
+    ++stats_[h.type == 2 ? kISlices : h.type == 0 ? kPSlices : kBSlices];
     ++stats_[kDeblockIdc0 + h.deblock_idc];
     if (h.deblock_idc != 1 && (h.alpha_offset || h.beta_offset)) ++stats_[kDeblockOffsets];
     if (pps.constrained_intra) ++stats_[kConstrainedIntraSlices];
-    if (h.weighted) ++stats_[kWeightedSlices];
+    if (h.weighted) ++stats_[b ? kExplicitBipredSlices : kWeightedSlices];
+    if (b && h.bipred_idc == 2) ++stats_[kImplicitBipredSlices];
     if (pps.cabac) {
       ++stats_[kCabacSlices];
-      if (h.type == 0) ++stats_[kCabacInitIdc0 + h.cabac_init_idc];
+      if (h.type != 2) ++stats_[kCabacInitIdc0 + h.cabac_init_idc];
     }
-    stats_[kListModifications] += static_cast<int64_t>(h.modifications.size());
+    stats_[kListModifications] += static_cast<int64_t>(h.modifications[0].size());
+    stats_[kList1Modifications] += static_cast<int64_t>(h.modifications[1].size());
 
     SliceInfo info;
     info.deblock_idc = h.deblock_idc;
@@ -789,8 +884,9 @@ class Decoder {
     slices_.push_back(info);
     slice_ = static_cast<int>(slices_.size()) - 1;
     if (slice_ == 1) ++stats_[kMultiSlicePictures];
-    if (h.type == 0) BuildRefList(h);
     header_ = h;
+    sps_direct_8x8_ = sps.direct_8x8_inference;
+    BuildRefLists(h);
     SliceData(br, h, pps);
   }
 
@@ -798,7 +894,7 @@ class Decoder {
   void StartPicture(const Header& h, const Sps& sps, const Pps& pps) {
     if (!h.idr && !seen_idr_) {
       if (h.type == 2) throw Unsupported("a stream that starts without an IDR picture");
-      throw Corrupt("a P slice before the first IDR picture");
+      throw Corrupt(h.type == 0 ? "a P slice before the first IDR picture" : "a B slice before the first IDR picture");
     }
     const int width = 16 * sps.mb_width, height = 16 * sps.mb_height;
     if (sps.crop_left)
@@ -823,6 +919,7 @@ class Decoder {
       prev_poc_msb_ = 1 << 16, prev_poc_lsb_ = -1;  // FFmpeg's idr()
       prev_frame_num_offset_ = 0;
       prev_frame_num_ = 0;
+      std::fill(std::begin(last_pocs_), std::end(last_pocs_), kNoPoc);
       seen_idr_ = true;
     } else if (h.frame_num != prev_ref_frame_num_ && h.frame_num != (prev_ref_frame_num_ + 1) % max_frame_num) {
       throw Unsupported("gaps in frame_num (" + std::to_string(prev_ref_frame_num_) + " then " +
@@ -835,14 +932,19 @@ class Decoder {
     cur_->u.assign(static_cast<size_t>(width / 2) * (height / 2), 0);
     cur_->v.assign(cur_->u.size(), 0);
     cur_->frame_num = h.frame_num;
+    cur_->unit = unit_;
+    cur_->key = h.idr;
     cur_->colour = sr_yuv::SimdCoefficients(sr_yuv::MatrixTable(sps.matrix), sps.full_range);
     cur_header_ = h;
     mbs_.assign(static_cast<size_t>(mb_width_) * mb_height_, MbInfo());
     const size_t blocks = static_cast<size_t>(mb_width_) * mb_height_ * 16;
-    mv_.assign(blocks * 2, 0);
-    mvd_.assign(blocks * 2, 0);
-    ref_.assign(blocks, -1);
-    refpic_.assign(blocks, 0);
+    for (int l = 0; l < 2; ++l) {
+      mv_[l].assign(blocks * 2, 0);
+      mvd_[l].assign(blocks * 2, 0);
+      ref_[l].assign(blocks, -1);
+      refpic_[l].assign(blocks, 0);
+    }
+    direct_.assign(blocks, 0);
     slices_.clear();
     next_mb_ = 0;
     // Picture order count as FFmpeg derives it (ff_h264_init_poc): 8.2.1, except that after an MMCO 5 it goes on
@@ -881,13 +983,73 @@ class Decoder {
     }
     cur_frame_num_offset_ = frame_num_offset;
     cur_->poc = std::min(top, bottom);
-    if (!h.idr && cur_->poc <= last_poc_)
-      throw Unsupported("a picture order count that does not increase in decoding order (" +
-                        std::to_string(last_poc_) + " then " + std::to_string(cur_->poc) +
-                        " as FFmpeg counts: its output order then depends on its thread count)");
+    if (!h.idr && cur_->poc <= last_poc_ && !sps.restriction)
+      throw Unsupported("a picture order count that does not increase in decoding order in a stream without the "
+                        "VUI's bitstream_restriction_flag (" + std::to_string(last_poc_) + " then " +
+                        std::to_string(cur_->poc) + " as FFmpeg counts: its output order then depends on its thread "
+                        "count)");
     ++stats_[kPocType0 + sps.poc_type];
     cur_max_frame_num_ = max_frame_num;
     cur_max_refs_ = std::max(sps.max_num_ref_frames, 1);
+    if (h.type == 1 && h.ref_idc) ++stats_[kReferenceBPictures];
+    SelectOutput(sps);
+  }
+
+  // FFmpeg's h264_select_output_frame, at the start of each picture: with the VUI's bitstream restriction the picture
+  // joins those held back and, once more are held than max_num_reorder_frames, the one of lowest picture order count
+  // (up to a key frame or an MMCO 5 picture) is output when the current one has been decoded, or dropped where it
+  // comes before one already output. Without the restriction every picture is output as it is decoded: FFmpeg then
+  // grows its delay from what it sees, and its order is the decoding order wherever the count increases (elsewhere
+  // the stream is refused).
+  void SelectOutput(const Sps& sps) {
+    Picture& cur = *cur_;
+    cur.mmco_reset = mmco_reset_;
+    mmco_reset_ = false;
+    if (!sps.restriction) {
+      pending_output_ = cur_;
+      return;
+    }
+    has_b_frames_ = std::max(has_b_frames_, sps.num_reorder);
+    int i = 0;  // last_pocs_: the 16 largest counts seen, ascending
+    for (;; ++i) {
+      if (i == 16 || cur.poc < last_pocs_[i]) {
+        if (i) last_pocs_[i - 1] = cur.poc;
+        break;
+      } else if (i) {
+        last_pocs_[i - 1] = last_pocs_[i];
+      }
+    }
+    if (16 - i == 16) {  // "Invalid POC": a count below every one kept
+      std::fill(std::begin(last_pocs_), std::end(last_pocs_), kNoPoc);
+      last_pocs_[0] = cur.poc;
+      cur.mmco_reset = true;
+    }
+    delayed_.push_back(cur_);
+    const size_t out = NextDelayed();
+    if (has_b_frames_ == 0 && (delayed_[0]->key || delayed_[0]->mmco_reset)) next_output_poc_ = kNoPoc;
+    const PicturePtr picked = delayed_[out];
+    const bool out_of_order = picked->poc < next_output_poc_;
+    const bool ready = static_cast<int>(delayed_.size()) > has_b_frames_;
+    if (out_of_order || ready) delayed_.erase(delayed_.begin() + static_cast<std::ptrdiff_t>(out));
+    if (!out_of_order && ready) {
+      pending_output_ = picked;
+      next_output_poc_ = out == 0 && !delayed_.empty() && (delayed_[0]->key || delayed_[0]->mmco_reset)
+                             ? kNoPoc : picked->poc;
+    }
+  }
+
+  // The held-back picture of lowest picture order count before the first key frame or MMCO 5 picture after the first.
+  size_t NextDelayed() const {
+    size_t out = 0;
+    for (size_t i = 1; i < delayed_.size() && !delayed_[i]->key && !delayed_[i]->mmco_reset; ++i)
+      if (delayed_[i]->poc < delayed_[out]->poc) out = i;
+    return out;
+  }
+
+  void Emit(const PicturePtr& pic) {
+    if (pic->id < max_output_id_) ++stats_[kReorderedPictures];
+    max_output_id_ = std::max(max_output_id_, pic->id);
+    output_.push_back(pic);
   }
 
   void FinishPicture() {
@@ -908,7 +1070,15 @@ class Decoder {
     prev_frame_num_offset_ = cur_frame_num_offset_;
     prev_frame_num_ = cur_->frame_num;
     last_poc_ = cur_->poc;
-    output_.push_back(cur_);
+    for (int l = 0; l < 2; ++l) {
+      cur_->mv[l] = std::move(mv_[l]);
+      cur_->ref[l] = std::move(ref_[l]);
+    }
+    cur_->intra.resize(mbs_.size());
+    cur_->shape.resize(mbs_.size());
+    for (size_t i = 0; i < mbs_.size(); ++i) cur_->intra[i] = mbs_[i].Intra(), cur_->shape[i] = mbs_[i].shape;
+    if (pending_output_) Emit(pending_output_);
+    pending_output_.reset();
     cur_.reset();
   }
 
@@ -1013,7 +1183,11 @@ class Decoder {
     }
     Prune();
     if (!current_long) cur_->short_ref = true;
-    if (mmco5) cur_->frame_num = 0;
+    if (mmco5) {
+      cur_->frame_num = 0;
+      cur_->mmco_reset = mmco_reset_ = true;  // FFmpeg's MMCO_RESET: this picture and the next one
+      std::fill(std::begin(last_pocs_), std::end(last_pocs_), kNoPoc);
+    }
     dpb_.push_back(cur_);
     int count = 0;
     for (auto& r : dpb_) count += r->short_ref || r->long_ref;
@@ -1021,56 +1195,95 @@ class Decoder {
     return mmco5;
   }
 
-  // ---- reference list (8.2.4)
-  void BuildRefList(const Header& h) {
+  // ---- reference lists (8.2.4)
+  void BuildRefLists(const Header& h) {
+    ref_list_[0].clear();
+    ref_list_[1].clear();
+    if (h.type == 2) return;
     UpdateWraps(h.frame_num);
     std::vector<PicturePtr> shorts, longs;
     for (auto& r : dpb_) {
       if (r->short_ref) shorts.push_back(r);
       if (r->long_ref) longs.push_back(r);
     }
-    std::sort(shorts.begin(), shorts.end(),
-              [](const PicturePtr& a, const PicturePtr& b) { return a->frame_num_wrap > b->frame_num_wrap; });
     std::sort(longs.begin(), longs.end(),
               [](const PicturePtr& a, const PicturePtr& b) { return a->long_idx < b->long_idx; });
-    std::vector<PicturePtr> list(shorts);
-    list.insert(list.end(), longs.begin(), longs.end());
-    if (static_cast<int>(list.size()) > h.num_ref) list.resize(h.num_ref);  // extra entries are discarded
-    list.resize(h.num_ref + 1);  // empty entries, and one spare for the modification process
-    int pred = h.frame_num, ref_idx = 0;
-    const int max_pic_num = cur_max_frame_num_;
-    for (const auto& [idc, value] : h.modifications) {
-      PicturePtr pic;
-      bool is_long = false;
-      int num = 0;
-      if (idc < 2) {
-        const int abs_diff = value + 1;
-        if (abs_diff > max_pic_num) throw Corrupt("abs_diff_pic_num_minus1 out of range");
-        int no_wrap = idc == 0 ? pred - abs_diff : pred + abs_diff;
-        if (no_wrap < 0) no_wrap += max_pic_num;
-        if (no_wrap >= max_pic_num) no_wrap -= max_pic_num;
-        pred = no_wrap;
-        num = no_wrap > h.frame_num ? no_wrap - max_pic_num : no_wrap;
-        pic = ShortByPicNum(num);
-      } else {
-        is_long = true;
-        num = value;
-        pic = LongByIdx(value);
+    std::vector<PicturePtr> init[2];
+    if (h.type == 0) {  // P: by PicNum, descending
+      std::sort(shorts.begin(), shorts.end(),
+                [](const PicturePtr& a, const PicturePtr& b) { return a->frame_num_wrap > b->frame_num_wrap; });
+      init[0] = shorts;
+    } else {  // B (8.2.4.2.3): by picture order count, those before the current picture first in list 0
+      std::vector<PicturePtr> before, after;
+      for (auto& r : shorts) (r->poc <= cur_->poc ? before : after).push_back(r);
+      std::sort(before.begin(), before.end(), [](const PicturePtr& a, const PicturePtr& b) { return a->poc > b->poc; });
+      std::sort(after.begin(), after.end(), [](const PicturePtr& a, const PicturePtr& b) { return a->poc < b->poc; });
+      init[0] = before;
+      init[0].insert(init[0].end(), after.begin(), after.end());
+      init[1] = after;
+      init[1].insert(init[1].end(), before.begin(), before.end());
+    }
+    for (int l = 0; l < (h.type == 1 ? 2 : 1); ++l) init[l].insert(init[l].end(), longs.begin(), longs.end());
+    if (h.type == 1 && init[1].size() > 1 && init[1] == init[0]) std::swap(init[1][0], init[1][1]);
+    for (int l = 0; l < (h.type == 1 ? 2 : 1); ++l) {
+      std::vector<PicturePtr>& list = init[l];
+      const int num_ref = h.num_ref[l];
+      if (static_cast<int>(list.size()) > num_ref) list.resize(num_ref);  // extra entries are discarded
+      list.resize(num_ref + 1);  // empty entries, and one spare for the modification process
+      int pred = h.frame_num, ref_idx = 0;
+      const int max_pic_num = cur_max_frame_num_;
+      for (const auto& [idc, value] : h.modifications[l]) {
+        PicturePtr pic;
+        bool is_long = false;
+        int num = 0;
+        if (idc < 2) {
+          const int abs_diff = value + 1;
+          if (abs_diff > max_pic_num) throw Corrupt("abs_diff_pic_num_minus1 out of range");
+          int no_wrap = idc == 0 ? pred - abs_diff : pred + abs_diff;
+          if (no_wrap < 0) no_wrap += max_pic_num;
+          if (no_wrap >= max_pic_num) no_wrap -= max_pic_num;
+          pred = no_wrap;
+          num = no_wrap > h.frame_num ? no_wrap - max_pic_num : no_wrap;
+          pic = ShortByPicNum(num);
+        } else {
+          is_long = true;
+          num = value;
+          pic = LongByIdx(value);
+        }
+        if (!pic) throw Corrupt("reference list modification names a missing picture");
+        if (ref_idx >= num_ref) throw Corrupt("more reference list modifications than entries");
+        for (int c = num_ref; c > ref_idx; --c) list[c] = list[c - 1];
+        list[ref_idx++] = pic;
+        int n = ref_idx;
+        for (int c = ref_idx; c <= num_ref; ++c) {
+          const PicturePtr& e = list[c];
+          const bool same =
+              e && (is_long ? (e->long_ref && e->long_idx == num) : (e->short_ref && e->frame_num_wrap == num));
+          if (!same) list[n++] = list[c];
+        }
       }
-      if (!pic) throw Corrupt("reference list modification names a missing picture");
-      if (ref_idx >= h.num_ref) throw Corrupt("more reference list modifications than entries");
-      for (int c = h.num_ref; c > ref_idx; --c) list[c] = list[c - 1];
-      list[ref_idx++] = pic;
-      int n = ref_idx;
-      for (int c = ref_idx; c <= h.num_ref; ++c) {
-        const PicturePtr& e = list[c];
-        const bool same =
-            e && (is_long ? (e->long_ref && e->long_idx == num) : (e->short_ref && e->frame_num_wrap == num));
-        if (!same) list[n++] = list[c];
+      list.resize(num_ref);
+      ref_list_[l] = list;
+      // FFmpeg keeps the lists of a picture's last slice for the co-located lookup, by frame_num.
+      cur_->list_count[l] = num_ref;
+      for (int i = 0; i < num_ref; ++i) cur_->list_frame_num[l][i] = list[i] ? list[i]->frame_num : -1;
+    }
+    if (h.type == 1) {
+      if (!ref_list_[1][0] || !ref_list_[0][0]) throw Corrupt("a B slice with an empty reference list entry 0");
+      if (!h.direct_spatial) {  // DistScaleFactor of each list 0 entry (8.4.1.2.3), as FFmpeg's get_scale_factor
+        const int64_t poc1 = ref_list_[1][0]->poc;
+        for (int i = 0; i < h.num_ref[0]; ++i) {
+          dsf_[i] = 256;
+          if (!ref_list_[0][i]) continue;
+          const int64_t poc0 = ref_list_[0][i]->poc;
+          const int td = Clip3(-128, 127, static_cast<int>(poc1 - poc0));
+          if (td == 0 || ref_list_[0][i]->long_ref) continue;
+          const int tb = Clip3(-128, 127, static_cast<int>(cur_->poc - poc0));
+          const int tx = (16384 + (std::abs(td) >> 1)) / td;
+          dsf_[i] = Clip3(-1024, 1023, (tb * tx + 32) >> 6);
+        }
       }
     }
-    list.resize(h.num_ref);
-    ref_list_ = list;
   }
 
   // ---- slice data (7.3.4)
@@ -1090,7 +1303,7 @@ class Decoder {
       prev_qp_delta_ = 0;
       for (;;) {
         if (mb >= total) throw Corrupt("slice data past the picture");
-        if (h.type == 0 && Dec(11 + SkipCtxInc(mb % mb_width_, mb / mb_width_))) {
+        if (h.type != 2 && Dec((h.type == 1 ? 24 : 11) + SkipCtxInc(mb % mb_width_, mb / mb_width_))) {
           SkipMb(mb, qp);
           prev_qp_delta_ = 0;
         } else {
@@ -1103,7 +1316,7 @@ class Decoder {
       return;
     }
     while (more) {
-      if (h.type == 0) {
+      if (h.type != 2) {
         const uint32_t run = br.Ue();
         if (run > static_cast<uint32_t>(total - mb)) throw Corrupt("mb_skip_run past the picture");
         if (run) ++stats_[kSkipRuns];
@@ -1138,15 +1351,15 @@ class Decoder {
   }
 
   // mb_type of an I macroblock (Table 9-36): prefix bins from ctxIdx 3 in I slices (its first by the neighbours), as
-  // the suffix from 17 in P slices.
-  int CabacIntraType(bool i_slice, int mbx, int mby) {
+  // the suffix from 17 in P slices and from 32 in B slices.
+  int CabacIntraType(bool i_slice, int mbx, int mby, int base = 17) {
     auto cond = [](const MbInfo* n) { return n && (n->kind == kMbI16x16 || n->kind == kMbPcm); };
-    if (!Dec(i_slice ? 3 + cond(MbAt(mbx - 1, mby)) + cond(MbAt(mbx, mby - 1)) : 17)) return 0;  // I_NxN
-    if (engine_.Terminate()) return 25;                                                            // I_PCM
-    int type = 1 + 12 * Dec(i_slice ? 6 : 18);
-    if (Dec(i_slice ? 7 : 19)) type += 4 + 4 * Dec(i_slice ? 8 : 19);
-    type += 2 * Dec(i_slice ? 9 : 20);
-    return type + Dec(i_slice ? 10 : 20);
+    if (!Dec(i_slice ? 3 + cond(MbAt(mbx - 1, mby)) + cond(MbAt(mbx, mby - 1)) : base)) return 0;  // I_NxN
+    if (engine_.Terminate()) return 25;                                                              // I_PCM
+    int type = 1 + 12 * Dec(i_slice ? 6 : base + 1);
+    if (Dec(i_slice ? 7 : base + 2)) type += 4 + 4 * Dec(i_slice ? 8 : base + 2);
+    type += 2 * Dec(i_slice ? 9 : base + 3);
+    return type + Dec(i_slice ? 10 : base + 3);
   }
 
   // The macroblock holding the picture's 4x4 block (bx, by), seen from the current macroblock (mbx, mby): itself,
@@ -1175,8 +1388,8 @@ class Decoder {
     int ref = -1, mvx = 0, mvy = 0;
   };
 
-  // The motion of the 4x4 block at picture block coordinates (bx, by), seen from the current MB.
-  Neighbour Motion(int bx, int by, int cur_mbx, int cur_mby, int decoded_mask) const {
+  // The motion in list `list` of the 4x4 block at picture block coordinates (bx, by), seen from the current MB.
+  Neighbour Motion(int bx, int by, int cur_mbx, int cur_mby, int decoded_mask, int list = 0) const {
     Neighbour n;
     const int mbx = bx >> 2, mby = by >> 2;
     if (bx < 0 || by < 0 || mbx >= mb_width_ || mby >= mb_height_) return n;
@@ -1188,19 +1401,20 @@ class Decoder {
     }
     n.available = true;
     const size_t b = static_cast<size_t>(by) * mb_width_ * 4 + bx;
-    n.ref = ref_[b];
-    if (n.ref >= 0) n.mvx = mv_[2 * b], n.mvy = mv_[2 * b + 1];
+    n.ref = ref_[list][b];
+    if (n.ref >= 0) n.mvx = mv_[list][2 * b], n.mvy = mv_[list][2 * b + 1];
     return n;
   }
 
   // Motion vector prediction (8.4.1.3) for the partition at block (x4, y4) of the MB, w4 blocks wide;
   // shape 1: 16x8, 2: 8x16 (their directional rules), 0: any other.
-  void PredictMv(int mbx, int mby, int x4, int y4, int w4, int ref, int mask, int shape, int* px, int* py) const {
+  void PredictMv(int mbx, int mby, int x4, int y4, int w4, int ref, int mask, int shape, int* px, int* py,
+                 int list = 0) const {
     const int bx = mbx * 4 + x4, by = mby * 4 + y4;
-    Neighbour a = Motion(bx - 1, by, mbx, mby, mask);
-    Neighbour b = Motion(bx, by - 1, mbx, mby, mask);
-    Neighbour c = Motion(bx + w4, by - 1, mbx, mby, mask);
-    if (!c.available) c = Motion(bx - 1, by - 1, mbx, mby, mask);
+    Neighbour a = Motion(bx - 1, by, mbx, mby, mask, list);
+    Neighbour b = Motion(bx, by - 1, mbx, mby, mask, list);
+    Neighbour c = Motion(bx + w4, by - 1, mbx, mby, mask, list);
+    if (!c.available) c = Motion(bx - 1, by - 1, mbx, mby, mask, list);
     if (shape == 1) {  // 16x8
       if (y4 == 0 && b.ref == ref) return void((*px = b.mvx, *py = b.mvy));
       if (y4 != 0 && a.ref == ref) return void((*px = a.mvx, *py = a.mvy));
@@ -1219,14 +1433,15 @@ class Decoder {
     *py = Median(a.mvy, b.mvy, c.mvy);
   }
 
-  void SetMotion(int mbx, int mby, int x4, int y4, int w4, int h4, int ref, int mvx, int mvy, int* mask) {
+  void SetMotion(int mbx, int mby, int x4, int y4, int w4, int h4, int ref, int mvx, int mvy, int* mask,
+                 int list = 0) {
     for (int y = y4; y < y4 + h4; ++y)
       for (int x = x4; x < x4 + w4; ++x) {
         const size_t b = static_cast<size_t>(mby * 4 + y) * mb_width_ * 4 + mbx * 4 + x;
-        ref_[b] = static_cast<int8_t>(ref);
-        refpic_[b] = ref >= 0 ? ref_list_[ref]->id : 0;
-        mv_[2 * b] = static_cast<int16_t>(mvx);
-        mv_[2 * b + 1] = static_cast<int16_t>(mvy);
+        ref_[list][b] = static_cast<int8_t>(ref);
+        refpic_[list][b] = ref >= 0 ? ref_list_[list][ref]->id : 0;
+        mv_[list][2 * b] = static_cast<int16_t>(ref >= 0 ? mvx : 0);
+        mv_[list][2 * b + 1] = static_cast<int16_t>(ref >= 0 ? mvy : 0);
         *mask |= 1 << (y * 4 + x);
       }
   }
@@ -1239,8 +1454,13 @@ class Decoder {
     m.slice = slice_;
     m.kind = kMbSkip;
     m.qp = qp;
+    m.b_slice = header_.type == 1;
     std::fill(std::begin(m.i4), std::end(m.i4), 2);
-    if (ref_list_.empty() || !ref_list_[0]) throw Corrupt("P_Skip with an empty reference list");
+    if (header_.type == 1) {
+      BDirectMb(addr, true);
+      return;
+    }
+    if (ref_list_[0].empty() || !ref_list_[0][0]) throw Corrupt("P_Skip with an empty reference list");
     int mvx = 0, mvy = 0, mask = 0;
     const Neighbour a = Motion(mbx * 4 - 1, mby * 4, mbx, mby, 0), b = Motion(mbx * 4, mby * 4 - 1, mbx, mby, 0);
     if (a.available && b.available && !(a.ref == 0 && a.mvx == 0 && a.mvy == 0) &&
@@ -1253,15 +1473,19 @@ class Decoder {
     InterPredict(mbx, mby, 0, 0, 16, 16, 0, mvx, mvy);
   }
 
-  // ref_idx_l0 of the partition whose top-left 4x4 block is (x4, y4); cur_ref: the reference indices read so far
-  // in the macroblock (CABAC's context).
-  int ReadRefIdx(BitReader& br, int num_ref, int mbx, int mby, int x4, int y4, const int* cur_ref) {
+  // ref_idx_lX of the partition whose top-left 4x4 block is (x4, y4); cur_ref: the reference indices read so far
+  // in the macroblock (CABAC's context), cur_direct: its direct blocks (B slices; nullptr in P slices).
+  int ReadRefIdx(BitReader& br, int num_ref, int mbx, int mby, int x4, int y4, const int* cur_ref, int list = 0,
+                 const uint8_t* cur_direct = nullptr) {
     int v = 0;
     if (num_ref > 1 && cabac_) {
-      auto cond = [&](int x, int y) {  // refIdxZeroFlag's complement: the neighbouring partition's index above 0
-        if (x >= 0 && y >= 0) return cur_ref[y * 4 + x] > 0;
+      // refIdxZeroFlag's complement: the neighbouring partition's index above 0, where (in B slices) it is not
+      // predicted in direct mode.
+      auto cond = [&](int x, int y) {
+        if (x >= 0 && y >= 0) return cur_ref[y * 4 + x] > 0 && !(cur_direct && cur_direct[y * 4 + x]);
         const int bx = mbx * 4 + x, by = mby * 4 + y;
-        return BlockMb(bx, by, mbx, mby) != nullptr && ref_[static_cast<size_t>(by) * mb_width_ * 4 + bx] > 0;
+        const size_t b = static_cast<size_t>(by) * mb_width_ * 4 + bx;
+        return BlockMb(bx, by, mbx, mby) != nullptr && ref_[list][b] > 0 && !(cur_direct && direct_[b]);
       };
       int ctx = 54 + cond(x4 - 1, y4) + 2 * cond(x4, y4 - 1);
       while (Dec(ctx)) {
@@ -1274,18 +1498,18 @@ class Decoder {
       v = static_cast<int>(std::min<uint32_t>(br.Ue(), 32));
     }
     if (v >= num_ref) throw Corrupt("ref_idx_l0 past num_ref_idx_l0_active");
-    if (!ref_list_[v]) throw Corrupt("ref_idx_l0 names an empty reference list entry");
+    if (!ref_list_[list][v]) throw Corrupt("ref_idx_l0 names an empty reference list entry");
     if (v > 0) ++stats_[kRefIdxNonzero];
     return v;
   }
 
   // One component of mvd_l0 (comp 0: horizontal) of the partition whose top-left 4x4 block is (x4, y4).
-  int ReadMvd(BitReader& br, int comp, int mbx, int mby, int x4, int y4) {
+  int ReadMvd(BitReader& br, int comp, int mbx, int mby, int x4, int y4, int list = 0) {
     if (!cabac_) return br.Se();
     auto abs_at = [&](int x, int y) -> int {
       const int bx = mbx * 4 + x, by = mby * 4 + y;
       if (!BlockMb(bx, by, mbx, mby)) return 0;
-      return mvd_[2 * (static_cast<size_t>(by) * mb_width_ * 4 + bx) + comp];
+      return mvd_[list][2 * (static_cast<size_t>(by) * mb_width_ * 4 + bx) + comp];
     };
     const int base = comp ? 47 : 40, sum = abs_at(x4 - 1, y4) + abs_at(x4, y4 - 1);
     if (!Dec(base + (sum < 3 ? 0 : sum > 32 ? 2 : 1))) return 0;
@@ -1308,12 +1532,12 @@ class Decoder {
 
   // The absolute mvd components of a partition, for CABAC's mvd contexts (at most 70, as their sums are compared
   // with 3 and 32).
-  void SetMvd(int mbx, int mby, int x4, int y4, int w4, int h4, int dx, int dy) {
+  void SetMvd(int mbx, int mby, int x4, int y4, int w4, int h4, int dx, int dy, int list = 0) {
     for (int y = y4; y < y4 + h4; ++y)
       for (int x = x4; x < x4 + w4; ++x) {
         const size_t b = static_cast<size_t>(mby * 4 + y) * mb_width_ * 4 + mbx * 4 + x;
-        mvd_[2 * b] = static_cast<uint8_t>(std::min(std::abs(dx), 70));
-        mvd_[2 * b + 1] = static_cast<uint8_t>(std::min(std::abs(dy), 70));
+        mvd_[list][2 * b] = static_cast<uint8_t>(std::min(std::abs(dx), 70));
+        mvd_[list][2 * b + 1] = static_cast<uint8_t>(std::min(std::abs(dy), 70));
       }
   }
 
@@ -1322,29 +1546,37 @@ class Decoder {
     m = MbInfo();
     m.slice = slice_;
     std::fill(std::begin(m.i4), std::end(m.i4), 2);
+    m.b_slice = h.type == 1;
     const int mbx = addr % mb_width_, mby = addr / mb_width_;
-    const bool p_slice = h.type == 0;
+    const bool p_slice = h.type == 0, b_slice = h.type == 1;
     int mb_type = 0;
-    bool intra = !p_slice;
+    bool intra = h.type == 2;
     if (cabac_) {
       if (p_slice && !Dec(14)) {
         mb_type = !Dec(15) ? 3 * Dec(16) : 2 - Dec(17);  // P_L0_16x16, P_8x8; P_L0_L0_8x16, P_L0_L0_16x8 (Table 9-37)
+      } else if (b_slice && (mb_type = CabacBType(mbx, mby)) >= 0) {
       } else {
         intra = true;
-        mb_type = CabacIntraType(!p_slice, mbx, mby);
+        mb_type = CabacIntraType(h.type == 2, mbx, mby, b_slice ? 32 : 17);
       }
     } else {
-      const uint32_t v = br.Ue();
-      if (p_slice ? v > 30 : v > 25)
-        throw Corrupt(p_slice ? "mb_type above 30 in a P slice" : "mb_type above 25 in an I slice");
-      intra = !p_slice || v >= 5;
-      mb_type = static_cast<int>(p_slice && intra ? v - 5 : v);
+      const uint32_t v = br.Ue(), first_intra = p_slice ? 5 : b_slice ? 23 : 0;
+      if (v > first_intra + 25)
+        throw Corrupt(p_slice ? "mb_type above 30 in a P slice" : b_slice ? "mb_type above 48 in a B slice"
+                                                                          : "mb_type above 25 in an I slice");
+      intra = v >= first_intra;
+      mb_type = static_cast<int>(intra ? v - first_intra : v);
     }
     if (!intra) {
-      InterMb(br, h, pps, addr, mb_type, qp);
+      if (b_slice) {
+        BInterMb(br, h, pps, addr, mb_type, qp);
+      } else {
+        InterMb(br, h, pps, addr, mb_type, qp);
+      }
       return;
     }
     if (p_slice) ++stats_[kIntraInP];
+    if (b_slice) ++stats_[kIntraInB];
     if (mb_type == 25) {
       PcmMb(br, addr, *qp);
       return;
@@ -1542,11 +1774,12 @@ class Decoder {
     const int mbx = addr % mb_width_, mby = addr / mb_width_;
     MbInfo& m = mbs_[addr];
     m.kind = kMbInter;
-    if (ref_list_.empty()) throw Corrupt("inter macroblock with an empty reference list");
+    if (ref_list_[0].empty()) throw Corrupt("inter macroblock with an empty reference list");
     int mask = 0, cur_ref[16];
     std::fill(std::begin(cur_ref), std::end(cur_ref), 0);
     static const int kStat[5] = {kP16x16, kP16x8, kP8x16, kP8x8, kP8x8Ref0};
     ++stats_[kStat[mb_type]];
+    m.shape = static_cast<uint8_t>(std::min(mb_type, 3));
     bool all_8x8 = true;  // no partition smaller than 8x8: the 8x8 transform may be chosen
     if (mb_type < 3) {
       const int parts = mb_type == 0 ? 1 : 2;
@@ -1555,7 +1788,7 @@ class Decoder {
         const int x4 = mb_type == 2 ? 2 * p : 0, y4 = mb_type == 1 ? 2 * p : 0;
         const int w4 = mb_type == 2 ? 2 : 4, h4 = mb_type == 1 ? 2 : 4;
         geo[p][0] = x4, geo[p][1] = y4, geo[p][2] = w4, geo[p][3] = h4;
-        refs[p] = ReadRefIdx(br, h.num_ref, mbx, mby, x4, y4, cur_ref);
+        refs[p] = ReadRefIdx(br, h.num_ref[0], mbx, mby, x4, y4, cur_ref);
         for (int y = y4; y < y4 + h4; ++y)
           for (int x = x4; x < x4 + w4; ++x) cur_ref[y * 4 + x] = refs[p];
       }
@@ -1589,10 +1822,10 @@ class Decoder {
       }
       for (int s = 0; s < 4; ++s) {
         const int sx = (s & 1) * 2, sy = (s >> 1) * 2;
-        refs[s] = mb_type == 4 ? 0 : ReadRefIdx(br, h.num_ref, mbx, mby, sx, sy, cur_ref);
+        refs[s] = mb_type == 4 ? 0 : ReadRefIdx(br, h.num_ref[0], mbx, mby, sx, sy, cur_ref);
         for (int k = 0; k < 4; ++k) cur_ref[(sy + (k >> 1)) * 4 + sx + (k & 1)] = refs[s];
       }
-      if (!ref_list_[0]) throw Corrupt("P_8x8ref0 with an empty reference list");
+      if (!ref_list_[0][0]) throw Corrupt("P_8x8ref0 with an empty reference list");
       int mvd[4][4][2];
       for (int s = 0; s < 4; ++s) {
         const int sx = (s & 1) * 2, sy = (s >> 1) * 2;
@@ -1619,6 +1852,14 @@ class Decoder {
         }
       }
     }
+    InterResidual(br, pps, addr, qp, all_8x8);
+  }
+
+  // The residual of an inter macroblock: coded_block_pattern, transform_size_8x8_flag where all_8x8 allows it,
+  // mb_qp_delta and the levels, added to the prediction.
+  void InterResidual(BitReader& br, const Pps& pps, int addr, int* qp, bool all_8x8) {
+    const int mbx = addr % mb_width_, mby = addr / mb_width_;
+    MbInfo& m = mbs_[addr];
     const int cbp = ReadCbp(br, mbx, mby, false);
     const int cbp_luma = cbp & 15, cbp_chroma = cbp >> 4;
     m.cbp = static_cast<uint8_t>(cbp);
@@ -1642,6 +1883,327 @@ class Decoder {
         AddResidual(cur_->y.data(), width_, mbx * 16 + (b & 3) * 4, mby * 16 + (b >> 2) * 4, c.luma[b], m.nz[b] > 0);
     }
     AddChroma(mbx, mby, c.chroma, addr);
+  }
+
+  // ---- B macroblocks
+  // The prediction of each partition of B mb_type 1-21 (Table 7-14): bit 0 list 0, bit 1 list 1.
+  static constexpr uint8_t kBPred[22][2] = {{0, 0}, {1, 0}, {2, 0}, {3, 0}, {1, 1}, {1, 1}, {2, 2}, {2, 2},
+                                            {1, 2}, {1, 2}, {2, 1}, {2, 1}, {1, 3}, {1, 3}, {2, 3}, {2, 3},
+                                            {3, 1}, {3, 1}, {3, 2}, {3, 2}, {3, 3}, {3, 3}};
+  // sub_mb_type in B slices (Table 7-18): the prediction (0: direct) and the partition (0 8x8, 1 8x4, 2 4x8, 3 4x4).
+  static constexpr uint8_t kBSubPred[13] = {0, 1, 2, 3, 1, 1, 2, 2, 3, 3, 1, 2, 3};
+  static constexpr uint8_t kBSubShape[13] = {0, 0, 0, 0, 1, 2, 1, 2, 1, 2, 3, 3, 3};
+
+  // mb_type in B slices (FFmpeg's decode_cabac_mb_type_b): 0-22, or -1 where the prefix announces an intra type.
+  int CabacBType(int mbx, int mby) {
+    auto cond = [](const MbInfo* n) { return n && n->kind != kMbSkip && !n->direct16; };
+    if (!Dec(27 + cond(MbAt(mbx - 1, mby)) + cond(MbAt(mbx, mby - 1)))) return 0;  // B_Direct_16x16
+    if (!Dec(30)) return 1 + Dec(32);                                                 // B_L0_16x16, B_L1_16x16
+    int bits = Dec(31) << 3;
+    bits |= Dec(32) << 2;
+    bits |= Dec(32) << 1;
+    bits |= Dec(32);
+    if (bits < 8) return bits + 3;
+    if (bits == 13) return -1;
+    if (bits == 14) return 11;
+    if (bits == 15) return 22;
+    return ((bits << 1) | Dec(32)) - 4;
+  }
+
+  int CabacBSubType() {  // sub_mb_type in B slices (FFmpeg's decode_cabac_b_mb_sub_type)
+    if (!Dec(36)) return 0;
+    if (!Dec(37)) return 1 + Dec(39);
+    int type = 3;
+    if (Dec(38)) {
+      if (Dec(39)) return 11 + Dec(39);
+      type += 4;
+    }
+    type += 2 * Dec(39);
+    return type + Dec(39);
+  }
+
+  // Direct prediction (8.4.1.2) of a macroblock's 16 4x4 blocks, with the partition FFmpeg's
+  // pred_spatial_direct_motion / pred_temp_direct_motion give it (which decides the block sizes it predicts with).
+  struct DirectMotion {
+    int ref[2][16];
+    int mv[2][16][2];
+    int shape;     // of a B_Skip / B_Direct_16x16 macroblock, as MbInfo::shape
+    bool sub4[4];  // in shape 3 (and in B_8x8), an 8x8 block predicted in 4x4 blocks
+  };
+
+  void Direct(int mbx, int mby, bool b8x8, DirectMotion* d) {
+    const Picture& col = *ref_list_[1][0];
+    const size_t col_mb = static_cast<size_t>(mby) * mb_width_ + mbx;
+    const bool col_intra = col.intra[col_mb];
+    auto col_block = [&](int k) {  // the co-located 4x4 block, or the corner of its 8x8 block
+      int x4 = k & 3, y4 = k >> 2;
+      if (sps_direct_8x8_) x4 = (x4 >> 1) * 3, y4 = (y4 >> 1) * 3;
+      return static_cast<size_t>(mby * 4 + y4) * mb_width_ * 4 + mbx * 4 + x4;
+    };
+    // FFmpeg types the macroblock 16x16 where the co-located one is 16x16 or intra, as its 16x8 / 8x16 partitions,
+    // else 8x8 (8x8 blocks under direct_8x8_inference_flag, else 4x4 blocks).
+    d->shape = b8x8 ? 3 : col_intra ? 0 : col.shape[col_mb];
+    for (bool& v : d->sub4) v = !sps_direct_8x8_;
+    if (!header_.direct_spatial) {
+      ++stats_[kTemporalDirectMbs];
+      for (int k = 0; k < 16; ++k) {
+        int ref0 = 0, mv0[2] = {0, 0}, mv1[2] = {0, 0};
+        if (!col_intra) {
+          const size_t cb = col_block(k);
+          const int l = col.ref[0][cb] >= 0 ? 0 : 1, ref_col = col.ref[l][cb];
+          const int mv_col[2] = {col.mv[l][2 * cb], col.mv[l][2 * cb + 1]};
+          // The lowest list 0 index whose picture has the frame_num of the co-located block's reference (FFmpeg's
+          // fill_colmap; 0 where none has).
+          if (ref_col >= 0 && ref_col < col.list_count[l]) {
+            for (int j = 0; j < header_.num_ref[0]; ++j)
+              if (ref_list_[0][j] && ref_list_[0][j]->frame_num == col.list_frame_num[l][ref_col]) {
+                ref0 = j;
+                break;
+              }
+          }
+          for (int c = 0; c < 2; ++c) {
+            mv0[c] = (dsf_[ref0] * mv_col[c] + 128) >> 8;
+            mv1[c] = mv0[c] - mv_col[c];
+          }
+        }
+        d->ref[0][k] = ref0, d->ref[1][k] = 0;
+        for (int c = 0; c < 2; ++c) d->mv[0][k][c] = mv0[c], d->mv[1][k][c] = mv1[c];
+      }
+      return;
+    }
+    ++stats_[kSpatialDirectMbs];
+    int ref[2], mv[2][2] = {{0, 0}, {0, 0}};
+    const int bx = mbx * 4, by = mby * 4;
+    auto min_positive = [](int x, int y) { return x >= 0 && y >= 0 ? std::min(x, y) : std::max(x, y); };
+    for (int l = 0; l < 2; ++l) {
+      const Neighbour a = Motion(bx - 1, by, mbx, mby, 0, l), b = Motion(bx, by - 1, mbx, mby, 0, l);
+      Neighbour c = Motion(bx + 4, by - 1, mbx, mby, 0, l);
+      if (!c.available) c = Motion(bx - 1, by - 1, mbx, mby, 0, l);
+      ref[l] = min_positive(a.ref, min_positive(b.ref, c.ref));
+      if (ref[l] >= 0) PredictMv(mbx, mby, 0, 0, 4, ref[l], 0, 0, &mv[l][0], &mv[l][1], l);
+    }
+    const bool zero = ref[0] < 0 && ref[1] < 0;  // both lists from reference 0 with zero vectors
+    if (zero) ref[0] = ref[1] = 0;
+    if (!b8x8 && !mv[0][0] && !mv[0][1] && !mv[1][0] && !mv[1][1]) d->shape = 0;
+    const bool col_usable = !col_intra && !col.long_ref;
+    int n = 0;
+    for (int i8 = 0; i8 < 4; ++i8) {
+      int m = 0;
+      bool cond8 = false;
+      for (int i4 = 0; i4 < 4; ++i4) {
+        const int k = ((i8 >> 1) * 2 + (i4 >> 1)) * 4 + (i8 & 1) * 2 + (i4 & 1);
+        const size_t cb = col_block(k);
+        // colZeroFlag: the co-located block from its reference 0 of list 0 (or, unused, of list 1), moved by at most
+        // one quarter sample.
+        const int l = col.ref[0][cb] == 0 ? 0 : 1;
+        cond8 = col_usable && (col.ref[0][cb] == 0 || (col.ref[0][cb] < 0 && col.ref[1][cb] == 0));
+        const bool col_zero =
+            cond8 && std::abs(col.mv[l][2 * cb]) <= 1 && std::abs(col.mv[l][2 * cb + 1]) <= 1;
+        m += col_zero;
+        for (int li = 0; li < 2; ++li) {
+          d->ref[li][k] = ref[li];
+          const bool z = zero || ref[li] < 0 || (ref[li] == 0 && col_zero);
+          d->mv[li][k][0] = z ? 0 : mv[li][0];
+          d->mv[li][k][1] = z ? 0 : mv[li][1];
+        }
+      }
+      if (!sps_direct_8x8_ && cond8 && (m == 0 || m == 4)) d->sub4[i8] = false;
+      n += m;
+    }
+    if (!b8x8 && (n == 0 || n == 16)) d->shape = 0;
+  }
+
+  void SetDirect(int mbx, int mby, int x4, int y4, int w4, int h4) {
+    for (int y = y4; y < y4 + h4; ++y)
+      for (int x = x4; x < x4 + w4; ++x) direct_[static_cast<size_t>(mby * 4 + y) * mb_width_ * 4 + mbx * 4 + x] = 1;
+  }
+
+  // The prediction of the block of w4 x h4 4x4 blocks at (x4, y4) from the motion set for its top-left one.
+  void PredictFromMotion(int mbx, int mby, int x4, int y4, int w4, int h4) {
+    const size_t b = static_cast<size_t>(mby * 4 + y4) * mb_width_ * 4 + mbx * 4 + x4;
+    InterPredictB(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, ref_[0][b], mv_[0][2 * b], mv_[0][2 * b + 1], ref_[1][b],
+                  mv_[1][2 * b], mv_[1][2 * b + 1]);
+  }
+
+  // The prediction of 8x8 block i8 of a direct macroblock or direct sub-macroblock.
+  void PredictDirect8x8(int mbx, int mby, const DirectMotion& d, int i8) {
+    const int x4 = (i8 & 1) * 2, y4 = (i8 >> 1) * 2;
+    if (!d.sub4[i8]) return PredictFromMotion(mbx, mby, x4, y4, 2, 2);
+    for (int k = 0; k < 4; ++k) PredictFromMotion(mbx, mby, x4 + (k & 1), y4 + (k >> 1), 1, 1);
+  }
+
+  // B_Skip (skip) or B_Direct_16x16: the direct motion of the macroblock and its prediction.
+  void BDirectMb(int addr, bool skip) {
+    const int mbx = addr % mb_width_, mby = addr / mb_width_;
+    MbInfo& m = mbs_[addr];
+    DirectMotion d;
+    Direct(mbx, mby, false, &d);
+    m.shape = static_cast<uint8_t>(d.shape);
+    for (int l = 0; l < 2; ++l) {
+      int mask = 0;
+      for (int k = 0; k < 16; ++k)
+        SetMotion(mbx, mby, k & 3, k >> 2, 1, 1, d.ref[l][k], d.mv[l][k][0], d.mv[l][k][1], &mask, l);
+      SetMvd(mbx, mby, 0, 0, 4, 4, 0, 0, l);
+    }
+    SetDirect(mbx, mby, 0, 0, 4, 4);
+    ++stats_[skip ? kBSkip : kBDirect16x16];
+    if (d.shape == 0) {
+      PredictFromMotion(mbx, mby, 0, 0, 4, 4);
+    } else if (d.shape == 1) {
+      PredictFromMotion(mbx, mby, 0, 0, 4, 2);
+      PredictFromMotion(mbx, mby, 0, 2, 4, 2);
+    } else if (d.shape == 2) {
+      PredictFromMotion(mbx, mby, 0, 0, 2, 4);
+      PredictFromMotion(mbx, mby, 2, 0, 2, 4);
+    } else {
+      for (int i8 = 0; i8 < 4; ++i8) PredictDirect8x8(mbx, mby, d, i8);
+    }
+  }
+
+  void BInterMb(BitReader& br, const Header& h, const Pps& pps, int addr, int mb_type, int* qp) {
+    const int mbx = addr % mb_width_, mby = addr / mb_width_;
+    MbInfo& m = mbs_[addr];
+    m.kind = kMbInter;
+    bool all_8x8 = true;  // no partition smaller than 8x8: the 8x8 transform may be chosen
+    const uint8_t no_direct[16] = {};
+    if (mb_type == 0) {
+      m.direct16 = true;
+      BDirectMb(addr, false);
+      all_8x8 = sps_direct_8x8_;
+    } else if (mb_type < 22) {
+      const int parts = mb_type < 4 ? 1 : 2, shape = mb_type < 4 ? 0 : (mb_type & 1) ? 2 : 1;
+      m.shape = static_cast<uint8_t>(shape);
+      ++stats_[parts == 1 ? kB16x16 : shape == 1 ? kB16x8 : kB8x16];
+      int geo[2][4], refs[2][2] = {{-1, -1}, {-1, -1}}, cur_ref[2][16], mvd[2][2][2] = {};
+      std::fill(&cur_ref[0][0], &cur_ref[0][0] + 32, -1);
+      for (int p = 0; p < parts; ++p) {
+        geo[p][0] = shape == 2 ? 2 * p : 0, geo[p][1] = shape == 1 ? 2 * p : 0;
+        geo[p][2] = shape == 2 ? 2 : 4, geo[p][3] = shape == 1 ? 2 : 4;
+      }
+      for (int l = 0; l < 2; ++l)
+        for (int p = 0; p < parts; ++p) {
+          if (!(kBPred[mb_type][p] >> l & 1)) continue;
+          refs[l][p] = ReadRefIdx(br, h.num_ref[l], mbx, mby, geo[p][0], geo[p][1], cur_ref[l], l, no_direct);
+          for (int y = geo[p][1]; y < geo[p][1] + geo[p][3]; ++y)
+            for (int x = geo[p][0]; x < geo[p][0] + geo[p][2]; ++x) cur_ref[l][y * 4 + x] = refs[l][p];
+        }
+      for (int l = 0; l < 2; ++l)
+        for (int p = 0; p < parts; ++p) {
+          if (refs[l][p] < 0) continue;
+          mvd[l][p][0] = ReadMvd(br, 0, mbx, mby, geo[p][0], geo[p][1], l);
+          mvd[l][p][1] = ReadMvd(br, 1, mbx, mby, geo[p][0], geo[p][1], l);
+          SetMvd(mbx, mby, geo[p][0], geo[p][1], geo[p][2], geo[p][3], mvd[l][p][0], mvd[l][p][1], l);
+        }
+      for (int l = 0; l < 2; ++l) {
+        int mask = 0;
+        for (int p = 0; p < parts; ++p) {
+          int px = 0, py = 0;
+          if (refs[l][p] >= 0)
+            PredictMv(mbx, mby, geo[p][0], geo[p][1], geo[p][2], refs[l][p], mask, shape, &px, &py, l);
+          SetMotion(mbx, mby, geo[p][0], geo[p][1], geo[p][2], geo[p][3], refs[l][p], px + mvd[l][p][0],
+                    py + mvd[l][p][1], &mask, l);
+        }
+      }
+      for (int p = 0; p < parts; ++p) {
+        if (refs[0][p] >= 0 && refs[1][p] >= 0) ++stats_[kBiPartitions];
+        PredictFromMotion(mbx, mby, geo[p][0], geo[p][1], geo[p][2], geo[p][3]);
+      }
+    } else {
+      m.shape = 3;
+      ++stats_[kB8x8];
+      int sub[4];
+      bool any_direct = false;
+      uint8_t cur_direct[16] = {};
+      for (int s = 0; s < 4; ++s) {
+        int t = 0;
+        if (cabac_) {
+          t = CabacBSubType();
+        } else {
+          const uint32_t v = br.Ue();
+          if (v > 12) throw Corrupt("sub_mb_type above 12 in a B slice");
+          t = static_cast<int>(v);
+        }
+        sub[s] = t;
+        static const int kSubStat[4] = {kBSub8x8, kBSub8x4, kBSub4x8, kBSub4x4};
+        ++stats_[t == 0 ? kBSubDirect : kSubStat[kBSubShape[t]]];
+        all_8x8 = all_8x8 && (t == 0 ? sps_direct_8x8_ : kBSubShape[t] == 0);
+        if (t == 0) {
+          any_direct = true;
+          for (int k = 0; k < 4; ++k) cur_direct[((s >> 1) * 2 + (k >> 1)) * 4 + (s & 1) * 2 + (k & 1)] = 1;
+        }
+      }
+      DirectMotion d;
+      if (any_direct) Direct(mbx, mby, true, &d);
+      int refs[2][4] = {{-1, -1, -1, -1}, {-1, -1, -1, -1}}, cur_ref[2][16];
+      std::fill(&cur_ref[0][0], &cur_ref[0][0] + 32, -1);
+      for (int l = 0; l < 2; ++l)
+        for (int s = 0; s < 4; ++s) {
+          if (!sub[s] || !(kBSubPred[sub[s]] >> l & 1)) continue;
+          const int sx = (s & 1) * 2, sy = (s >> 1) * 2;
+          refs[l][s] = ReadRefIdx(br, h.num_ref[l], mbx, mby, sx, sy, cur_ref[l], l, cur_direct);
+          for (int k = 0; k < 4; ++k) cur_ref[l][(sy + (k >> 1)) * 4 + sx + (k & 1)] = refs[l][s];
+        }
+      int mvd[2][4][4][2] = {};
+      auto part = [&](int s, int k, int* x4, int* y4, int* w4, int* h4) {
+        const int shape = kBSubShape[sub[s]];
+        *w4 = shape == 0 || shape == 1 ? 2 : 1, *h4 = shape == 0 || shape == 2 ? 2 : 1;
+        *x4 = (s & 1) * 2 + (*w4 == 1 ? (k & 1) : 0);
+        *y4 = (s >> 1) * 2 + (*h4 == 1 ? (shape == 3 ? k >> 1 : k) : 0);
+        return shape == 0 ? 1 : shape == 3 ? 4 : 2;
+      };
+      for (int l = 0; l < 2; ++l)
+        for (int s = 0; s < 4; ++s) {
+          if (refs[l][s] < 0) continue;
+          int x4, y4, w4, h4;
+          const int n = part(s, 0, &x4, &y4, &w4, &h4);
+          for (int k = 0; k < n; ++k) {
+            part(s, k, &x4, &y4, &w4, &h4);
+            mvd[l][s][k][0] = ReadMvd(br, 0, mbx, mby, x4, y4, l);
+            mvd[l][s][k][1] = ReadMvd(br, 1, mbx, mby, x4, y4, l);
+            SetMvd(mbx, mby, x4, y4, w4, h4, mvd[l][s][k][0], mvd[l][s][k][1], l);
+          }
+        }
+      for (int l = 0; l < 2; ++l) {
+        int mask = 0;
+        for (int s = 0; s < 4; ++s) {
+          const int sx = (s & 1) * 2, sy = (s >> 1) * 2;
+          if (!sub[s]) {
+            for (int k = 0; k < 4; ++k) {
+              const int b = (sy + (k >> 1)) * 4 + sx + (k & 1);
+              SetMotion(mbx, mby, b & 3, b >> 2, 1, 1, d.ref[l][b], d.mv[l][b][0], d.mv[l][b][1], &mask, l);
+            }
+            continue;
+          }
+          if (refs[l][s] < 0) {
+            SetMotion(mbx, mby, sx, sy, 2, 2, -1, 0, 0, &mask, l);
+            continue;
+          }
+          int x4, y4, w4, h4;
+          const int n = part(s, 0, &x4, &y4, &w4, &h4);
+          for (int k = 0; k < n; ++k) {
+            part(s, k, &x4, &y4, &w4, &h4);
+            int px, py;
+            PredictMv(mbx, mby, x4, y4, w4, refs[l][s], mask, 0, &px, &py, l);
+            SetMotion(mbx, mby, x4, y4, w4, h4, refs[l][s], px + mvd[l][s][k][0], py + mvd[l][s][k][1], &mask, l);
+          }
+        }
+      }
+      for (int s = 0; s < 4; ++s) {
+        if (!sub[s]) {
+          SetDirect(mbx, mby, (s & 1) * 2, (s >> 1) * 2, 2, 2);
+          PredictDirect8x8(mbx, mby, d, s);
+          continue;
+        }
+        int x4, y4, w4, h4;
+        const int n = part(s, 0, &x4, &y4, &w4, &h4);
+        for (int k = 0; k < n; ++k) {
+          part(s, k, &x4, &y4, &w4, &h4);
+          if (kBSubPred[sub[s]] == 3) ++stats_[kBiPartitions];
+          PredictFromMotion(mbx, mby, x4, y4, w4, h4);
+        }
+      }
+    }
+    InterResidual(br, pps, addr, qp, all_8x8);
   }
 
   // ---- residual (7.3.5.3, 9.2)
@@ -2332,14 +2894,9 @@ class Decoder {
   }
 
   // ---- inter prediction (8.4.2)
-  void InterPredict(int mbx, int mby, int px, int py, int w, int h, int ref, int mvx, int mvy) {
-    const Picture& r = *ref_list_[ref];
-    const int x0 = mbx * 16 + px, y0 = mby * 16 + py;
-    {
-      const int ax = x0 + (mvx >> 2), ay = y0 + (mvy >> 2);
-      if (ax + w <= -16 || ay + h <= -16 || ax >= width_ + 16 || ay >= height_ + 16) ++stats_[kFarMv];
-    }
-    uint8_t luma[16][16], cb[8][8], cr[8][8];
+  // The prediction samples of a w x h block at luma sample (x0, y0) from reference r with vector (mvx, mvy).
+  void Interpolate(const Picture& r, int x0, int y0, int w, int h, int mvx, int mvy, uint8_t luma[16][16],
+                   uint8_t cb[8][8], uint8_t cr[8][8]) const {
     // Luma: a window of the reference with its coordinates clamped to the picture, then the 6-tap filter.
     const int ix = x0 + (mvx >> 2), iy = y0 + (mvy >> 2), fx = mvx & 3, fy = mvy & 3;
     int win[21][21];
@@ -2402,34 +2959,121 @@ class Decoder {
                                             (8 - cfx) * cfy * S(sx, sy + 1) + cfx * cfy * S(sx + 1, sy + 1) + 32) >> 6);
         }
     }
-    // Explicit weighted prediction (8.4.2.3.2).
-    if (header_.weighted) {
-      const Weight& wt = header_.weights[ref];
-      if (wt.luma) {
-        const int lw = header_.luma_log2;
-        for (int y = 0; y < h; ++y)
-          for (int x = 0; x < w; ++x)
-            luma[y][x] = lw >= 1 ? Clip1(((luma[y][x] * wt.luma_w + (1 << (lw - 1))) >> lw) + wt.luma_o)
-                                 : Clip1(luma[y][x] * wt.luma_w + wt.luma_o);
-      }
-      if (wt.chroma) {
-        const int cwd = header_.chroma_log2;
-        for (int comp = 0; comp < 2; ++comp) {
-          uint8_t(*dst)[8] = comp == 0 ? cb : cr;
-          for (int y = 0; y < ch; ++y)
-            for (int x = 0; x < cw; ++x)
-              dst[y][x] = cwd >= 1
-                              ? Clip1(((dst[y][x] * wt.chroma_w[comp] + (1 << (cwd - 1))) >> cwd) + wt.chroma_o[comp])
-                              : Clip1(dst[y][x] * wt.chroma_w[comp] + wt.chroma_o[comp]);
-        }
-      }
-    }
+  }
+
+  void InterPredict(int mbx, int mby, int px, int py, int w, int h, int ref, int mvx, int mvy) {
+    const int ax = mbx * 16 + px + (mvx >> 2), ay = mby * 16 + py + (mvy >> 2);
+    if (ax + w <= -16 || ay + h <= -16 || ax >= width_ + 16 || ay >= height_ + 16) ++stats_[kFarMv];
+    InterPredictB(mbx, mby, px, py, w, h, ref, mvx, mvy, -1, 0, 0);
+  }
+
+  void Store(int x0, int y0, int w, int h, uint8_t luma[16][16], uint8_t cb[8][8], uint8_t cr[8][8]) {
+    const int cwid = width_ / 2, cx0 = x0 / 2, cy0 = y0 / 2;
     for (int y = 0; y < h; ++y)
       std::memcpy(&cur_->y[static_cast<size_t>(y0 + y) * width_ + x0], luma[y], w);
-    for (int y = 0; y < ch; ++y) {
-      std::memcpy(&cur_->u[static_cast<size_t>(cy0 + y) * cwid + cx0], cb[y], cw);
-      std::memcpy(&cur_->v[static_cast<size_t>(cy0 + y) * cwid + cx0], cr[y], cw);
+    for (int y = 0; y < h / 2; ++y) {
+      std::memcpy(&cur_->u[static_cast<size_t>(cy0 + y) * cwid + cx0], cb[y], w / 2);
+      std::memcpy(&cur_->v[static_cast<size_t>(cy0 + y) * cwid + cx0], cr[y], w / 2);
     }
+  }
+
+  // Weighted bi-prediction of one sample (8.4.2.3.2), o the sum of the two offsets, as FFmpeg's x86 biweight computes
+  // it for a block whose rows hold `width` samples: where a weight is 128 the weights, the rounded offset and the shift
+  // are halved (16- and 8-wide rows take them as signed bytes, pmaddubsw); the products and then the offset are added
+  // in signed 16 bits with saturation. 2-wide rows (the chroma of 4-wide partitions) take FFmpeg's exact C
+  // version.
+  static uint8_t BiWeight(int a, int b, int w0, int w1, int o, int log_wd, int width) {
+    int off = (o + 1) | 1, shift = log_wd + 1;
+    if (width <= 2) return Clip1((a * w0 + b * w1 + (off << log_wd)) >> shift);
+    if (w0 == 128 || w1 == 128) w0 >>= 1, w1 >>= 1, off >>= 1, shift = log_wd;
+    auto sat = [](int v) { return v < -32768 ? -32768 : v > 32767 ? 32767 : v; };
+    return Clip1(sat(sat(a * w0 + b * w1) + ((off << shift) >> 1)) >> shift);
+  }
+
+  // Implicit weight w0 of list 0 (8.4.2.3.1) for the pair (ref0, ref1), as FFmpeg's implicit_weight_table.
+  int ImplicitWeight(int ref0, int ref1) const {
+    const Picture& p0 = *ref_list_[0][ref0];
+    const Picture& p1 = *ref_list_[1][ref1];
+    if (p0.long_ref || p1.long_ref) return 32;
+    const int td = Clip3(-128, 127, static_cast<int>(p1.poc - p0.poc));
+    if (!td) return 32;
+    const int tb = Clip3(-128, 127, static_cast<int>(cur_->poc - p0.poc));
+    const int tx = (16384 + (std::abs(td) >> 1)) / td;
+    const int dsf = (tb * tx + 32) >> 8;
+    return dsf >= -64 && dsf <= 128 ? 64 - dsf : 32;
+  }
+
+  // Inter prediction of a partition (px, py, w, h in the macroblock) from list 0 (ref0 >= 0), list 1 (ref1 >= 0)
+  // or both, weighted as the slice says.
+  void InterPredictB(int mbx, int mby, int px, int py, int w, int h, int ref0, int mv0x, int mv0y, int ref1, int mv1x,
+                     int mv1y) {
+    const int x0 = mbx * 16 + px, y0 = mby * 16 + py, cw = w / 2, ch = h / 2;
+    uint8_t luma[2][16][16], cb[2][8][8], cr[2][8][8];
+    if (ref0 >= 0) Interpolate(*ref_list_[0][ref0], x0, y0, w, h, mv0x, mv0y, luma[0], cb[0], cr[0]);
+    if (ref1 >= 0) Interpolate(*ref_list_[1][ref1], x0, y0, w, h, mv1x, mv1y, luma[1], cb[1], cr[1]);
+    const Header& hd = header_;
+    if (ref0 < 0 || ref1 < 0) {
+      const int l = ref0 >= 0 ? 0 : 1, ref = ref0 >= 0 ? ref0 : ref1;
+      if (hd.weighted) {  // explicit weighted prediction (8.4.2.3.2; FFmpeg's saturation cannot change these)
+        const Weight& wt = hd.weights[l][ref];
+        if (wt.luma) {
+          const int lw = hd.luma_log2;
+          for (int y = 0; y < h; ++y)
+            for (int x = 0; x < w; ++x) {
+              const int v = luma[l][y][x] * wt.luma_w;
+              luma[l][y][x] = lw >= 1 ? Clip1(((v + (1 << (lw - 1))) >> lw) + wt.luma_o) : Clip1(v + wt.luma_o);
+            }
+        }
+        if (wt.chroma) {
+          const int cwd = hd.chroma_log2;
+          for (int c = 0; c < 2; ++c) {
+            uint8_t(*dst)[8] = c == 0 ? cb[l] : cr[l];
+            for (int y = 0; y < ch; ++y)
+              for (int x = 0; x < cw; ++x) {
+                const int v = dst[y][x] * wt.chroma_w[c];
+                dst[y][x] = cwd >= 1 ? Clip1(((v + (1 << (cwd - 1))) >> cwd) + wt.chroma_o[c])
+                                     : Clip1(v + wt.chroma_o[c]);
+              }
+          }
+        }
+      }
+      Store(x0, y0, w, h, luma[l], cb[l], cr[l]);
+      return;
+    }
+    uint8_t out[16][16], ocb[8][8], ocr[8][8];
+    // FFmpeg weights explicitly where a weight or offset of the table is unlike the default (use_weight), implicitly
+    // where the pair's weight is not 32, else averages.
+    const int implicit = hd.bipred_idc == 2 ? ImplicitWeight(ref0, ref1) : 32;
+    if ((hd.weighted && hd.use_weight) || implicit != 32) {
+      Weight a, b;
+      int luma_log2 = 5, chroma_log2 = 5;
+      if (implicit != 32) {
+        a.luma_w = a.chroma_w[0] = a.chroma_w[1] = implicit;
+        b.luma_w = b.chroma_w[0] = b.chroma_w[1] = 64 - implicit;
+      } else {
+        a = hd.weights[0][ref0], b = hd.weights[1][ref1];
+        luma_log2 = hd.luma_log2, chroma_log2 = hd.chroma_log2;
+      }
+      for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x)
+          out[y][x] = BiWeight(luma[0][y][x], luma[1][y][x], a.luma_w, b.luma_w, a.luma_o + b.luma_o, luma_log2, w);
+      for (int y = 0; y < ch; ++y)
+        for (int x = 0; x < cw; ++x) {
+          ocb[y][x] = BiWeight(cb[0][y][x], cb[1][y][x], a.chroma_w[0], b.chroma_w[0], a.chroma_o[0] + b.chroma_o[0],
+                               chroma_log2, cw);
+          ocr[y][x] = BiWeight(cr[0][y][x], cr[1][y][x], a.chroma_w[1], b.chroma_w[1], a.chroma_o[1] + b.chroma_o[1],
+                               chroma_log2, cw);
+        }
+    } else {
+      for (int y = 0; y < h; ++y)
+        for (int x = 0; x < w; ++x) out[y][x] = static_cast<uint8_t>((luma[0][y][x] + luma[1][y][x] + 1) >> 1);
+      for (int y = 0; y < ch; ++y)
+        for (int x = 0; x < cw; ++x) {
+          ocb[y][x] = static_cast<uint8_t>((cb[0][y][x] + cb[1][y][x] + 1) >> 1);
+          ocr[y][x] = static_cast<uint8_t>((cr[0][y][x] + cr[1][y][x] + 1) >> 1);
+        }
+    }
+    Store(x0, y0, w, h, out, ocb, ocr);
   }
 
   // ---- deblocking (8.7)
@@ -2448,9 +3092,17 @@ class Decoder {
     const int mbw = mb_width_;
     const size_t ip = static_cast<size_t>((mb_p / mbw) * 4 + rp) * mbw * 4 + (mb_p % mbw) * 4 + cp;
     const size_t iq = static_cast<size_t>((mb_q / mbw) * 4 + rq) * mbw * 4 + (mb_q % mbw) * 4 + cq;
-    if (refpic_[ip] != refpic_[iq]) return 1;
-    if (std::abs(mv_[2 * ip] - mv_[2 * iq]) >= 4 || std::abs(mv_[2 * ip + 1] - mv_[2 * iq + 1]) >= 4) return 1;
-    return 0;
+    // FFmpeg's check_mv (which 8.7.2.1 comes to): the pictures referenced and the vectors differ in the pairing of
+    // the lists, and, where q lies in a B slice, in the crossed pairing too.
+    auto differ = [&](int lp, int lq) {
+      return std::abs(mv_[lp][2 * ip] - mv_[lq][2 * iq]) >= 4 || std::abs(mv_[lp][2 * ip + 1] - mv_[lq][2 * iq + 1]) >= 4;
+    };
+    bool v = refpic_[0][ip] != refpic_[0][iq] || (refpic_[0][ip] && differ(0, 0));
+    if (!q.b_slice) return v;
+    if (!v) v = refpic_[1][ip] != refpic_[1][iq] || differ(1, 1);
+    if (!v) return 0;
+    if (refpic_[0][ip] != refpic_[1][iq] || refpic_[1][ip] != refpic_[0][iq]) return 1;
+    return differ(0, 1) || differ(1, 0);
   }
 
   // Filters one line of samples across an edge: p[-k * step] are p0..p3, p[k * step] q0..q3 (p0 = s[-step]).
@@ -2585,13 +3237,28 @@ class Decoder {
   PicturePtr cur_;
   Header cur_header_, header_;
   std::vector<MbInfo> mbs_;
-  std::vector<int16_t> mv_;
-  std::vector<uint8_t> mvd_;  // |mvd_l0| of each 4x4 block, at most 70 (CABAC's contexts)
-  std::vector<int8_t> ref_;
-  std::vector<int> refpic_;
+  // Per 4x4 block of the current picture and list: the vector, |mvd| (at most 70, CABAC's contexts), the reference
+  // index and the id of the picture it names (0: the list is not used); whether it was predicted in direct mode.
+  std::vector<int16_t> mv_[2];
+  std::vector<uint8_t> mvd_[2];
+  std::vector<int8_t> ref_[2];
+  std::vector<int> refpic_[2];
+  std::vector<uint8_t> direct_;
   std::vector<SliceInfo> slices_;
   int slice_ = 0, next_mb_ = 0, picture_ids_ = 0;
-  std::vector<PicturePtr> dpb_, ref_list_, output_;
+  std::vector<PicturePtr> dpb_, ref_list_[2], output_;
+  bool sps_direct_8x8_ = true;  // direct_8x8_inference_flag of the current slice's SPS
+  int dsf_[32] = {};            // temporal direct's DistScaleFactor of each list 0 entry
+  // FFmpeg's output state: the pictures held back, the one to output when the current one is decoded, its
+  // has_b_frames, last_pocs, next_outputed_poc and the mmco_reset the next picture takes; the decode call count.
+  static constexpr int64_t kNoPoc = INT32_MIN;
+  std::vector<PicturePtr> delayed_;
+  PicturePtr pending_output_;
+  int has_b_frames_ = 0, unit_ = 0, max_output_id_ = 0;
+  int64_t last_pocs_[16] = {kNoPoc, kNoPoc, kNoPoc, kNoPoc, kNoPoc, kNoPoc, kNoPoc, kNoPoc,
+                            kNoPoc, kNoPoc, kNoPoc, kNoPoc, kNoPoc, kNoPoc, kNoPoc, kNoPoc};
+  int64_t next_output_poc_ = kNoPoc;
+  bool mmco_reset_ = false;
   int prev_ref_frame_num_ = 0, prev_frame_num_ = 0, prev_frame_num_offset_ = 0;
   int prev_poc_msb_ = 0, prev_poc_lsb_ = 0, cur_poc_msb_ = 0, cur_frame_num_offset_ = 0;
   int64_t last_poc_ = 0;
@@ -2637,6 +3304,19 @@ int sr_h264_stream_decode(void* handle, const uint8_t* data, int64_t size, char*
     sr_h264::CopyMessage(e.what(), err, err_len);
     return -1;
   }
+}
+
+int sr_h264_stream_flush(void* handle, char* err, int err_len) {
+  try {
+    return static_cast<sr_h264::Decoder*>(handle)->Flush();
+  } catch (const std::exception& e) {
+    sr_h264::CopyMessage(e.what(), err, err_len);
+    return -1;
+  }
+}
+
+int sr_h264_stream_unit(void* handle, int index) {
+  return static_cast<const sr_h264::Decoder*>(handle)->output(index).unit;
 }
 
 void sr_h264_stream_size(void* handle, int32_t* width_height) {

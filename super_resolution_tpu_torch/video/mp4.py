@@ -14,12 +14,16 @@ width and height are the frames') or its ``avc1`` / ``avc3`` sample entry
 (H.264, whose ``avcC`` box -- the AVCDecoderConfigurationRecord -- holds the
 parameter sets and the length of the samples' NAL unit size fields), and
 locates every sample from ``stsz``, ``stsc`` and ``stco`` / ``co64``,
-timed by ``stts`` (I- and P-VOPs, VP9, FFV1 or H.264 frames in decoding
-order). An edit list (``elst``) is
-honoured as FFmpeg honours it: each edit with a media time plays the
-samples whose presentation time lies in ``[media_time, media_time +
-duration)``, decoding from the sync sample before the first of them; an
-empty edit only delays. Without an edit list every sample plays.
+timed by ``stts`` (I- and P-VOPs, VP9, FFV1 or H.264 access units in decoding
+order) and presented at those times plus the composition offsets of ``ctts``
+(version 0, or version 1 with negative offsets: H.264 with B pictures). An
+edit list (``elst``) is honoured as FFmpeg honours it: each edit with a media
+time plays the samples whose presentation time lies in ``[media_time,
+media_time + duration)``, decoding from the sync sample before the first of
+them (in decoding order) through the last, the others flagged as not shown;
+an empty edit only delays. x264 and FFmpeg's muxer write ``media_time`` equal
+to the first composition delay, so that every frame plays. Without an edit
+list every sample plays.
 
 A fragmented file (``mvex`` / ``moof``), a ``vp09`` entry of another
 profile than 0 or of more than 8 bits, and any other sample entry than
@@ -151,7 +155,8 @@ def _timescale(data: bytes, start: int) -> int:
 class Mp4Video:
     """The first video track: its decoder configuration, its samples in
     decode order, for each whether its frame is shown (``False``: decoded
-    only, ahead of an edit), its sample entry's code (``mp4v``, ``vp09``,
+    only, ahead of an edit; with B pictures the frame a sample carries, not
+    the one output after it), its sample entry's code (``mp4v``, ``vp09``,
     ``FFV1``, ``avc1`` or ``avc3``) and the entry's width and height."""
 
     config: bytes
@@ -246,6 +251,13 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
             pts.append(t)
             t += delta
     pts += [t] * (len(samples) - len(pts))  # a short stts: the rest keep the last time
+    # Composition offsets (ctts, version 0 or 1; signed, as FFmpeg reads both): presentation = decoding time + offset.
+    k = 0
+    for count, offset in _table(data, _child(data, *stbl, b"ctts"), "i", 2):
+        for _ in range(count):
+            if k < len(pts):
+                pts[k] += offset
+            k += 1
     stss = _child(data, *stbl, b"stss")
     sync = {n - 1 for (n,) in _table(data, stss, "I", 1)} if stss else set(range(len(samples)))
 

@@ -44,14 +44,15 @@ frames (:mod:`super_resolution_tpu_torch.utils.vp8`), VP9 frames
 (:mod:`super_resolution_tpu_torch.utils.vp9`), FFV1 frames
 (:mod:`super_resolution_tpu_torch.utils.ffv1`, versions 0-3 at 8 bits) and
 H.264 frames (:mod:`super_resolution_tpu_torch.utils.h264`: progressive 8-bit
-4:2:0, I and P slices, CAVLC or CABAC, up to High profile without B slices) are
+4:2:0, I, P and B slices, CAVLC or CABAC, up to High profile, in FFmpeg's output
+order) are
 ``cv2.VideoCapture``'s, pixel for pixel, at any frame size, on what
 ``cv2.VideoWriter`` writes; a hidden VP8 or VP9
 frame gives none, a VP9 superframe or ``show_existing_frame`` the frames it
 shows. An MJPEG frame is what ``cv2.imdecode`` gives for its JPEG payload;
 FFmpeg's MJPEG decoder and colour conversion differ from that by a few grey
 levels (ROADMAP.md, Queue 3). Other containers and codecs (HEVC, HuffYUV,
-FFV1 above 8 bits, MS-MPEG4 ``DIV3``, H.264 with B slices, ...)
+FFV1 above 8 bits, MS-MPEG4 ``DIV3``, interlaced H.264, ...)
 raise ``NotImplementedError`` naming them.
 """
 
@@ -223,20 +224,28 @@ def _ffv1_frames(payloads: list[bytes], max_frames: int, config: bytes, width: i
 def _h264_frames(payloads: list[bytes], max_frames: int, config: bytes = b"",
                  shown: list[bool] | None = None) -> list[np.ndarray]:
     """The frames of an H.264 stream's access units (length-prefixed after an ``avcC`` ``config``, Annex B
-    without one), keeping those of the ``shown`` payloads."""
+    without one) in FFmpeg's output order, those held back for reordering at the end included, keeping those whose
+    own payload is ``shown``."""
     from super_resolution_tpu_torch.utils.h264 import H264Decoder
 
     return _shown_frames(H264Decoder(config), payloads, max_frames, shown)
 
 
 def _shown_frames(decoder, payloads: list[bytes], max_frames: int, shown: list[bool] | None = None) -> list[np.ndarray]:
-    """The frames ``decoder`` gives for each payload in turn (none, one or more), those of the ``shown`` payloads
-    kept (default: all), the first ``max_frames`` (0: all)."""
+    """The frames ``decoder`` gives for each payload in turn (none, one or more), then those its ``flush()`` gives at
+    the end where it has one; the first ``max_frames`` (0: all). With ``shown`` (default: all kept), a frame is kept
+    where the payload that carried it is shown: that of the call that gave it, or where the decoder reorders, the one
+    its ``units()`` names. An H.264 B picture comes out a call or more after its own access unit, and FFmpeg drops
+    the frame of a packet flagged as discarded, not the frame its call outputs. A frame of the flush that names no
+    payload is kept. The order of the frames given so far is settled, so ``max_frames`` cuts as they come."""
+    flush, units = getattr(decoder, "flush", None), getattr(decoder, "units", None)
     frames = []
-    for i, payload in enumerate(payloads):
-        decoded = decoder.decode(payload)
-        if shown is None or shown[i]:
-            frames += decoded
+    for i, payload in enumerate(payloads + [None] * bool(flush)):
+        decoded = flush() if payload is None else decoder.decode(payload)
+        if shown is not None:
+            carried = units() if units else [i] * len(decoded)
+            decoded = [frame for frame, unit in zip(decoded, carried) if unit >= len(shown) or shown[unit]]
+        frames += decoded
         if max_frames and len(frames) >= max_frames:
             return frames[:max_frames]
     return frames
@@ -304,14 +313,7 @@ def _mpeg4_frames(payloads: list[bytes], max_frames: int, config: bytes = b"",
     the encoder where the stream does not."""
     from super_resolution_tpu_torch.utils.mpeg4 import Mpeg4Decoder
 
-    decoder, frames = Mpeg4Decoder(config, codec_tag, stream_codec_tag), []
-    for i, payload in enumerate(payloads):
-        decoded = decoder.decode(payload)
-        if shown is None or shown[i]:
-            frames += decoded
-        if max_frames and len(frames) >= max_frames:
-            return frames[:max_frames]
-    return (frames + decoder.flush())[:max_frames or None]
+    return _shown_frames(Mpeg4Decoder(config, codec_tag, stream_codec_tag), payloads, max_frames, shown)
 
 
 def read_avi_frames(path: str, max_frames: int = 0) -> list[np.ndarray]:

@@ -19,8 +19,8 @@ cv2's frames that its manifest records. What the decoder refuses raises
 loader matches the JAX loader in float64; the resolver matches the JAX
 resolver on cv2's frames of the same file to 1e-8 of the largest entry. The High-profile
 tools (CABAC, the 8x8 transform, scaling matrices, the second chroma QP
-offset) have test_torch_h264_cabac.py; here, the streams those tools were
-once refused on decode to cv2's frames.
+offset) have test_torch_h264_cabac.py and B slices test_torch_h264_b.py; here,
+the streams those tools were once refused on decode to cv2's frames.
 """
 
 import hashlib
@@ -274,9 +274,6 @@ def _swap_slices(aus):
 
 
 REFUSALS = {
-    "B slices": lambda: [_slice_of_type(1)],
-    "with B slices": lambda: [_stream(pps=dict(cabac=True), sps=dict(profile_idc=100))[0],
-                              _slice_of_type(1, cabac=True)],
     "SP slices": lambda: [_slice_of_type(3)],
     "SI slices": lambda: [_slice_of_type(9)],
     "frame_mbs_only_flag 0": lambda: _stream(sps=dict(frame_mbs_only=False, mb_height=2)),
@@ -299,7 +296,9 @@ REFUSALS = {
     "matrix_coefficients 0": lambda: _stream(sps=dict(vui=True, matrix=0)),
     "no_output_of_prior_pics_flag": lambda: _stream(options=dict(no_output_of_prior_pics=True)),
     "without an IDR picture": lambda: _stream(options=dict(first_non_idr=True)),
-    "does not increase": lambda: _stream(options=dict(poc_step=0), sps=dict(poc_type=0), frames=3),
+    # Without the VUI's bitstream_restriction_flag (with it, FORMERLY_REFUSED).
+    "does not increase": lambda: _stream(options=dict(poc_step=0), sps=dict(poc_type=0, bitstream_restriction=False),
+                                         frames=3),
 }
 
 
@@ -310,8 +309,12 @@ def test_refusals_name_what_they_are(tmp_path, what):
         read_video_frames(path)
 
 
-# The streams of the refusals that the High-profile tools replaced: each now decodes to cv2's frames.
+# The streams of the refusals that the High-profile tools and B slices replaced: each now decodes to cv2's frames.
 FORMERLY_REFUSED = {
+    "B slices": lambda: _stream(options=dict(b_frames=True), frames=8),
+    "with B slices": lambda: _stream(options=dict(b_frames=True, cabac=True), sps=dict(profile_idc=100), frames=8),
+    "does not increase with the VUI's restriction": lambda: _stream(
+        options=dict(poc_step=0), sps=dict(poc_type=0, vui=True, bitstream_restriction=True), frames=3),
     "CABAC": lambda: _stream(pps=dict(cabac=True)),
     "transform_8x8_mode_flag": lambda: _stream(pps=dict(transform_8x8=True), sps=dict(profile_idc=100)),
     "scaling matrices in the SPS": lambda: _stream(sps=dict(profile_idc=100, scaling_lists=[None] * 8)),
@@ -343,10 +346,14 @@ def test_mmco5_equals_videocapture(tmp_path, seed):
     assert found
 
 
-def test_mmco5_with_frame_num_pocs_is_refused(tmp_path):
+@pytest.mark.parametrize("restriction", [False, True])
+def test_mmco5_with_frame_num_pocs_is_refused(tmp_path, restriction):
     """POC type 2 after an MMCO 5: FFmpeg's count starts from the reset frame_num while it keeps the reset
-    picture's offset, so it goes back, and FFmpeg's order then depends on its threads: refused by name."""
+    picture's offset, so it goes back. Without the VUI's bitstream restriction FFmpeg's order then depends on its
+    threads: refused by name; with it (max_num_reorder_frames 0) FFmpeg outputs each picture, and so does the
+    port: cv2's frames."""
     writer = StreamWriter(np.random.default_rng(4), Options(mb_width=2, mb_height=2, frames=4, poc_type=2))
+    writer.sps.vui = writer.sps.bitstream_restriction = restriction
     aus = [writer.picture(), writer.picture()]
     writer.o.mmco = True
     plan = writer.plan_marking
@@ -357,6 +364,9 @@ def test_mmco5_with_frame_num_pocs_is_refused(tmp_path):
     writer.plan_marking = plan
     aus += [writer.picture(), writer.picture()]
     path = _write(tmp_path, "mmco5.h264", annexb(aus))
+    if restriction:
+        _assert_frames_equal(read_video_frames(path), capture(path))
+        return
     with pytest.raises(NotImplementedError, match="does not increase"):
         read_video_frames(path)
 

@@ -14,7 +14,9 @@ shows only where a stream reaches it). The checked-in High-profile clip of
 ``tests/data_torch/h264`` decodes to the digest of cv2's frames; the JAX
 loader (cv2) and the port's agree on it, and the JAX resolver and the port's
 agree on the decoded frames of a small High-profile clip. What stays refused
-raises ``NotImplementedError`` inside CABAC streams too.
+raises ``NotImplementedError`` inside CABAC streams too; the CABAC streams
+that B slices and FFmpeg's output order lifted from refusal decode to cv2's
+frames (B slices themselves: test_torch_h264_b.py).
 """
 
 import hashlib
@@ -44,7 +46,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = os.path.join(REPO, "tests", "data_torch", "h264")
 CLIP = "h264_high_960x540x12.mp4"
 CPU = dict(device="cpu", dtype=torch.float64)
-NEW_STATS = STATS[STATS.index("cabac_slices"):]
+NEW_STATS = STATS[STATS.index("cabac_slices"):STATS.index("b_slices")]  # B slices' counts: test_torch_h264_b.py
 
 
 @pytest.fixture(autouse=True)
@@ -275,12 +277,12 @@ def _cabac_slice_of_type(slice_type):
 
 
 CABAC_REFUSALS = {
-    "B slices": lambda: _cabac_stream()[:1] + [_cabac_slice_of_type(6)],
     "SP slices": lambda: _cabac_stream()[:1] + [_cabac_slice_of_type(3)],
     "frame_mbs_only_flag 0": lambda: _cabac_stream(sps=dict(frame_mbs_only=False, mb_height=2)),
     "no_output_of_prior_pics_flag": lambda: _cabac_stream(options=dict(no_output_of_prior_pics=True)),
     "without an IDR picture": lambda: _cabac_stream(options=dict(first_non_idr=True)),
-    "does not increase": lambda: _cabac_stream(options=dict(poc_step=0), sps=dict(poc_type=0)),
+    "does not increase": lambda: _cabac_stream(options=dict(poc_step=0),
+                                               sps=dict(poc_type=0, bitstream_restriction=False)),
     "a left crop": lambda: _cabac_stream(sps=dict(crop=(1, 0, 0, 0))),
 }
 
@@ -290,3 +292,18 @@ def test_refusals_in_cabac_streams(tmp_path, what):
     path = _write(tmp_path, "refused.h264", annexb(CABAC_REFUSALS[what]()))
     with pytest.raises(NotImplementedError, match=what):
         read_video_frames(path)
+
+
+# The CABAC streams of the refusals that B slices and the output order of FFmpeg replaced: each now decodes to cv2's
+# frames.
+FORMERLY_REFUSED = {
+    "B slices": lambda: _cabac_stream(options=dict(b_frames=True), frames=8),
+    "does not increase with the VUI's restriction": lambda: _cabac_stream(
+        options=dict(poc_step=0), sps=dict(poc_type=0, vui=True, bitstream_restriction=True)),
+}
+
+
+@pytest.mark.parametrize("what", list(FORMERLY_REFUSED))
+def test_formerly_refused_cabac_streams_equal_videocapture(tmp_path, what):
+    path = _write(tmp_path, "cabac.h264", annexb(FORMERLY_REFUSED[what]()))
+    _assert_frames_equal(read_video_frames(path), capture(path))

@@ -1,7 +1,8 @@
-"""A writer of H.264 streams (progressive 4:2:0, I and P slices, CAVLC or
+"""A writer of H.264 streams (progressive 4:2:0, I, P and B slices, CAVLC or
 CABAC) for the port's tests: random syntax that covers what
 ``native/h264_decoder.cpp`` reads, and containers around it (Annex B, MP4
-``avc1``, Matroska ``V_MPEG4/ISO/AVC``, AVI ``H264``).
+``avc1`` with or without composition offsets, Matroska ``V_MPEG4/ISO/AVC``,
+AVI ``H264``).
 
 :func:`random_stream` draws every macroblock type and sub-partition, every
 intra mode the neighbours allow, skip runs, reference lists of up to 16
@@ -13,15 +14,20 @@ outside the picture, level escapes, I_PCM, crops and small frame sizes; and,
 as its ``Options`` ask, High-profile tools: CABAC (:class:`CabacWriter`, the
 arithmetic encoder, under each ``cabac_init_idc``), the 8x8 transform with
 intra 8x8, scaling matrices in the SPS and the PPS, a second chroma QP
-offset. The writer keeps its own model of what the decoder must track to
-read the stream as meant (:class:`_Syntax`) -- availability under slices
+offset; and B pictures (``b_frames``): mini-GOPs reordered in POC type 0
+(B-pyramid, max_num_reorder_frames 1 and 2) or in display order in POC type
+2, every B mb_type and sub_mb_type, B_Skip, spatial and temporal direct under
+either direct_8x8_inference_flag, weighted_bipred_idc 0, 1 and 2, list 1
+modification. The writer keeps its own model of what the decoder must track
+to read the stream as meant (:class:`_Syntax`) -- availability under slices
 and constrained intra, the intra mode prediction, ``coeff_token``'s nC,
-CABAC's context selection, motion-vector prediction, the decoded picture
-buffer and its marking -- and counts what it writes under
-:data:`super_resolution_tpu_torch.utils.h264.STATS`' names, and the
-(table, ctxIdx) pairs it codes bins with. It keeps every inverse transform's
-intermediates inside 16 bits, as conforming streams do (FFmpeg's x86
-transforms work in 16 bits).
+CABAC's context selection, motion-vector prediction in both lists, direct
+prediction as FFmpeg derives it, the decoded picture buffer and its marking,
+FFmpeg's output order (:class:`FFmpegOutput`) -- and counts what it writes
+under :data:`super_resolution_tpu_torch.utils.h264.STATS`' names, and the
+(table, ctxIdx) pairs it codes bins with (list 1's ref_idx and mvd bins
+apart too). It keeps every inverse transform's intermediates inside 16 bits,
+as conforming streams do (FFmpeg's x86 transforms work in 16 bits).
 
 :func:`encode_frames` is an encoder of real pictures: Baseline
 (:class:`FrameEncoder`: an IDR of intra 16x16 macroblocks, then P frames
@@ -29,7 +35,8 @@ with a motion search, a residual at a fixed QP and the deblocking filter
 off, its reconstruction its own, in the closed loop) or High profile
 (:class:`HighEncoder`: CABAC, the 8x8 transform, intra 8x8, P_8x8,
 deblocking on, each P picture predicted from FFmpeg's decode of the stream
-before it): they make the checked-in fixtures.
+before it; with ``b_frames`` also B pictures in x264's default GOP shape):
+they make the checked-in fixtures.
 
 The tables come from ``torch_h264_tables.py``, copied from the standard, not
 from the port.
@@ -140,6 +147,7 @@ class Sps:
     matrix: int | None = None
     bitstream_restriction: bool = False
     num_reorder_frames: int = 0
+    direct_8x8_inference: bool = True
     # Refused features, for the tests of the refusals.
     frame_mbs_only: bool = True
     chroma_format_idc: int = 1
@@ -184,7 +192,7 @@ class Sps:
         w.u(1, int(self.frame_mbs_only))
         if not self.frame_mbs_only:
             w.u(1, 0)  # mb_adaptive_frame_field_flag
-        w.u(1, 1)  # direct_8x8_inference_flag
+        w.u(1, int(self.direct_8x8_inference))
         cropped = any(self.crop)
         w.u(1, int(cropped))
         if cropped:
@@ -231,7 +239,9 @@ class Pps:
     pps_id: int = 0
     sps_id: int = 0
     num_ref_default: int = 1
+    num_ref_default_l1: int = 1
     weighted: bool = False
+    bipred_idc: int = 0
     pic_init_qp: int = 26
     chroma_qp_offset: int = 0
     deblocking_control: bool = True
@@ -258,9 +268,9 @@ class Pps:
             for _ in range(self.slice_groups):
                 w.ue(0)
         w.ue(self.num_ref_default - 1)
-        w.ue(0)
+        w.ue(self.num_ref_default_l1 - 1)
         w.u(1, int(self.weighted))
-        w.u(2, 0)
+        w.u(2, self.bipred_idc)
         w.se(self.pic_init_qp - 26)
         w.se(0)
         w.se(self.chroma_qp_offset)
@@ -657,9 +667,12 @@ def _full_box(kind, version, flags, body):
     return _box(kind, struct.pack(">I", (version << 24) | flags) + body)
 
 
-def mp4(access_units, width, height, length_size=4, fourcc=b"avc1"):
+def mp4(access_units, width, height, length_size=4, fourcc=b"avc1", pts=None, ctts_version=0, skip=0):
     """An MP4 file of one avc1 track: the parameter sets in its avcC, the samples length-prefixed; an avc3 track
-    keeps them in band too."""
+    keeps them in band too. With ``pts`` (each access unit's place in display order) the track has composition
+    offsets as FFmpeg's mov muxer writes them: ``ctts`` version 0 and an edit list whose media_time is the first
+    composition delay (later by ``skip`` frames, which it leaves out), or ``ctts`` version 1 with negative offsets and
+    no edit list."""
     sps, pps, rest = split_parameter_sets(access_units)
     if fourcc == b"avc3":
         rest = access_units
@@ -670,6 +683,14 @@ def mp4(access_units, width, height, length_size=4, fourcc=b"avc1"):
              + struct.pack(">Hh", 0x18, -1) + _box(b"avcC", avcc(sps, pps, length_size)))
     stsd = _full_box(b"stsd", 0, 0, struct.pack(">I", 1) + _box(fourcc, entry))
     stts = _full_box(b"stts", 0, 0, struct.pack(">III", 1, n, 1))
+    ctts, edts = b"", b""
+    if pts is not None:
+        delay = max(i - p for i, p in enumerate(pts)) if ctts_version == 0 else 0
+        offsets = [p - i + delay for i, p in enumerate(pts)]
+        ctts = _full_box(b"ctts", ctts_version, 0, struct.pack(">I", n)
+                         + b"".join(struct.pack(">Ii", 1, o) for o in offsets))
+        if ctts_version == 0:
+            edts = _box(b"edts", _full_box(b"elst", 0, 0, struct.pack(">IIiI", 1, n - skip, delay + skip, 0x10000)))
     stss = _full_box(b"stss", 0, 0, struct.pack(">II", 1, 1))
     stsc = _full_box(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, 1, 1))
     stsz = _full_box(b"stsz", 0, 0, struct.pack(">II", 0, n) + b"".join(struct.pack(">I", len(s)) for s in samples))
@@ -681,7 +702,7 @@ def mp4(access_units, width, height, length_size=4, fourcc=b"avc1"):
             chunk_offsets.append(pos)
             pos += len(s)
         stco = _full_box(b"stco", 0, 0, struct.pack(">I", n) + b"".join(struct.pack(">I", o) for o in chunk_offsets))
-        stbl = _box(b"stbl", stsd + stts + stss + stsc + stsz + stco)
+        stbl = _box(b"stbl", stsd + stts + ctts + stss + stsc + stsz + stco)
         vmhd = _full_box(b"vmhd", 0, 1, b"\0" * 8)
         dref = _full_box(b"dref", 0, 0, struct.pack(">I", 1) + _full_box(b"url ", 0, 1, b""))
         minf = _box(b"minf", vmhd + _box(b"dinf", dref) + stbl)
@@ -694,7 +715,7 @@ def mp4(access_units, width, height, length_size=4, fourcc=b"avc1"):
         mvhd = _full_box(b"mvhd", 0, 0, struct.pack(">IIII", 0, 0, 10, n) + struct.pack(">IH", 0x10000, 0x100)
                          + b"\0" * 10 + struct.pack(">9I", 0x10000, 0, 0, 0, 0x10000, 0, 0, 0, 0x40000000)
                          + b"\0" * 24 + struct.pack(">I", 2))
-        return _box(b"moov", mvhd + _box(b"trak", tkhd + mdia))
+        return _box(b"moov", mvhd + _box(b"trak", tkhd + edts + mdia))
 
     head = len(ftyp) + len(moov(0)) + 8
     return ftyp + moov(head) + _box(b"mdat", b"".join(samples))
@@ -719,8 +740,9 @@ def _el(ident, body):
     return _ebml_id(ident) + _ebml_size(len(body)) + body
 
 
-def mkv(access_units, width, height, length_size=4):
-    """A Matroska file of one V_MPEG4/ISO/AVC track (CodecPrivate: the avcC), a SimpleBlock a frame."""
+def mkv(access_units, width, height, length_size=4, pts=None):
+    """A Matroska file of one V_MPEG4/ISO/AVC track (CodecPrivate: the avcC), a SimpleBlock a frame, timed by its
+    place in display order (``pts``; default: decoding order)."""
     sps, pps, rest = split_parameter_sets(access_units)
     header = _el(0x1A45DFA3, _el(0x4286, 1) + _el(0x42F7, 1) + _el(0x42F2, 4) + _el(0x42F3, 8)
                  + _el(0x4282, "matroska") + _el(0x4287, 4) + _el(0x4285, 2))
@@ -730,7 +752,8 @@ def mkv(access_units, width, height, length_size=4):
     blocks = b""
     for i, au in enumerate(rest):
         flags = 0x80 if i == 0 else 0
-        blocks += _el(0xA3, b"\x81" + struct.pack(">hB", i * 100, flags) + length_prefixed(au, length_size))
+        t = i if pts is None else pts[i]
+        blocks += _el(0xA3, b"\x81" + struct.pack(">hB", t * 100, flags) + length_prefixed(au, length_size))
     cluster = _el(0x1F43B675, _el(0xE7, 0) + blocks)
     return header + _el(0x18538067, info + _el(0x1654AE6B, track) + cluster)
 
@@ -749,6 +772,12 @@ def avi(path, access_units, width, height, fourcc=b"H264"):
 
 
 I4_NEEDS = {0: "T", 1: "L", 2: "", 3: "T", 4: "TLD", 5: "TLD", 6: "TLD", 7: "T", 8: "L"}
+# B mb_type 1-21 (Table 7-14): each partition's prediction, bit 0 list 0 and bit 1 list 1; B sub_mb_type (Table 7-18):
+# its prediction (0: direct) and partition (0 8x8, 1 8x4, 2 4x8, 3 4x4).
+B_PRED = [(0, 0), (1, 0), (2, 0), (3, 0), (1, 1), (1, 1), (2, 2), (2, 2), (1, 2), (1, 2), (2, 1), (2, 1), (1, 3),
+          (1, 3), (2, 3), (2, 3), (3, 1), (3, 1), (3, 2), (3, 2), (3, 3), (3, 3)]
+B_SUB_PRED = (0, 1, 2, 3, 1, 1, 2, 2, 3, 3, 1, 2, 3)
+B_SUB_SHAPE = (0, 0, 0, 0, 1, 2, 1, 2, 1, 2, 3, 3, 3)
 I_MODES = ("vertical", "horizontal", "dc", "diagonal_down_left", "diagonal_down_right", "vertical_right",
            "horizontal_down", "vertical_left", "horizontal_up")
 
@@ -759,6 +788,8 @@ class _Ref:
     uid: int
     long: bool = False
     long_idx: int = -1
+    poc: int = 0  # as FFmpeg counts it
+    motion: dict | None = None  # what direct prediction reads of it as the co-located picture (_Syntax.motion_record)
 
 
 class _Mb:
@@ -771,6 +802,8 @@ class _Mb:
         self.cbp = 0
         self.dc = 0  # coded DC blocks: 1 luma, 2 Cb, 4 Cr
         self.chroma_mode = 0
+        self.direct16 = False  # B_Direct_16x16
+        self.shape = 0  # its partitions as FFmpeg types it: 0 16x16 (or intra), 1 16x8, 2 8x16, 3 8x8
 
     @property
     def intra(self):
@@ -815,6 +848,19 @@ class Options:
     # The share of CAVLC 8x8 blocks coded in the cbp with no level in their four 4x4 parts (whose edges FFmpeg's
     # deblocking treats as coded where 8x8 blocks 0-2 are).
     empty_8x8_share: float = 0.0
+    # B pictures: mini-GOPs of an anchor then up to 3 B pictures before it in display order (a middle one a
+    # reference where b_pyramid), POC type 0 (else in display order, list 1 the initial list 0 with its first two
+    # entries switched); direct_spatial_mv_pred per slice, direct_8x8_inference_flag and each PPS's
+    # weighted_bipred_idc drawn where None; the share of B macroblocks of each kind (B_Skip, intra, B_Direct_16x16,
+    # one 16x16 partition, two partitions, B_8x8); max_num_reorder_frames above what the GOPs need by up to
+    # extra_reorder. Every slice of a picture then has its type and its lists.
+    b_frames: bool = False
+    b_pyramid: bool = True
+    direct_spatial: bool | None = None
+    direct_8x8_inference: bool | None = None
+    bipred_idc: int | None = None
+    b_mb_shares: tuple = (0.2, 0.1, 0.15, 0.2, 0.2, 0.15)
+    extra_reorder: int = 1
     # Streams the decoder refuses or finds damaged, for those tests.
     first_non_idr: bool = False
     no_output_of_prior_pics: bool = False
@@ -827,7 +873,20 @@ class _Syntax:
     constrained intra, motion-vector prediction, the intra mode prediction, CAVLC's nC, and each syntax element in
     CAVLC or, where ``self.cabac`` is a :class:`CabacWriter`, in CABAC (its binarisation and context selection).
     The writer sets ``mbs`` (a ``_Mb`` or None per macroblock), ``mbw``, ``mbh``, ``slice_index``, ``pps``,
-    ``ref`` / ``mv`` / ``mvd`` (per 4x4 block of the picture), ``num_ref``, ``prev_dqp`` and ``stats``."""
+    ``ref`` / ``mv`` / ``mvd`` (per 4x4 block of the picture; ``ref1`` / ``mv1`` / ``mvd1`` for list 1, ``direct``
+    the blocks predicted in direct mode), ``num_ref``, ``prev_dqp`` and ``stats``; for B slices also ``ref_lists`` (the
+    two reference lists of ``_Ref``), ``col`` (list 1's first picture's ``motion``), ``cur_poc``,
+    ``direct_spatial``, ``d8`` (direct_8x8_inference_flag) and ``dsf`` (temporal direct's DistScaleFactor)."""
+
+    def arrays(self, lst):
+        """(ref, mv, mvd) of list ``lst``."""
+        return (self.ref, self.mv, self.mvd) if lst == 0 else (self.ref1, self.mv1, self.mvd1)
+
+    def new_arrays(self):
+        n = self.mbw * self.mbh * 16
+        self.ref, self.mv, self.mvd = [-1] * n, [(0, 0)] * n, [(0, 0)] * n
+        self.ref1, self.mv1, self.mvd1 = [-1] * n, [(0, 0)] * n, [(0, 0)] * n
+        self.direct = [False] * n
 
     def count(self, name, n=1):
         self.stats[name] += n
@@ -865,8 +924,8 @@ class _Syntax:
             return 2
         return n.i4[((y4 + 4) & 3) * 4 + ((x4 + 4) & 3)]
 
-    def motion(self, bx, by, mbx, mby, mask):
-        """(available, ref, mvx, mvy) of the 4x4 block at picture block coordinates (bx, by)."""
+    def motion(self, bx, by, mbx, mby, mask, lst=0):
+        """(available, ref, mvx, mvy) in list ``lst`` of the 4x4 block at picture block coordinates (bx, by)."""
         if bx < 0 or by < 0 or (bx >> 2) >= self.mbw or (by >> 2) >= self.mbh:
             return (False, -1, 0, 0)
         nx, ny = bx >> 2, by >> 2
@@ -876,17 +935,18 @@ class _Syntax:
         elif ny > mby or (ny == mby and nx > mbx) or self.mb_at(nx, ny) is None:
             return (False, -1, 0, 0)
         b = by * self.mbw * 4 + bx
-        ref = self.ref[b]
-        mv = self.mv[b] if ref >= 0 else (0, 0)
+        refs, mvs, _ = self.arrays(lst)
+        ref = refs[b]
+        mv = mvs[b] if ref >= 0 else (0, 0)
         return (True, ref, mv[0], mv[1])
 
-    def predict_mv(self, mbx, mby, x4, y4, w4, ref, mask, shape):
+    def predict_mv(self, mbx, mby, x4, y4, w4, ref, mask, shape, lst=0):
         bx, by = mbx * 4 + x4, mby * 4 + y4
-        a = self.motion(bx - 1, by, mbx, mby, mask)
-        b = self.motion(bx, by - 1, mbx, mby, mask)
-        c = self.motion(bx + w4, by - 1, mbx, mby, mask)
+        a = self.motion(bx - 1, by, mbx, mby, mask, lst)
+        b = self.motion(bx, by - 1, mbx, mby, mask, lst)
+        c = self.motion(bx + w4, by - 1, mbx, mby, mask, lst)
         if not c[0]:
-            c = self.motion(bx - 1, by - 1, mbx, mby, mask)
+            c = self.motion(bx - 1, by - 1, mbx, mby, mask, lst)
         if shape == 1:
             if y4 == 0 and b[1] == ref:
                 return b[2:]
@@ -904,20 +964,22 @@ class _Syntax:
             return same[0][2:]
         return (sorted([a[2], b[2], c[2]])[1], sorted([a[3], b[3], c[3]])[1])
 
-    def set_motion(self, mbx, mby, x4, y4, w4, h4, ref, mv):
+    def set_motion(self, mbx, mby, x4, y4, w4, h4, ref, mv, lst=0):
         mask = 0
+        refs, mvs, _ = self.arrays(lst)
         for y in range(y4, y4 + h4):
             for x in range(x4, x4 + w4):
                 b = (mby * 4 + y) * self.mbw * 4 + mbx * 4 + x
-                self.ref[b] = ref
-                self.mv[b] = mv
+                refs[b] = ref
+                mvs[b] = mv if ref >= 0 else (0, 0)
                 mask |= 1 << (y * 4 + x)
         return mask
 
-    def set_mvd(self, mbx, mby, x4, y4, w4, h4, d):
+    def set_mvd(self, mbx, mby, x4, y4, w4, h4, d, lst=0):
+        mvds = self.arrays(lst)[2]
         for y in range(y4, y4 + h4):
             for x in range(x4, x4 + w4):
-                self.mvd[(mby * 4 + y) * self.mbw * 4 + mbx * 4 + x] = (abs(d[0]), abs(d[1]))
+                mvds[(mby * 4 + y) * self.mbw * 4 + mbx * 4 + x] = (abs(d[0]), abs(d[1]))
 
     def nc(self, mbx, mby, comp, x4, y4):
         m = self.mbs[mby * self.mbw + mbx]
@@ -943,10 +1005,126 @@ class _Syntax:
             return self.predict_mv(mbx, mby, 0, 0, 4, 0, 0, 0)
         return (0, 0)
 
+    # ---- B slices: direct prediction (8.4.1.2) as FFmpeg derives it
+    def motion_record(self, lists):
+        """What direct prediction reads of this picture as the co-located one: per macroblock whether it is intra and
+        its shape, per 4x4 block the reference index and vector of each list, and the frame_num of each entry of
+        ``lists`` (those of its last slice; FFmpeg finds the co-located block's reference by frame_num)."""
+        return {"intra": [m.intra for m in self.mbs], "shape": [m.shape for m in self.mbs],
+                "b": getattr(self, "pic_kind", None) == "B",
+                "ref": (list(self.ref), list(self.ref1)), "mv": (list(self.mv), list(self.mv1)),
+                "fn": [[r.frame_num for r in lst] for lst in lists] + [[]] * (2 - len(lists))}
+
+    def scale_factors(self):
+        """DistScaleFactor of each list 0 entry (8.4.1.2.3; 256: long-term or no distance)."""
+        out = []
+        poc1 = self.ref_lists[1][0].poc
+        for r in self.ref_lists[0]:
+            td = max(-128, min(127, poc1 - r.poc))
+            if td == 0 or r.long:
+                out.append(256)
+                continue
+            tb = max(-128, min(127, self.cur_poc - r.poc))
+            q = (16384 + (abs(td) >> 1)) // abs(td)
+            tx = q if td > 0 else -q
+            out.append(max(-1024, min(1023, (tb * tx + 32) >> 6)))
+        return out
+
+    def direct_motion(self, mbx, mby, b8x8):
+        """(refs, vectors, shape, sub4) of direct prediction of the macroblock's 16 4x4 blocks in both lists; shape
+        and sub4 as FFmpeg types the macroblock (16x16 where the co-located one is 16x16 or intra or the motion is
+        uniform, the co-located 16x8 / 8x16, else 8x8) and its 8x8 blocks (4x4 blocks without
+        direct_8x8_inference_flag)."""
+        col, mbw = self.col, self.mbw
+        col_mb = mby * mbw + mbx
+        col_intra = col["intra"][col_mb]
+
+        def col_block(k):
+            x4, y4 = k & 3, k >> 2
+            if self.d8:
+                x4, y4 = (x4 >> 1) * 3, (y4 >> 1) * 3
+            return (mby * 4 + y4) * mbw * 4 + mbx * 4 + x4
+
+        shape = 3 if b8x8 else 0 if col_intra else col["shape"][col_mb]
+        sub4 = [not self.d8] * 4
+        refs, mvs = [[0] * 16, [0] * 16], [[(0, 0)] * 16, [(0, 0)] * 16]
+        if not self.direct_spatial:
+            self.count("temporal_direct_mbs")
+            for k in range(16):
+                ref0, mv0, mv1 = 0, (0, 0), (0, 0)
+                if not col_intra:
+                    cb = col_block(k)
+                    lst = 0 if col["ref"][0][cb] >= 0 else 1
+                    rc, mvc = col["ref"][lst][cb], col["mv"][lst][cb]
+                    found = None
+                    if 0 <= rc < len(col["fn"][lst]):
+                        found = next((j for j, r in enumerate(self.ref_lists[0]) if r.frame_num == col["fn"][lst][rc]),
+                                     None)
+                    if found is None and hasattr(self, "facts"):
+                        self.facts["co_located_reference_not_in_list0"] += 1
+                    ref0 = found or 0
+                    sf = self.dsf[ref0]
+                    mv0 = ((sf * mvc[0] + 128) >> 8, (sf * mvc[1] + 128) >> 8)
+                    mv1 = (mv0[0] - mvc[0], mv0[1] - mvc[1])
+                refs[0][k] = ref0
+                mvs[0][k], mvs[1][k] = mv0, mv1
+            return refs, mvs, shape, sub4
+        self.count("spatial_direct_mbs")
+        ref, mv = [-1, -1], [(0, 0), (0, 0)]
+        bx, by = mbx * 4, mby * 4
+
+        def min_positive(x, y):
+            return min(x, y) if x >= 0 and y >= 0 else max(x, y)
+
+        for lst in range(2):
+            a = self.motion(bx - 1, by, mbx, mby, 0, lst)
+            b = self.motion(bx, by - 1, mbx, mby, 0, lst)
+            c = self.motion(bx + 4, by - 1, mbx, mby, 0, lst)
+            if not c[0]:
+                c = self.motion(bx - 1, by - 1, mbx, mby, 0, lst)
+            ref[lst] = min_positive(a[1], min_positive(b[1], c[1]))
+            if ref[lst] >= 0:
+                mv[lst] = tuple(self.predict_mv(mbx, mby, 0, 0, 4, ref[lst], 0, 0, lst))
+        zero = ref[0] < 0 and ref[1] < 0
+        if zero:
+            ref = [0, 0]
+        if not b8x8 and mv == [(0, 0), (0, 0)]:
+            shape = 0
+        usable = not col_intra and not self.ref_lists[1][0].long
+        n = 0
+        for i8 in range(4):
+            m, cond8 = 0, False
+            for i4 in range(4):
+                k = ((i8 >> 1) * 2 + (i4 >> 1)) * 4 + (i8 & 1) * 2 + (i4 & 1)
+                cb = col_block(k)
+                r0, r1 = col["ref"][0][cb], col["ref"][1][cb]
+                cond8 = usable and (r0 == 0 or (r0 < 0 and r1 == 0))
+                cmv = col["mv"][0 if r0 == 0 else 1][cb]
+                col_zero = cond8 and abs(cmv[0]) <= 1 and abs(cmv[1]) <= 1
+                m += col_zero
+                for lst in range(2):
+                    refs[lst][k] = ref[lst]
+                    z = zero or ref[lst] < 0 or (ref[lst] == 0 and col_zero)
+                    mvs[lst][k] = (0, 0) if z else mv[lst]
+            if not self.d8 and cond8 and m in (0, 4):
+                sub4[i8] = False
+            n += m
+        if not b8x8 and n in (0, 16):
+            shape = 0
+        return refs, mvs, shape, sub4
+
+    def set_direct(self, mbx, mby, refs, mvs, blocks):
+        """The direct motion of ``blocks`` (indices of the macroblock's 4x4 blocks) into both lists."""
+        for k in blocks:
+            for lst in range(2):
+                self.set_motion(mbx, mby, k & 3, k >> 2, 1, 1, refs[lst][k], mvs[lst][k], lst)
+                self.set_mvd(mbx, mby, k & 3, k >> 2, 1, 1, (0, 0), lst)
+            self.direct[(mby * 4 + (k >> 2)) * self.mbw * 4 + mbx * 4 + (k & 3)] = True
+
     # ---- syntax elements, in CAVLC or in CABAC (9.3.2 binarisations, 9.3.3.1 context selection)
-    def put_skip_flag(self, mbx, mby, skip):
+    def put_skip_flag(self, mbx, mby, skip, b_slice=False):
         cond = [n is not None and n.kind != "SKIP" for n in (self.mb_at(mbx - 1, mby), self.mb_at(mbx, mby - 1))]
-        self.cabac.decision(11 + sum(cond), int(skip))
+        self.cabac.decision((24 if b_slice else 11) + sum(cond), int(skip))
 
     def put_chroma_mode(self, w, m, mbx, mby, mode):
         m.chroma_mode = mode
@@ -959,29 +1137,79 @@ class _Syntax:
             self.cabac.decision(67, int(k < mode))
 
     def put_mb_type_i(self, w, mbx, mby, slice_type, t):
-        """mb_type of an intra macroblock (0 I_NxN, 1-24 I_16x16, 25 I_PCM) in an I or P slice."""
+        """mb_type of an intra macroblock (0 I_NxN, 1-24 I_16x16, 25 I_PCM) in an I, P or B slice."""
         c = self.cabac
         if not c:
-            w.ue(t + (5 if slice_type == 0 else 0))
+            w.ue(t + {0: 5, 1: 23, 2: 0}[slice_type])
             return
         i_slice = slice_type == 2
-        if not i_slice:
+        if slice_type == 0:
             c.decision(14, 1)  # the prefix: intra
+        elif slice_type == 1:
+            self.put_mb_type_b(w, mbx, mby, None)
+        base = 17 if slice_type == 0 else 32
         cond = [n is not None and n.kind in ("I16", "PCM")
                 for n in (self.mb_at(mbx - 1, mby), self.mb_at(mbx, mby - 1))]
-        c.decision(3 + sum(cond) if i_slice else 17, int(t != 0))
+        c.decision(3 + sum(cond) if i_slice else base, int(t != 0))
         if t == 0:
             return
         c.terminate(int(t == 25))
         if t == 25:
             return
         mode, chroma, luma = (t - 1) % 4, ((t - 1) // 4) % 3, (t - 1) // 12
-        c.decision(6 if i_slice else 18, luma)
-        c.decision(7 if i_slice else 19, int(chroma > 0))
+        c.decision(6 if i_slice else base + 1, luma)
+        c.decision(7 if i_slice else base + 2, int(chroma > 0))
         if chroma:
-            c.decision(8 if i_slice else 19, int(chroma == 2))
-        c.decision(9 if i_slice else 20, mode >> 1)
-        c.decision(10 if i_slice else 20, mode & 1)
+            c.decision(8 if i_slice else base + 2, int(chroma == 2))
+        c.decision(9 if i_slice else base + 3, mode >> 1)
+        c.decision(10 if i_slice else base + 3, mode & 1)
+
+    def put_mb_type_b(self, w, mbx, mby, t):
+        """mb_type of a B macroblock (0-22), or with ``t`` None the prefix of an intra one (Table 9-37 (b))."""
+        c = self.cabac
+        if not c:
+            w.ue(t)
+            return
+        cond = [n is not None and n.kind != "SKIP" and not n.direct16
+                for n in (self.mb_at(mbx - 1, mby), self.mb_at(mbx, mby - 1))]
+        c.decision(27 + sum(cond), int(t != 0))
+        if t == 0:
+            return
+        if t in (1, 2):
+            c.decision(30, 0)
+            c.decision(32, t - 1)
+            return
+        c.decision(30, 1)
+        bits = {None: 13, 11: 14, 22: 15}.get(t, t - 3 if t is not None and t <= 10 else None)
+        if bits is None:  # 12-21: six bins
+            bits = (t + 4) >> 1
+        for k, ctx in zip((3, 2, 1, 0), (31, 32, 32, 32)):
+            c.decision(ctx, (bits >> k) & 1)
+        if t is not None and 12 <= t <= 21:
+            c.decision(32, (t + 4) & 1)
+
+    def put_sub_mb_type_b(self, w, t):
+        c = self.cabac
+        if not c:
+            w.ue(t)
+            return
+        c.decision(36, int(t != 0))
+        if t == 0:
+            return
+        c.decision(37, int(t >= 3))
+        if t < 3:
+            c.decision(39, t - 1)
+            return
+        c.decision(38, int(t >= 7))
+        if t >= 11:
+            c.decision(39, 1)
+            c.decision(39, t - 11)
+            return
+        if t >= 7:
+            c.decision(39, 0)
+        v = t - (7 if t >= 7 else 3)
+        c.decision(39, v >> 1)
+        c.decision(39, v & 1)
 
     def put_mb_type_p(self, w, kind):
         c = self.cabac
@@ -1064,31 +1292,42 @@ class _Syntax:
                 c.decision(62 if i == 1 else 63, int(i < k))
         self.prev_dqp = delta
 
-    def put_ref_idx(self, w, ref, mbx, mby, x4, y4, cur_ref):
+    def put_ref_idx(self, w, ref, mbx, mby, x4, y4, cur_ref, lst=0, num_ref=None, b_slice=False):
+        """ref_idx_lX; in B slices a neighbouring block predicted in direct mode counts as reference 0 (``direct``,
+        set for the current macroblock's direct sub-macroblocks before their neighbours' indices are written)."""
         c = self.cabac
         if not c:
-            if self.num_ref == 2:
+            if (num_ref or self.num_ref) == 2:
                 w.u(1, 1 - ref)
             else:
                 w.ue(ref)
             return
+        refs = self.arrays(lst)[0]
 
         def cond(x, y):
-            if x >= 0 and y >= 0:
-                return cur_ref[y * 4 + x] > 0
             bx, by = mbx * 4 + x, mby * 4 + y
+            if x >= 0 and y >= 0:
+                return cur_ref[y * 4 + x] > 0 and not (b_slice and self.direct[by * self.mbw * 4 + bx])
             if bx < 0 or by < 0 or self.mb_at(bx >> 2, by >> 2) is None:
                 return False
-            return self.ref[by * self.mbw * 4 + bx] > 0
+            b = by * self.mbw * 4 + bx
+            return refs[b] > 0 and not (b_slice and self.direct[b])
 
         ctx = 54 + int(cond(x4 - 1, y4)) + 2 * int(cond(x4, y4 - 1))
+        used = c.used
+        if lst:
+            c.used = self.ctx_used_l1
         for i in range(ref + 1):
             c.decision(ctx, int(i < ref))
             ctx = 58 if i == 0 else 59
+        c.used = used
 
-    def put_mvd(self, w, d, mbx, mby, x4, y4):
-        """mvd_l0 (both components) of the partition whose top-left 4x4 block is (x4, y4)."""
+    def put_mvd(self, w, d, mbx, mby, x4, y4, lst=0):
+        """mvd_lX (both components) of the partition whose top-left 4x4 block is (x4, y4)."""
         c = self.cabac
+        mvds = self.arrays(lst)[2]
+        if c and lst:
+            used, c.used = c.used, self.ctx_used_l1
         for comp in range(2):
             v = d[comp]
             if not c:
@@ -1099,7 +1338,7 @@ class _Syntax:
                 bx, by = mbx * 4 + x, mby * 4 + y
                 inside = x >= 0 and y >= 0
                 if inside or (bx >= 0 and by >= 0 and self.mb_at(bx >> 2, by >> 2) is not None):
-                    total += self.mvd[by * self.mbw * 4 + bx][comp]
+                    total += mvds[by * self.mbw * 4 + bx][comp]
             base = 47 if comp else 40
             a = abs(v)
             c.decision(base + (0 if total < 3 else 2 if total > 32 else 1), int(a > 0))
@@ -1111,6 +1350,8 @@ class _Syntax:
                 c.exp_golomb(a - 9, 3)
                 self.count("cabac_mvd_escapes")
             c.bypass(int(v < 0))
+        if c and lst:
+            c.used = used
 
     def block(self, w, m, cat, levels, mbx, mby, comp, x4, y4, max_coeff):
         """One residual block (ctxBlockCat ``cat``; its levels in scan order) at (x4, y4) of component ``comp``'s
@@ -1174,6 +1415,85 @@ class _Syntax:
         return int((n.nz[y * 4 + x] if comp == 0 else n.nz[16 + (comp - 1) * 4 + y * 2 + x]) > 0)
 
 
+class FFmpegOutput:
+    """Which pictures FFmpeg outputs, in which order (h264_select_output_frame at each picture's start, the
+    picture chosen output once it is decoded; send_next_delayed_frame at the end of the stream): with the SPS's
+    bitstream restriction, held back by max_num_reorder_frames, the lowest picture order count first up to a key
+    frame or an MMCO 5 picture, a picture dropped where it comes before one already output; without it, each as it
+    is decoded (the writer keeps the count increasing there). ``order``: the ids output; ``reordered``: how many
+    came after a picture decoded later."""
+
+    NONE = -(1 << 31)
+
+    def __init__(self, sps):
+        self.sps = sps
+        self.delayed, self.last, self.next, self.reset_next = [], [self.NONE] * 16, self.NONE, False
+        self.order, self.pending, self.reordered, self.max_id = [], None, 0, 0
+
+    def start(self, uid, poc, key):
+        cur = self.cur = {"id": uid, "poc": poc, "key": key, "reset": self.reset_next}
+        self.reset_next = False
+        if key:
+            self.last = [self.NONE] * 16
+        if not self.sps.bitstream_restriction:
+            self.pending = cur
+            return
+        has_b = self.sps.num_reorder_frames
+        i = 0
+        while True:
+            if i == 16 or poc < self.last[i]:
+                if i:
+                    self.last[i - 1] = poc
+                break
+            if i:
+                self.last[i - 1] = self.last[i]
+            i += 1
+        if i == 0:
+            self.last = [poc] + [self.NONE] * 15
+            cur["reset"] = True
+        self.delayed.append(cur)
+        out = 0
+        for k in range(1, len(self.delayed)):
+            if self.delayed[k]["key"] or self.delayed[k]["reset"]:
+                break
+            if self.delayed[k]["poc"] < self.delayed[out]["poc"]:
+                out = k
+        if has_b == 0 and (self.delayed[0]["key"] or self.delayed[0]["reset"]):
+            self.next = self.NONE
+        picked = self.delayed[out]
+        late = picked["poc"] < self.next
+        ready = len(self.delayed) > has_b
+        if late or ready:
+            del self.delayed[out]
+        if not late and ready:
+            self.pending = picked
+            first = self.delayed[0] if self.delayed else None
+            self.next = self.NONE if out == 0 and first and (first["key"] or first["reset"]) else picked["poc"]
+
+    def finish(self, mmco5):
+        if mmco5:  # FFmpeg's MMCO_RESET: this picture and the next one
+            self.reset_next = self.cur["reset"] = True
+            self.last = [self.NONE] * 16
+        if self.pending:
+            self.emit(self.pending)
+        self.pending = None
+
+    def emit(self, pic):
+        self.reordered += pic["id"] < self.max_id
+        self.max_id = max(self.max_id, pic["id"])
+        self.order.append(pic["id"])
+
+    def flush(self):
+        while self.delayed:
+            out = 0
+            for k in range(1, len(self.delayed)):
+                if self.delayed[k]["key"] or self.delayed[k]["reset"]:
+                    break
+                if self.delayed[k]["poc"] < self.delayed[out]["poc"]:
+                    out = k
+            self.emit(self.delayed.pop(out))
+
+
 class StreamWriter(_Syntax):
     """Random syntax, one access unit a call to :meth:`picture`."""
 
@@ -1213,15 +1533,43 @@ class StreamWriter(_Syntax):
                 if opts.second_chroma_qp_offset:
                     pps.second_chroma_qp_offset = (pps.chroma_qp_offset + self.ri(1, 24) + 12) % 25 - 12
         self.ctx_used = set()
+        self.ctx_used_l1 = set()  # (table, ctxIdx) of list 1's ref_idx and mvd bins
+        self.facts = Counter()  # what the stream reaches beyond STATS: long-term pictures in list 1, ...
         self.refs: list[_Ref] = []
         self.max_long_idx = -1
         self.prev_ref_frame_num = 0
         self.poc_counter = 0
         self.uid = 0
+        self.uid_next = 1  # pictures in decoding order, for the output model
         self.first = True
         self.last_non_ref = False
         self.frame_num_offset = 0
         self.prev_frame_num = 0
+        self.gop = []  # the pictures planned, in decoding order (B streams)
+        self.output = FFmpegOutput(self.sps)
+        if opts.b_frames:
+            self.setup_b()
+
+    def setup_b(self):
+        """The parameter sets of a stream with B pictures: reordered in POC type 0 (the VUI's bitstream restriction
+        with what the GOPs need), in display order in POC type 2."""
+        o, sps = self.o, self.sps
+        sps.poc_type = 0 if o.poc_type is None else o.poc_type
+        assert sps.poc_type in (0, 2), "B pictures in POC type 0 (reordered) or 2 (in display order)"
+        self.reorder = sps.poc_type == 0
+        if sps.profile_idc == 66:
+            sps.profile_idc = 77
+        sps.log2_max_poc_lsb = self.ri(7, 9)
+        sps.direct_8x8_inference = bool(self.ri(0, 1)) if o.direct_8x8_inference is None else o.direct_8x8_inference
+        if self.reorder:
+            sps.vui = sps.bitstream_restriction = True
+            need = 2 if o.b_pyramid else 1
+            sps.num_reorder_frames = need + self.ri(0, o.extra_reorder)
+        for pps in self.ppss:
+            pps.num_ref_default_l1 = self.ri(1, max(sps.max_num_ref_frames, 1))
+            pps.bipred_idc = self.ri(0, 2) if o.bipred_idc is None else o.bipred_idc
+            pps.bottom_field_pic_order = False
+        self.output = FFmpegOutput(sps)
 
     # ---- helpers
     def chance(self, p):
@@ -1262,12 +1610,53 @@ class StreamWriter(_Syntax):
         return lists
 
     # ---- pictures
+    def plan_gop(self):
+        """The next pictures in decoding order, (IDR, kind "I" / "P" / "B", reference, display slot): an anchor, then
+        up to 3 B pictures shown before it (a middle one first, as a reference, where the pyramid is drawn); in POC
+        type 2 one picture, a B picture 7 times in 10 where the DPB holds a reference."""
+        o = self.o
+        idr = (self.first and not o.first_non_idr) or (not self.first and self.chance(0.1))
+        if idr:
+            self.slot = 0
+            self.gop = [(True, "I", True, 0)]
+            return
+        step = lambda: self.ri(1, o.poc_step) if o.poc_step > 1 else o.poc_step  # noqa: E731
+        if not self.reorder:
+            kind = "I" if o.intra_only or self.chance(0.15) else "B" if self.chance(0.7) else "P"
+            ref = not o.non_ref or self.last_non_ref or self.chance(0.75)
+            self.gop = [(False, kind, ref, 0)]
+            return
+        g = self.ri(0, 3)
+        slots = [self.slot]
+        for _ in range(g + 1):
+            slots.append(slots[-1] + step())
+        self.slot = slots[-1]
+        anchor = "I" if o.intra_only or self.chance(0.15) else "P"
+        self.gop = [(False, anchor, True, slots[-1])]
+        bs = slots[1:-1]
+        if g >= 2 and o.b_pyramid and self.chance(0.7):
+            mid = self.ri(1, g - 2) if g > 2 else self.ri(0, 1)
+            self.gop.append((False, "B", True, bs.pop(mid)))
+        for b in bs:
+            self.gop.append((False, "B", not o.non_ref or self.chance(0.2), b))
+
     def picture(self):
         o, rng = self.o, self.rng
-        idr = (self.first and not o.first_non_idr) or (not self.first and self.chance(0.1))
-        intra = idr or self.first or self.chance(0.15) or o.intra_only
-        # Two non-reference pictures in a row would share a picture order count.
-        ref_idc = self.ri(1, 3) if idr or self.first or not o.non_ref or self.last_non_ref or self.chance(0.75) else 0
+        kind = None
+        if o.b_frames:
+            if not self.gop:
+                self.plan_gop()
+            idr, kind, ref_flag, slot = self.gop.pop(0)
+            intra = kind == "I" or o.intra_only
+            if intra and kind == "B":
+                kind = "I"
+            ref_idc = self.ri(1, 3) if idr or ref_flag or self.first else 0
+        else:
+            idr = (self.first and not o.first_non_idr) or (not self.first and self.chance(0.1))
+            intra = idr or self.first or self.chance(0.15) or o.intra_only
+            # Two non-reference pictures in a row would share a picture order count.
+            ref_idc = self.ri(1, 3) if idr or self.first or not o.non_ref or self.last_non_ref or self.chance(0.75) \
+                else 0
         self.last_non_ref = not ref_idc
         au = self.parameter_sets() if idr or self.first or self.chance(0.2) else []
         max_frame_num = 1 << self.sps.log2_max_frame_num
@@ -1282,7 +1671,10 @@ class StreamWriter(_Syntax):
         # The marking, the same in every slice.
         marking = self.plan_marking(idr, ref_idc, frame_num)
         # Picture order count fields.
-        self.poc_counter += self.ri(1, o.poc_step) if o.poc_step > 1 else o.poc_step
+        if o.b_frames and self.reorder:
+            self.poc_counter = slot
+        else:
+            self.poc_counter += self.ri(1, o.poc_step) if o.poc_step > 1 else o.poc_step
         poc_lsb = (2 * self.poc_counter) % (1 << self.sps.log2_max_poc_lsb) if not idr else 0
         if idr:
             self.poc_counter = 0
@@ -1291,11 +1683,13 @@ class StreamWriter(_Syntax):
         if not idr and self.prev_frame_num > frame_num:
             self.frame_num_offset += max_frame_num
         self.cur_frame_num = frame_num
+        # The picture order count as FFmpeg counts it, relative to the last IDR picture (B streams: POC type 0 or 2).
+        if self.sps.poc_type == 0:
+            self.cur_poc = 2 * self.poc_counter + min(0, delta_bottom)
+        else:
+            self.cur_poc = 2 * (self.frame_num_offset + frame_num) - int(not ref_idc)
         self.mbs = [None] * (self.mbw * self.mbh)
-        nblocks = self.mbw * self.mbh * 16
-        self.ref = [-1] * nblocks
-        self.mv = [(0, 0)] * nblocks
-        self.mvd = [(0, 0)] * nblocks  # |mvd| of each 4x4 block, for CABAC's mvd contexts
+        self.new_arrays()  # per 4x4 block: references, vectors, |mvd| (CABAC's mvd contexts), direct
         # Slices.
         total = self.mbw * self.mbh
         cuts = [0]
@@ -1312,10 +1706,16 @@ class StreamWriter(_Syntax):
             self.count("multi_slice_pictures")
         if any(self.sps.crop):
             self.count("cropped_pictures")
+        self.pic_kind = kind
+        self.output.start(self.uid_next, self.cur_poc, idr)
         for s in range(len(cuts) - 1):
             au.append(self.slice(s, cuts[s], cuts[s + 1], idr, intra, ref_idc, pps, frame_num, poc_lsb,
                                  delta_bottom, delta_poc, marking))
+        if kind == "B" and ref_idc:
+            self.count("reference_b_pictures")
         self.apply_marking(idr, ref_idc, frame_num, marking)
+        self.output.finish(bool(marking.get("mmco5")))
+        self.uid_next += 1
         self.prev_frame_num = frame_num if not marking.get("mmco5") else 0
         if marking.get("mmco5"):
             # frame_num starts over; the POC lsb goes on counting, so that FFmpeg's count, which goes on from the
@@ -1445,6 +1845,9 @@ class StreamWriter(_Syntax):
                         self.refs.remove(x)
                     cur.long, cur.long_idx = True, op[1]
                     self.count("long_term_refs")
+        cur.poc = self.cur_poc
+        if self.o.b_frames:
+            cur.motion = self.motion_record(self.ref_lists)
         self.refs.append(cur)
         self.prev_ref_frame_num = cur.frame_num
         assert len(self.refs) <= max(self.sps.max_num_ref_frames, 1)
@@ -1473,7 +1876,10 @@ class StreamWriter(_Syntax):
         o, sps = self.o, self.sps
         w = BitWriter()
         w.ue(first)
-        slice_type = 2 if intra else (0 if not self.chance(0.1) else 2)
+        if self.pic_kind is not None:  # B streams: every slice of a picture has its type
+            slice_type = {"I": 2, "P": 0, "B": 1}[self.pic_kind]
+        else:
+            slice_type = 2 if intra else (0 if not self.chance(0.1) else 2)
         w.ue(slice_type + (5 if self.chance(0.3) else 0))
         w.ue(pps.pps_id)
         w.u(sps.log2_max_frame_num, frame_num)
@@ -1490,10 +1896,21 @@ class StreamWriter(_Syntax):
         if pps.redundant_pic_cnt:
             w.ue(o.redundant_pic_cnt)
         self.count("slices")
-        self.count("i_slices" if slice_type == 2 else "p_slices")
+        self.count({2: "i_slices", 0: "p_slices", 1: "b_slices"}[slice_type])
         self.refs_list = []
+        self.ref_lists = [[], []]
         self.weights = None
-        if slice_type == 0:
+        if self.pic_kind is not None:
+            if slice_type == 1:
+                self.direct_spatial = o.direct_spatial if o.direct_spatial is not None else self.chance(0.5)
+                w.u(1, int(self.direct_spatial))
+            if slice_type != 2:
+                if index == 0:  # every slice of a picture has the same lists
+                    self.list_plan = self.draw_lists(slice_type, frame_num, pps)
+                self.write_lists(w, self.list_plan, slice_type)
+                if slice_type == 1 and pps.bipred_idc == 2:
+                    self.count("implicit_bipred_slices")
+        elif slice_type == 0:
             usable = len(self.refs)
             num_ref = pps.num_ref_default
             if o.bad_ref_idx:
@@ -1551,7 +1968,7 @@ class StreamWriter(_Syntax):
         table = 0
         if pps.cabac:
             self.count("cabac_slices")
-            if slice_type == 0:
+            if slice_type != 2:
                 idc = self.ri(0, 2) if o.cabac_init_idc is None else o.cabac_init_idc
                 w.ue(idc)
                 self.count("cabac_init_idc_%d" % idc)
@@ -1583,6 +2000,119 @@ class StreamWriter(_Syntax):
         else:
             w.trailing()
         return nal_unit(ref_idc, 5 if idr else 1, w.data())
+
+    def draw_lists(self, slice_type, frame_num, pps):
+        """The list syntax of the slices of a picture of a B stream: num_ref_idx_active of each list (overridden, or
+        the PPS's where the DPB holds that many), the modifications of each list (idc, value, picture) and the
+        weights (explicit weighted prediction of P slices, weighted_bipred_idc 1 in B slices)."""
+        o, sps = self.o, self.sps
+        n = 2 if slice_type == 1 else 1
+        usable = len(self.refs)
+        num = [pps.num_ref_default, pps.num_ref_default_l1][:n]
+        override = any(k > usable for k in num) or self.chance(0.3)
+        if override:
+            num = [self.ri(1, usable) for _ in range(n)]
+        mods = []
+        max_pic_num = 1 << sps.log2_max_frame_num
+        wrap = self.wraps(frame_num)
+        for lst in range(n):
+            entries = []
+            if o.modifications and self.chance(0.4):
+                pred = frame_num
+                for _ in range(self.ri(1, num[lst])):
+                    r = self.refs[self.ri(0, len(self.refs) - 1)]
+                    if r.long:
+                        entries.append((2, r.long_idx, r))
+                        continue
+                    no_wrap = wrap[id(r)] % max_pic_num  # picNumLXNoWrap of the target
+                    if self.chance(0.5):
+                        entries.append((0, ((pred - no_wrap) % max_pic_num or max_pic_num) - 1, r))
+                    else:
+                        entries.append((1, ((no_wrap - pred) % max_pic_num or max_pic_num) - 1, r))
+                    pred = no_wrap
+            mods.append(entries)
+        weights = None
+        if (pps.weighted if slice_type == 0 else pps.bipred_idc == 1):
+            weights = (self.ri(0, 7), self.ri(0, 7), [[self.draw_weight() for _ in range(k)] for k in num])
+        return {"override": override, "num": num, "mods": mods, "weights": weights}
+
+    def draw_weight(self):
+        entry = {}
+        if self.chance(0.6):
+            entry["luma"] = (self.ri(-128, 127), self.ri(-128, 127))
+        if self.chance(0.6):
+            entry["chroma"] = [(self.ri(-128, 127), self.ri(-128, 127)) for _ in range(2)]
+        return entry
+
+    def write_lists(self, w, plan, slice_type):
+        """The slice header's list syntax of ``plan`` (:meth:`draw_lists`); the lists it makes."""
+        w.u(1, int(plan["override"]))
+        if plan["override"]:
+            for k in plan["num"]:
+                w.ue(k - 1)
+        for lst, entries in enumerate(plan["mods"]):
+            w.u(1, int(bool(entries)))
+            for idc, value, _ in entries:
+                w.ue(idc)
+                w.ue(value)
+                self.count("list1_modifications" if lst else "list_modifications")
+            if entries:
+                w.ue(3)
+        if plan["weights"]:
+            luma_log2, chroma_log2, tables = plan["weights"]
+            w.ue(luma_log2)
+            w.ue(chroma_log2)
+            for table in tables:
+                for entry in table:
+                    w.u(1, int("luma" in entry))
+                    if "luma" in entry:
+                        w.se(entry["luma"][0])
+                        w.se(entry["luma"][1])
+                    w.u(1, int("chroma" in entry))
+                    for cw, co in entry.get("chroma", ()):
+                        w.se(cw)
+                        w.se(co)
+            self.count("explicit_bipred_slices" if slice_type == 1 else "weighted_slices")
+        self.ref_lists = [self.apply_mods(init, plan["num"][lst], [e[2] for e in plan["mods"][lst]])
+                          for lst, init in enumerate(self.initial_lists(slice_type))]
+        self.num_refs = plan["num"]
+        self.num_ref, self.refs_list = plan["num"][0], self.ref_lists[0]
+        if slice_type == 1:
+            self.col, self.d8 = self.ref_lists[1][0].motion, self.sps.direct_8x8_inference
+            self.dsf = None if self.direct_spatial else self.scale_factors()
+            self.facts["long_term_in_list1"] += any(r.long for r in self.ref_lists[1])
+            self.facts["b_picture_co_located"] += bool(self.col["b"])
+
+    def initial_lists(self, slice_type):
+        """The initial reference lists (8.2.4.2.1, 8.2.4.2.3): P by PicNum, B by picture order count, the first two
+        entries of list 1 switched where it equals list 0."""
+        longs = sorted([r for r in self.refs if r.long], key=lambda r: r.long_idx)
+        shorts = [r for r in self.refs if not r.long]
+        if slice_type == 0:
+            wrap = self.wraps(self.cur_frame_num)
+            return [sorted(shorts, key=lambda r: -wrap[id(r)]) + longs]
+        before = sorted([r for r in shorts if r.poc <= self.cur_poc], key=lambda r: -r.poc)
+        after = sorted([r for r in shorts if r.poc > self.cur_poc], key=lambda r: r.poc)
+        l0, l1 = before + after + longs, after + before + longs
+        if len(l1) > 1 and all(a is b for a, b in zip(l0, l1)):
+            l1[0], l1[1] = l1[1], l1[0]
+        return [l0, l1]
+
+    @staticmethod
+    def apply_mods(initial, num_ref, mods):
+        """A list cut to ``num_ref`` entries after the modifications naming the pictures ``mods`` (8.2.4.3)."""
+        lst = initial[:num_ref]
+        lst += [None] * (num_ref + 1 - len(lst))
+        for idx, pic in enumerate(mods):
+            for c in range(num_ref, idx, -1):
+                lst[c] = lst[c - 1]
+            lst[idx] = pic
+            n = idx + 1
+            for c in range(idx + 1, num_ref + 1):
+                if lst[c] is not pic:
+                    lst[n] = lst[c]
+                    n += 1
+        return lst[:num_ref]
 
     def pred_weight_table(self, w, num_ref):
         luma_log2, chroma_log2 = self.ri(0, 7), self.ri(0, 7)
@@ -1625,16 +2155,19 @@ class StreamWriter(_Syntax):
             mbx, mby = addr % self.mbw, addr // self.mbw
             m = _Mb(self.slice_index)
             self.mbs[addr] = m
-            skip = slice_type == 0 and self.chance(o.skip_share)
-            if self.cabac and slice_type == 0:
-                self.put_skip_flag(mbx, mby, skip)
+            skip = slice_type != 2 and self.chance(o.skip_share if slice_type == 0 else o.b_mb_shares[0])
+            if self.cabac and slice_type != 2:
+                self.put_skip_flag(mbx, mby, skip, slice_type == 1)
             if skip:
                 m.kind = "SKIP"
                 run += 1
-                self.skip(mbx, mby)
+                if slice_type == 1:
+                    self.b_skip(m, mbx, mby)
+                else:
+                    self.skip(mbx, mby)
                 self.prev_dqp = 0
             else:
-                if slice_type == 0 and not self.cabac:
+                if slice_type != 2 and not self.cabac:
                     w.ue(run)
                     if run:
                         self.count("skip_runs")
@@ -1660,6 +2193,11 @@ class StreamWriter(_Syntax):
         if slice_type == 0 and not self.chance(o.intra_share):
             self.inter_mb(w, m, mbx, mby)
             return
+        if slice_type == 1:
+            if not self.chance(o.b_mb_shares[1] / max(1e-9, 1 - o.b_mb_shares[0])):
+                self.b_mb(w, m, mbx, mby)
+                return
+            self.count("intra_mbs_in_b_slices")
         if slice_type == 0:
             self.count("intra_mbs_in_p_slices")
         self.set_motion(mbx, mby, 0, 0, 4, 4, -1, (0, 0))
@@ -1758,6 +2296,7 @@ class StreamWriter(_Syntax):
     def inter_mb(self, w, m, mbx, mby):
         kind = self.ri(0, 3 if self.cabac else 4)
         m.kind = "P"
+        m.shape = min(kind, 3)
         self.count(("P_L0_16x16", "P_L0_L0_16x8", "P_L0_L0_8x16", "P_8x8", "P_8x8ref0")[kind])
         self.put_mb_type_p(w, kind)
         mask, cur_ref, parts = 0, [0] * 16, []
@@ -1802,6 +2341,123 @@ class StreamWriter(_Syntax):
         for (x4, y4, w4, h4, _), d in zip(parts, mvds):
             self.put_mvd(w, d, mbx, mby, x4, y4)
             self.set_mvd(mbx, mby, x4, y4, w4, h4, d)
+        cbp = self.ri(0, 47)
+        self.put_cbp(w, m, mbx, mby, cbp, False)
+        if cbp & 15 and self.pps.transform_8x8 and all_8x8:
+            self.put_transform_flag(w, m, mbx, mby, self.chance(0.5))
+            if m.t8:
+                self.count("transform_8x8_inter")
+        self.residual(w, m, mbx, mby, cbp & 15, cbp >> 4, False)
+
+    # ---- B macroblocks
+    def b_skip(self, m, mbx, mby):
+        refs, mvs, m.shape, _ = self.direct_motion(mbx, mby, False)
+        self.set_direct(mbx, mby, refs, mvs, range(16))
+        self.count("B_Skip")
+
+    def b_ref(self, w, lst, mbx, mby, x4, y4, cur_ref):
+        """A random reference index of list ``lst`` for the partition at (x4, y4), written where the list has more
+        than one entry."""
+        n = self.num_refs[lst]
+        ref = self.ri(0, n - 1)
+        if n > 1:
+            self.put_ref_idx(w, ref, mbx, mby, x4, y4, cur_ref, lst, n, True)
+            if ref > 0:
+                self.count("ref_idx_nonzero")
+        return ref
+
+    def b_mb(self, w, m, mbx, mby):
+        """A B macroblock other than B_Skip: B_Direct_16x16, one 16x16 or two 16x8 / 8x16 partitions, or B_8x8 with
+        any sub_mb_type."""
+        o = self.o
+        shares = np.array(o.b_mb_shares[2:], np.float64)
+        kind = int(self.rng.choice(4, p=shares / shares.sum()))
+        m.kind = "P"
+        cur_ref = [[-1] * 16, [-1] * 16]
+        all_8x8 = True
+        if kind == 0:
+            self.put_mb_type_b(w, mbx, mby, 0)
+            m.direct16 = True
+            refs, mvs, m.shape, _ = self.direct_motion(mbx, mby, False)
+            self.set_direct(mbx, mby, refs, mvs, range(16))
+            self.count("B_Direct_16x16")
+            all_8x8 = self.d8
+        elif kind in (1, 2):
+            t = self.ri(1, 3) if kind == 1 else self.ri(4, 21)
+            self.put_mb_type_b(w, mbx, mby, t)
+            shape = 0 if t < 4 else 2 if t & 1 else 1
+            m.shape = shape
+            self.count("B_16x16" if t < 4 else "B_16x8" if shape == 1 else "B_8x16")
+            parts = [(0, 0, 4, 4)] if t < 4 else [(0, 2 * p, 4, 2) if shape == 1 else (2 * p, 0, 2, 4) for p in (0, 1)]
+            preds = B_PRED[t]
+            refs = [[-1] * len(parts), [-1] * len(parts)]
+            for lst in range(2):
+                for p, (x4, y4, w4, h4) in enumerate(parts):
+                    if preds[p] >> lst & 1:
+                        refs[lst][p] = self.b_ref(w, lst, mbx, mby, x4, y4, cur_ref[lst])
+                        for y in range(y4, y4 + h4):
+                            cur_ref[lst][y * 4 + x4:y * 4 + x4 + w4] = [refs[lst][p]] * w4
+            for lst in range(2):
+                mask = 0
+                for p, (x4, y4, w4, h4) in enumerate(parts):
+                    if refs[lst][p] < 0:
+                        mask |= self.set_motion(mbx, mby, x4, y4, w4, h4, -1, (0, 0), lst)
+                        continue
+                    pred = self.predict_mv(mbx, mby, x4, y4, w4, refs[lst][p], mask, shape, lst)
+                    mv = self.choose_mv(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, pred)
+                    d = (mv[0] - pred[0], mv[1] - pred[1])
+                    self.put_mvd(w, d, mbx, mby, x4, y4, lst)
+                    self.set_mvd(mbx, mby, x4, y4, w4, h4, d, lst)
+                    mask |= self.set_motion(mbx, mby, x4, y4, w4, h4, refs[lst][p], mv, lst)
+            self.count("bi_partitions", sum(pr == 3 for pr in preds[:len(parts)]))
+        else:
+            self.put_mb_type_b(w, mbx, mby, 22)
+            m.shape = 3
+            self.count("B_8x8")
+            subs = [self.ri(0, 12) for _ in range(4)]
+            for t in subs:
+                self.put_sub_mb_type_b(w, t)
+                self.count("b_sub_direct" if t == 0 else ("b_sub_8x8", "b_sub_8x4", "b_sub_4x8",
+                                                          "b_sub_4x4")[B_SUB_SHAPE[t]])
+            all_8x8 = all(self.d8 if t == 0 else B_SUB_SHAPE[t] == 0 for t in subs)
+            blocks = [[((s >> 1) * 2 + (k >> 1)) * 4 + (s & 1) * 2 + (k & 1) for k in range(4)] for s in range(4)]
+            if any(t == 0 for t in subs):
+                drefs, dmvs, _, _ = self.direct_motion(mbx, mby, True)
+                for s in range(4):
+                    if subs[s] == 0:
+                        for k in blocks[s]:
+                            self.direct[(mby * 4 + (k >> 2)) * self.mbw * 4 + mbx * 4 + (k & 3)] = True
+            refs = [[-1] * 4, [-1] * 4]
+            for lst in range(2):
+                for s, t in enumerate(subs):
+                    if t and B_SUB_PRED[t] >> lst & 1:
+                        refs[lst][s] = self.b_ref(w, lst, mbx, mby, (s & 1) * 2, (s >> 1) * 2, cur_ref[lst])
+                        for k in blocks[s]:
+                            cur_ref[lst][k] = refs[lst][s]
+            for lst in range(2):
+                mask = 0
+                for s, t in enumerate(subs):
+                    sx, sy = (s & 1) * 2, (s >> 1) * 2
+                    if t == 0:
+                        for k in blocks[s]:
+                            mask |= self.set_motion(mbx, mby, k & 3, k >> 2, 1, 1, drefs[lst][k], dmvs[lst][k], lst)
+                        continue
+                    if refs[lst][s] < 0:
+                        mask |= self.set_motion(mbx, mby, sx, sy, 2, 2, -1, (0, 0), lst)
+                        continue
+                    sub_shape = B_SUB_SHAPE[t]
+                    w4, h4 = (2 if sub_shape in (0, 1) else 1), (2 if sub_shape in (0, 2) else 1)
+                    for k in range(1 if sub_shape == 0 else 4 if sub_shape == 3 else 2):
+                        x4 = sx + ((k & 1) if w4 == 1 else 0)
+                        y4 = sy + (((k >> 1) if sub_shape == 3 else k) if h4 == 1 else 0)
+                        pred = self.predict_mv(mbx, mby, x4, y4, w4, refs[lst][s], mask, 0, lst)
+                        mv = self.choose_mv(mbx, mby, x4 * 4, y4 * 4, w4 * 4, h4 * 4, pred)
+                        d = (mv[0] - pred[0], mv[1] - pred[1])
+                        self.put_mvd(w, d, mbx, mby, x4, y4, lst)
+                        self.set_mvd(mbx, mby, x4, y4, w4, h4, d, lst)
+                        mask |= self.set_motion(mbx, mby, x4, y4, w4, h4, refs[lst][s], mv, lst)
+            self.count("bi_partitions", sum((1 if B_SUB_SHAPE[t] == 0 else 4 if B_SUB_SHAPE[t] == 3 else 2)
+                                            for t in subs if t and B_SUB_PRED[t] == 3))
         cbp = self.ri(0, 47)
         self.put_cbp(w, m, mbx, mby, cbp, False)
         if cbp & 15 and self.pps.transform_8x8 and all_8x8:
@@ -1907,13 +2563,21 @@ class StreamWriter(_Syntax):
                     continue
                 levels = fit_levels(self.random_levels(15), qpc[comp], 1, dcc[comp][y4, x4], weights=wc[comp])
                 m.nz[16 + comp * 4 + b] = self.block(w, m, 4, levels, mbx, mby, comp + 1, x4, y4, 15)
+def display_order(writer, count):
+    """Each access unit's place in display order (FFmpeg's output order) of a stream ``writer`` wrote."""
+    rank = {uid: k for k, uid in enumerate(writer.output.order)}
+    return [rank[i + 1] for i in range(count)]
+
+
 def random_stream(seed, **options):
-    """(access units, the writer's counts, (coded width, coded height), (width, height) after the crop) of a
-    random stream."""
+    """(access units, the writer's counts, (coded width, coded height), (width, height) after the crop, the writer)
+    of a random stream."""
     rng = np.random.default_rng(seed)
     opts = Options(**options)
     writer = StreamWriter(rng, opts)
     aus = [writer.picture() for _ in range(opts.frames)]
+    writer.output.flush()
+    writer.stats["reordered_pictures"] = writer.output.reordered
     cw, ch = 16 * opts.mb_width, 16 * opts.mb_height
     l, r, t, b = opts.crop
     return aus, writer.stats, (cw, ch), (cw - 2 * (l + r), ch - 2 * (t + b)), writer
@@ -2613,8 +3277,39 @@ class HighEncoder(_Syntax, FrameEncoder):
             for cp, rc in zip(cpred, ref_c):
                 cp[by // 2:by // 2 + 4, bx // 2:bx // 2 + 4] = self.chroma_pred(rc, mbx * 8 + bx // 2,
                                                                                  mby * 8 + by // 2, 4, 4, pm)
+        t8, z4, z8, cbp_luma, _ = self.transforms(src, pred)
+        chroma = self.chroma_residual(mbx, mby, cpred[0], cpred[1], u, v, False)
+        cbp_chroma = self.chroma_cbp(chroma)
+        if not p8x8 and mv == skip and not cbp_luma and not cbp_chroma:
+            self.put_skip_flag(mbx, mby, True)
+            m.kind = "SKIP"
+            self.set_motion(mbx, mby, 0, 0, 4, 4, 0, mv)
+            self.set_mvd(mbx, mby, 0, 0, 4, 4, (0, 0))
+            self.prev_dqp = 0
+            self.stats["P_Skip"] += 1
+            return
+        self.put_skip_flag(mbx, mby, False)
+        self.put_mb_type_p(w, 3 if p8x8 else 0)
+        if p8x8:
+            m.shape = 3
+            for _ in range(4):
+                self.put_sub_mb_type(w, 0)
+            self.stats["sub_8x8"] += 4
+        mask = 0
+        for b8, pm in enumerate(mvs[:4 if p8x8 else 1]):
+            x4, y4, s = ((b8 & 1) * 2, (b8 >> 1) * 2, 2) if p8x8 else (0, 0, 4)
+            p = self.predict_mv(mbx, mby, x4, y4, s, 0, mask, 0)
+            d = (pm[0] - p[0], pm[1] - p[1])
+            self.put_mvd(w, d, mbx, mby, x4, y4)
+            self.set_mvd(mbx, mby, x4, y4, s, s, d)
+            mask |= self.set_motion(mbx, mby, x4, y4, s, s, 0, pm)
+        self.write_residual(w, m, mbx, mby, t8, z4, z8, cbp_luma, chroma, cbp_chroma)
+        self.stats["P_8x8" if p8x8 else "P_L0_16x16"] += 1
+
+    def transforms(self, src, pred):
+        """(8x8 transform, 4x4 levels, 8x8 levels, CodedBlockPatternLuma, cost) of an inter macroblock's residual: the
+        4x4 or the 8x8 transform, the cheaper reconstruction (its cost: squared error plus lambda times bits)."""
         res = src - pred
-        # The 4x4 and the 8x8 transform: the cheaper reconstruction.
         z4 = _quantise(_forward(_blocks(res)), self.qp, False)
         rec4 = _unblocks(_inverse(_dequantise(z4, self.qp)))
         z8 = [_quantise8(res[by:by + 8, bx:bx + 8], self.qp, False) for by in (0, 8) for bx in (0, 8)]
@@ -2630,30 +3325,10 @@ class HighEncoder(_Syntax, FrameEncoder):
         else:
             cbp_luma = sum(1 << b8 for b8 in range(4)
                            if np.any(z4[(b8 >> 1) * 2:(b8 >> 1) * 2 + 2, (b8 & 1) * 2:(b8 & 1) * 2 + 2]))
-        chroma = self.chroma_residual(mbx, mby, cpred[0], cpred[1], u, v, False)
-        cbp_chroma = self.chroma_cbp(chroma)
-        if not p8x8 and mv == skip and not cbp_luma and not cbp_chroma:
-            self.put_skip_flag(mbx, mby, True)
-            m.kind = "SKIP"
-            self.set_motion(mbx, mby, 0, 0, 4, 4, 0, mv)
-            self.set_mvd(mbx, mby, 0, 0, 4, 4, (0, 0))
-            self.prev_dqp = 0
-            self.stats["P_Skip"] += 1
-            return
-        self.put_skip_flag(mbx, mby, False)
-        self.put_mb_type_p(w, 3 if p8x8 else 0)
-        if p8x8:
-            for _ in range(4):
-                self.put_sub_mb_type(w, 0)
-            self.stats["sub_8x8"] += 4
-        mask = 0
-        for b8, pm in enumerate(mvs[:4 if p8x8 else 1]):
-            x4, y4, s = ((b8 & 1) * 2, (b8 >> 1) * 2, 2) if p8x8 else (0, 0, 4)
-            p = self.predict_mv(mbx, mby, x4, y4, s, 0, mask, 0)
-            d = (pm[0] - p[0], pm[1] - p[1])
-            self.put_mvd(w, d, mbx, mby, x4, y4)
-            self.set_mvd(mbx, mby, x4, y4, s, s, d)
-            mask |= self.set_motion(mbx, mby, x4, y4, s, s, 0, pm)
+        return t8, z4, z8, cbp_luma, min(cost4, cost8t)
+
+    def write_residual(self, w, m, mbx, mby, t8, z4, z8, cbp_luma, chroma, cbp_chroma):
+        """coded_block_pattern, transform_size_8x8_flag, mb_qp_delta and the levels of an inter macroblock."""
         cbp = cbp_luma | cbp_chroma << 4
         self.put_cbp(w, m, mbx, mby, cbp, False)
         if cbp_luma:
@@ -2673,14 +3348,264 @@ class HighEncoder(_Syntax, FrameEncoder):
                         m.nz[y4 * 4 + x4] = self.block(w, m, 2, z4[y4, x4].reshape(-1)[_SCAN].tolist(), mbx, mby, 0,
                                                        x4, y4, 16)
         self.write_chroma8(w, m, mbx, mby, chroma, cbp_chroma)
-        self.stats["P_8x8" if p8x8 else "P_L0_16x16"] += 1
 
 
-def encode_frames(frames_bgr, qp=22, search=6, high=False):
-    """(access units, the encoder's reconstruction of each frame as (Y, U, V), the encoder) of uint8 BGR frames of
-    even size: BT.601 limited-range YUV 4:2:0 from ``cv2.cvtColor``, an IDR, then P pictures; Baseline
-    (:class:`FrameEncoder`), or High with CABAC and the 8x8 transform (:class:`HighEncoder`, whose reconstruction is
-    FFmpeg's decode)."""
+class HighBEncoder(HighEncoder):
+    """High profile with B pictures in x264's default GOP shape: after the IDR, an anchor P picture every 4 frames
+    (or the last frame) and up to 3 B pictures before it in display order, the middle one of 3 a reference coded
+    first (B-pyramid ``normal``), then the others; POC type 0, the VUI's max_num_reorder_frames 2; spatial direct
+    (B_Skip and B_Direct_16x16), B_L0 / B_L1 / B_Bi_16x16 with implicit weighted bi-prediction
+    (``weighted_bipred_idc`` 2); CABAC, the 8x8 transform, deblocking on; a fixed QP, 2 more in B slices (x264's
+    ``--qp`` with its default pbratio 1.3). Each picture predicts from
+    FFmpeg's decode of its references (``reference(access units)``: every frame decoded so far, in display order);
+    a P picture from the anchor before it (moved to the head of list 0)."""
+
+    def __init__(self, width, height, reference, qp=22, search=6):
+        super().__init__(width, height, reference, qp, search)
+        crop = self.sps.crop
+        self.sps = Sps(self.mbw, self.mbh, profile_idc=100, level_idc=31, poc_type=0, log2_max_poc_lsb=8,
+                       max_num_ref_frames=3, crop=crop, vui=True, bitstream_restriction=True, num_reorder_frames=2)
+        self.pps = Pps(pic_init_qp=qp, deblocking_control=True, cabac=True, transform_8x8=True, bipred_idc=2)
+        self.refs, self.decoded, self.done, self.uid = [], {}, [], 0
+        self.ctx_used_l1, self.direct_spatial, self.d8 = set(), True, True
+        self.last_anchor = None
+
+    @staticmethod
+    def gop(n):
+        """(display index, kind, reference) of each of ``n`` frames in decoding order."""
+        order, prev = [(0, "I", True)], 0
+        while prev < n - 1:
+            anchor = min(prev + 4, n - 1)
+            bs = list(range(prev + 1, anchor))
+            order.append((anchor, "P", True))
+            if len(bs) == 3:
+                order += [(bs[1], "B", True), (bs[0], "B", False), (bs[2], "B", False)]
+            else:
+                order += [(b, "B", False) for b in bs]
+            prev = anchor
+        return order
+
+    def encode_all(self, yuvs):
+        """The access units of the frames ``yuvs`` (Y, U, V planes each, in display order), in decoding order."""
+        aus = []
+        for disp, kind, ref in self.gop(len(yuvs)):
+            aus.append(self.encode_picture(yuvs[disp], disp, kind, ref))
+        return aus
+
+    def encode_picture(self, yuv, disp, kind, ref):
+        y, u, v = (np.pad(p, ((0, ch - p.shape[0]), (0, cw - p.shape[1])), mode="edge").astype(np.int64)
+                   for p, cw, ch in ((yuv[0], self.cw, self.ch), (yuv[1], self.cw // 2, self.ch // 2),
+                                     (yuv[2], self.cw // 2, self.ch // 2)))
+        idr, self.pic_kind, self.cur_poc = kind == "I", kind, 2 * disp
+        base_qp = self.qp
+        self.qp += 2 * (kind == "B")
+        w = BitWriter()
+        w.ue(0)  # first_mb_in_slice
+        w.ue({"I": 7, "P": 5, "B": 6}[kind])
+        w.ue(0)
+        w.u(self.sps.log2_max_frame_num, self.frame_num)
+        if idr:
+            w.ue(0)  # idr_pic_id
+        w.u(self.sps.log2_max_poc_lsb, self.cur_poc % (1 << self.sps.log2_max_poc_lsb))
+        shorts = list(self.refs)
+        if kind == "B":
+            w.u(1, 1)  # direct_spatial_mv_pred_flag
+            before = sorted([r for r in shorts if r.poc <= self.cur_poc], key=lambda r: -r.poc)
+            after = sorted([r for r in shorts if r.poc > self.cur_poc], key=lambda r: r.poc)
+            self.ref_lists = [before + after, after + before]
+        elif kind == "P":
+            self.ref_lists = [[self.last_anchor]]
+        else:
+            self.ref_lists = []
+        if kind != "I":
+            w.u(1, 0)  # num_ref_idx_active_override_flag: one entry in each list
+            if kind == "P":  # the anchor before, ahead of a reference B picture decoded after it
+                default = max(shorts, key=lambda r: r.frame_num_wrap)
+                w.u(1, int(default is not self.last_anchor))
+                if default is not self.last_anchor:
+                    w.ue(0)
+                    w.ue(self.frame_num - self.last_anchor.frame_num_wrap - 1)
+                    w.ue(3)
+            else:
+                w.u(1, 0)
+                w.u(1, 0)
+        if ref:
+            w.u(1, 0)  # no_output_of_prior_pics_flag / adaptive_ref_pic_marking_mode_flag
+            if idr:
+                w.u(1, 0)  # long_term_reference_flag
+        if kind != "I":
+            w.ue(0)  # cabac_init_idc
+        w.se(self.qp - base_qp)  # slice_qp_delta
+        w.ue(0)  # disable_deblocking_filter_idc: on, offsets 0
+        w.se(0)
+        w.se(0)
+        w.align_one()
+        self.cabac = CabacWriter(w, self.qp, 0 if idr else 1, self.ctx_used)
+        self.prev_dqp = 0
+        self.mbs = [None] * (self.mbw * self.mbh)
+        self.new_arrays()
+        self.recon = [np.zeros((self.ch, self.cw), np.int64), np.zeros((self.ch // 2, self.cw // 2), np.int64),
+                      np.zeros((self.ch // 2, self.cw // 2), np.int64)]
+        if idr:
+            for addr in range(self.mbw * self.mbh):
+                self.intra_mb8(w, addr % self.mbw, addr // self.mbw, y, u, v)
+                self.cabac.terminate(int(addr == self.mbw * self.mbh - 1))
+        elif kind == "P":
+            self.ref_planes = self.decoded[self.last_anchor.uid]
+            self.inter_picture8(w, y, u, v)
+        else:
+            self.stats["b_slices"] += 1
+            self.stats["implicit_bipred_slices"] += 1
+            self.b_picture8(w, y, u, v)
+        w.align_zero()
+        au = ([nal_unit(3, 7, self.sps.rbsp()), nal_unit(3, 8, self.pps.rbsp())] if idr else [])
+        au.append(nal_unit((2 if kind == "B" else 3) if ref else 0, 5 if idr else 1, w.data()))
+        self.aus.append(au)
+        # FFmpeg's decode of every frame so far, by display index.
+        self.done.append(disp)
+        frames = self.reference(self.aus)
+        by_disp = dict(zip(sorted(self.done), frames))
+        if ref:
+            self.uid += 1
+            cur = _Ref(self.frame_num, self.uid, poc=self.cur_poc)
+            cur.motion = self.motion_record(self.ref_lists)
+            if len(self.refs) >= self.sps.max_num_ref_frames:  # the sliding window
+                self.refs.remove(min(self.refs, key=lambda r: r.frame_num))
+            self.refs.append(cur)
+            self.decoded[cur.uid] = [p.astype(np.int64) for p in by_disp[disp]]
+            if kind != "B":
+                self.last_anchor = cur
+            self.frame_num = (self.frame_num + 1) % (1 << self.sps.log2_max_frame_num)
+            for r in self.refs:
+                r.frame_num_wrap = r.frame_num
+        self.stats["reference_b_pictures"] += int(kind == "B" and ref)
+        self.last_planes = by_disp
+        self.qp = base_qp
+        return au
+
+    def b_picture8(self, w, y, u, v):
+        pad, rad = self.PAD, self.search
+        refs = [self.ref_lists[0][0], self.ref_lists[1][0]]
+        planes = [quarter_planes(self.decoded[r.uid][0], pad) for r in refs]
+        ref_c = [[np.pad(c, pad // 2 + 1, mode="edge") for c in self.decoded[r.uid][1:]] for r in refs]
+        centres = []
+        for pl in planes:
+            full = pl[0][0].astype(np.int64)
+            best = np.full((self.mbh, self.mbw), np.iinfo(np.int64).max)
+            mv = np.zeros((self.mbh, self.mbw, 2), np.int64)
+            for dy in range(-rad, rad + 1):
+                for dx in range(-rad, rad + 1):
+                    sad = np.abs(full[pad + dy:pad + dy + self.ch, pad + dx:pad + dx + self.cw] - y).reshape(
+                        self.mbh, 16, self.mbw, 16).sum(axis=(1, 3))
+                    better = sad < best
+                    best[better] = sad[better]
+                    mv[better] = (4 * dx, 4 * dy)
+            centres.append(mv)
+        self.col = refs[1].motion
+        w0 = self.implicit_weight(refs[0], refs[1])
+        total = self.mbw * self.mbh
+        for addr in range(total):
+            mbx, mby = addr % self.mbw, addr // self.mbw
+            self.b_mb8(w, mbx, mby, y, u, v, planes, ref_c, [c[mby, mbx] for c in centres], w0)
+            self.cabac.terminate(int(addr == total - 1))
+
+    def implicit_weight(self, r0, r1):
+        """w0 of implicit weighted bi-prediction (8.4.2.3.1) from list 0's r0 and list 1's r1."""
+        td = max(-128, min(127, r1.poc - r0.poc))
+        if not td:
+            return 32
+        tb = max(-128, min(127, self.cur_poc - r0.poc))
+        q = (16384 + (abs(td) >> 1)) // abs(td)
+        dsf = (tb * (q if td > 0 else -q) + 32) >> 8
+        return 64 - dsf if -64 <= dsf <= 128 else 32
+
+    def b_mb8(self, w, mbx, mby, y, u, v, planes, ref_c, centres, w0):
+        addr, x0, y0 = mby * self.mbw + mbx, mbx * 16, mby * 16
+        m = _Mb(0)
+        m.kind = "P"
+        self.mbs[addr] = m
+        src = y[y0:y0 + 16, x0:x0 + 16]
+
+        def weigh(a, b):
+            return (a + b + 1) >> 1 if w0 == 32 else np.clip((a * w0 + b * (64 - w0) + 32) >> 6, 0, 255)
+
+        # Spatial direct: the prediction of its 4x4 blocks (its count kept only where it is chosen).
+        before = self.stats["spatial_direct_mbs"]
+        drefs, dmvs, dshape, _ = self.direct_motion(mbx, mby, False)
+        self.stats["spatial_direct_mbs"] = before
+        dpred, dcpred = np.zeros((16, 16), np.int64), [np.zeros((8, 8), np.int64), np.zeros((8, 8), np.int64)]
+        for k in range(16):
+            bx, by = (k & 3) * 4, (k >> 2) * 4
+            lum, chs = [], []
+            for lst in range(2):
+                if drefs[lst][k] >= 0:
+                    lum.append(self.luma_pred(planes[lst], x0 + bx, y0 + by, 4, 4, dmvs[lst][k]))
+                    chs.append([self.chroma_pred(rc, mbx * 8 + bx // 2, mby * 8 + by // 2, 2, 2, dmvs[lst][k])
+                                for rc in ref_c[lst]])
+            dpred[by:by + 4, bx:bx + 4] = lum[0] if len(lum) == 1 else weigh(*lum)
+            for c in range(2):
+                dcpred[c][by // 2:by // 2 + 2, bx // 2:bx // 2 + 2] = chs[0][c] if len(chs) == 1 else \
+                    weigh(chs[0][c], chs[1][c])
+        # One 16x16 partition from list 0, list 1 or both.
+        cands = []
+        mvs, pmvs = [], []
+        for lst in range(2):
+            pmv = self.predict_mv(mbx, mby, 0, 0, 4, 0, 0, 0, lst)
+            _, mv = self.refine(planes[lst], src, x0, y0, 16, 16, centres[lst], (tuple(pmv),))
+            mvs.append(mv)
+            pmvs.append(pmv)
+        preds = [self.luma_pred(planes[lst], x0, y0, 16, 16, mvs[lst]) for lst in range(2)]
+        cpreds = [[self.chroma_pred(rc, mbx * 8, mby * 8, 8, 8, mvs[lst]) for rc in ref_c[lst]] for lst in range(2)]
+
+        def mv_bits(lst):
+            return np.log2(1 + abs(mvs[lst][0] - pmvs[lst][0])) + np.log2(1 + abs(mvs[lst][1] - pmvs[lst][1]))
+
+        cands.append((np.abs(src - dpred).sum() - 8, 0, dpred, dcpred))
+        cands.append((np.abs(src - preds[0]).sum() + 4 * (2 + mv_bits(0)), 1, preds[0], cpreds[0]))
+        cands.append((np.abs(src - preds[1]).sum() + 4 * (2 + mv_bits(1)), 2, preds[1], cpreds[1]))
+        bi, cbi = weigh(preds[0], preds[1]), [weigh(cpreds[0][c], cpreds[1][c]) for c in range(2)]
+        cands.append((np.abs(src - bi).sum() + 4 * (4 + mv_bits(0) + mv_bits(1)), 3, bi, cbi))
+        _, mode, pred, cpred = min(cands, key=lambda t: (t[0], t[1]))
+        t8, z4, z8, cbp_luma, cost = self.transforms(src, pred)
+        chroma = self.chroma_residual(mbx, mby, cpred[0], cpred[1], u, v, False)
+        cbp_chroma = self.chroma_cbp(chroma)
+        if mode == 0 and ((src - pred) ** 2).sum() <= cost:  # B_Skip where the luma residual does not pay for itself
+            cbp_luma = cbp_chroma = 0
+        if mode == 0:
+            m.shape = dshape
+            self.set_direct(mbx, mby, drefs, dmvs, range(16))
+            self.stats["spatial_direct_mbs"] += 1
+            if not cbp_luma and not cbp_chroma:
+                self.put_skip_flag(mbx, mby, True, True)
+                m.kind = "SKIP"
+                self.prev_dqp = 0
+                self.stats["B_Skip"] += 1
+                return
+        self.put_skip_flag(mbx, mby, False, True)
+        self.put_mb_type_b(w, mbx, mby, mode)
+        if mode == 0:
+            m.direct16 = True
+            self.stats["B_Direct_16x16"] += 1
+        else:
+            self.stats["B_16x16"] += 1
+            self.stats["bi_partitions"] += int(mode == 3)
+            for lst in range(2):
+                if mode >> lst & 1:
+                    d = (mvs[lst][0] - pmvs[lst][0], mvs[lst][1] - pmvs[lst][1])
+                    self.put_mvd(w, d, mbx, mby, 0, 0, lst)
+                    self.set_mvd(mbx, mby, 0, 0, 4, 4, d, lst)
+                    self.set_motion(mbx, mby, 0, 0, 4, 4, 0, tuple(mvs[lst]), lst)
+                else:
+                    self.set_motion(mbx, mby, 0, 0, 4, 4, -1, (0, 0), lst)
+        self.write_residual(w, m, mbx, mby, t8, z4, z8, cbp_luma, chroma, cbp_chroma)
+
+
+def encode_frames(frames_bgr, qp=22, search=6, high=False, b_frames=False):
+    """(access units in decoding order, the encoder's reconstruction of each frame as (Y, U, V) in display order, the
+    encoder) of uint8 BGR frames of even size: BT.601 limited-range YUV 4:2:0 from ``cv2.cvtColor``, an IDR, then
+    P pictures; Baseline (:class:`FrameEncoder`), or High with CABAC and the 8x8 transform (:class:`HighEncoder`,
+    whose reconstruction is FFmpeg's decode), with ``b_frames`` B pictures in x264's GOP shape too
+    (:class:`HighBEncoder`)."""
     import cv2
 
     h, w = frames_bgr[0].shape[:2]
@@ -2688,18 +3613,25 @@ def encode_frames(frames_bgr, qp=22, search=6, high=False):
         from torch_libav import decode_planes
 
         def reference(aus):
-            return decode_planes("h264", [annexb([au]) for au in aus], "yuv420p", enc.cw, enc.ch,
-                                 options={"apply_cropping": "0"})[-1]
+            frames = decode_planes("h264", [annexb([au]) for au in aus], "yuv420p", enc.cw, enc.ch,
+                                   options={"apply_cropping": "0"})
+            return frames if b_frames else frames[-1]
 
-        enc = HighEncoder(w, h, reference, qp, search)
+        enc = (HighBEncoder if b_frames else HighEncoder)(w, h, reference, qp, search)
     else:
         enc = FrameEncoder(w, h, qp, search)
-    aus, recon = [], []
+    yuvs = []
     for frame in frames_bgr:
         i420 = cv2.cvtColor(np.ascontiguousarray(frame), cv2.COLOR_BGR2YUV_I420)
-        y = i420[:h]
-        u = i420[h:h + h // 4].reshape(h // 2, w // 2)
-        v = i420[h + h // 4:].reshape(h // 2, w // 2)
-        aus.append(enc.encode((y, u, v)))
+        yuvs.append((i420[:h], i420[h:h + h // 4].reshape(h // 2, w // 2), i420[h + h // 4:].reshape(h // 2, w // 2)))
+    if b_frames:
+        aus = enc.encode_all(yuvs)
+        recon = [tuple(p[:hh, :ww].astype(np.uint8) for p, ww, hh in zip(enc.last_planes[i], (w, w // 2, w // 2),
+                                                                          (h, h // 2, h // 2)))
+                 for i in range(len(yuvs))]
+        return aus, recon, enc
+    aus, recon = [], []
+    for yuv in yuvs:
+        aus.append(enc.encode(yuv))
         recon.append(enc.planes())
     return aus, recon, enc
