@@ -98,7 +98,10 @@ width:
   the H.264 .mp4 with B pictures (x264's GOP shape: B-pyramid, spatial
   direct, implicit weights; composition offsets), the frames it holds back
   drained at the end of the stream and the margin over linear upsampling at
-  least 1 dB on every frame;
+  least 1 dB on every frame; (g8) the same for the MPEG-2 program stream
+  (.mpg) of the 12 frames (``native/mpeg2_decoder.cpp``; I, P and B
+  pictures), its .ts copy and the MPEG-1 .mpg of the frames decoded to their
+  digests;
 - data parallel (phase 13): ``make_sharded_map_solver`` on a frame x4 mesh of
   the flagship and a frame x2 x band x2 mesh of the 64-band cube, each beside
   ``minimize`` on one device (float32 by iterations, cost and PSNR, float64
@@ -213,7 +216,9 @@ try:
     from super_resolution_tpu_torch.utils.vp9 import Vp9Decoder
     from super_resolution_tpu_torch.utils.ffv1 import Ffv1Decoder
     from super_resolution_tpu_torch.utils.h264 import H264Decoder
+    from super_resolution_tpu_torch.utils.mpeg2 import Mpeg2Decoder, access_units
     from super_resolution_tpu_torch.video.mp4 import read_mp4_video
+    from super_resolution_tpu_torch.video.mpegps import read_program_stream
 except ImportError as exc:  # e.g. this file alone, without the package
     print(f"chip_smoke: cannot import the port: {exc}", file=sys.stderr)
     sys.exit(2)
@@ -2699,6 +2704,9 @@ VIDEO_H264_DIR = os.path.join("tests", "data_torch", "h264")  # its own manifest
 VIDEO_H264_CLIP = "h264_960x540x12.mp4"   # (g'''''): the same 12 frames, H.264 (avc1), and as .mkv, .avi, .h264
 VIDEO_H264_HIGH_CLIP = "h264_high_960x540x12.mp4"  # (g6): the same 12 frames, H.264 High profile (CABAC, 8x8 transform)
 VIDEO_H264_B_CLIP = "h264_b_960x540x12.mp4"  # (g7): the same 12 frames, H.264 with B pictures (B-pyramid, ctts)
+VIDEO_MPEG2_DIR = os.path.join("tests", "data_torch", "mpeg2")  # its own manifest.json, as VIDEO_MPEG4_DIR's
+VIDEO_MPEG2_CLIP = "mpeg2_960x540x12.mpg"  # (g8): the same 12 frames, MPEG-2 (cv2's mpg2: I, P, B) in a program stream
+VIDEO_MPEG2_COPIES = ("mpeg2_960x540x12.ts", "mpeg1_960x540x12.mpg")  # (g8): decoded only, to their digests
 VIDEO_ODD_DIR = os.path.join("tests", "data_torch", "odd_height")  # (h'): VP9, VP8, MPEG-4 clips of odd height
 VIDEO_MPEG4_GAP = 0                        # grey levels between the port's frames and cv2.VideoCapture's
 
@@ -2829,7 +2837,10 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     on); (g7) the same from the H.264 .mp4 of the 12 frames with B pictures
     (x264's GOP shape, reordered: the decoder's held-back pictures drained at
     the end of the stream), each frame's luminance at least 1 dB above linear
-    upsampling; (h')
+    upsampling; (g8) the same from the MPEG-2 program stream (.mpg) of the 12
+    frames (cv2.VideoWriter's ``mpg2``: I, P and B pictures; the reference
+    picture held back drained at the end), its transport stream copy and the
+    MPEG-1 .mpg of the same frames decoded to their digests; (h')
     the odd-height clips (VP9, VP8, MPEG-4 Part 2), which cv2.VideoCapture
     converts through swscale's scaler, decoded to their recorded digests."""
     from super_resolution_tpu_torch.solvers import irls as irls_mod
@@ -3043,6 +3054,10 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
     launches_h264_b, h264_b_ms, h264_b_gains = _video_from_webm(
         device, card, truth, VIDEO_H264_DIR, VIDEO_H264_B_CLIP, "g7", "avc1", None, _h264_b_counts,
         make=lambda video: H264Decoder(video.config), demux=_mp4_track, min_margin=1.0)
+    launches_mpeg2, mpeg2_ms, mpeg2_gains = _video_from_webm(
+        device, card, truth, VIDEO_MPEG2_DIR, VIDEO_MPEG2_CLIP, "g8", "mpeg2", Mpeg2Decoder, _mpeg2_counts,
+        demux=_program_stream_track)
+    mpeg2_ms["copies"] = _mpeg2_copies()
     odd_ms = _odd_height_fixtures()
     for row in rows:
         if row["row"] == "K4":
@@ -3054,13 +3069,15 @@ def phase_video(device, rows, card, lr_hw=VIDEO_LR_HW, frames=VIDEO_FRAMES):
             row["launches_video_mp4_h264"] = launches_h264
             row["launches_video_mp4_h264_high"] = launches_h264_high
             row["launches_video_mp4_h264_b"] = launches_h264_b
+            row["launches_video_mpg_mpeg2"] = launches_mpeg2
 
     results.update(walls=walls, fps=fps, busy=busy, registration=registration, evaluations=evaluations,
                    captured=captured, replays=replays, gains=gains, video_row=video_row, decode_ms=decode_ms,
                    rel=(rel_default, rel_refine), mpeg4_ms=mpeg4_ms, mp4_gains=mp4_gains, mkv_ms=mkv_ms,
                    webm_ms=webm_ms, webm_gains=webm_gains, vp9_ms=vp9_ms, vp9_gains=vp9_gains, ffv1_ms=ffv1_ms,
                    ffv1_gains=ffv1_gains, h264_ms=h264_ms, h264_gains=h264_gains, h264_high_ms=h264_high_ms,
-                   h264_high_gains=h264_high_gains, h264_b_ms=h264_b_ms, h264_b_gains=h264_b_gains, odd_ms=odd_ms)
+                   h264_high_gains=h264_high_gains, h264_b_ms=h264_b_ms, h264_b_gains=h264_b_gains,
+                   mpeg2_ms=mpeg2_ms, mpeg2_gains=mpeg2_gains, odd_ms=odd_ms)
     irls_mod._BUILT_SOLVER_CACHE.clear()
     log(f"[12/14] video: {time.perf_counter() - t_phase:.1f} s ({card})")
     return results
@@ -3265,6 +3282,42 @@ def _h264_b_counts(stats):
             f"{stats['I_8x8']} intra 8x8, {stats['transform_8x8_inter']} inter with the 8x8 transform")
 
 
+def _mpeg2_counts(stats):
+    return (f"MPEG-2: {stats['i_pictures']} I, {stats['p_pictures']} P, {stats['b_pictures']} B picture(s), "
+            f"{stats['reordered_pictures']} reference picture(s) output after one decoded later; macroblocks: "
+            f"{stats['intra_mbs']} intra, {stats['skipped_mbs']} skipped, {stats['forward_mbs']} forward, "
+            f"{stats['backward_mbs']} backward, {stats['bidirectional_mbs']} bi-directional")
+
+
+def _program_stream_track(data):
+    """(its codec, its payloads a picture each, None: every frame shown, the stream) of an MPEG program stream's
+    video stream, as the video reader demuxes and cuts it."""
+    stream = read_program_stream(data)
+    codec = stream.codec()
+    return codec, list(access_units(stream.es, codec)), None, stream
+
+
+def _mpeg2_copies():
+    """(g8): the MPEG-2 clip's stream in a transport stream, and the MPEG-1 program stream of the same frames, read by
+    ``read_video_frames`` on the host, each to the digest of cv2.VideoCapture's frames that the manifest records.
+    Returns {file: ms a frame}."""
+    with open(os.path.join(ROOT, VIDEO_MPEG2_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    ms = {}
+    for name in VIDEO_MPEG2_COPIES:
+        t0 = time.perf_counter()
+        decoded = np.stack(read_video_frames(os.path.join(ROOT, VIDEO_MPEG2_DIR, name)))
+        ms[name] = 1e3 * (time.perf_counter() - t0) / decoded.shape[0]
+        digest = hashlib.sha256(decoded.tobytes()).hexdigest()
+        check(list(decoded.shape) == manifest[name]["shape"] and digest == manifest[name]["frames_sha256"],
+              f"video (g8): {name} decodes to {decoded.shape}, {digest}, not cv2.VideoCapture's digest")
+    check(manifest[VIDEO_MPEG2_COPIES[0]]["frames_sha256"] == manifest[VIDEO_MPEG2_CLIP]["frames_sha256"],
+          "video (g8): the manifest's .ts and .mpg digests differ")
+    log(f"      (g8) {', '.join(ms)}: cv2.VideoCapture's digests (the .ts the .mpg's); read and decoded in "
+        + ", ".join(f"{v:.3f}" for v in ms.values()) + " ms a frame on the host")
+    return ms
+
+
 def _h264_containers():
     """(g'''''): the .mkv (V_MPEG4/ISO/AVC), .avi (H264, Annex B) and raw .h264 copies of the H.264 clip's stream
     read by ``read_video_frames`` on the host, each to the digest of cv2.VideoCapture's frames that the manifest
@@ -3344,10 +3397,11 @@ def _video_from_webm(device, card, truth, directory=VIDEO_MPEG4_DIR, clip=VIDEO_
     digest also that of the frames written (``source_sha256``), and its first
     estimates against ``reference`` = (estimates, what they are); (g''''') the
     H.264 one, which ``demux`` reads from MP4 (default: Matroska), (g6) the
-    High-profile one and (g7) the one with B pictures. Every clip is decoded
+    High-profile one, (g7) the one with B pictures and (g8) the MPEG-2 program
+    stream, demuxed by ``demux`` and cut a picture a payload. Every clip is decoded
     through the video reader's own loop: each frame kept where the edit list
-    shows its own sample, and for H.264 the frames the decoder held back for
-    reordering drained at the end. Each frame is at least ``min_margin`` dB
+    shows its own sample, and for H.264 and MPEG-2 the frames the decoder held
+    back for reordering drained at the end. Each frame is at least ``min_margin`` dB
     above linear upsampling. Returns (K4
     launches, {"demux": ms, "decode": ms}, [(result, linear) luminance dB])."""
     make = make or (lambda video: decoder_class())

@@ -6,7 +6,8 @@
                                                 [--vp9-dir tests/data_torch/vp9]
                                                 [--ffv1-dir tests/data_torch/ffv1]
                                                 [--odd-dir tests/data_torch/odd_height]
-                                                [--vp9-only | --ffv1-only]
+                                                [--h264-dir tests/data_torch/h264]
+                                                [--vp9-only | --ffv1-only | --h264-only | --mpeg2-only]
 
 The Motion-JPEG AVI: eight 160x120 RGB frames of a seeded scene (smooth
 texture and sharp-edged shapes) panned by one pixel a frame, written by
@@ -106,6 +107,19 @@ bi-prediction, CABAC, QP 22 and 24 in B slices, deblocking on), with the composi
 super-resolves the port's decode of the three ``.mp4`` files on the card. The
 OpenCV wheel's ``cv2.VideoWriter`` has no H.264 encoder (its FFmpeg's only
 one, ``h264_v4l2m2m``, needs a V4L2 device).
+
+The MPEG-1 / MPEG-2 clips of ``tests/data_torch/mpeg2`` (its own
+``manifest.json``), each written by ``cv2.VideoWriter`` at 25 frames a second
+(an MPEG frame rate, which MPEG-1 needs) from the frames of
+``mp4v_960x540x12.mp4``: ``mpeg2_960x540x12.mpg`` (fourcc ``mpg2``:
+FFmpeg's ``mpeg2video`` at OpenCV's settings, I, P and B pictures -- two B
+pictures between anchors --, in an MPEG-1 system stream, FFmpeg's ``mpeg``
+muxer), ``mpeg2_960x540x12.ts`` (the same stream in an MPEG transport stream)
+and ``mpeg1_960x540x12.mpg`` (fourcc ``PIM1``: FFmpeg's ``mpeg1video``, I and
+P pictures). ``chip_smoke.py`` super-resolves the port's decode of the MPEG-2
+``.mpg`` on the card and decodes the other two. Each entry also records the
+stream's picture types, counted from its picture headers here, and the
+macroblock counts of the port's decoder (``utils/mpeg2.py`` ``STATS``).
 
 ``manifest.json`` records each clip's SHA-256, its frame shape and the
 SHA-256 of ``cv2.VideoCapture``'s frames (uint8 BGR, C order); the small
@@ -478,6 +492,61 @@ def write_h264_b_fixture(directory: str) -> None:
     print(f"wrote {name} ({len(data)} bytes, {decoded.shape[0]} frames)")
 
 
+MPEG2_DIR = os.path.join(ROOT, "tests", "data_torch", "mpeg2")
+MPEG_FPS = 25  # an MPEG-1 / MPEG-2 frame rate: FFmpeg's mpeg1video refuses the fixtures' 10
+
+
+def mpeg_picture_types(es: bytes) -> dict[str, int]:
+    """{"I": n, "P": n, "B": n}: the picture_coding_type of each picture header of an MPEG-1 / MPEG-2 elementary
+    stream."""
+    counts = {"I": 0, "P": 0, "B": 0}
+    pos = es.find(b"\0\0\1\0")
+    while pos >= 0:
+        counts["IPB"[((es[pos + 5] >> 3) & 7) - 1]] += 1
+        pos = es.find(b"\0\0\1\0", pos + 4)
+    return counts
+
+
+def write_mpeg2_fixtures(directory: str) -> None:
+    """The MPEG-1 / MPEG-2 clips of ``directory`` and its manifest: the frames of ``mp4v_960x540x12.mp4`` written by
+    ``cv2.VideoWriter`` as MPEG-2 in a program stream and in a transport stream, and as MPEG-1 in a program stream.
+    The script stops if cv2 does not read back the frames written or if the port's decode is not cv2's."""
+    sys.path.insert(0, ROOT)
+    from super_resolution_tpu_torch.utils.mpeg2 import Mpeg2Decoder
+    from super_resolution_tpu_torch.video.mpegps import read_program_stream
+    from super_resolution_tpu_torch.video.mpegts import read_transport_stream
+
+    os.makedirs(directory, exist_ok=True)
+    frames = list(video_phase_frames())
+    h, w = frames[0].shape[:2]
+    clips = {f"mpeg2_{w}x{h}x{len(frames)}.mpg": "mpg2", f"mpeg2_{w}x{h}x{len(frames)}.ts": "mpg2",
+             f"mpeg1_{w}x{h}x{len(frames)}.mpg": "PIM1"}
+    manifest = {}
+    for name, fourcc in clips.items():
+        path = os.path.join(directory, name)
+        write_clip(path, fourcc, frames, fps=MPEG_FPS)
+        data = open(path, "rb").read()
+        es = read_transport_stream(data).es if name.endswith(".ts") else read_program_stream(data).es
+        decoded = np.stack(capture_frames(path))
+        if decoded.shape[0] != len(frames):
+            raise SystemExit(f"cv2.VideoCapture reads {decoded.shape[0]} frames of {name}, not {len(frames)}")
+        decoder = Mpeg2Decoder()
+        ours = np.stack(decoder.decode(es) + decoder.flush())
+        if not np.array_equal(ours, decoded):
+            raise SystemExit(f"the port's decode of {name} is not cv2.VideoCapture's")
+        stats = decoder.stats
+        manifest[name] = {"sha256": sha256(data), "frames_sha256": sha256(decoded.tobytes()),
+                          "shape": list(decoded.shape), "bytes": len(data), "fourcc": fourcc,
+                          "pictures": mpeg_picture_types(es),
+                          "macroblocks": {k: stats[k] for k in ("intra_mbs", "skipped_mbs", "forward_mbs",
+                                                                "backward_mbs", "bidirectional_mbs")}}
+        print(f"wrote {name} ({len(data)} bytes, {decoded.shape[0]} frames, {manifest[name]['pictures']})")
+    manifest["source"] = "video_phase_frames() (mp4v_960x540x12.mp4's frames), cv2.VideoWriter at 25 frames/s"
+    with open(os.path.join(directory, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+        f.write("\n")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(ROOT, "tests", "data_torch", "mjpeg_160x120x8.avi"))
@@ -489,7 +558,11 @@ def main(argv=None) -> int:
     parser.add_argument("--vp9-only", action="store_true", help="write the VP9 clips alone")
     parser.add_argument("--ffv1-only", action="store_true", help="write the FFV1 and odd-height clips alone")
     parser.add_argument("--h264-only", action="store_true", help="write the H.264 clips alone")
+    parser.add_argument("--mpeg2-only", action="store_true", help="write the MPEG-1 / MPEG-2 clips alone")
     args = parser.parse_args(argv)
+    if args.mpeg2_only:
+        write_mpeg2_fixtures(MPEG2_DIR)
+        return 0
     if args.h264_only:
         write_h264_fixtures(args.h264_dir)
         write_h264_high_fixture(args.h264_dir)
@@ -512,6 +585,7 @@ def main(argv=None) -> int:
     write_h264_fixtures(args.h264_dir)
     write_h264_high_fixture(args.h264_dir)
     write_h264_b_fixture(args.h264_dir)
+    write_mpeg2_fixtures(MPEG2_DIR)
     return 0
 
 

@@ -16,7 +16,9 @@ skipped.
 
 Codecs: ``V_MJPEG`` (each frame a JPEG); ``V_MPEG4/ISO/SP``, ``/ASP`` and
 ``/AP`` (MPEG-4 Part 2, with ``CodecPrivate`` as the decoder's
-configuration); ``V_VP8`` (each frame a VP8 frame, hidden ones included);
+configuration); ``V_MPEG1`` and ``V_MPEG2`` (each frame an MPEG-1 / MPEG-2
+picture, with ``CodecPrivate``, where there is one, as the sequence
+headers); ``V_VP8`` (each frame a VP8 frame, hidden ones included);
 ``V_VP9`` (each frame a VP9 frame or superframe); ``V_FFV1`` (each frame
 an FFV1 frame, with ``CodecPrivate`` as its configuration record);
 ``V_MPEG4/ISO/AVC`` (each frame an H.264 access unit of length-prefixed NAL
@@ -51,6 +53,7 @@ _CODECS = {"V_VP8": "VP8", "V_VP9": "VP9", "V_FFV1": "FFV1", "V_MPEG4/ISO/AVC": 
            "V_THEORA": "Theora", "V_UNCOMPRESSED": "uncompressed video", "V_PRORES": "ProRes",
            "V_QUICKTIME": "a QuickTime codec", "V_REAL/RV40": "RealVideo", "V_MPEGI/ISO/VVC": "VVC"}
 MPEG4_CODECS = {"V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP"}
+MPEG12_CODECS = {"V_MPEG1", "V_MPEG2"}
 UNKNOWN = -1
 
 

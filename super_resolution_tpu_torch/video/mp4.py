@@ -6,7 +6,10 @@ uses the same boxes): the first video track's samples, as
 last box that runs to the end of the file; ``mdat`` before or after
 ``moov``), takes the first ``trak`` whose handler is ``vide``, reads its
 ``mp4v`` sample entry and the ``esds`` descriptor (object type 0x20, MPEG-4
-Visual, whose DecoderSpecificInfo carries the VOS / VO / VOL headers) or its
+Visual, whose DecoderSpecificInfo carries the VOS / VO / VOL headers, or
+0x60-0x65 and 0x6A, MPEG-2 and MPEG-1 video, whose samples carry their own
+headers), QuickTime's ``m1v`` / ``m1v1`` (MPEG-1 video) or ``m2v1`` /
+``mp2v`` (MPEG-2 video) sample entry or its
 ``vp09`` sample entry (VP9, whose ``vpcC`` box is read only for the profile
 and bit depth: the frames carry their own headers) or its ``FFV1`` sample
 entry (FFV1, whose ``glbl`` box holds the configuration record and whose
@@ -26,8 +29,9 @@ to the first composition delay, so that every frame plays. Without an edit
 list every sample plays.
 
 A fragmented file (``mvex`` / ``moof``), a ``vp09`` entry of another
-profile than 0 or of more than 8 bits, and any other sample entry than
-``mp4v``, ``vp09``, ``FFV1``, ``avc1`` and ``avc3`` raise ``NotImplementedError`` naming
+profile than 0 or of more than 8 bits, another ``esds`` object type, and any
+other sample entry than ``mp4v``, :data:`MPEG12_SAMPLE_ENTRIES`, ``vp09``, ``FFV1``,
+``avc1`` and ``avc3`` raise ``NotImplementedError`` naming
 it (the codec and its four-character code, such as "HEVC (hvc1)").
 """
 
@@ -36,15 +40,19 @@ from __future__ import annotations
 import struct
 from dataclasses import dataclass
 
-__all__ = ["Mp4Video", "is_iso_bmff", "read_mp4_video"]
+__all__ = ["MPEG12_OBJECT_TYPES", "MPEG12_SAMPLE_ENTRIES", "Mp4Video", "is_iso_bmff", "read_mp4_video"]
 
 _TOP_LEVEL = {b"ftyp", b"moov", b"mdat", b"free", b"skip", b"wide", b"pnot", b"uuid", b"styp", b"sidx", b"moof"}
 _CODECS = {b"avc1": "H.264", b"avc2": "H.264", b"avc3": "H.264", b"avc4": "H.264", b"hvc1": "HEVC",
            b"hev1": "HEVC", b"av01": "AV1", b"vp08": "VP8", b"vp09": "VP9", b"s263": "H.263", b"jpeg": "Motion JPEG",
-           b"mjpa": "Motion JPEG", b"mjpb": "Motion JPEG", b"mp2v": "MPEG-2 video", b"apcn": "ProRes",
+           b"mjpa": "Motion JPEG", b"mjpb": "Motion JPEG", b"hdv1": "MPEG-2 video (HDV)", b"apcn": "ProRes",
            b"apch": "ProRes", b"dvh1": "Dolby Vision HEVC", b"vvc1": "VVC", b"encv": "encrypted video"}
-_OBJECT_TYPES = {0x21: "H.264", 0x23: "HEVC", 0x6A: "MPEG-1 video", 0x6C: "JPEG", 0x6D: "PNG",
-                 **{t: "MPEG-2 video" for t in range(0x60, 0x66)}}
+_OBJECT_TYPES = {0x21: "H.264", 0x23: "HEVC", 0x6C: "JPEG", 0x6D: "PNG", 0x6E: "JPEG 2000"}
+# esds objectTypeIndication of MPEG-2 video (its six profiles, 0x60-0x65) and MPEG-1 video (0x6A).
+MPEG12_OBJECT_TYPES = frozenset({*range(0x60, 0x66), 0x6A})
+# QuickTime's sample entries of MPEG-1 video (FFmpeg's muxer writes "m1v ") and MPEG-2 video, whose samples carry
+# their own headers.
+MPEG12_SAMPLE_ENTRIES = ("m1v ", "m1v1", "m2v1", "mp2v")
 
 
 def is_iso_bmff(head: bytes) -> bool:
@@ -96,8 +104,9 @@ def _descriptor(data: bytes, pos: int) -> tuple[int, int, int]:
     return tag, pos, pos + length
 
 
-def _decoder_specific_info(data: bytes, start: int, end: int) -> bytes:
-    """The DecoderSpecificInfo of an ``esds`` box body, checked to be MPEG-4 Visual."""
+def _decoder_specific_info(data: bytes, start: int, end: int) -> tuple[int, bytes]:
+    """(objectTypeIndication, DecoderSpecificInfo) of an ``esds`` box body, checked to be MPEG-4 Visual, MPEG-2
+    video or MPEG-1 video."""
     tag, s, e = _descriptor(data, start + 4)  # after version / flags
     if tag != 3:
         raise ValueError("MP4 esds box without an ES descriptor.")
@@ -113,17 +122,18 @@ def _decoder_specific_info(data: bytes, start: int, end: int) -> bytes:
     if tag != 4:
         raise ValueError("MP4 esds box without a DecoderConfigDescriptor.")
     object_type = data[s]
-    if object_type != 0x20:
+    if object_type != 0x20 and object_type not in MPEG12_OBJECT_TYPES:
         name = _OBJECT_TYPES.get(object_type, f"object type 0x{object_type:02X}")
         raise NotImplementedError(f"MP4 video of {name} (mp4v with objectTypeIndication 0x{object_type:02X}) is not "
-                                  "supported by the port's video reader (MPEG-4 Part 2, 0x20, is).")
+                                  "supported by the port's video reader (MPEG-4 Part 2, 0x20, MPEG-2 video, "
+                                  "0x60-0x65, and MPEG-1 video, 0x6A, are).")
     pos = s + 13
     while pos < e:
         tag, ds, de = _descriptor(data, pos)
         if tag == 5:
-            return data[ds:de]
+            return object_type, data[ds:de]
         pos = de
-    return b""
+    return object_type, b""
 
 
 def _table(data: bytes, span, fmt: str, fields: int):
@@ -157,7 +167,8 @@ class Mp4Video:
     decode order, for each whether its frame is shown (``False``: decoded
     only, ahead of an edit; with B pictures the frame a sample carries, not
     the one output after it), its sample entry's code (``mp4v``, ``vp09``,
-    ``FFV1``, ``avc1`` or ``avc3``) and the entry's width and height."""
+    ``FFV1``, ``avc1``, ``avc3``, ``m2v1`` or ``mp2v``), the entry's width and height, and an ``mp4v``
+    entry's ``esds`` object type (0x20: MPEG-4 Part 2; :data:`MPEG12_OBJECT_TYPES`: MPEG-1 / MPEG-2)."""
 
     config: bytes
     samples: list[bytes]
@@ -165,6 +176,7 @@ class Mp4Video:
     codec: str = "mp4v"
     width: int = 0
     height: int = 0
+    object_type: int = 0x20
 
 
 def read_mp4_video(data: bytes) -> Mp4Video:
@@ -200,11 +212,14 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
     if not entries:
         raise ValueError("MP4 video track without a sample description.")
     fourcc, es, ee = entries[0]
-    if fourcc not in (b"mp4v", b"vp09", b"FFV1", b"avc1", b"avc3"):
+    mpeg12 = fourcc.decode("latin-1") in MPEG12_SAMPLE_ENTRIES
+    if fourcc not in (b"mp4v", b"vp09", b"FFV1", b"avc1", b"avc3") and not mpeg12:
         name = _CODECS.get(fourcc, "a codec")
         raise NotImplementedError(f"MP4 video of {name} ({fourcc.decode('latin-1')}) is not supported by the port's "
-                                  "video reader (MPEG-4 Part 2, mp4v, VP9, vp09, FFV1, and H.264, avc1 / avc3, are).")
+                                  "video reader (MPEG-4 Part 2 or MPEG-1 / MPEG-2, mp4v, MPEG-1 / MPEG-2, m1v / m1v1 "
+                                  "/ m2v1 / mp2v, VP9, vp09, FFV1, and H.264, avc1 / avc3, are).")
     width, height = struct.unpack(">HH", data[es + 24:es + 28])
+    object_type = 0x20
     if fourcc in (b"avc1", b"avc3"):
         avcc = _child(data, es + 78, ee, b"avcC")  # after the 78 bytes of the visual sample entry
         if avcc is None:
@@ -221,11 +236,13 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
                 raise NotImplementedError(f"MP4 VP9 video of profile {profile} at {depth} bits is not supported by "
                                           "the port's video reader (profile 0, 8-bit 4:2:0, is).")
         config = b""
+    elif mpeg12:  # MPEG-1 / MPEG-2 video, its headers in the samples
+        config = b""
     else:
         esds = _child(data, es + 78, ee, b"esds")  # after the 78 bytes of the visual sample entry
         if esds is None:
             raise ValueError("MP4 mp4v sample entry without an esds box.")
-        config = _decoder_specific_info(data, *esds)
+        object_type, config = _decoder_specific_info(data, *esds)
 
     sizes = _sample_sizes(data, stbl)
     chunks = [o for (o,) in _table(data, _child(data, *stbl, b"stco"), "I", 1)]
@@ -275,7 +292,7 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
             edits.append((media_time, None if span is None else media_time + span))
     codec = fourcc.decode("latin-1")
     if not edits:
-        return Mp4Video(config, samples, [True] * len(samples), codec, width, height)
+        return Mp4Video(config, samples, [True] * len(samples), codec, width, height, object_type)
     order, shown = [], []
     for first, stop in edits:
         chosen = [i for i in range(len(samples)) if pts[i] >= first and (stop is None or pts[i] < stop)]
@@ -286,4 +303,4 @@ def _read_track(data: bytes, ts: int, te: int, movie_scale: int) -> Mp4Video:
         for i in range(start, chosen[-1] + 1):
             order.append(i)
             shown.append(i in kept)
-    return Mp4Video(config, [samples[i] for i in order], shown, codec, width, height)
+    return Mp4Video(config, [samples[i] for i in order], shown, codec, width, height, object_type)

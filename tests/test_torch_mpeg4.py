@@ -628,9 +628,9 @@ def test_mp4_refusals(tmp_path, mp4_clip):
             read_mp4_video(open(path, "rb").read())
     esds = data.index(b"esds")
     dcd = data.index(b"\x04\x80\x80\x80", esds)
-    path = str(tmp_path / "mpeg2.mp4")
-    open(path, "wb").write(data[:dcd + 5] + b"\x61" + data[dcd + 6:])
-    with pytest.raises(NotImplementedError, match="MPEG-2 video"):
+    path = str(tmp_path / "jpeg.mp4")  # MPEG-2 video (0x60-0x65) is read now: JPEG (0x6C) stands for the others
+    open(path, "wb").write(data[:dcd + 5] + b"\x6c" + data[dcd + 6:])
+    with pytest.raises(NotImplementedError, match=r"JPEG \(mp4v with objectTypeIndication 0x6C\)"):
         read_video_frames(path)
 
 
