@@ -126,9 +126,9 @@ width:
   and shifts within 1e-6 of the one-process frame mesh, K4 launched once a
   local shard an evaluation);
 - formats (phase 14): the native codecs (progressive JPEG decoding, JPEG
-  and TIFF writing, LZW for TIFF and GIF, WebP decoding and VP8L writing)
-  built from the checkout; the fixtures of ``tests/data_torch/formats``
-  (JPEG, TIFF, GIF and WebP) decoded array-equal to OpenCV's decodes stored
+  and TIFF writing, LZW for TIFF and GIF, WebP decoding and VP8L writing,
+  JPEG 2000 decoding) built from the checkout; the fixtures of
+  ``tests/data_torch/formats`` (JPEG, TIFF, GIF, WebP and JPEG 2000) decoded array-equal to OpenCV's decodes stored
   with them and the port's JPEG / TIFF of seeded images byte-equal to
   OpenCV's files (the card's host has no OpenCV); the flagship through
   ``super_resolve`` from a TIFF ground truth, its result written as TIFF and
@@ -137,8 +137,12 @@ width:
   floor; the flagship's 4 LR frames written as WebP by ``generate_data`` and
   super-resolved from them and a WebP truth to a WebP result (the luminance,
   1x1000x1000, 4x), the estimate bit-equal to the same run from PNGs of the
-  same pixels; host ms to write and read 1000x1000 TIFF, JPEG and WebP
-  files.
+  same pixels; the flagship from OpenCV's JPEG 2000 of its scene (5/3, passes
+  cut by the rate control) and phase 11's refined RGB run from PIL's 9/7
+  JPEG 2000 frames (the colour transform, 3 layers, RPCL), each estimate
+  bit-equal to the same run from PNGs of the pixels the files decode to; host
+  ms to write and read 1000x1000 TIFF, JPEG and WebP files and to read the
+  JPEG 2000 ones.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -3979,6 +3983,10 @@ def phase_data_parallel(device, rows, card):
 FORMATS_DIR = os.path.join("tests", "data_torch", "formats")
 FORMAT_REPEATS = 5
 JPEG_RESULT_FLOOR_DB = 40.0
+# Phase 14 (c-4) / (c-5) inputs in FORMATS_DIR (scripts/make_torch_format_fixtures.py): OpenCV's JPEG 2000 of the
+# flagship scene, and PIL's of phase 11 (d)'s 4 RGB LR frames.
+FLAGSHIP_JP2 = "flagship_scene_1000x1000.jp2"
+RGB_JP2_FRAMES = tuple(f"rgb_lr_frame_{k}_250x250.jp2" for k in range(4))
 
 
 def _host_ms(fn, repeats=FORMAT_REPEATS):
@@ -4060,15 +4068,19 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
     written as WebP by ``generate_data`` on the card, then ``super_resolve``
     from them and a WebP truth to a WebP result (``--interpolate_color``: the
     luminance, 1 x side x side, TV), its estimate ``torch.equal`` to the same
-    run from PNGs of the same pixels. ``entry_steps``: phase 11's steps (its
-    (d) PSNR is logged beside (c-2)'s)."""
+    run from PNGs of the same pixels; (c-4) the flagship from OpenCV's JPEG
+    2000 of its scene (a checked-in fixture: 5/3, passes cut by the rate
+    control) and (c-5) (c-2)'s run from PIL's 9/7 JPEG 2000 frames (fixtures:
+    the ICT, 3 layers, RPCL) and a PNG truth, each estimate ``torch.equal`` to
+    the same run from PNGs of the pixels the files decode to. ``entry_steps``:
+    phase 11's steps (its (d) PSNR is logged beside (c-2)'s)."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     for load in (native.get_jpeg_library, native.get_jpeg_encoder_library, native.get_lzw_library,
-                 native.get_webp_library, native.get_webp_encoder_library):
+                 native.get_webp_library, native.get_webp_encoder_library, native.get_jpeg2000_library):
         load()
     log(f"[14/14] formats: the native codecs (native/jpeg_decoder.cpp, jpeg_encoder.cpp, lzw.cpp, webp_decoder.cpp, "
-        f"webp_encoder.cpp) built from the checkout's sources with g++ on the host and loaded in "
+        f"webp_encoder.cpp, jpeg2000_decoder.cpp) built from the checkout's sources with g++ on the host and loaded in "
         f"{time.perf_counter() - t0:.2f} s (the JPEG decoder may have been built by phase 12)")
     decode_ms = _format_fixtures()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_formats_")
@@ -4183,6 +4195,69 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
             f"{steps['webp_to_webp']['seconds']:.3f} / {steps['png_bgr_to_png']['seconds']:.3f} s; result file "
             f"{os.path.getsize(results['webp_to_webp'])} bytes ({card})")
 
+        # (c-4) the flagship from OpenCV's JPEG 2000 of its scene, beside the same run from a PNG of its pixels.
+        folder = os.path.join(ROOT, FORMATS_DIR)
+        paths["jp2"] = os.path.join(folder, FLAGSHIP_JP2)
+        paths["jp2_pixels_png"] = os.path.join(tmp, "scene_jp2_pixels.png")
+        write_image(paths["jp2_pixels_png"], read_image(paths["jp2"]))
+        jp2_estimates = {}
+        for label, source in (("jp2_to_png", "jp2"), ("jp2_pixels_png_to_png", "jp2_pixels_png")):
+            results[label] = os.path.join(tmp, f"{label}.png")
+            with _saved_results() as saved:
+                text, seconds, counts, _ = _cli_step(
+                    label, super_resolve_cli.main,
+                    flagship_argv(paths[source], motion, device) + fused + ["--result_path", results[label]],
+                    card, device, phase="14/14")
+            check(len(saved) == 1, f"formats (c-4) {label}: {len(saved)} results saved")
+            jp2_estimates[label] = saved[0]
+            scores = _check_psnr(label, text)
+            check(counts["data_term_tv"] > 0, f"formats (c-4) {label}: the TV kernels (K2) were never launched")
+            steps[label] = dict(seconds=seconds, counts=counts, psnr=scores["PSNR score on result"])
+        check(torch.equal(jp2_estimates["jp2_to_png"], jp2_estimates["jp2_pixels_png_to_png"]),
+              "formats (c-4): the estimate from JPEG 2000 differs from the one from PNG (max|diff| "
+              f"{float((jp2_estimates['jp2_to_png'] - jp2_estimates['jp2_pixels_png_to_png']).abs().max()):.3e})")
+        log(f"      (c-4) flagship from OpenCV's JPEG 2000 of its scene ({os.path.getsize(paths['jp2'])} bytes, 5/3, "
+            f"passes cut by the rate control): estimate torch.equal to the run from a PNG of the same pixels; PSNR "
+            f"{steps['jp2_to_png']['psnr']:.4f} dB; walls jp2 / png {steps['jp2_to_png']['seconds']:.3f} / "
+            f"{steps['jp2_pixels_png_to_png']['seconds']:.3f} s ({card})")
+
+        # (c-5) (c-2)'s refined RGB run from PIL's 9/7 JPEG 2000 frames and a PNG truth, beside PNGs of the frames.
+        jp2_frames, jp2_png_frames = os.path.join(tmp, "rgb_jp2_frames"), os.path.join(tmp, "rgb_jp2_png_frames")
+        os.makedirs(jp2_frames)
+        os.makedirs(jp2_png_frames)
+        for k, name in enumerate(RGB_JP2_FRAMES):
+            shutil.copyfile(os.path.join(folder, name), os.path.join(jp2_frames, f"frame_{k}.jp2"))
+            write_image(os.path.join(jp2_png_frames, f"frame_{k}.png"), read_image(os.path.join(folder, name)))
+        rgb_truth_png = os.path.join(tmp, "rgb_truth.png")
+        save_image(ImageData(gt, normalize="never", channel_major=True), rgb_truth_png)
+        rgb_estimates = {}
+        for label, frames in (("rgb_estimated_jp2", jp2_frames), ("rgb_estimated_jp2_pixels_png", jp2_png_frames)):
+            results[label] = os.path.join(tmp, f"{label}.png")
+            with _saved_results() as saved:
+                text, seconds, counts, sources = _cli_step(
+                    label, super_resolve_cli.main,
+                    rgb_estimated_argv(frames, rgb_truth_png, device) + ["--result_path", results[label]], card,
+                    device, phase="14/14")
+            check(len(saved) == 1, f"formats (c-5) {label}: {len(saved)} results saved")
+            rgb_estimates[label] = saved[0]
+            check("Refined motion against the HR estimate" in text,
+                  f"formats (c-5) {label}: the motion was not refined")
+            check(counts["data_term_btv"] > 0, f"formats (c-5) {label}: the BTV kernels (K4) were never launched")
+            check(sources == {"device": counts["data_term_btv"], "host": 0},
+                  f"formats (c-5) {label}: the shifts of {sources['host']} evaluations crossed from the host")
+            scores = _check_psnr(label, text)
+            steps[label] = dict(seconds=seconds, counts=counts, psnr=scores["PSNR score on result"],
+                                upsampled=scores["PSNR score on upsampled"])
+        from_jp2, from_png = rgb_estimates["rgb_estimated_jp2"], rgb_estimates["rgb_estimated_jp2_pixels_png"]
+        check(torch.equal(from_jp2, from_png), "formats (c-5): the estimate from JPEG 2000 frames differs from the one "
+                                               f"from PNG frames (max|diff| {float((from_jp2 - from_png).abs().max()):.3e})")
+        log(f"      (c-5) refined RGB from {len(RGB_JP2_FRAMES)} JPEG 2000 frames (PIL: 9/7, ICT, 3 layers, RPCL; "
+            f"{sum(os.path.getsize(os.path.join(jp2_frames, n)) for n in os.listdir(jp2_frames))} bytes) and a PNG "
+            f"truth: estimate torch.equal to the run from PNGs of the same pixels; PSNR "
+            f"{steps['rgb_estimated_jp2']['psnr']:.4f} dB (upsampled {steps['rgb_estimated_jp2']['upsampled']:.4f}); "
+            f"walls jp2 / png {steps['rgb_estimated_jp2']['seconds']:.3f} / "
+            f"{steps['rgb_estimated_jp2_pixels_png']['seconds']:.3f} s ({card})")
+
         # Host ms a 1000x1000 file, written and read (the card's host, not the card).
         rgb = np.ascontiguousarray(ImageData(gt, normalize="never", channel_major=True).visualization_image())
         io_ms, webp_bytes = {}, {}
@@ -4197,7 +4272,11 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
                 back = read_image(path)
                 check(ext == "jpg" or np.array_equal(back if back.ndim == image.ndim else back[..., 0], image),
                       f"formats: the {name} {ext} file reads back other pixels")
+        io_ms[f"read grey jp2 ({FLAGSHIP_JP2})"] = _host_ms(lambda: read_image(paths["jp2"]))
+        io_ms[f"read bgr jp2 ({RGB_JP2_FRAMES[0]})"] = _host_ms(
+            lambda: read_image(os.path.join(folder, RGB_JP2_FRAMES[0])))
         log(f"      host ms a {side}x{side} image, median of {FORMAT_REPEATS} (encode: to bytes; write / read: the file; "
+            f"JPEG 2000: read only, the checked-in files; "
             f"{card}, host time on the card's machine): "
             + ", ".join(f"{k} {v:.2f}" for k, v in io_ms.items()))
         log(f"      the port's lossless WebP of the {side}x{side} images: "
@@ -4209,9 +4288,10 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
         if row["row"] == "K2":
             row["launches_formats"] = sum(steps[k]["counts"]["data_term_tv"] for k in
                                           ("png_to_png", "tiff_to_tiff", "tiff_to_jpeg", "webp_to_webp",
-                                           "png_bgr_to_png"))
+                                           "png_bgr_to_png", "jp2_to_png", "jp2_pixels_png_to_png"))
         if row["row"] == "K4":
-            row["launches_formats"] = steps["rgb_estimated_jpeg"]["counts"]["data_term_btv"]
+            row["launches_formats"] = sum(steps[k]["counts"]["data_term_btv"] for k in
+                                          ("rgb_estimated_jpeg", "rgb_estimated_jp2", "rgb_estimated_jp2_pixels_png"))
     log(f"[14/14] formats: {time.perf_counter() - t_phase:.1f} s; launches K2 "
         f"{next(r['launches_formats'] for r in rows if r['row'] == 'K2')}, K4 "
         f"{next(r['launches_formats'] for r in rows if r['row'] == 'K4')} (0 plain-version calls)")

@@ -8,7 +8,17 @@ them as the reference; the layouts OpenCV cannot write (tiles, planar
 samples, big-endian, the floating-point predictor, an interlaced and
 transparent GIF on a larger screen) are built by hand by
 ``tests/torch_format_builders.py``; one lossless WebP comes from PIL's
-libwebp at its highest effort, 6 (OpenCV writes at its default). Each
+libwebp at its highest effort, 6 (OpenCV writes at its default). The
+JPEG 2000 files come from OpenCV (OpenJPEG at its default rate: 5/3, passes
+cut by the rate control), PIL (OpenJPEG with its options: 9/7 with the colour
+transform, layers, progressions, precincts, tiles, RGBA, 16 bits, a raw
+codestream), FFmpeg's own ``jpeg2000`` encoder (SOP / EPH markers, through
+``tests/torch_libav.py``) and a palette file wrapped in JP2 boxes by hand;
+among them the inputs of ``chip_smoke.py`` phase 14 (c-4) -- the flagship
+scene of (c-1), ``synthetic_scene(1, 1000, 1000, seed=2026)``, as
+``cv2.imwrite`` writes it -- and (c-5) -- the 4 RGB LR frames of phase 11
+(d)'s scene, made here on the CPU by ``chip_smoke.estimated_motion_problem``,
+as PIL writes them. Each
 input file comes with OpenCV's decode of it: a PNG for uint8 images (the port's PNG reader is exact), a
 ``.npy`` otherwise. The encoding fixtures are OpenCV's JPEG and TIFF files
 of images drawn from ``numpy.random.PCG64(seed).random_raw``, whose stream
@@ -24,6 +34,7 @@ import os
 import sys
 
 import io
+import struct
 
 import cv2
 import numpy as np
@@ -31,6 +42,7 @@ from PIL import Image
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "tests"))
+sys.path.insert(0, ROOT)
 from torch_format_builders import gif_bytes, tiff_bytes  # noqa: E402
 
 OUT = os.path.join(ROOT, "tests", "data_torch", "formats")
@@ -51,6 +63,79 @@ def scene(h, w, c, seed):
     img[h // 4: h // 2, w // 3: 2 * w // 3] += 60
     img = np.clip(np.rint(img + rng.normal(0, 10, img.shape)), 0, 255).astype(np.uint8)
     return img[..., 0] if c == 1 else img
+
+
+def _pil_jpeg2000(rgb_or_grey, mode=None, **options) -> bytes:
+    out = io.BytesIO()
+    image = Image.fromarray(rgb_or_grey, mode) if mode else Image.fromarray(rgb_or_grey)
+    image.save(out, "JPEG2000", **options)
+    return out.getvalue()
+
+
+def _jp2_box(kind: bytes, body: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(body)) + kind + body
+
+
+def _palette_jp2(indices: np.ndarray, palette: np.ndarray) -> bytes:
+    """A JP2 file by hand: PIL's codestream of the 8-bit indices, a pclr box of ``palette`` (NE x 3, 8 bits) and
+    a cmap box mapping the one component through its three columns."""
+    codestream = _pil_jpeg2000(indices, no_jp2=True)
+    h, w = indices.shape
+    header = _jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, 3, 7, 7, 0, 0))
+    header += _jp2_box(b"colr", bytes([1, 0, 0]) + struct.pack(">I", 16))
+    header += _jp2_box(b"pclr", struct.pack(">HB", len(palette), 3) + bytes([7, 7, 7])
+                       + palette.astype(np.uint8).tobytes())
+    header += _jp2_box(b"cmap", b"".join(struct.pack(">HBB", 0, 1, i) for i in range(3)))
+    return (_jp2_box(b"jP  ", b"\r\n\x87\n") + _jp2_box(b"ftyp", b"jp2 \0\0\0\0jp2 ") + _jp2_box(b"jp2h", header)
+            + _jp2_box(b"jp2c", codestream))
+
+
+def add_jpeg2000(add) -> None:
+    """The JPEG 2000 fixtures (see the module docstring)."""
+    import torch
+
+    import chip_smoke
+    import torch_libav
+    from super_resolution_tpu_torch.image import ImageData
+
+    add("opencv_default_rate_grey_37x53.jp2", cv2.imencode(".jp2", scene(37, 53, 1, 19))[1].tobytes(),
+        "JPEG 2000 by OpenCV at its default rate: 5/3, one layer, LRCP, passes cut by the rate control")
+    add("tiles_17x13_97_ict_layers_61x77.jp2",
+        _pil_jpeg2000(scene(61, 77, 3, 20)[..., ::-1], irreversible=True, mct=1, tile_size=(17, 13),
+                      quality_layers=[30, 10], progression="CPRL"),
+        "JPEG 2000 by PIL: 9/7 with the ICT, 2 layers, CPRL, 17x13 tiles (tile-components at odd offsets)")
+    rgba = np.dstack([scene(37, 53, 3, 21)[..., ::-1], scene(37, 53, 1, 22)])
+    add("rgba_37x53.jp2", _pil_jpeg2000(rgba, quality_layers=[20], progression="RLCP"),
+        "JPEG 2000 by PIL: RGBA (4 components, BGRA in OpenCV), 5/3 cut to one rate-limited layer, RLCP")
+    deep = (scene(33, 45, 1, 23).astype(np.uint16) * 257) ^ np.uint16(0x1234)
+    add("grey16_33x45.jp2", _pil_jpeg2000(deep, "I;16", irreversible=True, quality_layers=[8, 2]),
+        "JPEG 2000 by PIL: 16-bit grey (uint16 in OpenCV), 9/7, 2 layers")
+    add("raw_codestream_37x53.jp2",
+        _pil_jpeg2000(scene(37, 53, 3, 24)[..., ::-1], no_jp2=True, precinct_size=(16, 16), codeblock_size=(8, 8),
+                      progression="PCRL", num_resolutions=4),
+        "JPEG 2000 by PIL: a raw codestream (FF4F FF51) under .jp2, 16x16 precincts, 8x8 code-blocks, PCRL")
+    grey = scene(37, 45, 1, 25)
+    (payload,), _ = torch_libav.encode("jpeg2000", [[grey]], "gray", 45, 37,
+                                       {"sop": "1", "eph": "1", "prog": "rlcp", "tile_width": "32",
+                                        "tile_height": "16", "layer_rates": "40,10"})
+    add("ffmpeg_sop_eph_rlcp_tiles_37x45.jp2", payload,
+        "JPEG 2000 by FFmpeg's jpeg2000 encoder: SOP and EPH markers, RLCP, 32x16 tiles, 2 layers, integer 9/7")
+    add("palette_29x41.jp2", _palette_jp2((scene(29, 41, 1, 26) // 8).astype(np.uint8), seeded_image(27, (32, 3))),
+        "JPEG 2000 by hand: pclr + cmap boxes around PIL's codestream of 8-bit indices (OpenCV: grey of the colours)")
+
+    # chip_smoke.py phase 14 (c-4): the flagship scene as the port saves it, written by cv2.imwrite.
+    flagship = ImageData(chip_smoke.synthetic_scene(1, 1000, 1000, seed=2026), channel_major=True, device="cpu")
+    add("flagship_scene_1000x1000.jp2", cv2.imencode(".jp2", flagship.visualization_image())[1].tobytes(),
+        "JPEG 2000 by OpenCV at its default rate: the flagship scene, 1000x1000 grey (chip_smoke phase 14 (c-4))")
+    # (c-5): the 4 RGB LR frames of phase 11 (d), written by PIL: 9/7 with the ICT, 3 layers, RPCL, 64x64 precincts.
+    _, lows = chip_smoke.estimated_motion_problem("cpu", side=1000, dtype=torch.float32)
+    for k, low in enumerate(lows):
+        bgr = ImageData(low, normalize="never", channel_major=True).visualization_image()
+        add(f"rgb_lr_frame_{k}_250x250.jp2",
+            _pil_jpeg2000(np.ascontiguousarray(bgr[..., ::-1]), irreversible=True, mct=1, quality_mode="rates",
+                          quality_layers=[16, 8, 4], progression="RPCL", precinct_size=(64, 64)),
+            f"JPEG 2000 by PIL: LR frame {k} of phase 11 (d)'s RGB scene, 9/7 with the ICT, 3 layers, RPCL, 64x64 "
+            "precincts (chip_smoke phase 14 (c-5))")
 
 
 def main() -> int:
@@ -113,6 +198,8 @@ def main() -> int:
     Image.fromarray(scene(48, 64, 3, 18)[..., ::-1]).save(effort6, "WEBP", lossless=True, method=6)
     add("vp8l_effort6_48x64.webp", effort6.getvalue(),
         "WebP by PIL: lossless (VP8L) at its highest effort, 6")
+
+    add_jpeg2000(add)
 
     for seed, shape in ((11, (48, 64, 3)), (12, (37, 53))):
         image = seeded_image(seed, shape)

@@ -42,6 +42,10 @@
   :class:`super_resolution_tpu_torch.utils.mpeg2.Mpeg2Decoder`); its constant
   tables are ``mpeg2_tables.h``. It shares FFmpeg's simple IDCT and half-pel
   prediction (``simple_idct.h``) with ``mpeg4_decoder.cpp``.
+- ``jpeg2000_decoder.cpp`` decodes a JPEG 2000 Part 1 codestream (tier-2,
+  tier-1, dequantisation, the 5/3 and 9/7 inverse wavelet transforms, the
+  colour transforms) into integer component planes, as OpenJPEG does (the
+  serial half of :func:`super_resolution_tpu_torch.utils.jpeg2000.decode_jpeg2000`).
   VP8 frames themselves are decoded by ``vp8_core.h``, which
   ``webp_decoder.cpp`` shares; the video decoders convert YUV to BGR with
   ``swscale_bgr.h``, as ``cv2.VideoCapture`` does at any size.
@@ -57,8 +61,8 @@ codecs have no second implementation: without a compiler
 :func:`get_jpeg_library`, :func:`get_jpeg_encoder_library`,
 :func:`get_lzw_library`, :func:`get_webp_library`,
 :func:`get_webp_encoder_library`, :func:`get_mpeg4_library`, :func:`get_vp8_library`,
-:func:`get_vp9_library`, :func:`get_ffv1_library`, :func:`get_h264_library` and
-:func:`get_mpeg2_library` raise
+:func:`get_vp9_library`, :func:`get_ffv1_library`, :func:`get_h264_library`,
+:func:`get_mpeg2_library` and :func:`get_jpeg2000_library` raise
 ``RuntimeError``. A compile that fails, and a
 native read that fails, raise.
 """
@@ -78,7 +82,7 @@ import numpy as np
 
 __all__ = ["native_available", "get_library", "get_jpeg_library", "get_jpeg_encoder_library", "get_lzw_library",
            "get_webp_library", "get_webp_encoder_library", "get_mpeg4_library", "get_vp8_library", "get_vp9_library",
-           "get_ffv1_library", "get_h264_library", "get_mpeg2_library", "read_bsq",
+           "get_ffv1_library", "get_h264_library", "get_mpeg2_library", "get_jpeg2000_library", "read_bsq",
            "build_library"]
 
 _HERE = Path(__file__).resolve().parent
@@ -94,10 +98,11 @@ _VP9_SOURCE = _HERE / "vp9_decoder.cpp"
 _FFV1_SOURCE = _HERE / "ffv1_decoder.cpp"
 _H264_SOURCE = _HERE / "h264_decoder.cpp"
 _MPEG2_SOURCE = _HERE / "mpeg2_decoder.cpp"
+_JPEG2000_SOURCE = _HERE / "jpeg2000_decoder.cpp"
 _LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw",
                   _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder", _MPEG4_SOURCE: "mpeg4",
                   _VP8_SOURCE: "vp8", _VP9_SOURCE: "vp9", _FFV1_SOURCE: "ffv1", _H264_SOURCE: "h264",
-                  _MPEG2_SOURCE: "mpeg2"}
+                  _MPEG2_SOURCE: "mpeg2", _JPEG2000_SOURCE: "jpeg2000"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}
@@ -255,6 +260,12 @@ def get_mpeg2_library() -> ctypes.CDLL:
                                  "sr_mpeg2_stream_bgr": (None, [_ptr, _int, _ptr]),
                                  "sr_mpeg2_stream_plane": (None, [_ptr, _int, _int, _ptr]),
                                  "sr_mpeg2_stream_stats": (_int, [_ptr, _ptr, _int])})
+
+
+def get_jpeg2000_library() -> ctypes.CDLL:
+    """The loaded JPEG 2000 codestream decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_JPEG2000_SOURCE, {"sr_j2k_decode": (_int, [ctypes.c_char_p, _i64, _ptr, _ptr, _i64, _i64,
+                                                             ctypes.c_char_p, _int])})
 
 
 def native_available() -> bool:

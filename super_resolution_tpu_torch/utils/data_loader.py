@@ -2,9 +2,9 @@
 
 Image extensions load through the port's own codecs
 (:mod:`super_resolution_tpu_torch.utils.image_io`: PNG, BMP, JPEG --
-sequential and progressive --, TIFF, GIF and WebP, with what
-``cv2.imread(path, IMREAD_UNCHANGED)`` returns; JPEG 2000 and animated WebP
-raise ``NotImplementedError``); anything else is an HSI configuration file for the
+sequential and progressive --, TIFF, GIF, WebP and JPEG 2000, with what
+``cv2.imread(path, IMREAD_UNCHANGED)`` returns; animated WebP raises
+``NotImplementedError``); anything else is an HSI configuration file for the
 ENVI BSQ path (``data_loader.cpp:96-114``). As in the JAX package, an image
 whose values pass 255 (a 16-bit file, say) makes ``ImageData`` raise
 ``ValueError`` ("Invalid pixel range"): it is not rescaled.
@@ -54,7 +54,7 @@ def load_images(directory: str, device="cuda", dtype: torch.dtype = torch.float3
 def save_image(image: ImageData, file_path: str) -> None:
     """1/3-channel images save as visualization images (PNG, BMP, JPEG or
     TIFF, the file ``cv2.imwrite`` writes; WebP, a lossless file of the
-    pixels OpenCV's decodes to; GIF and JPEG 2000 raise
+    pixels OpenCV's decodes to; GIF and JPEG 2000 are read-only and raise
     ``NotImplementedError``); anything else exports as ENVI binary
     (``data_loader.cpp:116-130``)."""
     n = image.total_num_channels

@@ -37,8 +37,11 @@ them; written as lossless VP8L, as ``cv2.imwrite`` writes WebP at its
 default quality. The port's encoder is not libwebp's, so its bytes differ
 from OpenCV's file: what is held equal is the pixels both files decode to
 (through ``cv2.imdecode`` and through this decoder), not the bytes.
-Writing GIF, and JPEG 2000 either way, raise ``NotImplementedError`` with
-the format's name; so does an animated WebP.
+JPEG 2000 (:mod:`super_resolution_tpu_torch.utils.jpeg2000`): JP2 files
+and raw codestreams (5/3 and 9/7, every Part 1 progression, layer, precinct
+and tile layout) read as OpenCV's OpenJPEG decodes them.
+Writing GIF and writing JPEG 2000 raise ``NotImplementedError`` with the
+format's name; so does an animated WebP.
 """
 
 from __future__ import annotations
@@ -52,11 +55,12 @@ import numpy as np
 __all__ = ["IMAGE_EXTENSIONS", "read_image", "write_image", "read_png", "write_png", "read_bmp", "write_bmp"]
 
 _CODECS = {".png": "PNG", ".bmp": "BMP", ".jpg": "JPEG", ".jpeg": "JPEG", ".tif": "TIFF", ".tiff": "TIFF",
-           ".gif": "GIF", ".webp": "WebP"}
-_READ_ONLY = {".gif": "GIF"}
-_UNSUPPORTED = {".jp2": "JPEG 2000"}
+           ".gif": "GIF", ".webp": "WebP", ".jp2": "JPEG 2000"}
+# Why each read-only format is not written: another encoder would write other pixels than OpenCV's file holds.
+_READ_ONLY = {".gif": ("GIF", "OpenCV quantises the colours with a quantiser of its own"),
+              ".jp2": ("JPEG 2000", "OpenCV's file comes out of OpenJPEG's encoder and its rate allocation")}
 # Every extension the JAX loader reads as an image (``data_loader.py:22-24``).
-IMAGE_EXTENSIONS = frozenset({*_CODECS, *_UNSUPPORTED})
+IMAGE_EXTENSIONS = frozenset(_CODECS)
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -67,14 +71,11 @@ _ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), 
 
 def _extension(path: str, writing: bool) -> str:
     ext = os.path.splitext(path)[1].lower()
-    if ext in _UNSUPPORTED:
-        raise NotImplementedError(
-            f"{_UNSUPPORTED[ext]} files ({ext}) are not supported by the port's image codecs; "
-            "convert the file to PNG, BMP, JPEG, TIFF or WebP.")
     if writing and ext in _READ_ONLY:
+        name, why = _READ_ONLY[ext]
         raise NotImplementedError(
-            f"Writing {_READ_ONLY[ext]} files ({ext}) is not supported by the port's image codecs (reading is): "
-            "OpenCV quantises the colours with a quantiser of its own; write PNG, BMP, JPEG, TIFF or WebP.")
+            f"Writing {name} files ({ext}) is not supported by the port's image codecs (reading is): "
+            f"{why}; write PNG, BMP, JPEG, TIFF or WebP.")
     if ext not in _CODECS:
         raise ValueError(f"{path}: not an image extension these codecs know ({ext!r}).")
     return _CODECS[ext]
@@ -103,6 +104,10 @@ def read_image(path: str) -> np.ndarray:
         from super_resolution_tpu_torch.utils.webp import decode_webp
 
         return decode_webp(data)
+    if kind == "JPEG 2000":
+        from super_resolution_tpu_torch.utils.jpeg2000 import decode_jpeg2000
+
+        return decode_jpeg2000(data)
     return read_png(data) if kind == "PNG" else read_bmp(data)
 
 

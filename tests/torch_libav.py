@@ -26,7 +26,7 @@ _loaded = {}
 PIX_FMTS = {"gray": (1, 0, 0, 1), "ya8": (1, 0, 0, 2), "bgr0": (1, 0, 0, 4), "bgra": (1, 0, 0, 4),
             "yuv420p": (3, 1, 1, 1), "yuv422p": (3, 1, 0, 1), "yuv444p": (3, 0, 0, 1), "yuv410p": (3, 2, 2, 1),
             "yuv411p": (3, 2, 0, 1), "yuv440p": (3, 0, 1, 1), "yuva420p": (4, 1, 1, 1), "yuva422p": (4, 1, 0, 1),
-            "yuva444p": (4, 0, 0, 1), "yuv420p10le": (3, 1, 1, 2)}
+            "yuva444p": (4, 0, 0, 1), "yuv420p10le": (3, 1, 1, 2), "rgb24": (1, 0, 0, 3), "gray16le": (1, 0, 0, 2)}
 
 
 def _library(name):
