@@ -127,9 +127,9 @@ width:
   local shard an evaluation);
 - formats (phase 14): the native codecs (progressive JPEG decoding, JPEG
   and TIFF writing, LZW for TIFF and GIF, WebP decoding and VP8L writing,
-  JPEG 2000 decoding) built from the checkout; the fixtures of
+  JPEG 2000 decoding and writing) built from the checkout; the fixtures of
   ``tests/data_torch/formats`` (JPEG, TIFF, GIF, WebP and JPEG 2000) decoded array-equal to OpenCV's decodes stored
-  with them and the port's JPEG / TIFF of seeded images byte-equal to
+  with them and the port's JPEG / TIFF / JPEG 2000 of seeded images byte-equal to
   OpenCV's files (the card's host has no OpenCV); the flagship through
   ``super_resolve`` from a TIFF ground truth, its result written as TIFF and
   JPEG, the estimate bit-equal to the same run from a PNG; phase 11's refined
@@ -140,9 +140,14 @@ width:
   same pixels; the flagship from OpenCV's JPEG 2000 of its scene (5/3, passes
   cut by the rate control) and phase 11's refined RGB run from PIL's 9/7
   JPEG 2000 frames (the colour transform, 3 layers, RPCL), each estimate
-  bit-equal to the same run from PNGs of the pixels the files decode to; host
-  ms to write and read 1000x1000 TIFF, JPEG and WebP files and to read the
-  JPEG 2000 ones.
+  bit-equal to the same run from PNGs of the pixels the files decode to; the
+  flagship scene regenerated, checked against the fixtures' digest of its
+  pixels and written as JPEG 2000 byte-equal to OpenCV's file; the
+  flagship's 4 LR frames written as JPEG 2000 by ``generate_data`` and
+  super-resolved from them to a JPEG 2000 result, the estimate bit-equal to
+  the same run from PNGs of the same pixels and the result byte-equal to the
+  port's JPEG 2000 of the PNG run's result; host ms to write and read
+  1000x1000 TIFF, JPEG, WebP and JPEG 2000 files.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -208,6 +213,7 @@ try:
     from super_resolution_tpu_torch.utils.data_loader import load_image, save_image
     from super_resolution_tpu_torch.utils.image_io import read_image, write_image
     from super_resolution_tpu_torch.utils.jpeg import encode_jpeg
+    from super_resolution_tpu_torch.utils.jpeg2000 import decode_jpeg2000, encode_jpeg2000
     from super_resolution_tpu_torch.utils.tiff import read_tiff, write_tiff
     from super_resolution_tpu_torch.utils.webp import decode_webp, encode_webp
     from super_resolution_tpu_torch import video as sr_video
@@ -4020,10 +4026,16 @@ def _saved_results():
         yield saved
 
 
+def _first_difference(ours, theirs):
+    first = next((i for i in range(min(len(ours), len(theirs))) if ours[i] != theirs[i]), min(len(ours), len(theirs)))
+    return f"first at byte {first}; {len(ours)} bytes against {len(theirs)}"
+
+
 def _format_fixtures():
     """(a) each fixture decoded by the port against OpenCV's decode stored
-    beside it; (b) the port's JPEG and TIFF of each seeded image against
-    OpenCV's files. Returns {file: decode ms}."""
+    beside it; (b) the port's JPEG, TIFF and JPEG 2000 of each seeded image
+    against OpenCV's files (JPEG 2000 also read back to the pixels OpenCV's
+    file decodes to). Returns ({file: decode ms}, the manifest)."""
     folder = os.path.join(ROOT, FORMATS_DIR)
     with open(os.path.join(folder, "manifest.json")) as f:
         manifest = json.load(f)
@@ -4037,30 +4049,45 @@ def _format_fixtures():
               f"formats (a): {entry['file']} ({entry['what']}) decodes to {ours.dtype} {ours.shape}, not OpenCV's "
               f"{expected.dtype} {expected.shape} array")
         decode_ms[entry["file"]] = _host_ms(lambda: read_image(path))
+    encoded = {"jpeg": 0, "tiff": 0, "jp2": 0}
     for entry in manifest["encode"]:
         image = seeded_format_image(entry["seed"], entry["shape"])
-        with open(os.path.join(folder, entry["jpeg"]), "rb") as f:
-            theirs = f.read()
-        ours = encode_jpeg(image)
-        first = next((i for i in range(min(len(ours), len(theirs))) if ours[i] != theirs[i]), None)
-        check(ours == theirs, f"formats (b): the JPEG of seed {entry['seed']} {entry['shape']} differs from OpenCV's "
-                              f"file (first at byte {first}; {len(ours)} bytes against {len(theirs)})")
-        tiff = write_tiff(image)
-        with open(os.path.join(folder, entry["tiff"]), "rb") as f:
-            check(tiff == f.read(), f"formats (b): the TIFF of seed {entry['seed']} differs from OpenCV's file")
-        check(np.array_equal(read_tiff(tiff), image), f"formats (b): the TIFF of seed {entry['seed']} reads back "
-                                                       "other pixels")
+        if "jpeg" in entry:
+            with open(os.path.join(folder, entry["jpeg"]), "rb") as f:
+                theirs = f.read()
+            ours = encode_jpeg(image)
+            check(ours == theirs, f"formats (b): the JPEG of seed {entry['seed']} {entry['shape']} differs from "
+                                  f"OpenCV's file ({_first_difference(ours, theirs)})")
+            encoded["jpeg"] += 1
+        if "tiff" in entry:
+            tiff = write_tiff(image)
+            with open(os.path.join(folder, entry["tiff"]), "rb") as f:
+                check(tiff == f.read(), f"formats (b): the TIFF of seed {entry['seed']} differs from OpenCV's file")
+            check(np.array_equal(read_tiff(tiff), image), f"formats (b): the TIFF of seed {entry['seed']} reads back "
+                                                           "other pixels")
+            encoded["tiff"] += 1
+        if "jp2" in entry:
+            path = os.path.join(folder, entry["jp2"])
+            with open(path, "rb") as f:
+                theirs = f.read()
+            ours = encode_jpeg2000(image)
+            check(ours == theirs, f"formats (b): the JPEG 2000 of seed {entry['seed']} {entry['shape']} differs from "
+                                  f"OpenCV's file ({_first_difference(ours, theirs)})")
+            check(np.array_equal(decode_jpeg2000(ours), read_image(path)),
+                  f"formats (b): the JPEG 2000 of seed {entry['seed']} reads back other pixels than OpenCV's file")
+            encoded["jp2"] += 1
     log(f"      (a) {len(manifest['decode'])} fixtures array-equal to OpenCV's decodes; (b) "
-        f"{len(manifest['encode'])} seeded images: JPEG and TIFF byte-equal to OpenCV's files")
-    return decode_ms
+        f"{len(manifest['encode'])} seeded images: {encoded['jpeg']} JPEG, {encoded['tiff']} TIFF and {encoded['jp2']} "
+        "JPEG 2000 byte-equal to OpenCV's files")
+    return decode_ms, manifest
 
 
 def phase_formats(device, rows, card, entry_steps, side=1000):
     """The image formats that the JAX package reads and writes through
     OpenCV, on the card's host (which has no OpenCV): the native codecs built
     from the checkout, (a) the fixtures decoded array-equal to OpenCV's
-    decodes made with the fixtures, (b) JPEG / TIFF encoding byte-equal to
-    OpenCV's files, and (c) ``super_resolve`` through the new formats on the
+    decodes made with the fixtures, (b) JPEG / TIFF / JPEG 2000 encoding
+    byte-equal to OpenCV's files, and (c) ``super_resolve`` through the new formats on the
     card: (c-1) the flagship from a TIFF, its result as TIFF and JPEG, the
     estimate ``torch.equal`` to the same run from a PNG; (c-2) phase 11 (d)'s
     refined RGB run from baseline JPEG frames the port wrote and a TIFF
@@ -4072,7 +4099,13 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
     2000 of its scene (a checked-in fixture: 5/3, passes cut by the rate
     control) and (c-5) (c-2)'s run from PIL's 9/7 JPEG 2000 frames (fixtures:
     the ICT, 3 layers, RPCL) and a PNG truth, each estimate ``torch.equal`` to
-    the same run from PNGs of the pixels the files decode to. ``entry_steps``:
+    the same run from PNGs of the pixels the files decode to; (c-6a) the
+    flagship scene regenerated, held to the fixtures' digest of its pixels
+    and written as JPEG 2000 byte-equal to (c-4)'s file; (c-6b) its 4 LR
+    frames written as JPEG 2000 by ``generate_data`` on the card, then
+    ``super_resolve`` from them and a PNG truth to a JPEG 2000 result, the
+    estimate ``torch.equal`` to the run from PNGs of the same pixels and the
+    result the port's JPEG 2000 of that run's result. ``entry_steps``:
     phase 11's steps (its (d) PSNR is logged beside (c-2)'s)."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -4082,7 +4115,11 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
     log(f"[14/14] formats: the native codecs (native/jpeg_decoder.cpp, jpeg_encoder.cpp, lzw.cpp, webp_decoder.cpp, "
         f"webp_encoder.cpp, jpeg2000_decoder.cpp) built from the checkout's sources with g++ on the host and loaded in "
         f"{time.perf_counter() - t0:.2f} s (the JPEG decoder may have been built by phase 12)")
-    decode_ms = _format_fixtures()
+    t0 = time.perf_counter()
+    native.get_jpeg2000_encoder_library()
+    log(f"[14/14] formats: native/jpeg2000_encoder.cpp built from the checkout's source with g++ on the host and "
+        f"loaded in {time.perf_counter() - t0:.2f} s")
+    decode_ms, manifest = _format_fixtures()
     tmp = tempfile.mkdtemp(prefix="chip_smoke_formats_")
     steps = {}
     try:
@@ -4258,11 +4295,85 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
             f"walls jp2 / png {steps['rgb_estimated_jp2']['seconds']:.3f} / "
             f"{steps['rgb_estimated_jp2_pixels_png']['seconds']:.3f} s ({card})")
 
+        # (c-6a) the flagship scene regenerated here, its pixels checked against the digest the fixtures were made
+        # from, and written as JPEG 2000 byte-equal to OpenCV's file of it (the input of (c-4)).
+        expected = manifest["flagship_scene"]
+        digest = hashlib.sha256(np.ascontiguousarray(grey).tobytes()).hexdigest()
+        check(list(grey.shape) == expected["shape"] and digest == expected["pixels_sha256"],
+              f"formats (c-6a): the regenerated flagship scene {grey.shape} hashes to {digest}, not to the pixels "
+              f"{FLAGSHIP_JP2} was written from ({expected['pixels_sha256']})")
+        with open(paths["jp2"], "rb") as f:
+            theirs = f.read()
+        jp2_stats = {}
+        ours = encode_jpeg2000(grey, jp2_stats)
+        check(ours == theirs, f"formats (c-6a): the port's JPEG 2000 of the flagship scene differs from OpenCV's "
+                              f"{FLAGSHIP_JP2} ({_first_difference(ours, theirs)})")
+        log(f"      (c-6a) the flagship scene regenerated (SHA-256 of its pixels = the fixtures'), written as JPEG 2000 "
+            f"byte-equal to OpenCV's {FLAGSHIP_JP2} ({len(ours)} bytes; {jp2_stats['passes_kept']} of "
+            f"{jp2_stats['passes']} passes kept in {jp2_stats['code_blocks']} code-blocks, threshold "
+            f"{jp2_stats['threshold']:.6f}, {jp2_stats['trials']} tier-2 trials)")
+
+        # (c-6b) the flagship's LR frames written as JPEG 2000 by generate_data on the card, then super_resolve from
+        # them and a PNG truth to a JPEG 2000 result, beside the same run from PNGs of the pixels the frames decode to.
+        jp2_lr_frames, jp2_lr_png_frames = os.path.join(tmp, "jp2_lr_frames"), os.path.join(tmp, "jp2_lr_png_frames")
+        text, seconds, _, _ = _cli_step("generate_jp2_frames", generate_data_cli.main, [
+            "--input_image", paths["png"], "--output_image_dir", jp2_lr_frames, "--number_of_frames", "4",
+            "--upsampling_scale", "4", "--blur_radius", "3", "--blur_sigma", "1.5", "--motion_sequence_path", motion,
+            "--output_extension", "jp2", "--device", str(device)], card, device, phase="14/14")
+        steps["generate_jp2_frames"] = dict(seconds=seconds)
+        os.makedirs(jp2_lr_png_frames)
+        frame_bytes = []
+        for name in sorted(os.listdir(jp2_lr_frames)):
+            frame = read_image(os.path.join(jp2_lr_frames, name))
+            check(frame.shape == (side // 4, side // 4) and frame.dtype == np.uint8,
+                  f"formats (c-6b): {name} reads as {frame.dtype} {frame.shape}")
+            frame_bytes.append(os.path.getsize(os.path.join(jp2_lr_frames, name)))
+            write_image(os.path.join(jp2_lr_png_frames, name[:-len(".jp2")] + ".png"), frame)
+        check(len(frame_bytes) == 4, f"formats (c-6b): generate_data wrote {len(frame_bytes)} frames")
+        jp2_lr_estimates = {}
+        for label, frames, ext in (("jp2_frames_to_jp2", jp2_lr_frames, "jp2"),
+                                   ("jp2_frames_pixels_png_to_png", jp2_lr_png_frames, "png")):
+            results[label] = os.path.join(tmp, f"{label}.{ext}")
+            argv = ["--data_path", frames, "--ground_truth_image", paths["png"], "--upsampling_scale", "4",
+                    "--blur_radius", "3", "--blur_sigma", "1.5", "--motion_sequence_path", motion, "--regularizer",
+                    "tv", "--regularization_parameter", "0.01", "--evaluators", "psnr,ssim",
+                    "--device", str(device)] + fused + ["--result_path", results[label]]
+            with _saved_results() as saved:
+                text, seconds, counts, _ = _cli_step(label, super_resolve_cli.main, argv, card, device, phase="14/14")
+            check(len(saved) == 1, f"formats (c-6b) {label}: {len(saved)} results saved")
+            jp2_lr_estimates[label] = saved[0]
+            scores = _check_psnr(label, text)
+            check(counts["data_term_tv"] > 0, f"formats (c-6b) {label}: the TV kernels (K2) were never launched")
+            steps[label] = dict(seconds=seconds, counts=counts, psnr=scores["PSNR score on result"],
+                                upsampled=scores["PSNR score on upsampled"])
+        from_jp2, from_png = jp2_lr_estimates["jp2_frames_to_jp2"], jp2_lr_estimates["jp2_frames_pixels_png_to_png"]
+        check(torch.equal(from_jp2, from_png), "formats (c-6b): the estimate from JPEG 2000 frames differs from the one "
+                                               f"from PNG frames (max|diff| {float((from_jp2 - from_png).abs().max()):.3e})")
+        png_result = read_image(results["jp2_frames_pixels_png_to_png"])
+        with open(results["jp2_frames_to_jp2"], "rb") as f:
+            jp2_result = f.read()
+        expected_result = encode_jpeg2000(png_result)
+        check(jp2_result == expected_result, "formats (c-6b): the JPEG 2000 result is not the port's JPEG 2000 of the "
+                                             f"PNG run's result ({_first_difference(jp2_result, expected_result)})")
+        back = read_image(results["jp2_frames_to_jp2"])
+        check(back.shape == png_result.shape and back.dtype == np.uint8,
+              f"formats (c-6b): the JPEG 2000 result reads as {back.dtype} {back.shape}")
+        result_db = float(psnr(torch.from_numpy(back / 255.0), torch.from_numpy(png_result / 255.0)))
+        log(f"      (c-6b) {len(frame_bytes)} JPEG 2000 LR frames (generate_data, {side // 4}x{side // 4}, "
+            f"{'/'.join(map(str, frame_bytes))} bytes) and a PNG truth to a JPEG 2000 result: estimate torch.equal to "
+            f"the run from PNGs of the same pixels; result byte-equal to the port's JPEG 2000 of the PNG run's result "
+            f"({len(jp2_result)} bytes, {result_db:.2f} dB from it); PSNR {steps['jp2_frames_to_jp2']['psnr']:.4f} dB "
+            f"(upsampled {steps['jp2_frames_to_jp2']['upsampled']:.4f}); K2 "
+            f"{steps['jp2_frames_to_jp2']['counts']['data_term_tv']} a run; walls generate / jp2 / png "
+            f"{steps['generate_jp2_frames']['seconds']:.3f} / {steps['jp2_frames_to_jp2']['seconds']:.3f} / "
+            f"{steps['jp2_frames_pixels_png_to_png']['seconds']:.3f} s ({card})")
+
         # Host ms a 1000x1000 file, written and read (the card's host, not the card).
         rgb = np.ascontiguousarray(ImageData(gt, normalize="never", channel_major=True).visualization_image())
         io_ms, webp_bytes = {}, {}
         for name, image in (("grey", grey), ("bgr", rgb)):
-            for ext, encode in (("tif", write_tiff), ("jpg", encode_jpeg), ("webp", encode_webp)):
+            for ext, encode in (("tif", write_tiff), ("jpg", encode_jpeg), ("webp", encode_webp),
+                                ("jp2", encode_jpeg2000)):
                 path = os.path.join(tmp, f"timed_{name}.{ext}")
                 io_ms[f"encode {name} {ext}"] = _host_ms(lambda: encode(image))
                 io_ms[f"write {name} {ext}"] = _host_ms(lambda: write_image(path, image))
@@ -4270,13 +4381,14 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
                 if ext == "webp":
                     webp_bytes[name] = os.path.getsize(path)
                 back = read_image(path)
-                check(ext == "jpg" or np.array_equal(back if back.ndim == image.ndim else back[..., 0], image),
+                lossless = ext not in ("jpg", "jp2")
+                check(not lossless or np.array_equal(back if back.ndim == image.ndim else back[..., 0], image),
                       f"formats: the {name} {ext} file reads back other pixels")
         io_ms[f"read grey jp2 ({FLAGSHIP_JP2})"] = _host_ms(lambda: read_image(paths["jp2"]))
         io_ms[f"read bgr jp2 ({RGB_JP2_FRAMES[0]})"] = _host_ms(
             lambda: read_image(os.path.join(folder, RGB_JP2_FRAMES[0])))
         log(f"      host ms a {side}x{side} image, median of {FORMAT_REPEATS} (encode: to bytes; write / read: the file; "
-            f"JPEG 2000: read only, the checked-in files; "
+            f"read jp2 (...): the checked-in files; "
             f"{card}, host time on the card's machine): "
             + ", ".join(f"{k} {v:.2f}" for k, v in io_ms.items()))
         log(f"      the port's lossless WebP of the {side}x{side} images: "
@@ -4288,7 +4400,8 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
         if row["row"] == "K2":
             row["launches_formats"] = sum(steps[k]["counts"]["data_term_tv"] for k in
                                           ("png_to_png", "tiff_to_tiff", "tiff_to_jpeg", "webp_to_webp",
-                                           "png_bgr_to_png", "jp2_to_png", "jp2_pixels_png_to_png"))
+                                           "png_bgr_to_png", "jp2_to_png", "jp2_pixels_png_to_png",
+                                           "jp2_frames_to_jp2", "jp2_frames_pixels_png_to_png"))
         if row["row"] == "K4":
             row["launches_formats"] = sum(steps[k]["counts"]["data_term_btv"] for k in
                                           ("rgb_estimated_jpeg", "rgb_estimated_jp2", "rgb_estimated_jp2_pixels_png"))

@@ -20,21 +20,23 @@ scene of (c-1), ``synthetic_scene(1, 1000, 1000, seed=2026)``, as
 (d)'s scene, made here on the CPU by ``chip_smoke.estimated_motion_problem``,
 as PIL writes them. Each
 input file comes with OpenCV's decode of it: a PNG for uint8 images (the port's PNG reader is exact), a
-``.npy`` otherwise. The encoding fixtures are OpenCV's JPEG and TIFF files
-of images drawn from ``numpy.random.PCG64(seed).random_raw``, whose stream
-numpy keeps stable. ``manifest.json`` lists it all; the tests
+``.npy`` otherwise. The encoding fixtures are OpenCV's JPEG, TIFF and JPEG
+2000 files of images drawn from ``numpy.random.PCG64(seed).random_raw``,
+whose stream numpy keeps stable. ``manifest.json`` lists it all, with the
+SHA-256 of the flagship scene's uint8 pixels (phase 14 (c-6a) regenerates
+the scene and encodes it with the port's writer); the tests
 (``tests/test_torch_formats_fixtures.py``) and ``chip_smoke.py`` phase 14
 read it. Not run by the tests: rerun it only when the set changes.
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
 import json
 import os
-import sys
-
-import io
 import struct
+import sys
 
 import cv2
 import numpy as np
@@ -90,7 +92,7 @@ def _palette_jp2(indices: np.ndarray, palette: np.ndarray) -> bytes:
             + _jp2_box(b"jp2c", codestream))
 
 
-def add_jpeg2000(add) -> None:
+def add_jpeg2000(add) -> str:
     """The JPEG 2000 fixtures (see the module docstring)."""
     import torch
 
@@ -125,7 +127,8 @@ def add_jpeg2000(add) -> None:
 
     # chip_smoke.py phase 14 (c-4): the flagship scene as the port saves it, written by cv2.imwrite.
     flagship = ImageData(chip_smoke.synthetic_scene(1, 1000, 1000, seed=2026), channel_major=True, device="cpu")
-    add("flagship_scene_1000x1000.jp2", cv2.imencode(".jp2", flagship.visualization_image())[1].tobytes(),
+    pixels = flagship.visualization_image()
+    add("flagship_scene_1000x1000.jp2", cv2.imencode(".jp2", pixels)[1].tobytes(),
         "JPEG 2000 by OpenCV at its default rate: the flagship scene, 1000x1000 grey (chip_smoke phase 14 (c-4))")
     # (c-5): the 4 RGB LR frames of phase 11 (d), written by PIL: 9/7 with the ICT, 3 layers, RPCL, 64x64 precincts.
     _, lows = chip_smoke.estimated_motion_problem("cpu", side=1000, dtype=torch.float32)
@@ -136,6 +139,8 @@ def add_jpeg2000(add) -> None:
                           quality_layers=[16, 8, 4], progression="RPCL", precinct_size=(64, 64)),
             f"JPEG 2000 by PIL: LR frame {k} of phase 11 (d)'s RGB scene, 9/7 with the ICT, 3 layers, RPCL, 64x64 "
             "precincts (chip_smoke phase 14 (c-5))")
+    # (c-6a) regenerates the flagship scene on the card's host and checks it against this digest first.
+    return hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
 
 
 def main() -> int:
@@ -199,20 +204,26 @@ def main() -> int:
     add("vp8l_effort6_48x64.webp", effort6.getvalue(),
         "WebP by PIL: lossless (VP8L) at its highest effort, 6")
 
-    add_jpeg2000(add)
+    flagship_sha256 = add_jpeg2000(add)
 
-    for seed, shape in ((11, (48, 64, 3)), (12, (37, 53))):
+    # What cv2.imwrite writes of seeded images: JPEG, TIFF and JPEG 2000 (5/3, one layer cut to OpenCV's
+    # default rate); the 32x32 grey (the smallest JPEG 2000 OpenCV writes) and the 256x256 BGR (the rate
+    # allocation over 75 code-blocks) only as JPEG 2000.
+    for seed, shape, exts in ((11, (48, 64, 3), (".jpg", ".tif", ".jp2")), (12, (37, 53), (".jpg", ".tif", ".jp2")),
+                              (28, (32, 32), (".jp2",)), (29, (256, 256, 3), (".jp2",))):
         image = seeded_image(seed, shape)
         stem = f"encode_seed{seed}_{'x'.join(map(str, shape))}"
         entry = {"seed": seed, "shape": list(shape)}
-        for ext in (".jpg", ".tif"):
+        for ext in exts:
             with open(os.path.join(OUT, stem + ext), "wb") as f:
                 f.write(cv2.imencode(ext, image)[1].tobytes())
-            entry["jpeg" if ext == ".jpg" else "tiff"] = stem + ext
+            entry[{".jpg": "jpeg", ".tif": "tiff", ".jp2": "jp2"}[ext]] = stem + ext
         encode.append(entry)
 
     manifest = {"made_by": "scripts/make_torch_format_fixtures.py with OpenCV " + cv2.__version__,
-                "decode": decode, "encode": encode}
+                "decode": decode, "encode": encode,
+                "flagship_scene": {"file": "flagship_scene_1000x1000.jp2", "shape": [1000, 1000],
+                                   "pixels_sha256": flagship_sha256}}
     with open(os.path.join(OUT, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=1)
         f.write("\n")

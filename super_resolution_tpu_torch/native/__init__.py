@@ -45,7 +45,12 @@
 - ``jpeg2000_decoder.cpp`` decodes a JPEG 2000 Part 1 codestream (tier-2,
   tier-1, dequantisation, the 5/3 and 9/7 inverse wavelet transforms, the
   colour transforms) into integer component planes, as OpenJPEG does (the
-  serial half of :func:`super_resolution_tpu_torch.utils.jpeg2000.decode_jpeg2000`).
+  serial half of :func:`super_resolution_tpu_torch.utils.jpeg2000.decode_jpeg2000`);
+  ``jpeg2000_encoder.cpp`` encodes one uint8 image into the codestream
+  OpenJPEG 2.5.3 writes under OpenCV's parameters (the forward 5/3 transform,
+  tier-1, the rate allocation, tier-2; the serial half of
+  :func:`super_resolution_tpu_torch.utils.jpeg2000.encode_jpeg2000`). The two
+  share the MQ states and the tier-1 context tables (``jpeg2000_tables.h``).
   VP8 frames themselves are decoded by ``vp8_core.h``, which
   ``webp_decoder.cpp`` shares; the video decoders convert YUV to BGR with
   ``swscale_bgr.h``, as ``cv2.VideoCapture`` does at any size.
@@ -62,7 +67,8 @@ codecs have no second implementation: without a compiler
 :func:`get_lzw_library`, :func:`get_webp_library`,
 :func:`get_webp_encoder_library`, :func:`get_mpeg4_library`, :func:`get_vp8_library`,
 :func:`get_vp9_library`, :func:`get_ffv1_library`, :func:`get_h264_library`,
-:func:`get_mpeg2_library` and :func:`get_jpeg2000_library` raise
+:func:`get_mpeg2_library`, :func:`get_jpeg2000_library` and
+:func:`get_jpeg2000_encoder_library` raise
 ``RuntimeError``. A compile that fails, and a
 native read that fails, raise.
 """
@@ -82,8 +88,8 @@ import numpy as np
 
 __all__ = ["native_available", "get_library", "get_jpeg_library", "get_jpeg_encoder_library", "get_lzw_library",
            "get_webp_library", "get_webp_encoder_library", "get_mpeg4_library", "get_vp8_library", "get_vp9_library",
-           "get_ffv1_library", "get_h264_library", "get_mpeg2_library", "get_jpeg2000_library", "read_bsq",
-           "build_library"]
+           "get_ffv1_library", "get_h264_library", "get_mpeg2_library", "get_jpeg2000_library",
+           "get_jpeg2000_encoder_library", "read_bsq", "build_library"]
 
 _HERE = Path(__file__).resolve().parent
 _SOURCE = _HERE / "envi_loader.cpp"
@@ -99,10 +105,12 @@ _FFV1_SOURCE = _HERE / "ffv1_decoder.cpp"
 _H264_SOURCE = _HERE / "h264_decoder.cpp"
 _MPEG2_SOURCE = _HERE / "mpeg2_decoder.cpp"
 _JPEG2000_SOURCE = _HERE / "jpeg2000_decoder.cpp"
+_JPEG2000_ENCODER_SOURCE = _HERE / "jpeg2000_encoder.cpp"
 _LIBRARY_NAMES = {_SOURCE: "envi", _JPEG_SOURCE: "jpeg", _JPEG_ENCODER_SOURCE: "jpeg_encoder", _LZW_SOURCE: "lzw",
                   _WEBP_SOURCE: "webp", _WEBP_ENCODER_SOURCE: "webp_encoder", _MPEG4_SOURCE: "mpeg4",
                   _VP8_SOURCE: "vp8", _VP9_SOURCE: "vp9", _FFV1_SOURCE: "ffv1", _H264_SOURCE: "h264",
-                  _MPEG2_SOURCE: "mpeg2", _JPEG2000_SOURCE: "jpeg2000"}
+                  _MPEG2_SOURCE: "mpeg2", _JPEG2000_SOURCE: "jpeg2000",
+                  _JPEG2000_ENCODER_SOURCE: "jpeg2000_encoder"}
 _FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 _lock = threading.Lock()
 _loaded: dict[Path, ctypes.CDLL] = {}
@@ -266,6 +274,11 @@ def get_jpeg2000_library() -> ctypes.CDLL:
     """The loaded JPEG 2000 codestream decoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
     return _load(_JPEG2000_SOURCE, {"sr_j2k_decode": (_int, [ctypes.c_char_p, _i64, _ptr, _ptr, _i64, _i64,
                                                              ctypes.c_char_p, _int])})
+
+def get_jpeg2000_encoder_library() -> ctypes.CDLL:
+    """The loaded JPEG 2000 codestream encoder, built first if need be (``RuntimeError`` without a C++ compiler)."""
+    return _load(_JPEG2000_ENCODER_SOURCE, {"sr_j2k_encode": (_i64, [_ptr, _int, _int, _int, _int, _i64, _ptr, _i64,
+                                                                     _ptr, ctypes.POINTER(ctypes.c_double)])})
 
 
 def native_available() -> bool:

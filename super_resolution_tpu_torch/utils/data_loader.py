@@ -52,10 +52,11 @@ def load_images(directory: str, device="cuda", dtype: torch.dtype = torch.float3
 
 
 def save_image(image: ImageData, file_path: str) -> None:
-    """1/3-channel images save as visualization images (PNG, BMP, JPEG or
-    TIFF, the file ``cv2.imwrite`` writes; WebP, a lossless file of the
-    pixels OpenCV's decodes to; GIF and JPEG 2000 are read-only and raise
-    ``NotImplementedError``); anything else exports as ENVI binary
+    """1/3-channel images save as visualization images (PNG, BMP, JPEG,
+    TIFF or JPEG 2000, the file ``cv2.imwrite`` writes -- JPEG 2000 raises
+    ``ValueError`` below 32 pixels a side, where OpenCV writes nothing; WebP,
+    a lossless file of the pixels OpenCV's decodes to; GIF is read-only and
+    raises ``NotImplementedError``); anything else exports as ENVI binary
     (``data_loader.cpp:116-130``)."""
     n = image.total_num_channels
     ext = os.path.splitext(file_path)[1].lower()

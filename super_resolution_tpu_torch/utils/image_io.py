@@ -39,9 +39,14 @@ from OpenCV's file: what is held equal is the pixels both files decode to
 (through ``cv2.imdecode`` and through this decoder), not the bytes.
 JPEG 2000 (:mod:`super_resolution_tpu_torch.utils.jpeg2000`): JP2 files
 and raw codestreams (5/3 and 9/7, every Part 1 progression, layer, precinct
-and tile layout) read as OpenCV's OpenJPEG decodes them.
-Writing GIF and writing JPEG 2000 raise ``NotImplementedError`` with the
-format's name; so does an animated WebP.
+and tile layout) read as OpenCV's OpenJPEG decodes them; written byte-equal
+to ``cv2.imwrite`` (OpenJPEG 2.5.3's encoder: 5/3, one rate-allocated layer
+at OpenCV's default rate). One deliberate difference: an image with a side
+below 32 pixels raises ``ValueError``, where ``cv2.imwrite`` returns
+``False`` and the JAX ``save_image``, which ignores that, writes no file and
+says nothing.
+Writing GIF raises ``NotImplementedError`` with the format's name; so does
+an animated WebP.
 """
 
 from __future__ import annotations
@@ -57,8 +62,7 @@ __all__ = ["IMAGE_EXTENSIONS", "read_image", "write_image", "read_png", "write_p
 _CODECS = {".png": "PNG", ".bmp": "BMP", ".jpg": "JPEG", ".jpeg": "JPEG", ".tif": "TIFF", ".tiff": "TIFF",
            ".gif": "GIF", ".webp": "WebP", ".jp2": "JPEG 2000"}
 # Why each read-only format is not written: another encoder would write other pixels than OpenCV's file holds.
-_READ_ONLY = {".gif": ("GIF", "OpenCV quantises the colours with a quantiser of its own"),
-              ".jp2": ("JPEG 2000", "OpenCV's file comes out of OpenJPEG's encoder and its rate allocation")}
+_READ_ONLY = {".gif": ("GIF", "OpenCV quantises the colours with a quantiser of its own")}
 # Every extension the JAX loader reads as an image (``data_loader.py:22-24``).
 IMAGE_EXTENSIONS = frozenset(_CODECS)
 
@@ -75,7 +79,7 @@ def _extension(path: str, writing: bool) -> str:
         name, why = _READ_ONLY[ext]
         raise NotImplementedError(
             f"Writing {name} files ({ext}) is not supported by the port's image codecs (reading is): "
-            f"{why}; write PNG, BMP, JPEG, TIFF or WebP.")
+            f"{why}; write PNG, BMP, JPEG, TIFF, WebP or JPEG 2000.")
     if ext not in _CODECS:
         raise ValueError(f"{path}: not an image extension these codecs know ({ext!r}).")
     return _CODECS[ext]
@@ -112,7 +116,8 @@ def read_image(path: str) -> np.ndarray:
 
 
 def write_image(path: str, image: np.ndarray) -> None:
-    """Write a uint8 ``HxW`` or ``HxWx3`` (BGR) image as PNG, BMP, JPEG, TIFF or WebP, by extension."""
+    """Write a uint8 ``HxW`` or ``HxWx3`` (BGR) image as PNG, BMP, JPEG, TIFF, WebP or JPEG 2000, by
+    extension."""
     kind = _extension(path, writing=True)
     if kind == "JPEG":
         from super_resolution_tpu_torch.utils.jpeg import encode_jpeg
@@ -126,6 +131,10 @@ def write_image(path: str, image: np.ndarray) -> None:
         from super_resolution_tpu_torch.utils.webp import encode_webp
 
         data = encode_webp(image)
+    elif kind == "JPEG 2000":
+        from super_resolution_tpu_torch.utils.jpeg2000 import encode_jpeg2000
+
+        data = encode_jpeg2000(image)
     else:
         data = write_png(image) if kind == "PNG" else write_bmp(image)
     with open(path, "wb") as f:

@@ -1,4 +1,5 @@
-"""JPEG 2000 reading with what ``cv2.imread(path, IMREAD_UNCHANGED)`` returns.
+"""JPEG 2000 reading with what ``cv2.imread(path, IMREAD_UNCHANGED)`` returns,
+and writing the file ``cv2.imwrite`` writes.
 
 OpenCV reads JPEG 2000 through OpenJPEG and turns its components into a
 ``Mat``. :func:`decode_jpeg2000` does both: the codestream is decoded in C++
@@ -27,6 +28,16 @@ cut short or otherwise corrupt. Codestream features no writer here produces
 raise ``NotImplementedError`` naming them: the code-block styles BYPASS,
 RESET, TERMALL, VSC, PTERM and SEGSYM, POC, PPM / PPT, RGN, HTJ2K and Part 2
 extensions.
+
+:func:`encode_jpeg2000` writes a uint8 ``HxW`` or ``HxWx3`` (BGR) image as
+the JP2 file ``cv2.imwrite(path, image)`` writes, byte for byte: OpenCV
+hands the image to OpenJPEG 2.5.3 as R, G, B (or grey) components with one
+quality layer at rate 4 (``IMWRITE_JPEG2000_COMPRESSION_X1000`` 250, its
+default). The codestream is encoded in C++ (``native/jpeg2000_encoder.cpp``:
+the 5/3 transform, tier-1, OpenJPEG's rate allocation, tier-2 and the
+markers); the JP2 boxes around it are written here. Images with a side
+below 32 pixels raise ``ValueError``: OpenJPEG's 5 decomposition levels need
+32, and ``cv2.imwrite`` writes no file there.
 """
 
 from __future__ import annotations
@@ -36,12 +47,20 @@ import struct
 
 import numpy as np
 
-__all__ = ["STATS", "decode_jpeg2000", "decode_codestream"]
+__all__ = ["STATS", "ENCODER_STATS", "decode_jpeg2000", "decode_codestream", "encode_jpeg2000"]
 
 # The counts native/jpeg2000_decoder.cpp keeps over one decode (its Stat order).
 STATS = ("tiles", "tile_parts", "packets", "empty_packets", "sop_markers", "eph_markers", "code_blocks",
          "truncated_blocks", "passes", "layers", "reversible", "irreversible", "rct", "ict", "precincts_defined",
          "lrcp", "rlcp", "rpcl", "pcrl", "cprl")
+
+# The counts native/jpeg2000_encoder.cpp keeps over one encode (its Stat order): code-blocks, those with
+# no coefficient above zero, coding passes, passes kept in the layer, code-blocks whose passes were cut, the
+# packets' byte budget, bisection steps, tier-2 trials and the packets' bytes.
+ENCODER_STATS = ("code_blocks", "zero_blocks", "passes", "passes_kept", "blocks_cut", "budget", "iterations",
+                 "trials", "packet_bytes")
+# OpenJPEG's 5 decomposition levels need a tile of 2^5 samples a side.
+MIN_ENCODE_SIDE = 32
 
 JP2_SIGNATURE = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
 J2K_SIGNATURE = b"\xff\x4f\xff\x51"
@@ -376,3 +395,57 @@ def decode_jpeg2000(data: bytes, stats: dict | None = None) -> np.ndarray:
         comps = jp2.apply(comps)
         color_space = jp2.color_space
     return _to_mat(comps, n, np.uint8 if precision == 8 else np.uint16, color_space)
+
+
+# --------------------------------------------------------------------------- writing
+
+
+def _jp2_header(height: int, width: int, channels: int) -> bytes:
+    """The signature, ``ftyp`` and ``jp2h`` boxes (``ihdr``: 8-bit unsigned, JPEG 2000 compression, no IPR;
+    ``colr``: enumerated sRGB or grey) as OpenJPEG's ``opj_jp2_write_jp`` / ``_ftyp`` / ``_jp2h`` write them."""
+    ftyp = struct.pack(">I4s4sI4s", 20, b"ftyp", b"jp2 ", 0, b"jp2 ")
+    ihdr = struct.pack(">I4sIIHBBBB", 22, b"ihdr", height, width, channels, 7, 7, 0, 0)
+    colr = struct.pack(">I4sBBBI", 15, b"colr", 1, 0, 0, 17 if channels == 1 else 16)
+    jp2h = struct.pack(">I4s", 8 + len(ihdr) + len(colr), b"jp2h") + ihdr + colr
+    return JP2_SIGNATURE + ftyp + jp2h
+
+
+def encode_jpeg2000(image, stats: dict | None = None, compression_x1000: int = 250) -> bytes:
+    """Encode a uint8 ``HxW`` (grey) or ``HxWx3`` (BGR) image as the JP2 file ``cv2.imwrite`` writes.
+
+    ``stats``: a dict to fill with the encoder's counts (:data:`ENCODER_STATS`), ``passes_cut`` and the
+    rate allocation's slope ``threshold`` (-1 when every pass is kept). ``compression_x1000``: what OpenCV's
+    ``IMWRITE_JPEG2000_COMPRESSION_X1000`` sets (rate ``1000 / value``; 1000 is lossless); the writers
+    keep OpenCV's default."""
+    from super_resolution_tpu_torch.native import get_jpeg2000_encoder_library
+
+    img = np.asarray(image)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"Expected a uint8 HxW or HxWx3 image, got {img.dtype} {img.shape}.")
+    height, width = img.shape[:2]
+    if min(height, width) < MIN_ENCODE_SIDE:
+        raise ValueError(f"JPEG 2000 cannot hold a {width}x{height} image here: OpenJPEG's 5 decomposition levels "
+                         f"need at least {MIN_ENCODE_SIDE} pixels a side (cv2.imwrite writes no file).")
+    if max(height, width) >= 1 << 30:
+        raise ValueError(f"JPEG 2000 writing of a {width}x{height} image is not supported (sides below 2^30).")
+    channels = 1 if img.ndim == 2 else 3
+    img = np.ascontiguousarray(img)
+    head = _jp2_header(height, width, channels)
+    lib = get_jpeg2000_encoder_library()
+    counts = np.zeros(len(ENCODER_STATS), dtype=np.int64)
+    threshold = ctypes.c_double()
+    capacity = img.size * 2 + 4096  # a first guess; when it is short the encoder says what it needs
+    while True:
+        out = np.empty(capacity, dtype=np.uint8)
+        n = lib.sr_j2k_encode(img.ctypes.data, height, width, channels, int(compression_x1000), len(head) + 8,
+                              out.ctypes.data, capacity, counts.ctypes.data, ctypes.byref(threshold))
+        if n != -1:
+            break
+        capacity = int(counts[ENCODER_STATS.index("packet_bytes")]) + 4096
+    if n < 0:
+        raise ValueError(f"JPEG 2000 encoding failed (code {n}).")
+    if stats is not None:
+        stats.update(zip(ENCODER_STATS, (int(v) for v in counts)))
+        stats["passes_cut"] = stats["passes"] - stats["passes_kept"]
+        stats["threshold"] = threshold.value
+    return head + struct.pack(">I4s", 8 + n, b"jp2c") + out[:n].tobytes()

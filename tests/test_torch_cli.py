@@ -20,11 +20,13 @@ from super_resolution_tpu.cli import super_resolve as j_super_resolve
 from super_resolution_tpu.cli import visualize_image as j_visualize_image
 from super_resolution_tpu.utils import visualization as j_visualization
 from super_resolution_tpu.spectral.envi import HyperspectralDataLoader as JLoader
+from super_resolution_tpu.utils.data_loader import load_image as j_load_image
 
 from super_resolution_tpu_torch.cli import generate_data, shift_add_fusion, super_resolve, visualize_image
 from super_resolution_tpu_torch.image import ImageData
 from super_resolution_tpu_torch.spectral.envi import HyperspectralDataLoader
 from super_resolution_tpu_torch.utils import visualization
+from super_resolution_tpu_torch.utils.data_loader import load_image
 from super_resolution_tpu_torch.utils.image_io import write_image
 
 PORT = ["--device", "cpu", "--dtype", "float64"]
@@ -207,6 +209,43 @@ def test_generate_data_then_shift_add_fusion(files, tmp_path):
     _run(generate_data.main, ["--input_image", str(files / "cube.bsq.config"), "--save_as",
                               str(tmp_path / "copy.bsq")] + PORT)
     assert os.path.exists(tmp_path / "copy.bsq.hdr")
+
+
+def test_super_resolve_writes_jpeg2000_as_opencv(files, tmp_path):
+    """``--result_path out.jp2``: the port writes the bytes ``cv2.imencode(".jp2", ...)`` gives for its own
+    result (the same run's PNG holds its pixels); the JAX CLI's ``.jp2`` result reads to the same array through
+    both loaders."""
+    argv = ["--data_path", str(files / "grey.png"), "--generate_lr_images", "--motion_sequence_path",
+            str(files / "shifts.txt"), *SMALL]
+    for name in ("port.jp2", "port.png"):
+        _run(super_resolve.main, argv + ["--result_path", str(tmp_path / name)] + PORT)
+    _run(j_super_resolve.main, argv + ["--result_path", str(tmp_path / "jax.jp2")])
+    pixels = cv2.imread(str(tmp_path / "port.png"), cv2.IMREAD_UNCHANGED)
+    assert pixels.shape == (32, 32)
+    assert (tmp_path / "port.jp2").read_bytes() == cv2.imencode(".jp2", pixels)[1].tobytes()
+    theirs = np.asarray(j_load_image(str(tmp_path / "jax.jp2")).hidden_array)
+    np.testing.assert_array_equal(load_image(str(tmp_path / "jax.jp2"), device="cpu",
+                                             dtype=torch.float64).hidden_array.numpy(), theirs)
+
+
+def test_generate_data_writes_jpeg2000_frames_as_the_jax_cli(files, tmp_path):
+    """``generate_data --output_extension jp2``: where the uint8 frames agree (their PNGs are equal), the
+    port's ``.jp2`` frames are the JAX CLI's files byte for byte."""
+    hr = tmp_path / "hr.png"
+    write_image(str(hr), (_scene(64, 72, 1, 5) * 255).astype(np.uint8))
+    for side, gen, extra in (("jax", j_generate_data, []), ("port", generate_data, PORT)):
+        for ext in ("png", "jp2"):
+            _run(gen.main, ["--input_image", str(hr), "--output_image_dir", str(tmp_path / f"{side}_{ext}"),
+                            "--blur_radius", "0", "--motion_sequence_path", str(files / "shifts.txt"),
+                            "--output_extension", ext] + extra)
+    for i in range(4):
+        name = f"low_res_{i}"
+        ours = cv2.imread(str(tmp_path / "port_png" / f"{name}.png"), cv2.IMREAD_UNCHANGED)
+        assert ours.shape == (32, 36)
+        np.testing.assert_array_equal(ours, cv2.imread(str(tmp_path / "jax_png" / f"{name}.png"),
+                                                       cv2.IMREAD_UNCHANGED))
+        assert ((tmp_path / "port_jp2" / f"{name}.jp2").read_bytes()
+                == (tmp_path / "jax_jp2" / f"{name}.jp2").read_bytes())
 
 
 def test_visualize_image_headless(files, tmp_path, monkeypatch):

@@ -1,8 +1,8 @@
 """The format fixtures of ``tests/data_torch/formats`` (made here by
 ``scripts/make_torch_format_fixtures.py`` with OpenCV; ``chip_smoke.py``
 phase 14 reads them on a host without OpenCV): each file decodes
-array-equal to OpenCV's decode stored beside it, and the port's JPEG and
-TIFF of each seeded image are byte-equal to OpenCV's."""
+array-equal to OpenCV's decode stored beside it, and the port's JPEG, TIFF
+and JPEG 2000 of each seeded image are byte-equal to OpenCV's."""
 
 import json
 import os
@@ -13,6 +13,7 @@ import pytest
 
 from super_resolution_tpu_torch.utils.image_io import read_image
 from super_resolution_tpu_torch.utils.jpeg import encode_jpeg
+from super_resolution_tpu_torch.utils.jpeg2000 import encode_jpeg2000
 from super_resolution_tpu_torch.utils.tiff import write_tiff
 
 DIR = os.path.join(os.path.dirname(__file__), "data_torch", "formats")
@@ -36,11 +37,19 @@ def test_decode_fixture(entry):
         np.testing.assert_array_equal(read_image(os.path.join(DIR, entry["expected"])), stored)
 
 
-@pytest.mark.parametrize("entry", MANIFEST["encode"], ids=lambda e: e["jpeg"])
+@pytest.mark.parametrize("entry", MANIFEST["encode"], ids=lambda e: e.get("jpeg", e["jp2"]))
 def test_encode_fixture(entry):
     raw = np.random.PCG64(entry["seed"]).random_raw(int(np.prod(entry["shape"])))
     image = (raw >> np.uint64(56)).astype(np.uint8).reshape(entry["shape"])
-    for name, encode in ((entry["jpeg"], encode_jpeg), (entry["tiff"], write_tiff)):
+    for key, encode in (("jpeg", encode_jpeg), ("tiff", write_tiff), ("jp2", encode_jpeg2000)):
+        if key not in entry:
+            continue
+        name = entry[key]
         with open(os.path.join(DIR, name), "rb") as f:
-            assert encode(image) == f.read(), name
+            stored = f.read()
+        assert encode(image) == stored, name
         np.testing.assert_array_equal(read_image(os.path.join(DIR, name)) if name.endswith(".tif") else image, image)
+        if key == "jp2":  # lossy: the stored file is today's OpenCV's, and reads back to OpenCV's decode of it
+            assert cv2.imencode(".jp2", image)[1].tobytes() == stored, name
+            np.testing.assert_array_equal(read_image(os.path.join(DIR, name)),
+                                          cv2.imread(os.path.join(DIR, name), cv2.IMREAD_UNCHANGED))

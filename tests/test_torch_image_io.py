@@ -228,12 +228,12 @@ def test_bmp_write_reads_back_in_opencv(tmp_path, shape):
 @pytest.mark.parametrize("ext,name", [(".jpg", "JPEG"), (".jpeg", "JPEG"), (".tif", "TIFF"), (".tiff", "TIFF"),
                                       (".gif", "GIF"), (".jp2", "JPEG 2000"), (".webp", "WebP")])
 def test_other_formats_against_opencv(tmp_path, ext, name):
-    """Every extension the JAX loader hands to OpenCV: JPEG and TIFF are read
-    and written as the JAX loader does (the port's file is OpenCV's, and the
-    JAX loader reads it back); WebP is read as it does and written losslessly
-    (the port's bytes are its own; both files decode to the same pixels); GIF
-    and JPEG 2000 are read as it does, and writing them raises naming the
-    format. (OpenCV's JPEG 2000 writer needs 32 pixels a side for its 5
+    """Every extension the JAX loader hands to OpenCV: JPEG, TIFF and JPEG
+    2000 are read and written as the JAX loader does (the port's file is
+    OpenCV's, and the JAX loader reads it back); WebP is read as it does and
+    written losslessly (the port's bytes are its own; both files decode to
+    the same pixels); GIF is read as it does, and writing it raises naming
+    the format. (OpenCV's JPEG 2000 writer needs 32 pixels a side for its 5
     decomposition levels.)"""
     path = str(tmp_path / f"image{ext}")
     shape = (40, 45, 3) if name == "JPEG 2000" else (6, 9, 3)
@@ -241,7 +241,7 @@ def test_other_formats_against_opencv(tmp_path, ext, name):
     assert cv2.imwrite(path, image)
     np.testing.assert_array_equal(load_image(path, **CPU).hidden_array.numpy(),
                                   np.asarray(j_load_image(path).hidden_array))
-    if name in ("GIF", "JPEG 2000"):
+    if name == "GIF":
         with pytest.raises(NotImplementedError, match=f"Writing {name}"):
             image_io.write_image(path, image)
         return
