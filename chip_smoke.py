@@ -146,8 +146,11 @@ width:
   flagship's 4 LR frames written as JPEG 2000 by ``generate_data`` and
   super-resolved from them to a JPEG 2000 result, the estimate bit-equal to
   the same run from PNGs of the same pixels and the result byte-equal to the
-  port's JPEG 2000 of the PNG run's result; host ms to write and read
-  1000x1000 TIFF, JPEG, WebP and JPEG 2000 files.
+  port's JPEG 2000 of the PNG run's result; phase 11's refined RGB run from
+  OpenJPEG's JPEG 2000 of its frames with the rest of Part 1 (the six
+  code-block styles, RGN, POC, PPM / PPT, PIL's cinema profile), the estimate
+  bit-equal to the same run from PNGs of their pixels; host ms to write and
+  read 1000x1000 TIFF, JPEG, WebP and JPEG 2000 files.
 
 Needs one CUDA device, ``nvcc`` and no network. Every phase that fails makes
 the run exit non-zero; nothing falls back to the CPU.
@@ -3989,10 +3992,12 @@ def phase_data_parallel(device, rows, card):
 FORMATS_DIR = os.path.join("tests", "data_torch", "formats")
 FORMAT_REPEATS = 5
 JPEG_RESULT_FLOOR_DB = 40.0
-# Phase 14 (c-4) / (c-5) inputs in FORMATS_DIR (scripts/make_torch_format_fixtures.py): OpenCV's JPEG 2000 of the
-# flagship scene, and PIL's of phase 11 (d)'s 4 RGB LR frames.
+# Phase 14 (c-4) / (c-5) / (c-7) inputs in FORMATS_DIR (scripts/make_torch_format_fixtures.py): OpenCV's JPEG 2000
+# of the flagship scene, PIL's of phase 11 (d)'s 4 RGB LR frames, and OpenJPEG 2.5.4's of the same frames with the
+# rest of Part 1 (code-block styles, RGN, POC, PPM / PPT; frame 3 PIL's cinema profile).
 FLAGSHIP_JP2 = "flagship_scene_1000x1000.jp2"
 RGB_JP2_FRAMES = tuple(f"rgb_lr_frame_{k}_250x250.jp2" for k in range(4))
+RGB_JP2_FEATURE_FRAMES = tuple(f"rgb_lr_frame_{k}_features_250x250.jp2" for k in range(4))
 
 
 def _host_ms(fn, repeats=FORMAT_REPEATS):
@@ -4040,14 +4045,32 @@ def _format_fixtures():
     with open(os.path.join(folder, "manifest.json")) as f:
         manifest = json.load(f)
     decode_ms = {}
+    # What the JPEG 2000 fixtures reach of Part 1, by the decoder's counts.
+    features = {"raw (BYPASS) passes": 0, "one segment a pass (TERMALL)": 0, "RGN": 0, "POC": 0, "PPM / PPT": 0}
     for entry in manifest["decode"]:
         path = os.path.join(folder, entry["file"])
         ours = read_image(path)
-        stored = os.path.join(folder, entry["expected"])
-        expected = np.load(stored) if stored.endswith(".npy") else read_image(stored)
-        check(ours.dtype == expected.dtype and ours.shape == expected.shape and np.array_equal(ours, expected),
-              f"formats (a): {entry['file']} ({entry['what']}) decodes to {ours.dtype} {ours.shape}, not OpenCV's "
-              f"{expected.dtype} {expected.shape} array")
+        if "expected_sha256" in entry:  # OpenCV's decode kept as the SHA-256 of its array
+            digest = hashlib.sha256(np.ascontiguousarray(ours).tobytes()).hexdigest()
+            check(ours.dtype == np.dtype(entry["dtype"]) and list(ours.shape) == entry["shape"]
+                  and digest == entry["expected_sha256"],
+                  f"formats (a): {entry['file']} ({entry['what']}) decodes to {ours.dtype} {ours.shape} hashing to "
+                  f"{digest}, not OpenCV's {entry['dtype']} {entry['shape']} array ({entry['expected_sha256']})")
+        else:
+            stored = os.path.join(folder, entry["expected"])
+            expected = np.load(stored) if stored.endswith(".npy") else read_image(stored)
+            check(ours.dtype == expected.dtype and ours.shape == expected.shape and np.array_equal(ours, expected),
+                  f"formats (a): {entry['file']} ({entry['what']}) decodes to {ours.dtype} {ours.shape}, not OpenCV's "
+                  f"{expected.dtype} {expected.shape} array")
+        if entry["file"].endswith(".jp2"):
+            stats = {}
+            with open(path, "rb") as f:
+                decode_jpeg2000(f.read(), stats)
+            for name, reached in (("raw (BYPASS) passes", stats["raw_passes"]),
+                                  ("one segment a pass (TERMALL)", stats["segments"] == stats["passes"] > 0),
+                                  ("RGN", stats["roi_components"]), ("POC", stats["poc_entries"]),
+                                  ("PPM / PPT", stats["packed_header_bytes"])):
+                features[name] += bool(reached)
         decode_ms[entry["file"]] = _host_ms(lambda: read_image(path))
     encoded = {"jpeg": 0, "tiff": 0, "jp2": 0}
     for entry in manifest["encode"]:
@@ -4076,7 +4099,9 @@ def _format_fixtures():
             check(np.array_equal(decode_jpeg2000(ours), read_image(path)),
                   f"formats (b): the JPEG 2000 of seed {entry['seed']} reads back other pixels than OpenCV's file")
             encoded["jp2"] += 1
-    log(f"      (a) {len(manifest['decode'])} fixtures array-equal to OpenCV's decodes; (b) "
+    check(all(features.values()), f"formats (a): a Part 1 feature group no JPEG 2000 fixture reaches: {features}")
+    log(f"      (a) {len(manifest['decode'])} fixtures array-equal to OpenCV's decodes, JPEG 2000 files among them with "
+        + ", ".join(f"{k} {v}" for k, v in features.items()) + "; (b) "
         f"{len(manifest['encode'])} seeded images: {encoded['jpeg']} JPEG, {encoded['tiff']} TIFF and {encoded['jp2']} "
         "JPEG 2000 byte-equal to OpenCV's files")
     return decode_ms, manifest
@@ -4105,7 +4130,10 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
     frames written as JPEG 2000 by ``generate_data`` on the card, then
     ``super_resolve`` from them and a PNG truth to a JPEG 2000 result, the
     estimate ``torch.equal`` to the run from PNGs of the same pixels and the
-    result the port's JPEG 2000 of that run's result. ``entry_steps``:
+    result the port's JPEG 2000 of that run's result; (c-7) (c-5)'s run from
+    OpenJPEG's JPEG 2000 of the same frames with the rest of Part 1 (code-block
+    styles, RGN, POC, PPM / PPT, PIL's cinema profile; fixtures), its estimate
+    ``torch.equal`` to the run from PNGs of their pixels. ``entry_steps``:
     phase 11's steps (its (d) PSNR is logged beside (c-2)'s)."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
@@ -4368,6 +4396,54 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
             f"{steps['generate_jp2_frames']['seconds']:.3f} / {steps['jp2_frames_to_jp2']['seconds']:.3f} / "
             f"{steps['jp2_frames_pixels_png_to_png']['seconds']:.3f} s ({card})")
 
+        # (c-7) (c-5)'s refined RGB run from OpenJPEG's frames with the rest of Part 1, beside PNGs of their pixels.
+        feature_frames = os.path.join(tmp, "rgb_jp2_feature_frames")
+        feature_png_frames = os.path.join(tmp, "rgb_jp2_feature_png_frames")
+        os.makedirs(feature_frames)
+        os.makedirs(feature_png_frames)
+        read_ms = {}
+        for k, name in enumerate(RGB_JP2_FEATURE_FRAMES):
+            shutil.copyfile(os.path.join(folder, name), os.path.join(feature_frames, f"frame_{k}.jp2"))
+            frame = read_image(os.path.join(folder, name))
+            check(frame.shape == (side // 4, side // 4, 3) and frame.dtype == np.uint8,
+                  f"formats (c-7): {name} reads as {frame.dtype} {frame.shape}")
+            write_image(os.path.join(feature_png_frames, f"frame_{k}.png"), frame)
+            read_ms[k] = decode_ms[name]
+        feature_estimates = {}
+        for label, frames in (("rgb_estimated_jp2_features", feature_frames),
+                              ("rgb_estimated_jp2_features_pixels_png", feature_png_frames)):
+            results[label] = os.path.join(tmp, f"{label}.png")
+            with _saved_results() as saved:
+                text, seconds, counts, sources = _cli_step(
+                    label, super_resolve_cli.main,
+                    rgb_estimated_argv(frames, rgb_truth_png, device) + ["--result_path", results[label]], card,
+                    device, phase="14/14")
+            check(len(saved) == 1, f"formats (c-7) {label}: {len(saved)} results saved")
+            feature_estimates[label] = saved[0]
+            check("Refined motion against the HR estimate" in text,
+                  f"formats (c-7) {label}: the motion was not refined")
+            check(counts["data_term_btv"] > 0, f"formats (c-7) {label}: the BTV kernels (K4) were never launched")
+            check(sources == {"device": counts["data_term_btv"], "host": 0},
+                  f"formats (c-7) {label}: the shifts of {sources['host']} evaluations crossed from the host")
+            scores = _check_psnr(label, text)
+            steps[label] = dict(seconds=seconds, counts=counts, psnr=scores["PSNR score on result"],
+                                upsampled=scores["PSNR score on upsampled"])
+        from_jp2 = feature_estimates["rgb_estimated_jp2_features"]
+        from_png = feature_estimates["rgb_estimated_jp2_features_pixels_png"]
+        check(torch.equal(from_jp2, from_png), "formats (c-7): the estimate from the featured JPEG 2000 frames differs "
+                                               f"from the one from PNG frames (max|diff| "
+                                               f"{float((from_jp2 - from_png).abs().max()):.3e})")
+        run = steps["rgb_estimated_jp2_features"]
+        log(f"      (c-7) refined RGB from {len(RGB_JP2_FEATURE_FRAMES)} JPEG 2000 frames with the rest of Part 1 "
+            f"(OpenJPEG 2.5.4: BYPASS + RESET + TERMALL + RGN + PPM; VSC + PTERM + SEGSYM + PPT; all six styles + POC; "
+            f"PIL's cinema4k-24 with its POC; "
+            f"{sum(os.path.getsize(os.path.join(feature_frames, n)) for n in os.listdir(feature_frames))} bytes) and a "
+            f"PNG truth: estimate torch.equal to the run from PNGs of the same pixels; PSNR {run['psnr']:.4f} dB "
+            f"(upsampled {run['upsampled']:.4f}); K4 {run['counts']['data_term_btv']} a run; walls jp2 / png "
+            f"{run['seconds']:.3f} / {steps['rgb_estimated_jp2_features_pixels_png']['seconds']:.3f} s ({card}); host "
+            f"ms to read each frame, median of {FORMAT_REPEATS}: " + " / ".join(f"{read_ms[k]:.3f}" for k in read_ms)
+            + " (host time on the card's machine)")
+
         # Host ms a 1000x1000 file, written and read (the card's host, not the card).
         rgb = np.ascontiguousarray(ImageData(gt, normalize="never", channel_major=True).visualization_image())
         io_ms, webp_bytes = {}, {}
@@ -4404,7 +4480,8 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
                                            "jp2_frames_to_jp2", "jp2_frames_pixels_png_to_png"))
         if row["row"] == "K4":
             row["launches_formats"] = sum(steps[k]["counts"]["data_term_btv"] for k in
-                                          ("rgb_estimated_jpeg", "rgb_estimated_jp2", "rgb_estimated_jp2_pixels_png"))
+                                          ("rgb_estimated_jpeg", "rgb_estimated_jp2", "rgb_estimated_jp2_pixels_png",
+                                           "rgb_estimated_jp2_features", "rgb_estimated_jp2_features_pixels_png"))
     log(f"[14/14] formats: {time.perf_counter() - t_phase:.1f} s; launches K2 "
         f"{next(r['launches_formats'] for r in rows if r['row'] == 'K2')}, K4 "
         f"{next(r['launches_formats'] for r in rows if r['row'] == 'K4')} (0 plain-version calls)")

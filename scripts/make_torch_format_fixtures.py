@@ -18,9 +18,15 @@ among them the inputs of ``chip_smoke.py`` phase 14 (c-4) -- the flagship
 scene of (c-1), ``synthetic_scene(1, 1000, 1000, seed=2026)``, as
 ``cv2.imwrite`` writes it -- and (c-5) -- the 4 RGB LR frames of phase 11
 (d)'s scene, made here on the CPU by ``chip_smoke.estimated_motion_problem``,
-as PIL writes them. Each
+as PIL writes them -- and the files of the rest of Part 1 from OpenJPEG
+2.5.4's own encoder (PIL's bundled library through ``tests/torch_openjpeg.py``):
+the six code-block styles, RGN, POC in both headers, PPM and PPT (packet
+headers moved out of the tile-parts), PIL's cinema profile; among them the
+inputs of phase 14 (c-7), phase 11 (d)'s 4 frames with those features. Each
 input file comes with OpenCV's decode of it: a PNG for uint8 images (the port's PNG reader is exact), a
-``.npy`` otherwise. The encoding fixtures are OpenCV's JPEG, TIFF and JPEG
+``.npy`` otherwise; (c-7)'s four 250x250 frames with the SHA-256 of OpenCV's
+array instead (``expected_sha256``: their four PNGs would be ~540 kB), which
+``chip_smoke.py`` and the tests hold the port's decode to. The encoding fixtures are OpenCV's JPEG, TIFF and JPEG
 2000 files of images drawn from ``numpy.random.PCG64(seed).random_raw``,
 whose stream numpy keeps stable. ``manifest.json`` lists it all, with the
 SHA-256 of the flagship scene's uint8 pixels (phase 14 (c-6a) regenerates
@@ -139,21 +145,81 @@ def add_jpeg2000(add) -> str:
                           quality_layers=[16, 8, 4], progression="RPCL", precinct_size=(64, 64)),
             f"JPEG 2000 by PIL: LR frame {k} of phase 11 (d)'s RGB scene, 9/7 with the ICT, 3 layers, RPCL, 64x64 "
             "precincts (chip_smoke phase 14 (c-5))")
+    add_openjpeg_features(add, lows)
     # (c-6a) regenerates the flagship scene on the card's host and checks it against this digest first.
     return hashlib.sha256(np.ascontiguousarray(pixels).tobytes()).hexdigest()
+
+
+def add_openjpeg_features(add, lows) -> None:
+    """The rest of Part 1 as OpenJPEG 2.5.4's encoder writes it (see the module docstring); ``lows``: phase 11
+    (d)'s 4 RGB LR frames, for (c-7)."""
+    import torch_openjpeg as oj
+
+    from super_resolution_tpu_torch.image import ImageData
+
+    rgb, grey = scene(37, 53, 3, 30), scene(45, 61, 1, 31)
+    add("openjpeg_all_styles_lossy_37x53.jp2", oj.encode(rgb, mode=63, rates=(40, 10, 4)),
+        "JPEG 2000 by OpenJPEG 2.5.4: the six code-block styles together (BYPASS, RESET, TERMALL, VSC, PTERM, "
+        "SEGSYM), 3 layers (rates 40 / 10 / 4), 5/3 with the RCT")
+    add("openjpeg_rgn_component0_37x53.jp2", oj.encode(rgb, roi=(0, 7), rates=(20, 5)),
+        "JPEG 2000 by OpenJPEG 2.5.4: RGN on component 0, shift 7, in the main header; 2 layers")
+    add("openjpeg_poc_main_and_tile_part_37x53.jp2",
+        oj.split_poc(oj.encode(rgb, rates=(20, 5), pocs=((0, 0, 2, 3, 3, "LRCP", 1), (3, 0, 2, 6, 3, "RPCL", 1)))),
+        "JPEG 2000 by OpenJPEG 2.5.4: two POC entries (resolutions 0-2 LRCP, 3-5 RPCL), the first moved into the "
+        "main header, the second in the tile-part header; 2 layers")
+    add("openjpeg_ppm_two_tiles_45x61.jp2",
+        oj.pack_headers(oj.encode(grey, rates=(20, 5), tiles=(32, 45), sop_eph=True, resolutions=4), "ppm"),
+        "JPEG 2000 by OpenJPEG 2.5.4 with SOP / EPH, its packet headers moved into a PPM segment: two 32x45 tiles, "
+        "2 layers")
+    add("openjpeg_ppt_split_45x61.jp2",
+        oj.pack_headers(oj.encode(grey, rates=(20, 5), mode=oj.BYPASS, sop_eph=True, tile_parts="R"), "ppt", split=2),
+        "JPEG 2000 by OpenJPEG 2.5.4 with SOP / EPH, BYPASS, a tile-part a resolution, each tile-part's packet "
+        "headers moved into two PPT segments")
+    out = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(scene(48, 64, 3, 32)[..., ::-1])).save(out, "JPEG2000",
+                                                                                 cinema_mode="cinema4k-24")
+    add("pil_cinema4k_48x64.jp2", out.getvalue(),
+        "JPEG 2000 by PIL (OpenJPEG 2.5.4): the cinema4k-24 profile, a POC in the tile-part header, TLM, 9/7, CPRL")
+    # (c-7): phase 11 (d)'s frames with every feature group, lossy, 3 layers; frame 3 PIL's cinema profile.
+    bgr = [np.ascontiguousarray(ImageData(low, normalize="never", channel_major=True).visualization_image())
+           for low in lows]
+    rates = (48, 24, 10)
+    frames = [
+        (oj.pack_headers(oj.encode(bgr[0], mode=oj.BYPASS | oj.RESET | oj.TERMALL, rates=rates, roi=(0, 7),
+                                   sop_eph=True), "ppm"),
+         "BYPASS, RESET and TERMALL, RGN on component 0 (shift 7), the packet headers in PPM"),
+        (oj.pack_headers(oj.encode(bgr[1], mode=oj.VSC | oj.PTERM | oj.SEGSYM, rates=rates, sop_eph=True), "ppt",
+                         split=2),
+         "VSC, PTERM and SEGSYM, the packet headers in two PPT segments"),
+        (oj.encode(bgr[2], mode=63, rates=rates, pocs=((0, 0, 3, 3, 3, "LRCP", 1), (3, 0, 3, 6, 3, "RPCL", 1))),
+         "the six code-block styles, two POC entries (resolutions 0-2 LRCP, 3-5 RPCL) in the tile-part header")]
+    for k, (data, what) in enumerate(frames):
+        add(f"rgb_lr_frame_{k}_features_250x250.jp2", data,
+            f"JPEG 2000 by OpenJPEG 2.5.4: LR frame {k} of phase 11 (d)'s RGB scene, 5/3 with the RCT, 3 layers "
+            f"(rates 48 / 24 / 10), {what} (chip_smoke phase 14 (c-7))", digest_only=True)
+    out = io.BytesIO()
+    Image.fromarray(np.ascontiguousarray(bgr[3][..., ::-1])).save(out, "JPEG2000", cinema_mode="cinema4k-24",
+                                                                 quality_mode="dB", quality_layers=[45])
+    add("rgb_lr_frame_3_features_250x250.jp2", out.getvalue(),
+        "JPEG 2000 by PIL (OpenJPEG 2.5.4): LR frame 3 of phase 11 (d)'s RGB scene, the cinema4k-24 profile (its "
+        "POC, TLM, 9/7, CPRL), one layer at 45 dB (chip_smoke phase 14 (c-7))", digest_only=True)
 
 
 def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     decode, encode = [], []
 
-    def add(name, data, what):
+    def add(name, data, what, digest_only=False):
         path = os.path.join(OUT, name)
         with open(path, "wb") as f:
             f.write(data)
         ref = cv2.imread(path, cv2.IMREAD_UNCHANGED)
         assert ref is not None, name
         stem = os.path.splitext(name)[0]
+        if digest_only:
+            decode.append({"file": name, "expected_sha256": hashlib.sha256(np.ascontiguousarray(ref).tobytes())
+                           .hexdigest(), "what": what, "dtype": str(ref.dtype), "shape": list(ref.shape)})
+            return
         if ref.dtype == np.uint8:
             expected = stem + ".decoded.png"
             assert cv2.imwrite(os.path.join(OUT, expected), ref)

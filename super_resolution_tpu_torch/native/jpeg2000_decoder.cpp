@@ -3,16 +3,26 @@
 //
 // Decodes one codestream (SOC .. EOC) into integer component planes the way
 // OpenJPEG 2.5 (the library behind cv2.imread's JPEG 2000 reader) does:
-//   * main and tile-part headers: SIZ, COD / COC, QCD / QCC, SOT / SOD, COM;
-//     TLM / PLM / PLT / CRG are skipped. Any number of tiles, tile-parts in
-//     any order, image and tile offsets.
+//   * main and tile-part headers: SIZ, COD / COC, QCD / QCC, RGN, POC, PPM /
+//     PPT, SOT / SOD, COM; TLM / PLM / PLT / CRG are skipped. Any number of
+//     tiles, tile-parts in any order, image and tile offsets; tiles decoded in
+//     OpenJPEG's order (a tile as soon as its last tile-part by TNsot is read,
+//     the others at EOC in index order), which is the order PPM's packet
+//     headers are read in.
 //   * tier-2: packet headers (tag trees, zero-length packets, inclusion /
-//     zero bit-planes / pass counts / Lblock), SOP and EPH markers, the five
-//     progression orders, any number of layers, precinct partitions.
-//   * tier-1: the MQ decoder and the significance, refinement and cleanup
-//     passes; code-blocks of 4x4 to 64x64 (1024 samples at most); passes cut
-//     by the rate control, reconstructed as OpenJPEG does (a coefficient keeps
-//     one fractional bit: the half of the first undecoded bit-plane).
+//     zero bit-planes / pass counts / Lblock, the codeword segments of each
+//     code-block style), read from the tile data or from the merged PPM / PPT
+//     segments (opj_j2k_merge_ppm / opj_j2k_merge_ppt: by Z index), SOP and
+//     EPH markers, the five progression orders and POC's progression changes
+//     (opj_pi_update_decode_poc: each entry's layers from 0, each packet read
+//     once), any number of layers, precinct partitions.
+//   * tier-1: the MQ decoder, the raw (bypass) decoder and the significance,
+//     refinement and cleanup passes under every code-block style (BYPASS,
+//     RESET, TERMALL, VSC, PTERM, SEGSYM) as opj_t1_decode_cblk decodes them;
+//     code-blocks of 4x4 to 64x64 (1024 samples at most); passes cut by the
+//     rate control, reconstructed as OpenJPEG does (a coefficient keeps one
+//     fractional bit: the half of the first undecoded bit-plane); the RGN
+//     shift (opj_t1_clbl_decode_processor's scaling down of the region).
 //   * dequantisation: reversible (the fractional bit dropped, rounding to
 //     zero) and irreversible scalar derived / expounded with the guard bits.
 //   * inverse DWT: 5/3 in integers; 9/7 in single-precision float in
@@ -20,9 +30,8 @@
 //     then four lifts), rows first, 0 to 32 levels at any size and offset.
 //   * inverse RCT / ICT (the ICT in opj_mct_decode_real's float order), the
 //     DC level shift, lrintf rounding of the float path, clamp to precision.
-// Refused with code -2 and the feature's name: the code-block styles BYPASS,
-// RESET, TERMALL, VSC, PTERM and SEGSYM, POC, PPM / PPT, RGN, HTJ2K (Part 15)
-// and Part 2 extensions.
+// Refused with code -2 and the feature's name: HTJ2K (Part 15) and Part 2
+// extensions.
 //
 // The float path needs IEEE single precision without contraction into fused
 // multiply-adds, as the library's default flags give on x86-64.
@@ -56,7 +65,7 @@ inline int64_t FloorDivPow2(int64_t a, int n) { return a >> n; }
 enum Stat {
   kTiles, kTileParts, kPackets, kEmptyPackets, kSopMarkers, kEphMarkers, kCodeBlocks, kTruncatedBlocks,
   kPasses, kLayers, kReversible, kIrreversible, kRct, kIct, kPrecinctsDefined, kLrcp, kRlcp, kRpcl, kPcrl,
-  kCprl, kNumStats
+  kCprl, kSegments, kRawPasses, kRoiComponents, kPocEntries, kPackedHeaderBytes, kNumStats
 };
 
 // ------------------------------------------------------------------ parameters
@@ -72,6 +81,11 @@ struct Cod {
   CodStyle style;
 };
 
+// One progression order change of POC (the layers always start at 0 when decoding).
+struct Poc {
+  int res0, comp0, layer1, res1, comp1, prog;
+};
+
 struct QStyle {
   int style = 0, guard = 0, n = 0;
   int expn[97] = {}, mant[97] = {};
@@ -85,11 +99,33 @@ struct HeaderSet {
   std::vector<bool> has_coc, has_qcc;
   std::vector<CodStyle> coc;
   std::vector<QStyle> qcc;
+  std::vector<int> roishift;  // RGN's SPrgn per component
+  std::vector<Poc> pocs;      // a tile's start as the main header's (OpenJPEG copies its default tile)
   void Resize(int n) {
     has_coc.assign(n, false);
     has_qcc.assign(n, false);
     coc.resize(n);
     qcc.resize(n);
+    roishift.assign(n, 0);
+  }
+};
+
+// Packed packet headers: the PPM or PPT marker segments by Z index, then merged.
+struct Packed {
+  std::vector<std::vector<uint8_t>> by_z;
+  std::vector<bool> present;
+  std::vector<uint8_t> data;
+  size_t pos = 0;
+  bool any = false;
+  void Add(int z, const uint8_t* p, size_t n, const char* name) {
+    any = true;
+    if (size_t(z) >= by_z.size()) {
+      by_z.resize(size_t(z) + 1);
+      present.resize(size_t(z) + 1, false);
+    }
+    if (present[size_t(z)]) Corrupt(std::string(name) + ": Z index " + std::to_string(z) + " read twice");
+    present[size_t(z)] = true;
+    by_z[size_t(z)].assign(p, p + n);
   }
 };
 
@@ -102,7 +138,8 @@ struct Component {
 struct TileInput {
   HeaderSet header;
   std::vector<uint8_t> data;  // the tile-parts' bodies, in codestream order
-  int parts = 0;
+  bool complete = false;  // its last tile-part by TNsot read
+  Packed ppt;
 };
 
 // ------------------------------------------------------------------ readers
@@ -205,6 +242,35 @@ struct Mqc {
     ct -= 7;
     a = 0x8000;
   }
+  // A raw (bypass) segment, as opj_mqc_raw_init_dec: the same two 0xFF after it.
+  void InitRaw(const uint8_t* data, size_t len) {
+    buf.assign(data, data + len);
+    buf.push_back(0xFF);
+    buf.push_back(0xFF);
+    bp = buf.data();
+    c = 0;
+    ct = 0;
+  }
+  // opj_mqc_raw_decode: a byte after 0xFF holds 7 bits; a byte above 0x8F there
+  // (the end of the segment) is not read, and gives ones.
+  int RawDecode() {
+    if (ct == 0) {
+      if (c == 0xFF) {
+        if (*bp > 0x8F) {
+          c = 0xFF;
+          ct = 8;
+        } else {
+          c = *bp++;
+          ct = 7;
+        }
+      } else {
+        c = *bp++;
+        ct = 8;
+      }
+    }
+    --ct;
+    return int((c >> ct) & 1);
+  }
   void Renorm() {
     do {
       if (ct == 0) ByteIn();
@@ -250,21 +316,54 @@ struct Mqc {
 
 // ------------------------------------------------------------------ tier-1
 
+// The code-block styles of COD / COC's SPcod; PTERM (16) changes nothing when decoding.
+enum : int { kBypass = 1, kReset = 2, kTermAll = 4, kVsc = 8, kSegSym = 32 };
+
+// One codeword segment of a code-block (opj_tcd_seg_t): its passes end with a
+// terminated codeword or the end of the data.
+struct Segment {
+  int maxpasses = 0, passes = 0, newpasses = 0;
+  size_t len = 0, newlen = 0;
+};
+
+// opj_t2_init_seg: at most one pass a segment under TERMALL; under BYPASS 10
+// passes (the 4 most significant bit-planes), then 2 (a raw significance and
+// refinement pass) and 1 (a cleanup pass) in turn; else 109.
+int MaxPasses(int cblksty, const Segment* previous) {
+  if (cblksty & kTermAll) return 1;
+  if (cblksty & kBypass) {
+    if (previous == nullptr) return 10;
+    return previous->maxpasses == 1 || previous->maxpasses == 10 ? 2 : 1;
+  }
+  return 109;
+}
+
 struct CodeBlock {
   int x0, y0, x1, y1;
-  bool included = false;
   int numbps = 0, lblock = 3, passes = 0;
-  std::vector<uint8_t> data;
-  std::vector<int> seg_passes;           // segments of at most 109 passes (one MQ codeword each)
-  std::vector<size_t> seg_len;           // their bytes
-  size_t new_len = 0;                    // bytes this packet brings
+  std::vector<uint8_t> data;     // the segments' bytes, one after another
+  std::vector<Segment> segs;     // none until the code-block is first included
+  int first_new = -1;            // the first segment the packet being read brings passes to
 };
+
+// Marks the coefficient at `f` significant as MarkSignificant does, but under
+// VSC in the first row of a stripe tells the row above nothing (the stripe
+// above never sees the one below: opj_t1_update_flags with vsc).
+inline void MarkSignificantCausal(uint32_t* f, int fw, bool neg) {
+  *f |= kSig;
+  f[-1] |= kE | (neg ? uint32_t(kENeg) : 0u);
+  f[1] |= kW | (neg ? uint32_t(kWNeg) : 0u);
+  f[fw - 1] |= kNe;
+  f[fw] |= kN | (neg ? uint32_t(kNNeg) : 0u);
+  f[fw + 1] |= kNw;
+}
 
 // Decodes one code-block into `out` (w*h coefficients in OpenJPEG's units: two
 // per unit of the quantised value, so the half of the first undecoded plane
-// is kept).
-void DecodeCodeBlock(const CodeBlock& cb, int orient, std::vector<int32_t>& out, std::vector<uint32_t>& flags,
-                     Mqc& mq) {
+// is kept) as opj_t1_decode_cblk, with the RGN shift `roishift` added to its
+// bit-planes. Counts its segments and raw passes into `stats`.
+void DecodeCodeBlock(const CodeBlock& cb, int orient, int cblksty, int roishift, std::vector<int32_t>& out,
+                     std::vector<uint32_t>& flags, Mqc& mq, int64_t* stats) {
   const int w = cb.x1 - cb.x0, h = cb.y1 - cb.y0;
   out.assign(size_t(w) * h, 0);
   if (cb.passes == 0 || w <= 0 || h <= 0) return;
@@ -272,31 +371,49 @@ void DecodeCodeBlock(const CodeBlock& cb, int orient, std::vector<int32_t>& out,
   flags.assign(size_t(fw) * (h + 2), 0);
   const T1Tables& t = Tables();
   const uint8_t* zc = t.zc[orient];
+  const bool vsc = cblksty & kVsc;
+  bool raw = false;
   auto F = [&](int x, int y) -> uint32_t& { return flags[size_t(y + 1) * fw + x + 1]; };
-  auto MakeSignificant = [&](int x, int y, bool neg) { MarkSignificant(&F(x, y), fw, neg); };
+  auto MakeSignificant = [&](int x, int y, bool neg) {
+    if (vsc && (y & 3) == 0) {
+      MarkSignificantCausal(&F(x, y), fw, neg);
+    } else {
+      MarkSignificant(&F(x, y), fw, neg);
+    }
+  };
   auto DecodeSign = [&](uint32_t f) {
+    if (raw) return bool(mq.RawDecode());
     int s = t.sc[SignContextIndex(f)];
     return bool(mq.Decode(s >> 1) ^ (s & 1));
   };
 
-  int bpno = cb.numbps;  // OpenJPEG's bpno_plus_one
-  if (bpno >= 31) Corrupt("a code-block has more than 30 bit-planes");
+  int bpno = roishift + cb.numbps;  // OpenJPEG's bpno_plus_one
   mq.ResetStates();
   int passtype = 2;
   size_t offset = 0;
-  for (size_t seg = 0; seg < cb.seg_passes.size(); ++seg) {
-    if (cb.seg_len[seg] > cb.data.size() - offset) Corrupt("a code-block's segments are longer than its data");
-    mq.Init(cb.data.data() + offset, cb.seg_len[seg]);
-    offset += cb.seg_len[seg];
-    for (int pass = 0; pass < cb.seg_passes[seg] && bpno >= 1; ++pass) {
+  for (const Segment& seg : cb.segs) {
+    if (seg.len > cb.data.size() - offset) Corrupt("a code-block's segments are longer than its data");
+    // Raw where BYPASS is on, below the 4 most significant bit-planes (counted without the RGN shift, as
+    // OpenJPEG counts them), for significance and refinement passes.
+    const bool seg_raw = (cblksty & kBypass) && passtype < 2 && bpno <= cb.numbps - 4;
+    if (seg_raw) {
+      mq.InitRaw(cb.data.data() + offset, seg.len);
+    } else {
+      mq.Init(cb.data.data() + offset, seg.len);
+    }
+    ++stats[kSegments];
+    offset += seg.len;
+    for (int pass = 0; pass < seg.passes && bpno >= 1; ++pass) {
       const int32_t one = int32_t(1) << bpno, half = one >> 1, oneplushalf = one | half;
+      raw = seg_raw && passtype < 2;  // a cleanup pass is always arithmetic-coded
+      if (raw) ++stats[kRawPasses];
       if (passtype == 0) {  // significance propagation
         for (int k = 0; k < h; k += 4)
           for (int x = 0; x < w; ++x)
             for (int y = k; y < std::min(k + 4, h); ++y) {
               uint32_t& f = F(x, y);
               if ((f & kSig) || !(f & kNeighbours)) continue;
-              if (mq.Decode(zc[f & kNeighbours])) {
+              if (raw ? mq.RawDecode() : mq.Decode(zc[f & kNeighbours])) {
                 bool neg = DecodeSign(f);
                 out[size_t(y) * w + x] = neg ? -oneplushalf : oneplushalf;
                 MakeSignificant(x, y, neg);
@@ -309,8 +426,12 @@ void DecodeCodeBlock(const CodeBlock& cb, int orient, std::vector<int32_t>& out,
             for (int y = k; y < std::min(k + 4, h); ++y) {
               uint32_t& f = F(x, y);
               if ((f & (kSig | kVisit)) != kSig) continue;
-              int ctx = (f & kRefined) ? kCtxMag + 2 : (f & kNeighbours) ? kCtxMag + 1 : kCtxMag;
-              int v = mq.Decode(ctx);
+              int v;
+              if (raw) {
+                v = mq.RawDecode();
+              } else {
+                v = mq.Decode((f & kRefined) ? kCtxMag + 2 : (f & kNeighbours) ? kCtxMag + 1 : kCtxMag);
+              }
               int32_t& d = out[size_t(y) * w + x];
               d += (v ^ (d < 0)) ? half : -half;
               f |= kRefined;
@@ -345,7 +466,11 @@ void DecodeCodeBlock(const CodeBlock& cb, int orient, std::vector<int32_t>& out,
           }
         for (int y = 0; y < h; ++y)
           for (int x = 0; x < w; ++x) F(x, y) &= ~kVisit;
+        if (cblksty & kSegSym) {  // four UNIFORM symbols, 0xA when intact (OpenJPEG does not check them)
+          for (int i = 0; i < 4; ++i) mq.Decode(kCtxUni);
+        }
       }
+      if ((cblksty & kReset) && !seg_raw) mq.ResetStates();
       if (++passtype == 3) {
         passtype = 0;
         --bpno;
@@ -380,6 +505,7 @@ struct Resolution {
 
 struct TileComp {
   int x0, y0, x1, y1;
+  int roishift = 0;
   CodStyle style;
   QStyle quant;
   std::vector<Resolution> res;
@@ -426,11 +552,13 @@ void Idwt97Line(float* x, int len, int cas) {
   lift(1 - cas, 1.586134342f);   // alpha
 }
 
+// The synthesis up to resolution `resolutions` - 1, in the top left of the
+// tile-component's buffer (opj_dwt_decode with fewer resolutions).
 template <typename T, typename Line>
-void InverseDwt(TileComp& tc, std::vector<T>& data, Line line) {
+void InverseDwt(TileComp& tc, std::vector<T>& data, Line line, int resolutions) {
   const int w = tc.x1 - tc.x0;
   std::vector<T> tmp;
-  for (size_t r = 1; r < tc.res.size(); ++r) {
+  for (size_t r = 1; r < size_t(resolutions); ++r) {
     const Resolution& lo = tc.res[r - 1];
     const Resolution& cur = tc.res[r];
     const int rw = cur.x1 - cur.x0, rh = cur.y1 - cur.y0;
@@ -467,6 +595,11 @@ struct Decoder {
   int numtx = 0, numty = 0;
   HeaderSet main;
   std::vector<TileInput> tiles;
+  std::vector<int> completed;  // tiles in the order their last tile-part (by TNsot) was read
+  // Per component the highest resolution a packet of the tile being decoded
+  // was read for (OpenJPEG's resno_decoded): a POC may leave resolutions out.
+  std::vector<int> resno_decoded;
+  Packed ppm;
   size_t first_sot = 0;
 
   int NumComps() const { return int(comps.size()); }
@@ -504,6 +637,7 @@ struct Decoder {
     numty = int(CeilDiv(int64_t(ysiz) - ytosiz, ytsiz));
     if (int64_t(numtx) * numty > 65535) Corrupt("SIZ: more than 65535 tiles");
     main.Resize(n);
+    resno_decoded.assign(size_t(n), 0);
   }
 
   static std::string Hex(int v) {
@@ -520,13 +654,8 @@ struct Decoder {
     s.ycb = r.U8() + 2;
     if (s.xcb > 10 || s.ycb > 10 || s.xcb + s.ycb > 12) Corrupt("COD/COC: invalid code-block size");
     s.cblksty = r.U8();
-    static const char* kStyles[] = {"BYPASS (selective arithmetic coding bypass)", "RESET (context reset each pass)",
-                                    "TERMALL (termination on each pass)", "VSC (vertically causal context)",
-                                    "PTERM (predictable termination)", "SEGSYM (segmentation symbols)"};
     if (s.cblksty & 0x40) Unsupported("HTJ2K (Part 15) high-throughput code-blocks");
     if (s.cblksty & 0x80) Unsupported("Part 2 extensions (code-block style 0x" + Hex(s.cblksty) + ")");
-    for (int b = 0; b < 6; ++b)
-      if (s.cblksty & (1 << b)) Unsupported(std::string("the code-block style ") + kStyles[b]);
     s.transform = r.U8();
     if (s.transform > 1) Unsupported("Part 2 extensions (arbitrary wavelet transform " + std::to_string(s.transform) + ")");
     for (int i = 0; i <= s.levels; ++i) {
@@ -568,14 +697,32 @@ struct Decoder {
       }
   }
 
-  int ReadComponentIndex(Reader& r) {
+  int ReadComponentIndex(Reader& r, const char* marker = "COC/QCC") {
     int c = NumComps() < 257 ? r.U8() : r.U16();
-    if (c >= NumComps()) Corrupt("COC/QCC: component index out of range");
+    if (c >= NumComps()) Corrupt(std::string(marker) + ": component index out of range");
     return c;
   }
 
-  // One marker segment of a main or tile-part header.
-  void ReadSegment(Reader& r, int marker, HeaderSet& hs) {
+  // POC (opj_j2k_read_poc): entries appended to the header's; LYEpoc clamped to
+  // the layers known when it is read, CEpoc to the components.
+  void ReadPoc(Reader& r, size_t size, HeaderSet& hs, int layers) {
+    const size_t room = NumComps() <= 256 ? 1 : 2, chunk = 5 + 2 * room;
+    if (size == 0 || size % chunk != 0) Corrupt("POC: invalid length");
+    if (hs.pocs.size() + size / chunk >= 32) Corrupt("POC: more than 31 progression order changes");
+    for (size_t i = 0; i < size / chunk; ++i) {
+      Poc p;
+      p.res0 = r.U8();
+      p.comp0 = room == 1 ? r.U8() : r.U16();
+      p.layer1 = std::min(r.U16(), layers);
+      p.res1 = r.U8();
+      p.comp1 = std::min(room == 1 ? r.U8() : r.U16(), NumComps());
+      p.prog = r.U8();
+      hs.pocs.push_back(p);
+    }
+  }
+
+  // One marker segment of the main header (`tile` null) or of a tile-part header.
+  void ReadSegment(Reader& r, int marker, HeaderSet& hs, TileInput* tile = nullptr) {
     const size_t len = size_t(r.U16());
     if (len < 2) Corrupt("a marker segment shorter than its length field");
     r.Need(len - 2);
@@ -611,14 +758,33 @@ struct Decoder {
         ReadQuant(r, end, hs.qcc[size_t(c)]);
         break;
       }
-      case 0xFF5E:
-        Unsupported("region of interest (RGN)");
-      case 0xFF5F:
-        Unsupported("progression order changes (POC)");
-      case 0xFF60:
-        Unsupported("packed packet headers (PPM)");
-      case 0xFF61:
-        Unsupported("packed packet headers (PPT)");
+      case 0xFF5E: {  // RGN (opj_j2k_read_rgn: Srgn is not checked)
+        if (len - 2 != (NumComps() <= 256 ? 3u : 4u)) Corrupt("RGN: invalid length");
+        const int c = ReadComponentIndex(r, "RGN");
+        r.U8();  // Srgn
+        hs.roishift[size_t(c)] = r.U8();
+        break;
+      }
+      case 0xFF5F:  // POC
+        ReadPoc(r, len - 2, hs, hs.has_cod ? hs.cod.layers : tile ? main.cod.layers : 0);
+        break;
+      case 0xFF60:  // PPM: the main header only
+        if (tile) Corrupt("a PPM marker in a tile-part header");
+        if (len - 2 < 2) Corrupt("PPM: invalid length");
+        {
+          const int z = r.U8();
+          ppm.Add(z, data + r.pos, end - r.pos, "PPM");
+        }
+        break;
+      case 0xFF61:  // PPT: tile-part headers only, and not beside PPM
+        if (!tile) Corrupt("a PPT marker in the main header");
+        if (ppm.any) Corrupt("a PPT marker where the main header has PPM");
+        if (len - 2 < 2) Corrupt("PPT: invalid length");
+        {
+          const int z = r.U8();
+          tile->ppt.Add(z, data + r.pos, end - r.pos, "PPT");
+        }
+        break;
       case 0xFF50:
         Unsupported("HTJ2K (Part 15) codestreams (CAP)");
       case 0xFF70: case 0xFF71: case 0xFF72: case 0xFF73: case 0xFF74: case 0xFF75: case 0xFF76: case 0xFF77:
@@ -652,11 +818,49 @@ struct Decoder {
     }
     if (!main.has_cod) Corrupt("no COD marker in the main header");
     if (!main.has_qcd) Corrupt("no QCD marker in the main header");
+    MergePpm();
+  }
+
+  // opj_j2k_merge_ppm: the PPM segments in Z order, each Nppm field dropped (a
+  // tile-part's headers may run on into the next segment); the headers are
+  // then read one after another, whatever tile-part an Nppm named.
+  void MergePpm() {
+    if (!ppm.any) return;
+    size_t remaining = 0;
+    for (size_t z = 0; z < ppm.by_z.size(); ++z) {
+      if (!ppm.present[z]) continue;
+      const std::vector<uint8_t>& seg = ppm.by_z[z];
+      size_t pos = std::min(remaining, seg.size());
+      ppm.data.insert(ppm.data.end(), seg.begin(), seg.begin() + long(pos));
+      remaining -= pos;
+      while (pos < seg.size()) {
+        if (seg.size() - pos < 4) Corrupt("PPM: not enough bytes to read Nppm");
+        const size_t n = (size_t(seg[pos]) << 24) | (size_t(seg[pos + 1]) << 16) | (size_t(seg[pos + 2]) << 8) |
+                         seg[pos + 3];
+        pos += 4;
+        const size_t take = std::min(n, seg.size() - pos);
+        ppm.data.insert(ppm.data.end(), seg.begin() + long(pos), seg.begin() + long(pos + take));
+        pos += take;
+        remaining = n - take;
+      }
+    }
+    if (remaining != 0) Corrupt("PPM: the headers are shorter than their Nppm");
+    stats[kPackedHeaderBytes] += int64_t(ppm.data.size());
+  }
+
+  // opj_j2k_merge_ppt: a tile's PPT segments (over all its tile-parts) in Z order.
+  static void MergePpt(Packed& ppt) {
+    for (size_t z = 0; z < ppt.by_z.size(); ++z)
+      if (ppt.present[z]) ppt.data.insert(ppt.data.end(), ppt.by_z[z].begin(), ppt.by_z[z].end());
   }
 
   void ReadTileParts() {
     tiles.assign(size_t(numtx) * numty, TileInput{});
-    for (auto& t : tiles) t.header.Resize(NumComps());
+    for (auto& t : tiles) {
+      t.header.Resize(NumComps());
+      t.header.roishift = main.roishift;  // OpenJPEG starts each tile from the main header's RGN and POC
+      t.header.pocs = main.pocs;
+    }
     Reader r{data, size};
     r.pos = first_sot;
     for (;;) {
@@ -667,15 +871,19 @@ struct Decoder {
       if (r.U16() != 10) Corrupt("SOT: invalid length");
       int isot = r.U16();
       uint32_t psot = r.U32();
-      r.U8();  // TPsot
-      r.U8();  // TNsot
+      const int tpsot = r.U8();
+      const int tnsot = r.U8();
       if (isot >= int(tiles.size())) Corrupt("SOT: tile index out of range");
       TileInput& tile = tiles[size_t(isot)];
       for (;;) {
         int m = r.U16();
         if (m == 0xFF93) break;
         if ((m >> 8) != 0xFF) Corrupt("expected a marker in a tile-part header");
-        ReadSegment(r, m, tile.header);
+        ReadSegment(r, m, tile.header, &tile);
+      }
+      if (tnsot != 0 && tpsot + 1 == tnsot && !tile.complete) {
+        tile.complete = true;
+        completed.push_back(isot);
       }
       size_t end;
       if (psot == 0) {
@@ -686,7 +894,6 @@ struct Decoder {
         if (end > size || end < r.pos) Corrupt("the codestream is truncated: a tile-part is longer than the data");
       }
       tile.data.insert(tile.data.end(), data + r.pos, data + end);
-      ++tile.parts;
       ++stats[kTileParts];
       r.pos = end;
     }
@@ -808,8 +1015,10 @@ struct Decoder {
   }
 
   // Reads one packet at `pos` of the tile data; returns the position after it.
+  // The header comes from `packed` (PPM / PPT, from its `pos` on) where there
+  // is one: then SOP stays in the tile data and EPH follows the header.
   size_t ReadPacket(const std::vector<uint8_t>& td, size_t pos, Resolution& res, int precinct, int layer,
-                    bool sop, bool eph) {
+                    bool sop, bool eph, int cblksty, Packed* packed) {
     ++stats[kPackets];
     const uint8_t* base = td.data();
     const size_t n = td.size();
@@ -817,15 +1026,28 @@ struct Decoder {
       pos += 6;
       ++stats[kSopMarkers];
     }
-    BitReader bio(base + pos, base + n);
-    std::vector<PrecinctBand>& bands = res.precincts[size_t(precinct)];
-    if (!bio.Bit()) {
+    const uint8_t* head = packed ? packed->data.data() : base;
+    const size_t head_end = packed ? packed->data.size() : n;
+    size_t head_pos = packed ? packed->pos : pos;
+    BitReader bio(head + head_pos, head + head_end);
+    auto end_header = [&]() {
       bio.Align();
-      pos += bio.Consumed();
-      if (eph && pos + 2 <= n && base[pos] == 0xFF && base[pos + 1] == 0x92) {
-        pos += 2;
+      head_pos += bio.Consumed();
+      if (eph) {  // required after every packet header (OpenJPEG 2.5 fails the decode without one)
+        if (head_end - head_pos < 2 || head[head_pos] != 0xFF || head[head_pos + 1] != 0x92)
+          Corrupt("a packet header without its EPH marker");
+        head_pos += 2;
         ++stats[kEphMarkers];
       }
+      if (packed) {
+        packed->pos = head_pos;
+      } else {
+        pos = head_pos;
+      }
+    };
+    std::vector<PrecinctBand>& bands = res.precincts[size_t(precinct)];
+    if (!bio.Bit()) {
+      end_header();
       ++stats[kEmptyPackets];
       return pos;
     }
@@ -834,64 +1056,64 @@ struct Decoder {
       PrecinctBand& pb = bands[size_t(b)];
       for (int i = 0; i < pb.cw * pb.ch; ++i) {
         CodeBlock& cb = pb.blocks[size_t(i)];
-        cb.new_len = 0;
-        bool included;
-        if (!cb.included) {
-          included = pb.incl.Decode(bio, i, layer + 1);
-        } else {
-          included = bio.Bit();
-        }
-        if (!included) continue;
-        if (!cb.included) {
+        const bool first = cb.segs.empty();
+        if (!(first ? pb.incl.Decode(bio, i, layer + 1) : bio.Bit())) continue;
+        if (first) {
           int k = 0;
           while (!pb.imsb.Decode(bio, i, k)) ++k;
           cb.numbps = res.bands[b].numbps + 1 - k;
           cb.lblock = 3;
-          cb.included = true;
           ++stats[kCodeBlocks];
         }
         int passes = NumPasses(bio);
         while (bio.Bit()) ++cb.lblock;
-        // Segments of at most 109 passes each carry their own length.
-        while (passes > 0) {
-          if (cb.seg_passes.empty() || cb.seg_passes.back() == 109) {
-            cb.seg_passes.push_back(0);
-            cb.seg_len.push_back(0);
-          }
-          int take = std::min(passes, 109 - cb.seg_passes.back());
-          const int bits = cb.lblock + FloorLog2(take);
+        cb.passes += passes;
+        stats[kPasses] += passes;
+        // The passes fill the last segment, then new ones (opj_t2_init_seg); each segment they reach has a
+        // length of Lblock + floor(log2(its new passes)) bits.
+        if (first) {
+          cb.segs.push_back(Segment{MaxPasses(cblksty, nullptr)});
+        } else if (cb.segs.back().passes == cb.segs.back().maxpasses) {
+          cb.segs.push_back(Segment{MaxPasses(cblksty, &cb.segs.back())});
+        }
+        cb.first_new = int(cb.segs.size()) - 1;
+        for (;;) {
+          Segment& seg = cb.segs.back();
+          seg.newpasses = std::min(seg.maxpasses - seg.passes, passes);
+          const int bits = cb.lblock + FloorLog2(seg.newpasses);
           // OpenJPEG refuses a length field wider than 32 bits.
           if (bits > 32) Corrupt("a code-block's length field has " + std::to_string(bits) + " bits");
-          const size_t len = bio.Read(bits);
-          cb.seg_passes.back() += take;
-          cb.seg_len.back() += len;
-          cb.new_len += len;
-          cb.passes += take;
-          stats[kPasses] += take;
-          passes -= take;
+          seg.newlen = bio.Read(bits);
+          passes -= seg.newpasses;
+          if (passes <= 0) break;
+          cb.segs.push_back(Segment{MaxPasses(cblksty, &seg)});
         }
       }
     }
-    bio.Align();
-    pos += bio.Consumed();
-    if (eph && pos + 2 <= n && base[pos] == 0xFF && base[pos + 1] == 0x92) {
-      pos += 2;
-      ++stats[kEphMarkers];
-    }
+    end_header();
     for (int b = 0; b < res.nbands; ++b) {
       if (res.bands[b].Empty()) continue;
       for (CodeBlock& cb : bands[size_t(b)].blocks) {
-        if (cb.new_len == 0) continue;
-        if (pos > n || cb.new_len > n - pos) Corrupt("a code-block's data runs past its tile");
-        cb.data.insert(cb.data.end(), base + pos, base + pos + cb.new_len);
-        pos += cb.new_len;
-        cb.new_len = 0;
+        if (cb.first_new < 0) continue;
+        for (size_t s = size_t(cb.first_new); s < cb.segs.size(); ++s) {
+          Segment& seg = cb.segs[s];
+          if (pos > n || seg.newlen > n - pos) Corrupt("a code-block's data runs past its tile");
+          cb.data.insert(cb.data.end(), base + pos, base + pos + seg.newlen);
+          pos += seg.newlen;
+          seg.len += seg.newlen;
+          seg.passes += seg.newpasses;
+          seg.newlen = 0;
+          seg.newpasses = 0;
+        }
+        cb.first_new = -1;
       }
     }
     return pos;
   }
 
-  // The packets of one tile, in its progression order (B.12).
+  // The packets of one tile: in its progression order (B.12), or in the
+  // order of its POC entries, each walking its ranges as OpenJPEG's packet
+  // iterators do (opj_pi_next_*), from layer 0, reading each packet once.
   void ReadPackets(TileInput& in, std::vector<TileComp>& tcs, const Cod& cod, int64_t tx0, int64_t ty0,
                    int64_t tx1, int64_t ty1) {
     const int nc = NumComps();
@@ -902,14 +1124,25 @@ struct Decoder {
     }
     const int layers = cod.layers;
     const bool sop = cod.scod & 2, eph = cod.scod & 4;
+    Packed* packed = nullptr;
+    if (ppm.any) {
+      packed = &ppm;
+    } else if (in.ppt.any) {
+      MergePpt(in.ppt);
+      stats[kPackedHeaderBytes] += int64_t(in.ppt.data.size());
+      packed = &in.ppt;
+    }
     std::vector<bool> done(size_t(layers) * maxres * nc * std::max(maxprec, 1), false);
     size_t pos = 0;
     auto packet = [&](int l, int r, int c, int p) {
       size_t index = ((size_t(l) * maxres + r) * nc + c) * size_t(std::max(maxprec, 1)) + p;
       if (done[index]) return;
       done[index] = true;
-      pos = ReadPacket(in.data, pos, tcs[size_t(c)].res[size_t(r)], p, l, sop, eph);
+      pos = ReadPacket(in.data, pos, tcs[size_t(c)].res[size_t(r)], p, l, sop, eph, tcs[size_t(c)].style.cblksty,
+                       packed);
+      resno_decoded[size_t(c)] = std::max(resno_decoded[size_t(c)], r);
     };
+    auto num_res = [&](int c) { return int(tcs[size_t(c)].res.size()); };
     // The precinct of component c, resolution r at grid point (x, y), or -1 (opj_pi_next_rpcl's tests).
     auto precinct_at = [&](int c, int r, int64_t x, int64_t y) -> int {
       const TileComp& tc = tcs[size_t(c)];
@@ -944,71 +1177,84 @@ struct Decoder {
       }
     };
     ++stats[kLrcp + cod.prog];
-    switch (cod.prog) {
-      case 0:  // LRCP
-        for (int l = 0; l < layers; ++l)
-          for (int r = 0; r < maxres; ++r)
-            for (int c = 0; c < nc; ++c)
-              if (r < int(tcs[size_t(c)].res.size())) {
-                const Resolution& res = tcs[size_t(c)].res[size_t(r)];
-                for (int p = 0; p < res.pw * res.ph; ++p) packet(l, r, c, p);
-              }
-        break;
-      case 1:  // RLCP
-        for (int r = 0; r < maxres; ++r)
-          for (int l = 0; l < layers; ++l)
-            for (int c = 0; c < nc; ++c)
-              if (r < int(tcs[size_t(c)].res.size())) {
-                const Resolution& res = tcs[size_t(c)].res[size_t(r)];
-                for (int p = 0; p < res.pw * res.ph; ++p) packet(l, r, c, p);
-              }
-        break;
-      case 2: {  // RPCL
-        int64_t dx, dy;
-        steps(0, nc, dx, dy);
-        for (int r = 0; r < maxres; ++r)
-          for (int64_t y = ty0; y < ty1; y += dy - (y % dy))
-            for (int64_t x = tx0; x < tx1; x += dx - (x % dx))
-              for (int c = 0; c < nc; ++c) {
-                int p = precinct_at(c, r, x, y);
-                if (p < 0) continue;
-                for (int l = 0; l < layers; ++l) packet(l, r, c, p);
-              }
-        break;
-      }
-      case 3: {  // PCRL
-        int64_t dx, dy;
-        steps(0, nc, dx, dy);
-        for (int64_t y = ty0; y < ty1; y += dy - (y % dy))
-          for (int64_t x = tx0; x < tx1; x += dx - (x % dx))
-            for (int c = 0; c < nc; ++c)
-              for (int r = 0; r < int(tcs[size_t(c)].res.size()); ++r) {
-                int p = precinct_at(c, r, x, y);
-                if (p < 0) continue;
-                for (int l = 0; l < layers; ++l) packet(l, r, c, p);
-              }
-        break;
-      }
-      default: {  // CPRL
-        for (int c = 0; c < nc; ++c) {
+    std::vector<Poc> entries = in.header.pocs;
+    if (entries.empty()) {
+      entries.push_back(Poc{0, 0, layers, maxres, nc, cod.prog});
+    } else {
+      stats[kPocEntries] += int64_t(entries.size());
+    }
+    for (const Poc& e : entries) {
+      const int l1 = std::min(e.layer1, layers), r0 = e.res0, r1 = e.res1, c0 = e.comp0, c1 = e.comp1;
+      if (c0 >= nc) continue;  // opj_pi_next_*: an invalid CSpoc ends the entry
+      switch (e.prog) {
+        case 0:  // LRCP
+          for (int l = 0; l < l1; ++l)
+            for (int r = r0; r < r1; ++r)
+              for (int c = c0; c < c1; ++c)
+                if (r < num_res(c)) {
+                  const Resolution& res = tcs[size_t(c)].res[size_t(r)];
+                  for (int p = 0; p < res.pw * res.ph; ++p) packet(l, r, c, p);
+                }
+          break;
+        case 1:  // RLCP
+          for (int r = r0; r < r1; ++r)
+            for (int l = 0; l < l1; ++l)
+              for (int c = c0; c < c1; ++c)
+                if (r < num_res(c)) {
+                  const Resolution& res = tcs[size_t(c)].res[size_t(r)];
+                  for (int p = 0; p < res.pw * res.ph; ++p) packet(l, r, c, p);
+                }
+          break;
+        case 2: {  // RPCL: the grid of every component
           int64_t dx, dy;
-          steps(c, c + 1, dx, dy);
+          steps(0, nc, dx, dy);
+          if (dx == 0 || dy == 0) break;
+          for (int r = r0; r < r1; ++r)
+            for (int64_t y = ty0; y < ty1; y += dy - (y % dy))
+              for (int64_t x = tx0; x < tx1; x += dx - (x % dx))
+                for (int c = c0; c < c1; ++c) {
+                  int p = precinct_at(c, r, x, y);
+                  if (p < 0) continue;
+                  for (int l = 0; l < l1; ++l) packet(l, r, c, p);
+                }
+          break;
+        }
+        case 3: {  // PCRL: the grid of every component
+          int64_t dx, dy;
+          steps(0, nc, dx, dy);
+          if (dx == 0 || dy == 0) break;
           for (int64_t y = ty0; y < ty1; y += dy - (y % dy))
             for (int64_t x = tx0; x < tx1; x += dx - (x % dx))
-              for (int r = 0; r < int(tcs[size_t(c)].res.size()); ++r) {
-                int p = precinct_at(c, r, x, y);
-                if (p < 0) continue;
-                for (int l = 0; l < layers; ++l) packet(l, r, c, p);
-              }
+              for (int c = c0; c < c1; ++c)
+                for (int r = r0; r < std::min(r1, num_res(c)); ++r) {
+                  int p = precinct_at(c, r, x, y);
+                  if (p < 0) continue;
+                  for (int l = 0; l < l1; ++l) packet(l, r, c, p);
+                }
+          break;
         }
-        break;
+        case 4:  // CPRL: each component's own grid
+          for (int c = c0; c < c1; ++c) {
+            int64_t dx, dy;
+            steps(c, c + 1, dx, dy);
+            if (dx == 0 || dy == 0) break;
+            for (int64_t y = ty0; y < ty1; y += dy - (y % dy))
+              for (int64_t x = tx0; x < tx1; x += dx - (x % dx))
+                for (int r = r0; r < std::min(r1, num_res(c)); ++r) {
+                  int p = precinct_at(c, r, x, y);
+                  if (p < 0) continue;
+                  for (int l = 0; l < l1; ++l) packet(l, r, c, p);
+                }
+          }
+          break;
+        default:  // a progression Part 1 does not define: opj_pi_next reads nothing
+          break;
       }
     }
   }
 
   void DecodeTile(int t, int32_t* out, int64_t plane) {
     TileInput& in = tiles[size_t(t)];
-    if (in.parts == 0) Corrupt("tile " + std::to_string(t) + " has no tile-part");
     ++stats[kTiles];
     const int p = t % numtx, q = t / numtx;
     const int64_t tx0 = std::max<int64_t>(xtosiz + int64_t(p) * xtsiz, xosiz);
@@ -1029,11 +1275,17 @@ struct Decoder {
                  : th.has_qcd          ? th.qcd
                  : main.has_qcc[size_t(c)] ? main.qcc[size_t(c)]
                                            : main.qcd;
+      tc.roishift = th.roishift[size_t(c)];
+      if (tc.roishift) ++stats[kRoiComponents];
       if (tc.style.csty & 1) ++stats[kPrecinctsDefined];
       SetupTileComp(tc, comps[size_t(c)], tx0, ty0, tx1, ty1);
     }
     stats[kLayers] = std::max<int64_t>(stats[kLayers], cod.layers);
+    std::fill(resno_decoded.begin(), resno_decoded.end(), 0);
     ReadPackets(in, tcs, cod, tx0, ty0, tx1, ty1);
+    std::vector<int> decoded(static_cast<size_t>(nc));  // the resolution each component is synthesised to
+    for (int c = 0; c < nc; ++c)
+      decoded[size_t(c)] = std::min(resno_decoded[size_t(c)], int(tcs[size_t(c)].res.size()) - 1);
 
     std::vector<int32_t> coefs;
     std::vector<uint32_t> flags;
@@ -1057,9 +1309,18 @@ struct Decoder {
             if (band.orient & 1) xoff = tc.res[r - 1].x1 - tc.res[r - 1].x0;
             if (band.orient & 2) yoff = tc.res[r - 1].y1 - tc.res[r - 1].y0;
             for (CodeBlock& cb : prec[size_t(b)].blocks) {
+              // opj_t1_decode_cblk fails on every code-block, coded or not, past 30 bit-planes with the RGN shift.
+              if (tc.roishift + cb.numbps >= 31) Corrupt("a code-block has more than 30 bit-planes");
               if (cb.passes == 0) continue;
               if (cb.passes < 3 * cb.numbps - 2) ++stats[kTruncatedBlocks];
-              DecodeCodeBlock(cb, band.orient, coefs, flags, mq);
+              DecodeCodeBlock(cb, band.orient, tc.style.cblksty, tc.roishift, coefs, flags, mq, stats);
+              if (tc.roishift) {  // the region scaled back down: magnitudes at or above 2^roishift (in half units)
+                const int32_t threshold = int32_t(1) << tc.roishift;
+                for (int32_t& v : coefs) {
+                  const int32_t magnitude = v < 0 ? -v : v;
+                  if (magnitude >= threshold) v = v < 0 ? -(magnitude >> tc.roishift) : magnitude >> tc.roishift;
+                }
+              }
               const int cw = cb.x1 - cb.x0, ch = cb.y1 - cb.y0;
               const int x = cb.x0 - band.x0 + xoff, y = cb.y0 - band.y0 + yoff;
               if (reversible) {
@@ -1077,13 +1338,15 @@ struct Decoder {
           }
       }
       if (reversible) {
-        InverseDwt(tc, tc.idata, Idwt53Line);
+        InverseDwt(tc, tc.idata, Idwt53Line, decoded[size_t(c)] + 1);
       } else {
-        InverseDwt(tc, tc.fdata, Idwt97Line);
+        InverseDwt(tc, tc.fdata, Idwt97Line, decoded[size_t(c)] + 1);
       }
     }
 
     if (cod.mct && nc >= 3) {
+      if (decoded[0] != decoded[1] || decoded[0] != decoded[2])
+        Corrupt("a colour transform over components decoded to different resolutions");
       const size_t n = size_t(tcs[0].x1 - tcs[0].x0) * size_t(tcs[0].y1 - tcs[0].y0);
       for (int c = 1; c < 3; ++c)
         if (size_t(tcs[size_t(c)].x1 - tcs[size_t(c)].x0) * size_t(tcs[size_t(c)].y1 - tcs[size_t(c)].y0) != n)
@@ -1117,26 +1380,44 @@ struct Decoder {
       }
     }
 
-    // DC level shift, rounding and clamping, into the output planes.
+    // DC level shift, rounding and clamping of the decoded resolution, into the
+    // output planes where opj_j2k_update_image_data puts it (a resolution below
+    // the full one in the top left of its tile's place, on the full grid).
     for (int c = 0; c < nc; ++c) {
       const TileComp& tc = tcs[size_t(c)];
       const Component& comp = comps[size_t(c)];
-      const int64_t cx0 = CeilDiv(xosiz, comp.dx), cy0 = CeilDiv(yosiz, comp.dy);
-      const int64_t cw = CeilDiv(xsiz, comp.dx) - cx0;
+      const Resolution& res = tc.res[size_t(decoded[size_t(c)])];
+      const int64_t x0d = CeilDiv(xosiz, comp.dx), y0d = CeilDiv(yosiz, comp.dy);
+      const int64_t cw = CeilDiv(xsiz, comp.dx) - x0d, ch = CeilDiv(ysiz, comp.dy) - y0d;
+      int64_t start_x, start_y, off_x, off_y, wd, hd;
+      auto place = [](int64_t d0, int64_t dn, int64_t r0, int64_t r1, int64_t& start, int64_t& off, int64_t& n) {
+        if (d0 < r0) {
+          start = r0 - d0;
+          off = 0;
+          n = d0 + dn >= r1 ? r1 - r0 : d0 + dn - r0;
+        } else {
+          start = 0;
+          off = d0 - r0;
+          n = d0 + dn >= r1 ? r1 - r0 - off : dn;
+        }
+        if (n < 0) Corrupt("a tile outside the image");
+      };
+      place(x0d, cw, res.x0, res.x1, start_x, off_x, wd);
+      place(y0d, ch, res.y0, res.y1, start_y, off_y, hd);
       const int64_t lo = comp.sgnd ? -(int64_t{1} << (comp.prec - 1)) : 0;
       const int64_t hi = comp.sgnd ? (int64_t{1} << (comp.prec - 1)) - 1 : (int64_t{1} << comp.prec) - 1;
       const int64_t shift = comp.sgnd ? 0 : int64_t{1} << (comp.prec - 1);
-      const int w = tc.x1 - tc.x0, h = tc.y1 - tc.y0;
+      const int w = tc.x1 - tc.x0;
       int32_t* dst = out + plane * c;
-      for (int j = 0; j < h; ++j) {
-        int32_t* row = dst + (tc.y0 + j - cy0) * cw + (tc.x0 - cx0);
+      for (int64_t j = 0; j < hd; ++j) {
+        int32_t* row = dst + (start_y + j) * cw + start_x;
+        const size_t src = size_t(off_y + j) * size_t(w) + size_t(off_x);
         if (tc.style.transform == 1) {
-          const int32_t* src = tc.idata.data() + size_t(j) * w;
-          for (int i = 0; i < w; ++i) row[i] = int32_t(std::clamp<int64_t>(int64_t(src[i]) + shift, lo, hi));
+          for (int64_t i = 0; i < wd; ++i)
+            row[i] = int32_t(std::clamp<int64_t>(int64_t(tc.idata[src + size_t(i)]) + shift, lo, hi));
         } else {
-          const float* src = tc.fdata.data() + size_t(j) * w;
-          for (int i = 0; i < w; ++i) {
-            const float v = src[i];
+          for (int64_t i = 0; i < wd; ++i) {
+            const float v = tc.fdata[src + size_t(i)];
             int64_t value;
             if (v > float(INT32_MAX)) {
               value = hi;
@@ -1152,12 +1433,25 @@ struct Decoder {
     }
   }
 
+  // The tiles in OpenJPEG's order: each as soon as its last tile-part is
+  // read (no data there fails the decode: opj_j2k_decode_tile), the rest at
+  // EOC in index order, where a tile without data is passed over and its
+  // place left zero; no tile decoded fails it.
   void DecodeAll(int32_t* out, int64_t plane) {
     ReadTileParts();
-    for (int t = 0; t < int(tiles.size()); ++t) {
+    int decoded = 0;
+    auto decode = [&](int t) {
       DecodeTile(t, out, plane);
       std::vector<uint8_t>().swap(tiles[size_t(t)].data);
+      ++decoded;
+    };
+    for (int t : completed) {
+      if (tiles[size_t(t)].data.empty()) Corrupt("tile " + std::to_string(t) + " has no data");
+      decode(t);
     }
+    for (int t = 0; t < int(tiles.size()); ++t)
+      if (!tiles[size_t(t)].complete && !tiles[size_t(t)].data.empty()) decode(t);
+    if (decoded == 0) Corrupt("no tile has data");
   }
 };
 

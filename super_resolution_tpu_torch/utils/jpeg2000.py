@@ -24,10 +24,14 @@ Where ``cv2.imread`` returns ``None``, :func:`decode_jpeg2000` raises
 ``ValueError`` with OpenCV's reason: 2 or more than 4 components, a
 precision below 8 or above 16 bits, signed or sub-sampled components, an
 image offset, a colour space it does not convert (eYCC, CMYK), and a file
-cut short or otherwise corrupt. Codestream features no writer here produces
-raise ``NotImplementedError`` naming them: the code-block styles BYPASS,
-RESET, TERMALL, VSC, PTERM and SEGSYM, POC, PPM / PPT, RGN, HTJ2K and Part 2
-extensions.
+cut short or otherwise corrupt -- among these what OpenJPEG 2.5 itself fails
+on: a packet header without its EPH marker where COD asks for them, PPM
+beside PPT or a Z index read twice, a code-block past 30 bit-planes with its
+RGN shift, a tile whose last tile-part holds no data, a colour transform over
+components a POC left at different resolutions. All of Part 1 is read: every
+code-block style (BYPASS, RESET, TERMALL, VSC, PTERM, SEGSYM), RGN, POC,
+PPM and PPT. HTJ2K (Part 15) and Part 2 extensions raise
+``NotImplementedError`` naming them.
 
 :func:`encode_jpeg2000` writes a uint8 ``HxW`` or ``HxWx3`` (BGR) image as
 the JP2 file ``cv2.imwrite(path, image)`` writes, byte for byte: OpenCV
@@ -52,7 +56,8 @@ __all__ = ["STATS", "ENCODER_STATS", "decode_jpeg2000", "decode_codestream", "en
 # The counts native/jpeg2000_decoder.cpp keeps over one decode (its Stat order).
 STATS = ("tiles", "tile_parts", "packets", "empty_packets", "sop_markers", "eph_markers", "code_blocks",
          "truncated_blocks", "passes", "layers", "reversible", "irreversible", "rct", "ict", "precincts_defined",
-         "lrcp", "rlcp", "rpcl", "pcrl", "cprl")
+         "lrcp", "rlcp", "rpcl", "pcrl", "cprl", "segments", "raw_passes", "roi_components", "poc_entries",
+         "packed_header_bytes")
 
 # The counts native/jpeg2000_encoder.cpp keeps over one encode (its Stat order): code-blocks, those with
 # no coefficient above zero, coding passes, passes kept in the layer, code-blocks whose passes were cut, the

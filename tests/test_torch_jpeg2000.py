@@ -12,7 +12,10 @@ RGBA, 16 bits), FFmpeg's own ``jpeg2000`` encoder (SOP / EPH markers,
 progressions, tiles, layers, its 5/3 and integer 9/7) through
 ``tests/torch_libav.py``, codestreams wrapped in JP2 boxes written here
 (colour specifications, palettes, channel definitions) and SIZ / COD edits
-(precisions, signed components, the features the reader refuses by name).
+(precisions, signed components, the Part 1 features set by hand, HTJ2K and
+Part 2, which the reader refuses by name). The rest of Part 1 (code-block
+styles, RGN, POC, PPM / PPT) in files OpenJPEG's own encoder writes:
+``tests/test_torch_jpeg2000_features.py``.
 The decoder's counts (the ``stats`` of ``decode_jpeg2000``) show what each file reached. Also: the
 port's loader and ``super_resolve`` from ``.jp2`` frames against the JAX
 package's, which read through OpenCV.
@@ -30,6 +33,7 @@ import torch
 from PIL import Image
 
 import torch_libav
+import torch_openjpeg
 from super_resolution_tpu.cli import super_resolve as j_super_resolve
 from super_resolution_tpu.utils.data_loader import load_image as j_load_image
 from super_resolution_tpu_torch import native
@@ -427,15 +431,37 @@ def _insert_tile_segment(codestream: bytes, segment: bytes) -> bytes:
     return head + segment + codestream[sot + 12:]
 
 
-_REFUSED = {
+# Part 1 features set on a codestream written without them: a code-block style decoding data coded without it,
+# a POC naming component 0 only (the others left unread), an empty PPM / PPT segment (OpenJPEG's error), an RGN
+# shift of 5 on component 0.
+_CRAFTED = {
     "BYPASS": lambda c: _set_cod_byte(c, 12, 0x01), "RESET": lambda c: _set_cod_byte(c, 12, 0x02),
     "TERMALL": lambda c: _set_cod_byte(c, 12, 0x04), "VSC": lambda c: _set_cod_byte(c, 12, 0x08),
     "PTERM": lambda c: _set_cod_byte(c, 12, 0x10), "SEGSYM": lambda c: _set_cod_byte(c, 12, 0x20),
-    "HTJ2K (Part 15) high-throughput": lambda c: _set_cod_byte(c, 12, 0x40),
     "POC": lambda c: _insert_main_segment(c, bytes.fromhex("ff5f000900000001060100")),
     "PPM": lambda c: _insert_main_segment(c, bytes.fromhex("ff60000300")),
     "PPT": lambda c: _insert_tile_segment(c, bytes.fromhex("ff61000300")),
     "RGN": lambda c: _insert_main_segment(c, bytes.fromhex("ff5e0005000005")),
+}
+
+
+@pytest.mark.parametrize("feature", list(_CRAFTED))
+def test_crafted_features_read_as_opencv_reads_them(tmp_path, feature):
+    """The Part 1 features the reader once refused by name, set by hand on PIL's codestream: the port's array
+    equals OpenCV's, or both refuse (the empty PPM / PPT segments)."""
+    data = _CRAFTED[feature](_codestream(_smooth(16, 16, 3, seed=29)))
+    theirs, ours = _compare(tmp_path, data)
+    if theirs is None:
+        assert isinstance(ours, ValueError), ours
+        assert feature in ("PPM", "PPT") and feature in str(ours)
+    else:
+        assert not isinstance(ours, Exception), ours
+        assert ours.dtype == theirs.dtype and ours.shape == theirs.shape
+        np.testing.assert_array_equal(ours, theirs)
+
+
+_REFUSED = {
+    "HTJ2K (Part 15) high-throughput": lambda c: _set_cod_byte(c, 12, 0x40),
     "HTJ2K (Part 15) codestreams (CAP)": lambda c: _insert_main_segment(c, bytes.fromhex("ff500008000200000000")),
     "HTJ2K (Part 15) codestreams": lambda c: c[:6] + b"\x40\x00" + c[8:],
     "Part 2 extensions (Rsiz": lambda c: c[:6] + b"\x80\x00" + c[8:],
@@ -480,18 +506,41 @@ def test_load_image_as_the_jax_loader(tmp_path, channels, writer):
 def test_super_resolve_from_jpeg2000_frames_as_jax(tmp_path):
     """LR frames as JPEG 2000 (OpenCV's rate-limited 5/3 and PIL's 9/7 with layers) and a .jp2 truth: the two
     CLIs print the same PSNR / SSIM to 1e-6."""
+
+    def write(path, k, low):
+        if k % 2:
+            with open(path, "wb") as f:
+                f.write(_pil(low, irreversible=True, quality_layers=[12, 4], num_resolutions=3))
+        else:
+            assert cv2.imwrite(path, low)
+
+    _super_resolve_as_jax(tmp_path, write)
+
+
+def test_super_resolve_from_openjpeg_featured_frames_as_jax(tmp_path):
+    """LR frames OpenJPEG's own encoder writes with all six code-block styles, 3 layers and two POC entries (9/7
+    and 5/3 in turn): the two CLIs print the same PSNR / SSIM to 1e-6."""
+
+    def write(path, k, low):
+        data = torch_openjpeg.encode(low, mode=63, rates=(30, 10, 4), irreversible=bool(k % 2), resolutions=4,
+                                     pocs=((0, 0, 2, 2, 1, "RLCP", 1), (0, 0, 3, 4, 1, "CPRL", 1)))
+        stats = {}
+        decode_jpeg2000(data, stats)
+        assert stats["poc_entries"] == 2 and stats["segments"] == stats["passes"] > 0  # TERMALL: a segment a pass
+        with open(path, "wb") as f:
+            f.write(data)
+
+    _super_resolve_as_jax(tmp_path, write)
+
+
+def _super_resolve_as_jax(tmp_path, write):
     truth = _smooth(64, 64, 1, seed=40)
     frames = tmp_path / "frames"
     frames.mkdir()
     shifts = [(0, 0), (1, 1), (0, 1), (1, 0)]
     for k, (dx, dy) in enumerate(shifts):
         low = np.roll(truth, (-dy, -dx), axis=(0, 1))[::2, ::2]
-        path = str(frames / f"frame_{k}.jp2")
-        if k % 2:
-            with open(path, "wb") as f:
-                f.write(_pil(low, irreversible=True, quality_layers=[12, 4], num_resolutions=3))
-        else:
-            assert cv2.imwrite(path, low)
+        write(str(frames / f"frame_{k}.jp2"), k, low)
     assert cv2.imwrite(str(tmp_path / "truth.jp2"), truth, [cv2.IMWRITE_JPEG2000_COMPRESSION_X1000, 1000])
     (tmp_path / "shifts.txt").write_text("".join(f"{dx} {dy}\n" for dx, dy in shifts))
     argv = ["--data_path", str(frames), "--ground_truth_image", str(tmp_path / "truth.jp2"),
