@@ -3998,6 +3998,9 @@ JPEG_RESULT_FLOOR_DB = 40.0
 FLAGSHIP_JP2 = "flagship_scene_1000x1000.jp2"
 RGB_JP2_FRAMES = tuple(f"rgb_lr_frame_{k}_250x250.jp2" for k in range(4))
 RGB_JP2_FEATURE_FRAMES = tuple(f"rgb_lr_frame_{k}_features_250x250.jp2" for k in range(4))
+# (c-8): GDAL's JPEG-compressed GeoTIFFs of the same frames and of their 1000x1000 scene, tiled 4:2:0 YCbCr.
+RGB_TIFF_FRAMES = tuple(f"rgb_lr_frame_{k}_gdal_jpeg_ycbcr_250x250.tif" for k in range(4))
+RGB_TIFF_TRUTH = "rgb_truth_gdal_jpeg_ycbcr_1000x1000.tif"
 
 
 def _host_ms(fn, repeats=FORMAT_REPEATS):
@@ -4133,8 +4136,12 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
     result the port's JPEG 2000 of that run's result; (c-7) (c-5)'s run from
     OpenJPEG's JPEG 2000 of the same frames with the rest of Part 1 (code-block
     styles, RGN, POC, PPM / PPT, PIL's cinema profile; fixtures), its estimate
-    ``torch.equal`` to the run from PNGs of their pixels. ``entry_steps``:
-    phase 11's steps (its (d) PSNR is logged beside (c-2)'s)."""
+    ``torch.equal`` to the run from PNGs of their pixels; (c-8) (c-5)'s run
+    from GDAL's JPEG-compressed GeoTIFFs of the same frames and of the
+    1000x1000 truth (tiled 4:2:0 YCbCr with JPEGTables; fixtures), its
+    estimate ``torch.equal`` to the run from PNGs of the decoded frames and
+    truth. ``entry_steps``: phase 11's steps (its (d) PSNR is logged beside
+    (c-2)'s)."""
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     for load in (native.get_jpeg_library, native.get_jpeg_encoder_library, native.get_lzw_library,
@@ -4444,6 +4451,58 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
             f"ms to read each frame, median of {FORMAT_REPEATS}: " + " / ".join(f"{read_ms[k]:.3f}" for k in read_ms)
             + " (host time on the card's machine)")
 
+        # (c-8) (c-5)'s refined RGB run from GDAL's JPEG-YCbCr GeoTIFF frames and truth, beside PNGs of their pixels.
+        tiff_frames, tiff_png_frames = os.path.join(tmp, "rgb_tiff_frames"), os.path.join(tmp, "rgb_tiff_png_frames")
+        os.makedirs(tiff_frames)
+        os.makedirs(tiff_png_frames)
+        tiff_read_ms = {}
+        for k, name in enumerate(RGB_TIFF_FRAMES):
+            shutil.copyfile(os.path.join(folder, name), os.path.join(tiff_frames, f"frame_{k}.tif"))
+            frame = read_image(os.path.join(folder, name))
+            check(frame.shape == (side // 4, side // 4, 3) and frame.dtype == np.uint8,
+                  f"formats (c-8): {name} reads as {frame.dtype} {frame.shape}")
+            write_image(os.path.join(tiff_png_frames, f"frame_{k}.png"), frame)
+            tiff_read_ms[name] = decode_ms[name]
+        tiff_truth, tiff_truth_png = os.path.join(folder, RGB_TIFF_TRUTH), os.path.join(tmp, "rgb_tiff_truth.png")
+        truth_pixels = read_image(tiff_truth)
+        check(truth_pixels.shape == (side, side, 3), f"formats (c-8): {RGB_TIFF_TRUTH} reads as {truth_pixels.shape}")
+        write_image(tiff_truth_png, truth_pixels)
+        tiff_read_ms[RGB_TIFF_TRUTH] = decode_ms[RGB_TIFF_TRUTH]
+        tiff_estimates = {}
+        for label, frames, truth_path in (("rgb_estimated_tiff_jpeg", tiff_frames, tiff_truth),
+                                          ("rgb_estimated_tiff_jpeg_pixels_png", tiff_png_frames, tiff_truth_png)):
+            results[label] = os.path.join(tmp, f"{label}.png")
+            with _saved_results() as saved:
+                text, seconds, counts, sources = _cli_step(
+                    label, super_resolve_cli.main,
+                    rgb_estimated_argv(frames, truth_path, device) + ["--result_path", results[label]], card,
+                    device, phase="14/14")
+            check(len(saved) == 1, f"formats (c-8) {label}: {len(saved)} results saved")
+            tiff_estimates[label] = saved[0]
+            check("Refined motion against the HR estimate" in text,
+                  f"formats (c-8) {label}: the motion was not refined")
+            check(counts["data_term_btv"] > 0, f"formats (c-8) {label}: the BTV kernels (K4) were never launched")
+            check(sources == {"device": counts["data_term_btv"], "host": 0},
+                  f"formats (c-8) {label}: the shifts of {sources['host']} evaluations crossed from the host")
+            scores = _check_psnr(label, text)
+            steps[label] = dict(seconds=seconds, counts=counts, psnr=scores["PSNR score on result"],
+                                upsampled=scores["PSNR score on upsampled"])
+        from_tiff = tiff_estimates["rgb_estimated_tiff_jpeg"]
+        from_png = tiff_estimates["rgb_estimated_tiff_jpeg_pixels_png"]
+        check(torch.equal(from_tiff, from_png), "formats (c-8): the estimate from the JPEG-YCbCr GeoTIFF frames "
+                                                f"differs from the one from PNG frames (max|diff| "
+                                                f"{float((from_tiff - from_png).abs().max()):.3e})")
+        run = steps["rgb_estimated_tiff_jpeg"]
+        log(f"      (c-8) refined RGB from {len(RGB_TIFF_FRAMES)} JPEG-compressed GeoTIFF frames (GDAL: tiled 4:2:0 "
+            f"YCbCr, 128 px tiles, JPEGTables, quality 75; "
+            f"{sum(os.path.getsize(os.path.join(tiff_frames, n)) for n in os.listdir(tiff_frames))} bytes) and a "
+            f"{side}x{side} truth the same way in 256 px tiles ({os.path.getsize(tiff_truth)} bytes): estimate "
+            f"torch.equal to the run from PNGs of the same pixels; PSNR against the decoded truth {run['psnr']:.4f} dB "
+            f"(upsampled {run['upsampled']:.4f}); K4 {run['counts']['data_term_btv']} a run; walls tiff / png "
+            f"{run['seconds']:.3f} / {steps['rgb_estimated_tiff_jpeg_pixels_png']['seconds']:.3f} s ({card}); host "
+            f"ms to read each file, median of {FORMAT_REPEATS}: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in tiff_read_ms.items()) + " (host time on the card's machine)")
+
         # Host ms a 1000x1000 file, written and read (the card's host, not the card).
         rgb = np.ascontiguousarray(ImageData(gt, normalize="never", channel_major=True).visualization_image())
         io_ms, webp_bytes = {}, {}
@@ -4481,7 +4540,8 @@ def phase_formats(device, rows, card, entry_steps, side=1000):
         if row["row"] == "K4":
             row["launches_formats"] = sum(steps[k]["counts"]["data_term_btv"] for k in
                                           ("rgb_estimated_jpeg", "rgb_estimated_jp2", "rgb_estimated_jp2_pixels_png",
-                                           "rgb_estimated_jp2_features", "rgb_estimated_jp2_features_pixels_png"))
+                                           "rgb_estimated_jp2_features", "rgb_estimated_jp2_features_pixels_png",
+                                           "rgb_estimated_tiff_jpeg", "rgb_estimated_tiff_jpeg_pixels_png"))
     log(f"[14/14] formats: {time.perf_counter() - t_phase:.1f} s; launches K2 "
         f"{next(r['launches_formats'] for r in rows if r['row'] == 'K2')}, K4 "
         f"{next(r['launches_formats'] for r in rows if r['row'] == 'K4')} (0 plain-version calls)")

@@ -22,10 +22,15 @@ as PIL writes them -- and the files of the rest of Part 1 from OpenJPEG
 2.5.4's own encoder (PIL's bundled library through ``tests/torch_openjpeg.py``):
 the six code-block styles, RGN, POC in both headers, PPM and PPT (packet
 headers moved out of the tile-parts), PIL's cinema profile; among them the
-inputs of phase 14 (c-7), phase 11 (d)'s 4 frames with those features. Each
+inputs of phase 14 (c-7), phase 11 (d)'s 4 frames with those features; and
+the TIFF layouts OpenCV reads through libtiff's RGBA interface, GDAL's
+JPEG-compressed GeoTIFFs among them (``tests/torch_gdal.py``, GDAL 3.6's
+``libgdal.so.32`` through ctypes): phase 14 (c-8)'s inputs, the same 4 frames
+and their 1000x1000 scene as tiled 4:2:0 YCbCr. Each
 input file comes with OpenCV's decode of it: a PNG for uint8 images (the port's PNG reader is exact), a
 ``.npy`` otherwise; (c-7)'s four 250x250 frames with the SHA-256 of OpenCV's
-array instead (``expected_sha256``: their four PNGs would be ~540 kB), which
+array instead (``expected_sha256``: their four PNGs would be ~540 kB), as
+(c-8)'s five files, which
 ``chip_smoke.py`` and the tests hold the port's decode to. The encoding fixtures are OpenCV's JPEG, TIFF and JPEG
 2000 files of images drawn from ``numpy.random.PCG64(seed).random_raw``,
 whose stream numpy keeps stable. ``manifest.json`` lists it all, with the
@@ -205,6 +210,52 @@ def add_openjpeg_features(add, lows) -> None:
         "POC, TLM, 9/7, CPRL), one layer at 45 dB (chip_smoke phase 14 (c-7))", digest_only=True)
 
 
+def add_tiff_rgba(add) -> None:
+    """The TIFF layouts OpenCV reads through libtiff's RGBA interface: GDAL's
+    JPEG-compressed GeoTIFFs (``tests/torch_gdal.py``) -- chip_smoke phase 14
+    (c-8)'s 4 RGB LR frames of phase 11 (d) as tiled 4:2:0 YCbCr (128 px
+    tiles, quality 75) and the scene's 1000x1000 truth the same way in 256 px
+    tiles (edge tiles cropped), kept as the SHA-256 of OpenCV's arrays --, an
+    RGB JPEG file in strips and a bilevel file, and hand-built palette and
+    YCbCr-in-data-units files."""
+    import torch
+    import torch_gdal
+
+    import chip_smoke
+    from super_resolution_tpu_torch.image import ImageData
+    from torch_format_builders import packed_tiff_bytes, ycbcr_tiff_bytes
+
+    def rgb(x):  # the port's BGR uint8 of a channel-major tensor, as R, G, B for GDAL
+        bgr = ImageData(x, normalize="never", channel_major=True).visualization_image()
+        return np.ascontiguousarray(bgr[..., ::-1])
+
+    ycbcr = dict(COMPRESS="JPEG", PHOTOMETRIC="YCBCR", TILED="YES", JPEG_QUALITY=75)
+    gt, lows = chip_smoke.estimated_motion_problem("cpu", side=1000, dtype=torch.float32)
+    for k, low in enumerate(lows):
+        add(f"rgb_lr_frame_{k}_gdal_jpeg_ycbcr_250x250.tif",
+            torch_gdal.write(rgb(low), BLOCKXSIZE=128, BLOCKYSIZE=128, **ycbcr),
+            f"JPEG-compressed GeoTIFF by GDAL: LR frame {k} of phase 11 (d)'s RGB scene, tiled 4:2:0 YCbCr (128 px "
+            "tiles, JPEGTables, quality 75) (chip_smoke phase 14 (c-8))", digest_only=True)
+    add("rgb_truth_gdal_jpeg_ycbcr_1000x1000.tif", torch_gdal.write(rgb(gt), BLOCKXSIZE=256, BLOCKYSIZE=256, **ycbcr),
+        "JPEG-compressed GeoTIFF by GDAL: phase 11 (d)'s 1000x1000 RGB scene, tiled 4:2:0 YCbCr (256 px tiles, the "
+        "last row and column cropped from full frames, quality 75) (chip_smoke phase 14 (c-8))", digest_only=True)
+    add("gdal_jpeg_rgb_strips_37x53.tif", torch_gdal.write(scene(37, 53, 3, 40), COMPRESS="JPEG",
+                                                           BLOCKYSIZE=8),
+        "JPEG-compressed TIFF by GDAL: photometric RGB (no colour transform), strips of 8 rows with JPEGTables")
+    add("gdal_bilevel_packbits_37x53.tif", torch_gdal.write((scene(37, 53, 1, 41) > 127).astype(np.uint8), NBITS=1,
+                                                            COMPRESS="PACKBITS"),
+        "TIFF by GDAL: bilevel (NBITS=1, min-is-black), PackBits, odd width")
+    colormap = seeded_image(42, (3, 16)).astype(np.int64) * 257
+    add("palette_4bit_16bit_map_37x53.tif",
+        packed_tiff_bytes(scene(37, 53, 1, 43) // 16, 4, photometric=3, colormap=colormap, compression=5,
+                          tile=(16, 16)),
+        "TIFF by hand: 4-bit palette, a 16-bit ColorMap, LZW, 16x16 tiles")
+    reference = [(16, 1), (235, 1), (128, 1), (240, 1), (128, 1), (240, 1)]
+    add("ycbcr_2x2_units_37x53.tif",
+        ycbcr_tiff_bytes(scene(37, 53, 3, 44), subsampling=(2, 2), rows_per_strip=8, extra_tags=[(532, 5, reference)]),
+        "TIFF by hand: uncompressed YCbCr in 2x2 data units, video-range ReferenceBlackWhite, strips of 8 rows")
+
+
 def main() -> int:
     os.makedirs(OUT, exist_ok=True)
     decode, encode = [], []
@@ -271,6 +322,7 @@ def main() -> int:
         "WebP by PIL: lossless (VP8L) at its highest effort, 6")
 
     flagship_sha256 = add_jpeg2000(add)
+    add_tiff_rgba(add)
 
     # What cv2.imwrite writes of seeded images: JPEG, TIFF and JPEG 2000 (5/3, one layer cut to OpenCV's
     # default rate); the 32x32 grey (the smallest JPEG 2000 OpenCV writes) and the 256x256 BGR (the rate

@@ -2,8 +2,10 @@
 
 Image extensions load through the port's own codecs
 (:mod:`super_resolution_tpu_torch.utils.image_io`: PNG, BMP, JPEG --
-sequential and progressive --, TIFF, GIF, WebP and JPEG 2000, with what
-``cv2.imread(path, IMREAD_UNCHANGED)`` returns; animated WebP raises
+sequential and progressive --, TIFF -- JPEG-compressed (GDAL's tiled
+YCbCr GeoTIFFs), YCbCr, palette and bilevel files among them --, GIF, WebP
+and JPEG 2000, with what ``cv2.imread(path, IMREAD_UNCHANGED)`` returns;
+animated WebP raises
 ``NotImplementedError``); anything else is an HSI configuration file for the
 ENVI BSQ path (``data_loader.cpp:96-114``). As in the JAX package, an image
 whose values pass 255 (a 16-bit file, say) makes ``ImageData`` raise

@@ -27,8 +27,11 @@ progressive Huffman JPEG read bit-equal to OpenCV's libjpeg-turbo decode;
 written byte-equal to ``cv2.imwrite`` (quality 95, 4:2:0).
 TIFF (:mod:`super_resolution_tpu_torch.utils.tiff`): read as OpenCV's
 libtiff reads it (strips and tiles, chunky and planar, uncompressed, LZW,
-Deflate and PackBits, the three predictors, 8 to 64-bit samples); written as
-``cv2.imwrite`` writes it (LZW, predictor 2).
+Deflate and PackBits, the three predictors, 8 to 64-bit samples; and
+through libtiff's RGBA interface JPEG-compressed files -- GDAL's tiled 4:2:0
+YCbCr GeoTIFFs with shared JPEGTables among them --, YCbCr in data units,
+palette at 1, 4 and 8 bits and bilevel); written as ``cv2.imwrite`` writes
+it (LZW, predictor 2).
 GIF (:mod:`super_resolution_tpu_torch.utils.gif`): the first frame read as
 OpenCV's GIF decoder composes it.
 WebP (:mod:`super_resolution_tpu_torch.utils.webp`): lossless (VP8L) and

@@ -37,7 +37,7 @@ import struct
 
 import numpy as np
 
-__all__ = ["decode_jpeg", "encode_jpeg"]
+__all__ = ["decode_jpeg", "decode_jpeg_frames", "encode_jpeg", "jpeg_coefficients"]
 
 _MESSAGE_BYTES = 256
 
@@ -59,7 +59,7 @@ def _raise(status: int, message) -> None:
     raise ValueError(f"Cannot decode JPEG: {text}.")
 
 
-def _coefficients(data: bytes):
+def jpeg_coefficients(data: bytes):
     """(frame info, [per component int16 ``[blocks_h, blocks_w, 64]`` in natural order])."""
     from super_resolution_tpu_torch import native
 
@@ -118,17 +118,18 @@ def _idct_1d(v, shift):
                                           tmp13 - o0, tmp12 - o1, tmp11 - o2, tmp10 - o3)]
 
 
-def _samples(blocks: np.ndarray, quant) -> np.ndarray:
-    """Quantised coefficients ``[bh, bw, 64]`` -> uint8 samples ``[bh * 8, bw * 8]``."""
-    bh, bw, _ = blocks.shape
-    d = blocks.astype(np.int64).reshape(-1, 8, 8) * np.asarray(quant, dtype=np.int64).reshape(1, 8, 8)
+def _samples(blocks: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """Quantised coefficients ``[n, bh, bw, 64]`` and tables ``[n, 64]`` -> uint8 samples ``[n, bh * 8, bw * 8]``."""
+    n, bh, bw, _ = blocks.shape
+    d = blocks.astype(np.int64).reshape(n, -1, 8, 8) * quant.astype(np.int64).reshape(n, 1, 8, 8)
+    d = d.reshape(-1, 8, 8)
     # Pass 1: columns (vertical frequencies), scaled up by 2**PASS1_BITS.
     ws = np.stack(_idct_1d([d[:, r, :] for r in range(8)], 13 - 2), axis=1)
     # Pass 2: rows, descaled by 2**(CONST_BITS + PASS1_BITS + 3).
     out = np.stack(_idct_1d([ws[:, :, c] for c in range(8)], 13 + 2 + 3), axis=2)
     # libjpeg-turbo's SIMD IDCT saturates (its range-limit table agrees within +-512).
     pixels = np.clip(out + 128, 0, 255).astype(np.uint8)
-    return pixels.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
+    return pixels.reshape(n, bh, bw, 8, 8).transpose(0, 1, 3, 2, 4).reshape(n, bh * 8, bw * 8)
 
 
 def _edges(p: np.ndarray, axis: int):
@@ -140,6 +141,7 @@ def _edges(p: np.ndarray, axis: int):
 
 
 def _interleave(even: np.ndarray, odd: np.ndarray, axis: int) -> np.ndarray:
+    axis %= even.ndim
     out = np.stack([even, odd], axis=axis + 1)
     shape = list(even.shape)
     shape[axis] *= 2
@@ -147,23 +149,24 @@ def _interleave(even: np.ndarray, odd: np.ndarray, axis: int) -> np.ndarray:
 
 
 def _upsample(p: np.ndarray, h_expand: int, v_expand: int) -> np.ndarray:
-    """libjpeg-turbo's upsampler (jdsample.c) on one component's real samples."""
+    """libjpeg-turbo's upsampler (jdsample.c) on one component's real samples ``[..., rows, cols]``: each
+    frame's edges are its own (a TIFF's strips and tiles are separate frames)."""
     p = p.astype(np.int32)
-    width = p.shape[1]
+    width = p.shape[-1]
     if (h_expand, v_expand) == (2, 1) and width > 2:          # h2v1_fancy_upsample
-        left, right = _edges(p, 1)
-        return _interleave((3 * p + left + 1) >> 2, (3 * p + right + 2) >> 2, 1)
+        left, right = _edges(p, -1)
+        return _interleave((3 * p + left + 1) >> 2, (3 * p + right + 2) >> 2, -1)
     if (h_expand, v_expand) == (1, 2):                         # h1v2_fancy_upsample
-        above, below = _edges(p, 0)
-        return _interleave((3 * p + above + 1) >> 2, (3 * p + below + 2) >> 2, 0)
+        above, below = _edges(p, -2)
+        return _interleave((3 * p + above + 1) >> 2, (3 * p + below + 2) >> 2, -2)
     if (h_expand, v_expand) == (2, 2) and width > 2:          # h2v2_fancy_upsample
-        above, below = _edges(p, 0)
+        above, below = _edges(p, -2)
         rows = []
         for colsum in (3 * p + above, 3 * p + below):
-            left, right = _edges(colsum, 1)
-            rows.append(_interleave((3 * colsum + left + 8) >> 4, (3 * colsum + right + 7) >> 4, 1))
-        return _interleave(rows[0], rows[1], 0)
-    return np.repeat(np.repeat(p, v_expand, axis=0), h_expand, axis=1)  # h2v1 / h2v2 / int_upsample
+            left, right = _edges(colsum, -1)
+            rows.append(_interleave((3 * colsum + left + 8) >> 4, (3 * colsum + right + 7) >> 4, -1))
+        return _interleave(rows[0], rows[1], -2)
+    return np.repeat(np.repeat(p, v_expand, axis=-2), h_expand, axis=-1)  # h2v1 / h2v2 / int_upsample
 
 
 def _color_tables():
@@ -178,35 +181,68 @@ def _color_tables():
 _CR_R, _CB_B, _CR_G, _CB_G = _color_tables()
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """Decode JPEG bytes to uint8 ``HxW`` (one component) or ``HxWx3`` (BGR)."""
-    info, blocks = _coefficients(bytes(data))
-    width, height, n = info.width, info.height, info.num_components
-    hmax, vmax = max(info.h[:n]), max(info.v[:n])
-    planes = []
-    for c in range(n):
-        h, v = info.h[c], info.v[c]
-        real_w, real_h = -(-width * h // hmax), -(-height * v // vmax)  # libjpeg's downsampled size
-        samples = _samples(blocks[c], info.quant[c])[:real_h, :real_w]
-        planes.append(_upsample(samples, hmax // h, vmax // v)[:height, :width].astype(np.int64))
-    if n == 1:
-        return planes[0].astype(np.uint8)
-    # libjpeg's guess of the colour space (jdapimin.c): JFIF means YCbCr, else
-    # an Adobe marker's transform flag, else component ids 'R', 'G', 'B'.
+def _guessed_rgb(info) -> bool:
+    """libjpeg's guess of a 3-component file's colour space (jdapimin.c): JFIF
+    means YCbCr, else an Adobe marker's transform flag, else component ids
+    'R', 'G', 'B'. True where the components are R, G, B."""
     if info.jfif:
-        rgb = False
-    elif info.adobe_transform >= 0:
-        rgb = info.adobe_transform == 0
-    else:
-        rgb = tuple(info.component_id[:3]) == (82, 71, 66)
-    if rgb:
-        r, g, b = planes
-    else:
-        y, cb, cr = planes
-        r = y + _CR_R[cr]
-        g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
-        b = y + _CB_B[cb]
-    return np.clip(np.stack([b, g, r], axis=-1), 0, 255).astype(np.uint8)
+        return False
+    if info.adobe_transform >= 0:
+        return info.adobe_transform == 0
+    return tuple(info.component_id[:3]) == (82, 71, 66)
+
+
+def decode_jpeg_frames(frames, rgb: bool) -> list:
+    """Finish the decode of several JPEG streams (a TIFF's strips or tiles),
+    each given as :func:`jpeg_coefficients` returns it, to uint8 ``HxW`` /
+    ``HxWx3`` (BGR) arrays. ``rgb`` says what 3-component frames hold, as the
+    caller tells libjpeg (``jpeg_color_space``): True takes the components as
+    R, G, B without a transform (libtiff's ``JCS_UNKNOWN`` for RGB files),
+    False converts YCbCr to RGB. The frames of one geometry go through the
+    inverse DCT, the upsampling and the colour conversion together; each frame
+    keeps its own edges."""
+    groups = {}
+    for k, (info, blocks) in enumerate(frames):
+        n = info.num_components
+        key = (info.width, info.height, n, tuple(info.h[:n]), tuple(info.v[:n]),
+               tuple(b.shape for b in blocks))
+        groups.setdefault(key, []).append(k)
+    out = [None] * len(frames)
+    for (width, height, n, hs, vs, _), members in groups.items():
+        hmax, vmax = max(hs), max(vs)
+        planes = []
+        for c in range(n):
+            h, v = hs[c], vs[c]
+            real_w, real_h = -(-width * h // hmax), -(-height * v // vmax)  # libjpeg's downsampled size
+            blocks = np.stack([frames[k][1][c] for k in members])
+            quant = np.array([np.ctypeslib.as_array(frames[k][0].quant[c]) for k in members])
+            samples = _samples(blocks, quant)[:, :real_h, :real_w]
+            planes.append(_upsample(samples, hmax // h, vmax // v)[:, :height, :width].astype(np.int64))
+        if n == 1:
+            for i, k in enumerate(members):
+                out[k] = planes[0][i].astype(np.uint8)
+            continue
+        if rgb:
+            r, g, b = planes
+        else:
+            y, cb, cr = planes
+            r = y + _CR_R[cr]
+            g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
+            b = y + _CB_B[cb]
+        bgr = np.empty(b.shape + (3,), np.uint8)
+        for i, v in enumerate((b, g, r)):
+            bgr[..., i] = np.clip(v, 0, 255)
+        for i, k in enumerate(members):
+            out[k] = bgr[i]
+    return out
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """Decode JPEG bytes to uint8 ``HxW`` (one component) or ``HxWx3`` (BGR),
+    with the colour space guessed as libjpeg guesses it from the file's
+    markers (JFIF, Adobe, component ids)."""
+    frame = jpeg_coefficients(bytes(data))
+    return decode_jpeg_frames([frame], _guessed_rgb(frame[0]))[0]
 
 
 # --------------------------------------------------------------------------- encoding

@@ -28,7 +28,7 @@ from super_resolution_tpu_torch.solvers.objective import make_map_value_and_grad
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "super_resolution_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
-FORBIDDEN = ("jax", "super_resolution_tpu", "cv2", "PIL")
+FORBIDDEN = ("jax", "super_resolution_tpu", "cv2", "PIL", "osgeo")  # osgeo: GDAL's bindings
 
 
 @pytest.fixture(autouse=True)
@@ -72,6 +72,7 @@ def test_no_forbidden_import_in_source(path):
             names = [node.module or ""]
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+    assert "libgdal" not in path.read_text(), f"{path}: loads GDAL (the tests' TIFF writer, not the port's)"
 
 
 def test_port_uses_no_library_kernel_for_warp_or_blur():

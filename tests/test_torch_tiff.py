@@ -6,8 +6,10 @@ int16 / float32 / float64, the three predictors, min-is-white, extra
 samples, orientations); ``read_image`` is array-equal to ``cv2.imread(...,
 IMREAD_UNCHANGED)``, the port's ``load_image`` to the JAX one. Writing: the
 JAX loader reads the port's file back equal to the image, and the bytes are
-OpenCV's. What OpenCV decodes only through libtiff's RGBA conversions
-raises ``NotImplementedError`` naming it; corrupt data ``ValueError``. And
+OpenCV's. The layouts the port still refuses (CMYK, CIE L*a*b*, CCITT,
+old-style JPEG, 16-bit planar, five samples) raise ``NotImplementedError``
+naming them (``tests/test_torch_tiff_rgba.py`` holds JPEG, YCbCr, palette
+and bilevel files); corrupt data ``ValueError``. And
 ``super_resolve`` from a TIFF to a JPEG, against the JAX CLI's file."""
 
 import contextlib
@@ -108,9 +110,12 @@ def test_read_hand_built_layouts(tmp_path, name):
 
 @pytest.mark.parametrize("orientation", range(1, 9))
 def test_orientation(orientation):
-    for dtype, spp in (("u1", 3), ("u2", 1)):
-        shape = (9, 14, spp) if spp > 1 else (9, 14)
-        _same_as_opencv(tiff_bytes(_samples(shape, dtype, orientation), extra_tags=[(274, 3, [orientation])]))
+    """Strips, and tiles: the RGBA interface (8-bit) mirrors each tile in place."""
+    for dtype, spp, layout in (("u1", 3, {}), ("u2", 1, {}), ("u1", 3, dict(tile=(16, 16), compression=8)),
+                               ("u2", 1, dict(tile=(16, 16), compression=8))):
+        shape = (19, 37, spp) if layout else (9, 14, spp)
+        samples = _samples(shape if spp > 1 else shape[:2], dtype, orientation)
+        _same_as_opencv(tiff_bytes(samples, extra_tags=[(274, 3, [orientation])], **layout))
 
 
 def test_lzw_table_resets_and_long_strips():
@@ -155,12 +160,10 @@ def test_uint16_above_255_raises_as_the_jax_loader(tmp_path):
 
 
 REFUSED = {
-    "palette": (dict(photometric=3), "palette"),
-    "ycbcr": (dict(photometric=6), "YCbCr"),
     "cmyk": (dict(photometric=5), "CMYK"),
-    "jpeg": (dict(declared_compression=7), "JPEG-compressed"),
+    "lab": (dict(photometric=8), "L\\*a\\*b\\*"),
     "ccitt": (dict(declared_compression=4), "CCITT"),
-    "bilevel": (dict(bits=1), "Bilevel"),
+    "old_style_jpeg": (dict(declared_compression=6), "old-style JPEG"),
     "planar_16bit": (dict(planar=True), "Planar"),
     "five_samples": (dict(), "5 samples"),
 }

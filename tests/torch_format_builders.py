@@ -3,7 +3,9 @@
 OpenCV writes a few TIFF layouts only (chunky strips, little-endian) and
 GIF files through its own quantiser; these builders write the layouts it
 does not -- tiles, planar samples, big-endian and BigTIFF files, the
-floating-point predictor, min-is-white grey, extra samples, interlaced and
+floating-point predictor, min-is-white grey, extra samples, YCbCr data
+units, palette and sub-byte samples, JPEG streams (from a caller's encoder)
+as strips or tiles with or without shared JPEGTables, interlaced and
 transparent GIF frames on a larger screen -- with numpy and ``zlib`` only,
 and an LZW encoder of their own (so that the port's is not its own oracle).
 OpenCV then reads each file as the reference.
@@ -156,19 +158,26 @@ def tiff_bytes(samples, *, byte_order="<", photometric=None, compression=1, pred
     applied = predictor if compression in (5, 8, 32946) else 1  # libtiff ignores it under the other codecs
     data = [_compress(_predict(np.ascontiguousarray(c), applied, c.shape[2], byte_order), compression)
             for c in chunks]
-    tags = [(256, 4, [w]), (257, 4, [h]), (258, 3, [bits or a.dtype.itemsize * 8] * spp),
-            (259, 3, [declared_compression or compression]),
+    tags = [(258, 3, [bits or a.dtype.itemsize * 8] * spp), (259, 3, [declared_compression or compression]),
             (262, 3, [photometric]), (277, 3, [spp]), (284, 3, [2 if planar else 1]), (339, 3, [sample_format] * spp)]
     if predictor != 1:
         tags.append((317, 3, [predictor]))
     if extra_samples is not None:
         tags.append((338, 3, list(extra_samples)))
+    return tiff_file(w, h, data, tags + list(extra_tags), tile=tile, rows_per_strip=rows_per_strip,
+                     byte_order=byte_order, bigtiff=bigtiff)
+
+
+def tiff_file(width, height, chunks, tags, *, tile=None, rows_per_strip=None, byte_order="<", bigtiff=False) -> bytes:
+    """A one-page TIFF around ``chunks``, the strips' or tiles' bytes as they are stored (already compressed),
+    with ``tags`` -- (tag, type, values) -- besides the size and the strip / tile layout, which this adds."""
+    data = list(chunks)
+    tags = [(256, 4, [width]), (257, 4, [height])] + list(tags)
     offsets_type = 16 if bigtiff else 4
     if tile:
         tags += [(322, 3, [tile[0]]), (323, 3, [tile[1]]), (324, offsets_type, None), (325, 4, [len(d) for d in data])]
     else:
-        tags += [(273, offsets_type, None), (278, 4, [rows_per_strip or h]), (279, 4, [len(d) for d in data])]
-    tags += list(extra_tags)
+        tags += [(273, offsets_type, None), (278, 4, [rows_per_strip or height]), (279, 4, [len(d) for d in data])]
     tags.sort(key=lambda t: t[0])
     bo = byte_order
     header_size = 16 if bigtiff else 8
@@ -179,7 +188,7 @@ def tiff_bytes(samples, *, byte_order="<", photometric=None, compression=1, pred
         body += d
         if len(body) % 2:
             body += b"\0"
-    fmt = {1: "B", 2: "B", 3: "H", 4: "I", 16: "Q"}
+    fmt = {1: "B", 2: "B", 3: "H", 4: "I", 5: "II", 7: "B", 16: "Q"}
     entry_size, count_fmt, inline = (20, "Q", 8) if bigtiff else (12, "I", 4)
     ifd_offset = header_size + len(body)
     n = len(tags)
@@ -189,7 +198,7 @@ def tiff_bytes(samples, *, byte_order="<", photometric=None, compression=1, pred
     for tag, typ, values in tags:
         if values is None:
             values = offsets
-        payload = b"".join(struct.pack(bo + fmt[typ], v) for v in values)
+        payload = b"".join(struct.pack(bo + fmt[typ], *(v if typ == 5 else (v,))) for v in values)
         if len(payload) <= inline:
             field = payload + b"\0" * (inline - len(payload))
         else:
@@ -207,6 +216,119 @@ def tiff_bytes(samples, *, byte_order="<", photometric=None, compression=1, pred
         head = magic + struct.pack(bo + "HI", 42, ifd_offset)
         ifd = struct.pack(bo + "H", n) + entries + struct.pack(bo + "I", 0)
     return head + bytes(body) + ifd + bytes(extra)
+
+
+def _chunk_parts(image: np.ndarray, tile=None, rows_per_strip=None):
+    """The image cut as a TIFF stores it: full tiles (zeros past the edges) or strips."""
+    h, w = image.shape[:2]
+    if tile:
+        tw, tl = tile
+        padded = np.zeros((-(-h // tl) * tl, -(-w // tw) * tw) + image.shape[2:], image.dtype)
+        padded[:h, :w] = image
+        return [padded[y:y + tl, x:x + tw] for y in range(0, h, tl) for x in range(0, w, tw)]
+    rps = rows_per_strip or h
+    return [image[y:y + rps] for y in range(0, h, rps)]
+
+
+def _jpeg_segments(stream: bytes):
+    """(marker, bytes) of each segment of a JPEG stream up to its scan (the scan and the rest as one)."""
+    out, pos = [], 2
+    while pos < len(stream):
+        marker = stream[pos + 1]
+        if marker == 0xDA:
+            out.append((marker, stream[pos:]))
+            break
+        (n,) = struct.unpack(">H", stream[pos + 2:pos + 4])
+        out.append((marker, stream[pos:pos + 2 + n]))
+        pos += 2 + n
+    return out
+
+
+def jpeg_tiff_bytes(samples, encode, *, subsampling=(2, 2), photometric=None, tile=None, rows_per_strip=None,
+                    shared_tables=False, subsampling_tag=True, extra_tags=()) -> bytes:
+    """A JPEG-compressed TIFF (compression 7) whose strips or tiles are the
+    JPEG streams ``encode(part)`` returns for each part of ``samples``
+    ([H, W] grey or [H, W, 3] in the file's channel order). ``subsampling``:
+    what the streams hold, written as YCbCrSubsampling (530) for photometric
+    6 unless ``subsampling_tag`` is False. ``shared_tables``: the first
+    stream's DQT / DHT segments moved into JPEGTables (347) and every
+    stream's tables (and APP0) dropped, as libtiff writes."""
+    a = np.asarray(samples)
+    spp = 1 if a.ndim == 2 else a.shape[2]
+    if photometric is None:
+        photometric = 1 if spp == 1 else 6
+    chunks = [encode(np.ascontiguousarray(part)) for part in _chunk_parts(a, tile, rows_per_strip)]
+    tags = [(258, 3, [8] * spp), (259, 3, [7]), (262, 3, [photometric]), (277, 3, [spp]), (284, 3, [1])]
+    if shared_tables:
+        tables = b"".join(seg for m, seg in _jpeg_segments(chunks[0]) if m in (0xDB, 0xC4))
+        tags.append((347, 7, list(b"\xff\xd8" + tables + b"\xff\xd9")))
+        chunks = [b"\xff\xd8" + b"".join(seg for m, seg in _jpeg_segments(c) if m not in (0xDB, 0xC4, 0xE0))
+                  for c in chunks]
+    if photometric == 6 and subsampling_tag:
+        tags.append((530, 3, list(subsampling)))
+    return tiff_file(a.shape[1], a.shape[0], chunks, tags + list(extra_tags), tile=tile,
+                     rows_per_strip=rows_per_strip)
+
+
+def ycbcr_units(ycc: np.ndarray, h: int, v: int) -> bytes:
+    """[rows, cols, 3] Y, Cb, Cr -> TIFF's YCbCr data units: ``h x v`` Y
+    samples then one Cb and one Cr (the unit's top-left pixel's), units
+    padded with zeros past the edges."""
+    rows, cols = ycc.shape[:2]
+    uy, ux = -(-rows // v), -(-cols // h)
+    padded = np.zeros((uy * v, ux * h, 3), np.uint8)
+    padded[:rows, :cols] = ycc
+    luma = padded[..., 0].reshape(uy, v, ux, h).transpose(0, 2, 1, 3).reshape(uy, ux, v * h)
+    return np.concatenate([luma, padded[::v, ::h, 1:]], axis=-1).tobytes()
+
+
+def ycbcr_tiff_bytes(ycc, *, subsampling=(2, 2), compression=1, tile=None, rows_per_strip=None, planar=False,
+                     subsampling_tag=True, extra_tags=()) -> bytes:
+    """An 8-bit YCbCr TIFF (photometric 6, not JPEG) of ``ycc`` ([H, W, 3])
+    in data units (chunky) or as three planes (``planar``, 1x1 only)."""
+    h, v = subsampling
+    parts = _chunk_parts(np.asarray(ycc, np.uint8), tile, rows_per_strip)
+    if planar:
+        raw = [np.ascontiguousarray(p[..., c]).tobytes() for c in range(3) for p in parts]
+    else:
+        raw = [ycbcr_units(p, h, v) for p in parts]
+    tags = [(258, 3, [8] * 3), (259, 3, [compression]), (262, 3, [6]), (277, 3, [3]), (284, 3, [2 if planar else 1])]
+    if subsampling_tag:
+        tags.append((530, 3, [h, v]))
+    return tiff_file(ycc.shape[1], ycc.shape[0], [_compress(r, compression) for r in raw], tags + list(extra_tags),
+                     tile=tile, rows_per_strip=rows_per_strip)
+
+
+def pack_bits(values: np.ndarray, bits: int) -> bytes:
+    """[rows, cols] samples of ``bits`` (1, 2, 4) -> rows packed most significant first, padded to a byte."""
+    rows, cols = values.shape
+    per = 8 // bits
+    stride = -(-cols // per)
+    padded = np.zeros((rows, stride * per), np.uint8)
+    padded[:, :cols] = values
+    out = np.zeros((rows, stride), np.uint8)
+    for k in range(per):
+        out |= (padded[:, k::per] << (8 - bits * (k + 1))).astype(np.uint8)
+    return out.tobytes()
+
+
+def packed_tiff_bytes(values, bits, *, photometric=1, colormap=None, compression=1, tile=None, rows_per_strip=None,
+                      samples_per_pixel=1, sample_format=None, extra_tags=()) -> bytes:
+    """A one-sample TIFF of ``values`` ([H, W], each below ``2**bits``) at
+    1, 2, 4 or 8 bits: grey (photometric 0 / 1) or palette (3, with
+    ``colormap`` [3, 2**bits] written as ColorMap)."""
+    a = np.asarray(values, np.uint8)
+    parts = _chunk_parts(a, tile, rows_per_strip)
+    raw = [pack_bits(p, bits) if bits < 8 else np.ascontiguousarray(p).tobytes() for p in parts]
+    spp = samples_per_pixel
+    tags = [(258, 3, [bits] * spp), (259, 3, [compression]), (262, 3, [photometric]), (277, 3, [spp]),
+            (284, 3, [1])]
+    if colormap is not None:
+        tags.append((320, 3, [int(x) for x in np.asarray(colormap).reshape(-1)]))
+    if sample_format is not None:
+        tags.append((339, 3, [sample_format] * spp))
+    return tiff_file(a.shape[1], a.shape[0], [_compress(r, compression) for r in raw], tags + list(extra_tags),
+                     tile=tile, rows_per_strip=rows_per_strip)
 
 
 # --------------------------------------------------------------------------- GIF
